@@ -1,0 +1,18 @@
+"""anet_torch: the modem data plane of ``anet`` in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (``sm_90a``).
+
+The JAX package ``anet`` is the reference; this package imports nothing of
+it (it keeps its own copies of the jax-free modules it needs) and mirrors its
+module paths and function names, so ``anet.dsp.frame.demodulate_frame_tm``
+is ``anet_torch.dsp.frame.demodulate_frame_tm`` here.
+
+Covered so far: MFSK transmit, the aligned time-major receiver and the
+uncoded fixed-length streaming receiver (always-search and frame-lock).
+Every public entry point takes ``device=`` and defaults to ``"cuda"``; it
+raises when CUDA is absent unless the caller passes ``device="cpu"``. On
+the CPU each kernel wrapper runs its plain PyTorch version.
+"""
+
+from anet_torch._device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,450 @@
+"""Hand-written CUDA kernels of the receiver's main path, with their plain
+PyTorch versions (mirrors the four ``anet.kernels`` Pallas kernels the
+aligned and locked streaming receivers run).
+
+| wrapper             | kernel source             | TPU kernel it replaces        |
+|---------------------|---------------------------|-------------------------------|
+| decide_frame_tm     | csrc/decide_frame_tm.cu   | anet/kernels/__init__.py:488  |
+| sync_search_fused   | csrc/sync_search.cu       | anet/kernels/__init__.py:1095 |
+| demod_at_fused      | csrc/demod_at.cu          | anet/kernels/__init__.py:1992 |
+| demod_probe_fused   | csrc/demod_probe.cu       | anet/kernels/__init__.py:2307 |
+
+Each wrapper runs its plain version (``*_ref``) when its tensors lie on the
+CPU, and launches its CUDA kernel when they lie on the card: it checks
+device, dtype (float32 or bfloat16), shape and contiguity, allocates the
+outputs, launches on ``torch.cuda.current_stream()``, raises if the launch
+reported an error, and adds one to ``launch_counts[name]``. There is no
+fallback from the kernel to the plain version.
+
+The plain versions widen every operand to float32 before a product, as the
+reference kernels accumulate in float32. On the card, a float32 product
+there must run with ``torch.backends.cuda.matmul.allow_tf32 = False`` (the
+PyTorch default), or it rounds its operands to TF32.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from anet_torch.dsp.demod import demod_basis
+from anet_torch.dsp.params import ModemConfig
+
+__all__ = [
+    "TM_SYMBOL_TILE",
+    "launch_counts",
+    "reset_launch_counts",
+    "decide_frame_tm",
+    "decide_frame_tm_ref",
+    "sync_search_fused",
+    "sync_search_fused_ref",
+    "demod_at_fused",
+    "demod_at_fused_ref",
+    "demod_probe_fused",
+    "demod_probe_fused_ref",
+    "demod_at_buffer_pad",
+]
+
+TM_SYMBOL_TILE = 8  # Gray-decoded symbols packed per int32 word
+_ROW = 128  # samples per row of the probe's row-aligned energy span
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_SPS = (32, 64, 128)
+
+# Launches of each kernel since the last reset_launch_counts(): the proof
+# that a run went through the kernels. Only the CUDA branch of a wrapper
+# counts; the plain versions never do.
+launch_counts = {
+    "decide_frame_tm": 0,
+    "sync_search_fused": 0,
+    "demod_at_fused": 0,
+    "demod_probe_fused": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    launch_counts[name] += 1
+
+
+def _check_cuda_input(name: str, t: torch.Tensor, what: str) -> int:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: {what} must be float32 or bfloat16, got {t.dtype}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: {what} must be contiguous in its last dimension")
+    return _KERNEL_DTYPES[t.dtype]
+
+
+def _stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _entry(name: str):
+    from anet_torch.kernels.build import entry
+
+    return entry(name)
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[sps, 32] float32 basis for the kernels: cos of the num_tones tones in
+    columns 0..15 and sin in 16..31, zero columns for tones past num_tones;
+    entries rounded to ``dtype`` first, as the reference casts its basis to
+    the input dtype."""
+    m = config.num_tones
+    basis = demod_basis(config, dtype=dtype, device=device).float()  # [sps, 2M]
+    out = torch.zeros(config.samples_per_symbol, 32, dtype=torch.float32, device=device)
+    out[:, :m] = basis[:, :m]
+    out[:, 16 : 16 + m] = basis[:, m:]
+    return out
+
+
+def _check_kernel_geometry(name: str, config: ModemConfig) -> None:
+    if config.num_tones > 16:
+        raise ValueError(f"{name}: the kernel takes at most 16 tones")
+    if config.samples_per_symbol not in _KERNEL_SPS:
+        raise ValueError(f"{name}: the kernel takes samples_per_symbol in {_KERNEL_SPS}")
+
+
+def _decisions(config: ModemConfig, iq: torch.Tensor, dim: int):
+    """(tone, best, total) from I/Q [..., 2M, ...] along ``dim``."""
+    m = config.num_tones
+    i, q = iq.narrow(dim, 0, m), iq.narrow(dim, m, m)
+    e = i * i + q * q
+    return torch.argmax(e, dim=dim).to(torch.int32), e.amax(dim), e.sum(dim)
+
+
+# --- decide_frame_tm: the aligned receiver's full fusion ---------------------
+
+
+def _frame_crc_rows(payload_len: int, n_rows: int) -> tuple[np.ndarray, int, int]:
+    """P [n_rows, 64] in message-bit row order (row r = bit r of the data
+    section, MSB-first), with the xor consts: columns 0..31 hold the header
+    checksum's rows (crc32 over section bytes 0..5), columns 32..63 the
+    payload checksum's (bytes 8..8+payload_len); zero elsewhere."""
+    from anet_torch.dsp.fec import _crc32_bit_table
+    from anet_torch.dsp.frame import HEADER_BYTES
+
+    p = np.zeros((n_rows, 64), np.float32)
+    p_hdr, c_hdr = _crc32_bit_table(6)
+    p[: 6 * 8, :32] = p_hdr
+    p_pay, c_pay = _crc32_bit_table(payload_len)
+    lo = HEADER_BYTES * 8
+    p[lo : lo + payload_len * 8, 32:] = p_pay
+    return p, int(c_hdr), int(c_pay)
+
+
+@functools.lru_cache(maxsize=32)
+def _frame_crc_tables(payload_len: int, n_tiles: int, nb: int):
+    """(P [n_tiles * nb, 64] f32, hdr_const, pay_const), rows in the
+    reference kernel's bit-major tile order: within tile i, row k * sb + s
+    is message bit (i*sb + s) * bps + k. Identical to
+    anet.kernels._frame_crc_tables; the kernel here uses the bit-order
+    table (_frame_crc_rows), which gives the same counts."""
+    p, c_hdr, c_pay = _frame_crc_rows(payload_len, n_tiles * nb)
+    sb = TM_SYMBOL_TILE
+    bps = nb // sb
+    idx = np.arange(n_tiles * nb)
+    tile, within = idx // nb, idx % nb
+    k, s = within // sb, within % sb
+    return p[tile * nb + s * bps + k], c_hdr, c_pay
+
+
+@functools.lru_cache(maxsize=16)
+def _crc_rows_tensor(payload_len: int, n_rows: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_frame_crc_rows(payload_len, n_rows)[0], device=device)
+
+
+def _frame_geometry(config: ModemConfig, t: int, payload_len: int, preamble_offset: int):
+    from anet_torch.dsp.frame import data_symbols_for_payload
+
+    bps = config.bits_per_symbol
+    if bps not in (1, 2, 4):
+        raise ValueError("decide_frame_tm needs bits_per_symbol in {1, 2, 4}")
+    s = data_symbols_for_payload(config, payload_len)
+    if t - preamble_offset < s * config.samples_per_symbol:
+        raise ValueError(
+            f"data_tm too short: {t} - {preamble_offset} < {s} symbols x "
+            f"{config.samples_per_symbol}"
+        )
+    n_tiles = -(-s // TM_SYMBOL_TILE)
+    return s, n_tiles, TM_SYMBOL_TILE * bps
+
+
+def decide_frame_tm_ref(
+    config: ModemConfig, data_tm: torch.Tensor, payload_len: int, *, preamble_offset: int = 0
+):
+    """Plain version of decide_frame_tm (same arguments and outputs)."""
+    sps = config.samples_per_symbol
+    bps = config.bits_per_symbol
+    t, b = data_tm.shape
+    s, n_tiles, nb = _frame_geometry(config, t, payload_len, preamble_offset)
+    dev = data_tm.device
+    w = data_tm[preamble_offset : preamble_offset + s * sps].float().reshape(s, sps, b)
+    basis_t = demod_basis(config, dtype=data_tm.dtype, device=dev).float().T  # [2M, sps]
+    tone, best, total = _decisions(config, torch.einsum("mk,skb->smb", basis_t, w), 1)
+    data = tone
+    shift = 1
+    while shift < bps:
+        data = data ^ (data >> shift)
+        shift <<= 1
+    s_pad = n_tiles * TM_SYMBOL_TILE - s
+    data = torch.nn.functional.pad(data, (0, 0, 0, s_pad)).to(torch.int64)  # [Sp, B]
+    place = (TM_SYMBOL_TILE - 1 - torch.arange(TM_SYMBOL_TILE, device=dev)) * bps
+    words = (data.reshape(n_tiles, TM_SYMBOL_TILE, b) << place[None, :, None]).sum(1)
+    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    k_shift = torch.arange(bps - 1, -1, -1, device=dev)
+    bits = ((data[:, None, :] >> k_shift[None, :, None]) & 1).reshape(n_tiles * nb, b)
+    p = _crc_rows_tensor(payload_len, n_tiles * nb, dev).double()
+    crc = (p.T @ bits.double()).float()  # exact integer counts
+    qual = torch.zeros(8, b, dtype=torch.float32, device=dev)
+    qual[0] = (best / total.clamp_min(1e-20)).sum(0)
+    qual[1] = best.sum(0)
+    qual[2] = total.sum(0)
+    return words, crc, qual, s
+
+
+def decide_frame_tm(
+    config: ModemConfig, data_tm: torch.Tensor, payload_len: int, *, preamble_offset: int = 0
+):
+    """Time-major fused symbol decision with the frame parse folded in.
+
+    ``data_tm`` is [T, B] (float32 or bfloat16) whose data section starts at
+    row ``preamble_offset``: pass whole frames with the preamble length and
+    no copy of the data section is made. Returns (words int32 [n_tiles, B]:
+    TM_SYMBOL_TILE Gray-decoded symbols per word, MSB-first, the last word
+    zero-padded; crc_counts f32 [64, B]: header CRC bit counts in rows
+    0..31, payload in 32..63, parity taken by the caller; qual f32 [8, B]:
+    sums of conf/best/total in rows 0..2; n_symbols).
+    Needs bits_per_symbol in {1, 2, 4} and at most 16 tones."""
+    if data_tm.device.type == "cpu":
+        return decide_frame_tm_ref(config, data_tm, payload_len, preamble_offset=preamble_offset)
+    name = "decide_frame_tm"
+    dtype = _check_cuda_input(name, data_tm, "data_tm")
+    if data_tm.dim() != 2 or not data_tm.is_contiguous():
+        raise ValueError(f"{name}: data_tm must be a contiguous [T, B] tensor")
+    _check_kernel_geometry(name, config)
+    t, b = data_tm.shape
+    s, n_tiles, nb = _frame_geometry(config, t, payload_len, preamble_offset)
+    dev = data_tm.device
+    words = torch.empty(n_tiles, b, dtype=torch.int32, device=dev)
+    crc = torch.zeros(64, b, dtype=torch.float32, device=dev)
+    qual = torch.zeros(8, b, dtype=torch.float32, device=dev)
+    basis = _kernel_basis(config, data_tm.dtype, dev)
+    ptab = _crc_rows_tensor(payload_len, n_tiles * nb, dev)
+    hdr_bits, pay_lo = 6 * 8, 8 * 8
+    err = _entry(name)(
+        data_tm.data_ptr(), dtype, b, preamble_offset, config.samples_per_symbol, s, n_tiles,
+        config.bits_per_symbol, basis.data_ptr(), ptab.data_ptr(), hdr_bits, pay_lo,
+        pay_lo + 8 * payload_len, words.data_ptr(), crc.data_ptr(), qual.data_ptr(),
+        _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return words, crc, qual, s
+
+
+# --- sync_search_fused: acquisition ------------------------------------------
+
+
+def sync_search_fused_ref(seg: torch.Tensor, template: torch.Tensor, out_len: int, template_energy):
+    """Plain version of sync_search_fused: the correlation at every lag,
+    blockwise quality, then max and first argmax."""
+    from anet_torch.dsp.sync import blockwise_match_quality, correlate_template
+
+    k = template.shape[-1]
+    seg_f = seg.float()
+    corr = correlate_template(seg_f, template.float(), method="matmul")[..., :out_len]
+    q = blockwise_match_quality(seg_f, corr, k, template_energy)
+    return q.amax(-1), torch.argmax(q, dim=-1).to(torch.int32)
+
+
+def sync_search_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int, template_energy):
+    """Best blockwise preamble match quality and its first lag, per stream.
+
+    Equivalent to (but never materializing)::
+
+        corr = correlate_template(seg, template)[..., :out_len]
+        q = blockwise_match_quality(seg, corr, k, template_energy)
+        return q.max(-1), q.argmax(-1)
+
+    ``seg`` is [B, >= out_len + k - 1]; rows may be strided (a view into the
+    stream buffer) as long as the last dimension is contiguous. Returns
+    (best_q f32 [B], best_idx i32 [B])."""
+    if seg.device.type == "cpu":
+        return sync_search_fused_ref(seg, template, out_len, template_energy)
+    name = "sync_search_fused"
+    dtype = _check_cuda_input(name, seg, "seg")
+    k = template.shape[-1]
+    if seg.dim() != 2 or seg.shape[-1] < out_len + k - 1:
+        raise ValueError(f"{name}: seg must be [B, >= out_len + k - 1]")
+    b = seg.shape[0]
+    dev = seg.device
+    tpl = template.to(device=dev, dtype=torch.float32).contiguous()
+    n_tiles = -(-out_len // 2048)
+    part_q = torch.empty(b, n_tiles, dtype=torch.float32, device=dev)
+    part_i = torch.empty(b, n_tiles, dtype=torch.int32, device=dev)
+    best_q = torch.empty(b, dtype=torch.float32, device=dev)
+    best_i = torch.empty(b, dtype=torch.int32, device=dev)
+    err = _entry("sync_search")(
+        seg.data_ptr(), dtype, b, seg.stride(0), seg.shape[-1], tpl.data_ptr(), k, out_len,
+        float(template_energy), part_q.data_ptr(), part_i.data_ptr(), best_q.data_ptr(),
+        best_i.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return best_q, best_i
+
+
+# --- demod_at_fused: align + demod at dynamic starts -------------------------
+
+
+def demod_at_fused_ref(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
+    """Plain version of demod_at_fused."""
+    from anet_torch.dsp.sync import gather_span
+
+    sps = config.samples_per_symbol
+    pre = config.preamble_symbols * sps
+    x = gather_span(buffer, start.to(torch.int64) + pre, n_symbols * sps).float()
+    basis = demod_basis(config, dtype=buffer.dtype, device=buffer.device).float()
+    iq = x.reshape(*x.shape[:-1], n_symbols, sps) @ basis  # [B, S, 2M]
+    return _decisions(config, iq, -1)
+
+
+def demod_at_fused(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
+    """Timing-align + MFSK symbol decisions straight from the stream buffer:
+    (tone i32, best f32, total f32), each [B, n_symbols], for the frames
+    whose PREAMBLE starts at ``start[b]`` (data ``preamble_samples``
+    later). Samples past the buffer's end read as zero."""
+    if buffer.device.type == "cpu":
+        return demod_at_fused_ref(config, buffer, start, n_symbols)
+    name = "demod_at_fused"
+    dtype = _check_cuda_input(name, buffer, "buffer")
+    if buffer.dim() != 2 or not buffer.is_contiguous():
+        raise ValueError(f"{name}: buffer must be a contiguous [B, L] tensor")
+    _check_kernel_geometry(name, config)
+    b, length = buffer.shape
+    st = start.to(device=buffer.device, dtype=torch.int32).contiguous()
+    if st.shape != (b,):
+        raise ValueError(f"{name}: start must be [B] = [{b}], got {tuple(st.shape)}")
+    dev = buffer.device
+    tone = torch.empty(b, n_symbols, dtype=torch.int32, device=dev)
+    best = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
+    total = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
+    basis = _kernel_basis(config, buffer.dtype, dev)
+    err = _entry("demod_at")(
+        buffer.data_ptr(), dtype, b, length, st.data_ptr(), config.preamble_samples,
+        config.samples_per_symbol, n_symbols, basis.data_ptr(), tone.data_ptr(),
+        best.data_ptr(), total.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return tone, best, total
+
+
+# --- demod_probe_fused: the locked step's merged probe + demod ---------------
+
+
+def _probe_span_rows(k: int, n_lags: int) -> int:
+    return -(-(k + n_lags - 1) // _ROW) + 1
+
+
+def demod_probe_fused_ref(
+    config: ModemConfig,
+    buffer: torch.Tensor,
+    st0: torch.Tensor,
+    n_symbols: int,
+    template: torch.Tensor,
+    *,
+    n_lags: int = 5,
+):
+    """Plain version of demod_probe_fused."""
+    from anet_torch.dsp.sync import gather_span
+
+    k = template.shape[-1]
+    st = st0.to(torch.int64)
+    t = template.to(buffer.dtype).float()
+    wins = gather_span(buffer, st, k + n_lags - 1).float()
+    cabs = (wins.unfold(-1, k, 1) @ t).abs()  # [B, n_lags]
+    span = gather_span(buffer, st // _ROW * _ROW, _probe_span_rows(k, n_lags) * _ROW).float()
+    off = torch.argmax(cabs, dim=-1).to(torch.int32)
+    tone, best, total = demod_at_fused_ref(config, buffer, st + off, n_symbols)
+    return cabs.amax(-1), off, (span * span).sum(-1), tone, best, total
+
+
+def demod_probe_fused(
+    config: ModemConfig,
+    buffer: torch.Tensor,
+    st0: torch.Tensor,
+    n_symbols: int,
+    template: torch.Tensor,
+    *,
+    n_lags: int = 5,
+):
+    """Merged frame-lock probe + align+demod.
+
+    Returns (cmax f32 [B], off i32 [B], energy f32 [B], tone, best, total):
+    cmax is the maximum raw |correlation| over lags st0 .. st0 + n_lags - 1,
+    off its first winning lag, energy the row-aligned superset window
+    energy over [128*(st0//128), 128*(st0//128 + ceil((k+n_lags-1)/128) +
+    1)) (normalize outside: q = cmax * rsqrt(te * max(energy, 1e-4 te))),
+    and the demod triple [B, n_symbols] of the frame starting at
+    st0 + off. The template rounds to the buffer's dtype, as the
+    reference's does."""
+    if buffer.device.type == "cpu":
+        return demod_probe_fused_ref(config, buffer, st0, n_symbols, template, n_lags=n_lags)
+    name = "demod_probe_fused"
+    dtype = _check_cuda_input(name, buffer, "buffer")
+    if buffer.dim() != 2 or not buffer.is_contiguous():
+        raise ValueError(f"{name}: buffer must be a contiguous [B, L] tensor")
+    if not 1 <= n_lags <= 8:
+        raise ValueError(f"{name}: n_lags must be in [1, 8]")
+    _check_kernel_geometry(name, config)
+    b, length = buffer.shape
+    dev = buffer.device
+    st = st0.to(device=dev, dtype=torch.int32).contiguous()
+    if st.shape != (b,):
+        raise ValueError(f"{name}: st0 must be [B] = [{b}], got {tuple(st.shape)}")
+    k = template.shape[-1]
+    tpl = template.to(device=dev, dtype=buffer.dtype).float().contiguous()
+    cmax = torch.empty(b, dtype=torch.float32, device=dev)
+    off = torch.empty(b, dtype=torch.int32, device=dev)
+    energy = torch.empty(b, dtype=torch.float32, device=dev)
+    tone = torch.empty(b, n_symbols, dtype=torch.int32, device=dev)
+    best = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
+    total = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
+    basis = _kernel_basis(config, buffer.dtype, dev)
+    err = _entry("demod_probe")(
+        buffer.data_ptr(), dtype, b, length, st.data_ptr(), tpl.data_ptr(), k, n_lags,
+        _probe_span_rows(k, n_lags), config.preamble_samples, config.samples_per_symbol,
+        n_symbols, basis.data_ptr(), cmax.data_ptr(), off.data_ptr(), energy.data_ptr(),
+        tone.data_ptr(), best.data_ptr(), total.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return cmax, off, energy, tone, best, total
+
+
+def demod_at_buffer_pad(
+    config: ModemConfig, n_symbols: int, start_bound: int, live_length: int
+) -> int:
+    """Extra zero samples after a ``live_length``-sample stream buffer: the
+    reference's tail pad for its span DMAs (anet.kernels.demod_at_buffer_pad),
+    kept so both packages size the carry buffer alike and checkpoints move
+    between them. The kernels here read zeros past the end instead."""
+    sps = config.samples_per_symbol
+    r_syms = 128 // sps
+    pre = config.preamble_symbols * sps
+    p = -(-n_symbols // r_syms)
+    pv = -(-p // 8) * 8
+    sv = (-(-(pv + 2) // 8)) * 8 + 8
+    lane_pad = -live_length % 128
+    rows_total = (live_length + lane_pad) // 128
+    hi_max = (start_bound + pre) // 128
+    pad_rows = max(0, hi_max + sv + 8 - rows_total)
+    return lane_pad + pad_rows * 128

@@ -1,0 +1,111 @@
+"""Builds the CUDA sources in ``csrc/`` with nvcc and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles, on first use, into its own shared library
+``build/anet_torch_kernels/lib<name>-<hash>.so`` at the root of the
+checkout, where ``<hash>`` covers the source and the shared header, so an
+edited source rebuilds and an unchanged one loads at once. The sources have
+a plain C interface (no PyTorch headers), which keeps each build to seconds;
+``build_all`` starts one nvcc per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "anet_torch_kernels"
+SOURCES = ("decide_frame_tm", "sync_search", "demod_at", "demod_probe")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of each library's entry point: (symbol, argtypes)
+SIGNATURES = {
+    "decide_frame_tm": (
+        "anet_decide_frame_tm",
+        [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    "sync_search": (
+        "anet_sync_search",
+        [_P, _I, _I, ctypes.c_longlong, _I, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P],
+    ),
+    "demod_at": (
+        "anet_demod_at",
+        [_P, _I, _I, ctypes.c_longlong, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "demod_probe": (
+        "anet_demod_probe",
+        [_P, _I, _I, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+         _P, _P, _P],
+    ),
+}
+
+_loaded: dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256()
+    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names=SOURCES) -> list[Path]:
+    """Compile every library of ``names`` not built yet, one nvcc process per
+    source, all started together; raise with nvcc's output if any fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        jobs.append((name, proc, tmp, out))
+    failures = []
+    for name, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exit {proc.returncode}\n{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return [library_path(n) for n in names]
+
+
+def entry(name: str):
+    """The ctypes function of library ``name``, built on first use."""
+    fn = _loaded.get(name)
+    if fn is None:
+        path = library_path(name)
+        if not path.exists():
+            build_all()
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return fn

@@ -1,0 +1,593 @@
+"""Streaming receiver: chunked demodulation with an explicit carry (mirrors
+the uncoded, untracked, fixed-length path of ``anet.stream``).
+
+A capture is processed as fixed-size chunks; the carry holds everything the
+receiver remembers between chunks: a sliding sample buffer, the dedupe
+cursor, the frame lock (predicted next start, clock-drift estimate) and the
+counters frames detected / ok / decode errors. Each step appends one chunk
+and examines the "just completed" window: frame starts whose frame end
+arrived within the new chunk, so every frame is considered exactly once.
+At most one frame is detected per chunk; chunk_size <= one frame length
+guarantees none is skipped.
+
+``lock=True`` is frame-lock mode: once a frame decodes, the next one is
+expected one frame later, so a locked stream verifies the prediction with an
+n-lag probe (which also servos out +-2 samples of clock drift) and the
+every-lag search runs only when some stream needs acquiring. On the card
+the locked step is one merged kernel (demod_probe_fused) plus, on
+acquisition, the search kernel (sync_search_fused) and the align+demod
+kernel (demod_at_fused); the JAX package's ``lax.cond`` around the search
+is a Python ``if`` on one host read per chunk here.
+
+Not ported yet (they raise NotImplementedError): ``track=True`` (the
+symbol-clock tracker), coded configs (``fec='conv'``), variable-length
+frames (``stream_step_dynamic`` / ``receive_stream_dynamic``), the
+capture-resident scan (``resident=True``) and int8 sliding buffers.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from anet_torch._device import as_tensor, resolve_device
+from anet_torch.dsp.family import geometry as family_geometry
+from anet_torch.dsp.frame import FrameResult
+
+__all__ = [
+    "StreamCarry",
+    "StreamCheckpoint",
+    "StreamResult",
+    "StreamStepOutput",
+    "carry_from_numpy",
+    "carry_to_numpy",
+    "init_carry",
+    "load_carry",
+    "receive_stream",
+    "save_carry",
+    "stream_step",
+]
+
+# Candidate threshold for the normalized preamble correlation. Kept low:
+# the demodulated-header gate (magic + CRC, 48 bits) rejects false locks.
+DEFAULT_DETECT_THRESHOLD = 0.45
+
+# Frame-lock clock-drift servo: a start offset of up to DRIFT_MAX_OBS
+# samples relative to the previous frame's nominal end is clock drift and
+# folds into the per-stream estimate (an EMA with gain DRIFT_EMA); larger
+# gaps are real TX pauses.
+DRIFT_MAX_OBS = 64
+DRIFT_EMA = 0.5
+# Dedupe-cursor slack: admits a compressed back-to-back successor (fast RX
+# clock) while still rejecting a re-detection of the same frame.
+DEDUPE_SLACK = DRIFT_MAX_OBS
+PROBE_LAGS = 5  # frame-lock probe lags: +-2 samples of clock-drift servo
+
+
+class StreamCarry(NamedTuple):
+    """Everything the streaming receiver remembers between chunks."""
+
+    buffer: torch.Tensor  # [B, L] sliding sample window
+    samples_seen: torch.Tensor  # int32 [B] — absolute sample count consumed
+    last_frame_end: torch.Tensor  # int32 [B] — absolute end of last accepted frame
+    frames_detected: torch.Tensor  # int32 [B]
+    frames_ok: torch.Tensor  # int32 [B]
+    decode_errors: torch.Tensor  # int32 [B] — preamble locked but integrity failed
+    locked: torch.Tensor  # bool [B] — frame-lock mode: next frame start predicted
+    next_start: torch.Tensor  # int32 [B] — absolute predicted start of next frame
+    drift: torch.Tensor  # float32 [B] — clock-drift estimate, samples per frame
+
+
+class StreamStepOutput(NamedTuple):
+    """Per-chunk emission (stacked over chunks by receive_stream)."""
+
+    frame: FrameResult
+    detected: torch.Tensor  # bool — a frame completed in this chunk
+    quality: torch.Tensor  # float32 — best sync quality in the window
+    frame_start: torch.Tensor  # int32 — absolute sample index of frame start
+
+
+class StreamResult(NamedTuple):
+    carry: StreamCarry
+    steps: StreamStepOutput
+
+
+class StreamCheckpoint(NamedTuple):
+    """A saved receiver state: the carry plus any capture tail short of a
+    whole chunk (prepend it to the next capture on resume)."""
+
+    carry: StreamCarry
+    pending: np.ndarray  # float32 [..., r], r < chunk_size
+
+
+def _require_supported(config, track: bool) -> None:
+    from anet_torch.dsp.family import _require_mfsk
+
+    _require_mfsk(config)
+    if track:
+        raise NotImplementedError(
+            "track=True needs the symbol-clock tracker (anet.dsp.clock), "
+            "ROADMAP queue 1 item 10"
+        )
+    if config.fec != "none":
+        raise NotImplementedError(
+            "coded streams (fec='conv') arrive with the coded slice "
+            "(ROADMAP: demod_at_energies_fused + viterbi_trellis)"
+        )
+
+
+def _require_float_buffer(dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"{dtype} sliding buffers: only float32 and bfloat16 are ported "
+            "(int8 buffers are ROADMAP queue 2, the int8 kernel variants)"
+        )
+
+
+def _buffer_len(config, chunk_size: int, payload_len: int) -> int:
+    """Physical carry-buffer length: frame + chunk plus
+    the JAX package's zero tail pad for its span DMAs (demod_at_buffer_pad),
+    so both packages build the same geometry and checkpoints move freely."""
+    from anet_torch.dsp.family import frame_samples
+    from anet_torch.dsp.frame import data_symbols_for_payload
+    from anet_torch.kernels import demod_at_buffer_pad
+
+    live = frame_samples(config, payload_len) + chunk_size
+    if 128 % config.samples_per_symbol == 0:
+        n_symbols = data_symbols_for_payload(config, payload_len)
+        live += demod_at_buffer_pad(config, n_symbols, chunk_size, live)
+    return live
+
+
+def _check_carry_geometry(config, carry: StreamCarry, chunk_size: int, payload_len: int) -> None:
+    """Reject a carry built for a different chunk/payload geometry. Any
+    length in [frame + chunk, _buffer_len] is accepted: everything past the
+    live window is zero tail pad, carried through untouched."""
+    from anet_torch.dsp.family import frame_samples
+
+    length = carry.buffer.shape[-1]
+    expected = _buffer_len(config, chunk_size, payload_len)
+    legacy = frame_samples(config, payload_len) + chunk_size
+    if not (legacy <= length <= expected):
+        raise ValueError(
+            f"carry buffer {length} != expected {expected} (or legacy {legacy}) "
+            f"for frame {frame_samples(config, payload_len)} + chunk {chunk_size}; "
+            "init_carry with the same chunk_size/payload_len"
+        )
+
+
+def init_carry(
+    config,
+    chunk_size: int,
+    payload_len: int,
+    batch_shape: Tuple[int, ...] = (1,),
+    track: bool = False,
+    dtype=torch.float32,
+    device="cuda",
+) -> StreamCarry:
+    """Fresh stream state for ``batch_shape = (B,)`` streams on ``device``.
+    ``dtype`` is the sliding buffer's storage dtype (float32 or bfloat16);
+    receive_stream defaults it to its compute_dtype."""
+    _require_supported(config, track)
+    _require_float_buffer(dtype)
+    if len(batch_shape) != 1:
+        raise ValueError(f"batch_shape must be (B,), got {batch_shape}")
+    dev = resolve_device(device)
+    length = _buffer_len(config, chunk_size, payload_len)
+    zi = torch.zeros(batch_shape, dtype=torch.int32, device=dev)
+    return StreamCarry(
+        buffer=torch.zeros(*batch_shape, length, dtype=dtype, device=dev),
+        samples_seen=zi,
+        last_frame_end=zi,
+        frames_detected=zi,
+        frames_ok=zi,
+        decode_errors=zi,
+        locked=torch.zeros(batch_shape, dtype=torch.bool, device=dev),
+        next_start=zi,
+        drift=torch.zeros(batch_shape, dtype=torch.float32, device=dev),
+    )
+
+
+def _drift_round(drift: torch.Tensor) -> torch.Tensor:
+    """The integer prediction offset implied by the drift estimate
+    (round half to even, as jnp.round)."""
+    return torch.round(drift).to(torch.int32)
+
+
+def _drift_update(carry: StreamCarry, detected: torch.Tensor, start_abs: torch.Tensor) -> torch.Tensor:
+    """Fold this frame's observed start offset into the drift estimate:
+    only detections continuing a chain (last_frame_end > 0) within
+    DRIFT_MAX_OBS samples of the previous nominal end update it."""
+    obs = (start_abs - carry.last_frame_end).to(torch.float32)
+    valid = detected & (carry.last_frame_end > 0) & (obs.abs() <= DRIFT_MAX_OBS)
+    return torch.where(valid, carry.drift + DRIFT_EMA * (obs - carry.drift), carry.drift)
+
+
+def _slide_buffer(carry: StreamCarry, chunk: torch.Tensor, t_frame: int, margin: int):
+    """Slide the carry buffer one chunk. Returns (buffer, samples_seen, w0,
+    buffer_abs0): [w0, w0 + chunk_size) are the just-completed frame starts,
+    and buffer_abs0 is the absolute index of buffer[0]. Any length past
+    frame + chunk + margin is zero tail pad, carried through untouched."""
+    chunk_size = chunk.shape[-1]
+    length = carry.buffer.shape[-1]
+    live = t_frame + chunk_size + margin
+    if length < live:
+        raise ValueError(
+            f"carry buffer {length} < frame {t_frame} + chunk {chunk_size} + margin {margin}"
+        )
+    buffer = torch.cat(
+        [carry.buffer[..., chunk_size:live], chunk.to(carry.buffer.dtype), carry.buffer[..., live:]],
+        dim=-1,
+    )
+    samples_seen = carry.samples_seen + chunk_size
+    buffer_abs0 = samples_seen - live
+    w0 = 1  # = live - t_frame - chunk_size - margin + 1
+    return buffer, samples_seen, w0, buffer_abs0
+
+
+def _template_energy(t_c: torch.Tensor) -> torch.Tensor:
+    return (t_c.float() ** 2).sum()
+
+
+def _search_best(carry, chunk, t_frame: int, template, margin: int, compute_dtype):
+    """Slide + every-lag preamble search (sync_search_fused), returning the
+    per-stream best: (buffer, samples_seen, w0, buffer_abs0, best_q,
+    best_rel)."""
+    from anet_torch.kernels import sync_search_fused
+
+    chunk_size = chunk.shape[-1]
+    k = template.shape[-1]
+    buffer, samples_seen, w0, buffer_abs0 = _slide_buffer(carry, chunk, t_frame, margin)
+    seg = buffer[..., w0 : w0 + chunk_size + k - 1].to(compute_dtype)
+    best_q, best_rel = sync_search_fused(
+        seg, template.to(compute_dtype), chunk_size, (template * template).sum()
+    )
+    return buffer, samples_seen, w0, buffer_abs0, best_q, best_rel
+
+
+def _find_candidate(carry, chunk, t_frame, template, margin, detect_threshold, compute_dtype):
+    """Slide, search, and nominate at most one candidate frame start per
+    chunk: (buffer, samples_seen, start_idx, start_abs, best_q, candidate)."""
+    buffer, samples_seen, w0, buffer_abs0, best_q, best_rel = _search_best(
+        carry, chunk, t_frame, template, margin, compute_dtype
+    )
+    start_idx = w0 + best_rel
+    start_abs = buffer_abs0 + start_idx
+    no_overlap = start_abs >= carry.last_frame_end - DEDUPE_SLACK
+    candidate = (best_q >= detect_threshold) & no_overlap
+    return buffer, samples_seen, start_idx, start_abs, best_q, candidate
+
+
+def _lock_prediction(carry, buffer_abs0, w0: int, chunk_size: int):
+    """(pred_idx, in_win, mid_flight): the stored prediction as a buffer
+    index; whether it lies in this chunk's window; whether it lies beyond it
+    (the stream keeps its lock without a candidate this chunk)."""
+    pred_idx = carry.next_start - buffer_abs0
+    in_win = carry.locked & (pred_idx >= w0) & (pred_idx < w0 + chunk_size)
+    mid_flight = carry.locked & (pred_idx >= w0 + chunk_size)
+    return pred_idx, in_win, mid_flight
+
+
+def _find_candidate_locked(carry, chunk, t_frame, template, detect_threshold, compute_dtype):
+    """Frame-lock front half off the card: probe the predicted next start
+    (sync.preamble_quality_probe) and search every lag only when some stream
+    needs acquiring. Returns (buffer, samples_seen, start_idx, start_abs,
+    quality, candidate, mid_flight)."""
+    from anet_torch.dsp.sync import preamble_quality_probe
+    from anet_torch.kernels import sync_search_fused
+
+    chunk_size = chunk.shape[-1]
+    k = template.shape[-1]
+    buffer, samples_seen, w0, buffer_abs0 = _slide_buffer(carry, chunk, t_frame, 0)
+    length = t_frame + chunk_size
+    t_c = template.to(compute_dtype)
+    t_energy = _template_energy(t_c)
+    pred_idx, in_win, mid_flight = _lock_prediction(carry, buffer_abs0, w0, chunk_size)
+    probe_at = pred_idx.clamp(0, length - t_frame)
+    q5, st0 = preamble_quality_probe(
+        buffer, probe_at, t_c, t_energy, n_lags=PROBE_LAGS, compute_dtype=compute_dtype
+    )
+    probe_q = q5.amax(-1)
+    probe_off = torch.argmax(q5, dim=-1).to(torch.int32)
+    pred_valid = in_win & (probe_q >= detect_threshold)
+
+    if bool((~(pred_valid | mid_flight)).any()):  # one host read per chunk
+        seg = buffer[..., w0 : w0 + chunk_size + k - 1].to(compute_dtype)
+        best_q, best_rel = sync_search_fused(seg, t_c, chunk_size, t_energy)
+    else:
+        best_q = torch.zeros_like(probe_q)
+        best_rel = torch.zeros_like(probe_off)
+
+    start_idx = torch.where(pred_valid, st0 + probe_off, w0 + best_rel)
+    start_abs = buffer_abs0 + start_idx
+    quality = torch.where(pred_valid, probe_q, best_q)
+    searched_ok = (best_q >= detect_threshold) & (
+        (buffer_abs0 + w0 + best_rel) >= carry.last_frame_end - DEDUPE_SLACK
+    )
+    candidate = pred_valid | (~mid_flight & searched_ok)
+    return buffer, samples_seen, start_idx, start_abs, quality, candidate, mid_flight
+
+
+def _merged_lock_supported(config, carry: StreamCarry) -> bool:
+    """The merged probe + demod kernel serves the locked step when the
+    buffer is on the card and the kernels take the geometry."""
+    from anet_torch.kernels import _KERNEL_SPS
+
+    return (
+        carry.buffer.is_cuda
+        and config.num_tones <= 16
+        and config.samples_per_symbol in _KERNEL_SPS
+    )
+
+
+def _next_carry(carry, buffer, samples_seen, detected, frame, start_abs, t_frame, lock, mid_flight):
+    """The carry after a step: dedupe cursor, counters and (in lock mode)
+    the lock, drift estimate and predicted next start."""
+    if lock:
+        locked_new = detected | mid_flight
+        drift_new = _drift_update(carry, detected, start_abs)
+        next_start_new = torch.where(
+            detected, start_abs + t_frame + _drift_round(drift_new), carry.next_start
+        )
+    else:
+        locked_new, next_start_new, drift_new = carry.locked, carry.next_start, carry.drift
+    return StreamCarry(
+        buffer=buffer,
+        samples_seen=samples_seen,
+        last_frame_end=torch.where(detected, start_abs + t_frame, carry.last_frame_end),
+        frames_detected=carry.frames_detected + detected.to(torch.int32),
+        frames_ok=carry.frames_ok + frame.ok.to(torch.int32),
+        decode_errors=carry.decode_errors + (detected & ~frame.ok).to(torch.int32),
+        locked=locked_new,
+        next_start=next_start_new.to(torch.int32),
+        drift=drift_new,
+    )
+
+
+def _locked_step_merged(
+    config, carry, chunk, payload_len, detect_threshold, compute_dtype, t_frame, template
+) -> Tuple[StreamCarry, StreamStepOutput]:
+    """The locked stream step on the card: ONE merged kernel
+    (demod_probe_fused) probes the predicted start, servos the drift and
+    demodulates there; on acquisition (any stream unlocked, expired, or
+    failing its probe) the search kernel (sync_search_fused) and one
+    align+demod (demod_at_fused) at the searched starts run as well.
+    Decoded frames are identical to _find_candidate_locked's path."""
+    from anet_torch.dsp.frame import data_symbols_for_payload, frame_result_from_tone_decisions
+    from anet_torch.kernels import demod_at_fused, demod_probe_fused, sync_search_fused
+
+    chunk_size = chunk.shape[-1]
+    k = template.shape[-1]
+    t_c = template.to(compute_dtype)
+    t_energy = _template_energy(t_c)
+    n_symbols = data_symbols_for_payload(config, payload_len)
+    buffer, samples_seen, w0, buffer_abs0 = _slide_buffer(carry, chunk, t_frame, 0)
+    buf_c = buffer.to(compute_dtype)
+    length = t_frame + chunk_size
+    pred_idx, in_win, mid_flight = _lock_prediction(carry, buffer_abs0, w0, chunk_size)
+    probe_at = pred_idx.clamp(0, length - t_frame)
+    st0 = (probe_at - PROBE_LAGS // 2).clamp(0, buffer.shape[-1] - k - PROBE_LAGS + 1)
+    cmax, probe_off, energy, tone_p, best_p, total_p = demod_probe_fused(
+        config, buf_c, st0, n_symbols, t_c, n_lags=PROBE_LAGS
+    )
+    probe_q = cmax * torch.rsqrt(t_energy * torch.maximum(energy, 1e-4 * t_energy))
+    refined_idx = st0 + probe_off
+    pred_valid = in_win & (probe_q >= detect_threshold)
+
+    if bool((~(pred_valid | mid_flight)).any()):  # one host read per chunk
+        seg = buf_c[..., w0 : w0 + chunk_size + k - 1]
+        bq, br = sync_search_fused(seg, t_c, chunk_size, t_energy)
+        sel_idx = torch.where(pred_valid, refined_idx, w0 + br)
+        tone_s, best_s, total_s = demod_at_fused(config, buf_c, sel_idx, n_symbols)
+    else:
+        bq = torch.zeros_like(probe_q)
+        br = torch.zeros_like(probe_off)
+        tone_s = torch.zeros_like(tone_p)
+        best_s = torch.zeros_like(best_p)
+        total_s = torch.zeros_like(total_p)
+    start_idx = torch.where(pred_valid, refined_idx, w0 + br)
+    start_abs = buffer_abs0 + start_idx
+    quality = torch.where(pred_valid, probe_q, bq)
+    searched_ok = (bq >= detect_threshold) & (
+        (buffer_abs0 + w0 + br) >= carry.last_frame_end - DEDUPE_SLACK
+    )
+    candidate = pred_valid | (~mid_flight & searched_ok)
+
+    pv = pred_valid[..., None]
+    frame = frame_result_from_tone_decisions(
+        config,
+        torch.where(pv, tone_p, tone_s),
+        torch.where(pv, best_p, best_s),
+        torch.where(pv, total_p, total_s),
+        payload_len,
+    )
+    detected = candidate & frame.magic_ok & frame.header_crc_ok
+    frame = frame._replace(ok=frame.ok & detected)
+    new_carry = _next_carry(
+        carry, buffer, samples_seen, detected, frame, start_abs, t_frame, True, mid_flight
+    )
+    out = StreamStepOutput(
+        frame=frame, detected=detected, quality=quality, frame_start=start_abs.to(torch.int32)
+    )
+    return new_carry, out
+
+
+def stream_step(
+    config,
+    carry: StreamCarry,
+    chunk: torch.Tensor,
+    payload_len: int,
+    detect_threshold: float = DEFAULT_DETECT_THRESHOLD,
+    compute_dtype=torch.float32,
+    track: bool = False,
+    lock: bool = False,
+) -> Tuple[StreamCarry, StreamStepOutput]:
+    """Consume one chunk [B, chunk_size] (on the carry's device); maybe
+    emit one frame per stream.
+
+    ``lock=True`` enables frame-lock mode (see the module docstring):
+    decoded frames are identical to the always-search mode; per-chunk
+    ``quality`` comes from the probe while locked and ``frame_start`` can
+    differ by the +-2-sample drift servo. A detection counts only if the
+    demodulated header validates (magic word + header CRC)."""
+    from anet_torch.dsp.frame import data_symbols_for_payload, frame_result_from_tone_decisions
+    from anet_torch.kernels import demod_at_fused
+
+    _require_supported(config, track)
+    chunk_size = chunk.shape[-1]
+    t_frame, template, _ = family_geometry(config, payload_len, compute_dtype, carry.buffer.device)
+    _check_carry_geometry(config, carry, chunk_size, payload_len)
+    if lock and _merged_lock_supported(config, carry):
+        return _locked_step_merged(
+            config, carry, chunk, payload_len, detect_threshold, compute_dtype, t_frame, template
+        )
+    mid_flight = None
+    if lock:
+        buffer, samples_seen, start_idx, start_abs, best_q, candidate, mid_flight = (
+            _find_candidate_locked(carry, chunk, t_frame, template, detect_threshold, compute_dtype)
+        )
+    else:
+        buffer, samples_seen, start_idx, start_abs, best_q, candidate = _find_candidate(
+            carry, chunk, t_frame, template, 0, detect_threshold, compute_dtype
+        )
+    tone, best, total = demod_at_fused(
+        config, buffer.to(compute_dtype), start_idx, data_symbols_for_payload(config, payload_len)
+    )
+    frame = frame_result_from_tone_decisions(config, tone, best, total, payload_len)
+    detected = candidate & frame.magic_ok & frame.header_crc_ok
+    frame = frame._replace(ok=frame.ok & detected)
+    new_carry = _next_carry(
+        carry, buffer, samples_seen, detected, frame, start_abs, t_frame, lock, mid_flight
+    )
+    out = StreamStepOutput(
+        frame=frame, detected=detected, quality=best_q, frame_start=start_abs.to(torch.int32)
+    )
+    return new_carry, out
+
+
+def _stack_steps(steps):
+    """Stack per-chunk outputs along a leading chunk axis (the scan layout
+    of the JAX package's StreamResult.steps)."""
+    frame = FrameResult(*(torch.stack(f) for f in zip(*(s.frame for s in steps))))
+    rest = (torch.stack(f) for f in list(zip(*steps))[1:])
+    return StreamStepOutput(frame, *rest)
+
+
+def receive_stream(
+    config,
+    capture,
+    chunk_size: int,
+    payload_len: int,
+    detect_threshold: float = DEFAULT_DETECT_THRESHOLD,
+    carry: StreamCarry | None = None,
+    compute_dtype=torch.float32,
+    track: bool = False,
+    lock: bool = False,
+    resident: bool | None = None,
+    device="cuda",
+) -> StreamResult:
+    """Run a capture [B, N] through the receiver chunk by chunk on
+    ``device``, emitting every frame found.
+
+    N must be a multiple of chunk_size (pad with zeros host-side). ``carry``
+    resumes a previous state (checkpoint/resume; it must lie on ``device``);
+    a fresh one is built if None, with a ``compute_dtype`` buffer. The
+    capture is cast to the buffer's dtype once, up front. Returns the final
+    carry and the per-chunk outputs stacked along a leading chunk axis."""
+    if resident:
+        raise NotImplementedError(
+            "resident=True (the capture-resident scan) is not ported yet "
+            "(ROADMAP queue 1 item 7)"
+        )
+    _require_supported(config, track)
+    capture = as_tensor(capture, device)
+    if capture.dim() != 2:
+        raise ValueError(f"capture must be [B, N], got shape {tuple(capture.shape)}")
+    n = capture.shape[-1]
+    if n == 0 or n % chunk_size:
+        raise ValueError(f"capture length {n} not a positive multiple of chunk_size {chunk_size}")
+    if carry is None:
+        carry = init_carry(
+            config, chunk_size, payload_len, capture.shape[:1], dtype=compute_dtype,
+            device=capture.device,
+        )
+    elif carry.buffer.device != capture.device:
+        raise ValueError(f"carry lies on {carry.buffer.device}, capture on {capture.device}")
+    num_chunks = n // chunk_size
+    cap = capture.to(carry.buffer.dtype).reshape(capture.shape[0], num_chunks, chunk_size)
+    steps = []
+    for i in range(num_chunks):
+        carry, out = stream_step(
+            config, carry, cap[:, i], payload_len, detect_threshold, compute_dtype, track, lock
+        )
+        steps.append(out)
+    return StreamResult(carry=carry, steps=_stack_steps(steps))
+
+
+_CARRY_DTYPES = {
+    "buffer": None,  # from buffer_dtype
+    "samples_seen": torch.int32,
+    "last_frame_end": torch.int32,
+    "frames_detected": torch.int32,
+    "frames_ok": torch.int32,
+    "decode_errors": torch.int32,
+    "locked": torch.bool,
+    "next_start": torch.int32,
+    "drift": torch.float32,
+}
+
+
+def carry_to_numpy(carry: StreamCarry) -> dict:
+    """The carry as numpy arrays in the JAX package's checkpoint layout:
+    the buffer widened to float32 (npz has no bfloat16; lossless) and its
+    dtype name under ``buffer_dtype``."""
+    fields = {k: v.detach().cpu().numpy() for k, v in carry._asdict().items() if k != "buffer"}
+    fields["buffer"] = carry.buffer.detach().float().cpu().numpy()
+    fields["buffer_dtype"] = np.asarray(str(carry.buffer.dtype).removeprefix("torch."))
+    return fields
+
+
+def carry_from_numpy(fields: dict, device="cuda") -> StreamCarry:
+    """Inverse of carry_to_numpy; also reads a checkpoint written by the JAX
+    package's ``anet.stream.save_carry``. Lock fields missing from older
+    checkpoints default to unlocked."""
+    dev = resolve_device(device)
+    missing = [f for f in StreamCarry._fields if f not in fields and f not in ("locked", "next_start", "drift")]
+    if missing:
+        raise ValueError(f"not a stream checkpoint (missing {missing})")
+    buffer_dtype = torch.float32
+    if "buffer_dtype" in fields:
+        name = str(np.asarray(fields["buffer_dtype"]))
+        buffer_dtype = getattr(torch, name, None)
+        _require_float_buffer(buffer_dtype)
+    out = {}
+    for name, dtype in _CARRY_DTYPES.items():
+        if name in fields:
+            out[name] = torch.as_tensor(np.asarray(fields[name]), device=dev).to(dtype or buffer_dtype)
+    shape = out["samples_seen"].shape
+    out.setdefault("locked", torch.zeros(shape, dtype=torch.bool, device=dev))
+    out.setdefault("next_start", torch.zeros(shape, dtype=torch.int32, device=dev))
+    out.setdefault("drift", torch.zeros(shape, dtype=torch.float32, device=dev))
+    return StreamCarry(**out)
+
+
+def save_carry(path, carry: StreamCarry, pending=None) -> None:
+    """Checkpoint stream state to an .npz file in the JAX package's layout
+    (anet.stream.save_carry), so either package resumes the other's.
+    ``pending`` holds trailing samples short of a whole chunk."""
+    fields = carry_to_numpy(carry)
+    fields["pending"] = (
+        np.zeros(0, np.float32) if pending is None else np.asarray(pending, np.float32)
+    )
+    np.savez_compressed(path, **fields)
+
+
+def load_carry(path, device="cuda") -> StreamCheckpoint:
+    """Restore a checkpoint written by save_carry (either package's) onto
+    ``device``."""
+    with np.load(path) as z:
+        fields = {name: z[name] for name in z.files}
+    pending = fields.pop("pending", np.zeros(0, np.float32))
+    return StreamCheckpoint(carry=carry_from_numpy(fields, device), pending=pending)

@@ -1,0 +1,346 @@
+"""Smoke run of the PyTorch/CUDA port (anet_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing falls back to the CPU):
+1. build the CUDA kernels from anet_torch/kernels/csrc (nvcc, sm_90a);
+2. hold each kernel against its plain PyTorch version at the main path's
+   shapes (mfsk16-fast, payload 256, chunk 36,352, buffer 76,288) on a
+   256-stream subset, then time kernel and plain version at the full batch;
+3. the aligned receiver at full size: 16,384 frames transmitted on the card,
+   demodulated time-major through decide_frame_tm;
+4. the locked streaming receiver at full size: 8,192 streams of one
+   acquisition gap and 6 back-to-back frames (bf16 capture), once cold
+   (acquisition runs the search and align+demod kernels) and once with a
+   warm lock seeded at the first frame;
+5. the launch count of every kernel during phases 3-4, read per path (each
+   path's counts start at 0 just before it): every kernel of a path must
+   have launched there.
+The line before the last is a JSON object with each kernel's numbers, and
+the last line the JSON verdict with the device's name.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from anet_torch import kernels
+from anet_torch.dsp import frame as tframe
+from anet_torch.dsp.pipeline import transmit
+from anet_torch.dsp.sync import preamble_waveform
+from anet_torch.kernels.build import build_all
+from anet_torch.models import get_model
+from anet_torch.stream import _buffer_len, init_carry, receive_stream
+
+MODEL = "mfsk16-fast"
+PAYLOAD = 256
+ALIGNED_B = 16384
+STREAM_B = 8192
+COMPARE_B = 256
+GAP0, N_FRAMES = 1000, 6
+N_LAGS = 5
+RTOL = 1e-3  # bf16 inputs, float32 sums in another order than the plain version
+HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
+BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+SEED = 0
+DEV = torch.device("cuda")
+
+REPLACES = {
+    "decide_frame_tm": ("anet_torch/kernels/csrc/decide_frame_tm.cu", "anet/kernels/__init__.py:488"),
+    "sync_search_fused": ("anet_torch/kernels/csrc/sync_search.cu", "anet/kernels/__init__.py:1095"),
+    "demod_at_fused": ("anet_torch/kernels/csrc/demod_at.cu", "anet/kernels/__init__.py:1992"),
+    "demod_probe_fused": ("anet_torch/kernels/csrc/demod_probe.cu", "anet/kernels/__init__.py:2307"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    """Median of ``reps`` CUDA-event timings of fn() after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_flops / BF16_FLOPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...]) -> float:
+    """Hold kernel outputs against the plain version's: the ``exact``
+    positions bit-equal, the ``close`` ones within RTOL. Returns the max
+    absolute error over the ``close`` outputs."""
+    worst_abs, worst_rel, report = 0.0, 0.0, []
+    for i in exact:
+        bad = int((got[i] != want[i]).sum())
+        report.append(f"out{i} mismatches {bad}")
+        if bad:
+            raise AssertionError(f"{name}: output {i} differs in {bad} places")
+    for i in close:
+        g, w = got[i].double(), want[i].double()
+        diff = (g - w).abs()
+        rel = diff / w.abs().clamp_min(1e-30)
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_rel = max(worst_rel, float(rel.max()))
+        bad = int((diff > RTOL * w.abs() + 1e-6).sum())
+        report.append(f"out{i} beyond rtol {bad}")
+        if bad:
+            raise AssertionError(f"{name}: output {i} beyond rtol {RTOL} in {bad} places")
+    log(f"  {name}: max abs {worst_abs:.3e} max rel {worst_rel:.3e}; " + ", ".join(report))
+    return worst_abs
+
+
+def plant_frames(waves: torch.Tensor, starts: torch.Tensor, length: int, noise: float, gen) -> torch.Tensor:
+    """[B, length] bf16 buffers: noise plus each stream's frame at its start."""
+    b, t = waves.shape
+    buf = noise * torch.randn(b, length, generator=gen, device=waves.device)
+    idx = starts.long()[:, None] + torch.arange(t, device=waves.device)
+    buf.scatter_add_(1, idx, waves)
+    return buf.to(torch.bfloat16)
+
+
+def phase_kernels(cfg, gen) -> dict:
+    """Phase 2: each kernel vs its plain version (256 streams), then both
+    timed at the full main-path batch."""
+    sps = cfg.samples_per_symbol
+    m = cfg.num_tones
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+    pre = cfg.preamble_samples
+    chunk = t_frame
+    length = _buffer_len(cfg, chunk, PAYLOAD)
+    log(f"geometry: frame {t_frame}, data symbols {n_sym}, chunk {chunk}, buffer {length}")
+    dev = DEV
+    pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
+    waves = transmit(cfg, pay, device=DEV)
+    tpl = preamble_waveform(cfg, device=DEV).to(torch.bfloat16)
+    k = tpl.shape[-1]
+    te = float((tpl.float() ** 2).sum())
+    results = {}
+
+    # decide_frame_tm at operating noise
+    x_tm = (waves + 0.3 * torch.randn(waves.shape, generator=gen, device=dev)).to(torch.bfloat16).T.contiguous()
+    got = kernels.decide_frame_tm(cfg, x_tm, PAYLOAD, preamble_offset=pre)
+    want = kernels.decide_frame_tm_ref(cfg, x_tm, PAYLOAD, preamble_offset=pre)
+    parity = ((got[1].long() & 1) != (want[1].long() & 1)).sum()
+    if int(parity):
+        raise AssertionError(f"decide_frame_tm: crc parity differs in {int(parity)} places")
+    err = compare("decide_frame_tm", got, want, exact=(0, 1), close=(2,))
+    results["decide_frame_tm"] = {"max_abs_err": err}
+
+    # stream buffers: frames at random starts in the search window, with
+    # probe bases st0 = start - 2 at every residue 124..127 mod 128
+    starts = torch.randint(3, chunk - 4, (COMPARE_B,), generator=gen, device=dev)
+    starts[:8] = torch.tensor([126, 127, 128, 129, 126 + 128 * 100, 127 + 128 * 100,
+                               128 + 128 * 200, 129 + 128 * 200], device=dev)
+    buf = plant_frames(waves, starts, length, 0.05, gen)
+    seg = buf[:, 1 : 1 + chunk + k - 1]
+    got = kernels.sync_search_fused(seg, tpl, chunk, te)
+    want = kernels.sync_search_fused_ref(seg, tpl, chunk, te)
+    if not torch.equal(got[1], (starts - 1).int()):
+        raise AssertionError("sync_search_fused did not find the planted preambles")
+    results["sync_search_fused"] = {"max_abs_err": compare("sync_search_fused", got, want, (1,), (0,))}
+
+    got = kernels.demod_at_fused(cfg, buf, starts, n_sym)
+    want = kernels.demod_at_fused_ref(cfg, buf, starts, n_sym)
+    results["demod_at_fused"] = {"max_abs_err": compare("demod_at_fused", got, want, (0,), (1, 2))}
+
+    st0 = starts - 2
+    if not {124, 125, 126, 127} <= set((st0 % 128).tolist()):
+        raise AssertionError("probe residues 124..127 not covered")
+    got = kernels.demod_probe_fused(cfg, buf, st0, n_sym, tpl, n_lags=N_LAGS)
+    want = kernels.demod_probe_fused_ref(cfg, buf, st0, n_sym, tpl, n_lags=N_LAGS)
+    if not bool((got[1] == 2).all()):
+        raise AssertionError("demod_probe_fused servo missed the planted starts")
+    results["demod_probe_fused"] = {"max_abs_err": compare("demod_probe_fused", got, want, (1, 3), (0, 2, 4, 5))}
+
+    # timings at the full main-path batch (inputs tiled from the subset)
+    reps_a, reps_s = ALIGNED_B // COMPARE_B, STREAM_B // COMPARE_B
+    x_full = x_tm.repeat(1, reps_a)
+    buf_full = buf.repeat(reps_s, 1)
+    seg_full = buf_full[:, 1 : 1 + chunk + k - 1]
+    st_full, st0_full = starts.repeat(reps_s), st0.repeat(reps_s)
+    del x_tm, buf, waves
+    calls = {
+        "decide_frame_tm": (
+            lambda f: f(cfg, x_full, PAYLOAD, preamble_offset=pre),
+            kernels.decide_frame_tm, kernels.decide_frame_tm_ref,
+        ),
+        "sync_search_fused": (
+            lambda f: f(seg_full, tpl, chunk, te),
+            kernels.sync_search_fused, kernels.sync_search_fused_ref,
+        ),
+        "demod_at_fused": (
+            lambda f: f(cfg, buf_full, st_full, n_sym),
+            kernels.demod_at_fused, kernels.demod_at_fused_ref,
+        ),
+        "demod_probe_fused": (
+            lambda f: f(cfg, buf_full, st0_full, n_sym, tpl, n_lags=N_LAGS),
+            kernels.demod_probe_fused, kernels.demod_probe_fused_ref,
+        ),
+    }
+    for name, (call, kern, ref) in calls.items():
+        results[name]["ms"] = time_ms(lambda: call(kern))
+        results[name]["plain_ms"] = time_ms(lambda: call(ref))
+        torch.cuda.empty_cache()
+    # bounds: each input byte read once, each output byte written once
+    flops_sym = 2 * sps * 2 * m  # filterbank flops per symbol
+    out_sym = 12  # tone i32 + best f32 + total f32 per symbol
+    b_a, b_s = ALIGNED_B, STREAM_B
+    n_tiles = -(-n_sym // kernels.TM_SYMBOL_TILE)
+    pw_e = -(-(k + N_LAGS - 1) // 128) + 1
+    lo = torch.minimum(st0_full // 128 * 128, st0_full)
+    hi = torch.maximum(st0_full // 128 * 128 + pw_e * 128, st0_full + 2 + pre + n_sym * sps)
+    probe_bytes = float((hi - lo).sum()) * 2
+    work = {
+        "decide_frame_tm": (n_sym * sps * b_a * 2 + (n_tiles + 64 + 8) * b_a * 4, n_sym * flops_sym * b_a),
+        "sync_search_fused": (b_s * (chunk + k - 1) * 2 + 8 * b_s, 2 * k * chunk * b_s),
+        "demod_at_fused": (b_s * n_sym * (sps * 2 + out_sym) + 4 * b_s, n_sym * flops_sym * b_s),
+        "demod_probe_fused": (
+            probe_bytes + b_s * (16 + n_sym * out_sym),
+            b_s * (2 * N_LAGS * k + 2 * pw_e * 128 + n_sym * flops_sym),
+        ),
+    }
+    for name, (n_bytes, n_flops) in work.items():
+        results[name]["bound_ms"], results[name]["bound_by"] = bound_ms(n_bytes, n_flops)
+        r = results[name]
+        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    return results
+
+
+def phase_aligned(cfg, gen) -> None:
+    """Phase 3: the aligned time-major receiver at B = 16,384."""
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    pay = torch.randint(0, 256, (ALIGNED_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    x_tm = transmit(cfg, pay, device=DEV).to(torch.bfloat16).T.contiguous()  # one untimed ingest cast
+    res = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV)
+    ok_frac = float(res.ok.float().mean())
+    if ok_frac != 1.0 or not torch.equal(res.payload, pay):
+        raise AssertionError(f"aligned: frames_ok_fraction {ok_frac}, payloads equal "
+                             f"{torch.equal(res.payload, pay)}")
+    iters = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        n_ok = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV).ok.sum()
+    int(n_ok)
+    dt = time.perf_counter() - t0
+    log(f"aligned: B {ALIGNED_B}, frames_ok_fraction {ok_frac}, "
+        f"{ALIGNED_B * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
+
+
+def phase_stream(cfg, gen) -> None:
+    """Phase 4: the locked streaming receiver at B = 8,192, cold and warm."""
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    chunk = t_frame // 128 * 128
+    total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
+    cap = torch.zeros(STREAM_B, total, dtype=torch.bfloat16, device=DEV)
+    sent = []
+    for i in range(N_FRAMES):
+        pay = torch.randint(0, 256, (STREAM_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+        pos = GAP0 + i * t_frame
+        cap[:, pos : pos + t_frame] = transmit(cfg, pay, device=DEV).to(torch.bfloat16)
+        sent.append(pay)
+    sent = torch.stack(sent)  # [frames, B, payload]
+    log(f"stream: B {STREAM_B}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), chunk {chunk}")
+    warm = init_carry(cfg, chunk, PAYLOAD, (STREAM_B,), dtype=torch.bfloat16, device=DEV)
+    warm = warm._replace(
+        locked=torch.ones_like(warm.locked), next_start=torch.full_like(warm.next_start, GAP0)
+    )
+    for label, carry in (("cold", None), ("warm-lock", warm)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16, lock=True,
+                             device=DEV)
+        frames_ok = int(res.carry.frames_ok.sum())
+        dt = time.perf_counter() - t0
+        det = res.steps.detected
+        got = res.steps.frame.payload[det.any(1)]  # [frames, B, payload]
+        right = bool(det.sum(0).eq(N_FRAMES).all()) and got.shape == sent.shape and torch.equal(got, sent)
+        log(f"stream {label}: frames_ok {frames_ok} of {STREAM_B * N_FRAMES}, payloads right {right}, "
+            f"{STREAM_B * total / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+        if frames_ok != STREAM_B * N_FRAMES or not right:
+            raise AssertionError(f"stream {label}: frames_ok {frames_ok}, payloads right {right}")
+        del res
+
+
+# Each main path, driven with the launch counts set to 0 just before it and
+# read just after: the phase that drives it and the kernels it must launch.
+PATHS = {
+    "aligned": (phase_aligned, ("decide_frame_tm",)),
+    "stream": (phase_stream, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
+}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
+        return 2
+    # float32 products in the plain versions must not round to TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn {torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    cfg = get_model(MODEL).config
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+
+    log("kernels vs plain versions:")
+    results = phase_kernels(cfg, gen)
+    counts = dict.fromkeys(REPLACES, 0)
+    for path, (phase, path_kernels) in PATHS.items():
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        phase(cfg, gen)
+        path_counts = dict(kernels.launch_counts)
+        log(f"launches on the {path} path: {path_counts}")
+        missing = [n for n in path_kernels if path_counts[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} path: {missing}")
+        for name, c in path_counts.items():
+            counts[name] += c
+    rows = []
+    for name, (source, replaces) in REPLACES.items():
+        r = results[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                   "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,141 @@
+"""Transmit and aligned receive, anet_torch against the JAX package on the
+CPU: the same payloads and the same numpy noise go through both
+transmitters and both time-major receivers (demodulate_frame_tm). Payloads
+and the five verdicts must be bit-equal; confidence and snr_db agree with
+JAX and with a float64 numpy computation of the same quantities."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from anet.dsp import frame as jframe
+from anet.dsp import pipeline as jpipeline
+from anet.dsp.demod import demod_basis as j_basis
+from anet.models import get_model as jget_model
+
+from anet_torch.dsp import frame as tframe
+from anet_torch.dsp import pipeline as tpipeline
+from anet_torch.dsp.family import geometry, transmit_fn
+from anet_torch.kernels import decide_frame_tm
+from anet_torch.models import get_model
+
+NAME = "mfsk16-fast"
+CFG, JCFG = get_model(NAME).config, jget_model(NAME).config
+PAY = 64
+VERDICTS = ("magic_ok", "length_ok", "header_crc_ok", "payload_crc_ok", "ok")
+
+
+def _capture(noise, seed=0, b=4):
+    """(payloads, time-major waveforms [T, B]) with the last frame's payload
+    corrupted on the air: three payload symbols come from another frame, so
+    its payload CRC fails while its header stays intact."""
+    rng = np.random.default_rng(seed)
+    pay = rng.integers(0, 256, (b, PAY), dtype=np.uint8)
+    other = rng.integers(0, 256, (1, PAY), dtype=np.uint8)
+    w = np.array(jpipeline.transmit(JCFG, jnp.asarray(pay)))
+    wt = tpipeline.transmit(CFG, pay, device="cpu").numpy()
+    np.testing.assert_allclose(wt, w, atol=1e-5)
+    wo = np.asarray(jpipeline.transmit(JCFG, jnp.asarray(other)))
+    sps = CFG.samples_per_symbol
+    lo = CFG.preamble_samples + 20 * sps  # past the 8 header bytes (16 symbols)
+    w[-1, lo : lo + 3 * sps] = wo[0, lo : lo + 3 * sps]
+    w = w + noise * rng.standard_normal(w.shape).astype(np.float32)
+    return pay, np.ascontiguousarray(w.T)
+
+
+def _f64_quality(x_tm):
+    """confidence and snr_db in float64 numpy, from the waveforms alone."""
+    sps, m = CFG.samples_per_symbol, CFG.num_tones
+    pre = CFG.preamble_samples
+    basis = np.asarray(j_basis(JCFG), np.float64)
+    data = x_tm[pre:].astype(np.float64)
+    s = data.shape[0] // sps
+    win = data[: s * sps].reshape(s, sps, -1)
+    iq = np.einsum("skb,km->smb", win, basis)
+    e = iq[:, :m] ** 2 + iq[:, m:] ** 2
+    best, total = e.max(1), e.sum(1)
+    conf = (best / total).mean(0)
+    noise = ((total - best) / (m - 1)).mean(0)
+    snr = 10 * np.log10(best.mean(0) / noise - 1.0)
+    return conf, snr
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("noise", [0.0, 0.3])
+def test_aligned_receiver_matches_jax(noise, use_pallas):
+    pay, x = _capture(noise)
+    got = tframe.demodulate_frame_tm(CFG, x, PAY, compute_dtype=torch.float32, device="cpu")
+    want = jframe.demodulate_frame_tm(
+        JCFG, jnp.asarray(x), PAY, compute_dtype=jnp.float32,
+        use_pallas=use_pallas, interpret=use_pallas,
+    )
+    np.testing.assert_array_equal(got.payload.numpy(), np.asarray(want.payload))
+    for v in VERDICTS:
+        np.testing.assert_array_equal(getattr(got, v).numpy(), np.asarray(getattr(want, v)), v)
+    assert got.ok.numpy().tolist() == [True, True, True, False]
+    assert not bool(got.payload_crc_ok[-1]) and bool(got.header_crc_ok[-1])
+    np.testing.assert_array_equal(got.payload.numpy()[:3], pay[:3])
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=1e-5)
+    # clean frames have ~zero noise bins: snr clamps the same way in both
+    np.testing.assert_allclose(got.snr_db.numpy(), np.asarray(want.snr_db), atol=1e-3)
+    if noise:
+        conf64, snr64 = _f64_quality(x)
+        np.testing.assert_allclose(got.confidence.numpy(), conf64, rtol=1e-5)
+        np.testing.assert_allclose(np.asarray(want.confidence), conf64, rtol=1e-5)
+        np.testing.assert_allclose(got.snr_db.numpy(), snr64, atol=1e-3)
+        np.testing.assert_allclose(np.asarray(want.snr_db), snr64, atol=1e-3)
+
+
+def test_bf16_aligned_receiver_matches_jax():
+    pay, x = _capture(0.3, seed=2)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = tframe.demodulate_frame_tm(CFG, xb, PAY, device="cpu")
+    want = jframe.demodulate_frame_tm(
+        JCFG, jnp.asarray(x).astype(jnp.bfloat16), PAY, use_pallas=True, interpret=True
+    )
+    np.testing.assert_array_equal(got.payload.numpy(), np.asarray(want.payload))
+    for v in VERDICTS:
+        np.testing.assert_array_equal(getattr(got, v).numpy(), np.asarray(getattr(want, v)), v)
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=1e-5)
+
+
+def test_batch_major_receiver_and_family():
+    pay, x = _capture(0.3, seed=3)
+    t_frame, tpl, demod = geometry(CFG, PAY, device="cpu")
+    assert t_frame == x.shape[0] and tpl.shape == (CFG.preamble_samples,)
+    got = demod(np.ascontiguousarray(x.T))
+    want = jframe.demodulate_frame(JCFG, jnp.asarray(x.T), PAY)
+    np.testing.assert_array_equal(got.payload.numpy(), np.asarray(want.payload))
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(want.ok))
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=1e-5)
+    np.testing.assert_allclose(got.snr_db.numpy(), np.asarray(want.snr_db), atol=1e-3)
+    w = transmit_fn(CFG, device="cpu")(pay)
+    assert w.shape == (4, t_frame)
+
+
+def test_packed_parse_takes_negative_words():
+    """A word whose top bit is set (negative int32) still yields its bytes."""
+    pay = np.full((1, PAY), 0xFF, np.uint8)
+    x = np.ascontiguousarray(tpipeline.transmit(CFG, pay, device="cpu").numpy().T)
+    words, crc, qual, s = decide_frame_tm(
+        CFG, torch.from_numpy(x), PAY, preamble_offset=CFG.preamble_samples
+    )
+    assert int((words < 0).sum()) > 0
+    res = tframe.frame_result_from_packed(CFG, words, crc, qual, s, PAY)
+    assert bool(res.ok.all()) and bool((res.payload == 0xFF).all())
+
+
+def test_oversized_window_takes_plain_filterbank_on_cpu():
+    """A window one symbol longer than the frame skips the full-fusion
+    kernel (whose quality sums cover exactly the frame's symbols) and takes
+    the plain filterbank over every symbol present, as JAX's golden path
+    does."""
+    pay, x = _capture(0.3, seed=4)
+    x = np.concatenate([x, np.zeros((CFG.samples_per_symbol, x.shape[1]), np.float32)])
+    got = tframe.demodulate_frame_tm(CFG, x, PAY, compute_dtype=torch.float32, device="cpu")
+    want = jframe.demodulate_frame_tm(JCFG, jnp.asarray(x), PAY, compute_dtype=jnp.float32)
+    np.testing.assert_array_equal(got.payload.numpy(), np.asarray(want.payload))
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(want.ok))
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=1e-5)
+    np.testing.assert_allclose(got.snr_db.numpy(), np.asarray(want.snr_db), atol=1e-3)

@@ -1,0 +1,84 @@
+"""anet_torch and chip_smoke.py stand alone: importing every module of the
+port imports neither JAX nor the JAX package, and no entry point quietly
+runs on the CPU when CUDA is absent."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import anet_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax_and_no_anet():
+    modules = sorted(
+        m.name for m in pkgutil.walk_packages(anet_torch.__path__, "anet_torch.")
+    )
+    assert "anet_torch.kernels.build" in modules and "anet_torch.stream" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r} + ['anet_torch', 'chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'anet'))\n"
+        "assert not bad, bad\n"
+        "print('isolated', len(sys.modules))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert "isolated" in out.stdout
+
+
+def _entry_points():
+    from anet_torch.dsp import frame, pipeline
+    from anet_torch.dsp.sync import preamble_waveform
+    from anet_torch.models import get_model
+    from anet_torch.stream import init_carry, receive_stream
+
+    cfg = get_model("mfsk16-fast").config
+    pay = np.zeros((1, 4), np.uint8)
+    return {
+        "transmit": lambda: pipeline.transmit(cfg, pay),
+        "demodulate_frame_tm": lambda: frame.demodulate_frame_tm(cfg, np.zeros((4096, 1), np.float32), 4),
+        "preamble_waveform": lambda: preamble_waveform(cfg),
+        "init_carry": lambda: init_carry(cfg, 1024, 4),
+        "receive_stream": lambda: receive_stream(cfg, np.zeros((1, 1024), np.float32), 1024, 4),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[name]()
+
+
+def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo,
+    the script exits non-zero and prints no result."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True,
+        timeout=120, env={"PATH": "/usr/bin:/bin", "PYTHONPATH": ""},
+    )
+    assert out.returncode != 0
+    assert "anet_torch" in out.stderr
+    assert '"ok"' not in out.stdout

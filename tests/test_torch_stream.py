@@ -1,0 +1,169 @@
+"""The streaming receiver, anet_torch against the JAX package on the CPU:
+always-search and frame-lock modes on the layouts of test_stream_lock.py
+(contiguous, random gaps, 1-2-sample slips); the card's merged lock step
+driven through the plain versions against JAX's merged step under the
+interpret fixture; and checkpoints crossing between the packages."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from anet import stream as jstream
+from anet.dsp import family as jfamily
+from anet.models import get_model as jget_model
+
+import anet_torch.stream as tstream
+from anet_torch.models import get_model
+
+NAME = "mfsk16-fast"
+CFG, JCFG = get_model(NAME).config, jget_model(NAME).config
+PAY = 64
+T_FRAME = jfamily.frame_samples(JCFG, PAY)
+CHUNK = 4096
+
+
+def _capture(rng, gaps_per_stream, noise=0.05):
+    """[B, N] f32 capture: per stream, each frame after its leading gap."""
+    b, n_frames = len(gaps_per_stream), len(gaps_per_stream[0])
+    pays = rng.integers(0, 256, (b * n_frames, PAY), dtype=np.uint8)
+    waves = np.asarray(jax.jit(jfamily.transmit_fn(JCFG))(jnp.asarray(pays)))
+    waves = waves.reshape(b, n_frames, T_FRAME)
+    caps = [
+        np.concatenate([x for i, g in enumerate(gaps) for x in (np.zeros(g, np.float32), waves[s, i])])
+        for s, gaps in enumerate(gaps_per_stream)
+    ]
+    length = -(-(max(map(len, caps)) + T_FRAME + CHUNK) // CHUNK) * CHUNK
+    out = np.zeros((b, length), np.float32)
+    for s, c in enumerate(caps):
+        out[s, : len(c)] = c
+    return out + noise * rng.standard_normal(out.shape).astype(np.float32)
+
+
+def _layout(name, rng, b=3, n_frames=4):
+    if name == "contiguous":
+        return [[450] + [0] * (n_frames - 1) for _ in range(b)]
+    if name == "random_gaps":
+        return [[int(g) for g in rng.integers(0, 3 * CHUNK, n_frames)] for _ in range(b)]
+    return [[777] + [int(g) for g in rng.integers(1, 3, n_frames - 1)] for _ in range(b)]
+
+
+def _assert_same(got, want, frame_start=True):
+    det = got.steps.detected.numpy()
+    np.testing.assert_array_equal(det, np.asarray(want.steps.detected))
+    np.testing.assert_array_equal(
+        got.steps.frame.payload.numpy()[det], np.asarray(want.steps.frame.payload)[det]
+    )
+    np.testing.assert_array_equal(got.steps.frame.ok.numpy(), np.asarray(want.steps.frame.ok))
+    if frame_start:
+        np.testing.assert_array_equal(
+            got.steps.frame_start.numpy()[det], np.asarray(want.steps.frame_start)[det]
+        )
+    for f in ("frames_detected", "frames_ok", "decode_errors", "next_start", "locked", "last_frame_end"):
+        np.testing.assert_array_equal(
+            getattr(got.carry, f).numpy(), np.asarray(getattr(want.carry, f)), f
+        )
+    np.testing.assert_allclose(got.carry.drift.numpy(), np.asarray(want.carry.drift), atol=1e-6)
+
+
+@pytest.mark.parametrize("lock", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "random_gaps", "slip"])
+def test_receive_stream_matches_jax(layout, lock):
+    rng = np.random.default_rng(sum(map(ord, layout)))
+    gaps = _layout(layout, rng)
+    cap = _capture(rng, gaps)
+    want = jstream.receive_stream(JCFG, jnp.asarray(cap), CHUNK, PAY, lock=lock)
+    got = tstream.receive_stream(CFG, cap, CHUNK, PAY, lock=lock, device="cpu")
+    _assert_same(got, want)
+    assert int(got.carry.frames_ok.sum()) == 3 * 4
+    assert got.steps.frame.payload.shape == (cap.shape[1] // CHUNK, 3, PAY)
+
+
+def test_merged_lock_step_matches_jax_kernels(interpret_tpu_kernels, monkeypatch):
+    """The card's lock path (_locked_step_merged: demod_probe_fused, and on
+    acquisition sync_search_fused + demod_at_fused) run through the plain
+    versions on the CPU, against JAX's merged step with its Pallas kernels
+    in interpret mode; bf16 buffers, frame starts at the row residues."""
+    rng = np.random.default_rng(0x7E5)
+    gaps = [[g, 0, 0] for g in (124, 125, 126, 127, 2)]
+    cap = _capture(rng, gaps, noise=0.02)
+    calls = []
+    real = tstream._locked_step_merged
+    monkeypatch.setattr(tstream, "_merged_lock_supported", lambda config, carry: True)
+    monkeypatch.setattr(
+        tstream, "_locked_step_merged", lambda *a, **k: calls.append(1) or real(*a, **k)
+    )
+    got = tstream.receive_stream(
+        CFG, torch.from_numpy(cap).to(torch.bfloat16), CHUNK, PAY, lock=True,
+        compute_dtype=torch.bfloat16, device="cpu",
+    )
+    assert len(calls) == cap.shape[1] // CHUNK
+    interpret_tpu_kernels()
+    want = jstream.receive_stream(
+        JCFG, jnp.asarray(cap).astype(jnp.bfloat16), CHUNK, PAY, lock=True,
+        compute_dtype=jnp.bfloat16, resident=False,
+    )
+    _assert_same(got, want)
+    assert int(got.carry.frames_ok.sum()) == 5 * 3
+    np.testing.assert_allclose(
+        got.steps.quality.numpy(), np.asarray(want.steps.quality), rtol=1e-3, atol=1e-6
+    )
+
+
+@pytest.mark.parametrize("lock", [False, True])
+def test_jax_checkpoint_resumes_in_port(tmp_path, lock):
+    """A checkpoint written by anet.stream.save_carry mid-capture resumes in
+    anet_torch with the results of one uninterrupted JAX run; and the port's
+    own checkpoint resumes in JAX."""
+    rng = np.random.default_rng(11)
+    cap = _capture(rng, _layout("random_gaps", rng))
+    cut = (cap.shape[1] // CHUNK // 2) * CHUNK
+    full = jstream.receive_stream(JCFG, jnp.asarray(cap), CHUNK, PAY, lock=lock)
+    first = jstream.receive_stream(JCFG, jnp.asarray(cap[:, :cut]), CHUNK, PAY, lock=lock)
+    path = tmp_path / "jax.npz"
+    jstream.save_carry(path, first.carry)
+    ckpt = tstream.load_carry(path, device="cpu")
+    rest = tstream.receive_stream(CFG, cap[:, cut:], CHUNK, PAY, lock=lock, carry=ckpt.carry, device="cpu")
+    n0 = cut // CHUNK
+    np.testing.assert_array_equal(rest.steps.detected.numpy(), np.asarray(full.steps.detected)[n0:])
+    det = rest.steps.detected.numpy()
+    np.testing.assert_array_equal(
+        rest.steps.frame.payload.numpy()[det], np.asarray(full.steps.frame.payload)[n0:][det]
+    )
+    for f in tstream.StreamCarry._fields:
+        np.testing.assert_array_equal(
+            getattr(rest.carry, f).float().numpy(), np.asarray(getattr(full.carry, f)).astype(np.float32), f
+        )
+    # the other way: the port checkpoints, JAX resumes
+    mid = tstream.receive_stream(CFG, cap[:, :cut], CHUNK, PAY, lock=lock, device="cpu")
+    path2 = tmp_path / "torch.npz"
+    tstream.save_carry(path2, mid.carry, pending=np.zeros(3, np.float32))
+    back = jstream.load_carry(path2)
+    assert back.pending.shape == (3,)
+    tail = jstream.receive_stream(JCFG, jnp.asarray(cap[:, cut:]), CHUNK, PAY, lock=lock, carry=back.carry)
+    np.testing.assert_array_equal(np.asarray(tail.carry.frames_ok), np.asarray(full.carry.frames_ok))
+    np.testing.assert_array_equal(np.asarray(tail.carry.next_start), np.asarray(full.carry.next_start))
+
+
+def test_carry_numpy_roundtrip_keeps_bf16():
+    carry = tstream.init_carry(CFG, CHUNK, PAY, (2,), dtype=torch.bfloat16, device="cpu")
+    carry = carry._replace(buffer=carry.buffer + torch.tensor(0.3, dtype=torch.bfloat16))
+    fields = tstream.carry_to_numpy(carry)
+    assert str(fields["buffer_dtype"]) == "bfloat16" and fields["buffer"].dtype == np.float32
+    back = tstream.carry_from_numpy(fields, device="cpu")
+    assert back.buffer.dtype == torch.bfloat16 and torch.equal(back.buffer, carry.buffer)
+    for f in tstream.StreamCarry._fields:
+        assert getattr(back, f).dtype == getattr(carry, f).dtype
+
+
+def test_unported_options_raise():
+    cap = np.zeros((1, CHUNK), np.float32)
+    with pytest.raises(NotImplementedError):
+        tstream.receive_stream(CFG, cap, CHUNK, PAY, track=True, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tstream.receive_stream(CFG, cap, CHUNK, PAY, lock=True, resident=True, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tstream.receive_stream(get_model("mfsk4-coded").config, cap, CHUNK, PAY, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tstream.init_carry(CFG, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu")
