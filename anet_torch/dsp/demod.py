@@ -62,6 +62,27 @@ def decide_symbols(config: ModemConfig, energies: torch.Tensor) -> torch.Tensor:
     return gray_decode(tone, config.bits_per_symbol)
 
 
+def bit_llrs(config: ModemConfig, energies: torch.Tensor) -> torch.Tensor:
+    """Per-bit soft decisions from tone energies [..., S, M] (max-log
+    approximation): for data bit k of a symbol (MSB-first, as
+    unpack_symbols), the maximum energy over the tones whose Gray-decoded
+    value has bit k = 1 minus the maximum over those with bit k = 0.
+    Positive = bit 1; unnormalized. Returns float32 [..., S * bits_per_symbol]
+    in transmitted bit order."""
+    m = config.num_tones
+    bps = config.bits_per_symbol
+    dev = energies.device
+    data_vals = gray_decode(torch.arange(m, dtype=torch.int32, device=dev), bps)
+    shifts = torch.arange(bps - 1, -1, -1, dtype=torch.int32, device=dev)
+    bit_of_tone = ((data_vals[:, None] >> shifts[None, :]) & 1).bool()  # [M, bps]
+    e_b = energies.float()[..., None]  # [..., S, M, 1]
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    max_one = torch.where(bit_of_tone, e_b, neg_inf).amax(-2)  # [..., S, bps]
+    max_zero = torch.where(~bit_of_tone, e_b, neg_inf).amax(-2)
+    llrs = max_one - max_zero
+    return llrs.reshape(*energies.shape[:-2], energies.shape[-2] * bps)
+
+
 def estimate_snr_db(config: ModemConfig, energies: torch.Tensor) -> torch.Tensor:
     """Per-stream SNR estimate from the filterbank output (dB): winning-bin
     energy over the mean of the losing bins, aggregated over symbols."""

@@ -1,10 +1,11 @@
-"""CRC-32 of the frame (mirrors the CRC part of ``anet.dsp.fec``).
+"""CRC-32 and FEC of the frame (mirrors ``anet.dsp.fec``).
 
 Polynomial and parameters match zlib's CRC-32 (reflected 0xEDB88320, init
 and xor-out 0xFFFFFFFF), so host-side checks use the stdlib and the device
-form is tested against it. The convolutional code and its Viterbi decoder
-arrive with the coded slice of the port; only their bit-count arithmetic is
-here, because ``ModemConfig`` reads it.
+form is tested against it. The FEC is the rate-1/2 K=7 convolutional code
+(polynomials 171/133 octal, zero tail flush) behind a rectangular block
+interleaver, decoded by a batched Viterbi search over the 64-state trellis:
+hard-decision or soft-decision on per-bit LLRs (anet_torch.dsp.demod.bit_llrs).
 
 Device formulation for a static length: CRC-32 is linear over GF(2), so the
 checksum is one bit-matrix product, crc = (bits @ P_N) mod 2 ^ crc(0^N),
@@ -23,6 +24,9 @@ import torch
 from anet_torch.dsp.bits import bytes_to_bits
 
 CONV_K = 7
+CONV_POLY1 = 0o171  # 1111001
+CONV_POLY2 = 0o133  # 1011011
+CONV_STATES = 1 << (CONV_K - 1)  # 64
 CONV_TAIL_BITS = CONV_K - 1  # zero-flush so the trellis ends in state 0
 
 
@@ -37,6 +41,112 @@ def interleaved_bits(n_bits: int, depth: int) -> int:
         return n_bits
     rows = -(-n_bits // depth)
     return rows * depth
+
+
+def interleave(bits: torch.Tensor, depth: int) -> torch.Tensor:
+    """Rectangular block interleaver: [..., n] -> [..., rows*depth], written
+    row-major, read column-major, zero-padded to a full block. Consecutive
+    on-air bits land ``depth`` apart after deinterleaving, so a channel
+    burst becomes isolated single errors for the convolutional decoder."""
+    if depth <= 1:
+        return bits
+    n = bits.shape[-1]
+    rows = -(-n // depth)
+    pad = rows * depth - n
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    block = bits.reshape(*bits.shape[:-1], rows, depth)
+    return block.transpose(-1, -2).reshape(*bits.shape[:-1], rows * depth)
+
+
+def deinterleave(bits: torch.Tensor, depth: int, n_bits: int) -> torch.Tensor:
+    """Inverse of interleave; returns the first ``n_bits`` (pad dropped).
+    A pure permutation: works on hard bits and on float LLRs alike."""
+    if depth <= 1:
+        return bits[..., :n_bits]
+    total = bits.shape[-1]
+    rows = total // depth
+    block = bits.reshape(*bits.shape[:-1], depth, rows)
+    out = block.transpose(-1, -2).reshape(*bits.shape[:-1], total)
+    return out[..., :n_bits]
+
+
+@lru_cache(maxsize=1)
+def _conv_tables():
+    """(outputs[64, 2, 2], predecessors[64, 2]) transition tables.
+
+    outputs[s, b] = the two coded bits emitted when input bit ``b`` enters
+    with shift-register state ``s`` (the last K-1 input bits, newest in the
+    LSB). predecessors[ns, j] = the two states that can transition into
+    ``ns`` (its input bit is ns & 1 by construction)."""
+    outputs = np.zeros((CONV_STATES, 2, 2), np.int32)
+    for s in range(CONV_STATES):
+        for b in range(2):
+            reg = (s << 1) | b  # K bits: state history + new bit
+            outputs[s, b, 0] = bin(reg & CONV_POLY1).count("1") & 1
+            outputs[s, b, 1] = bin(reg & CONV_POLY2).count("1") & 1
+    preds = np.zeros((CONV_STATES, 2), np.int32)
+    for ns in range(CONV_STATES):
+        # ns = ((s << 1) | b) & 63  =>  s = (ns >> 1) | (h << 5), h in {0,1}
+        preds[ns, 0] = ns >> 1
+        preds[ns, 1] = (ns >> 1) | (1 << (CONV_K - 2))
+    return outputs, preds
+
+
+def conv_encode(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 uint8 [..., n] -> coded 0/1 uint8 [..., 2*(n + 6)]: each output
+    bit is the parity of a 7-bit sliding window AND'ed with its polynomial
+    (the register's MSB is the oldest bit)."""
+    n = bits.shape[-1]
+    padded = torch.nn.functional.pad(bits.to(torch.int32), (CONV_K - 1, CONV_TAIL_BITS))
+    windows = padded.unfold(-1, CONV_K, 1)  # [..., n + 6, 7], oldest..newest
+    taps = torch.tensor(
+        [[(poly >> (CONV_K - 1 - k)) & 1 for poly in (CONV_POLY1, CONV_POLY2)] for k in range(CONV_K)],
+        dtype=torch.int32, device=bits.device,
+    )  # [7, 2]
+    out = (windows[..., None] * taps).sum(-2) & 1  # [..., n + 6, 2]
+    return out.reshape(*bits.shape[:-1], 2 * (n + CONV_TAIL_BITS)).to(torch.uint8)
+
+
+@lru_cache(maxsize=1)
+def _branch_signs() -> np.ndarray:
+    """[64, 4] per-state +-1 branch-metric signs of the trellis kernel:
+    columns are (-e[j=0,bit0], -e[j=0,bit1], -e[j=1,bit0], -e[j=1,bit1])
+    where e is the signed expected coded pair of the transition into each
+    state through predecessor j (bm_j = signs . rx, a negative correlation)."""
+    outputs_np, preds_np = _conv_tables()
+    exp = np.zeros((CONV_STATES, 2, 2), np.int32)
+    for ns in range(CONV_STATES):
+        for j in range(2):
+            exp[ns, j] = outputs_np[preds_np[ns, j], ns & 1]
+    e = (2 * exp - 1).astype(np.float32)  # [64, j, pair]
+    return -e.reshape(CONV_STATES, 4)
+
+
+def viterbi_decode(coded: torch.Tensor, n_data_bits: int) -> torch.Tensor:
+    """Hard-decision Viterbi: coded 0/1 [..., 2*(n+6)] -> 0/1 uint8 [..., n]."""
+    return _viterbi(coded.to(torch.float32) * 2.0 - 1.0, n_data_bits)
+
+
+def viterbi_decode_soft(llrs: torch.Tensor, n_data_bits: int) -> torch.Tensor:
+    """Soft-decision Viterbi: per-coded-bit LLRs [..., 2*(n+6)] -> bits.
+    ``llrs`` positive = bit 1 (the bit_llrs convention)."""
+    return _viterbi(llrs.to(torch.float32), n_data_bits)
+
+
+def _viterbi(soft: torch.Tensor, n_data_bits: int) -> torch.Tensor:
+    """Shared trellis search; ``soft`` is signed (+ = bit 1) per coded bit.
+    Reshapes to per-stream pairs [N, total, 2] and runs
+    anet_torch.kernels.viterbi_trellis: the CUDA kernel for tensors on the
+    card, its plain version for tensors on the CPU."""
+    from anet_torch.kernels import viterbi_trellis
+
+    batch_shape = soft.shape[:-1]
+    total = n_data_bits + CONV_TAIL_BITS
+    pairs = soft[..., : 2 * total].reshape(-1, total, 2).contiguous()
+    signs = torch.as_tensor(_branch_signs(), device=soft.device)
+    bits = viterbi_trellis(signs, pairs)  # uint8 [N, total]
+    return bits.reshape(*batch_shape, total)[..., :n_data_bits]
 
 
 def crc32_host(data: bytes) -> int:

@@ -1,5 +1,5 @@
-"""PHY framing: payload bytes <-> modulated frame waveform (mirrors
-``anet.dsp.frame``: the transmit half and the uncoded receive half).
+"""PHY framing: payload bytes <-> modulated frame waveform (mirrors the
+fixed-length part of ``anet.dsp.frame``, uncoded and coded).
 
 Frame layout (all multi-byte fields big-endian):
 
@@ -10,9 +10,12 @@ Frame layout (all multi-byte fields big-endian):
     [ payload           N B ]
     [ payload CRC       4 B ]  CRC-32 over the payload
 
-The data section is Gray-mapped onto MFSK symbols, zero-bit padded up to a
-whole symbol. Unsigned 32-bit fields are held in int64 tensors (torch's
-uint32 support is partial).
+With ``config.fec == "conv"`` the data section is convolutionally encoded
+and block-interleaved before it goes on the air (anet_torch.dsp.fec); the
+receiver deinterleaves per-bit LLRs and runs the soft Viterbi decoder. The
+(coded) data section is Gray-mapped onto MFSK symbols, zero-bit padded up
+to a whole symbol. Unsigned 32-bit fields are held in int64 tensors
+(torch's uint32 support is partial).
 """
 
 from __future__ import annotations
@@ -31,7 +34,13 @@ from anet_torch.dsp.bits import (
     pack_symbols,
     unpack_symbols,
 )
-from anet_torch.dsp.demod import decide_symbols, demod_basis, estimate_snr_db, tone_energies
+from anet_torch.dsp.demod import (
+    bit_llrs,
+    decide_symbols,
+    demod_basis,
+    estimate_snr_db,
+    tone_energies,
+)
 from anet_torch.dsp.fec import crc32_device, crc32_host, parity_to_u32
 from anet_torch.dsp.mod import modulate_symbols, synthesize_tones
 from anet_torch.dsp.params import ModemConfig
@@ -40,14 +49,6 @@ from anet_torch.dsp.sync import preamble_tone_indices
 HEADER_BYTES = 8
 TRAILER_BYTES = 4
 OVERHEAD_BYTES = HEADER_BYTES + TRAILER_BYTES
-
-
-def _require_uncoded(config) -> None:
-    if getattr(config, "fec", "none") != "none":
-        raise NotImplementedError(
-            "coded frames (fec='conv') arrive with the coded slice of the "
-            "port (ROADMAP: demod_at_energies_fused + viterbi_trellis)"
-        )
 
 
 def data_section_bytes(payload_len: int) -> int:
@@ -110,15 +111,20 @@ def _parse_header(header: torch.Tensor):
 
 def data_section_air_bits_array(config, payload: torch.Tensor) -> torch.Tensor:
     """payload uint8[..., N] -> on-air data-section bits uint8[..., bits]:
-    header + payload + CRC-32, MSB-first."""
-    _require_uncoded(config)
+    header + payload + CRC-32, MSB-first, then the config's FEC and
+    interleaver."""
     n = payload.shape[-1]
     header = torch.as_tensor(_header_np(n), device=payload.device).expand(
         *payload.shape[:-1], HEADER_BYTES
     )
     crc = crc32_device(payload)
     section = torch.cat([header, payload.to(torch.uint8), _u32_to_be_bytes(crc)], dim=-1)
-    return bytes_to_bits(section)
+    bits = bytes_to_bits(section)
+    if config.fec == "conv":
+        from anet_torch.dsp.fec import conv_encode, interleave
+
+        bits = interleave(conv_encode(bits), config.fec_interleave)
+    return bits
 
 
 def frame_data_symbols(config: ModemConfig, payload: torch.Tensor) -> torch.Tensor:
@@ -173,7 +179,6 @@ def demodulate_frame(
     """Symbol-aligned batch-major frame waveform [..., T] -> payload +
     verdicts, through the plain filterbank. ``samples`` must start exactly
     at the frame start and hold frame_num_samples(config, payload_len)."""
-    _require_uncoded(config)
     samples = as_tensor(samples, device)
     data = samples[..., config.preamble_symbols * config.samples_per_symbol :]
     energies = tone_energies(config, data, compute_dtype=compute_dtype)
@@ -197,19 +202,25 @@ def demodulate_frame_tm(
     (anet_torch.kernels.decide_frame_tm) reads the data rows in place at the
     preamble offset (no copy of the data section), decides, packs and
     checksums; only KB-scale tensors reach frame_result_from_packed. Other
-    windows take the plain filterbank on the CPU; on the card they need the
-    decisions-only kernel (decide_tones_tm), which is still to be ported.
+    uncoded windows take the plain filterbank on the CPU; on the card they
+    need the decisions-only kernel (decide_tones_tm), which is still to be
+    ported.
+
+    Coded configs (fec='conv') need every tone's energy for the soft
+    decisions: they take the [2M, sps] x [S, sps, B] filterbank product
+    (operands in ``compute_dtype``, float32 accumulation and result), keep
+    the energies time-major [S, M, B] and transpose them once for the LLRs.
     """
     from anet_torch.kernels import decide_frame_tm
 
-    _require_uncoded(config)
     samples_tm = as_tensor(samples_tm, device)
     sps = config.samples_per_symbol
     m = config.num_tones
     pre = config.preamble_symbols * sps
     s = (samples_tm.shape[0] - pre) // sps
     if (
-        config.bits_per_symbol in (1, 2, 4)
+        config.fec != "conv"
+        and config.bits_per_symbol in (1, 2, 4)
         and m <= 16
         and s == data_symbols_for_payload(config, payload_len)
     ):
@@ -217,19 +228,39 @@ def demodulate_frame_tm(
             config, samples_tm.to(compute_dtype), payload_len, preamble_offset=pre
         )
         return frame_result_from_packed(config, words, crc_counts, qual, n_sym, payload_len)
-    if samples_tm.is_cuda:
+    if samples_tm.is_cuda and config.fec != "conv":
         raise NotImplementedError(
             "this window needs decide_tones_tm, not yet ported (ROADMAP queue 2)"
         )
     b = samples_tm.shape[1]
-    w = samples_tm[pre : pre + s * sps].reshape(s, sps, b).to(compute_dtype).float()
-    basis_t = demod_basis(config, dtype=compute_dtype, device=samples_tm.device).float().T
-    iq = torch.einsum("mk,skb->smb", basis_t, w)
-    e = iq[:, :m] ** 2 + iq[:, m:] ** 2  # [S, M, B]
-    tone = torch.argmax(e, dim=1).to(torch.int32)
-    return frame_result_from_tone_decisions(
-        config, tone.T, e.amax(1).T, e.sum(1).T, payload_len
+    w = samples_tm[pre : pre + s * sps].reshape(s, sps, b).to(compute_dtype)
+    basis_t = demod_basis(config, dtype=compute_dtype, device=samples_tm.device).T  # [2M, sps]
+    e = _filterbank_energies_tm(basis_t, w, m)  # [S, M, B]
+    tone = torch.argmax(e, dim=1).to(torch.int32)  # [S, B]
+    best, total = e.amax(1), e.sum(1)
+    llrs = bit_llrs(config, e.permute(2, 0, 1)) if config.fec == "conv" else None
+    # quality reduces over the symbol (major) axis while still time-major;
+    # only [B] vectors and the [S, B] decisions transpose
+    confidence = (best / total.clamp_min(1e-20)).mean(0)
+    snr_db = _snr_db(best.mean(0), ((total - best) / (m - 1)).mean(0))
+    symbols = gray_decode(tone.T, config.bits_per_symbol)  # [B, S]
+    bits = unpack_symbols(symbols, config.bits_per_symbol)
+    return frame_result_from_bits(
+        config, bits, payload_len, llrs=llrs, confidence=confidence, snr_db=snr_db
     )
+
+
+def _filterbank_energies_tm(basis_t: torch.Tensor, w: torch.Tensor, m: int) -> torch.Tensor:
+    """basis_t [2M, sps] x w [S, sps, B] -> energies float32 [S, M, B].
+    The product accumulates in float32 and returns float32 whatever the
+    operands' dtype: on the card a low-precision product asks for a float32
+    result (the operands stay in their dtype); on the CPU the operands are
+    widened first, which gives the same products."""
+    if w.is_cuda and w.dtype != torch.float32:
+        iq = torch.bmm(basis_t.expand(w.shape[0], -1, -1), w, out_dtype=torch.float32)
+    else:
+        iq = torch.einsum("mk,skb->smb", basis_t.float(), w.float())
+    return iq[:, :m] ** 2 + iq[:, m:] ** 2
 
 
 def frame_result_from_tone_decisions(
@@ -241,8 +272,10 @@ def frame_result_from_tone_decisions(
 ) -> FrameResult:
     """Parse + verify from reduced decisions: winning tone index plus
     best/total energies, all [..., S] batch-major — the contract of the
-    demod kernels (demod_at_fused / demod_probe_fused)."""
-    _require_uncoded(config)
+    demod kernels (demod_at_fused / demod_probe_fused). Uncoded only: the
+    FEC's soft decisions need every tone's energy."""
+    if config.fec == "conv":
+        raise ValueError("coded configs need full energies (use frame_result_from_decisions)")
     m = config.num_tones
     confidence = (best / total.clamp_min(1e-20)).mean(-1)
     rest = (total - best) / (m - 1)
@@ -311,13 +344,17 @@ def frame_result_from_decisions(
     payload_len: int,
 ) -> FrameResult:
     """Parse + verify the data section from decided symbols and their
-    filterbank energies [..., S, M]."""
+    filterbank energies [..., S, M]; the FEC's soft decisions come from the
+    energies."""
     bits = unpack_symbols(symbols, config.bits_per_symbol)
+    llrs = bit_llrs(config, energies) if config.fec == "conv" else None
     best = energies.amax(-1)
     total = energies.sum(-1)
     confidence = (best / total.clamp_min(1e-20)).mean(-1)
     snr_db = estimate_snr_db(config, energies)
-    return frame_result_from_bits(config, bits, payload_len, confidence=confidence, snr_db=snr_db)
+    return frame_result_from_bits(
+        config, bits, payload_len, llrs=llrs, confidence=confidence, snr_db=snr_db
+    )
 
 
 def frame_result_from_bits(
@@ -325,12 +362,21 @@ def frame_result_from_bits(
     bits: torch.Tensor,
     payload_len: int,
     *,
+    llrs: torch.Tensor | None = None,
     confidence: torch.Tensor,
     snr_db: torch.Tensor,
 ) -> FrameResult:
-    """Uncoded frame parse: demodulated bits -> payload + verdicts."""
-    _require_uncoded(config)
+    """Frame parse: demodulated bits (and, for soft FEC, per-bit LLRs) ->
+    payload + verdicts. A coded config deinterleaves the soft values and
+    runs the Viterbi decoder; without LLRs the hard bits stand in as +-1."""
     n_bytes = data_section_bytes(payload_len)
+    if config.fec == "conv":
+        from anet_torch.dsp.fec import conv_encoded_bits, deinterleave, viterbi_decode_soft
+
+        soft = llrs if llrs is not None else bits.to(torch.float32) * 2.0 - 1.0
+        air = soft[..., : data_section_coded_bits(config, payload_len)]
+        coded = deinterleave(air, config.fec_interleave, conv_encoded_bits(8 * n_bytes))
+        bits = viterbi_decode_soft(coded, 8 * n_bytes)
     section = bits_to_bytes(bits[..., : n_bytes * 8])
     payload = section[..., HEADER_BYTES : HEADER_BYTES + payload_len]
     trailer = section[..., HEADER_BYTES + payload_len :]

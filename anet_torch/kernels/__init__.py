@@ -1,13 +1,16 @@
-"""Hand-written CUDA kernels of the receiver's main path, with their plain
-PyTorch versions (mirrors the four ``anet.kernels`` Pallas kernels the
-aligned and locked streaming receivers run).
+"""Hand-written CUDA kernels of the receiver's main paths, with their plain
+PyTorch versions (mirrors the seven ``anet.kernels`` Pallas kernels that the
+aligned and locked streaming receivers run, uncoded and coded).
 
-| wrapper             | kernel source             | TPU kernel it replaces        |
-|---------------------|---------------------------|-------------------------------|
-| decide_frame_tm     | csrc/decide_frame_tm.cu   | anet/kernels/__init__.py:488  |
-| sync_search_fused   | csrc/sync_search.cu       | anet/kernels/__init__.py:1095 |
-| demod_at_fused      | csrc/demod_at.cu          | anet/kernels/__init__.py:1992 |
-| demod_probe_fused   | csrc/demod_probe.cu       | anet/kernels/__init__.py:2307 |
+| wrapper                 | kernel source               | TPU kernel it replaces        |
+|-------------------------|-----------------------------|-------------------------------|
+| decide_frame_tm         | csrc/decide_frame_tm.cu     | anet/kernels/__init__.py:488  |
+| sync_search_fused       | csrc/sync_search.cu         | anet/kernels/__init__.py:1095 |
+| demod_at_fused          | csrc/demod_at.cu            | anet/kernels/__init__.py:1992 |
+| demod_probe_fused       | csrc/demod_probe.cu         | anet/kernels/__init__.py:2307 |
+| viterbi_trellis         | csrc/viterbi.cu             | anet/kernels/__init__.py:754  |
+| demod_at_energies_fused | csrc/demod_at_energies.cu   | anet/kernels/__init__.py:1918 |
+| probe_at_fused          | csrc/probe_at.cu            | anet/kernels/__init__.py:1621 |
 
 Each wrapper runs its plain version (``*_ref``) when its tensors lie on the
 CPU, and launches its CUDA kernel when they lie on the card: it checks
@@ -45,6 +48,12 @@ __all__ = [
     "demod_probe_fused",
     "demod_probe_fused_ref",
     "demod_at_buffer_pad",
+    "viterbi_trellis",
+    "viterbi_trellis_ref",
+    "demod_at_energies_fused",
+    "demod_at_energies_fused_ref",
+    "probe_at_fused",
+    "probe_at_fused_ref",
 ]
 
 TM_SYMBOL_TILE = 8  # Gray-decoded symbols packed per int32 word
@@ -60,6 +69,9 @@ launch_counts = {
     "sync_search_fused": 0,
     "demod_at_fused": 0,
     "demod_probe_fused": 0,
+    "viterbi_trellis": 0,
+    "demod_at_energies_fused": 0,
+    "probe_at_fused": 0,
 }
 
 
@@ -82,6 +94,19 @@ def _check_cuda_input(name: str, t: torch.Tensor, what: str) -> int:
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: {what} must be contiguous in its last dimension")
     return _KERNEL_DTYPES[t.dtype]
+
+
+def _check_buffer_and_starts(name: str, buffer: torch.Tensor, starts: torch.Tensor, what: str):
+    """Checks of the kernels that index a [B, L] stream buffer at per-stream
+    positions: (dtype code, ``starts`` as contiguous int32 [B] on the card)."""
+    dtype = _check_cuda_input(name, buffer, "buffer")
+    if buffer.dim() != 2 or not buffer.is_contiguous():
+        raise ValueError(f"{name}: buffer must be a contiguous [B, L] tensor")
+    b = buffer.shape[0]
+    st = starts.to(device=buffer.device, dtype=torch.int32).contiguous()
+    if st.shape != (b,):
+        raise ValueError(f"{name}: {what} must be [B] = [{b}], got {tuple(st.shape)}")
+    return dtype, st
 
 
 def _stream_handle(device: torch.device) -> int:
@@ -306,16 +331,21 @@ def sync_search_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int, t
 # --- demod_at_fused: align + demod at dynamic starts -------------------------
 
 
-def demod_at_fused_ref(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
-    """Plain version of demod_at_fused."""
+def _span_iq(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
+    """I/Q float32 [B, S, 2M] of the frames whose preamble starts at
+    ``start``: the plain front of the align+demod kernels."""
     from anet_torch.dsp.sync import gather_span
 
     sps = config.samples_per_symbol
     pre = config.preamble_symbols * sps
     x = gather_span(buffer, start.to(torch.int64) + pre, n_symbols * sps).float()
     basis = demod_basis(config, dtype=buffer.dtype, device=buffer.device).float()
-    iq = x.reshape(*x.shape[:-1], n_symbols, sps) @ basis  # [B, S, 2M]
-    return _decisions(config, iq, -1)
+    return x.reshape(*x.shape[:-1], n_symbols, sps) @ basis
+
+
+def demod_at_fused_ref(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
+    """Plain version of demod_at_fused."""
+    return _decisions(config, _span_iq(config, buffer, start, n_symbols), -1)
 
 
 def demod_at_fused(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
@@ -326,14 +356,9 @@ def demod_at_fused(config: ModemConfig, buffer: torch.Tensor, start: torch.Tenso
     if buffer.device.type == "cpu":
         return demod_at_fused_ref(config, buffer, start, n_symbols)
     name = "demod_at_fused"
-    dtype = _check_cuda_input(name, buffer, "buffer")
-    if buffer.dim() != 2 or not buffer.is_contiguous():
-        raise ValueError(f"{name}: buffer must be a contiguous [B, L] tensor")
+    dtype, st = _check_buffer_and_starts(name, buffer, start, "start")
     _check_kernel_geometry(name, config)
     b, length = buffer.shape
-    st = start.to(device=buffer.device, dtype=torch.int32).contiguous()
-    if st.shape != (b,):
-        raise ValueError(f"{name}: start must be [B] = [{b}], got {tuple(st.shape)}")
     dev = buffer.device
     tone = torch.empty(b, n_symbols, dtype=torch.int32, device=dev)
     best = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
@@ -355,6 +380,17 @@ def _probe_span_rows(k: int, n_lags: int) -> int:
     return -(-(k + n_lags - 1) // _ROW) + 1
 
 
+def _probe_abs_corr(buffer: torch.Tensor, st: torch.Tensor, template: torch.Tensor, n_lags: int):
+    """|correlation| float32 [B, n_lags] of the template (rounded to the
+    buffer's dtype) at lags st .. st + n_lags - 1: the probes' plain front."""
+    from anet_torch.dsp.sync import gather_span
+
+    k = template.shape[-1]
+    t = template.to(buffer.dtype).float()
+    wins = gather_span(buffer, st, k + n_lags - 1).float()
+    return (wins.unfold(-1, k, 1) @ t).abs()
+
+
 def demod_probe_fused_ref(
     config: ModemConfig,
     buffer: torch.Tensor,
@@ -369,9 +405,7 @@ def demod_probe_fused_ref(
 
     k = template.shape[-1]
     st = st0.to(torch.int64)
-    t = template.to(buffer.dtype).float()
-    wins = gather_span(buffer, st, k + n_lags - 1).float()
-    cabs = (wins.unfold(-1, k, 1) @ t).abs()  # [B, n_lags]
+    cabs = _probe_abs_corr(buffer, st, template, n_lags)
     span = gather_span(buffer, st // _ROW * _ROW, _probe_span_rows(k, n_lags) * _ROW).float()
     off = torch.argmax(cabs, dim=-1).to(torch.int32)
     tone, best, total = demod_at_fused_ref(config, buffer, st + off, n_symbols)
@@ -400,17 +434,12 @@ def demod_probe_fused(
     if buffer.device.type == "cpu":
         return demod_probe_fused_ref(config, buffer, st0, n_symbols, template, n_lags=n_lags)
     name = "demod_probe_fused"
-    dtype = _check_cuda_input(name, buffer, "buffer")
-    if buffer.dim() != 2 or not buffer.is_contiguous():
-        raise ValueError(f"{name}: buffer must be a contiguous [B, L] tensor")
+    dtype, st = _check_buffer_and_starts(name, buffer, st0, "st0")
     if not 1 <= n_lags <= 8:
         raise ValueError(f"{name}: n_lags must be in [1, 8]")
     _check_kernel_geometry(name, config)
     b, length = buffer.shape
     dev = buffer.device
-    st = st0.to(device=dev, dtype=torch.int32).contiguous()
-    if st.shape != (b,):
-        raise ValueError(f"{name}: st0 must be [B] = [{b}], got {tuple(st.shape)}")
     k = template.shape[-1]
     tpl = template.to(device=dev, dtype=buffer.dtype).float().contiguous()
     cmax = torch.empty(b, dtype=torch.float32, device=dev)
@@ -428,6 +457,181 @@ def demod_probe_fused(
     )
     _check_launch(err, name)
     return cmax, off, energy, tone, best, total
+
+
+# --- viterbi_trellis: the coded receiver's 64-state soft Viterbi --------------
+
+VIT_STATES = 64  # 2**(K-1), K = 7
+VIT_BIG = 1e9  # start metric of every state but state 0
+# Decision words a block of the kernel keeps in shared memory: 4 streams a
+# block, 8 bytes a trellis step and stream, within this many bytes; longer
+# trellises keep their decision words in device memory.
+_VIT_WARPS = 4
+_VIT_SHARED_BYTES = 72 * 1024
+
+
+def viterbi_trellis_ref(signs: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
+    """Plain version of viterbi_trellis: a loop over the trellis steps on
+    [64, N] path metrics, then the traceback from state 0. Candidate j of
+    state ns is pm[(ns >> 1) | (j << 5)] + signs[ns, 2j] * rx0 +
+    signs[ns, 2j+1] * rx1, added in that order; j = 1 wins only if strictly
+    smaller; metrics start at 0 for state 0 and 1e9 elsewhere and are never
+    normalized."""
+    n, t_steps, _ = rx.shape
+    dev = rx.device
+    ns = torch.arange(VIT_STATES, device=dev)
+    idx0, idx1 = ns >> 1, (ns >> 1) | (VIT_STATES >> 1)
+    sg = signs.float()
+    s00, s01, s10, s11 = (sg[:, c : c + 1] for c in range(4))
+    rx_tm = rx.float().permute(1, 2, 0)  # [T, 2, N]
+    pm = torch.full((VIT_STATES, n), VIT_BIG, dtype=torch.float32, device=dev)
+    pm[0] = 0.0
+    takes = torch.empty(t_steps, VIT_STATES, n, dtype=torch.bool, device=dev)
+    for t in range(t_steps):
+        rx0, rx1 = rx_tm[t, 0:1], rx_tm[t, 1:2]
+        cand0 = pm[idx0] + s00 * rx0 + s01 * rx1
+        cand1 = pm[idx1] + s10 * rx0 + s11 * rx1
+        torch.lt(cand1, cand0, out=takes[t])  # ties -> j = 0
+        pm = torch.minimum(cand0, cand1)
+    state = torch.zeros(1, n, dtype=torch.int64, device=dev)  # tail-flushed: end in state 0
+    bits = torch.empty(n, t_steps, dtype=torch.uint8, device=dev)
+    for t in range(t_steps - 1, -1, -1):
+        bits[:, t] = (state[0] & 1).to(torch.uint8)
+        j = takes[t].gather(0, state).to(torch.int64)
+        state = (state >> 1) | (j << 5)
+    return bits
+
+
+def viterbi_trellis(signs: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
+    """Forward add-compare-select and traceback over the 64-state rate-1/2
+    K=7 trellis, one stream per row.
+
+    ``signs`` is float32 [64, 4]: per state the +-1 branch-metric signs
+    (minus the expected coded pair of its j=0, then its j=1 transition).
+    ``rx`` is float32 [N, T, 2]: per trellis step the signed soft pair
+    (+ = bit 1), batch-major, as bit_llrs and deinterleave leave it.
+    Returns uint8 [N, T], the decided input bits (data + tail). The search
+    starts in state 0 and traces back from state 0."""
+    if rx.device.type == "cpu":
+        return viterbi_trellis_ref(signs, rx)
+    name = "viterbi_trellis"
+    if not rx.is_cuda:
+        raise ValueError(f"{name}: rx must be a CUDA tensor, got {rx.device}")
+    if rx.dtype != torch.float32 or rx.dim() != 3 or rx.shape[-1] != 2 or not rx.is_contiguous():
+        raise ValueError(f"{name}: rx must be a contiguous float32 [N, T, 2] tensor")
+    if signs.shape != (VIT_STATES, 4):
+        raise ValueError(f"{name}: signs must be [64, 4], got {tuple(signs.shape)}")
+    n, t_steps, _ = rx.shape
+    dev = rx.device
+    sg = signs.to(device=dev, dtype=torch.float32).contiguous()
+    if rx.data_ptr() % 8:  # the kernel loads a step's pair as one float2
+        rx = rx.clone()
+    if sg.data_ptr() % 16:  # and a state's four signs as one float4
+        sg = sg.clone()
+    bits = torch.empty(n, t_steps, dtype=torch.uint8, device=dev)
+    if t_steps * 8 * _VIT_WARPS <= _VIT_SHARED_BYTES:
+        scratch_ptr = 0
+    else:
+        scratch = torch.empty(n, t_steps, 2, dtype=torch.int32, device=dev)
+        scratch_ptr = scratch.data_ptr()
+    err = _entry("viterbi")(
+        sg.data_ptr(), rx.data_ptr(), n, t_steps, scratch_ptr, bits.data_ptr(), _stream_handle(dev)
+    )
+    _check_launch(err, name)
+    return bits
+
+
+# --- demod_at_energies_fused: align + demod, every tone's energy --------------
+
+
+def demod_at_energies_fused_ref(
+    config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int
+) -> torch.Tensor:
+    """Plain version of demod_at_energies_fused."""
+    m = config.num_tones
+    iq = _span_iq(config, buffer, start, n_symbols)
+    i, q = iq[..., :m], iq[..., m:]
+    return i * i + q * q
+
+
+def demod_at_energies_fused(
+    config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int
+) -> torch.Tensor:
+    """Timing-align + the full tone-energy filterbank straight from the
+    stream buffer: float32 [B, n_symbols, num_tones], the energies twin of
+    demod_at_fused for consumers that need every tone's energy (soft FEC
+    LLRs). The frame's PREAMBLE starts at ``start[b]``; samples past the
+    buffer's end read as zero."""
+    if buffer.device.type == "cpu":
+        return demod_at_energies_fused_ref(config, buffer, start, n_symbols)
+    name = "demod_at_energies_fused"
+    dtype, st = _check_buffer_and_starts(name, buffer, start, "start")
+    _check_kernel_geometry(name, config)
+    b, length = buffer.shape
+    dev = buffer.device
+    energies = torch.empty(b, n_symbols, config.num_tones, dtype=torch.float32, device=dev)
+    basis = _kernel_basis(config, buffer.dtype, dev)
+    err = _entry("demod_at_energies")(
+        buffer.data_ptr(), dtype, b, length, st.data_ptr(), config.preamble_samples,
+        config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(),
+        energies.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return energies
+
+
+# --- probe_at_fused: the unmerged lock step's probe ---------------------------
+
+
+def probe_at_fused_ref(
+    buffer: torch.Tensor, st0: torch.Tensor, template: torch.Tensor, template_energy,
+    n_lags: int = 5,
+) -> torch.Tensor:
+    """Plain version of probe_at_fused."""
+    from anet_torch.dsp.sync import gather_span
+
+    k = template.shape[-1]
+    st = st0.to(torch.int64)
+    cabs = _probe_abs_corr(buffer, st, template, n_lags)
+    span = gather_span(buffer, st, _probe_span_rows(k, n_lags) * _ROW).float()
+    energy = (span * span).sum(-1, keepdim=True)
+    te = torch.as_tensor(template_energy, dtype=torch.float32, device=buffer.device)
+    return cabs * torch.rsqrt(te * torch.maximum(energy, 1e-4 * te))
+
+
+def probe_at_fused(
+    buffer: torch.Tensor, st0: torch.Tensor, template: torch.Tensor, template_energy,
+    n_lags: int = 5,
+) -> torch.Tensor:
+    """Frame-lock verify/refine probe: normalized preamble quality, float32
+    [B, n_lags], at the ``n_lags`` lags st0 .. st0 + n_lags - 1 of each
+    stream (st0 already clipped by the caller):
+
+        q[o] = |corr[o]| * rsqrt(te * max(energy, 1e-4 * te))
+
+    with one window energy per stream over the st0-ALIGNED superset span
+    [st0, st0 + 128 * (ceil((k + n_lags - 1) / 128) + 1)): a superset of
+    every probed window, so quality only under-reports. (The row-aligned
+    span of sync.preamble_quality_probe differs from it by a few percent.)
+    Samples past the buffer's end read as zero; the template rounds to the
+    buffer's dtype."""
+    if buffer.device.type == "cpu":
+        return probe_at_fused_ref(buffer, st0, template, template_energy, n_lags)
+    name = "probe_at_fused"
+    dtype, st = _check_buffer_and_starts(name, buffer, st0, "st0")
+    if not 1 <= n_lags <= 8:
+        raise ValueError(f"{name}: n_lags must be in [1, 8]")
+    b, length = buffer.shape
+    dev = buffer.device
+    k = template.shape[-1]
+    tpl = template.to(device=dev, dtype=buffer.dtype).float().contiguous()
+    q = torch.empty(b, n_lags, dtype=torch.float32, device=dev)
+    err = _entry("probe_at")(
+        buffer.data_ptr(), dtype, b, length, st.data_ptr(), tpl.data_ptr(), k, n_lags,
+        _probe_span_rows(k, n_lags), float(template_energy), q.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return q
 
 
 def demod_at_buffer_pad(

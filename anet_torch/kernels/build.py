@@ -19,7 +19,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "anet_torch_kernels"
-SOURCES = ("decide_frame_tm", "sync_search", "demod_at", "demod_probe")
+SOURCES = (
+    "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
+    "viterbi", "demod_at_energies", "probe_at",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -45,6 +48,15 @@ SIGNATURES = {
         "anet_demod_probe",
         [_P, _I, _I, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
          _P, _P, _P],
+    ),
+    "viterbi": ("anet_viterbi", [_P, _P, _I, _I, _P, _P, _P]),
+    "demod_at_energies": (
+        "anet_demod_at_energies",
+        [_P, _I, _I, ctypes.c_longlong, _P, _I, _I, _I, _I, _P, _P, _P],
+    ),
+    "probe_at": (
+        "anet_probe_at",
+        [_P, _I, _I, ctypes.c_longlong, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P],
     ),
 }
 

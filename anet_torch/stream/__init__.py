@@ -1,5 +1,5 @@
 """Streaming receiver: chunked demodulation with an explicit carry (mirrors
-the uncoded, untracked, fixed-length path of ``anet.stream``).
+the untracked, fixed-length path of ``anet.stream``, uncoded and coded).
 
 A capture is processed as fixed-size chunks; the carry holds everything the
 receiver remembers between chunks: a sliding sample buffer, the dedupe
@@ -14,15 +14,21 @@ guarantees none is skipped.
 expected one frame later, so a locked stream verifies the prediction with an
 n-lag probe (which also servos out +-2 samples of clock drift) and the
 every-lag search runs only when some stream needs acquiring. On the card
-the locked step is one merged kernel (demod_probe_fused) plus, on
+the uncoded locked step is one merged kernel (demod_probe_fused) plus, on
 acquisition, the search kernel (sync_search_fused) and the align+demod
 kernel (demod_at_fused); the JAX package's ``lax.cond`` around the search
 is a Python ``if`` on one host read per chunk here.
 
+Coded configs (``fec='conv'``) need every tone's energy for the soft
+decisions, so their step is unmerged: the probe kernel (probe_at_fused)
+and, on acquisition, the search kernel; then the energies kernel
+(demod_at_energies_fused) at the chosen start, the max-log LLRs, the
+deinterleaver and the Viterbi kernel (viterbi_trellis).
+
 Not ported yet (they raise NotImplementedError): ``track=True`` (the
-symbol-clock tracker), coded configs (``fec='conv'``), variable-length
-frames (``stream_step_dynamic`` / ``receive_stream_dynamic``), the
-capture-resident scan (``resident=True``) and int8 sliding buffers.
+symbol-clock tracker), variable-length frames (``stream_step_dynamic`` /
+``receive_stream_dynamic``), the capture-resident scan (``resident=True``)
+and int8 sliding buffers.
 """
 
 from __future__ import annotations
@@ -110,11 +116,6 @@ def _require_supported(config, track: bool) -> None:
         raise NotImplementedError(
             "track=True needs the symbol-clock tracker (anet.dsp.clock), "
             "ROADMAP queue 1 item 10"
-        )
-    if config.fec != "none":
-        raise NotImplementedError(
-            "coded streams (fec='conv') arrive with the coded slice "
-            "(ROADMAP: demod_at_energies_fused + viterbi_trellis)"
         )
 
 
@@ -270,13 +271,26 @@ def _lock_prediction(carry, buffer_abs0, w0: int, chunk_size: int):
     return pred_idx, in_win, mid_flight
 
 
+def _probe_base(probe_at: torch.Tensor, buffer_len: int, k: int) -> torch.Tensor:
+    """First of the PROBE_LAGS lags probed around ``probe_at``, kept inside
+    the buffer (sync.preamble_quality_probe's st0)."""
+    return (probe_at - PROBE_LAGS // 2).clamp(0, buffer_len - k - PROBE_LAGS + 1)
+
+
+def _probe_kernel_supported(carry: StreamCarry) -> bool:
+    """The probe kernel (probe_at_fused) serves the unmerged lock step when
+    the buffer is on the card."""
+    return carry.buffer.is_cuda
+
+
 def _find_candidate_locked(carry, chunk, t_frame, template, detect_threshold, compute_dtype):
-    """Frame-lock front half off the card: probe the predicted next start
-    (sync.preamble_quality_probe) and search every lag only when some stream
+    """Unmerged frame-lock front half: probe the predicted next start (on
+    the card the probe kernel probe_at_fused, off it
+    sync.preamble_quality_probe) and search every lag only when some stream
     needs acquiring. Returns (buffer, samples_seen, start_idx, start_abs,
     quality, candidate, mid_flight)."""
     from anet_torch.dsp.sync import preamble_quality_probe
-    from anet_torch.kernels import sync_search_fused
+    from anet_torch.kernels import probe_at_fused, sync_search_fused
 
     chunk_size = chunk.shape[-1]
     k = template.shape[-1]
@@ -286,9 +300,13 @@ def _find_candidate_locked(carry, chunk, t_frame, template, detect_threshold, co
     t_energy = _template_energy(t_c)
     pred_idx, in_win, mid_flight = _lock_prediction(carry, buffer_abs0, w0, chunk_size)
     probe_at = pred_idx.clamp(0, length - t_frame)
-    q5, st0 = preamble_quality_probe(
-        buffer, probe_at, t_c, t_energy, n_lags=PROBE_LAGS, compute_dtype=compute_dtype
-    )
+    if _probe_kernel_supported(carry):
+        st0 = _probe_base(probe_at, buffer.shape[-1], k)
+        q5 = probe_at_fused(buffer.to(compute_dtype), st0, t_c, t_energy, n_lags=PROBE_LAGS)
+    else:
+        q5, st0 = preamble_quality_probe(
+            buffer, probe_at, t_c, t_energy, n_lags=PROBE_LAGS, compute_dtype=compute_dtype
+        )
     probe_q = q5.amax(-1)
     probe_off = torch.argmax(q5, dim=-1).to(torch.int32)
     pred_valid = in_win & (probe_q >= detect_threshold)
@@ -311,12 +329,15 @@ def _find_candidate_locked(carry, chunk, t_frame, template, detect_threshold, co
 
 
 def _merged_lock_supported(config, carry: StreamCarry) -> bool:
-    """The merged probe + demod kernel serves the locked step when the
-    buffer is on the card and the kernels take the geometry."""
+    """The merged probe + demod kernel serves the uncoded locked step when
+    the buffer is on the card and the kernels take the geometry. (A coded
+    frame's soft decisions need every tone's energy, which the merged
+    kernel does not write.)"""
     from anet_torch.kernels import _KERNEL_SPS
 
     return (
         carry.buffer.is_cuda
+        and config.fec == "none"
         and config.num_tones <= 16
         and config.samples_per_symbol in _KERNEL_SPS
     )
@@ -368,7 +389,7 @@ def _locked_step_merged(
     length = t_frame + chunk_size
     pred_idx, in_win, mid_flight = _lock_prediction(carry, buffer_abs0, w0, chunk_size)
     probe_at = pred_idx.clamp(0, length - t_frame)
-    st0 = (probe_at - PROBE_LAGS // 2).clamp(0, buffer.shape[-1] - k - PROBE_LAGS + 1)
+    st0 = _probe_base(probe_at, buffer.shape[-1], k)
     cmax, probe_off, energy, tone_p, best_p, total_p = demod_probe_fused(
         config, buf_c, st0, n_symbols, t_c, n_lags=PROBE_LAGS
     )
@@ -432,8 +453,13 @@ def stream_step(
     ``quality`` comes from the probe while locked and ``frame_start`` can
     differ by the +-2-sample drift servo. A detection counts only if the
     demodulated header validates (magic word + header CRC)."""
-    from anet_torch.dsp.frame import data_symbols_for_payload, frame_result_from_tone_decisions
-    from anet_torch.kernels import demod_at_fused
+    from anet_torch.dsp.demod import decide_symbols
+    from anet_torch.dsp.frame import (
+        data_symbols_for_payload,
+        frame_result_from_decisions,
+        frame_result_from_tone_decisions,
+    )
+    from anet_torch.kernels import demod_at_energies_fused, demod_at_fused
 
     _require_supported(config, track)
     chunk_size = chunk.shape[-1]
@@ -452,10 +478,18 @@ def stream_step(
         buffer, samples_seen, start_idx, start_abs, best_q, candidate = _find_candidate(
             carry, chunk, t_frame, template, 0, detect_threshold, compute_dtype
         )
-    tone, best, total = demod_at_fused(
-        config, buffer.to(compute_dtype), start_idx, data_symbols_for_payload(config, payload_len)
-    )
-    frame = frame_result_from_tone_decisions(config, tone, best, total, payload_len)
+    n_symbols = data_symbols_for_payload(config, payload_len)
+    if config.fec == "conv":
+        # soft FEC decisions need every tone's energy, not just the winner:
+        # energies -> LLRs -> deinterleave -> Viterbi, as the aligned coded
+        # receiver; only the gather of the aligned frame disappears
+        energies = demod_at_energies_fused(config, buffer.to(compute_dtype), start_idx, n_symbols)
+        frame = frame_result_from_decisions(
+            config, decide_symbols(config, energies), energies, payload_len
+        )
+    else:
+        tone, best, total = demod_at_fused(config, buffer.to(compute_dtype), start_idx, n_symbols)
+        frame = frame_result_from_tone_decisions(config, tone, best, total, payload_len)
     detected = candidate & frame.magic_ok & frame.header_crc_ok
     frame = frame._replace(ok=frame.ok & detected)
     new_carry = _next_carry(

@@ -4,15 +4,21 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. build the CUDA kernels from anet_torch/kernels/csrc (nvcc, sm_90a);
-2. hold each kernel against its plain PyTorch version at the main path's
-   shapes (mfsk16-fast, payload 256, chunk 36,352, buffer 76,288) on a
-   256-stream subset, then time kernel and plain version at the full batch;
-3. the aligned receiver at full size: 16,384 frames transmitted on the card,
-   demodulated time-major through decide_frame_tm;
-4. the locked streaming receiver at full size: 8,192 streams of one
+2. hold each kernel against its plain PyTorch version at its main path's
+   shapes on a 256-stream subset, then time kernel and plain version at the
+   full batch: the uncoded paths' four kernels on mfsk16-fast (payload 256,
+   chunk 36,352, buffer 76,288), the coded paths' three on mfsk4-coded
+   (payload 256, chunk 70,144, buffer 143,872, trellis 2,150 steps);
+3. the aligned receivers at full size, frames transmitted on the card and
+   demodulated time-major: 16,384 mfsk16-fast frames through
+   decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
+   filterbank product, the LLRs and viterbi_trellis ("aligned-coded");
+4. the locked streaming receivers at full size: 8,192 streams of one
    acquisition gap and 6 back-to-back frames (bf16 capture), once cold
-   (acquisition runs the search and align+demod kernels) and once with a
-   warm lock seeded at the first frame;
+   (acquisition runs the search kernel) and once with a warm lock seeded
+   at the first frame, on mfsk16-fast ("stream": the merged probe+demod
+   kernel) and on mfsk4-coded ("stream-coded": probe, energies and trellis
+   kernels);
 5. the launch count of every kernel during phases 3-4, read per path (each
    path's counts start at 0 just before it): every kernel of a path must
    have launched there.
@@ -22,6 +28,7 @@ the last line the JSON verdict with the device's name.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -31,7 +38,9 @@ import numpy as np
 import torch
 
 from anet_torch import kernels
+from anet_torch.dsp import fec
 from anet_torch.dsp import frame as tframe
+from anet_torch.dsp.demod import bit_llrs
 from anet_torch.dsp.pipeline import transmit
 from anet_torch.dsp.sync import preamble_waveform
 from anet_torch.kernels.build import build_all
@@ -39,15 +48,17 @@ from anet_torch.models import get_model
 from anet_torch.stream import _buffer_len, init_carry, receive_stream
 
 MODEL = "mfsk16-fast"
+CODED_MODEL = "mfsk4-coded"
 PAYLOAD = 256
 ALIGNED_B = 16384
-STREAM_B = 8192
+STREAM_B = 8192  # also the coded aligned batch
 COMPARE_B = 256
 GAP0, N_FRAMES = 1000, 6
 N_LAGS = 5
 RTOL = 1e-3  # bf16 inputs, float32 sums in another order than the plain version
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 SEED = 0
 DEV = torch.device("cuda")
 
@@ -56,6 +67,9 @@ REPLACES = {
     "sync_search_fused": ("anet_torch/kernels/csrc/sync_search.cu", "anet/kernels/__init__.py:1095"),
     "demod_at_fused": ("anet_torch/kernels/csrc/demod_at.cu", "anet/kernels/__init__.py:1992"),
     "demod_probe_fused": ("anet_torch/kernels/csrc/demod_probe.cu", "anet/kernels/__init__.py:2307"),
+    "viterbi_trellis": ("anet_torch/kernels/csrc/viterbi.cu", "anet/kernels/__init__.py:754"),
+    "demod_at_energies_fused": ("anet_torch/kernels/csrc/demod_at_energies.cu", "anet/kernels/__init__.py:1918"),
+    "probe_at_fused": ("anet_torch/kernels/csrc/probe_at.cu", "anet/kernels/__init__.py:1621"),
 }
 
 
@@ -78,9 +92,26 @@ def time_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_flops / BF16_FLOPS_S * 1e3
+def bound_ms(n_bytes: float, n_flops: float, flops_s: float = BF16_FLOPS_S) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over the peak
+    for their type (bf16 tensor cores unless ``flops_s`` says otherwise)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_flops / flops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_and_bound(results: dict, calls: dict, work: dict) -> None:
+    """Time each kernel and its plain version (``calls``: name -> (call,
+    kernel, plain version)) and add its bound (``work``: name -> the
+    arguments of bound_ms) to ``results``."""
+    for name, (call, kern, ref) in calls.items():
+        results[name]["ms"] = time_ms(lambda: call(kern))
+        results[name]["plain_ms"] = time_ms(lambda: call(ref))
+        torch.cuda.empty_cache()
+    for name, args in work.items():
+        r = results[name]
+        r["bound_ms"], r["bound_by"] = bound_ms(*args)
+        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
 
 
 def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...]) -> float:
@@ -196,10 +227,6 @@ def phase_kernels(cfg, gen) -> dict:
             kernels.demod_probe_fused, kernels.demod_probe_fused_ref,
         ),
     }
-    for name, (call, kern, ref) in calls.items():
-        results[name]["ms"] = time_ms(lambda: call(kern))
-        results[name]["plain_ms"] = time_ms(lambda: call(ref))
-        torch.cuda.empty_cache()
     # bounds: each input byte read once, each output byte written once
     flops_sym = 2 * sps * 2 * m  # filterbank flops per symbol
     out_sym = 12  # tone i32 + best f32 + total f32 per symbol
@@ -218,36 +245,132 @@ def phase_kernels(cfg, gen) -> dict:
             b_s * (2 * N_LAGS * k + 2 * pw_e * 128 + n_sym * flops_sym),
         ),
     }
-    for name, (n_bytes, n_flops) in work.items():
-        results[name]["bound_ms"], results[name]["bound_by"] = bound_ms(n_bytes, n_flops)
-        r = results[name]
-        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    time_and_bound(results, calls, work)
     return results
 
 
-def phase_aligned(cfg, gen) -> None:
-    """Phase 3: the aligned time-major receiver at B = 16,384."""
+def phase_kernels_coded(cfg, gen) -> dict:
+    """Phase 2 for the coded paths' kernels (mfsk4-coded geometry)."""
+    sps, m = cfg.samples_per_symbol, cfg.num_tones
     t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
-    pay = torch.randint(0, 256, (ALIGNED_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+    n_data = 8 * tframe.data_section_bytes(PAYLOAD)
+    t_steps = n_data + fec.CONV_TAIL_BITS
+    chunk = t_frame
+    length = _buffer_len(cfg, chunk, PAYLOAD)
+    log(f"coded geometry: frame {t_frame}, data symbols {n_sym}, air bits "
+        f"{tframe.data_section_coded_bits(cfg, PAYLOAD)}, trellis steps {t_steps}, chunk {chunk}, "
+        f"buffer {length}")
+    if (t_frame, n_sym, t_steps, length) != (70144, 2160, 2150, 143872):
+        raise AssertionError("mfsk4-coded geometry differs from the reference's")
+    pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    waves = transmit(cfg, pay, device=DEV)
+    tpl = preamble_waveform(cfg, device=DEV).to(torch.bfloat16)
+    k = tpl.shape[-1]
+    te = float((tpl.float() ** 2).sum())
+    results = {}
+
+    # stream buffers at operating noise, probe bases st0 = start - 2 at every
+    # residue 124..127 mod 128
+    starts = torch.randint(3, chunk - 4, (COMPARE_B,), generator=gen, device=DEV)
+    starts[:8] = torch.tensor([126, 127, 128, 129, 126 + 128 * 100, 127 + 128 * 100,
+                               128 + 128 * 200, 129 + 128 * 200], device=DEV)
+    buf = plant_frames(waves, starts, length, 0.3, gen)
+    st0 = starts - 2
+    if not {124, 125, 126, 127} <= set((st0 % 128).tolist()):
+        raise AssertionError("probe residues 124..127 not covered")
+    got = kernels.probe_at_fused(buf, st0, tpl, te, n_lags=N_LAGS)
+    want = kernels.probe_at_fused_ref(buf, st0, tpl, te, n_lags=N_LAGS)
+    if not bool((got.argmax(-1) == 2).all()):
+        raise AssertionError("probe_at_fused missed the planted starts")
+    results["probe_at_fused"] = {"max_abs_err": compare("probe_at_fused", (got,), (want,), (), (0,))}
+
+    # the search kernel again, at this path's geometry (its row in the table
+    # keeps the uncoded geometry's numbers)
+    seg = buf[:, 1 : 1 + chunk + k - 1]
+    got = kernels.sync_search_fused(seg, tpl, chunk, te)
+    want = kernels.sync_search_fused_ref(seg, tpl, chunk, te)
+    if not torch.equal(got[1], (starts - 1).int()):
+        raise AssertionError("sync_search_fused did not find the planted coded preambles")
+    compare("sync_search_fused (coded geometry)", got, want, (1,), (0,))
+
+    got = kernels.demod_at_energies_fused(cfg, buf, starts, n_sym)
+    want = kernels.demod_at_energies_fused_ref(cfg, buf, starts, n_sym)
+    if not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise AssertionError("demod_at_energies_fused: winning tones differ")
+    results["demod_at_energies_fused"] = {
+        "max_abs_err": compare("demod_at_energies_fused", (got,), (want,), (), (0,))
+    }
+
+    # the trellis on the LLRs of those noisy coded frames: bits compared exactly
+    air = bit_llrs(cfg, got)[..., : tframe.data_section_coded_bits(cfg, PAYLOAD)]
+    rx = fec.deinterleave(air, cfg.fec_interleave, 2 * t_steps).reshape(COMPARE_B, t_steps, 2).contiguous()
+    signs = torch.as_tensor(fec._branch_signs(), device=DEV)
+    got_bits = kernels.viterbi_trellis(signs, rx)
+    want_bits = kernels.viterbi_trellis_ref(signs, rx)
+    sent = tframe.data_section_air_bits_array(dataclasses.replace(cfg, fec="none"), pay)
+    if not torch.equal(got_bits[:, :n_data], sent) or bool(got_bits[:, n_data:].any()):
+        raise AssertionError("viterbi_trellis did not decode the sent data sections")
+    compare("viterbi_trellis", (got_bits,), (want_bits,), (0,), ())
+    results["viterbi_trellis"] = {"max_abs_err": float((got_bits.int() - want_bits.int()).abs().max())}
+
+    reps = STREAM_B // COMPARE_B
+    buf_full, st_full, st0_full = buf.repeat(reps, 1), starts.repeat(reps), st0.repeat(reps)
+    rx_full = rx.repeat(reps, 1, 1)
+    del buf, waves, got, want, air
+    calls = {
+        "probe_at_fused": (
+            lambda f: f(buf_full, st0_full, tpl, te, n_lags=N_LAGS),
+            kernels.probe_at_fused, kernels.probe_at_fused_ref,
+        ),
+        "demod_at_energies_fused": (
+            lambda f: f(cfg, buf_full, st_full, n_sym),
+            kernels.demod_at_energies_fused, kernels.demod_at_energies_fused_ref,
+        ),
+        "viterbi_trellis": (
+            lambda f: f(signs, rx_full), kernels.viterbi_trellis, kernels.viterbi_trellis_ref,
+        ),
+    }
+    b = STREAM_B
+    pw_e = -(-(k + N_LAGS - 1) // 128) + 1
+    # add-compare-select of one state and step: 4 multiplies, 4 adds, a
+    # compare and a select, on the CUDA cores (no tensor-core form exists)
+    acs_ops = 10 * kernels.VIT_STATES
+    work = {
+        "probe_at_fused": (
+            b * (pw_e * 128 * 2 + 4 + N_LAGS * 4) + k * 4, b * (2 * N_LAGS * k + 2 * pw_e * 128),
+        ),
+        "demod_at_energies_fused": (
+            b * (n_sym * (sps * 2 + m * 4) + 4), b * n_sym * 2 * sps * 2 * m,
+        ),
+        "viterbi_trellis": (b * t_steps * (8 + 1) + 64 * 4 * 4, b * t_steps * acs_ops, F32_FLOPS_S),
+    }
+    time_and_bound(results, calls, work)
+    return results
+
+
+def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iters: int = 10) -> None:
+    """Phase 3: the aligned time-major receiver at the full batch."""
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    pay = torch.randint(0, 256, (batch, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
     x_tm = transmit(cfg, pay, device=DEV).to(torch.bfloat16).T.contiguous()  # one untimed ingest cast
     res = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV)
     ok_frac = float(res.ok.float().mean())
     if ok_frac != 1.0 or not torch.equal(res.payload, pay):
-        raise AssertionError(f"aligned: frames_ok_fraction {ok_frac}, payloads equal "
+        raise AssertionError(f"{label}: frames_ok_fraction {ok_frac}, payloads equal "
                              f"{torch.equal(res.payload, pay)}")
-    iters = 10
+    del res
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
         n_ok = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV).ok.sum()
     int(n_ok)
     dt = time.perf_counter() - t0
-    log(f"aligned: B {ALIGNED_B}, frames_ok_fraction {ok_frac}, "
-        f"{ALIGNED_B * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
+    log(f"{label}: B {batch}, frames_ok_fraction {ok_frac}, "
+        f"{batch * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
 
 
-def phase_stream(cfg, gen) -> None:
+def phase_stream(cfg, gen, label: str = "stream") -> None:
     """Phase 4: the locked streaming receiver at B = 8,192, cold and warm."""
     t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
     chunk = t_frame // 128 * 128
@@ -260,12 +383,12 @@ def phase_stream(cfg, gen) -> None:
         cap[:, pos : pos + t_frame] = transmit(cfg, pay, device=DEV).to(torch.bfloat16)
         sent.append(pay)
     sent = torch.stack(sent)  # [frames, B, payload]
-    log(f"stream: B {STREAM_B}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), chunk {chunk}")
+    log(f"{label}: B {STREAM_B}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), chunk {chunk}")
     warm = init_carry(cfg, chunk, PAYLOAD, (STREAM_B,), dtype=torch.bfloat16, device=DEV)
     warm = warm._replace(
         locked=torch.ones_like(warm.locked), next_start=torch.full_like(warm.next_start, GAP0)
     )
-    for label, carry in (("cold", None), ("warm-lock", warm)):
+    for run, carry in (("cold", None), ("warm-lock", warm)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16, lock=True,
@@ -275,18 +398,31 @@ def phase_stream(cfg, gen) -> None:
         det = res.steps.detected
         got = res.steps.frame.payload[det.any(1)]  # [frames, B, payload]
         right = bool(det.sum(0).eq(N_FRAMES).all()) and got.shape == sent.shape and torch.equal(got, sent)
-        log(f"stream {label}: frames_ok {frames_ok} of {STREAM_B * N_FRAMES}, payloads right {right}, "
+        log(f"{label} {run}: frames_ok {frames_ok} of {STREAM_B * N_FRAMES}, payloads right {right}, "
             f"{STREAM_B * total / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
         if frames_ok != STREAM_B * N_FRAMES or not right:
-            raise AssertionError(f"stream {label}: frames_ok {frames_ok}, payloads right {right}")
+            raise AssertionError(f"{label} {run}: frames_ok {frames_ok}, payloads right {right}")
+        if run == "cold" and kernels.launch_counts["sync_search_fused"] == 0:
+            raise AssertionError(f"{label} cold: the search kernel never launched")
         del res
 
 
 # Each main path, driven with the launch counts set to 0 just before it and
-# read just after: the phase that drives it and the kernels it must launch.
+# read just after: its model, the phase that drives it and the kernels it
+# must launch.
 PATHS = {
-    "aligned": (phase_aligned, ("decide_frame_tm",)),
-    "stream": (phase_stream, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
+    "aligned": (MODEL, phase_aligned, ("decide_frame_tm",)),
+    "stream": (MODEL, phase_stream, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
+    "aligned-coded": (
+        CODED_MODEL,
+        lambda cfg, gen: phase_aligned(cfg, gen, "aligned-coded", STREAM_B, 3),
+        ("viterbi_trellis",),
+    ),
+    "stream-coded": (
+        CODED_MODEL,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-coded"),
+        ("probe_at_fused", "demod_at_energies_fused", "viterbi_trellis", "sync_search_fused"),
+    ),
 }
 
 
@@ -306,16 +442,17 @@ def main() -> int:
     t0 = time.perf_counter()
     build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    cfg = get_model(MODEL).config
     gen = torch.Generator(device=DEV).manual_seed(SEED)
 
     log("kernels vs plain versions:")
-    results = phase_kernels(cfg, gen)
+    results = phase_kernels(get_model(MODEL).config, gen)
+    torch.cuda.empty_cache()
+    results.update(phase_kernels_coded(get_model(CODED_MODEL).config, gen))
     counts = dict.fromkeys(REPLACES, 0)
-    for path, (phase, path_kernels) in PATHS.items():
+    for path, (model, phase, path_kernels) in PATHS.items():
         torch.cuda.empty_cache()
         kernels.reset_launch_counts()
-        phase(cfg, gen)
+        phase(get_model(model).config, gen)
         path_counts = dict(kernels.launch_counts)
         log(f"launches on the {path} path: {path_counts}")
         missing = [n for n in path_kernels if path_counts[n] == 0]

@@ -2,7 +2,9 @@
 CPU: the same payloads and the same numpy noise go through both
 transmitters and both time-major receivers (demodulate_frame_tm). Payloads
 and the five verdicts must be bit-equal; confidence and snr_db agree with
-JAX and with a float64 numpy computation of the same quantities."""
+JAX and with a float64 numpy computation of the same quantities. The coded
+path (mfsk4-coded: convolutional code, interleaver, soft Viterbi) goes
+through the same comparison, batch-major and time-major."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,3 +141,125 @@ def test_oversized_window_takes_plain_filterbank_on_cpu():
     np.testing.assert_array_equal(got.ok.numpy(), np.asarray(want.ok))
     np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=1e-5)
     np.testing.assert_allclose(got.snr_db.numpy(), np.asarray(want.snr_db), atol=1e-3)
+
+
+# --- the coded path: mfsk4-coded ----------------------------------------------
+
+CODED = "mfsk4-coded"
+CCFG, JCCFG = get_model(CODED).config, jget_model(CODED).config
+CPAY = 32
+
+
+def test_coded_geometry_matches_jax():
+    """Payload 256 on mfsk4-coded: the JAX package's own numbers."""
+    from anet import stream as jstream
+    from anet_torch import stream as tstream
+
+    assert CCFG.samples_per_symbol == 32 and CCFG.fec == "conv" and CCFG.fec_interleave == 24
+    assert tframe.frame_num_samples(CCFG, 256) == jframe.frame_num_samples(JCCFG, 256) == 70144
+    assert tframe.data_symbols_for_payload(CCFG, 256) == jframe.data_symbols_for_payload(JCCFG, 256) == 2160
+    assert tframe.data_section_coded_bits(CCFG, 256) == jframe.data_section_coded_bits(JCCFG, 256) == 4320
+    assert tstream._buffer_len(CCFG, 70144, 256) == jstream._buffer_len(JCCFG, 70144, 256) == 143872
+
+
+def _coded_capture(noise, seed=0, b=4):
+    """(payloads, batch-major waveforms [B, T]): the last frame's data
+    section is another frame's from a third of the way in, so its header
+    decodes or not as the code decides and its payload CRC fails."""
+    rng = np.random.default_rng(seed)
+    pay = rng.integers(0, 256, (b, CPAY), dtype=np.uint8)
+    other = rng.integers(0, 256, (1, CPAY), dtype=np.uint8)
+    w = np.array(jpipeline.transmit(JCCFG, jnp.asarray(pay)))
+    wo = np.asarray(jpipeline.transmit(JCCFG, jnp.asarray(other)))
+    lo = CCFG.preamble_samples + (w.shape[1] - CCFG.preamble_samples) // 3 // 32 * 32
+    w[-1, lo:] = wo[0, lo:]
+    return pay, w + noise * rng.standard_normal(w.shape).astype(np.float32)
+
+
+def test_coded_transmit_matches_jax():
+    rng = np.random.default_rng(5)
+    pay = rng.integers(0, 256, (3, CPAY), dtype=np.uint8)
+    bits = tframe.data_section_air_bits_array(CCFG, torch.from_numpy(pay))
+    jbits = jframe.data_section_air_bits_array(JCCFG, jnp.asarray(pay))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(jbits))
+    syms = tframe.frame_data_symbols(CCFG, torch.from_numpy(pay))
+    np.testing.assert_array_equal(syms.numpy(), np.asarray(jframe.frame_data_symbols(JCCFG, jnp.asarray(pay))))
+    w = tpipeline.transmit(CCFG, pay, device="cpu")
+    assert w.shape == (3, tframe.frame_num_samples(CCFG, CPAY))
+    # float32 rounding of the synthesized tones
+    np.testing.assert_allclose(w.numpy(), np.asarray(jpipeline.transmit(JCCFG, jnp.asarray(pay))), atol=1e-5)
+
+
+def _assert_coded_result(got, want, pay, kernels):
+    """Against JAX's Pallas trellis (which adds a candidate's terms in the
+    port's order) every payload byte is equal, the undecodable frame's
+    included; against the jnp scan (which adds them in another order, so
+    near-ties of an undecodable frame may part) the frames that decode."""
+    keep = slice(None) if kernels else got.ok.numpy()
+    np.testing.assert_array_equal(got.payload.numpy()[keep], np.asarray(want.payload)[keep])
+    for v in VERDICTS:
+        np.testing.assert_array_equal(getattr(got, v).numpy(), np.asarray(getattr(want, v)), v)
+    assert got.ok.numpy().tolist() == [True, True, True, False]
+    np.testing.assert_array_equal(got.payload.numpy()[:3], pay[:3])
+    # float32 sums in another order
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=1e-5)
+    np.testing.assert_allclose(got.snr_db.numpy(), np.asarray(want.snr_db), atol=1e-3)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("noise", [0.0, 0.6])
+def test_coded_batch_major_receiver_matches_jax(noise, kernels, interpret_tpu_kernels):
+    """demodulate_frame on mfsk4-coded at operating noise, against JAX's
+    jnp path and against JAX with its Pallas kernels in interpret mode."""
+    pay, x = _coded_capture(noise)
+    got = tframe.demodulate_frame(CCFG, x, CPAY, device="cpu")
+    if kernels:
+        interpret_tpu_kernels()
+    want = jframe.demodulate_frame(JCCFG, jnp.asarray(x), CPAY)
+    _assert_coded_result(got, want, pay, kernels)
+    demod = geometry(CCFG, CPAY, device="cpu")[2]
+    np.testing.assert_array_equal(demod(x).payload.numpy(), got.payload.numpy())
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("noise", [0.0, 0.6])
+def test_coded_aligned_receiver_matches_jax(noise, dtype, kernels, interpret_tpu_kernels):
+    """demodulate_frame_tm on mfsk4-coded: the filterbank product branch,
+    LLRs from the transposed energies, deinterleaver and soft Viterbi."""
+    tdt, jdt = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    pay, x = _coded_capture(noise, seed=1)
+    x_tm = np.ascontiguousarray(x.T)
+    got = tframe.demodulate_frame_tm(CCFG, x_tm, CPAY, compute_dtype=tdt, device="cpu")
+    if kernels:
+        interpret_tpu_kernels()
+    want = jframe.demodulate_frame_tm(JCCFG, jnp.asarray(x_tm), CPAY, compute_dtype=jdt)
+    _assert_coded_result(got, want, pay, kernels)
+
+
+def test_coded_tone_decisions_parse_refuses_like_jax():
+    """frame_result_from_tone_decisions has only the winning tones; the soft
+    decisions need every tone's energy, so both packages refuse a coded
+    config there, and frame_result_from_bits decodes hard bits as +-1."""
+    pay, x = _coded_capture(0.3, seed=2)
+    n_sym = tframe.data_symbols_for_payload(CCFG, CPAY)
+    from anet_torch.kernels import demod_at_fused
+
+    tone, best, total = demod_at_fused(CCFG, torch.from_numpy(x), torch.zeros(4, dtype=torch.int32), n_sym)
+    with pytest.raises(ValueError, match="full energies"):
+        tframe.frame_result_from_tone_decisions(CCFG, tone, best, total, CPAY)
+    with pytest.raises(ValueError, match="full energies"):
+        jframe.frame_result_from_tone_decisions(
+            JCCFG, jnp.asarray(tone.numpy()), jnp.asarray(best.numpy()), jnp.asarray(total.numpy()), CPAY
+        )
+    bits = (tone[..., None] >> torch.tensor([1, 0])) & 1  # 4-FSK Gray decode is g ^ (g >> 1)
+    bits = bits ^ torch.stack([torch.zeros_like(tone), tone >> 1], -1)
+    bits = bits.reshape(4, -1).to(torch.uint8)
+    zero = torch.zeros(4)
+    got = tframe.frame_result_from_bits(CCFG, bits, CPAY, confidence=zero, snr_db=zero)
+    want = jframe.frame_result_from_bits(
+        JCCFG, jnp.asarray(bits.numpy()), CPAY, confidence=jnp.zeros(4), snr_db=jnp.zeros(4)
+    )
+    np.testing.assert_array_equal(got.payload.numpy(), np.asarray(want.payload))
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(want.ok))
+    assert got.ok.numpy().tolist() == [True, True, True, False]

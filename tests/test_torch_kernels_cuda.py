@@ -1,5 +1,6 @@
-"""Each CUDA kernel of anet_torch against its plain PyTorch version, on the
-card. Imports no JAX, so it runs on a machine with a GPU:
+"""Each CUDA kernel of anet_torch against its plain PyTorch version, and the
+coded receivers on the card against the same calls on the CPU. Imports no
+JAX, so it runs on a machine with a GPU:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
@@ -87,3 +88,99 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype):
         torch.testing.assert_close(got[j], want[j], rtol=0, atol=0)
     for j in (0, 2, 4, 5):
         torch.testing.assert_close(got[j], want[j], rtol=1e-3, atol=1e-3)
+
+
+CODED = get_model("mfsk4-coded").config
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t_steps,noise", [(1, 23, 0.0), (130, 358, 0.7), (37, 2150, 1.0), (5, 9500, 0.8)])
+def test_cuda_viterbi_matches_plain_version(cuda, n, t_steps, noise):
+    """The trellis kernel against its plain version, every decided bit
+    equal: short, frame-length and (9,500 steps) too long for shared
+    memory, so the decision words go through the device-memory scratch."""
+    from anet_torch.dsp import fec
+
+    rng = np.random.default_rng(t_steps)
+    data = rng.integers(0, 2, (n, t_steps - fec.CONV_TAIL_BITS), dtype=np.uint8)
+    coded = fec.conv_encode(torch.from_numpy(data)).numpy()
+    rx = (coded * 2.0 - 1.0 + rng.normal(0, noise, coded.shape)).astype(np.float32)
+    rx = torch.from_numpy(rx.reshape(n, t_steps, 2)).to(cuda)
+    signs = torch.from_numpy(fec._branch_signs()).to(cuda)
+    before = tk.launch_counts["viterbi_trellis"]
+    got = tk.viterbi_trellis(signs, rx)
+    assert tk.launch_counts["viterbi_trellis"] == before + 1
+    torch.cuda.synchronize()
+    want = tk.viterbi_trellis_ref(signs, rx)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert torch.equal(tk.viterbi_trellis(signs, torch.zeros_like(rx)), torch.zeros_like(got))  # all ties
+    if noise == 0.0:
+        assert np.array_equal(got.cpu().numpy()[:, : data.shape[1]], data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", ["mfsk4-coded", "mfsk16-fast"])
+def test_cuda_coded_path_kernels_match_plain_versions(cuda, dtype, model):
+    """demod_at_energies_fused and probe_at_fused against their plain
+    versions on the card, starts on the row residues 124..127: energies and
+    qualities within rtol 1e-3 (float32 sums in another order, fused
+    multiply-adds), winning tones and lags equal."""
+    cfg = get_model(model).config
+    rng = np.random.default_rng(13)
+    n_sym = data_symbols_for_payload(cfg, PAY)
+    starts = np.array([3, 126, 127, 128, 129, 1000, 4000], np.int32)
+    length = tstream._buffer_len(cfg, CHUNK, PAY)
+    pay = rng.integers(0, 256, (len(starts), PAY), dtype=np.uint8)
+    w = transmit(cfg, pay, device="cpu").numpy()
+    buf = 0.1 * rng.standard_normal((len(starts), length)).astype(np.float32)
+    for i, s in enumerate(starts):
+        buf[i, s : s + w.shape[1]] += w[i]
+    buf = torch.from_numpy(buf).to(cuda, dtype)
+    st = torch.from_numpy(starts).to(cuda)
+    got = tk.demod_at_energies_fused(cfg, buf, st, n_sym)
+    want = tk.demod_at_energies_fused_ref(cfg, buf, st, n_sym)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    tpl = preamble_waveform(cfg, device=cuda).to(dtype)
+    te = float((tpl.float() ** 2).sum())
+    q = tk.probe_at_fused(buf, st - 2, tpl, te)
+    rq = tk.probe_at_fused_ref(buf, st - 2, tpl, te)
+    torch.testing.assert_close(q, rq, rtol=1e-3, atol=1e-6)
+    assert bool((q.argmax(-1) == 2).all()) and float(q.amax(-1).min()) > 0.8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_coded_receivers_match_cpu(cuda, dtype):
+    """The coded aligned receiver and the coded locked stream on the card
+    (kernels) against the same calls on the CPU (plain versions): payloads
+    and verdicts equal at operating noise."""
+    from anet_torch.dsp import frame as tframe
+
+    rng = np.random.default_rng(17)
+    pay = rng.integers(0, 256, (9, PAY), dtype=np.uint8)
+    w = transmit(CODED, pay, device="cpu")
+    x = (w + 0.6 * torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32))).T.contiguous()
+    on_card = tframe.demodulate_frame_tm(CODED, x.to(cuda), PAY, compute_dtype=dtype, device=cuda)
+    on_cpu = tframe.demodulate_frame_tm(CODED, x, PAY, compute_dtype=dtype, device="cpu")
+    assert bool(on_card.ok.all()) and np.array_equal(on_card.payload.cpu().numpy(), pay)
+    assert torch.equal(on_card.payload.cpu(), on_cpu.payload)
+    torch.testing.assert_close(on_card.confidence.cpu(), on_cpu.confidence, rtol=1e-3, atol=1e-5)
+    t_frame = w.shape[1]
+    cap = torch.zeros(9, -(-(700 + 3 * t_frame + CHUNK) // CHUNK) * CHUNK)
+    for i in range(3):
+        cap[:, 700 + i * t_frame : 700 + (i + 1) * t_frame] = w
+    cap += 0.1 * torch.from_numpy(rng.standard_normal(cap.shape).astype(np.float32))
+    before = dict(tk.launch_counts)
+    got = tstream.receive_stream(CODED, cap.to(cuda), CHUNK, PAY, lock=True, compute_dtype=dtype, device=cuda)
+    n_chunks = cap.shape[1] // CHUNK
+    for name in ("probe_at_fused", "demod_at_energies_fused", "viterbi_trellis"):
+        assert tk.launch_counts[name] - before[name] == n_chunks, name
+    assert tk.launch_counts["demod_probe_fused"] == before["demod_probe_fused"]
+    want = tstream.receive_stream(CODED, cap, CHUNK, PAY, lock=True, compute_dtype=dtype, device="cpu")
+    assert int(got.carry.frames_ok.sum()) == 9 * 3
+    assert torch.equal(got.steps.detected.cpu(), want.steps.detected)
+    det = want.steps.detected
+    assert torch.equal(got.steps.frame.payload.cpu()[det], want.steps.frame.payload[det])
+    assert torch.equal(got.carry.next_start.cpu(), want.carry.next_start)

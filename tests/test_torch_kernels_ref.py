@@ -1,6 +1,7 @@
-"""The plain versions of anet_torch's four kernels against the JAX Pallas
-kernels they replace, run in interpret mode on the CPU in float32. The CUDA
-kernels against these plain versions: test_torch_kernels_cuda.py."""
+"""The plain versions of anet_torch's seven kernels against the JAX Pallas
+kernels they replace, run in interpret mode on the CPU (float32; the coded
+path's three also in bfloat16). The CUDA kernels against these plain
+versions: test_torch_kernels_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,12 +11,14 @@ import torch
 import anet.kernels as jk
 from anet import stream as jstream
 from anet.dsp import family as jfamily
+from anet.dsp import fec as jfec
 from anet.dsp.frame import data_symbols_for_payload as j_data_symbols
 from anet.dsp.sync import preamble_waveform as j_preamble
 from anet.models import get_model as jget_model
 
 from anet_torch import kernels as tk
 from anet_torch import stream as tstream
+from anet_torch.dsp import fec as tfec
 from anet_torch.dsp.frame import data_symbols_for_payload
 from anet_torch.dsp.pipeline import transmit
 from anet_torch.models import get_model
@@ -120,8 +123,136 @@ def test_demod_probe_ref_matches_pallas_at_row_residues():
         np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["mfsk16-fast", "mfsk4-voice", "fsk2-robust", "mfsk16-ultra"])
-@pytest.mark.parametrize("chunk,pay", [(4096, 64), (36352, 256), (1024, 7)])
+CODED, JCODED = get_model("mfsk4-coded").config, jget_model("mfsk4-coded").config
+_DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+@pytest.mark.parametrize("n,t_steps,noise", [(1, 23, 0.0), (5, 102, 0.4), (3, 207, 1.2), (130, 48, 0.7)])
+def test_viterbi_trellis_ref_matches_pallas(n, t_steps, noise):
+    """The plain trellis against the Pallas kernel pair in interpret mode:
+    every decided bit (data and tail) equal, at trellis lengths that are no
+    multiple of the reference's 24-step tile and batches that are no
+    multiple of its 128 lanes."""
+    rng = np.random.default_rng(t_steps)
+    data = rng.integers(0, 2, (n, t_steps - tfec.CONV_TAIL_BITS), dtype=np.uint8)
+    coded = np.asarray(jfec.conv_encode(jnp.asarray(data)))
+    rx = (coded * 2.0 - 1.0 + rng.normal(0, noise, coded.shape)).astype(np.float32)
+    rx = rx.reshape(n, t_steps, 2)
+    signs = tfec._branch_signs()
+    got = tk.viterbi_trellis_ref(torch.from_numpy(signs), torch.from_numpy(rx))
+    assert got.dtype == torch.uint8 and got.shape == (n, t_steps)
+    want = jk.viterbi_trellis(
+        jnp.asarray(jfec._branch_signs()), jnp.moveaxis(jnp.asarray(rx), 0, -1), interpret=True
+    )  # int32 [T, N]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).T)
+    if noise < 1.0:
+        np.testing.assert_array_equal(got.numpy()[:, : data.shape[1]], data)
+        assert not got.numpy()[:, data.shape[1] :].any()  # the zero tail
+    # the wrapper takes the plain version for a CPU tensor
+    assert torch.equal(tk.viterbi_trellis(torch.from_numpy(signs), torch.from_numpy(rx)), got)
+
+
+def test_viterbi_trellis_ref_all_ties():
+    signs = torch.from_numpy(tfec._branch_signs())
+    got = tk.viterbi_trellis_ref(signs, torch.zeros(2, 40, 2))
+    assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("cfgs", ["mfsk4-coded", "mfsk16-fast"])
+def test_demod_at_energies_ref_matches_pallas(cfgs, dtype):
+    """Energies f32 [B, S, M] at starts on the 128-sample row residues
+    124..127 and past them. Tolerance: 1e-5 of the largest energy (float32
+    sums in another order; bf16 products are exact in float32)."""
+    cfg, jcfg = get_model(cfgs).config, jget_model(cfgs).config
+    tdt, jdt = _DTYPES[dtype]
+    rng = np.random.default_rng(len(cfgs))
+    pay = 24
+    n_sym = data_symbols_for_payload(cfg, pay)
+    length = tstream._buffer_len(cfg, CHUNK, pay)
+    starts = np.array([0, 124, 125, 126, 127, 128, 1000, 4095], np.int32)
+    payload = rng.integers(0, 256, (len(starts), pay), dtype=np.uint8)
+    w = transmit(cfg, payload, device="cpu").numpy()
+    buf = 0.3 * rng.standard_normal((len(starts), length)).astype(np.float32)
+    for i, s in enumerate(starts):
+        buf[i, s : s + w.shape[1]] += w[i]
+    got = tk.demod_at_energies_fused_ref(
+        cfg, torch.from_numpy(buf).to(tdt), torch.from_numpy(starts), n_sym
+    )
+    want = jk.demod_at_energies_fused(
+        jcfg, jnp.asarray(buf).astype(jdt), jnp.asarray(starts), n_sym,
+        start_bound=CHUNK, interpret=True,
+    )
+    assert got.dtype == torch.float32 and got.shape == (len(starts), n_sym, cfg.num_tones)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * float(want.max()))
+    np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
+    # the wrapper takes the plain version for a CPU tensor
+    again = tk.demod_at_energies_fused(cfg, torch.from_numpy(buf).to(tdt), torch.from_numpy(starts), n_sym)
+    assert torch.equal(again, got)
+
+
+def test_demod_at_energies_ref_reads_zeros_past_the_end():
+    n_sym = data_symbols_for_payload(CODED, 8)
+    buf = torch.ones(1, 4096)
+    start = torch.tensor([4096 - CODED.preamble_samples - 3 * CODED.samples_per_symbol])
+    e = tk.demod_at_energies_fused_ref(CODED, buf, start, n_sym)
+    assert bool((e[0, :3].sum(-1) > 0).all()) and not bool(e[0, 3:].any())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("cfgs", ["mfsk4-coded", "mfsk16-fast"])
+def test_probe_at_ref_matches_pallas(cfgs, dtype):
+    """Quality f32 [B, 5] with probe bases at the row residues 122..127 and
+    0..2, on planted preambles and on noise. Tolerance: rtol 1e-4 (float32
+    sums in another order, one rsqrt)."""
+    cfg, jcfg = get_model(cfgs).config, jget_model(cfgs).config
+    tdt, jdt = _DTYPES[dtype]
+    rng = np.random.default_rng(len(cfgs) + 1)
+    tpl = np.array(j_preamble(jcfg))
+    k = tpl.shape[-1]
+    length = 4 * k + 512
+    pos = np.array([124, 125, 126, 127, 128, 129, 130, 256 + 2, 2048 + 37, 700], np.int32)
+    sig = 0.02 * rng.standard_normal((len(pos) + 2, length)).astype(np.float32)
+    for i, p in enumerate(pos):
+        sig[i, p : p + k] += tpl
+    sig[-2:] = rng.standard_normal((2, length)).astype(np.float32)  # noise only
+    st0 = np.concatenate([pos - 2 + np.array([0, 1, -1, 0, 2, -2, 0, 1, 0, 0]), [500, 900]]).astype(np.int32)
+    t_t = torch.from_numpy(tpl).to(tdt)
+    te = float((t_t.float() ** 2).sum())
+    got = tk.probe_at_fused_ref(torch.from_numpy(sig).to(tdt), torch.from_numpy(st0), t_t, te)
+    want = jk.probe_at_fused(
+        jnp.asarray(sig).astype(jdt), jnp.asarray(st0), jnp.asarray(tpl).astype(jdt), te, interpret=True
+    )
+    assert got.dtype == torch.float32 and got.shape == (len(st0), 5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-7)
+    np.testing.assert_array_equal(got.numpy()[: len(pos)].argmax(-1), pos - st0[: len(pos)])
+    assert float(got[: len(pos)].amax(-1).min()) > 0.95 and float(got[-2:].max()) < 0.2
+    again = tk.probe_at_fused(torch.from_numpy(sig).to(tdt), torch.from_numpy(st0), t_t, te)
+    assert torch.equal(again, got)
+
+
+def test_probe_at_ref_energy_span_is_st0_aligned():
+    """The window energy covers [st0, st0 + 128 * pw_e), not the row-aligned
+    span of sync.preamble_quality_probe: a spike just before st0 changes the
+    jnp-form probe's quality and leaves this one's alone."""
+    from anet_torch.dsp.sync import preamble_quality_probe
+
+    tpl = torch.from_numpy(np.array(j_preamble(JCFG)))
+    k = tpl.shape[-1]
+    te = float((tpl**2).sum())
+    buf = torch.zeros(2, 4 * k)
+    buf[:, 300 : 300 + k] = tpl
+    buf[1, 290] = 50.0  # in the row-aligned span [256, ...), before st0 = 298
+    st0 = torch.tensor([298, 298])
+    q = tk.probe_at_fused_ref(buf, st0, tpl, te)
+    assert torch.equal(q[0], q[1]) and float(q[0, 2]) > 0.99
+    q_rows, _ = preamble_quality_probe(buf, st0 + 2, tpl, te)
+    assert float(q_rows[1, 2]) < 0.9 * float(q_rows[0, 2])
+
+
+@pytest.mark.parametrize("name", ["mfsk16-fast", "mfsk4-voice", "fsk2-robust", "mfsk16-ultra", "mfsk4-coded"])
+@pytest.mark.parametrize("chunk,pay", [(4096, 64), (36352, 256), (1024, 7), (70144, 256)])
 def test_buffer_geometry_matches_jax(name, chunk, pay):
     cfg, jcfg = get_model(name).config, jget_model(name).config
     assert tstream._buffer_len(cfg, chunk, pay) == jstream._buffer_len(jcfg, chunk, pay)

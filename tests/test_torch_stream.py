@@ -2,7 +2,10 @@
 always-search and frame-lock modes on the layouts of test_stream_lock.py
 (contiguous, random gaps, 1-2-sample slips); the card's merged lock step
 driven through the plain versions against JAX's merged step under the
-interpret fixture; and checkpoints crossing between the packages."""
+interpret fixture; and checkpoints crossing between the packages. The same
+for the coded path on mfsk4-coded (soft Viterbi, depth-24 interleaver): its
+card branch is the unmerged lock step (probe_at_fused,
+demod_at_energies_fused, viterbi_trellis)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,19 +25,24 @@ CFG, JCFG = get_model(NAME).config, jget_model(NAME).config
 PAY = 64
 T_FRAME = jfamily.frame_samples(JCFG, PAY)
 CHUNK = 4096
+CODED = "mfsk4-coded"
+CCFG, JCCFG = get_model(CODED).config, jget_model(CODED).config
+CPAY = 32
+CT_FRAME = jfamily.frame_samples(JCCFG, CPAY)
 
 
-def _capture(rng, gaps_per_stream, noise=0.05):
+def _capture(rng, gaps_per_stream, noise=0.05, jcfg=JCFG, pay=PAY):
     """[B, N] f32 capture: per stream, each frame after its leading gap."""
     b, n_frames = len(gaps_per_stream), len(gaps_per_stream[0])
-    pays = rng.integers(0, 256, (b * n_frames, PAY), dtype=np.uint8)
-    waves = np.asarray(jax.jit(jfamily.transmit_fn(JCFG))(jnp.asarray(pays)))
-    waves = waves.reshape(b, n_frames, T_FRAME)
+    t_frame = jfamily.frame_samples(jcfg, pay)
+    pays = rng.integers(0, 256, (b * n_frames, pay), dtype=np.uint8)
+    waves = np.asarray(jax.jit(jfamily.transmit_fn(jcfg))(jnp.asarray(pays)))
+    waves = waves.reshape(b, n_frames, t_frame)
     caps = [
         np.concatenate([x for i, g in enumerate(gaps) for x in (np.zeros(g, np.float32), waves[s, i])])
         for s, gaps in enumerate(gaps_per_stream)
     ]
-    length = -(-(max(map(len, caps)) + T_FRAME + CHUNK) // CHUNK) * CHUNK
+    length = -(-(max(map(len, caps)) + t_frame + CHUNK) // CHUNK) * CHUNK
     out = np.zeros((b, length), np.float32)
     for s, c in enumerate(caps):
         out[s, : len(c)] = c
@@ -80,6 +88,77 @@ def test_receive_stream_matches_jax(layout, lock):
     assert got.steps.frame.payload.shape == (cap.shape[1] // CHUNK, 3, PAY)
 
 
+@pytest.mark.parametrize("lock", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "random_gaps", "slip"])
+def test_coded_receive_stream_matches_jax(layout, lock):
+    """mfsk4-coded through both packages' CPU paths: detections, payloads,
+    verdicts, frame starts and carry counters bit-equal."""
+    rng = np.random.default_rng(sum(map(ord, layout)) + 1)
+    gaps = _layout(layout, rng, b=2, n_frames=3)
+    cap = _capture(rng, gaps, noise=0.3, jcfg=JCCFG, pay=CPAY)
+    want = jstream.receive_stream(JCCFG, jnp.asarray(cap), CHUNK, CPAY, lock=lock)
+    got = tstream.receive_stream(CCFG, cap, CHUNK, CPAY, lock=lock, device="cpu")
+    _assert_same(got, want)
+    for v in ("magic_ok", "length_ok", "header_crc_ok", "payload_crc_ok"):
+        det = got.steps.detected.numpy()
+        np.testing.assert_array_equal(
+            getattr(got.steps.frame, v).numpy()[det], np.asarray(getattr(want.steps.frame, v))[det], v
+        )
+    assert int(got.carry.frames_ok.sum()) == 2 * 3
+    assert got.steps.frame.payload.shape == (cap.shape[1] // CHUNK, 2, CPAY)
+    det = got.steps.detected.numpy()
+    np.testing.assert_allclose(
+        got.steps.frame.confidence.numpy()[det], np.asarray(want.steps.frame.confidence)[det], rtol=1e-4
+    )
+
+
+@pytest.mark.parametrize("lock", [False, True])
+def test_coded_card_branch_matches_jax_kernels(interpret_tpu_kernels, monkeypatch, lock):
+    """The coded stream's card branch (probe_at_fused when locked, then
+    demod_at_energies_fused and viterbi_trellis) run through the plain
+    versions on the CPU, against JAX's step with its Pallas kernels in
+    interpret mode; bf16 buffers, frame starts at the row residues.
+    Quality: rtol 1e-3 (bf16 inputs, float32 sums in another order)."""
+    rng = np.random.default_rng(0xC0DE + lock)
+    gaps = [[g, 0, 0] for g in (124, 125, 126, 127, 2)]
+    cap = _capture(rng, gaps, noise=0.1, jcfg=JCCFG, pay=CPAY)
+    calls = {"probe": 0, "energies": 0, "viterbi": 0}
+    from anet_torch import kernels as tk
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(tstream, "_probe_kernel_supported", lambda carry: True)
+    monkeypatch.setattr(tk, "probe_at_fused", counted("probe", tk.probe_at_fused))
+    monkeypatch.setattr(tk, "demod_at_energies_fused", counted("energies", tk.demod_at_energies_fused))
+    monkeypatch.setattr(tk, "viterbi_trellis", counted("viterbi", tk.viterbi_trellis))
+    got = tstream.receive_stream(
+        CCFG, torch.from_numpy(cap).to(torch.bfloat16), CHUNK, CPAY, lock=lock,
+        compute_dtype=torch.bfloat16, device="cpu",
+    )
+    n_chunks = cap.shape[1] // CHUNK
+    assert calls == {"probe": n_chunks if lock else 0, "energies": n_chunks, "viterbi": n_chunks}
+    interpret_tpu_kernels()
+    want = jstream.receive_stream(
+        JCCFG, jnp.asarray(cap).astype(jnp.bfloat16), CHUNK, CPAY, lock=lock,
+        compute_dtype=jnp.bfloat16, resident=False,
+    )
+    _assert_same(got, want)
+    assert int(got.carry.frames_ok.sum()) == 5 * 3
+    np.testing.assert_allclose(
+        got.steps.quality.numpy(), np.asarray(want.steps.quality), rtol=1e-3, atol=1e-6
+    )
+
+
+def test_merged_lock_never_serves_coded_configs():
+    carry = tstream.init_carry(CCFG, CHUNK, CPAY, (1,), device="cpu")
+    assert not tstream._merged_lock_supported(CCFG, carry)
+    assert not tstream._probe_kernel_supported(carry)
+
+
 def test_merged_lock_step_matches_jax_kernels(interpret_tpu_kernels, monkeypatch):
     """The card's lock path (_locked_step_merged: demod_probe_fused, and on
     acquisition sync_search_fused + demod_at_fused) run through the plain
@@ -111,13 +190,9 @@ def test_merged_lock_step_matches_jax_kernels(interpret_tpu_kernels, monkeypatch
     )
 
 
-@pytest.mark.parametrize("lock", [False, True])
-def test_jax_checkpoint_resumes_in_port(tmp_path, lock):
-    """A checkpoint written by anet.stream.save_carry mid-capture resumes in
-    anet_torch with the results of one uninterrupted JAX run; and the port's
-    own checkpoint resumes in JAX."""
+def _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, b):
     rng = np.random.default_rng(11)
-    cap = _capture(rng, _layout("random_gaps", rng))
+    cap = _capture(rng, _layout("random_gaps", rng, b=b), jcfg=JCFG, pay=PAY)
     cut = (cap.shape[1] // CHUNK // 2) * CHUNK
     full = jstream.receive_stream(JCFG, jnp.asarray(cap), CHUNK, PAY, lock=lock)
     first = jstream.receive_stream(JCFG, jnp.asarray(cap[:, :cut]), CHUNK, PAY, lock=lock)
@@ -144,6 +219,23 @@ def test_jax_checkpoint_resumes_in_port(tmp_path, lock):
     tail = jstream.receive_stream(JCFG, jnp.asarray(cap[:, cut:]), CHUNK, PAY, lock=lock, carry=back.carry)
     np.testing.assert_array_equal(np.asarray(tail.carry.frames_ok), np.asarray(full.carry.frames_ok))
     np.testing.assert_array_equal(np.asarray(tail.carry.next_start), np.asarray(full.carry.next_start))
+    return full
+
+
+@pytest.mark.parametrize("lock", [False, True])
+def test_jax_checkpoint_resumes_in_port(tmp_path, lock):
+    """A checkpoint written by anet.stream.save_carry mid-capture resumes in
+    anet_torch with the results of one uninterrupted JAX run; and the port's
+    own checkpoint resumes in JAX."""
+    _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, 3)
+
+
+@pytest.mark.parametrize("lock", [False, True])
+def test_coded_checkpoint_crosses_both_ways(tmp_path, lock):
+    """The same on mfsk4-coded: a coded carry written by anet mid-capture
+    resumes in anet_torch, and the other way round."""
+    full = _checkpoint_crosses(tmp_path, lock, CCFG, JCCFG, CPAY, 2)
+    assert int(np.asarray(full.carry.frames_ok).sum()) == 2 * 4
 
 
 def test_carry_numpy_roundtrip_keeps_bf16():
@@ -164,6 +256,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tstream.receive_stream(CFG, cap, CHUNK, PAY, lock=True, resident=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        tstream.receive_stream(get_model("mfsk4-coded").config, cap, CHUNK, PAY, device="cpu")
+        tstream.receive_stream(CCFG, cap, CHUNK, PAY, track=True, device="cpu")
     with pytest.raises(NotImplementedError):
         tstream.init_carry(CFG, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu")
