@@ -36,6 +36,19 @@ def aligned_demod_fn(config, payload_len: int, compute_dtype=torch.float32, devi
     )
 
 
+def aligned_demod_dynamic_fn(
+    config, max_payload_len: int, compute_dtype=torch.float32, device="cuda"
+) -> Callable:
+    """Symbol-aligned max-length window -> DynamicFrameResult (payload
+    length read from the frame header)."""
+    from anet_torch.dsp.frame import demodulate_frame_dynamic
+
+    _require_mfsk(config)
+    return lambda w: demodulate_frame_dynamic(
+        config, w, max_payload_len, compute_dtype=compute_dtype, device=device
+    )
+
+
 def frame_samples(config, payload_len: int) -> int:
     from anet_torch.dsp.frame import frame_num_samples
 

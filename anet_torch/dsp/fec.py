@@ -11,6 +11,8 @@ Device formulation for a static length: CRC-32 is linear over GF(2), so the
 checksum is one bit-matrix product, crc = (bits @ P_N) mod 2 ^ crc(0^N),
 with P_N the per-position bit-contribution table. The product runs in
 float64, where the bit counts are exact and no TF32 rounding can apply.
+A per-message length (variable-length frames) needs no scan over the bytes
+either: see crc32_device.
 """
 
 from __future__ import annotations
@@ -164,11 +166,68 @@ def _crc32_table() -> np.ndarray:
     return table
 
 
-def crc32_device(data: torch.Tensor) -> torch.Tensor:
-    """CRC-32 of uint8[..., N] along the last axis, as int64 in [0, 2^32):
-    one bit-matrix product (_crc32_matmul). The per-message ``length`` form
-    of the reference arrives with the variable-length slice."""
-    return _crc32_matmul(data)
+def crc32_device(data: torch.Tensor, length: torch.Tensor | None = None) -> torch.Tensor:
+    """CRC-32 of uint8[..., N] along the last axis, as int64 in [0, 2^32).
+
+    ``length is None`` (static length, the framing hot path): one bit-matrix
+    product (_crc32_matmul).
+
+    ``length`` given (int tensor of the batch shape): only the first
+    ``length`` bytes of each message count; the rest is padding. The
+    reference runs a masked scan over the byte axis here. CRC-32 is affine
+    over GF(2), so the same value comes without a scan: with M the message
+    zeroed past ``length``, the linear part of the N-byte checksum,
+    L_N(M) = (bits(M) @ P_N) mod 2, is the linear part of the wanted
+    checksum advanced through N - length zero bytes. Undoing that advance is
+    a 32 x 32 bit matrix picked per message from a table indexed by
+    N - length, and the affine constant crc(0^length) comes from a second
+    table. Bit-equal to zlib.crc32 over exactly ``length`` bytes for every
+    length in 0..N (lengths outside are clipped, as the scan's mask does)."""
+    if length is None:
+        return _crc32_matmul(data)
+    n = data.shape[-1]
+    dev = data.device
+    plen = length.to(device=dev, dtype=torch.int64).clamp(0, n)
+    unadvance_np, const_np = _crc32_length_tables(n)
+    if n == 0:
+        return torch.full(data.shape[:-1], int(const_np[0]), dtype=torch.int64, device=dev)
+    keep = torch.arange(n, device=dev) < plen[..., None]
+    masked = torch.where(keep, data, torch.zeros((), dtype=data.dtype, device=dev))
+    p = torch.as_tensor(_crc32_bit_table(n)[0], dtype=torch.float64, device=dev)
+    raw = parity_to_u32(bytes_to_bits(masked).to(torch.float64) @ p)  # L_N(M)
+    raw_bits = ((raw[..., None] >> torch.arange(32, device=dev)) & 1).to(torch.float32)
+    images = torch.as_tensor(unadvance_np, device=dev)[n - plen].to(torch.float32)  # [..., 32, 32]
+    linear = parity_to_u32((raw_bits[..., :, None] * images).sum(-2))
+    return linear ^ torch.as_tensor(const_np, device=dev)[plen]
+
+
+@lru_cache(maxsize=8)
+def _crc32_length_tables(n_bytes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Tables of the per-message-length CRC over messages padded to n bytes:
+    (unadvance uint8 [n + 1, 32, 32], const int64 [n + 1]).
+
+    unadvance[k, j, b] is bit b of A^-k(e_j): the register state whose
+    advance through k zero bytes is the single bit j (A, one zero byte, is
+    s -> table[s & 0xFF] ^ (s >> 8); its inverse finds the byte index from
+    the top byte of the result, which is distinct for each table entry).
+    const[p] = crc32 of p zero bytes."""
+    table = _crc32_table().astype(np.uint64)
+    by_top = np.zeros(256, np.uint64)
+    by_top[(table >> np.uint64(24)).astype(np.int64)] = np.arange(256, dtype=np.uint64)
+    states = np.zeros((n_bytes + 1, 32), np.uint64)
+    states[0] = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    for k in range(1, n_bytes + 1):
+        r = states[k - 1]
+        i = by_top[(r >> np.uint64(24)).astype(np.int64)]
+        states[k] = (((r ^ table[i.astype(np.int64)]) << np.uint64(8)) | i) & np.uint64(0xFFFFFFFF)
+    bitpos = np.arange(32, dtype=np.uint64)
+    unadvance = ((states[..., None] >> bitpos) & np.uint64(1)).astype(np.uint8)
+    const = np.zeros(n_bytes + 1, np.int64)
+    crc = 0
+    for p in range(n_bytes + 1):
+        const[p] = crc & 0xFFFFFFFF
+        crc = zlib.crc32(b"\x00", crc)
+    return unadvance, const
 
 
 @lru_cache(maxsize=64)

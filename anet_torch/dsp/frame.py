@@ -1,5 +1,5 @@
-"""PHY framing: payload bytes <-> modulated frame waveform (mirrors the
-fixed-length part of ``anet.dsp.frame``, uncoded and coded).
+"""PHY framing: payload bytes <-> modulated frame waveform (mirrors
+``anet.dsp.frame``: fixed and variable frame length, uncoded and coded).
 
 Frame layout (all multi-byte fields big-endian):
 
@@ -202,16 +202,17 @@ def demodulate_frame_tm(
     (anet_torch.kernels.decide_frame_tm) reads the data rows in place at the
     preamble offset (no copy of the data section), decides, packs and
     checksums; only KB-scale tensors reach frame_result_from_packed. Other
-    uncoded windows take the plain filterbank on the CPU; on the card they
-    need the decisions-only kernel (decide_tones_tm), which is still to be
-    ported.
+    uncoded windows (an oversized window, 3 or 5 bits a symbol) take the
+    decisions-only kernel (anet_torch.kernels.decide_tones_tm), which decides
+    every symbol present, so confidence and snr_db then average over the
+    whole window and not over the frame's own symbols alone.
 
     Coded configs (fec='conv') need every tone's energy for the soft
     decisions: they take the [2M, sps] x [S, sps, B] filterbank product
     (operands in ``compute_dtype``, float32 accumulation and result), keep
     the energies time-major [S, M, B] and transpose them once for the LLRs.
     """
-    from anet_torch.kernels import decide_frame_tm
+    from anet_torch.kernels import decide_frame_tm, decide_tones_tm
 
     samples_tm = as_tensor(samples_tm, device)
     sps = config.samples_per_symbol
@@ -228,17 +229,17 @@ def demodulate_frame_tm(
             config, samples_tm.to(compute_dtype), payload_len, preamble_offset=pre
         )
         return frame_result_from_packed(config, words, crc_counts, qual, n_sym, payload_len)
-    if samples_tm.is_cuda and config.fec != "conv":
-        raise NotImplementedError(
-            "this window needs decide_tones_tm, not yet ported (ROADMAP queue 2)"
-        )
     b = samples_tm.shape[1]
-    w = samples_tm[pre : pre + s * sps].reshape(s, sps, b).to(compute_dtype)
-    basis_t = demod_basis(config, dtype=compute_dtype, device=samples_tm.device).T  # [2M, sps]
-    e = _filterbank_energies_tm(basis_t, w, m)  # [S, M, B]
-    tone = torch.argmax(e, dim=1).to(torch.int32)  # [S, B]
-    best, total = e.amax(1), e.sum(1)
-    llrs = bit_llrs(config, e.permute(2, 0, 1)) if config.fec == "conv" else None
+    if config.fec == "conv":
+        w = samples_tm[pre : pre + s * sps].reshape(s, sps, b).to(compute_dtype)
+        basis_t = demod_basis(config, dtype=compute_dtype, device=samples_tm.device).T  # [2M, sps]
+        e = _filterbank_energies_tm(basis_t, w, m)  # [S, M, B]
+        tone = torch.argmax(e, dim=1).to(torch.int32)  # [S, B]
+        best, total = e.amax(1), e.sum(1)
+        llrs = bit_llrs(config, e.permute(2, 0, 1))
+    else:
+        tone, best, total = decide_tones_tm(config, samples_tm[pre:].to(compute_dtype))
+        llrs = None
     # quality reduces over the symbol (major) axis while still time-major;
     # only [B] vectors and the [S, B] decisions transpose
     confidence = (best / total.clamp_min(1e-20)).mean(0)
@@ -395,3 +396,226 @@ def frame_result_from_bits(
         confidence=confidence,
         snr_db=snr_db,
     )
+
+
+# --- variable-length frames: the payload length comes from the header --------
+
+
+class DynamicFrameResult(NamedTuple):
+    """Demodulated frame whose payload length came from the header. Shapes
+    are static at the configured maximum; ``payload`` is zero-padded past
+    ``payload_len``."""
+
+    payload: torch.Tensor  # uint8[..., max_payload_len], zero-padded
+    payload_len: torch.Tensor  # int32[...] header-declared length (clipped)
+    magic_ok: torch.Tensor  # bool[...]
+    length_ok: torch.Tensor  # bool[...] declared length <= configured max
+    header_crc_ok: torch.Tensor  # bool[...]
+    payload_crc_ok: torch.Tensor  # bool[...]
+    ok: torch.Tensor  # bool[...]
+    confidence: torch.Tensor  # float32[...]
+    snr_db: torch.Tensor  # float32[...]
+
+
+def frame_result_from_bits_dynamic(
+    config,
+    bits: torch.Tensor,
+    max_payload_len: int,
+    *,
+    confidence: torch.Tensor,
+    snr_db: torch.Tensor,
+) -> DynamicFrameResult:
+    """Variable-length frame parse of uncoded (hard-decision) bits: the
+    payload length is read from the demodulated header of a max-length
+    window. Coded configs decode through frame_result_from_llrs_dynamic."""
+    if config.fec != "none":
+        raise ValueError(
+            "hard-bit dynamic parse requires fec='none'; coded configs "
+            "decode through frame_result_from_llrs_dynamic"
+        )
+    return _parse_dynamic_section(bits, max_payload_len, confidence=confidence, snr_db=snr_db)
+
+
+HEADER_PROBE_DATA_BITS = 96  # header's 64 bits + 32 bits of traceback margin
+
+
+def frame_result_from_llrs_dynamic(
+    config,
+    llrs: torch.Tensor,
+    max_payload_len: int,
+    *,
+    confidence: torch.Tensor,
+    snr_db: torch.Tensor,
+) -> DynamicFrameResult:
+    """Variable-length CODED frame parse: soft LLRs of a max-length window
+    in, payload + declared length out, in two trellis passes.
+
+    1. Header probe: the convolutional code is sequential, so the first
+       HEADER_PROBE_DATA_BITS data bits decode from the static LLR prefix
+       alone (an unflushed 102-step trellis; the 32-bit margin past the
+       header covers the traceback's convergence). It yields the declared
+       length, used only as a mask hint.
+    2. Masked full trellis: LLRs past the declared coded length are zeroed
+       and ONE max-length Viterbi decodes the section. Zero LLRs tie every
+       branch metric, so the path metrics freeze past the true tail flush,
+       state 0 stays the strict minimum through the padding, and the decode
+       of the real span is the ML decode of the true-length trellis. That
+       holds only with the trellis kernel's tie rule (j = 1 wins when
+       strictly smaller) and its (pm + a) + b order, which viterbi_trellis
+       and its plain version share with the reference kernel.
+
+    Needs fec='conv' with fec_interleave == 1: a block interleaver's
+    geometry depends on the section length the header declares."""
+    if config.fec != "conv":
+        raise ValueError("frame_result_from_llrs_dynamic needs fec='conv'")
+    if config.fec_interleave > 1:
+        raise ValueError(
+            "dynamic coded frames need fec_interleave == 1: a block "
+            "interleaver's geometry depends on the section length the "
+            "header declares (use the mfsk4-coded-stream preset)"
+        )
+    from anet_torch.dsp.fec import CONV_TAIL_BITS, conv_encoded_bits, viterbi_decode_soft
+
+    n_probe = HEADER_PROBE_DATA_BITS
+    probe_bits = viterbi_decode_soft(llrs[..., : conv_encoded_bits(n_probe)], n_probe)
+    probe_hdr = bits_to_bytes(probe_bits[..., : HEADER_BYTES * 8])
+    probe_len = _be16(probe_hdr[..., 4:6]).clamp(0, max_payload_len)
+
+    n_bytes_max = data_section_bytes(max_payload_len)
+    coded_len = 2 * (8 * (OVERHEAD_BYTES + probe_len) + CONV_TAIL_BITS)
+    lane = torch.arange(llrs.shape[-1], device=llrs.device)
+    zero = torch.zeros((), dtype=llrs.dtype, device=llrs.device)
+    masked = torch.where(lane < coded_len[..., None], llrs, zero)
+    bits = viterbi_decode_soft(masked, 8 * n_bytes_max)
+    return _parse_dynamic_section(bits, max_payload_len, confidence=confidence, snr_db=snr_db)
+
+
+def _parse_dynamic_section(
+    bits: torch.Tensor,
+    max_payload_len: int,
+    *,
+    confidence: torch.Tensor,
+    snr_db: torch.Tensor,
+) -> DynamicFrameResult:
+    """Shared dynamic-length parse of decoded section bits (uncoded path and
+    post-Viterbi coded path): the payload CRC runs over exactly the declared
+    length (crc32_device(length=)) and the 4 trailer bytes are gathered at
+    their per-frame offset."""
+    n_bytes = data_section_bytes(max_payload_len)
+    section = bits_to_bytes(bits[..., : n_bytes * 8])
+
+    magic, length, header_crc_ok = _parse_header(section[..., :HEADER_BYTES])
+    magic_ok = magic == constants.MAGIC_WORD
+    length_ok = length <= max_payload_len
+    plen = length.clamp(0, max_payload_len)
+
+    body = section[..., HEADER_BYTES : HEADER_BYTES + max_payload_len]
+    mask = torch.arange(max_payload_len, device=bits.device) < plen[..., None]
+    payload = torch.where(mask, body, torch.zeros((), dtype=body.dtype, device=bits.device))
+    crc_calc = crc32_device(body, length=plen)
+    trailer_idx = HEADER_BYTES + plen[..., None] + torch.arange(4, device=bits.device)
+    trailer = torch.gather(section, -1, trailer_idx)
+    payload_crc_ok = crc_calc == _be_bytes_to_u32(trailer)
+
+    ok = magic_ok & length_ok & header_crc_ok & payload_crc_ok
+    return DynamicFrameResult(
+        payload=payload,
+        payload_len=plen.to(torch.int32),
+        magic_ok=magic_ok,
+        length_ok=length_ok,
+        header_crc_ok=header_crc_ok,
+        payload_crc_ok=payload_crc_ok,
+        ok=ok,
+        confidence=confidence,
+        snr_db=snr_db,
+    )
+
+
+def dynamic_frame_result_from_tone_decisions(
+    config: ModemConfig,
+    tone: torch.Tensor,
+    best: torch.Tensor,
+    total: torch.Tensor,
+    max_payload_len: int,
+) -> DynamicFrameResult:
+    """Variable-length parse from reduced decisions [..., S] (the contract
+    of demod_at_fused): the dynamic twin of frame_result_from_tone_decisions.
+    Quality metrics use only the overhead-symbol span, the only span
+    guaranteed to carry signal at any payload length. Uncoded only."""
+    if config.fec != "none":
+        raise ValueError("dynamic payload length requires fec='none'")
+    m = config.num_tones
+    s_min = data_symbols_for_payload(config, 0)  # overhead-only span
+    b = best[..., :s_min]
+    t = total[..., :s_min]
+    confidence = (b / t.clamp_min(1e-20)).mean(-1)
+    snr_db = _snr_db(b.mean(-1), ((t - b) / (m - 1)).mean(-1))
+    symbols = gray_decode(tone.to(torch.int32), config.bits_per_symbol)
+    bits = unpack_symbols(symbols, config.bits_per_symbol)
+    return frame_result_from_bits_dynamic(
+        config, bits, max_payload_len, confidence=confidence, snr_db=snr_db
+    )
+
+
+def _overhead_quality(config: ModemConfig, energies: torch.Tensor):
+    """(confidence, snr_db) over the overhead-symbol span of [..., S, M]
+    energies."""
+    e = energies[..., : data_symbols_for_payload(config, 0), :]
+    confidence = (e.amax(-1) / e.sum(-1).clamp_min(1e-20)).mean(-1)
+    return confidence, estimate_snr_db(config, e)
+
+
+def dynamic_frame_result_from_energies(
+    config: ModemConfig,
+    energies: torch.Tensor,
+    max_payload_len: int,
+) -> DynamicFrameResult:
+    """Variable-length CODED parse from full tone energies [..., S, M] (the
+    output of demod_at_energies_fused): soft LLRs feed the header probe and
+    the masked trellis; quality over the overhead-symbol span."""
+    confidence, snr_db = _overhead_quality(config, energies)
+    llrs = bit_llrs(config, energies)[..., : data_section_coded_bits(config, max_payload_len)]
+    return frame_result_from_llrs_dynamic(
+        config, llrs, max_payload_len, confidence=confidence, snr_db=snr_db
+    )
+
+
+def demodulate_frame_dynamic(
+    config: ModemConfig,
+    samples,
+    max_payload_len: int,
+    *,
+    compute_dtype=torch.float32,
+    device="cuda",
+) -> DynamicFrameResult:
+    """Symbol-aligned max-length frame window [..., T] -> payload + declared
+    length, through the plain filterbank. ``samples`` must be
+    frame_num_samples(config, max_payload_len) long; a capture holding a
+    shorter frame just includes trailing noise, which the masked CRC
+    ignores."""
+    samples = as_tensor(samples, device)
+    data = samples[..., config.preamble_symbols * config.samples_per_symbol :]
+    energies = tone_energies(config, data, compute_dtype=compute_dtype)
+    if config.fec == "conv":
+        return dynamic_frame_result_from_energies(config, energies, max_payload_len)
+    confidence, snr_db = _overhead_quality(config, energies)
+    bits = unpack_symbols(decide_symbols(config, energies), config.bits_per_symbol)
+    return frame_result_from_bits_dynamic(
+        config, bits, max_payload_len, confidence=confidence, snr_db=snr_db
+    )
+
+
+def dynamic_frame_samples(config, payload_len):
+    """frame_num_samples for a per-frame payload length: an int32 tensor for
+    a tensor, an int for an int. The streaming receiver advances its dedupe
+    cursor by it. A coded config has no interleaver pad term here: the
+    dynamic coded path requires fec_interleave == 1."""
+    from anet_torch.dsp.fec import CONV_TAIL_BITS
+
+    if isinstance(payload_len, torch.Tensor):
+        payload_len = payload_len.to(torch.int32)
+    n_bits = 8 * (OVERHEAD_BYTES + payload_len)
+    if config.fec == "conv":
+        n_bits = 2 * (n_bits + CONV_TAIL_BITS)
+    syms = (n_bits + config.bits_per_symbol - 1) // config.bits_per_symbol
+    return (config.preamble_symbols + syms) * config.samples_per_symbol

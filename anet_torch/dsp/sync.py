@@ -5,10 +5,16 @@ The preamble is a fixed PN tone pattern. The correlation is the
 block-Toeplitz matched filter (``method="matmul"``): the lag axis is tiled
 into blocks of B lags, and each block is one row of a
 ``[n_blocks, K+B-1] x [K+B-1, B]`` product against a banded template
-matrix. It is the plain version of the streaming search.
+matrix. It is the plain version of the streaming search and of
+correlate_fused, and the one-shot locator's correlation (locate_preamble),
+where it stays a torch product as the reference leaves it to XLA. The
+reference's FFT and direct backends are not ported: ``method="auto"``
+resolves to the product.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,6 +42,14 @@ def preamble_waveform(config: ModemConfig, dtype=torch.float32, device="cuda") -
     return synthesize_tones(config, preamble_tone_indices(config, device), dtype=dtype)
 
 
+class SyncResult(NamedTuple):
+    """Timing estimate for one stream (all fields batched alike)."""
+
+    offset: torch.Tensor  # int32: sample index where the preamble starts
+    frac: torch.Tensor  # float32: sub-sample refinement in (-0.5, 0.5)
+    quality: torch.Tensor  # float32: normalized correlation in [0, 1]
+
+
 def banded_template(template: torch.Tensor, n_rows: int, block: int) -> torch.Tensor:
     """Banded Toeplitz template matrix [n_rows, block]: T[p, j] = t[p - j]
     inside the band, 0 outside."""
@@ -61,8 +75,8 @@ def correlate_template(
     k = template.shape[-1]
     if k > n:
         raise ValueError(f"template ({k}) longer than capture ({n})")
-    if method != "matmul":
-        raise ValueError(f"only method='matmul' is ported, got {method!r}")
+    if method not in ("matmul", "auto"):
+        raise ValueError(f"only method='matmul' (or 'auto') is ported, got {method!r}")
     return _correlate_matmul(samples.float(), template.float(), block)
 
 
@@ -125,6 +139,25 @@ def blockwise_match_quality(
     return q.reshape(corr.shape)[..., :out_len]
 
 
+def sliding_window_energy(samples: torch.Tensor, k: int) -> torch.Tensor:
+    """Energy of every k-sample window: [..., N] -> float32 [..., N - k + 1],
+    as differences of a prefix sum of the squared samples. Squares round to
+    the samples' dtype, as the reference's do; the prefix sum is float32."""
+    csum = torch.cumsum((samples * samples).float(), dim=-1)
+    csum = torch.nn.functional.pad(csum, (1, 0))
+    return csum[..., k:] - csum[..., : csum.shape[-1] - k]
+
+
+def normalized_match_quality(
+    corr: torch.Tensor, window_energy: torch.Tensor, template_energy
+) -> torch.Tensor:
+    """Cauchy-Schwarz-normalized correlation quality in [0, 1]. The window
+    energy is floored at -40 dB of the template energy so near-silent
+    windows cannot report spurious quality. Shared by the one-shot locators."""
+    te = torch.as_tensor(template_energy, dtype=torch.float32, device=corr.device)
+    return corr.abs() / torch.sqrt(te * torch.maximum(window_energy, 1e-4 * te))
+
+
 def gather_span(buffer: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
     """out[..., i] = buffer[..., start[...] + i], reading zeros past either
     end of the buffer (the reference's zero-padded span reads)."""
@@ -133,6 +166,76 @@ def gather_span(buffer: torch.Tensor, start: torch.Tensor, size: int) -> torch.T
     inside = (idx >= 0) & (idx < length)
     vals = torch.gather(buffer, -1, idx.clamp(0, length - 1))
     return torch.where(inside, vals, torch.zeros((), dtype=buffer.dtype, device=buffer.device))
+
+
+def aligned_gather(
+    buffer: torch.Tensor,
+    start: torch.Tensor,
+    size: int,
+    compute_dtype=None,
+    mode: str = "auto",
+) -> torch.Tensor:
+    """Slice ``size`` samples at per-stream offsets: out[..., i] =
+    buffer[..., start[...] + i], in the buffer's dtype. Callers guarantee
+    0 <= start and start + size <= buffer length; positions outside the
+    buffer read as zero.
+
+    The reference's ``dma`` and ``onehot`` modes are two XLA formulations of
+    this one gather, chosen by ``auto`` for the TPU; here all three are
+    gather_span. ``mode="roll"`` is the kernel
+    (anet_torch.kernels.gather_rows_fused), as in the reference an explicit
+    mode and not in ``auto``. A ``compute_dtype`` other than float32 rounds
+    the samples to it on the way (the reference's selection products run in
+    that dtype); ``roll`` moves them untouched. The reference's
+    ``start_bound`` hint only lets its TPU forms skip a pad copy and has no
+    counterpart here."""
+    if mode not in ("auto", "dma", "onehot", "roll"):
+        raise ValueError(f"mode must be auto/dma/onehot/roll, got {mode!r}")
+    if start.dim() == 0:
+        return buffer.narrow(-1, int(start), size)
+    if mode == "roll":
+        from anet_torch.kernels import gather_rows_fused
+
+        return gather_rows_fused(buffer, start, size)
+    out = gather_span(buffer, start, size)
+    if compute_dtype is not None and compute_dtype != torch.float32:
+        out = out.to(compute_dtype).to(buffer.dtype)
+    return out
+
+
+def _local_energy(samples: torch.Tensor, k: int, offset: torch.Tensor) -> torch.Tensor:
+    """Energy of the k-sample window at ``offset`` (float32 prefix sum)."""
+    csum = torch.cumsum((samples * samples).float(), dim=-1)
+    csum = torch.nn.functional.pad(csum, (1, 0))
+    off = offset.to(torch.int64)[..., None]
+    return (torch.gather(csum, -1, off + k) - torch.gather(csum, -1, off))[..., 0]
+
+
+def locate_preamble(
+    config: ModemConfig, samples: torch.Tensor, method: str = "auto"
+) -> SyncResult:
+    """Find the preamble start in a capture [..., N] (N >= preamble
+    samples): integer offset of the correlation peak, a parabolic sub-sample
+    refinement, and the normalized quality at the peak (1.0 = perfect
+    match), normalized by the exact window energy there."""
+    template = preamble_waveform(config, device=samples.device)
+    abs_corr = correlate_template(samples, template, method=method).abs()
+    offset = torch.argmax(abs_corr, dim=-1)
+    n_corr = abs_corr.shape[-1]
+
+    def at(idx):
+        return torch.gather(abs_corr, -1, idx.clamp(0, n_corr - 1)[..., None])[..., 0]
+
+    center, left, right = at(offset), at(offset - 1), at(offset + 1)
+    denom = left - 2.0 * center + right
+    frac = torch.where(denom.abs() > 1e-12, 0.5 * (left - right) / denom, torch.zeros_like(denom))
+    t_energy = (template * template).sum()
+    window_energy = _local_energy(samples, template.shape[-1], offset)
+    return SyncResult(
+        offset=offset.to(torch.int32),
+        frac=frac.clamp(-0.5, 0.5),
+        quality=normalized_match_quality(center, window_energy, t_energy),
+    )
 
 
 def preamble_quality_probe(

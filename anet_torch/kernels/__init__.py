@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the receiver's main paths, with their plain
-PyTorch versions (mirrors the seven ``anet.kernels`` Pallas kernels that the
-aligned and locked streaming receivers run, uncoded and coded).
+PyTorch versions (mirrors the ten ``anet.kernels`` Pallas kernels that the
+aligned, streaming and one-shot receivers run: uncoded and coded, fixed and
+variable frame length).
 
 | wrapper                 | kernel source               | TPU kernel it replaces        |
 |-------------------------|-----------------------------|-------------------------------|
@@ -11,6 +12,9 @@ aligned and locked streaming receivers run, uncoded and coded).
 | viterbi_trellis         | csrc/viterbi.cu             | anet/kernels/__init__.py:754  |
 | demod_at_energies_fused | csrc/demod_at_energies.cu   | anet/kernels/__init__.py:1918 |
 | probe_at_fused          | csrc/probe_at.cu            | anet/kernels/__init__.py:1621 |
+| correlate_fused         | csrc/correlate.cu           | anet/kernels/__init__.py:891  |
+| decide_tones_tm         | csrc/decide_tones_tm.cu     | anet/kernels/__init__.py:269  |
+| gather_rows_fused       | csrc/gather_rows.cu         | anet/kernels/__init__.py:1415 |
 
 Each wrapper runs its plain version (``*_ref``) when its tensors lie on the
 CPU, and launches its CUDA kernel when they lie on the card: it checks
@@ -54,6 +58,12 @@ __all__ = [
     "demod_at_energies_fused_ref",
     "probe_at_fused",
     "probe_at_fused_ref",
+    "correlate_fused",
+    "correlate_fused_ref",
+    "decide_tones_tm",
+    "decide_tones_tm_ref",
+    "gather_rows_fused",
+    "gather_rows_fused_ref",
 ]
 
 TM_SYMBOL_TILE = 8  # Gray-decoded symbols packed per int32 word
@@ -72,6 +82,9 @@ launch_counts = {
     "viterbi_trellis": 0,
     "demod_at_energies_fused": 0,
     "probe_at_fused": 0,
+    "correlate_fused": 0,
+    "decide_tones_tm": 0,
+    "gather_rows_fused": 0,
 }
 
 
@@ -632,6 +645,136 @@ def probe_at_fused(
     )
     _check_launch(err, name)
     return q
+
+
+# --- correlate_fused: every lag of the preamble correlation -------------------
+
+
+def correlate_fused_ref(seg: torch.Tensor, template: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Plain version of correlate_fused: the block-Toeplitz product of
+    anet_torch.dsp.sync.correlate_template, the segment zero-padded where it
+    is shorter than out_len + k - 1."""
+    from anet_torch.dsp.sync import correlate_template
+
+    k = template.shape[-1]
+    seg_f = seg.float()
+    short = out_len + k - 1 - seg_f.shape[-1]
+    if short > 0:
+        seg_f = torch.nn.functional.pad(seg_f, (0, short))
+    return correlate_template(seg_f, template.float(), method="matmul")[..., :out_len]
+
+
+def correlate_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Valid-mode correlation [B, N] x [k] -> float32 [B, out_len] with every
+    lag written out: out[b, l] = sum_j seg[b, l + j] * template[j], float32
+    accumulation whatever the input dtype. ``out_len <= N - k + 1`` is the
+    callers' contract; samples past the end of ``seg`` read as zero. Rows of
+    ``seg`` may be strided (a view into the stream buffer) as long as the
+    last dimension is contiguous. The multi-candidate variable-length stream
+    step reads the whole array (stream._slide_and_quality)."""
+    if seg.device.type == "cpu":
+        return correlate_fused_ref(seg, template, out_len)
+    name = "correlate_fused"
+    dtype = _check_cuda_input(name, seg, "seg")
+    if seg.dim() != 2 or out_len < 1:
+        raise ValueError(f"{name}: seg must be [B, N] and out_len positive")
+    b = seg.shape[0]
+    dev = seg.device
+    k = template.shape[-1]
+    tpl = template.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty(b, out_len, dtype=torch.float32, device=dev)
+    err = _entry("correlate")(
+        seg.data_ptr(), dtype, b, seg.stride(0), seg.shape[-1], tpl.data_ptr(), k, out_len,
+        out.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return out
+
+
+# --- decide_tones_tm: time-major decisions without the frame parse ------------
+
+
+def decide_tones_tm_ref(config: ModemConfig, data_tm: torch.Tensor):
+    """Plain version of decide_tones_tm."""
+    sps = config.samples_per_symbol
+    t, b = data_tm.shape
+    s = t // sps
+    w = data_tm[: s * sps].float().reshape(s, sps, b)
+    basis_t = demod_basis(config, dtype=data_tm.dtype, device=data_tm.device).float().T
+    return _decisions(config, torch.einsum("mk,skb->smb", basis_t, w), 1)
+
+
+def decide_tones_tm(config: ModemConfig, data_tm: torch.Tensor):
+    """Time-major fused symbol decision: ``data_tm`` [T, B] (float32 or
+    bfloat16) is a symbol-aligned data section with time leading and the
+    stream batch minor. Returns (tone int32, best float32, total float32),
+    each [T // sps, B]; a trailing partial symbol is dropped and argmax ties
+    go to the first tone. No parse: every symbol present is decided, so the
+    quality means that follow cover the whole window (decide_frame_tm
+    covers exactly the frame's own symbols)."""
+    if data_tm.device.type == "cpu":
+        return decide_tones_tm_ref(config, data_tm)
+    name = "decide_tones_tm"
+    dtype = _check_cuda_input(name, data_tm, "data_tm")
+    if data_tm.dim() != 2 or not data_tm.is_contiguous():
+        raise ValueError(f"{name}: data_tm must be a contiguous [T, B] tensor")
+    _check_kernel_geometry(name, config)
+    t, b = data_tm.shape
+    s = t // config.samples_per_symbol
+    if s < 1 or b < 1:
+        raise ValueError(f"{name}: data_tm {tuple(data_tm.shape)} holds no whole symbol")
+    dev = data_tm.device
+    tone = torch.empty(s, b, dtype=torch.int32, device=dev)
+    best = torch.empty(s, b, dtype=torch.float32, device=dev)
+    total = torch.empty(s, b, dtype=torch.float32, device=dev)
+    basis = _kernel_basis(config, data_tm.dtype, dev)
+    err = _entry(name)(
+        data_tm.data_ptr(), dtype, b, config.samples_per_symbol, s, basis.data_ptr(),
+        tone.data_ptr(), best.data_ptr(), total.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return tone, best, total
+
+
+# --- gather_rows_fused: the timing-alignment gather ---------------------------
+
+
+def gather_rows_fused_ref(buffer: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
+    """Plain version of gather_rows_fused (sync.gather_span: zeros outside
+    the buffer)."""
+    from anet_torch.dsp.sync import gather_span
+
+    return gather_span(buffer, start, size)
+
+
+def gather_rows_fused(buffer: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
+    """out[..., i] = buffer[..., start[...] + i], in the buffer's dtype
+    [..., size]: sync.aligned_gather's contract as one kernel. Pure data
+    movement, bit-exact for float32 and bfloat16. Callers guarantee
+    0 <= start and start + size <= buffer length; positions outside the
+    buffer read as zero (the reference reads its zero padding there)."""
+    if buffer.device.type == "cpu":
+        return gather_rows_fused_ref(buffer, start, size)
+    name = "gather_rows_fused"
+    _check_cuda_input(name, buffer, "buffer")
+    if buffer.dim() < 2 or not buffer.is_contiguous():
+        raise ValueError(f"{name}: buffer must be a contiguous [..., L] tensor with a batch")
+    if start.shape != buffer.shape[:-1]:
+        raise ValueError(
+            f"{name}: start must be {tuple(buffer.shape[:-1])}, got {tuple(start.shape)}"
+        )
+    if size < 1 or buffer.numel() == 0:
+        raise ValueError(f"{name}: nothing to gather (size {size}, buffer {tuple(buffer.shape)})")
+    dev = buffer.device
+    length = buffer.shape[-1]
+    st = start.to(device=dev, dtype=torch.int32).reshape(-1).contiguous()
+    out = torch.empty(*buffer.shape[:-1], size, dtype=buffer.dtype, device=dev)
+    err = _entry("gather_rows")(
+        buffer.data_ptr(), buffer.element_size(), st.shape[0], length, st.data_ptr(), size,
+        out.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return out
 
 
 def demod_at_buffer_pad(

@@ -22,6 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "anet_torch_kernels"
 SOURCES = (
     "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
     "viterbi", "demod_at_energies", "probe_at",
+    "correlate", "decide_tones_tm", "gather_rows",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,6 +58,18 @@ SIGNATURES = {
     "probe_at": (
         "anet_probe_at",
         [_P, _I, _I, ctypes.c_longlong, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P],
+    ),
+    "correlate": (
+        "anet_correlate",
+        [_P, _I, _I, ctypes.c_longlong, _I, _P, _I, _I, _P, _P],
+    ),
+    "decide_tones_tm": (
+        "anet_decide_tones_tm",
+        [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "gather_rows": (
+        "anet_gather_rows",
+        [_P, _I, _I, ctypes.c_longlong, _P, _I, _P, _P],
     ),
 }
 

@@ -11,7 +11,8 @@ OFDM slice of the port.
 - ``mfsk16-fast``   — the flagship: 16-FSK, 3 kbps, full audio band.
 - ``mfsk16-ultra``  — 16-FSK at 1500 baud (6 kbps).
 - ``mfsk4-coded`` / ``mfsk4-coded-stream`` — 4-FSK with K=7 convolutional
-  coding (the coded receive path arrives with a later slice).
+  coding; the second has no interleaver, so its frames can declare their
+  own length (variable-length streaming).
 - ``mfsk32-dense``  — 32-FSK wideband, highest rate, needs high SNR.
 """
 

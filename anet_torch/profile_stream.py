@@ -1,16 +1,27 @@
-"""Where the time of the port's locked streaming receiver goes, on one GPU.
+"""Where the time of the port's streaming receivers goes, on one GPU.
 
-    python -m anet_torch.profile_stream [model]
+    python -m anet_torch.profile_stream [model] [path]
 
-Builds the chip_smoke.py stream capture of ``model`` (mfsk16-fast unless
-named, e.g. mfsk4-coded; payload 256, one 1000-sample gap then 6
-back-to-back frames, bf16), runs the warm-locked receive once to warm up,
+``path`` is one of
+
+- ``lock`` (the default): the fixed-length locked stream of chip_smoke.py
+  (payload 256, one 1000-sample gap then 6 back-to-back frames, bf16), warm
+  and cold, then the aligned receiver at 16,384 frames (8,192 for a coded
+  model);
+- ``dynamic``: the variable-length always-search stream with two
+  candidates a chunk (chip_smoke.py's stream-dynamic: payloads 64, 64, 256,
+  128, 64, 64 back to back, chunk of two shortest frames);
+- ``dynamic-lock``: the variable-length locked stream (payloads 64, 256,
+  128, 64, 256, 128, chunk of one shortest frame), warm and cold; a coded
+  model needs fec_interleave == 1 (mfsk4-coded-stream).
+
+``model`` is mfsk16-fast unless named. Each run happens once to warm up,
 then once under torch.profiler, and prints the device time of each kernel
 (the top 12), the sum of device time, the wall time of the run and the
 device's busy share (device time over wall time; kernels do not overlap on
 one stream), then the same device time by the operator that launched it
-(the top 10 ATen operators; the hand-written kernels launch outside any). Also runs the aligned receiver the same way, at 16,384 frames
-(8,192 for a coded model). Needs CUDA.
+(the top 10 ATen operators; the hand-written kernels launch outside any).
+Needs CUDA.
 """
 
 from __future__ import annotations
@@ -26,10 +37,37 @@ from anet_torch.dsp import frame as tframe
 from anet_torch.dsp.pipeline import transmit
 from anet_torch.kernels.build import build_all
 from anet_torch.models import get_model
-from anet_torch.stream import init_carry, receive_stream
+from anet_torch.stream import init_carry, receive_stream, receive_stream_dynamic
 
 PAYLOAD, GAP0, N_FRAMES = 256, 1000, 6
 STREAM_B, ALIGNED_B = 8192, 16384
+DYNAMIC_LENS = (64, 64, 256, 128, 64, 64)  # two shortest frames complete in one chunk, twice
+DYNAMIC_LOCK_LENS = (64, 256, 128, 64, 256, 128)
+
+
+def back_to_back_capture(cfg, lens, max_len: int, chunk: int, batch: int, gen, dev):
+    """(capture bf16 [batch, N], payloads): GAP0 zeros, one frame per entry
+    of ``lens`` back to back with random payloads from ``gen``, then at least
+    one max-length frame of zeros, N a whole number of chunks."""
+    frames = [int(tframe.dynamic_frame_samples(cfg, n)) for n in lens]
+    total = GAP0 + sum(frames) + tframe.frame_num_samples(cfg, max_len)
+    total = -(-total // chunk) * chunk
+    cap = torch.zeros(batch, total, dtype=torch.bfloat16, device=dev)
+    sent, pos = [], GAP0
+    for n, t in zip(lens, frames):
+        pay = torch.randint(0, 256, (batch, n), generator=gen, device=dev, dtype=torch.uint8)
+        cap[:, pos : pos + t] = transmit(cfg, pay, device=dev).to(torch.bfloat16)
+        sent.append(pay)
+        pos += t
+    return cap, sent
+
+
+def warm_lock_carry(cfg, chunk: int, payload_len: int, batch: int, dev):
+    """A fresh bf16 carry whose lock is seeded at the first frame (GAP0)."""
+    carry = init_carry(cfg, chunk, payload_len, (batch,), dtype=torch.bfloat16, device=dev)
+    return carry._replace(
+        locked=torch.ones_like(carry.locked), next_start=torch.full_like(carry.next_start, GAP0)
+    )
 
 
 def report(label: str, fn) -> None:
@@ -62,17 +100,8 @@ def report(label: str, fn) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:60]}")
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if not torch.cuda.is_available():
-        print("profile_stream: needs a CUDA device", file=sys.stderr)
-        return 2
-    build_all()
-    dev = torch.device("cuda")
-    model = argv[0] if argv else "mfsk16-fast"
-    cfg = get_model(model).config
+def profile_lock(cfg, model: str, gen, dev) -> None:
     aligned_b = ALIGNED_B if cfg.fec == "none" else STREAM_B
-    gen = torch.Generator(device=dev).manual_seed(0)
     t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
     chunk = t_frame // 128 * 128
     total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
@@ -82,27 +111,62 @@ def main(argv=None) -> int:
         pay = torch.randint(0, 256, (b, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
         cap[:, GAP0 + i * t_frame : GAP0 + (i + 1) * t_frame] = transmit(cfg, pay, device=dev).to(torch.bfloat16)
 
-    def warm_run():
-        carry = init_carry(cfg, chunk, PAYLOAD, (b,), dtype=torch.bfloat16, device=dev)
-        carry = carry._replace(
-            locked=torch.ones_like(carry.locked), next_start=torch.full_like(carry.next_start, GAP0)
-        )
+    def run(carry):
         res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16,
                              lock=True, device=dev)
         assert int(res.carry.frames_ok.sum()) == b * N_FRAMES
 
-    def cold_run():
-        res = receive_stream(cfg, cap, chunk, PAYLOAD, compute_dtype=torch.bfloat16, lock=True, device=dev)
-        assert int(res.carry.frames_ok.sum()) == b * N_FRAMES
-
     print(f"{model} stream: B {b}, {total // chunk} chunks of {chunk}")
-    report("stream warm-lock", warm_run)
-    report("stream cold", cold_run)
+    report("stream warm-lock", lambda: run(warm_lock_carry(cfg, chunk, PAYLOAD, b, dev)))
+    report("stream cold", lambda: run(None))
     del cap
     torch.cuda.empty_cache()
     pay = torch.randint(0, 256, (aligned_b, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
     x_tm = transmit(cfg, pay, device=dev).to(torch.bfloat16).T.contiguous()
     report(f"aligned B {aligned_b}", lambda: int(tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=dev).ok.sum()))
+
+
+def profile_dynamic(cfg, model: str, lock: bool, gen, dev) -> None:
+    lens = DYNAMIC_LOCK_LENS if lock else DYNAMIC_LENS
+    t_min = int(tframe.dynamic_frame_samples(cfg, min(lens)))
+    chunk = (t_min if lock else 2 * t_min) // 128 * 128
+    b = STREAM_B
+    cap, _ = back_to_back_capture(cfg, lens, PAYLOAD, chunk, b, gen, dev)
+
+    def run(carry):
+        res = receive_stream_dynamic(
+            cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16,
+            max_frames_per_chunk=1 if lock else 2, lock=lock, device=dev,
+        )
+        assert int(res.carry.frames_ok.sum()) == b * len(lens)
+
+    print(f"{model} stream-dynamic{'-lock' if lock else ''}: B {b}, "
+          f"{cap.shape[1] // chunk} chunks of {chunk}, payloads {lens}")
+    if lock:
+        report("stream-dynamic-lock warm", lambda: run(warm_lock_carry(cfg, chunk, PAYLOAD, b, dev)))
+        report("stream-dynamic-lock cold", lambda: run(None))
+    else:
+        report("stream-dynamic (2 candidates a chunk)", lambda: run(None))
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("profile_stream: needs a CUDA device", file=sys.stderr)
+        return 2
+    model = argv[0] if argv else "mfsk16-fast"
+    path = argv[1] if len(argv) > 1 else "lock"
+    if path not in ("lock", "dynamic", "dynamic-lock"):
+        print(f"profile_stream: path must be lock, dynamic or dynamic-lock, got {path!r}", file=sys.stderr)
+        return 2
+    build_all()
+    dev = torch.device("cuda")
+    cfg = get_model(model).config
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if path == "lock":
+        profile_lock(cfg, model, gen, dev)
+    else:
+        profile_dynamic(cfg, model, path == "dynamic-lock", gen, dev)
     return 0
 
 

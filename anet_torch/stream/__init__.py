@@ -1,5 +1,6 @@
 """Streaming receiver: chunked demodulation with an explicit carry (mirrors
-the untracked, fixed-length path of ``anet.stream``, uncoded and coded).
+the untracked paths of ``anet.stream``: fixed and variable frame length,
+uncoded and coded).
 
 A capture is processed as fixed-size chunks; the carry holds everything the
 receiver remembers between chunks: a sliding sample buffer, the dedupe
@@ -25,10 +26,19 @@ and, on acquisition, the search kernel; then the energies kernel
 (demod_at_energies_fused) at the chosen start, the max-log LLRs, the
 deinterleaver and the Viterbi kernel (viterbi_trellis).
 
+Variable-length frames (``stream_step_dynamic`` /
+``receive_stream_dynamic``) read each frame's length from its header: the
+geometry is sized for the maximum payload, every candidate is demodulated
+over a max-length window (demod_at_fused, or demod_at_energies_fused for
+coded configs with fec_interleave == 1) and parsed by the dynamic frame
+parse. Three front halves: the every-lag search (one candidate a chunk),
+frame lock (the probe kernel; the next start comes from the declared
+length), and ``max_frames_per_chunk > 1``, which needs the quality at every
+lag and so runs correlate_fused.
+
 Not ported yet (they raise NotImplementedError): ``track=True`` (the
-symbol-clock tracker), variable-length frames (``stream_step_dynamic`` /
-``receive_stream_dynamic``), the capture-resident scan (``resident=True``)
-and int8 sliding buffers.
+symbol-clock tracker), the capture-resident scan (``resident=True``) and
+int8 sliding buffers.
 """
 
 from __future__ import annotations
@@ -40,9 +50,10 @@ import torch
 
 from anet_torch._device import as_tensor, resolve_device
 from anet_torch.dsp.family import geometry as family_geometry
-from anet_torch.dsp.frame import FrameResult
+from anet_torch.dsp.frame import DynamicFrameResult, FrameResult
 
 __all__ = [
+    "DynamicStreamStepOutput",
     "StreamCarry",
     "StreamCheckpoint",
     "StreamResult",
@@ -52,8 +63,10 @@ __all__ = [
     "init_carry",
     "load_carry",
     "receive_stream",
+    "receive_stream_dynamic",
     "save_carry",
     "stream_step",
+    "stream_step_dynamic",
 ]
 
 # Candidate threshold for the normalized preamble correlation. Kept low:
@@ -504,9 +517,33 @@ def stream_step(
 def _stack_steps(steps):
     """Stack per-chunk outputs along a leading chunk axis (the scan layout
     of the JAX package's StreamResult.steps)."""
-    frame = FrameResult(*(torch.stack(f) for f in zip(*(s.frame for s in steps))))
+    frame = type(steps[0].frame)(*(torch.stack(f) for f in zip(*(s.frame for s in steps))))
     rest = (torch.stack(f) for f in list(zip(*steps))[1:])
-    return StreamStepOutput(frame, *rest)
+    return type(steps[0])(frame, *rest)
+
+
+def _capture_chunks(capture, chunk_size: int, device):
+    """The capture as a [B, N] tensor on ``device`` and its chunk count."""
+    capture = as_tensor(capture, device)
+    if capture.dim() != 2:
+        raise ValueError(f"capture must be [B, N], got shape {tuple(capture.shape)}")
+    n = capture.shape[-1]
+    if n == 0 or n % chunk_size:
+        raise ValueError(f"capture length {n} not a positive multiple of chunk_size {chunk_size}")
+    return capture, n // chunk_size
+
+
+def _resume_or_init(config, carry, capture, chunk_size: int, payload_len: int, compute_dtype):
+    """The caller's carry (checked to lie with the capture) or a fresh one
+    with a ``compute_dtype`` buffer."""
+    if carry is None:
+        return init_carry(
+            config, chunk_size, payload_len, capture.shape[:1], dtype=compute_dtype,
+            device=capture.device,
+        )
+    if carry.buffer.device != capture.device:
+        raise ValueError(f"carry lies on {carry.buffer.device}, capture on {capture.device}")
+    return carry
 
 
 def receive_stream(
@@ -536,25 +573,256 @@ def receive_stream(
             "(ROADMAP queue 1 item 7)"
         )
     _require_supported(config, track)
-    capture = as_tensor(capture, device)
-    if capture.dim() != 2:
-        raise ValueError(f"capture must be [B, N], got shape {tuple(capture.shape)}")
-    n = capture.shape[-1]
-    if n == 0 or n % chunk_size:
-        raise ValueError(f"capture length {n} not a positive multiple of chunk_size {chunk_size}")
-    if carry is None:
-        carry = init_carry(
-            config, chunk_size, payload_len, capture.shape[:1], dtype=compute_dtype,
-            device=capture.device,
-        )
-    elif carry.buffer.device != capture.device:
-        raise ValueError(f"carry lies on {carry.buffer.device}, capture on {capture.device}")
-    num_chunks = n // chunk_size
+    capture, num_chunks = _capture_chunks(capture, chunk_size, device)
+    carry = _resume_or_init(config, carry, capture, chunk_size, payload_len, compute_dtype)
     cap = capture.to(carry.buffer.dtype).reshape(capture.shape[0], num_chunks, chunk_size)
     steps = []
     for i in range(num_chunks):
         carry, out = stream_step(
             config, carry, cap[:, i], payload_len, detect_threshold, compute_dtype, track, lock
+        )
+        steps.append(out)
+    return StreamResult(carry=carry, steps=_stack_steps(steps))
+
+
+def _slide_and_quality(carry, chunk, t_frame: int, template, margin: int, compute_dtype):
+    """Slide the buffer one chunk and score EVERY just-completed frame
+    start: (buffer, samples_seen, w0, buffer_abs0, quality), quality float32
+    [B, chunk_size], the blockwise-normalized preamble match at starts
+    [w0, w0 + chunk_size). The correlation at every lag is the kernel
+    correlate_fused. This materializing form serves the multi-candidate
+    dynamic step, which masks the quality array between picks;
+    single-candidate callers use _search_best."""
+    from anet_torch.dsp.sync import blockwise_match_quality
+    from anet_torch.kernels import correlate_fused
+
+    chunk_size = chunk.shape[-1]
+    k = template.shape[-1]
+    buffer, samples_seen, w0, buffer_abs0 = _slide_buffer(carry, chunk, t_frame, margin)
+    seg = buffer[..., w0 : w0 + chunk_size + k - 1].to(compute_dtype)
+    corr = correlate_fused(seg, template.to(compute_dtype), chunk_size)
+    quality = blockwise_match_quality(seg, corr, k, (template * template).sum())
+    return buffer, samples_seen, w0, buffer_abs0, quality
+
+
+def _batched_dynamic_slice(buffer, start, size: int, compute_dtype=None):
+    """Slice ``size`` samples at per-stream starts (sync.aligned_gather)."""
+    from anet_torch.dsp.sync import aligned_gather
+
+    return aligned_gather(buffer, start, size, compute_dtype)
+
+
+class DynamicStreamStepOutput(NamedTuple):
+    """Per-chunk emission of the variable-length stream receiver."""
+
+    frame: DynamicFrameResult
+    detected: torch.Tensor  # bool — a frame completed in this chunk
+    quality: torch.Tensor  # float32 — best sync quality in the window
+    frame_start: torch.Tensor  # int32 — absolute sample index of frame start
+
+
+def stream_step_dynamic(
+    config,
+    carry: StreamCarry,
+    chunk: torch.Tensor,
+    max_payload_len: int,
+    detect_threshold: float = DEFAULT_DETECT_THRESHOLD,
+    compute_dtype=torch.float32,
+    max_frames_per_chunk: int = 1,
+    lock: bool = False,
+) -> Tuple[StreamCarry, DynamicStreamStepOutput]:
+    """stream_step with the payload length read from each frame's header.
+
+    Geometry (buffer size, detection latency) is sized for
+    ``max_payload_len`` (init_carry with payload_len = max_payload_len);
+    short frames decode as soon as a max-length window past their start is
+    buffered, and the dedupe cursor advances by each frame's declared
+    length. Coded configs need fec_interleave == 1 (the header probe +
+    masked trellis of frame.frame_result_from_llrs_dynamic).
+
+    ``max_frames_per_chunk`` = K: how many non-overlapping candidates to
+    extract per chunk. Candidates are extracted best-quality-first and
+    masked against each accepted frame's actual extent, so a step's K
+    emissions are in quality order, not time order. With K > 1 every field
+    of the step output gains a leading axis of size K. A frame whose header
+    declares a length above ``max_payload_len`` is skipped (its gate fails
+    ``length_ok``).
+
+    ``lock=True`` (K = 1 only) is frame lock for dynamic frames: the
+    CRC-protected header declares each frame's length, so the next start is
+    ``start + dynamic_frame_samples(length)``. Locked streams verify the
+    prediction with the probe (+-2-sample servo); the every-lag search runs
+    only when some stream needs acquiring, after one host read per chunk.
+
+    Every candidate is demodulated by the align+demod kernels whatever the
+    buffer's float dtype (demod_at_fused for uncoded,
+    demod_at_energies_fused for coded configs), as in stream_step."""
+    from anet_torch.dsp.family import frame_samples
+    from anet_torch.dsp.frame import (
+        data_symbols_for_payload,
+        dynamic_frame_result_from_energies,
+        dynamic_frame_result_from_tone_decisions,
+        dynamic_frame_samples,
+    )
+    from anet_torch.kernels import demod_at_energies_fused, demod_at_fused
+
+    _require_supported(config, False)
+    chunk_size = chunk.shape[-1]
+    t_max = frame_samples(config, max_payload_len)
+    template = family_geometry(config, max_payload_len, compute_dtype, carry.buffer.device)[1]
+    _check_carry_geometry(config, carry, chunk_size, max_payload_len)
+    mid_flight = candidate1 = quality = None
+    if lock:
+        if max_frames_per_chunk != 1:
+            raise ValueError(
+                "lock=True needs max_frames_per_chunk=1 (a locked stream predicts "
+                "exactly one next frame; use chunk_size <= the minimum frame length "
+                "so at most one frame completes per chunk)"
+            )
+        # Same locked front half as the fixed-length path: the window
+        # geometry only depends on the MAX frame length; the prediction
+        # itself came from the previous frame's declared length.
+        buffer, samples_seen, best1_idx, _, best1_q, candidate1, mid_flight = (
+            _find_candidate_locked(carry, chunk, t_max, template, detect_threshold, compute_dtype)
+        )
+        w0 = 1
+        buffer_abs0 = samples_seen - (t_max + chunk_size)
+        best1_rel = best1_idx - w0
+    elif max_frames_per_chunk == 1:
+        buffer, samples_seen, w0, buffer_abs0, best1_q, best1_rel = _search_best(
+            carry, chunk, t_max, template, 0, compute_dtype
+        )
+    else:
+        buffer, samples_seen, w0, buffer_abs0, quality = _slide_and_quality(
+            carry, chunk, t_max, template, 0, compute_dtype
+        )
+    n_sym_max = data_symbols_for_payload(config, max_payload_len)
+    buf_c = buffer.to(compute_dtype)
+
+    def demod_at(start_idx):
+        """Max-window demod + dynamic parse at a buffer index."""
+        if config.fec == "conv":
+            energies = demod_at_energies_fused(config, buf_c, start_idx, n_sym_max)
+            return dynamic_frame_result_from_energies(config, energies, max_payload_len)
+        tone, best, total = demod_at_fused(config, buf_c, start_idx, n_sym_max)
+        return dynamic_frame_result_from_tone_decisions(config, tone, best, total, max_payload_len)
+
+    rel_grid = torch.arange(chunk_size, dtype=torch.int32, device=buffer.device)
+    last_end = carry.last_frame_end
+    detected_n = torch.zeros_like(carry.frames_detected)
+    ok_n = torch.zeros_like(carry.frames_ok)
+    err_n = torch.zeros_like(carry.decode_errors)
+    accepted = []  # (start_abs, end_abs, detected) of this chunk's slots so far
+    outs = []
+    for slot in range(max_frames_per_chunk):
+        if quality is None:
+            best_rel, best_q = best1_rel, best1_q
+        else:
+            best_rel = torch.argmax(quality, dim=-1).to(torch.int32)  # first index on ties
+            best_q = quality.amax(-1)
+        start_idx = w0 + best_rel
+        start_abs = buffer_abs0 + start_idx
+        if candidate1 is not None:
+            # lock mode: probe-validated prediction or searched candidate,
+            # dedupe already applied by _find_candidate_locked
+            candidate = candidate1
+        else:
+            candidate = (best_q >= detect_threshold) & (
+                start_abs >= carry.last_frame_end - DEDUPE_SLACK
+            )
+        frame = demod_at(start_idx)
+        # The header gate (magic + CRC, 48 bits) also vouches for the
+        # declared length, so the dedupe cursor can trust it.
+        detected = candidate & frame.magic_ok & frame.header_crc_ok & frame.length_ok
+        t_actual = dynamic_frame_samples(config, frame.payload_len)
+        end_abs = start_abs + t_actual
+        # Exact interval check against every frame already accepted this
+        # chunk: candidates come in QUALITY order, so this one may precede
+        # an accepted frame in time; its end must then clear that start.
+        for a_start, a_end, a_det in accepted:
+            clear = torch.where(start_abs < a_start, end_abs <= a_start, start_abs >= a_end)
+            detected = detected & (clear | ~a_det)
+        frame = frame._replace(ok=frame.ok & detected)
+        accepted.append((start_abs, end_abs, detected))
+        last_end = torch.maximum(last_end, torch.where(detected, end_abs, carry.last_frame_end))
+        detected_n = detected_n + detected.to(torch.int32)
+        ok_n = ok_n + frame.ok.to(torch.int32)
+        err_n = err_n + (detected & ~frame.ok).to(torch.int32)
+        outs.append(
+            DynamicStreamStepOutput(
+                frame=frame, detected=detected, quality=best_q,
+                frame_start=start_abs.to(torch.int32),
+            )
+        )
+        if slot + 1 < max_frames_per_chunk:
+            # Mask this frame's extent (when accepted) and the picked lag
+            # itself, then go again for the next-best candidate. Window
+            # position r is absolute start buffer_abs0 + w0 + r, so the
+            # extent [start_abs, end_abs) is lags [best_rel, best_rel + t_actual).
+            rel = rel_grid[None, :]
+            covered = detected[:, None] & (rel >= best_rel[:, None]) & (
+                rel < (best_rel + t_actual)[:, None]
+            )
+            quality = quality.masked_fill(covered | (rel == best_rel[:, None]), float("-inf"))
+
+    if lock:
+        # a detection (re)locks the stream with the next start predicted
+        # from the DECLARED length; a mid-flight prediction keeps its lock;
+        # everything else re-acquires by full search next chunk
+        start0, end0, det0 = accepted[0]
+        locked_new = det0 | mid_flight
+        drift_new = _drift_update(carry, det0, start0)
+        next_start_new = torch.where(det0, end0 + _drift_round(drift_new), carry.next_start)
+    else:
+        locked_new, next_start_new, drift_new = carry.locked, carry.next_start, carry.drift
+    new_carry = StreamCarry(
+        buffer=buffer,
+        samples_seen=samples_seen,
+        last_frame_end=last_end.to(torch.int32),
+        frames_detected=carry.frames_detected + detected_n,
+        frames_ok=carry.frames_ok + ok_n,
+        decode_errors=carry.decode_errors + err_n,
+        locked=locked_new,
+        next_start=next_start_new.to(torch.int32),
+        drift=drift_new,
+    )
+    if max_frames_per_chunk == 1:
+        return new_carry, outs[0]
+    return new_carry, _stack_steps(outs)
+
+
+def receive_stream_dynamic(
+    config,
+    capture,
+    chunk_size: int,
+    max_payload_len: int,
+    detect_threshold: float = DEFAULT_DETECT_THRESHOLD,
+    carry: StreamCarry | None = None,
+    compute_dtype=torch.float32,
+    max_frames_per_chunk: int = 1,
+    lock: bool = False,
+    device="cuda",
+) -> StreamResult:
+    """receive_stream with per-frame payload lengths from the headers, on
+    ``device``.
+
+    The capture [B, N] must extend a max-length frame past the last frame
+    start (pad with zeros): detection fires once a full max window is
+    buffered. ``max_frames_per_chunk`` = K > 1 decodes up to K
+    non-overlapping frames per chunk (see stream_step_dynamic); the steps
+    then carry a per-chunk candidate axis: steps.detected is
+    [num_chunks, K, B]. ``lock=True`` is dynamic frame lock: use chunk_size
+    <= the minimum expected frame length so at most one frame completes per
+    chunk."""
+    _require_supported(config, False)
+    capture, num_chunks = _capture_chunks(capture, chunk_size, device)
+    carry = _resume_or_init(config, carry, capture, chunk_size, max_payload_len, compute_dtype)
+    cap = capture.to(carry.buffer.dtype).reshape(capture.shape[0], num_chunks, chunk_size)
+    steps = []
+    for i in range(num_chunks):
+        carry, out = stream_step_dynamic(
+            config, carry, cap[:, i], max_payload_len, detect_threshold, compute_dtype,
+            max_frames_per_chunk, lock,
         )
         steps.append(out)
     return StreamResult(carry=carry, steps=_stack_steps(steps))

@@ -3,12 +3,17 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-1. build the CUDA kernels from anet_torch/kernels/csrc (nvcc, sm_90a);
+1. build the ten CUDA kernels from anet_torch/kernels/csrc (nvcc, sm_90a);
 2. hold each kernel against its plain PyTorch version at its main path's
    shapes on a 256-stream subset, then time kernel and plain version at the
    full batch: the uncoded paths' four kernels on mfsk16-fast (payload 256,
    chunk 36,352, buffer 76,288), the coded paths' three on mfsk4-coded
-   (payload 256, chunk 70,144, buffer 143,872, trellis 2,150 steps);
+   (payload 256, chunk 70,144, buffer 143,872, trellis 2,150 steps), and
+   the three of the variable-length, oversized-window and one-shot paths on
+   mfsk16-fast (correlate_fused at a chunk of two shortest frames, 23,552
+   lags; decide_tones_tm at a frame plus 8 symbols; gather_rows_fused at
+   one frame out of the 76,288-sample buffer), these also beside the one
+   PyTorch call that computes the same function where there is one;
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -19,7 +24,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    at the first frame, on mfsk16-fast ("stream": the merged probe+demod
    kernel) and on mfsk4-coded ("stream-coded": probe, energies and trellis
    kernels);
-5. the launch count of every kernel during phases 3-4, read per path (each
+5. the variable-length streams at B = 8,192, header-declared lengths up to
+   256: "stream-dynamic" (always-search, two candidates a chunk, payloads
+   64, 64, 256, 128, 64, 64 back to back: correlate_fused and
+   demod_at_fused), "stream-dynamic-lock" (payloads 64, 256, 128, 64, 256,
+   128, cold and warm: probe_at_fused, demod_at_fused) and
+   "stream-dynamic-coded" (the same on mfsk4-coded-stream: probe, energies
+   and two trellis launches a chunk); every payload and declared length
+   must equal what was sent;
+6. "aligned-window": 16,384 time-major frames followed by 8 symbols of
+   noise through demodulate_frame_tm (decide_tones_tm); "oneshot": 2,048
+   captures with the frame at a random start below 2,000 through
+   receive_frame and receive_frame_dynamic, then the same composition with
+   aligned_gather(mode="roll") (gather_rows_fused), bit-equal frames;
+7. the launch count of every kernel during phases 3-6, read per path (each
    path's counts start at 0 just before it): every kernel of a path must
    have launched there.
 The line before the last is a JSON object with each kernel's numbers, and
@@ -41,19 +59,30 @@ from anet_torch import kernels
 from anet_torch.dsp import fec
 from anet_torch.dsp import frame as tframe
 from anet_torch.dsp.demod import bit_llrs
-from anet_torch.dsp.pipeline import transmit
+from anet_torch.dsp import sync as tsync
+from anet_torch.dsp.pipeline import receive_frame, receive_frame_dynamic, transmit
 from anet_torch.dsp.sync import preamble_waveform
 from anet_torch.kernels.build import build_all
 from anet_torch.models import get_model
-from anet_torch.stream import _buffer_len, init_carry, receive_stream
+from anet_torch.profile_stream import (
+    DYNAMIC_LENS,
+    DYNAMIC_LOCK_LENS,
+    GAP0,
+    back_to_back_capture,
+    warm_lock_carry,
+)
+from anet_torch.stream import _buffer_len, receive_stream, receive_stream_dynamic
 
 MODEL = "mfsk16-fast"
 CODED_MODEL = "mfsk4-coded"
-PAYLOAD = 256
+DYNAMIC_CODED_MODEL = "mfsk4-coded-stream"  # fec_interleave == 1
+PAYLOAD = 256  # also the variable-length paths' max_payload_len
+SHORT_PAYLOAD = 64  # the shortest frame of the variable-length paths
 ALIGNED_B = 16384
 STREAM_B = 8192  # also the coded aligned batch
+ONESHOT_B = 2048
 COMPARE_B = 256
-GAP0, N_FRAMES = 1000, 6
+N_FRAMES = 6  # after one gap of GAP0 samples
 N_LAGS = 5
 RTOL = 1e-3  # bf16 inputs, float32 sums in another order than the plain version
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
@@ -70,6 +99,9 @@ REPLACES = {
     "viterbi_trellis": ("anet_torch/kernels/csrc/viterbi.cu", "anet/kernels/__init__.py:754"),
     "demod_at_energies_fused": ("anet_torch/kernels/csrc/demod_at_energies.cu", "anet/kernels/__init__.py:1918"),
     "probe_at_fused": ("anet_torch/kernels/csrc/probe_at.cu", "anet/kernels/__init__.py:1621"),
+    "correlate_fused": ("anet_torch/kernels/csrc/correlate.cu", "anet/kernels/__init__.py:891"),
+    "decide_tones_tm": ("anet_torch/kernels/csrc/decide_tones_tm.cu", "anet/kernels/__init__.py:269"),
+    "gather_rows_fused": ("anet_torch/kernels/csrc/gather_rows.cu", "anet/kernels/__init__.py:1415"),
 }
 
 
@@ -99,25 +131,33 @@ def bound_ms(n_bytes: float, n_flops: float, flops_s: float = BF16_FLOPS_S) -> t
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_and_bound(results: dict, calls: dict, work: dict) -> None:
+def time_and_bound(results: dict, calls: dict, work: dict, library: dict | None = None) -> None:
     """Time each kernel and its plain version (``calls``: name -> (call,
     kernel, plain version)) and add its bound (``work``: name -> the
-    arguments of bound_ms) to ``results``."""
+    arguments of bound_ms) to ``results``. ``library``: name -> a call of
+    the one PyTorch function that computes the same thing, timed as a
+    yardstick and used nowhere in the port."""
     for name, (call, kern, ref) in calls.items():
         results[name]["ms"] = time_ms(lambda: call(kern))
         results[name]["plain_ms"] = time_ms(lambda: call(ref))
         torch.cuda.empty_cache()
+    for name, fn in (library or {}).items():
+        results[name]["library_ms"] = time_ms(fn)
+        torch.cuda.empty_cache()
     for name, args in work.items():
         r = results[name]
         r["bound_ms"], r["bound_by"] = bound_ms(*args)
-        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+        lib = f", library {r['library_ms']:.3f} ms" if "library_ms" in r else ""
+        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
 
 
-def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...]) -> float:
+def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...],
+            atol: float = 1e-6) -> float:
     """Hold kernel outputs against the plain version's: the ``exact``
-    positions bit-equal, the ``close`` ones within RTOL. Returns the max
-    absolute error over the ``close`` outputs."""
+    positions bit-equal, the ``close`` ones within RTOL (plus ``atol``, for
+    outputs that are sums with cancellation). Returns the max absolute
+    error over the ``close`` outputs."""
     worst_abs, worst_rel, report = 0.0, 0.0, []
     for i in exact:
         bad = int((got[i] != want[i]).sum())
@@ -130,7 +170,7 @@ def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...]
         rel = diff / w.abs().clamp_min(1e-30)
         worst_abs = max(worst_abs, float(diff.max()))
         worst_rel = max(worst_rel, float(rel.max()))
-        bad = int((diff > RTOL * w.abs() + 1e-6).sum())
+        bad = int((diff > RTOL * w.abs() + atol).sum())
         report.append(f"out{i} beyond rtol {bad}")
         if bad:
             raise AssertionError(f"{name}: output {i} beyond rtol {RTOL} in {bad} places")
@@ -349,7 +389,132 @@ def phase_kernels_coded(cfg, gen) -> dict:
     return results
 
 
-def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iters: int = 10) -> None:
+def top_two_lags(seg, corr, k: int, te: float, t_short: int):
+    """The two candidates the multi-candidate step would take from ``corr``:
+    the best-quality lag and, with that frame's extent masked, the next."""
+    q = tsync.blockwise_match_quality(seg, corr, k, te)
+    first = q.argmax(-1)
+    lag = torch.arange(q.shape[-1], device=q.device)
+    covered = (lag >= first[:, None]) & (lag < first[:, None] + t_short)
+    return first, q.masked_fill(covered, float("-inf")).argmax(-1)
+
+
+def phase_kernels_dynamic(cfg, gen) -> dict:
+    """Phase 2 for the kernels of the variable-length, oversized-window and
+    one-shot paths (mfsk16-fast, max payload 256, shortest payload 64)."""
+    sps, m = cfg.samples_per_symbol, cfg.num_tones
+    pre = cfg.preamble_samples
+    t_max = tframe.frame_num_samples(cfg, PAYLOAD)
+    t_short = tframe.frame_num_samples(cfg, SHORT_PAYLOAD)
+    chunk = 2 * t_short
+    length = _buffer_len(cfg, t_max, PAYLOAD)
+    log(f"dynamic geometry: max frame {t_max}, shortest frame {t_short}, chunk {chunk}, buffer {length}")
+    if (t_max, t_short, chunk, length) != (36352, 11776, 23552, 76288):
+        raise AssertionError("mfsk16-fast dynamic geometry differs from the reference's")
+    tpl = preamble_waveform(cfg, device=DEV).to(torch.bfloat16)
+    k = tpl.shape[-1]
+    te = float((tpl.float() ** 2).sum())
+    results = {}
+
+    # correlate_fused: two back-to-back shortest frames a segment, the
+    # multi-candidate step's case; every lag within RTOL of the output's
+    # scale (the sums cancel, so small lags have no relative precision) and
+    # the two candidates drawn from it equal
+    pay = torch.randint(0, 256, (COMPARE_B, SHORT_PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    waves = transmit(cfg, pay, device=DEV)
+    n_seg = chunk + k - 1
+    first = torch.randint(1, 5000, (COMPARE_B,), generator=gen, device=DEV)
+    seg = 0.05 * torch.randn(COMPARE_B, n_seg + t_short, generator=gen, device=DEV)
+    idx = first[:, None] + torch.arange(t_short, device=DEV)
+    seg.scatter_add_(1, idx, waves)
+    seg.scatter_add_(1, idx + t_short, waves)
+    seg = seg[:, :n_seg].to(torch.bfloat16)
+    got = kernels.correlate_fused(seg, tpl, chunk)
+    want = kernels.correlate_fused_ref(seg, tpl, chunk)
+    scale = float(want.square().mean().sqrt())
+    results["correlate_fused"] = {
+        "max_abs_err": compare("correlate_fused", (got,), (want,), (), (0,), atol=RTOL * scale)
+    }
+    picks_got, picks_want = top_two_lags(seg, got, k, te, t_short), top_two_lags(seg, want, k, te, t_short)
+    if not (torch.equal(picks_got[0], picks_want[0]) and torch.equal(picks_got[1], picks_want[1])
+            and torch.equal(torch.minimum(*picks_got), first)
+            and torch.equal(torch.maximum(*picks_got), first + t_short)):
+        raise AssertionError("correlate_fused: the two candidates differ from the plain version's or the planted starts")
+
+    # decide_tones_tm: frames at operating noise followed by 8 symbols of noise
+    pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    frames = torch.nn.functional.pad(transmit(cfg, pay, device=DEV), (0, 8 * sps))
+    x_tm = (frames + 0.3 * torch.randn(frames.shape, generator=gen, device=DEV)).to(torch.bfloat16).T.contiguous()
+    data_tm = x_tm[pre:]
+    got = kernels.decide_tones_tm(cfg, data_tm)
+    want = kernels.decide_tones_tm_ref(cfg, data_tm)
+    results["decide_tones_tm"] = {"max_abs_err": compare("decide_tones_tm", got, want, (0,), (1, 2))}
+    n_sym = data_tm.shape[0] // sps
+
+    # gather_rows_fused: one frame out of the stream buffer, starts on both
+    # sides of the 128-sample rows the reference kernel splits at
+    buf = torch.randn(COMPARE_B, length, generator=gen, device=DEV).to(torch.bfloat16)
+    starts = torch.randint(0, length - t_max + 1, (COMPARE_B,), generator=gen, device=DEV)
+    starts[:6] = torch.tensor([0, 1, 63, 127, 128 * 9 + 127, length - t_max], device=DEV)
+    if not {0, 1, 63, 127} <= set((starts % 128).tolist()):
+        raise AssertionError("gather residues 0, 1, 63, 127 not covered")
+    got = kernels.gather_rows_fused(buf, starts, t_max)
+    want = kernels.gather_rows_fused_ref(buf, starts, t_max)
+    compare("gather_rows_fused", (got.view(torch.int16),), (want.view(torch.int16),), (0,), ())
+    results["gather_rows_fused"] = {"max_abs_err": float((got.float() - want.float()).abs().max())}
+
+    reps_a, reps_s = ALIGNED_B // COMPARE_B, STREAM_B // COMPARE_B
+    seg_full = seg.repeat(reps_s, 1)
+    data_full = data_tm.repeat(1, reps_a)
+    buf_full, st_full = buf.repeat(reps_s, 1), starts.repeat(reps_s)
+    del seg, x_tm, data_tm, buf, frames, waves, got, want
+    calls = {
+        "correlate_fused": (
+            lambda f: f(seg_full, tpl, chunk), kernels.correlate_fused, kernels.correlate_fused_ref,
+        ),
+        "decide_tones_tm": (
+            lambda f: f(cfg, data_full), kernels.decide_tones_tm, kernels.decide_tones_tm_ref,
+        ),
+        "gather_rows_fused": (
+            lambda f: f(buf_full, st_full, t_max), kernels.gather_rows_fused, kernels.gather_rows_fused_ref,
+        ),
+    }
+    b_a, b_s = ALIGNED_B, STREAM_B
+    work = {
+        "correlate_fused": (b_s * (n_seg * 2 + chunk * 4) + k * 4, 2 * k * chunk * b_s),
+        "decide_tones_tm": (b_a * n_sym * (sps * 2 + 12), n_sym * 2 * sps * 2 * m * b_a),
+        "gather_rows_fused": (b_s * (2 * t_max * 2 + 4), 0),
+    }
+    # the one PyTorch call computing the same function: a float32 convolution
+    # (cuDNN, TF32 off) and an index gather; decide_tones_tm has none
+    seg_f32 = seg_full.float()[:, None, :]
+    weight = tpl.float()[None, None, :]
+    gather_idx = st_full[:, None] + torch.arange(t_max, device=DEV)
+    library = {
+        "correlate_fused": lambda: torch.nn.functional.conv1d(seg_f32, weight),
+        "gather_rows_fused": lambda: torch.gather(buf_full, 1, gather_idx),
+    }
+    lib_corr = torch.nn.functional.conv1d(seg_f32[:COMPARE_B], weight)[:, 0]
+    if not torch.allclose(lib_corr, kernels.correlate_fused(seg_full[:COMPARE_B], tpl, chunk), rtol=RTOL, atol=RTOL * scale):
+        raise AssertionError("conv1d does not compute correlate_fused's function")
+    del lib_corr
+    time_and_bound(results, calls, work, library)
+
+    # the variable-length parse behind the kernels, per chunk of 8,192 streams
+    # (CUDA events, median of 5): the whole parse, and its per-length CRC alone
+    n_sym_max = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+    tone = torch.randint(0, m, (b_s, n_sym_max), generator=gen, device=DEV, dtype=torch.int32)
+    best = torch.rand(b_s, n_sym_max, generator=gen, device=DEV) + 1.0
+    body = torch.randint(0, 256, (b_s, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    plen = torch.randint(0, PAYLOAD + 1, (b_s,), generator=gen, device=DEV)
+    parse = time_ms(lambda: tframe.dynamic_frame_result_from_tone_decisions(cfg, tone, best, best * 1.5, PAYLOAD))
+    crc = time_ms(lambda: fec.crc32_device(body, length=plen))
+    log(f"  dynamic parse (B {b_s}, {n_sym_max} symbols): {parse:.3f} ms a chunk, "
+        f"of which crc32_device(length=) {crc:.3f} ms")
+    return results
+
+
+def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iters: int = 5) -> None:
     """Phase 3: the aligned time-major receiver at the full batch."""
     t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
     pay = torch.randint(0, 256, (batch, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
@@ -384,10 +549,7 @@ def phase_stream(cfg, gen, label: str = "stream") -> None:
         sent.append(pay)
     sent = torch.stack(sent)  # [frames, B, payload]
     log(f"{label}: B {STREAM_B}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), chunk {chunk}")
-    warm = init_carry(cfg, chunk, PAYLOAD, (STREAM_B,), dtype=torch.bfloat16, device=DEV)
-    warm = warm._replace(
-        locked=torch.ones_like(warm.locked), next_start=torch.full_like(warm.next_start, GAP0)
-    )
+    warm = warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV)
     for run, carry in (("cold", None), ("warm-lock", warm)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -407,6 +569,142 @@ def phase_stream(cfg, gen, label: str = "stream") -> None:
         del res
 
 
+def frames_in_time_order(steps, n_frames: int):
+    """(starts [n, B], declared lengths [n, B], payloads [n, B, max]) of each
+    stream's first ``n_frames`` detections in time order; the steps may
+    carry a per-chunk candidate axis ([chunks, K, B]) or not ([chunks, B])."""
+    b = steps.detected.shape[-1]
+    det = steps.detected.reshape(-1, b)
+    start = steps.frame_start.reshape(-1, b)
+    key = torch.where(det, start, torch.full_like(start, 2**31 - 1))
+    order = key.argsort(0)[:n_frames]  # [n, B]
+    plen = steps.frame.payload_len.reshape(-1, b).gather(0, order)
+    payload = steps.frame.payload.reshape(-1, b, steps.frame.payload.shape[-1])
+    payload = payload.gather(0, order[..., None].expand(-1, -1, payload.shape[-1]))
+    return key.gather(0, order), plen, payload
+
+
+def phase_stream_dynamic(cfg, gen, label: str, lens, lock: bool) -> None:
+    """Phase 5: a variable-length stream at B = 8,192: always-search with two
+    candidates a chunk (chunk = two shortest frames), or frame lock cold and
+    warm (chunk = one shortest frame, rounded down to 128)."""
+    t_short = int(tframe.dynamic_frame_samples(cfg, min(lens)))
+    chunk = (t_short if lock else 2 * t_short) // 128 * 128
+    cap, sent = back_to_back_capture(cfg, lens, PAYLOAD, chunk, STREAM_B, gen, DEV)
+    total = cap.shape[1]
+    frame_len = [int(tframe.dynamic_frame_samples(cfg, n)) for n in lens]
+    starts = GAP0 + np.concatenate([[0], np.cumsum(frame_len[:-1])])
+    log(f"{label}: B {STREAM_B}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), "
+        f"{total // chunk} chunks of {chunk}, payloads {tuple(lens)}")
+    runs = (("cold", None), ("warm-lock", warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV))) if lock \
+        else (("search", None),)
+    for run, carry in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = receive_stream_dynamic(
+            cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16,
+            max_frames_per_chunk=1 if lock else 2, lock=lock, device=DEV,
+        )
+        frames_ok = int(res.carry.frames_ok.sum())
+        dt = time.perf_counter() - t0
+        det = res.steps.detected
+        got_start, got_len, got_pay = frames_in_time_order(res.steps, len(lens))
+        right = bool(det.reshape(-1, STREAM_B).sum(0).eq(len(lens)).all())
+        for i, (n, pay) in enumerate(zip(lens, sent)):
+            right = right and bool((got_len[i] == n).all()) and torch.equal(got_pay[i, :, :n], pay)
+            right = right and not bool(got_pay[i, :, n:].any())
+            # a locked start may sit up to 2 samples off (the drift servo)
+            right = right and bool(((got_start[i] - int(starts[i])).abs() <= (2 if lock else 0)).all())
+        log(f"{label} {run}: frames_ok {frames_ok} of {STREAM_B * len(lens)}, payloads and lengths right "
+            f"{right}, {STREAM_B * total / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+        if frames_ok != STREAM_B * len(lens) or not right:
+            raise AssertionError(f"{label} {run}: frames_ok {frames_ok}, payloads and lengths right {right}")
+        if not lock and not bool((det.sum(1) == 2).any()):
+            raise AssertionError(f"{label}: no chunk completed two frames")
+        if run == "cold" and kernels.launch_counts["sync_search_fused"] == 0:
+            raise AssertionError(f"{label} cold: the search kernel never launched")
+        del res, got_pay
+
+
+def phase_aligned_window(cfg, gen, iters: int = 5) -> None:
+    """Phase 6: the aligned receiver on an oversized window: 16,384
+    time-major frames, each followed by 8 symbols of noise."""
+    sps = cfg.samples_per_symbol
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    pay = torch.randint(0, 256, (ALIGNED_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    x = torch.empty(ALIGNED_B, t_frame + 8 * sps, dtype=torch.bfloat16, device=DEV)
+    x[:, :t_frame] = transmit(cfg, pay, device=DEV).to(torch.bfloat16)
+    x[:, t_frame:] = torch.randn(ALIGNED_B, 8 * sps, generator=gen, device=DEV).to(torch.bfloat16)
+    x_tm = x.T.contiguous()
+    del x
+    res = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV)
+    ok_frac = float(res.ok.float().mean())
+    if ok_frac != 1.0 or not torch.equal(res.payload, pay):
+        raise AssertionError(f"aligned-window: frames_ok_fraction {ok_frac}, payloads equal "
+                             f"{torch.equal(res.payload, pay)}")
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        n_ok = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV).ok.sum()
+    int(n_ok)
+    dt = time.perf_counter() - t0
+    log(f"aligned-window: B {ALIGNED_B}, window {x_tm.shape[0]} samples, frames_ok_fraction {ok_frac}, "
+        f"{ALIGNED_B * x_tm.shape[0] * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
+
+
+def phase_oneshot(cfg, gen) -> None:
+    """Phase 6: the one-shot receivers on 2,048 captures whose frame starts
+    at a per-stream random sample below 2,000: receive_frame (payload 256),
+    receive_frame_dynamic (payload 100, declared in the header), then
+    receive_frame's composition with aligned_gather(mode="roll")."""
+    b, t_max, n = ONESHOT_B, tframe.frame_num_samples(cfg, PAYLOAD), 38400
+    starts = torch.randint(0, 2000, (b,), generator=gen, device=DEV)
+
+    def captures(payload_len):
+        pay = torch.randint(0, 256, (b, payload_len), generator=gen, device=DEV, dtype=torch.uint8)
+        waves = transmit(cfg, pay, device=DEV)
+        cap = 0.05 * torch.randn(b, n, generator=gen, device=DEV)
+        cap.scatter_add_(1, starts[:, None] + torch.arange(waves.shape[1], device=DEV), waves)
+        return pay, cap.to(torch.bfloat16)
+
+    pay, cap = captures(PAYLOAD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = receive_frame(cfg, cap, PAYLOAD, device=DEV)
+    n_ok = int(res.frame.ok.sum())
+    dt = time.perf_counter() - t0
+    right = torch.equal(res.sync.offset, starts.int()) and torch.equal(res.frame.payload, pay)
+    log(f"oneshot receive_frame: B {b}, capture {n}, ok {n_ok}, offsets and payloads right {right}, "
+        f"{b * n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+    if n_ok != b or not right:
+        raise AssertionError(f"oneshot receive_frame: ok {n_ok} of {b}, offsets and payloads right {right}")
+    # the same composition through the gather kernel
+    start = res.sync.offset.clamp(0, n - t_max)
+    plain = tsync.aligned_gather(cap, start, t_max)
+    rolled = tsync.aligned_gather(cap, start, t_max, mode="roll")
+    if not torch.equal(rolled.view(torch.int16), plain.view(torch.int16)):
+        raise AssertionError("oneshot: aligned_gather(mode='roll') differs from the default gather")
+    frame = tframe.demodulate_frame(cfg, rolled, PAYLOAD, device=DEV)
+    if not bool(frame.ok.all()) or not torch.equal(frame.payload, pay):
+        raise AssertionError("oneshot: frames gathered by the kernel do not decode")
+    del res, plain, rolled, frame, cap
+
+    short = 100
+    pay, cap = captures(short)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dyn = receive_frame_dynamic(cfg, cap, PAYLOAD, device=DEV)
+    n_ok = int(dyn.frame.ok.sum())
+    dt = time.perf_counter() - t0
+    right = (torch.equal(dyn.offset, starts.int()) and bool((dyn.frame.payload_len == short).all())
+             and torch.equal(dyn.frame.payload[:, :short], pay) and not bool(dyn.frame.payload[:, short:].any()))
+    log(f"oneshot receive_frame_dynamic: B {b}, ok {n_ok}, offsets, lengths and payloads right {right}, "
+        f"{b * n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+    if n_ok != b or not right:
+        raise AssertionError(f"oneshot receive_frame_dynamic: ok {n_ok} of {b}, right {right}")
+
+
 # Each main path, driven with the launch counts set to 0 just before it and
 # read just after: its model, the phase that drives it and the kernels it
 # must launch.
@@ -423,6 +721,23 @@ PATHS = {
         lambda cfg, gen: phase_stream(cfg, gen, "stream-coded"),
         ("probe_at_fused", "demod_at_energies_fused", "viterbi_trellis", "sync_search_fused"),
     ),
+    "stream-dynamic": (
+        MODEL,
+        lambda cfg, gen: phase_stream_dynamic(cfg, gen, "stream-dynamic", DYNAMIC_LENS, False),
+        ("correlate_fused", "demod_at_fused"),
+    ),
+    "stream-dynamic-lock": (
+        MODEL,
+        lambda cfg, gen: phase_stream_dynamic(cfg, gen, "stream-dynamic-lock", DYNAMIC_LOCK_LENS, True),
+        ("probe_at_fused", "demod_at_fused", "sync_search_fused"),
+    ),
+    "stream-dynamic-coded": (
+        DYNAMIC_CODED_MODEL,
+        lambda cfg, gen: phase_stream_dynamic(cfg, gen, "stream-dynamic-coded", DYNAMIC_LOCK_LENS, True),
+        ("probe_at_fused", "demod_at_energies_fused", "viterbi_trellis", "sync_search_fused"),
+    ),
+    "aligned-window": (MODEL, phase_aligned_window, ("decide_tones_tm",)),
+    "oneshot": (MODEL, phase_oneshot, ("gather_rows_fused",)),
 }
 
 
@@ -448,6 +763,8 @@ def main() -> int:
     results = phase_kernels(get_model(MODEL).config, gen)
     torch.cuda.empty_cache()
     results.update(phase_kernels_coded(get_model(CODED_MODEL).config, gen))
+    torch.cuda.empty_cache()
+    results.update(phase_kernels_dynamic(get_model(MODEL).config, gen))
     counts = dict.fromkeys(REPLACES, 0)
     for path, (model, phase, path_kernels) in PATHS.items():
         torch.cuda.empty_cache()
@@ -467,7 +784,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
         })
     print(smi)
     print(json.dumps({"kernels": rows}))

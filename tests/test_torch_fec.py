@@ -146,3 +146,37 @@ def test_viterbi_takes_leading_batch_axes():
     assert coded.shape == (2, 3, 92)
     got = tfec.viterbi_decode(coded, 40)
     np.testing.assert_array_equal(got.numpy(), data)
+
+
+# --- crc32_device(length=): the per-message-length CRC without a scan ---------
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 48, 256])
+def test_masked_crc_matches_host_for_every_length(n):
+    """crc32_device(data, length=p) is zlib's CRC-32 over exactly the first p
+    bytes, for every p in 0..n, and equals the JAX package's masked scan;
+    lengths outside 0..n clip as the scan's mask does."""
+    rng = np.random.default_rng(n)
+    data = rng.integers(0, 256, (n + 3, n), dtype=np.uint8)
+    lens = np.concatenate([np.arange(n + 1), [-2, n + 5]]).astype(np.int32)
+    got = tfec.crc32_device(torch.from_numpy(data), length=torch.from_numpy(lens))
+    assert got.dtype == torch.int64 and got.shape == (n + 3,)
+    want = [tfec.crc32_host(data[i, : int(np.clip(p, 0, n))].tobytes()) for i, p in enumerate(lens)]
+    np.testing.assert_array_equal(got.numpy(), want)
+    scan = jfec.crc32_device(jnp.asarray(data), length=jnp.asarray(lens))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(scan).astype(np.int64))
+
+
+def test_masked_crc_ignores_the_padding_and_takes_batch_shapes():
+    rng = np.random.default_rng(3)
+    data = rng.integers(0, 256, (2, 3, 40), dtype=np.uint8)
+    lens = rng.integers(0, 41, (2, 3)).astype(np.int64)
+    got = tfec.crc32_device(torch.from_numpy(data), length=torch.from_numpy(lens))
+    noisy = data.copy()
+    for i in range(2):
+        for j in range(3):
+            noisy[i, j, lens[i, j] :] ^= 0xA5
+    again = tfec.crc32_device(torch.from_numpy(noisy), length=torch.from_numpy(lens))
+    assert torch.equal(got, again)
+    full = tfec.crc32_device(torch.from_numpy(data), length=torch.full((2, 3), 40))
+    assert torch.equal(full, tfec.crc32_device(torch.from_numpy(data)))

@@ -6,6 +6,7 @@ JAX and with a float64 numpy computation of the same quantities. The coded
 path (mfsk4-coded: convolutional code, interleaver, soft Viterbi) goes
 through the same comparison, batch-major and time-major."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -263,3 +264,167 @@ def test_coded_tone_decisions_parse_refuses_like_jax():
     np.testing.assert_array_equal(got.payload.numpy(), np.asarray(want.payload))
     np.testing.assert_array_equal(got.ok.numpy(), np.asarray(want.ok))
     assert got.ok.numpy().tolist() == [True, True, True, False]
+
+
+# --- variable-length frames: the length comes from the header -----------------
+
+DCODED = "mfsk4-coded-stream"  # fec_interleave == 1
+DCFG, JDCFG = get_model(DCODED).config, jget_model(DCODED).config
+MAX = 48
+DYN_FIELDS = ("payload", "payload_len") + VERDICTS
+
+
+def _dynamic_windows(cfg, jcfg, lens, noise, seed):
+    """(payloads, [B, T_max] max-length windows): one frame per entry of
+    ``lens`` at the window's start, noise everywhere; the last frame's
+    trailer is hit, so its payload CRC fails while its header stands."""
+    rng = np.random.default_rng(seed)
+    t_max = jframe.frame_num_samples(jcfg, MAX)
+    pays = [rng.integers(0, 256, n, dtype=np.uint8) for n in lens]
+    x = np.zeros((len(lens), t_max), np.float32)
+    for i, p in enumerate(pays):
+        w = tpipeline.transmit(cfg, p, device="cpu").numpy()  # held equal to JAX's above
+        x[i, : len(w)] = w
+        if i == len(lens) - 1:
+            span = (6 if cfg.fec == "none" else 80) * cfg.samples_per_symbol  # a burst the code cannot mend
+            x[i, len(w) - span : len(w)] = x[i, cfg.preamble_samples : cfg.preamble_samples + span]
+    return pays, x + noise * rng.standard_normal(x.shape).astype(np.float32)
+
+
+def _assert_dynamic_equal(got, want, pays, tol=1e-4):
+    for f in DYN_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), f)
+    assert got.payload_len.dtype == torch.int32 and got.payload.dtype == torch.uint8
+    assert got.ok.numpy().tolist() == [True] * (len(pays) - 1) + [False]
+    assert bool(got.header_crc_ok.all()) and not bool(got.payload_crc_ok[-1])
+    for i, p in enumerate(pays[:-1]):
+        assert int(got.payload_len[i]) == len(p)
+        np.testing.assert_array_equal(got.payload.numpy()[i, : len(p)], p)
+        assert not got.payload.numpy()[i, len(p) :].any()
+    # float32 sums in another order
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=tol)
+    np.testing.assert_allclose(got.snr_db.numpy(), np.asarray(want.snr_db), rtol=tol, atol=1e-3)
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.3])
+def test_demodulate_frame_dynamic_matches_jax(noise):
+    """Uncoded max-length windows holding frames of payload 0, 1, 20, 48 and
+    a corrupted 30: payloads, declared lengths and verdicts bit-equal;
+    confidence and snr_db (over the overhead symbols) rtol 1e-4."""
+    pays, x = _dynamic_windows(CFG, JCFG, (0, 1, 20, MAX, 30), noise, 7)
+    got = tframe.demodulate_frame_dynamic(CFG, x, MAX, device="cpu")
+    want = jax.jit(lambda w: jframe.demodulate_frame_dynamic(JCFG, w, MAX))(jnp.asarray(x))
+    _assert_dynamic_equal(got, want, pays)
+    assert isinstance(got, tframe.DynamicFrameResult)
+    assert tframe.DynamicFrameResult._fields == jframe.DynamicFrameResult._fields
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("noise", [0.0, 0.6])
+def test_coded_demodulate_frame_dynamic_matches_jax(noise, kernels, interpret_tpu_kernels):
+    """The same on mfsk4-coded-stream (header probe + masked trellis): at
+    operating noise against JAX's jnp scan, and against JAX with its Pallas
+    trellis in interpret mode, where every payload byte is equal."""
+    pays, x = _dynamic_windows(DCFG, JDCFG, (0, 1, 20, MAX, 30), noise, 8)
+    got = tframe.demodulate_frame_dynamic(DCFG, x, MAX, device="cpu")
+    if kernels:
+        interpret_tpu_kernels()
+    want = jax.jit(lambda w: jframe.demodulate_frame_dynamic(JDCFG, w, MAX))(jnp.asarray(x))
+    _assert_dynamic_equal(got, want, pays)
+
+
+def test_dynamic_parse_functions_match_jax():
+    """frame_result_from_bits_dynamic, dynamic_frame_result_from_tone_decisions
+    and dynamic_frame_result_from_energies against their JAX twins on the
+    same decisions and energies."""
+    from anet.dsp.demod import tone_energies as j_tone_energies
+
+    pays, x = _dynamic_windows(CFG, JCFG, (5, MAX, 17), 0.3, 9)
+    e = np.asarray(j_tone_energies(JCFG, jnp.asarray(x[:, CFG.preamble_samples :])))
+    tone, best, total = e.argmax(-1).astype(np.int32), e.max(-1), e.sum(-1)
+    got = tframe.dynamic_frame_result_from_tone_decisions(
+        CFG, torch.from_numpy(tone), torch.from_numpy(best), torch.from_numpy(total), MAX
+    )
+    want = jax.jit(lambda *a: jframe.dynamic_frame_result_from_tone_decisions(JCFG, *a, MAX))(
+        jnp.asarray(tone), jnp.asarray(best), jnp.asarray(total)
+    )
+    _assert_dynamic_equal(got, want, pays)
+    bits = np.array(jframe.unpack_symbols(jframe.decide_symbols(JCFG, jnp.asarray(e)), 4))
+    zero = np.zeros(3, np.float32)
+    got = tframe.frame_result_from_bits_dynamic(
+        CFG, torch.from_numpy(bits), MAX, confidence=torch.from_numpy(zero), snr_db=torch.from_numpy(zero)
+    )
+    want = jax.jit(lambda b, z: jframe.frame_result_from_bits_dynamic(JCFG, b, MAX, confidence=z, snr_db=z))(
+        jnp.asarray(bits), jnp.asarray(zero)
+    )
+    _assert_dynamic_equal(got, want, pays)
+
+    pays, x = _dynamic_windows(DCFG, JDCFG, (5, MAX, 17), 0.5, 10)
+    e = np.array(j_tone_energies(JDCFG, jnp.asarray(x[:, DCFG.preamble_samples :])))
+    got = tframe.dynamic_frame_result_from_energies(DCFG, torch.from_numpy(e), MAX)
+    want = jax.jit(lambda v: jframe.dynamic_frame_result_from_energies(JDCFG, v, MAX))(jnp.asarray(e))
+    _assert_dynamic_equal(got, want, pays)
+
+
+def test_dynamic_parse_refusals_match_jax():
+    zero = torch.zeros(1)
+    bits = torch.zeros(1, 8 * (12 + MAX), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="fec='none'"):
+        tframe.frame_result_from_bits_dynamic(DCFG, bits, MAX, confidence=zero, snr_db=zero)
+    with pytest.raises(ValueError, match="fec='none'"):
+        jframe.frame_result_from_bits_dynamic(
+            JDCFG, jnp.asarray(bits.numpy()), MAX, confidence=jnp.zeros(1), snr_db=jnp.zeros(1)
+        )
+    with pytest.raises(ValueError, match="needs fec='conv'"):
+        tframe.frame_result_from_llrs_dynamic(CFG, torch.zeros(1, 2000), MAX, confidence=zero, snr_db=zero)
+    # a block interleaver's geometry depends on the declared length
+    for fn, cfg, arr in ((tframe, CCFG, torch.zeros(1, 2000)), (jframe, JCCFG, jnp.zeros((1, 2000)))):
+        with pytest.raises(ValueError, match="fec_interleave == 1"):
+            fn.frame_result_from_llrs_dynamic(cfg, arr, MAX, confidence=arr[:, 0], snr_db=arr[:, 0])
+    with pytest.raises(ValueError, match="requires fec='none'"):
+        tframe.dynamic_frame_result_from_tone_decisions(DCFG, bits[:, :10].int(), zero, zero, MAX)
+
+
+@pytest.mark.parametrize("name", ["mfsk16-fast", "mfsk4-coded-stream", "fsk2-robust", "mfsk8-audible"])
+def test_dynamic_frame_samples_matches_jax(name):
+    """Per-frame sample counts for tensors and ints; equal to the static
+    frame_num_samples wherever the dynamic coded path is allowed."""
+    cfg, jcfg = get_model(name).config, jget_model(name).config
+    lens = np.array([0, 1, 7, 64, 255, 256], np.int32)
+    got = tframe.dynamic_frame_samples(cfg, torch.from_numpy(lens))
+    want = jframe.dynamic_frame_samples(jcfg, jnp.asarray(lens))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for n in lens.tolist():
+        assert tframe.dynamic_frame_samples(cfg, n) == tframe.frame_num_samples(cfg, n)
+    assert isinstance(tframe.dynamic_frame_samples(cfg, 5), int)
+    assert tframe.HEADER_PROBE_DATA_BITS == jframe.HEADER_PROBE_DATA_BITS
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_oversized_window_matches_jax_decide_tones_kernel(dtype):
+    """A window 8 symbols longer than the frame goes through decide_tones_tm
+    (its plain version here) against JAX's Pallas kernel in interpret mode:
+    payloads and verdicts equal, and confidence / snr_db average over every
+    symbol of the window, not the frame's own (against numpy float64)."""
+    tdt, jdt = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    pay, x = _capture(0.3, seed=5)
+    rng = np.random.default_rng(55)
+    x = np.concatenate([x, rng.standard_normal((8 * CFG.samples_per_symbol, x.shape[1])).astype(np.float32)])
+    xt = torch.from_numpy(x).to(tdt)
+    got = tframe.demodulate_frame_tm(CFG, xt, PAY, compute_dtype=tdt, device="cpu")
+    want = jframe.demodulate_frame_tm(
+        JCFG, jnp.asarray(x).astype(jdt), PAY, compute_dtype=jdt, use_pallas=True, interpret=True
+    )
+    np.testing.assert_array_equal(got.payload.numpy(), np.asarray(want.payload))
+    for v in VERDICTS:
+        np.testing.assert_array_equal(getattr(got, v).numpy(), np.asarray(getattr(want, v)), v)
+    assert got.ok.numpy().tolist() == [True, True, True, False]
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=1e-5)
+    np.testing.assert_allclose(got.snr_db.numpy(), np.asarray(want.snr_db), atol=1e-3)
+    if dtype == "f32":
+        conf64, snr64 = _f64_quality(x)
+        np.testing.assert_allclose(got.confidence.numpy(), conf64, rtol=1e-5)
+        np.testing.assert_allclose(got.snr_db.numpy(), snr64, atol=1e-3)
+        exact = tframe.demodulate_frame_tm(CFG, x[: -8 * CFG.samples_per_symbol], PAY, compute_dtype=tdt, device="cpu")
+        assert float((exact.confidence - got.confidence).abs().min()) > 1e-3  # the window's noise symbols count

@@ -40,7 +40,7 @@ def _entry_points():
     from anet_torch.dsp import frame, pipeline
     from anet_torch.dsp.sync import preamble_waveform
     from anet_torch.models import get_model
-    from anet_torch.stream import init_carry, receive_stream
+    from anet_torch.stream import init_carry, receive_stream, receive_stream_dynamic
 
     cfg = get_model("mfsk16-fast").config
     pay = np.zeros((1, 4), np.uint8)
@@ -50,6 +50,11 @@ def _entry_points():
         "preamble_waveform": lambda: preamble_waveform(cfg),
         "init_carry": lambda: init_carry(cfg, 1024, 4),
         "receive_stream": lambda: receive_stream(cfg, np.zeros((1, 1024), np.float32), 1024, 4),
+        "receive_stream_dynamic": lambda: receive_stream_dynamic(cfg, np.zeros((1, 1024), np.float32), 1024, 4),
+        "demodulate_frame_dynamic": lambda: frame.demodulate_frame_dynamic(cfg, np.zeros((1, 4096), np.float32), 4),
+        "receive_frame": lambda: pipeline.receive_frame(cfg, np.zeros((1, 8192), np.float32), 4),
+        "receive_frame_dynamic": lambda: pipeline.receive_frame_dynamic(cfg, np.zeros((1, 8192), np.float32), 4),
+        "loopback": lambda: pipeline.loopback(cfg, pay),
     }
 
 

@@ -1,5 +1,6 @@
 """Each CUDA kernel of anet_torch against its plain PyTorch version, and the
-coded receivers on the card against the same calls on the CPU. Imports no
+coded, variable-length and one-shot receivers on the card against the same
+calls on the CPU. Imports no
 JAX, so it runs on a machine with a GPU:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
@@ -184,3 +185,162 @@ def test_cuda_coded_receivers_match_cpu(cuda, dtype):
     det = want.steps.detected
     assert torch.equal(got.steps.frame.payload.cpu()[det], want.steps.frame.payload[det])
     assert torch.equal(got.carry.next_start.cpu(), want.carry.next_start)
+
+
+# --- the variable-length slice's three kernels and its paths ------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dynamic_slice_kernels_match_plain_versions(cuda, dtype):
+    """correlate_fused (a strided view, lag counts that are no multiple of
+    the 2,048-lag tile, a segment shorter than out_len + k - 1, which reads
+    zeros), decide_tones_tm (odd symbol count and batch, a trailing partial
+    symbol) and gather_rows_fused (starts at residues 0, 1, 63, 127 mod 128,
+    and outside the buffer) against their plain versions on the card.
+    Correlations within 1e-3 of the output's scale (float32 sums of k
+    products in another order), tones and gathered samples bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tpl = preamble_waveform(CFG, device=cuda).to(dtype)
+    k = tpl.shape[-1]
+    big = torch.randn(9, 9000, generator=g, device=cuda).to(dtype)
+    for seg, out_len in ((big[:, 1 : 1 + 5000 + k - 1], 5000), (big[:, :3000], 2953), (big[:3, 7:2600], 2048)):
+        before = tk.launch_counts["correlate_fused"]
+        got = tk.correlate_fused(seg, tpl, out_len)
+        assert tk.launch_counts["correlate_fused"] == before + 1
+        torch.cuda.synchronize()
+        want = tk.correlate_fused_ref(seg, tpl, out_len)
+        assert got.shape == want.shape == (seg.shape[0], out_len) and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * float(want.square().mean().sqrt()))
+    x = torch.randn(21 * CFG.samples_per_symbol + 17, 131, generator=g, device=cuda).to(dtype)
+    got = tk.decide_tones_tm(CFG, x)
+    want = tk.decide_tones_tm_ref(CFG, x)
+    assert got[0].shape == (21, 131) and torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+    assert not tk.decide_tones_tm(CFG, torch.zeros_like(x))[0].any()  # ties: the first tone
+    buf = torch.randn(2, 6, 3000, generator=g, device=cuda).to(dtype)
+    starts = torch.tensor([[0, 1, 63, 127, 128, 2000], [255, 256, 1000, 1999, -3, 2500]], device=cuda)
+    before = tk.launch_counts["gather_rows_fused"]
+    got = tk.gather_rows_fused(buf, starts, 1000)
+    assert tk.launch_counts["gather_rows_fused"] == before + 1
+    want = tk.gather_rows_fused_ref(buf, starts, 1000)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert not got[1, 4, :3].any() and not got[1, 5, 500:].any()  # zeros outside the buffer
+    with pytest.raises(ValueError):
+        tk.gather_rows_fused(buf.transpose(0, 1), starts.T, 10)  # not contiguous
+    with pytest.raises(TypeError):
+        tk.gather_rows_fused(buf.to(torch.float16), starts, 10)
+    with pytest.raises(ValueError):
+        tk.decide_tones_tm(CFG, x.T)
+
+
+@pytest.mark.cuda
+def test_cuda_viterbi_masked_tail_and_header_probe(cuda):
+    """The variable-length coded parse's two trellises on the card: a
+    max-length trellis whose LLRs past the real tail are zero (hundreds of
+    exact ties) and the 102-step unflushed header probe, every bit equal to
+    the plain version's."""
+    from anet_torch.dsp import fec
+
+    rng = np.random.default_rng(5)
+    signs = torch.from_numpy(fec._branch_signs()).to(cuda)
+    for n_data, real, noise in ((2144, 8 * 76, 0.7), (2144, 8 * 12, 1.0), (96, 96, 0.5)):
+        t_steps = n_data + fec.CONV_TAIL_BITS
+        # real < n_data: a shorter frame, tail-flushed, then zeros; else a
+        # longer section cut off unflushed (the header probe)
+        data = rng.integers(0, 2, (33, real if real < n_data else 400), dtype=np.uint8)
+        coded = fec.conv_encode(torch.from_numpy(data)).numpy()
+        rx = np.zeros((33, 2 * t_steps), np.float32)
+        n = min(coded.shape[1], 2 * t_steps)
+        rx[:, :n] = coded[:, :n] * 2.0 - 1.0 + rng.normal(0, noise, (33, n))
+        rx = torch.from_numpy(rx.reshape(33, t_steps, 2)).to(cuda)
+        got = tk.viterbi_trellis(signs, rx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.viterbi_trellis_ref(signs, rx))
+        if noise < 1.0:
+            assert np.array_equal(got.cpu().numpy()[:, : min(real, 64)], data[:, : min(real, 64)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded-stream"])
+def test_cuda_dynamic_receivers_match_cpu(cuda, model):
+    """The variable-length streams on the card (kernels) against the same
+    calls on the CPU (plain versions): two candidates a chunk and frame
+    lock, bf16; detections, declared lengths, payloads, starts and counters
+    equal, each path's kernels launched."""
+    from anet_torch.dsp import frame as tframe
+
+    cfg = get_model(model).config
+    rng = np.random.default_rng(23)
+    mx = 48
+    t_max = tframe.frame_num_samples(cfg, mx)
+    for lens, k, lock in (((8, 8, 48, 24, 8, 8), 2, False), ((8, 48, 24, 8, 48, 24), 1, True)):
+        chunk = k * tframe.frame_num_samples(cfg, min(lens)) // 128 * 128
+        parts = [torch.zeros(5, 1000)]
+        parts += [transmit(cfg, rng.integers(0, 256, (5, n), dtype=np.uint8), device="cpu") for n in lens]
+        cap = torch.cat(parts + [torch.zeros(5, t_max + 300)], -1)
+        cap = torch.nn.functional.pad(cap, (0, -cap.shape[1] % chunk))
+        cap = (cap + 0.05 * torch.from_numpy(rng.standard_normal(cap.shape).astype(np.float32))).to(torch.bfloat16)
+        kw = dict(compute_dtype=torch.bfloat16, max_frames_per_chunk=k, lock=lock)
+        before = dict(tk.launch_counts)
+        got = tstream.receive_stream_dynamic(cfg, cap.to(cuda), chunk, mx, device=cuda, **kw)
+        n_chunks = cap.shape[1] // chunk
+        launched = {name: tk.launch_counts[name] - before[name] for name in before}
+        demod = "demod_at_energies_fused" if cfg.fec == "conv" else "demod_at_fused"
+        assert launched[demod] == k * n_chunks
+        assert launched["correlate_fused"] == (0 if lock else n_chunks)
+        assert launched["probe_at_fused"] == (n_chunks if lock else 0)
+        assert launched["viterbi_trellis"] == (2 * k * n_chunks if cfg.fec == "conv" else 0)
+        want = tstream.receive_stream_dynamic(cfg, cap, chunk, mx, device="cpu", **kw)
+        assert got.carry.frames_ok.tolist() == [len(lens)] * 5
+        assert torch.equal(got.steps.detected.cpu(), want.steps.detected)
+        det = want.steps.detected
+        assert torch.equal(got.steps.frame.payload.cpu()[det], want.steps.frame.payload[det])
+        assert torch.equal(got.steps.frame.payload_len.cpu()[det], want.steps.frame.payload_len[det])
+        assert torch.equal(got.steps.frame_start.cpu()[det], want.steps.frame_start[det])
+        assert torch.equal(got.carry.next_start.cpu(), want.carry.next_start)
+        assert torch.equal(got.carry.last_frame_end.cpu(), want.carry.last_frame_end)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_window_and_oneshot_receivers_match_cpu(cuda, dtype):
+    """The oversized time-major window (decide_tones_tm) and the one-shot
+    receivers on the card against the CPU; aligned_gather(mode="roll")
+    launches the gather kernel and equals the default gather bit for bit."""
+    from anet_torch.dsp import frame as tframe
+    from anet_torch.dsp import pipeline as tpipeline
+    from anet_torch.dsp import sync as tsync
+
+    rng = np.random.default_rng(29)
+    pay = rng.integers(0, 256, (7, PAY), dtype=np.uint8)
+    w = transmit(CFG, pay, device="cpu")
+    x = torch.cat([w, torch.zeros(7, 5 * CFG.samples_per_symbol)], -1)
+    x = (x + 0.3 * torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))).T.contiguous()
+    before = tk.launch_counts["decide_tones_tm"]
+    on_card = tframe.demodulate_frame_tm(CFG, x.to(cuda), PAY, compute_dtype=dtype, device=cuda)
+    assert tk.launch_counts["decide_tones_tm"] == before + 1
+    on_cpu = tframe.demodulate_frame_tm(CFG, x, PAY, compute_dtype=dtype, device="cpu")
+    assert bool(on_card.ok.all()) and np.array_equal(on_card.payload.cpu().numpy(), pay)
+    torch.testing.assert_close(on_card.confidence.cpu(), on_cpu.confidence, rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(on_card.snr_db.cpu(), on_cpu.snr_db, rtol=1e-3, atol=1e-3)
+
+    starts = torch.tensor([0, 1, 63, 127, 128, 777, 1999])
+    cap = 0.2 * torch.from_numpy(rng.standard_normal((7, w.shape[1] + 7000)).astype(np.float32))
+    cap.scatter_add_(1, starts[:, None] + torch.arange(w.shape[1]), w)
+    cap = cap.to(dtype)
+    got = tpipeline.receive_frame(CFG, cap.to(cuda), PAY, device=cuda)
+    want = tpipeline.receive_frame(CFG, cap, PAY, device="cpu")
+    assert torch.equal(got.sync.offset.cpu(), starts.int()) and torch.equal(want.sync.offset, starts.int())
+    assert bool(got.frame.ok.all()) and torch.equal(got.frame.payload.cpu(), want.frame.payload)
+    torch.testing.assert_close(got.sync.quality.cpu(), want.sync.quality, rtol=1e-3, atol=1e-5)
+    dyn = tpipeline.receive_frame_dynamic(CFG, cap.to(cuda), 100, device=cuda)
+    dyn_cpu = tpipeline.receive_frame_dynamic(CFG, cap, 100, device="cpu")
+    assert torch.equal(dyn.offset.cpu(), starts.int()) and bool((dyn.frame.payload_len == PAY).all())
+    assert bool(dyn.frame.ok.all()) and torch.equal(dyn.frame.payload.cpu(), dyn_cpu.frame.payload)
+    before = tk.launch_counts["gather_rows_fused"]
+    rolled = tsync.aligned_gather(cap.to(cuda), starts.to(cuda), w.shape[1], mode="roll")
+    assert tk.launch_counts["gather_rows_fused"] == before + 1
+    assert torch.equal(rolled, tsync.aligned_gather(cap.to(cuda), starts.to(cuda), w.shape[1]))
+    assert tk.launch_counts["gather_rows_fused"] == before + 1  # the default gather launches none

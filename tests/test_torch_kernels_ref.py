@@ -1,7 +1,7 @@
-"""The plain versions of anet_torch's seven kernels against the JAX Pallas
+"""The plain versions of anet_torch's ten kernels against the JAX Pallas
 kernels they replace, run in interpret mode on the CPU (float32; the coded
-path's three also in bfloat16). The CUDA kernels against these plain
-versions: test_torch_kernels_cuda.py."""
+path's three and the variable-length slice's three also in bfloat16). The
+CUDA kernels against these plain versions: test_torch_kernels_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -262,3 +262,142 @@ def test_buffer_geometry_matches_jax(name, chunk, pay):
     assert tk.demod_at_buffer_pad(cfg, n_sym, chunk, live) == jk.demod_at_buffer_pad(
         jcfg, n_sym, chunk, live
     )
+
+
+# --- the variable-length slice: correlate, time-major decisions, row gather ---
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,n,k,out_len", [(3, 5000, 2048, 2048), (2, 2600, 513, 2048), (1, 4096, 100, 3500)])
+def test_correlate_fused_ref_matches_pallas(b, n, k, out_len, dtype):
+    """Every lag float32 [B, out_len] against the Pallas correlator in
+    interpret mode, at the reference's own three shapes (lag-tile and stream
+    padding; the second reads past the end of seg, as zeros). Tolerance:
+    1e-5 of the output's scale sqrt(k) (float32 sums of k products in
+    another order; bf16 products are exact in float32)."""
+    tdt, jdt = _DTYPES[dtype]
+    rng = np.random.default_rng(n)
+    seg = rng.normal(size=(b, n)).astype(np.float32)
+    tpl = rng.normal(size=(k,)).astype(np.float32)
+    seg_t, tpl_t = torch.from_numpy(seg).to(tdt), torch.from_numpy(tpl).to(tdt)
+    got = tk.correlate_fused_ref(seg_t, tpl_t, out_len)
+    want = jk.correlate_fused(jnp.asarray(seg).astype(jdt), jnp.asarray(tpl).astype(jdt), out_len, interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (b, out_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5 * np.sqrt(k) * 4)
+    direct = np.stack([np.correlate(r, tpl_t.float().numpy().astype(np.float64), "valid") for r in
+                       np.pad(seg_t.float().numpy().astype(np.float64), ((0, 0), (0, max(0, out_len + k - 1 - n))))])
+    np.testing.assert_allclose(got.numpy(), direct[:, :out_len], rtol=1e-4, atol=1e-3)
+    # the wrapper takes the plain version for a CPU tensor
+    assert torch.equal(tk.correlate_fused(seg_t, tpl_t, out_len), got)
+
+
+@pytest.mark.parametrize("name,s,b,extra,dtype", [
+    ("mfsk16-fast", 21, 3, 17, "f32"), ("mfsk16-fast", 21, 3, 17, "bf16"),
+    ("mfsk4-coded", 33, 5, 0, "f32"), ("mfsk4-coded", 33, 5, 0, "bf16"),
+    ("mfsk16-fast", 8, 130, 63, "f32"),
+])
+def test_decide_tones_tm_ref_matches_pallas(name, s, b, extra, dtype):
+    """(tone, best, total) [S, B] at symbol counts that are no multiple of the
+    reference's 8-symbol tile, batches that are no multiple of its 128
+    lanes, and a trailing partial symbol (dropped). Tones equal; energies
+    rtol 1e-5 (float32 sums in another order). The two-lane-tile batch runs
+    in float32 only: XLA's CPU runtime has no bf16 x bf16 -> f32 product at
+    that tile."""
+    cfg, jcfg = get_model(name).config, jget_model(name).config
+    tdt, jdt = _DTYPES[dtype]
+    rng = np.random.default_rng(s * b)
+    sps = cfg.samples_per_symbol
+    tones = rng.integers(0, cfg.num_tones, (b, s))
+    from anet_torch.dsp.mod import synthesize_tones
+
+    x = synthesize_tones(cfg, torch.from_numpy(tones).int()).numpy()
+    x = np.pad(x + 0.5 * rng.standard_normal(x.shape).astype(np.float32), ((0, 0), (0, extra)))
+    x_tm = np.ascontiguousarray(x.T)
+    got = tk.decide_tones_tm_ref(cfg, torch.from_numpy(x_tm).to(tdt))
+    want = jk.decide_tones_tm(jcfg, jnp.asarray(x_tm).astype(jdt), compute_dtype=jdt, interpret=True)
+    assert got[0].dtype == torch.int32 and got[0].shape == (s, b) and x_tm.shape[0] == s * sps + extra
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[0].numpy(), tones.T)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5)
+    again = tk.decide_tones_tm(cfg, torch.from_numpy(x_tm).to(tdt))
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_decide_tones_tm_ref_ties_go_to_the_first_tone():
+    tone, best, total = tk.decide_tones_tm_ref(CFG, torch.zeros(3 * CFG.samples_per_symbol, 2))
+    assert not tone.any() and not best.any() and not total.any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gather_rows_ref_matches_pallas(dtype):
+    """out[b, i] = buffer[b, start[b] + i] against the Pallas roll-align
+    kernel in interpret mode, bit-equal, at starts on both sides of its
+    128-sample rows (residues 0, 1, 63, 126, 127), the last fitting start
+    included, a size that is whole rows and one that is not."""
+    tdt, jdt = _DTYPES[dtype]
+    rng = np.random.default_rng(1415)
+    length = 3000
+    buf = rng.standard_normal((20, length)).astype(np.float32)
+    buf_t = torch.from_numpy(buf).to(tdt)
+    for size in (1000, 1024):
+        starts = np.array([0, 1, 63, 126, 127, 128, 129, 255, 256, 257, 383, 384, 511, 640 + 127, 1000,
+                           1151, 1152, 1279, 1500, length - size], np.int32)
+        got = tk.gather_rows_fused_ref(buf_t, torch.from_numpy(starts), size)
+        want = jk.gather_rows_fused(jnp.asarray(buf).astype(jdt), jnp.asarray(starts), size, interpret=True)
+        assert got.dtype == tdt and got.shape == (20, size)
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+        rows = np.stack([buf_t.float().numpy()[i, s : s + size] for i, s in enumerate(starts)])
+        np.testing.assert_array_equal(got.float().numpy(), rows)
+        assert torch.equal(tk.gather_rows_fused(buf_t, torch.from_numpy(starts), size), got)
+
+
+def test_gather_rows_ref_reads_zeros_outside_the_buffer():
+    """Beyond the callers' contract (0 <= start, start + size <= L) the
+    kernel and its plain version read zeros, on either side."""
+    buf = torch.arange(1, 11, dtype=torch.float32).repeat(2, 1)
+    got = tk.gather_rows_fused_ref(buf, torch.tensor([8, -2]), 4)
+    assert got.tolist() == [[9.0, 10.0, 0.0, 0.0], [0.0, 0.0, 1.0, 2.0]]
+
+
+@pytest.mark.parametrize("n_data,real", [(8 * 60, 8 * 20), (200, 200)])
+def test_viterbi_trellis_ref_masked_tail_matches_pallas(n_data, real):
+    """The masked trellis of the variable-length coded parse: LLRs past the
+    real frame's tail flush are zero, so hundreds of steps tie every branch
+    metric. Every decided bit equals the Pallas kernel's in interpret mode,
+    the real span decodes to the sent data and the padded span to zeros:
+    the tie rule and the (pm + a) + b order are the reference kernel's."""
+    rng = np.random.default_rng(n_data + real)
+    t_steps = n_data + tfec.CONV_TAIL_BITS
+    data = rng.integers(0, 2, (6, real), dtype=np.uint8)
+    coded = np.asarray(jfec.conv_encode(jnp.asarray(data)))  # tail-flushed at `real`
+    rx = np.zeros((6, 2 * t_steps), np.float32)
+    rx[:, : coded.shape[1]] = coded * 2.0 - 1.0 + rng.normal(0, 0.7, coded.shape)
+    rx = rx.reshape(6, t_steps, 2)
+    signs = tfec._branch_signs()
+    got = tk.viterbi_trellis_ref(torch.from_numpy(signs), torch.from_numpy(rx))
+    want = jk.viterbi_trellis(jnp.asarray(signs), jnp.moveaxis(jnp.asarray(rx), 0, -1), interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).T)
+    np.testing.assert_array_equal(got.numpy()[:, :real], data)
+    # past the tail flush the frozen metrics trace back through state 0
+    assert not got.numpy()[:, real + 2 * tfec.CONV_TAIL_BITS :].any()
+
+
+def test_viterbi_trellis_ref_header_probe_matches_pallas():
+    """The 102-step unflushed header probe (conv_encoded_bits(96) = 204 LLRs
+    cut from a longer coded section): every bit equals the Pallas kernel's,
+    and the header's 64 bits decode although the trellis does not end in
+    state 0."""
+    from anet_torch.dsp.frame import HEADER_PROBE_DATA_BITS
+
+    rng = np.random.default_rng(96)
+    data = rng.integers(0, 2, (9, 400), dtype=np.uint8)
+    coded = np.asarray(jfec.conv_encode(jnp.asarray(data)))
+    n_llrs = tfec.conv_encoded_bits(HEADER_PROBE_DATA_BITS)
+    assert n_llrs == 204
+    rx = (coded[:, :n_llrs] * 2.0 - 1.0 + rng.normal(0, 0.5, (9, n_llrs))).astype(np.float32)
+    got = tfec.viterbi_decode_soft(torch.from_numpy(rx), HEADER_PROBE_DATA_BITS)
+    pairs = jnp.moveaxis(jnp.asarray(rx.reshape(9, 102, 2)), 0, -1)
+    want = jk.viterbi_trellis(jnp.asarray(tfec._branch_signs()), pairs, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).T[:, :HEADER_PROBE_DATA_BITS])
+    np.testing.assert_array_equal(got.numpy()[:, :64], data[:, :64])
