@@ -6,9 +6,10 @@ it (it keeps its own copies of the jax-free modules it needs) and mirrors its
 module paths and function names, so ``anet.dsp.frame.demodulate_frame_tm``
 is ``anet_torch.dsp.frame.demodulate_frame_tm`` here.
 
-Covered so far: MFSK transmit, the aligned receivers and the fixed-length
-streaming receiver (always-search and frame-lock), uncoded and coded
-(``fec="conv"``: convolutional code, interleaver, soft Viterbi).
+Covered so far, for the MFSK and the OFDM family: transmit, the aligned
+receivers, the one-shot receivers, and the streaming receivers with fixed
+and header-declared frame lengths (always-search and frame-lock), uncoded
+and coded (``fec="conv"``: convolutional code, interleaver, soft Viterbi).
 Every public entry point takes ``device=`` and defaults to ``"cuda"``; it
 raises when CUDA is absent unless the caller passes ``device="cpu"``. On
 the CPU each kernel wrapper runs its plain PyTorch version.

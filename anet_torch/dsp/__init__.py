@@ -1,2 +1,2 @@
 """Signal chain of the port: bits, CRC, modulation, sync, demodulation,
-framing (mirrors ``anet.dsp``)."""
+framing, and the OFDM family (mirrors ``anet.dsp``)."""

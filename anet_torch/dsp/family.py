@@ -1,5 +1,6 @@
-"""Modulation-family dispatch (mirrors ``anet.dsp.family``). The port has
-the MFSK family only; an OFDM config raises until the OFDM slice lands."""
+"""Modulation-family dispatch (mirrors ``anet.dsp.family``): one place that
+knows MFSK (ModemConfig) from OFDM (OfdmConfig). A config of neither family
+raises."""
 
 from __future__ import annotations
 
@@ -10,27 +11,42 @@ import torch
 from anet_torch.dsp.params import ModemConfig
 
 
-def _require_mfsk(config) -> None:
+def is_ofdm(config) -> bool:
+    """True for an OfdmConfig, False for a ModemConfig; anything else
+    raises NotImplementedError."""
+    from anet_torch.dsp.ofdm import OfdmConfig
+
+    if isinstance(config, OfdmConfig):
+        return True
     if not isinstance(config, ModemConfig):
         raise NotImplementedError(
-            f"{type(config).__name__}: only MFSK (ModemConfig) is ported; OFDM "
-            "arrives with the OFDM slice (ROADMAP: ofdm_track_decide_fused)"
+            f"{type(config).__name__}: not a config of a ported family "
+            "(ModemConfig for MFSK, OfdmConfig for OFDM)"
         )
+    return False
 
 
 def transmit_fn(config, device="cuda") -> Callable:
     """payload uint8[..., N] -> frame waveforms on ``device``."""
+    if is_ofdm(config):
+        from anet_torch.dsp import ofdm
+
+        return lambda p: ofdm.transmit(config, p, device=device)
     from anet_torch.dsp.pipeline import transmit
 
-    _require_mfsk(config)
     return lambda p: transmit(config, p, device=device)
 
 
 def aligned_demod_fn(config, payload_len: int, compute_dtype=torch.float32, device="cuda") -> Callable:
-    """Symbol-aligned batch-major frame waveform -> FrameResult."""
+    """Symbol-aligned batch-major frame waveform -> FrameResult. OFDM
+    widens its samples to float32 whatever ``compute_dtype``, as the
+    reference does."""
+    if is_ofdm(config):
+        from anet_torch.dsp import ofdm
+
+        return lambda w: ofdm.demodulate_frame(config, w, payload_len, device=device)
     from anet_torch.dsp.frame import demodulate_frame
 
-    _require_mfsk(config)
     return lambda w: demodulate_frame(
         config, w, payload_len, compute_dtype=compute_dtype, device=device
     )
@@ -41,25 +57,32 @@ def aligned_demod_dynamic_fn(
 ) -> Callable:
     """Symbol-aligned max-length window -> DynamicFrameResult (payload
     length read from the frame header)."""
+    if is_ofdm(config):
+        from anet_torch.dsp import ofdm
+
+        return lambda w: ofdm.demodulate_frame_dynamic(config, w, max_payload_len, device=device)
     from anet_torch.dsp.frame import demodulate_frame_dynamic
 
-    _require_mfsk(config)
     return lambda w: demodulate_frame_dynamic(
         config, w, max_payload_len, compute_dtype=compute_dtype, device=device
     )
 
 
 def frame_samples(config, payload_len: int) -> int:
+    if is_ofdm(config):
+        return config.frame_num_samples(payload_len)
     from anet_torch.dsp.frame import frame_num_samples
 
-    _require_mfsk(config)
     return frame_num_samples(config, payload_len)
 
 
 def preamble_template(config, device="cuda") -> torch.Tensor:
+    if is_ofdm(config):
+        from anet_torch.dsp import ofdm
+
+        return ofdm.preamble_waveform(config, device=device)
     from anet_torch.dsp.sync import preamble_waveform
 
-    _require_mfsk(config)
     return preamble_waveform(config, device=device).float()
 
 

@@ -55,8 +55,9 @@ def data_section_bytes(payload_len: int) -> int:
     return OVERHEAD_BYTES + payload_len
 
 
-def data_section_coded_bits(config: ModemConfig, payload_len: int) -> int:
-    """Bits on the air for the data section (after optional FEC)."""
+def data_section_coded_bits(config, payload_len: int) -> int:
+    """Bits on the air for the data section (after optional FEC), for
+    either family."""
     return config.coded_bits_for_data_bits(8 * data_section_bytes(payload_len))
 
 
@@ -112,7 +113,8 @@ def _parse_header(header: torch.Tensor):
 def data_section_air_bits_array(config, payload: torch.Tensor) -> torch.Tensor:
     """payload uint8[..., N] -> on-air data-section bits uint8[..., bits]:
     header + payload + CRC-32, MSB-first, then the config's FEC and
-    interleaver."""
+    interleaver (either family: only ``fec`` and ``fec_interleave`` are
+    read)."""
     n = payload.shape[-1]
     header = torch.as_tensor(_header_np(n), device=payload.device).expand(
         *payload.shape[:-1], HEADER_BYTES
@@ -368,8 +370,10 @@ def frame_result_from_bits(
     snr_db: torch.Tensor,
 ) -> FrameResult:
     """Frame parse: demodulated bits (and, for soft FEC, per-bit LLRs) ->
-    payload + verdicts. A coded config deinterleaves the soft values and
-    runs the Viterbi decoder; without LLRs the hard bits stand in as +-1."""
+    payload + verdicts, for either family (a ModemConfig or an OfdmConfig;
+    only ``fec``, ``fec_interleave`` and ``coded_bits_for_data_bits`` are
+    read). A coded config deinterleaves the soft values and runs the Viterbi
+    decoder; without LLRs the hard bits stand in as +-1."""
     n_bytes = data_section_bytes(payload_len)
     if config.fec == "conv":
         from anet_torch.dsp.fec import conv_encoded_bits, deinterleave, viterbi_decode_soft
@@ -425,9 +429,10 @@ def frame_result_from_bits_dynamic(
     confidence: torch.Tensor,
     snr_db: torch.Tensor,
 ) -> DynamicFrameResult:
-    """Variable-length frame parse of uncoded (hard-decision) bits: the
-    payload length is read from the demodulated header of a max-length
-    window. Coded configs decode through frame_result_from_llrs_dynamic."""
+    """Variable-length frame parse of uncoded (hard-decision) bits, for
+    either family: the payload length is read from the demodulated header
+    of a max-length window. Coded configs decode through
+    frame_result_from_llrs_dynamic."""
     if config.fec != "none":
         raise ValueError(
             "hard-bit dynamic parse requires fec='none'; coded configs "
@@ -606,10 +611,11 @@ def demodulate_frame_dynamic(
 
 
 def dynamic_frame_samples(config, payload_len):
-    """frame_num_samples for a per-frame payload length: an int32 tensor for
-    a tensor, an int for an int. The streaming receiver advances its dedupe
-    cursor by it. A coded config has no interleaver pad term here: the
-    dynamic coded path requires fec_interleave == 1."""
+    """frame_num_samples for a per-frame payload length, for either family:
+    an int32 tensor for a tensor, an int for an int. The streaming receiver
+    advances its dedupe cursor by it. A coded config has no interleaver pad
+    term here: the dynamic coded path requires fec_interleave == 1."""
+    from anet_torch.dsp.family import is_ofdm
     from anet_torch.dsp.fec import CONV_TAIL_BITS
 
     if isinstance(payload_len, torch.Tensor):
@@ -618,4 +624,6 @@ def dynamic_frame_samples(config, payload_len):
     if config.fec == "conv":
         n_bits = 2 * (n_bits + CONV_TAIL_BITS)
     syms = (n_bits + config.bits_per_symbol - 1) // config.bits_per_symbol
+    if is_ofdm(config):
+        return config.preamble_samples + (1 + syms) * config.symbol_samples
     return (config.preamble_symbols + syms) * config.samples_per_symbol

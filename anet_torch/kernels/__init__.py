@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the receiver's main paths, with their plain
-PyTorch versions (mirrors the ten ``anet.kernels`` Pallas kernels that the
-aligned, streaming and one-shot receivers run: uncoded and coded, fixed and
-variable frame length).
+PyTorch versions (mirrors the eleven ``anet.kernels`` Pallas kernels that the
+aligned, streaming and one-shot receivers run: MFSK uncoded and coded, fixed
+and variable frame length, and the OFDM equalizer).
 
 | wrapper                 | kernel source               | TPU kernel it replaces        |
 |-------------------------|-----------------------------|-------------------------------|
@@ -15,10 +15,12 @@ variable frame length).
 | correlate_fused         | csrc/correlate.cu           | anet/kernels/__init__.py:891  |
 | decide_tones_tm         | csrc/decide_tones_tm.cu     | anet/kernels/__init__.py:269  |
 | gather_rows_fused       | csrc/gather_rows.cu         | anet/kernels/__init__.py:1415 |
+| ofdm_track_decide_fused | csrc/ofdm_track.cu          | anet/kernels/__init__.py:2648 |
 
 Each wrapper runs its plain version (``*_ref``) when its tensors lie on the
 CPU, and launches its CUDA kernel when they lie on the card: it checks
-device, dtype (float32 or bfloat16), shape and contiguity, allocates the
+device, dtype (float32 or bfloat16 samples; complex64 OFDM symbol
+estimates), shape and contiguity, allocates the
 outputs, launches on ``torch.cuda.current_stream()``, raises if the launch
 reported an error, and adds one to ``launch_counts[name]``. There is no
 fallback from the kernel to the plain version.
@@ -64,6 +66,8 @@ __all__ = [
     "decide_tones_tm_ref",
     "gather_rows_fused",
     "gather_rows_fused_ref",
+    "ofdm_track_decide_fused",
+    "ofdm_track_decide_fused_ref",
 ]
 
 TM_SYMBOL_TILE = 8  # Gray-decoded symbols packed per int32 word
@@ -85,6 +89,7 @@ launch_counts = {
     "correlate_fused": 0,
     "decide_tones_tm": 0,
     "gather_rows_fused": 0,
+    "ofdm_track_decide_fused": 0,
 }
 
 
@@ -775,6 +780,125 @@ def gather_rows_fused(buffer: torch.Tensor, start: torch.Tensor, size: int) -> t
     )
     _check_launch(err, name)
     return out
+
+
+# --- ofdm_track_decide_fused: the OFDM equalizer's back half -----------------
+
+_QPSK_AMP = 0.7071067811865476  # 1/sqrt(2), unit average symbol power
+_QAM16_SCALE = 0.31622776601683794  # 1/sqrt(10)
+_QAM64_SCALE = 0.1543033499620919  # 1/sqrt(42)
+
+
+def _ideal_axis(a: torch.Tensor, bpc: int) -> torch.Tensor:
+    """Per-axis constellation point implied by the LLR signs, strict
+    boundaries included, so the error power equals that of
+    bits_to_carriers(llrs > 0)."""
+    if bpc == 2:
+        return torch.where(a < 0, -_QPSK_AMP, _QPSK_AMP).float()
+    sign = torch.where(a > 0, 1.0, -1.0).float()
+    mag_a = a.abs()
+    if bpc == 4:
+        return sign * torch.where(mag_a < 2.0 * _QAM16_SCALE, 1.0, 3.0).float() * _QAM16_SCALE
+    s = _QAM64_SCALE
+    mag = torch.where(
+        mag_a <= 2.0 * s, 1.0,
+        torch.where(mag_a < 4.0 * s, 3.0, torch.where(mag_a < 6.0 * s, 5.0, 7.0)),
+    ).float()
+    return sign * mag * s
+
+
+def _llr_axis(a: torch.Tensor, w: torch.Tensor, bpc: int) -> tuple:
+    """Max-log LLR planes of one axis; QPSK's is -a w (the unnormalized
+    matched-filter output)."""
+    from anet_torch.dsp import ofdm
+
+    if bpc == 2:
+        return (-(a * w),)
+    if bpc == 4:
+        return ofdm._pam4_llrs(a, w)
+    return ofdm._pam8_llrs(a, w)
+
+
+def ofdm_track_decide_fused_ref(
+    config, z_eq: torch.Tensor, h_pow: torch.Tensor, slope0: torch.Tensor, *,
+    evm_symbols: int | None = None, with_coherence: bool = False,
+):
+    """Plain version of ofdm_track_decide_fused: ofdm._phase_track (two fit
+    iterations and the identity gate), the derotation, the LLR planes and
+    the error power."""
+    from anet_torch.dsp import ofdm
+
+    s, c = z_eq.shape[-2:]
+    bpc = config.bits_per_carrier
+    evm_rows = s if evm_symbols is None else evm_symbols
+    w = h_pow.float()[..., None, :]
+    coh = torch.zeros(*z_eq.shape[:-2], 2, dtype=torch.float32, device=z_eq.device)
+    if config.clock_tracking:
+        rot, coh = ofdm._phase_track(config, z_eq, w, slope0, with_coherence=True)
+        z_eq = z_eq * rot
+    zr, zi = z_eq.real, z_eq.imag
+    planes = _llr_axis(zr, w, bpc) + _llr_axis(zi, w, bpc)
+    llrs = torch.stack(planes, dim=-1).reshape(*z_eq.shape[:-2], s * c * bpc)
+    er = (zr - _ideal_axis(zr, bpc))[..., :evm_rows, :]
+    ei = (zi - _ideal_axis(zi, bpc))[..., :evm_rows, :]
+    evm2 = (er * er + ei * ei).sum((-2, -1)) / (evm_rows * c)
+    return (llrs, evm2, coh) if with_coherence else (llrs, evm2)
+
+
+def ofdm_track_decide_fused(
+    config, z_eq: torch.Tensor, h_pow: torch.Tensor, slope0: torch.Tensor, *,
+    evm_symbols: int | None = None, with_coherence: bool = False,
+):
+    """The OFDM equalizer's back half, one block per stream: the
+    decision-directed clock fit (two iterations from the preamble seed
+    ``slope0``; skipped when config.clock_tracking is off), the identity
+    gate, the derotation, the max-log LLR planes and the error-vector power.
+
+    ``z_eq`` is complex64 [..., S, C] (any strides; a time-major [S, C, B]
+    tensor passes as its [B, S, C] view), ``h_pow`` float32 [..., C] (any
+    strides) the per-carrier channel power, ``slope0`` float32 [...].
+    Returns (llrs float32 [..., S*C*bpc] in the interleaved layout of the
+    reference's _equalized_bits, evm2 float32 [...] over the first
+    ``evm_symbols`` symbols, default all); with ``with_coherence`` also the
+    gate's coherences float32 [..., 2] (tracked, unrotated; zeros without
+    tracking)."""
+    if z_eq.device.type == "cpu":
+        return ofdm_track_decide_fused_ref(
+            config, z_eq, h_pow, slope0, evm_symbols=evm_symbols, with_coherence=with_coherence
+        )
+    name = "ofdm_track_decide_fused"
+    if not z_eq.is_cuda:
+        raise ValueError(f"{name}: z_eq must be a CUDA tensor, got {z_eq.device}")
+    if z_eq.dtype != torch.complex64 or z_eq.dim() < 2:
+        raise ValueError(f"{name}: z_eq must be a complex64 [..., S, C] tensor")
+    lead, (s, c) = z_eq.shape[:-2], z_eq.shape[-2:]
+    if c != config.n_carriers or h_pow.shape != (*lead, c) or slope0.shape != lead:
+        raise ValueError(
+            f"{name}: need h_pow [..., {config.n_carriers}] and slope0 [...] for z_eq "
+            f"{tuple(z_eq.shape)}, got {tuple(h_pow.shape)} and {tuple(slope0.shape)}"
+        )
+    if h_pow.dtype != torch.float32 or h_pow.device != z_eq.device:
+        raise ValueError(f"{name}: h_pow must be float32 on {z_eq.device}")
+    evm_rows = s if evm_symbols is None else evm_symbols
+    if not 1 <= evm_rows <= s:
+        raise ValueError(f"{name}: evm_symbols must be in [1, {s}], got {evm_rows}")
+    dev = z_eq.device
+    z3 = torch.view_as_real(z_eq.reshape(-1, s, c))  # interleaved float2, a view where it can be
+    hp = h_pow.reshape(-1, c)
+    b = z3.shape[0]
+    sl = slope0.to(dtype=torch.float32).reshape(b).contiguous()
+    bpc = config.bits_per_carrier
+    llrs = torch.empty(*lead, s * c * bpc, dtype=torch.float32, device=dev)
+    evm2 = torch.empty(lead, dtype=torch.float32, device=dev)
+    coh = torch.zeros(*lead, 2, dtype=torch.float32, device=dev) if with_coherence else None
+    err = _entry("ofdm_track")(
+        z3.data_ptr(), *(st // 2 for st in z3.stride()[:3]), hp.data_ptr(), *hp.stride(),
+        sl.data_ptr(), b, s, c, bpc, config.first_carrier, int(config.clock_tracking), evm_rows,
+        llrs.data_ptr(), evm2.data_ptr(), None if coh is None else coh.data_ptr(),
+        _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return (llrs, evm2, coh) if with_coherence else (llrs, evm2)
 
 
 def demod_at_buffer_pad(

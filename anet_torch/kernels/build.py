@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "anet_torch_kernels"
 SOURCES = (
     "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
     "viterbi", "demod_at_energies", "probe_at",
-    "correlate", "decide_tones_tm", "gather_rows",
+    "correlate", "decide_tones_tm", "gather_rows", "ofdm_track",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of each library's entry point: (symbol, argtypes)
 SIGNATURES = {
     "decide_frame_tm": (
@@ -70,6 +71,10 @@ SIGNATURES = {
     "gather_rows": (
         "anet_gather_rows",
         [_P, _I, _I, ctypes.c_longlong, _P, _I, _P, _P],
+    ),
+    "ofdm_track": (
+        "anet_ofdm_track",
+        [_P, _L, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
 }
 

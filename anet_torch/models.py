@@ -1,9 +1,8 @@
 """Modem model presets: named, tuned configurations of the signal chain.
 
-The MFSK part of ``anet/models/__init__.py`` (registry and presets), copied
-so that ``anet_torch`` imports nothing of ``anet``. The OFDM presets
-(``ofdm-fast``, ``ofdm-coded``, ``ofdm-turbo``, ``ofdm-max``) arrive with the
-OFDM slice of the port.
+The registry, presets and operating thresholds of ``anet/models/__init__.py``,
+copied so that ``anet_torch`` imports nothing of ``anet`` (its compute
+helpers, the capture classifier and ``suggest_model``, are not ported yet).
 
 - ``fsk2-robust``   — binary FSK, low rate, maximum noise margin.
 - ``mfsk4-voice``   — 4-FSK in the voice band (300-3400 Hz).
@@ -14,12 +13,16 @@ OFDM slice of the port.
   coding; the second has no interleaver, so its frames can declare their
   own length (variable-length streaming).
 - ``mfsk32-dense``  — 32-FSK wideband, highest rate, needs high SNR.
+- ``ofdm-fast``     — 96-carrier QPSK OFDM, 28.8 kbps.
+- ``ofdm-coded`` / ``ofdm-turbo`` / ``ofdm-max`` — coded OFDM (K=7 soft
+  Viterbi, depth-32 interleaver) on QPSK, 16-QAM and 64-QAM carriers.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, NamedTuple
 
+from anet_torch.dsp.ofdm import OfdmConfig
 from anet_torch.dsp.params import ModemConfig
 
 
@@ -50,6 +53,28 @@ def get_model(name: str) -> ModemModel:
 
 def list_models() -> List[ModemModel]:
     return [_REGISTRY[k] for k in sorted(_REGISTRY)]
+
+
+# Measured operating thresholds: the lowest waveform SNR (dB, AWGN) at
+# which each preset's frame error rate is ~0 (the JAX package's docs/BER.md
+# sweeps). The link-adaptation rule picks the fastest preset whose
+# threshold fits.
+OPERATING_SNR_DB = {
+    "fsk2-robust": -6.0,
+    "mfsk4-voice": 2.0,
+    "mfsk4-coded": -4.0,
+    # same code/geometry as mfsk4-coded minus the interleaver: identical
+    # AWGN threshold (the interleaver only helps bursts)
+    "mfsk4-coded-stream": -4.0,
+    "mfsk8-audible": 1.0,
+    "mfsk16-fast": 0.0,
+    "mfsk16-ultra": 6.0,
+    "mfsk32-dense": 0.0,
+    "ofdm-fast": 14.0,
+    "ofdm-coded": 4.0,
+    "ofdm-turbo": 10.0,
+    "ofdm-max": 18.0,
+}
 
 
 register(
@@ -170,5 +195,46 @@ register(
         ),
         "32-FSK, 3 kbps in 600 baud; dense tone packing trades SNR margin "
         "for spectral efficiency.",
+    )
+)
+
+
+register(
+    ModemModel(
+        "ofdm-fast",
+        OfdmConfig(),
+        "96-carrier QPSK OFDM at 48 kHz: 28.8 kbps in 3.0-20.8 kHz with a "
+        "1.3 ms cyclic prefix; per-carrier equalization absorbs room echo.",
+    )
+)
+
+register(
+    ModemModel(
+        "ofdm-coded",
+        OfdmConfig(fec="conv", fec_interleave=32),
+        "Coded OFDM (rate-1/2 K=7 soft Viterbi + depth-32 interleaver): "
+        "14.4 kbps net, rides out deep carrier fades and bursts.",
+    )
+)
+
+
+register(
+    ModemModel(
+        "ofdm-max",
+        OfdmConfig(bits_per_carrier=6, fec="conv", fec_interleave=32),
+        "64-QAM coded OFDM: 86.4 kbps on the air, 43.2 kbps net with soft "
+        "Viterbi + interleaving; the highest-rate preset (~18 dB), headroom "
+        "for two simultaneous high-quality Opus streams.",
+    )
+)
+
+
+register(
+    ModemModel(
+        "ofdm-turbo",
+        OfdmConfig(bits_per_carrier=4, fec="conv", fec_interleave=32),
+        "16-QAM coded OFDM: 57.6 kbps on the air, 28.8 kbps net with soft "
+        "Viterbi + interleaving (~10 dB); enough for a real-time 24 kbps "
+        "Opus stream over sound.",
     )
 )

@@ -6,8 +6,8 @@
 
 - ``lock`` (the default): the fixed-length locked stream of chip_smoke.py
   (payload 256, one 1000-sample gap then 6 back-to-back frames, bf16), warm
-  and cold, then the aligned receiver at 16,384 frames (8,192 for a coded
-  model);
+  and cold, then the time-major aligned receiver at 16,384 frames (8,192
+  for a coded or an OFDM model);
 - ``dynamic``: the variable-length always-search stream with two
   candidates a chunk (chip_smoke.py's stream-dynamic: payloads 64, 64, 256,
   128, 64, 64 back to back, chunk of two shortest frames);
@@ -15,7 +15,8 @@
   128, 64, 256, 128, chunk of one shortest frame), warm and cold; a coded
   model needs fec_interleave == 1 (mfsk4-coded-stream).
 
-``model`` is mfsk16-fast unless named. Each run happens once to warm up,
+``model`` is mfsk16-fast unless named; the OFDM presets (ofdm-fast, and for
+``lock`` the coded ones) run the same paths. Each run happens once to warm up,
 then once under torch.profiler, and prints the device time of each kernel
 (the top 12), the sum of device time, the wall time of the run and the
 device's busy share (device time over wall time; kernels do not overlap on
@@ -33,8 +34,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from anet_torch.dsp import family
 from anet_torch.dsp import frame as tframe
-from anet_torch.dsp.pipeline import transmit
+from anet_torch.dsp import ofdm
 from anet_torch.kernels.build import build_all
 from anet_torch.models import get_model
 from anet_torch.stream import init_carry, receive_stream, receive_stream_dynamic
@@ -50,13 +52,14 @@ def back_to_back_capture(cfg, lens, max_len: int, chunk: int, batch: int, gen, d
     of ``lens`` back to back with random payloads from ``gen``, then at least
     one max-length frame of zeros, N a whole number of chunks."""
     frames = [int(tframe.dynamic_frame_samples(cfg, n)) for n in lens]
-    total = GAP0 + sum(frames) + tframe.frame_num_samples(cfg, max_len)
+    total = GAP0 + sum(frames) + family.frame_samples(cfg, max_len)
     total = -(-total // chunk) * chunk
     cap = torch.zeros(batch, total, dtype=torch.bfloat16, device=dev)
+    transmit = family.transmit_fn(cfg, dev)
     sent, pos = [], GAP0
     for n, t in zip(lens, frames):
         pay = torch.randint(0, 256, (batch, n), generator=gen, device=dev, dtype=torch.uint8)
-        cap[:, pos : pos + t] = transmit(cfg, pay, device=dev).to(torch.bfloat16)
+        cap[:, pos : pos + t] = transmit(pay).to(torch.bfloat16)
         sent.append(pay)
         pos += t
     return cap, sent
@@ -101,15 +104,17 @@ def report(label: str, fn) -> None:
 
 
 def profile_lock(cfg, model: str, gen, dev) -> None:
-    aligned_b = ALIGNED_B if cfg.fec == "none" else STREAM_B
-    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    is_ofdm = family.is_ofdm(cfg)
+    aligned_b = ALIGNED_B if cfg.fec == "none" and not is_ofdm else STREAM_B
+    t_frame = family.frame_samples(cfg, PAYLOAD)
     chunk = t_frame // 128 * 128
     total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
     b = STREAM_B
+    transmit = family.transmit_fn(cfg, dev)
     cap = torch.zeros(b, total, dtype=torch.bfloat16, device=dev)
     for i in range(N_FRAMES):
         pay = torch.randint(0, 256, (b, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
-        cap[:, GAP0 + i * t_frame : GAP0 + (i + 1) * t_frame] = transmit(cfg, pay, device=dev).to(torch.bfloat16)
+        cap[:, GAP0 + i * t_frame : GAP0 + (i + 1) * t_frame] = transmit(pay).to(torch.bfloat16)
 
     def run(carry):
         res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16,
@@ -122,8 +127,9 @@ def profile_lock(cfg, model: str, gen, dev) -> None:
     del cap
     torch.cuda.empty_cache()
     pay = torch.randint(0, 256, (aligned_b, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
-    x_tm = transmit(cfg, pay, device=dev).to(torch.bfloat16).T.contiguous()
-    report(f"aligned B {aligned_b}", lambda: int(tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=dev).ok.sum()))
+    x_tm = transmit(pay).to(torch.bfloat16).T.contiguous()
+    demod_tm = ofdm.demodulate_frame_tm if is_ofdm else tframe.demodulate_frame_tm
+    report(f"aligned B {aligned_b}", lambda: int(demod_tm(cfg, x_tm, PAYLOAD, device=dev).ok.sum()))
 
 
 def profile_dynamic(cfg, model: str, lock: bool, gen, dev) -> None:

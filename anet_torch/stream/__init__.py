@@ -36,9 +36,18 @@ frame lock (the probe kernel; the next start comes from the declared
 length), and ``max_frames_per_chunk > 1``, which needs the quality at every
 lag and so runs correlate_fused.
 
-Not ported yet (they raise NotImplementedError): ``track=True`` (the
-symbol-clock tracker), the capture-resident scan (``resident=True``) and
-int8 sliding buffers.
+OFDM configs (``ofdm-fast`` and the coded presets) take the same front
+halves (the search kernel, and in lock mode the probe kernel
+probe_at_fused), then gather the aligned window (sync.aligned_gather) and
+run the OFDM receiver on it, whose equalizer is the kernel
+ofdm_track_decide_fused (and, coded, viterbi_trellis). Their clock drift is
+tracked within each frame by the receiver, so ``track=True`` raises
+ValueError for them, as in the reference; variable-length OFDM streams are
+uncoded only.
+
+Not ported yet (they raise NotImplementedError): ``track=True`` for MFSK
+(the symbol-clock tracker), the capture-resident scan (``resident=True``)
+and int8 sliding buffers.
 """
 
 from __future__ import annotations
@@ -122,9 +131,13 @@ class StreamCheckpoint(NamedTuple):
 
 
 def _require_supported(config, track: bool) -> None:
-    from anet_torch.dsp.family import _require_mfsk
+    from anet_torch.dsp.family import is_ofdm
 
-    _require_mfsk(config)
+    if is_ofdm(config) and track:
+        raise ValueError(
+            "track=True is the MFSK time-domain tracker; OFDM clock drift is "
+            "handled per frame by OfdmConfig.clock_tracking (default on)"
+        )
     if track:
         raise NotImplementedError(
             "track=True needs the symbol-clock tracker (anet.dsp.clock), "
@@ -141,15 +154,15 @@ def _require_float_buffer(dtype) -> None:
 
 
 def _buffer_len(config, chunk_size: int, payload_len: int) -> int:
-    """Physical carry-buffer length: frame + chunk plus
-    the JAX package's zero tail pad for its span DMAs (demod_at_buffer_pad),
-    so both packages build the same geometry and checkpoints move freely."""
-    from anet_torch.dsp.family import frame_samples
+    """Physical carry-buffer length: frame + chunk plus, for MFSK, the JAX
+    package's zero tail pad for its span DMAs (demod_at_buffer_pad), so both
+    packages build the same geometry and checkpoints move freely."""
+    from anet_torch.dsp.family import frame_samples, is_ofdm
     from anet_torch.dsp.frame import data_symbols_for_payload
     from anet_torch.kernels import demod_at_buffer_pad
 
     live = frame_samples(config, payload_len) + chunk_size
-    if 128 % config.samples_per_symbol == 0:
+    if not is_ofdm(config) and 128 % config.samples_per_symbol == 0:
         n_symbols = data_symbols_for_payload(config, payload_len)
         live += demod_at_buffer_pad(config, n_symbols, chunk_size, live)
     return live
@@ -345,11 +358,13 @@ def _merged_lock_supported(config, carry: StreamCarry) -> bool:
     """The merged probe + demod kernel serves the uncoded locked step when
     the buffer is on the card and the kernels take the geometry. (A coded
     frame's soft decisions need every tone's energy, which the merged
-    kernel does not write.)"""
+    kernel does not write; OFDM has no merged kernel.)"""
+    from anet_torch.dsp.family import is_ofdm
     from anet_torch.kernels import _KERNEL_SPS
 
     return (
         carry.buffer.is_cuda
+        and not is_ofdm(config)
         and config.fec == "none"
         and config.num_tones <= 16
         and config.samples_per_symbol in _KERNEL_SPS
@@ -467,6 +482,7 @@ def stream_step(
     differ by the +-2-sample drift servo. A detection counts only if the
     demodulated header validates (magic word + header CRC)."""
     from anet_torch.dsp.demod import decide_symbols
+    from anet_torch.dsp.family import is_ofdm
     from anet_torch.dsp.frame import (
         data_symbols_for_payload,
         frame_result_from_decisions,
@@ -476,7 +492,9 @@ def stream_step(
 
     _require_supported(config, track)
     chunk_size = chunk.shape[-1]
-    t_frame, template, _ = family_geometry(config, payload_len, compute_dtype, carry.buffer.device)
+    t_frame, template, demod = family_geometry(
+        config, payload_len, compute_dtype, carry.buffer.device
+    )
     _check_carry_geometry(config, carry, chunk_size, payload_len)
     if lock and _merged_lock_supported(config, carry):
         return _locked_step_merged(
@@ -491,18 +509,23 @@ def stream_step(
         buffer, samples_seen, start_idx, start_abs, best_q, candidate = _find_candidate(
             carry, chunk, t_frame, template, 0, detect_threshold, compute_dtype
         )
-    n_symbols = data_symbols_for_payload(config, payload_len)
-    if config.fec == "conv":
-        # soft FEC decisions need every tone's energy, not just the winner:
-        # energies -> LLRs -> deinterleave -> Viterbi, as the aligned coded
-        # receiver; only the gather of the aligned frame disappears
-        energies = demod_at_energies_fused(config, buffer.to(compute_dtype), start_idx, n_symbols)
-        frame = frame_result_from_decisions(
-            config, decide_symbols(config, energies), energies, payload_len
-        )
+    if is_ofdm(config):
+        # the aligned window, then the OFDM receiver (its equalizer kernel)
+        frame = demod(_batched_dynamic_slice(buffer, start_idx, t_frame, compute_dtype))
     else:
-        tone, best, total = demod_at_fused(config, buffer.to(compute_dtype), start_idx, n_symbols)
-        frame = frame_result_from_tone_decisions(config, tone, best, total, payload_len)
+        n_symbols = data_symbols_for_payload(config, payload_len)
+        if config.fec == "conv":
+            # soft FEC decisions need every tone's energy, not just the
+            # winner: energies -> LLRs -> deinterleave -> Viterbi, as the
+            # aligned coded receiver; only the gather of the aligned frame
+            # disappears
+            energies = demod_at_energies_fused(config, buffer.to(compute_dtype), start_idx, n_symbols)
+            frame = frame_result_from_decisions(
+                config, decide_symbols(config, energies), energies, payload_len
+            )
+        else:
+            tone, best, total = demod_at_fused(config, buffer.to(compute_dtype), start_idx, n_symbols)
+            frame = frame_result_from_tone_decisions(config, tone, best, total, payload_len)
     detected = candidate & frame.magic_ok & frame.header_crc_ok
     frame = frame._replace(ok=frame.ok & detected)
     new_carry = _next_carry(
@@ -654,10 +677,12 @@ def stream_step_dynamic(
     prediction with the probe (+-2-sample servo); the every-lag search runs
     only when some stream needs acquiring, after one host read per chunk.
 
-    Every candidate is demodulated by the align+demod kernels whatever the
-    buffer's float dtype (demod_at_fused for uncoded,
-    demod_at_energies_fused for coded configs), as in stream_step."""
-    from anet_torch.dsp.family import frame_samples
+    Every MFSK candidate is demodulated by the align+demod kernels whatever
+    the buffer's float dtype (demod_at_fused for uncoded,
+    demod_at_energies_fused for coded configs), as in stream_step; an OFDM
+    candidate's max-length window is gathered and demodulated by the OFDM
+    receiver (uncoded only)."""
+    from anet_torch.dsp.family import aligned_demod_dynamic_fn, frame_samples, is_ofdm
     from anet_torch.dsp.frame import (
         data_symbols_for_payload,
         dynamic_frame_result_from_energies,
@@ -696,11 +721,14 @@ def stream_step_dynamic(
         buffer, samples_seen, w0, buffer_abs0, quality = _slide_and_quality(
             carry, chunk, t_max, template, 0, compute_dtype
         )
-    n_sym_max = data_symbols_for_payload(config, max_payload_len)
     buf_c = buffer.to(compute_dtype)
 
     def demod_at(start_idx):
         """Max-window demod + dynamic parse at a buffer index."""
+        if is_ofdm(config):
+            window = _batched_dynamic_slice(buffer, start_idx, t_max, compute_dtype)
+            return aligned_demod_dynamic_fn(config, max_payload_len, device=buffer.device)(window)
+        n_sym_max = data_symbols_for_payload(config, max_payload_len)
         if config.fec == "conv":
             energies = demod_at_energies_fused(config, buf_c, start_idx, n_sym_max)
             return dynamic_frame_result_from_energies(config, energies, max_payload_len)

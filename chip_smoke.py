@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-1. build the ten CUDA kernels from anet_torch/kernels/csrc (nvcc, sm_90a);
+1. build the eleven CUDA kernels from anet_torch/kernels/csrc (nvcc, sm_90a);
 2. hold each kernel against its plain PyTorch version at its main path's
    shapes on a 256-stream subset, then time kernel and plain version at the
    full batch: the uncoded paths' four kernels on mfsk16-fast (payload 256,
@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    mfsk16-fast (correlate_fused at a chunk of two shortest frames, 23,552
    lags; decide_tones_tm at a frame plus 8 symbols; gather_rows_fused at
    one frame out of the 76,288-sample buffer), these also beside the one
-   PyTorch call that computes the same function where there is one;
+   PyTorch call that computes the same function where there is one; and
+   the OFDM equalizer ofdm_track_decide_fused on 256 drifted frames
+   (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
+   and untracked, timed on ofdm-fast at B = 8,192;
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -37,7 +40,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    captures with the frame at a random start below 2,000 through
    receive_frame and receive_frame_dynamic, then the same composition with
    aligned_gather(mode="roll") (gather_rows_fused), bit-equal frames;
-7. the launch count of every kernel during phases 3-6, read per path (each
+7. the OFDM family: "aligned-ofdm" (family.aligned_demod_fn on 8,192
+   ofdm-fast frames, float32: 64 distinct streams, each resampled on the
+   card to its own clock offset in +-150 ppm, at 16 dB, tiled),
+   "aligned-ofdm-tm" (the same frames time-major, ofdm.demodulate_frame_tm),
+   "aligned-ofdm-max" (2,048 ofdm-max frames, 64-QAM coded, at 26 dB:
+   ofdm_track_decide_fused and viterbi_trellis), "stream-ofdm" (the locked
+   stream of phase 4 on ofdm-fast, chunk 4,736, cold and warm: probe_at_fused,
+   sync_search_fused, ofdm_track_decide_fused), "oneshot-ofdm"
+   (ofdm.receive_frame on 2,048 captures, frame start random below 2,000,
+   20 dB) and "stream-dynamic-ofdm" (B = 2,048, payloads 64, 256, 128 in
+   frame lock, cold and warm);
+8. the launch count of every kernel during phases 3-7, read per path (each
    path's counts start at 0 just before it): every kernel of a path must
    have launched there.
 The line before the last is a JSON object with each kernel's numbers, and
@@ -47,6 +61,7 @@ the last line the JSON verdict with the device's name.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -56,7 +71,7 @@ import numpy as np
 import torch
 
 from anet_torch import kernels
-from anet_torch.dsp import fec
+from anet_torch.dsp import family, fec, ofdm
 from anet_torch.dsp import frame as tframe
 from anet_torch.dsp.demod import bit_llrs
 from anet_torch.dsp import sync as tsync
@@ -76,6 +91,9 @@ from anet_torch.stream import _buffer_len, receive_stream, receive_stream_dynami
 MODEL = "mfsk16-fast"
 CODED_MODEL = "mfsk4-coded"
 DYNAMIC_CODED_MODEL = "mfsk4-coded-stream"  # fec_interleave == 1
+OFDM_MODEL = "ofdm-fast"
+OFDM_MAX_MODEL = "ofdm-max"  # 64-QAM, coded
+OFDM_QAM_MODELS = ("ofdm-fast", "ofdm-turbo", "ofdm-max")  # 2, 4 and 6 bits a carrier
 PAYLOAD = 256  # also the variable-length paths' max_payload_len
 SHORT_PAYLOAD = 64  # the shortest frame of the variable-length paths
 ALIGNED_B = 16384
@@ -85,6 +103,11 @@ COMPARE_B = 256
 N_FRAMES = 6  # after one gap of GAP0 samples
 N_LAGS = 5
 RTOL = 1e-3  # bf16 inputs, float32 sums in another order than the plain version
+OFDM_DISTINCT = 64  # distinct drifted streams of an aligned OFDM batch, tiled
+OFDM_PPM = 150.0  # clock offsets drawn in +-OFDM_PPM
+OFDM_SNR_DB = {"ofdm-fast": 16.0, "ofdm-turbo": 24.0, "ofdm-max": 26.0}
+OFDM_RTOL = 1e-4  # float32 throughout: LLRs (of their scale) and evm2
+GATE_EPS = 1e-4  # a gate may part from the plain version's only this close to a tie
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_S = 67e12  # H100 SXM float32 peak outside the tensor cores
@@ -102,6 +125,7 @@ REPLACES = {
     "correlate_fused": ("anet_torch/kernels/csrc/correlate.cu", "anet/kernels/__init__.py:891"),
     "decide_tones_tm": ("anet_torch/kernels/csrc/decide_tones_tm.cu", "anet/kernels/__init__.py:269"),
     "gather_rows_fused": ("anet_torch/kernels/csrc/gather_rows.cu", "anet/kernels/__init__.py:1415"),
+    "ofdm_track_decide_fused": ("anet_torch/kernels/csrc/ofdm_track.cu", "anet/kernels/__init__.py:2648"),
 }
 
 
@@ -536,16 +560,18 @@ def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iter
 
 
 def phase_stream(cfg, gen, label: str = "stream") -> None:
-    """Phase 4: the locked streaming receiver at B = 8,192, cold and warm."""
-    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    """Phase 4: the locked streaming receiver at B = 8,192, cold and warm
+    (either family)."""
+    t_frame = family.frame_samples(cfg, PAYLOAD)
     chunk = t_frame // 128 * 128
     total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
     cap = torch.zeros(STREAM_B, total, dtype=torch.bfloat16, device=DEV)
+    tx = family.transmit_fn(cfg, DEV)
     sent = []
     for i in range(N_FRAMES):
         pay = torch.randint(0, 256, (STREAM_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
         pos = GAP0 + i * t_frame
-        cap[:, pos : pos + t_frame] = transmit(cfg, pay, device=DEV).to(torch.bfloat16)
+        cap[:, pos : pos + t_frame] = tx(pay).to(torch.bfloat16)
         sent.append(pay)
     sent = torch.stack(sent)  # [frames, B, payload]
     log(f"{label}: B {STREAM_B}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), chunk {chunk}")
@@ -584,19 +610,20 @@ def frames_in_time_order(steps, n_frames: int):
     return key.gather(0, order), plen, payload
 
 
-def phase_stream_dynamic(cfg, gen, label: str, lens, lock: bool) -> None:
-    """Phase 5: a variable-length stream at B = 8,192: always-search with two
-    candidates a chunk (chunk = two shortest frames), or frame lock cold and
-    warm (chunk = one shortest frame, rounded down to 128)."""
+def phase_stream_dynamic(cfg, gen, label: str, lens, lock: bool, batch: int = STREAM_B) -> None:
+    """Phase 5: a variable-length stream at B = 8,192 (or ``batch``):
+    always-search with two candidates a chunk (chunk = two shortest frames),
+    or frame lock cold and warm (chunk = one shortest frame, rounded down to
+    128)."""
     t_short = int(tframe.dynamic_frame_samples(cfg, min(lens)))
     chunk = (t_short if lock else 2 * t_short) // 128 * 128
-    cap, sent = back_to_back_capture(cfg, lens, PAYLOAD, chunk, STREAM_B, gen, DEV)
+    cap, sent = back_to_back_capture(cfg, lens, PAYLOAD, chunk, batch, gen, DEV)
     total = cap.shape[1]
     frame_len = [int(tframe.dynamic_frame_samples(cfg, n)) for n in lens]
     starts = GAP0 + np.concatenate([[0], np.cumsum(frame_len[:-1])])
-    log(f"{label}: B {STREAM_B}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), "
+    log(f"{label}: B {batch}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), "
         f"{total // chunk} chunks of {chunk}, payloads {tuple(lens)}")
-    runs = (("cold", None), ("warm-lock", warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV))) if lock \
+    runs = (("cold", None), ("warm-lock", warm_lock_carry(cfg, chunk, PAYLOAD, batch, DEV))) if lock \
         else (("search", None),)
     for run, carry in runs:
         torch.cuda.synchronize()
@@ -609,15 +636,15 @@ def phase_stream_dynamic(cfg, gen, label: str, lens, lock: bool) -> None:
         dt = time.perf_counter() - t0
         det = res.steps.detected
         got_start, got_len, got_pay = frames_in_time_order(res.steps, len(lens))
-        right = bool(det.reshape(-1, STREAM_B).sum(0).eq(len(lens)).all())
+        right = bool(det.reshape(-1, batch).sum(0).eq(len(lens)).all())
         for i, (n, pay) in enumerate(zip(lens, sent)):
             right = right and bool((got_len[i] == n).all()) and torch.equal(got_pay[i, :, :n], pay)
             right = right and not bool(got_pay[i, :, n:].any())
             # a locked start may sit up to 2 samples off (the drift servo)
             right = right and bool(((got_start[i] - int(starts[i])).abs() <= (2 if lock else 0)).all())
-        log(f"{label} {run}: frames_ok {frames_ok} of {STREAM_B * len(lens)}, payloads and lengths right "
-            f"{right}, {STREAM_B * total / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
-        if frames_ok != STREAM_B * len(lens) or not right:
+        log(f"{label} {run}: frames_ok {frames_ok} of {batch * len(lens)}, payloads and lengths right "
+            f"{right}, {batch * total / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+        if frames_ok != batch * len(lens) or not right:
             raise AssertionError(f"{label} {run}: frames_ok {frames_ok}, payloads and lengths right {right}")
         if not lock and not bool((det.sum(1) == 2).any()):
             raise AssertionError(f"{label}: no chunk completed two frames")
@@ -705,6 +732,186 @@ def phase_oneshot(cfg, gen) -> None:
         raise AssertionError(f"oneshot receive_frame_dynamic: ok {n_ok} of {b}, right {right}")
 
 
+# --- the OFDM family -----------------------------------------------------------
+
+OFDM_OPS_POINT = 110  # float32 operations a point of ofdm_track_decide_fused (QPSK): two fit
+# passes (~22 each), the gate pass (~37), the LLR and EVM pass (~25); sin and cos one each
+OFDM_DYNAMIC_LENS = (64, 256, 128)
+
+
+def resample_ppm(w: torch.Tensor, ppm: torch.Tensor) -> torch.Tensor:
+    """Each row of w [B, T] as a receiver whose clock is ppm[b] parts per
+    million off samples it: the row's DFT interpolant (band-limited, exact)
+    evaluated at t (1 + ppm 1e-6), zero past the row's end; float64 on the
+    card, one row at a time."""
+    n = w.shape[-1]
+    coef = torch.fft.rfft(w.double(), dim=-1)
+    coef[..., 1:-1] *= 2
+    k = torch.arange(coef.shape[-1], device=w.device, dtype=torch.float64)
+    out = torch.empty_like(w)
+    for b in range(w.shape[0]):
+        t = torch.arange(n, device=w.device, dtype=torch.float64) * (1 + float(ppm[b]) * 1e-6)
+        ang = (2 * np.pi / n) * torch.outer(t, k)
+        row = (torch.polar(torch.ones_like(ang), ang) @ coef[b]).real / n
+        out[b] = torch.where(t < n, row, 0.0).float()
+    return out
+
+
+def drifted_frames(cfg, gen, ppm: torch.Tensor):
+    """(payloads [n, PAYLOAD], frames float32 [n, T]): one frame a clock
+    offset of ``ppm`` [n], with white noise at the constellation's SNR
+    (OFDM_SNR_DB, against each frame's own power)."""
+    n = ppm.shape[0]
+    pay = torch.randint(0, 256, (n, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    x = resample_ppm(family.transmit_fn(cfg, DEV)(pay), ppm)
+    snr = OFDM_SNR_DB[{2: "ofdm-fast", 4: "ofdm-turbo", 6: "ofdm-max"}[cfg.bits_per_carrier]]
+    sigma = ((x * x).mean(-1, keepdim=True) * 10 ** (-snr / 10)).sqrt()
+    return pay, x + sigma * torch.randn(x.shape, generator=gen, device=DEV)
+
+
+def ofdm_equalizer_inputs(cfg, x: torch.Tensor):
+    """(z_eq, h_pow, slope0) of the OFDM receiver's front on aligned frames."""
+    s_data = cfg.data_symbols_for_payload(PAYLOAD)
+    carriers = ofdm._extract_carriers(cfg, x[:, cfg.preamble_samples :], 1 + s_data)
+    z_eq, h_pow = ofdm._equalize(cfg, carriers)
+    return z_eq, h_pow, ofdm.preamble_phase_slope(cfg, x)
+
+
+def compare_ofdm(label: str, cfg, got, want, drifted: torch.Tensor) -> float:
+    """Hold the kernel's (llrs, evm2, coherences) against the plain
+    version's. The identity gate compares two coherences that a clean-clock
+    frame ties in the last digits, so a stream's LLRs may part (a small
+    rotation) only where the plain version's two coherences lie within
+    GATE_EPS, never on a drifted frame and never untracked. Elsewhere: LLRs
+    within OFDM_RTOL of their scale, their signs (the decisions) equal
+    wherever the plain LLR lies outside that band, evm2 within OFDM_RTOL;
+    the coherences everywhere. Returns the max abs error of LLRs and evm2."""
+    llrs, ref = got[0], want[0]
+    atol = OFDM_RTOL * float(ref.abs().max())
+    diff = (llrs - ref).abs()
+    close = (diff <= OFDM_RTOL * ref.abs() + atol).all(-1)
+    parted = ~close
+    tie = (want[2][:, 0] - want[2][:, 1]).abs() < GATE_EPS
+    if bool((parted & (drifted | ~tie)).any()) or (not cfg.clock_tracking and bool(parted.any())):
+        raise AssertionError(f"{label}: LLRs of {int(parted.sum())} streams part from the plain version's "
+                             f"({int((parted & drifted).sum())} drifted)")
+    firm = ref[close].abs() > atol
+    flips = int(((llrs[close] > 0) != (ref[close] > 0))[firm].sum())
+    evm_err = (got[1] - want[1]).abs()[close]
+    if flips or bool((evm_err > OFDM_RTOL * want[1][close].abs()).any()):
+        raise AssertionError(f"{label}: {flips} decisions differ, or evm2 beyond rtol {OFDM_RTOL}")
+    if bool(((got[2] - want[2]).abs() > OFDM_RTOL * want[2].abs() + 1e-6).any()):
+        raise AssertionError(f"{label}: the gate's coherences differ beyond rtol {OFDM_RTOL}")
+    err = max(float(diff[close].max()), float(evm_err.max()))
+    log(f"  {label}: max abs {err:.3e}; streams parted at a gate tie {int(parted.sum())}, decisions differing 0")
+    return err
+
+
+def phase_kernels_ofdm(gen) -> dict:
+    """Phase 2 for the OFDM equalizer: ofdm_track_decide_fused against its
+    plain version on 256 frames of each constellation (224 drifted by
+    100-150 ppm either way, 32 on a clean clock), tracked and untracked;
+    then both timed on ofdm-fast at B = 8,192 (the frames tiled)."""
+    worst, timed = 0.0, None
+    n_clean = 32
+    for model in OFDM_QAM_MODELS:
+        base = get_model(model).config
+        n_drift = COMPARE_B - n_clean
+        sign = torch.where(torch.rand(n_drift, generator=gen, device=DEV) < 0.5, -1.0, 1.0).double()
+        mag = 100.0 + 50.0 * torch.rand(n_drift, generator=gen, device=DEV, dtype=torch.float64)
+        ppm = torch.cat([sign * mag, torch.zeros(n_clean, device=DEV, dtype=torch.float64)])
+        _, x = drifted_frames(base, gen, ppm)
+        for cfg in (base, dataclasses.replace(base, clock_tracking=False)):
+            z_eq, h_pow, slope0 = ofdm_equalizer_inputs(cfg, x)
+            got = kernels.ofdm_track_decide_fused(cfg, z_eq, h_pow, slope0, with_coherence=True)
+            want = kernels.ofdm_track_decide_fused_ref(cfg, z_eq, h_pow, slope0, with_coherence=True)
+            label = f"ofdm_track_decide_fused ({model}, {'tracked' if cfg.clock_tracking else 'untracked'})"
+            worst = max(worst, compare_ofdm(label, cfg, got, want, ppm.abs() >= 100))
+            if model == OFDM_MODEL and cfg.clock_tracking:
+                timed = (cfg, z_eq, h_pow, slope0)
+    cfg, z_eq, h_pow, slope0 = timed
+    reps = STREAM_B // COMPARE_B
+    z_full, h_full, s_full = z_eq.repeat(reps, 1, 1), h_pow.repeat(reps, 1), slope0.repeat(reps)
+    results = {"ofdm_track_decide_fused": {"max_abs_err": worst}}
+    calls = {
+        "ofdm_track_decide_fused": (
+            lambda f: f(cfg, z_full, h_full, s_full),
+            kernels.ofdm_track_decide_fused, kernels.ofdm_track_decide_fused_ref,
+        ),
+    }
+    b, (n_s, n_c) = STREAM_B, z_eq.shape[1:]
+    in_bytes = b * (n_s * n_c * 8 + n_c * 4 + 4)
+    out_bytes = b * (n_s * n_c * cfg.bits_per_carrier * 4 + 4)
+    work = {"ofdm_track_decide_fused": (in_bytes + out_bytes, b * n_s * n_c * OFDM_OPS_POINT, F32_FLOPS_S)}
+    log(f"ofdm geometry: {n_s} data symbols x {n_c} carriers, B {b}")
+    time_and_bound(results, calls, work)
+    return results
+
+
+@functools.lru_cache(maxsize=1)
+def aligned_ofdm_frames(cfg, batch: int):
+    """(payloads, float32 frames [batch, T]): OFDM_DISTINCT distinct frames,
+    each at its own clock offset in +-OFDM_PPM, tiled to ``batch``; made once
+    from their own seed, so the batch- and time-major paths get the same."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    ppm = (2 * torch.rand(OFDM_DISTINCT, generator=gen, device=DEV, dtype=torch.float64) - 1) * OFDM_PPM
+    pay, x = drifted_frames(cfg, gen, ppm)
+    reps = batch // OFDM_DISTINCT
+    return pay.repeat(reps, 1), x.repeat(reps, 1)
+
+
+def phase_aligned_ofdm(cfg, label: str, batch: int, time_major: bool = False, iters: int = 5) -> None:
+    """Phase 7: the aligned OFDM receiver at full batch, batch-major through
+    family.aligned_demod_fn or time-major through ofdm.demodulate_frame_tm."""
+    pay, x = aligned_ofdm_frames(cfg, batch)
+    if time_major:
+        x = x.T.contiguous()  # one untimed ingest transpose
+
+        def demod():
+            return ofdm.demodulate_frame_tm(cfg, x, PAYLOAD, device=DEV)
+    else:
+        aligned_fn = family.aligned_demod_fn(cfg, PAYLOAD, device=DEV)
+
+        def demod():
+            return aligned_fn(x)
+
+    res = demod()
+    ok_frac = float(res.ok.float().mean())
+    if ok_frac != 1.0 or not torch.equal(res.payload, pay):
+        raise AssertionError(f"{label}: frames_ok_fraction {ok_frac}, payloads equal {torch.equal(res.payload, pay)}")
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        n_ok = demod().ok.sum()
+    int(n_ok)
+    dt = time.perf_counter() - t0
+    t_frame = cfg.frame_num_samples(PAYLOAD)
+    log(f"{label}: B {batch}, frames_ok_fraction {ok_frac}, "
+        f"{batch * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
+
+
+def phase_oneshot_ofdm(cfg, gen) -> None:
+    """Phase 7: ofdm.receive_frame on 2,048 bf16 captures of 8,192 samples,
+    the frame at a random start below 2,000, noise 20 dB under the signal."""
+    b, n, t = ONESHOT_B, 8192, cfg.frame_num_samples(PAYLOAD)
+    starts = torch.randint(0, 2000, (b,), generator=gen, device=DEV)
+    pay = torch.randint(0, 256, (b, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    cap = 0.0125 * torch.randn(b, n, generator=gen, device=DEV)  # the signal's rms is amplitude / 4
+    cap.scatter_add_(1, starts[:, None] + torch.arange(t, device=DEV), ofdm.transmit(cfg, pay, device=DEV))
+    cap = cap.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ofdm.receive_frame(cfg, cap, PAYLOAD, device=DEV)
+    n_ok = int(res.frame.ok.sum())
+    dt = time.perf_counter() - t0
+    right = torch.equal(res.offset, starts.int()) and torch.equal(res.frame.payload, pay)
+    log(f"oneshot-ofdm receive_frame: B {b}, capture {n}, ok {n_ok}, offsets and payloads right {right}, "
+        f"{b * n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+    if n_ok != b or not right:
+        raise AssertionError(f"oneshot-ofdm: ok {n_ok} of {b}, offsets and payloads right {right}")
+
+
 # Each main path, driven with the launch counts set to 0 just before it and
 # read just after: its model, the phase that drives it and the kernels it
 # must launch.
@@ -738,6 +945,32 @@ PATHS = {
     ),
     "aligned-window": (MODEL, phase_aligned_window, ("decide_tones_tm",)),
     "oneshot": (MODEL, phase_oneshot, ("gather_rows_fused",)),
+    "aligned-ofdm": (
+        OFDM_MODEL,
+        lambda cfg, gen: phase_aligned_ofdm(cfg, "aligned-ofdm", STREAM_B),
+        ("ofdm_track_decide_fused",),
+    ),
+    "aligned-ofdm-tm": (
+        OFDM_MODEL,
+        lambda cfg, gen: phase_aligned_ofdm(cfg, "aligned-ofdm-tm", STREAM_B, time_major=True),
+        ("ofdm_track_decide_fused",),
+    ),
+    "aligned-ofdm-max": (
+        OFDM_MAX_MODEL,
+        lambda cfg, gen: phase_aligned_ofdm(cfg, "aligned-ofdm-max", ONESHOT_B, iters=3),
+        ("ofdm_track_decide_fused", "viterbi_trellis"),
+    ),
+    "stream-ofdm": (
+        OFDM_MODEL,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-ofdm"),
+        ("probe_at_fused", "sync_search_fused", "ofdm_track_decide_fused"),
+    ),
+    "oneshot-ofdm": (OFDM_MODEL, phase_oneshot_ofdm, ("ofdm_track_decide_fused",)),
+    "stream-dynamic-ofdm": (
+        OFDM_MODEL,
+        lambda cfg, gen: phase_stream_dynamic(cfg, gen, "stream-dynamic-ofdm", OFDM_DYNAMIC_LENS, True, ONESHOT_B),
+        ("probe_at_fused", "sync_search_fused", "ofdm_track_decide_fused"),
+    ),
 }
 
 
@@ -765,6 +998,8 @@ def main() -> int:
     results.update(phase_kernels_coded(get_model(CODED_MODEL).config, gen))
     torch.cuda.empty_cache()
     results.update(phase_kernels_dynamic(get_model(MODEL).config, gen))
+    torch.cuda.empty_cache()
+    results.update(phase_kernels_ofdm(gen))
     counts = dict.fromkeys(REPLACES, 0)
     for path, (model, phase, path_kernels) in PATHS.items():
         torch.cuda.empty_cache()

@@ -55,7 +55,7 @@ def test_presets_and_json_roundtrip(name):
     assert ModemConfig.from_json(jcfg.to_json()) == cfg
     assert cfg.to_json() == jcfg.to_json()
     assert cfg.coded_bits_for_data_bits(1000) == jcfg.coded_bits_for_data_bits(1000)
-    assert [m.name for m in list_models()] == MFSK
+    assert [m.name for m in list_models()] == [m.name for m in jlist_models()]  # OFDM presets too
 
 
 @pytest.mark.parametrize("bps", [1, 2, 3, 4, 5])

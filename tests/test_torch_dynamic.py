@@ -3,7 +3,8 @@ package on the CPU: receive_stream_dynamic / stream_step_dynamic with one
 candidate a chunk, with two (the quality-order extraction over
 correlate_fused's every-lag output) and in frame lock, uncoded
 (mfsk16-fast) and coded (mfsk4-coded-stream: header probe + masked
-trellis). The same numpy captures go through both. Payloads, declared
+trellis), and on ofdm-fast (the gathered max-length window through the
+OFDM receiver). The same numpy captures go through both. Payloads, declared
 lengths, verdicts, detections, frame starts of every slot, counters,
 ``locked`` and ``next_start`` bit-equal; quality, confidence, snr_db and
 drift rtol 1e-4 (float32 sums in another order). The card's branch runs
@@ -23,6 +24,7 @@ from anet.dsp import family as jfamily
 from anet.models import get_model as jget_model
 
 import anet_torch.stream as tstream
+from anet_torch.dsp import family as tfamily
 from anet_torch.dsp import frame as tframe
 from anet_torch.dsp.pipeline import transmit
 from anet_torch.models import get_model
@@ -31,6 +33,8 @@ MAX = 48
 MODELS = {
     name: (get_model(name).config, jget_model(name).config) for name in ("mfsk16-fast", "mfsk4-coded-stream")
 }
+OFDM = "ofdm-fast"
+ALL_MODELS = {**MODELS, OFDM: (get_model(OFDM).config, jget_model(OFDM).config)}
 FRAME_FIELDS = ("payload_len", "magic_ok", "length_ok", "header_crc_ok", "payload_crc_ok", "ok")
 # the layouts of the full-size smoke run, scaled to a 48-byte maximum
 TWO_A_CHUNK = (8, 8, 48, 24, 8, 8)
@@ -40,16 +44,17 @@ LOCKED = (8, 48, 24, 8, 48, 24)
 def _capture(cfg, rng, lens, chunk, b=2, gap0=1000, noise=0.02, gaps=None):
     """([B, N] f32 capture, payloads per frame): gap0 zeros, the frames back
     to back (or after ``gaps``), a max-length frame of zeros, whole chunks.
-    The waveforms are the port's, which test_torch_frame.py holds equal to
-    the JAX package's."""
-    t_max = tframe.frame_num_samples(cfg, MAX)
+    The waveforms are the port's, which test_torch_frame.py and
+    test_torch_ofdm.py hold equal to the JAX package's."""
+    t_max = tfamily.frame_samples(cfg, MAX)
+    tx = tfamily.transmit_fn(cfg, device="cpu")
     parts, sent = [np.zeros((b, gap0), np.float32)], []
     for i, n in enumerate(lens):
         pay = rng.integers(0, 256, (b, n), dtype=np.uint8)
         sent.append(pay)
         if gaps:
             parts.append(np.zeros((b, gaps[i]), np.float32))
-        parts.append(transmit(cfg, pay, device="cpu").numpy())
+        parts.append(tx(pay).numpy())
     parts.append(np.zeros((b, t_max + 300), np.float32))
     cap = np.concatenate(parts, -1)
     cap = np.concatenate([cap, np.zeros((b, -cap.shape[1] % chunk), np.float32)], -1)
@@ -249,14 +254,14 @@ def test_kernel_route_equals_gather_and_demodulate_pair():
 
 
 @pytest.mark.parametrize("model,mode", [
-    ("mfsk16-fast", "two-a-chunk"), ("mfsk16-fast", "lock"), ("mfsk4-coded-stream", "lock"),
+    ("mfsk16-fast", "two-a-chunk"), ("mfsk16-fast", "lock"), ("mfsk4-coded-stream", "lock"), (OFDM, "lock"),
 ])
 def test_dynamic_checkpoint_crosses_both_ways(tmp_path, model, mode):
     """A dynamic-stream checkpoint written by anet.stream.save_carry
     mid-capture resumes in anet_torch.stream.receive_stream_dynamic with the
     frames of one uninterrupted JAX run, and the port's own checkpoint
     resumes in JAX."""
-    cfg, jcfg = MODELS[model]
+    cfg, jcfg = ALL_MODELS[model]
     rng = np.random.default_rng(21)
     lock = mode == "lock"
     lens = LOCKED if lock else TWO_A_CHUNK
@@ -298,6 +303,24 @@ def test_dynamic_checkpoint_crosses_both_ways(tmp_path, model, mode):
     for f in ("frames_ok", "next_start", "last_frame_end"):
         np.testing.assert_array_equal(np.asarray(getattr(tail.carry, f)), np.asarray(getattr(full.carry, f)), f)
     assert np.asarray(full.carry.frames_ok).tolist() == [len(lens)] * 2
+
+
+@pytest.mark.parametrize("mode", ["search", "lock"])
+def test_ofdm_receive_stream_dynamic_matches_jax(mode):
+    """ofdm-fast frames of three lengths (the reference's
+    test_stream_dynamic_ofdm, here against the JAX package step for step):
+    lengths from the headers, payloads, verdicts and counters equal."""
+    cfg, jcfg = ALL_MODELS[OFDM]
+    rng = np.random.default_rng(9 + len(mode))
+    lens = (8, 48, 24)
+    chunk = _chunk(jcfg, lens)
+    gaps = (0, 700, 1100) if mode == "search" else None
+    cap, sent = _capture(cfg, rng, lens, chunk, gaps=gaps, noise=0.01)
+    kw = dict(lock=mode == "lock")
+    want = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap), chunk, MAX, **kw)
+    got = tstream.receive_stream_dynamic(cfg, cap, chunk, MAX, device="cpu", **kw)
+    _assert_same(got, want)
+    _assert_frames(got, lens, sent)
 
 
 def test_dynamic_stream_refusals():

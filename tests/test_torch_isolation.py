@@ -37,14 +37,25 @@ def test_port_imports_no_jax_and_no_anet():
 
 
 def _entry_points():
-    from anet_torch.dsp import frame, pipeline
+    from anet_torch.dsp import frame, ofdm, pipeline
     from anet_torch.dsp.sync import preamble_waveform
     from anet_torch.models import get_model
     from anet_torch.stream import init_carry, receive_stream, receive_stream_dynamic
 
     cfg = get_model("mfsk16-fast").config
+    ocfg = get_model("ofdm-fast").config
     pay = np.zeros((1, 4), np.uint8)
+    t_ofdm = ocfg.frame_num_samples(4)
     return {
+        "ofdm.transmit": lambda: ofdm.transmit(ocfg, pay),
+        "ofdm.preamble_waveform": lambda: ofdm.preamble_waveform(ocfg),
+        "ofdm.demodulate_frame": lambda: ofdm.demodulate_frame(ocfg, np.zeros((1, t_ofdm), np.float32), 4),
+        "ofdm.demodulate_frame_tm": lambda: ofdm.demodulate_frame_tm(ocfg, np.zeros((t_ofdm, 1), np.float32), 4),
+        "ofdm.demodulate_frame_dynamic": lambda: ofdm.demodulate_frame_dynamic(
+            ocfg, np.zeros((1, t_ofdm), np.float32), 4
+        ),
+        "ofdm.receive_frame": lambda: ofdm.receive_frame(ocfg, np.zeros((1, 8192), np.float32), 4),
+        "ofdm.receive_stream": lambda: receive_stream(ocfg, np.zeros((1, 1024), np.float32), 1024, 4),
         "transmit": lambda: pipeline.transmit(cfg, pay),
         "demodulate_frame_tm": lambda: frame.demodulate_frame_tm(cfg, np.zeros((4096, 1), np.float32), 4),
         "preamble_waveform": lambda: preamble_waveform(cfg),

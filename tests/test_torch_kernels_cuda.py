@@ -344,3 +344,65 @@ def test_cuda_window_and_oneshot_receivers_match_cpu(cuda, dtype):
     assert tk.launch_counts["gather_rows_fused"] == before + 1
     assert torch.equal(rolled, tsync.aligned_gather(cap.to(cuda), starts.to(cuda), w.shape[1]))
     assert tk.launch_counts["gather_rows_fused"] == before + 1  # the default gather launches none
+
+
+def _resample_ppm(x, ppm):
+    """Band-limited resample of a waveform to a receiver clock ``ppm`` parts
+    per million off (the DFT interpolant at t * (1 + ppm 1e-6)), cut or
+    padded to the input's length."""
+    n = len(x)
+    coef = np.fft.rfft(np.asarray(x, np.float64))
+    coef[1:-1] *= 2
+    t = np.arange(n) * (1 + ppm * 1e-6)
+    out = (np.exp(2j * np.pi * np.outer(t, np.arange(len(coef))) / n) @ coef).real / n
+    return np.where(t < n, out, 0.0).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["ofdm-fast", "ofdm-turbo", "ofdm-max"])
+def test_cuda_ofdm_kernel_and_receivers_match_cpu(cuda, model):
+    """ofdm_track_decide_fused on the card against its plain version on
+    drifted frames (+-150 ppm) and clean-clock ones, tracked and untracked:
+    LLRs rtol 1e-4 of their scale wherever the identity gate agrees, gates
+    parting only within 1e-4 of a tie and never on a drifted frame, evm2
+    rtol 1e-4; then the batch- and time-major receivers on the card, which
+    launch it once each, decode the payloads the CPU decodes."""
+    import dataclasses
+
+    from anet_torch.dsp import ofdm
+
+    cfg = get_model(model).config
+    rng = np.random.default_rng(41)
+    pay = rng.integers(0, 256, (6, 128), dtype=np.uint8)
+    ppms = np.array([150, -150, 120, 0, 0, -100])
+    w = ofdm.transmit(cfg, pay, device="cpu").numpy()
+    x = np.stack([_resample_ppm(r, p) for r, p in zip(w, ppms)])
+    x = x + 0.01 * rng.standard_normal(x.shape).astype(np.float32)
+    s_data = cfg.data_symbols_for_payload(128)
+    for c in (cfg, dataclasses.replace(cfg, clock_tracking=False)):
+        xt = torch.from_numpy(x)
+        carriers = ofdm._extract_carriers(c, xt[:, c.preamble_samples :], 1 + s_data)
+        z_eq, h_pow = ofdm._equalize(c, carriers)
+        slope0 = ofdm.preamble_phase_slope(c, xt)
+        before = tk.launch_counts["ofdm_track_decide_fused"]
+        got = tk.ofdm_track_decide_fused(c, z_eq.to(cuda), h_pow.to(cuda), slope0.to(cuda), with_coherence=True)
+        assert tk.launch_counts["ofdm_track_decide_fused"] == before + 1
+        want = tk.ofdm_track_decide_fused_ref(c, z_eq, h_pow, slope0, with_coherence=True)
+        llrs, ref = got[0].cpu().numpy(), want[0].numpy()
+        close = np.isclose(llrs, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max()).all(-1)
+        coh, parted = want[2].numpy(), ~close
+        assert not parted[np.abs(ppms) >= 100].any()
+        if c.clock_tracking:
+            assert (np.abs(coh[parted, 0] - coh[parted, 1]) < 1e-4).all()
+        else:
+            assert close.all()
+        np.testing.assert_allclose(got[1].cpu().numpy()[close], want[1].numpy()[close], rtol=1e-4)
+        np.testing.assert_allclose(got[2].cpu().numpy(), coh, rtol=1e-4, atol=1e-6)
+    before = tk.launch_counts["ofdm_track_decide_fused"]
+    on_card = ofdm.demodulate_frame(cfg, torch.from_numpy(x).to(cuda), 128, device=cuda)
+    tm = ofdm.demodulate_frame_tm(cfg, torch.from_numpy(x).T.contiguous().to(cuda), 128, device=cuda)
+    assert tk.launch_counts["ofdm_track_decide_fused"] == before + 2
+    on_cpu = ofdm.demodulate_frame(cfg, x, 128, device="cpu")
+    assert bool(on_cpu.ok.all()) and bool(on_card.ok.all()) and bool(tm.ok.all())
+    assert np.array_equal(on_card.payload.cpu().numpy(), pay) and np.array_equal(tm.payload.cpu().numpy(), pay)
+    torch.testing.assert_close(on_card.confidence.cpu(), on_cpu.confidence, rtol=1e-4, atol=0)

@@ -5,7 +5,9 @@ driven through the plain versions against JAX's merged step under the
 interpret fixture; and checkpoints crossing between the packages. The same
 for the coded path on mfsk4-coded (soft Viterbi, depth-24 interleaver): its
 card branch is the unmerged lock step (probe_at_fused,
-demod_at_energies_fused, viterbi_trellis)."""
+demod_at_energies_fused, viterbi_trellis). And for the OFDM family on
+ofdm-fast: the same front halves, then the gathered window through the OFDM
+receiver (ofdm_track_decide_fused)."""
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +31,9 @@ CODED = "mfsk4-coded"
 CCFG, JCCFG = get_model(CODED).config, jget_model(CODED).config
 CPAY = 32
 CT_FRAME = jfamily.frame_samples(JCCFG, CPAY)
+OFDM = "ofdm-fast"
+OCFG, JOCFG = get_model(OFDM).config, jget_model(OFDM).config
+OPAY = 224  # a 4,160-sample frame, longer than a chunk: one frame completes a chunk at most
 
 
 def _capture(rng, gaps_per_stream, noise=0.05, jcfg=JCFG, pay=PAY):
@@ -190,9 +195,9 @@ def test_merged_lock_step_matches_jax_kernels(interpret_tpu_kernels, monkeypatch
     )
 
 
-def _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, b):
+def _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, b, noise=0.05):
     rng = np.random.default_rng(11)
-    cap = _capture(rng, _layout("random_gaps", rng, b=b), jcfg=JCFG, pay=PAY)
+    cap = _capture(rng, _layout("random_gaps", rng, b=b), noise=noise, jcfg=JCFG, pay=PAY)
     cut = (cap.shape[1] // CHUNK // 2) * CHUNK
     full = jstream.receive_stream(JCFG, jnp.asarray(cap), CHUNK, PAY, lock=lock)
     first = jstream.receive_stream(JCFG, jnp.asarray(cap[:, :cut]), CHUNK, PAY, lock=lock)
@@ -259,3 +264,82 @@ def test_unported_options_raise():
         tstream.receive_stream(CCFG, cap, CHUNK, PAY, track=True, device="cpu")
     with pytest.raises(NotImplementedError):
         tstream.init_carry(CFG, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu")
+
+
+@pytest.mark.parametrize("lock", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "random_gaps"])
+def test_ofdm_receive_stream_matches_jax(layout, lock):
+    """ofdm-fast through both packages' CPU paths (the reference's
+    test_lock_ofdm_equals_search layout and random gaps): detections,
+    payloads, verdicts, frame starts and counters equal; confidence rtol
+    1e-4."""
+    rng = np.random.default_rng(31 + lock + len(layout))
+    cap = _capture(rng, _layout(layout, rng, b=2, n_frames=3), noise=0.01, jcfg=JOCFG, pay=OPAY)
+    want = jstream.receive_stream(JOCFG, jnp.asarray(cap), CHUNK, OPAY, lock=lock)
+    got = tstream.receive_stream(OCFG, cap, CHUNK, OPAY, lock=lock, device="cpu")
+    _assert_same(got, want)
+    assert int(got.carry.frames_ok.sum()) == 2 * 3
+    det = got.steps.detected.numpy()
+    np.testing.assert_allclose(
+        got.steps.frame.confidence.numpy()[det], np.asarray(want.steps.frame.confidence)[det], rtol=1e-4
+    )
+
+
+def test_ofdm_card_branch_matches_jax_kernels(interpret_tpu_kernels, monkeypatch):
+    """The locked OFDM stream's card branch (probe_at_fused, the search on
+    acquisition, the gather, ofdm_track_decide_fused) through the plain
+    versions on the CPU, against JAX's step with its Pallas kernels in
+    interpret mode; bf16 buffers."""
+    from anet_torch import kernels as tk
+
+    rng = np.random.default_rng(0x0FD)
+    cap = _capture(rng, [[g, 0, 0] for g in (126, 127, 2)], noise=0.01, jcfg=JOCFG, pay=OPAY)
+    calls = {"probe_at_fused": 0, "ofdm_track_decide_fused": 0}
+
+    def counted(name):
+        fn = getattr(tk, name)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        return wrapper
+
+    monkeypatch.setattr(tstream, "_probe_kernel_supported", lambda carry: True)
+    for name in calls:
+        monkeypatch.setattr(tk, name, counted(name))
+    got = tstream.receive_stream(
+        OCFG, torch.from_numpy(cap).to(torch.bfloat16), CHUNK, OPAY, lock=True,
+        compute_dtype=torch.bfloat16, device="cpu",
+    )
+    n_chunks = cap.shape[1] // CHUNK
+    assert calls == {"probe_at_fused": n_chunks, "ofdm_track_decide_fused": n_chunks}
+    interpret_tpu_kernels()
+    want = jstream.receive_stream(
+        JOCFG, jnp.asarray(cap).astype(jnp.bfloat16), CHUNK, OPAY, lock=True,
+        compute_dtype=jnp.bfloat16, resident=False,
+    )
+    _assert_same(got, want)
+    assert int(got.carry.frames_ok.sum()) == 3 * 3
+    np.testing.assert_allclose(
+        got.steps.quality.numpy(), np.asarray(want.steps.quality), rtol=1e-3, atol=1e-6
+    )
+
+
+def test_ofdm_checkpoint_crosses_both_ways(tmp_path):
+    """An OFDM lock-mode carry (no demod tail pad: the same geometry in both
+    packages) written by anet mid-capture resumes in anet_torch, and the
+    other way round."""
+    assert tstream._buffer_len(OCFG, CHUNK, OPAY) == jstream._buffer_len(JOCFG, CHUNK, OPAY)
+    full = _checkpoint_crosses(tmp_path, True, OCFG, JOCFG, OPAY, 2, noise=0.01)
+    assert int(np.asarray(full.carry.frames_ok).sum()) == 2 * 4
+
+
+def test_ofdm_stream_refusals_and_routes():
+    """OFDM never takes the merged MFSK kernel; track=True raises ValueError
+    (the reference's word: OFDM tracks its clock in the receiver)."""
+    carry = tstream.init_carry(OCFG, CHUNK, OPAY, (1,), device="cpu")
+    assert not tstream._merged_lock_supported(OCFG, carry)
+    cap = np.zeros((1, CHUNK), np.float32)
+    with pytest.raises(ValueError, match="clock_tracking"):
+        tstream.receive_stream(OCFG, cap, CHUNK, OPAY, track=True, device="cpu")
