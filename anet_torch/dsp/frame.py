@@ -179,11 +179,16 @@ def demodulate_frame(
     device="cuda",
 ) -> FrameResult:
     """Symbol-aligned batch-major frame waveform [..., T] -> payload +
-    verdicts, through the plain filterbank. ``samples`` must start exactly
-    at the frame start and hold frame_num_samples(config, payload_len)."""
+    verdicts. ``samples`` must start exactly at the frame start and hold
+    frame_num_samples(config, payload_len). The filterbank is the kernel
+    anet_torch.kernels.tone_energies_fused (the reference's
+    ``use_pallas=True``), which reads the data section in place past the
+    preamble; on the CPU its plain version."""
+    from anet_torch.kernels import tone_energies_fused
+
     samples = as_tensor(samples, device)
     data = samples[..., config.preamble_symbols * config.samples_per_symbol :]
-    energies = tone_energies(config, data, compute_dtype=compute_dtype)
+    energies = tone_energies_fused(config, data, compute_dtype=compute_dtype)
     symbols = decide_symbols(config, energies)
     return frame_result_from_decisions(config, symbols, energies, payload_len)
 
@@ -213,6 +218,16 @@ def demodulate_frame_tm(
     decisions: they take the [2M, sps] x [S, sps, B] filterbank product
     (operands in ``compute_dtype``, float32 accumulation and result), keep
     the energies time-major [S, M, B] and transpose them once for the LLRs.
+
+    ``compute_dtype=torch.int8`` is the quantized-ingest path: an int8
+    capture (quantized once at the edge, e.g. round(x * 127 / max|x|)) goes
+    to the int8 instantiation of decide_frame_tm with the x127 integer
+    basis; energies carry a uniform scale, so decisions, verdicts and the
+    confidence and SNR ratios are those of the float path. It takes exactly
+    one frame of an uncoded config with bits_per_symbol in {1, 2, 4} and at
+    most 16 tones, and raises ValueError otherwise, as the reference does
+    (its decisions-only fallback for an oversized window would meet an int8
+    basis truncated to zero, so this raises there too).
     """
     from anet_torch.kernels import decide_frame_tm, decide_tones_tm
 
@@ -221,12 +236,19 @@ def demodulate_frame_tm(
     m = config.num_tones
     pre = config.preamble_symbols * sps
     s = (samples_tm.shape[0] - pre) // sps
-    if (
-        config.fec != "conv"
-        and config.bits_per_symbol in (1, 2, 4)
-        and m <= 16
-        and s == data_symbols_for_payload(config, payload_len)
-    ):
+    exact = s == data_symbols_for_payload(config, payload_len)
+    if compute_dtype == torch.int8:
+        if config.fec == "conv" or config.bits_per_symbol not in (1, 2, 4) or m > 16 or not exact:
+            raise ValueError(
+                "int8 compute is the full-fusion kernel's quantized-ingest path only "
+                "(uncoded, bps in {1,2,4}, <=16 tones, one whole frame)"
+            )
+        if samples_tm.dtype != torch.int8:
+            raise ValueError(
+                f"int8 compute takes an int8 capture, got {samples_tm.dtype}: quantize it "
+                "once at the edge (a cast would truncate the waveform to zero)"
+            )
+    if config.fec != "conv" and config.bits_per_symbol in (1, 2, 4) and m <= 16 and exact:
         words, crc_counts, qual, n_sym = decide_frame_tm(
             config, samples_tm.to(compute_dtype), payload_len, preamble_offset=pre
         )

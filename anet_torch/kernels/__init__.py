@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the receiver's main paths, with their plain
-PyTorch versions (mirrors the eleven ``anet.kernels`` Pallas kernels that the
-aligned, streaming and one-shot receivers run: MFSK uncoded and coded, fixed
-and variable frame length, and the OFDM equalizer).
+PyTorch versions (mirrors all fourteen ``anet.kernels`` Pallas kernels: those
+the aligned, streaming and one-shot receivers run, MFSK uncoded and coded,
+fixed and variable frame length, int8 quantized ingest and the OFDM
+equalizer; the batch-major filterbank of ``frame.demodulate_frame``; and the
+block maxima of the two-phase acquisition search).
 
 | wrapper                 | kernel source               | TPU kernel it replaces        |
 |-------------------------|-----------------------------|-------------------------------|
@@ -16,19 +18,35 @@ and variable frame length, and the OFDM equalizer).
 | decide_tones_tm         | csrc/decide_tones_tm.cu     | anet/kernels/__init__.py:269  |
 | gather_rows_fused       | csrc/gather_rows.cu         | anet/kernels/__init__.py:1415 |
 | ofdm_track_decide_fused | csrc/ofdm_track.cu          | anet/kernels/__init__.py:2648 |
+| tone_energies_fused     | csrc/tone_energies.cu       | anet/kernels/__init__.py:87   |
+| decide_tones_fused      | csrc/tone_energies.cu       | anet/kernels/__init__.py:172  |
+| sync_search_blockmax    | csrc/search_blockmax.cu     | anet/kernels/__init__.py:1300 |
 
 Each wrapper runs its plain version (``*_ref``) when its tensors lie on the
 CPU, and launches its CUDA kernel when they lie on the card: it checks
-device, dtype (float32 or bfloat16 samples; complex64 OFDM symbol
-estimates), shape and contiguity, allocates the
-outputs, launches on ``torch.cuda.current_stream()``, raises if the launch
-reported an error, and adds one to ``launch_counts[name]``. There is no
-fallback from the kernel to the plain version.
+device, dtype (float32 or bfloat16 samples, and int8 for the four kernels
+of the quantized paths; complex64 OFDM symbol estimates), shape and
+contiguity, allocates the outputs, launches on
+``torch.cuda.current_stream()``, raises if the launch reported an error, and
+adds one to ``launch_counts[name]`` (``launch_counts[name + ":int8"]`` for
+an int8 launch). There is no fallback from the kernel to the plain version.
 
 The plain versions widen every operand to float32 before a product, as the
 reference kernels accumulate in float32. On the card, a float32 product
 there must run with ``torch.backends.cuda.matmul.allow_tf32 = False`` (the
 PyTorch default), or it rounds its operands to TF32.
+
+int8 samples (``decide_frame_tm``, ``demod_at_fused``,
+``demod_at_energies_fused``, ``demod_probe_fused``) meet the reference's
+x127 integer basis, ``round(basis * 127)``; the probe's template is
+quantized to ``round(t * 127 / max|t|)`` and ``cmax`` scaled back by
+``max|t| / 127``. The reference accumulates those products in int32. Every
+I/Q sum stays below 2**24, so float32 sums are exact; the probe's
+correlation can pass 2**24 and sums in int32 (the plain version in
+float64). Energies are I*I + Q*Q rounded after each operation, bit-equal to
+the reference's, so the first-index argmax breaks the frequent integer ties
+alike. Energies then carry the (127 * buffer scale)**2 factor, which every
+decision and quality ratio cancels.
 """
 
 from __future__ import annotations
@@ -68,12 +86,19 @@ __all__ = [
     "gather_rows_fused_ref",
     "ofdm_track_decide_fused",
     "ofdm_track_decide_fused_ref",
+    "tone_energies_fused",
+    "tone_energies_fused_ref",
+    "decide_tones_fused",
+    "decide_tones_fused_ref",
+    "sync_search_blockmax",
+    "sync_search_blockmax_ref",
 ]
 
 TM_SYMBOL_TILE = 8  # Gray-decoded symbols packed per int32 word
 _ROW = 128  # samples per row of the probe's row-aligned energy span
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_SPS = (32, 64, 128)
+INT8_BASIS_SCALE = 127.0  # int8 basis and probe template: round(x * 127 / max|x|)
 
 # Launches of each kernel since the last reset_launch_counts(): the proof
 # that a run went through the kernels. Only the CUDA branch of a wrapper
@@ -90,6 +115,14 @@ launch_counts = {
     "decide_tones_tm": 0,
     "gather_rows_fused": 0,
     "ofdm_track_decide_fused": 0,
+    "tone_energies_fused": 0,
+    "decide_tones_fused": 0,
+    "sync_search_blockmax": 0,
+    # the int8 instantiations, counted apart from their float launches
+    "decide_frame_tm:int8": 0,
+    "demod_at_fused:int8": 0,
+    "demod_at_energies_fused:int8": 0,
+    "demod_probe_fused:int8": 0,
 }
 
 
@@ -98,26 +131,33 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _check_launch(err: int, name: str) -> None:
+def _check_launch(err: int, name: str, dtype: torch.dtype | None = None) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-    launch_counts[name] += 1
+    launch_counts[f"{name}:int8" if dtype == torch.int8 else name] += 1
 
 
-def _check_cuda_input(name: str, t: torch.Tensor, what: str) -> int:
+def _check_cuda_input(name: str, t: torch.Tensor, what: str, int8: bool = False) -> int:
+    """The kernel's dtype code of ``t``, after checking that it lies on the
+    card, in a dtype the kernel takes (int8 only where ``int8``), with a
+    contiguous last dimension."""
     if not t.is_cuda:
         raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device}")
-    if t.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{name}: {what} must be float32 or bfloat16, got {t.dtype}")
+    if t.dtype not in _KERNEL_DTYPES or (t.dtype == torch.int8 and not int8):
+        kinds = "float32, bfloat16 or int8" if int8 else "float32 or bfloat16"
+        raise TypeError(f"{name}: {what} must be {kinds}, got {t.dtype}")
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: {what} must be contiguous in its last dimension")
     return _KERNEL_DTYPES[t.dtype]
 
 
-def _check_buffer_and_starts(name: str, buffer: torch.Tensor, starts: torch.Tensor, what: str):
-    """Checks of the kernels that index a [B, L] stream buffer at per-stream
-    positions: (dtype code, ``starts`` as contiguous int32 [B] on the card)."""
-    dtype = _check_cuda_input(name, buffer, "buffer")
+def _check_buffer_and_starts(
+    name: str, buffer: torch.Tensor, starts: torch.Tensor, what: str, int8: bool = True
+):
+    """Checks of the kernels that index a [B, L] stream buffer (float32,
+    bfloat16, and int8 unless ``int8`` is false) at per-stream positions:
+    (dtype code, ``starts`` as contiguous int32 [B] on the card)."""
+    dtype = _check_cuda_input(name, buffer, "buffer", int8=int8)
     if buffer.dim() != 2 or not buffer.is_contiguous():
         raise ValueError(f"{name}: buffer must be a contiguous [B, L] tensor")
     b = buffer.shape[0]
@@ -137,14 +177,23 @@ def _entry(name: str):
     return entry(name)
 
 
+def _plain_basis(config: ModemConfig, dtype: torch.dtype, device) -> torch.Tensor:
+    """[sps, 2M] float32 basis that meets samples of ``dtype``: entries
+    rounded to ``dtype`` first, as the reference casts its basis to the input
+    dtype; for int8 samples the reference's x127 integer basis (phases in
+    float32, then round(basis * 127))."""
+    if dtype == torch.int8:
+        return torch.round(demod_basis(config, device=device) * INT8_BASIS_SCALE)
+    return demod_basis(config, dtype=dtype, device=device).float()
+
+
 @functools.lru_cache(maxsize=16)
 def _kernel_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """[sps, 32] float32 basis for the kernels: cos of the num_tones tones in
     columns 0..15 and sin in 16..31, zero columns for tones past num_tones;
-    entries rounded to ``dtype`` first, as the reference casts its basis to
-    the input dtype."""
+    entries as _plain_basis gives them for samples of ``dtype``."""
     m = config.num_tones
-    basis = demod_basis(config, dtype=dtype, device=device).float()  # [sps, 2M]
+    basis = _plain_basis(config, dtype, device)  # [sps, 2M]
     out = torch.zeros(config.samples_per_symbol, 32, dtype=torch.float32, device=device)
     out[:, :m] = basis[:, :m]
     out[:, 16 : 16 + m] = basis[:, m:]
@@ -159,7 +208,8 @@ def _check_kernel_geometry(name: str, config: ModemConfig) -> None:
 
 
 def _decisions(config: ModemConfig, iq: torch.Tensor, dim: int):
-    """(tone, best, total) from I/Q [..., 2M, ...] along ``dim``."""
+    """(tone, best, total) from I/Q [..., 2M, ...] along ``dim``. I*I + Q*Q
+    are separate operations here (no fused multiply-add), as in the kernels."""
     m = config.num_tones
     i, q = iq.narrow(dim, 0, m), iq.narrow(dim, m, m)
     e = i * i + q * q
@@ -233,7 +283,7 @@ def decide_frame_tm_ref(
     s, n_tiles, nb = _frame_geometry(config, t, payload_len, preamble_offset)
     dev = data_tm.device
     w = data_tm[preamble_offset : preamble_offset + s * sps].float().reshape(s, sps, b)
-    basis_t = demod_basis(config, dtype=data_tm.dtype, device=dev).float().T  # [2M, sps]
+    basis_t = _plain_basis(config, data_tm.dtype, dev).T  # [2M, sps]
     tone, best, total = _decisions(config, torch.einsum("mk,skb->smb", basis_t, w), 1)
     data = tone
     shift = 1
@@ -261,9 +311,10 @@ def decide_frame_tm(
 ):
     """Time-major fused symbol decision with the frame parse folded in.
 
-    ``data_tm`` is [T, B] (float32 or bfloat16) whose data section starts at
-    row ``preamble_offset``: pass whole frames with the preamble length and
-    no copy of the data section is made. Returns (words int32 [n_tiles, B]:
+    ``data_tm`` is [T, B] (float32, bfloat16, or int8 for the quantized
+    ingest path) whose data section starts at row ``preamble_offset``: pass
+    whole frames with the preamble length and no copy of the data section
+    is made. Returns (words int32 [n_tiles, B]:
     TM_SYMBOL_TILE Gray-decoded symbols per word, MSB-first, the last word
     zero-padded; crc_counts f32 [64, B]: header CRC bit counts in rows
     0..31, payload in 32..63, parity taken by the caller; qual f32 [8, B]:
@@ -272,7 +323,7 @@ def decide_frame_tm(
     if data_tm.device.type == "cpu":
         return decide_frame_tm_ref(config, data_tm, payload_len, preamble_offset=preamble_offset)
     name = "decide_frame_tm"
-    dtype = _check_cuda_input(name, data_tm, "data_tm")
+    dtype = _check_cuda_input(name, data_tm, "data_tm", int8=True)
     if data_tm.dim() != 2 or not data_tm.is_contiguous():
         raise ValueError(f"{name}: data_tm must be a contiguous [T, B] tensor")
     _check_kernel_geometry(name, config)
@@ -291,22 +342,27 @@ def decide_frame_tm(
         pay_lo + 8 * payload_len, words.data_ptr(), crc.data_ptr(), qual.data_ptr(),
         _stream_handle(dev),
     )
-    _check_launch(err, name)
+    _check_launch(err, name, data_tm.dtype)
     return words, crc, qual, s
 
 
 # --- sync_search_fused: acquisition ------------------------------------------
 
 
+def _search_quality(seg: torch.Tensor, template: torch.Tensor, out_len: int, template_energy):
+    """The blockwise match quality float32 [..., out_len] at every lag: the
+    plain front of both search kernels."""
+    from anet_torch.dsp.sync import blockwise_match_quality, correlate_template
+
+    seg_f = seg.float()
+    corr = correlate_template(seg_f, template.float(), method="matmul")[..., :out_len]
+    return blockwise_match_quality(seg_f, corr, template.shape[-1], template_energy)
+
+
 def sync_search_fused_ref(seg: torch.Tensor, template: torch.Tensor, out_len: int, template_energy):
     """Plain version of sync_search_fused: the correlation at every lag,
     blockwise quality, then max and first argmax."""
-    from anet_torch.dsp.sync import blockwise_match_quality, correlate_template
-
-    k = template.shape[-1]
-    seg_f = seg.float()
-    corr = correlate_template(seg_f, template.float(), method="matmul")[..., :out_len]
-    q = blockwise_match_quality(seg_f, corr, k, template_energy)
+    q = _search_quality(seg, template, out_len, template_energy)
     return q.amax(-1), torch.argmax(q, dim=-1).to(torch.int32)
 
 
@@ -357,7 +413,7 @@ def _span_iq(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_s
     sps = config.samples_per_symbol
     pre = config.preamble_symbols * sps
     x = gather_span(buffer, start.to(torch.int64) + pre, n_symbols * sps).float()
-    basis = demod_basis(config, dtype=buffer.dtype, device=buffer.device).float()
+    basis = _plain_basis(config, buffer.dtype, buffer.device)
     return x.reshape(*x.shape[:-1], n_symbols, sps) @ basis
 
 
@@ -387,7 +443,7 @@ def demod_at_fused(config: ModemConfig, buffer: torch.Tensor, start: torch.Tenso
         config.samples_per_symbol, n_symbols, basis.data_ptr(), tone.data_ptr(),
         best.data_ptr(), total.data_ptr(), _stream_handle(dev),
     )
-    _check_launch(err, name)
+    _check_launch(err, name, buffer.dtype)
     return tone, best, total
 
 
@@ -398,15 +454,48 @@ def _probe_span_rows(k: int, n_lags: int) -> int:
     return -(-(k + n_lags - 1) // _ROW) + 1
 
 
-def _probe_abs_corr(buffer: torch.Tensor, st: torch.Tensor, template: torch.Tensor, n_lags: int):
-    """|correlation| float32 [B, n_lags] of the template (rounded to the
-    buffer's dtype) at lags st .. st + n_lags - 1: the probes' plain front."""
+def _probe_template(template: torch.Tensor, dtype: torch.dtype):
+    """(float32 taps the probe correlates with, the factor that scales cmax
+    back, or None): the template rounded to the buffer's ``dtype``; for an
+    int8 buffer quantized to round(t * (127 / max|t|)), scaled back by
+    max|t| / 127 (the reference's lines 2368-2380), each division correctly
+    rounded, as the reference's."""
+    if dtype != torch.int8:
+        return template.to(dtype).float(), None
+    tf = template.float()
+    tmax = tf.abs().amax().clamp_min(1e-20)
+    return torch.round(tf * (torch.full_like(tmax, INT8_BASIS_SCALE) / tmax)), tmax / INT8_BASIS_SCALE
+
+
+_INT8_TAPS: dict = {}  # (id, version) of a template -> (template, taps, cmax scale)
+
+
+def _int8_probe_template(template: torch.Tensor):
+    """_probe_template of an int8 buffer, made once per template tensor (a
+    stream passes the same one every chunk) and again only if it changed in
+    place. The entry holds the template, so its id is not reused while
+    cached."""
+    key = (id(template), template._version)
+    hit = _INT8_TAPS.get(key)
+    if hit is None or hit[0] is not template:
+        if len(_INT8_TAPS) >= 8:
+            _INT8_TAPS.clear()
+        hit = _INT8_TAPS[key] = (template, *_probe_template(template, torch.int8))
+    return hit[1], hit[2]
+
+
+def _probe_abs_corr(buffer: torch.Tensor, st: torch.Tensor, taps: torch.Tensor, n_lags: int):
+    """|correlation| float32 [B, n_lags] of the float32 ``taps`` at lags
+    st .. st + n_lags - 1: the probes' plain front. Over an int8 buffer the
+    integer sums can pass 2**24, so they are taken in float64 (exact) and
+    rounded to float32 once, as the reference's int32 sums are."""
     from anet_torch.dsp.sync import gather_span
 
-    k = template.shape[-1]
-    t = template.to(buffer.dtype).float()
-    wins = gather_span(buffer, st, k + n_lags - 1).float()
-    return (wins.unfold(-1, k, 1) @ t).abs()
+    k = taps.shape[-1]
+    wins = gather_span(buffer, st, k + n_lags - 1).float().unfold(-1, k, 1)
+    if buffer.dtype == torch.int8:
+        return (wins.double() @ taps.double()).float().abs()
+    return (wins @ taps).abs()
 
 
 def demod_probe_fused_ref(
@@ -423,11 +512,13 @@ def demod_probe_fused_ref(
 
     k = template.shape[-1]
     st = st0.to(torch.int64)
-    cabs = _probe_abs_corr(buffer, st, template, n_lags)
+    taps, cmax_scale = _probe_template(template, buffer.dtype)
+    cabs = _probe_abs_corr(buffer, st, taps, n_lags)
     span = gather_span(buffer, st // _ROW * _ROW, _probe_span_rows(k, n_lags) * _ROW).float()
     off = torch.argmax(cabs, dim=-1).to(torch.int32)
     tone, best, total = demod_at_fused_ref(config, buffer, st + off, n_symbols)
-    return cabs.amax(-1), off, (span * span).sum(-1), tone, best, total
+    cmax = cabs.amax(-1) if cmax_scale is None else cabs.amax(-1) * cmax_scale
+    return cmax, off, (span * span).sum(-1), tone, best, total
 
 
 def demod_probe_fused(
@@ -448,7 +539,9 @@ def demod_probe_fused(
     1)) (normalize outside: q = cmax * rsqrt(te * max(energy, 1e-4 te))),
     and the demod triple [B, n_symbols] of the frame starting at
     st0 + off. The template rounds to the buffer's dtype, as the
-    reference's does."""
+    reference's does; over an int8 buffer it is quantized to x127 integers
+    and cmax scaled back, so the normalization by the float template's
+    energy cancels the buffer's scale."""
     if buffer.device.type == "cpu":
         return demod_probe_fused_ref(config, buffer, st0, n_symbols, template, n_lags=n_lags)
     name = "demod_probe_fused"
@@ -459,7 +552,11 @@ def demod_probe_fused(
     b, length = buffer.shape
     dev = buffer.device
     k = template.shape[-1]
-    tpl = template.to(device=dev, dtype=buffer.dtype).float().contiguous()
+    if buffer.dtype == torch.int8:
+        tpl, cmax_scale = _int8_probe_template(template.to(dev))
+    else:
+        tpl, cmax_scale = _probe_template(template.to(dev), buffer.dtype)
+    tpl = tpl.contiguous()
     cmax = torch.empty(b, dtype=torch.float32, device=dev)
     off = torch.empty(b, dtype=torch.int32, device=dev)
     energy = torch.empty(b, dtype=torch.float32, device=dev)
@@ -473,7 +570,9 @@ def demod_probe_fused(
         n_symbols, basis.data_ptr(), cmax.data_ptr(), off.data_ptr(), energy.data_ptr(),
         tone.data_ptr(), best.data_ptr(), total.data_ptr(), _stream_handle(dev),
     )
-    _check_launch(err, name)
+    _check_launch(err, name, buffer.dtype)
+    if cmax_scale is not None:
+        cmax = cmax * cmax_scale
     return cmax, off, energy, tone, best, total
 
 
@@ -594,7 +693,7 @@ def demod_at_energies_fused(
         config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(),
         energies.data_ptr(), _stream_handle(dev),
     )
-    _check_launch(err, name)
+    _check_launch(err, name, buffer.dtype)
     return energies
 
 
@@ -610,7 +709,7 @@ def probe_at_fused_ref(
 
     k = template.shape[-1]
     st = st0.to(torch.int64)
-    cabs = _probe_abs_corr(buffer, st, template, n_lags)
+    cabs = _probe_abs_corr(buffer, st, template.to(buffer.dtype).float(), n_lags)
     span = gather_span(buffer, st, _probe_span_rows(k, n_lags) * _ROW).float()
     energy = (span * span).sum(-1, keepdim=True)
     te = torch.as_tensor(template_energy, dtype=torch.float32, device=buffer.device)
@@ -636,7 +735,7 @@ def probe_at_fused(
     if buffer.device.type == "cpu":
         return probe_at_fused_ref(buffer, st0, template, template_energy, n_lags)
     name = "probe_at_fused"
-    dtype, st = _check_buffer_and_starts(name, buffer, st0, "st0")
+    dtype, st = _check_buffer_and_starts(name, buffer, st0, "st0", int8=False)
     if not 1 <= n_lags <= 8:
         raise ValueError(f"{name}: n_lags must be in [1, 8]")
     b, length = buffer.shape
@@ -899,6 +998,142 @@ def ofdm_track_decide_fused(
     )
     _check_launch(err, name)
     return (llrs, evm2, coh) if with_coherence else (llrs, evm2)
+
+
+# --- tone_energies_fused / decide_tones_fused: the batch-major filterbank -----
+
+
+@functools.lru_cache(maxsize=16)
+def _filterbank_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The filterbank kernels' basis for ``dtype`` compute: _kernel_basis's
+    [sps, 32] where their fast kernels take the geometry (sps in
+    _KERNEL_SPS, at most 16 tones), else the plain [sps, 2M]."""
+    if config.num_tones <= 16 and config.samples_per_symbol in _KERNEL_SPS:
+        return _kernel_basis(config, dtype, device)
+    return _plain_basis(config, dtype, device).contiguous()
+
+
+def _symbol_rows(name: str, config: ModemConfig, samples: torch.Tensor, compute_dtype):
+    """The filterbank kernels' checked inputs: (the samples' leading shape,
+    rows [R, L] with a contiguous last dimension, a view where the leading
+    dimensions merge; S whole symbols a row; the dtype code; the basis).
+    The rows are the samples as they are where the kernel's float32 load
+    rounds them as ``compute_dtype`` would (bfloat16 samples under float32
+    compute), else the samples cast to ``compute_dtype``."""
+    widen = samples.dtype == torch.bfloat16 and compute_dtype == torch.float32
+    x = samples if widen else samples.to(compute_dtype)
+    s = x.shape[-1] // config.samples_per_symbol
+    rows = x.reshape(-1, x.shape[-1])
+    if s < 1 or rows.shape[0] < 1:
+        raise ValueError(f"{name}: samples {tuple(x.shape)} hold no whole symbol")
+    rows = rows if rows.stride(-1) == 1 else rows.contiguous()
+    dtype = _check_cuda_input(name, rows, "samples")
+    return x.shape[:-1], rows, s, dtype, _filterbank_basis(config, compute_dtype, x.device)
+
+
+def tone_energies_fused_ref(config: ModemConfig, samples: torch.Tensor, *, compute_dtype=torch.float32):
+    """Plain version of tone_energies_fused (dsp.demod.tone_energies)."""
+    from anet_torch.dsp.demod import tone_energies
+
+    return tone_energies(config, samples, compute_dtype=compute_dtype)
+
+
+def tone_energies_fused(config: ModemConfig, samples: torch.Tensor, *, compute_dtype=torch.float32):
+    """Per-symbol per-tone energies, float32 [..., S, num_tones], of
+    batch-major symbol-aligned samples [..., S * sps] (a trailing partial
+    symbol is dropped): dsp.demod.tone_energies as one kernel. Samples round
+    to ``compute_dtype`` (float32 or bfloat16), as the reference's operands
+    do; the product runs in float32. Rows may be strided (a view past the
+    preamble of whole frames) as long as the last dimension is contiguous.
+    Any geometry: sps 32, 64 or 128 with at most 16 tones take the fast
+    kernel, the rest a plain one (one warp a symbol)."""
+    if samples.device.type == "cpu":
+        return tone_energies_fused_ref(config, samples, compute_dtype=compute_dtype)
+    name = "tone_energies_fused"
+    lead, rows, s, dtype, basis = _symbol_rows(name, config, samples, compute_dtype)
+    dev = rows.device
+    m = config.num_tones
+    energies = torch.empty(*lead, s, m, dtype=torch.float32, device=dev)
+    err = _entry("tone_energies")(
+        rows.data_ptr(), dtype, rows.shape[0], rows.stride(0), s, config.samples_per_symbol, m,
+        basis.data_ptr(), energies.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return energies
+
+
+def decide_tones_fused_ref(config: ModemConfig, samples: torch.Tensor, *, compute_dtype=torch.bfloat16):
+    """Plain version of decide_tones_fused."""
+    e = tone_energies_fused_ref(config, samples, compute_dtype=compute_dtype)
+    return torch.argmax(e, dim=-1).to(torch.int32), e.amax(-1), e.sum(-1)
+
+
+def decide_tones_fused(config: ModemConfig, samples: torch.Tensor, *, compute_dtype=torch.bfloat16):
+    """The filterbank with the symbol decision folded in: (tone int32,
+    best float32, total float32), each [..., S], of batch-major
+    symbol-aligned samples [..., S * sps]; argmax ties go to the first tone.
+    The contract of frame.frame_result_from_tone_decisions. Same inputs as
+    tone_energies_fused, but bfloat16 compute by default, as the
+    reference's."""
+    if samples.device.type == "cpu":
+        return decide_tones_fused_ref(config, samples, compute_dtype=compute_dtype)
+    name = "decide_tones_fused"
+    lead, rows, s, dtype, basis = _symbol_rows(name, config, samples, compute_dtype)
+    dev = rows.device
+    shape = (*lead, s)
+    tone = torch.empty(shape, dtype=torch.int32, device=dev)
+    best = torch.empty(shape, dtype=torch.float32, device=dev)
+    total = torch.empty(shape, dtype=torch.float32, device=dev)
+    err = _entry("decide_tones")(
+        rows.data_ptr(), dtype, rows.shape[0], rows.stride(0), s, config.samples_per_symbol,
+        config.num_tones, basis.data_ptr(), tone.data_ptr(), best.data_ptr(), total.data_ptr(),
+        _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return tone, best, total
+
+
+# --- sync_search_blockmax: block maxima of the search quality -----------------
+
+
+def sync_search_blockmax_ref(seg: torch.Tensor, template: torch.Tensor, out_len: int, template_energy):
+    """Plain version of sync_search_blockmax: the blockwise quality at every
+    lag, reshaped to [..., out_len // 128, 128], maximum of each block."""
+    q = _search_quality(seg, template, out_len, template_energy)
+    return q.reshape(*q.shape[:-1], out_len // _ROW, _ROW).amax(-1)
+
+
+def sync_search_blockmax(seg: torch.Tensor, template: torch.Tensor, out_len: int, template_energy):
+    """Per-128-lag block maxima of the blockwise preamble match quality,
+    float32 [B, out_len // 128]: the first phase of the two-phase search
+    (the caller folds the blocks, and a probe refines the lag within the
+    winner). Equivalent to (but never materializing)::
+
+        corr = correlate_template(seg, template)[..., :out_len]
+        q = blockwise_match_quality(seg, corr, k, template_energy)
+        return q.reshape(..., out_len // 128, 128).max(-1)
+
+    ``seg`` is [B, >= out_len + k - 1], rows strided as sync_search_fused
+    takes them; ``out_len`` a multiple of 128."""
+    if out_len % _ROW or out_len < _ROW:
+        raise ValueError(f"sync_search_blockmax: out_len {out_len} must be a positive multiple of {_ROW}")
+    if seg.device.type == "cpu":
+        return sync_search_blockmax_ref(seg, template, out_len, template_energy)
+    name = "sync_search_blockmax"
+    dtype = _check_cuda_input(name, seg, "seg")
+    k = template.shape[-1]
+    if seg.dim() != 2 or seg.shape[-1] < out_len + k - 1:
+        raise ValueError(f"{name}: seg must be [B, >= out_len + k - 1]")
+    b = seg.shape[0]
+    dev = seg.device
+    tpl = template.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty(b, out_len // _ROW, dtype=torch.float32, device=dev)
+    err = _entry("search_blockmax")(
+        seg.data_ptr(), dtype, b, seg.stride(0), seg.shape[-1], tpl.data_ptr(), k, out_len,
+        float(template_energy), out.data_ptr(), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return out
 
 
 def demod_at_buffer_pad(

@@ -23,6 +23,7 @@ SOURCES = (
     "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
     "viterbi", "demod_at_energies", "probe_at",
     "correlate", "decide_tones_tm", "gather_rows", "ofdm_track",
+    "tone_energies", "search_blockmax",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -32,7 +33,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C signature of each library's entry point: (symbol, argtypes)
+# C signature of each entry point: (symbol, argtypes), or (symbol, argtypes,
+# source) for an entry point of another source's library than its own name
 SIGNATURES = {
     "decide_frame_tm": (
         "anet_decide_frame_tm",
@@ -75,6 +77,13 @@ SIGNATURES = {
     "ofdm_track": (
         "anet_ofdm_track",
         [_P, _L, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    "tone_energies": ("anet_tone_energies", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P]),
+    "decide_tones": (
+        "anet_decide_tones", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P], "tone_energies",
+    ),
+    "search_blockmax": (
+        "anet_search_blockmax", [_P, _I, _I, _L, _I, _P, _I, _I, ctypes.c_float, _P, _P],
     ),
 }
 
@@ -127,13 +136,14 @@ def build_all(names=SOURCES) -> list[Path]:
 
 
 def entry(name: str):
-    """The ctypes function of library ``name``, built on first use."""
+    """The ctypes function of entry point ``name``, its library built on
+    first use."""
     fn = _loaded.get(name)
     if fn is None:
-        path = library_path(name)
+        symbol, argtypes, *source = SIGNATURES[name]
+        path = library_path(source[0] if source else name)
         if not path.exists():
             build_all()
-        symbol, argtypes = SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel anet/kernels/__init__.py decide_frame_tm
 // (pallas_call at line 586, body _decide_frame_tm_kernel at line 335).
-// Input: time-major whole frames x[T, B] (float32 or bfloat16), the data
+// Input: time-major whole frames x[T, B] (float32, bfloat16 or int8), the data
 // section starting at row `row0` (the preamble offset, skipped in place: no
 // copy of the data section is made). Per stream and symbol: the [sps, 2M]
 // filterbank in float32, I^2+Q^2, argmax (first index on ties), best and
@@ -15,7 +15,9 @@
 // filterbank is 2 x 34,304 x 32 flops per stream, which on the CUDA cores in
 // float32 (67 TFLOP/s) is ~0.54 ms at B = 16384, so this simple form is
 // bound by its FMAs, not by memory; tensor cores (mma.sync on bf16) are the
-// way past that, left for a later change.
+// way past that, left for a later change. The int8 instantiation (the
+// quantized-ingest path, reference lines 378-395 and 570-578) halves the
+// read (0.56 GB at B = 16384: 0.17 ms) and leaves the FMAs as they are.
 //
 // Design: one thread per stream, so consecutive threads read consecutive
 // streams of a time-major row and every load coalesces. The symbol axis is
@@ -23,6 +25,9 @@
 // block adds its CRC counts and quality sums into the outputs with
 // atomicAdd (the counts are integers, so their sums are exact in any order;
 // the quality sums differ from the reference only in float rounding order).
+// With int8 samples the basis is the reference's x127 integer table held
+// as floats, so every I/Q sum is exact (common.cuh) and the energies equal
+// the reference's int32-then-float32 ones bit for bit.
 // The basis sits in shared memory and is read as float4 broadcasts; the P
 // table rows are read from global memory at warp-uniform addresses.
 #include "common.cuh"
@@ -81,7 +86,7 @@ decide_frame_tm_kernel(const T* __restrict__ x, int B, int row0, int sps, int n_
         int tone = 0;
 #pragma unroll
         for (int c = 0; c < NCOL / 2; ++c) {
-          const float e = acc[c] * acc[c] + acc[c + NCOL / 2] * acc[c + NCOL / 2];
+          const float e = anet::tone_energy(acc[c], acc[c + NCOL / 2]);
           if (e > best) {  // strict: the first index wins ties
             best = e;
             tone = c;
@@ -150,6 +155,11 @@ extern "C" int anet_decide_frame_tm(const void* x, int dtype, int B, int row0, i
     decide_frame_tm_kernel<__nv_bfloat16><<<grid, THREADS, smem, st>>>(
         static_cast<const __nv_bfloat16*>(x), B, row0, sps, n_symbols, n_tiles, tiles_per_block,
         bps, static_cast<const float*>(basis), static_cast<const float*>(ptab), hdr_bits, pay_lo,
+        pay_hi, static_cast<int32_t*>(words), static_cast<float*>(crc), static_cast<float*>(qual));
+  } else if (dtype == anet::DTYPE_I8) {
+    decide_frame_tm_kernel<int8_t><<<grid, THREADS, smem, st>>>(
+        static_cast<const int8_t*>(x), B, row0, sps, n_symbols, n_tiles, tiles_per_block, bps,
+        static_cast<const float*>(basis), static_cast<const float*>(ptab), hdr_bits, pay_lo,
         pay_hi, static_cast<int32_t*>(words), static_cast<float*>(crc), static_cast<float*>(qual));
   } else {
     decide_frame_tm_kernel<float><<<grid, THREADS, smem, st>>>(

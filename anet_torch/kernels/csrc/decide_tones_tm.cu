@@ -64,7 +64,7 @@ decide_tones_tm_kernel(const T* __restrict__ x, int B, int sps, int n_symbols,
     int tone = 0;
 #pragma unroll
     for (int c = 0; c < NCOL / 2; ++c) {
-      const float e = acc[c] * acc[c] + acc[c + NCOL / 2] * acc[c + NCOL / 2];
+      const float e = anet::tone_energy(acc[c], acc[c + NCOL / 2]);
       if (e > best) {  // strict: the first index wins ties
         best = e;
         tone = c;

@@ -11,6 +11,9 @@
 // (34,304 bf16 samples a stream at the main path: 0.56 GB, 0.17 ms at
 // B = 8192). The filterbank's 2 x 32 x sps flops a symbol (18 GFLOP at
 // B = 8192) stay under that bound even on the CUDA cores in float32.
+// An int8 buffer (the quantized stream carry, reference _demod_at_setup
+// lines 1885-1893) halves the read; it takes the x127 integer basis, so
+// its float32 I/Q sums are exact (common.cuh).
 //
 // Design: the TPU kernel's 8-row-aligned span DMAs, sub-row selects and
 // one-hot lane-shift matmuls existed only for the TPU's (8, 128) layout; a
@@ -23,7 +26,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = anet::DEMOD_THREADS;
 
 template <typename T, int SPS>
 __global__ void __launch_bounds__(THREADS)
@@ -80,6 +83,9 @@ extern "C" int anet_demod_at(const void* buf, int dtype, int B, long long len, c
   if (dtype == anet::DTYPE_BF16)
     return (int)dispatch_sps<__nv_bfloat16>(sps, buf, B, len, start, pre, n_symbols, basis, tone,
                                             best, total, st);
+  if (dtype == anet::DTYPE_I8)
+    return (int)dispatch_sps<int8_t>(sps, buf, B, len, start, pre, n_symbols, basis, tone,
+                                     best, total, st);
   return (int)dispatch_sps<float>(sps, buf, B, len, start, pre, n_symbols, basis, tone, best,
                                   total, st);
 }

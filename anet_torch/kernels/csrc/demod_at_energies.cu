@@ -14,22 +14,26 @@
 // (2 bytes a bf16 sample) and M float32 energies a symbol are written; at
 // the coded path's 4 tones and 32 samples a symbol that is 64 bytes in and
 // 16 bytes out a symbol, against 512 multiply-adds.
+// An int8 buffer (the quantized stream carry, reference _demod_at_setup
+// lines 1885-1893) halves the read; it takes the x127 integer basis, so
+// its float32 I/Q sums are exact (common.cuh).
 //
 // Design: the front of demod_at_fused (demod_at.cu). The TPU kernel's
 // 8-row-aligned span DMAs, its start-bound padding and its I-block-then-
 // Q-block basis order existed only for the TPU's (8, 128) layout; a thread
 // here indexes buffer[b, start + pre + i] directly. One block per (stream,
-// tile of 64 symbols): the tile's samples are staged in shared memory by
-// coalesced loads; lane c of each warp holds basis column c (cos of tone c
-// in lanes 0..15, sin in 16..31) in registers, one shuffle brings Q beside
-// I, and lanes 0..M-1 store the symbol's energies. With M = 4 only 8 of a
+// tile of 64 symbols), energies_symbols in common.cuh: the tile's samples
+// are staged in shared memory by coalesced loads; lane c of each warp holds
+// basis column c (cos of tone c in lanes 0..15, sin in 16..31) in
+// registers, one shuffle brings Q beside I, and lanes 0..M-1 store the
+// symbol's energies. With M = 4 only 8 of a
 // warp's 32 lanes do live work; packing several symbols into a warp is left
 // for the pass that makes this kernel fast.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = anet::DEMOD_THREADS;
 
 template <typename T, int SPS>
 __global__ void __launch_bounds__(THREADS)
@@ -39,33 +43,10 @@ demod_at_energies_kernel(const T* __restrict__ buf, int64_t len, const int32_t* 
   __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
   const int b = blockIdx.x;
   const int s0 = blockIdx.y * anet::SYM_TILE;
-  const int n_sym = min(anet::SYM_TILE, n_symbols - s0);
-  const T* row = buf + (int64_t)b * len;
   const int64_t base = (int64_t)start[b] + pre + (int64_t)s0 * SPS;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float breg[SPS];
-#pragma unroll
-  for (int j = 0; j < SPS; ++j) breg[j] = basis[j * 32 + lane];
-
-  for (int i = threadIdx.x; i < n_sym * SPS; i += THREADS)
-    stage[i] = anet::load_or_zero(row, base + i, len);
-  __syncthreads();
-  float* out = energies + ((int64_t)b * n_symbols + s0) * m;
-  for (int u = warp; u < n_sym; u += THREADS / 32) {
-    const float4* xs = reinterpret_cast<const float4*>(stage + u * SPS);
-    float acc = 0.0f;
-#pragma unroll
-    for (int j4 = 0; j4 < SPS / 4; ++j4) {
-      const float4 v = xs[j4];
-      acc = fmaf(v.x, breg[4 * j4 + 0], acc);
-      acc = fmaf(v.y, breg[4 * j4 + 1], acc);
-      acc = fmaf(v.z, breg[4 * j4 + 2], acc);
-      acc = fmaf(v.w, breg[4 * j4 + 3], acc);
-    }
-    const float q = __shfl_down_sync(0xffffffffu, acc, 16);
-    if (lane < m) out[u * m + lane] = acc * acc + q * q;
-  }
+  anet::energies_symbols<T, SPS>(buf + (int64_t)b * len, len, base,
+                                 min(anet::SYM_TILE, n_symbols - s0), m, basis, stage,
+                                 energies + ((int64_t)b * n_symbols + s0) * m);
 }
 
 template <typename T, int SPS>
@@ -107,5 +88,8 @@ extern "C" int anet_demod_at_energies(const void* buf, int dtype, int B, long lo
   if (dtype == anet::DTYPE_BF16)
     return (int)dispatch_sps<__nv_bfloat16>(sps, buf, B, len, start, pre, n_symbols, m, basis,
                                             energies, st);
+  if (dtype == anet::DTYPE_I8)
+    return (int)dispatch_sps<int8_t>(sps, buf, B, len, start, pre, n_symbols, m, basis,
+                                     energies, st);
   return (int)dispatch_sps<float>(sps, buf, B, len, start, pre, n_symbols, m, basis, energies, st);
 }

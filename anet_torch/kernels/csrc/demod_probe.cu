@@ -12,6 +12,11 @@
 //   starts at st + off, data at st + off + pre. Reads past the buffer's
 //   end are zero.
 // The caller normalizes q = cmax * rsqrt(te * max(energy, 1e-4 te)).
+// An int8 buffer (the quantized stream carry) comes with the template
+// quantized by the wrapper to round(t * 127 / max|t|); the correlation then
+// sums in int32 and the wrapper scales cmax back by max|t| / 127. The
+// window energy sums squares of the integer samples in float32 (exact
+// below 2^24) and the demod takes the x127 integer basis (common.cuh).
 //
 // What bounds it on the H100: one read of each stream's span, preamble
 // window plus data section (~36,600 bf16 samples a stream at the main path:
@@ -30,7 +35,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = anet::DEMOD_THREADS;
 constexpr int MAX_LAGS = 8;
 
 template <typename T, int SPS>
@@ -43,20 +48,37 @@ demod_probe_kernel(const T* __restrict__ buf, int64_t len, const int32_t* __rest
                    float* __restrict__ total) {
   __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
   __shared__ float red[THREADS / 32][MAX_LAGS + 1];
+  __shared__ int ired[THREADS / 32][MAX_LAGS];
   __shared__ int s_off;
   const int b = blockIdx.x;
   const T* row = buf + (int64_t)b * len;
   const int64_t st = st0[b];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
+  // int8 buffers correlate in int32 against the template's x127 integers:
+  // a sum of k products reaches ~3.3e7, past float32's 2^24, so it stays
+  // exact in int32 and converts to float32 once, as the reference's int32
+  // matmul does (reference lines 2188-2196).
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   float acc[MAX_LAGS + 1];  // n_lags correlations, then the window energy
+  int iacc[MAX_LAGS];       // the correlations of an int8 buffer
 #pragma unroll
   for (int o = 0; o <= MAX_LAGS; ++o) acc[o] = 0.0f;
+#pragma unroll
+  for (int o = 0; o < MAX_LAGS; ++o) iacc[o] = 0;
   for (int j = threadIdx.x; j < k; j += THREADS) {
     const float tv = tpl[j];
 #pragma unroll
-    for (int o = 0; o < MAX_LAGS; ++o)
-      if (o < n_lags) acc[o] = fmaf(anet::load_or_zero(row, st + o + j, len), tv, acc[o]);
+    for (int o = 0; o < MAX_LAGS; ++o) {
+      if (o >= n_lags) continue;
+      if constexpr (kInt8) {
+        const int64_t i = st + o + j;
+        const int v = (i >= 0 && i < len) ? (int)row[i] : 0;
+        iacc[o] += v * (int)tv;
+      } else {
+        acc[o] = fmaf(anet::load_or_zero(row, st + o + j, len), tv, acc[o]);
+      }
+    }
   }
   const int64_t e0 = st / 128 * 128;
   for (int i = threadIdx.x; i < pw_e * 128; i += THREADS) {
@@ -69,6 +91,14 @@ demod_probe_kernel(const T* __restrict__ buf, int64_t len, const int32_t* __rest
     for (int sh = 16; sh > 0; sh >>= 1) acc[o] += __shfl_down_sync(0xffffffffu, acc[o], sh);
     if (lane == 0) red[warp][o] = acc[o];
   }
+  if constexpr (kInt8) {
+#pragma unroll
+    for (int o = 0; o < MAX_LAGS; ++o) {
+#pragma unroll
+      for (int sh = 16; sh > 0; sh >>= 1) iacc[o] += __shfl_down_sync(0xffffffffu, iacc[o], sh);
+      if (lane == 0) ired[warp][o] = iacc[o];
+    }
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     float sums[MAX_LAGS + 1];
@@ -76,6 +106,14 @@ demod_probe_kernel(const T* __restrict__ buf, int64_t len, const int32_t* __rest
     for (int o = 0; o <= MAX_LAGS; ++o) {
       sums[o] = 0.0f;
       for (int w = 0; w < THREADS / 32; ++w) sums[o] += red[w][o];
+    }
+    if constexpr (kInt8) {
+#pragma unroll
+      for (int o = 0; o < MAX_LAGS; ++o) {
+        int c = 0;
+        for (int w = 0; w < THREADS / 32; ++w) c += ired[w][o];
+        sums[o] = (float)c;  // round to nearest, as the reference's astype
+      }
     }
     float cm = -1.0f;
     int off = 0;
@@ -146,6 +184,10 @@ extern "C" int anet_demod_probe(const void* buf, int dtype, int B, long long len
     return (int)dispatch_sps<__nv_bfloat16>(sps, buf, B, len, st0, tpl, k, n_lags, pw_e, pre,
                                             n_symbols, basis, cmax, off, energy, tone, best,
                                             total, st);
+  if (dtype == anet::DTYPE_I8)
+    return (int)dispatch_sps<int8_t>(sps, buf, B, len, st0, tpl, k, n_lags, pw_e, pre,
+                                     n_symbols, basis, cmax, off, energy, tone, best,
+                                     total, st);
   return (int)dispatch_sps<float>(sps, buf, B, len, st0, tpl, k, n_lags, pw_e, pre, n_symbols,
                                   basis, cmax, off, energy, tone, best, total, st);
 }

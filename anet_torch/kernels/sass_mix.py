@@ -1,0 +1,81 @@
+"""Static SASS instruction mix of the kernels, one line per instantiation.
+
+    python -m anet_torch.kernels.sass_mix [source ...]
+
+Builds each ``csrc/<source>.cu`` (by default the four with an int8
+instantiation) as the kernels are built, disassembles the library with
+``cuobjdump -sass`` and prints, for each kernel function, its instruction
+count and the count of each opcode (the part before the first dot) as one
+JSON object. The counts are static (instructions in the code, not executed
+ones): enough to set one instantiation's inner loop beside another's, e.g.
+the int8 and bfloat16 loads and conversions. Needs the CUDA toolkit, no
+card.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+from collections import Counter
+from pathlib import Path
+
+from anet_torch.kernels.build import build_all, library_path, nvcc_path
+
+INT8_SOURCES = ("decide_frame_tm", "demod_at", "demod_at_energies", "demod_probe")
+_FUNCTION = re.compile(r"^\s*Function : (\S+)")
+_INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def _demangle(names: list[str]) -> list[str]:
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True, check=True)
+    return out.stdout.splitlines()
+
+
+def parse_sass(sass: str) -> list[tuple[str, Counter]]:
+    """(mangled function name, opcode counts) of each function in the text
+    that ``cuobjdump -sass`` prints; a predicate (@P0, @!UP1) is not part
+    of the opcode."""
+    functions: list[tuple[str, Counter]] = []
+    for line in sass.splitlines():
+        m = _FUNCTION.match(line)
+        if m:
+            functions.append((m.group(1), Counter()))
+            continue
+        m = _INSTRUCTION.match(line)
+        if m and functions:
+            functions[-1][1][m.group(1)] += 1
+    return functions
+
+
+def instruction_mix(source: str) -> list[dict]:
+    """[{"source", "function", "instructions", "ops": {opcode: count}}] of
+    every kernel function in the library of ``source``."""
+    build_all((source,))
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(library_path(source))], capture_output=True, text=True, check=True
+    ).stdout
+    functions = parse_sass(sass)
+    names = _demangle([f for f, _ in functions])
+    return [
+        {"source": source, "function": name, "instructions": sum(ops.values()),
+         "ops": dict(ops.most_common())}
+        for name, (_, ops) in zip(names, functions)
+    ]
+
+
+def main(argv: list[str]) -> int:
+    for source in argv or INT8_SOURCES:
+        for row in instruction_mix(source):
+            print(json.dumps(row))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

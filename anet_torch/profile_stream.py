@@ -8,6 +8,10 @@
   (payload 256, one 1000-sample gap then 6 back-to-back frames, bf16), warm
   and cold, then the time-major aligned receiver at 16,384 frames (8,192
   for a coded or an OFDM model);
+- ``lock-int8``: the same locked stream on an int8 carry (the capture
+  quantized once with stream.quantize_int8, bf16 compute), warm and cold,
+  then the int8 aligned receiver (uncoded MFSK: frames quantized to x127
+  over the batch's maximum, demodulate_frame_tm with int8 compute);
 - ``dynamic``: the variable-length always-search stream with two
   candidates a chunk (chip_smoke.py's stream-dynamic: payloads 64, 64, 256,
   128, 64, 64 back to back, chunk of two shortest frames);
@@ -16,7 +20,9 @@
   model needs fec_interleave == 1 (mfsk4-coded-stream).
 
 ``model`` is mfsk16-fast unless named; the OFDM presets (ofdm-fast, and for
-``lock`` the coded ones) run the same paths. Each run happens once to warm up,
+``lock`` the coded ones) run the same paths but ``lock-int8``, which takes the
+MFSK presets only (a coded one's aligned run stays bf16: int8 aligned
+compute is uncoded only). Each run happens once to warm up,
 then once under torch.profiler, and prints the device time of each kernel
 (the top 12), the sum of device time, the wall time of the run and the
 device's busy share (device time over wall time; kernels do not overlap on
@@ -39,7 +45,7 @@ from anet_torch.dsp import frame as tframe
 from anet_torch.dsp import ofdm
 from anet_torch.kernels.build import build_all
 from anet_torch.models import get_model
-from anet_torch.stream import init_carry, receive_stream, receive_stream_dynamic
+from anet_torch.stream import init_carry, quantize_int8, receive_stream, receive_stream_dynamic
 
 PAYLOAD, GAP0, N_FRAMES = 256, 1000, 6
 STREAM_B, ALIGNED_B = 8192, 16384
@@ -65,9 +71,10 @@ def back_to_back_capture(cfg, lens, max_len: int, chunk: int, batch: int, gen, d
     return cap, sent
 
 
-def warm_lock_carry(cfg, chunk: int, payload_len: int, batch: int, dev):
-    """A fresh bf16 carry whose lock is seeded at the first frame (GAP0)."""
-    carry = init_carry(cfg, chunk, payload_len, (batch,), dtype=torch.bfloat16, device=dev)
+def warm_lock_carry(cfg, chunk: int, payload_len: int, batch: int, dev, dtype=torch.bfloat16):
+    """A fresh carry (bf16 unless ``dtype`` says otherwise) whose lock is
+    seeded at the first frame (GAP0)."""
+    carry = init_carry(cfg, chunk, payload_len, (batch,), dtype=dtype, device=dev)
     return carry._replace(
         locked=torch.ones_like(carry.locked), next_start=torch.full_like(carry.next_start, GAP0)
     )
@@ -103,7 +110,7 @@ def report(label: str, fn) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:60]}")
 
 
-def profile_lock(cfg, model: str, gen, dev) -> None:
+def profile_lock(cfg, model: str, gen, dev, int8: bool = False) -> None:
     is_ofdm = family.is_ofdm(cfg)
     aligned_b = ALIGNED_B if cfg.fec == "none" and not is_ofdm else STREAM_B
     t_frame = family.frame_samples(cfg, PAYLOAD)
@@ -111,22 +118,32 @@ def profile_lock(cfg, model: str, gen, dev) -> None:
     total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
     b = STREAM_B
     transmit = family.transmit_fn(cfg, dev)
-    cap = torch.zeros(b, total, dtype=torch.bfloat16, device=dev)
+    dtype = torch.int8 if int8 else torch.bfloat16
+    ingest = quantize_int8 if int8 else (lambda w: w.to(torch.bfloat16))
+    cap = torch.zeros(b, total, dtype=dtype, device=dev)
     for i in range(N_FRAMES):
         pay = torch.randint(0, 256, (b, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
-        cap[:, GAP0 + i * t_frame : GAP0 + (i + 1) * t_frame] = transmit(pay).to(torch.bfloat16)
+        cap[:, GAP0 + i * t_frame : GAP0 + (i + 1) * t_frame] = ingest(transmit(pay))
 
     def run(carry):
         res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16,
                              lock=True, device=dev)
         assert int(res.carry.frames_ok.sum()) == b * N_FRAMES
 
-    print(f"{model} stream: B {b}, {total // chunk} chunks of {chunk}")
-    report("stream warm-lock", lambda: run(warm_lock_carry(cfg, chunk, PAYLOAD, b, dev)))
-    report("stream cold", lambda: run(None))
+    label = "stream-int8" if int8 else "stream"
+    print(f"{model} {label}: B {b}, {total // chunk} chunks of {chunk}")
+    report(f"{label} warm-lock", lambda: run(warm_lock_carry(cfg, chunk, PAYLOAD, b, dev, dtype)))
+    cold = (lambda: init_carry(cfg, chunk, PAYLOAD, (b,), dtype=dtype, device=dev)) if int8 else (lambda: None)
+    report(f"{label} cold", lambda: run(cold()))
     del cap
     torch.cuda.empty_cache()
     pay = torch.randint(0, 256, (aligned_b, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
+    if int8 and cfg.fec == "none" and not is_ofdm:
+        x = transmit(pay)
+        x_tm = torch.round(x.T * (127.0 / x.abs().max())).to(torch.int8).contiguous()
+        report(f"aligned-int8 B {aligned_b}", lambda: int(tframe.demodulate_frame_tm(
+            cfg, x_tm, PAYLOAD, compute_dtype=torch.int8, device=dev).ok.sum()))
+        return
     x_tm = transmit(pay).to(torch.bfloat16).T.contiguous()
     demod_tm = ofdm.demodulate_frame_tm if is_ofdm else tframe.demodulate_frame_tm
     report(f"aligned B {aligned_b}", lambda: int(demod_tm(cfg, x_tm, PAYLOAD, device=dev).ok.sum()))
@@ -162,15 +179,16 @@ def main(argv=None) -> int:
         return 2
     model = argv[0] if argv else "mfsk16-fast"
     path = argv[1] if len(argv) > 1 else "lock"
-    if path not in ("lock", "dynamic", "dynamic-lock"):
-        print(f"profile_stream: path must be lock, dynamic or dynamic-lock, got {path!r}", file=sys.stderr)
+    if path not in ("lock", "lock-int8", "dynamic", "dynamic-lock"):
+        print(f"profile_stream: path must be lock, lock-int8, dynamic or dynamic-lock, got {path!r}",
+              file=sys.stderr)
         return 2
     build_all()
     dev = torch.device("cuda")
     cfg = get_model(model).config
     gen = torch.Generator(device=dev).manual_seed(0)
-    if path == "lock":
-        profile_lock(cfg, model, gen, dev)
+    if path in ("lock", "lock-int8"):
+        profile_lock(cfg, model, gen, dev, int8=path == "lock-int8")
     else:
         profile_dynamic(cfg, model, path == "dynamic-lock", gen, dev)
     return 0

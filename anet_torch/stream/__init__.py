@@ -45,13 +45,23 @@ tracked within each frame by the receiver, so ``track=True`` raises
 ValueError for them, as in the reference; variable-length OFDM streams are
 uncoded only.
 
+int8 sliding buffers (``init_carry(dtype=torch.int8)``) hold the samples
+quantized once at the append edge with the fixed scale INT8_STREAM_SCALE
+(``quantize_int8``); a float capture quantizes up front, an int8 capture
+passes through. The MFSK fixed-length steps hand the int8 buffer itself to
+the align+demod kernels (demod_probe_fused, demod_at_fused,
+demod_at_energies_fused take int8) and cast only the search's segment and
+the coded step's probe span to ``compute_dtype``, exact for int8 values.
+Every quality and decision is a ratio in buffer units, so the scale cancels.
+
 Not ported yet (they raise NotImplementedError): ``track=True`` for MFSK
 (the symbol-clock tracker), the capture-resident scan (``resident=True``)
-and int8 sliding buffers.
+and int8 carries for the variable-length and OFDM receivers.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -59,10 +69,12 @@ import torch
 
 from anet_torch._device import as_tensor, resolve_device
 from anet_torch.dsp.family import geometry as family_geometry
+from anet_torch.dsp.family import preamble_template
 from anet_torch.dsp.frame import DynamicFrameResult, FrameResult
 
 __all__ = [
     "DynamicStreamStepOutput",
+    "INT8_STREAM_SCALE",
     "StreamCarry",
     "StreamCheckpoint",
     "StreamResult",
@@ -71,6 +83,7 @@ __all__ = [
     "carry_to_numpy",
     "init_carry",
     "load_carry",
+    "quantize_int8",
     "receive_stream",
     "receive_stream_dynamic",
     "save_carry",
@@ -92,6 +105,36 @@ DRIFT_EMA = 0.5
 # clock) while still rejecting a re-detection of the same frame.
 DEDUPE_SLACK = DRIFT_MAX_OBS
 PROBE_LAGS = 5  # frame-lock probe lags: +-2 samples of clock-drift servo
+
+# int8 sliding-buffer quantization: round(x * SCALE) clipped to +-127, once
+# per chunk at the append edge. The scale is fixed (not a per-chunk maximum)
+# because a demod span straddles chunk boundaries. 32 covers +-3.97 of
+# waveform amplitude against the transmitter's +-1 tones; the 1/64-LSB
+# quantization noise sits ~36 dB under a unit tone.
+INT8_STREAM_SCALE = 32.0
+_BUFFER_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def quantize_int8(samples: torch.Tensor) -> torch.Tensor:
+    """Float waveform samples in the int8 stream-buffer format:
+    round(x * INT8_STREAM_SCALE) (half to even) clipped to +-127."""
+    x = torch.round(samples.float() * INT8_STREAM_SCALE)
+    return x.clamp(-127.0, 127.0).to(torch.int8)
+
+
+def _ingest_cast(samples: torch.Tensor, buffer_dtype) -> torch.Tensor:
+    """Samples in the sliding buffer's dtype: float samples entering an int8
+    buffer quantize (a plain cast would truncate the +-1-scale waveform to
+    zero); int8 samples pass through; otherwise a plain cast."""
+    if buffer_dtype == torch.int8 and samples.dtype != torch.int8:
+        return quantize_int8(samples)
+    return samples.to(buffer_dtype)
+
+
+def _demod_buffer(buffer: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The buffer the align+demod kernels read: an int8 buffer as it is
+    (their int8 instantiation), a float one cast to ``compute_dtype``."""
+    return buffer if buffer.dtype == torch.int8 else buffer.to(compute_dtype)
 
 
 class StreamCarry(NamedTuple):
@@ -145,11 +188,31 @@ def _require_supported(config, track: bool) -> None:
         )
 
 
-def _require_float_buffer(dtype) -> None:
-    if dtype not in (torch.float32, torch.bfloat16):
+def _require_buffer_dtype(dtype) -> None:
+    if dtype not in _BUFFER_DTYPES:
+        raise ValueError(f"sliding buffers are float32, bfloat16 or int8, not {dtype}")
+
+
+def _refuse_int8(config, buffer_dtype, dynamic: bool) -> None:
+    """int8 carries serve the fixed-length MFSK receivers only, as the
+    reference's CLI scopes ``--int8`` (uncoded MFSK there)."""
+    from anet_torch.dsp.family import is_ofdm
+
+    if buffer_dtype != torch.int8:
+        return
+    if dynamic or is_ofdm(config):
+        kind = "OFDM" if is_ofdm(config) else "variable-length"
         raise NotImplementedError(
-            f"{dtype} sliding buffers: only float32 and bfloat16 are ported "
-            "(int8 buffers are ROADMAP queue 2, the int8 kernel variants)"
+            f"int8 carries for the {kind} receivers are not ported yet "
+            "(ROADMAP queue 1 item 17); use a float32 or bfloat16 carry"
+        )
+
+
+def _require_float_compute(compute_dtype) -> None:
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"compute_dtype must be float32 or bfloat16, got {compute_dtype}; for int8 "
+            "buffers pass init_carry(..., dtype=torch.int8) as the carry"
         )
 
 
@@ -195,10 +258,12 @@ def init_carry(
     device="cuda",
 ) -> StreamCarry:
     """Fresh stream state for ``batch_shape = (B,)`` streams on ``device``.
-    ``dtype`` is the sliding buffer's storage dtype (float32 or bfloat16);
-    receive_stream defaults it to its compute_dtype."""
+    ``dtype`` is the sliding buffer's storage dtype (float32, bfloat16, or
+    int8 for the fixed-length MFSK receivers: chunks quantize at the append
+    edge); receive_stream defaults it to its compute_dtype."""
     _require_supported(config, track)
-    _require_float_buffer(dtype)
+    _require_buffer_dtype(dtype)
+    _refuse_int8(config, dtype, dynamic=False)
     if len(batch_shape) != 1:
         raise ValueError(f"batch_shape must be (B,), got {batch_shape}")
     dev = resolve_device(device)
@@ -245,7 +310,11 @@ def _slide_buffer(carry: StreamCarry, chunk: torch.Tensor, t_frame: int, margin:
             f"carry buffer {length} < frame {t_frame} + chunk {chunk_size} + margin {margin}"
         )
     buffer = torch.cat(
-        [carry.buffer[..., chunk_size:live], chunk.to(carry.buffer.dtype), carry.buffer[..., live:]],
+        [
+            carry.buffer[..., chunk_size:live],
+            _ingest_cast(chunk, carry.buffer.dtype),
+            carry.buffer[..., live:],
+        ],
         dim=-1,
     )
     samples_seen = carry.samples_seen + chunk_size
@@ -395,41 +464,51 @@ def _next_carry(carry, buffer, samples_seen, detected, frame, start_abs, t_frame
     )
 
 
+@functools.lru_cache(maxsize=16)
+def _lock_template(config, compute_dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the preamble template in ``compute_dtype``, its energy) of the
+    merged locked step, made once per config, dtype and device: the same
+    tensor every chunk, so the int8 probe quantizes it once."""
+    t_c = preamble_template(config, device).to(compute_dtype)
+    return t_c, _template_energy(t_c)
+
+
 def _locked_step_merged(
-    config, carry, chunk, payload_len, detect_threshold, compute_dtype, t_frame, template
+    config, carry, chunk, payload_len, detect_threshold, compute_dtype, t_frame
 ) -> Tuple[StreamCarry, StreamStepOutput]:
     """The locked stream step on the card: ONE merged kernel
     (demod_probe_fused) probes the predicted start, servos the drift and
     demodulates there; on acquisition (any stream unlocked, expired, or
     failing its probe) the search kernel (sync_search_fused) and one
     align+demod (demod_at_fused) at the searched starts run as well.
-    Decoded frames are identical to _find_candidate_locked's path."""
+    Decoded frames are identical to _find_candidate_locked's path. An int8
+    buffer goes to both demod kernels as it is; only the search's segment
+    is cast to ``compute_dtype``."""
     from anet_torch.dsp.frame import data_symbols_for_payload, frame_result_from_tone_decisions
     from anet_torch.kernels import demod_at_fused, demod_probe_fused, sync_search_fused
 
     chunk_size = chunk.shape[-1]
-    k = template.shape[-1]
-    t_c = template.to(compute_dtype)
-    t_energy = _template_energy(t_c)
+    t_c, t_energy = _lock_template(config, compute_dtype, carry.buffer.device)
+    k = t_c.shape[-1]
     n_symbols = data_symbols_for_payload(config, payload_len)
     buffer, samples_seen, w0, buffer_abs0 = _slide_buffer(carry, chunk, t_frame, 0)
-    buf_c = buffer.to(compute_dtype)
+    buf_d = _demod_buffer(buffer, compute_dtype)
     length = t_frame + chunk_size
     pred_idx, in_win, mid_flight = _lock_prediction(carry, buffer_abs0, w0, chunk_size)
     probe_at = pred_idx.clamp(0, length - t_frame)
     st0 = _probe_base(probe_at, buffer.shape[-1], k)
     cmax, probe_off, energy, tone_p, best_p, total_p = demod_probe_fused(
-        config, buf_c, st0, n_symbols, t_c, n_lags=PROBE_LAGS
+        config, buf_d, st0, n_symbols, t_c, n_lags=PROBE_LAGS
     )
     probe_q = cmax * torch.rsqrt(t_energy * torch.maximum(energy, 1e-4 * t_energy))
     refined_idx = st0 + probe_off
     pred_valid = in_win & (probe_q >= detect_threshold)
 
     if bool((~(pred_valid | mid_flight)).any()):  # one host read per chunk
-        seg = buf_c[..., w0 : w0 + chunk_size + k - 1]
+        seg = buffer[..., w0 : w0 + chunk_size + k - 1].to(compute_dtype)
         bq, br = sync_search_fused(seg, t_c, chunk_size, t_energy)
         sel_idx = torch.where(pred_valid, refined_idx, w0 + br)
-        tone_s, best_s, total_s = demod_at_fused(config, buf_c, sel_idx, n_symbols)
+        tone_s, best_s, total_s = demod_at_fused(config, buf_d, sel_idx, n_symbols)
     else:
         bq = torch.zeros_like(probe_q)
         br = torch.zeros_like(probe_off)
@@ -491,6 +570,8 @@ def stream_step(
     from anet_torch.kernels import demod_at_energies_fused, demod_at_fused
 
     _require_supported(config, track)
+    _require_float_compute(compute_dtype)
+    _refuse_int8(config, carry.buffer.dtype, dynamic=False)
     chunk_size = chunk.shape[-1]
     t_frame, template, demod = family_geometry(
         config, payload_len, compute_dtype, carry.buffer.device
@@ -498,7 +579,7 @@ def stream_step(
     _check_carry_geometry(config, carry, chunk_size, payload_len)
     if lock and _merged_lock_supported(config, carry):
         return _locked_step_merged(
-            config, carry, chunk, payload_len, detect_threshold, compute_dtype, t_frame, template
+            config, carry, chunk, payload_len, detect_threshold, compute_dtype, t_frame
         )
     mid_flight = None
     if lock:
@@ -519,12 +600,16 @@ def stream_step(
             # winner: energies -> LLRs -> deinterleave -> Viterbi, as the
             # aligned coded receiver; only the gather of the aligned frame
             # disappears
-            energies = demod_at_energies_fused(config, buffer.to(compute_dtype), start_idx, n_symbols)
+            energies = demod_at_energies_fused(
+                config, _demod_buffer(buffer, compute_dtype), start_idx, n_symbols
+            )
             frame = frame_result_from_decisions(
                 config, decide_symbols(config, energies), energies, payload_len
             )
         else:
-            tone, best, total = demod_at_fused(config, buffer.to(compute_dtype), start_idx, n_symbols)
+            tone, best, total = demod_at_fused(
+                config, _demod_buffer(buffer, compute_dtype), start_idx, n_symbols
+            )
             frame = frame_result_from_tone_decisions(config, tone, best, total, payload_len)
     detected = candidate & frame.magic_ok & frame.header_crc_ok
     frame = frame._replace(ok=frame.ok & detected)
@@ -559,6 +644,7 @@ def _capture_chunks(capture, chunk_size: int, device):
 def _resume_or_init(config, carry, capture, chunk_size: int, payload_len: int, compute_dtype):
     """The caller's carry (checked to lie with the capture) or a fresh one
     with a ``compute_dtype`` buffer."""
+    _require_float_compute(compute_dtype)
     if carry is None:
         return init_carry(
             config, chunk_size, payload_len, capture.shape[:1], dtype=compute_dtype,
@@ -588,8 +674,10 @@ def receive_stream(
     N must be a multiple of chunk_size (pad with zeros host-side). ``carry``
     resumes a previous state (checkpoint/resume; it must lie on ``device``);
     a fresh one is built if None, with a ``compute_dtype`` buffer. The
-    capture is cast to the buffer's dtype once, up front. Returns the final
-    carry and the per-chunk outputs stacked along a leading chunk axis."""
+    capture is cast to the buffer's dtype once, up front: into an int8
+    carry a float capture quantizes (quantize_int8) and an int8 capture
+    passes through. Returns the final carry and the per-chunk outputs
+    stacked along a leading chunk axis."""
     if resident:
         raise NotImplementedError(
             "resident=True (the capture-resident scan) is not ported yet "
@@ -598,7 +686,7 @@ def receive_stream(
     _require_supported(config, track)
     capture, num_chunks = _capture_chunks(capture, chunk_size, device)
     carry = _resume_or_init(config, carry, capture, chunk_size, payload_len, compute_dtype)
-    cap = capture.to(carry.buffer.dtype).reshape(capture.shape[0], num_chunks, chunk_size)
+    cap = _ingest_cast(capture, carry.buffer.dtype).reshape(capture.shape[0], num_chunks, chunk_size)
     steps = []
     for i in range(num_chunks):
         carry, out = stream_step(
@@ -692,6 +780,7 @@ def stream_step_dynamic(
     from anet_torch.kernels import demod_at_energies_fused, demod_at_fused
 
     _require_supported(config, False)
+    _refuse_int8(config, carry.buffer.dtype, dynamic=True)
     chunk_size = chunk.shape[-1]
     t_max = frame_samples(config, max_payload_len)
     template = family_geometry(config, max_payload_len, compute_dtype, carry.buffer.device)[1]
@@ -871,8 +960,8 @@ _CARRY_DTYPES = {
 
 def carry_to_numpy(carry: StreamCarry) -> dict:
     """The carry as numpy arrays in the JAX package's checkpoint layout:
-    the buffer widened to float32 (npz has no bfloat16; lossless) and its
-    dtype name under ``buffer_dtype``."""
+    the buffer widened to float32 (npz has no bfloat16; lossless, int8
+    included) and its dtype name under ``buffer_dtype``."""
     fields = {k: v.detach().cpu().numpy() for k, v in carry._asdict().items() if k != "buffer"}
     fields["buffer"] = carry.buffer.detach().float().cpu().numpy()
     fields["buffer_dtype"] = np.asarray(str(carry.buffer.dtype).removeprefix("torch."))
@@ -891,7 +980,7 @@ def carry_from_numpy(fields: dict, device="cuda") -> StreamCarry:
     if "buffer_dtype" in fields:
         name = str(np.asarray(fields["buffer_dtype"]))
         buffer_dtype = getattr(torch, name, None)
-        _require_float_buffer(buffer_dtype)
+        _require_buffer_dtype(buffer_dtype)
     out = {}
     for name, dtype in _CARRY_DTYPES.items():
         if name in fields:

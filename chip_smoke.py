@@ -3,11 +3,15 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-1. build the eleven CUDA kernels from anet_torch/kernels/csrc (nvcc, sm_90a);
+1. build the fourteen CUDA kernels from anet_torch/kernels/csrc (thirteen
+   sources, nvcc, sm_90a);
 2. hold each kernel against its plain PyTorch version at its main path's
    shapes on a 256-stream subset, then time kernel and plain version at the
    full batch: the uncoded paths' four kernels on mfsk16-fast (payload 256,
-   chunk 36,352, buffer 76,288), the coded paths' three on mfsk4-coded
+   chunk 36,352, buffer 76,288), with the int8 instantiations of three of
+   them (frames quantized x127, buffers as an int8 carry holds them) and
+   sync_search_blockmax on the search's segment, the coded paths' three on
+   mfsk4-coded (with demod_at_energies_fused on int8 buffers)
    (payload 256, chunk 70,144, buffer 143,872, trellis 2,150 steps), and
    the three of the variable-length, oversized-window and one-shot paths on
    mfsk16-fast (correlate_fused at a chunk of two shortest frames, 23,552
@@ -16,7 +20,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    PyTorch call that computes the same function where there is one; and
    the OFDM equalizer ofdm_track_decide_fused on 256 drifted frames
    (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
-   and untracked, timed on ofdm-fast at B = 8,192;
+   and untracked, timed on ofdm-fast at B = 8,192; the batch-major
+   filterbank (tone_energies_fused, decide_tones_fused) on bf16 mfsk16-fast
+   data sections read in place, timed at B = 16,384;
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -38,7 +44,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 6. "aligned-window": 16,384 time-major frames followed by 8 symbols of
    noise through demodulate_frame_tm (decide_tones_tm); "oneshot": 2,048
    captures with the frame at a random start below 2,000 through
-   receive_frame and receive_frame_dynamic, then the same composition with
+   receive_frame (its filterbank tone_energies_fused) and
+   receive_frame_dynamic, then the same composition with
    aligned_gather(mode="roll") (gather_rows_fused), bit-equal frames;
 7. the OFDM family: "aligned-ofdm" (family.aligned_demod_fn on 8,192
    ofdm-fast frames, float32: 64 distinct streams, each resampled on the
@@ -51,10 +58,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (ofdm.receive_frame on 2,048 captures, frame start random below 2,000,
    20 dB) and "stream-dynamic-ofdm" (B = 2,048, payloads 64, 256, 128 in
    frame lock, cold and warm);
-8. the launch count of every kernel during phases 3-7, read per path (each
-   path's counts start at 0 just before it): every kernel of a path must
-   have launched there.
-The line before the last is a JSON object with each kernel's numbers, and
+8. the fifth slice: "aligned-int8" (the 16,384 frames of phase 3 quantized
+   x127, demodulate_frame_tm with int8 compute: decide_frame_tm's int8
+   instantiation), "stream-int8" (phase 4's capture quantized with
+   quantize_int8 into an int8 carry, cold and warm: demod_probe_fused and,
+   cold, demod_at_fused in int8, the search on a bf16 copy of the segment),
+   "stream-coded-int8" (the mfsk4-coded stream on an int8 carry, warm:
+   probe_at_fused on a bf16 copy, demod_at_energies_fused in int8,
+   viterbi_trellis), "aligned-bm" (demodulate_frame on 16,384
+   batch-major bf16 frames: tone_energies_fused), "aligned-bm-decide"
+   (the same batch through decide_tones_fused and
+   frame_result_from_tone_decisions; verdicts equal to aligned-bm's) and
+   "search-blockmax" (the cold stream's acquisition segment, B = 8,192:
+   sync_search_blockmax held against sync_search_fused);
+9. the launch count of every kernel during phases 3-8, read per path (each
+   path's counts start at 0 just before it; int8 launches count under
+   "<name>:int8"): every kernel of a path must have launched there.
+The line before the last is a JSON object with each kernel's numbers (the
+four kernels with an int8 instantiation carry its numbers under "int8"), and
 the last line the JSON verdict with the device's name.
 """
 
@@ -86,7 +107,14 @@ from anet_torch.profile_stream import (
     back_to_back_capture,
     warm_lock_carry,
 )
-from anet_torch.stream import _buffer_len, receive_stream, receive_stream_dynamic
+from anet_torch.stream import (
+    _buffer_len,
+    _slide_buffer,
+    init_carry,
+    quantize_int8,
+    receive_stream,
+    receive_stream_dynamic,
+)
 
 MODEL = "mfsk16-fast"
 CODED_MODEL = "mfsk4-coded"
@@ -111,6 +139,7 @@ GATE_EPS = 1e-4  # a gate may part from the plain version's only this close to a
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+INT8_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 SEED = 0
 DEV = torch.device("cuda")
 
@@ -126,7 +155,11 @@ REPLACES = {
     "decide_tones_tm": ("anet_torch/kernels/csrc/decide_tones_tm.cu", "anet/kernels/__init__.py:269"),
     "gather_rows_fused": ("anet_torch/kernels/csrc/gather_rows.cu", "anet/kernels/__init__.py:1415"),
     "ofdm_track_decide_fused": ("anet_torch/kernels/csrc/ofdm_track.cu", "anet/kernels/__init__.py:2648"),
+    "tone_energies_fused": ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:87"),
+    "decide_tones_fused": ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:172"),
+    "sync_search_blockmax": ("anet_torch/kernels/csrc/search_blockmax.cu", "anet/kernels/__init__.py:1300"),
 }
+INT8_KERNELS = ("decide_frame_tm", "demod_at_fused", "demod_at_energies_fused", "demod_probe_fused")
 
 
 def log(msg: str) -> None:
@@ -202,13 +235,21 @@ def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...]
     return worst_abs
 
 
-def plant_frames(waves: torch.Tensor, starts: torch.Tensor, length: int, noise: float, gen) -> torch.Tensor:
-    """[B, length] bf16 buffers: noise plus each stream's frame at its start."""
+def plant_frames(waves: torch.Tensor, starts: torch.Tensor, length: int, noise: float, gen):
+    """([B, length] bf16 buffers, the same as an int8 stream carry holds
+    them, quantize_int8): noise plus each stream's frame at its start."""
     b, t = waves.shape
     buf = noise * torch.randn(b, length, generator=gen, device=waves.device)
     idx = starts.long()[:, None] + torch.arange(t, device=waves.device)
     buf.scatter_add_(1, idx, waves)
-    return buf.to(torch.bfloat16)
+    return buf.to(torch.bfloat16), quantize_int8(buf)
+
+
+def quantize_x127(x: torch.Tensor) -> torch.Tensor:
+    """Time-major int8 frames [T, B] of float frames [B, T]: round(x.T * 127
+    / max|x|), the JAX package's quantized ingest of aligned frames
+    (bench.py:388-391)."""
+    return torch.round(x.T * (127.0 / x.abs().max())).to(torch.int8).contiguous()
 
 
 def phase_kernels(cfg, gen) -> dict:
@@ -231,7 +272,9 @@ def phase_kernels(cfg, gen) -> dict:
     results = {}
 
     # decide_frame_tm at operating noise
-    x_tm = (waves + 0.3 * torch.randn(waves.shape, generator=gen, device=dev)).to(torch.bfloat16).T.contiguous()
+    x_f = waves + 0.3 * torch.randn(waves.shape, generator=gen, device=dev)
+    x_tm, x8_tm = x_f.to(torch.bfloat16).T.contiguous(), quantize_x127(x_f)
+    del x_f
     got = kernels.decide_frame_tm(cfg, x_tm, PAYLOAD, preamble_offset=pre)
     want = kernels.decide_frame_tm_ref(cfg, x_tm, PAYLOAD, preamble_offset=pre)
     parity = ((got[1].long() & 1) != (want[1].long() & 1)).sum()
@@ -245,13 +288,23 @@ def phase_kernels(cfg, gen) -> dict:
     starts = torch.randint(3, chunk - 4, (COMPARE_B,), generator=gen, device=dev)
     starts[:8] = torch.tensor([126, 127, 128, 129, 126 + 128 * 100, 127 + 128 * 100,
                                128 + 128 * 200, 129 + 128 * 200], device=dev)
-    buf = plant_frames(waves, starts, length, 0.05, gen)
+    buf, buf8 = plant_frames(waves, starts, length, 0.05, gen)
     seg = buf[:, 1 : 1 + chunk + k - 1]
     got = kernels.sync_search_fused(seg, tpl, chunk, te)
     want = kernels.sync_search_fused_ref(seg, tpl, chunk, te)
     if not torch.equal(got[1], (starts - 1).int()):
         raise AssertionError("sync_search_fused did not find the planted preambles")
     results["sync_search_fused"] = {"max_abs_err": compare("sync_search_fused", got, want, (1,), (0,))}
+
+    # the block maxima of the same search: their maximum is the search's best
+    # quality (one rounding of the same product), the winning block its lag's
+    bm = kernels.sync_search_blockmax(seg, tpl, chunk, te)
+    if not (torch.equal(bm.amax(-1), got[0]) and torch.equal(bm.argmax(-1).int(), got[1] // 128)):
+        raise AssertionError("sync_search_blockmax: block maxima disagree with sync_search_fused")
+    results["sync_search_blockmax"] = {
+        "max_abs_err": compare("sync_search_blockmax", (bm,), (kernels.sync_search_blockmax_ref(seg, tpl, chunk, te),),
+                               (), (0,))
+    }
 
     got = kernels.demod_at_fused(cfg, buf, starts, n_sym)
     want = kernels.demod_at_fused_ref(cfg, buf, starts, n_sym)
@@ -266,13 +319,31 @@ def phase_kernels(cfg, gen) -> dict:
         raise AssertionError("demod_probe_fused servo missed the planted starts")
     results["demod_probe_fused"] = {"max_abs_err": compare("demod_probe_fused", got, want, (1, 3), (0, 2, 4, 5))}
 
+    # the int8 instantiations on the same frames: the aligned batch quantized
+    # x127 over its maximum, the stream buffers as an int8 carry holds them
+    got = kernels.decide_frame_tm(cfg, x8_tm, PAYLOAD, preamble_offset=pre)
+    want = kernels.decide_frame_tm_ref(cfg, x8_tm, PAYLOAD, preamble_offset=pre)
+    results["decide_frame_tm:int8"] = {
+        "max_abs_err": compare("decide_frame_tm int8", got, want, exact=(0, 1), close=(2,))
+    }
+    got = kernels.demod_at_fused(cfg, buf8, starts, n_sym)
+    want = kernels.demod_at_fused_ref(cfg, buf8, starts, n_sym)
+    results["demod_at_fused:int8"] = {"max_abs_err": compare("demod_at_fused int8", got, want, (0,), (1, 2))}
+    got = kernels.demod_probe_fused(cfg, buf8, st0, n_sym, tpl, n_lags=N_LAGS)
+    want = kernels.demod_probe_fused_ref(cfg, buf8, st0, n_sym, tpl, n_lags=N_LAGS)
+    if not bool((got[1] == 2).all()):
+        raise AssertionError("demod_probe_fused int8 servo missed the planted starts")
+    results["demod_probe_fused:int8"] = {
+        "max_abs_err": compare("demod_probe_fused int8", got, want, (1, 3), (0, 2, 4, 5))
+    }
+
     # timings at the full main-path batch (inputs tiled from the subset)
     reps_a, reps_s = ALIGNED_B // COMPARE_B, STREAM_B // COMPARE_B
-    x_full = x_tm.repeat(1, reps_a)
-    buf_full = buf.repeat(reps_s, 1)
+    x_full, x8_full = x_tm.repeat(1, reps_a), x8_tm.repeat(1, reps_a)
+    buf_full, buf8_full = buf.repeat(reps_s, 1), buf8.repeat(reps_s, 1)
     seg_full = buf_full[:, 1 : 1 + chunk + k - 1]
     st_full, st0_full = starts.repeat(reps_s), st0.repeat(reps_s)
-    del x_tm, buf, waves
+    del x_tm, x8_tm, buf, buf8, waves
     calls = {
         "decide_frame_tm": (
             lambda f: f(cfg, x_full, PAYLOAD, preamble_offset=pre),
@@ -290,6 +361,22 @@ def phase_kernels(cfg, gen) -> dict:
             lambda f: f(cfg, buf_full, st0_full, n_sym, tpl, n_lags=N_LAGS),
             kernels.demod_probe_fused, kernels.demod_probe_fused_ref,
         ),
+        "sync_search_blockmax": (
+            lambda f: f(seg_full, tpl, chunk, te),
+            kernels.sync_search_blockmax, kernels.sync_search_blockmax_ref,
+        ),
+        "decide_frame_tm:int8": (
+            lambda f: f(cfg, x8_full, PAYLOAD, preamble_offset=pre),
+            kernels.decide_frame_tm, kernels.decide_frame_tm_ref,
+        ),
+        "demod_at_fused:int8": (
+            lambda f: f(cfg, buf8_full, st_full, n_sym),
+            kernels.demod_at_fused, kernels.demod_at_fused_ref,
+        ),
+        "demod_probe_fused:int8": (
+            lambda f: f(cfg, buf8_full, st0_full, n_sym, tpl, n_lags=N_LAGS),
+            kernels.demod_probe_fused, kernels.demod_probe_fused_ref,
+        ),
     }
     # bounds: each input byte read once, each output byte written once
     flops_sym = 2 * sps * 2 * m  # filterbank flops per symbol
@@ -299,14 +386,24 @@ def phase_kernels(cfg, gen) -> dict:
     pw_e = -(-(k + N_LAGS - 1) // 128) + 1
     lo = torch.minimum(st0_full // 128 * 128, st0_full)
     hi = torch.maximum(st0_full // 128 * 128 + pw_e * 128, st0_full + 2 + pre + n_sym * sps)
-    probe_bytes = float((hi - lo).sum()) * 2
+    probe_samples = float((hi - lo).sum())
+    probe_bytes = probe_samples * 2
+    probe_ops = b_s * (2 * N_LAGS * k + 2 * pw_e * 128 + n_sym * flops_sym)
     work = {
         "decide_frame_tm": (n_sym * sps * b_a * 2 + (n_tiles + 64 + 8) * b_a * 4, n_sym * flops_sym * b_a),
         "sync_search_fused": (b_s * (chunk + k - 1) * 2 + 8 * b_s, 2 * k * chunk * b_s),
         "demod_at_fused": (b_s * n_sym * (sps * 2 + out_sym) + 4 * b_s, n_sym * flops_sym * b_s),
-        "demod_probe_fused": (
-            probe_bytes + b_s * (16 + n_sym * out_sym),
-            b_s * (2 * N_LAGS * k + 2 * pw_e * 128 + n_sym * flops_sym),
+        "demod_probe_fused": (probe_bytes + b_s * (16 + n_sym * out_sym), probe_ops),
+        "sync_search_blockmax": (b_s * (chunk + k - 1) * 2 + b_s * chunk // 128 * 4, 2 * k * chunk * b_s),
+        # int8: one byte a sample, int8 products at the int8 tensor-core peak
+        "decide_frame_tm:int8": (
+            n_sym * sps * b_a + (n_tiles + 64 + 8) * b_a * 4, n_sym * flops_sym * b_a, INT8_OPS_S,
+        ),
+        "demod_at_fused:int8": (
+            b_s * n_sym * (sps + out_sym) + 4 * b_s, n_sym * flops_sym * b_s, INT8_OPS_S,
+        ),
+        "demod_probe_fused:int8": (
+            probe_samples + b_s * (16 + n_sym * out_sym), probe_ops, INT8_OPS_S,
         ),
     }
     time_and_bound(results, calls, work)
@@ -339,7 +436,7 @@ def phase_kernels_coded(cfg, gen) -> dict:
     starts = torch.randint(3, chunk - 4, (COMPARE_B,), generator=gen, device=DEV)
     starts[:8] = torch.tensor([126, 127, 128, 129, 126 + 128 * 100, 127 + 128 * 100,
                                128 + 128 * 200, 129 + 128 * 200], device=DEV)
-    buf = plant_frames(waves, starts, length, 0.3, gen)
+    buf, buf8 = plant_frames(waves, starts, length, 0.3, gen)
     st0 = starts - 2
     if not {124, 125, 126, 127} <= set((st0 % 128).tolist()):
         raise AssertionError("probe residues 124..127 not covered")
@@ -365,6 +462,14 @@ def phase_kernels_coded(cfg, gen) -> dict:
     results["demod_at_energies_fused"] = {
         "max_abs_err": compare("demod_at_energies_fused", (got,), (want,), (), (0,))
     }
+    got8 = kernels.demod_at_energies_fused(cfg, buf8, starts, n_sym)
+    want8 = kernels.demod_at_energies_fused_ref(cfg, buf8, starts, n_sym)
+    if not torch.equal(got8.argmax(-1), want8.argmax(-1)):
+        raise AssertionError("demod_at_energies_fused int8: winning tones differ")
+    results["demod_at_energies_fused:int8"] = {
+        "max_abs_err": compare("demod_at_energies_fused int8", (got8,), (want8,), (), (0,))
+    }
+    del got8, want8
 
     # the trellis on the LLRs of those noisy coded frames: bits compared exactly
     air = bit_llrs(cfg, got)[..., : tframe.data_section_coded_bits(cfg, PAYLOAD)]
@@ -380,8 +485,9 @@ def phase_kernels_coded(cfg, gen) -> dict:
 
     reps = STREAM_B // COMPARE_B
     buf_full, st_full, st0_full = buf.repeat(reps, 1), starts.repeat(reps), st0.repeat(reps)
+    buf8_full = buf8.repeat(reps, 1)
     rx_full = rx.repeat(reps, 1, 1)
-    del buf, waves, got, want, air
+    del buf, buf8, waves, got, want, air
     calls = {
         "probe_at_fused": (
             lambda f: f(buf_full, st0_full, tpl, te, n_lags=N_LAGS),
@@ -389,6 +495,10 @@ def phase_kernels_coded(cfg, gen) -> dict:
         ),
         "demod_at_energies_fused": (
             lambda f: f(cfg, buf_full, st_full, n_sym),
+            kernels.demod_at_energies_fused, kernels.demod_at_energies_fused_ref,
+        ),
+        "demod_at_energies_fused:int8": (
+            lambda f: f(cfg, buf8_full, st_full, n_sym),
             kernels.demod_at_energies_fused, kernels.demod_at_energies_fused_ref,
         ),
         "viterbi_trellis": (
@@ -407,7 +517,51 @@ def phase_kernels_coded(cfg, gen) -> dict:
         "demod_at_energies_fused": (
             b * (n_sym * (sps * 2 + m * 4) + 4), b * n_sym * 2 * sps * 2 * m,
         ),
+        "demod_at_energies_fused:int8": (
+            b * (n_sym * (sps + m * 4) + 4), b * n_sym * 2 * sps * 2 * m, INT8_OPS_S,
+        ),
         "viterbi_trellis": (b * t_steps * (8 + 1) + 64 * 4 * 4, b * t_steps * acs_ops, F32_FLOPS_S),
+    }
+    time_and_bound(results, calls, work)
+    return results
+
+
+def phase_kernels_batch_major(cfg, gen) -> dict:
+    """Phase 2 for the batch-major filterbank (mfsk16-fast): bf16 frames at
+    operating noise, their data sections read in place past the preamble;
+    timed at B = 16,384."""
+    sps, m = cfg.samples_per_symbol, cfg.num_tones
+    n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+    pre = cfg.preamble_samples
+    pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    w = transmit(cfg, pay, device=DEV)
+    x = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).to(torch.bfloat16)
+    data = x[:, pre:]
+    results = {}
+    got = kernels.tone_energies_fused(cfg, data, compute_dtype=torch.bfloat16)
+    want = kernels.tone_energies_fused_ref(cfg, data, compute_dtype=torch.bfloat16)
+    if not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise AssertionError("tone_energies_fused: winning tones differ")
+    results["tone_energies_fused"] = {"max_abs_err": compare("tone_energies_fused", (got,), (want,), (), (0,))}
+    got = kernels.decide_tones_fused(cfg, data, compute_dtype=torch.bfloat16)
+    want = kernels.decide_tones_fused_ref(cfg, data, compute_dtype=torch.bfloat16)
+    results["decide_tones_fused"] = {"max_abs_err": compare("decide_tones_fused", got, want, (0,), (1, 2))}
+    data_full = x.repeat(ALIGNED_B // COMPARE_B, 1)[:, pre:]
+    del w, x, data, got, want
+    calls = {
+        "tone_energies_fused": (
+            lambda f: f(cfg, data_full, compute_dtype=torch.bfloat16),
+            kernels.tone_energies_fused, kernels.tone_energies_fused_ref,
+        ),
+        "decide_tones_fused": (
+            lambda f: f(cfg, data_full, compute_dtype=torch.bfloat16),
+            kernels.decide_tones_fused, kernels.decide_tones_fused_ref,
+        ),
+    }
+    b, flops = ALIGNED_B, n_sym * 2 * sps * 2 * m * ALIGNED_B
+    work = {
+        "tone_energies_fused": (b * n_sym * (sps * 2 + m * 4), flops),
+        "decide_tones_fused": (b * n_sym * (sps * 2 + 12), flops),
     }
     time_and_bound(results, calls, work)
     return results
@@ -538,12 +692,19 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     return results
 
 
-def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iters: int = 5) -> None:
-    """Phase 3: the aligned time-major receiver at the full batch."""
+def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iters: int = 5,
+                  int8: bool = False) -> None:
+    """Phase 3: the aligned time-major receiver at the full batch; with
+    ``int8`` the quantized-ingest path (frames quantized x127 over the
+    batch's maximum, int8 compute)."""
     t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
     pay = torch.randint(0, 256, (batch, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
-    x_tm = transmit(cfg, pay, device=DEV).to(torch.bfloat16).T.contiguous()  # one untimed ingest cast
-    res = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV)
+    waves = transmit(cfg, pay, device=DEV)
+    # one untimed ingest cast
+    x_tm = quantize_x127(waves) if int8 else waves.to(torch.bfloat16).T.contiguous()
+    del waves
+    kw = {"compute_dtype": torch.int8} if int8 else {}
+    res = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV, **kw)
     ok_frac = float(res.ok.float().mean())
     if ok_frac != 1.0 or not torch.equal(res.payload, pay):
         raise AssertionError(f"{label}: frames_ok_fraction {ok_frac}, payloads equal "
@@ -552,31 +713,40 @@ def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iter
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        n_ok = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV).ok.sum()
+        n_ok = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV, **kw).ok.sum()
     int(n_ok)
     dt = time.perf_counter() - t0
     log(f"{label}: B {batch}, frames_ok_fraction {ok_frac}, "
         f"{batch * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
 
 
-def phase_stream(cfg, gen, label: str = "stream") -> None:
+def phase_stream(cfg, gen, label: str = "stream", int8: bool = False,
+                 runs: tuple[str, ...] = ("cold", "warm-lock")) -> None:
     """Phase 4: the locked streaming receiver at B = 8,192, cold and warm
-    (either family)."""
+    (either family); with ``int8`` on an int8 carry, the capture quantized
+    once at the ingest edge (quantize_int8)."""
     t_frame = family.frame_samples(cfg, PAYLOAD)
     chunk = t_frame // 128 * 128
     total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
-    cap = torch.zeros(STREAM_B, total, dtype=torch.bfloat16, device=DEV)
+    dtype = torch.int8 if int8 else torch.bfloat16
+    ingest = quantize_int8 if int8 else (lambda w: w.to(torch.bfloat16))
+    cap = torch.zeros(STREAM_B, total, dtype=dtype, device=DEV)
     tx = family.transmit_fn(cfg, DEV)
     sent = []
     for i in range(N_FRAMES):
         pay = torch.randint(0, 256, (STREAM_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
         pos = GAP0 + i * t_frame
-        cap[:, pos : pos + t_frame] = tx(pay).to(torch.bfloat16)
+        cap[:, pos : pos + t_frame] = ingest(tx(pay))
         sent.append(pay)
     sent = torch.stack(sent)  # [frames, B, payload]
-    log(f"{label}: B {STREAM_B}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), chunk {chunk}")
-    warm = warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV)
-    for run, carry in (("cold", None), ("warm-lock", warm)):
+    log(f"{label}: B {STREAM_B}, capture {total} samples {str(dtype).removeprefix('torch.')} "
+        f"({cap.numel() * cap.element_size() / 1e9:.2f} GB), chunk {chunk}")
+    fresh = {
+        "cold": lambda: init_carry(cfg, chunk, PAYLOAD, (STREAM_B,), dtype=dtype, device=DEV) if int8 else None,
+        "warm-lock": lambda: warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV, dtype),
+    }
+    for run in runs:
+        carry = fresh[run]()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16, lock=True,
@@ -592,7 +762,7 @@ def phase_stream(cfg, gen, label: str = "stream") -> None:
             raise AssertionError(f"{label} {run}: frames_ok {frames_ok}, payloads right {right}")
         if run == "cold" and kernels.launch_counts["sync_search_fused"] == 0:
             raise AssertionError(f"{label} cold: the search kernel never launched")
-        del res
+        del res, carry
 
 
 def frames_in_time_order(steps, n_frames: int):
@@ -730,6 +900,91 @@ def phase_oneshot(cfg, gen) -> None:
         f"{b * n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
     if n_ok != b or not right:
         raise AssertionError(f"oneshot receive_frame_dynamic: ok {n_ok} of {b}, right {right}")
+
+
+@functools.lru_cache(maxsize=1)
+def batch_major_frames(cfg):
+    """(payloads, bf16 frames [ALIGNED_B, T]) of the batch-major aligned
+    paths, made once from their own seed so both paths get the same."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    pay = torch.randint(0, 256, (ALIGNED_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    return pay, transmit(cfg, pay, device=DEV).to(torch.bfloat16)  # one untimed ingest cast
+
+
+BM_VERDICTS = {}  # the aligned-bm path's verdicts, which aligned-bm-decide must equal
+
+
+def phase_aligned_bm(cfg, gen, decide: bool = False, iters: int = 5) -> None:
+    """The batch-major aligned receiver on 16,384 bf16 mfsk16-fast frames:
+    "aligned-bm", demodulate_frame (tone_energies_fused),
+    or with ``decide`` "aligned-bm-decide", frame_result_from_tone_decisions
+    of decide_tones_fused on the data sections read in place."""
+    pay, x = batch_major_frames(cfg)
+    pre = cfg.preamble_samples
+    label = "aligned-bm-decide" if decide else "aligned-bm"
+
+    def demod():
+        if decide:
+            tone, best, total = kernels.decide_tones_fused(cfg, x[:, pre:], compute_dtype=torch.bfloat16)
+            return tframe.frame_result_from_tone_decisions(cfg, tone, best, total, PAYLOAD)
+        return tframe.demodulate_frame(cfg, x, PAYLOAD, compute_dtype=torch.bfloat16, device=DEV)
+
+    res = demod()
+    ok_frac = float(res.ok.float().mean())
+    verdicts = torch.stack([res.magic_ok, res.length_ok, res.header_crc_ok, res.payload_crc_ok, res.ok])
+    if ok_frac != 1.0 or not torch.equal(res.payload, pay):
+        raise AssertionError(f"{label}: frames_ok_fraction {ok_frac}, payloads equal {torch.equal(res.payload, pay)}")
+    if decide and not torch.equal(verdicts, BM_VERDICTS.pop("aligned-bm")):
+        raise AssertionError("aligned-bm-decide: verdicts differ from aligned-bm's")
+    BM_VERDICTS.setdefault("aligned-bm", verdicts)
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        n_ok = demod().ok.sum()
+    int(n_ok)
+    dt = time.perf_counter() - t0
+    t_frame = x.shape[1]
+    log(f"{label}: B {ALIGNED_B}, frames_ok_fraction {ok_frac}, "
+        f"{ALIGNED_B * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
+    if decide:
+        batch_major_frames.cache_clear()
+
+
+def phase_search_blockmax(cfg, gen) -> None:
+    """"search-blockmax": the cold stream's acquisition segment (B = 8,192
+    streams of phase 4's layout, bf16, slid into a fresh carry chunk by
+    chunk as the stream step does, up to the chunk in which the first frame
+    completes), its block maxima (sync_search_blockmax) held against the
+    fused search (sync_search_fused) on the same segment: the maximum over
+    blocks within rtol 1e-3 of the best quality, the winning block holding
+    the best lag wherever no two blocks tie, that lag the planted one."""
+    t_frame = family.frame_samples(cfg, PAYLOAD)
+    chunk = t_frame // 128 * 128
+    pay = torch.randint(0, 256, (STREAM_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    cap = torch.zeros(STREAM_B, 2 * chunk, dtype=torch.bfloat16, device=DEV)
+    cap[:, GAP0 : GAP0 + t_frame] = family.transmit_fn(cfg, DEV)(pay).to(torch.bfloat16)
+    carry = init_carry(cfg, chunk, PAYLOAD, (STREAM_B,), dtype=torch.bfloat16, device=DEV)
+    for i in range(2):
+        buffer, seen, w0, abs0 = _slide_buffer(carry, cap[:, i * chunk : (i + 1) * chunk], t_frame, 0)
+        carry = carry._replace(buffer=buffer, samples_seen=seen)
+    del cap
+    tpl = preamble_waveform(cfg, device=DEV).to(torch.bfloat16)
+    k = tpl.shape[-1]
+    te = float((tpl.float() ** 2).sum())
+    seg = buffer[:, w0 : w0 + chunk + k - 1]
+    bm = kernels.sync_search_blockmax(seg, tpl, chunk, te)
+    best_q, best_i = kernels.sync_search_fused(seg, tpl, chunk, te)
+    top = bm.amax(-1, keepdim=True)
+    untied = (bm == top).sum(-1) == 1
+    planted = GAP0 - int(abs0[0]) - w0
+    right = (bool(((top[:, 0] - best_q).abs() <= 1e-3 * best_q).all())
+             and torch.equal(bm.argmax(-1)[untied].int(), best_i[untied] // 128)
+             and bool((best_i == planted).all()))
+    log(f"search-blockmax: B {STREAM_B}, out_len {chunk}, {bm.shape[1]} blocks, untied {int(untied.sum())}, "
+        f"block maxima right {right}")
+    if not right:
+        raise AssertionError("search-blockmax: block maxima disagree with the fused search")
 
 
 # --- the OFDM family -----------------------------------------------------------
@@ -944,7 +1199,7 @@ PATHS = {
         ("probe_at_fused", "demod_at_energies_fused", "viterbi_trellis", "sync_search_fused"),
     ),
     "aligned-window": (MODEL, phase_aligned_window, ("decide_tones_tm",)),
-    "oneshot": (MODEL, phase_oneshot, ("gather_rows_fused",)),
+    "oneshot": (MODEL, phase_oneshot, ("gather_rows_fused", "tone_energies_fused")),
     "aligned-ofdm": (
         OFDM_MODEL,
         lambda cfg, gen: phase_aligned_ofdm(cfg, "aligned-ofdm", STREAM_B),
@@ -971,6 +1226,26 @@ PATHS = {
         lambda cfg, gen: phase_stream_dynamic(cfg, gen, "stream-dynamic-ofdm", OFDM_DYNAMIC_LENS, True, ONESHOT_B),
         ("probe_at_fused", "sync_search_fused", "ofdm_track_decide_fused"),
     ),
+    "aligned-int8": (
+        MODEL,
+        lambda cfg, gen: phase_aligned(cfg, gen, "aligned-int8", int8=True),
+        ("decide_frame_tm:int8",),
+    ),
+    "stream-int8": (
+        MODEL,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-int8", int8=True),
+        ("demod_probe_fused:int8", "sync_search_fused", "demod_at_fused:int8"),
+    ),
+    "stream-coded-int8": (
+        CODED_MODEL,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-coded-int8", int8=True, runs=("warm-lock",)),
+        ("probe_at_fused", "demod_at_energies_fused:int8", "viterbi_trellis"),
+    ),
+    "aligned-bm": (MODEL, phase_aligned_bm, ("tone_energies_fused",)),
+    "aligned-bm-decide": (
+        MODEL, lambda cfg, gen: phase_aligned_bm(cfg, gen, decide=True), ("decide_tones_fused",),
+    ),
+    "search-blockmax": (MODEL, phase_search_blockmax, ("sync_search_blockmax",)),
 }
 
 
@@ -1000,7 +1275,9 @@ def main() -> int:
     results.update(phase_kernels_dynamic(get_model(MODEL).config, gen))
     torch.cuda.empty_cache()
     results.update(phase_kernels_ofdm(gen))
-    counts = dict.fromkeys(REPLACES, 0)
+    torch.cuda.empty_cache()
+    results.update(phase_kernels_batch_major(get_model(MODEL).config, gen))
+    counts = dict.fromkeys(kernels.launch_counts, 0)
     for path, (model, phase, path_kernels) in PATHS.items():
         torch.cuda.empty_cache()
         kernels.reset_launch_counts()
@@ -1015,12 +1292,21 @@ def main() -> int:
     rows = []
     for name, (source, replaces) in REPLACES.items():
         r = results[name]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
-        })
+        }
+        if name in INT8_KERNELS:
+            r8 = results[f"{name}:int8"]
+            row["int8"] = {
+                "launches": counts[f"{name}:int8"], "max_abs_err": r8["max_abs_err"], "ms": r8["ms"],
+                "plain_ms": r8["plain_ms"], "bound_ms": r8["bound_ms"], "bound_by": r8["bound_by"],
+            }
+        if row["launches"] == 0 or row.get("int8", {}).get("launches") == 0:
+            raise AssertionError(f"{name}: launched no time on the main paths")
+        rows.append(row)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

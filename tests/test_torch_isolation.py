@@ -46,6 +46,7 @@ def _entry_points():
     ocfg = get_model("ofdm-fast").config
     pay = np.zeros((1, 4), np.uint8)
     t_ofdm = ocfg.frame_num_samples(4)
+    t_mfsk = frame.frame_num_samples(cfg, 4)
     return {
         "ofdm.transmit": lambda: ofdm.transmit(ocfg, pay),
         "ofdm.preamble_waveform": lambda: ofdm.preamble_waveform(ocfg),
@@ -58,6 +59,14 @@ def _entry_points():
         "ofdm.receive_stream": lambda: receive_stream(ocfg, np.zeros((1, 1024), np.float32), 1024, 4),
         "transmit": lambda: pipeline.transmit(cfg, pay),
         "demodulate_frame_tm": lambda: frame.demodulate_frame_tm(cfg, np.zeros((4096, 1), np.float32), 4),
+        "demodulate_frame_tm(int8)": lambda: frame.demodulate_frame_tm(
+            cfg, np.zeros((t_mfsk, 1), np.int8), 4, compute_dtype=torch.int8
+        ),
+        "demodulate_frame": lambda: frame.demodulate_frame(cfg, np.zeros((1, t_mfsk), np.float32), 4),
+        "demodulate_frame(bf16)": lambda: frame.demodulate_frame(
+            cfg, np.zeros((1, t_mfsk), np.float32), 4, compute_dtype=torch.bfloat16
+        ),
+        "init_carry(int8)": lambda: init_carry(cfg, 1024, 4, dtype=torch.int8),
         "preamble_waveform": lambda: preamble_waveform(cfg),
         "init_carry": lambda: init_carry(cfg, 1024, 4),
         "receive_stream": lambda: receive_stream(cfg, np.zeros((1, 1024), np.float32), 1024, 4),

@@ -406,3 +406,170 @@ def test_cuda_ofdm_kernel_and_receivers_match_cpu(cuda, model):
     assert bool(on_cpu.ok.all()) and bool(on_card.ok.all()) and bool(tm.ok.all())
     assert np.array_equal(on_card.payload.cpu().numpy(), pay) and np.array_equal(tm.payload.cpu().numpy(), pay)
     torch.testing.assert_close(on_card.confidence.cpu(), on_cpu.confidence, rtol=1e-4, atol=0)
+
+
+# --- the fifth slice: int8 instantiations, the batch-major filterbank, the ----
+# --- block maxima ---------------------------------------------------------------
+
+
+def _quantized(x):
+    from anet_torch.stream import quantize_int8
+
+    return quantize_int8(torch.as_tensor(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded"])
+def test_cuda_int8_kernels_match_plain_versions(cuda, model):
+    """The int8 instantiations against their plain versions on the card:
+    the I/Q sums are exact integers in both and I*I + Q*Q is rounded
+    after each operation in both, so words, CRC counts, tones, offsets,
+    energies, best and cmax are bit-equal; sums over tones and symbols in
+    another order within rtol 1e-5. int8 launches count under their own
+    keys."""
+    cfg = get_model(model).config
+    rng = np.random.default_rng(81)
+    n_sym = data_symbols_for_payload(cfg, PAY)
+    before = dict(tk.launch_counts)
+    if cfg.fec == "none":
+        pay = rng.integers(0, 256, (300, PAY), dtype=np.uint8)
+        w = transmit(cfg, pay, device="cpu").numpy()
+        w = w + 0.3 * rng.standard_normal(w.shape).astype(np.float32)
+        x8 = torch.from_numpy(np.round(w.T * (127.0 / np.abs(w).max())).astype(np.int8)).to(cuda).contiguous()
+        pre = cfg.preamble_samples
+        got = tk.decide_frame_tm(cfg, x8, PAY, preamble_offset=pre)
+        want = tk.decide_frame_tm_ref(cfg, x8, PAY, preamble_offset=pre)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    starts = np.array([3, 126, 127, 128, 129, 1000, 4000], np.int32)
+    length = tstream._buffer_len(cfg, CHUNK, PAY)
+    pay = rng.integers(0, 256, (len(starts), PAY), dtype=np.uint8)
+    w = transmit(cfg, pay, device="cpu").numpy()
+    buf = 0.05 * rng.standard_normal((len(starts), length)).astype(np.float32)
+    for i, s in enumerate(starts):
+        buf[i, s : s + w.shape[1]] += w[i]
+    buf8 = _quantized(buf).to(cuda)
+    st = torch.from_numpy(starts).to(cuda)
+    got = tk.demod_at_fused(cfg, buf8, st, n_sym)
+    want = tk.demod_at_fused_ref(cfg, buf8, st, n_sym)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    e = tk.demod_at_energies_fused(cfg, buf8, st, n_sym)
+    assert torch.equal(e, tk.demod_at_energies_fused_ref(cfg, buf8, st, n_sym))
+    assert torch.equal(e.argmax(-1).int(), got[0])
+    tpl = preamble_waveform(cfg, device=cuda).to(torch.bfloat16)
+    got = tk.demod_probe_fused(cfg, buf8, st - 2, n_sym, tpl)
+    want = tk.demod_probe_fused_ref(cfg, buf8, st - 2, n_sym, tpl)
+    assert bool((got[1] == 2).all())
+    for j in (0, 1, 3, 4):
+        assert torch.equal(got[j], want[j]), j
+    for j in (2, 5):
+        torch.testing.assert_close(got[j], want[j], rtol=1e-5, atol=0)
+    torch.cuda.synchronize()
+    launched = {k: tk.launch_counts[k] - before[k] for k in before if tk.launch_counts[k] != before[k]}
+    expect = {"demod_at_fused:int8": 1, "demod_at_energies_fused:int8": 1, "demod_probe_fused:int8": 1}
+    if cfg.fec == "none":
+        expect["decide_frame_tm:int8"] = 1
+    assert launched == expect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded", "mfsk32-dense", "mfsk8-audible"])
+def test_cuda_batch_major_filterbank_matches_plain_versions(cuda, dtype, model):
+    """tone_energies_fused and decide_tones_fused on the data sections of
+    whole batch-major frames (a strided view past the preamble): tones and
+    argmaxes equal, energies within rtol 1e-5 (float32 sums in another
+    order); then demodulate_frame on the card against the CPU. The last two
+    models take the kernels' plain per-symbol form (32 tones; 48 samples a
+    symbol)."""
+    from anet_torch.dsp import frame as tframe
+
+    cfg = get_model(model).config
+    rng = np.random.default_rng(83)
+    pay = rng.integers(0, 256, (257, PAY), dtype=np.uint8)
+    w = transmit(cfg, pay, device="cpu")
+    x = (w + 0.3 * torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32))).to(cuda)
+    data = x[:, cfg.preamble_samples :]
+    before = dict(tk.launch_counts)
+    e = tk.tone_energies_fused(cfg, data, compute_dtype=dtype)
+    want = tk.tone_energies_fused_ref(cfg, data, compute_dtype=dtype)
+    assert torch.equal(e.argmax(-1), want.argmax(-1))
+    torch.testing.assert_close(e, want, rtol=1e-5, atol=1e-5 * float(want.max()))
+    got = tk.decide_tones_fused(cfg, data, compute_dtype=dtype)
+    ref = tk.decide_tones_fused_ref(cfg, data, compute_dtype=dtype)
+    assert torch.equal(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    on_card = tframe.demodulate_frame(cfg, x, PAY, compute_dtype=dtype, device=cuda)
+    on_cpu = tframe.demodulate_frame(cfg, x.cpu(), PAY, compute_dtype=dtype, device="cpu")
+    assert bool(on_card.ok.all()) and torch.equal(on_card.payload.cpu(), on_cpu.payload)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["tone_energies_fused"] - before["tone_energies_fused"] == 2
+    assert tk.launch_counts["decide_tones_fused"] - before["decide_tones_fused"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_search_blockmax_matches_plain_version(cuda, dtype):
+    """The block maxima against the plain version (rtol 1e-3: float32 sums
+    in another order over bf16 or float32 inputs), and against the search
+    kernel: the maximum over blocks is its best quality, the winning block
+    holds its lag."""
+    rng = np.random.default_rng(85)
+    starts = np.array([3, 126, 127, 128, 129, 1000, 4000], np.int32)
+    length = tstream._buffer_len(CFG, CHUNK, PAY)
+    buf = torch.from_numpy(_buffer(rng, starts, length)).to(cuda, dtype)
+    tpl = preamble_waveform(CFG, device=cuda).to(dtype)
+    k = tpl.shape[-1]
+    te = float((tpl.float() ** 2).sum())
+    seg = buf[:, 1 : 1 + CHUNK + k - 1]
+    before = tk.launch_counts["sync_search_blockmax"]
+    got = tk.sync_search_blockmax(seg, tpl, CHUNK, te)
+    assert tk.launch_counts["sync_search_blockmax"] == before + 1
+    want = tk.sync_search_blockmax_ref(seg, tpl, CHUNK, te)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-6)
+    q, i = tk.sync_search_fused(seg, tpl, CHUNK, te)
+    torch.testing.assert_close(got.amax(-1), q, rtol=1e-6, atol=0)
+    assert torch.equal(got.argmax(-1).int(), i // 128)
+    assert torch.equal(i.cpu(), torch.from_numpy(starts - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded"])
+def test_cuda_int8_receivers_match_cpu(cuda, model):
+    """The int8 locked stream on the card (mfsk16-fast: the merged kernel's
+    int8 instantiation, and the search; mfsk4-coded: the probe on a bf16
+    copy and the int8 energies) and the int8 aligned receiver, against the
+    same calls on the CPU: payloads, detections and lock state equal."""
+    from anet_torch.dsp import frame as tframe
+
+    cfg = get_model(model).config
+    rng = np.random.default_rng(87)
+    pay = rng.integers(0, 256, (9, PAY), dtype=np.uint8)
+    w = transmit(cfg, pay, device="cpu")
+    if cfg.fec == "none":
+        x = (w + 0.3 * torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32))).T.contiguous()
+        x8 = torch.round(x * (127.0 / x.abs().max())).to(torch.int8)
+        on_card = tframe.demodulate_frame_tm(cfg, x8.to(cuda), PAY, compute_dtype=torch.int8, device=cuda)
+        on_cpu = tframe.demodulate_frame_tm(cfg, x8, PAY, compute_dtype=torch.int8, device="cpu")
+        assert bool(on_card.ok.all()) and np.array_equal(on_card.payload.cpu().numpy(), pay)
+        torch.testing.assert_close(on_card.confidence.cpu(), on_cpu.confidence, rtol=1e-5, atol=0)
+    t_frame = w.shape[1]
+    cap = torch.zeros(9, -(-(700 + 3 * t_frame + CHUNK) // CHUNK) * CHUNK)
+    for i in range(3):
+        cap[:, 700 + i * t_frame : 700 + (i + 1) * t_frame] = w
+    cap += 0.1 * torch.from_numpy(rng.standard_normal(cap.shape).astype(np.float32))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        carry = tstream.init_carry(cfg, CHUNK, PAY, (9,), dtype=torch.int8, device=dev)
+        runs.append(tstream.receive_stream(
+            cfg, cap.to(dev), CHUNK, PAY, carry=carry, lock=True, compute_dtype=torch.bfloat16, device=dev
+        ))
+    got, want = runs
+    assert int(got.carry.frames_ok.sum()) == 9 * 3
+    assert torch.equal(got.carry.buffer.cpu(), want.carry.buffer)
+    assert torch.equal(got.steps.detected.cpu(), want.steps.detected)
+    det = want.steps.detected
+    assert torch.equal(got.steps.frame.payload.cpu()[det], want.steps.frame.payload[det])
+    assert torch.equal(got.carry.next_start.cpu(), want.carry.next_start)

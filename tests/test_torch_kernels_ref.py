@@ -1,4 +1,4 @@
-"""The plain versions of anet_torch's ten kernels against the JAX Pallas
+"""The plain versions of anet_torch's kernels against the JAX Pallas
 kernels they replace, run in interpret mode on the CPU (float32; the coded
 path's three and the variable-length slice's three also in bfloat16). The
 CUDA kernels against these plain versions: test_torch_kernels_cuda.py."""
@@ -401,3 +401,156 @@ def test_viterbi_trellis_ref_header_probe_matches_pallas():
     want = jk.viterbi_trellis(jnp.asarray(tfec._branch_signs()), pairs, interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).T[:, :HEADER_PROBE_DATA_BITS])
     np.testing.assert_array_equal(got.numpy()[:, :64], data[:, :64])
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("mfsk16-fast", "f32"), ("mfsk16-fast", "bf16"), ("mfsk4-coded", "f32"), ("mfsk4-coded", "bf16"),
+])
+def test_batch_major_filterbank_refs_match_pallas(name, dtype):
+    """tone_energies_fused_ref and decide_tones_fused_ref against the
+    batch-major Pallas kernels on [2, 3, S * sps + extra] samples (leading
+    batch axes, a trailing partial symbol dropped): tones and every
+    energy's argmax equal, energies rtol 1e-5 (float32 sums in another
+    order); the wrappers take the plain versions for CPU tensors."""
+    cfg, jcfg = get_model(name).config, jget_model(name).config
+    tdt, jdt = _DTYPES[dtype]
+    rng = np.random.default_rng(len(name) + len(dtype))
+    s, sps = 21, cfg.samples_per_symbol
+    tones = rng.integers(0, cfg.num_tones, (6, s))
+    from anet_torch.dsp.mod import synthesize_tones
+
+    x = synthesize_tones(cfg, torch.from_numpy(tones).int()).numpy()
+    x = x + 0.5 * rng.standard_normal(x.shape).astype(np.float32)
+    x = np.pad(x, ((0, 0), (0, sps // 2))).reshape(2, 3, s * sps + sps // 2)
+    xt = torch.from_numpy(x)
+    e = tk.tone_energies_fused_ref(cfg, xt, compute_dtype=tdt)
+    x_j = jnp.asarray(x[..., : s * sps])  # the reference needs whole symbols
+    je = np.asarray(jk.tone_energies_fused(jcfg, x_j, compute_dtype=jdt, interpret=True))
+    assert e.shape == (2, 3, s, cfg.num_tones) and je.shape == e.shape
+    np.testing.assert_array_equal(e.argmax(-1).numpy().reshape(6, s), tones)
+    np.testing.assert_array_equal(e.argmax(-1).numpy(), je.argmax(-1))
+    np.testing.assert_allclose(e.numpy(), je, rtol=1e-5, atol=1e-5 * float(je.max()))
+    got = tk.decide_tones_fused_ref(cfg, xt, compute_dtype=tdt)
+    want = jk.decide_tones_fused(jcfg, x_j, compute_dtype=jdt, interpret=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5)
+    assert torch.equal(tk.tone_energies_fused(cfg, xt, compute_dtype=tdt), e)
+    assert all(torch.equal(a, g) for a, g in zip(tk.decide_tones_fused(cfg, xt, compute_dtype=tdt), got))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_sync_search_blockmax_ref_matches_pallas(dtype):
+    """Block maxima of the search quality against the Pallas kernel
+    (rtol 1e-5); their maximum is sync_search_fused's best quality and
+    their first argmax holds its lag."""
+    tdt, jdt = _DTYPES[dtype]
+    rng = np.random.default_rng(55)
+    k = CFG.preamble_samples
+    seg = _buffer(rng, [3, 1500, 4000, 130], CHUNK + k - 1)
+    tpl = np.array(j_preamble(JCFG), np.float32)
+    te = float(np.sum(tpl.astype(np.float64) ** 2))
+    seg_t, tpl_t = torch.from_numpy(seg).to(tdt), torch.from_numpy(tpl).to(tdt)
+    got = tk.sync_search_blockmax_ref(seg_t, tpl_t, CHUNK, te)
+    want = jk.sync_search_blockmax(
+        jnp.asarray(seg).astype(jdt), jnp.asarray(tpl).astype(jdt), CHUNK, te, interpret=True
+    )
+    assert got.shape == (4, CHUNK // 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    bq, bi = tk.sync_search_fused_ref(seg_t, tpl_t, CHUNK, te)
+    np.testing.assert_array_equal(got.amax(-1).numpy(), bq.numpy())
+    np.testing.assert_array_equal(got.argmax(-1).numpy(), bi.numpy() // 128)
+    np.testing.assert_array_equal(bi.numpy(), [3, 1500, 4000, 130])
+    assert torch.equal(tk.sync_search_blockmax(seg_t, tpl_t, CHUNK, te), got)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tk.sync_search_blockmax(seg_t, tpl_t, CHUNK - 1, te)
+
+
+@pytest.mark.parametrize(
+    "name,dtype",
+    [("mfsk16-fast", "bf16"), ("mfsk16-fast", "f32"), ("mfsk4-coded", "f32"),
+     ("mfsk32-dense", "f32"), ("mfsk8-audible", "bf16")],
+)
+def test_demodulate_frame_use_kernel_matches_anet(name, dtype, monkeypatch):
+    """demodulate_frame (its filterbank tone_energies_fused) against anet's
+    demodulate_frame(use_pallas=True), its kernel in interpret mode:
+    payloads and verdicts equal, confidence rtol 1e-5; and the decisions
+    kernel's composition frame_result_from_tone_decisions(decide_tones_fused)
+    against anet's for the uncoded configs. mfsk32-dense (32 tones) and
+    mfsk8-audible (48 samples a symbol) are the geometries of the kernels'
+    plain per-symbol form on the card."""
+    import functools
+
+    from anet.dsp import frame as jframe
+
+    from anet_torch.dsp import frame as tframe
+
+    cfg, jcfg = get_model(name).config, jget_model(name).config
+    tdt, jdt = _DTYPES[dtype]
+    monkeypatch.setattr(jk, "tone_energies_fused", functools.partial(jk.tone_energies_fused, interpret=True))
+    rng = np.random.default_rng(3 + len(name))
+    pay = 32
+    payload = rng.integers(0, 256, (4, pay), dtype=np.uint8)
+    x = transmit(cfg, payload, device="cpu").numpy()
+    x = x + 0.3 * rng.standard_normal(x.shape).astype(np.float32)
+    got = tframe.demodulate_frame(cfg, torch.from_numpy(x), pay, compute_dtype=tdt, device="cpu")
+    want = jframe.demodulate_frame(jcfg, jnp.asarray(x), pay, compute_dtype=jdt, use_pallas=True)
+    np.testing.assert_array_equal(got.payload.numpy(), np.asarray(want.payload))
+    np.testing.assert_array_equal(got.payload.numpy(), payload)
+    for f in ("magic_ok", "length_ok", "header_crc_ok", "payload_crc_ok", "ok"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), f)
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=1e-5)
+    if cfg.fec != "none":
+        return
+    data = x[:, cfg.preamble_samples :]
+    t = tframe.frame_result_from_tone_decisions(
+        cfg, *tk.decide_tones_fused(cfg, torch.from_numpy(data), compute_dtype=tdt), pay
+    )
+    j = jframe.frame_result_from_tone_decisions(
+        jcfg, *jk.decide_tones_fused(jcfg, jnp.asarray(data), compute_dtype=jdt, interpret=True), pay
+    )
+    np.testing.assert_array_equal(t.payload.numpy(), np.asarray(j.payload))
+    np.testing.assert_array_equal(t.ok.numpy(), np.asarray(j.ok))
+    np.testing.assert_allclose(t.confidence.numpy(), np.asarray(j.confidence), rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "name,shape", [("mfsk16-fast", (64, 32)), ("mfsk4-coded", (32, 32)), ("mfsk32-dense", (80, 64)), ("mfsk8-audible", (48, 16))]
+)
+def test_filterbank_basis_layout(name, shape):
+    """The filterbank kernels' basis: the fast kernels' [sps, 32] (cos of
+    the tones in columns 0.., sin in 16..) for sps 32/64/128 and at most 16
+    tones, else the plain [sps, 2M]; the same entries as the plain basis."""
+    cfg = get_model(name).config
+    m = cfg.num_tones
+    basis = tk._filterbank_basis(cfg, torch.float32, torch.device("cpu"))
+    plain = tk._plain_basis(cfg, torch.float32, "cpu")
+    assert basis.shape == shape and basis.is_contiguous()
+    if shape[1] == 2 * m:
+        assert torch.equal(basis, plain)
+    else:
+        assert torch.equal(basis[:, :m], plain[:, :m]) and torch.equal(basis[:, 16 : 16 + m], plain[:, m:])
+
+
+def test_sass_mix_parses_cuobjdump_output():
+    """The SASS instruction mix counts opcodes per function, without their
+    predicates and modifiers, and skips the encoding lines."""
+    from anet_torch.kernels.sass_mix import parse_sass
+
+    sass = """
+	code for sm_90a
+		Function : _Z6kernelIaEvPKT_
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                   /* 0x00000a00ff017b82 */
+                                                                            /* 0x000fe40000000800 */
+        /*0010*/              @!P0 LDG.E.S8 R2, desc[UR4][R2.64] ;         /* 0x0000000402028981 */
+        /*0020*/              @UP0 I2FP.F32.S32 R3, R2 ;                   /* 0x0000000200037245 */
+        /*0030*/                   I2FP.F32.S32 R4, R2 ;                   /* 0x0000000200047245 */
+		Function : _Z6kernelIfEvPKT_
+        /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
+"""
+    got = [(name, dict(ops)) for name, ops in parse_sass(sass)]
+    assert got == [
+        ("_Z6kernelIaEvPKT_", {"LDC": 1, "LDG": 1, "I2FP": 2}),
+        ("_Z6kernelIfEvPKT_", {"EXIT": 1}),
+    ]

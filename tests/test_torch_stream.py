@@ -262,8 +262,12 @@ def test_unported_options_raise():
         tstream.receive_stream(CFG, cap, CHUNK, PAY, lock=True, resident=True, device="cpu")
     with pytest.raises(NotImplementedError):
         tstream.receive_stream(CCFG, cap, CHUNK, PAY, track=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstream.init_carry(CFG, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu")
+    # int8 carries serve the fixed-length MFSK receivers only
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
+        tstream.init_carry(OCFG, CHUNK, OPAY, (1,), dtype=torch.int8, device="cpu")
+    carry8 = tstream.init_carry(CFG, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu")
+    with pytest.raises(NotImplementedError, match="variable-length"):
+        tstream.receive_stream_dynamic(CFG, cap, CHUNK, PAY, carry=carry8, device="cpu")
 
 
 @pytest.mark.parametrize("lock", [False, True])
