@@ -31,6 +31,12 @@ contiguity, allocates the outputs, launches on
 adds one to ``launch_counts[name]`` (``launch_counts[name + ":int8"]`` for
 an int8 launch). There is no fallback from the kernel to the plain version.
 
+The two search kernels share one product on the tensor cores
+(``csrc/search_core.cuh``: bf16 ``mma.sync`` with float32 accumulators, a
+float32 operand split into bf16 hi + lo, so each product is the float32
+one to about 2**-16); the wrappers build the template operand once a
+template tensor. The other kernels sum in float32 on the CUDA cores.
+
 The plain versions widen every operand to float32 before a product, as the
 reference kernels accumulate in float32. On the card, a float32 product
 there must run with ``torch.backends.cuda.matmul.allow_tf32 = False`` (the
@@ -366,6 +372,50 @@ def sync_search_fused_ref(seg: torch.Tensor, template: torch.Tensor, out_len: in
     return q.amax(-1), torch.argmax(q, dim=-1).to(torch.int32)
 
 
+_SEARCH_TPL_OFF = 128  # template sample j at copy position j + 128 (search_core.cuh TPL_OFF)
+_SEARCH_WORDS: dict = {}  # (id, version) of a template -> (template, its words on the card)
+
+
+def _search_template_words(template: torch.Tensor) -> torch.Tensor:
+    """The search kernels' template operand (csrc/search_core.cuh), int32
+    [P, 2, W] on the template's device: P = 1 for a bfloat16 template, P = 2
+    for a float32 one (its bf16 hi half, then lo = bf16(t - hi)). With z the
+    zero-padded half, z[j + 128] = t[j], copy 0's word w holds the bf16 pair
+    (z[2w], z[2w + 1]) and copy 1's (z[2w - 1], z[2w]), the first in the low
+    16 bits: every pair (t[e], t[e + 1]) a lane's B fragment takes is one
+    aligned word. W = 16 mod 32 covers the ceil((k + 127) / 16) steps of the
+    band and the next step's reads."""
+    k = template.shape[-1]
+    n_steps = -(-(k + 127) // 16)
+    w = 8 * n_steps + 72
+    w += (16 - w) % 32
+    hi = template.to(torch.bfloat16)
+    halves = [hi]
+    if template.dtype != torch.bfloat16:
+        halves.append((template.float() - hi.float()).to(torch.bfloat16))
+    out = torch.zeros(len(halves), 2, 2 * w, dtype=torch.bfloat16, device=template.device)
+    for i, half in enumerate(halves):
+        out[i, 0, _SEARCH_TPL_OFF : _SEARCH_TPL_OFF + k] = half
+        out[i, 1, _SEARCH_TPL_OFF + 1 : _SEARCH_TPL_OFF + 1 + k] = half
+    return out.view(torch.int32)
+
+
+def _search_launch_args(name: str, seg: torch.Tensor, template: torch.Tensor, out_len: int):
+    """Checks of the two search kernels, and their leading C arguments:
+    (seg, dtype code, B, row stride, seg_len, template words, b_lo, W, k)."""
+    dtype = _check_cuda_input(name, seg, "seg")
+    k = template.shape[-1]
+    if seg.dim() != 2 or seg.shape[-1] < out_len + k - 1:
+        raise ValueError(f"{name}: seg must be [B, >= out_len + k - 1]")
+    if template.dtype not in (torch.float32, torch.bfloat16) or template.dim() != 1:
+        raise TypeError(f"{name}: template must be a float32 or bfloat16 [k] tensor")
+    if template.device != seg.device:
+        raise ValueError(f"{name}: template lies on {template.device}, seg on {seg.device}")
+    words = _per_template(_SEARCH_WORDS, template, _search_template_words)
+    return (seg.data_ptr(), dtype, seg.shape[0], seg.stride(0), seg.shape[-1], words.data_ptr(),
+            int(words.shape[0] == 2), words.shape[-1], k)
+
+
 def sync_search_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int, template_energy):
     """Best blockwise preamble match quality and its first lag, per stream.
 
@@ -375,28 +425,25 @@ def sync_search_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int, t
         q = blockwise_match_quality(seg, corr, k, template_energy)
         return q.max(-1), q.argmax(-1)
 
-    ``seg`` is [B, >= out_len + k - 1]; rows may be strided (a view into the
-    stream buffer) as long as the last dimension is contiguous. Returns
-    (best_q f32 [B], best_idx i32 [B])."""
+    ``seg`` is [B, >= out_len + k - 1], float32 or bfloat16; rows may be
+    strided (a view into the stream buffer) as long as the last dimension is
+    contiguous. ``template`` is float32 or bfloat16 [k]. On the card the
+    product runs on the tensor cores, float32 operands split into bf16
+    hi + lo. Returns (best_q f32 [B], best_idx i32 [B])."""
     if seg.device.type == "cpu":
         return sync_search_fused_ref(seg, template, out_len, template_energy)
     name = "sync_search_fused"
-    dtype = _check_cuda_input(name, seg, "seg")
-    k = template.shape[-1]
-    if seg.dim() != 2 or seg.shape[-1] < out_len + k - 1:
-        raise ValueError(f"{name}: seg must be [B, >= out_len + k - 1]")
+    args = _search_launch_args(name, seg, template, out_len)
     b = seg.shape[0]
     dev = seg.device
-    tpl = template.to(device=dev, dtype=torch.float32).contiguous()
-    n_tiles = -(-out_len // 2048)
+    n_tiles = -(-(-(-out_len // 128)) // 96)  # blocks of rows of 128 lags: at least 96 rows a block
     part_q = torch.empty(b, n_tiles, dtype=torch.float32, device=dev)
     part_i = torch.empty(b, n_tiles, dtype=torch.int32, device=dev)
     best_q = torch.empty(b, dtype=torch.float32, device=dev)
     best_i = torch.empty(b, dtype=torch.int32, device=dev)
     err = _entry("sync_search")(
-        seg.data_ptr(), dtype, b, seg.stride(0), seg.shape[-1], tpl.data_ptr(), k, out_len,
-        float(template_energy), part_q.data_ptr(), part_i.data_ptr(), best_q.data_ptr(),
-        best_i.data_ptr(), _stream_handle(dev),
+        *args, out_len, float(template_energy), part_q.data_ptr(), part_i.data_ptr(),
+        best_q.data_ptr(), best_i.data_ptr(), _stream_handle(dev),
     )
     _check_launch(err, name)
     return best_q, best_i
@@ -470,18 +517,22 @@ def _probe_template(template: torch.Tensor, dtype: torch.dtype):
 _INT8_TAPS: dict = {}  # (id, version) of a template -> (template, taps, cmax scale)
 
 
-def _int8_probe_template(template: torch.Tensor):
-    """_probe_template of an int8 buffer, made once per template tensor (a
-    stream passes the same one every chunk) and again only if it changed in
-    place. The entry holds the template, so its id is not reused while
-    cached."""
+def _per_template(cache: dict, template: torch.Tensor, make):
+    """make(template), made once per template tensor (a stream passes the
+    same one every chunk) and again only if it changed in place. The entry
+    holds the template, so its id is not reused while cached."""
     key = (id(template), template._version)
-    hit = _INT8_TAPS.get(key)
+    hit = cache.get(key)
     if hit is None or hit[0] is not template:
-        if len(_INT8_TAPS) >= 8:
-            _INT8_TAPS.clear()
-        hit = _INT8_TAPS[key] = (template, *_probe_template(template, torch.int8))
-    return hit[1], hit[2]
+        if len(cache) >= 8:
+            cache.clear()
+        hit = cache[key] = (template, make(template))
+    return hit[1]
+
+
+def _int8_probe_template(template: torch.Tensor):
+    """_probe_template of an int8 buffer, made once per template tensor."""
+    return _per_template(_INT8_TAPS, template, lambda t: _probe_template(t, torch.int8))
 
 
 def _probe_abs_corr(buffer: torch.Tensor, st: torch.Tensor, taps: torch.Tensor, n_lags: int):
@@ -1113,24 +1164,17 @@ def sync_search_blockmax(seg: torch.Tensor, template: torch.Tensor, out_len: int
         q = blockwise_match_quality(seg, corr, k, template_energy)
         return q.reshape(..., out_len // 128, 128).max(-1)
 
-    ``seg`` is [B, >= out_len + k - 1], rows strided as sync_search_fused
-    takes them; ``out_len`` a multiple of 128."""
+    ``seg`` and ``template`` as sync_search_fused takes them; ``out_len`` a
+    multiple of 128."""
     if out_len % _ROW or out_len < _ROW:
         raise ValueError(f"sync_search_blockmax: out_len {out_len} must be a positive multiple of {_ROW}")
     if seg.device.type == "cpu":
         return sync_search_blockmax_ref(seg, template, out_len, template_energy)
     name = "sync_search_blockmax"
-    dtype = _check_cuda_input(name, seg, "seg")
-    k = template.shape[-1]
-    if seg.dim() != 2 or seg.shape[-1] < out_len + k - 1:
-        raise ValueError(f"{name}: seg must be [B, >= out_len + k - 1]")
-    b = seg.shape[0]
-    dev = seg.device
-    tpl = template.to(device=dev, dtype=torch.float32).contiguous()
-    out = torch.empty(b, out_len // _ROW, dtype=torch.float32, device=dev)
+    args = _search_launch_args(name, seg, template, out_len)
+    out = torch.empty(seg.shape[0], out_len // _ROW, dtype=torch.float32, device=seg.device)
     err = _entry("search_blockmax")(
-        seg.data_ptr(), dtype, b, seg.stride(0), seg.shape[-1], tpl.data_ptr(), k, out_len,
-        float(template_energy), out.data_ptr(), _stream_handle(dev),
+        *args, out_len, float(template_energy), out.data_ptr(), _stream_handle(seg.device),
     )
     _check_launch(err, name)
     return out

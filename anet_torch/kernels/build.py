@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` compiles, on first use, into its own shared library
 ``build/anet_torch_kernels/lib<name>-<hash>.so`` at the root of the
-checkout, where ``<hash>`` covers the source and the shared header, so an
+checkout, where ``<hash>`` covers the source and the shared headers, so an
 edited source rebuilds and an unchanged one loads at once. The sources have
 a plain C interface (no PyTorch headers), which keeps each build to seconds;
 ``build_all`` starts one nvcc per source, all at once.
@@ -42,7 +42,7 @@ SIGNATURES = {
     ),
     "sync_search": (
         "anet_sync_search",
-        [_P, _I, _I, ctypes.c_longlong, _I, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P],
+        [_P, _I, _I, _L, _I, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P],
     ),
     "demod_at": (
         "anet_demod_at",
@@ -83,7 +83,8 @@ SIGNATURES = {
         "anet_decide_tones", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P], "tone_energies",
     ),
     "search_blockmax": (
-        "anet_search_blockmax", [_P, _I, _I, _L, _I, _P, _I, _I, ctypes.c_float, _P, _P],
+        "anet_search_blockmax",
+        [_P, _I, _I, _L, _I, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],
     ),
 }
 
@@ -103,7 +104,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"

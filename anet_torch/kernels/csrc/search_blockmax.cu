@@ -7,148 +7,85 @@
 // first phase writes one value per 128-lag block and leaves the fold to the
 // caller. For every 128-lag block c < out_len / 128 of each stream's
 // segment seg[b, :]:
-//   out[b, c] = max_{l in block c} |corr[l]| * scale[c]
-//             = max_{l in block c} q[l]
+//   out[b, c] = max_{l in block c} q[l],   q[l] = |corr[l]| * scale[c]
 // with corr, the blockwise window energy and q exactly as sync_search.cu
-// computes them; the scale is one value per 128-lag block, and rounding a
-// product by a positive scale keeps the order, so the maximum of |corr|
-// times the scale is the maximum of q. out_len is a multiple of 128, so
-// the output holds whole blocks only: the reference's -2.0 fill of its
-// padded output lanes has nothing to fill here.
+// computes them. out_len is a multiple of 128, so the output holds whole
+// blocks only: the reference's -2.0 fill of its padded output lanes has
+// nothing to fill here.
 //
 // What bounds it on the H100: as sync_search_fused, the correlation's
-// 2 x k x out_len flops per stream (1.22 TFLOP at B = 8192, k = 2048,
-// out_len = 36,352: 1.2 ms at the bf16 tensor-core peak); the segment read
-// is 0.63 GB and the output 9 MB. This simple form runs the product on the
-// CUDA cores in float32, far from that bound, as the search kernel does.
+// 2 x k x out_len operations per stream (1.22 TFLOP at B = 8192, k = 2048,
+// out_len = 36,352: 1.23 ms at the bf16 tensor-core peak); the segment read
+// is 0.63 GB and the output 9 MB.
 //
-// Design: the tile of sync_search.cu (one block per stream and tile of
-// 2048 lags, the tile's segment span and the template staged in shared
-// memory as float32, skewed so a warp's loads hit distinct banks, 8 lags a
-// thread sliding a 16-register window along the template, block energies
-// from the staged span), with its own epilogue: the 8 lags of a thread lie
-// in one 128-lag block, so the 16 threads of a half-warp hold a whole
-// block; a max over their |corr| by shuffles within the half-warp, times
-// the block's scale, and its first thread writes the block's value.
-// Nothing is folded across tiles. The loop is a copy of the search's, not
-// a shared header: sharing it cost the search kernel 4-5% of its time.
-#include "common.cuh"
+// Design: the search's product core (search_core.cuh: the block-Toeplitz
+// product on the tensor cores, one row per 128-lag block), with its own
+// epilogue: a row's maximum quality, which search_core's row_best already
+// holds in the row's four lanes, is the block's value; the first of those
+// lanes stores it. Nothing is folded across rows. Sharing the core makes
+// every q bit-equal to the search's, so the maximum of the block maxima is
+// the search's best.
+#include "search_core.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int LPT = 8;                // lags per thread
-constexpr int TILE = THREADS * LPT;   // lags per block
-constexpr int EBLK = 128;             // samples per energy block
+using namespace anet::search;
 
-__host__ __device__ __forceinline__ int skew(int i) { return i + (i >> 3); }
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-blockmax_kernel(const T* __restrict__ seg, int64_t row_stride, int seg_len,
-                const float* __restrict__ tpl, int k, int kp, int n_blocks, float te, int kb,
-                int n_load, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  float* s_x = sm;                          // skew(n_load) floats
-  float* s_t = sm + skew(n_load) + 8;       // kp floats
-  float* s_blk = s_t + kp;                  // TILE / EBLK + kb floats
-
-  const int b = blockIdx.x;
-  const int64_t lag0 = (int64_t)blockIdx.y * TILE;
-  const T* row = seg + (int64_t)b * row_stride;
-
-  for (int i = threadIdx.x; i < n_load; i += THREADS)
-    s_x[skew(i)] = anet::load_or_zero(row, lag0 + i, seg_len);
-  for (int i = threadIdx.x; i < kp; i += THREADS) s_t[i] = i < k ? tpl[i] : 0.0f;
-  __syncthreads();
-
-  // energies of the 128-sample blocks this tile's windows touch
+template <typename T, bool B_LO>
+__global__ void __maxnreg__((max_regs<std::is_same<T, float>::value, B_LO>()))
+blockmax_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, Geometry g,
+                float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x / g.n_tiles;
+  const int tile = blockIdx.x % g.n_tiles;
+  float rq[2];
+  int rc[2];
+  anet::search::tile_rows<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_blk = TILE / EBLK + kb;
-  for (int blk = warp; blk < n_blk; blk += THREADS / 32) {
-    float e = 0.0f;
-    for (int i = lane; i < EBLK; i += 32) {
-      const float v = s_x[skew(blk * EBLK + i)];
-      e = fmaf(v, v, e);
-    }
+  const int row0 = tile * g.mt + warp * WARP_ROWS + (lane >> 2);
+  if ((lane & 3) == 0) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) e += __shfl_down_sync(0xffffffffu, e, off);
-    if (lane == 0) s_blk[blk] = e;
+    for (int h = 0; h < 2; ++h)
+      if (row0 + 8 * h < g.n_rows) out[(int64_t)b * g.n_rows + row0 + 8 * h] = rq[h];
   }
+}
 
-  // correlation at lags base .. base + 7 of the tile
-  const int base = threadIdx.x * LPT;
-  float acc[LPT];
-  float w[2 * LPT];
-#pragma unroll
-  for (int r = 0; r < LPT; ++r) {
-    acc[r] = 0.0f;
-    w[r] = s_x[skew(base + r)];
-  }
-  for (int j0 = 0; j0 < kp; j0 += LPT) {
-#pragma unroll
-    for (int r = 0; r < LPT; ++r) w[LPT + r] = s_x[skew(base + j0 + LPT + r)];
-#pragma unroll
-    for (int u = 0; u < LPT; ++u) {
-      const float tv = s_t[j0 + u];
-#pragma unroll
-      for (int r = 0; r < LPT; ++r) acc[r] = fmaf(w[u + r], tv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < LPT; ++r) w[r] = w[LPT + r];
-  }
-  __syncthreads();  // s_blk complete
-
-  // the 8 lags share one energy block (base is a multiple of 8)
-  const int jb = base / EBLK;
-  float win = 0.0f;
-  for (int q = 0; q < kb; ++q) win += s_blk[jb + q];
-  const float scale = rsqrtf(te * fmaxf(win, 1e-4f * te));
-  float m = 0.0f;
-#pragma unroll
-  for (int r = 0; r < LPT; ++r) m = fmaxf(m, fabsf(acc[r]));
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, off, 16));
-  const int64_t blk = (lag0 + base) / EBLK;
-  if ((threadIdx.x & 15) == 0 && blk < n_blocks) out[(int64_t)b * n_blocks + blk] = m * scale;
+template <typename T, bool B_LO>
+cudaError_t launch(const void* seg, const void* tpl, const Geometry& g, size_t smem, int B,
+                   void* out, cudaStream_t st) {
+  auto kernel = blockmax_kernel<T, B_LO>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * g.n_tiles, g.mt / WARP_ROWS * 32, smem, st>>>(
+      static_cast<const T*>(seg), static_cast<const uint32_t*>(tpl), g, static_cast<float*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// seg: [B, seg_len] rows `row_stride` elements apart (last dim contiguous);
-// tpl: [k] float32; out: [B, out_len / 128] float32, out_len a multiple of
-// 128. Returns cudaGetLastError().
+// seg: [B, seg_len] rows `row_stride` elements apart (last dim contiguous),
+// float32 (dtype 0) or bfloat16 (1); tpl: the template words, as
+// anet_sync_search takes them; out: [B, out_len / 128] float32, out_len a
+// multiple of 128. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// a geometry the kernel does not take.
 extern "C" int anet_search_blockmax(const void* seg, int dtype, int B, long long row_stride,
-                                    int seg_len, const void* tpl, int k, int out_len, float te,
-                                    void* out, void* stream) {
-  if (out_len < EBLK || out_len % EBLK) return (int)cudaErrorInvalidValue;
-  const int n_blocks = out_len / EBLK;
-  const int kp = (k + LPT - 1) / LPT * LPT;
-  const int kb = (k + EBLK - 1) / EBLK + 1;
-  const int n_corr = TILE + kp + LPT;
-  const int n_energy = (TILE / EBLK + kb) * EBLK;
-  const int n_load = n_corr > n_energy ? n_corr : n_energy;
-  const size_t smem = (size_t)(skew(n_load) + 8 + kp + TILE / EBLK + kb) * sizeof(float);
+                                    int seg_len, const void* tpl, int b_lo, int w, int k,
+                                    int out_len, float te, void* out, void* stream) {
+  if (out_len < ROW || out_len % ROW) return (int)cudaErrorInvalidValue;
+  const bool a_lo = dtype == anet::DTYPE_F32;
+  Geometry g;
+  size_t smem;
+  if (!make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == anet::DTYPE_BF16) {
-    err = cudaFuncSetAttribute(blockmax_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = b_lo ? launch<__nv_bfloat16, true>(seg, tpl, g, smem, B, out, st)
+               : launch<__nv_bfloat16, false>(seg, tpl, g, smem, B, out, st);
   } else {
-    err = cudaFuncSetAttribute(blockmax_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = b_lo ? launch<float, true>(seg, tpl, g, smem, B, out, st)
+               : launch<float, false>(seg, tpl, g, smem, B, out, st);
   }
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, (out_len + TILE - 1) / TILE);
-  if (dtype == anet::DTYPE_BF16) {
-    blockmax_kernel<__nv_bfloat16><<<grid, THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(seg), row_stride, seg_len,
-        static_cast<const float*>(tpl), k, kp, n_blocks, te, kb, n_load,
-        static_cast<float*>(out));
-  } else {
-    blockmax_kernel<float><<<grid, THREADS, smem, st>>>(
-        static_cast<const float*>(seg), row_stride, seg_len, static_cast<const float*>(tpl), k,
-        kp, n_blocks, te, kb, n_load, static_cast<float*>(out));
-  }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

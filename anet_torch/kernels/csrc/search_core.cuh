@@ -1,0 +1,322 @@
+// The acquisition search's product on the tensor cores, shared by
+// sync_search.cu and search_blockmax.cu so that both compute every
+// |corr| * scale bit for bit alike (the block maxima's maximum is the
+// search's best).
+//
+// For lag l = 128 m + n of a stream's segment seg (the row m, the column n):
+//   corr[128 m + n] = sum_p A[m, p] * T[p, n],   A[m, p] = seg[128 m + p],
+//                                               T[p, n] = t[p - n] (0 <= p - n < k)
+// an [M, K] x [K, 128] product with K = k + 127 (padded to 16), A a Hankel
+// view of the segment (rows 128 samples apart) and T the banded Toeplitz
+// template of anet.dsp.sync.banded_template. The window energy, and so the
+// quality scale, is one value per row: rows are the 128-lag blocks of
+// blockwise_match_quality.
+//
+// A block takes mt rows of one stream (a multiple of 16; at most 128, or 96
+// where an operand is float32: see max_regs); warp w the 16 rows 16w ..
+// 16w + 15, all 128 columns (16 n8 tiles). Per step of 16 along p, a warp
+// issues one ldmatrix.x4 for its A fragment and 16 mma.sync.m16n8k16 (bf16
+// in, float32 accumulators).
+//
+// - A: the block stages its span of the segment once as bf16, 128 samples
+//   to a row of ROW_PITCH = 136 (8 of pad): every A row starts on a 16-byte
+//   boundary, and the 8 rows an ldmatrix phase reads lie 272 bytes apart,
+//   in 8 distinct bank groups. Samples load one at a time (zero past
+//   seg_len), so a segment that starts at any sample and rows at any stride
+//   need no aligned copy. The block energies come from the same loads.
+// - B: the B fragment of n8 tile j at step s is (H(16s - 8j), H(16s - 8j +
+//   8)), where H(e) is this lane's pair (t[e + 2i - g], t[e + 2i + 1 - g])
+//   (g = lane / 4, i = lane % 4). So the 16 tiles of a step read 17 pairs,
+//   and the next step reuses 15 of them: a lane keeps 17 registers and
+//   loads 2 words a step. The pairs come from two copies of the zero-padded
+//   template in shared memory, the second shifted by one sample, so every
+//   pair is one aligned 32-bit word (the wrapper builds them once a
+//   template: kernels._search_template_words). The copies lie W words apart,
+//   W = 16 mod 32: the 32 lanes' words fall in distinct banks or coincide.
+// - float32 operands split into bf16 hi + lo, lo = bf16(x - hi); the
+//   products hi*hi, hi*lo and lo*hi accumulate in the same registers: one
+//   mma per tile and step for bf16 x bf16, two for bf16 x float32, three
+//   for float32 x float32. There is no CUDA-core product.
+#pragma once
+
+#include "common.cuh"
+
+namespace anet {
+namespace search {
+
+constexpr int ROW = 128;            // lags per row = samples per energy block
+constexpr int ROW_PITCH = ROW + 8;  // a staged row in shared memory, in samples
+constexpr int WARP_ROWS = 16;       // rows of one warp: one m16 tile
+constexpr int MAX_WARPS = 8;
+// Registers: a multiprocessor's four sub-partitions hold 16,384 each, and a
+// warp takes all its registers from one. At <= 128 a thread, 4 warps fit a
+// sub-partition, so two blocks of up to 8 warps share a multiprocessor; at
+// <= 168 (the float32 halves' extra fragments), 3: two blocks of up to 6.
+template <bool A_LO, bool B_LO>
+constexpr int max_regs() { return A_LO || B_LO ? 168 : 128; }
+constexpr int max_warps(bool a_lo, bool b_lo) { return a_lo || b_lo ? 6 : MAX_WARPS; }
+constexpr int NT = ROW / 8;         // n8 tiles across a row
+constexpr int TPL_OFF = 128;        // template sample j lies at copy position j + TPL_OFF
+constexpr int MAX_SMEM = 232448;    // bytes of shared memory a block can have on sm_90
+
+struct Geometry {
+  int64_t row_stride;  // elements between rows of seg
+  int seg_len;
+  int out_len;
+  int n_rows;   // rows of a stream: ceil(out_len / 128)
+  int k;
+  int nks;      // steps of 16 along p: ceil((k + 127) / 16)
+  int kb;       // energy blocks of a window: ceil(k / 128) + 1
+  int mt;       // rows of a block
+  int n_tiles;  // blocks of a stream
+  int nb;       // 128-sample blocks a block stages
+  int w;        // words of a template copy
+  float te;     // template energy
+};
+
+// The geometry of a launch, or false where the kernel does not take it (a
+// template word count the wrapper did not build for this k, or a template
+// too long for shared memory). Rows are split evenly over the fewest blocks
+// of at most max_warps * 16 rows, rounded up to whole warps.
+inline bool make_geometry(Geometry& g, int64_t row_stride, int seg_len, int out_len, int k, int w,
+                          float te, bool a_lo, bool b_lo, size_t& smem) {
+  if (k < 1 || out_len < 1) return false;
+  g.row_stride = row_stride;
+  g.seg_len = seg_len;
+  g.out_len = out_len;
+  g.k = k;
+  g.te = te;
+  g.n_rows = (out_len + ROW - 1) / ROW;
+  const int max_rows = max_warps(a_lo, b_lo) * WARP_ROWS;
+  g.n_tiles = (g.n_rows + max_rows - 1) / max_rows;
+  const int per = (g.n_rows + g.n_tiles - 1) / g.n_tiles;
+  g.mt = (per + WARP_ROWS - 1) / WARP_ROWS * WARP_ROWS;
+  g.nks = (k + ROW - 1 + 15) / 16;
+  g.kb = (k + ROW - 1) / ROW + 1;
+  const int nb_a = g.mt - 1 + (16 * g.nks + ROW - 1) / ROW;  // the A rows' samples
+  const int nb_e = g.mt + g.kb - 1;                          // the rows' energy windows
+  g.nb = nb_a > nb_e ? nb_a : nb_e;
+  g.w = w;
+  if (w < 8 * g.nks + 72 || w % 32 != 16) return false;
+  smem = (size_t)(b_lo ? 2 : 1) * 2 * w * 4 + (size_t)(a_lo ? 2 : 1) * g.nb * ROW_PITCH * 2 +
+         (size_t)(g.nb + g.mt) * 4;
+  return smem <= (size_t)MAX_SMEM;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_half, float hi_half) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo_half, hi_half);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Shared memory of a block: the template words, the staged span (hi, then
+// lo for float32 samples), the block energies, one scale a row.
+struct Smem {
+  uint32_t* tpl;
+  __nv_bfloat16* hi;
+  __nv_bfloat16* lo;
+  float* blk;
+  float* scale;
+};
+
+template <bool A_LO, bool B_LO>
+__device__ __forceinline__ Smem carve(unsigned char* base, const Geometry& g) {
+  Smem s;
+  s.tpl = reinterpret_cast<uint32_t*>(base);
+  s.hi = reinterpret_cast<__nv_bfloat16*>(s.tpl + (B_LO ? 2 : 1) * 2 * g.w);
+  s.lo = s.hi + g.nb * ROW_PITCH;
+  s.blk = reinterpret_cast<float*>(s.hi + (A_LO ? 2 : 1) * g.nb * ROW_PITCH);
+  s.scale = s.blk + g.nb;
+  return s;
+}
+
+// Stage the template words and the tile's span, then one scale a row:
+//   scale[r] = rsqrt(te * max(win[r], 1e-4 te)),
+//   win[r] = sum of the energies of blocks r .. r + kb - 1
+// (blocks relative to the segment's start, zero past its end), as
+// blockwise_match_quality's superset window. Ends with __syncthreads().
+template <typename T, bool B_LO>
+__device__ __forceinline__ void stage(const T* __restrict__ seg, const uint32_t* __restrict__ tpl,
+                                      const Geometry& g, int b, int tile, const Smem& s) {
+  constexpr bool A_LO = std::is_same<T, float>::value;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int n_vec = (B_LO ? 2 : 1) * 2 * g.w / 4;
+  for (int i = tid; i < n_vec; i += nthreads)
+    reinterpret_cast<uint4*>(s.tpl)[i] = reinterpret_cast<const uint4*>(tpl)[i];
+
+  const T* row = seg + (int64_t)b * g.row_stride;
+  const int64_t base = (int64_t)tile * g.mt * ROW;
+  const int n_chunks = g.nb * (ROW / 8);  // 8 samples a chunk, 16 a block
+  for (int c0 = 0; c0 < n_chunks; c0 += nthreads) {
+    const int c = c0 + tid;
+    const bool live = c < n_chunks;
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = live ? load_or_zero(row, base + 8 * c + j, g.seg_len) : 0.0f;
+    float e = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e = fmaf(v[j], v[j], e);
+    // the 16 chunks of a block lie in 16 lanes of one warp (c0 and the
+    // block size are multiples of 32)
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off, 16);
+    if (live) {
+      const int at = (c >> 4) * ROW_PITCH + 8 * (c & 15);
+      uint4 hi, lo;
+      uint32_t* h = reinterpret_cast<uint32_t*>(&hi);
+      uint32_t* l = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        h[j] = pack_bf16(v[2 * j], v[2 * j + 1]);
+        if (A_LO) {
+          const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&h[j]);
+          l[j] = pack_bf16(v[2 * j] - __low2float(hv), v[2 * j + 1] - __high2float(hv));
+        }
+      }
+      *reinterpret_cast<uint4*>(s.hi + at) = hi;
+      if (A_LO) *reinterpret_cast<uint4*>(s.lo + at) = lo;
+      if ((c & 15) == 0) s.blk[c >> 4] = e;
+    }
+  }
+  __syncthreads();
+  for (int r = tid; r < g.mt; r += nthreads) {
+    float win = 0.0f;
+    for (int q = 0; q < g.kb; ++q) win += s.blk[r + q];
+    s.scale[r] = rsqrtf(g.te * fmaxf(win, 1e-4f * g.te));
+  }
+  __syncthreads();
+}
+
+// This warp's 16 rows times the band: acc[j] is n8 tile j's accumulator
+// fragment (rows lane/4 and lane/4 + 8, columns 8j + 2 (lane%4) + {0, 1}).
+template <bool A_LO, bool B_LO>
+__device__ __forceinline__ void product(const Geometry& g, const Smem& s, float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, gi = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  // ldmatrix: lane supplies row (lane & 7) + 8 (bit 3 of lane) of the m16
+  // tile at p offset 8 (bit 4 of lane): a0..a3 in mma's order
+  const int a_row = warp * WARP_ROWS + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_k = (lane >> 4) * 8;
+  const uint32_t a_hi = smem_addr(s.hi + a_row * ROW_PITCH);
+  const uint32_t a_lo = smem_addr(s.lo + a_row * ROW_PITCH);
+  // H(e) of this lane is word tb[e / 2] (copy gq & 1)
+  const uint32_t* tb = s.tpl + (gq & 1) * g.w + TPL_OFF / 2 + gi - (gq >> 1);
+  const uint32_t* tl = tb + 2 * g.w;
+  uint32_t rh[NT + 1], rl[NT + 1];  // rh[u] = H(16 s + 8 - 8 u)
+#pragma unroll
+  for (int u = 0; u <= NT; ++u) {
+    rh[u] = tb[4 - 4 * u];
+    if (B_LO) rl[u] = tl[4 - 4 * u];
+  }
+  for (int st = 0; st < g.nks; ++st) {
+    const int pk = 16 * st + a_k;
+    const uint32_t off = 2u * (uint32_t)(pk + 8 * (pk >> 7));  // bytes: 8 samples of pad a row
+    uint32_t ah[4], al[4];
+    ldmatrix_x4(ah, a_hi + off);
+    if (A_LO) ldmatrix_x4(al, a_lo + off);
+    const uint32_t nh0 = tb[8 * st + 12], nh1 = tb[8 * st + 8];  // the next step's two words
+    uint32_t nl0 = 0, nl1 = 0;
+    if (B_LO) {
+      nl0 = tl[8 * st + 12];
+      nl1 = tl[8 * st + 8];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mma_bf16(acc[j], ah, rh[j + 1], rh[j]);
+      if (B_LO) mma_bf16(acc[j], ah, rl[j + 1], rl[j]);
+      if (A_LO) mma_bf16(acc[j], al, rh[j + 1], rh[j]);
+    }
+#pragma unroll
+    for (int u = NT; u >= 2; --u) {
+      rh[u] = rh[u - 2];
+      if (B_LO) rl[u] = rl[u - 2];
+    }
+    rh[0] = nh0;
+    rh[1] = nh1;
+    if (B_LO) {
+      rl[0] = nl0;
+      rl[1] = nl1;
+    }
+  }
+}
+
+// The quality |corr| * scale of each lag of this lane's two rows (h = 0:
+// row lane/4 of the warp, h = 1: row lane/4 + 8), and each row's maximum
+// with its first column, the same in the row's 4 lanes. Lags at or past
+// out_len (rows past the stream's end) read -1 at column 128.
+__device__ __forceinline__ void row_best(const Geometry& g, const Smem& s, int tile,
+                                         const float (&acc)[NT][4], float (&bq)[2],
+                                         int (&bc)[2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, gi = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * WARP_ROWS + gq + 8 * h;
+    const int m = tile * g.mt + r;
+    const int n_cols = min(max(g.out_len - m * ROW, 0), ROW);
+    const float sc = s.scale[r];
+    float q_best = -1.0f;
+    int c_best = ROW;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * gi + e;
+        const float q = fabsf(acc[j][2 * h + e]) * sc;
+        if (col < n_cols && q > q_best) {
+          q_best = q;
+          c_best = col;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float oq = __shfl_xor_sync(0xffffffffu, q_best, off);
+      const int oc = __shfl_xor_sync(0xffffffffu, c_best, off);
+      if (better(oq, oc, q_best, c_best)) {
+        q_best = oq;
+        c_best = oc;
+      }
+    }
+    bq[h] = q_best;
+    bc[h] = c_best;
+  }
+}
+
+// One block's rows of stream b: each of this lane's two rows' maximum
+// quality and its first column (see row_best).
+template <typename T, bool B_LO>
+__device__ __forceinline__ void tile_rows(const T* __restrict__ seg,
+                                          const uint32_t* __restrict__ tpl, const Geometry& g,
+                                          int b, int tile, unsigned char* smem, float (&bq)[2],
+                                          int (&bc)[2]) {
+  constexpr bool A_LO = std::is_same<T, float>::value;
+  const Smem s = carve<A_LO, B_LO>(smem, g);
+  stage<T, B_LO>(seg, tpl, g, b, tile, s);
+  float acc[NT][4];
+  product<A_LO, B_LO>(g, s, acc);
+  row_best(g, s, tile, acc, bq, bc);
+}
+
+}  // namespace search
+}  // namespace anet

@@ -11,112 +11,53 @@
 // and returns max_l q[l] with its first index (ties keep the earliest lag,
 // as jnp.argmax does). Neither corr nor q ever reaches device memory.
 //
-// What bounds it on the H100: the correlation's 2 x k x out_len flops per
-// stream (1.22 TFLOP at B = 8192, k = 2048, out_len = 36,352: 1.2 ms at the
-// bf16 tensor-core peak); the segment read is only 0.63 GB (0.19 ms). This
-// simple form runs the product on the CUDA cores in float32 (67 TFLOP/s,
-// so >= 18 ms), far from the bound by design: a first kernel that is right.
-// Tensor cores (the block-Toeplitz product as bf16 mma) are the way down.
+// What bounds it on the H100: the correlation's 2 x k x out_len operations
+// per stream (1.22 TFLOP at B = 8192, k = 2048, out_len = 36,352: 1.23 ms
+// at the bf16 tensor-core peak); the segment read is only 0.63 GB
+// (0.19 ms). On the CUDA cores in float32 (67 TFLOP/s) the product could
+// not go below 18 ms.
 //
-// Design: one block per (stream, lag tile of 2048). The block stages the
-// tile's segment span and the template in shared memory as float32. Each
-// thread owns 8 consecutive lags and slides a 16-register window of samples
-// along the template, so every shared load feeds 8 FMAs; the span is stored
-// skewed (index i at i + i/8) so the 32 threads of a warp, 8 samples apart,
-// hit 32 distinct banks. Block energies come from the staged span. Each
-// block writes one (max, first argmax) pair; a second small kernel folds
-// the tiles in lag order with a strict >, which keeps the first index.
-#include "common.cuh"
+// Design: the block-Toeplitz product of search_core.cuh on the tensor cores
+// (bf16 mma.sync, float32 accumulators; float32 operands as bf16 hi + lo),
+// the TPU kernel's banded-template matmul re-tiled for Hopper: a block takes
+// up to 128 rows of 128 lags of one stream (96 with a float32 operand) and
+// stages their segment span once. Each row's maximum quality and first column come from the
+// accumulators (search_core's row_best); the block folds its rows in lag
+// order with a strict >, writes one (max, first argmax) pair, and a second
+// small kernel folds a stream's blocks in lag order. No atomics: the result
+// is deterministic.
+#include "search_core.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int LPT = 8;                // lags per thread
-constexpr int TILE = THREADS * LPT;   // lags per block
-constexpr int EBLK = 128;             // samples per energy block
+using namespace anet::search;
 
-__host__ __device__ __forceinline__ int skew(int i) { return i + (i >> 3); }
+template <typename T, bool B_LO>
+__global__ void __maxnreg__((max_regs<std::is_same<T, float>::value, B_LO>()))
+search_tile_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, Geometry g,
+                   float* __restrict__ part_q, int32_t* __restrict__ part_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red_q[MAX_WARPS];
+  __shared__ int red_i[MAX_WARPS];
+  const int b = blockIdx.x / g.n_tiles;
+  const int tile = blockIdx.x % g.n_tiles;
+  float rq[2];
+  int rc[2];
+  anet::search::tile_rows<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-search_tile_kernel(const T* __restrict__ seg, int64_t row_stride, int seg_len,
-                   const float* __restrict__ tpl, int k, int kp, int out_len, float te, int kb,
-                   int n_load, float* __restrict__ part_q, int32_t* __restrict__ part_i) {
-  extern __shared__ float sm[];
-  float* s_x = sm;                          // skew(n_load) floats
-  float* s_t = sm + skew(n_load) + 8;       // kp floats
-  float* s_blk = s_t + kp;                  // TILE / EBLK + kb floats
-  __shared__ float red_q[THREADS / 32];
-  __shared__ int red_i[THREADS / 32];
-
-  const int b = blockIdx.x;
-  const int tile = blockIdx.y;
-  const int n_tiles = gridDim.y;
-  const int64_t lag0 = (int64_t)tile * TILE;
-  const T* row = seg + (int64_t)b * row_stride;
-
-  for (int i = threadIdx.x; i < n_load; i += THREADS)
-    s_x[skew(i)] = anet::load_or_zero(row, lag0 + i, seg_len);
-  for (int i = threadIdx.x; i < kp; i += THREADS) s_t[i] = i < k ? tpl[i] : 0.0f;
-  __syncthreads();
-
-  // energies of the 128-sample blocks this tile's windows touch
+  // this lane's rows r and r + 8: the earlier row first, lags unique
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_blk = TILE / EBLK + kb;
-  for (int blk = warp; blk < n_blk; blk += THREADS / 32) {
-    float e = 0.0f;
-    for (int i = lane; i < EBLK; i += 32) {
-      const float v = s_x[skew(blk * EBLK + i)];
-      e = fmaf(v, v, e);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) e += __shfl_down_sync(0xffffffffu, e, off);
-    if (lane == 0) s_blk[blk] = e;
-  }
-
-  // correlation at lags base .. base + 7 of the tile
-  const int base = threadIdx.x * LPT;
-  float acc[LPT];
-  float w[2 * LPT];
-#pragma unroll
-  for (int r = 0; r < LPT; ++r) {
-    acc[r] = 0.0f;
-    w[r] = s_x[skew(base + r)];
-  }
-  for (int j0 = 0; j0 < kp; j0 += LPT) {
-#pragma unroll
-    for (int r = 0; r < LPT; ++r) w[LPT + r] = s_x[skew(base + j0 + LPT + r)];
-#pragma unroll
-    for (int u = 0; u < LPT; ++u) {
-      const float tv = s_t[j0 + u];
-#pragma unroll
-      for (int r = 0; r < LPT; ++r) acc[r] = fmaf(w[u + r], tv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < LPT; ++r) w[r] = w[LPT + r];
-  }
-  __syncthreads();  // s_blk complete
-
-  // the 8 lags share one energy block (base is a multiple of 8)
-  const int jb = base / EBLK;
-  float win = 0.0f;
-  for (int q = 0; q < kb; ++q) win += s_blk[jb + q];
-  const float scale = rsqrtf(te * fmaxf(win, 1e-4f * te));
-  float bq = -1.0f;
-  int bi = 0x7fffffff;
-#pragma unroll
-  for (int r = 0; r < LPT; ++r) {
-    const int64_t lag = lag0 + base + r;
-    const float q = fabsf(acc[r]) * scale;
-    if (lag < out_len && q > bq) {
-      bq = q;
-      bi = (int)lag;
-    }
+  const int row0 = tile * g.mt + warp * WARP_ROWS + (lane >> 2);
+  float bq = rq[0];
+  int bi = rc[0] < ROW ? row0 * ROW + rc[0] : 0x7fffffff;
+  if (rc[1] < ROW && rq[1] > bq) {
+    bq = rq[1];
+    bi = (row0 + 8) * ROW + rc[1];
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float oq = __shfl_down_sync(0xffffffffu, bq, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+  for (int off = 4; off < 32; off <<= 1) {
+    const float oq = __shfl_xor_sync(0xffffffffu, bq, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
     if (anet::better(oq, oi, bq, bi)) {
       bq = oq;
       bi = oi;
@@ -128,13 +69,13 @@ search_tile_kernel(const T* __restrict__ seg, int64_t row_stride, int seg_len,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int v = 1; v < THREADS / 32; ++v)
+    for (int v = 1; v < (int)(blockDim.x >> 5); ++v)
       if (anet::better(red_q[v], red_i[v], bq, bi)) {
         bq = red_q[v];
         bi = red_i[v];
       }
-    part_q[(int64_t)b * n_tiles + tile] = bq;
-    part_i[(int64_t)b * n_tiles + tile] = bi;
+    part_q[(int64_t)b * g.n_tiles + tile] = bq;
+    part_i[(int64_t)b * g.n_tiles + tile] = bi;
   }
 }
 
@@ -147,7 +88,7 @@ __global__ void search_reduce_kernel(const float* __restrict__ part_q,
   int bi = part_i[(int64_t)b * n_tiles];
   for (int t = 1; t < n_tiles; ++t) {
     const float q = part_q[(int64_t)b * n_tiles + t];
-    if (q > bq) {  // later tiles hold later lags: strict > keeps the first
+    if (q > bq) {  // later blocks hold later lags: strict > keeps the first
       bq = q;
       bi = part_i[(int64_t)b * n_tiles + t];
     }
@@ -156,48 +97,50 @@ __global__ void search_reduce_kernel(const float* __restrict__ part_q,
   best_i[b] = bi;
 }
 
+template <typename T, bool B_LO>
+cudaError_t launch(const void* seg, const void* tpl, const Geometry& g, size_t smem, int B,
+                   void* part_q, void* part_i, cudaStream_t st) {
+  auto kernel = search_tile_kernel<T, B_LO>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * g.n_tiles, g.mt / WARP_ROWS * 32, smem, st>>>(
+      static_cast<const T*>(seg), static_cast<const uint32_t*>(tpl), g,
+      static_cast<float*>(part_q), static_cast<int32_t*>(part_i));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// seg: [B, seg_len] rows `row_stride` elements apart (last dim contiguous);
-// tpl: [k] float32; part_q/part_i: [B, ceil(out_len / 2048)] scratch;
-// best_q: [B] float32, best_i: [B] int32. Returns cudaGetLastError().
+// seg: [B, seg_len] rows `row_stride` elements apart (last dim contiguous),
+// float32 (dtype 0) or bfloat16 (1); tpl: the template words of
+// kernels._search_template_words, int32 [1 + b_lo, 2, w] (b_lo: a float32
+// template's lo half follows its hi half); part_q/part_i: [B, blocks]
+// scratch, blocks >= ceil(ceil(out_len / 128) / 96) (a block takes at least
+// 96 rows); best_q: [B] float32, best_i: [B] int32.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a geometry the
+// kernel does not take.
 extern "C" int anet_sync_search(const void* seg, int dtype, int B, long long row_stride,
-                                int seg_len, const void* tpl, int k, int out_len, float te,
-                                void* part_q, void* part_i, void* best_q, void* best_i,
-                                void* stream) {
-  const int n_tiles = (out_len + TILE - 1) / TILE;
-  const int kp = (k + LPT - 1) / LPT * LPT;
-  const int kb = (k + EBLK - 1) / EBLK + 1;
-  const int n_corr = TILE + kp + LPT;
-  const int n_energy = (TILE / EBLK + kb) * EBLK;
-  const int n_load = n_corr > n_energy ? n_corr : n_energy;
-  const size_t smem = (size_t)(skew(n_load) + 8 + kp + TILE / EBLK + kb) * sizeof(float);
+                                int seg_len, const void* tpl, int b_lo, int w, int k,
+                                int out_len, float te, void* part_q, void* part_i, void* best_q,
+                                void* best_i, void* stream) {
+  const bool a_lo = dtype == anet::DTYPE_F32;
+  Geometry g;
+  size_t smem;
+  if (!make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == anet::DTYPE_BF16) {
-    err = cudaFuncSetAttribute(search_tile_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = b_lo ? launch<__nv_bfloat16, true>(seg, tpl, g, smem, B, part_q, part_i, st)
+               : launch<__nv_bfloat16, false>(seg, tpl, g, smem, B, part_q, part_i, st);
   } else {
-    err = cudaFuncSetAttribute(search_tile_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = b_lo ? launch<float, true>(seg, tpl, g, smem, B, part_q, part_i, st)
+               : launch<float, false>(seg, tpl, g, smem, B, part_q, part_i, st);
   }
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, n_tiles);
-  if (dtype == anet::DTYPE_BF16) {
-    search_tile_kernel<__nv_bfloat16><<<grid, THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(seg), row_stride, seg_len,
-        static_cast<const float*>(tpl), k, kp, out_len, te, kb, n_load,
-        static_cast<float*>(part_q), static_cast<int32_t*>(part_i));
-  } else {
-    search_tile_kernel<float><<<grid, THREADS, smem, st>>>(
-        static_cast<const float*>(seg), row_stride, seg_len, static_cast<const float*>(tpl), k,
-        kp, out_len, te, kb, n_load, static_cast<float*>(part_q),
-        static_cast<int32_t*>(part_i));
-  }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   search_reduce_kernel<<<(B + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(part_q), static_cast<const int32_t*>(part_i), B, n_tiles,
+      static_cast<const float*>(part_q), static_cast<const int32_t*>(part_i), B, g.n_tiles,
       static_cast<float*>(best_q), static_cast<int32_t*>(best_i));
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,12 @@ arrived within the new chunk, so every frame is considered exactly once.
 At most one frame is detected per chunk; chunk_size <= one frame length
 guarantees none is skipped.
 
+The entry points take any leading batch shape, as the reference's: a
+capture or chunk [..., N] and a carry of batch shape ``(...)``, ``()`` for
+one stream (the carry the reference's CLI checkpoints). They flatten the
+batch axes into one, which the steps and the kernels take, and restore them
+on every output.
+
 ``lock=True`` is frame-lock mode: once a frame decodes, the next one is
 expected one frame later, so a locked stream verifies the prediction with an
 n-lag probe (which also servos out +-2 samples of clock drift) and the
@@ -68,7 +74,6 @@ import numpy as np
 import torch
 
 from anet_torch._device import as_tensor, resolve_device
-from anet_torch.dsp.family import geometry as family_geometry
 from anet_torch.dsp.family import preamble_template
 from anet_torch.dsp.frame import DynamicFrameResult, FrameResult
 
@@ -140,15 +145,15 @@ def _demod_buffer(buffer: torch.Tensor, compute_dtype) -> torch.Tensor:
 class StreamCarry(NamedTuple):
     """Everything the streaming receiver remembers between chunks."""
 
-    buffer: torch.Tensor  # [B, L] sliding sample window
-    samples_seen: torch.Tensor  # int32 [B] — absolute sample count consumed
-    last_frame_end: torch.Tensor  # int32 [B] — absolute end of last accepted frame
-    frames_detected: torch.Tensor  # int32 [B]
-    frames_ok: torch.Tensor  # int32 [B]
-    decode_errors: torch.Tensor  # int32 [B] — preamble locked but integrity failed
-    locked: torch.Tensor  # bool [B] — frame-lock mode: next frame start predicted
-    next_start: torch.Tensor  # int32 [B] — absolute predicted start of next frame
-    drift: torch.Tensor  # float32 [B] — clock-drift estimate, samples per frame
+    buffer: torch.Tensor  # [..., L] sliding sample window
+    samples_seen: torch.Tensor  # int32 [...] — absolute sample count consumed
+    last_frame_end: torch.Tensor  # int32 [...] — absolute end of last accepted frame
+    frames_detected: torch.Tensor  # int32 [...]
+    frames_ok: torch.Tensor  # int32 [...]
+    decode_errors: torch.Tensor  # int32 [...] — preamble locked but integrity failed
+    locked: torch.Tensor  # bool [...] — frame-lock mode: next frame start predicted
+    next_start: torch.Tensor  # int32 [...] — absolute predicted start of next frame
+    drift: torch.Tensor  # float32 [...] — clock-drift estimate, samples per frame
 
 
 class StreamStepOutput(NamedTuple):
@@ -252,20 +257,20 @@ def init_carry(
     config,
     chunk_size: int,
     payload_len: int,
-    batch_shape: Tuple[int, ...] = (1,),
+    batch_shape: Tuple[int, ...] = (),
     track: bool = False,
     dtype=torch.float32,
     device="cuda",
 ) -> StreamCarry:
-    """Fresh stream state for ``batch_shape = (B,)`` streams on ``device``.
-    ``dtype`` is the sliding buffer's storage dtype (float32, bfloat16, or
-    int8 for the fixed-length MFSK receivers: chunks quantize at the append
-    edge); receive_stream defaults it to its compute_dtype."""
+    """Fresh stream state for ``batch_shape`` streams on ``device``: any
+    leading shape, ``()`` for one stream, as the reference's. ``dtype`` is
+    the sliding buffer's storage dtype (float32, bfloat16, or int8 for the
+    fixed-length MFSK receivers: chunks quantize at the append edge);
+    receive_stream defaults it to its compute_dtype."""
     _require_supported(config, track)
     _require_buffer_dtype(dtype)
     _refuse_int8(config, dtype, dynamic=False)
-    if len(batch_shape) != 1:
-        raise ValueError(f"batch_shape must be (B,), got {batch_shape}")
+    batch_shape = tuple(batch_shape)
     dev = resolve_device(device)
     length = _buffer_len(config, chunk_size, payload_len)
     zi = torch.zeros(batch_shape, dtype=torch.int32, device=dev)
@@ -280,6 +285,32 @@ def init_carry(
         next_start=zi,
         drift=torch.zeros(batch_shape, dtype=torch.float32, device=dev),
     )
+
+
+def _flatten_carry(carry: StreamCarry) -> Tuple[StreamCarry, Tuple[int, ...]]:
+    """(the carry with its leading batch axes flattened into one, those
+    axes): the steps and the kernels below the entry points take [B, ...]."""
+    batch_shape = tuple(carry.samples_seen.shape)
+    n = len(batch_shape)
+    return StreamCarry(*(f.reshape((-1, *f.shape[n:])) for f in carry)), batch_shape
+
+
+def _unflatten(tree, batch_shape: Tuple[int, ...], axis: int = 0):
+    """A carry or step output (NamedTuples of tensors, nested) with the flat
+    batch axis at ``axis`` of every tensor restored to ``batch_shape``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((*tree.shape[:axis], *batch_shape, *tree.shape[axis + 1 :]))
+    return type(tree)(*(_unflatten(f, batch_shape, axis) for f in tree))
+
+
+def _flat_chunk(chunk: torch.Tensor, batch_shape: Tuple[int, ...]) -> torch.Tensor:
+    """A chunk [..., chunk_size] as [B, chunk_size]; its batch axes must be
+    the carry's."""
+    if tuple(chunk.shape[:-1]) != batch_shape:
+        raise ValueError(
+            f"chunk batch shape {tuple(chunk.shape[:-1])} != the carry's {batch_shape}"
+        )
+    return chunk.reshape(-1, chunk.shape[-1])
 
 
 def _drift_round(drift: torch.Tensor) -> torch.Tensor:
@@ -327,27 +358,35 @@ def _template_energy(t_c: torch.Tensor) -> torch.Tensor:
     return (t_c.float() ** 2).sum()
 
 
-def _search_best(carry, chunk, t_frame: int, template, margin: int, compute_dtype):
-    """Slide + every-lag preamble search (sync_search_fused), returning the
-    per-stream best: (buffer, samples_seen, w0, buffer_abs0, best_q,
-    best_rel)."""
+@functools.lru_cache(maxsize=16)
+def _templates(config, compute_dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the preamble template in float32, the same in ``compute_dtype``),
+    made once per config, dtype and device: the same tensors every chunk,
+    so the kernels make their template operands (the search's words, the
+    int8 probe's taps) once."""
+    template = preamble_template(config, device)
+    return template, template.to(compute_dtype)
+
+
+def _search_best(carry, chunk, t_frame: int, template, t_c, margin: int, compute_dtype):
+    """Slide + every-lag preamble search (sync_search_fused) with the
+    template in ``compute_dtype`` (``t_c``), returning the per-stream best:
+    (buffer, samples_seen, w0, buffer_abs0, best_q, best_rel)."""
     from anet_torch.kernels import sync_search_fused
 
     chunk_size = chunk.shape[-1]
     k = template.shape[-1]
     buffer, samples_seen, w0, buffer_abs0 = _slide_buffer(carry, chunk, t_frame, margin)
     seg = buffer[..., w0 : w0 + chunk_size + k - 1].to(compute_dtype)
-    best_q, best_rel = sync_search_fused(
-        seg, template.to(compute_dtype), chunk_size, (template * template).sum()
-    )
+    best_q, best_rel = sync_search_fused(seg, t_c, chunk_size, (template * template).sum())
     return buffer, samples_seen, w0, buffer_abs0, best_q, best_rel
 
 
-def _find_candidate(carry, chunk, t_frame, template, margin, detect_threshold, compute_dtype):
+def _find_candidate(carry, chunk, t_frame, template, t_c, margin, detect_threshold, compute_dtype):
     """Slide, search, and nominate at most one candidate frame start per
     chunk: (buffer, samples_seen, start_idx, start_abs, best_q, candidate)."""
     buffer, samples_seen, w0, buffer_abs0, best_q, best_rel = _search_best(
-        carry, chunk, t_frame, template, margin, compute_dtype
+        carry, chunk, t_frame, template, t_c, margin, compute_dtype
     )
     start_idx = w0 + best_rel
     start_abs = buffer_abs0 + start_idx
@@ -378,20 +417,19 @@ def _probe_kernel_supported(carry: StreamCarry) -> bool:
     return carry.buffer.is_cuda
 
 
-def _find_candidate_locked(carry, chunk, t_frame, template, detect_threshold, compute_dtype):
-    """Unmerged frame-lock front half: probe the predicted next start (on
-    the card the probe kernel probe_at_fused, off it
-    sync.preamble_quality_probe) and search every lag only when some stream
-    needs acquiring. Returns (buffer, samples_seen, start_idx, start_abs,
-    quality, candidate, mid_flight)."""
+def _find_candidate_locked(carry, chunk, t_frame, t_c, detect_threshold, compute_dtype):
+    """Unmerged frame-lock front half with the template in ``compute_dtype``
+    (``t_c``): probe the predicted next start (on the card the probe kernel
+    probe_at_fused, off it sync.preamble_quality_probe) and search every lag
+    only when some stream needs acquiring. Returns (buffer, samples_seen,
+    start_idx, start_abs, quality, candidate, mid_flight)."""
     from anet_torch.dsp.sync import preamble_quality_probe
     from anet_torch.kernels import probe_at_fused, sync_search_fused
 
     chunk_size = chunk.shape[-1]
-    k = template.shape[-1]
+    k = t_c.shape[-1]
     buffer, samples_seen, w0, buffer_abs0 = _slide_buffer(carry, chunk, t_frame, 0)
     length = t_frame + chunk_size
-    t_c = template.to(compute_dtype)
     t_energy = _template_energy(t_c)
     pred_idx, in_win, mid_flight = _lock_prediction(carry, buffer_abs0, w0, chunk_size)
     probe_at = pred_idx.clamp(0, length - t_frame)
@@ -467,9 +505,8 @@ def _next_carry(carry, buffer, samples_seen, detected, frame, start_abs, t_frame
 @functools.lru_cache(maxsize=16)
 def _lock_template(config, compute_dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(the preamble template in ``compute_dtype``, its energy) of the
-    merged locked step, made once per config, dtype and device: the same
-    tensor every chunk, so the int8 probe quantizes it once."""
-    t_c = preamble_template(config, device).to(compute_dtype)
+    merged locked step, made once per config, dtype and device."""
+    t_c = _templates(config, compute_dtype, device)[1]
     return t_c, _template_energy(t_c)
 
 
@@ -552,16 +589,28 @@ def stream_step(
     track: bool = False,
     lock: bool = False,
 ) -> Tuple[StreamCarry, StreamStepOutput]:
-    """Consume one chunk [B, chunk_size] (on the carry's device); maybe
-    emit one frame per stream.
+    """Consume one chunk [..., chunk_size] (on the carry's device, its batch
+    axes the carry's); maybe emit one frame per stream.
 
     ``lock=True`` enables frame-lock mode (see the module docstring):
     decoded frames are identical to the always-search mode; per-chunk
     ``quality`` comes from the probe while locked and ``frame_start`` can
     differ by the +-2-sample drift servo. A detection counts only if the
     demodulated header validates (magic word + header CRC)."""
+    flat, batch_shape = _flatten_carry(carry)
+    new_carry, out = _stream_step(
+        config, flat, _flat_chunk(chunk, batch_shape), payload_len, detect_threshold,
+        compute_dtype, track, lock,
+    )
+    return _unflatten(new_carry, batch_shape), _unflatten(out, batch_shape)
+
+
+def _stream_step(
+    config, carry, chunk, payload_len: int, detect_threshold, compute_dtype, track: bool, lock: bool
+) -> Tuple[StreamCarry, StreamStepOutput]:
+    """stream_step on a flat batch: carry fields [B, ...], chunk [B, chunk_size]."""
     from anet_torch.dsp.demod import decide_symbols
-    from anet_torch.dsp.family import is_ofdm
+    from anet_torch.dsp.family import aligned_demod_fn, frame_samples, is_ofdm
     from anet_torch.dsp.frame import (
         data_symbols_for_payload,
         frame_result_from_decisions,
@@ -573,9 +622,8 @@ def stream_step(
     _require_float_compute(compute_dtype)
     _refuse_int8(config, carry.buffer.dtype, dynamic=False)
     chunk_size = chunk.shape[-1]
-    t_frame, template, demod = family_geometry(
-        config, payload_len, compute_dtype, carry.buffer.device
-    )
+    t_frame = frame_samples(config, payload_len)
+    template, t_c = _templates(config, compute_dtype, carry.buffer.device)
     _check_carry_geometry(config, carry, chunk_size, payload_len)
     if lock and _merged_lock_supported(config, carry):
         return _locked_step_merged(
@@ -584,14 +632,15 @@ def stream_step(
     mid_flight = None
     if lock:
         buffer, samples_seen, start_idx, start_abs, best_q, candidate, mid_flight = (
-            _find_candidate_locked(carry, chunk, t_frame, template, detect_threshold, compute_dtype)
+            _find_candidate_locked(carry, chunk, t_frame, t_c, detect_threshold, compute_dtype)
         )
     else:
         buffer, samples_seen, start_idx, start_abs, best_q, candidate = _find_candidate(
-            carry, chunk, t_frame, template, 0, detect_threshold, compute_dtype
+            carry, chunk, t_frame, template, t_c, 0, detect_threshold, compute_dtype
         )
     if is_ofdm(config):
         # the aligned window, then the OFDM receiver (its equalizer kernel)
+        demod = aligned_demod_fn(config, payload_len, compute_dtype, carry.buffer.device)
         frame = demod(_batched_dynamic_slice(buffer, start_idx, t_frame, compute_dtype))
     else:
         n_symbols = data_symbols_for_payload(config, payload_len)
@@ -631,10 +680,10 @@ def _stack_steps(steps):
 
 
 def _capture_chunks(capture, chunk_size: int, device):
-    """The capture as a [B, N] tensor on ``device`` and its chunk count."""
+    """The capture as a [..., N] tensor on ``device`` and its chunk count."""
     capture = as_tensor(capture, device)
-    if capture.dim() != 2:
-        raise ValueError(f"capture must be [B, N], got shape {tuple(capture.shape)}")
+    if capture.dim() == 0:
+        raise ValueError("capture must be [..., N], got a scalar")
     n = capture.shape[-1]
     if n == 0 or n % chunk_size:
         raise ValueError(f"capture length {n} not a positive multiple of chunk_size {chunk_size}")
@@ -642,17 +691,21 @@ def _capture_chunks(capture, chunk_size: int, device):
 
 
 def _resume_or_init(config, carry, capture, chunk_size: int, payload_len: int, compute_dtype):
-    """The caller's carry (checked to lie with the capture) or a fresh one
-    with a ``compute_dtype`` buffer."""
+    """The caller's carry (checked to lie with the capture and to have its
+    batch axes) or a fresh one with a ``compute_dtype`` buffer, its batch
+    axes flattened into one (_flatten_carry)."""
     _require_float_compute(compute_dtype)
+    batch_shape = tuple(capture.shape[:-1])
     if carry is None:
-        return init_carry(
-            config, chunk_size, payload_len, capture.shape[:1], dtype=compute_dtype,
-            device=capture.device,
+        carry = init_carry(
+            config, chunk_size, payload_len, batch_shape, dtype=compute_dtype, device=capture.device
         )
-    if carry.buffer.device != capture.device:
+    elif carry.buffer.device != capture.device:
         raise ValueError(f"carry lies on {carry.buffer.device}, capture on {capture.device}")
-    return carry
+    flat, carry_shape = _flatten_carry(carry)
+    if carry_shape != batch_shape:
+        raise ValueError(f"carry batch shape {carry_shape} != the capture's {batch_shape}")
+    return flat
 
 
 def receive_stream(
@@ -668,16 +721,17 @@ def receive_stream(
     resident: bool | None = None,
     device="cuda",
 ) -> StreamResult:
-    """Run a capture [B, N] through the receiver chunk by chunk on
+    """Run a capture [..., N] through the receiver chunk by chunk on
     ``device``, emitting every frame found.
 
     N must be a multiple of chunk_size (pad with zeros host-side). ``carry``
-    resumes a previous state (checkpoint/resume; it must lie on ``device``);
-    a fresh one is built if None, with a ``compute_dtype`` buffer. The
-    capture is cast to the buffer's dtype once, up front: into an int8
-    carry a float capture quantizes (quantize_int8) and an int8 capture
-    passes through. Returns the final carry and the per-chunk outputs
-    stacked along a leading chunk axis."""
+    resumes a previous state (checkpoint/resume; it must lie on ``device``
+    and have the capture's batch axes); a fresh one is built if None, with a
+    ``compute_dtype`` buffer. The capture is cast to the buffer's dtype
+    once, up front: into an int8 carry a float capture quantizes
+    (quantize_int8) and an int8 capture passes through. Returns the final
+    carry and the per-chunk outputs stacked along a leading chunk axis
+    (steps.detected is [num_chunks, ...])."""
     if resident:
         raise NotImplementedError(
             "resident=True (the capture-resident scan) is not ported yet "
@@ -685,18 +739,21 @@ def receive_stream(
         )
     _require_supported(config, track)
     capture, num_chunks = _capture_chunks(capture, chunk_size, device)
+    batch_shape = tuple(capture.shape[:-1])
     carry = _resume_or_init(config, carry, capture, chunk_size, payload_len, compute_dtype)
-    cap = _ingest_cast(capture, carry.buffer.dtype).reshape(capture.shape[0], num_chunks, chunk_size)
+    cap = _ingest_cast(capture, carry.buffer.dtype).reshape(-1, num_chunks, chunk_size)
     steps = []
     for i in range(num_chunks):
-        carry, out = stream_step(
+        carry, out = _stream_step(
             config, carry, cap[:, i], payload_len, detect_threshold, compute_dtype, track, lock
         )
         steps.append(out)
-    return StreamResult(carry=carry, steps=_stack_steps(steps))
+    return StreamResult(
+        carry=_unflatten(carry, batch_shape), steps=_unflatten(_stack_steps(steps), batch_shape, 1)
+    )
 
 
-def _slide_and_quality(carry, chunk, t_frame: int, template, margin: int, compute_dtype):
+def _slide_and_quality(carry, chunk, t_frame: int, template, t_c, margin: int, compute_dtype):
     """Slide the buffer one chunk and score EVERY just-completed frame
     start: (buffer, samples_seen, w0, buffer_abs0, quality), quality float32
     [B, chunk_size], the blockwise-normalized preamble match at starts
@@ -711,7 +768,7 @@ def _slide_and_quality(carry, chunk, t_frame: int, template, margin: int, comput
     k = template.shape[-1]
     buffer, samples_seen, w0, buffer_abs0 = _slide_buffer(carry, chunk, t_frame, margin)
     seg = buffer[..., w0 : w0 + chunk_size + k - 1].to(compute_dtype)
-    corr = correlate_fused(seg, template.to(compute_dtype), chunk_size)
+    corr = correlate_fused(seg, t_c, chunk_size)
     quality = blockwise_match_quality(seg, corr, k, (template * template).sum())
     return buffer, samples_seen, w0, buffer_abs0, quality
 
@@ -742,7 +799,8 @@ def stream_step_dynamic(
     max_frames_per_chunk: int = 1,
     lock: bool = False,
 ) -> Tuple[StreamCarry, DynamicStreamStepOutput]:
-    """stream_step with the payload length read from each frame's header.
+    """stream_step with the payload length read from each frame's header:
+    one chunk [..., chunk_size], its batch axes the carry's.
 
     Geometry (buffer size, detection latency) is sized for
     ``max_payload_len`` (init_carry with payload_len = max_payload_len);
@@ -770,6 +828,23 @@ def stream_step_dynamic(
     demod_at_energies_fused for coded configs), as in stream_step; an OFDM
     candidate's max-length window is gathered and demodulated by the OFDM
     receiver (uncoded only)."""
+    flat, batch_shape = _flatten_carry(carry)
+    new_carry, out = _stream_step_dynamic(
+        config, flat, _flat_chunk(chunk, batch_shape), max_payload_len, detect_threshold,
+        compute_dtype, max_frames_per_chunk, lock,
+    )
+    return (
+        _unflatten(new_carry, batch_shape),
+        _unflatten(out, batch_shape, 0 if max_frames_per_chunk == 1 else 1),
+    )
+
+
+def _stream_step_dynamic(
+    config, carry, chunk, max_payload_len: int, detect_threshold, compute_dtype,
+    max_frames_per_chunk: int, lock: bool,
+) -> Tuple[StreamCarry, DynamicStreamStepOutput]:
+    """stream_step_dynamic on a flat batch: carry fields [B, ...], chunk
+    [B, chunk_size]; with K > 1 candidates the outputs are [K, B, ...]."""
     from anet_torch.dsp.family import aligned_demod_dynamic_fn, frame_samples, is_ofdm
     from anet_torch.dsp.frame import (
         data_symbols_for_payload,
@@ -783,7 +858,7 @@ def stream_step_dynamic(
     _refuse_int8(config, carry.buffer.dtype, dynamic=True)
     chunk_size = chunk.shape[-1]
     t_max = frame_samples(config, max_payload_len)
-    template = family_geometry(config, max_payload_len, compute_dtype, carry.buffer.device)[1]
+    template, t_c = _templates(config, compute_dtype, carry.buffer.device)
     _check_carry_geometry(config, carry, chunk_size, max_payload_len)
     mid_flight = candidate1 = quality = None
     if lock:
@@ -797,18 +872,18 @@ def stream_step_dynamic(
         # geometry only depends on the MAX frame length; the prediction
         # itself came from the previous frame's declared length.
         buffer, samples_seen, best1_idx, _, best1_q, candidate1, mid_flight = (
-            _find_candidate_locked(carry, chunk, t_max, template, detect_threshold, compute_dtype)
+            _find_candidate_locked(carry, chunk, t_max, t_c, detect_threshold, compute_dtype)
         )
         w0 = 1
         buffer_abs0 = samples_seen - (t_max + chunk_size)
         best1_rel = best1_idx - w0
     elif max_frames_per_chunk == 1:
         buffer, samples_seen, w0, buffer_abs0, best1_q, best1_rel = _search_best(
-            carry, chunk, t_max, template, 0, compute_dtype
+            carry, chunk, t_max, template, t_c, 0, compute_dtype
         )
     else:
         buffer, samples_seen, w0, buffer_abs0, quality = _slide_and_quality(
-            carry, chunk, t_max, template, 0, compute_dtype
+            carry, chunk, t_max, template, t_c, 0, compute_dtype
         )
     buf_c = buffer.to(compute_dtype)
 
@@ -923,26 +998,30 @@ def receive_stream_dynamic(
     """receive_stream with per-frame payload lengths from the headers, on
     ``device``.
 
-    The capture [B, N] must extend a max-length frame past the last frame
+    The capture [..., N] must extend a max-length frame past the last frame
     start (pad with zeros): detection fires once a full max window is
     buffered. ``max_frames_per_chunk`` = K > 1 decodes up to K
     non-overlapping frames per chunk (see stream_step_dynamic); the steps
     then carry a per-chunk candidate axis: steps.detected is
-    [num_chunks, K, B]. ``lock=True`` is dynamic frame lock: use chunk_size
+    [num_chunks, K, ...]. ``lock=True`` is dynamic frame lock: use chunk_size
     <= the minimum expected frame length so at most one frame completes per
     chunk."""
     _require_supported(config, False)
     capture, num_chunks = _capture_chunks(capture, chunk_size, device)
+    batch_shape = tuple(capture.shape[:-1])
     carry = _resume_or_init(config, carry, capture, chunk_size, max_payload_len, compute_dtype)
-    cap = capture.to(carry.buffer.dtype).reshape(capture.shape[0], num_chunks, chunk_size)
+    cap = capture.to(carry.buffer.dtype).reshape(-1, num_chunks, chunk_size)
     steps = []
     for i in range(num_chunks):
-        carry, out = stream_step_dynamic(
+        carry, out = _stream_step_dynamic(
             config, carry, cap[:, i], max_payload_len, detect_threshold, compute_dtype,
             max_frames_per_chunk, lock,
         )
         steps.append(out)
-    return StreamResult(carry=carry, steps=_stack_steps(steps))
+    axis = 1 if max_frames_per_chunk == 1 else 2
+    return StreamResult(
+        carry=_unflatten(carry, batch_shape), steps=_unflatten(_stack_steps(steps), batch_shape, axis)
+    )
 
 
 _CARRY_DTYPES = {

@@ -22,7 +22,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
    and untracked, timed on ofdm-fast at B = 8,192; the batch-major
    filterbank (tone_energies_fused, decide_tones_fused) on bf16 mfsk16-fast
-   data sections read in place, timed at B = 16,384;
+   data sections read in place, timed at B = 16,384; and the tensor-core
+   search (sync_search_fused) timed three more times, each logged against
+   its bound: its float32 route (seg and template split into bf16 hi + lo)
+   at the main shape, and bf16 at the coded (mfsk4-coded: k 1,024, chunk
+   70,144) and OFDM stream (ofdm-fast: chunk 4,736) geometries, B = 8,192;
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -207,6 +211,20 @@ def time_and_bound(results: dict, calls: dict, work: dict, library: dict | None 
         lib = f", library {r['library_ms']:.3f} ms" if "library_ms" in r else ""
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+
+
+def log_search_time(label: str, seg: torch.Tensor, tpl: torch.Tensor, chunk: int) -> None:
+    """Time sync_search_fused on ``seg`` at another geometry or dtype than
+    its row's and log it against its bound: the segment read once, the
+    2 k out_len B operations at the bf16 peak, whatever the dtypes."""
+    k, b = tpl.shape[-1], seg.shape[0]
+    te = float((tpl.float() ** 2).sum())
+    ms = time_ms(lambda: kernels.sync_search_fused(seg, tpl, chunk, te))
+    bound, by = bound_ms(b * (chunk + k - 1) * seg.element_size() + 8 * b, 2 * k * chunk * b)
+    log(f"  sync_search_fused ({label}: B {b}, out_len {chunk}, k {k}, seg "
+        f"{str(seg.dtype).removeprefix('torch.')}, template {str(tpl.dtype).removeprefix('torch.')}): "
+        f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({by})")
+    torch.cuda.empty_cache()
 
 
 def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...],
@@ -407,6 +425,10 @@ def phase_kernels(cfg, gen) -> dict:
         ),
     }
     time_and_bound(results, calls, work)
+    # the float32 route of the search at the same shape: seg and template
+    # split into bf16 hi + lo, three products a tile and step
+    seg32 = buf_full.float()[:, 1 : 1 + chunk + k - 1]
+    log_search_time("float32 route", seg32, preamble_waveform(cfg, device=DEV), chunk)
     return results
 
 
@@ -523,6 +545,7 @@ def phase_kernels_coded(cfg, gen) -> dict:
         "viterbi_trellis": (b * t_steps * (8 + 1) + 64 * 4 * 4, b * t_steps * acs_ops, F32_FLOPS_S),
     }
     time_and_bound(results, calls, work)
+    log_search_time("coded geometry", buf_full[:, 1 : 1 + chunk + k - 1], tpl, chunk)
     return results
 
 
@@ -1100,6 +1123,12 @@ def phase_kernels_ofdm(gen) -> dict:
     work = {"ofdm_track_decide_fused": (in_bytes + out_bytes, b * n_s * n_c * OFDM_OPS_POINT, F32_FLOPS_S)}
     log(f"ofdm geometry: {n_s} data symbols x {n_c} carriers, B {b}")
     time_and_bound(results, calls, work)
+    # the search at the OFDM stream's geometry (stream-ofdm's chunk and
+    # preamble), on noise: a timing only
+    chunk = family.frame_samples(cfg, PAYLOAD) // 128 * 128
+    tpl = family.preamble_template(cfg, DEV).to(torch.bfloat16)
+    seg = torch.randn(b, chunk + tpl.shape[-1] - 1, generator=gen, device=DEV).to(torch.bfloat16)
+    log_search_time("OFDM stream geometry", seg, tpl, chunk)
     return results
 
 

@@ -305,6 +305,80 @@ def test_dynamic_checkpoint_crosses_both_ways(tmp_path, model, mode):
     assert np.asarray(full.carry.frames_ok).tolist() == [len(lens)] * 2
 
 
+@pytest.mark.parametrize("mode", ["two-a-chunk", "lock"])
+@pytest.mark.parametrize("batch_shape", [(), (2, 3)], ids=["scalar", "2x3"])
+def test_receive_stream_dynamic_batch_shapes_match_jax(batch_shape, mode):
+    """A 1-D capture (batch shape ()) and a [2, 3, N] one through both
+    packages, two candidates a chunk (the candidate axis after the chunk
+    axis, before the batch axes) and in frame lock: every field with the
+    reference's shape; detections, frame starts, lengths, payloads,
+    verdicts and the carry equal."""
+    cfg, jcfg = MODELS["mfsk16-fast"]
+    rng = np.random.default_rng(41 + len(batch_shape))
+    lock = mode == "lock"
+    lens = LOCKED if lock else TWO_A_CHUNK
+    k = 1 if lock else 2
+    chunk = _chunk(jcfg, lens, k)
+    b = int(np.prod(batch_shape))
+    cap, _ = _capture(cfg, rng, lens, chunk, b=b)
+    cap = cap.reshape(*batch_shape, cap.shape[-1])
+    kw = dict(max_frames_per_chunk=k, lock=lock)
+    want = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap), chunk, MAX, **kw)
+    got = tstream.receive_stream_dynamic(cfg, cap, chunk, MAX, device="cpu", **kw)
+    n_chunks = cap.shape[-1] // chunk
+    assert tuple(got.steps.detected.shape) == (n_chunks, *((k,) if k > 1 else ()), *batch_shape)
+    for f in tstream.StreamCarry._fields:
+        assert tuple(getattr(got.carry, f).shape) == np.shape(getattr(want.carry, f)), f
+    for f in ("detected", "quality", "frame_start"):
+        assert tuple(getattr(got.steps, f).shape) == np.shape(getattr(want.steps, f)), f
+    for f in got.steps.frame._fields:
+        assert tuple(getattr(got.steps.frame, f).shape) == np.shape(getattr(want.steps.frame, f)), f
+    _assert_same(got, want)
+    np.testing.assert_array_equal(got.carry.buffer.numpy(), np.asarray(want.carry.buffer))
+    assert int(got.carry.frames_ok.sum()) == len(lens) * b
+
+
+def test_scalar_dynamic_checkpoint_crosses_both_ways(tmp_path):
+    """A dynamic-lock checkpoint of batch shape () written by
+    anet.stream.save_carry mid-capture resumes in the port with the frames
+    of one uninterrupted JAX run, and the port's resumes in anet."""
+    cfg, jcfg = MODELS["mfsk16-fast"]
+    rng = np.random.default_rng(23)
+    chunk = _chunk(jcfg, LOCKED)
+    cap, _ = _capture(cfg, rng, LOCKED, chunk, b=1)
+    cap = cap[0]
+    n0 = cap.shape[-1] // chunk // 2
+    cut = n0 * chunk
+    full = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap), chunk, MAX, lock=True)
+    first = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap[:cut]), chunk, MAX, lock=True)
+    assert 0 < int(first.carry.frames_ok) < len(LOCKED)
+    jstream.save_carry(tmp_path / "jax.npz", first.carry)
+    ckpt = tstream.load_carry(tmp_path / "jax.npz", device="cpu")
+    assert ckpt.carry.samples_seen.shape == () and ckpt.carry.buffer.dim() == 1
+    rest = tstream.receive_stream_dynamic(cfg, cap[cut:], chunk, MAX, carry=ckpt.carry, lock=True, device="cpu")
+    det = rest.steps.detected.numpy()
+    np.testing.assert_array_equal(det, np.asarray(full.steps.detected)[n0:])
+    np.testing.assert_array_equal(
+        rest.steps.frame.payload.numpy()[det], np.asarray(full.steps.frame.payload)[n0:][det]
+    )
+    for f in tstream.StreamCarry._fields:
+        np.testing.assert_allclose(
+            getattr(rest.carry, f).float().numpy(), np.asarray(getattr(full.carry, f)).astype(np.float32),
+            rtol=1e-6, atol=1e-6, err_msg=f,
+        )
+    mid = tstream.receive_stream_dynamic(cfg, cap[:cut], chunk, MAX, lock=True, device="cpu")
+    tstream.save_carry(tmp_path / "torch.npz", mid.carry)
+    back = jstream.load_carry(tmp_path / "torch.npz")
+    tail = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap[cut:]), chunk, MAX, carry=back.carry, lock=True)
+    np.testing.assert_array_equal(np.asarray(tail.steps.detected), np.asarray(full.steps.detected)[n0:])
+    np.testing.assert_array_equal(
+        np.asarray(tail.steps.frame.payload)[det], np.asarray(full.steps.frame.payload)[n0:][det]
+    )
+    for f in ("frames_ok", "next_start", "last_frame_end"):
+        np.testing.assert_array_equal(np.asarray(getattr(tail.carry, f)), np.asarray(getattr(full.carry, f)), f)
+    assert int(full.carry.frames_ok) == len(LOCKED)
+
+
 @pytest.mark.parametrize("mode", ["search", "lock"])
 def test_ofdm_receive_stream_dynamic_matches_jax(mode):
     """ofdm-fast frames of three lengths (the reference's

@@ -91,6 +91,47 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype):
         torch.testing.assert_close(got[j], want[j], rtol=1e-3, atol=1e-3)
 
 
+SEARCH_DTYPES = {  # (seg, template): one, two and three bf16 products a tile and step
+    "bf16-bf16": (torch.bfloat16, torch.bfloat16),
+    "bf16-f32": (torch.bfloat16, torch.float32),
+    "f32-f32": (torch.float32, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", list(SEARCH_DTYPES))
+@pytest.mark.parametrize("out_len", [128, 4736, 11776, 36352])
+@pytest.mark.parametrize("k", [512, 1024, 2047, 2048, 6144])
+def test_cuda_search_geometries_match_plain_version(cuda, k, out_len, dtypes):
+    """The tensor-core search and block maxima at every template length and
+    chunk of the paths (k not a multiple of 16 too), on 37 streams (not a
+    multiple of a block's rows) whose segments are strided views starting
+    at sample 1: lags equal to the plain version's and to the planted ones
+    (each stream's peak unique), qualities within rtol 1e-3 (float32 sums in
+    another order), the block maxima's maximum bit-equal to the search's
+    best."""
+    seg_dtype, tpl_dtype = SEARCH_DTYPES[dtypes]
+    rng = np.random.default_rng(k + out_len)
+    b = 37
+    t = rng.standard_normal(k).astype(np.float32)
+    lags = rng.integers(0, out_len, b)
+    buf = rng.standard_normal((b, out_len + k + 40)).astype(np.float32)
+    for s, lag in enumerate(lags):
+        buf[s, 1 + lag : 1 + lag + k] += 3.0 * t
+    tpl = torch.from_numpy(t).to(cuda, tpl_dtype)
+    te = float((tpl.float() ** 2).sum())
+    seg = torch.from_numpy(buf).to(cuda, seg_dtype)[:, 1 : out_len + k]
+    assert seg.stride(0) != seg.shape[1] and seg.data_ptr() % 16
+    q, i = tk.sync_search_fused(seg, tpl, out_len, te)
+    rq, ri = tk.sync_search_fused_ref(seg, tpl, out_len, te)
+    assert torch.equal(i, ri) and torch.equal(i.cpu(), torch.from_numpy(lags).int())
+    torch.testing.assert_close(q, rq, rtol=1e-3, atol=1e-6)
+    bm = tk.sync_search_blockmax(seg, tpl, out_len, te)
+    torch.testing.assert_close(bm, tk.sync_search_blockmax_ref(seg, tpl, out_len, te), rtol=1e-3, atol=1e-6)
+    assert torch.equal(bm.amax(-1), q)
+    assert torch.equal(bm.argmax(-1).int(), i // 128)
+
+
 CODED = get_model("mfsk4-coded").config
 
 

@@ -554,3 +554,49 @@ def test_sass_mix_parses_cuobjdump_output():
         ("_Z6kernelIaEvPKT_", {"LDC": 1, "LDG": 1, "I2FP": 2}),
         ("_Z6kernelIfEvPKT_", {"EXIT": 1}),
     ]
+
+
+def _band_from_words(words: torch.Tensor, k: int) -> torch.Tensor:
+    """The [16 * steps, 128] band, one per half (hi, lo), that the search
+    kernels' B fragments read from the template words: entry (p, n) of step
+    p // 16 and n8 tile n // 8 is the half (p % 2) of the word that lane
+    (g = n % 8, i = (p % 8) // 2) loads for H(16 s - 8 j + 8 (p % 16 // 8)),
+    word 64 + i - g // 2 + e / 2 of copy g % 2 (csrc/search_core.cuh
+    product())."""
+    steps = -(-(k + 127) // 16)
+    halves = words.view(torch.bfloat16).float()  # [P, 2, 2W], the word's low half first
+    p = torch.arange(16 * steps)[:, None]
+    n = torch.arange(128)[None, :]
+    g, i, kk = n % 8, (p % 8) // 2, p % 16
+    e = 16 * (p // 16) - 8 * (n // 8) + 8 * (kk // 8)
+    word = 64 + i - g // 2 + e // 2
+    assert int(word.min()) >= 0 and int(word.max()) + 8 < words.shape[-1]  # + the next step's reads
+    return halves[:, g % 2, 2 * word + kk % 2]
+
+
+@pytest.mark.parametrize("k", [512, 1024, 2047, 2048, 6144])
+def test_search_template_words_expand_to_the_band(k):
+    """The search kernels' template operand (built once a template by the
+    wrapper) read as the kernels' B fragments read it: for a bfloat16
+    template exactly anet.dsp.sync.banded_template's band of the same
+    template, over the (k + 127) rows the product runs padded to 16; for a
+    float32 one a hi band equal to the band of its bf16 rounding and a lo
+    band with which it rebuilds the float32 band within 2**-16 relative."""
+    from anet.dsp.sync import banded_template
+
+    rng = np.random.default_rng(k)
+    t = rng.standard_normal(k).astype(np.float32)
+    rows = 16 * -(-(k + 127) // 16)
+    t16 = torch.from_numpy(t).to(torch.bfloat16)
+    band16 = np.asarray(banded_template(jnp.asarray(t16.float().numpy()), rows, 128))
+    words = tk._search_template_words(t16)
+    assert words.dtype == torch.int32 and words.shape[:2] == (1, 2) and words.shape[-1] % 32 == 16
+    np.testing.assert_array_equal(_band_from_words(words, k)[0].numpy(), band16)
+
+    words32 = tk._search_template_words(torch.from_numpy(t))
+    assert words32.shape[:2] == (2, 2)
+    hi, lo = _band_from_words(words32, k)
+    np.testing.assert_array_equal(hi.numpy(), band16)
+    band32 = np.asarray(banded_template(jnp.asarray(t), rows, 128))
+    np.testing.assert_allclose((hi + lo).numpy(), band32, rtol=2.0**-16, atol=0)
+    assert np.count_nonzero(band32) == 128 * k

@@ -195,16 +195,19 @@ def test_merged_lock_step_matches_jax_kernels(interpret_tpu_kernels, monkeypatch
     )
 
 
-def _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, b, noise=0.05):
+def _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, b, noise=0.05, batch_shape=None):
+    """The crossings of a capture of ``b`` streams (shaped ``batch_shape``,
+    default (b,)) cut in the middle."""
     rng = np.random.default_rng(11)
     cap = _capture(rng, _layout("random_gaps", rng, b=b), noise=noise, jcfg=JCFG, pay=PAY)
-    cut = (cap.shape[1] // CHUNK // 2) * CHUNK
+    cap = cap.reshape(*(batch_shape if batch_shape is not None else (b,)), cap.shape[-1])
+    cut = (cap.shape[-1] // CHUNK // 2) * CHUNK
     full = jstream.receive_stream(JCFG, jnp.asarray(cap), CHUNK, PAY, lock=lock)
-    first = jstream.receive_stream(JCFG, jnp.asarray(cap[:, :cut]), CHUNK, PAY, lock=lock)
+    first = jstream.receive_stream(JCFG, jnp.asarray(cap[..., :cut]), CHUNK, PAY, lock=lock)
     path = tmp_path / "jax.npz"
     jstream.save_carry(path, first.carry)
     ckpt = tstream.load_carry(path, device="cpu")
-    rest = tstream.receive_stream(CFG, cap[:, cut:], CHUNK, PAY, lock=lock, carry=ckpt.carry, device="cpu")
+    rest = tstream.receive_stream(CFG, cap[..., cut:], CHUNK, PAY, lock=lock, carry=ckpt.carry, device="cpu")
     n0 = cut // CHUNK
     np.testing.assert_array_equal(rest.steps.detected.numpy(), np.asarray(full.steps.detected)[n0:])
     det = rest.steps.detected.numpy()
@@ -216,14 +219,18 @@ def _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, b, noise=0.05):
             getattr(rest.carry, f).float().numpy(), np.asarray(getattr(full.carry, f)).astype(np.float32), f
         )
     # the other way: the port checkpoints, JAX resumes
-    mid = tstream.receive_stream(CFG, cap[:, :cut], CHUNK, PAY, lock=lock, device="cpu")
+    mid = tstream.receive_stream(CFG, cap[..., :cut], CHUNK, PAY, lock=lock, device="cpu")
     path2 = tmp_path / "torch.npz"
     tstream.save_carry(path2, mid.carry, pending=np.zeros(3, np.float32))
     back = jstream.load_carry(path2)
     assert back.pending.shape == (3,)
-    tail = jstream.receive_stream(JCFG, jnp.asarray(cap[:, cut:]), CHUNK, PAY, lock=lock, carry=back.carry)
+    tail = jstream.receive_stream(JCFG, jnp.asarray(cap[..., cut:]), CHUNK, PAY, lock=lock, carry=back.carry)
     np.testing.assert_array_equal(np.asarray(tail.carry.frames_ok), np.asarray(full.carry.frames_ok))
     np.testing.assert_array_equal(np.asarray(tail.carry.next_start), np.asarray(full.carry.next_start))
+    np.testing.assert_array_equal(np.asarray(tail.steps.detected), np.asarray(full.steps.detected)[n0:])
+    np.testing.assert_array_equal(
+        np.asarray(tail.steps.frame.payload)[det], np.asarray(full.steps.frame.payload)[n0:][det]
+    )
     return full
 
 
@@ -241,6 +248,78 @@ def test_coded_checkpoint_crosses_both_ways(tmp_path, lock):
     resumes in anet_torch, and the other way round."""
     full = _checkpoint_crosses(tmp_path, lock, CCFG, JCCFG, CPAY, 2)
     assert int(np.asarray(full.carry.frames_ok).sum()) == 2 * 4
+
+
+@pytest.mark.parametrize("lock", [False, True])
+def test_scalar_checkpoint_crosses_both_ways(tmp_path, lock):
+    """One stream with batch shape (), as anet's modem-stream-rx CLI builds
+    its carry: a checkpoint of shape () written by anet.stream.save_carry
+    resumes in anet_torch with the frames of one uninterrupted JAX run, and
+    the port's resumes in anet."""
+    full = _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, 1, batch_shape=())
+    assert np.asarray(full.carry.frames_ok).shape == () and int(full.carry.frames_ok) == 4
+
+
+def _assert_same_shapes(got, want):
+    """Every field of the carry and of the stacked steps has the
+    reference's shape."""
+    for f in tstream.StreamCarry._fields:
+        assert tuple(getattr(got.carry, f).shape) == np.shape(getattr(want.carry, f)), f
+    for f in ("detected", "quality", "frame_start"):
+        assert tuple(getattr(got.steps, f).shape) == np.shape(getattr(want.steps, f)), f
+    for f in got.steps.frame._fields:
+        assert tuple(getattr(got.steps.frame, f).shape) == np.shape(getattr(want.steps.frame, f)), f
+
+
+@pytest.mark.parametrize("lock", [False, True])
+@pytest.mark.parametrize("batch_shape", [(), (2, 3)], ids=["scalar", "2x3"])
+def test_receive_stream_batch_shapes_match_jax(batch_shape, lock):
+    """A 1-D capture (batch shape ()) and a [2, 3, N] one through both
+    packages: every output and carry field with the reference's shape;
+    detections, payloads, verdicts, frame starts and the carry equal."""
+    rng = np.random.default_rng(31 + len(batch_shape))
+    b = int(np.prod(batch_shape))
+    cap = _capture(rng, _layout("random_gaps", rng, b=b, n_frames=3))
+    cap = cap.reshape(*batch_shape, cap.shape[-1])
+    want = jstream.receive_stream(JCFG, jnp.asarray(cap), CHUNK, PAY, lock=lock)
+    got = tstream.receive_stream(CFG, cap, CHUNK, PAY, lock=lock, device="cpu")
+    _assert_same_shapes(got, want)
+    _assert_same(got, want)
+    np.testing.assert_array_equal(got.carry.buffer.numpy(), np.asarray(want.carry.buffer))
+    assert int(got.carry.frames_ok.sum()) == 3 * b
+
+
+def test_stream_step_keeps_batch_shape():
+    """stream_step on a [2, 3] carry: outputs [2, 3], equal to the same
+    streams stepped as one flat batch of 6; a chunk of other batch axes
+    raises."""
+    rng = np.random.default_rng(5)
+    cap = _capture(rng, _layout("contiguous", rng, b=6, n_frames=2))[:, : 2 * CHUNK]
+    flat = tstream.init_carry(CFG, CHUNK, PAY, (6,), device="cpu")
+    shaped = tstream.init_carry(CFG, CHUNK, PAY, (2, 3), device="cpu")
+    for i in range(2):
+        piece = torch.from_numpy(cap[:, i * CHUNK : (i + 1) * CHUNK])
+        flat, fout = tstream.stream_step(CFG, flat, piece, PAY)
+        shaped, sout = tstream.stream_step(CFG, shaped, piece.reshape(2, 3, CHUNK), PAY)
+        assert sout.detected.shape == (2, 3) and sout.frame.payload.shape == (2, 3, PAY)
+        assert torch.equal(sout.frame.payload.reshape(6, PAY), fout.frame.payload)
+        assert torch.equal(sout.frame_start.reshape(6), fout.frame_start)
+    for a, b in zip(shaped, flat):
+        assert torch.equal(a.reshape(b.shape), b)
+    with pytest.raises(ValueError, match="batch shape"):
+        tstream.stream_step(CFG, shaped, piece, PAY)
+
+
+def test_init_carry_default_shapes_match_jax():
+    """init_carry() with no batch_shape: one stream, batch shape (), the
+    reference's shapes and dtypes field by field."""
+    got = tstream.init_carry(CFG, CHUNK, PAY, device="cpu")
+    want = jstream.init_carry(JCFG, CHUNK, PAY)
+    for f in tstream.StreamCarry._fields:
+        g, w = getattr(got, f), np.asarray(getattr(want, f))
+        assert tuple(g.shape) == w.shape, f
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype), f
+    assert got.buffer.dim() == 1
 
 
 def test_carry_numpy_roundtrip_keeps_bf16():
