@@ -31,11 +31,12 @@ contiguity, allocates the outputs, launches on
 adds one to ``launch_counts[name]`` (``launch_counts[name + ":int8"]`` for
 an int8 launch). There is no fallback from the kernel to the plain version.
 
-The two search kernels share one product on the tensor cores
-(``csrc/search_core.cuh``: bf16 ``mma.sync`` with float32 accumulators, a
-float32 operand split into bf16 hi + lo, so each product is the float32
-one to about 2**-16); the wrappers build the template operand once a
-template tensor. The other kernels sum in float32 on the CUDA cores.
+The two search kernels and correlate_fused share one product on the
+tensor cores (``csrc/search_core.cuh``: bf16 ``mma.sync`` with float32
+accumulators, a float32 operand split into bf16 hi + lo, so each product
+is the float32 one to about 2**-16); the wrappers build the template
+operand once a template tensor. The other kernels sum in float32 on the
+CUDA cores.
 
 The plain versions widen every operand to float32 before a product, as the
 reference kernels accumulate in float32. On the card, a float32 product
@@ -631,11 +632,6 @@ def demod_probe_fused(
 
 VIT_STATES = 64  # 2**(K-1), K = 7
 VIT_BIG = 1e9  # start metric of every state but state 0
-# Decision words a block of the kernel keeps in shared memory: 4 streams a
-# block, 8 bytes a trellis step and stream, within this many bytes; longer
-# trellises keep their decision words in device memory.
-_VIT_WARPS = 4
-_VIT_SHARED_BYTES = 72 * 1024
 
 
 def viterbi_trellis_ref(signs: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
@@ -697,13 +693,10 @@ def viterbi_trellis(signs: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
     if sg.data_ptr() % 16:  # and a state's four signs as one float4
         sg = sg.clone()
     bits = torch.empty(n, t_steps, dtype=torch.uint8, device=dev)
-    if t_steps * 8 * _VIT_WARPS <= _VIT_SHARED_BYTES:
-        scratch_ptr = 0
-    else:
-        scratch = torch.empty(n, t_steps, 2, dtype=torch.int32, device=dev)
-        scratch_ptr = scratch.data_ptr()
+    # the decision words, per 32 steps word s the decisions of state s
+    dec = torch.empty(n, -(-t_steps // 32), 32, 2, dtype=torch.int32, device=dev)
     err = _entry("viterbi")(
-        sg.data_ptr(), rx.data_ptr(), n, t_steps, scratch_ptr, bits.data_ptr(), _stream_handle(dev)
+        sg.data_ptr(), rx.data_ptr(), n, t_steps, dec.data_ptr(), bits.data_ptr(), _stream_handle(dev)
     )
     _check_launch(err, name)
     return bits
@@ -826,21 +819,28 @@ def correlate_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int) -> 
     callers' contract; samples past the end of ``seg`` read as zero. Rows of
     ``seg`` may be strided (a view into the stream buffer) as long as the
     last dimension is contiguous. The multi-candidate variable-length stream
-    step reads the whole array (stream._slide_and_quality)."""
+    step reads the whole array (stream._slide_and_quality). On the card the
+    product runs on the search kernels' tensor-core core, a float32 segment
+    or template split into bf16 hi + lo (three products for float32 x
+    float32: 2^-16 of each product's size)."""
     if seg.device.type == "cpu":
         return correlate_fused_ref(seg, template, out_len)
     name = "correlate_fused"
     dtype = _check_cuda_input(name, seg, "seg")
     if seg.dim() != 2 or out_len < 1:
         raise ValueError(f"{name}: seg must be [B, N] and out_len positive")
+    if template.dim() != 1:
+        raise ValueError(f"{name}: template must be [k]")
     b = seg.shape[0]
     dev = seg.device
-    k = template.shape[-1]
-    tpl = template.to(device=dev, dtype=torch.float32).contiguous()
+    if template.dtype not in (torch.float32, torch.bfloat16):
+        template = template.float()
+    words = _per_template(_SEARCH_WORDS, template.to(dev), _search_template_words)
     out = torch.empty(b, out_len, dtype=torch.float32, device=dev)
     err = _entry("correlate")(
-        seg.data_ptr(), dtype, b, seg.stride(0), seg.shape[-1], tpl.data_ptr(), k, out_len,
-        out.data_ptr(), _stream_handle(dev),
+        seg.data_ptr(), dtype, b, seg.stride(0), seg.shape[-1], words.data_ptr(),
+        int(words.shape[0] == 2), words.shape[-1], template.shape[-1], out_len, out.data_ptr(),
+        _stream_handle(dev),
     )
     _check_launch(err, name)
     return out

@@ -64,7 +64,7 @@ SIGNATURES = {
     ),
     "correlate": (
         "anet_correlate",
-        [_P, _I, _I, ctypes.c_longlong, _I, _P, _I, _I, _P, _P],
+        [_P, _I, _I, ctypes.c_longlong, _I, _P, _I, _I, _I, _I, _P, _P],
     ),
     "decide_tones_tm": (
         "anet_decide_tones_tm",

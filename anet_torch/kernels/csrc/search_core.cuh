@@ -1,7 +1,8 @@
 // The acquisition search's product on the tensor cores, shared by
 // sync_search.cu and search_blockmax.cu so that both compute every
 // |corr| * scale bit for bit alike (the block maxima's maximum is the
-// search's best).
+// search's best), and by correlate.cu, which writes corr out (store_rows)
+// and stages no energies.
 //
 // For lag l = 128 m + n of a stream's segment seg (the row m, the column n):
 //   corr[128 m + n] = sum_p A[m, p] * T[p, n],   A[m, p] = seg[128 m + p],
@@ -148,12 +149,13 @@ __device__ __forceinline__ Smem carve(unsigned char* base, const Geometry& g) {
   return s;
 }
 
-// Stage the template words and the tile's span, then one scale a row:
+// Stage the template words and the tile's span, then (ENERGY) one scale a
+// row:
 //   scale[r] = rsqrt(te * max(win[r], 1e-4 te)),
 //   win[r] = sum of the energies of blocks r .. r + kb - 1
 // (blocks relative to the segment's start, zero past its end), as
 // blockwise_match_quality's superset window. Ends with __syncthreads().
-template <typename T, bool B_LO>
+template <typename T, bool B_LO, bool ENERGY = true>
 __device__ __forceinline__ void stage(const T* __restrict__ seg, const uint32_t* __restrict__ tpl,
                                       const Geometry& g, int b, int tile, const Smem& s) {
   constexpr bool A_LO = std::is_same<T, float>::value;
@@ -172,12 +174,14 @@ __device__ __forceinline__ void stage(const T* __restrict__ seg, const uint32_t*
 #pragma unroll
     for (int j = 0; j < 8; ++j) v[j] = live ? load_or_zero(row, base + 8 * c + j, g.seg_len) : 0.0f;
     float e = 0.0f;
+    if (ENERGY) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) e = fmaf(v[j], v[j], e);
-    // the 16 chunks of a block lie in 16 lanes of one warp (c0 and the
-    // block size are multiples of 32)
+      for (int j = 0; j < 8; ++j) e = fmaf(v[j], v[j], e);
+      // the 16 chunks of a block lie in 16 lanes of one warp (c0 and the
+      // block size are multiples of 32)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off, 16);
+      for (int off = 8; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off, 16);
+    }
     if (live) {
       const int at = (c >> 4) * ROW_PITCH + 8 * (c & 15);
       uint4 hi, lo;
@@ -193,16 +197,18 @@ __device__ __forceinline__ void stage(const T* __restrict__ seg, const uint32_t*
       }
       *reinterpret_cast<uint4*>(s.hi + at) = hi;
       if (A_LO) *reinterpret_cast<uint4*>(s.lo + at) = lo;
-      if ((c & 15) == 0) s.blk[c >> 4] = e;
+      if (ENERGY && (c & 15) == 0) s.blk[c >> 4] = e;
     }
   }
   __syncthreads();
-  for (int r = tid; r < g.mt; r += nthreads) {
-    float win = 0.0f;
-    for (int q = 0; q < g.kb; ++q) win += s.blk[r + q];
-    s.scale[r] = rsqrtf(g.te * fmaxf(win, 1e-4f * g.te));
+  if (ENERGY) {
+    for (int r = tid; r < g.mt; r += nthreads) {
+      float win = 0.0f;
+      for (int q = 0; q < g.kb; ++q) win += s.blk[r + q];
+      s.scale[r] = rsqrtf(g.te * fmaxf(win, 1e-4f * g.te));
+    }
+    __syncthreads();
   }
-  __syncthreads();
 }
 
 // This warp's 16 rows times the band: acc[j] is n8 tile j's accumulator
@@ -300,6 +306,35 @@ __device__ __forceinline__ void row_best(const Geometry& g, const Smem& s, int t
     }
     bq[h] = q_best;
     bc[h] = c_best;
+  }
+}
+
+// The accumulators of this warp's 16 rows as they are: lag 128 m + n of
+// stream b at out[b * out_len + 128 m + n], masked at out_len. A lane's
+// fragment is two floats of rows lane/4 and lane/4 + 8, so the 4 lanes of a
+// quad fill one 32-byte sector (one float2 store each where the stream's
+// row of out starts on an even float).
+__device__ __forceinline__ void store_rows(const Geometry& g, int b, int tile,
+                                           const float (&acc)[NT][4], float* __restrict__ out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, gi = lane & 3;
+  const int64_t row0 = (int64_t)b * g.out_len;
+  const bool pairs = (row0 & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = tile * g.mt + warp * WARP_ROWS + gq + 8 * h;
+    const int n_cols = min(max(g.out_len - m * ROW, 0), ROW);
+    float* o = out + row0 + (int64_t)m * ROW;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = 8 * j + 2 * gi;
+      if (pairs && col + 1 < n_cols) {
+        *reinterpret_cast<float2*>(o + col) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      } else {
+        if (col < n_cols) o[col] = acc[j][2 * h];
+        if (col + 1 < n_cols) o[col + 1] = acc[j][2 * h + 1];
+      }
+    }
   }
 }
 

@@ -8,8 +8,9 @@ instantiation) as the kernels are built, disassembles the library with
 count and the count of each opcode (the part before the first dot) as one
 JSON object. The counts are static (instructions in the code, not executed
 ones): enough to set one instantiation's inner loop beside another's, e.g.
-the int8 and bfloat16 loads and conversions. Needs the CUDA toolkit, no
-card.
+the int8 and bfloat16 loads and conversions, or that the tensor-core
+kernels (``sync_search search_blockmax correlate``) run ``HMMA`` and no
+float32 product loop (``FFMA``). Needs the CUDA toolkit, no card.
 """
 
 from __future__ import annotations

@@ -1,20 +1,30 @@
-"""Times the acquisition search's two kernels of one or more checkouts on
-one card, in turns.
+"""Times kernels of one or more checkouts on one card, in turns: by default
+the acquisition search's two kernels.
 
-    python -m anet_torch.kernels.time_search [--model NAME] [CHECKOUT ...]
+    python -m anet_torch.kernels.time_search [--model NAME] [--kernels LIST] [CHECKOUT ...]
 
 Each CHECKOUT (default: this one) is a directory that holds an
 ``anet_torch`` package, for example a ``git archive`` of another commit
 unpacked under ``build/``. Each is timed in a process of its own, in the
 order given: name parent, change, change, parent to compare two within one
-call. A process builds that checkout's two search sources, then times its
-``sync_search_fused`` and ``sync_search_blockmax`` at the locked stream
-path's geometry of the model (default mfsk16-fast: B = 8,192 streams of
-noise, out_len the frame at payload 256 rounded down to 128 samples, 36,352,
-and the 2,048-sample preamble; mfsk4-coded: 70,144 and 1,024; ofdm-fast:
-4,736 and 640) for each (segment, template) dtype pair, CUDA events, median
-of 5 after a warm-up, and prints one JSON line: the checkout, the model,
-the card's ``nvidia-smi`` name and power limit, and the times in ms. The
+call. A process builds that checkout's sources of the kernels asked for,
+then times them on B = 8,192 streams of noise, CUDA events, median of 5
+after a warm-up, and prints one JSON line: the checkout, the model, the
+card's ``nvidia-smi`` name and power limit, and the times in ms. LIST is a
+comma-separated subset of:
+
+- ``search`` (the default): ``sync_search_fused`` and
+  ``sync_search_blockmax`` at the locked stream path's geometry of the
+  model (mfsk16-fast: out_len the frame at payload 256 rounded down to 128
+  samples, 36,352, and the 2,048-sample preamble; mfsk4-coded: 70,144 and
+  1,024; ofdm-fast: 4,736 and 640) for each (segment, template) dtype pair;
+- ``correlate``: ``correlate_fused`` at the variable-length stream's
+  geometry of the model (out_len two shortest frames of payload 64, 23,552
+  for mfsk16-fast, and the preamble) for each dtype pair;
+- ``viterbi``: ``viterbi_trellis`` on T = 2,150 steps (mfsk4-coded's
+  trellis at payload 256).
+
+Segments are strided views from sample 1, as the stream passes them. The
 inputs come from one seed, so every checkout times the same data. Needs a
 card.
 """
@@ -26,6 +36,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+KERNELS = {  # a name of --kernels -> the csrc sources it builds
+    "search": ("sync_search", "search_blockmax"),
+    "correlate": ("correlate",),
+    "viterbi": ("viterbi",),
+}
+VIT_STEPS = 2150  # mfsk4-coded: 8 x 268 data-section bits + the 6-bit tail flush
+
 _CHILD = r"""
 import json, sys
 import numpy as np
@@ -33,17 +50,18 @@ import torch
 
 sys.path.insert(0, {root!r})
 from anet_torch import kernels
-from anet_torch.dsp import family
+from anet_torch.dsp import family, fec
 from anet_torch.kernels.build import build_all
 from anet_torch.models import get_model
 
-build_all(("sync_search", "search_blockmax"))
+kinds = {kinds!r}
+build_all({sources!r})
 cfg = get_model({model!r}).config
-b, chunk = 8192, family.frame_samples(cfg, 256) // 128 * 128
+b = 8192
 tpl = family.preamble_template(cfg, "cuda").float()
 k = tpl.shape[-1]
 gen = torch.Generator(device="cuda").manual_seed(0)
-buf = torch.randn(b, chunk + k + 127, generator=gen, device="cuda")
+PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32), (torch.float32, torch.float32))
 
 
 def time_ms(fn, reps=5):
@@ -60,43 +78,62 @@ def time_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def pairs(chunk):
+    # (label, strided segment view from sample 1, template) per dtype pair
+    buf = torch.randn(b, chunk + k + 127, generator=gen, device="cuda")
+    for seg_dtype, tpl_dtype in PAIRS:
+        yield (f"{{str(seg_dtype)[6:]}}/{{str(tpl_dtype)[6:]}}",
+               buf.to(seg_dtype)[:, 1 : 1 + chunk + k - 1], tpl.to(tpl_dtype))
+        torch.cuda.empty_cache()
+
+
 out = {{}}
-for seg_dtype, tpl_dtype in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
-                             (torch.float32, torch.float32)):
-    seg = buf.to(seg_dtype)[:, 1 : 1 + chunk + k - 1]  # a strided view from sample 1
-    t = tpl.to(tpl_dtype)
-    te = float((t.float() ** 2).sum())
-    pair = f"{{str(seg_dtype)[6:]}}/{{str(tpl_dtype)[6:]}}"
-    out["sync_search_fused " + pair] = time_ms(lambda: kernels.sync_search_fused(seg, t, chunk, te))
-    out["sync_search_blockmax " + pair] = time_ms(lambda: kernels.sync_search_blockmax(seg, t, chunk, te))
-    del seg
-    torch.cuda.empty_cache()
+if "search" in kinds:
+    chunk = family.frame_samples(cfg, 256) // 128 * 128
+    for pair, seg, t in pairs(chunk):
+        te = float((t.float() ** 2).sum())
+        out["sync_search_fused " + pair] = time_ms(lambda: kernels.sync_search_fused(seg, t, chunk, te))
+        out["sync_search_blockmax " + pair] = time_ms(lambda: kernels.sync_search_blockmax(seg, t, chunk, te))
+if "correlate" in kinds:
+    chunk = 2 * family.frame_samples(cfg, 64)
+    for pair, seg, t in pairs(chunk):
+        out["correlate_fused " + pair] = time_ms(lambda: kernels.correlate_fused(seg, t, chunk))
+if "viterbi" in kinds:
+    rx = torch.randn(b, {vit_steps}, 2, generator=gen, device="cuda")
+    signs = torch.as_tensor(fec._branch_signs(), device="cuda")
+    out["viterbi_trellis"] = time_ms(lambda: kernels.viterbi_trellis(signs, rx))
 print(json.dumps(out))
 """
 
 
-def time_checkout(root: Path, model: str) -> dict:
+def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) -> dict:
     """The timings of the checkout at ``root``, from a process of its own."""
-    run = subprocess.run(
-        [sys.executable, "-c", _CHILD.format(root=str(root), model=model)], cwd=root,
-        capture_output=True, text=True,
-    )
+    sources = tuple(s for kind in kinds for s in KERNELS[kind])
+    child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS)
+    run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
 def main(argv: list[str]) -> int:
-    model = "mfsk16-fast"
-    if argv[:1] == ["--model"]:
-        model, argv = argv[1], argv[2:]
+    model, kinds = "mfsk16-fast", ("search",)
+    while argv[:1] in (["--model"], ["--kernels"]):
+        if argv[0] == "--model":
+            model = argv[1]
+        else:
+            kinds = tuple(argv[1].split(","))
+            unknown = set(kinds) - set(KERNELS)
+            if unknown:
+                raise SystemExit(f"unknown --kernels {sorted(unknown)}: choose from {sorted(KERNELS)}")
+        argv = argv[2:]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     for root in argv or [str(Path(__file__).resolve().parents[2])]:
         row = {"checkout": root, "model": model, "card": smi,
-               "ms": time_checkout(Path(root).resolve(), model)}
+               "ms": time_checkout(Path(root).resolve(), model, kinds)}
         print(json.dumps(row), flush=True)
     return 0
 

@@ -12,11 +12,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    them (frames quantized x127, buffers as an int8 carry holds them) and
    sync_search_blockmax on the search's segment, the coded paths' three on
    mfsk4-coded (with demod_at_energies_fused on int8 buffers)
-   (payload 256, chunk 70,144, buffer 143,872, trellis 2,150 steps), and
+   (payload 256, chunk 70,144, buffer 143,872, trellis 2,150 steps; the
+   trellis also with a masked tail and at the 102-step header probe), and
    the three of the variable-length, oversized-window and one-shot paths on
    mfsk16-fast (correlate_fused at a chunk of two shortest frames, 23,552
-   lags; decide_tones_tm at a frame plus 8 symbols; gather_rows_fused at
-   one frame out of the 76,288-sample buffer), these also beside the one
+   lags, also timed on its float32 routes; decide_tones_tm at a frame plus
+   8 symbols; gather_rows_fused at one frame out of the 76,288-sample
+   buffer), these also beside the one
    PyTorch call that computes the same function where there is one; and
    the OFDM equalizer ofdm_track_decide_fused on 256 drifted frames
    (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
@@ -213,15 +215,22 @@ def time_and_bound(results: dict, calls: dict, work: dict, library: dict | None 
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
 
 
-def log_search_time(label: str, seg: torch.Tensor, tpl: torch.Tensor, chunk: int) -> None:
-    """Time sync_search_fused on ``seg`` at another geometry or dtype than
-    its row's and log it against its bound: the segment read once, the
-    2 k out_len B operations at the bf16 peak, whatever the dtypes."""
+def log_search_time(label: str, seg: torch.Tensor, tpl: torch.Tensor, chunk: int,
+                    name: str = "sync_search_fused") -> None:
+    """Time sync_search_fused (or correlate_fused) on ``seg`` at another
+    geometry or dtype than its row's and log it against its bound: the
+    segment read once, the output written once, the 2 k out_len B
+    operations at the bf16 peak, whatever the dtypes."""
     k, b = tpl.shape[-1], seg.shape[0]
-    te = float((tpl.float() ** 2).sum())
-    ms = time_ms(lambda: kernels.sync_search_fused(seg, tpl, chunk, te))
-    bound, by = bound_ms(b * (chunk + k - 1) * seg.element_size() + 8 * b, 2 * k * chunk * b)
-    log(f"  sync_search_fused ({label}: B {b}, out_len {chunk}, k {k}, seg "
+    if name == "sync_search_fused":
+        te = float((tpl.float() ** 2).sum())
+        ms = time_ms(lambda: kernels.sync_search_fused(seg, tpl, chunk, te))
+        out_bytes = 8
+    else:
+        ms = time_ms(lambda: kernels.correlate_fused(seg, tpl, chunk))
+        out_bytes = 4 * chunk
+    bound, by = bound_ms(b * ((chunk + k - 1) * seg.element_size() + out_bytes), 2 * k * chunk * b)
+    log(f"  {name} ({label}: B {b}, out_len {chunk}, k {k}, seg "
         f"{str(seg.dtype).removeprefix('torch.')}, template {str(tpl.dtype).removeprefix('torch.')}): "
         f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({by})")
     torch.cuda.empty_cache()
@@ -504,6 +513,16 @@ def phase_kernels_coded(cfg, gen) -> dict:
         raise AssertionError("viterbi_trellis did not decode the sent data sections")
     compare("viterbi_trellis", (got_bits,), (want_bits,), (0,), ())
     results["viterbi_trellis"] = {"max_abs_err": float((got_bits.int() - want_bits.int()).abs().max())}
+    # the variable-length coded parse's other two trellises: the max-length
+    # one with the LLRs past a shorter frame zeroed (exact ties from there on)
+    # and the 102-step unflushed header probe; every bit equal
+    masked = rx.clone()
+    masked[:, t_steps // 3 :] = 0.0
+    probe = rx[:, : fec.conv_encoded_bits(tframe.HEADER_PROBE_DATA_BITS) // 2].contiguous()
+    for label, x in (("masked tail", masked), ("header probe", probe)):
+        compare(f"viterbi_trellis ({label}, {x.shape[1]} steps)", (kernels.viterbi_trellis(signs, x),),
+                (kernels.viterbi_trellis_ref(signs, x),), (0,), ())
+    del masked, probe
 
     reps = STREAM_B // COMPARE_B
     buf_full, st_full, st0_full = buf.repeat(reps, 1), starts.repeat(reps), st0.repeat(reps)
@@ -700,6 +719,9 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
         raise AssertionError("conv1d does not compute correlate_fused's function")
     del lib_corr
     time_and_bound(results, calls, work, library)
+    # correlate_fused's float32 routes (bf16 hi + lo: two and three products)
+    for seg_dtype in (torch.bfloat16, torch.float32):
+        log_search_time("main shape", seg_full.to(seg_dtype), tpl.float(), chunk, name="correlate_fused")
 
     # the variable-length parse behind the kernels, per chunk of 8,192 streams
     # (CUDA events, median of 5): the whole parse, and its per-length CRC alone

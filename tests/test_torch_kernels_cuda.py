@@ -139,8 +139,9 @@ CODED = get_model("mfsk4-coded").config
 @pytest.mark.parametrize("n,t_steps,noise", [(1, 23, 0.0), (130, 358, 0.7), (37, 2150, 1.0), (5, 9500, 0.8)])
 def test_cuda_viterbi_matches_plain_version(cuda, n, t_steps, noise):
     """The trellis kernel against its plain version, every decided bit
-    equal: short, frame-length and (9,500 steps) too long for shared
-    memory, so the decision words go through the device-memory scratch."""
+    equal: short, frame-length and 9,500 steps (the length that once took a
+    separate device-memory path; every length now keeps its decision words
+    in device memory, 32 steps to a word)."""
     from anet_torch.dsp import fec
 
     rng = np.random.default_rng(t_steps)
@@ -226,6 +227,80 @@ def test_cuda_coded_receivers_match_cpu(cuda, dtype):
     det = want.steps.detected
     assert torch.equal(got.steps.frame.payload.cpu()[det], want.steps.frame.payload[det])
     assert torch.equal(got.carry.next_start.cpu(), want.carry.next_start)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_steps", [1, 31, 32, 33, 2150, 9500])
+def test_cuda_viterbi_step_counts_match_plain_version(cuda, t_steps):
+    """Trellis lengths around the kernel's 32-step decision words and the
+    paths' lengths, on 37 streams (no multiple of a block's streams): noisy
+    soft pairs, all ties (zeros) and a masked tail (zeros past half the
+    trellis), every decided bit equal to the plain version's."""
+    from anet_torch.dsp import fec
+
+    rng = np.random.default_rng(t_steps)
+    noisy = rng.normal(0, 1.0, (37, t_steps, 2)).astype(np.float32)
+    masked = noisy.copy()
+    masked[:, (t_steps + 1) // 2 :] = 0.0
+    signs = torch.from_numpy(fec._branch_signs()).to(cuda)
+    for rx in (noisy, np.zeros_like(noisy), masked):
+        rx = torch.from_numpy(rx).to(cuda)
+        got = tk.viterbi_trellis(signs, rx)
+        torch.cuda.synchronize()
+        assert got.shape == (37, t_steps) and torch.equal(got, tk.viterbi_trellis_ref(signs, rx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", list(SEARCH_DTYPES))
+@pytest.mark.parametrize("out_len", [128, 4736, 11776, 23552, 36352])
+@pytest.mark.parametrize("k", [512, 1024, 2047, 2048, 6144])
+def test_cuda_correlate_geometries_match_plain_version(cuda, k, out_len, dtypes):
+    """correlate_fused on the search's tensor-core core at the search's
+    template lengths and chunks (k not a multiple of 16 too) on 37 streams
+    whose segments are strided views starting at sample 1: every lag within
+    1e-3 of the output's scale (float32 sums of k products in another
+    order; float32 operands as bf16 hi + lo), each stream's peak at its
+    planted lag."""
+    seg_dtype, tpl_dtype = SEARCH_DTYPES[dtypes]
+    rng = np.random.default_rng(k + out_len)
+    b = 37
+    t = rng.standard_normal(k).astype(np.float32)
+    lags = rng.integers(0, out_len, b)
+    buf = rng.standard_normal((b, out_len + k + 40)).astype(np.float32)
+    for s, lag in enumerate(lags):
+        buf[s, 1 + lag : 1 + lag + k] += 3.0 * t
+    tpl = torch.from_numpy(t).to(cuda, tpl_dtype)
+    seg = torch.from_numpy(buf).to(cuda, seg_dtype)[:, 1 : out_len + k]
+    assert seg.stride(0) != seg.shape[1] and seg.data_ptr() % 16
+    before = tk.launch_counts["correlate_fused"]
+    got = tk.correlate_fused(seg, tpl, out_len)
+    assert tk.launch_counts["correlate_fused"] == before + 1
+    torch.cuda.synchronize()
+    want = tk.correlate_fused_ref(seg, tpl, out_len)
+    assert got.shape == want.shape == (b, out_len) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * float(want.square().mean().sqrt()))
+    assert torch.equal(got.argmax(-1).cpu(), torch.from_numpy(lags))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", list(SEARCH_DTYPES))
+def test_cuda_correlate_reads_zeros_past_a_short_segment(cuda, dtypes):
+    """A segment shorter than out_len (so far short of out_len + k - 1), an
+    odd out_len and odd rows of out (so no pair store is aligned): the
+    samples past the segment read as zeros, as the plain version pads
+    them."""
+    seg_dtype, tpl_dtype = SEARCH_DTYPES[dtypes]
+    rng = np.random.default_rng(11)
+    k, out_len = 2048, 4735
+    tpl = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(cuda, tpl_dtype)
+    buf = torch.from_numpy(rng.standard_normal((5, out_len + k)).astype(np.float32)).to(cuda, seg_dtype)
+    seg = buf[:, 1 : out_len - 500]
+    got = tk.correlate_fused(seg, tpl, out_len)
+    torch.cuda.synchronize()
+    want = tk.correlate_fused_ref(seg, tpl, out_len)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * float(want.square().mean().sqrt()))
+    assert got[:, : seg.shape[1]].abs().amin() > 0 and not got[:, seg.shape[1] :].any()
 
 
 # --- the variable-length slice's three kernels and its paths ------------------

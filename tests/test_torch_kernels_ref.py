@@ -152,6 +152,21 @@ def test_viterbi_trellis_ref_matches_pallas(n, t_steps, noise):
     assert torch.equal(tk.viterbi_trellis(torch.from_numpy(signs), torch.from_numpy(rx)), got)
 
 
+@pytest.mark.parametrize("t_steps", [1, 31, 32, 33])
+def test_viterbi_trellis_ref_matches_pallas_around_a_word(t_steps):
+    """Trellis lengths around the CUDA kernel's 32-step decision words (a
+    lone step, one short of a word, a whole word, one past it) on random
+    soft pairs, 37 streams: every bit equal to the Pallas pair's in
+    interpret mode."""
+    rng = np.random.default_rng(1000 + t_steps)
+    rx = rng.normal(0, 1.0, (37, t_steps, 2)).astype(np.float32)
+    signs = tfec._branch_signs()
+    got = tk.viterbi_trellis_ref(torch.from_numpy(signs), torch.from_numpy(rx))
+    want = jk.viterbi_trellis(jnp.asarray(signs), jnp.moveaxis(jnp.asarray(rx), 0, -1), interpret=True)
+    assert got.shape == (37, t_steps)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).T)
+
+
 def test_viterbi_trellis_ref_all_ties():
     signs = torch.from_numpy(tfec._branch_signs())
     got = tk.viterbi_trellis_ref(signs, torch.zeros(2, 40, 2))
@@ -268,11 +283,15 @@ def test_buffer_geometry_matches_jax(name, chunk, pay):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("b,n,k,out_len", [(3, 5000, 2048, 2048), (2, 2600, 513, 2048), (1, 4096, 100, 3500)])
+@pytest.mark.parametrize("b,n,k,out_len", [
+    (3, 5000, 2048, 2048), (2, 2600, 513, 2048), (1, 4096, 100, 3500), (2, 5100, 2047, 3001),
+])
 def test_correlate_fused_ref_matches_pallas(b, n, k, out_len, dtype):
     """Every lag float32 [B, out_len] against the Pallas correlator in
     interpret mode, at the reference's own three shapes (lag-tile and stream
-    padding; the second reads past the end of seg, as zeros). Tolerance:
+    padding; the second reads past the end of seg, as zeros) and at the
+    CUDA kernel's ragged edges (k 2,047, no multiple of 16; out_len 3,001,
+    no multiple of its 128-lag rows). Tolerance:
     1e-5 of the output's scale sqrt(k) (float32 sums of k products in
     another order; bf16 products are exact in float32)."""
     tdt, jdt = _DTYPES[dtype]
