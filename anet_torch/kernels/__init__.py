@@ -35,8 +35,13 @@ The two search kernels and correlate_fused share one product on the
 tensor cores (``csrc/search_core.cuh``: bf16 ``mma.sync`` with float32
 accumulators, a float32 operand split into bf16 hi + lo, so each product
 is the float32 one to about 2**-16); the wrappers build the template
-operand once a template tensor. The other kernels sum in float32 on the
-CUDA cores.
+operand once a template tensor. The two align+demod kernels
+(demod_at_fused, demod_at_energies_fused) share another
+(``csrc/demod_core.cuh``): the filterbank as a bf16 ``mma.sync`` with
+float32 accumulators, or an int8 one with exact int32 I/Q, fed by a
+pipelined span read, the basis packed once a config and dtype in fragment
+order (``_demod_mma_basis``); their float32 buffers keep the CUDA-core
+body. The other kernels sum in float32 on the CUDA cores.
 
 The plain versions widen every operand to float32 before a product, as the
 reference kernels accumulate in float32. On the card, a float32 product
@@ -52,8 +57,9 @@ I/Q sum stays below 2**24, so float32 sums are exact; the probe's
 correlation can pass 2**24 and sums in int32 (the plain version in
 float64). Energies are I*I + Q*Q rounded after each operation, bit-equal to
 the reference's, so the first-index argmax breaks the frequent integer ties
-alike. Energies then carry the (127 * buffer scale)**2 factor, which every
-decision and quality ratio cancels.
+alike. (The align+demod kernels' int8 products run on the tensor cores in
+int32, the same exact sums.) Energies then carry the (127 * buffer
+scale)**2 factor, which every decision and quality ratio cancels.
 """
 
 from __future__ import annotations
@@ -205,6 +211,50 @@ def _kernel_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device)
     out[:, :m] = basis[:, :m]
     out[:, 16 : 16 + m] = basis[:, m:]
     return out
+
+
+def _demod_mma_tiles(num_tones: int) -> int:
+    """n8 tiles of the align+demod kernels' tensor-core product: 4 tones'
+    (I, Q) a tile."""
+    return 1 if num_tones <= 4 else 2 if num_tones <= 8 else 4
+
+
+@functools.lru_cache(maxsize=16)
+def _demod_mma_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The B operand of the align+demod kernels' tensor-core product
+    (csrc/demod_core.cuh) for bfloat16 or int8 samples, int32 [ks, n, 2,
+    32] with n = _demod_mma_tiles(num_tones). It holds the [sps, 8 n]
+    basis whose column 2c is the cos (I) and 2c + 1 the sin (Q) of tone c,
+    zero columns past num_tones, entries as _plain_basis gives them for
+    samples of ``dtype``. Word [s, t, r, 4 g + i] is the B fragment
+    register r of lane (g, i) at k-step s and n8 tile t; a k-step is 32
+    bytes of samples: for bfloat16 (m16n8k16) the word holds the bf16 pair
+    at rows k = 16 s + 8 r + 2 i + (0, 1), column 8 t + g, the first in the
+    low half; for int8 (m16n8k32, the x127 integer basis) the 4 bytes at
+    rows 32 s + 16 r + 4 i + (0..3), the first in the low byte."""
+    m, sps = config.num_tones, config.samples_per_symbol
+    n = _demod_mma_tiles(m)
+    plain = _plain_basis(config, dtype, device)  # [sps, 2M]
+    basis = torch.zeros(sps, 8 * n, dtype=torch.float32, device=device)
+    basis[:, 0 : 2 * m : 2] = plain[:, :m]
+    basis[:, 1 : 2 * m : 2] = plain[:, m:]
+    if dtype == torch.int8:
+        v = basis.to(torch.int8).reshape(sps // 32, 2, 4, 4, n, 8)
+    elif dtype == torch.bfloat16:
+        v = basis.to(torch.bfloat16).reshape(sps // 16, 2, 4, 2, n, 8)
+    else:
+        raise TypeError(f"the tensor-core filterbank takes bfloat16 or int8 samples, got {dtype}")
+    # [s, r, i, e, t, g] -> [s, t, r, g, i, e]: a word's elements e last
+    return v.permute(0, 4, 1, 5, 2, 3).contiguous().view(torch.int32).reshape(-1, n, 2, 32)
+
+
+def _demod_at_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The basis operand of the align+demod kernels for samples of
+    ``dtype``: the tensor-core B fragments for bfloat16 and int8, the
+    CUDA-core [sps, 32] float32 columns for float32."""
+    if dtype == torch.float32:
+        return _kernel_basis(config, dtype, device)
+    return _demod_mma_basis(config, dtype, device)
 
 
 def _check_kernel_geometry(name: str, config: ModemConfig) -> None:
@@ -485,10 +535,10 @@ def demod_at_fused(config: ModemConfig, buffer: torch.Tensor, start: torch.Tenso
     tone = torch.empty(b, n_symbols, dtype=torch.int32, device=dev)
     best = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
     total = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
-    basis = _kernel_basis(config, buffer.dtype, dev)
+    basis = _demod_at_basis(config, buffer.dtype, dev)
     err = _entry("demod_at")(
         buffer.data_ptr(), dtype, b, length, st.data_ptr(), config.preamble_samples,
-        config.samples_per_symbol, n_symbols, basis.data_ptr(), tone.data_ptr(),
+        config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(), tone.data_ptr(),
         best.data_ptr(), total.data_ptr(), _stream_handle(dev),
     )
     _check_launch(err, name, buffer.dtype)
@@ -731,7 +781,7 @@ def demod_at_energies_fused(
     b, length = buffer.shape
     dev = buffer.device
     energies = torch.empty(b, n_symbols, config.num_tones, dtype=torch.float32, device=dev)
-    basis = _kernel_basis(config, buffer.dtype, dev)
+    basis = _demod_at_basis(config, buffer.dtype, dev)
     err = _entry("demod_at_energies")(
         buffer.data_ptr(), dtype, b, length, st.data_ptr(), config.preamble_samples,
         config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(),

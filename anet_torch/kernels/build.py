@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles, on first use, into its own shared library
 ``build/anet_torch_kernels/lib<name>-<hash>.so`` at the root of the
-checkout, where ``<hash>`` covers the source and the shared headers, so an
-edited source rebuilds and an unchanged one loads at once. The sources have
+checkout, where ``<hash>`` covers the source and every shared header
+(``csrc/*.cuh``: ``common``, ``search_core``, ``demod_core``), so an
+edited source or header rebuilds and an unchanged one loads at once. The sources have
 a plain C interface (no PyTorch headers), which keeps each build to seconds;
 ``build_all`` starts one nvcc per source, all at once.
 """
@@ -46,7 +47,7 @@ SIGNATURES = {
     ),
     "demod_at": (
         "anet_demod_at",
-        [_P, _I, _I, ctypes.c_longlong, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+        [_P, _I, _I, ctypes.c_longlong, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
     "demod_probe": (
         "anet_demod_probe",

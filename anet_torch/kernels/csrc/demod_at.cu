@@ -7,85 +7,164 @@
 // n_symbols symbols hits the [sps, 2M] basis, giving (tone, best, total) in
 // symbol order. Reads past the buffer's end are zero.
 //
-// What bounds it on the H100: the read of each stream's data span
+// What bounds it on the H100: bytes. Each stream's data span is read once
 // (34,304 bf16 samples a stream at the main path: 0.56 GB, 0.17 ms at
-// B = 8192). The filterbank's 2 x 32 x sps flops a symbol (18 GFLOP at
-// B = 8192) stay under that bound even on the CUDA cores in float32.
-// An int8 buffer (the quantized stream carry, reference _demod_at_setup
-// lines 1885-1893) halves the read; it takes the x127 integer basis, so
-// its float32 I/Q sums are exact (common.cuh).
+// B = 8192) and 12 bytes a symbol are written. The filterbank's 2 x 32 x
+// sps flops a symbol (18 GFLOP at B = 8192) would take 0.27 ms in float32
+// on the CUDA cores, more than the byte bound; on the tensor cores they
+// take 0.02 ms. An int8 buffer (the quantized stream carry, reference
+// _demod_at_setup lines 1885-1893) halves the read and takes the x127
+// integer basis.
 //
 // Design: the TPU kernel's 8-row-aligned span DMAs, sub-row selects and
-// one-hot lane-shift matmuls existed only for the TPU's (8, 128) layout; a
-// thread here indexes buffer[b, start + pre + i] directly. One block per
-// (stream, tile of 64 symbols): the tile's samples are staged in shared
-// memory by coalesced loads; lane c of each warp holds basis column c in
-// registers, and a warp reduces one symbol's 16 tone energies with
-// shuffles (demod_symbols in common.cuh).
-#include "common.cuh"
+// one-hot lane-shift matmuls existed only for the TPU's (8, 128) layout.
+// bfloat16 and int8 buffers run the tensor-core filterbank of
+// demod_core.cuh (a warp's ring of cp.async span reads, 16 symbols x sps
+// samples a mma.sync A tile, the basis in registers as B fragments); the
+// epilogue takes each lane's tones of its two symbols, the argmax (first
+// index on ties), best and sum over its n-tiles, then over the quad with
+// two xor shuffles, and lanes 0 and 1 of each quad store symbols g and
+// g + 8, so each store of a warp covers 16 consecutive symbols. float32
+// buffers keep the CUDA-core body of common.cuh (demod_symbols).
+#include "demod_core.cuh"
 
 namespace {
 
-constexpr int THREADS = anet::DEMOD_THREADS;
+template <typename T, int SPS, int NT>
+__global__ void __launch_bounds__(anet::demod::THREADS)
+demod_at_mma(anet::demod::Span sp, const uint32_t* __restrict__ basis, int32_t* __restrict__ tone,
+             float* __restrict__ best, float* __restrict__ total) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, i = lane & 3;
+  const int n_symbols = sp.n_symbols;
+  anet::demod::walk<T, SPS, NT>(sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
+    float bq[2], tot[2];
+    int bt[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bq[h] = e[0][h];
+      bt[h] = i;
+      tot[h] = e[0][h];
+#pragma unroll
+      for (int u = 1; u < NT; ++u) {
+        if (e[u][h] > bq[h]) {  // tones rise with u: a tie keeps the first
+          bq[h] = e[u][h];
+          bt[h] = 4 * u + i;
+        }
+        tot[h] += e[u][h];
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float oq = __shfl_xor_sync(0xffffffffu, bq[h], off);
+        const int ot = __shfl_xor_sync(0xffffffffu, bt[h], off);
+        tot[h] += __shfl_xor_sync(0xffffffffu, tot[h], off);
+        if (anet::better(oq, ot, bq[h], bt[h])) {
+          bq[h] = oq;
+          bt[h] = ot;
+        }
+      }
+    }
+    const int sym = s + g + 8 * i;  // lane i < 2 of the quad stores its row i
+    if (i < 2 && sym < n_symbols) {
+      const int64_t o = (int64_t)b * n_symbols + sym;
+      tone[o] = i ? bt[1] : bt[0];
+      best[o] = i ? bq[1] : bq[0];
+      total[o] = i ? tot[1] : tot[0];
+    }
+  });
+}
 
-template <typename T, int SPS>
-__global__ void __launch_bounds__(THREADS)
-demod_at_kernel(const T* __restrict__ buf, int64_t len, const int32_t* __restrict__ start,
-                int pre, int n_symbols, const float* __restrict__ basis,
-                int32_t* __restrict__ tone, float* __restrict__ best, float* __restrict__ total) {
+// float32 buffers: one block per (stream, tile of 64 symbols) on the CUDA
+// cores (demod_symbols in common.cuh).
+template <int SPS>
+__global__ void __launch_bounds__(anet::DEMOD_THREADS)
+demod_at_f32(const float* __restrict__ buf, int64_t len, const int32_t* __restrict__ start,
+             int pre, int n_symbols, const float* __restrict__ basis,
+             int32_t* __restrict__ tone, float* __restrict__ best, float* __restrict__ total) {
   __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
   const int b = blockIdx.x;
   const int s0 = blockIdx.y * anet::SYM_TILE;
   const int s1 = min(s0 + anet::SYM_TILE, n_symbols);
   const int64_t d0 = (int64_t)start[b] + pre;
   const int64_t o = (int64_t)b * n_symbols;
-  anet::demod_symbols<T, SPS>(buf + (int64_t)b * len, len, d0, s0, s1, basis, stage, tone + o,
-                              best + o, total + o);
+  anet::demod_symbols<float, SPS>(buf + (int64_t)b * len, len, d0, s0, s1, basis, stage, tone + o,
+                                  best + o, total + o);
 }
 
-template <typename T, int SPS>
-cudaError_t launch(const void* buf, int B, long long len, const void* start, int pre,
-                   int n_symbols, const void* basis, void* tone, void* best, void* total,
-                   cudaStream_t st) {
-  dim3 grid(B, (n_symbols + anet::SYM_TILE - 1) / anet::SYM_TILE);
-  demod_at_kernel<T, SPS><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(buf), len, static_cast<const int32_t*>(start), pre, n_symbols,
-      static_cast<const float*>(basis), static_cast<int32_t*>(tone), static_cast<float*>(best),
-      static_cast<float*>(total));
+struct Args {
+  const void* buf;
+  int B;
+  long long len;
+  const void* start;
+  int pre, n_symbols;
+  const void* basis;
+  void *tone, *best, *total;
+  cudaStream_t st;
+};
+
+template <typename T, int SPS, int NT>
+cudaError_t launch_mma(const Args& a) {
+  static int resident = 0;
+  auto kernel = demod_at_mma<T, SPS, NT>;
+  anet::demod::Span sp;
+  int grid = 0;
+  const cudaError_t err = anet::demod::plan<T, SPS>(kernel, resident, a.buf, a.B, a.len, a.start,
+                                                    a.pre, a.n_symbols, sp, grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, anet::demod::THREADS, anet::demod::Shape<T, SPS>::SMEM, a.st>>>(
+      sp, static_cast<const uint32_t*>(a.basis), static_cast<int32_t*>(a.tone),
+      static_cast<float*>(a.best), static_cast<float*>(a.total));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_sps(int sps, const void* buf, int B, long long len, const void* start,
-                         int pre, int n_symbols, const void* basis, void* tone, void* best,
-                         void* total, cudaStream_t st) {
-  switch (sps) {
-    case 32:
-      return launch<T, 32>(buf, B, len, start, pre, n_symbols, basis, tone, best, total, st);
-    case 64:
-      return launch<T, 64>(buf, B, len, start, pre, n_symbols, basis, tone, best, total, st);
-    case 128:
-      return launch<T, 128>(buf, B, len, start, pre, n_symbols, basis, tone, best, total, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int SPS>
+cudaError_t launch_f32(const Args& a) {
+  dim3 grid(a.B, (a.n_symbols + anet::SYM_TILE - 1) / anet::SYM_TILE);
+  demod_at_f32<SPS><<<grid, anet::DEMOD_THREADS, 0, a.st>>>(
+      static_cast<const float*>(a.buf), a.len, static_cast<const int32_t*>(a.start), a.pre,
+      a.n_symbols, static_cast<const float*>(a.basis), static_cast<int32_t*>(a.tone),
+      static_cast<float*>(a.best), static_cast<float*>(a.total));
+  return cudaGetLastError();
+}
+
+template <typename T, int SPS>
+cudaError_t dispatch_tones(int m, const Args& a) {
+  if (m <= 4) return launch_mma<T, SPS, 1>(a);
+  if (m <= 8) return launch_mma<T, SPS, 2>(a);
+  return launch_mma<T, SPS, 4>(a);
+}
+
+template <int SPS>
+cudaError_t dispatch_dtype(int dtype, int m, const Args& a) {
+  if (dtype == anet::DTYPE_BF16) return dispatch_tones<__nv_bfloat16, SPS>(m, a);
+  if (dtype == anet::DTYPE_I8) return dispatch_tones<int8_t, SPS>(m, a);
+  return launch_f32<SPS>(a);
 }
 
 }  // namespace
 
-// buf: [B, len] contiguous; start: [B] int32 preamble starts; basis:
-// [sps, 32] float32; tone: [B, n_symbols] int32; best, total: [B,
-// n_symbols] float32. sps must be 32, 64 or 128. Returns cudaGetLastError().
+// buf: [B, len] contiguous, any alignment; start: [B] int32 preamble
+// starts; tone: [B, n_symbols] int32; best, total: [B, n_symbols] float32;
+// m <= 16 tones, sps 32, 64 or 128. basis: for bfloat16 and int8 buffers
+// the B fragments of demod_core.cuh (kernels._demod_mma_basis, int32
+// [sps * elem / 32, n_tiles, 2, 32]); for float32 buffers [sps, 32]
+// float32 (cos of the tones in columns 0.., sin in 16..). Returns
+// cudaGetLastError().
 extern "C" int anet_demod_at(const void* buf, int dtype, int B, long long len, const void* start,
-                             int pre, int sps, int n_symbols, const void* basis, void* tone,
+                             int pre, int sps, int n_symbols, int m, const void* basis, void* tone,
                              void* best, void* total, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == anet::DTYPE_BF16)
-    return (int)dispatch_sps<__nv_bfloat16>(sps, buf, B, len, start, pre, n_symbols, basis, tone,
-                                            best, total, st);
-  if (dtype == anet::DTYPE_I8)
-    return (int)dispatch_sps<int8_t>(sps, buf, B, len, start, pre, n_symbols, basis, tone,
-                                     best, total, st);
-  return (int)dispatch_sps<float>(sps, buf, B, len, start, pre, n_symbols, basis, tone, best,
-                                  total, st);
+  if (m < 1 || m > 16) return (int)cudaErrorInvalidValue;
+  if (B == 0 || n_symbols == 0) return (int)cudaSuccess;
+  const Args a{buf, B, len, start, pre, n_symbols, basis, tone, best, total,
+               reinterpret_cast<cudaStream_t>(stream)};
+  switch (sps) {
+    case 32:
+      return (int)dispatch_dtype<32>(dtype, m, a);
+    case 64:
+      return (int)dispatch_dtype<64>(dtype, m, a);
+    case 128:
+      return (int)dispatch_dtype<128>(dtype, m, a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -13,83 +13,130 @@
 // What bounds it on the H100: bytes. Each stream's data span is read once
 // (2 bytes a bf16 sample) and M float32 energies a symbol are written; at
 // the coded path's 4 tones and 32 samples a symbol that is 64 bytes in and
-// 16 bytes out a symbol, against 512 multiply-adds.
-// An int8 buffer (the quantized stream carry, reference _demod_at_setup
-// lines 1885-1893) halves the read; it takes the x127 integer basis, so
-// its float32 I/Q sums are exact (common.cuh).
+// 16 bytes out a symbol, against 512 multiply-adds. An int8 buffer (the
+// quantized stream carry, reference _demod_at_setup lines 1885-1893) halves
+// the read and takes the x127 integer basis.
 //
-// Design: the front of demod_at_fused (demod_at.cu). The TPU kernel's
-// 8-row-aligned span DMAs, its start-bound padding and its I-block-then-
-// Q-block basis order existed only for the TPU's (8, 128) layout; a thread
-// here indexes buffer[b, start + pre + i] directly. One block per (stream,
-// tile of 64 symbols), energies_symbols in common.cuh: the tile's samples
-// are staged in shared memory by coalesced loads; lane c of each warp holds
-// basis column c (cos of tone c in lanes 0..15, sin in 16..31) in
-// registers, one shuffle brings Q beside I, and lanes 0..M-1 store the
-// symbol's energies. With M = 4 only 8 of a
-// warp's 32 lanes do live work; packing several symbols into a warp is left
-// for the pass that makes this kernel fast.
-#include "common.cuh"
+// Design: the TPU kernel's 8-row-aligned span DMAs, its start-bound padding
+// and its I-block-then-Q-block basis order existed only for the TPU's
+// (8, 128) layout. bfloat16 and int8 buffers run the tensor-core filterbank
+// of demod_core.cuh, whose n-tiles follow the tone count: at M = 4 one
+// m16n8 product a k-step holds the 4 tones' I and Q of 16 symbols, and no
+// lane computes a tone that does not exist. Lane i of a quad stores tone
+// 4 t + i of n-tile t; the 8 rows of a fragment half are consecutive
+// symbols, so at M = 4 a warp's store is 128 contiguous bytes. float32
+// buffers keep the CUDA-core body of common.cuh (energies_symbols).
+#include "demod_core.cuh"
 
 namespace {
 
-constexpr int THREADS = anet::DEMOD_THREADS;
+template <typename T, int SPS, int NT>
+__global__ void __launch_bounds__(anet::demod::THREADS)
+demod_at_energies_mma(anet::demod::Span sp, int m, const uint32_t* __restrict__ basis,
+                      float* __restrict__ energies) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, i = lane & 3;
+  const int n_symbols = sp.n_symbols;
+  anet::demod::walk<T, SPS, NT>(sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int sym = s + g + 8 * h;
+      if (sym < n_symbols) {
+        float* o = energies + ((int64_t)b * n_symbols + sym) * m;
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+          if (4 * u + i < m) o[4 * u + i] = e[u][h];
+      }
+    }
+  });
+}
 
-template <typename T, int SPS>
-__global__ void __launch_bounds__(THREADS)
-demod_at_energies_kernel(const T* __restrict__ buf, int64_t len, const int32_t* __restrict__ start,
-                         int pre, int n_symbols, int m, const float* __restrict__ basis,
-                         float* __restrict__ energies) {
+// float32 buffers: one block per (stream, tile of 64 symbols) on the CUDA
+// cores (energies_symbols in common.cuh).
+template <int SPS>
+__global__ void __launch_bounds__(anet::DEMOD_THREADS)
+demod_at_energies_f32(const float* __restrict__ buf, int64_t len,
+                      const int32_t* __restrict__ start, int pre, int n_symbols, int m,
+                      const float* __restrict__ basis, float* __restrict__ energies) {
   __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
   const int b = blockIdx.x;
   const int s0 = blockIdx.y * anet::SYM_TILE;
   const int64_t base = (int64_t)start[b] + pre + (int64_t)s0 * SPS;
-  anet::energies_symbols<T, SPS>(buf + (int64_t)b * len, len, base,
-                                 min(anet::SYM_TILE, n_symbols - s0), m, basis, stage,
-                                 energies + ((int64_t)b * n_symbols + s0) * m);
+  anet::energies_symbols<float, SPS>(buf + (int64_t)b * len, len, base,
+                                     min(anet::SYM_TILE, n_symbols - s0), m, basis, stage,
+                                     energies + ((int64_t)b * n_symbols + s0) * m);
 }
 
-template <typename T, int SPS>
-cudaError_t launch(const void* buf, int B, long long len, const void* start, int pre,
-                   int n_symbols, int m, const void* basis, void* energies, cudaStream_t st) {
-  dim3 grid(B, (n_symbols + anet::SYM_TILE - 1) / anet::SYM_TILE);
-  demod_at_energies_kernel<T, SPS><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(buf), len, static_cast<const int32_t*>(start), pre, n_symbols, m,
-      static_cast<const float*>(basis), static_cast<float*>(energies));
+struct Args {
+  const void* buf;
+  int B;
+  long long len;
+  const void* start;
+  int pre, n_symbols, m;
+  const void* basis;
+  void* energies;
+  cudaStream_t st;
+};
+
+template <typename T, int SPS, int NT>
+cudaError_t launch_mma(const Args& a) {
+  static int resident = 0;
+  auto kernel = demod_at_energies_mma<T, SPS, NT>;
+  anet::demod::Span sp;
+  int grid = 0;
+  const cudaError_t err = anet::demod::plan<T, SPS>(kernel, resident, a.buf, a.B, a.len, a.start,
+                                                    a.pre, a.n_symbols, sp, grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, anet::demod::THREADS, anet::demod::Shape<T, SPS>::SMEM, a.st>>>(
+      sp, a.m, static_cast<const uint32_t*>(a.basis), static_cast<float*>(a.energies));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_sps(int sps, const void* buf, int B, long long len, const void* start,
-                         int pre, int n_symbols, int m, const void* basis, void* energies,
-                         cudaStream_t st) {
-  switch (sps) {
-    case 32:
-      return launch<T, 32>(buf, B, len, start, pre, n_symbols, m, basis, energies, st);
-    case 64:
-      return launch<T, 64>(buf, B, len, start, pre, n_symbols, m, basis, energies, st);
-    case 128:
-      return launch<T, 128>(buf, B, len, start, pre, n_symbols, m, basis, energies, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int SPS>
+cudaError_t launch_f32(const Args& a) {
+  dim3 grid(a.B, (a.n_symbols + anet::SYM_TILE - 1) / anet::SYM_TILE);
+  demod_at_energies_f32<SPS><<<grid, anet::DEMOD_THREADS, 0, a.st>>>(
+      static_cast<const float*>(a.buf), a.len, static_cast<const int32_t*>(a.start), a.pre,
+      a.n_symbols, a.m, static_cast<const float*>(a.basis), static_cast<float*>(a.energies));
+  return cudaGetLastError();
+}
+
+template <typename T, int SPS>
+cudaError_t dispatch_tones(const Args& a) {
+  if (a.m <= 4) return launch_mma<T, SPS, 1>(a);
+  if (a.m <= 8) return launch_mma<T, SPS, 2>(a);
+  return launch_mma<T, SPS, 4>(a);
+}
+
+template <int SPS>
+cudaError_t dispatch_dtype(int dtype, const Args& a) {
+  if (dtype == anet::DTYPE_BF16) return dispatch_tones<__nv_bfloat16, SPS>(a);
+  if (dtype == anet::DTYPE_I8) return dispatch_tones<int8_t, SPS>(a);
+  return launch_f32<SPS>(a);
 }
 
 }  // namespace
 
-// buf: [B, len] contiguous; start: [B] int32 preamble starts; basis:
-// [sps, 32] float32; energies: [B, n_symbols, m] float32, m <= 16. sps must
-// be 32, 64 or 128. Returns cudaGetLastError().
+// buf: [B, len] contiguous, any alignment; start: [B] int32 preamble
+// starts; energies: [B, n_symbols, m] float32, m <= 16; sps 32, 64 or 128.
+// basis: for bfloat16 and int8 buffers the B fragments of demod_core.cuh
+// (kernels._demod_mma_basis); for float32 buffers [sps, 32] float32 (cos of
+// the tones in columns 0.., sin in 16..). Returns cudaGetLastError().
 extern "C" int anet_demod_at_energies(const void* buf, int dtype, int B, long long len,
                                       const void* start, int pre, int sps, int n_symbols, int m,
                                       const void* basis, void* energies, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (m < 1 || m > 16) return (int)cudaErrorInvalidValue;
-  if (dtype == anet::DTYPE_BF16)
-    return (int)dispatch_sps<__nv_bfloat16>(sps, buf, B, len, start, pre, n_symbols, m, basis,
-                                            energies, st);
-  if (dtype == anet::DTYPE_I8)
-    return (int)dispatch_sps<int8_t>(sps, buf, B, len, start, pre, n_symbols, m, basis,
-                                     energies, st);
-  return (int)dispatch_sps<float>(sps, buf, B, len, start, pre, n_symbols, m, basis, energies, st);
+  if (B == 0 || n_symbols == 0) return (int)cudaSuccess;
+  const Args a{buf, B, len, start, pre, n_symbols, m, basis, energies,
+               reinterpret_cast<cudaStream_t>(stream)};
+  switch (sps) {
+    case 32:
+      return (int)dispatch_dtype<32>(dtype, a);
+    case 64:
+      return (int)dispatch_dtype<64>(dtype, a);
+    case 128:
+      return (int)dispatch_dtype<128>(dtype, a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

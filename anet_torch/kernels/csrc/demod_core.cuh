@@ -1,0 +1,297 @@
+// The align+demod filterbank on the tensor cores, shared by demod_at.cu and
+// demod_at_energies.cu (their bfloat16 and int8 instantiations; float32
+// buffers keep common.cuh's CUDA-core body).
+//
+// For stream b the data section starts at sample d0 = start[b] + pre of its
+// buffer row; symbol s is the sps samples from d0 + s * sps, zero outside
+// [0, len). Per symbol the kernels need I and Q of every tone:
+//   IQ[s, n] = sum_k A[s, k] * B[k, n],   A[s, k] = row[d0 + s * sps + k]
+// an [S, sps] x [sps, 8 n_tiles] product whose columns interleave the tones'
+// (I, Q): column 2c is the cos of tone c, 2c + 1 its sin, zero columns past
+// num_tones. A lane's two accumulators of an m16n8 C fragment are then one
+// tone's I and Q for one symbol, and I*I + Q*Q needs no shuffle.
+//
+// - mma.sync: m16n8k16 bf16 x bf16 -> float32 (bf16 products are exact in
+//   float32, the sum is taken in another order than the plain version's) or
+//   m16n8k32 s8 x s8 -> s32 (the x127 integer basis: exact int32 I/Q, equal
+//   to the reference's sums, below 2^24, so exact as floats too). The A
+//   tile is 16 symbols x 32 bytes of samples a k-step. n_tiles is a
+//   template argument: 1 for M <= 4 tones, 2 for M <= 8, 4 for M <= 16.
+// - B: the wrapper packs the basis once a config and dtype in fragment
+//   order (kernels._demod_mma_basis: word [ks][t][r][lane]); every lane
+//   keeps its k-steps x n_tiles x 2 registers for the whole launch.
+// - The span read: each warp walks (stream, tile) items, a tile SYMS
+//   symbols (about 2 KB of samples), and keeps STAGES - 1 tiles' loads in
+//   flight in its own ring of shared memory: 16-byte cp.async copies of the
+//   tile's span aligned down to 16 bytes of the FLAT buffer, so any row
+//   pitch and any start take full-width loads. cp.async's source size
+//   zero-fills the bytes at and past the row's end, and a chunk wholly
+//   outside the row reads nothing; bytes before the row's start (a
+//   negative position) are zeroed after the copy lands.
+// - Shared memory: the span's 16-byte chunks in rows of one symbol's bytes
+//   plus 16 of pad, so the 8 symbols of an A fragment lie in 8 distinct
+//   bank groups. The span starts rb bytes into its first chunk; a lane's A
+//   register is 4 bytes at byte rb + 4 i (+ 16 for a2/a3) of its symbol's
+//   k-step, built from the two aligned words around it with one
+//   __funnelshift_r by 8 (rb mod 4) bits: no per-sample staging pass.
+//
+// The warps of a block share nothing: each syncs with __syncwarp only.
+#pragma once
+
+#include "common.cuh"
+
+namespace anet {
+namespace demod {
+
+constexpr int WARPS = 4;              // warps of a block
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 4;             // tiles in a warp's ring: 3 in flight while one is read
+constexpr int STAGE_TARGET = 2048;    // bytes of samples a tile aims at
+
+// Tile geometry of a sample type and samples per symbol, in bytes.
+template <typename T, int SPS>
+struct Shape {
+  static constexpr int SB = SPS * (int)sizeof(T);  // a symbol's samples
+  static constexpr int CPS = SB / 16;              // 16-byte chunks a symbol
+  static constexpr int WPS = SB / 4;               // 32-bit words a symbol
+  static constexpr int ROW = SB + 16;              // a symbol row in shared memory, with its pad
+  static constexpr int KS = SB / 32;               // k-steps: 16 bf16 or 32 int8 samples each
+  static constexpr int MT = 16 * SB >= STAGE_TARGET ? 1 : STAGE_TARGET / (16 * SB);  // m16 tiles
+  static constexpr int SYMS = 16 * MT;             // symbols a tile
+  static constexpr int CHUNKS = SYMS * CPS + 1;    // + the chunk an offset span runs into
+  static constexpr int STAGE = SYMS * ROW + 16;    // bytes of one ring stage
+  static constexpr int SMEM = WARPS * STAGES * STAGE;
+  static_assert(SB % 32 == 0, "a symbol must be whole k-steps");
+};
+
+template <typename T>
+struct Acc;
+template <>
+struct Acc<__nv_bfloat16> {
+  using type = float;
+};
+template <>
+struct Acc<int8_t> {
+  using type = int32_t;
+};
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma(int32_t (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The launch: a contiguous [B, len] buffer of T, per-stream preamble
+// starts, and n_symbols symbols a stream in tiles of SYMS.
+struct Span {
+  const unsigned char* buf;
+  int64_t len;
+  const int32_t* start;
+  int pre;
+  int n_symbols;
+  int tiles;  // tiles a stream
+  int items;  // B * tiles
+};
+
+// Item j: stream b, first symbol s0 and live symbols n of its tile, the
+// tile's first sample's row position pos, and its 16-byte-aligned chunk
+// in the flat buffer with the span's byte offset rb into it.
+struct Tile {
+  int b, s0, n, rb;
+  int64_t pos;
+  uintptr_t chunk0;
+};
+
+template <typename T, int SPS>
+__device__ __forceinline__ Tile locate(const Span& sp, int j) {
+  using S = Shape<T, SPS>;
+  Tile t;
+  t.b = j / sp.tiles;
+  t.s0 = (j - t.b * sp.tiles) * S::SYMS;
+  t.n = min(S::SYMS, sp.n_symbols - t.s0);
+  t.pos = (int64_t)sp.start[t.b] + sp.pre + (int64_t)t.s0 * SPS;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(sp.buf) +
+                       (uintptr_t)(((int64_t)t.b * sp.len + t.pos) * (int64_t)sizeof(T));
+  t.rb = (int)(at & 15);
+  t.chunk0 = at - t.rb;
+  return t;
+}
+
+// Start the copies of item j's span into a ring stage, then commit a group
+// (an empty one past the last item, so every iteration commits one).
+template <typename T, int SPS>
+__device__ __forceinline__ void fetch(const Span& sp, int j, unsigned char* stage, int lane) {
+  using S = Shape<T, SPS>;
+  constexpr int E = 16 / (int)sizeof(T);  // samples a chunk
+  if (j < sp.items) {
+    const Tile t = locate<T, SPS>(sp, j);
+    const int need = (t.rb + t.n * S::SB + 15) / 16;
+    const int64_t p0 = t.pos - t.rb / (int)sizeof(T);  // row position of chunk 0's first sample
+#pragma unroll
+    for (int k = 0; k < (S::CHUNKS + 31) / 32; ++k) {
+      const int c = lane + 32 * k;
+      if (c < S::CHUNKS) {
+        const int64_t p = p0 + (int64_t)c * E;
+        const int64_t left = sp.len - p;  // samples of the row from the chunk's first on
+        const int bytes =
+            (c < need && p + E > 0 && left > 0) ? (int)(left < E ? left : E) * (int)sizeof(T) : 0;
+        const void* src = bytes ? reinterpret_cast<const void*>(t.chunk0 + 16 * (uintptr_t)c)
+                                : static_cast<const void*>(sp.buf);
+        cp_async16(stage + (c / S::CPS) * S::ROW + (c % S::CPS) * 16, src, bytes);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// I/Q accumulators of the m16 tile whose row 0 is `rows` (symbol g of the
+// tile at rows + g * ROW): acc[t] is n-tile t's C fragment.
+template <typename T, int SPS, int NT>
+__device__ __forceinline__ void iq_tile(const unsigned char* rows, int x0, int sh,
+                                        const uint32_t (&bf)[Shape<T, SPS>::KS][NT][2],
+                                        typename Acc<T>::type (&acc)[NT][4]) {
+  using S = Shape<T, SPS>;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0;
+#pragma unroll
+  for (int ks = 0; ks < S::KS; ++ks) {
+    uint32_t a[4];
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk) {
+      // word x of the symbol's span (x >= WPS: the next row, past its pad)
+      const int x = x0 + 8 * ks + 4 * hk;
+      const int o0 = 4 * x + (x >= S::WPS ? 16 : 0);
+      const int o1 = 4 * (x + 1) + (x + 1 >= S::WPS ? 16 : 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+        const unsigned char* r = rows + h * 8 * S::ROW;
+        const uint32_t lo = *reinterpret_cast<const uint32_t*>(r + o0);
+        const uint32_t hi = *reinterpret_cast<const uint32_t*>(r + o1);
+        a[2 * hk + h] = __funnelshift_r(lo, hi, sh);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) mma(acc[t], a, bf[ks][t][0], bf[ks][t][1]);
+  }
+}
+
+// Every warp of the grid walks items blockIdx.x * WARPS + warp, + the
+// grid's warp count, ...; for each m16 tile of an item with live symbols
+// it calls epi(b, s, e): e[t][h] is the energy of tone 4 t + (lane % 4) of
+// symbol s + lane / 4 + 8 h of stream b (s + ... may pass n_symbols: the
+// epilogue masks).
+template <typename T, int SPS, int NT, typename Epilogue>
+__device__ __forceinline__ void walk(const Span& sp, const uint32_t* __restrict__ basis,
+                                     Epilogue&& epi) {
+  using S = Shape<T, SPS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, i = lane & 3;
+  unsigned char* ring = smem + warp * (STAGES * S::STAGE);
+  uint32_t bf[S::KS][NT][2];
+#pragma unroll
+  for (int ks = 0; ks < S::KS; ++ks)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) bf[ks][t][r] = basis[((ks * NT + t) * 2 + r) * 32 + lane];
+
+  const int step = gridDim.x * WARPS;
+  int j = blockIdx.x * WARPS + warp;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch<T, SPS>(sp, j + s * step, ring + s * S::STAGE, lane);
+  for (int it = 0; j < sp.items; j += step, ++it) {
+    fetch<T, SPS>(sp, j + (STAGES - 1) * step, ring + ((it + STAGES - 1) % STAGES) * S::STAGE,
+                  lane);
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();
+    unsigned char* stage = ring + (it % STAGES) * S::STAGE;
+    const Tile t = locate<T, SPS>(sp, j);
+    if (t.pos < 0) {  // zero the span's bytes before the row's start
+      const int64_t before = t.rb - t.pos * (int64_t)sizeof(T);
+      const int z = before < S::CHUNKS * 16 ? (int)before : S::CHUNKS * 16;
+      for (int y = lane; y < z; y += 32) stage[(y / S::SB) * S::ROW + y % S::SB] = 0;
+      __syncwarp();
+    }
+    const int x0 = (t.rb >> 2) + i;
+    const int sh = 8 * (t.rb & 3);
+#pragma unroll
+    for (int mt = 0; mt < S::MT; ++mt) {
+      if (16 * mt < t.n) {
+        typename Acc<T>::type acc[NT][4];
+        iq_tile<T, SPS, NT>(stage + (16 * mt + g) * S::ROW, x0, sh, bf, acc);
+        float e[NT][2];
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+          e[u][0] = tone_energy((float)acc[u][0], (float)acc[u][1]);
+          e[u][1] = tone_energy((float)acc[u][2], (float)acc[u][3]);
+        }
+        epi(t.b, t.s0 + 16 * mt, e);
+      }
+    }
+    __syncwarp();  // the stage is read: the next iteration's copies may land in it
+  }
+  cp_async_wait<0>();
+}
+
+// The span and grid of a launch: the stream's tiles and items, one block
+// per WARPS items at most and no more blocks than fit the card at once
+// (the warps walk the rest). `resident` is the caller's cache of that
+// count, one per kernel: 0 on the first call, which also sets the kernel's
+// dynamic shared memory limit.
+template <typename T, int SPS, typename Kernel>
+inline cudaError_t plan(Kernel kernel, int& resident, const void* buf, int B, long long len,
+                        const void* start, int pre, int n_symbols, Span& sp, int& grid) {
+  using S = Shape<T, SPS>;
+  const int tiles = (n_symbols + S::SYMS - 1) / S::SYMS;
+  const long long items = (long long)B * tiles;
+  if (items > (1LL << 30)) return cudaErrorInvalidValue;  // the walk counts items in int
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, S::SMEM);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident = sms * per_sm;
+  }
+  sp = Span{static_cast<const unsigned char*>(buf), len, static_cast<const int32_t*>(start), pre,
+            n_symbols, tiles, (int)items};
+  const int blocks = (int)((items + WARPS - 1) / WARPS);
+  grid = blocks < resident ? blocks : resident;
+  return cudaSuccess;
+}
+
+}  // namespace demod
+}  // namespace anet

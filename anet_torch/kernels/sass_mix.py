@@ -3,14 +3,18 @@
     python -m anet_torch.kernels.sass_mix [source ...]
 
 Builds each ``csrc/<source>.cu`` (by default the four with an int8
-instantiation) as the kernels are built, disassembles the library with
+instantiation; a shared header's name, ``search_core`` or ``demod_core``,
+stands for the sources that include it) as the kernels are built,
+disassembles the library with
 ``cuobjdump -sass`` and prints, for each kernel function, its instruction
 count and the count of each opcode (the part before the first dot) as one
 JSON object. The counts are static (instructions in the code, not executed
 ones): enough to set one instantiation's inner loop beside another's, e.g.
 the int8 and bfloat16 loads and conversions, or that the tensor-core
-kernels (``sync_search search_blockmax correlate``) run ``HMMA`` and no
-float32 product loop (``FFMA``). Needs the CUDA toolkit, no card.
+kernels (``search_core``: ``HMMA`` and no float32 product loop,
+``FFMA``; ``demod_core``: ``HMMA`` in the bfloat16 and ``IMMA`` in the int8
+instantiations, ``FFMA`` only in the float32 ones). Needs the CUDA
+toolkit, no card.
 """
 
 from __future__ import annotations
@@ -26,6 +30,10 @@ from pathlib import Path
 from anet_torch.kernels.build import build_all, library_path, nvcc_path
 
 INT8_SOURCES = ("decide_frame_tm", "demod_at", "demod_at_energies", "demod_probe")
+HEADERS = {  # a shared device header -> the sources built on it
+    "search_core": ("sync_search", "search_blockmax", "correlate"),
+    "demod_core": ("demod_at", "demod_at_energies"),
+}
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 
@@ -72,7 +80,8 @@ def instruction_mix(source: str) -> list[dict]:
 
 
 def main(argv: list[str]) -> int:
-    for source in argv or INT8_SOURCES:
+    sources = [s for name in argv or INT8_SOURCES for s in HEADERS.get(name, (name,))]
+    for source in sources:
         for row in instruction_mix(source):
             print(json.dumps(row))
     return 0

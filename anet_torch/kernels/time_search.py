@@ -23,6 +23,12 @@ comma-separated subset of:
   for mfsk16-fast, and the preamble) for each dtype pair;
 - ``viterbi``: ``viterbi_trellis`` on T = 2,150 steps (mfsk4-coded's
   trellis at payload 256).
+- ``demod``: ``demod_at_fused`` at the uncoded stream's geometry
+  (mfsk16-fast, payload 256: 536 symbols of 64 samples, 16 tones, buffer
+  76,288) and ``demod_at_energies_fused`` at the coded one (mfsk4-coded:
+  2,160 symbols of 32 samples, 4 tones, buffer 143,872), each on
+  bfloat16, int8 (``quantize_int8``) and float32 buffers of noise, starts
+  random in the chunk. These ignore ``--model``.
 
 Segments are strided views from sample 1, as the stream passes them. The
 inputs come from one seed, so every checkout times the same data. Needs a
@@ -40,7 +46,9 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "search": ("sync_search", "search_blockmax"),
     "correlate": ("correlate",),
     "viterbi": ("viterbi",),
+    "demod": ("demod_at", "demod_at_energies"),
 }
+DEMOD_MODELS = {"demod_at_fused": "mfsk16-fast", "demod_at_energies_fused": "mfsk4-coded"}
 VIT_STEPS = 2150  # mfsk4-coded: 8 x 268 data-section bits + the 6-bit tail flush
 
 _CHILD = r"""
@@ -102,6 +110,25 @@ if "viterbi" in kinds:
     rx = torch.randn(b, {vit_steps}, 2, generator=gen, device="cuda")
     signs = torch.as_tensor(fec._branch_signs(), device="cuda")
     out["viterbi_trellis"] = time_ms(lambda: kernels.viterbi_trellis(signs, rx))
+if "demod" in kinds:
+    from anet_torch.dsp.frame import data_symbols_for_payload
+    from anet_torch.stream import _buffer_len, quantize_int8
+
+    for name, model in {demod_models!r}.items():
+        c = get_model(model).config
+        chunk = family.frame_samples(c, 256)
+        n_sym = data_symbols_for_payload(c, 256)
+        x = torch.randn(b, _buffer_len(c, chunk, 256), generator=gen, device="cuda")
+        starts = torch.randint(3, chunk - 4, (b,), generator=gen, device="cuda").int()
+        fn = getattr(kernels, name)
+        for label, make in (("bfloat16", lambda: x.to(torch.bfloat16)), ("int8", lambda: quantize_int8(x)),
+                            ("float32", lambda: x)):
+            buf = make()
+            out[f"{{name}} {{label}}"] = time_ms(lambda: fn(c, buf, starts, n_sym))
+            del buf
+            torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
 print(json.dumps(out))
 """
 
@@ -109,7 +136,8 @@ print(json.dumps(out))
 def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) -> dict:
     """The timings of the checkout at ``root``, from a process of its own."""
     sources = tuple(s for kind in kinds for s in KERNELS[kind])
-    child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS)
+    child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS,
+                          demod_models=DEMOD_MODELS)
     run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")

@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    mfsk16-fast (correlate_fused at a chunk of two shortest frames, 23,552
    lags, also timed on its float32 routes; decide_tones_tm at a frame plus
    8 symbols; gather_rows_fused at one frame out of the 76,288-sample
-   buffer), these also beside the one
+   buffer; demod_at_fused also timed at the dynamic parse's max-length
+   window, 536 symbols from starts in a 23,552-sample chunk), these also
+   beside the one
    PyTorch call that computes the same function where there is one; and
    the OFDM equalizer ofdm_track_decide_fused on 256 drifted frames
    (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
@@ -29,6 +31,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    its bound: its float32 route (seg and template split into bf16 hi + lo)
    at the main shape, and bf16 at the coded (mfsk4-coded: k 1,024, chunk
    70,144) and OFDM stream (ofdm-fast: chunk 4,736) geometries, B = 8,192;
+   and demod_at_fused (tensor cores for bfloat16 and int8 buffers) on its
+   float32 route (the CUDA-core body) at the main shape;
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -236,6 +240,21 @@ def log_search_time(label: str, seg: torch.Tensor, tpl: torch.Tensor, chunk: int
     torch.cuda.empty_cache()
 
 
+def log_demod_time(label: str, cfg, buf: torch.Tensor, starts: torch.Tensor, n_sym: int) -> None:
+    """Time demod_at_fused on ``buf`` at another geometry or dtype than its
+    row's and log it against its bound: each stream's data span read once,
+    12 bytes a symbol written, the filterbank's operations at the peak of
+    the route the buffer's dtype takes (tensor cores for bfloat16 and int8,
+    the CUDA cores for float32)."""
+    b, sps, m = buf.shape[0], cfg.samples_per_symbol, cfg.num_tones
+    ms = time_ms(lambda: kernels.demod_at_fused(cfg, buf, starts, n_sym))
+    peak = {torch.int8: INT8_OPS_S, torch.bfloat16: BF16_FLOPS_S}.get(buf.dtype, F32_FLOPS_S)
+    bound, by = bound_ms(b * (n_sym * (sps * buf.element_size() + 12) + 4), b * n_sym * 2 * sps * 2 * m, peak)
+    log(f"  demod_at_fused ({label}: B {b}, buffer {buf.shape[-1]}, {n_sym} symbols, "
+        f"{str(buf.dtype).removeprefix('torch.')}): kernel {ms:.3f} ms, bound {bound:.3f} ms ({by})")
+    torch.cuda.empty_cache()
+
+
 def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...],
             atol: float = 1e-6) -> float:
     """Hold kernel outputs against the plain version's: the ``exact``
@@ -438,6 +457,9 @@ def phase_kernels(cfg, gen) -> dict:
     # split into bf16 hi + lo, three products a tile and step
     seg32 = buf_full.float()[:, 1 : 1 + chunk + k - 1]
     log_search_time("float32 route", seg32, preamble_waveform(cfg, device=DEV), chunk)
+    del seg32
+    # the align+demod kernel's float32 route (the CUDA-core body) at the same shape
+    log_demod_time("float32 route", cfg, buf_full.float(), st_full, n_sym)
     return results
 
 
@@ -734,6 +756,13 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     crc = time_ms(lambda: fec.crc32_device(body, length=plen))
     log(f"  dynamic parse (B {b_s}, {n_sym_max} symbols): {parse:.3f} ms a chunk, "
         f"of which crc32_device(length=) {crc:.3f} ms")
+    # the max-length window demod_at_fused reads for that parse: the dynamic
+    # stream's buffer (max frame + a chunk of two shortest frames), starts
+    # anywhere in the chunk's window [1, 1 + chunk)
+    del tone, best, body
+    buf_dyn = torch.randn(b_s, _buffer_len(cfg, chunk, PAYLOAD), generator=gen, device=DEV).to(torch.bfloat16)
+    st_dyn = torch.randint(1, 1 + chunk, (b_s,), generator=gen, device=DEV)
+    log_demod_time("dynamic parse window", cfg, buf_dyn, st_dyn, n_sym_max)
     return results
 
 

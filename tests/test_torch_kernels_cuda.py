@@ -7,6 +7,8 @@ JAX, so it runs on a machine with a GPU:
 
 and skips where torch.cuda.is_available() is false."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -689,3 +691,80 @@ def test_cuda_int8_receivers_match_cpu(cuda, model):
     det = want.steps.detected
     assert torch.equal(got.steps.frame.payload.cpu()[det], want.steps.frame.payload[det])
     assert torch.equal(got.carry.next_start.cpu(), want.carry.next_start)
+
+
+# --- the align+demod kernels on the tensor cores ------------------------------
+
+DEMOD_CONFIGS = {  # sps and tone count of each n-tile count and k-step count
+    "fsk2-robust": get_model("fsk2-robust").config,  # sps 128, 2 tones
+    "mfsk4-coded": get_model("mfsk4-coded").config,  # sps 32, 4 tones
+    "mfsk8-sps64": dataclasses.replace(CFG, num_tones=8),
+    "mfsk16-fast": CFG,  # sps 64, 16 tones
+    "mfsk16-ultra": get_model("mfsk16-ultra").config,  # sps 32, 16 tones
+    "mfsk16-sps128": dataclasses.replace(CFG, symbol_rate_hz=375),
+}
+
+
+def _demod_buffer(cfg, rng, n_sym, length, dtype, device):
+    """A [B, length] buffer (noise 0.3, a frame at each start) whose rows
+    start one element past a 16-byte boundary, and the starts: the data
+    section at every residue mod 16, one span half past the buffer's end,
+    one wholly past it and one beginning before the row's start."""
+    sps, pre = cfg.samples_per_symbol, cfg.preamble_samples
+    starts = [200 + r for r in range(16)]
+    starts += [length - pre - (n_sym * sps) // 2 - 3, length, -pre - 2 * sps - 5]
+    pay = rng.integers(0, 256, (len(starts), PAY), dtype=np.uint8)
+    w = transmit(cfg, pay, device="cpu").numpy()
+    x = 0.3 * rng.standard_normal((len(starts), length)).astype(np.float32)
+    for i, s in enumerate(starts):
+        lo, hi = max(s, 0), min(s + w.shape[1], length)
+        if lo < hi:
+            x[i, lo:hi] += w[i, lo - s : hi - s]
+    x = torch.from_numpy(x)
+    x = _quantized(x) if dtype == torch.int8 else x.to(dtype)
+    flat = torch.zeros(x.numel() + 1, dtype=dtype, device=device)
+    flat[1:] = x.reshape(-1).to(device)
+    return flat[1:].view(x.shape), torch.tensor(starts, dtype=torch.int32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("n_sym", [1, 15, 17, 67])
+@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_demod_at_kernels_at_every_residue(cuda, dtype, geometry, n_sym, ragged):
+    """demod_at_fused and demod_at_energies_fused against their plain
+    versions at data starts of every residue mod 16 (the tensor-core span
+    read's funnel shifts), a span past the buffer's end, one wholly past it,
+    one before the row's start, rows that start off a 16-byte boundary and,
+    ``ragged``, a row length that leaves every other row off one too;
+    n_symbols not a multiple of the kernels' tiles; every sps (32, 64,
+    128) and n-tile count (2, 4, 8, 16 tones). Tones and argmaxes equal;
+    int8 (exact int32 I/Q, energies rounded after each operation): best and
+    energies bit-equal, total within rtol 1e-5; float32 and bfloat16: best,
+    total and energies within rtol 1e-3 (float32 sums in another order).
+    One launch each, int8 under its own key."""
+    cfg = DEMOD_CONFIGS[geometry]
+    rng = np.random.default_rng(n_sym + 7 * len(geometry))
+    length = 4096 + (5 if ragged else 0)
+    buf, st = _demod_buffer(cfg, rng, n_sym, length, dtype, cuda)
+    suffix = ":int8" if dtype == torch.int8 else ""
+    before = dict(tk.launch_counts)
+    got = tk.demod_at_fused(cfg, buf, st, n_sym)
+    energies = tk.demod_at_energies_fused(cfg, buf, st, n_sym)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["demod_at_fused" + suffix] == before["demod_at_fused" + suffix] + 1
+    assert (tk.launch_counts["demod_at_energies_fused" + suffix]
+            == before["demod_at_energies_fused" + suffix] + 1)
+    want = tk.demod_at_fused_ref(cfg, buf, st, n_sym)
+    want_e = tk.demod_at_energies_fused_ref(cfg, buf, st, n_sym)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(energies.argmax(-1).int(), want[0])
+    if dtype == torch.int8:
+        assert torch.equal(got[1], want[1]) and torch.equal(energies, want_e)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    else:
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(energies, want_e, rtol=1e-3, atol=1e-3)
+    assert not bool(want_e[-2].any())  # the span wholly past the end reads zeros

@@ -3,6 +3,8 @@ kernels they replace, run in interpret mode on the CPU (float32; the coded
 path's three and the variable-length slice's three also in bfloat16). The
 CUDA kernels against these plain versions: test_torch_kernels_cuda.py."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,7 +91,9 @@ def test_demod_at_ref_matches_pallas():
     rng = np.random.default_rng(6)
     n_sym = data_symbols_for_payload(CFG, PAY)
     length = tstream._buffer_len(CFG, CHUNK, PAY)
-    starts = np.array([1, 700, 4095], np.int32)
+    # data starts (start + 2,048) at every residue mod 16, the tensor-core
+    # kernel's funnel-shift cases, besides the spread ones
+    starts = np.array([1, 700, 4095] + [1000 + r for r in range(16)], np.int32)
     buf = _buffer(rng, starts, length, noise=0.3)
     t, b, tot = tk.demod_at_fused_ref(CFG, torch.from_numpy(buf), torch.from_numpy(starts), n_sym)
     jt, jb, jtot = jk.demod_at_fused(
@@ -177,15 +181,16 @@ def test_viterbi_trellis_ref_all_ties():
 @pytest.mark.parametrize("cfgs", ["mfsk4-coded", "mfsk16-fast"])
 def test_demod_at_energies_ref_matches_pallas(cfgs, dtype):
     """Energies f32 [B, S, M] at starts on the 128-sample row residues
-    124..127 and past them. Tolerance: 1e-5 of the largest energy (float32
-    sums in another order; bf16 products are exact in float32)."""
+    124..127 and past them, and at data starts of every residue mod 16.
+    Tolerance: 1e-5 of the largest energy (float32 sums in another order;
+    bf16 products are exact in float32)."""
     cfg, jcfg = get_model(cfgs).config, jget_model(cfgs).config
     tdt, jdt = _DTYPES[dtype]
     rng = np.random.default_rng(len(cfgs))
     pay = 24
     n_sym = data_symbols_for_payload(cfg, pay)
     length = tstream._buffer_len(cfg, CHUNK, pay)
-    starts = np.array([0, 124, 125, 126, 127, 128, 1000, 4095], np.int32)
+    starts = np.array([0, 124, 125, 126, 127, 128, 1000, 4095] + [2000 + r for r in range(16)], np.int32)
     payload = rng.integers(0, 256, (len(starts), pay), dtype=np.uint8)
     w = transmit(cfg, payload, device="cpu").numpy()
     buf = 0.3 * rng.standard_normal((len(starts), length)).astype(np.float32)
@@ -549,6 +554,62 @@ def test_filterbank_basis_layout(name, shape):
         assert torch.equal(basis, plain)
     else:
         assert torch.equal(basis[:, :m], plain[:, :m]) and torch.equal(basis[:, 16 : 16 + m], plain[:, m:])
+
+
+_DEMOD_MMA_CONFIGS = {  # every preset tone count (2, 4, 16) at sps 32/64/128, and 8 tones
+    name: get_model(name).config
+    for name in ("fsk2-robust", "mfsk4-coded", "mfsk4-voice", "mfsk16-fast", "mfsk16-ultra")
+}
+_DEMOD_MMA_CONFIGS["mfsk8-sps64"] = dataclasses.replace(CFG, num_tones=8)
+
+
+def _unpack_demod_mma_basis(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The [sps, 8 n] matrix the B fragments of csrc/demod_core.cuh hold:
+    register r of lane (g, i) at k-step s and n8 tile t holds rows
+    k = (32 s + 16 r + 4 i) / elem + e, column 8 t + g, element e in the
+    word's low bytes first."""
+    ks, n = words.shape[:2]
+    per = 4 // torch.empty((), dtype=dtype).element_size()  # elements a word
+    e = words.reshape(ks, n, 2, 8, 4).contiguous().view(dtype).reshape(ks, n, 2, 8, 4, per).float()
+    return e.permute(0, 2, 4, 5, 1, 3).reshape(ks * 8 * per, n * 8)  # [s, r, i, e] x [t, g]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("name", list(_DEMOD_MMA_CONFIGS))
+def test_demod_mma_basis_packing(name, dtype):
+    """The align+demod kernels' tensor-core B operand, read back as the
+    kernels' fragments read it, is the interleaved basis (column 2c the cos
+    of tone c, 2c + 1 its sin, zero columns up to the n8 tiles of the tone
+    count) with the same entries as _kernel_basis's, and as anet's
+    demod_basis rounded to bf16, or round(basis * 127) for int8 samples."""
+    from anet.dsp.demod import demod_basis as j_demod_basis
+    from anet.dsp.params import ModemConfig as JModemConfig
+
+    cfg = _DEMOD_MMA_CONFIGS[name]
+    tdt = {"bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    m, sps, cpu = cfg.num_tones, cfg.samples_per_symbol, torch.device("cpu")
+    words = tk._demod_mma_basis(cfg, tdt, cpu)
+    n = tk._demod_mma_tiles(m)
+    assert words.dtype == torch.int32 and words.shape == (sps * tdt.itemsize // 32, n, 2, 32)
+    assert n == {2: 1, 4: 1, 8: 2, 16: 4}[m]
+    basis = _unpack_demod_mma_basis(words, tdt)
+    assert basis.shape == (sps, 8 * n)
+    kb = tk._kernel_basis(cfg, tdt, cpu)
+    assert torch.equal(basis[:, 0 : 2 * m : 2], kb[:, :m]) and torch.equal(basis[:, 1 : 2 * m : 2], kb[:, 16 : 16 + m])
+    assert not bool(basis[:, 2 * m :].any())
+    jb = j_demod_basis(JModemConfig(**dataclasses.asdict(cfg)), dtype=jnp.float32)
+    want = np.round(np.asarray(jb) * 127) if tdt == torch.int8 else np.asarray(jb.astype(jnp.bfloat16)).astype(np.float32)
+    np.testing.assert_array_equal(torch.cat([basis[:, 0 : 2 * m : 2], basis[:, 1 : 2 * m : 2]], 1).numpy(), want)
+    assert tk._demod_at_basis(cfg, tdt, cpu) is words
+
+
+def test_demod_at_basis_float32_takes_the_cuda_core_columns():
+    """float32 buffers keep the CUDA-core body: its [sps, 32] float32
+    basis, not tensor-core fragments."""
+    cpu = torch.device("cpu")
+    assert tk._demod_at_basis(CFG, torch.float32, cpu) is tk._kernel_basis(CFG, torch.float32, cpu)
+    with pytest.raises(TypeError):
+        tk._demod_mma_basis(CFG, torch.float32, cpu)
 
 
 def test_sass_mix_parses_cuobjdump_output():
