@@ -5,22 +5,22 @@ fixed and variable frame length, int8 quantized ingest and the OFDM
 equalizer; the batch-major filterbank of ``frame.demodulate_frame``; and the
 block maxima of the two-phase acquisition search).
 
-| wrapper                 | kernel source               | TPU kernel it replaces        |
-|-------------------------|-----------------------------|-------------------------------|
-| decide_frame_tm         | csrc/decide_frame_tm.cu     | anet/kernels/__init__.py:488  |
-| sync_search_fused       | csrc/sync_search.cu         | anet/kernels/__init__.py:1095 |
-| demod_at_fused          | csrc/demod_at.cu            | anet/kernels/__init__.py:1992 |
-| demod_probe_fused       | csrc/demod_probe.cu         | anet/kernels/__init__.py:2307 |
-| viterbi_trellis         | csrc/viterbi.cu             | anet/kernels/__init__.py:754  |
-| demod_at_energies_fused | csrc/demod_at_energies.cu   | anet/kernels/__init__.py:1918 |
-| probe_at_fused          | csrc/probe_at.cu            | anet/kernels/__init__.py:1621 |
-| correlate_fused         | csrc/correlate.cu           | anet/kernels/__init__.py:891  |
-| decide_tones_tm         | csrc/decide_tones_tm.cu     | anet/kernels/__init__.py:269  |
-| gather_rows_fused       | csrc/gather_rows.cu         | anet/kernels/__init__.py:1415 |
-| ofdm_track_decide_fused | csrc/ofdm_track.cu          | anet/kernels/__init__.py:2648 |
-| tone_energies_fused     | csrc/tone_energies.cu       | anet/kernels/__init__.py:87   |
-| decide_tones_fused      | csrc/tone_energies.cu       | anet/kernels/__init__.py:172  |
-| sync_search_blockmax    | csrc/search_blockmax.cu     | anet/kernels/__init__.py:1300 |
+| wrapper                 | kernel source                       | TPU kernel it replaces        |
+|-------------------------|-------------------------------------|-------------------------------|
+| decide_frame_tm         | csrc/decide_frame_tm.cu             | anet/kernels/__init__.py:488  |
+| sync_search_fused       | csrc/sync_search.cu                 | anet/kernels/__init__.py:1095 |
+| demod_at_fused          | csrc/demod_at.cu                    | anet/kernels/__init__.py:1992 |
+| demod_probe_fused       | csrc/demod_probe.cu + demod_at.cu   | anet/kernels/__init__.py:2307 |
+| viterbi_trellis         | csrc/viterbi.cu                     | anet/kernels/__init__.py:754  |
+| demod_at_energies_fused | csrc/demod_at_energies.cu           | anet/kernels/__init__.py:1918 |
+| probe_at_fused          | csrc/probe_at.cu                    | anet/kernels/__init__.py:1621 |
+| correlate_fused         | csrc/correlate.cu                   | anet/kernels/__init__.py:891  |
+| decide_tones_tm         | csrc/decide_tones_tm.cu             | anet/kernels/__init__.py:269  |
+| gather_rows_fused       | csrc/gather_rows.cu                 | anet/kernels/__init__.py:1415 |
+| ofdm_track_decide_fused | csrc/ofdm_track.cu                  | anet/kernels/__init__.py:2648 |
+| tone_energies_fused     | csrc/tone_energies.cu               | anet/kernels/__init__.py:87   |
+| decide_tones_fused      | csrc/tone_energies.cu               | anet/kernels/__init__.py:172  |
+| sync_search_blockmax    | csrc/search_blockmax.cu             | anet/kernels/__init__.py:1300 |
 
 Each wrapper runs its plain version (``*_ref``) when its tensors lie on the
 CPU, and launches its CUDA kernel when they lie on the card: it checks
@@ -41,7 +41,9 @@ operand once a template tensor. The two align+demod kernels
 float32 accumulators, or an int8 one with exact int32 I/Q, fed by a
 pipelined span read, the basis packed once a config and dtype in fragment
 order (``_demod_mma_basis``); their float32 buffers keep the CUDA-core
-body. The other kernels sum in float32 on the CUDA cores.
+body. demod_probe_fused is a warp-per-stream probe followed by
+demod_at_fused's kernel (float32: a CUDA-core block a stream). The other
+kernels sum in float32 on the CUDA cores.
 
 The plain versions widen every operand to float32 before a product, as the
 reference kernels accumulate in float32. On the card, a float32 product
@@ -54,8 +56,9 @@ x127 integer basis, ``round(basis * 127)``; the probe's template is
 quantized to ``round(t * 127 / max|t|)`` and ``cmax`` scaled back by
 ``max|t| / 127``. The reference accumulates those products in int32. Every
 I/Q sum stays below 2**24, so float32 sums are exact; the probe's
-correlation can pass 2**24 and sums in int32 (the plain version in
-float64). Energies are I*I + Q*Q rounded after each operation, bit-equal to
+correlation and window energy can pass 2**24 and sum in int32 (the plain
+version's correlation in float64, its energy in float32, exact below
+2**24). Energies are I*I + Q*Q rounded after each operation, bit-equal to
 the reference's, so the first-index argmax breaks the frequent integer ties
 alike. (The align+demod kernels' int8 products run on the tensor cores in
 int32, the same exact sums.) Energies then carry the (127 * buffer
@@ -144,10 +147,18 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _check_launch(err: int, name: str, dtype: torch.dtype | None = None) -> None:
+def _check_error(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def _count_launch(name: str, dtype: torch.dtype | None = None) -> None:
     launch_counts[f"{name}:int8" if dtype == torch.int8 else name] += 1
+
+
+def _check_launch(err: int, name: str, dtype: torch.dtype | None = None) -> None:
+    _check_error(err, name)
+    _count_launch(name, dtype)
 
 
 def _check_cuda_input(name: str, t: torch.Tensor, what: str, int8: bool = False) -> int:
@@ -586,6 +597,20 @@ def _int8_probe_template(template: torch.Tensor):
     return _per_template(_INT8_TAPS, template, lambda t: _probe_template(t, torch.int8))
 
 
+def _probe_operands(template: torch.Tensor, dtype: torch.dtype, device):
+    """(contiguous float32 taps [k], the cmax scale or None), both on
+    ``device``: the probe kernel's template operands for a buffer of
+    ``dtype``. For int8 the x127 taps and the float32 scalar max|t| / 127,
+    made once per template tensor; the kernel reads the scale through its
+    address and multiplies it into cmax itself (no host read, no multiply
+    after the launch)."""
+    template = template.to(device)
+    if dtype == torch.int8:
+        taps, scale = _int8_probe_template(template)
+        return taps.contiguous(), scale
+    return _probe_template(template, dtype)[0].contiguous(), None
+
+
 def _probe_abs_corr(buffer: torch.Tensor, st: torch.Tensor, taps: torch.Tensor, n_lags: int):
     """|correlation| float32 [B, n_lags] of the float32 ``taps`` at lags
     st .. st + n_lags - 1: the probes' plain front. Over an int8 buffer the
@@ -643,7 +668,14 @@ def demod_probe_fused(
     st0 + off. The template rounds to the buffer's dtype, as the
     reference's does; over an int8 buffer it is quantized to x127 integers
     and cmax scaled back, so the normalization by the float template's
-    energy cancels the buffer's scale."""
+    energy cancels the buffer's scale.
+
+    On the card it is two launches on the current stream: the probe
+    (csrc/demod_probe.cu, a warp a stream) writes (cmax, off, energy) and
+    the refined starts st0 + off, then the demod runs there: for bfloat16
+    and int8 demod_at_fused's tensor-core kernel (csrc/demod_at.cu), for
+    float32 a CUDA-core block a stream (csrc/demod_probe.cu). They count
+    as one launch of demod_probe_fused."""
     if buffer.device.type == "cpu":
         return demod_probe_fused_ref(config, buffer, st0, n_symbols, template, n_lags=n_lags)
     name = "demod_probe_fused"
@@ -654,27 +686,32 @@ def demod_probe_fused(
     b, length = buffer.shape
     dev = buffer.device
     k = template.shape[-1]
-    if buffer.dtype == torch.int8:
-        tpl, cmax_scale = _int8_probe_template(template.to(dev))
-    else:
-        tpl, cmax_scale = _probe_template(template.to(dev), buffer.dtype)
-    tpl = tpl.contiguous()
     cmax = torch.empty(b, dtype=torch.float32, device=dev)
     off = torch.empty(b, dtype=torch.int32, device=dev)
     energy = torch.empty(b, dtype=torch.float32, device=dev)
     tone = torch.empty(b, n_symbols, dtype=torch.int32, device=dev)
     best = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
     total = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
-    basis = _kernel_basis(config, buffer.dtype, dev)
+    if b == 0:
+        return cmax, off, energy, tone, best, total
+    taps, cmax_scale = _probe_operands(template, buffer.dtype, dev)
+    start = torch.empty(b, dtype=torch.int32, device=dev)  # st0 + off, where the demod runs
+    stream = _stream_handle(dev)
     err = _entry("demod_probe")(
-        buffer.data_ptr(), dtype, b, length, st.data_ptr(), tpl.data_ptr(), k, n_lags,
-        _probe_span_rows(k, n_lags), config.preamble_samples, config.samples_per_symbol,
-        n_symbols, basis.data_ptr(), cmax.data_ptr(), off.data_ptr(), energy.data_ptr(),
-        tone.data_ptr(), best.data_ptr(), total.data_ptr(), _stream_handle(dev),
+        buffer.data_ptr(), dtype, b, length, st.data_ptr(), taps.data_ptr(), k, n_lags,
+        _probe_span_rows(k, n_lags), None if cmax_scale is None else cmax_scale.data_ptr(),
+        cmax.data_ptr(), off.data_ptr(), energy.data_ptr(), start.data_ptr(), stream,
     )
-    _check_launch(err, name, buffer.dtype)
-    if cmax_scale is not None:
-        cmax = cmax * cmax_scale
+    _check_error(err, f"{name} (probe)")
+    basis = _demod_at_basis(config, buffer.dtype, dev)
+    demod = "demod_probe_f32" if buffer.dtype == torch.float32 else "demod_at"
+    err = _entry(demod)(
+        buffer.data_ptr(), dtype, b, length, start.data_ptr(), config.preamble_samples,
+        config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(), tone.data_ptr(),
+        best.data_ptr(), total.data_ptr(), stream,
+    )
+    _check_error(err, f"{name} (demod)")
+    _count_launch(name, buffer.dtype)  # one launch of the function: its two kernels
     return cmax, off, energy, tone, best, total
 
 

@@ -51,8 +51,11 @@ SIGNATURES = {
     ),
     "demod_probe": (
         "anet_demod_probe",
-        [_P, _I, _I, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-         _P, _P, _P],
+        [_P, _I, _I, _L, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    ),
+    "demod_probe_f32": (
+        "anet_demod_probe_f32",
+        [_P, _I, _I, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P], "demod_probe",
     ),
     "viterbi": ("anet_viterbi", [_P, _P, _I, _I, _P, _P, _P]),
     "demod_at_energies": (

@@ -1,193 +1,281 @@
-// demod_probe_fused: the locked stream's merged probe + demod, Hopper.
+// demod_probe_fused, first launch: the locked stream's n-lag probe, Hopper.
 //
-// Replaces the TPU kernel anet/kernels/__init__.py demod_probe_fused
-// (pallas_call at line 2415, body _demod_probe_kernel at line 2092). For
-// each stream b with probe base st = st0[b]:
+// Replaces, with demod_at.cu's entry as its second launch, the TPU kernel
+// anet/kernels/__init__.py demod_probe_fused (pallas_call at line 2415, body
+// _demod_probe_kernel at line 2092). For each stream b with probe base
+// st = st0[b]:
 //   corr[o] = sum_j buf[st + o + j] * t[j]                (o < n_lags <= 8)
 //   cmax    = max_o |corr[o]|, off = its first argmax (ties: earliest lag)
 //   energy  = sum of buf[i]^2 over the row-aligned superset span
-//             [128*(st//128), 128*(st//128 + pw_e)),
-//             pw_e = ceil((k + n_lags - 1)/128) + 1
-//   then the demod triple (tone, best, total) of the frame whose preamble
-//   starts at st + off, data at st + off + pre. Reads past the buffer's
-//   end are zero.
-// The caller normalizes q = cmax * rsqrt(te * max(energy, 1e-4 te)).
+//             [e0, e0 + 128 pw_e), e0 = 128 floor(st / 128),
+//             pw_e = ceil((k + n_lags - 1) / 128) + 1
+//   start   = st + off, where the wrapper's second launch demodulates:
+//             anet_demod_at (demod_at.cu's tensor-core align+demod) for
+//             bfloat16 and int8, anet_demod_probe_f32 below for float32.
+// Reads outside [0, len) of the row are zero. The caller normalizes
+// q = cmax * rsqrt(te * max(energy, 1e-4 te)).
+//
 // An int8 buffer (the quantized stream carry) comes with the template
-// quantized by the wrapper to round(t * 127 / max|t|); the correlation then
-// sums in int32 and the wrapper scales cmax back by max|t| / 127. The
-// window energy sums squares of the integer samples in float32 (exact
-// below 2^24) and the demod takes the x127 integer basis (common.cuh).
+// quantized by the wrapper to round(t * 127 / max|t|): the correlation and
+// the energy sum in int32 (exact: 2,304 x 127^2 passes float32's 2^24) and
+// convert to float32 once, as the reference's int32 sums; the wrapper's
+// cmax scale max|t| / 127 (a device pointer) multiplies cmax here.
+// bfloat16 and float32 buffers take float32 taps (bf16-rounded for bf16)
+// and sum in float32.
 //
-// What bounds it on the H100: one read of each stream's span, preamble
-// window plus data section (~36,600 bf16 samples a stream at the main path:
-// ~0.6 GB, ~0.18 ms at B = 8192); the probe's n_lags x k FMAs a stream are
-// small beside the filterbank's.
+// What bounds it on the H100: bytes, and little of them. Each stream's
+// energy span is read once (2,304 samples at the main path: 4.6 KB in
+// bf16, 38 MB at B = 8192, 0.011 ms); the n_lags x k products a stream
+// (84 M multiply-adds at B = 8192) take about a microsecond of the CUDA
+// cores. The demod launch after it reads the ~34,300-sample data span.
 //
-// Design: one block per stream. The TPU kernel's row selects, the second
-// lag block for residues st % 128 in 124..127 and the one-hot slab shift
-// were artefacts of its 128-lane rows; here threads index the buffer
-// directly, so the servo window never meets a row boundary. The block's
-// threads take strided slices of the template for all n_lags lags and of
-// the energy span, reduce in a fixed tree, and thread 0 picks the servo
-// offset; then the block demodulates at the refined start with the shared
-// demod_symbols (common.cuh).
-#include "common.cuh"
+// Design: one warp per stream, WARPS streams a block. The TPU kernel's row
+// selects, the second lag block for residues 124..127 and the one-hot
+// slab shift were artefacts of its 128-lane rows; here the span is
+// indexed directly. The energy span holds the probe window (st - e0 <
+// 128), so each warp stages it once in its own shared memory with
+// 16-byte cp.async copies aligned down to 16 bytes of the FLAT buffer
+// (any row pitch, any start: the rule of demod_core.cuh's fetch): the
+// source size zero-fills bytes at and past the row's end, chunks wholly
+// outside the row read nothing, bytes before the row's start are zeroed
+// after the copy lands. The block stages the template in shared memory
+// meanwhile, behind the kernel's one barrier. Lane l takes taps l, l + 32,
+// ... for every lag and samples l, l + 32, ... for the energy (consecutive
+// lanes on consecutive samples: no bank conflict), the warp reduces with
+// xor shuffles in a fixed order, and lane 0 writes.
+#include "demod_core.cuh"
 
 namespace {
 
-constexpr int THREADS = anet::DEMOD_THREADS;
-constexpr int MAX_LAGS = 8;
+constexpr int WARPS = 8;  // streams a block
+constexpr int THREADS = 32 * WARPS;
+constexpr int MAX_SMEM = 232448;  // a block's dynamic shared memory on sm_90
 
-template <typename T, int SPS>
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ int32_t widen(int8_t v) { return v; }
+
+__device__ __forceinline__ float mac(float x, float t, float acc) { return fmaf(x, t, acc); }
+__device__ __forceinline__ int32_t mac(int32_t x, int32_t t, int32_t acc) { return acc + x * t; }
+
+// 16-byte chunks of a warp's staged span: 128 pw_e samples from rb bytes
+// into the first chunk, rb < 16.
+template <typename T>
+__host__ __device__ __forceinline__ int span_chunks(int pw_e) {
+  return 8 * pw_e * (int)sizeof(T) + 1;
+}
+
+__host__ __device__ __forceinline__ int tap_bytes(int k) { return (4 * k + 15) / 16 * 16; }
+
+template <typename T, int NL>
 __global__ void __launch_bounds__(THREADS)
-demod_probe_kernel(const T* __restrict__ buf, int64_t len, const int32_t* __restrict__ st0,
-                   const float* __restrict__ tpl, int k, int n_lags, int pw_e, int pre,
-                   int n_symbols, const float* __restrict__ basis, float* __restrict__ cmax_out,
-                   int32_t* __restrict__ off_out, float* __restrict__ energy_out,
-                   int32_t* __restrict__ tone, float* __restrict__ best,
-                   float* __restrict__ total) {
-  __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
-  __shared__ float red[THREADS / 32][MAX_LAGS + 1];
-  __shared__ int ired[THREADS / 32][MAX_LAGS];
-  __shared__ int s_off;
-  const int b = blockIdx.x;
-  const T* row = buf + (int64_t)b * len;
-  const int64_t st = st0[b];
+probe_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
+             const float* __restrict__ taps, int k, int pw_e,
+             const float* __restrict__ cmax_scale, float* __restrict__ cmax_out,
+             int32_t* __restrict__ off_out, float* __restrict__ energy_out,
+             int32_t* __restrict__ start_out) {
+  using Acc = std::conditional_t<std::is_same<T, int8_t>::value, int32_t, float>;  // taps, sums
+  constexpr int E = 16 / (int)sizeof(T);  // samples a chunk
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + warp;
+  const int chunks = span_chunks<T>(pw_e);
+  Acc* tap = reinterpret_cast<Acc*>(smem);
+  unsigned char* span = smem + tap_bytes(k) + warp * 16 * chunks;
 
-  // int8 buffers correlate in int32 against the template's x127 integers:
-  // a sum of k products reaches ~3.3e7, past float32's 2^24, so it stays
-  // exact in int32 and converts to float32 once, as the reference's int32
-  // matmul does (reference lines 2188-2196).
-  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  float acc[MAX_LAGS + 1];  // n_lags correlations, then the window energy
-  int iacc[MAX_LAGS];       // the correlations of an int8 buffer
-#pragma unroll
-  for (int o = 0; o <= MAX_LAGS; ++o) acc[o] = 0.0f;
-#pragma unroll
-  for (int o = 0; o < MAX_LAGS; ++o) iacc[o] = 0;
-  for (int j = threadIdx.x; j < k; j += THREADS) {
-    const float tv = tpl[j];
-#pragma unroll
-    for (int o = 0; o < MAX_LAGS; ++o) {
-      if (o >= n_lags) continue;
-      if constexpr (kInt8) {
-        const int64_t i = st + o + j;
-        const int v = (i >= 0 && i < len) ? (int)row[i] : 0;
-        iacc[o] += v * (int)tv;
-      } else {
-        acc[o] = fmaf(anet::load_or_zero(row, st + o + j, len), tv, acc[o]);
-      }
+  // the warp's span copies first, so they fly while the block stages taps
+  int64_t st = 0, p0 = 0;
+  int rb = 0;
+  if (b < B) {
+    st = st0[b];
+    const int64_t e0 = (st >= 0 ? st : st - 127) / 128 * 128;  // floor, as the plain version's
+    const uintptr_t at = reinterpret_cast<uintptr_t>(buf) +
+                         (uintptr_t)(((int64_t)b * len + e0) * (int64_t)sizeof(T));
+    rb = (int)(at & 15);
+    p0 = e0 - rb / (int)sizeof(T);  // row position of chunk 0's first sample
+    const uintptr_t chunk0 = at - rb;
+    for (int c = lane; c < chunks; c += 32) {
+      const int64_t p = p0 + (int64_t)c * E;
+      const int64_t left = len - p;  // samples of the row from the chunk's first on
+      const int bytes = (p + E > 0 && left > 0) ? (int)(left < E ? left : E) * (int)sizeof(T) : 0;
+      const void* src = bytes ? reinterpret_cast<const void*>(chunk0 + 16 * (uintptr_t)c)
+                              : static_cast<const void*>(buf);
+      anet::demod::cp_async16(span + 16 * c, src, bytes);
     }
   }
-  const int64_t e0 = st / 128 * 128;
-  for (int i = threadIdx.x; i < pw_e * 128; i += THREADS) {
-    const float v = anet::load_or_zero(row, e0 + i, len);
-    acc[MAX_LAGS] = fmaf(v, v, acc[MAX_LAGS]);
-  }
-#pragma unroll
-  for (int o = 0; o <= MAX_LAGS; ++o) {
-#pragma unroll
-    for (int sh = 16; sh > 0; sh >>= 1) acc[o] += __shfl_down_sync(0xffffffffu, acc[o], sh);
-    if (lane == 0) red[warp][o] = acc[o];
-  }
-  if constexpr (kInt8) {
-#pragma unroll
-    for (int o = 0; o < MAX_LAGS; ++o) {
-#pragma unroll
-      for (int sh = 16; sh > 0; sh >>= 1) iacc[o] += __shfl_down_sync(0xffffffffu, iacc[o], sh);
-      if (lane == 0) ired[warp][o] = iacc[o];
-    }
-  }
+  anet::demod::cp_async_commit();
+  for (int j = threadIdx.x; j < k; j += THREADS) tap[j] = (Acc)taps[j];
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float sums[MAX_LAGS + 1];
+  if (b >= B) return;
+  anet::demod::cp_async_wait<0>();
+  if (p0 < 0) {  // zero the span's bytes before the row's start
+    const int64_t before = -p0 * (int64_t)sizeof(T);
+    const int z = before < 16 * chunks ? (int)before : 16 * chunks;
+    __syncwarp();
+    for (int y = lane; y < z; y += 32) span[y] = 0;
+  }
+  __syncwarp();
+
+  const T* s = reinterpret_cast<const T*>(span + rb);  // s[i]: row position e0 + i
+  const int d = (int)(st - (p0 + rb / (int)sizeof(T)));  // st - e0, in [0, 128)
+  Acc corr[NL];
 #pragma unroll
-    for (int o = 0; o <= MAX_LAGS; ++o) {
-      sums[o] = 0.0f;
-      for (int w = 0; w < THREADS / 32; ++w) sums[o] += red[w][o];
-    }
-    if constexpr (kInt8) {
+  for (int o = 0; o < NL; ++o) corr[o] = 0;
+#pragma unroll 4
+  for (int j = lane; j < k; j += 32) {
+    const Acc t = tap[j];
 #pragma unroll
-      for (int o = 0; o < MAX_LAGS; ++o) {
-        int c = 0;
-        for (int w = 0; w < THREADS / 32; ++w) c += ired[w][o];
-        sums[o] = (float)c;  // round to nearest, as the reference's astype
-      }
-    }
+    for (int o = 0; o < NL; ++o) corr[o] = mac(widen(s[d + o + j]), t, corr[o]);
+  }
+  Acc en = 0;
+#pragma unroll 4
+  for (int i = lane; i < 128 * pw_e; i += 32) {
+    const Acc v = widen(s[i]);
+    en = mac(v, v, en);
+  }
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) {
+#pragma unroll
+    for (int o = 0; o < NL; ++o) corr[o] += __shfl_xor_sync(0xffffffffu, corr[o], sh);
+    en += __shfl_xor_sync(0xffffffffu, en, sh);
+  }
+  if (lane == 0) {
     float cm = -1.0f;
     int off = 0;
 #pragma unroll
-    for (int o = 0; o < MAX_LAGS; ++o)
-      if (o < n_lags && fabsf(sums[o]) > cm) {  // strict: the first lag wins ties
-        cm = fabsf(sums[o]);
+    for (int o = 0; o < NL; ++o) {
+      const float c = fabsf((float)corr[o]);  // int32: rounded to nearest once
+      if (c > cm) {  // strict: the first lag wins ties
+        cm = c;
         off = o;
       }
-    cmax_out[b] = cm;
+    }
+    cmax_out[b] = cmax_scale ? __fmul_rn(cm, *cmax_scale) : cm;
     off_out[b] = off;
-    energy_out[b] = sums[MAX_LAGS];
-    s_off = off;
+    energy_out[b] = (float)en;
+    start_out[b] = (int32_t)(st + off);
   }
-  __syncthreads();
-  const int64_t o = (int64_t)b * n_symbols;
-  anet::demod_symbols<T, SPS>(row, len, st + s_off + pre, 0, n_symbols, basis, stage, tone + o,
-                              best + o, total + o);
 }
 
-template <typename T, int SPS>
-cudaError_t launch(const void* buf, int B, long long len, const void* st0, const void* tpl, int k,
-                   int n_lags, int pw_e, int pre, int n_symbols, const void* basis, void* cmax,
-                   void* off, void* energy, void* tone, void* best, void* total,
-                   cudaStream_t st) {
-  demod_probe_kernel<T, SPS><<<B, THREADS, 0, st>>>(
-      static_cast<const T*>(buf), len, static_cast<const int32_t*>(st0),
-      static_cast<const float*>(tpl), k, n_lags, pw_e, pre, n_symbols,
-      static_cast<const float*>(basis), static_cast<float*>(cmax), static_cast<int32_t*>(off),
-      static_cast<float*>(energy), static_cast<int32_t*>(tone), static_cast<float*>(best),
+// float32 buffers: the demod at the refined starts on the CUDA cores, one
+// block a stream over all its symbols (common.cuh's demod_symbols), so each
+// thread loads its sps basis registers once a stream. demod_at.cu's float32
+// body loads them once a 64-symbol tile: behind this probe it made the
+// float32 route 24-32% slower than the one-block-a-stream kernel it
+// replaced (H100 SXM, `time_search --kernels probe`, B = 8,192).
+template <int SPS>
+__global__ void __launch_bounds__(anet::DEMOD_THREADS)
+demod_f32(const float* __restrict__ buf, int64_t len, const int32_t* __restrict__ start, int pre,
+          int n_symbols, const float* __restrict__ basis, int32_t* __restrict__ tone,
+          float* __restrict__ best, float* __restrict__ total) {
+  __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
+  const int b = blockIdx.x;
+  const int64_t o = (int64_t)b * n_symbols;
+  anet::demod_symbols<float, SPS>(buf + (int64_t)b * len, len, (int64_t)start[b] + pre, 0,
+                                  n_symbols, basis, stage, tone + o, best + o, total + o);
+}
+
+template <int SPS>
+cudaError_t launch_f32(const void* buf, int B, long long len, const void* start, int pre,
+                       int n_symbols, const void* basis, void* tone, void* best, void* total,
+                       cudaStream_t st) {
+  demod_f32<SPS><<<B, anet::DEMOD_THREADS, 0, st>>>(
+      static_cast<const float*>(buf), len, static_cast<const int32_t*>(start), pre, n_symbols,
+      static_cast<const float*>(basis), static_cast<int32_t*>(tone), static_cast<float*>(best),
       static_cast<float*>(total));
   return cudaGetLastError();
 }
 
+struct Args {
+  const void* buf;
+  int B;
+  long long len;
+  const void* st0;
+  const void* taps;
+  int k, pw_e;
+  const void* cmax_scale;
+  void *cmax, *off, *energy, *start;
+  cudaStream_t st;
+};
+
+template <typename T, int NL>
+cudaError_t launch(const Args& a) {
+  static int smem_set = 48 * 1024;  // this instantiation's dynamic shared memory limit
+  auto kernel = probe_kernel<T, NL>;
+  const int smem = tap_bytes(a.k) + WARPS * 16 * span_chunks<T>(a.pw_e);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  if (smem > smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  kernel<<<(a.B + WARPS - 1) / WARPS, THREADS, smem, a.st>>>(
+      static_cast<const T*>(a.buf), a.B, a.len, static_cast<const int32_t*>(a.st0),
+      static_cast<const float*>(a.taps), a.k, a.pw_e, static_cast<const float*>(a.cmax_scale),
+      static_cast<float*>(a.cmax), static_cast<int32_t*>(a.off), static_cast<float*>(a.energy),
+      static_cast<int32_t*>(a.start));
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t dispatch_sps(int sps, const void* buf, int B, long long len, const void* st0,
-                         const void* tpl, int k, int n_lags, int pw_e, int pre, int n_symbols,
-                         const void* basis, void* cmax, void* off, void* energy, void* tone,
-                         void* best, void* total, cudaStream_t st) {
-  switch (sps) {
-    case 32:
-      return launch<T, 32>(buf, B, len, st0, tpl, k, n_lags, pw_e, pre, n_symbols, basis, cmax,
-                           off, energy, tone, best, total, st);
-    case 64:
-      return launch<T, 64>(buf, B, len, st0, tpl, k, n_lags, pw_e, pre, n_symbols, basis, cmax,
-                           off, energy, tone, best, total, st);
-    case 128:
-      return launch<T, 128>(buf, B, len, st0, tpl, k, n_lags, pw_e, pre, n_symbols, basis, cmax,
-                            off, energy, tone, best, total, st);
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t dispatch_lags(int n_lags, const Args& a) {
+  switch (n_lags) {
+    case 1: return launch<T, 1>(a);
+    case 2: return launch<T, 2>(a);
+    case 3: return launch<T, 3>(a);
+    case 4: return launch<T, 4>(a);
+    case 5: return launch<T, 5>(a);
+    case 6: return launch<T, 6>(a);
+    case 7: return launch<T, 7>(a);
+    case 8: return launch<T, 8>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// buf: [B, len] contiguous; st0: [B] int32 probe bases; tpl: [k] float32;
-// basis: [sps, 32] float32; cmax, energy: [B] float32; off: [B] int32;
-// tone: [B, n_symbols] int32; best, total: [B, n_symbols] float32.
-// n_lags <= 8; sps must be 32, 64 or 128. Returns cudaGetLastError().
+// buf: [B, len] contiguous, any alignment; st0: [B] int32 probe bases;
+// taps: [k] float32 (the x127 integers for an int8 buffer); cmax_scale:
+// a float32 scalar on the card that multiplies cmax, or null; cmax,
+// energy: [B] float32; off, start: [B] int32. n_lags in 1..8 and 128 pw_e
+// >= k + n_lags + 126 (the window inside the span at every residue).
+// Returns cudaGetLastError().
 extern "C" int anet_demod_probe(const void* buf, int dtype, int B, long long len,
-                                const void* st0, const void* tpl, int k, int n_lags, int pw_e,
-                                int pre, int sps, int n_symbols, const void* basis, void* cmax,
-                                void* off, void* energy, void* tone, void* best, void* total,
-                                void* stream) {
+                                const void* st0, const void* taps, int k, int n_lags, int pw_e,
+                                const void* cmax_scale, void* cmax, void* off, void* energy,
+                                void* start, void* stream) {
+  if (k < 1 || n_lags < 1 || n_lags > 8 || 128LL * pw_e < (long long)k + n_lags + 126)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  const Args a{buf, B, len, st0, taps, k, pw_e, cmax_scale, cmax, off, energy, start,
+               reinterpret_cast<cudaStream_t>(stream)};
+  if (dtype == anet::DTYPE_BF16) return (int)dispatch_lags<__nv_bfloat16>(n_lags, a);
+  if (dtype == anet::DTYPE_I8) return (int)dispatch_lags<int8_t>(n_lags, a);
+  return (int)dispatch_lags<float>(n_lags, a);
+}
+
+// The second launch for a float32 buffer, with anet_demod_at's signature
+// (demod_at.cu) and its meaning: start: [B] int32 preamble starts (the
+// probe's refined ones); basis: [sps, 32] float32 (cos of the tones in
+// columns 0.., sin in 16..); tone: [B, n_symbols] int32; best, total:
+// [B, n_symbols] float32; m <= 16, sps 32, 64 or 128; dtype must be
+// float32. Returns cudaGetLastError().
+extern "C" int anet_demod_probe_f32(const void* buf, int dtype, int B, long long len,
+                                    const void* start, int pre, int sps, int n_symbols, int m,
+                                    const void* basis, void* tone, void* best, void* total,
+                                    void* stream) {
+  if (dtype != anet::DTYPE_F32 || m < 1 || m > 16) return (int)cudaErrorInvalidValue;
+  if (B == 0 || n_symbols == 0) return (int)cudaSuccess;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == anet::DTYPE_BF16)
-    return (int)dispatch_sps<__nv_bfloat16>(sps, buf, B, len, st0, tpl, k, n_lags, pw_e, pre,
-                                            n_symbols, basis, cmax, off, energy, tone, best,
-                                            total, st);
-  if (dtype == anet::DTYPE_I8)
-    return (int)dispatch_sps<int8_t>(sps, buf, B, len, st0, tpl, k, n_lags, pw_e, pre,
-                                     n_symbols, basis, cmax, off, energy, tone, best,
-                                     total, st);
-  return (int)dispatch_sps<float>(sps, buf, B, len, st0, tpl, k, n_lags, pw_e, pre, n_symbols,
-                                  basis, cmax, off, energy, tone, best, total, st);
+  switch (sps) {
+    case 32:
+      return (int)launch_f32<32>(buf, B, len, start, pre, n_symbols, basis, tone, best, total, st);
+    case 64:
+      return (int)launch_f32<64>(buf, B, len, start, pre, n_symbols, basis, tone, best, total, st);
+    case 128:
+      return (int)launch_f32<128>(buf, B, len, start, pre, n_symbols, basis, tone, best, total, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

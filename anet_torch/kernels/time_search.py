@@ -29,6 +29,12 @@ comma-separated subset of:
   2,160 symbols of 32 samples, 4 tones, buffer 143,872), each on
   bfloat16, int8 (``quantize_int8``) and float32 buffers of noise, starts
   random in the chunk. These ignore ``--model``.
+- ``probe``: ``demod_probe_fused`` at the uncoded locked stream's geometry
+  (mfsk16-fast, payload 256: buffer 76,288, the 2,048-sample preamble, 5
+  lags, 536 symbols of 64 samples) on bfloat16 and int8 buffers with the
+  bfloat16 template the locked step passes, and on float32 buffers with
+  the float32 template, probe bases random in the chunk. It ignores
+  ``--model``.
 
 Segments are strided views from sample 1, as the stream passes them. The
 inputs come from one seed, so every checkout times the same data. Needs a
@@ -47,6 +53,7 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "correlate": ("correlate",),
     "viterbi": ("viterbi",),
     "demod": ("demod_at", "demod_at_energies"),
+    "probe": ("demod_probe", "demod_at"),
 }
 DEMOD_MODELS = {"demod_at_fused": "mfsk16-fast", "demod_at_energies_fused": "mfsk4-coded"}
 VIT_STEPS = 2150  # mfsk4-coded: 8 x 268 data-section bits + the 6-bit tail flush
@@ -128,6 +135,24 @@ if "demod" in kinds:
             del buf
             torch.cuda.empty_cache()
         del x
+        torch.cuda.empty_cache()
+if "probe" in kinds:
+    from anet_torch.dsp.frame import data_symbols_for_payload
+    from anet_torch.stream import _buffer_len, quantize_int8
+
+    c = get_model("mfsk16-fast").config
+    chunk = family.frame_samples(c, 256)
+    n_sym = data_symbols_for_payload(c, 256)
+    t32 = family.preamble_template(c, "cuda").float()
+    x = torch.randn(b, _buffer_len(c, chunk, 256), generator=gen, device="cuda")
+    st0 = torch.randint(3, chunk - 4, (b,), generator=gen, device="cuda").int()
+    for label, make, t in (("bfloat16", lambda: x.to(torch.bfloat16), t32.to(torch.bfloat16)),
+                           ("int8", lambda: quantize_int8(x), t32.to(torch.bfloat16)),
+                           ("float32", lambda: x, t32)):
+        buf = make()
+        out[f"demod_probe_fused {{label}}"] = time_ms(
+            lambda: kernels.demod_probe_fused(c, buf, st0, n_sym, t, n_lags=5))
+        del buf
         torch.cuda.empty_cache()
 print(json.dumps(out))
 """

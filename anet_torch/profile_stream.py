@@ -24,7 +24,8 @@
 MFSK presets only (a coded one's aligned run stays bf16: int8 aligned
 compute is uncoded only). Each run happens once to warm up,
 then once under torch.profiler, and prints the device time of each kernel
-(the top 12), the sum of device time, the wall time of the run and the
+(the top 12, then every hand-written kernel of ``kernels/csrc`` below
+them), the sum of device time, the wall time of the run and the
 device's busy share (device time over wall time; kernels do not overlap on
 one stream), then the same device time by the operator that launched it
 (the top 10 ATen operators; the hand-written kernels launch outside any).
@@ -97,7 +98,9 @@ def report(label: str, fn) -> None:
     device_us = sum(e.self_device_time_total for e in rows)
     print(f"{label}: wall {wall * 1e3:.3f} ms, device {device_us / 1e3:.3f} ms, "
           f"busy share {device_us / 1e6 / wall:.3f}")
-    for e in rows[:12]:
+    # the top 12, then the port's own kernels (csrc/, anonymous namespace) below them
+    own = [e for e in rows[12:] if e.key.removeprefix("void ").startswith("(anonymous namespace)::")]
+    for e in rows[:12] + own:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     # host-side rows: self device time = the kernels an operator launched itself
     ops = [

@@ -31,8 +31,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    its bound: its float32 route (seg and template split into bf16 hi + lo)
    at the main shape, and bf16 at the coded (mfsk4-coded: k 1,024, chunk
    70,144) and OFDM stream (ofdm-fast: chunk 4,736) geometries, B = 8,192;
-   and demod_at_fused (tensor cores for bfloat16 and int8 buffers) on its
-   float32 route (the CUDA-core body) at the main shape;
+   and demod_at_fused (tensor cores for bfloat16 and int8 buffers) and
+   demod_probe_fused (a warp-per-stream probe, then demod_at_fused's
+   kernel) on their float32 routes (a CUDA-core demod) at the main shape;
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -459,7 +460,16 @@ def phase_kernels(cfg, gen) -> dict:
     log_search_time("float32 route", seg32, preamble_waveform(cfg, device=DEV), chunk)
     del seg32
     # the align+demod kernel's float32 route (the CUDA-core body) at the same shape
-    log_demod_time("float32 route", cfg, buf_full.float(), st_full, n_sym)
+    buf32 = buf_full.float()
+    log_demod_time("float32 route", cfg, buf32, st_full, n_sym)
+    # the merged probe + demod's float32 route (float32 taps, then
+    # demod_probe.cu's CUDA-core demod), its products at the float32 peak
+    ms = time_ms(lambda: kernels.demod_probe_fused(cfg, buf32, st0_full, n_sym, tpl.float(), n_lags=N_LAGS))
+    bound, by = bound_ms(probe_samples * 4 + b_s * (16 + n_sym * out_sym), probe_ops, F32_FLOPS_S)
+    log(f"  demod_probe_fused (float32 route: B {b_s}, buffer {length}, k {k}, {N_LAGS} lags, {n_sym} "
+        f"symbols): kernel {ms:.3f} ms, bound {bound:.3f} ms ({by})")
+    del buf32
+    torch.cuda.empty_cache()
     return results
 
 

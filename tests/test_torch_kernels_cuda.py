@@ -768,3 +768,77 @@ def test_cuda_demod_at_kernels_at_every_residue(cuda, dtype, geometry, n_sym, ra
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
         torch.testing.assert_close(energies, want_e, rtol=1e-3, atol=1e-3)
     assert not bool(want_e[-2].any())  # the span wholly past the end reads zeros
+
+
+# --- the merged probe + demod: a warp-per-stream probe, then demod_at's kernel --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("n_lags", [1, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_demod_probe_at_every_residue(cuda, dtype, n_lags, ragged):
+    """demod_probe_fused against its plain version at probe bases of every
+    residue mod 16 and at 124..127 mod 128, a probe window and a demod span
+    past the row's end, a demod span alone past it, a window before the
+    row's start, rows that start 3 samples past a 16-byte boundary and,
+    ``ragged``, a row length that leaves the other rows off one too; one
+    stream loud enough that its int8 window energy passes 2**24. Offsets
+    and tones equal; int8 (exact int32 sums): cmax and best bit-equal, the
+    energy the exact sum rounded once (bit-equal to the plain version's
+    wherever that float32 sum is exact, below 2**24), total within rtol
+    1e-5; float32 and bfloat16: cmax, energy, best and total within rtol
+    1e-3 (float32 sums in another order). One launch counted under the
+    kernel's key and none under demod_at_fused's; B = 0 launches nothing."""
+    from anet_torch.dsp.sync import gather_span
+
+    rng = np.random.default_rng(3 * n_lags + ragged)
+    n_sym = data_symbols_for_payload(CFG, PAY)
+    sps, pre = CFG.samples_per_symbol, CFG.preamble_samples
+    tpl = preamble_waveform(CFG, device=cuda).to(torch.bfloat16)
+    k = tpl.shape[-1]
+    length = tstream._buffer_len(CFG, CHUNK, PAY) + (5 if ragged else 0)
+    lag = n_lags // 2  # the planted frame's lag in the servo window
+    st0 = [200 + r for r in range(16)] + [128 * 7 + r for r in range(124, 128)]
+    st0 += [length - k // 2, length - pre - (n_sym * sps) // 2, -3, 1000]
+    starts = np.array(st0) + lag
+    pay = rng.integers(0, 256, (len(st0), PAY), dtype=np.uint8)
+    w = transmit(CFG, pay, device="cpu").numpy()
+    x = 0.1 * rng.standard_normal((len(st0), length)).astype(np.float32)
+    for i, s in enumerate(starts):
+        lo, hi = max(s, 0), min(s + w.shape[1], length)
+        x[i, lo:hi] += w[i, lo - s : hi - s]
+    x[-1] *= 40.0  # int8: saturated samples, a window energy past 2**24
+    x = torch.from_numpy(x)
+    x = _quantized(x) if dtype == torch.int8 else x.to(dtype)
+    flat = torch.zeros(x.numel() + 3, dtype=dtype, device=cuda)
+    flat[3:] = x.reshape(-1).to(cuda)
+    buf = flat[3:].view(x.shape)
+    st = torch.tensor(st0, dtype=torch.int32, device=cuda)
+
+    key = "demod_probe_fused" + (":int8" if dtype == torch.int8 else "")
+    before = dict(tk.launch_counts)
+    got = tk.demod_probe_fused(CFG, buf, st, n_sym, tpl, n_lags=n_lags)
+    torch.cuda.synchronize()
+    launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
+    assert launched == {key: 1}
+    want = tk.demod_probe_fused_ref(CFG, buf, st, n_sym, tpl, n_lags=n_lags)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    assert bool((got[1][:20] == lag).all())  # the planted frames, wholly inside the row
+    if dtype == torch.int8:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[4], want[4])
+        torch.testing.assert_close(got[5], want[5], rtol=1e-5, atol=0)
+        span = gather_span(buf, st.long() // 128 * 128, tk._probe_span_rows(k, n_lags) * 128)
+        exact = (span.double() ** 2).sum(-1)
+        assert float(exact[-1]) > 2**24
+        assert torch.equal(got[2], exact.float())
+        below = exact < 2**24
+        assert torch.equal(got[2][below], want[2][below])
+    else:
+        for j in (0, 2, 4, 5):
+            torch.testing.assert_close(got[j], want[j], rtol=1e-3, atol=1e-3)
+
+    before = dict(tk.launch_counts)
+    empty = tk.demod_probe_fused(CFG, buf[:0], st[:0], n_sym, tpl, n_lags=n_lags)
+    assert [tuple(t.shape) for t in empty] == [(0,), (0,), (0,), (0, n_sym), (0, n_sym), (0, n_sym)]
+    assert tk.launch_counts == before

@@ -127,6 +127,70 @@ def test_demod_probe_ref_matches_pallas_at_row_residues():
         np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("n_lags", [1, 8])
+def test_demod_probe_ref_matches_pallas_n_lags(n_lags, dtype):
+    """The plain version against the Pallas kernel (interpret mode) at the
+    servo window's smallest and largest widths, on the buffers the locked
+    step hands it (bf16, or the int8 carry, with a bf16 template), probe
+    bases at residues 0, 5 and 124..127 mod 128 and one probe window
+    running past the buffer's end: offsets and tones exact; bf16: cmax,
+    energy, best and total rtol 1e-5 (float32 sums in another order); int8:
+    the energy exact, cmax rtol 1e-6 (one float32 rounding of an exact
+    integer sum, times the same scale), best and total rtol 1e-5."""
+    rng = np.random.default_rng(50 + n_lags)
+    n_sym = data_symbols_for_payload(CFG, PAY)
+    length = tstream._buffer_len(CFG, CHUNK, PAY)
+    lag = n_lags // 2  # the planted frame's lag in the window
+    st0 = np.array([128, 133, 252, 253, 254, 255, 3000, length - 1000], np.int32)
+    buf = _buffer(rng, st0 + lag, length, noise=0.05)
+    tpl = np.array(j_preamble(JCFG), np.float32)
+    if dtype == "int8":
+        tbuf = tstream.quantize_int8(torch.from_numpy(buf))
+        jbuf = jnp.asarray(tbuf.numpy())
+    else:
+        tbuf = torch.from_numpy(buf).to(torch.bfloat16)
+        jbuf = jnp.asarray(buf).astype(jnp.bfloat16)
+    got = tk.demod_probe_fused_ref(
+        CFG, tbuf, torch.from_numpy(st0), n_sym, torch.from_numpy(tpl).to(torch.bfloat16), n_lags=n_lags
+    )
+    want = jk.demod_probe_fused(
+        JCFG, jbuf, jnp.asarray(st0), n_sym, jnp.asarray(tpl).astype(jnp.bfloat16), n_lags=n_lags,
+        start_bound=int(st0.max()) + n_lags, interpret=True,
+    )
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[1].numpy()[:-1], lag)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    if dtype == "int8":
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-6)
+    else:
+        for i in (0, 2):
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), rtol=1e-5)
+    for i in (4, 5):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), rtol=1e-5)
+
+
+def test_probe_operands_hand_the_int8_scale_to_the_kernel():
+    """The probe kernel's template operands: for an int8 buffer the taps
+    and cmax scale cached per template tensor (the same tensors every
+    chunk), the scale a float32 scalar whose address the kernel reads,
+    equal to the factor the plain version scales cmax by; for bf16 and
+    float32 buffers the template rounded to the buffer's dtype and no
+    scale."""
+    tpl = torch.from_numpy(np.array(j_preamble(JCFG), np.float32)).to(torch.bfloat16)
+    taps, scale = tk._probe_operands(tpl, torch.int8, torch.device("cpu"))
+    again = tk._probe_operands(tpl, torch.int8, torch.device("cpu"))
+    assert again[0] is taps and again[1] is scale
+    want_taps, want_scale = tk._probe_template(tpl, torch.int8)
+    assert taps.dtype == torch.float32 and taps.is_contiguous() and torch.equal(taps, want_taps)
+    assert scale.dtype == torch.float32 and scale.numel() == 1 and float(scale) == float(want_scale)
+    for dtype in (torch.bfloat16, torch.float32):
+        taps, scale = tk._probe_operands(tpl, dtype, torch.device("cpu"))
+        assert scale is None and taps.dtype == torch.float32 and taps.is_contiguous()
+        assert torch.equal(taps, tpl.to(dtype).float())
+
+
 CODED, JCODED = get_model("mfsk4-coded").config, jget_model("mfsk4-coded").config
 _DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
