@@ -259,11 +259,13 @@ def preamble_quality_probe(
     st0 = (start.to(torch.int64) - n_lags // 2).clamp(0, length - k - n_lags + 1)
     t_c = template.to(compute_dtype) if compute_dtype else template
     te = torch.as_tensor(template_energy, dtype=torch.float32, device=buffer.device)
-    buf_c = buffer.to(compute_dtype) if compute_dtype else buffer
     span_rows = -(-(k + n_lags - 1) // _LANE) + 1
-    span = gather_span(buf_c, st0 // _LANE * _LANE, span_rows * _LANE).float()
+    span = gather_span(buffer, st0 // _LANE * _LANE, span_rows * _LANE)
+    wins = gather_span(buffer, st0, k + n_lags - 1)
+    if compute_dtype:  # cast after the gathers: elementwise, so the same values
+        span, wins = span.to(compute_dtype), wins.to(compute_dtype)
+    span, wins = span.float(), wins.float()
     energy = (span * span).sum(-1)
-    wins = gather_span(buf_c, st0, k + n_lags - 1).float()
     corr = wins.unfold(-1, k, 1) @ t_c.float()  # [..., n_lags]
     q = corr.abs() * torch.rsqrt(te * torch.maximum(energy, 1e-4 * te))[..., None]
     return q, st0.to(torch.int32)

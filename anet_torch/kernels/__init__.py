@@ -42,8 +42,12 @@ float32 accumulators, or an int8 one with exact int32 I/Q, fed by a
 pipelined span read, the basis packed once a config and dtype in fragment
 order (``_demod_mma_basis``); their float32 buffers keep the CUDA-core
 body. demod_probe_fused is a warp-per-stream probe followed by
-demod_at_fused's kernel (float32: a CUDA-core block a stream). The other
-kernels sum in float32 on the CUDA cores.
+demod_at_fused's kernel (float32: a CUDA-core block a stream).
+decide_frame_tm runs the same tensor-core filterbank with streams on the
+product's M axis, its A operand staged from time-major rows with
+``ldmatrix.trans``, and counts CRC bits with popcounts of the packed words
+(float32 frames keep the CUDA-core body). The other kernels sum in float32
+on the CUDA cores.
 
 The plain versions widen every operand to float32 before a product, as the
 reference kernels accumulate in float32. On the card, a float32 product
@@ -170,7 +174,7 @@ def _check_cuda_input(name: str, t: torch.Tensor, what: str, int8: bool = False)
     if t.dtype not in _KERNEL_DTYPES or (t.dtype == torch.int8 and not int8):
         kinds = "float32, bfloat16 or int8" if int8 else "float32 or bfloat16"
         raise TypeError(f"{name}: {what} must be {kinds}, got {t.dtype}")
-    if t.stride(-1) != 1:
+    if t.stride(-1) != 1 and t.shape[-1] > 1:  # a size-1 dimension's stride is arbitrary
         raise ValueError(f"{name}: {what} must be contiguous in its last dimension")
     return _KERNEL_DTYPES[t.dtype]
 
@@ -309,8 +313,10 @@ def _frame_crc_tables(payload_len: int, n_tiles: int, nb: int):
     """(P [n_tiles * nb, 64] f32, hdr_const, pay_const), rows in the
     reference kernel's bit-major tile order: within tile i, row k * sb + s
     is message bit (i*sb + s) * bps + k. Identical to
-    anet.kernels._frame_crc_tables; the kernel here uses the bit-order
-    table (_frame_crc_rows), which gives the same counts."""
+    anet.kernels._frame_crc_tables; the kernels here use the bit-order
+    table (_frame_crc_rows: the float32 body) and its packed-word masks
+    (_frame_crc_mask_table: the tensor-core body), which give the same
+    counts."""
     p, c_hdr, c_pay = _frame_crc_rows(payload_len, n_tiles * nb)
     sb = TM_SYMBOL_TILE
     bps = nb // sb
@@ -323,6 +329,25 @@ def _frame_crc_tables(payload_len: int, n_tiles: int, nb: int):
 @functools.lru_cache(maxsize=16)
 def _crc_rows_tensor(payload_len: int, n_rows: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_frame_crc_rows(payload_len, n_rows)[0], device=device)
+
+
+def _frame_crc_mask_table(payload_len: int, n_tiles: int, bps: int) -> np.ndarray:
+    """uint32 [n_tiles, 64]: the CRC table of _frame_crc_rows by packed word.
+    Bit nb - 1 - pos of mask[tile, c] (nb = 8 bps) is P[tile * nb + pos, c],
+    the word's bit order (message bit tile * nb + pos sits at bit nb - 1 -
+    pos of decide_frame_tm's word), so popc(word & mask[tile, c]) summed
+    over tiles is column c's bit count."""
+    nb = TM_SYMBOL_TILE * bps
+    p = _frame_crc_rows(payload_len, n_tiles * nb)[0].reshape(n_tiles, nb, 64).astype(np.uint64)
+    place = np.uint64(1) << (nb - 1 - np.arange(nb, dtype=np.uint64))
+    return (p * place[None, :, None]).sum(1).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=16)
+def _frame_crc_masks(payload_len: int, n_tiles: int, bps: int, device: torch.device) -> torch.Tensor:
+    """_frame_crc_mask_table as int32 on ``device``, made once a geometry."""
+    table = _frame_crc_mask_table(payload_len, n_tiles, bps)
+    return torch.as_tensor(table.view(np.int32), device=device)
 
 
 def _frame_geometry(config: ModemConfig, t: int, payload_len: int, preamble_offset: int):
@@ -398,18 +423,28 @@ def decide_frame_tm(
     t, b = data_tm.shape
     s, n_tiles, nb = _frame_geometry(config, t, payload_len, preamble_offset)
     dev = data_tm.device
+    sps, bps = config.samples_per_symbol, config.bits_per_symbol
     words = torch.empty(n_tiles, b, dtype=torch.int32, device=dev)
-    crc = torch.zeros(64, b, dtype=torch.float32, device=dev)
+    crc = torch.zeros(64, b, dtype=torch.float32, device=dev)  # both bodies add into them
     qual = torch.zeros(8, b, dtype=torch.float32, device=dev)
-    basis = _kernel_basis(config, data_tm.dtype, dev)
-    ptab = _crc_rows_tensor(payload_len, n_tiles * nb, dev)
-    hdr_bits, pay_lo = 6 * 8, 8 * 8
-    err = _entry(name)(
-        data_tm.data_ptr(), dtype, b, preamble_offset, config.samples_per_symbol, s, n_tiles,
-        config.bits_per_symbol, basis.data_ptr(), ptab.data_ptr(), hdr_bits, pay_lo,
-        pay_lo + 8 * payload_len, words.data_ptr(), crc.data_ptr(), qual.data_ptr(),
-        _stream_handle(dev),
-    )
+    if b == 0:
+        return words, crc, qual, s
+    if data_tm.dtype == torch.float32:  # the CUDA-core body
+        basis = _kernel_basis(config, data_tm.dtype, dev)
+        ptab = _crc_rows_tensor(payload_len, n_tiles * nb, dev)
+        hdr_bits, pay_lo = 6 * 8, 8 * 8
+        err = _entry("decide_frame_tm_f32")(
+            data_tm.data_ptr(), b, preamble_offset, sps, s, n_tiles, bps, basis.data_ptr(),
+            ptab.data_ptr(), hdr_bits, pay_lo, pay_lo + 8 * payload_len, words.data_ptr(),
+            crc.data_ptr(), qual.data_ptr(), _stream_handle(dev),
+        )
+    else:  # the tensor-core filterbank
+        basis = _demod_mma_basis(config, data_tm.dtype, dev)
+        masks = _frame_crc_masks(payload_len, n_tiles, bps, dev)
+        err = _entry(name)(
+            data_tm.data_ptr(), dtype, b, preamble_offset, sps, config.num_tones, s, n_tiles, bps,
+            basis.data_ptr(), masks.data_ptr(), words.data_ptr(), crc.data_ptr(), qual.data_ptr(), _stream_handle(dev),
+        )
     _check_launch(err, name, data_tm.dtype)
     return words, crc, qual, s
 

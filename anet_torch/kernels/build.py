@@ -39,7 +39,11 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "decide_frame_tm": (
         "anet_decide_frame_tm",
-        [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    ),
+    "decide_frame_tm_f32": (
+        "anet_decide_frame_tm_f32",
+        [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P], "decide_frame_tm",
     ),
     "sync_search": (
         "anet_sync_search",

@@ -35,6 +35,16 @@ comma-separated subset of:
   bfloat16 template the locked step passes, and on float32 buffers with
   the float32 template, probe bases random in the chunk. It ignores
   ``--model``.
+- ``frame``: ``decide_frame_tm`` at the aligned receiver's geometry
+  (mfsk16-fast, payload 256: whole time-major frames of 36,352 rows, the
+  data section from row 2,048, 536 symbols of 64 samples, 16 tones) on
+  B = 16,384 streams of bfloat16, int8 and float32 noise (int8: round(x *
+  127 / max|x|)), and bfloat16 and int8 at B = 16,383 (``... ragged``:
+  rows off 16 bytes, read element by element). Beside each time, which
+  holds the wrapper's host work where that outlasts the kernel, it gives
+  the kernel's own device time (``... device``: ``torch.profiler``, the
+  mean of 5 calls over the kernel rows; null when the trace holds no
+  kernel row). It ignores ``--model``.
 
 Segments are strided views from sample 1, as the stream passes them. The
 inputs come from one seed, so every checkout times the same data. Needs a
@@ -54,7 +64,9 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "viterbi": ("viterbi",),
     "demod": ("demod_at", "demod_at_energies"),
     "probe": ("demod_probe", "demod_at"),
+    "frame": ("decide_frame_tm",),
 }
+FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
 DEMOD_MODELS = {"demod_at_fused": "mfsk16-fast", "demod_at_energies_fused": "mfsk4-coded"}
 VIT_STEPS = 2150  # mfsk4-coded: 8 x 268 data-section bits + the 6-bit tail flush
 
@@ -91,6 +103,24 @@ def time_ms(fn, reps=5):
         z.synchronize()
         times.append(a.elapsed_time(z))
     return float(np.median(times))
+
+
+def device_ms(fn, key, reps=5):
+    # the device time a call of the kernels whose name holds ``key``; None
+    # when the trace holds no such kernel (never a time nobody measured)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
+    if not rows:
+        return None
+    return sum(e.self_device_time_total for e in rows) / reps / 1e3
 
 
 def pairs(chunk):
@@ -154,6 +184,22 @@ if "probe" in kinds:
             lambda: kernels.demod_probe_fused(c, buf, st0, n_sym, t, n_lags=5))
         del buf
         torch.cuda.empty_cache()
+if "frame" in kinds:
+    c = get_model("mfsk16-fast").config
+    t_frame = family.frame_samples(c, 256)
+    x = torch.randn(t_frame, {frame_b}, generator=gen, device="cuda")
+    x8 = lambda v: torch.round(v * (127.0 / x.abs().max())).to(torch.int8)
+    for label, make in (("bfloat16", lambda: x.to(torch.bfloat16)), ("int8", lambda: x8(x)),
+                        ("float32", lambda: x),
+                        ("bfloat16 ragged", lambda: x[:, 1:].to(torch.bfloat16).contiguous()),
+                        ("int8 ragged", lambda: x8(x[:, 1:]).contiguous())):
+        xs = make()
+        call = lambda: kernels.decide_frame_tm(c, xs, 256, preamble_offset=c.preamble_samples)
+        out[f"decide_frame_tm {{label}}"] = time_ms(call)
+        out[f"decide_frame_tm {{label}} device"] = device_ms(call, "frame_tm")
+        del xs
+        torch.cuda.empty_cache()
+    del x
 print(json.dumps(out))
 """
 
@@ -162,7 +208,7 @@ def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) 
     """The timings of the checkout at ``root``, from a process of its own."""
     sources = tuple(s for kind in kinds for s in KERNELS[kind])
     child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS,
-                          demod_models=DEMOD_MODELS)
+                          demod_models=DEMOD_MODELS, frame_b=FRAME_B)
     run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")

@@ -27,10 +27,11 @@ kernel (demod_at_fused); the JAX package's ``lax.cond`` around the search
 is a Python ``if`` on one host read per chunk here.
 
 Coded configs (``fec='conv'``) need every tone's energy for the soft
-decisions, so their step is unmerged: the probe kernel (probe_at_fused)
-and, on acquisition, the search kernel; then the energies kernel
-(demod_at_energies_fused) at the chosen start, the max-log LLRs, the
-deinterleaver and the Viterbi kernel (viterbi_trellis).
+decisions, so their step is unmerged: the probe kernel (probe_at_fused,
+for a bfloat16 buffer as in the reference; float32 and int8 buffers take
+the plain row-aligned probe) and, on acquisition, the search kernel; then
+the energies kernel (demod_at_energies_fused) at the chosen start, the
+max-log LLRs, the deinterleaver and the Viterbi kernel (viterbi_trellis).
 
 Variable-length frames (``stream_step_dynamic`` /
 ``receive_stream_dynamic``) read each frame's length from its header: the
@@ -57,7 +58,8 @@ quantized once at the append edge with the fixed scale INT8_STREAM_SCALE
 passes through. The MFSK fixed-length steps hand the int8 buffer itself to
 the align+demod kernels (demod_probe_fused, demod_at_fused,
 demod_at_energies_fused take int8) and cast only the search's segment and
-the coded step's probe span to ``compute_dtype``, exact for int8 values.
+the coded step's probe spans (sync.preamble_quality_probe) to
+``compute_dtype``, exact for int8 values.
 Every quality and decision is a ratio in buffer units, so the scale cancels.
 
 Not ported yet (they raise NotImplementedError): ``track=True`` for MFSK
@@ -413,16 +415,25 @@ def _probe_base(probe_at: torch.Tensor, buffer_len: int, k: int) -> torch.Tensor
 
 def _probe_kernel_supported(carry: StreamCarry) -> bool:
     """The probe kernel (probe_at_fused) serves the unmerged lock step when
-    the buffer is on the card."""
+    the buffer is on the card (and bfloat16: _probe_kernel_dtype)."""
     return carry.buffer.is_cuda
+
+
+def _probe_kernel_dtype(buffer: torch.Tensor) -> bool:
+    """The reference takes its probe kernel for bfloat16 buffers only: its
+    energy span is st0-aligned. float32 and int8 buffers take
+    sync.preamble_quality_probe, whose span is row-aligned, so their
+    quality (and the lock gate on it) is the reference's."""
+    return buffer.dtype == torch.bfloat16
 
 
 def _find_candidate_locked(carry, chunk, t_frame, t_c, detect_threshold, compute_dtype):
     """Unmerged frame-lock front half with the template in ``compute_dtype``
-    (``t_c``): probe the predicted next start (on the card the probe kernel
-    probe_at_fused, off it sync.preamble_quality_probe) and search every lag
-    only when some stream needs acquiring. Returns (buffer, samples_seen,
-    start_idx, start_abs, quality, candidate, mid_flight)."""
+    (``t_c``): probe the predicted next start (on the card and for a
+    bfloat16 buffer the probe kernel probe_at_fused, else
+    sync.preamble_quality_probe, as the reference routes them) and search
+    every lag only when some stream needs acquiring. Returns (buffer,
+    samples_seen, start_idx, start_abs, quality, candidate, mid_flight)."""
     from anet_torch.dsp.sync import preamble_quality_probe
     from anet_torch.kernels import probe_at_fused, sync_search_fused
 
@@ -433,9 +444,9 @@ def _find_candidate_locked(carry, chunk, t_frame, t_c, detect_threshold, compute
     t_energy = _template_energy(t_c)
     pred_idx, in_win, mid_flight = _lock_prediction(carry, buffer_abs0, w0, chunk_size)
     probe_at = pred_idx.clamp(0, length - t_frame)
-    if _probe_kernel_supported(carry):
+    if _probe_kernel_supported(carry) and _probe_kernel_dtype(buffer):
         st0 = _probe_base(probe_at, buffer.shape[-1], k)
-        q5 = probe_at_fused(buffer.to(compute_dtype), st0, t_c, t_energy, n_lags=PROBE_LAGS)
+        q5 = probe_at_fused(buffer, st0, t_c, t_energy, n_lags=PROBE_LAGS)
     else:
         q5, st0 = preamble_quality_probe(
             buffer, probe_at, t_c, t_energy, n_lags=PROBE_LAGS, compute_dtype=compute_dtype

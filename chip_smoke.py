@@ -31,9 +31,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    its bound: its float32 route (seg and template split into bf16 hi + lo)
    at the main shape, and bf16 at the coded (mfsk4-coded: k 1,024, chunk
    70,144) and OFDM stream (ofdm-fast: chunk 4,736) geometries, B = 8,192;
-   and demod_at_fused (tensor cores for bfloat16 and int8 buffers) and
+   and demod_at_fused (tensor cores for bfloat16 and int8 buffers),
    demod_probe_fused (a warp-per-stream probe, then demod_at_fused's
-   kernel) on their float32 routes (a CUDA-core demod) at the main shape;
+   kernel) and decide_frame_tm (tensor cores for bfloat16 and int8 frames)
+   on their float32 routes (CUDA-core bodies) at the main shape;
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -75,7 +76,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    quantize_int8 into an int8 carry, cold and warm: demod_probe_fused and,
    cold, demod_at_fused in int8, the search on a bf16 copy of the segment),
    "stream-coded-int8" (the mfsk4-coded stream on an int8 carry, warm:
-   probe_at_fused on a bf16 copy, demod_at_energies_fused in int8,
+   the plain row-aligned probe on the int8 buffer, as the reference
+   probes every buffer but a bf16 one, demod_at_energies_fused in int8,
    viterbi_trellis), "aligned-bm" (demodulate_frame on 16,384
    batch-major bf16 frames: tone_energies_fused), "aligned-bm-decide"
    (the same batch through decide_tones_fused and
@@ -84,7 +86,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    sync_search_blockmax held against sync_search_fused);
 9. the launch count of every kernel during phases 3-8, read per path (each
    path's counts start at 0 just before it; int8 launches count under
-   "<name>:int8"): every kernel of a path must have launched there.
+   "<name>:int8"): every kernel of a path must have launched there, and
+   none that the reference's routing keeps off it (ABSENT).
 The line before the last is a JSON object with each kernel's numbers (the
 four kernels with an int8 instantiation carry its numbers under "int8"), and
 the last line the JSON verdict with the device's name.
@@ -299,9 +302,22 @@ def quantize_x127(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x.T * (127.0 / x.abs().max())).to(torch.int8).contiguous()
 
 
+def check_frame(label: str, cfg, x_tm: torch.Tensor, pre: int) -> float:
+    """decide_frame_tm on time-major frames against its plain version:
+    words and CRC counts (and so their parities) bit-equal, quality sums
+    within RTOL. Returns the max absolute error of the quality sums."""
+    got = kernels.decide_frame_tm(cfg, x_tm, PAYLOAD, preamble_offset=pre)
+    want = kernels.decide_frame_tm_ref(cfg, x_tm, PAYLOAD, preamble_offset=pre)
+    parity = ((got[1].long() & 1) != (want[1].long() & 1)).sum()
+    if int(parity):
+        raise AssertionError(f"{label}: crc parity differs in {int(parity)} places")
+    return compare(label, got, want, exact=(0, 1), close=(2,))
+
+
 def phase_kernels(cfg, gen) -> dict:
-    """Phase 2: each kernel vs its plain version (256 streams), then both
-    timed at the full main-path batch."""
+    """Phase 2: each kernel vs its plain version (256 streams; decide_frame_tm
+    also at the full batch, where a block walks many symbol tiles), then
+    both timed at the full main-path batch."""
     sps = cfg.samples_per_symbol
     m = cfg.num_tones
     t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
@@ -322,13 +338,7 @@ def phase_kernels(cfg, gen) -> dict:
     x_f = waves + 0.3 * torch.randn(waves.shape, generator=gen, device=dev)
     x_tm, x8_tm = x_f.to(torch.bfloat16).T.contiguous(), quantize_x127(x_f)
     del x_f
-    got = kernels.decide_frame_tm(cfg, x_tm, PAYLOAD, preamble_offset=pre)
-    want = kernels.decide_frame_tm_ref(cfg, x_tm, PAYLOAD, preamble_offset=pre)
-    parity = ((got[1].long() & 1) != (want[1].long() & 1)).sum()
-    if int(parity):
-        raise AssertionError(f"decide_frame_tm: crc parity differs in {int(parity)} places")
-    err = compare("decide_frame_tm", got, want, exact=(0, 1), close=(2,))
-    results["decide_frame_tm"] = {"max_abs_err": err}
+    results["decide_frame_tm"] = {"max_abs_err": check_frame("decide_frame_tm", cfg, x_tm, pre)}
 
     # stream buffers: frames at random starts in the search window, with
     # probe bases st0 = start - 2 at every residue 124..127 mod 128
@@ -368,11 +378,7 @@ def phase_kernels(cfg, gen) -> dict:
 
     # the int8 instantiations on the same frames: the aligned batch quantized
     # x127 over its maximum, the stream buffers as an int8 carry holds them
-    got = kernels.decide_frame_tm(cfg, x8_tm, PAYLOAD, preamble_offset=pre)
-    want = kernels.decide_frame_tm_ref(cfg, x8_tm, PAYLOAD, preamble_offset=pre)
-    results["decide_frame_tm:int8"] = {
-        "max_abs_err": compare("decide_frame_tm int8", got, want, exact=(0, 1), close=(2,))
-    }
+    results["decide_frame_tm:int8"] = {"max_abs_err": check_frame("decide_frame_tm int8", cfg, x8_tm, pre)}
     got = kernels.demod_at_fused(cfg, buf8, starts, n_sym)
     want = kernels.demod_at_fused_ref(cfg, buf8, starts, n_sym)
     results["demod_at_fused:int8"] = {"max_abs_err": compare("demod_at_fused int8", got, want, (0,), (1, 2))}
@@ -391,6 +397,11 @@ def phase_kernels(cfg, gen) -> dict:
     seg_full = buf_full[:, 1 : 1 + chunk + k - 1]
     st_full, st0_full = starts.repeat(reps_s), st0.repeat(reps_s)
     del x_tm, x8_tm, buf, buf8, waves
+    # decide_frame_tm at the full batch: few blocks a column of streams, so
+    # each walks many tiles and adds its sums once
+    for key, x in (("decide_frame_tm", x_full), ("decide_frame_tm:int8", x8_full)):
+        err = check_frame(f"{key} at B = {ALIGNED_B}", cfg, x, pre)
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     calls = {
         "decide_frame_tm": (
             lambda f: f(cfg, x_full, PAYLOAD, preamble_offset=pre),
@@ -454,6 +465,15 @@ def phase_kernels(cfg, gen) -> dict:
         ),
     }
     time_and_bound(results, calls, work)
+    # decide_frame_tm's float32 route (the CUDA-core body) at the same
+    # shape, its products at the float32 peak
+    x32 = x_full.float()
+    ms = time_ms(lambda: kernels.decide_frame_tm(cfg, x32, PAYLOAD, preamble_offset=pre))
+    bound, by = bound_ms(n_sym * sps * b_a * 4 + (n_tiles + 64 + 8) * b_a * 4, n_sym * flops_sym * b_a, F32_FLOPS_S)
+    log(f"  decide_frame_tm (float32 route: B {b_a}, {n_sym} symbols): kernel {ms:.3f} ms, "
+        f"bound {bound:.3f} ms ({by})")
+    del x32, x_full, x8_full
+    torch.cuda.empty_cache()
     # the float32 route of the search at the same shape: seg and template
     # split into bf16 hi + lo, three products a tile and step
     seg32 = buf_full.float()[:, 1 : 1 + chunk + k - 1]
@@ -1329,7 +1349,7 @@ PATHS = {
     "stream-coded-int8": (
         CODED_MODEL,
         lambda cfg, gen: phase_stream(cfg, gen, "stream-coded-int8", int8=True, runs=("warm-lock",)),
-        ("probe_at_fused", "demod_at_energies_fused:int8", "viterbi_trellis"),
+        ("demod_at_energies_fused:int8", "viterbi_trellis"),
     ),
     "aligned-bm": (MODEL, phase_aligned_bm, ("tone_energies_fused",)),
     "aligned-bm-decide": (
@@ -1337,6 +1357,11 @@ PATHS = {
     ),
     "search-blockmax": (MODEL, phase_search_blockmax, ("sync_search_blockmax",)),
 }
+
+
+# Kernels a path must not launch: the reference probes an int8 buffer with
+# its plain row-aligned probe, never with probe_at_fused.
+ABSENT = {"stream-coded-int8": ("probe_at_fused",)}
 
 
 def main() -> int:
@@ -1377,6 +1402,9 @@ def main() -> int:
         missing = [n for n in path_kernels if path_counts[n] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} path: {missing}")
+        stray = [n for n in ABSENT.get(path, ()) if path_counts[n]]
+        if stray:
+            raise AssertionError(f"kernels launched on the {path} path that must not be: {stray}")
         for name, c in path_counts.items():
             counts[name] += c
     rows = []

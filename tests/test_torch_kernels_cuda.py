@@ -200,7 +200,9 @@ def test_cuda_coded_path_kernels_match_plain_versions(cuda, dtype, model):
 def test_cuda_coded_receivers_match_cpu(cuda, dtype):
     """The coded aligned receiver and the coded locked stream on the card
     (kernels) against the same calls on the CPU (plain versions): payloads
-    and verdicts equal at operating noise."""
+    and verdicts equal at operating noise. The probe kernel serves the
+    bfloat16 buffer only; a float32 one takes the plain row-aligned probe,
+    as in the reference."""
     from anet_torch.dsp import frame as tframe
 
     rng = np.random.default_rng(17)
@@ -220,8 +222,9 @@ def test_cuda_coded_receivers_match_cpu(cuda, dtype):
     before = dict(tk.launch_counts)
     got = tstream.receive_stream(CODED, cap.to(cuda), CHUNK, PAY, lock=True, compute_dtype=dtype, device=cuda)
     n_chunks = cap.shape[1] // CHUNK
-    for name in ("probe_at_fused", "demod_at_energies_fused", "viterbi_trellis"):
-        assert tk.launch_counts[name] - before[name] == n_chunks, name
+    probes = n_chunks if dtype == torch.bfloat16 else 0
+    for name, n in (("probe_at_fused", probes), ("demod_at_energies_fused", n_chunks), ("viterbi_trellis", n_chunks)):
+        assert tk.launch_counts[name] - before[name] == n, name
     assert tk.launch_counts["demod_probe_fused"] == before["demod_probe_fused"]
     want = tstream.receive_stream(CODED, cap, CHUNK, PAY, lock=True, compute_dtype=dtype, device="cpu")
     assert int(got.carry.frames_ok.sum()) == 9 * 3
@@ -657,8 +660,8 @@ def test_cuda_search_blockmax_matches_plain_version(cuda, dtype):
 @pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded"])
 def test_cuda_int8_receivers_match_cpu(cuda, model):
     """The int8 locked stream on the card (mfsk16-fast: the merged kernel's
-    int8 instantiation, and the search; mfsk4-coded: the probe on a bf16
-    copy and the int8 energies) and the int8 aligned receiver, against the
+    int8 instantiation, and the search; mfsk4-coded: the plain row-aligned
+    probe, as the reference probes an int8 buffer, and the int8 energies) and the int8 aligned receiver, against the
     same calls on the CPU: payloads, detections and lock state equal."""
     from anet_torch.dsp import frame as tframe
 
@@ -842,3 +845,118 @@ def test_cuda_demod_probe_at_every_residue(cuda, dtype, n_lags, ragged):
     empty = tk.demod_probe_fused(CFG, buf[:0], st[:0], n_sym, tpl, n_lags=n_lags)
     assert [tuple(t.shape) for t in empty] == [(0,), (0,), (0,), (0, n_sym), (0, n_sym), (0, n_sym)]
     assert tk.launch_counts == before
+
+
+# --- decide_frame_tm on the tensor cores: every geometry and edge ------------
+
+FRAME_CONFIGS = {  # sps, tones and bits a symbol of each n-tile count and k-step count
+    "fsk2-robust": get_model("fsk2-robust").config,  # sps 128, 2 tones, bps 1
+    "mfsk4-sps32": dataclasses.replace(get_model("mfsk4-coded").config, fec="none"),  # sps 32, 4 tones
+    "mfsk4-sps64": dataclasses.replace(CFG, num_tones=4),  # sps 64, 4 tones, bps 2
+    "mfsk16-fast": CFG,  # sps 64, 16 tones, bps 4
+    "mfsk16-ultra": get_model("mfsk16-ultra").config,  # sps 32, 16 tones
+    "mfsk16-sps128": dataclasses.replace(CFG, symbol_rate_hz=375),  # sps 128, 16 tones
+}
+FRAME_BATCHES = (1, 7, 8, 100, 129, 1000)  # rows off 16 bytes unless B is a multiple of 8 (16 for int8)
+
+
+def _frame_case(cfg, rng, b, dtype, offset, extra, pay=7):
+    """Time-major [T, B] frames of ``dtype`` whose data section starts at row
+    ``offset`` (0: the data section alone; the preamble length: whole
+    frames; else that many noise rows before it), followed by ``extra``
+    more symbols (copies of the first data symbols, so every symbol has a
+    clear winner) and nothing after them."""
+    sps, pre = cfg.samples_per_symbol, cfg.preamble_samples
+    payload = rng.integers(0, 256, (b, pay), dtype=np.uint8)
+    w = transmit(cfg, payload, device="cpu").numpy()
+    data = w[:, pre:]
+    head = w[:, :pre] if offset == pre else rng.standard_normal((b, offset)).astype(np.float32)
+    x = np.concatenate([head, data, data[:, : extra * sps]], -1)
+    x = x + 0.3 * rng.standard_normal(x.shape).astype(np.float32)
+    x = torch.from_numpy(np.ascontiguousarray(x.T))
+    if dtype == torch.int8:
+        return torch.round(x * (127.0 / x.abs().max())).to(torch.int8)
+    return x.to(dtype)
+
+
+def _check_frame_tm(cuda, cfg, x, pay, offset, dtype):
+    """One launch of decide_frame_tm on ``x`` (under its key, none
+    elsewhere), held against the plain version: words and CRC counts
+    bit-equal, qual within rtol 1e-5 for int8 (exact I/Q, sums in another
+    order) and 1e-3 otherwise."""
+    key = "decide_frame_tm" + (":int8" if dtype == torch.int8 else "")
+    before = dict(tk.launch_counts)
+    got = tk.decide_frame_tm(cfg, x, pay, preamble_offset=offset)
+    torch.cuda.synchronize()
+    launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
+    assert launched == {key: 1}
+    want = tk.decide_frame_tm_ref(cfg, x, pay, preamble_offset=offset)
+    assert got[3] == want[3]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    tol = 1e-5 if dtype == torch.int8 else 1e-3
+    torch.testing.assert_close(got[2], want[2], rtol=tol, atol=tol if dtype != torch.int8 else 0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", FRAME_BATCHES)
+@pytest.mark.parametrize("geometry", list(FRAME_CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_decide_frame_tm_every_geometry(cuda, monkeypatch, dtype, geometry, b):
+    """decide_frame_tm against its plain version at sps 32, 64 and 128,
+    2, 4 and 16 tones (bits a symbol 1, 2 and 4), B from 1 to 1,000 (rows
+    off a 16-byte boundary where B is not a multiple of 8, or 16 for
+    int8), preamble offsets 0, odd and the preamble's length, and
+    n_symbols at every residue 1..7 mod 8 past the frame's own (the
+    geometry given extra symbols); the data section ends at the last row."""
+    cfg = FRAME_CONFIGS[geometry]
+    case = FRAME_BATCHES.index(b) + 6 * list(FRAME_CONFIGS).index(geometry)
+    rng = np.random.default_rng(case)
+    offset = (0, 3, 37, cfg.preamble_samples)[case % 4]
+    extra = 1 + (1 + case % 7 - data_symbols_for_payload(cfg, 7) - 1) % 8  # n_symbols = 1 + case % 7 mod 8
+    geometry_of = tk._frame_geometry
+
+    def longer(config, t, payload_len, preamble_offset):
+        s, n_tiles, nb = geometry_of(config, t - extra * config.samples_per_symbol, payload_len, preamble_offset)
+        s += extra
+        return s, -(-s // tk.TM_SYMBOL_TILE), nb
+
+    monkeypatch.setattr(tk, "_frame_geometry", longer)
+    x = _frame_case(cfg, rng, b, dtype, offset, extra).to(cuda)
+    got = _check_frame_tm(cuda, cfg, x, 7, offset, dtype)
+    assert got[3] % tk.TM_SYMBOL_TILE == 1 + case % 7 and x.shape[0] == offset + got[3] * cfg.samples_per_symbol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["zeros", "saturated"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_decide_frame_tm_every_tie_and_extreme(cuda, dtype, fill):
+    """An all-zero input (every symbol ties: tone 0, data 0, zero counts
+    and sums) and a saturated +-127 input (int8: I/Q at their largest,
+    still exact in int32), B = 129, on mfsk16-fast and fsk2-robust."""
+    rng = np.random.default_rng(7 + len(fill))
+    for cfg in (CFG, FRAME_CONFIGS["fsk2-robust"]):
+        t = cfg.preamble_samples + data_symbols_for_payload(cfg, PAY) * cfg.samples_per_symbol
+        if fill == "zeros":
+            x = torch.zeros(t, 129, dtype=dtype)
+        else:
+            x = torch.from_numpy(rng.choice(np.array([-127, 127], np.int8), (t, 129)))
+            x = x if dtype == torch.int8 else (x.float() / 127.0).to(dtype)
+        got = _check_frame_tm(cuda, cfg, x.to(cuda), PAY, cfg.preamble_samples, dtype)
+        if fill == "zeros":
+            assert not got[0].any() and not got[1].any() and not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_decide_frame_tm_many_tiles_a_block(cuda, dtype, ragged):
+    """The main path's batch, B = 16,384 (16,383 ragged), payload 256: few
+    blocks a column of streams, so each walks many symbol tiles, carries
+    its CRC counts and quality sums across them and adds them once. 256
+    noisy frames tiled across the batch."""
+    rng = np.random.default_rng(11 + ragged)
+    x = _frame_case(CFG, rng, 256, dtype, CFG.preamble_samples, 0, pay=256).to(cuda).repeat(1, 64)
+    if ragged:
+        x = x[:, 1:].contiguous()
+    _check_frame_tm(cuda, CFG, x, 256, CFG.preamble_samples, dtype)

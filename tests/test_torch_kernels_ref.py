@@ -74,6 +74,37 @@ def test_frame_crc_tables_match():
         assert (ch_t, cp_t) == (ch_j, cp_j)
 
 
+@pytest.mark.parametrize("bps", [1, 2, 4])
+@pytest.mark.parametrize("pay", [1, 7, 64, 256])
+def test_frame_crc_masks_count_the_bits(bps, pay):
+    """The packed-word CRC masks of the tensor-core decide_frame_tm
+    (kernels._frame_crc_mask_table): for random words, the sum over tiles
+    of popc(word & mask[tile, c]) equals _frame_crc_rows' P.T @ bits and
+    the counts of anet.kernels._frame_crc_tables in its bit-major tile
+    order."""
+    from anet_torch.dsp.frame import data_section_bytes
+
+    rng = np.random.default_rng(16 * pay + bps)
+    sb, nb = tk.TM_SYMBOL_TILE, tk.TM_SYMBOL_TILE * bps
+    n_tiles = -(-(-(-8 * data_section_bytes(pay) // bps)) // sb)
+    b = 5
+    words = rng.integers(0, 2**nb, (n_tiles, b), dtype=np.uint64).astype(np.uint32)
+    masks = tk._frame_crc_mask_table(pay, n_tiles, bps)
+    assert masks.shape == (n_tiles, 64) and masks.dtype == np.uint32
+    anded = (words[:, None, :] & masks[:, :, None]).astype("<u4")  # [tile, c, b]
+    got = np.unpackbits(anded.view(np.uint8).reshape(n_tiles, 64, b, 4), axis=-1).sum((0, -1))
+
+    pos = np.arange(nb)
+    bits = ((words[:, None, :] >> (nb - 1 - pos)[None, :, None].astype(np.uint32)) & 1).reshape(n_tiles * nb, b)
+    p = tk._frame_crc_rows(pay, n_tiles * nb)[0].astype(np.int64)
+    np.testing.assert_array_equal(got, p.T @ bits.astype(np.int64))
+    # anet's bit-major order: row k * sb + s of tile i is message bit (i sb + s) bps + k
+    p_j = np.asarray(jk._frame_crc_tables(pay, n_tiles, nb)[0]).astype(np.int64)
+    k, s = np.divmod(np.arange(nb), sb)
+    bits_j = bits.reshape(n_tiles, nb, b)[:, s * bps + k].reshape(n_tiles * nb, b)
+    np.testing.assert_array_equal(got, p_j.T @ bits_j.astype(np.int64))
+
+
 def test_sync_search_ref_matches_pallas():
     rng = np.random.default_rng(5)
     k = CFG.preamble_samples
