@@ -41,8 +41,13 @@ operand once a template tensor. The two align+demod kernels
 float32 accumulators, or an int8 one with exact int32 I/Q, fed by a
 pipelined span read, the basis packed once a config and dtype in fragment
 order (``_demod_mma_basis``); their float32 buffers keep the CUDA-core
-body. demod_probe_fused is a warp-per-stream probe followed by
-demod_at_fused's kernel (float32: a CUDA-core block a stream).
+body. The batch-major filterbank (tone_energies_fused,
+decide_tones_fused) runs that product, with the same two epilogues, on
+rows read in place from every start 0 under bfloat16 compute; float32
+compute, bfloat16 rows included, keeps its CUDA-core body (the route:
+``_filterbank_operands``). demod_probe_fused is a warp-per-stream probe
+followed by demod_at_fused's kernel (float32: a CUDA-core block a
+stream).
 decide_frame_tm runs the same tensor-core filterbank with streams on the
 product's M axis, its A operand staged from time-major rows with
 ``ldmatrix.trans``, and counts CRC bits with popcounts of the packed words
@@ -1178,30 +1183,74 @@ def ofdm_track_decide_fused(
 
 @functools.lru_cache(maxsize=16)
 def _filterbank_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The filterbank kernels' basis for ``dtype`` compute: _kernel_basis's
-    [sps, 32] where their fast kernels take the geometry (sps in
-    _KERNEL_SPS, at most 16 tones), else the plain [sps, 2M]."""
+    """The filterbank kernels' float32 basis for ``dtype`` compute on their
+    CUDA-core routes: _kernel_basis's [sps, 32] where their fast kernels
+    take the geometry (sps in _KERNEL_SPS, at most 16 tones), else the
+    plain [sps, 2M]."""
     if config.num_tones <= 16 and config.samples_per_symbol in _KERNEL_SPS:
         return _kernel_basis(config, dtype, device)
     return _plain_basis(config, dtype, device).contiguous()
 
 
-def _symbol_rows(name: str, config: ModemConfig, samples: torch.Tensor, compute_dtype):
-    """The filterbank kernels' checked inputs: (the samples' leading shape,
-    rows [R, L] with a contiguous last dimension, a view where the leading
-    dimensions merge; S whole symbols a row; the dtype code; the basis).
-    The rows are the samples as they are where the kernel's float32 load
-    rounds them as ``compute_dtype`` would (bfloat16 samples under float32
-    compute), else the samples cast to ``compute_dtype``."""
+def _filterbank_operands(kind: str, config: ModemConfig, compute_dtype,
+                         device) -> tuple[str, bool, torch.Tensor]:
+    """(entry point, tensor cores?, basis) of a filterbank launch, ``kind``
+    "tone_energies" or "decide_tones". The route follows the compute dtype
+    and the geometry, never the rows' dtype: bfloat16 compute at sps in
+    _KERNEL_SPS and at most 16 tones takes the tensor cores (entry ``kind +
+    "_mma"``, basis _demod_mma_basis); float32 compute, bfloat16 rows
+    included, keeps the float32 basis of the CUDA-core entry ``kind``
+    (_filterbank_basis), as does any other geometry."""
+    fast = config.num_tones <= 16 and config.samples_per_symbol in _KERNEL_SPS
+    if fast and compute_dtype == torch.bfloat16:
+        return f"{kind}_mma", True, _demod_mma_basis(config, torch.bfloat16, device)
+    return kind, False, _filterbank_basis(config, compute_dtype, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _zero_starts(n: int, device: torch.device) -> torch.Tensor:
+    """int32 zeros [n]: the data starts of n rows read in place, the
+    tensor-core filterbank's span operand."""
+    return torch.zeros(n, dtype=torch.int32, device=device)
+
+
+def _filterbank_rows(samples: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The samples as the filterbank kernels read them: as they are where
+    the kernel's float32 load rounds them as ``compute_dtype`` would
+    (bfloat16 samples under float32 compute), else cast to
+    ``compute_dtype``."""
     widen = samples.dtype == torch.bfloat16 and compute_dtype == torch.float32
-    x = samples if widen else samples.to(compute_dtype)
-    s = x.shape[-1] // config.samples_per_symbol
+    return samples if widen else samples.to(compute_dtype)
+
+
+def _filterbank_launch(name: str, kind: str, config: ModemConfig, samples: torch.Tensor, compute_dtype,
+                       outputs) -> tuple[torch.Tensor, ...]:
+    """Check the samples, allocate ``outputs(lead, S, device)`` and launch
+    the filterbank kernel ``kind`` that _filterbank_operands picks on rows
+    [R, L] of the samples (a view where the leading dimensions merge, the
+    last dimension contiguous), S whole symbols a row."""
+    x = _filterbank_rows(samples, compute_dtype)
+    sps = config.samples_per_symbol
+    s = x.shape[-1] // sps
     rows = x.reshape(-1, x.shape[-1])
     if s < 1 or rows.shape[0] < 1:
         raise ValueError(f"{name}: samples {tuple(x.shape)} hold no whole symbol")
     rows = rows if rows.stride(-1) == 1 else rows.contiguous()
     dtype = _check_cuda_input(name, rows, "samples")
-    return x.shape[:-1], rows, s, dtype, _filterbank_basis(config, compute_dtype, x.device)
+    dev, r = rows.device, rows.shape[0]
+    entry, mma, basis = _filterbank_operands(kind, config, compute_dtype, dev)
+    if mma:
+        if r > 1 and rows.stride(0) < s * sps:  # overlapping rows: the span read needs a pitch >= a row
+            rows = rows.contiguous()
+        head = (rows.data_ptr(), r, rows.stride(0), _zero_starts(r, dev).data_ptr())
+    else:
+        head = (rows.data_ptr(), dtype, r, rows.stride(0))
+    outs = outputs(x.shape[:-1], s, dev)
+    err = _entry(entry)(
+        *head, s, sps, config.num_tones, basis.data_ptr(), *(o.data_ptr() for o in outs), _stream_handle(dev),
+    )
+    _check_launch(err, name)
+    return outs
 
 
 def tone_energies_fused_ref(config: ModemConfig, samples: torch.Tensor, *, compute_dtype=torch.float32):
@@ -1219,19 +1268,15 @@ def tone_energies_fused(config: ModemConfig, samples: torch.Tensor, *, compute_d
     do; the product runs in float32. Rows may be strided (a view past the
     preamble of whole frames) as long as the last dimension is contiguous.
     Any geometry: sps 32, 64 or 128 with at most 16 tones take the fast
-    kernel, the rest a plain one (one warp a symbol)."""
+    kernels (bfloat16 compute on the tensor cores), the rest a plain one
+    (one warp a symbol)."""
     if samples.device.type == "cpu":
         return tone_energies_fused_ref(config, samples, compute_dtype=compute_dtype)
-    name = "tone_energies_fused"
-    lead, rows, s, dtype, basis = _symbol_rows(name, config, samples, compute_dtype)
-    dev = rows.device
     m = config.num_tones
-    energies = torch.empty(*lead, s, m, dtype=torch.float32, device=dev)
-    err = _entry("tone_energies")(
-        rows.data_ptr(), dtype, rows.shape[0], rows.stride(0), s, config.samples_per_symbol, m,
-        basis.data_ptr(), energies.data_ptr(), _stream_handle(dev),
+    (energies,) = _filterbank_launch(
+        "tone_energies_fused", "tone_energies", config, samples, compute_dtype,
+        lambda lead, s, dev: (torch.empty(*lead, s, m, dtype=torch.float32, device=dev),),
     )
-    _check_launch(err, name)
     return energies
 
 
@@ -1250,20 +1295,14 @@ def decide_tones_fused(config: ModemConfig, samples: torch.Tensor, *, compute_dt
     reference's."""
     if samples.device.type == "cpu":
         return decide_tones_fused_ref(config, samples, compute_dtype=compute_dtype)
-    name = "decide_tones_fused"
-    lead, rows, s, dtype, basis = _symbol_rows(name, config, samples, compute_dtype)
-    dev = rows.device
-    shape = (*lead, s)
-    tone = torch.empty(shape, dtype=torch.int32, device=dev)
-    best = torch.empty(shape, dtype=torch.float32, device=dev)
-    total = torch.empty(shape, dtype=torch.float32, device=dev)
-    err = _entry("decide_tones")(
-        rows.data_ptr(), dtype, rows.shape[0], rows.stride(0), s, config.samples_per_symbol,
-        config.num_tones, basis.data_ptr(), tone.data_ptr(), best.data_ptr(), total.data_ptr(),
-        _stream_handle(dev),
-    )
-    _check_launch(err, name)
-    return tone, best, total
+
+    def outputs(lead, s, dev):
+        shape = (*lead, s)
+        return (torch.empty(shape, dtype=torch.int32, device=dev),
+                torch.empty(shape, dtype=torch.float32, device=dev),
+                torch.empty(shape, dtype=torch.float32, device=dev))
+
+    return _filterbank_launch("decide_tones_fused", "decide_tones", config, samples, compute_dtype, outputs)
 
 
 # --- sync_search_blockmax: block maxima of the search quality -----------------

@@ -90,6 +90,12 @@ SIGNATURES = {
     "decide_tones": (
         "anet_decide_tones", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P], "tone_energies",
     ),
+    "tone_energies_mma": (
+        "anet_tone_energies_mma", [_P, _I, _L, _P, _I, _I, _I, _P, _P, _P], "tone_energies",
+    ),
+    "decide_tones_mma": (
+        "anet_decide_tones_mma", [_P, _I, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P], "tone_energies",
+    ),
     "search_blockmax": (
         "anet_search_blockmax",
         [_P, _I, _I, _L, _I, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],

@@ -20,12 +20,11 @@
 // one-hot lane-shift matmuls existed only for the TPU's (8, 128) layout.
 // bfloat16 and int8 buffers run the tensor-core filterbank of
 // demod_core.cuh (a warp's ring of cp.async span reads, 16 symbols x sps
-// samples a mma.sync A tile, the basis in registers as B fragments); the
-// epilogue takes each lane's tones of its two symbols, the argmax (first
-// index on ties), best and sum over its n-tiles, then over the quad with
-// two xor shuffles, and lanes 0 and 1 of each quad store symbols g and
-// g + 8, so each store of a warp covers 16 consecutive symbols. float32
-// buffers keep the CUDA-core body of common.cuh (demod_symbols).
+// samples a mma.sync A tile, the basis in registers as B fragments) with
+// its decision epilogue, store_decisions: the argmax (first index on
+// ties), best and sum over a quad's tones, each warp store 16 consecutive
+// symbols. float32 buffers keep the CUDA-core body of common.cuh
+// (demod_symbols).
 #include "demod_core.cuh"
 
 namespace {
@@ -34,43 +33,9 @@ template <typename T, int SPS, int NT>
 __global__ void __launch_bounds__(anet::demod::THREADS)
 demod_at_mma(anet::demod::Span sp, const uint32_t* __restrict__ basis, int32_t* __restrict__ tone,
              float* __restrict__ best, float* __restrict__ total) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, i = lane & 3;
   const int n_symbols = sp.n_symbols;
   anet::demod::walk<T, SPS, NT>(sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
-    float bq[2], tot[2];
-    int bt[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      bq[h] = e[0][h];
-      bt[h] = i;
-      tot[h] = e[0][h];
-#pragma unroll
-      for (int u = 1; u < NT; ++u) {
-        if (e[u][h] > bq[h]) {  // tones rise with u: a tie keeps the first
-          bq[h] = e[u][h];
-          bt[h] = 4 * u + i;
-        }
-        tot[h] += e[u][h];
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float oq = __shfl_xor_sync(0xffffffffu, bq[h], off);
-        const int ot = __shfl_xor_sync(0xffffffffu, bt[h], off);
-        tot[h] += __shfl_xor_sync(0xffffffffu, tot[h], off);
-        if (anet::better(oq, ot, bq[h], bt[h])) {
-          bq[h] = oq;
-          bt[h] = ot;
-        }
-      }
-    }
-    const int sym = s + g + 8 * i;  // lane i < 2 of the quad stores its row i
-    if (i < 2 && sym < n_symbols) {
-      const int64_t o = (int64_t)b * n_symbols + sym;
-      tone[o] = i ? bt[1] : bt[0];
-      best[o] = i ? bq[1] : bq[0];
-      total[o] = i ? tot[1] : tot[0];
-    }
+    anet::demod::store_decisions<NT>(b, s, e, n_symbols, tone, best, total);
   });
 }
 
@@ -105,16 +70,10 @@ struct Args {
 template <typename T, int SPS, int NT>
 cudaError_t launch_mma(const Args& a) {
   static int resident = 0;
-  auto kernel = demod_at_mma<T, SPS, NT>;
-  anet::demod::Span sp;
-  int grid = 0;
-  const cudaError_t err = anet::demod::plan<T, SPS>(kernel, resident, a.buf, a.B, a.len, a.start,
-                                                    a.pre, a.n_symbols, sp, grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, anet::demod::THREADS, anet::demod::Shape<T, SPS>::SMEM, a.st>>>(
-      sp, static_cast<const uint32_t*>(a.basis), static_cast<int32_t*>(a.tone),
+  return anet::demod::launch<T, SPS>(
+      demod_at_mma<T, SPS, NT>, resident, a.buf, a.B, a.len, a.len, a.start, a.pre,
+      a.n_symbols, a.st, static_cast<const uint32_t*>(a.basis), static_cast<int32_t*>(a.tone),
       static_cast<float*>(a.best), static_cast<float*>(a.total));
-  return cudaGetLastError();
 }
 
 template <int SPS>

@@ -22,10 +22,10 @@
 // (8, 128) layout. bfloat16 and int8 buffers run the tensor-core filterbank
 // of demod_core.cuh, whose n-tiles follow the tone count: at M = 4 one
 // m16n8 product a k-step holds the 4 tones' I and Q of 16 symbols, and no
-// lane computes a tone that does not exist. Lane i of a quad stores tone
-// 4 t + i of n-tile t; the 8 rows of a fragment half are consecutive
-// symbols, so at M = 4 a warp's store is 128 contiguous bytes. float32
-// buffers keep the CUDA-core body of common.cuh (energies_symbols).
+// lane computes a tone that does not exist. Its epilogue store_energies
+// writes tone 4 t + i of n-tile t from lane i of a quad: at M = 4 a warp's
+// store is 128 contiguous bytes. float32 buffers keep the CUDA-core body
+// of common.cuh (energies_symbols).
 #include "demod_core.cuh"
 
 namespace {
@@ -34,20 +34,9 @@ template <typename T, int SPS, int NT>
 __global__ void __launch_bounds__(anet::demod::THREADS)
 demod_at_energies_mma(anet::demod::Span sp, int m, const uint32_t* __restrict__ basis,
                       float* __restrict__ energies) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, i = lane & 3;
   const int n_symbols = sp.n_symbols;
   anet::demod::walk<T, SPS, NT>(sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int sym = s + g + 8 * h;
-      if (sym < n_symbols) {
-        float* o = energies + ((int64_t)b * n_symbols + sym) * m;
-#pragma unroll
-        for (int u = 0; u < NT; ++u)
-          if (4 * u + i < m) o[4 * u + i] = e[u][h];
-      }
-    }
+    anet::demod::store_energies<NT>(b, s, e, n_symbols, m, energies);
   });
 }
 
@@ -81,15 +70,10 @@ struct Args {
 template <typename T, int SPS, int NT>
 cudaError_t launch_mma(const Args& a) {
   static int resident = 0;
-  auto kernel = demod_at_energies_mma<T, SPS, NT>;
-  anet::demod::Span sp;
-  int grid = 0;
-  const cudaError_t err = anet::demod::plan<T, SPS>(kernel, resident, a.buf, a.B, a.len, a.start,
-                                                    a.pre, a.n_symbols, sp, grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, anet::demod::THREADS, anet::demod::Shape<T, SPS>::SMEM, a.st>>>(
-      sp, a.m, static_cast<const uint32_t*>(a.basis), static_cast<float*>(a.energies));
-  return cudaGetLastError();
+  return anet::demod::launch<T, SPS>(
+      demod_at_energies_mma<T, SPS, NT>, resident, a.buf, a.B, a.len, a.len, a.start, a.pre,
+      a.n_symbols, a.st, a.m, static_cast<const uint32_t*>(a.basis),
+      static_cast<float*>(a.energies));
 }
 
 template <int SPS>

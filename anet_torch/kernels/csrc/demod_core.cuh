@@ -1,9 +1,12 @@
 // The align+demod filterbank on the tensor cores, shared by demod_at.cu and
 // demod_at_energies.cu (their bfloat16 and int8 instantiations; float32
-// buffers keep common.cuh's CUDA-core body).
+// buffers keep common.cuh's CUDA-core body) and tone_energies.cu (its
+// bfloat16-compute kernels, every start at 0).
 //
 // For stream b the data section starts at sample d0 = start[b] + pre of its
-// buffer row; symbol s is the sps samples from d0 + s * sps, zero outside
+// buffer row, rows len samples apart (a PitchedSpan's `pitch` apart, pitch
+// >= len: strided rows are read up to their own end, never into the gap
+// after them); symbol s is the sps samples from d0 + s * sps, zero outside
 // [0, len). Per symbol the kernels need I and Q of every tone:
 //   IQ[s, n] = sum_k A[s, k] * B[k, n],   A[s, k] = row[d0 + s * sps + k]
 // an [S, sps] x [sps, 8 n_tiles] product whose columns interleave the tones'
@@ -25,9 +28,10 @@
 //   flight in its own ring of shared memory: 16-byte cp.async copies of the
 //   tile's span aligned down to 16 bytes of the FLAT buffer, so any row
 //   pitch and any start take full-width loads. cp.async's source size
-//   zero-fills the bytes at and past the row's end, and a chunk wholly
-//   outside the row reads nothing; bytes before the row's start (a
-//   negative position) are zeroed after the copy lands.
+//   stops the copy at the row's end (len) and zero-fills the rest of the
+//   chunk, and a chunk wholly outside the row reads nothing; bytes before
+//   the row's start (a negative position) are zeroed after the copy
+//   lands.
 // - Shared memory: the span's 16-byte chunks in rows of one symbol's bytes
 //   plus 16 of pad, so the 8 symbols of an A fragment lie in 8 distinct
 //   bank groups. The span starts rb bytes into its first chunk; a lane's A
@@ -121,6 +125,16 @@ struct Span {
   int items;  // B * tiles
 };
 
+// Strided rows: B rows `pitch` samples apart, of which the first len are
+// read. A type of its own, so that the contiguous kernels' code stays as it
+// is; `pitch` gives either's row stride.
+struct PitchedSpan : Span {
+  int64_t pitch;  // >= len
+};
+
+__device__ __forceinline__ int64_t pitch(const Span& sp) { return sp.len; }
+__device__ __forceinline__ int64_t pitch(const PitchedSpan& sp) { return sp.pitch; }
+
 // Item j: stream b, first symbol s0 and live symbols n of its tile, the
 // tile's first sample's row position pos, and its 16-byte-aligned chunk
 // in the flat buffer with the span's byte offset rb into it.
@@ -130,8 +144,8 @@ struct Tile {
   uintptr_t chunk0;
 };
 
-template <typename T, int SPS>
-__device__ __forceinline__ Tile locate(const Span& sp, int j) {
+template <typename T, int SPS, typename SP>
+__device__ __forceinline__ Tile locate(const SP& sp, int j) {
   using S = Shape<T, SPS>;
   Tile t;
   t.b = j / sp.tiles;
@@ -139,7 +153,7 @@ __device__ __forceinline__ Tile locate(const Span& sp, int j) {
   t.n = min(S::SYMS, sp.n_symbols - t.s0);
   t.pos = (int64_t)sp.start[t.b] + sp.pre + (int64_t)t.s0 * SPS;
   const uintptr_t at = reinterpret_cast<uintptr_t>(sp.buf) +
-                       (uintptr_t)(((int64_t)t.b * sp.len + t.pos) * (int64_t)sizeof(T));
+                       (uintptr_t)(((int64_t)t.b * pitch(sp) + t.pos) * (int64_t)sizeof(T));
   t.rb = (int)(at & 15);
   t.chunk0 = at - t.rb;
   return t;
@@ -147,8 +161,8 @@ __device__ __forceinline__ Tile locate(const Span& sp, int j) {
 
 // Start the copies of item j's span into a ring stage, then commit a group
 // (an empty one past the last item, so every iteration commits one).
-template <typename T, int SPS>
-__device__ __forceinline__ void fetch(const Span& sp, int j, unsigned char* stage, int lane) {
+template <typename T, int SPS, typename SP>
+__device__ __forceinline__ void fetch(const SP& sp, int j, unsigned char* stage, int lane) {
   using S = Shape<T, SPS>;
   constexpr int E = 16 / (int)sizeof(T);  // samples a chunk
   if (j < sp.items) {
@@ -208,8 +222,8 @@ __device__ __forceinline__ void iq_tile(const unsigned char* rows, int x0, int s
 // it calls epi(b, s, e): e[t][h] is the energy of tone 4 t + (lane % 4) of
 // symbol s + lane / 4 + 8 h of stream b (s + ... may pass n_symbols: the
 // epilogue masks).
-template <typename T, int SPS, int NT, typename Epilogue>
-__device__ __forceinline__ void walk(const Span& sp, const uint32_t* __restrict__ basis,
+template <typename T, int SPS, int NT, typename SP, typename Epilogue>
+__device__ __forceinline__ void walk(const SP& sp, const uint32_t* __restrict__ basis,
                                      Epilogue&& epi) {
   using S = Shape<T, SPS>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -262,6 +276,74 @@ __device__ __forceinline__ void walk(const Span& sp, const uint32_t* __restrict_
   cp_async_wait<0>();
 }
 
+// walk's two epilogues, shared by every kernel that runs it.
+//
+// store_decisions: (tone, best, total) of each symbol, [B, n_symbols] each.
+// Each lane takes the argmax (first index on ties), best and sum of its
+// tones over its n-tiles, then the quad's with two xor shuffles; lanes 0
+// and 1 of each quad store symbols g and g + 8, so each store of a warp
+// covers 16 consecutive symbols.
+template <int NT>
+__device__ __forceinline__ void store_decisions(int b, int s, const float (&e)[NT][2],
+                                                int n_symbols, int32_t* tone, float* best,
+                                                float* total) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, i = lane & 3;
+  float bq[2], tot[2];
+  int bt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bq[h] = e[0][h];
+    bt[h] = i;
+    tot[h] = e[0][h];
+#pragma unroll
+    for (int u = 1; u < NT; ++u) {
+      if (e[u][h] > bq[h]) {  // tones rise with u: a tie keeps the first
+        bq[h] = e[u][h];
+        bt[h] = 4 * u + i;
+      }
+      tot[h] += e[u][h];
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float oq = __shfl_xor_sync(0xffffffffu, bq[h], off);
+      const int ot = __shfl_xor_sync(0xffffffffu, bt[h], off);
+      tot[h] += __shfl_xor_sync(0xffffffffu, tot[h], off);
+      if (better(oq, ot, bq[h], bt[h])) {
+        bq[h] = oq;
+        bt[h] = ot;
+      }
+    }
+  }
+  const int sym = s + g + 8 * i;  // lane i < 2 of the quad stores its row i
+  if (i < 2 && sym < n_symbols) {
+    const int64_t o = (int64_t)b * n_symbols + sym;
+    tone[o] = i ? bt[1] : bt[0];
+    best[o] = i ? bq[1] : bq[0];
+    total[o] = i ? tot[1] : tot[0];
+  }
+}
+
+// store_energies: every tone's energy, [B, n_symbols, m]. Lane i of a quad
+// stores tone 4 t + i of n-tile t; the 8 rows of a fragment half are
+// consecutive symbols, so at m = 4 a warp's store is 128 contiguous bytes.
+template <int NT>
+__device__ __forceinline__ void store_energies(int b, int s, const float (&e)[NT][2],
+                                               int n_symbols, int m, float* energies) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, i = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int sym = s + g + 8 * h;
+    if (sym < n_symbols) {
+      float* o = energies + ((int64_t)b * n_symbols + sym) * m;
+#pragma unroll
+      for (int u = 0; u < NT; ++u)
+        if (4 * u + i < m) o[4 * u + i] = e[u][h];
+    }
+  }
+}
+
 // The span and grid of a launch: the stream's tiles and items, one block
 // per WARPS items at most and no more blocks than fit the card at once
 // (the warps walk the rest). `resident` is the caller's cache of that
@@ -291,6 +373,29 @@ inline cudaError_t plan(Kernel kernel, int& resident, const void* buf, int B, lo
   const int blocks = (int)((items + WARPS - 1) / WARPS);
   grid = blocks < resident ? blocks : resident;
   return cudaSuccess;
+}
+
+// plan, then launch `kernel` (whose first argument is the Span, or the
+// PitchedSpan of rows `pitch` samples apart) with `args` on stream st.
+// `resident` as plan takes it: a static of the caller's, one per kernel
+// instantiation.
+template <typename T, int SPS, typename SP, typename... KArgs, typename... Args>
+inline cudaError_t launch(void (*kernel)(SP, KArgs...), int& resident, const void* buf, int B,
+                          long long pitch, long long len, const void* start, int pre,
+                          int n_symbols, cudaStream_t st, Args... args) {
+  SP sp;
+  int grid = 0;
+  const cudaError_t err =
+      plan<T, SPS>(kernel, resident, buf, B, len, start, pre, n_symbols, sp, grid);
+  if (err != cudaSuccess) return err;
+  if constexpr (std::is_same<SP, PitchedSpan>::value) {
+    if (pitch < len) return cudaErrorInvalidValue;
+    sp.pitch = pitch;
+  } else if (pitch != len) {
+    return cudaErrorInvalidValue;  // a Span's rows are back to back
+  }
+  kernel<<<grid, THREADS, Shape<T, SPS>::SMEM, st>>>(sp, args...);
+  return cudaGetLastError();
 }
 
 }  // namespace demod

@@ -5,38 +5,133 @@
 // (pallas_call at line 117, body _energy_kernel at line 76) and
 // decide_tones_fused (pallas_call at line 200, body _decide_kernel at line
 // 152). Input: R batch-major rows of symbol-aligned samples, row r at
-// x + r * row_stride (float32 or bfloat16; a view into whole frames, so the
-// preamble is skipped in place), S symbols of sps samples each. Per symbol
-// the [sps, 2M] basis gives I/Q in float32, then
-//   anet_tone_energies: I^2 + Q^2 of every tone, float32 [R, S, M];
-//   anet_decide_tones:  (argmax tone, first index on ties; best; total),
-//                       [R, S] each.
+// x + r * row_stride (a view into whole frames, so the preamble is skipped
+// in place), S symbols of sps samples each. Per symbol the [sps, 2M] basis
+// gives I/Q in float32, then
+//   energies:  I^2 + Q^2 of every tone, float32 [R, S, M];
+//   decisions: (argmax tone, first index on ties; best; total), [R, S] each.
 //
 // What bounds it on the H100: bytes. At the aligned batch-major path
 // (16,384 mfsk16-fast frames of 536 data symbols, sps 64, bf16) the read is
 // 1.12 GB; the energies write 0.56 GB more (0.50 ms in all at 3.35 TB/s),
 // the decisions 0.11 GB (0.37 ms). The filterbank's 2 x 32 x sps flops a
-// symbol (36 GFLOP at that size) stay under the bytes even on the CUDA
-// cores in float32.
+// symbol (36 GFLOP at that size) take 0.04 ms on the tensor cores.
 //
-// Design: one block per (row, tile of 64 symbols). The tile's samples are
-// staged in shared memory by coalesced loads; lane c of each warp holds
-// basis column c (cos of tone c in lanes 0..15, sin in 16..31) in
-// registers, each warp takes one symbol at a time, and one shuffle brings Q
-// beside I (energies_symbols in common.cuh). The decisions reduce the 16
-// tone energies with shuffles (demod_symbols and tone_reduce16): the
-// align+demod kernels' fronts with a start of 0. The TPU kernels' flattened
-// [T, sps] windows and their zero padding to 512-symbol tiles are not
-// carried over. Any other geometry (sps not 32, 64 or 128, or more than 16
-// tones: mfsk8-audible, mfsk32-dense) takes a plain kernel instead: one
-// warp per symbol, its samples staged in shared memory, lane c summing the
-// I and Q of tones c, c + 32, ... over the samples in order from the
-// [sps, 2M] basis (cos columns, then sin).
-#include "common.cuh"
+// Design: three routes, which the wrapper picks from the compute dtype and
+// the geometry, never from the rows' dtype (bfloat16 rows under float32
+// compute are widened on load and meet the float32 basis), and names to
+// the C entry it calls:
+// - bfloat16 compute, sps 32, 64 or 128, at most 16 tones (the *_mma
+//   entries): the align+demod filterbank of demod_core.cuh with every start
+//   at 0. The rows are its PitchedSpan: buf the first row, pitch the row
+//   stride, len the row's whole symbols (n_symbols * sps), start a zero
+//   vector, pre 0. Each warp walks (row, tile of symbols) items with its
+//   own ring of 16-byte cp.async chunks aligned down, so rows at any pitch
+//   and 16-byte residue take full-width loads; a tile copies only its live
+//   symbols' chunks, and each copy stops at len: no read passes a row's
+//   last whole symbol, into the gap after it or past the allocation's end.
+//   16 symbols x sps samples are an mma.sync A tile against the basis held
+//   in registers as B fragments (kernels._demod_mma_basis); the epilogues
+//   are demod_core.cuh's store_energies and store_decisions, those of
+//   demod_at_energies_fused and demod_at_fused.
+// - float32 compute, same geometry: one block per (row, tile of 64
+//   symbols) on the CUDA cores. The tile's samples are staged in shared
+//   memory as float32; lane c of each warp holds basis column c (cos of
+//   tone c in lanes 0..15, sin in 16..31, [sps, 32] float32) in registers,
+//   each warp takes one symbol at a time, and one shuffle brings Q beside
+//   I (energies_symbols, demod_symbols and tone_reduce16 in common.cuh).
+// - any other geometry (sps 48 of mfsk8-audible, the 32 tones of
+//   mfsk32-dense), either compute dtype: a plain kernel, one warp per
+//   symbol, its samples staged in shared memory, lane c summing the I and
+//   Q of tones c, c + 32, ... over the samples in order from the [sps, 2M]
+//   basis (cos columns, then sin).
+// The TPU kernels' flattened [T, sps] windows and their zero padding to
+// 512-symbol tiles are not carried over.
+#include "demod_core.cuh"
 
 namespace {
 
 constexpr int THREADS = anet::DEMOD_THREADS;
+
+// bfloat16 compute on the tensor cores: demod_core.cuh's walk over the
+// rows with one of its two epilogues.
+template <int SPS, int NT>
+__global__ void __launch_bounds__(anet::demod::THREADS)
+tone_energies_mma(anet::demod::PitchedSpan sp, int m, const uint32_t* __restrict__ basis,
+                  float* __restrict__ energies) {
+  const int n_symbols = sp.n_symbols;
+  anet::demod::walk<__nv_bfloat16, SPS, NT>(sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
+    anet::demod::store_energies<NT>(b, s, e, n_symbols, m, energies);
+  });
+}
+
+template <int SPS, int NT>
+__global__ void __launch_bounds__(anet::demod::THREADS)
+decide_tones_mma(anet::demod::PitchedSpan sp, const uint32_t* __restrict__ basis,
+                 int32_t* __restrict__ tone, float* __restrict__ best,
+                 float* __restrict__ total) {
+  const int n_symbols = sp.n_symbols;
+  anet::demod::walk<__nv_bfloat16, SPS, NT>(sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
+    anet::demod::store_decisions<NT>(b, s, e, n_symbols, tone, best, total);
+  });
+}
+
+struct MmaArgs {
+  const void* x;
+  int R;
+  long long pitch, len;  // the row stride; a row's whole symbols, the bound of its reads
+  const void* start;
+  int n_symbols, m;
+  const void* basis;
+  void *out0, *out1, *out2;
+  cudaStream_t st;
+};
+
+template <int SPS, int NT, bool DECIDE>
+cudaError_t launch_mma(const MmaArgs& a) {
+  static int resident = 0;  // one per kernel instantiation
+  const uint32_t* basis = static_cast<const uint32_t*>(a.basis);
+  if constexpr (DECIDE)
+    return anet::demod::launch<__nv_bfloat16, SPS>(
+        decide_tones_mma<SPS, NT>, resident, a.x, a.R, a.pitch, a.len, a.start, 0, a.n_symbols,
+        a.st, basis, static_cast<int32_t*>(a.out0), static_cast<float*>(a.out1),
+        static_cast<float*>(a.out2));
+  else
+    return anet::demod::launch<__nv_bfloat16, SPS>(
+        tone_energies_mma<SPS, NT>, resident, a.x, a.R, a.pitch, a.len, a.start, 0, a.n_symbols,
+        a.st, a.m, basis, static_cast<float*>(a.out0));
+}
+
+template <int SPS, bool DECIDE>
+cudaError_t dispatch_mma_tones(const MmaArgs& a) {
+  if (a.m <= 4) return launch_mma<SPS, 1, DECIDE>(a);
+  if (a.m <= 8) return launch_mma<SPS, 2, DECIDE>(a);
+  return launch_mma<SPS, 4, DECIDE>(a);
+}
+
+template <bool DECIDE>
+int dispatch_mma(const void* x, int R, long long row_stride, const void* start, int n_symbols,
+                 int sps, int m, const void* basis, void* out0, void* out1, void* out2,
+                 void* stream) {
+  const long long row = (long long)n_symbols * sps;
+  if (R < 1 || n_symbols < 1 || m < 1 || m > 16 || (R > 1 && row_stride < row))
+    return (int)cudaErrorInvalidValue;
+  const long long pitch = R > 1 ? row_stride : row;  // one row: its pitch is never used
+  const MmaArgs a{x, R, pitch, row, start, n_symbols, m, basis, out0, out1, out2,
+                  reinterpret_cast<cudaStream_t>(stream)};
+  switch (sps) {
+    case 32:
+      return (int)dispatch_mma_tones<32, DECIDE>(a);
+    case 64:
+      return (int)dispatch_mma_tones<64, DECIDE>(a);
+    case 128:
+      return (int)dispatch_mma_tones<128, DECIDE>(a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// float32 compute: the CUDA-core kernels.
 
 template <typename T, int SPS>
 __global__ void __launch_bounds__(THREADS)
@@ -199,10 +294,11 @@ int dispatch(int dtype, int sps, const void* x, int R, long long row_stride, int
 
 }  // namespace
 
-// x: R rows of >= n_symbols * sps samples, `row_stride` elements apart
-// (contiguous within a row), float32 or bfloat16; basis: [sps, 32] float32
-// for sps 32, 64 or 128 and m <= 16, else [sps, 2m]; energies: [R,
-// n_symbols, m] float32. Returns cudaGetLastError().
+// float32 compute, and any geometry. x: R rows of >= n_symbols * sps
+// samples, `row_stride` elements apart (contiguous within a row), float32
+// or bfloat16 (widened on load); basis: [sps, 32] float32 for sps 32, 64 or
+// 128 and m <= 16, else [sps, 2m] (either compute dtype's entries);
+// energies: [R, n_symbols, m] float32. Returns cudaGetLastError().
 extern "C" int anet_tone_energies(const void* x, int dtype, int R, long long row_stride,
                                   int n_symbols, int sps, int m, const void* basis,
                                   void* energies, void* stream) {
@@ -217,4 +313,26 @@ extern "C" int anet_decide_tones(const void* x, int dtype, int R, long long row_
                                  void* best, void* total, void* stream) {
   return dispatch(dtype, sps, x, R, row_stride, n_symbols, m, true, basis, tone, best, total,
                   stream);
+}
+
+// bfloat16 compute on the tensor cores. x: R rows of >= n_symbols * sps
+// bfloat16 samples, `row_stride` elements apart (>= n_symbols * sps when R >
+// 1), contiguous within a row, any alignment; start: [R] int32 zeros; sps
+// 32, 64 or 128, m <= 16; basis: the B fragments of demod_core.cuh
+// (kernels._demod_mma_basis for bfloat16); energies: [R, n_symbols, m]
+// float32. Returns cudaGetLastError().
+extern "C" int anet_tone_energies_mma(const void* x, int R, long long row_stride,
+                                      const void* start, int n_symbols, int sps, int m,
+                                      const void* basis, void* energies, void* stream) {
+  return dispatch_mma<false>(x, R, row_stride, start, n_symbols, sps, m, basis, energies, nullptr,
+                             nullptr, stream);
+}
+
+// The same rows, zeros and basis; tone: [R, n_symbols] int32; best, total:
+// [R, n_symbols] float32. Returns cudaGetLastError().
+extern "C" int anet_decide_tones_mma(const void* x, int R, long long row_stride, const void* start,
+                                     int n_symbols, int sps, int m, const void* basis, void* tone,
+                                     void* best, void* total, void* stream) {
+  return dispatch_mma<true>(x, R, row_stride, start, n_symbols, sps, m, basis, tone, best, total,
+                            stream);
 }

@@ -12,9 +12,10 @@ JSON object. The counts are static (instructions in the code, not executed
 ones): enough to set one instantiation's inner loop beside another's, e.g.
 the int8 and bfloat16 loads and conversions, or that the tensor-core
 kernels (``search_core``: ``HMMA`` and no float32 product loop,
-``FFMA``; ``demod_core``: ``HMMA`` in the bfloat16 and ``IMMA`` in the int8
-instantiations, ``FFMA`` only in the float32 ones). Needs the CUDA
-toolkit, no card.
+``FFMA``; ``demod_core``, whose walk runs in ``demod_at``,
+``demod_at_energies`` and ``tone_energies``: ``HMMA`` in the bfloat16 and
+``IMMA`` in the int8 ``*_mma`` kernels, ``FFMA`` only in the CUDA-core
+ones). Needs the CUDA toolkit, no card.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from anet_torch.kernels.build import build_all, library_path, nvcc_path
 INT8_SOURCES = ("decide_frame_tm", "demod_at", "demod_at_energies", "demod_probe")
 HEADERS = {  # a shared device header -> the sources built on it
     "search_core": ("sync_search", "search_blockmax", "correlate"),
-    "demod_core": ("demod_at", "demod_at_energies"),
+    "demod_core": ("demod_at", "demod_at_energies", "tone_energies"),
 }
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")

@@ -28,12 +28,14 @@ comma-separated subset of:
   76,288) and ``demod_at_energies_fused`` at the coded one (mfsk4-coded:
   2,160 symbols of 32 samples, 4 tones, buffer 143,872), each on
   bfloat16, int8 (``quantize_int8``) and float32 buffers of noise, starts
-  random in the chunk. These ignore ``--model``.
+  random in the chunk, each with its ``device`` column as ``frame`` has.
+  These ignore ``--model``.
 - ``probe``: ``demod_probe_fused`` at the uncoded locked stream's geometry
   (mfsk16-fast, payload 256: buffer 76,288, the 2,048-sample preamble, 5
   lags, 536 symbols of 64 samples) on bfloat16 and int8 buffers with the
   bfloat16 template the locked step passes, and on float32 buffers with
-  the float32 template, probe bases random in the chunk. It ignores
+  the float32 template, probe bases random in the chunk, each with its
+  ``device`` column (the probe and the demod kernel). It ignores
   ``--model``.
 - ``frame``: ``decide_frame_tm`` at the aligned receiver's geometry
   (mfsk16-fast, payload 256: whole time-major frames of 36,352 rows, the
@@ -45,6 +47,15 @@ comma-separated subset of:
   the kernel's own device time (``... device``: ``torch.profiler``, the
   mean of 5 calls over the kernel rows; null when the trace holds no
   kernel row). It ignores ``--model``.
+- ``bm``: ``tone_energies_fused`` and ``decide_tones_fused`` at the
+  batch-major aligned receiver's geometry (mfsk16-fast, payload 256: the
+  data sections of B = 16,384 bfloat16 frames of 36,352 samples of noise,
+  read in place past the 2,048-sample preamble, 536 symbols of 64
+  samples, 16 tones): bfloat16 compute (``... bfloat16``), float32 compute
+  on the same bf16 rows (``... float32 compute``) and bfloat16 compute on
+  frames of 36,353 samples (``... bfloat16 ragged``: an odd pitch, so the
+  rows pass through every residue mod 16 bytes), each with its ``device``
+  column as ``frame`` has. It ignores ``--model``.
 
 Segments are strided views from sample 1, as the stream passes them. The
 inputs come from one seed, so every checkout times the same data. Needs a
@@ -65,6 +76,7 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "demod": ("demod_at", "demod_at_energies"),
     "probe": ("demod_probe", "demod_at"),
     "frame": ("decide_frame_tm",),
+    "bm": ("tone_energies",),
 }
 FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
 DEMOD_MODELS = {"demod_at_fused": "mfsk16-fast", "demod_at_energies_fused": "mfsk4-coded"}
@@ -106,8 +118,9 @@ def time_ms(fn, reps=5):
 
 
 def device_ms(fn, key, reps=5):
-    # the device time a call of the kernels whose name holds ``key``; None
-    # when the trace holds no such kernel (never a time nobody measured)
+    # the device time a call of the kernels whose name holds ``key`` (or one
+    # of the keys of a tuple); None when the trace holds no such kernel
+    # (never a time nobody measured)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,7 +130,8 @@ def device_ms(fn, key, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
+    keys = key if isinstance(key, tuple) else (key,)
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and any(k in e.key for k in keys)]
     if not rows:
         return None
     return sum(e.self_device_time_total for e in rows) / reps / 1e3
@@ -161,7 +175,10 @@ if "demod" in kinds:
         for label, make in (("bfloat16", lambda: x.to(torch.bfloat16)), ("int8", lambda: quantize_int8(x)),
                             ("float32", lambda: x)):
             buf = make()
-            out[f"{{name}} {{label}}"] = time_ms(lambda: fn(c, buf, starts, n_sym))
+            call = lambda: fn(c, buf, starts, n_sym)
+            out[f"{{name}} {{label}}"] = time_ms(call)
+            key = name.removesuffix("_fused") + ("_f32" if label == "float32" else "_mma")
+            out[f"{{name}} {{label}} device"] = device_ms(call, key)
             del buf
             torch.cuda.empty_cache()
         del x
@@ -180,8 +197,10 @@ if "probe" in kinds:
                            ("int8", lambda: quantize_int8(x), t32.to(torch.bfloat16)),
                            ("float32", lambda: x, t32)):
         buf = make()
-        out[f"demod_probe_fused {{label}}"] = time_ms(
-            lambda: kernels.demod_probe_fused(c, buf, st0, n_sym, t, n_lags=5))
+        call = lambda: kernels.demod_probe_fused(c, buf, st0, n_sym, t, n_lags=5)
+        out[f"demod_probe_fused {{label}}"] = time_ms(call)
+        demod = "demod_f32" if label == "float32" else "demod_at_mma"
+        out[f"demod_probe_fused {{label}} device"] = device_ms(call, ("probe_kernel", demod))
         del buf
         torch.cuda.empty_cache()
 if "frame" in kinds:
@@ -200,13 +219,29 @@ if "frame" in kinds:
         del xs
         torch.cuda.empty_cache()
     del x
+if "bm" in kinds:
+    c = get_model("mfsk16-fast").config
+    t_frame, pre = family.frame_samples(c, 256), c.preamble_samples
+    x = torch.randn({frame_b}, t_frame + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    for label, make, dtype in (("bfloat16", lambda: x[:, 1:].contiguous(), torch.bfloat16),
+                               ("float32 compute", lambda: x[:, 1:].contiguous(), torch.float32),
+                               ("bfloat16 ragged", lambda: x, torch.bfloat16)):
+        xs = make()
+        rows = xs[:, xs.shape[1] - t_frame + pre :]  # the data sections, read in place
+        for name, key in (("tone_energies_fused", "tone_energies"), ("decide_tones_fused", "decide_tones")):
+            call = lambda: getattr(kernels, name)(c, rows, compute_dtype=dtype)
+            out[f"{{name}} {{label}}"] = time_ms(call)
+            out[f"{{name}} {{label}} device"] = device_ms(call, key)
+        del xs, rows
+        torch.cuda.empty_cache()
+    del x
 print(json.dumps(out))
 """
 
 
 def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) -> dict:
     """The timings of the checkout at ``root``, from a process of its own."""
-    sources = tuple(s for kind in kinds for s in KERNELS[kind])
+    sources = tuple(dict.fromkeys(s for kind in kinds for s in KERNELS[kind]))  # one nvcc a source
     child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS,
                           demod_models=DEMOD_MODELS, frame_b=FRAME_B)
     run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)

@@ -1,4 +1,4 @@
-"""Where the time of the port's streaming receivers goes, on one GPU.
+"""Where the time of the port's streaming and aligned receivers goes, on one GPU.
 
     python -m anet_torch.profile_stream [model] [path]
 
@@ -18,10 +18,16 @@
 - ``dynamic-lock``: the variable-length locked stream (payloads 64, 256,
   128, 64, 256, 128, chunk of one shortest frame), warm and cold; a coded
   model needs fec_interleave == 1 (mfsk4-coded-stream).
+- ``aligned-bm``: the batch-major aligned receiver of chip_smoke.py on
+  16,384 bf16 frames (uncoded MFSK): demodulate_frame with bfloat16
+  compute (the filterbank tone_energies_fused, then the plain decisions
+  and parse), then decide_tones_fused on the data sections read in place
+  and frame_result_from_tone_decisions ("aligned-bm-decide").
 
 ``model`` is mfsk16-fast unless named; the OFDM presets (ofdm-fast, and for
-``lock`` the coded ones) run the same paths but ``lock-int8``, which takes the
-MFSK presets only (a coded one's aligned run stays bf16: int8 aligned
+``lock`` the coded ones) run the same paths but ``lock-int8`` and
+``aligned-bm``, which take the MFSK presets only (``aligned-bm`` the
+uncoded ones) (a coded one's aligned run stays bf16: int8 aligned
 compute is uncoded only). Each run happens once to warm up,
 then once under torch.profiler, and prints the device time of each kernel
 (the top 12, then every hand-written kernel of ``kernels/csrc`` below
@@ -175,6 +181,32 @@ def profile_dynamic(cfg, model: str, lock: bool, gen, dev) -> None:
         report("stream-dynamic (2 candidates a chunk)", lambda: run(None))
 
 
+def profile_aligned_bm(cfg, model: str, gen, dev) -> None:
+    from anet_torch import kernels
+
+    if cfg.fec != "none" or family.is_ofdm(cfg):
+        raise ValueError(f"aligned-bm takes an uncoded MFSK model, got {model}")
+    b, pre = ALIGNED_B, cfg.preamble_samples
+    pay = torch.randint(0, 256, (b, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
+    x = family.transmit_fn(cfg, dev)(pay).to(torch.bfloat16)
+
+    def demodulate():
+        res = tframe.demodulate_frame(cfg, x, PAYLOAD, compute_dtype=torch.bfloat16, device=dev)
+        assert int(res.ok.sum()) == b
+
+    def decide():
+        tone, best, total = kernels.decide_tones_fused(cfg, x[:, pre:], compute_dtype=torch.bfloat16)
+        res = tframe.frame_result_from_tone_decisions(cfg, tone, best, total, PAYLOAD)
+        assert int(res.ok.sum()) == b
+
+    print(f"{model} aligned-bm: B {b}, bf16 frames of {x.shape[1]}")
+    report("aligned-bm (demodulate_frame)", demodulate)
+    report("aligned-bm-decide (decide_tones_fused + frame_result_from_tone_decisions)", decide)
+
+
+PATHS = ("lock", "lock-int8", "dynamic", "dynamic-lock", "aligned-bm")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -182,9 +214,8 @@ def main(argv=None) -> int:
         return 2
     model = argv[0] if argv else "mfsk16-fast"
     path = argv[1] if len(argv) > 1 else "lock"
-    if path not in ("lock", "lock-int8", "dynamic", "dynamic-lock"):
-        print(f"profile_stream: path must be lock, lock-int8, dynamic or dynamic-lock, got {path!r}",
-              file=sys.stderr)
+    if path not in PATHS:
+        print(f"profile_stream: path must be one of {', '.join(PATHS)}, got {path!r}", file=sys.stderr)
         return 2
     build_all()
     dev = torch.device("cuda")
@@ -192,6 +223,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     if path in ("lock", "lock-int8"):
         profile_lock(cfg, model, gen, dev, int8=path == "lock-int8")
+    elif path == "aligned-bm":
+        profile_aligned_bm(cfg, model, gen, dev)
     else:
         profile_dynamic(cfg, model, path == "dynamic-lock", gen, dev)
     return 0

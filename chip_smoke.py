@@ -26,7 +26,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
    and untracked, timed on ofdm-fast at B = 8,192; the batch-major
    filterbank (tone_energies_fused, decide_tones_fused) on bf16 mfsk16-fast
-   data sections read in place, timed at B = 16,384; and the tensor-core
+   data sections read in place, bfloat16 compute (the tensor cores) held
+   against the plain versions at 256 rows and at B = 16,384 (tones
+   bit-equal) and timed there, then its float32-compute route (the
+   CUDA-core kernels) on the same rows held against the plain versions at
+   B = 16,384 and logged against its bound; and the tensor-core
    search (sync_search_fused) timed three more times, each logged against
    its bound: its float32 route (seg and template split into bf16 hi + lo)
    at the main shape, and bf16 at the coded (mfsk4-coded: k 1,024, chunk
@@ -622,26 +626,38 @@ def phase_kernels_coded(cfg, gen) -> dict:
 
 def phase_kernels_batch_major(cfg, gen) -> dict:
     """Phase 2 for the batch-major filterbank (mfsk16-fast): bf16 frames at
-    operating noise, their data sections read in place past the preamble;
-    timed at B = 16,384."""
+    operating noise, their data sections read in place past the preamble,
+    bfloat16 compute (the tensor-core route) held against the plain
+    versions at 256 rows and at B = 16,384 (tones bit-equal) and timed
+    there; then the float32-compute route on the same bf16 rows (the
+    CUDA-core kernels, receive_frame's default) held against the plain
+    versions in the same way at B = 16,384 and timed against its bound.
+    max_abs_err is the larger of the two routes'."""
     sps, m = cfg.samples_per_symbol, cfg.num_tones
     n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
     pre = cfg.preamble_samples
     pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
     w = transmit(cfg, pay, device=DEV)
     x = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).to(torch.bfloat16)
-    data = x[:, pre:]
-    results = {}
-    got = kernels.tone_energies_fused(cfg, data, compute_dtype=torch.bfloat16)
-    want = kernels.tone_energies_fused_ref(cfg, data, compute_dtype=torch.bfloat16)
-    if not torch.equal(got.argmax(-1), want.argmax(-1)):
-        raise AssertionError("tone_energies_fused: winning tones differ")
-    results["tone_energies_fused"] = {"max_abs_err": compare("tone_energies_fused", (got,), (want,), (), (0,))}
-    got = kernels.decide_tones_fused(cfg, data, compute_dtype=torch.bfloat16)
-    want = kernels.decide_tones_fused_ref(cfg, data, compute_dtype=torch.bfloat16)
-    results["decide_tones_fused"] = {"max_abs_err": compare("decide_tones_fused", got, want, (0,), (1, 2))}
     data_full = x.repeat(ALIGNED_B // COMPARE_B, 1)[:, pre:]
-    del w, x, data, got, want
+    del w
+    results = {"tone_energies_fused": {"max_abs_err": 0.0}, "decide_tones_fused": {"max_abs_err": 0.0}}
+    for data in (x[:, pre:], data_full):
+        b = data.shape[0]
+        got = kernels.tone_energies_fused(cfg, data, compute_dtype=torch.bfloat16)
+        want = kernels.tone_energies_fused_ref(cfg, data, compute_dtype=torch.bfloat16)
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError(f"tone_energies_fused (B {b}): winning tones differ")
+        err = compare(f"tone_energies_fused (B {b})", (got,), (want,), (), (0,))
+        results["tone_energies_fused"]["max_abs_err"] = max(results["tone_energies_fused"]["max_abs_err"], err)
+        del got, want
+        got = kernels.decide_tones_fused(cfg, data, compute_dtype=torch.bfloat16)
+        want = kernels.decide_tones_fused_ref(cfg, data, compute_dtype=torch.bfloat16)
+        err = compare(f"decide_tones_fused (B {b})", got, want, (0,), (1, 2))
+        results["decide_tones_fused"]["max_abs_err"] = max(results["decide_tones_fused"]["max_abs_err"], err)
+        del got, want
+        torch.cuda.empty_cache()
+    del x
     calls = {
         "tone_energies_fused": (
             lambda f: f(cfg, data_full, compute_dtype=torch.bfloat16),
@@ -658,6 +674,29 @@ def phase_kernels_batch_major(cfg, gen) -> dict:
         "decide_tones_fused": (b * n_sym * (sps * 2 + 12), flops),
     }
     time_and_bound(results, calls, work)
+    # the float32-compute route on the same bf16 rows (the oneshot path's):
+    # held against the plain versions as the bf16 route, then timed against
+    # its bound, its products at the float32 peak
+    f32_calls = (("tone_energies_fused", kernels.tone_energies_fused, kernels.tone_energies_fused_ref),
+                 ("decide_tones_fused", kernels.decide_tones_fused, kernels.decide_tones_fused_ref))
+    for name, fn, ref in f32_calls:
+        got = fn(cfg, data_full, compute_dtype=torch.float32)
+        want = ref(cfg, data_full, compute_dtype=torch.float32)
+        label = f"{name} (float32 compute on bf16 rows, B {b})"
+        if name == "tone_energies_fused":
+            if not torch.equal(got.argmax(-1), want.argmax(-1)):
+                raise AssertionError(f"{label}: winning tones differ")
+            err = compare(label, (got,), (want,), (), (0,))
+        else:
+            err = compare(label, got, want, (0,), (1, 2))
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        del got, want
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: fn(cfg, data_full, compute_dtype=torch.float32))
+        bound, by = bound_ms(work[name][0], flops, F32_FLOPS_S)
+        log(f"  {name} (float32 compute on bf16 rows: B {b}, {n_sym} symbols): kernel {ms:.3f} ms, "
+            f"bound {bound:.3f} ms ({by})")
+        torch.cuda.empty_cache()
     return results
 
 

@@ -960,3 +960,120 @@ def test_cuda_decide_frame_tm_many_tiles_a_block(cuda, dtype, ragged):
     if ragged:
         x = x[:, 1:].contiguous()
     _check_frame_tm(cuda, CFG, x, 256, CFG.preamble_samples, dtype)
+
+
+# --- the batch-major filterbank on the tensor cores: every residue and edge --
+
+BM_LEADS = ((1,), (7,), (257,), (2, 3))  # the rows' leading shape
+BM_SYMBOLS = (1, 15, 16, 17, 67)
+GAP = 1.0e4  # samples between rows and before the first: a read of them would show
+
+
+def _bm_rows(cfg, rng, device, lead, n_sym, strided, offset, fill="frames"):
+    """bfloat16 rows [*lead, n_sym * sps (+ 5 when ``strided``)] in one flat
+    allocation that ends with the last row. Contiguous: back to back,
+    ``offset`` samples (filled with GAP) into the allocation, so every row is
+    at that residue mod 8. Strided: an odd pitch of two symbols and 3
+    samples (GAP) more than the row, a partial symbol after the whole ones,
+    so the rows pass through every residue. ``fill``: the data sections of
+    noisy frames (copies of a few, each symbol a clear winner), all zeros
+    (every tone ties) or +-1 at random (full scale)."""
+    sps, pre = cfg.samples_per_symbol, cfg.preamble_samples
+    r = int(np.prod(lead))
+    width = n_sym * sps + (5 if strided else 0)
+    pitch = width + (2 * sps + 3 if strided else 0)
+    if fill == "frames":
+        k = min(r, 5)
+        w = transmit(cfg, rng.integers(0, 256, (k, PAY), dtype=np.uint8), device="cpu").numpy()[:, pre:]
+        data = np.tile(w, (-(-r // k), -(-width // w.shape[1])))[:r, :width]
+        data = data + 0.3 * rng.standard_normal(data.shape).astype(np.float32)
+    elif fill == "zeros":
+        data = np.zeros((r, width), np.float32)
+    else:
+        data = rng.choice(np.array([-1.0, 1.0], np.float32), (r, width))
+    flat = torch.full((offset + (r - 1) * pitch + width,), GAP, dtype=torch.float32)
+    rows = flat[offset:].as_strided((r, width), (pitch, 1))
+    rows.copy_(torch.from_numpy(data))
+    flat = flat.to(device, torch.bfloat16)
+    strides = tuple(int(np.prod(lead[i + 1 :])) * pitch for i in range(len(lead)))
+    return flat[offset:].as_strided((*lead, width), (*strides, 1)), flat
+
+
+def _check_bm(cfg, rows, exact=False):
+    """One launch each of tone_energies_fused and decide_tones_fused on
+    ``rows`` with bfloat16 compute (the tensor-core route), under their
+    keys, held against the plain versions: tones and the energies' argmax
+    bit-equal; energies, best and total within rtol 1e-3 (float32 sums in
+    another order), or bit-equal where ``exact``."""
+    before = dict(tk.launch_counts)
+    e = tk.tone_energies_fused(cfg, rows, compute_dtype=torch.bfloat16)
+    got = tk.decide_tones_fused(cfg, rows, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
+    assert launched == {"tone_energies_fused": 1, "decide_tones_fused": 1}
+    want_e = tk.tone_energies_fused_ref(cfg, rows, compute_dtype=torch.bfloat16)
+    want = tk.decide_tones_fused_ref(cfg, rows, compute_dtype=torch.bfloat16)
+    assert e.shape == want_e.shape and all(g.shape == w.shape for g, w in zip(got, want))
+    assert torch.equal(got[0], want[0]) and torch.equal(e.argmax(-1).int(), want[0])
+    tol = 0 if exact else 1e-3
+    for a, b in zip((e, *got[1:]), (want_e, *want[1:])):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    return e, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", BM_LEADS, ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("n_sym", BM_SYMBOLS)
+@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+def test_cuda_batch_major_filterbank_at_every_residue(cuda, geometry, n_sym, lead):
+    """tone_energies_fused and decide_tones_fused with bfloat16 compute (the
+    tensor-core route) against their plain versions: sps 32/64/128 and
+    2/4/8/16 tones, n_symbols 1, 15, 16, 17 and 67 (whole, partial and
+    several symbol tiles), R = 1, 7, 257 and a [2, 3] leading shape; rows
+    contiguous at an offset of every residue mod 8 or strided at an odd
+    pitch (every residue) with a partial symbol after them, the gaps
+    between rows filled with a large value and the last row ending at the
+    allocation's end. One launch under each key."""
+    cfg = DEMOD_CONFIGS[geometry]
+    case = BM_LEADS.index(lead) + 4 * (BM_SYMBOLS.index(n_sym) + 5 * list(DEMOD_CONFIGS).index(geometry))
+    rng = np.random.default_rng(case)
+    strided = case % 2 == 1
+    rows, flat = _bm_rows(cfg, rng, cuda, lead, n_sym, strided, offset=(case // 2) % 8)
+    assert rows.data_ptr() + rows.shape[-1] * 2 + rows.stride(-2) * 2 * (int(np.prod(lead)) - 1) == (
+        flat.data_ptr() + flat.numel() * 2)
+    e, _ = _check_bm(cfg, rows)
+    assert e.shape == (*lead, n_sym, cfg.num_tones)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["zeros", "saturated"])
+@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+def test_cuda_batch_major_filterbank_every_tie_and_extreme(cuda, geometry, fill):
+    """All-zero rows (every tone ties: tone 0, zero energies, best and
+    total, bit-equal) and rows of +-1 at random (full scale), R = 7,
+    strided, 17 symbols."""
+    cfg = DEMOD_CONFIGS[geometry]
+    rng = np.random.default_rng(17 + len(fill))
+    rows, _ = _bm_rows(cfg, rng, cuda, (7,), 17, True, offset=3, fill=fill)
+    e, got = _check_bm(cfg, rows, exact=fill == "zeros")
+    if fill == "zeros":
+        assert not got[0].any() and not e.any() and not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded", "mfsk32-dense", "mfsk8-audible"])
+def test_cuda_batch_major_float32_compute_on_bf16_rows(cuda, model):
+    """float32 compute on bfloat16 rows (receive_frame's route on bf16
+    captures) takes the CUDA-core kernels with the float32 basis, not the
+    tensor cores' bf16-rounded one: energies within rtol 1e-5 of the plain
+    float32 version's, tones and best within 1e-5 too."""
+    cfg = get_model(model).config
+    rows, _ = _bm_rows(cfg, np.random.default_rng(29), cuda, (33,), 40, True, offset=1)
+    e = tk.tone_energies_fused(cfg, rows, compute_dtype=torch.float32)
+    want = tk.tone_energies_fused_ref(cfg, rows, compute_dtype=torch.float32)
+    torch.testing.assert_close(e, want, rtol=1e-5, atol=1e-5 * float(want.max()))
+    got = tk.decide_tones_fused(cfg, rows, compute_dtype=torch.float32)
+    ref = tk.decide_tones_fused_ref(cfg, rows, compute_dtype=torch.float32)
+    assert torch.equal(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)

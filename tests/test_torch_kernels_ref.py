@@ -633,22 +633,131 @@ def test_demodulate_frame_use_kernel_matches_anet(name, dtype, monkeypatch):
     np.testing.assert_allclose(t.confidence.numpy(), np.asarray(j.confidence), rtol=1e-5)
 
 
-@pytest.mark.parametrize(
-    "name,shape", [("mfsk16-fast", (64, 32)), ("mfsk4-coded", (32, 32)), ("mfsk32-dense", (80, 64)), ("mfsk8-audible", (48, 16))]
-)
-def test_filterbank_basis_layout(name, shape):
-    """The filterbank kernels' basis: the fast kernels' [sps, 32] (cos of
-    the tones in columns 0.., sin in 16..) for sps 32/64/128 and at most 16
-    tones, else the plain [sps, 2M]; the same entries as the plain basis."""
+_FILTERBANK_PRESETS = {  # name: (fast geometry, float32 basis shape)
+    "mfsk16-fast": (True, (64, 32)),
+    "mfsk4-coded": (True, (32, 32)),
+    "mfsk32-dense": (False, (80, 64)),
+    "mfsk8-audible": (False, (48, 16)),
+}
+
+
+@pytest.mark.parametrize("compute", ["float32", "bf16"])
+@pytest.mark.parametrize("name", list(_FILTERBANK_PRESETS))
+def test_filterbank_basis_layout(name, compute):
+    """The filterbank kernels' basis. float32 compute: the fast kernels'
+    [sps, 32] (cos of the tones in columns 0.., sin in 16..) for sps
+    32/64/128 and at most 16 tones, else the plain [sps, 2M]; the same
+    entries as the plain basis. bfloat16 compute at the fast geometry: the
+    tensor-core B fragments, which read back as the interleaved basis with
+    the plain bf16 basis's entries; elsewhere the plain [sps, 2M] in bf16
+    entries."""
     cfg = get_model(name).config
-    m = cfg.num_tones
-    basis = tk._filterbank_basis(cfg, torch.float32, torch.device("cpu"))
-    plain = tk._plain_basis(cfg, torch.float32, "cpu")
-    assert basis.shape == shape and basis.is_contiguous()
+    fast, shape = _FILTERBANK_PRESETS[name]
+    dt = {"float32": torch.float32, "bf16": torch.bfloat16}[compute]
+    m, cpu = cfg.num_tones, torch.device("cpu")
+    plain = tk._plain_basis(cfg, dt, "cpu")
+    entry, mma, basis = tk._filterbank_operands("tone_energies", cfg, dt, cpu)
+    assert mma == (fast and dt == torch.bfloat16)
+    if mma:
+        assert entry == "tone_energies_mma" and basis is tk._demod_mma_basis(cfg, dt, cpu)
+        b = _unpack_demod_mma_basis(basis, dt)
+        assert torch.equal(b[:, 0 : 2 * m : 2], plain[:, :m]) and torch.equal(b[:, 1 : 2 * m : 2], plain[:, m:])
+        return
+    assert entry == "tone_energies" and basis is tk._filterbank_basis(cfg, dt, cpu)
+    assert basis.dtype == torch.float32 and basis.shape == shape and basis.is_contiguous()
     if shape[1] == 2 * m:
         assert torch.equal(basis, plain)
     else:
         assert torch.equal(basis[:, :m], plain[:, :m]) and torch.equal(basis[:, 16 : 16 + m], plain[:, m:])
+
+
+def _record_filterbank_calls(monkeypatch) -> list:
+    """Replace the card's calls of the filterbank wrappers' launch code by
+    recorders: each entry call appends (entry, its arguments), each launch
+    check ("checked", the kernel's name). Nothing is launched or counted."""
+    calls = []
+    monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
+    monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
+    monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what: tk._KERNEL_DTYPES[t.dtype])
+    monkeypatch.setattr(tk, "_check_launch", lambda err, name: calls.append(("checked", name)))
+    return calls
+
+
+@pytest.mark.parametrize("rows", ["float32", "bf16"])
+@pytest.mark.parametrize("compute", ["float32", "bf16"])
+@pytest.mark.parametrize("name", list(_FILTERBANK_PRESETS))
+def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, rows):
+    """Which C entry each filterbank call takes, with which operands, for
+    the four MFSK presets x compute dtype x rows dtype, through the
+    wrappers' launch code with the card's calls replaced by recorders (so
+    nothing is launched): bfloat16 compute at the fast geometry takes the
+    tensor-core entry (``*_mma``: rows, R, row pitch, the cached int32
+    zero starts) with _demod_mma_basis; float32 compute, bfloat16 rows
+    included (read as they are and widened on load), takes the CUDA-core
+    entry (rows, dtype code, R, row pitch) with the float32 [sps, 32]
+    columns, never the bf16-rounded ones; any other geometry the CUDA-core
+    entry with the plain [sps, 2M] basis. Rows are a strided view past the
+    preamble of [2, 3] frames."""
+    from anet_torch.kernels import build
+
+    cfg = get_model(name).config
+    fast, _ = _FILTERBANK_PRESETS[name]
+    cdt, rdt = ({"float32": torch.float32, "bf16": torch.bfloat16}[v] for v in (compute, rows))
+    sps, m, pre, cpu = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples, torch.device("cpu")
+    s = 5
+    frames = torch.randn(2, 3, pre + s * sps + 7).to(rdt)  # a partial symbol past the last whole one
+    data = frames[..., pre:]
+    calls = _record_filterbank_calls(monkeypatch)
+    before = dict(tk.launch_counts)
+    mma = fast and cdt == torch.bfloat16
+    for kind, n_out in (("tone_energies", 1), ("decide_tones", 3)):
+        calls.clear()
+        outs = tk._filterbank_launch(kind + "_fused", kind, cfg, data, cdt, lambda lead, n, dev: tuple(
+            torch.empty(*lead, n, dtype=torch.float32) for _ in range(n_out)))
+        (key, args), checked = calls
+        assert checked == ("checked", kind + "_fused")
+        assert all(o.shape == (2, 3, s) for o in outs)
+        sig = build.SIGNATURES[key]
+        assert (*sig[2:], key)[0] == "tone_energies" and len(sig[1]) == len(args) == 4 + 4 + n_out + 1
+        tail = (s, sps, m)
+        basis_ptr, out_ptrs = args[7], args[8 : 8 + n_out]
+        assert args[4:7] == tail and out_ptrs == tuple(o.data_ptr() for o in outs) and args[-1] == 0
+        row_dtype = torch.bfloat16 if cdt == torch.bfloat16 else rdt
+        r, pitch = args[1:3] if mma else args[2:4]
+        assert r == 6
+        if row_dtype == rdt:  # the view past the preamble, read in place
+            assert args[0] == data.data_ptr() and pitch == frames.shape[-1]
+        else:  # cast: a copy of the data sections
+            assert pitch == data.shape[-1]
+        if mma:
+            assert key == kind + "_mma"
+            assert args[3] == tk._zero_starts(6, cpu).data_ptr()
+            assert not bool(tk._zero_starts(6, cpu).any()) and tk._zero_starts(6, cpu).dtype == torch.int32
+            assert basis_ptr == tk._demod_mma_basis(cfg, torch.bfloat16, cpu).data_ptr()
+        else:
+            assert key == kind and args[1] == tk._KERNEL_DTYPES[row_dtype]
+            basis = tk._filterbank_basis(cfg, cdt, cpu)
+            assert basis_ptr == basis.data_ptr() and basis.dtype == torch.float32
+            assert basis.shape == ((sps, 32) if fast else (sps, 2 * m))
+            if fast and cdt == torch.float32:  # the float32 columns, not the bf16-rounded ones
+                assert basis is tk._kernel_basis(cfg, torch.float32, cpu)
+                assert not torch.equal(basis, tk._kernel_basis(cfg, torch.bfloat16, cpu))
+    assert tk.launch_counts == before
+
+
+def test_filterbank_mma_route_rows(monkeypatch):
+    """The tensor-core route's rows: one zero-start vector per (R, device),
+    made once; overlapping rows (a pitch shorter than a row's symbols)
+    become contiguous, whose pitch is the row length."""
+    cpu = torch.device("cpu")
+    assert tk._zero_starts(7, cpu) is tk._zero_starts(7, cpu)
+    sps = CFG.samples_per_symbol
+    calls = _record_filterbank_calls(monkeypatch)
+    over = torch.randn(4 * sps * 3).to(torch.bfloat16).as_strided((3, 4 * sps), (2 * sps, 1))  # rows overlap by half
+    tk._filterbank_launch("decide_tones_fused", "decide_tones", CFG, over, torch.bfloat16,
+                          lambda lead, n, dev: tuple(torch.empty(*lead, n) for _ in range(3)))
+    (key, args), _ = calls
+    assert key == "decide_tones_mma" and args[1:3] == (3, 4 * sps) and args[0] != over.data_ptr()
 
 
 _DEMOD_MMA_CONFIGS = {  # every preset tone count (2, 4, 16) at sps 32/64/128, and 8 tones
