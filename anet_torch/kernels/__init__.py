@@ -13,7 +13,7 @@ block maxima of the two-phase acquisition search).
 | demod_probe_fused       | csrc/demod_probe.cu + demod_at.cu   | anet/kernels/__init__.py:2307 |
 | viterbi_trellis         | csrc/viterbi.cu                     | anet/kernels/__init__.py:754  |
 | demod_at_energies_fused | csrc/demod_at_energies.cu           | anet/kernels/__init__.py:1918 |
-| probe_at_fused          | csrc/probe_at.cu                    | anet/kernels/__init__.py:1621 |
+| probe_at_fused          | csrc/demod_probe.cu                 | anet/kernels/__init__.py:1621 |
 | correlate_fused         | csrc/correlate.cu                   | anet/kernels/__init__.py:891  |
 | decide_tones_tm         | csrc/decide_tones_tm.cu             | anet/kernels/__init__.py:269  |
 | gather_rows_fused       | csrc/gather_rows.cu                 | anet/kernels/__init__.py:1415 |
@@ -47,7 +47,10 @@ rows read in place from every start 0 under bfloat16 compute; float32
 compute, bfloat16 rows included, keeps its CUDA-core body (the route:
 ``_filterbank_operands``). demod_probe_fused is a warp-per-stream probe
 followed by demod_at_fused's kernel (float32: a CUDA-core block a
-stream).
+stream); probe_at_fused runs the same staged probe (csrc/demod_probe.cu)
+with its span at the probe base and the quality as its epilogue, the
+template energy read on the card. ofdm_track_decide_fused is a warp per
+stream over points staged in shared memory.
 decide_frame_tm runs the same tensor-core filterbank with streams on the
 product's M axis, its A operand staged from time-major rows with
 ``ldmatrix.trans``, and counts CRC bits with popcounts of the packed words
@@ -616,7 +619,8 @@ def _probe_template(template: torch.Tensor, dtype: torch.dtype):
     return torch.round(tf * (torch.full_like(tmax, INT8_BASIS_SCALE) / tmax)), tmax / INT8_BASIS_SCALE
 
 
-_INT8_TAPS: dict = {}  # (id, version) of a template -> (template, taps, cmax scale)
+# buffer dtype -> {(id, version) of a template: (template, (taps, cmax scale))}
+_PROBE_TAPS: dict = {dtype: {} for dtype in _KERNEL_DTYPES}
 
 
 def _per_template(cache: dict, template: torch.Tensor, make):
@@ -632,23 +636,28 @@ def _per_template(cache: dict, template: torch.Tensor, make):
     return hit[1]
 
 
-def _int8_probe_template(template: torch.Tensor):
-    """_probe_template of an int8 buffer, made once per template tensor."""
-    return _per_template(_INT8_TAPS, template, lambda t: _probe_template(t, torch.int8))
+def _cached_probe_template(template: torch.Tensor, dtype: torch.dtype):
+    """_probe_template with contiguous taps, made once per template tensor
+    and buffer dtype."""
+
+    def make(t):
+        taps, scale = _probe_template(t, dtype)
+        return taps.contiguous(), scale
+
+    return _per_template(_PROBE_TAPS[dtype], template, make)
 
 
 def _probe_operands(template: torch.Tensor, dtype: torch.dtype, device):
     """(contiguous float32 taps [k], the cmax scale or None), both on
-    ``device``: the probe kernel's template operands for a buffer of
-    ``dtype``. For int8 the x127 taps and the float32 scalar max|t| / 127,
-    made once per template tensor; the kernel reads the scale through its
-    address and multiplies it into cmax itself (no host read, no multiply
-    after the launch)."""
-    template = template.to(device)
-    if dtype == torch.int8:
-        taps, scale = _int8_probe_template(template)
-        return taps.contiguous(), scale
-    return _probe_template(template, dtype)[0].contiguous(), None
+    ``device``: the probe kernels' template operands for a buffer of
+    ``dtype``, made once per template tensor and dtype (a stream passes
+    the same template every chunk). For int8 the x127 taps and the float32
+    scalar max|t| / 127; the kernel reads the scale through its address and
+    multiplies it into cmax itself (no host read, no multiply after the
+    launch)."""
+    if template.device != device:
+        template = template.to(device)
+    return _cached_probe_template(template, dtype)
 
 
 def _probe_abs_corr(buffer: torch.Tensor, st: torch.Tensor, taps: torch.Tensor, n_lags: int):
@@ -902,9 +911,22 @@ def probe_at_fused(
     every probed window, so quality only under-reports. (The row-aligned
     span of sync.preamble_quality_probe differs from it by a few percent.)
     Samples past the buffer's end read as zero; the template rounds to the
-    buffer's dtype."""
+    buffer's dtype. ``template_energy`` (te) is a float or a float32 scalar
+    tensor; on the card the kernel reads a tensor through its address, so
+    the call never waits for the card.
+
+    On the card: csrc/demod_probe.cu's probe_at_kernel, a warp a stream
+    (demod_probe_fused's staged probe with the span at st0), float32 or
+    bfloat16 buffers."""
     if buffer.device.type == "cpu":
         return probe_at_fused_ref(buffer, st0, template, template_energy, n_lags)
+    return _probe_at_launch(buffer, st0, template, template_energy, n_lags)
+
+
+def _probe_at_launch(buffer, st0, template, template_energy, n_lags):
+    """probe_at_fused's launch: the taps made once per template tensor, a
+    tensor ``template_energy`` passed by address (no float(): no host
+    read), a float by value."""
     name = "probe_at_fused"
     dtype, st = _check_buffer_and_starts(name, buffer, st0, "st0", int8=False)
     if not 1 <= n_lags <= 8:
@@ -912,11 +934,22 @@ def probe_at_fused(
     b, length = buffer.shape
     dev = buffer.device
     k = template.shape[-1]
-    tpl = template.to(device=dev, dtype=buffer.dtype).float().contiguous()
     q = torch.empty(b, n_lags, dtype=torch.float32, device=dev)
+    if b == 0:
+        return q
+    taps, _ = _probe_operands(template, buffer.dtype, dev)
+    if isinstance(template_energy, torch.Tensor):
+        te = template_energy
+        if te.device != dev or te.dtype != torch.float32:
+            te = te.to(device=dev, dtype=torch.float32)
+        if te.numel() != 1:
+            raise ValueError(f"{name}: template_energy must be a scalar, got {tuple(te.shape)}")
+        te_ptr, te_val = te.data_ptr(), 0.0
+    else:
+        te_ptr, te_val = None, float(template_energy)
     err = _entry("probe_at")(
-        buffer.data_ptr(), dtype, b, length, st.data_ptr(), tpl.data_ptr(), k, n_lags,
-        _probe_span_rows(k, n_lags), float(template_energy), q.data_ptr(), _stream_handle(dev),
+        buffer.data_ptr(), dtype, b, length, st.data_ptr(), taps.data_ptr(), k, n_lags,
+        _probe_span_rows(k, n_lags), te_ptr, te_val, q.data_ptr(), _stream_handle(dev),
     )
     _check_launch(err, name)
     return q
@@ -1126,7 +1159,7 @@ def ofdm_track_decide_fused(
     config, z_eq: torch.Tensor, h_pow: torch.Tensor, slope0: torch.Tensor, *,
     evm_symbols: int | None = None, with_coherence: bool = False,
 ):
-    """The OFDM equalizer's back half, one block per stream: the
+    """The OFDM equalizer's back half, one warp per stream: the
     decision-directed clock fit (two iterations from the preamble seed
     ``slope0``; skipped when config.clock_tracking is off), the identity
     gate, the derotation, the max-log LLR planes and the error-vector power.
@@ -1143,9 +1176,15 @@ def ofdm_track_decide_fused(
         return ofdm_track_decide_fused_ref(
             config, z_eq, h_pow, slope0, evm_symbols=evm_symbols, with_coherence=with_coherence
         )
-    name = "ofdm_track_decide_fused"
     if not z_eq.is_cuda:
-        raise ValueError(f"{name}: z_eq must be a CUDA tensor, got {z_eq.device}")
+        raise ValueError(f"ofdm_track_decide_fused: z_eq must be a CUDA tensor, got {z_eq.device}")
+    return _ofdm_track_launch(config, z_eq, h_pow, slope0, evm_symbols, with_coherence)
+
+
+def _ofdm_track_launch(config, z_eq, h_pow, slope0, evm_symbols, with_coherence):
+    """ofdm_track_decide_fused's launch: z_eq and h_pow go to the kernel by
+    their strides (in complex and float elements), views left as they are."""
+    name = "ofdm_track_decide_fused"
     if z_eq.dtype != torch.complex64 or z_eq.dim() < 2:
         raise ValueError(f"{name}: z_eq must be a complex64 [..., S, C] tensor")
     lead, (s, c) = z_eq.shape[:-2], z_eq.shape[-2:]

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "anet_torch_kernels"
 SOURCES = (
     "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
-    "viterbi", "demod_at_energies", "probe_at",
+    "viterbi", "demod_at_energies",
     "correlate", "decide_tones_tm", "gather_rows", "ofdm_track",
     "tone_energies", "search_blockmax",
 )
@@ -68,7 +68,7 @@ SIGNATURES = {
     ),
     "probe_at": (
         "anet_probe_at",
-        [_P, _I, _I, ctypes.c_longlong, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P],
+        [_P, _I, _I, _L, _P, _P, _I, _I, _I, _P, ctypes.c_float, _P, _P], "demod_probe",
     ),
     "correlate": (
         "anet_correlate",

@@ -22,27 +22,41 @@
 //
 // What bounds it on the H100: the bytes. One read of z_eq (8 bytes a point)
 // and of w, one write of the LLRs (4 x bpc bytes a point): 75.5 MB in and
-// 75.5 MB out for ofdm-fast at B = 8192 (S = 12, C = 96), 0.05 ms at
-// 3.35 TB/s. The work is ~100 float32 operations a point and pass (four
-// passes), ~9 GFLOP there: 0.14 ms on the CUDA cores at 67 TFLOP/s, so this
-// simple form is held by its arithmetic and its block-wide barriers.
+// 75.5 MB out for ofdm-fast at B = 8192 (S = 12, C = 96), 0.046 ms at
+// 3.35 TB/s. The work is ~110 float32 operations a point and three sincosf
+// (and for QAM four divisions and roundings a decision pass), ~1 G
+// operations at that size, on the CUDA cores: it is close behind the
+// bytes, so the passes must add no barriers, no index divisions and no
+// sincosf the result does not need.
 //
-// Design: one block of 128 threads per stream. The block stages its
-// stream's S x C points (S * C * 8 bytes, 9.2 KB for ofdm-fast) and w in
-// shared memory, so device memory is read once; each pass is a strided
-// loop over the points followed by a block-wide sum (warp shuffles, then
-// one slot per warp in shared memory, summed in the same order by every
-// thread, so all threads hold the same slope and the same gate). z_eq is
-// read by strides, so the time-major receiver passes its [S, C, B] layout
-// as a [B, S, C] view and nothing is transposed. Nothing of the TPU
-// kernel's tiling survives: no padding of S to 8, no batch tile, no
-// single-axis reduce.
+// Design: one warp per stream, WARPS streams a block, and no block-wide
+// barrier after staging. The block stages its streams' points and w in
+// shared memory with cp.async (8 bytes a point, 4 a weight), consecutive
+// threads on consecutive addresses in whichever layout the strides give:
+// a stream's own row, carriers fastest, in the batch-major layout (each
+// warp stages its own stream and syncs only itself); the block's streams
+// side by side, streams fastest, in the time-major [S, C, B] layout the
+// receiver passes as its [B, S, C] view (point stride 1: a run of WARPS
+// streams a carrier; the block syncs once). Then lane l owns carriers
+// l, l + 32, ... for every symbol, reading its points from shared memory
+// without a bank conflict, so no pass divides an index. Every sum is the
+// lane's partial, then a warp xor-shuffle tree in a fixed order, so every
+// lane holds the same slope and the same gate, bit for bit. The gate pass
+// also stores the rotated points' LLRs and sums their error power, on the
+// guess that the gate keeps the rotation (every drifted frame), so each
+// point's rotation by the final slope is taken once; where the gate keeps
+// the identity (a clean clock's near-tie) or nothing is tracked, one more
+// pass stores the unrotated points' over them. The LLRs are stored as the
+// stream's contiguous [S, C, bpc] run, a point's planes as one float2
+// (QPSK), float4 (16-QAM) or three float2 (64-QAM) from its lane. Phases
+// (s + 1) m are float products, exact below 2^24, as the plain version's.
+// Lanes past C idle in every pass.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
+constexpr int WARPS = 4;  // streams a block, fewer where a stream's points need the room
+constexpr int THREADS = 32 * WARPS;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB, the most a block can opt in to
 
 // Constants rounded once from double, as the reference's Python floats are.
@@ -95,28 +109,6 @@ __device__ __forceinline__ void llr_axis(float a, float w, float* out) {
   }
 }
 
-// Sums N values over the block; every thread gets the totals, added in
-// the same order, so they agree bit for bit.
-template <int N>
-__device__ __forceinline__ void block_sum(float (&v)[N], float (*red)[WARPS]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
-  __syncthreads();  // the previous sum's readers are done with red
-  if ((threadIdx.x & 31) == 0)
-#pragma unroll
-    for (int i = 0; i < N; ++i) red[i][threadIdx.x >> 5] = v[i];
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += red[i][w];
-    v[i] = s;
-  }
-}
-
 // z rotated by exp(-i ang).
 __device__ __forceinline__ void rotate(float2 z, float ang, float& zr, float& zi) {
   float si, co;
@@ -134,88 +126,171 @@ __device__ __forceinline__ void decision_product(float zr, float zi, float w, fl
   uim = w * (zi * dre - zr * dim);
 }
 
+// The sum of v over the warp, the same in every lane (xor tree).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Bytes of shared memory a stream takes: its S x C points, then C weights.
+__host__ __device__ __forceinline__ int stream_bytes(int S, int C) {
+  return (S * C * 8 + C * 4 + 15) / 16 * 16;
+}
+
+// The LLR planes of a point, one vector store: BPC floats at out.
+template <int BPC>
+__device__ __forceinline__ void store_planes(float* out, const float (&v)[BPC]) {
+  if (BPC == 2) {
+    *reinterpret_cast<float2*>(out) = make_float2(v[0], v[1]);
+  } else if (BPC == 4) {
+    *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < BPC; k += 2) *reinterpret_cast<float2*>(out + k) = make_float2(v[k], v[k + 1]);
+  }
+}
+
+// Store the LLR planes of the point (zr, zi), weight w, at out as one
+// vector; returns its error power |z - ideal|^2 where `evm` (a symbol
+// below evm_rows), else 0.
+template <int BPC>
+__device__ __forceinline__ float store_point(float* out, float zr, float zi, float w, bool evm) {
+  float planes[BPC];
+  llr_axis<BPC>(zr, w, planes);
+  llr_axis<BPC>(zi, w, planes + BPC / 2);
+  store_planes<BPC>(out, planes);
+  if (!evm) return 0.0f;
+  const float er = zr - ideal<BPC>(zr);
+  const float ei = zi - ideal<BPC>(zi);
+  return er * er + ei * ei;
+}
+
 template <int BPC>
 __global__ void __launch_bounds__(THREADS)
 ofdm_track_kernel(const float2* __restrict__ z, int64_t zs_b, int64_t zs_s, int64_t zs_c,
                   const float* __restrict__ hp, int64_t hs_b, int64_t hs_c,
-                  const float* __restrict__ slope, int S, int C, int first_carrier, int track,
-                  int evm_rows, float* __restrict__ llrs, float* __restrict__ evm2,
+                  const float* __restrict__ slope, int B, int S, int C, int first_carrier,
+                  int track, int evm_rows, float* __restrict__ llrs, float* __restrict__ evm2,
                   float* __restrict__ coh) {
-  extern __shared__ float2 sz[];                          // [S * C] this stream's points
-  float* sw = reinterpret_cast<float*>(sz + (size_t)S * C);  // [C] channel power
-  __shared__ float red[4][WARPS];
-
-  const int b = blockIdx.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, lg = __ffs(nw) - 1;  // streams a block, a power of two
+  const int b0 = blockIdx.x * nw;
+  const int b = b0 + warp;
+  const int per = stream_bytes(S, C);
   const int n = S * C;
-  const float2* zb = z + (int64_t)b * zs_b;
-  for (int p = threadIdx.x; p < n; p += THREADS) {
-    const int s = p / C, c = p - s * C;
-    sz[p] = zb[(int64_t)s * zs_s + (int64_t)c * zs_c];
+
+  // staging: time-major (stride 1 between streams) streams fastest, the
+  // block together; otherwise each warp its own stream, carriers fastest
+  if (zs_b == 1) {
+    for (int s = 0; s < S; ++s)
+      for (int i = threadIdx.x; i < C * nw; i += blockDim.x) {
+        const int w = i & (nw - 1), c = i >> lg;
+        if (b0 + w < B)
+          cp_async(smem + w * per + 8 * (s * C + c), z + (b0 + w) + s * zs_s + c * zs_c, 8);
+      }
+  } else if (b < B) {
+    const float2* zb = z + (int64_t)b * zs_b;
+    for (int s = 0; s < S; ++s)
+      for (int c = lane; c < C; c += 32)
+        cp_async(smem + warp * per + 8 * (s * C + c), zb + s * zs_s + c * zs_c, 8);
   }
-  for (int c = threadIdx.x; c < C; c += THREADS) sw[c] = hp[(int64_t)b * hs_b + (int64_t)c * hs_c];
-  __syncthreads();
+  if (hs_b == 1) {
+    for (int i = threadIdx.x; i < C * nw; i += blockDim.x) {
+      const int w = i & (nw - 1), c = i >> lg;
+      if (b0 + w < B) cp_async(smem + w * per + 8 * n + 4 * c, hp + (b0 + w) + c * hs_c, 4);
+    }
+  } else if (b < B) {
+    for (int c = lane; c < C; c += 32)
+      cp_async(smem + warp * per + 8 * n + 4 * c, hp + (int64_t)b * hs_b + c * hs_c, 4);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (zs_b == 1 || hs_b == 1)
+    __syncthreads();  // the only block-wide barrier: the block staged its streams together
+  else
+    __syncwarp();
+  if (b >= B) return;
+  const float2* sz = reinterpret_cast<const float2*>(smem + warp * per);  // [S][C]
+  const float* sw = reinterpret_cast<const float*>(smem + warp * per + 8 * n);  // [C]
 
   float cc = 0.0f;
   bool keep = false;
+  float e = 0.0f;  // error power of the points whose LLRs were stored
+  float* out = llrs + (int64_t)b * n * BPC;
   if (track) {
     cc = slope[b];
     for (int it = 0; it < 2; ++it) {
-      float v[2] = {0.0f, 0.0f};  // num, den
-      for (int p = threadIdx.x; p < n; p += THREADS) {
-        const int s = p / C, c = p - s * C;
-        const float phase = (float)((s + 1) * (c + first_carrier));
-        float zr, zi, ure, uim;
-        rotate(sz[p], cc * phase, zr, zi);
-        decision_product<BPC>(zr, zi, sw[c], ure, uim);
-        v[0] += phase * uim;
-        v[1] += phase * phase * fmaxf(ure, 0.0f);
+      float num = 0.0f, den = 0.0f;
+      for (int c = lane; c < C; c += 32) {
+        const float w = sw[c], fm = (float)(c + first_carrier);
+        float fs = 0.0f;  // s + 1, exact
+#pragma unroll 4
+        for (int s = 0; s < S; ++s) {
+          fs += 1.0f;
+          const float phase = fs * fm;  // (s + 1) m, exact below 2^24
+          float zr, zi, ure, uim;
+          rotate(sz[s * C + c], cc * phase, zr, zi);
+          decision_product<BPC>(zr, zi, w, ure, uim);
+          num += phase * uim;
+          den += phase * phase * fmaxf(ure, 0.0f);
+        }
       }
-      block_sum(v, red);
-      cc = cc + v[0] / fmaxf(v[1], 1e-20f);
+      num = warp_sum(num);
+      den = warp_sum(den);
+      cc = cc + num / fmaxf(den, 1e-20f);
     }
+    // the gate's sums, and the rotated points' LLRs and error power stored
+    // on the guess that the gate keeps the rotation (a drifted frame's
+    // case): the rotation is taken once a point, and the LLR pass below
+    // runs only where the gate keeps the identity
     float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // tracked sum(Re u), sum|u|; unrotated the same
-    for (int p = threadIdx.x; p < n; p += THREADS) {
-      const int s = p / C, c = p - s * C;
-      const float w = sw[c];
-      float zr, zi, ure, uim;
-      rotate(sz[p], cc * (float)((s + 1) * (c + first_carrier)), zr, zi);
-      decision_product<BPC>(zr, zi, w, ure, uim);
-      v[0] += ure;
-      v[1] += sqrtf(ure * ure + uim * uim);
-      decision_product<BPC>(sz[p].x, sz[p].y, w, ure, uim);
-      v[2] += ure;
-      v[3] += sqrtf(ure * ure + uim * uim);
+    for (int c = lane; c < C; c += 32) {
+      const float w = sw[c], fm = (float)(c + first_carrier);
+      float fs = 0.0f;
+#pragma unroll 4
+      for (int s = 0; s < S; ++s) {
+        fs += 1.0f;
+        const float2 p = sz[s * C + c];
+        float zr, zi, ure, uim;
+        rotate(p, cc * (fs * fm), zr, zi);
+        decision_product<BPC>(zr, zi, w, ure, uim);
+        v[0] += ure;
+        v[1] += sqrtf(ure * ure + uim * uim);
+        decision_product<BPC>(p.x, p.y, w, ure, uim);
+        v[2] += ure;
+        v[3] += sqrtf(ure * ure + uim * uim);
+        e += store_point<BPC>(out + (int64_t)(s * C + c) * BPC, zr, zi, w, s < evm_rows);
+      }
     }
-    block_sum(v, red);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = warp_sum(v[i]);
     const float coh1 = v[0] / fmaxf(v[1], 1e-20f);
     const float coh0 = v[2] / fmaxf(v[3], 1e-20f);
     keep = coh1 > coh0;
-    if (coh != nullptr && threadIdx.x == 0) {
-      coh[2 * (int64_t)b] = coh1;
-      coh[2 * (int64_t)b + 1] = coh0;
+    if (coh != nullptr && lane == 0) reinterpret_cast<float2*>(coh)[b] = make_float2(coh1, coh0);
+  }
+  if (!keep) {  // untracked, or the gate keeps the identity: the points as they are
+    e = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float w = sw[c];
+#pragma unroll 4
+      for (int s = 0; s < S; ++s) {
+        const float2 p = sz[s * C + c];
+        e += store_point<BPC>(out + (int64_t)(s * C + c) * BPC, p.x, p.y, w, s < evm_rows);
+      }
     }
   }
-
-  float e[1] = {0.0f};
-  float* out = llrs + (int64_t)b * n * BPC;
-  for (int p = threadIdx.x; p < n; p += THREADS) {
-    const int s = p / C, c = p - s * C;
-    const float w = sw[c];
-    float zr = sz[p].x, zi = sz[p].y;
-    if (keep) rotate(sz[p], cc * (float)((s + 1) * (c + first_carrier)), zr, zi);
-    float planes[BPC];
-    llr_axis<BPC>(zr, w, planes);
-    llr_axis<BPC>(zi, w, planes + BPC / 2);
-#pragma unroll
-    for (int k = 0; k < BPC; ++k) out[(int64_t)p * BPC + k] = planes[k];
-    if (s < evm_rows) {
-      const float er = zr - ideal<BPC>(zr);
-      const float ei = zi - ideal<BPC>(zi);
-      e[0] += er * er + ei * ei;
-    }
-  }
-  block_sum(e, red);
-  if (threadIdx.x == 0) evm2[b] = e[0] / (float)(evm_rows * C);
+  e = warp_sum(e);
+  if (lane == 0) evm2[b] = e / (float)(evm_rows * C);
 }
 
 template <int BPC>
@@ -223,16 +298,20 @@ cudaError_t launch(const void* z, int64_t zs_b, int64_t zs_s, int64_t zs_c, cons
                    int64_t hs_b, int64_t hs_c, const void* slope, int B, int S, int C,
                    int first_carrier, int track, int evm_rows, void* llrs, void* evm2, void* coh,
                    cudaStream_t st) {
-  const size_t smem = (size_t)S * C * sizeof(float2) + (size_t)C * sizeof(float);
+  static size_t smem_set = 48 * 1024;  // this instantiation's dynamic shared memory limit
+  int nw = WARPS;
+  while (nw > 1 && (size_t)nw * stream_bytes(S, C) > MAX_SMEM) nw /= 2;
+  const size_t smem = (size_t)nw * stream_bytes(S, C);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+  if (smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
         ofdm_track_kernel<BPC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
+    smem_set = smem;
   }
-  ofdm_track_kernel<BPC><<<B, THREADS, smem, st>>>(
+  ofdm_track_kernel<BPC><<<(B + nw - 1) / nw, 32 * nw, smem, st>>>(
       static_cast<const float2*>(z), zs_b, zs_s, zs_c, static_cast<const float*>(hp), hs_b, hs_c,
-      static_cast<const float*>(slope), S, C, first_carrier, track, evm_rows,
+      static_cast<const float*>(slope), B, S, C, first_carrier, track, evm_rows,
       static_cast<float*>(llrs), static_cast<float*>(evm2), static_cast<float*>(coh));
   return cudaGetLastError();
 }
@@ -241,9 +320,9 @@ cudaError_t launch(const void* z, int64_t zs_b, int64_t zs_s, int64_t zs_c, cons
 
 // z: complex64 [B, S, C] read by strides (zs_*, in complex elements, 8-byte
 // aligned); hp: float32 [B, C] by strides; slope: float32 [B]; llrs:
-// float32 [B, S * C * bpc] contiguous; evm2: float32 [B]; coh: float32
-// [B, 2] (tracked, unrotated coherence) or null, written only when
-// track != 0. Returns the launch's cudaError_t.
+// float32 [B, S * C * bpc] contiguous, 16-byte aligned; evm2: float32 [B];
+// coh: float32 [B, 2] contiguous (tracked, unrotated coherence) or null,
+// written only when track != 0. Returns the launch's cudaError_t.
 extern "C" int anet_ofdm_track(const void* z, long long zs_b, long long zs_s, long long zs_c,
                                const void* hp, long long hs_b, long long hs_c, const void* slope,
                                int B, int S, int C, int bpc, int first_carrier, int track,

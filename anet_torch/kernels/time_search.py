@@ -56,6 +56,22 @@ comma-separated subset of:
   frames of 36,353 samples (``... bfloat16 ragged``: an odd pitch, so the
   rows pass through every residue mod 16 bytes), each with its ``device``
   column as ``frame`` has. It ignores ``--model``.
+- ``probe_at``: ``probe_at_fused`` at the locked streams' geometries
+  (mfsk4-coded, payload 256: buffer 143,872, the 1,024-sample preamble;
+  mfsk16-fast: buffer 76,288, the 2,048-sample preamble; 5 lags) on
+  bfloat16 buffers with the bfloat16 template and its energy as the
+  locked step passes them (a float32 scalar on the card), on float32
+  buffers with the float32 template, and on bfloat16 buffers one sample
+  longer (``... bfloat16 ragged``: rows off 16 bytes), probe bases random
+  in the chunk, each with its ``device`` column. It ignores ``--model``.
+- ``ofdm``: ``ofdm_track_decide_fused``, tracked, on ofdm-fast at payload
+  256 (12 symbols x 96 carriers) with B = 8,192 batch-major streams and
+  the same points time-major (``... time-major``: the [B, S, C] view of
+  [S, C, B] points and of [C, B] channel powers, as
+  ``ofdm.demodulate_frame_tm`` passes them), and on ofdm-max (8 symbols,
+  64-QAM) at B = 2,048: QPSK points rotated by a clock drift of 100-150
+  ppm, the slope seeded within 5%, each with its ``device`` column. It
+  ignores ``--model``.
 
 Segments are strided views from sample 1, as the stream passes them. The
 inputs come from one seed, so every checkout times the same data. Needs a
@@ -77,6 +93,8 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "probe": ("demod_probe", "demod_at"),
     "frame": ("decide_frame_tm",),
     "bm": ("tone_energies",),
+    "probe_at": ("demod_probe", "probe_at"),  # probe_at.cu: checkouts that still have it
+    "ofdm": ("ofdm_track",),
 }
 FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
 DEMOD_MODELS = {"demod_at_fused": "mfsk16-fast", "demod_at_energies_fused": "mfsk4-coded"}
@@ -90,11 +108,11 @@ import torch
 sys.path.insert(0, {root!r})
 from anet_torch import kernels
 from anet_torch.dsp import family, fec
-from anet_torch.kernels.build import build_all
+from anet_torch.kernels.build import CSRC, build_all
 from anet_torch.models import get_model
 
 kinds = {kinds!r}
-build_all({sources!r})
+build_all(tuple(s for s in {sources!r} if (CSRC / (s + ".cu")).exists()))  # the sources this checkout has
 cfg = get_model({model!r}).config
 b = 8192
 tpl = family.preamble_template(cfg, "cuda").float()
@@ -235,6 +253,55 @@ if "bm" in kinds:
         del xs, rows
         torch.cuda.empty_cache()
     del x
+if "probe_at" in kinds:
+    from anet_torch.stream import _buffer_len
+
+    for model in ("mfsk4-coded", "mfsk16-fast"):
+        c = get_model(model).config
+        chunk = family.frame_samples(c, 256)
+        length = _buffer_len(c, chunk, 256)
+        t32 = family.preamble_template(c, "cuda").float()
+        t16 = t32.to(torch.bfloat16)
+        x = torch.randn(b, length + 1, generator=gen, device="cuda")
+        st0 = torch.randint(3, chunk - 4, (b,), generator=gen, device="cuda").int()
+        for label, make, t in (("bfloat16", lambda: x[:, :length].contiguous().to(torch.bfloat16), t16),
+                               ("float32", lambda: x[:, :length].contiguous(), t32),
+                               ("bfloat16 ragged", lambda: x.to(torch.bfloat16), t16)):
+            buf = make()
+            te = (t.float() ** 2).sum()  # as stream._lock_template makes it
+            call = lambda: kernels.probe_at_fused(buf, st0, t, te, n_lags=5)
+            out[f"probe_at_fused {{model}} {{label}}"] = time_ms(call)
+            out[f"probe_at_fused {{model}} {{label}} device"] = device_ms(call, "probe_at_kernel")
+            del buf
+            torch.cuda.empty_cache()
+        del x
+if "ofdm" in kinds:
+    for model, bb in (("ofdm-fast", 8192), ("ofdm-max", 2048)):
+        c = get_model(model).config
+        s_n, c_n = c.data_symbols_for_payload(256), c.n_carriers
+        sign = lambda: torch.randint(0, 2, (bb, s_n, c_n), generator=gen, device="cuda").float() * 2 - 1
+        ppm = (torch.rand(bb, generator=gen, device="cuda") * 50 + 100) * (
+            torch.randint(0, 2, (bb,), generator=gen, device="cuda").float() * 2 - 1)
+        slope = ppm * (2 * np.pi * 1e-6 * c.symbol_samples / c.n_fft)
+        m = c.first_carrier + torch.arange(c_n, device="cuda")
+        ang = slope[:, None, None] * torch.arange(1, s_n + 1, device="cuda")[None, :, None] * m
+        z = torch.complex(sign(), sign()) * 0.7071067811865476 * torch.polar(torch.ones_like(ang), ang)
+        z = z + 0.05 * torch.complex(torch.randn(z.shape, generator=gen, device="cuda"),
+                                     torch.randn(z.shape, generator=gen, device="cuda"))
+        h = torch.rand(bb, c_n, generator=gen, device="cuda") + 0.5
+        slope0 = slope * (1 + 0.05 * (torch.rand(bb, generator=gen, device="cuda") * 2 - 1))
+        layouts = [("batch-major", lambda: (z, h))]
+        if model == "ofdm-fast":
+            layouts.append(("time-major", lambda: (z.permute(1, 2, 0).contiguous().permute(2, 0, 1),
+                                                   h.T.contiguous().T)))
+        for label, make in layouts:
+            zl, hl = make()
+            call = lambda: kernels.ofdm_track_decide_fused(c, zl, hl, slope0)
+            out[f"ofdm_track_decide_fused {{model}} {{label}}"] = time_ms(call)
+            out[f"ofdm_track_decide_fused {{model}} {{label}} device"] = device_ms(call, "ofdm_track_kernel")
+            del zl, hl
+            torch.cuda.empty_cache()
+        del z, h
 print(json.dumps(out))
 """
 

@@ -31,9 +31,10 @@ uncoded ones) (a coded one's aligned run stays bf16: int8 aligned
 compute is uncoded only). Each run happens once to warm up,
 then once under torch.profiler, and prints the device time of each kernel
 (the top 12, then every hand-written kernel of ``kernels/csrc`` below
-them), the sum of device time, the wall time of the run and the
+them), the sum of device time, the wall time of the run, the
 device's busy share (device time over wall time; kernels do not overlap on
-one stream), then the same device time by the operator that launched it
+one stream) and the host reads of the run (``aten::_local_scalar_dense``
+calls: each waits for the card), then the same device time by the operator that launched it
 (the top 10 ATen operators; the hand-written kernels launch outside any).
 Needs CUDA.
 """
@@ -102,8 +103,10 @@ def report(label: str, fn) -> None:
     ]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_us = sum(e.self_device_time_total for e in rows)
+    # host reads: every copy of a tensor's value to the host (float(), bool(), .item())
+    reads = sum(e.count for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
     print(f"{label}: wall {wall * 1e3:.3f} ms, device {device_us / 1e3:.3f} ms, "
-          f"busy share {device_us / 1e6 / wall:.3f}")
+          f"busy share {device_us / 1e6 / wall:.3f}, host reads {reads}")
     # the top 12, then the port's own kernels (csrc/, anonymous namespace) below them
     own = [e for e in rows[12:] if e.key.removeprefix("void ").startswith("(anonymous namespace)::")]
     for e in rows[:12] + own:

@@ -427,13 +427,15 @@ def _probe_kernel_dtype(buffer: torch.Tensor) -> bool:
     return buffer.dtype == torch.bfloat16
 
 
-def _find_candidate_locked(carry, chunk, t_frame, t_c, detect_threshold, compute_dtype):
+def _find_candidate_locked(carry, chunk, t_frame, t_c, t_energy, detect_threshold, compute_dtype):
     """Unmerged frame-lock front half with the template in ``compute_dtype``
-    (``t_c``): probe the predicted next start (on the card and for a
-    bfloat16 buffer the probe kernel probe_at_fused, else
-    sync.preamble_quality_probe, as the reference routes them) and search
-    every lag only when some stream needs acquiring. Returns (buffer,
-    samples_seen, start_idx, start_abs, quality, candidate, mid_flight)."""
+    (``t_c``) and its energy (``t_energy``, a tensor on the buffer's device:
+    _lock_template's, made once): probe the predicted next start (on the
+    card and for a bfloat16 buffer the probe kernel probe_at_fused, which
+    reads the energy on the card, else sync.preamble_quality_probe, as the
+    reference routes them) and search every lag only when some stream needs
+    acquiring, the one host read of a chunk. Returns (buffer, samples_seen,
+    start_idx, start_abs, quality, candidate, mid_flight)."""
     from anet_torch.dsp.sync import preamble_quality_probe
     from anet_torch.kernels import probe_at_fused, sync_search_fused
 
@@ -441,7 +443,6 @@ def _find_candidate_locked(carry, chunk, t_frame, t_c, detect_threshold, compute
     k = t_c.shape[-1]
     buffer, samples_seen, w0, buffer_abs0 = _slide_buffer(carry, chunk, t_frame, 0)
     length = t_frame + chunk_size
-    t_energy = _template_energy(t_c)
     pred_idx, in_win, mid_flight = _lock_prediction(carry, buffer_abs0, w0, chunk_size)
     probe_at = pred_idx.clamp(0, length - t_frame)
     if _probe_kernel_supported(carry) and _probe_kernel_dtype(buffer):
@@ -516,7 +517,7 @@ def _next_carry(carry, buffer, samples_seen, detected, frame, start_abs, t_frame
 @functools.lru_cache(maxsize=16)
 def _lock_template(config, compute_dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(the preamble template in ``compute_dtype``, its energy) of the
-    merged locked step, made once per config, dtype and device."""
+    locked steps, made once per config, dtype and device."""
     t_c = _templates(config, compute_dtype, device)[1]
     return t_c, _template_energy(t_c)
 
@@ -642,8 +643,9 @@ def _stream_step(
         )
     mid_flight = None
     if lock:
+        t_energy = _lock_template(config, compute_dtype, carry.buffer.device)[1]
         buffer, samples_seen, start_idx, start_abs, best_q, candidate, mid_flight = (
-            _find_candidate_locked(carry, chunk, t_frame, t_c, detect_threshold, compute_dtype)
+            _find_candidate_locked(carry, chunk, t_frame, t_c, t_energy, detect_threshold, compute_dtype)
         )
     else:
         buffer, samples_seen, start_idx, start_abs, best_q, candidate = _find_candidate(
@@ -882,8 +884,9 @@ def _stream_step_dynamic(
         # Same locked front half as the fixed-length path: the window
         # geometry only depends on the MAX frame length; the prediction
         # itself came from the previous frame's declared length.
+        t_energy = _lock_template(config, compute_dtype, carry.buffer.device)[1]
         buffer, samples_seen, best1_idx, _, best1_q, candidate1, mid_flight = (
-            _find_candidate_locked(carry, chunk, t_max, t_c, detect_threshold, compute_dtype)
+            _find_candidate_locked(carry, chunk, t_max, t_c, t_energy, detect_threshold, compute_dtype)
         )
         w0 = 1
         buffer_abs0 = samples_seen - (t_max + chunk_size)

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-1. build the fourteen CUDA kernels from anet_torch/kernels/csrc (thirteen
+1. build the fourteen CUDA kernels from anet_torch/kernels/csrc (twelve
    sources, nvcc, sm_90a);
 2. hold each kernel against its plain PyTorch version at its main path's
    shapes on a 256-stream subset, then time kernel and plain version at the
@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    sync_search_blockmax on the search's segment, the coded paths' three on
    mfsk4-coded (with demod_at_energies_fused on int8 buffers)
    (payload 256, chunk 70,144, buffer 143,872, trellis 2,150 steps; the
-   trellis also with a masked tail and at the 102-step header probe), and
+   trellis also with a masked tail and at the 102-step header probe;
+   probe_at_fused also with its template energy a float32 scalar on the
+   card, as the locked step passes it, bit-equal and timed), and
    the three of the variable-length, oversized-window and one-shot paths on
    mfsk16-fast (correlate_fused at a chunk of two shortest frames, 23,552
    lags, also timed on its float32 routes; decide_tones_tm at a frame plus
@@ -24,7 +26,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    PyTorch call that computes the same function where there is one; and
    the OFDM equalizer ofdm_track_decide_fused on 256 drifted frames
    (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
-   and untracked, timed on ofdm-fast at B = 8,192; the batch-major
+   and untracked, timed on ofdm-fast at B = 8,192, batch-major and as the
+   time-major receiver's [B, S, C] view of [S, C, B] points; the batch-major
    filterbank (tone_energies_fused, decide_tones_fused) on bf16 mfsk16-fast
    data sections read in place, bfloat16 compute (the tensor cores) held
    against the plain versions at 256 rows and at B = 16,384 (tones
@@ -168,7 +171,7 @@ REPLACES = {
     "demod_probe_fused": ("anet_torch/kernels/csrc/demod_probe.cu", "anet/kernels/__init__.py:2307"),
     "viterbi_trellis": ("anet_torch/kernels/csrc/viterbi.cu", "anet/kernels/__init__.py:754"),
     "demod_at_energies_fused": ("anet_torch/kernels/csrc/demod_at_energies.cu", "anet/kernels/__init__.py:1918"),
-    "probe_at_fused": ("anet_torch/kernels/csrc/probe_at.cu", "anet/kernels/__init__.py:1621"),
+    "probe_at_fused": ("anet_torch/kernels/csrc/demod_probe.cu", "anet/kernels/__init__.py:1621"),
     "correlate_fused": ("anet_torch/kernels/csrc/correlate.cu", "anet/kernels/__init__.py:891"),
     "decide_tones_tm": ("anet_torch/kernels/csrc/decide_tones_tm.cu", "anet/kernels/__init__.py:269"),
     "gather_rows_fused": ("anet_torch/kernels/csrc/gather_rows.cu", "anet/kernels/__init__.py:1415"),
@@ -532,6 +535,11 @@ def phase_kernels_coded(cfg, gen) -> dict:
     if not bool((got.argmax(-1) == 2).all()):
         raise AssertionError("probe_at_fused missed the planted starts")
     results["probe_at_fused"] = {"max_abs_err": compare("probe_at_fused", (got,), (want,), (), (0,))}
+    # the template energy as the locked step passes it: a float32 scalar on
+    # the card, read by the kernel through its address
+    te_dev = (tpl.float() ** 2).sum()
+    if not torch.equal(kernels.probe_at_fused(buf, st0, tpl, te_dev, n_lags=N_LAGS), got):
+        raise AssertionError("probe_at_fused: a template energy on the card gives other bits than a float")
 
     # the search kernel again, at this path's geometry (its row in the table
     # keeps the uncoded geometry's numbers)
@@ -620,6 +628,9 @@ def phase_kernels_coded(cfg, gen) -> dict:
         "viterbi_trellis": (b * t_steps * (8 + 1) + 64 * 4 * 4, b * t_steps * acs_ops, F32_FLOPS_S),
     }
     time_and_bound(results, calls, work)
+    ms = time_ms(lambda: kernels.probe_at_fused(buf_full, st0_full, tpl, te_dev, n_lags=N_LAGS))
+    log(f"  probe_at_fused (template energy on the card, as the locked step passes it: B {b}): "
+        f"kernel {ms:.3f} ms, bound {results['probe_at_fused']['bound_ms']:.3f} ms")
     log_search_time("coded geometry", buf_full[:, 1 : 1 + chunk + k - 1], tpl, chunk)
     return results
 
@@ -1243,6 +1254,18 @@ def phase_kernels_ofdm(gen) -> dict:
     work = {"ofdm_track_decide_fused": (in_bytes + out_bytes, b * n_s * n_c * OFDM_OPS_POINT, F32_FLOPS_S)}
     log(f"ofdm geometry: {n_s} data symbols x {n_c} carriers, B {b}")
     time_and_bound(results, calls, work)
+    # the time-major receiver's layout: the [B, S, C] view of [S, C, B]
+    # points and of [C, B] channel powers (point stride 1), the same values
+    z_tm, h_tm = z_full.permute(1, 2, 0).contiguous().permute(2, 0, 1), h_full.T.contiguous().T
+    got_tm = kernels.ofdm_track_decide_fused(cfg, z_tm, h_tm, s_full)
+    got_bm = kernels.ofdm_track_decide_fused(cfg, z_full, h_full, s_full)
+    if not (torch.equal(got_tm[0], got_bm[0]) and torch.equal(got_tm[1], got_bm[1])):
+        raise AssertionError("ofdm_track_decide_fused: the time-major view gives other bits than batch-major")
+    del got_tm, got_bm
+    ms = time_ms(lambda: kernels.ofdm_track_decide_fused(cfg, z_tm, h_tm, s_full))
+    log(f"  ofdm_track_decide_fused (time-major view: B {b}): kernel {ms:.3f} ms, "
+        f"bound {results['ofdm_track_decide_fused']['bound_ms']:.3f} ms")
+    del z_tm, h_tm
     # the search at the OFDM stream's geometry (stream-ofdm's chunk and
     # preamble), on noise: a timing only
     chunk = family.frame_samples(cfg, PAYLOAD) // 128 * 128

@@ -164,15 +164,16 @@ def test_int8_probe_taps_made_once_per_template():
     t_c, te = tstream._lock_template(CFG, torch.bfloat16, torch.device("cpu"))
     assert tstream._lock_template(CFG, torch.bfloat16, torch.device("cpu"))[0] is t_c
     assert float(te) == float((t_c.float() ** 2).sum())
-    taps, scale = tk._int8_probe_template(t_c)
-    again = tk._int8_probe_template(t_c)
+    cpu = torch.device("cpu")
+    taps, scale = tk._probe_operands(t_c, torch.int8, cpu)
+    again = tk._probe_operands(t_c, torch.int8, cpu)
     assert again[0] is taps and again[1] is scale
     want = tk._probe_template(t_c, torch.int8)
     assert torch.equal(taps, want[0]) and torch.equal(scale, want[1])
     changed = t_c.clone()
-    first = tk._int8_probe_template(changed)[0]
+    first = tk._probe_operands(changed, torch.int8, cpu)[0]
     changed.mul_(0.5)
-    second = tk._int8_probe_template(changed)[0]
+    second = tk._probe_operands(changed, torch.int8, cpu)[0]
     assert second is not first and torch.equal(second, tk._probe_template(changed, torch.int8)[0])
 
 

@@ -1077,3 +1077,179 @@ def test_cuda_batch_major_float32_compute_on_bf16_rows(cuda, model):
     assert torch.equal(got[0], ref[0])
     for a, b in zip(got[1:], ref[1:]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+
+
+# --- probe_at_fused on demod_probe's staged probe, the OFDM equalizer a warp --
+# --- a stream ---------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("n_lags", [1, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_probe_at_every_residue(cuda, dtype, n_lags, ragged):
+    """probe_at_fused (the coded path's 1,024-sample preamble) against its
+    plain version at probe bases of every residue mod 16 and at 124..127
+    mod 128, a span past the row's end, a window past it, a base before
+    the row's start, rows that start 3 samples past a 16-byte boundary
+    and, ``ragged``, a row length that leaves the other rows off one too:
+    qualities within rtol 1e-3 (float32 sums in another order), the lag of
+    every planted preamble the argmax, one launch counted; a tensor
+    template energy on the card gives the bits a float gives; B = 0
+    launches nothing."""
+    rng = np.random.default_rng(7 * n_lags + ragged)
+    tpl = preamble_waveform(CODED, device="cpu").to(dtype)
+    k = tpl.shape[-1]
+    length = tstream._buffer_len(CODED, CHUNK, PAY) + (5 if ragged else 0)
+    lag = n_lags // 2
+    st0 = [200 + r for r in range(16)] + [128 * 7 + r for r in range(124, 128)]
+    st0 += [length - k - n_lags - 40, 1000, length - k // 2, -3]
+    planted = len(st0) - 2  # the windows wholly inside the row
+    x = 0.1 * rng.standard_normal((len(st0), length)).astype(np.float32)
+    for i, s in enumerate(st0[:planted]):
+        x[i, s + lag : s + lag + k] += tpl.float().numpy()
+    x = torch.from_numpy(x).to(dtype)
+    flat = torch.zeros(x.numel() + 3, dtype=dtype, device=cuda)
+    flat[3:] = x.reshape(-1).to(cuda)
+    buf = flat[3:].view(x.shape)
+    st = torch.tensor(st0, dtype=torch.int32, device=cuda)
+    tpl = tpl.to(cuda)
+    te = tstream._template_energy(tpl)
+
+    before = dict(tk.launch_counts)
+    got = tk.probe_at_fused(buf, st, tpl, te, n_lags=n_lags)
+    torch.cuda.synchronize()
+    launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
+    assert launched == {"probe_at_fused": 1}
+    want = tk.probe_at_fused_ref(buf, st, tpl, te, n_lags=n_lags)
+    assert got.shape == (len(st0), n_lags) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-6)
+    assert bool((got[:planted].argmax(-1) == lag).all()) and float(got[:planted].amax(-1).min()) > 0.9
+    assert torch.equal(tk.probe_at_fused(buf, st, tpl, float(te), n_lags=n_lags), got)
+
+    before = dict(tk.launch_counts)
+    assert tk.probe_at_fused(buf[:0], st[:0], tpl, te, n_lags=n_lags).shape == (0, n_lags)
+    assert tk.launch_counts == before
+
+
+@pytest.mark.cuda
+def test_cuda_probe_at_reads_nothing_to_the_host(cuda):
+    """The locked bf16 coded step's probe, with the step's operands (the
+    template and its energy from stream._lock_template: a float32 scalar
+    on the card) and a fresh template, under
+    torch.cuda.set_sync_debug_mode("error"): probe_at_fused neither reads
+    a value to the host nor waits for the card, on its first call for a
+    template (the taps made) and after, and gives the quality a float
+    template energy gives."""
+    t_c, t_energy = tstream._lock_template(CODED, torch.bfloat16, cuda)
+    assert t_energy.is_cuda and t_energy.dtype == torch.float32 and t_energy.dim() == 0
+    fresh = t_c.clone()
+    fresh_energy = tstream._template_energy(fresh)
+    k = t_c.shape[-1]
+    length = tstream._buffer_len(CODED, CHUNK, PAY)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    buf = torch.randn(64, length, generator=g, device=cuda).to(torch.bfloat16)
+    probe_at = torch.randint(0, length - k, (64,), generator=g, device=cuda)
+    st0 = tstream._probe_base(probe_at, length, k).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tk.probe_at_fused(buf, st0, t, e, n_lags=tstream.PROBE_LAGS)
+               for t, e in ((t_c, t_energy), (fresh, fresh_energy), (fresh, fresh_energy))]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = tk.probe_at_fused(buf, st0, t_c, float(t_energy), n_lags=tstream.PROBE_LAGS)
+    assert all(torch.equal(q, want) for q in got)
+
+
+OFDM_GATE_EPS = 1e-4  # chip_smoke.py GATE_EPS: a gate may part only this close to a tie
+OFDM_RTOL = 1e-4
+QAM_LEVELS = {2: (1,), 4: (1, 3), 6: (1, 3, 5, 7)}
+QAM_SCALE = {2: 0.7071067811865476, 4: 0.31622776601683794, 6: 0.1543033499620919}
+OFDM_SNR_DB = {2: 16.0, 4: 24.0, 6: 26.0}  # chip_smoke.py's, by bits a carrier
+
+
+def _ofdm_points(cfg, rng, b):
+    """(z_eq complex64 [b, S, C], h_pow float32 [b, C], slope0 float32 [b],
+    drifted bool [b]) at payload 256: constellation points rotated by a
+    clock drift of c (s + 1) m, c as 100-150 ppm either way does on all but
+    every fourth stream (a clean clock, c = 0: the gate near a tie), slope0
+    c within 5%, channel powers in [0.5, 1.5], noise at chip_smoke.py's
+    SNR."""
+    bpc, c_n = cfg.bits_per_carrier, cfg.n_carriers
+    s_n = cfg.data_symbols_for_payload(256)
+    levels = np.array(QAM_LEVELS[bpc])
+    axis = lambda: rng.choice(np.concatenate([levels, -levels]), (b, s_n, c_n)) * QAM_SCALE[bpc]
+    d = axis() + 1j * axis()
+    per_ppm = 2 * np.pi * 1e-6 * cfg.symbol_samples / cfg.n_fft
+    drifted = np.arange(b) % 4 != 3
+    slope = np.where(drifted, rng.choice([-1, 1], b) * rng.uniform(100, 150, b) * per_ppm, 0.0)
+    m = cfg.first_carrier + np.arange(c_n)
+    ang = slope[:, None, None] * np.arange(1, s_n + 1)[None, :, None] * m[None, None, :]
+    sigma = 10 ** (-OFDM_SNR_DB[bpc] / 20) / np.sqrt(2)
+    z = d * np.exp(1j * ang) + sigma * (rng.standard_normal(d.shape) + 1j * rng.standard_normal(d.shape))
+    h = rng.uniform(0.5, 1.5, (b, c_n))
+    slope0 = slope * rng.uniform(0.95, 1.05, b)
+    return (torch.from_numpy(z.astype(np.complex64)), torch.from_numpy(h.astype(np.float32)),
+            torch.from_numpy(slope0.astype(np.float32)), torch.from_numpy(drifted))
+
+
+def _check_ofdm(cfg, got, want, drifted):
+    """chip_smoke.py compare_ofdm's rules: a stream's LLRs may part from the
+    plain version's (beyond OFDM_RTOL of their scale) only where the plain
+    version's two coherences lie within OFDM_GATE_EPS, never on a drifted
+    frame and never untracked; elsewhere the decisions equal wherever the
+    plain LLR lies outside that band and evm2 within OFDM_RTOL; the
+    coherences everywhere."""
+    llrs, ref = got[0].double(), want[0].double()
+    atol = OFDM_RTOL * float(ref.abs().max())
+    close = ((llrs - ref).abs() <= OFDM_RTOL * ref.abs() + atol).all(-1)
+    parted = ~close
+    tie = (want[2][:, 0] - want[2][:, 1]).abs() < OFDM_GATE_EPS
+    assert not bool((parted & (drifted.to(parted.device) | ~tie)).any())
+    assert cfg.clock_tracking or not bool(parted.any())
+    firm = ref[close].abs() > atol
+    assert not bool(((llrs[close] > 0) != (ref[close] > 0))[firm].any())
+    torch.testing.assert_close(got[1][close], want[1][close], rtol=OFDM_RTOL, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=OFDM_RTOL, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["batch-major", "time-major", "strided-h", "tm-h"])
+@pytest.mark.parametrize("b", [1, 7, 257])
+@pytest.mark.parametrize("tracked", [True, False])
+@pytest.mark.parametrize("model", ["ofdm-fast", "ofdm-turbo", "ofdm-max"])
+def test_cuda_ofdm_track_every_layout(cuda, model, tracked, b, layout):
+    """ofdm_track_decide_fused on all three constellations, tracked and
+    untracked, B = 1, 7 and 257 (not a multiple of the block's streams),
+    against its plain version under chip_smoke.py's compare_ofdm rules
+    (OFDM_RTOL, OFDM_GATE_EPS): z_eq batch-major or the time-major
+    receiver's [B, S, C] view of [S, C, B] points ("time-major", h_pow the
+    same view of [C, B]), h_pow a strided view ("strided-h") or
+    time-major under batch-major points ("tm-h"); evm_symbols 2 below S
+    but for batch-major. Every layout gives the batch-major layout's bits
+    (one arithmetic on the same staged points); one launch a call."""
+    cfg = dataclasses.replace(get_model(model).config, clock_tracking=tracked)
+    rng = np.random.default_rng(b + 1000 * tracked + len(model))
+    z, h, slope0, drifted = _ofdm_points(cfg, rng, b)
+    s = z.shape[1]
+    z, h, slope0 = z.to(cuda), h.to(cuda), slope0.to(cuda)
+    base = tk.ofdm_track_decide_fused(cfg, z, h, slope0, evm_symbols=s - 2, with_coherence=True)
+    zl, hl = z, h
+    if layout == "time-major":
+        zl, hl = z.permute(1, 2, 0).contiguous().permute(2, 0, 1), h.T.contiguous().T
+    elif layout == "strided-h":
+        hl = torch.repeat_interleave(h, 3, dim=-1)[:, 2::3]
+    elif layout == "tm-h":
+        hl = h.T.contiguous().T
+    evm = None if layout == "batch-major" else s - 2
+    before = tk.launch_counts["ofdm_track_decide_fused"]
+    got = tk.ofdm_track_decide_fused(cfg, zl, hl, slope0, evm_symbols=evm, with_coherence=True)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["ofdm_track_decide_fused"] == before + 1
+    want = tk.ofdm_track_decide_fused_ref(cfg, z, h, slope0, evm_symbols=evm, with_coherence=True)
+    assert got[0].shape == (b, s * cfg.n_carriers * cfg.bits_per_carrier) and got[1].shape == (b,)
+    _check_ofdm(cfg, got, want, drifted)
+    assert torch.equal(got[0], base[0]) and torch.equal(got[2], base[2])
+    if evm is not None:
+        assert torch.equal(got[1], base[1])

@@ -884,3 +884,163 @@ def test_search_template_words_expand_to_the_band(k):
     band32 = np.asarray(banded_template(jnp.asarray(t), rows, 128))
     np.testing.assert_allclose((hi + lo).numpy(), band32, rtol=2.0**-16, atol=0)
     assert np.count_nonzero(band32) == 128 * k
+
+
+# --- the launch code of probe_at_fused and ofdm_track_decide_fused ------------
+
+
+def _record_launches(monkeypatch) -> list:
+    """Replace the card's calls of a wrapper's launch code by recorders, as
+    _record_filterbank_calls does, for the wrappers that check their inputs
+    with _check_buffer_and_starts (int8 keyword) and _check_launch."""
+    calls = []
+    monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
+    monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
+    monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what, int8=False: tk._KERNEL_DTYPES[t.dtype])
+    monkeypatch.setattr(tk, "_check_launch", lambda err, name, dtype=None: calls.append(("checked", name)))
+    return calls
+
+
+def _no_host_reads(monkeypatch):
+    """Make every read of a tensor's value to the host raise."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor's value was read to the host")
+
+    for attr in ("__float__", "__int__", "__bool__", "item", "tolist"):
+        monkeypatch.setattr(torch.Tensor, attr, refuse)
+
+
+@pytest.mark.parametrize("te_kind", ["tensor", "float"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_probe_at_launch_makes_taps_once_and_passes_te_by_address(monkeypatch, dtype, te_kind):
+    """probe_at_fused's launch code, the card's calls replaced by
+    recorders: the float32 taps (the template rounded to the buffer's
+    dtype) are made once per template tensor, and again only for a template
+    changed in place; a tensor template energy goes to the kernel by its
+    address with no read of its value (every host read made to raise), a
+    float by value with a null address; the span rows are
+    ceil((k + n_lags - 1) / 128) + 1; one launch checked a call."""
+    tdt = _DTYPES[dtype][0]
+    cpu = torch.device("cpu")
+    tpl = torch.from_numpy(np.array(j_preamble(JCODED), np.float32)).to(tdt)
+    k = tpl.shape[-1]
+    buf = torch.randn(3, 4 * k).to(tdt)
+    st0 = torch.tensor([0, 130, 2 * k], dtype=torch.int32)
+    te = tstream._template_energy(tpl) if te_kind == "tensor" else 1234.5
+    made = []
+    real_template = tk._probe_template
+    monkeypatch.setattr(tk, "_probe_template", lambda t, d: made.append(d) or real_template(t, d))
+    calls = _record_launches(monkeypatch)
+    if te_kind == "tensor":
+        _no_host_reads(monkeypatch)
+    for n_lags in (5, 5, 8):
+        calls.clear()
+        q = tk._probe_at_launch(buf, st0, tpl, te, n_lags)
+        (key, args), checked = calls
+        assert key == "probe_at" and checked == ("checked", "probe_at_fused")
+        assert q.shape == (3, n_lags) and q.dtype == torch.float32 and args[11] == q.data_ptr()
+        assert args[:4] == (buf.data_ptr(), tk._KERNEL_DTYPES[tdt], 3, 4 * k) and args[4] == st0.data_ptr()
+        assert args[6:9] == (k, n_lags, -(-(k + n_lags - 1) // 128) + 1) and args[12] == 0
+        taps = tk._probe_operands(tpl, tdt, cpu)[0]
+        assert args[5] == taps.data_ptr()
+        if te_kind == "tensor":
+            assert args[9] == te.data_ptr() and args[10] == 0.0
+        else:
+            assert args[9] is None and args[10] == te
+    assert made == [tdt]
+    assert torch.equal(taps, tpl.to(tdt).float()) and taps.dtype == torch.float32 and taps.is_contiguous()
+    changed = tpl.clone()
+    tk._probe_operands(changed, tdt, cpu)
+    changed.mul_(0.5)
+    second = tk._probe_operands(changed, tdt, cpu)[0]
+    assert made == [tdt] * 3 and torch.equal(second, changed.to(tdt).float())
+
+
+def _ofdm_inputs(cfg, b, s, seed=0):
+    """(z_eq complex64 [b, s, C], h_pow float32 [b, C], slope0 float32 [b])
+    of random points, contiguous."""
+    rng = np.random.default_rng(seed)
+    c = cfg.n_carriers
+    z = (rng.standard_normal((b, s, c)) + 1j * rng.standard_normal((b, s, c))).astype(np.complex64)
+    h = rng.uniform(0.5, 1.5, (b, c)).astype(np.float32)
+    return torch.from_numpy(z), torch.from_numpy(h), torch.from_numpy(rng.uniform(-1e-3, 1e-3, b).astype(np.float32))
+
+
+@pytest.mark.parametrize("layout", ["batch-major", "time-major", "strided-h"])
+def test_ofdm_launch_passes_strides_unchanged(monkeypatch, layout):
+    """ofdm_track_decide_fused's launch code, the card's calls replaced by
+    recorders: z_eq and h_pow reach the kernel as the tensors they are,
+    their own addresses and strides (complex elements for z_eq, floats for
+    h_pow): the time-major receiver's [B, S, C] view of [S, C, B] carriers
+    as (1, C B, B) and its h_pow view as (1, B), a strided h_pow as its
+    strides, nothing copied; then B, S, C, bits per carrier, the first
+    carrier, tracking, the EVM rows and the outputs."""
+    cfg = get_model("ofdm-max").config
+    b, s, c = 5, 8, cfg.n_carriers
+    z, h, slope0 = _ofdm_inputs(cfg, b, s)
+    if layout == "time-major":
+        z = z.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+        h = h.T.contiguous().T
+    elif layout == "strided-h":
+        h = torch.repeat_interleave(h, 2, dim=-1)[:, 1::2]
+    calls = _record_launches(monkeypatch)
+    llrs, evm2, coh = tk._ofdm_track_launch(cfg, z, h, slope0, 6, True)
+    (key, args), checked = calls
+    assert key == "ofdm_track" and checked == ("checked", "ofdm_track_decide_fused")
+    assert args[0] == z.data_ptr() and args[1:4] == z.stride()
+    assert args[4] == h.data_ptr() and args[5:7] == h.stride()
+    if layout == "time-major":
+        assert z.stride() == (1, c * b, b) and h.stride() == (1, b)
+    assert args[8:15] == (b, s, c, 6, cfg.first_carrier, 1, 6)
+    assert args[15:18] == (llrs.data_ptr(), evm2.data_ptr(), coh.data_ptr()) and args[18] == 0
+    assert llrs.shape == (b, s * c * 6) and llrs.is_contiguous() and evm2.shape == (b,) and coh.shape == (b, 2)
+    calls.clear()
+    tk._ofdm_track_launch(dataclasses.replace(cfg, clock_tracking=False), z, h, slope0, None, False)
+    (key, args), _ = calls
+    assert args[13:15] == (0, s) and args[17] is None
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", ["mfsk4-coded", "ofdm-fast", "mfsk16-fast"])
+def test_lock_template_energy_is_cached_and_bit_equal(name, dtype):
+    """The locked steps' template energy is made once per config, compute
+    dtype and device (stream._lock_template): the same float32 scalar
+    tensor every call, bit-equal to _template_energy of the template."""
+    cfg, tdt, cpu = get_model(name).config, _DTYPES[dtype][0], torch.device("cpu")
+    t_c, te = tstream._lock_template(cfg, tdt, cpu)
+    again = tstream._lock_template(cfg, tdt, cpu)
+    assert again[0] is t_c and again[1] is te
+    assert t_c is tstream._templates(cfg, tdt, cpu)[1]
+    want = tstream._template_energy(t_c)
+    assert te.dtype == torch.float32 and te.dim() == 0 and torch.equal(te, want)
+    assert te.view(torch.int32).item() == want.view(torch.int32).item()
+
+
+def test_locked_coded_step_hands_the_cached_energy_to_the_probe(monkeypatch):
+    """The unmerged locked step (a bf16 mfsk4-coded carry, the card's branch
+    driven on the CPU) hands probe_at_fused the cached template and energy
+    tensors of _lock_template on every chunk: nothing recomputed a chunk."""
+    cfg = CODED
+    seen = []
+    real = tk.probe_at_fused
+
+    def recorded(buffer, st0, template, template_energy, n_lags=5):
+        seen.append((template, template_energy))
+        return real(buffer, st0, template, template_energy, n_lags)
+
+    monkeypatch.setattr(tstream, "_probe_kernel_supported", lambda carry: True)
+    monkeypatch.setattr(tk, "probe_at_fused", recorded)
+    pay = 32
+    tx = transmit(cfg, np.random.default_rng(2).integers(0, 256, (2, pay), dtype=np.uint8), device="cpu")
+    t_frame = tx.shape[-1]
+    cap = torch.zeros(2, 3 * CHUNK + 2 * t_frame)
+    cap[:, 300 : 300 + t_frame] = tx
+    cap[:, 300 + t_frame : 300 + 2 * t_frame] = tx
+    carry = tstream.init_carry(cfg, CHUNK, pay, (2,), dtype=torch.bfloat16, device="cpu")
+    cap = cap[:, : cap.shape[1] // CHUNK * CHUNK]
+    res = tstream.receive_stream(cfg, cap, CHUNK, pay, lock=True, carry=carry, compute_dtype=torch.bfloat16,
+                                 device="cpu")
+    assert int(res.carry.frames_ok.sum()) >= 2 and len(seen) == cap.shape[1] // CHUNK
+    t_c, te = tstream._lock_template(cfg, torch.bfloat16, torch.device("cpu"))
+    assert all(t is t_c and e is te for t, e in seen)
