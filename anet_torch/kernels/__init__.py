@@ -15,7 +15,8 @@ block maxima of the two-phase acquisition search).
 | demod_at_energies_fused | csrc/demod_at_energies.cu           | anet/kernels/__init__.py:1918 |
 | probe_at_fused          | csrc/demod_probe.cu                 | anet/kernels/__init__.py:1621 |
 | correlate_fused         | csrc/correlate.cu                   | anet/kernels/__init__.py:891  |
-| decide_tones_tm         | csrc/decide_tones_tm.cu             | anet/kernels/__init__.py:269  |
+| decide_tones_tm         | csrc/decide_frame_tm.cu (bf16)      | anet/kernels/__init__.py:269  |
+|                         | + decide_tones_tm.cu (float32)      |                               |
 | gather_rows_fused       | csrc/gather_rows.cu                 | anet/kernels/__init__.py:1415 |
 | ofdm_track_decide_fused | csrc/ofdm_track.cu                  | anet/kernels/__init__.py:2648 |
 | tone_energies_fused     | csrc/tone_energies.cu               | anet/kernels/__init__.py:87   |
@@ -25,7 +26,8 @@ block maxima of the two-phase acquisition search).
 Each wrapper runs its plain version (``*_ref``) when its tensors lie on the
 CPU, and launches its CUDA kernel when they lie on the card: it checks
 device, dtype (float32 or bfloat16 samples, and int8 for the four kernels
-of the quantized paths; complex64 OFDM symbol estimates), shape and
+of the quantized paths; complex64 OFDM symbol estimates; any 1-, 2- or
+4-byte element for gather_rows_fused, which only moves them), shape and
 contiguity, allocates the outputs, launches on
 ``torch.cuda.current_stream()``, raises if the launch reported an error, and
 adds one to ``launch_counts[name]`` (``launch_counts[name + ":int8"]`` for
@@ -54,8 +56,10 @@ stream over points staged in shared memory.
 decide_frame_tm runs the same tensor-core filterbank with streams on the
 product's M axis, its A operand staged from time-major rows with
 ``ldmatrix.trans``, and counts CRC bits with popcounts of the packed words
-(float32 frames keep the CUDA-core body). The other kernels sum in float32
-on the CUDA cores.
+(float32 frames keep the CUDA-core body); decide_tones_tm's bfloat16 data
+take the same walk with a decisions epilogue (float32 data: a CUDA-core
+kernel). gather_rows_fused copies 16-byte vectors aligned by a funnel
+shift. The other kernels sum in float32 on the CUDA cores.
 
 The plain versions widen every operand to float32 before a product, as the
 reference kernels accumulate in float32. On the card, a float32 product
@@ -151,6 +155,7 @@ launch_counts = {
     "demod_at_fused:int8": 0,
     "demod_at_energies_fused:int8": 0,
     "demod_probe_fused:int8": 0,
+    "gather_rows_fused:int8": 0,
 }
 
 
@@ -173,17 +178,22 @@ def _check_launch(err: int, name: str, dtype: torch.dtype | None = None) -> None
     _count_launch(name, dtype)
 
 
+def _check_on_card(name: str, t: torch.Tensor, what: str) -> None:
+    """Check that ``t`` lies on the card with a contiguous last dimension."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device}")
+    if t.stride(-1) != 1 and t.shape[-1] > 1:  # a size-1 dimension's stride is arbitrary
+        raise ValueError(f"{name}: {what} must be contiguous in its last dimension")
+
+
 def _check_cuda_input(name: str, t: torch.Tensor, what: str, int8: bool = False) -> int:
     """The kernel's dtype code of ``t``, after checking that it lies on the
     card, in a dtype the kernel takes (int8 only where ``int8``), with a
     contiguous last dimension."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device}")
+    _check_on_card(name, t, what)
     if t.dtype not in _KERNEL_DTYPES or (t.dtype == torch.int8 and not int8):
         kinds = "float32, bfloat16 or int8" if int8 else "float32 or bfloat16"
         raise TypeError(f"{name}: {what} must be {kinds}, got {t.dtype}")
-    if t.stride(-1) != 1 and t.shape[-1] > 1:  # a size-1 dimension's stride is arbitrary
-        raise ValueError(f"{name}: {what} must be contiguous in its last dimension")
     return _KERNEL_DTYPES[t.dtype]
 
 
@@ -1026,27 +1036,41 @@ def decide_tones_tm(config: ModemConfig, data_tm: torch.Tensor):
     each [T // sps, B]; a trailing partial symbol is dropped and argmax ties
     go to the first tone. No parse: every symbol present is decided, so the
     quality means that follow cover the whole window (decide_frame_tm
-    covers exactly the frame's own symbols)."""
+    covers exactly the frame's own symbols).
+
+    On the card: bfloat16 data takes decide_frame_tm's tensor-core walk
+    (csrc/decide_frame_tm.cu, its decisions epilogue) with the basis of
+    _demod_mma_basis; float32 data the CUDA-core kernel of
+    csrc/decide_tones_tm.cu with the float32 basis of _kernel_basis."""
     if data_tm.device.type == "cpu":
         return decide_tones_tm_ref(config, data_tm)
+    return _decide_tones_tm_launch(config, data_tm)
+
+
+def _decide_tones_tm_launch(config: ModemConfig, data_tm: torch.Tensor):
     name = "decide_tones_tm"
-    dtype = _check_cuda_input(name, data_tm, "data_tm")
+    _check_cuda_input(name, data_tm, "data_tm")
     if data_tm.dim() != 2 or not data_tm.is_contiguous():
         raise ValueError(f"{name}: data_tm must be a contiguous [T, B] tensor")
     _check_kernel_geometry(name, config)
     t, b = data_tm.shape
-    s = t // config.samples_per_symbol
+    sps = config.samples_per_symbol
+    s = t // sps
     if s < 1 or b < 1:
         raise ValueError(f"{name}: data_tm {tuple(data_tm.shape)} holds no whole symbol")
     dev = data_tm.device
     tone = torch.empty(s, b, dtype=torch.int32, device=dev)
     best = torch.empty(s, b, dtype=torch.float32, device=dev)
     total = torch.empty(s, b, dtype=torch.float32, device=dev)
-    basis = _kernel_basis(config, data_tm.dtype, dev)
-    err = _entry(name)(
-        data_tm.data_ptr(), dtype, b, config.samples_per_symbol, s, basis.data_ptr(),
-        tone.data_ptr(), best.data_ptr(), total.data_ptr(), _stream_handle(dev),
-    )
+    outs = (tone.data_ptr(), best.data_ptr(), total.data_ptr(), _stream_handle(dev))
+    if data_tm.dtype == torch.float32:  # the CUDA-core body
+        basis = _kernel_basis(config, data_tm.dtype, dev)
+        err = _entry(name)(data_tm.data_ptr(), b, sps, s, basis.data_ptr(), *outs)
+    else:  # the tensor-core filterbank
+        basis = _demod_mma_basis(config, data_tm.dtype, dev)
+        err = _entry("decide_tones_tm_mma")(
+            data_tm.data_ptr(), b, sps, config.num_tones, s, basis.data_ptr(), *outs
+        )
     _check_launch(err, name)
     return tone, best, total
 
@@ -1065,13 +1089,20 @@ def gather_rows_fused_ref(buffer: torch.Tensor, start: torch.Tensor, size: int) 
 def gather_rows_fused(buffer: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
     """out[..., i] = buffer[..., start[...] + i], in the buffer's dtype
     [..., size]: sync.aligned_gather's contract as one kernel. Pure data
-    movement, bit-exact for float32 and bfloat16. Callers guarantee
-    0 <= start and start + size <= buffer length; positions outside the
-    buffer read as zero (the reference reads its zero padding there)."""
+    movement, bit-exact in any dtype of 1, 2 or 4 bytes (int8, bfloat16,
+    float16, float32, ...). Callers guarantee 0 <= start and start + size
+    <= buffer length; positions outside the buffer read as zero (the
+    reference reads its zero padding there)."""
     if buffer.device.type == "cpu":
         return gather_rows_fused_ref(buffer, start, size)
+    return _gather_rows_launch(buffer, start, size)
+
+
+def _gather_rows_launch(buffer: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
     name = "gather_rows_fused"
-    _check_cuda_input(name, buffer, "buffer")
+    _check_on_card(name, buffer, "buffer")
+    if buffer.element_size() not in (1, 2, 4):  # the kernel moves 1-, 2- or 4-byte elements
+        raise TypeError(f"{name}: buffer must have 1-, 2- or 4-byte elements, got {buffer.dtype}")
     if buffer.dim() < 2 or not buffer.is_contiguous():
         raise ValueError(f"{name}: buffer must be a contiguous [..., L] tensor with a batch")
     if start.shape != buffer.shape[:-1]:
@@ -1088,7 +1119,7 @@ def gather_rows_fused(buffer: torch.Tensor, start: torch.Tensor, size: int) -> t
         buffer.data_ptr(), buffer.element_size(), st.shape[0], length, st.data_ptr(), size,
         out.data_ptr(), _stream_handle(dev),
     )
-    _check_launch(err, name)
+    _check_launch(err, name, buffer.dtype)
     return out
 
 

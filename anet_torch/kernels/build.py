@@ -74,9 +74,9 @@ SIGNATURES = {
         "anet_correlate",
         [_P, _I, _I, ctypes.c_longlong, _I, _P, _I, _I, _I, _I, _P, _P],
     ),
-    "decide_tones_tm": (
-        "anet_decide_tones_tm",
-        [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "decide_tones_tm": ("anet_decide_tones_tm", [_P, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "decide_tones_tm_mma": (
+        "anet_decide_tones_tm_mma", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P], "decide_frame_tm",
     ),
     "gather_rows": (
         "anet_gather_rows",

@@ -58,6 +58,13 @@
 // - Rows whose byte offset is not a multiple of 16 (B not a multiple of 8
 //   for bf16 or 16 for int8, or an unaligned base) cannot take 16-byte
 //   copies: then the fetch loads element by element into the same layout.
+// - decide_tones_tm's bfloat16 route (anet/kernels/__init__.py
+//   decide_tones_tm, pallas_call at line 304) is this walk with another
+//   epilogue (TONES): row0 0, every symbol's tone, best and total stored
+//   by lanes 0 and 1 of each quad (M rows g and g + 8), no word, CRC
+//   count or sum. Bound at the smoke run's oversized window (544 symbols
+//   of 64 bf16 samples, B = 16384): 1.25 GB read and written, 0.37 ms;
+//   measured (time_search --kernels tones_tm, as above) 0.46-0.47 ms.
 //
 // float32 data keeps the CUDA cores (frame_tm_f32, anet_decide_frame_tm_f32):
 // a bf16 hi + lo split of float32 samples would lose 2^-16 of weak tones'
@@ -117,6 +124,9 @@ struct Frame {
   int32_t* words;
   float* crc;
   float* qual;
+  int32_t* tone;  // decide_tones_tm (TONES): [n_symbols, B] decisions, no words, counts or sums
+  float* best;
+  float* total;
 };
 
 // Stage symbol s of the block's streams (nothing from s_end on), then
@@ -176,7 +186,9 @@ __device__ __forceinline__ void a_frag(const unsigned char* stage, int ks, int w
   }
 }
 
-template <typename T, int SPS, int NT>
+// TONES: decide_tones_tm's epilogue, each symbol's tone, best and total
+// stored; else decide_frame_tm's, the packed words, CRC counts and sums.
+template <typename T, int SPS, int NT, bool TONES>
 __global__ void __launch_bounds__(THREADS) frame_tm_mma(Frame f) {
   using G = Geo<T, SPS>;
   extern __shared__ __align__(16) unsigned char ring[];
@@ -259,19 +271,31 @@ __global__ void __launch_bounds__(THREADS) frame_tm_mma(Frame f) {
             bt = ot;
           }
         }
-        best[h] = bq;
-        total[h] = tot;
-        int data = bt;  // Gray -> binary
-        for (int sh = 1; sh < f.bps; sh <<= 1) data ^= data >> sh;
-        word[h] |= (uint32_t)data << ((SB - 1 - s8) * f.bps);
+        if constexpr (TONES) {  // lanes 0 and 1 of a quad store M rows g and g + 8
+          if (i == h && sb[h] < f.B) {
+            const int64_t o = (int64_t)s * f.B + sb[h];
+            f.tone[o] = bt;
+            f.best[o] = bq;
+            f.total[o] = tot;
+          }
+        } else {
+          best[h] = bq;
+          total[h] = tot;
+          int data = bt;  // Gray -> binary
+          for (int sh = 1; sh < f.bps; sh <<= 1) data ^= data >> sh;
+          word[h] |= (uint32_t)data << ((SB - 1 - s8) * f.bps);
+        }
       }
-      // every lane of the quad holds both streams' sums: lane i sums
-      // stream i & 1's, so each lane divides once
-      const float bq = i & 1 ? best[1] : best[0], tot = i & 1 ? total[1] : total[0];
-      conf += bq / fmaxf(tot, 1e-20f);
-      bsum += bq;
-      tsum += tot;
+      if constexpr (!TONES) {
+        // every lane of the quad holds both streams' sums: lane i sums
+        // stream i & 1's, so each lane divides once
+        const float bq = i & 1 ? best[1] : best[0], tot = i & 1 ? total[1] : total[0];
+        conf += bq / fmaxf(tot, 1e-20f);
+        bsum += bq;
+        tsum += tot;
+      }
     }
+    if constexpr (TONES) continue;
     // lanes 0 and 1 of a quad store streams M rows g and g + 8: 16 words a warp
     const int mine = i == 0 ? sb[0] : sb[1];
     if (i < 2 && mine < f.B) f.words[(int64_t)tile * f.B + mine] = (int32_t)(i == 0 ? word[0] : word[1]);
@@ -289,6 +313,7 @@ __global__ void __launch_bounds__(THREADS) frame_tm_mma(Frame f) {
     }
   }
   anet::demod::cp_async_wait<0>();
+  if constexpr (TONES) return;
 
   // the block's share of the sums, into zeroed outputs: integer counts add
   // exactly in any order, the quality sums change their rounding order only
@@ -308,11 +333,11 @@ __global__ void __launch_bounds__(THREADS) frame_tm_mma(Frame f) {
 
 // The grid: a block per NB streams (x) and, while that leaves the card
 // short of its resident blocks, a share of the tiles (y).
-template <typename T, int SPS, int NT>
+template <typename T, int SPS, int NT, bool TONES>
 cudaError_t launch_mma(const Frame& f, cudaStream_t st) {
   using G = Geo<T, SPS>;
   static int resident = 0;  // blocks the card holds at once; 0 until the first call
-  auto kernel = frame_tm_mma<T, SPS, NT>;
+  auto kernel = frame_tm_mma<T, SPS, NT, TONES>;
   if (resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -331,22 +356,22 @@ cudaError_t launch_mma(const Frame& f, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int SPS>
+template <typename T, int SPS, bool TONES>
 cudaError_t dispatch_tones(int m, const Frame& f, cudaStream_t st) {
-  if (m <= 4) return launch_mma<T, SPS, 1>(f, st);
-  if (m <= 8) return launch_mma<T, SPS, 2>(f, st);
-  return launch_mma<T, SPS, 4>(f, st);
+  if (m <= 4) return launch_mma<T, SPS, 1, TONES>(f, st);
+  if (m <= 8) return launch_mma<T, SPS, 2, TONES>(f, st);
+  return launch_mma<T, SPS, 4, TONES>(f, st);
 }
 
-template <typename T>
+template <typename T, bool TONES = false>
 cudaError_t dispatch_sps(int sps, int m, const Frame& f, cudaStream_t st) {
   switch (sps) {
     case 32:
-      return dispatch_tones<T, 32>(m, f, st);
+      return dispatch_tones<T, 32, TONES>(m, f, st);
     case 64:
-      return dispatch_tones<T, 64>(m, f, st);
+      return dispatch_tones<T, 64, TONES>(m, f, st);
     case 128:
-      return dispatch_tones<T, 128>(m, f, st);
+      return dispatch_tones<T, 128, TONES>(m, f, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -472,11 +497,28 @@ extern "C" int anet_decide_frame_tm(const void* x, int dtype, int B, int row0, i
           reinterpret_cast<uintptr_t>(x) % 16 == 0 && ((int64_t)B * elem) % 16 == 0,
           static_cast<const uint32_t*>(basis), static_cast<const uint32_t*>(masks),
           static_cast<int32_t*>(words), static_cast<float*>(crc),
-          static_cast<float*>(qual)};
+          static_cast<float*>(qual), nullptr, nullptr, nullptr};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == anet::DTYPE_BF16) return (int)dispatch_sps<__nv_bfloat16>(sps, m, f, st);
   if (dtype == anet::DTYPE_I8) return (int)dispatch_sps<int8_t>(sps, m, f, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// decide_tones_tm on the tensor cores. bfloat16 x: [>= n_symbols * sps, B]
+// time-major, symbol-aligned at row 0, any base alignment; m <= 16 tones,
+// sps 32, 64 or 128; basis: the B fragments of demod_core.cuh
+// (kernels._demod_mma_basis). tone: [n_symbols, B] int32; best, total:
+// [n_symbols, B] float32. Returns cudaGetLastError().
+extern "C" int anet_decide_tones_tm_mma(const void* x, int B, int sps, int m, int n_symbols,
+                                        const void* basis, void* tone, void* best, void* total,
+                                        void* stream) {
+  if (m < 1 || m > 16) return (int)cudaErrorInvalidValue;
+  if (B == 0 || n_symbols == 0) return (int)cudaSuccess;
+  Frame f{static_cast<const unsigned char*>(x), B, 0, n_symbols, (n_symbols + SB - 1) / SB, 0,
+          reinterpret_cast<uintptr_t>(x) % 16 == 0 && ((int64_t)B * 2) % 16 == 0,
+          static_cast<const uint32_t*>(basis), nullptr, nullptr, nullptr, nullptr,
+          static_cast<int32_t*>(tone), static_cast<float*>(best), static_cast<float*>(total)};
+  return (int)dispatch_sps<__nv_bfloat16, true>(sps, m, f, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // float32 x: [T, B] time-major; basis: [sps, 32] float32; ptab:

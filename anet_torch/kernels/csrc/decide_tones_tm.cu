@@ -1,25 +1,34 @@
-// decide_tones_tm: time-major per-symbol decisions with no frame parse, Hopper.
+// decide_tones_tm: time-major per-symbol decisions with no frame parse,
+// float32 data on the CUDA cores.
 //
 // Replaces the TPU kernel anet/kernels/__init__.py decide_tones_tm
 // (pallas_call at line 304, body _decide_tm_kernel at line 236). Input: a
-// time-major data section x[T, B] (float32 or bfloat16), symbol-aligned at
-// row 0. Per stream and symbol s < T / sps: the [sps, 2M] filterbank in
-// float32, I^2+Q^2, argmax (first index on ties), best and total, written
-// as [S, B]. It is the aligned receiver's path for a window that is not
-// exactly one frame long, where the full-fusion kernel's pack, CRC and
-// quality tail (decide_frame_tm) does not apply.
+// time-major data section x[T, B], symbol-aligned at row 0. Per stream and
+// symbol s < T / sps: the [sps, 2M] filterbank in float32, I^2+Q^2, argmax
+// (first index on ties), best and total, written as [S, B]. It is the
+// aligned receiver's path for a window that is not exactly one frame long,
+// where the full-fusion kernel's pack, CRC and quality tail
+// (decide_frame_tm) does not apply.
 //
-// What bounds it on the H100: the one read of the rows (36,864 x B bf16 at
-// the oversized window of the smoke run, 1.21 GB at B = 16384: 0.36 ms at
-// 3.35 TB/s) plus 12 bytes a symbol written. The filterbank's 2 x 32 x sps
-// flops a symbol on the CUDA cores in float32 (67 TFLOP/s) is ~0.58 ms at
-// that size, so this simple form is bound by its FMAs, as decide_frame_tm.
+// bfloat16 data takes the tensor-core kernel of decide_frame_tm.cu
+// (frame_tm_mma with its TONES epilogue, anet_decide_tones_tm_mma): the
+// same walk over time-major rows, each symbol's decisions stored in place
+// of the packed word. float32 data stays here: the reference's float32
+// route uses a float32 basis, and a bf16 hi + lo split of the samples would
+// lose 2^-16 of weak tones' I/Q.
 //
-// Design: decide_frame_tm's front. One thread per stream, so consecutive
-// threads read consecutive streams of a time-major row and every load and
-// store coalesces; the symbol axis is split across blockIdx.y. The basis
-// sits in shared memory and is read as float4 broadcasts. The TPU kernel's
-// lane tiles and sublane reductions are not carried over.
+// What bounds it on the H100: the one read of the float32 rows (544 symbols
+// of 64 samples at the oversized window of the smoke run: 2.28 GB at B =
+// 16384, 0.68 ms at 3.35 TB/s) plus 12 bytes a symbol written. The
+// filterbank's 2 x 32 x sps flops a symbol on the CUDA cores (67 TFLOP/s
+// float32) take ~0.55 ms at that size, close behind.
+//
+// Design: decide_frame_tm's float32 front. One thread per stream, so
+// consecutive threads read consecutive streams of a time-major row and
+// every load and store coalesces; the symbol axis is split across
+// blockIdx.y. The basis sits in shared memory and is read as float4
+// broadcasts. The TPU kernel's lane tiles and sublane reductions are not
+// carried over.
 #include "common.cuh"
 
 namespace {
@@ -28,9 +37,8 @@ constexpr int NCOL = 32;    // basis columns: cos/sin of 16 (padded) tones
 constexpr int THREADS = 128;
 constexpr int SYMS_PER_BLOCK = 8;
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-decide_tones_tm_kernel(const T* __restrict__ x, int B, int sps, int n_symbols,
+decide_tones_tm_kernel(const float* __restrict__ x, int B, int sps, int n_symbols,
                        const float* __restrict__ basis, int32_t* __restrict__ tone_out,
                        float* __restrict__ best_out, float* __restrict__ total_out) {
   extern __shared__ float4 sbasis4[];  // [sps][NCOL / 4]
@@ -47,9 +55,9 @@ decide_tones_tm_kernel(const T* __restrict__ x, int B, int sps, int n_symbols,
     float acc[NCOL];
 #pragma unroll
     for (int c = 0; c < NCOL; ++c) acc[c] = 0.0f;
-    const T* xs = x + (int64_t)s * sps * B + b;
+    const float* xs = x + (int64_t)s * sps * B + b;
     for (int j = 0; j < sps; ++j) {
-      const float v = anet::to_f32(xs[(int64_t)j * B]);
+      const float v = xs[(int64_t)j * B];
       const float4* bj = sbasis4 + j * (NCOL / 4);
 #pragma unroll
       for (int c4 = 0; c4 < NCOL / 4; ++c4) {
@@ -80,23 +88,15 @@ decide_tones_tm_kernel(const T* __restrict__ x, int B, int sps, int n_symbols,
 
 }  // namespace
 
-// x: [>= n_symbols * sps, B] time-major, contiguous; basis: [sps, 32]
+// float32 x: [>= n_symbols * sps, B] time-major, contiguous; basis: [sps, 32]
 // float32; tone: [n_symbols, B] int32; best, total: [n_symbols, B] float32.
 // Returns cudaGetLastError().
-extern "C" int anet_decide_tones_tm(const void* x, int dtype, int B, int sps, int n_symbols,
-                                    const void* basis, void* tone, void* best, void* total,
-                                    void* stream) {
+extern "C" int anet_decide_tones_tm(const void* x, int B, int sps, int n_symbols, const void* basis,
+                                    void* tone, void* best, void* total, void* stream) {
   dim3 grid((B + THREADS - 1) / THREADS, (n_symbols + SYMS_PER_BLOCK - 1) / SYMS_PER_BLOCK);
   const size_t smem = (size_t)sps * NCOL * sizeof(float);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == anet::DTYPE_BF16) {
-    decide_tones_tm_kernel<__nv_bfloat16><<<grid, THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), B, sps, n_symbols, static_cast<const float*>(basis),
-        static_cast<int32_t*>(tone), static_cast<float*>(best), static_cast<float*>(total));
-  } else {
-    decide_tones_tm_kernel<float><<<grid, THREADS, smem, st>>>(
-        static_cast<const float*>(x), B, sps, n_symbols, static_cast<const float*>(basis),
-        static_cast<int32_t*>(tone), static_cast<float*>(best), static_cast<float*>(total));
-  }
+  decide_tones_tm_kernel<<<grid, THREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), B, sps, n_symbols, static_cast<const float*>(basis),
+      static_cast<int32_t*>(tone), static_cast<float*>(best), static_cast<float*>(total));
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,10 @@ kernels (``search_core``: ``HMMA`` and no float32 product loop,
 ``FFMA``; ``demod_core``, whose walk runs in ``demod_at``,
 ``demod_at_energies`` and ``tone_energies``: ``HMMA`` in the bfloat16 and
 ``IMMA`` in the int8 ``*_mma`` kernels, ``FFMA`` only in the CUDA-core
-ones). Needs the CUDA toolkit, no card.
+ones). Each row also counts the global loads and stores by their whole
+opcode (``"global": {"LDG.E.128": ..., "STG.E.128": ...}``), which shows
+their width: ``gather_rows`` loads and stores 16 bytes a lane. Needs the
+CUDA toolkit, no card.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ HEADERS = {  # a shared device header -> the sources built on it
     "demod_core": ("demod_at", "demod_at_energies", "tone_energies"),
 }
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
-_INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+_INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+_GLOBAL = ("LDG", "STG")  # opcodes counted with their modifiers too
 
 
 def _demangle(names: list[str]) -> list[str]:
@@ -47,25 +51,39 @@ def _demangle(names: list[str]) -> list[str]:
     return out.stdout.splitlines()
 
 
-def parse_sass(sass: str) -> list[tuple[str, Counter]]:
-    """(mangled function name, opcode counts) of each function in the text
-    that ``cuobjdump -sass`` prints; a predicate (@P0, @!UP1) is not part
-    of the opcode."""
-    functions: list[tuple[str, Counter]] = []
+def _instructions(sass: str) -> list[tuple[str, list[str]]]:
+    """(mangled function name, its whole opcodes, modifiers kept) of each
+    function in the text that ``cuobjdump -sass`` prints; a predicate (@P0,
+    @!UP1) is not part of the opcode."""
+    functions: list[tuple[str, list[str]]] = []
     for line in sass.splitlines():
         m = _FUNCTION.match(line)
         if m:
-            functions.append((m.group(1), Counter()))
+            functions.append((m.group(1), []))
             continue
         m = _INSTRUCTION.match(line)
         if m and functions:
-            functions[-1][1][m.group(1)] += 1
+            functions[-1][1].append(m.group(1))
     return functions
 
 
+def parse_sass(sass: str) -> list[tuple[str, Counter]]:
+    """(mangled function name, opcode counts) of each function in the text
+    that ``cuobjdump -sass`` prints; the opcode is the part before the
+    first dot."""
+    return [(name, Counter(op.split(".")[0] for op in ops)) for name, ops in _instructions(sass)]
+
+
+def global_ops(sass: str) -> list[Counter]:
+    """The whole-opcode counts (LDG.E.128, STG.E.U8, ...) of each function's
+    global loads and stores, in parse_sass's order."""
+    return [Counter(op for op in ops if op.split(".")[0] in _GLOBAL) for _, ops in _instructions(sass)]
+
+
 def instruction_mix(source: str) -> list[dict]:
-    """[{"source", "function", "instructions", "ops": {opcode: count}}] of
-    every kernel function in the library of ``source``."""
+    """[{"source", "function", "instructions", "ops": {opcode: count},
+    "global": {whole opcode: count}}] of every kernel function in the
+    library of ``source``."""
     build_all((source,))
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run(
@@ -75,8 +93,8 @@ def instruction_mix(source: str) -> list[dict]:
     names = _demangle([f for f, _ in functions])
     return [
         {"source": source, "function": name, "instructions": sum(ops.values()),
-         "ops": dict(ops.most_common())}
-        for name, (_, ops) in zip(names, functions)
+         "ops": dict(ops.most_common()), "global": dict(wide.most_common())}
+        for name, (_, ops), wide in zip(names, functions, global_ops(sass))
     ]
 
 

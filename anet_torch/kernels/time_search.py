@@ -72,6 +72,17 @@ comma-separated subset of:
   64-QAM) at B = 2,048: QPSK points rotated by a clock drift of 100-150
   ppm, the slope seeded within 5%, each with its ``device`` column. It
   ignores ``--model``.
+- ``tones_tm``: ``decide_tones_tm`` at the oversized aligned window's
+  geometry (mfsk16-fast, payload 256: the data section of a frame plus 8
+  symbols, 544 symbols of 64 samples, 16 tones) on B = 16,384 streams of
+  bfloat16 and float32 noise, and bfloat16 at B = 16,383 (``... bfloat16
+  ragged``: rows off 16 bytes), each with its ``device`` column. It
+  ignores ``--model``.
+- ``gather``: ``gather_rows_fused`` at the one-shot receiver's geometry
+  (mfsk16-fast, payload 256: size 36,352 out of 76,288-sample rows) on B =
+  8,192 bfloat16, int8 (``quantize_int8``) and float32 buffers of noise,
+  starts random in the row, each with its ``device`` column; null for a
+  dtype the checkout's kernel refuses. It ignores ``--model``.
 
 Segments are strided views from sample 1, as the stream passes them. The
 inputs come from one seed, so every checkout times the same data. Needs a
@@ -95,6 +106,8 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "bm": ("tone_energies",),
     "probe_at": ("demod_probe", "probe_at"),  # probe_at.cu: checkouts that still have it
     "ofdm": ("ofdm_track",),
+    "tones_tm": ("decide_tones_tm", "decide_frame_tm"),
+    "gather": ("gather_rows",),
 }
 FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
 DEMOD_MODELS = {"demod_at_fused": "mfsk16-fast", "demod_at_energies_fused": "mfsk4-coded"}
@@ -302,6 +315,41 @@ if "ofdm" in kinds:
             del zl, hl
             torch.cuda.empty_cache()
         del z, h
+if "tones_tm" in kinds:
+    c = get_model("mfsk16-fast").config
+    rows = family.frame_samples(c, 256) - c.preamble_samples + 8 * c.samples_per_symbol
+    x = torch.randn(rows, {frame_b}, generator=gen, device="cuda")
+    for label, make in (("bfloat16", lambda: x.to(torch.bfloat16)), ("float32", lambda: x),
+                        ("bfloat16 ragged", lambda: x[:, 1:].to(torch.bfloat16).contiguous())):
+        xs = make()
+        call = lambda: kernels.decide_tones_tm(c, xs)
+        out[f"decide_tones_tm {{label}}"] = time_ms(call)
+        out[f"decide_tones_tm {{label}} device"] = device_ms(call, ("decide_tones_tm", "frame_tm_mma"))
+        del xs
+        torch.cuda.empty_cache()
+    del x
+if "gather" in kinds:
+    from anet_torch.stream import _buffer_len, quantize_int8
+
+    c = get_model("mfsk16-fast").config
+    size = family.frame_samples(c, 256)
+    length = _buffer_len(c, size, 256)
+    x = torch.randn(b, length, generator=gen, device="cuda")
+    starts = torch.randint(0, length - size + 1, (b,), generator=gen, device="cuda").int()
+    for label, make in (("bfloat16", lambda: x.to(torch.bfloat16)), ("int8", lambda: quantize_int8(x)),
+                        ("float32", lambda: x)):
+        buf = make()
+        call = lambda: kernels.gather_rows_fused(buf, starts, size)
+        try:
+            call()
+        except TypeError:  # a checkout whose kernel refuses this dtype: nothing to time
+            out[f"gather_rows_fused {{label}}"] = out[f"gather_rows_fused {{label}} device"] = None
+        else:
+            out[f"gather_rows_fused {{label}}"] = time_ms(call)
+            out[f"gather_rows_fused {{label}} device"] = device_ms(call, "gather_rows_kernel")
+        del buf
+        torch.cuda.empty_cache()
+    del x
 print(json.dumps(out))
 """
 

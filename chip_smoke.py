@@ -19,8 +19,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the three of the variable-length, oversized-window and one-shot paths on
    mfsk16-fast (correlate_fused at a chunk of two shortest frames, 23,552
    lags, also timed on its float32 routes; decide_tones_tm at a frame plus
-   8 symbols; gather_rows_fused at one frame out of the 76,288-sample
-   buffer; demod_at_fused also timed at the dynamic parse's max-length
+   8 symbols, bf16 on the tensor cores, also on float32 data (the CUDA-core
+   kernel) and on bf16 rows off 16 bytes (B - 1 streams); gather_rows_fused
+   at one frame out of the 76,288-sample buffer, bf16, also on int8 (its
+   int8 numbers) and float32 buffers, starts at every byte residue mod 16;
+   demod_at_fused also timed at the dynamic parse's max-length
    window, 536 symbols from starts in a 23,552-sample chunk), these also
    beside the one
    PyTorch call that computes the same function where there is one; and
@@ -65,7 +68,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    captures with the frame at a random start below 2,000 through
    receive_frame (its filterbank tone_energies_fused) and
    receive_frame_dynamic, then the same composition with
-   aligned_gather(mode="roll") (gather_rows_fused), bit-equal frames;
+   aligned_gather(mode="roll") (gather_rows_fused), bit-equal frames, and
+   the roll gather of the captures quantized as an int8 carry holds them
+   (gather_rows_fused's int8 instantiation), bit-equal to the default;
 7. the OFDM family: "aligned-ofdm" (family.aligned_demod_fn on 8,192
    ofdm-fast frames, float32: 64 distinct streams, each resampled on the
    card to its own clock offset in +-150 ppm, at 16 dB, tiled),
@@ -96,7 +101,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    "<name>:int8"): every kernel of a path must have launched there, and
    none that the reference's routing keeps off it (ABSENT).
 The line before the last is a JSON object with each kernel's numbers (the
-four kernels with an int8 instantiation carry its numbers under "int8"), and
+five kernels with an int8 instantiation carry its numbers under "int8"), and
 the last line the JSON verdict with the device's name.
 """
 
@@ -173,14 +178,14 @@ REPLACES = {
     "demod_at_energies_fused": ("anet_torch/kernels/csrc/demod_at_energies.cu", "anet/kernels/__init__.py:1918"),
     "probe_at_fused": ("anet_torch/kernels/csrc/demod_probe.cu", "anet/kernels/__init__.py:1621"),
     "correlate_fused": ("anet_torch/kernels/csrc/correlate.cu", "anet/kernels/__init__.py:891"),
-    "decide_tones_tm": ("anet_torch/kernels/csrc/decide_tones_tm.cu", "anet/kernels/__init__.py:269"),
+    "decide_tones_tm": ("anet_torch/kernels/csrc/decide_frame_tm.cu", "anet/kernels/__init__.py:269"),
     "gather_rows_fused": ("anet_torch/kernels/csrc/gather_rows.cu", "anet/kernels/__init__.py:1415"),
     "ofdm_track_decide_fused": ("anet_torch/kernels/csrc/ofdm_track.cu", "anet/kernels/__init__.py:2648"),
     "tone_energies_fused": ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:87"),
     "decide_tones_fused": ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:172"),
     "sync_search_blockmax": ("anet_torch/kernels/csrc/search_blockmax.cu", "anet/kernels/__init__.py:1300"),
 }
-INT8_KERNELS = ("decide_frame_tm", "demod_at_fused", "demod_at_energies_fused", "demod_probe_fused")
+INT8_KERNELS = ("decide_frame_tm", "demod_at_fused", "demod_at_energies_fused", "demod_probe_fused", "gather_rows_fused")
 
 
 def log(msg: str) -> None:
@@ -772,24 +777,41 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     want = kernels.decide_tones_tm_ref(cfg, data_tm)
     results["decide_tones_tm"] = {"max_abs_err": compare("decide_tones_tm", got, want, (0,), (1, 2))}
     n_sym = data_tm.shape[0] // sps
+    # its float32 route (the CUDA-core kernel) and bf16 rows off 16 bytes
+    for label, x in (("float32", data_tm.float()), ("bfloat16, B - 1", data_tm[:, 1:].contiguous())):
+        compare(f"decide_tones_tm ({label})", kernels.decide_tones_tm(cfg, x), kernels.decide_tones_tm_ref(cfg, x),
+                (0,), (1, 2))
 
     # gather_rows_fused: one frame out of the stream buffer, starts on both
-    # sides of the 128-sample rows the reference kernel splits at
+    # sides of the 128-sample rows the reference kernel splits at and at
+    # every byte residue mod 16 of an int8 row (rows are whole 16 bytes)
     buf = torch.randn(COMPARE_B, length, generator=gen, device=DEV).to(torch.bfloat16)
     starts = torch.randint(0, length - t_max + 1, (COMPARE_B,), generator=gen, device=DEV)
     starts[:6] = torch.tensor([0, 1, 63, 127, 128 * 9 + 127, length - t_max], device=DEV)
+    starts[6:22] = 128 * 3 + torch.arange(16, device=DEV)
     if not {0, 1, 63, 127} <= set((starts % 128).tolist()):
         raise AssertionError("gather residues 0, 1, 63, 127 not covered")
     got = kernels.gather_rows_fused(buf, starts, t_max)
     want = kernels.gather_rows_fused_ref(buf, starts, t_max)
     compare("gather_rows_fused", (got.view(torch.int16),), (want.view(torch.int16),), (0,), ())
     results["gather_rows_fused"] = {"max_abs_err": float((got.float() - want.float()).abs().max())}
+    buf8 = quantize_int8(buf.float())  # as an int8 carry holds the samples
+    for label, b_ in (("int8", buf8), ("float32", buf.float())):
+        e = b_.element_size()
+        if set(((starts * e) % 16).tolist()) != set(range(0, 16, e)) or length * e % 16:
+            raise AssertionError(f"gather ({label}): the starts miss a byte residue mod 16")
+        got = kernels.gather_rows_fused(b_, starts, t_max)
+        want = kernels.gather_rows_fused_ref(b_, starts, t_max)
+        compare(f"gather_rows_fused ({label})", (got.view(torch.uint8),), (want.view(torch.uint8),), (0,), ())
+        if label == "int8":
+            results["gather_rows_fused:int8"] = {"max_abs_err": float((got.float() - want.float()).abs().max())}
 
     reps_a, reps_s = ALIGNED_B // COMPARE_B, STREAM_B // COMPARE_B
     seg_full = seg.repeat(reps_s, 1)
     data_full = data_tm.repeat(1, reps_a)
     buf_full, st_full = buf.repeat(reps_s, 1), starts.repeat(reps_s)
-    del seg, x_tm, data_tm, buf, frames, waves, got, want
+    buf8_full = buf8.repeat(reps_s, 1)
+    del seg, x_tm, data_tm, buf, buf8, b_, frames, waves, got, want
     calls = {
         "correlate_fused": (
             lambda f: f(seg_full, tpl, chunk), kernels.correlate_fused, kernels.correlate_fused_ref,
@@ -800,12 +822,16 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
         "gather_rows_fused": (
             lambda f: f(buf_full, st_full, t_max), kernels.gather_rows_fused, kernels.gather_rows_fused_ref,
         ),
+        "gather_rows_fused:int8": (
+            lambda f: f(buf8_full, st_full, t_max), kernels.gather_rows_fused, kernels.gather_rows_fused_ref,
+        ),
     }
     b_a, b_s = ALIGNED_B, STREAM_B
     work = {
         "correlate_fused": (b_s * (n_seg * 2 + chunk * 4) + k * 4, 2 * k * chunk * b_s),
         "decide_tones_tm": (b_a * n_sym * (sps * 2 + 12), n_sym * 2 * sps * 2 * m * b_a),
         "gather_rows_fused": (b_s * (2 * t_max * 2 + 4), 0),
+        "gather_rows_fused:int8": (b_s * (2 * t_max + 4), 0),
     }
     # the one PyTorch call computing the same function: a float32 convolution
     # (cuDNN, TF32 off) and an index gather; decide_tones_tm has none
@@ -821,6 +847,27 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
         raise AssertionError("conv1d does not compute correlate_fused's function")
     del lib_corr
     time_and_bound(results, calls, work, library)
+    del buf8_full
+    # the other routes of the two, each against its bound: decide_tones_tm's
+    # float32 kernel (CUDA cores) and bf16 rows off 16 bytes, the float32 gather
+    other_routes = {
+        "decide_tones_tm (float32)": (
+            lambda x: kernels.decide_tones_tm(cfg, x), lambda: data_full.float(), b_a * n_sym * (sps * 4 + 12),
+            n_sym * 2 * sps * 2 * m * b_a, F32_FLOPS_S),
+        f"decide_tones_tm (bfloat16, B {b_a - 1})": (
+            lambda x: kernels.decide_tones_tm(cfg, x), lambda: data_full[:, 1:].contiguous(),
+            (b_a - 1) * n_sym * (sps * 2 + 12), n_sym * 2 * sps * 2 * m * (b_a - 1), BF16_FLOPS_S),
+        "gather_rows_fused (float32)": (
+            lambda x: kernels.gather_rows_fused(x, st_full, t_max), lambda: buf_full.float(),
+            b_s * (2 * t_max * 4 + 4), 0, BF16_FLOPS_S),
+    }
+    for label, (fn, make, n_bytes, n_ops, peak) in other_routes.items():
+        x = make()
+        ms = time_ms(lambda: fn(x))
+        bound, by = bound_ms(n_bytes, n_ops, peak)
+        log(f"  {label}: kernel {ms:.3f} ms, bound {bound:.3f} ms ({by})")
+        del x
+        torch.cuda.empty_cache()
     # correlate_fused's float32 routes (bf16 hi + lo: two and three products)
     for seg_dtype in (torch.bfloat16, torch.float32):
         log_search_time("main shape", seg_full.to(seg_dtype), tpl.float(), chunk, name="correlate_fused")
@@ -1036,6 +1083,10 @@ def phase_oneshot(cfg, gen) -> None:
     rolled = tsync.aligned_gather(cap, start, t_max, mode="roll")
     if not torch.equal(rolled.view(torch.int16), plain.view(torch.int16)):
         raise AssertionError("oneshot: aligned_gather(mode='roll') differs from the default gather")
+    cap8 = quantize_int8(cap.float())  # the captures as an int8 carry holds them
+    if not torch.equal(tsync.aligned_gather(cap8, start, t_max, mode="roll"), tsync.aligned_gather(cap8, start, t_max)):
+        raise AssertionError("oneshot: aligned_gather(mode='roll') of int8 captures differs from the default gather")
+    del cap8
     frame = tframe.demodulate_frame(cfg, rolled, PAYLOAD, device=DEV)
     if not bool(frame.ok.all()) or not torch.equal(frame.payload, pay):
         raise AssertionError("oneshot: frames gathered by the kernel do not decode")
@@ -1371,7 +1422,7 @@ PATHS = {
         ("probe_at_fused", "demod_at_energies_fused", "viterbi_trellis", "sync_search_fused"),
     ),
     "aligned-window": (MODEL, phase_aligned_window, ("decide_tones_tm",)),
-    "oneshot": (MODEL, phase_oneshot, ("gather_rows_fused", "tone_energies_fused")),
+    "oneshot": (MODEL, phase_oneshot, ("gather_rows_fused", "gather_rows_fused:int8", "tone_energies_fused")),
     "aligned-ofdm": (
         OFDM_MODEL,
         lambda cfg, gen: phase_aligned_ofdm(cfg, "aligned-ofdm", STREAM_B),

@@ -350,8 +350,11 @@ def test_cuda_dynamic_slice_kernels_match_plain_versions(cuda, dtype):
     assert not got[1, 4, :3].any() and not got[1, 5, 500:].any()  # zeros outside the buffer
     with pytest.raises(ValueError):
         tk.gather_rows_fused(buf.transpose(0, 1), starts.T, 10)  # not contiguous
+    half = buf.to(torch.float16)  # any 2-byte element moves as it is
+    assert torch.equal(tk.gather_rows_fused(half, starts, 1000).view(torch.int16),
+                       tk.gather_rows_fused_ref(half, starts, 1000).view(torch.int16))
     with pytest.raises(TypeError):
-        tk.gather_rows_fused(buf.to(torch.float16), starts, 10)
+        tk.gather_rows_fused(buf.to(torch.float64), starts, 10)  # 8-byte elements
     with pytest.raises(ValueError):
         tk.decide_tones_tm(CFG, x.T)
 
@@ -465,6 +468,11 @@ def test_cuda_window_and_oneshot_receivers_match_cpu(cuda, dtype):
     assert tk.launch_counts["gather_rows_fused"] == before + 1
     assert torch.equal(rolled, tsync.aligned_gather(cap.to(cuda), starts.to(cuda), w.shape[1]))
     assert tk.launch_counts["gather_rows_fused"] == before + 1  # the default gather launches none
+    cap8 = tstream.quantize_int8(cap.float()).to(cuda)  # an int8 carry's samples, moved as they are
+    before8 = tk.launch_counts["gather_rows_fused:int8"]
+    rolled8 = tsync.aligned_gather(cap8, starts.to(cuda), w.shape[1], mode="roll")
+    assert tk.launch_counts["gather_rows_fused:int8"] == before8 + 1
+    assert rolled8.dtype == torch.int8 and torch.equal(rolled8, tsync.aligned_gather(cap8, starts.to(cuda), w.shape[1]))
 
 
 def _resample_ppm(x, ppm):
@@ -1253,3 +1261,135 @@ def test_cuda_ofdm_track_every_layout(cuda, model, tracked, b, layout):
     assert torch.equal(got[0], base[0]) and torch.equal(got[2], base[2])
     if evm is not None:
         assert torch.equal(got[1], base[1])
+
+
+# --- decide_tones_tm on the tensor cores: every geometry and edge -----------
+
+TONES_BATCHES = (1, 7, 8, 129, 1000, 16383)  # rows off 16 bytes unless B is a multiple of 8
+TONES_SYMBOLS = (1, 7, 8, 9, 67)  # whole symbol tiles of 8 and partial ones
+
+
+def _tones_case(cfg, rng, b, n_sym, dtype, partial, device):
+    """Time-major [n_sym * sps + partial, B] data sections of ``dtype`` on
+    the card: the data symbols of up to 16 noisy frames (repeated to n_sym
+    symbols, so every symbol has a clear winner) tiled across the batch,
+    noise 0.3 added on the card, then ``partial`` rows of noise (a trailing
+    partial symbol)."""
+    sps, pre = cfg.samples_per_symbol, cfg.preamble_samples
+    k = min(b, 16)
+    w = transmit(cfg, rng.integers(0, 256, (k, PAY), dtype=np.uint8), device="cpu")[:, pre:]
+    data = w.repeat(1, -(-n_sym * sps // w.shape[1]))[:, : n_sym * sps]
+    data = torch.nn.functional.pad(data, (0, partial)).to(device)
+    x = data.repeat(-(-b // k), 1)[:b].T.contiguous()
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+    return (x + 0.3 * torch.randn(x.shape, generator=g, device=device)).to(dtype)
+
+
+def _check_tones_tm(cfg, x):
+    """One launch of decide_tones_tm on ``x`` (under its key, none
+    elsewhere), held against the plain version: tones bit-equal, best and
+    total within rtol 1e-3, atol 1e-5 (float32 sums in another order)."""
+    before = dict(tk.launch_counts)
+    got = tk.decide_tones_tm(cfg, x)
+    torch.cuda.synchronize()
+    launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
+    assert launched == {"decide_tones_tm": 1}
+    want = tk.decide_tones_tm_ref(cfg, x)
+    assert all(g.shape == w.shape == (x.shape[0] // cfg.samples_per_symbol, x.shape[1]) for g, w in zip(got, want))
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", TONES_BATCHES)
+@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decide_tones_tm_every_geometry(cuda, dtype, geometry, b):
+    """decide_tones_tm against its plain version, bfloat16 (the tensor-core
+    walk) and float32 (the CUDA-core kernel): sps 32, 64 and 128, 2, 4, 8
+    and 16 tones, B = 1 to 16,383 (rows off a 16-byte boundary where B is
+    not a multiple of 8), n_symbols 1, 7, 8, 9 and 67 (one per case, in
+    turn), a trailing partial symbol on every other case."""
+    cfg = DEMOD_CONFIGS[geometry]
+    case = TONES_BATCHES.index(b) + 6 * list(DEMOD_CONFIGS).index(geometry)
+    rng = np.random.default_rng(100 + case)
+    n_sym = TONES_SYMBOLS[case % 5]
+    partial = (0, 17)[case % 2]
+    x = _tones_case(cfg, rng, b, n_sym, dtype, partial, cuda)
+    assert x.shape == (n_sym * cfg.samples_per_symbol + partial, b)
+    _check_tones_tm(cfg, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decide_tones_tm_every_tie(cuda, dtype):
+    """All-zero input: every tone ties, so tone 0, best and total 0,
+    bit-equal, at B = 129 and 9 symbols of each geometry."""
+    for cfg in DEMOD_CONFIGS.values():
+        x = torch.zeros(9 * cfg.samples_per_symbol + 5, 129, dtype=dtype, device=cuda)
+        got = _check_tones_tm(cfg, x)
+        assert not got[0].any() and not got[1].any() and not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [16384, 16383])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decide_tones_tm_every_split_of_the_grid(cuda, dtype, b):
+    """The oversized window's batch, B = 16,384 (16,383: rows off 16 bytes),
+    a frame's 536 data symbols plus 8 (544): few blocks a column of
+    streams, so the tensor-core walk gives each a share of the symbol
+    tiles (gridDim.y) and its blocks meet at tile edges."""
+    rng = np.random.default_rng(b)
+    x = _tones_case(CFG, rng, b, 544, dtype, 0, cuda)
+    _check_tones_tm(CFG, x)
+
+
+# --- gather_rows_fused: every element width, residue and row edge ----------
+
+GATHER_LEADS = ((1,), (7,), (257,), (2, 3))
+GATHER_LEN = 1003  # samples a row: odd, so rows pass through every residue
+SENTINEL = 0x5A  # the bytes around the buffer view: a read of them would show
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("lead", GATHER_LEADS, ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float16, torch.float32], ids=str)
+def test_cuda_gather_every_residue_and_edge(cuda, dtype, lead, ragged):
+    """gather_rows_fused against its plain version, bit for bit: int8,
+    bfloat16, float16 and float32 buffers as a view 0-15 bytes into a
+    larger tensor of sentinel bytes (so the source byte of a row's first
+    sample passes through every residue mod 16), the last row ending at the
+    view's end with sentinels after it; sizes whose bytes are whole 16-byte
+    vectors or (ragged) not, and one shorter than a vector; starts at 0,
+    at the last fitting one, below 0, past L - size, wholly before and
+    wholly past the row (zeros), and random ones. One launch each, under
+    its key. Any byte taken from outside a row shows in the output."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    r = int(np.prod(lead))
+    rng = np.random.default_rng(e * 10 + r + ragged)
+    key = "gather_rows_fused:int8" if dtype == torch.int8 else "gather_rows_fused"
+    sizes = (16 * 40 // e, 16 * 50) if not ragged else (16 * 40 // e + 1, 3, 16 * 50 - 1)
+    n_bytes = r * GATHER_LEN * e
+    for pre in range(0, 16, e):
+        for size in sizes:
+            edges = [0, GATHER_LEN - size, -3, GATHER_LEN - size + 7, -size - 2, GATHER_LEN + 1, 1 - size]
+            starts = rng.integers(-size // 2, GATHER_LEN - size // 2, r)
+            turn = (pre // e + sizes.index(size)) % len(edges)
+            for i in range(min(r, len(edges))):
+                starts[i] = edges[(turn + i) % len(edges)]
+            flat = torch.full((pre + n_bytes + 16,), SENTINEL, dtype=torch.uint8)
+            flat[pre : pre + n_bytes] = torch.from_numpy(rng.integers(0, 256, n_bytes, dtype=np.uint8))
+            flat = flat.to(cuda)
+            buf = flat[pre : pre + n_bytes].view(dtype).view(*lead, GATHER_LEN)
+            st = torch.from_numpy(starts).reshape(lead).to(cuda)
+            before = dict(tk.launch_counts)
+            got = tk.gather_rows_fused(buf, st, size)
+            torch.cuda.synchronize()
+            launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
+            assert launched == {key: 1}
+            want = tk.gather_rows_fused_ref(buf, st, size)
+            assert got.shape == (*lead, size) and got.dtype == dtype
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), (pre, size)

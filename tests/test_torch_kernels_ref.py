@@ -448,16 +448,20 @@ def test_decide_tones_tm_ref_ties_go_to_the_first_tone():
     assert not tone.any() and not best.any() and not total.any()
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_gather_rows_ref_matches_pallas(dtype):
     """out[b, i] = buffer[b, start[b] + i] against the Pallas roll-align
     kernel in interpret mode, bit-equal, at starts on both sides of its
     128-sample rows (residues 0, 1, 63, 126, 127), the last fitting start
-    included, a size that is whole rows and one that is not."""
-    tdt, jdt = _DTYPES[dtype]
+    included, a size that is whole rows and one that is not. int8: a
+    quantized buffer (tstream.quantize_int8), moved as it is."""
+    tdt, jdt = {**_DTYPES, "int8": (torch.int8, jnp.int8)}[dtype]
     rng = np.random.default_rng(1415)
     length = 3000
     buf = rng.standard_normal((20, length)).astype(np.float32)
+    if dtype == "int8":
+        buf = tstream.quantize_int8(torch.from_numpy(buf)).numpy()  # clips at +-127
+        assert np.abs(buf).max() == 127 and np.unique(buf).size > 100
     buf_t = torch.from_numpy(buf).to(tdt)
     for size in (1000, 1024):
         starts = np.array([0, 1, 63, 126, 127, 128, 129, 255, 256, 257, 383, 384, 511, 640 + 127, 1000,
@@ -469,6 +473,37 @@ def test_gather_rows_ref_matches_pallas(dtype):
         rows = np.stack([buf_t.float().numpy()[i, s : s + size] for i, s in enumerate(starts)])
         np.testing.assert_array_equal(got.float().numpy(), rows)
         assert torch.equal(tk.gather_rows_fused(buf_t, torch.from_numpy(starts), size), got)
+
+
+@pytest.mark.parametrize("dtype", [
+    torch.int8, torch.uint8, torch.bool, torch.float16, torch.bfloat16, torch.int16, torch.float32, torch.int32,
+    torch.float64, torch.int64, torch.complex64,
+], ids=str)
+def test_gather_rows_launch_takes_every_element_width(monkeypatch, dtype):
+    """gather_rows_fused's launch code, the card's calls replaced by
+    recorders: any dtype of 1, 2 or 4 bytes reaches the kernel with its
+    element size (the kernel only moves bits), the batch flattened and the
+    output made in the buffer's dtype, one launch counted (an int8 one
+    under "gather_rows_fused:int8"); an 8-byte dtype raises TypeError and
+    launches nothing."""
+    calls = []
+    monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
+    monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
+    monkeypatch.setattr(tk, "_check_on_card", lambda name, t, what: None)
+    buf = torch.zeros(2, 3, 50, dtype=dtype)
+    st = torch.tensor([[0, 5, -2], [10, 45, 3]])
+    before = dict(tk.launch_counts)
+    if dtype.itemsize not in (1, 2, 4):
+        with pytest.raises(TypeError, match="1-, 2- or 4-byte"):
+            tk._gather_rows_launch(buf, st, 20)
+        assert not calls and tk.launch_counts == before
+        return
+    out = tk._gather_rows_launch(buf, st, 20)
+    ((key, args),) = calls
+    assert key == "gather_rows" and args[:4] == (buf.data_ptr(), dtype.itemsize, 6, 50)
+    assert args[5:] == (20, out.data_ptr(), 0) and out.shape == (2, 3, 20) and out.dtype == dtype
+    key = "gather_rows_fused:int8" if dtype == torch.int8 else "gather_rows_fused"
+    assert {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]} == {key: 1}
 
 
 def test_gather_rows_ref_reads_zeros_outside_the_buffer():
@@ -840,6 +875,26 @@ def test_sass_mix_parses_cuobjdump_output():
     ]
 
 
+def test_sass_mix_counts_global_loads_and_stores_by_width():
+    """Beside the opcode counts, each function's global loads and stores
+    are counted by their whole opcode, so a 16-byte access (LDG.E.128)
+    shows apart from a byte one (LDG.E.U8); other opcodes are not."""
+    from anet_torch.kernels.sass_mix import global_ops, parse_sass
+
+    sass = """
+		Function : _Z6gatherIhEvPKhPh
+        /*0000*/              @!P0 LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0010*/                   LDG.E.U8 R8, desc[UR4][R6.64] ;
+        /*0020*/                   STG.E.128 desc[UR4][R2.64], R4 ;
+        /*0030*/              @P1 STG.E.128 desc[UR4][R2.64+0x200], R4 ;
+        /*0040*/                   SHF.R.W.U32 R4, R4, R8, R5 ;
+		Function : _Z4nonev
+        /*0000*/                   EXIT ;
+"""
+    assert global_ops(sass) == [{"LDG.E.128.CONSTANT": 1, "LDG.E.U8": 1, "STG.E.128": 2}, {}]
+    assert [dict(ops) for _, ops in parse_sass(sass)] == [{"LDG": 2, "STG": 2, "SHF": 1}, {"EXIT": 1}]
+
+
 def _band_from_words(words: torch.Tensor, k: int) -> torch.Tensor:
     """The [16 * steps, 128] band, one per half (hi, lo), that the search
     kernels' B fragments read from the template words: entry (p, n) of step
@@ -899,6 +954,41 @@ def _record_launches(monkeypatch) -> list:
     monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what, int8=False: tk._KERNEL_DTYPES[t.dtype])
     monkeypatch.setattr(tk, "_check_launch", lambda err, name, dtype=None: calls.append(("checked", name)))
     return calls
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", ["mfsk16-fast", "mfsk4-coded", "fsk2-robust", "mfsk16-ultra"])
+def test_decide_tones_tm_launch_routes_by_dtype(monkeypatch, name, dtype):
+    """decide_tones_tm's launch code, the card's calls replaced by
+    recorders: bfloat16 data goes to the tensor-core entry of the
+    decide_frame_tm library (data, B, sps, tones, symbols) with
+    _demod_mma_basis's B fragments; float32 data to the CUDA-core entry
+    (data, B, sps, symbols) with _kernel_basis's float32 [sps, 32] columns,
+    never the bf16-rounded ones. A trailing partial symbol is dropped; one
+    launch checked a call."""
+    from anet_torch.kernels import build
+
+    cfg = get_model(name).config
+    tdt = _DTYPES[dtype][0]
+    cpu = torch.device("cpu")
+    sps = cfg.samples_per_symbol
+    x = torch.randn(5 * sps + 3, 7).to(tdt)
+    calls = _record_launches(monkeypatch)
+    tone, best, total = tk._decide_tones_tm_launch(cfg, x)
+    (key, args), checked = calls
+    assert checked == ("checked", "decide_tones_tm")
+    assert tone.shape == best.shape == total.shape == (5, 7)
+    assert tone.dtype == torch.int32 and best.dtype == total.dtype == torch.float32
+    outs = (tone.data_ptr(), best.data_ptr(), total.data_ptr(), 0)
+    assert len(args) == len(build.SIGNATURES[key][1])
+    if tdt == torch.bfloat16:
+        basis = tk._demod_mma_basis(cfg, torch.bfloat16, cpu)
+        assert key == "decide_tones_tm_mma" and build.SIGNATURES[key][2] == "decide_frame_tm"
+        assert args == (x.data_ptr(), 7, sps, cfg.num_tones, 5, basis.data_ptr(), *outs)
+    else:
+        basis = tk._kernel_basis(cfg, torch.float32, cpu)
+        assert key == "decide_tones_tm" and args == (x.data_ptr(), 7, sps, 5, basis.data_ptr(), *outs)
+        assert not torch.equal(basis, tk._kernel_basis(cfg, torch.bfloat16, cpu))
 
 
 def _no_host_reads(monkeypatch):
