@@ -3,9 +3,10 @@
 transmit(): payload bytes -> frame waveform.
 receive_frame(): unaligned capture -> preamble sync -> aligned demod ->
 payload + verdicts + sync metrics; receive_frame_dynamic() reads the payload
-length from the frame's header. Batched via leading axes. The aligned and
-streaming receivers are in ``anet_torch.dsp.frame`` and ``anet_torch.stream``;
-``receive_frame_tracked`` waits for the symbol-clock tracker."""
+length from the frame's header; receive_frame_tracked() demodulates the data
+section with the symbol-clock tracker (anet_torch.dsp.clock). Batched via
+leading axes. The aligned and streaming receivers are in
+``anet_torch.dsp.frame`` and ``anet_torch.stream``."""
 
 from __future__ import annotations
 
@@ -73,10 +74,47 @@ def receive_frame(
     return ReceiveResult(frame=frame, sync=sync)
 
 
-def receive_frame_tracked(*args, **kwargs):
-    raise NotImplementedError(
-        "receive_frame_tracked needs the symbol-clock tracker (anet.dsp.clock), "
-        "ROADMAP queue 1 item 10"
+class TrackedReceiveResult(NamedTuple):
+    frame: FrameResult
+    sync: SyncResult
+    drift_ppm: torch.Tensor  # float32 [...] estimated RX clock drift
+    timing_error_rms: torch.Tensor  # float32 [...] residual tracker error
+
+
+def receive_frame_tracked(
+    config: ModemConfig,
+    capture,
+    payload_len: int,
+    *,
+    sync_method: str = "auto",
+    loop_gain: float = 0.35,
+    compute_dtype=torch.float32,
+    device="cuda",
+) -> TrackedReceiveResult:
+    """receive_frame with symbol-clock recovery (anet_torch.dsp.clock).
+
+    Locates the preamble (integer offset and sub-sample refinement), then
+    demodulates the data section with the decision-directed timing tracker,
+    so frames survive TX/RX sample-clock drift that breaks the block
+    demodulator. Also returns the estimated drift in ppm and the RMS of the
+    tracker's timing error."""
+    from anet_torch.dsp.clock import estimate_drift_ppm, tracked_frame_result
+
+    capture = as_tensor(capture, device)
+    t = frame_num_samples(config, payload_len)
+    n = capture.shape[-1]
+    if n < t:
+        raise ValueError(f"capture of {n} samples cannot hold a {t}-sample frame")
+    sync = locate_preamble(config, capture, method=sync_method)
+    start = sync.offset.clamp(0, n - t).float() + sync.frac + config.preamble_samples
+    frame, tracked = tracked_frame_result(
+        config, capture, payload_len, start, loop_gain=loop_gain, compute_dtype=compute_dtype
+    )
+    return TrackedReceiveResult(
+        frame=frame,
+        sync=sync,
+        drift_ppm=estimate_drift_ppm(config, tracked),
+        timing_error_rms=torch.sqrt((tracked.timing_error**2).mean(-1)),
     )
 
 

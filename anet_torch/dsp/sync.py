@@ -245,6 +245,7 @@ def preamble_quality_probe(
     template_energy,
     n_lags: int = 5,
     compute_dtype=None,
+    start_bound: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Normalized preamble match quality at ``n_lags`` consecutive lags
     around per-stream ``start``: the frame-lock verify/refine probe.
@@ -253,13 +254,27 @@ def preamble_quality_probe(
     with st0 = clip(start - n_lags//2, 0, length - k - n_lags + 1). One
     window energy per stream, summed over the row-aligned span
     [128*(st0//128), 128*(st0//128 + ceil((k+n_lags-1)/128) + 1)): a
-    superset of every probed window, as in blockwise_match_quality."""
+    superset of every probed window, as in blockwise_match_quality.
+
+    ``start_bound`` (a non-negative int) is the largest ``start`` the caller
+    can pass, as the reference takes it: the probe then reads only the head
+    of the buffer that a bounded start reaches. The spans are gathered by
+    index, so the bound changes no value. The reference's ``mode=`` is not
+    ported (its ``"fused"`` route is kernels.probe_at_fused)."""
     k = template.shape[-1]
     length = buffer.shape[-1]
     st0 = (start.to(torch.int64) - n_lags // 2).clamp(0, length - k - n_lags + 1)
     t_c = template.to(compute_dtype) if compute_dtype else template
     te = torch.as_tensor(template_energy, dtype=torch.float32, device=buffer.device)
     span_rows = -(-(k + n_lags - 1) // _LANE) + 1
+    if start_bound is not None:
+        if isinstance(start_bound, bool) or not isinstance(start_bound, int) or start_bound < 0:
+            raise ValueError(f"start_bound must be a non-negative int, got {start_bound!r}")
+        # a start at most the bound reads rows [0, bound_row + span_rows + 1)
+        bound0 = min(start_bound, length - k - n_lags + 1)
+        head = (bound0 // _LANE + span_rows + 1) * _LANE
+        if head < length:
+            buffer = buffer[..., :head]
     span = gather_span(buffer, st0 // _LANE * _LANE, span_rows * _LANE)
     wins = gather_span(buffer, st0, k + n_lags - 1)
     if compute_dtype:  # cast after the gathers: elementwise, so the same values

@@ -23,12 +23,20 @@
   compute (the filterbank tone_energies_fused, then the plain decisions
   and parse), then decide_tones_fused on the data sections read in place
   and frame_result_from_tone_decisions ("aligned-bm-decide").
+- ``tracked``: the symbol-clock tracker of chip_smoke.py (uncoded MFSK):
+  receive_frame_tracked on 2,048 float32 captures of 38,400 samples, each
+  frame at a random start below 1,500 and drifted by 700-1,000 ppm either
+  way (drift_rows) at 14 dB, then receive_stream(track=True) on the locked
+  stream's capture (8,192 streams) drifted alike;
+- ``resident``: the fixed-length locked stream of ``lock`` (bf16, uncoded
+  MFSK), warm and cold, through the carry route (resident=False) and the
+  capture-resident scan (resident=True) in turns, in one process.
 
 ``model`` is mfsk16-fast unless named; the OFDM presets (ofdm-fast, and for
-``lock`` the coded ones) run the same paths but ``lock-int8`` and
-``aligned-bm``, which take the MFSK presets only (``aligned-bm`` the
-uncoded ones) (a coded one's aligned run stays bf16: int8 aligned
-compute is uncoded only). Each run happens once to warm up,
+``lock`` the coded ones) run the same paths but ``lock-int8``,
+``aligned-bm``, ``tracked`` and ``resident``, which take the MFSK presets
+only (``aligned-bm`` and ``resident`` the uncoded ones) (a coded one's
+aligned run stays bf16: int8 aligned compute is uncoded only). Each run happens once to warm up,
 then once under torch.profiler, and prints the device time of each kernel
 (the top 12, then every hand-written kernel of ``kernels/csrc`` below
 them), the sum of device time, the wall time of the run, the
@@ -59,6 +67,9 @@ PAYLOAD, GAP0, N_FRAMES = 256, 1000, 6
 STREAM_B, ALIGNED_B = 8192, 16384
 DYNAMIC_LENS = (64, 64, 256, 128, 64, 64)  # two shortest frames complete in one chunk, twice
 DYNAMIC_LOCK_LENS = (64, 256, 128, 64, 256, 128)
+DRIFT_PPM = (700.0, 1000.0)  # |clock offset| of the tracked paths' rows
+DRIFT_SNR_DB = 14.0
+ROWS = 1024  # rows a pass of drift_rows: bounds its temporaries at full width
 
 
 def back_to_back_capture(cfg, lens, max_len: int, chunk: int, batch: int, gen, dev):
@@ -77,6 +88,84 @@ def back_to_back_capture(cfg, lens, max_len: int, chunk: int, batch: int, gen, d
         sent.append(pay)
         pos += t
     return cap, sent
+
+
+def drift_rows(x: torch.Tensor, ppm: torch.Tensor, rows: int = ROWS) -> torch.Tensor:
+    """Each row of float32 ``x`` [B, N] as a receiver whose clock runs
+    ppm[b] parts per million fast samples it: linear interpolation at
+    positions i (1 + ppm 1e-6), the lower index clipped to [0, N - 2] (the
+    JAX package's anet.channel.sample_rate_drift, a row at a time), ``rows``
+    rows a pass to bound the temporaries."""
+    n = x.shape[-1]
+    out = torch.empty_like(x)
+    ramp = torch.arange(n, dtype=torch.float32, device=x.device)
+    scale = (1.0 + ppm.double() * 1e-6).float()
+    for r0 in range(0, x.shape[0], rows):
+        pos = ramp * scale[r0 : r0 + rows, None]
+        base = pos.floor().clamp(0, n - 2)
+        frac = pos - base
+        idx = base.long()
+        xs = x[r0 : r0 + rows]
+        out[r0 : r0 + rows] = xs.gather(1, idx) * (1.0 - frac) + xs.gather(1, idx + 1) * frac
+    return out
+
+
+def drifted_clock_ppm(batch: int, gen, dev) -> torch.Tensor:
+    """float32 [batch] clock offsets, |ppm| uniform in DRIFT_PPM, sign at
+    random."""
+    low, high = DRIFT_PPM
+    mag = low + (high - low) * torch.rand(batch, generator=gen, device=dev)
+    sign = torch.randint(0, 2, (batch,), generator=gen, device=dev) * 2 - 1
+    return mag * sign
+
+
+def add_noise(x: torch.Tensor, signal: torch.Tensor, gen) -> torch.Tensor:
+    """x plus white noise at DRIFT_SNR_DB against each row's ``signal``
+    power (float32 [B])."""
+    sigma = (signal.reshape(-1, 1) * 10 ** (-DRIFT_SNR_DB / 10)).sqrt()
+    return x + sigma * torch.randn(x.shape, generator=gen, device=x.device)
+
+
+def drifted_oneshot_captures(cfg, batch: int, n: int, gen, dev):
+    """(payloads uint8 [batch, 256], float32 captures [batch, n], ppm
+    [batch]): each frame at a random start below 1,500 (room for a frame
+    stretched by 1,000 ppm and the tracker's probes), drifted by
+    drifted_clock_ppm, white noise at DRIFT_SNR_DB against the frame's
+    power."""
+    pay = torch.randint(0, 256, (batch, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
+    waves = family.transmit_fn(cfg, dev)(pay)
+    starts = torch.randint(0, 1500, (batch,), generator=gen, device=dev)
+    cap = torch.zeros(batch, n, device=dev)
+    cap.scatter_(1, starts[:, None] + torch.arange(waves.shape[1], device=dev), waves)
+    ppm = drifted_clock_ppm(batch, gen, dev)
+    cap = add_noise(drift_rows(cap, ppm), (waves * waves).mean(-1), gen)
+    return pay, cap, ppm
+
+
+def drifted_stream_capture(cfg, batch: int, gen, dev):
+    """(bf16 capture [batch, N], payloads uint8 [N_FRAMES, batch, 256], ppm
+    [batch], chunk): the locked stream's layout (GAP0 zeros, N_FRAMES
+    back-to-back frames, chunk = frame // 128 * 128), each row drifted by
+    drifted_clock_ppm and noised at DRIFT_SNR_DB in float32, ROWS rows a
+    pass."""
+    t_frame = family.frame_samples(cfg, PAYLOAD)
+    chunk = t_frame // 128 * 128
+    total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
+    transmit = family.transmit_fn(cfg, dev)
+    sent = torch.randint(0, 256, (N_FRAMES, batch, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
+    ppm = drifted_clock_ppm(batch, gen, dev)
+    cap = torch.empty(batch, total, dtype=torch.bfloat16, device=dev)
+    for r0 in range(0, batch, ROWS):
+        r1 = min(r0 + ROWS, batch)
+        x = torch.zeros(r1 - r0, total, device=dev)
+        power = torch.zeros(r1 - r0, device=dev)
+        for i in range(N_FRAMES):
+            w = transmit(sent[i, r0:r1])
+            x[:, GAP0 + i * t_frame : GAP0 + (i + 1) * t_frame] = w
+            power += (w * w).mean(-1) / N_FRAMES
+        cap[r0:r1] = add_noise(drift_rows(x, ppm[r0:r1]), power, gen).to(torch.bfloat16)
+        del x
+    return cap, sent, ppm, chunk
 
 
 def warm_lock_carry(cfg, chunk: int, payload_len: int, batch: int, dev, dtype=torch.bfloat16):
@@ -139,7 +228,7 @@ def profile_lock(cfg, model: str, gen, dev, int8: bool = False) -> None:
 
     def run(carry):
         res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16,
-                             lock=True, device=dev)
+                             lock=True, resident=False, device=dev)
         assert int(res.carry.frames_ok.sum()) == b * N_FRAMES
 
     label = "stream-int8" if int8 else "stream"
@@ -184,6 +273,58 @@ def profile_dynamic(cfg, model: str, lock: bool, gen, dev) -> None:
         report("stream-dynamic (2 candidates a chunk)", lambda: run(None))
 
 
+def profile_tracked(cfg, model: str, gen, dev) -> None:
+    from anet_torch.dsp.pipeline import receive_frame_tracked
+
+    if family.is_ofdm(cfg):
+        raise ValueError(f"tracked takes an MFSK model, got {model}")
+    b = 2048
+    pay, cap, _ = drifted_oneshot_captures(cfg, b, 38400, gen, dev)
+
+    def oneshot():
+        res = receive_frame_tracked(cfg, cap, PAYLOAD, device=dev)
+        assert int(res.frame.ok.sum()) == b and torch.equal(res.frame.payload, pay)
+
+    print(f"{model} oneshot-tracked: B {b}, float32 captures of {cap.shape[1]}")
+    report("oneshot-tracked (receive_frame_tracked)", oneshot)
+    del cap
+    torch.cuda.empty_cache()
+    cap, _, _, chunk = drifted_stream_capture(cfg, STREAM_B, gen, dev)
+
+    def stream():
+        res = receive_stream(cfg, cap, chunk, PAYLOAD, compute_dtype=torch.bfloat16, track=True, device=dev)
+        assert int(res.carry.frames_ok.sum()) == STREAM_B * N_FRAMES
+
+    print(f"{model} stream-tracked: B {STREAM_B}, {cap.shape[1] // chunk} chunks of {chunk}")
+    report("stream-tracked (receive_stream track=True)", stream)
+
+
+def profile_resident(cfg, model: str, gen, dev) -> None:
+    if cfg.fec != "none" or family.is_ofdm(cfg):
+        raise ValueError(f"resident takes an uncoded MFSK model, got {model}")
+    t_frame = family.frame_samples(cfg, PAYLOAD)
+    chunk = t_frame // 128 * 128
+    total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
+    b = STREAM_B
+    transmit = family.transmit_fn(cfg, dev)
+    cap = torch.zeros(b, total, dtype=torch.bfloat16, device=dev)
+    for i in range(N_FRAMES):
+        pay = torch.randint(0, 256, (b, PAYLOAD), generator=gen, device=dev, dtype=torch.uint8)
+        cap[:, GAP0 + i * t_frame : GAP0 + (i + 1) * t_frame] = transmit(pay).to(torch.bfloat16)
+
+    def run(carry, resident):
+        res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16,
+                             lock=True, resident=resident, device=dev)
+        assert int(res.carry.frames_ok.sum()) == b * N_FRAMES
+
+    print(f"{model} stream carry route / resident scan: B {b}, {total // chunk} chunks of {chunk}")
+    for run_name, carry in (("warm-lock", lambda: warm_lock_carry(cfg, chunk, PAYLOAD, b, dev)),
+                            ("cold", lambda: None)):
+        for route, resident in (("carry", False), ("resident", True), ("resident", True), ("carry", False)):
+            report(f"stream {run_name} {route}", lambda: run(carry(), resident))
+            torch.cuda.empty_cache()
+
+
 def profile_aligned_bm(cfg, model: str, gen, dev) -> None:
     from anet_torch import kernels
 
@@ -207,7 +348,7 @@ def profile_aligned_bm(cfg, model: str, gen, dev) -> None:
     report("aligned-bm-decide (decide_tones_fused + frame_result_from_tone_decisions)", decide)
 
 
-PATHS = ("lock", "lock-int8", "dynamic", "dynamic-lock", "aligned-bm")
+PATHS = ("lock", "lock-int8", "dynamic", "dynamic-lock", "aligned-bm", "tracked", "resident")
 
 
 def main(argv=None) -> int:
@@ -228,6 +369,10 @@ def main(argv=None) -> int:
         profile_lock(cfg, model, gen, dev, int8=path == "lock-int8")
     elif path == "aligned-bm":
         profile_aligned_bm(cfg, model, gen, dev)
+    elif path == "tracked":
+        profile_tracked(cfg, model, gen, dev)
+    elif path == "resident":
+        profile_resident(cfg, model, gen, dev)
     else:
         profile_dynamic(cfg, model, path == "dynamic-lock", gen, dev)
     return 0

@@ -1,6 +1,6 @@
 """Streaming receiver: chunked demodulation with an explicit carry (mirrors
-the untracked paths of ``anet.stream``: fixed and variable frame length,
-uncoded and coded).
+``anet.stream``: fixed and variable frame length, uncoded and coded, with or
+without the symbol-clock tracker, and the capture-resident lock scan).
 
 A capture is processed as fixed-size chunks; the carry holds everything the
 receiver remembers between chunks: a sliding sample buffer, the dedupe
@@ -62,9 +62,22 @@ the coded step's probe spans (sync.preamble_quality_probe) to
 ``compute_dtype``, exact for int8 values.
 Every quality and decision is a ratio in buffer units, so the scale cancels.
 
-Not ported yet (they raise NotImplementedError): ``track=True`` for MFSK
-(the symbol-clock tracker), the capture-resident scan (``resident=True``)
-and int8 carries for the variable-length and OFDM receivers.
+``track=True`` (fixed-length MFSK, not with ``lock``) demodulates each
+candidate with the symbol-clock tracker (anet_torch.dsp.clock), so frames
+survive TX/RX sample-rate drift: the carry buffers ``2 * sps`` samples of
+tail margin past the frame (_track_margin) and a frame is examined once that
+margin has arrived. The tracker is plain PyTorch (no kernel backs it); the
+search in front of it is sync_search_fused.
+
+``resident=True`` (with ``lock=True``) is the capture-resident lock scan
+(_receive_stream_resident): the whole capture is padded once and the probe,
+the search and demod_at_fused read it in place at absolute positions, so no
+sliding buffer is copied chunk by chunk; the frames and the final carry are
+the carry path's. It measured slower than the carry path on an H100, so
+``resident=None`` keeps the carry path (receive_stream).
+
+Not ported yet (they raise NotImplementedError): int8 carries for the
+variable-length and OFDM receivers.
 """
 
 from __future__ import annotations
@@ -188,11 +201,6 @@ def _require_supported(config, track: bool) -> None:
             "track=True is the MFSK time-domain tracker; OFDM clock drift is "
             "handled per frame by OfdmConfig.clock_tracking (default on)"
         )
-    if track:
-        raise NotImplementedError(
-            "track=True needs the symbol-clock tracker (anet.dsp.clock), "
-            "ROADMAP queue 1 item 10"
-        )
 
 
 def _require_buffer_dtype(dtype) -> None:
@@ -211,7 +219,7 @@ def _refuse_int8(config, buffer_dtype, dynamic: bool) -> None:
         kind = "OFDM" if is_ofdm(config) else "variable-length"
         raise NotImplementedError(
             f"int8 carries for the {kind} receivers are not ported yet "
-            "(ROADMAP queue 1 item 17); use a float32 or bfloat16 carry"
+            "(ROADMAP queue 1 item 1); use a float32 or bfloat16 carry"
         )
 
 
@@ -223,35 +231,52 @@ def _require_float_compute(compute_dtype) -> None:
         )
 
 
-def _buffer_len(config, chunk_size: int, payload_len: int) -> int:
-    """Physical carry-buffer length: frame + chunk plus, for MFSK, the JAX
-    package's zero tail pad for its span DMAs (demod_at_buffer_pad), so both
-    packages build the same geometry and checkpoints move freely."""
+def _track_margin(config, track: bool) -> int:
+    """Extra tail samples buffered past the nominal frame end when clock
+    tracking: a slow RX clock stretches frames past frame_samples, and the
+    tracker's probes read a few samples beyond the last symbol. Two symbol
+    periods cover about +-2000 ppm over the longest frames plus the probe
+    span. OFDM configs get none (track=True raises for them)."""
+    from anet_torch.dsp.family import is_ofdm
+
+    if not track or is_ofdm(config):
+        return 0
+    return 2 * config.samples_per_symbol
+
+
+def _buffer_len(config, chunk_size: int, payload_len: int, track: bool = False) -> int:
+    """Physical carry-buffer length: frame + chunk + tracking margin plus,
+    for MFSK, the JAX package's zero tail pad for its span DMAs
+    (demod_at_buffer_pad), so both packages build the same geometry and
+    checkpoints move freely."""
     from anet_torch.dsp.family import frame_samples, is_ofdm
     from anet_torch.dsp.frame import data_symbols_for_payload
     from anet_torch.kernels import demod_at_buffer_pad
 
-    live = frame_samples(config, payload_len) + chunk_size
+    live = frame_samples(config, payload_len) + chunk_size + _track_margin(config, track)
     if not is_ofdm(config) and 128 % config.samples_per_symbol == 0:
         n_symbols = data_symbols_for_payload(config, payload_len)
         live += demod_at_buffer_pad(config, n_symbols, chunk_size, live)
     return live
 
 
-def _check_carry_geometry(config, carry: StreamCarry, chunk_size: int, payload_len: int) -> None:
-    """Reject a carry built for a different chunk/payload geometry. Any
-    length in [frame + chunk, _buffer_len] is accepted: everything past the
-    live window is zero tail pad, carried through untouched."""
+def _check_carry_geometry(
+    config, carry: StreamCarry, chunk_size: int, payload_len: int, track: bool = False
+) -> None:
+    """Reject a carry built for a different chunk/payload/track geometry.
+    Any length in [frame + chunk + margin, _buffer_len] is accepted:
+    everything past the live window is zero tail pad, carried through
+    untouched."""
     from anet_torch.dsp.family import frame_samples
 
     length = carry.buffer.shape[-1]
-    expected = _buffer_len(config, chunk_size, payload_len)
-    legacy = frame_samples(config, payload_len) + chunk_size
+    expected = _buffer_len(config, chunk_size, payload_len, track)
+    legacy = frame_samples(config, payload_len) + chunk_size + _track_margin(config, track)
     if not (legacy <= length <= expected):
         raise ValueError(
             f"carry buffer {length} != expected {expected} (or legacy {legacy}) "
             f"for frame {frame_samples(config, payload_len)} + chunk {chunk_size}; "
-            "init_carry with the same chunk_size/payload_len"
+            "init_carry with the same chunk_size/payload_len/track"
         )
 
 
@@ -268,13 +293,14 @@ def init_carry(
     leading shape, ``()`` for one stream, as the reference's. ``dtype`` is
     the sliding buffer's storage dtype (float32, bfloat16, or int8 for the
     fixed-length MFSK receivers: chunks quantize at the append edge);
-    receive_stream defaults it to its compute_dtype."""
+    receive_stream defaults it to its compute_dtype. ``track`` must match
+    the receive calls: the tracking margin changes the buffer geometry."""
     _require_supported(config, track)
     _require_buffer_dtype(dtype)
     _refuse_int8(config, dtype, dynamic=False)
     batch_shape = tuple(batch_shape)
     dev = resolve_device(device)
-    length = _buffer_len(config, chunk_size, payload_len)
+    length = _buffer_len(config, chunk_size, payload_len, track)
     zi = torch.zeros(batch_shape, dtype=torch.int32, device=dev)
     return StreamCarry(
         buffer=torch.zeros(*batch_shape, length, dtype=dtype, device=dev),
@@ -604,11 +630,15 @@ def stream_step(
     """Consume one chunk [..., chunk_size] (on the carry's device, its batch
     axes the carry's); maybe emit one frame per stream.
 
-    ``lock=True`` enables frame-lock mode (see the module docstring):
-    decoded frames are identical to the always-search mode; per-chunk
-    ``quality`` comes from the probe while locked and ``frame_start`` can
-    differ by the +-2-sample drift servo. A detection counts only if the
-    demodulated header validates (magic word + header CRC)."""
+    ``track=True`` demodulates each candidate frame with the symbol-clock
+    tracker (MFSK only: sequential over symbols, so slower, but frames
+    survive TX/RX sample-rate drift; the carry must come from
+    init_carry(track=True)). ``lock=True`` enables frame-lock mode (see the
+    module docstring): decoded frames are identical to the always-search
+    mode; per-chunk ``quality`` comes from the probe while locked and
+    ``frame_start`` can differ by the +-2-sample drift servo. The two do not
+    compose (ValueError). A detection counts only if the demodulated header
+    validates (magic word + header CRC)."""
     flat, batch_shape = _flatten_carry(carry)
     new_carry, out = _stream_step(
         config, flat, _flat_chunk(chunk, batch_shape), payload_len, detect_threshold,
@@ -631,16 +661,22 @@ def _stream_step(
     from anet_torch.kernels import demod_at_energies_fused, demod_at_fused
 
     _require_supported(config, track)
+    if lock and track:
+        raise ValueError(
+            "lock=True does not compose with track=True (the clock tracker "
+            "already re-times each frame)"
+        )
     _require_float_compute(compute_dtype)
     _refuse_int8(config, carry.buffer.dtype, dynamic=False)
     chunk_size = chunk.shape[-1]
     t_frame = frame_samples(config, payload_len)
     template, t_c = _templates(config, compute_dtype, carry.buffer.device)
-    _check_carry_geometry(config, carry, chunk_size, payload_len)
+    _check_carry_geometry(config, carry, chunk_size, payload_len, track)
     if lock and _merged_lock_supported(config, carry):
         return _locked_step_merged(
             config, carry, chunk, payload_len, detect_threshold, compute_dtype, t_frame
         )
+    margin = _track_margin(config, track)
     mid_flight = None
     if lock:
         t_energy = _lock_template(config, compute_dtype, carry.buffer.device)[1]
@@ -649,9 +685,18 @@ def _stream_step(
         )
     else:
         buffer, samples_seen, start_idx, start_abs, best_q, candidate = _find_candidate(
-            carry, chunk, t_frame, template, t_c, 0, detect_threshold, compute_dtype
+            carry, chunk, t_frame, template, t_c, margin, detect_threshold, compute_dtype
         )
-    if is_ofdm(config):
+    if track:
+        from anet_torch.dsp.clock import tracked_frame_result
+
+        # the window includes the margin tail: slow-clock frames stretch past
+        # t_frame; an int8 slice widens exactly in the tracker's lerp
+        aligned = _batched_dynamic_slice(buffer, start_idx, t_frame + margin, compute_dtype)
+        frame, _ = tracked_frame_result(
+            config, aligned, payload_len, float(config.preamble_samples), compute_dtype=compute_dtype
+        )
+    elif is_ofdm(config):
         # the aligned window, then the OFDM receiver (its equalizer kernel)
         demod = aligned_demod_fn(config, payload_len, compute_dtype, carry.buffer.device)
         frame = demod(_batched_dynamic_slice(buffer, start_idx, t_frame, compute_dtype))
@@ -703,7 +748,9 @@ def _capture_chunks(capture, chunk_size: int, device):
     return capture, n // chunk_size
 
 
-def _resume_or_init(config, carry, capture, chunk_size: int, payload_len: int, compute_dtype):
+def _resume_or_init(
+    config, carry, capture, chunk_size: int, payload_len: int, compute_dtype, track: bool = False
+):
     """The caller's carry (checked to lie with the capture and to have its
     batch axes) or a fresh one with a ``compute_dtype`` buffer, its batch
     axes flattened into one (_flatten_carry)."""
@@ -711,7 +758,8 @@ def _resume_or_init(config, carry, capture, chunk_size: int, payload_len: int, c
     batch_shape = tuple(capture.shape[:-1])
     if carry is None:
         carry = init_carry(
-            config, chunk_size, payload_len, batch_shape, dtype=compute_dtype, device=capture.device
+            config, chunk_size, payload_len, batch_shape, track, dtype=compute_dtype,
+            device=capture.device,
         )
     elif carry.buffer.device != capture.device:
         raise ValueError(f"carry lies on {carry.buffer.device}, capture on {capture.device}")
@@ -744,16 +792,50 @@ def receive_stream(
     once, up front: into an int8 carry a float capture quantizes
     (quantize_int8) and an int8 capture passes through. Returns the final
     carry and the per-chunk outputs stacked along a leading chunk axis
-    (steps.detected is [num_chunks, ...])."""
-    if resident:
-        raise NotImplementedError(
-            "resident=True (the capture-resident scan) is not ported yet "
-            "(ROADMAP queue 1 item 7)"
-        )
+    (steps.detected is [num_chunks, ...]).
+
+    ``track=True`` demodulates every candidate with the symbol-clock tracker
+    (stream_step); ``lock=True`` is frame-lock mode. ``resident=True``
+    (needs ``lock=True``) takes the capture-resident lock scan
+    (_receive_stream_resident): the same frames and final carry without
+    sliding the capture through the carry buffer. It needs a CUDA device,
+    uncoded MFSK whose sps the kernels take, bfloat16 compute and no
+    tracking (ValueError otherwise; the JAX package likewise refuses every
+    backend but its TPU). A caller's carry is then read for its counters and
+    lock only: its buffer is taken as all-zero history (init_carry's state,
+    or a warm-lock seed), so resuming a mid-stream checkpoint needs
+    ``resident=False``. ``resident=None`` (auto) is the carry path: the JAX
+    package's auto rule takes the resident scan on its TPU backend only, and
+    on an H100 (80GB HBM3, 700 W) the resident scan measured slower than the
+    carry path in one run at the locked stream's geometry (mfsk16-fast,
+    payload 256, B = 8,192, 7 chunks, bf16; ``python -m
+    anet_torch.profile_stream mfsk16-fast resident``): device time 26.7
+    against 20.1 ms warm and 32.0 against 26.3 ms cold, wall 49.6-59.9
+    against 44.3-59.4 ms warm and 78.8-93.5 against 57.2-58.0 ms cold. Its
+    pad copy and its plain row-aligned probe cost more device time than the
+    slide's copies it saves."""
     _require_supported(config, track)
     capture, num_chunks = _capture_chunks(capture, chunk_size, device)
     batch_shape = tuple(capture.shape[:-1])
-    carry = _resume_or_init(config, carry, capture, chunk_size, payload_len, compute_dtype)
+    if resident:
+        if not lock:
+            raise ValueError("resident=True requires lock=True")
+        if not _resident_supported(config, compute_dtype, track, capture.device):
+            raise ValueError(
+                "resident=True needs the fused-demod geometry: a CUDA device, uncoded "
+                "MFSK with samples_per_symbol in (32, 64, 128) and at most 16 tones, "
+                "bfloat16 compute, no tracking"
+            )
+        if carry is not None:
+            carry = _resume_or_init(config, carry, capture, chunk_size, payload_len, compute_dtype)
+        res = _receive_stream_resident(
+            config, capture.reshape(-1, capture.shape[-1]), chunk_size, payload_len,
+            detect_threshold, compute_dtype, carry,
+        )
+        return StreamResult(
+            carry=_unflatten(res.carry, batch_shape), steps=_unflatten(res.steps, batch_shape, 1)
+        )
+    carry = _resume_or_init(config, carry, capture, chunk_size, payload_len, compute_dtype, track)
     cap = _ingest_cast(capture, carry.buffer.dtype).reshape(-1, num_chunks, chunk_size)
     steps = []
     for i in range(num_chunks):
@@ -764,6 +846,157 @@ def receive_stream(
     return StreamResult(
         carry=_unflatten(carry, batch_shape), steps=_unflatten(_stack_steps(steps), batch_shape, 1)
     )
+
+
+def _resident_supported(config, compute_dtype, track: bool, device: torch.device) -> bool:
+    """The capture-resident lock scan needs the align+demod kernel
+    (demod_at_fused) on the card: a CUDA device, uncoded MFSK with a
+    geometry the kernels take (128 % sps == 0, as the JAX package's gate,
+    and sps in _KERNEL_SPS with at most 16 tones), bfloat16 compute, and no
+    symbol-clock tracking."""
+    from anet_torch.dsp.family import is_ofdm
+    from anet_torch.kernels import _KERNEL_SPS
+
+    return (
+        device.type == "cuda"
+        and not is_ofdm(config)
+        and config.fec == "none"
+        and 128 % config.samples_per_symbol == 0
+        and config.samples_per_symbol in _KERNEL_SPS
+        and config.num_tones <= 16
+        and compute_dtype == torch.bfloat16
+        and not track
+    )
+
+
+def _receive_stream_resident(
+    config,
+    capture: torch.Tensor,
+    chunk_size: int,
+    payload_len: int,
+    detect_threshold: float,
+    compute_dtype,
+    carry: StreamCarry | None,
+) -> StreamResult:
+    """Capture-resident frame-lock scan of a flat capture [B, N] (the JAX
+    package's _receive_stream_resident, line for line).
+
+    The chunked carry models a receiver that sees one chunk at a time; with
+    the whole capture in hand, sliding it chunk by chunk through a carry
+    buffer only copies. Here the capture is padded once (t_frame zeros of
+    history on the left, the zero-initialized carry buffer's state, and the
+    JAX package's demod span pad on the right, the total rounded to 128):
+    padded index p = stream-absolute index + t_frame, and buffer index b of
+    step i is padded index i * chunk_size + b. Each chunk then probes the
+    predicted starts on a window slice of the padded capture (the plain
+    row-aligned sync.preamble_quality_probe, as the JAX package's scan:
+    never probe_at_fused or demod_probe_fused), searches its
+    just-completed starts with sync_search_fused on a strided view when
+    some stream needs acquiring (the one host read of a chunk, in place of
+    ``lax.cond``), and demodulates every stream with demod_at_fused on the
+    whole padded capture. Candidate windows, dedupe, probe clipping and the
+    lock updates are _find_candidate_locked's. The returned carry
+    materializes the sliding buffer (the capture's tail), so
+    checkpoint/resume continues on the carry path.
+
+    ``carry`` None starts fresh; a given carry (flat, on the capture's
+    device) supplies counters and lock, and its buffer is taken as zeros.
+    Positions and starts stay below 2**31; every flat index into the padded
+    capture (B * length, about 2.4e9 at B = 8,192 and 7 chunks) is 64-bit in
+    the plain versions' gathers and in the kernels. receive_stream's auto
+    rule does not take this path: see its docstring for the measurement."""
+    from anet_torch.dsp.family import frame_samples
+    from anet_torch.dsp.frame import data_symbols_for_payload, frame_result_from_tone_decisions
+    from anet_torch.dsp.sync import preamble_quality_probe
+    from anet_torch.kernels import demod_at_buffer_pad, demod_at_fused, sync_search_fused
+
+    b, n = capture.shape
+    num_chunks = n // chunk_size
+    dev = capture.device
+    t_frame = frame_samples(config, payload_len)
+    if chunk_size > t_frame:
+        raise ValueError("resident scan needs chunk_size <= frame length")
+    t_c, t_energy = _lock_template(config, compute_dtype, dev)
+    k = t_c.shape[-1]
+    n_symbols = data_symbols_for_payload(config, payload_len)
+    if carry is None:
+        zi = torch.zeros(b, dtype=torch.int32, device=dev)
+        carry = StreamCarry(
+            buffer=None, samples_seen=zi, last_frame_end=zi, frames_detected=zi, frames_ok=zi,
+            decode_errors=zi, locked=torch.zeros(b, dtype=torch.bool, device=dev), next_start=zi,
+            drift=torch.zeros(b, dtype=torch.float32, device=dev),
+        )
+    else:
+        _check_carry_geometry(config, carry, chunk_size, payload_len)
+
+    # One pad: t_frame zeros on the left, the demod span pad on the right (its
+    # start bound covers probe-refined starts, whose window clip can land
+    # about 4 * 128 past n), rounded to 128.
+    bound_p = n + 512
+    right = demod_at_buffer_pad(config, n_symbols, start_bound=bound_p, live_length=t_frame + n)
+    right = max(right, k + 4 * 128)
+    right += (-(t_frame + n + right)) % 128
+    xcap = torch.empty(b, t_frame + n + right, dtype=compute_dtype, device=dev)
+    xcap[:, :t_frame] = 0
+    xcap[:, t_frame : t_frame + n] = capture
+    xcap[:, t_frame + n :] = 0
+    wlen = chunk_size + k + 4 * 128  # probe window: every clipped probe position of a step
+
+    c = carry
+    steps = []
+    for i in range(num_chunks):
+        w0p = i * chunk_size + 1  # padded index of the window's first start
+        pred_p = c.next_start + t_frame  # stored drift-adjusted
+        in_win = c.locked & (pred_p >= w0p) & (pred_p < w0p + chunk_size)
+        mid_flight = c.locked & (pred_p >= w0p + chunk_size)
+
+        # probe on a window slice (positions outside it belong to streams
+        # whose probe result is ignored)
+        base0 = max(w0p - 128, 0)
+        win = xcap[:, base0 : base0 + wlen]
+        probe_at = (pred_p - base0).clamp(0, chunk_size + 256)
+        q5, st0w = preamble_quality_probe(
+            win, probe_at, t_c, t_energy, n_lags=PROBE_LAGS, compute_dtype=compute_dtype,
+            start_bound=chunk_size + 256,
+        )
+        st0_p = base0 + st0w
+        probe_q = q5.amax(-1)
+        probe_off = torch.argmax(q5, dim=-1).to(torch.int32)
+        pred_valid = in_win & (probe_q >= detect_threshold)
+
+        if bool((~(pred_valid | mid_flight)).any()):  # one host read per chunk
+            seg = xcap[:, w0p : w0p + chunk_size + k - 1]
+            best_q, best_rel = sync_search_fused(seg, t_c, chunk_size, t_energy)
+        else:
+            best_q = torch.zeros_like(probe_q)
+            best_rel = torch.zeros_like(probe_off)
+
+        start_p = torch.where(pred_valid, st0_p + probe_off, w0p + best_rel)
+        start_abs = start_p - t_frame
+        quality = torch.where(pred_valid, probe_q, best_q)
+        searched_ok = (best_q >= detect_threshold) & (
+            (w0p + best_rel - t_frame) >= c.last_frame_end - DEDUPE_SLACK
+        )
+        candidate = pred_valid | (~mid_flight & searched_ok)
+
+        tone, best, total = demod_at_fused(config, xcap, start_p, n_symbols)
+        frame = frame_result_from_tone_decisions(config, tone, best, total, payload_len)
+        detected = candidate & frame.magic_ok & frame.header_crc_ok
+        frame = frame._replace(ok=frame.ok & detected)
+        c = _next_carry(
+            c, c.buffer, c.samples_seen + chunk_size, detected, frame, start_abs, t_frame, True,
+            mid_flight,
+        )
+        steps.append(StreamStepOutput(
+            frame=frame, detected=detected, quality=quality, frame_start=start_abs.to(torch.int32)
+        ))
+
+    # the sliding buffer the carry path would hold now: the capture's last
+    # frame + chunk samples, then the zero tail pad
+    live = t_frame + chunk_size
+    buffer = torch.zeros(b, _buffer_len(config, chunk_size, payload_len), dtype=compute_dtype, device=dev)
+    buffer[:, :live] = xcap[:, n + t_frame - live : n + t_frame]
+    return StreamResult(carry=c._replace(buffer=buffer), steps=_stack_steps(steps))
 
 
 def _slide_and_quality(carry, chunk, t_frame: int, template, t_c, margin: int, compute_dtype):

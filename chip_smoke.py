@@ -96,7 +96,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    frame_result_from_tone_decisions; verdicts equal to aligned-bm's) and
    "search-blockmax" (the cold stream's acquisition segment, B = 8,192:
    sync_search_blockmax held against sync_search_fused);
-9. the launch count of every kernel during phases 3-8, read per path (each
+9. the clock tracker and the capture-resident scan: "oneshot-tracked"
+   (receive_frame_tracked, the symbol-clock tracker, on 2,048 float32
+   captures of 38,400 samples, each drifted on the card by 700-1,000 ppm
+   either way at 14 dB: every frame ok, every drift estimate of the
+   offset's opposite sign within 15% + 30 ppm, and the block receiver
+   losing frames on the same batch; the tracker is plain PyTorch, so the
+   path launches no kernel), "stream-tracked"
+   (receive_stream(track=True) on phase 4's capture drifted alike, B =
+   8,192: sync_search_fused, then the tracker) and "stream-resident"
+   (receive_stream(lock=True, resident=True) on phase 4's capture, cold and
+   warm: the capture-resident scan, sync_search_fused and demod_at_fused on
+   the padded capture, never probe_at_fused or demod_probe_fused; its
+   frames and final carry equal to the carry path's run on the same
+   capture, whose launches do not count);
+10. the launch count of every kernel during phases 3-9, read per path (each
    path's counts start at 0 just before it; int8 launches count under
    "<name>:int8"): every kernel of a path must have launched there, and
    none that the reference's routing keeps off it (ABSENT).
@@ -107,6 +121,7 @@ the last line the JSON verdict with the device's name.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -122,7 +137,7 @@ from anet_torch.dsp import family, fec, ofdm
 from anet_torch.dsp import frame as tframe
 from anet_torch.dsp.demod import bit_llrs
 from anet_torch.dsp import sync as tsync
-from anet_torch.dsp.pipeline import receive_frame, receive_frame_dynamic, transmit
+from anet_torch.dsp.pipeline import receive_frame, receive_frame_dynamic, receive_frame_tracked, transmit
 from anet_torch.dsp.sync import preamble_waveform
 from anet_torch.kernels.build import build_all
 from anet_torch.models import get_model
@@ -131,6 +146,8 @@ from anet_torch.profile_stream import (
     DYNAMIC_LOCK_LENS,
     GAP0,
     back_to_back_capture,
+    drifted_oneshot_captures,
+    drifted_stream_capture,
     warm_lock_carry,
 )
 from anet_torch.stream import (
@@ -921,11 +938,21 @@ def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iter
         f"{batch * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
 
 
-def phase_stream(cfg, gen, label: str = "stream", int8: bool = False,
-                 runs: tuple[str, ...] = ("cold", "warm-lock")) -> None:
-    """Phase 4: the locked streaming receiver at B = 8,192, cold and warm
-    (either family); with ``int8`` on an int8 carry, the capture quantized
-    once at the ingest edge (quantize_int8)."""
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block do not count toward the path's: a run that
+    a path's result is compared with."""
+    saved = dict(kernels.launch_counts)
+    try:
+        yield
+    finally:
+        kernels.launch_counts.update(saved)
+
+
+def locked_stream_capture(cfg, gen, label: str, int8: bool = False):
+    """(capture [STREAM_B, total], payloads [frames, B, payload], chunk,
+    total) of phase 4: a GAP0-sample gap, then N_FRAMES back-to-back frames,
+    bf16 (or quantize_int8 with ``int8``); chunk = frame // 128 * 128."""
     t_frame = family.frame_samples(cfg, PAYLOAD)
     chunk = t_frame // 128 * 128
     total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
@@ -942,6 +969,27 @@ def phase_stream(cfg, gen, label: str = "stream", int8: bool = False,
     sent = torch.stack(sent)  # [frames, B, payload]
     log(f"{label}: B {STREAM_B}, capture {total} samples {str(dtype).removeprefix('torch.')} "
         f"({cap.numel() * cap.element_size() / 1e9:.2f} GB), chunk {chunk}")
+    return cap, sent, chunk, total
+
+
+def stream_frames_right(steps, sent: torch.Tensor) -> bool:
+    """Every stream detected N_FRAMES frames and their payloads, in time
+    order, are ``sent`` [frames, B, payload]."""
+    det = steps.detected  # [chunks, B]
+    if not bool((det.sum(0) == N_FRAMES).all()):
+        return False
+    got = steps.frame.payload.transpose(0, 1)[det.T]  # stream by stream, chunks in order
+    return torch.equal(got.reshape(STREAM_B, N_FRAMES, -1), sent.transpose(0, 1))
+
+
+def phase_stream(cfg, gen, label: str = "stream", int8: bool = False,
+                 runs: tuple[str, ...] = ("cold", "warm-lock")) -> None:
+    """Phase 4: the locked streaming receiver at B = 8,192, cold and warm
+    (either family), through the carry path (resident=False); with ``int8``
+    on an int8 carry, the capture quantized once at the ingest edge
+    (quantize_int8)."""
+    cap, sent, chunk, total = locked_stream_capture(cfg, gen, label, int8)
+    dtype = cap.dtype
     fresh = {
         "cold": lambda: init_carry(cfg, chunk, PAYLOAD, (STREAM_B,), dtype=dtype, device=DEV) if int8 else None,
         "warm-lock": lambda: warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV, dtype),
@@ -951,7 +999,7 @@ def phase_stream(cfg, gen, label: str = "stream", int8: bool = False,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16, lock=True,
-                             device=DEV)
+                             resident=False, device=DEV)
         frames_ok = int(res.carry.frames_ok.sum())
         dt = time.perf_counter() - t0
         det = res.steps.detected
@@ -964,6 +1012,107 @@ def phase_stream(cfg, gen, label: str = "stream", int8: bool = False,
         if run == "cold" and kernels.launch_counts["sync_search_fused"] == 0:
             raise AssertionError(f"{label} cold: the search kernel never launched")
         del res, carry
+
+
+def phase_oneshot_tracked(cfg, gen) -> None:
+    """"oneshot-tracked": receive_frame_tracked on 2,048 float32 captures of
+    38,400 samples, each frame at a random start below 1,500, drifted on the
+    card by 700-1,000 ppm either way (drift_rows, linear interpolation) with
+    white noise at 14 dB. Every frame ok with its payload, every drift
+    estimate of the offset's opposite sign and within 15% + 30 ppm of it;
+    the block receiver (receive_frame, whose launches do not count) decodes
+    fewer frames of the same batch. Two calls, each timed."""
+    b, n = ONESHOT_B, 38400
+    pay, cap, ppm = drifted_oneshot_captures(cfg, b, n, gen, DEV)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = receive_frame_tracked(cfg, cap, PAYLOAD, device=DEV)
+        n_ok = int(res.frame.ok.sum())
+        times.append(time.perf_counter() - t0)
+    right = torch.equal(res.frame.payload, pay)
+    est = res.drift_ppm
+    sign = bool((est * ppm < 0).all())
+    miss = (est.abs() - ppm.abs()).abs() / ppm.abs()
+    within = bool(((est.abs() - ppm.abs()).abs() < 0.15 * ppm.abs() + 30).all())
+    with uncounted():
+        block_ok = int(receive_frame(cfg, cap, PAYLOAD, device=DEV).frame.ok.sum())
+    log(f"oneshot-tracked: B {b}, capture {n}, |ppm| {float(ppm.abs().min()):.1f}-{float(ppm.abs().max()):.1f}, "
+        f"ok {n_ok}, payloads right {right}, drift sign right {sign}, within 15% + 30 ppm {within} "
+        f"(worst {float(miss.max()):.4f} of |ppm|, mean {float(miss.mean()):.4f}), timing error rms mean "
+        f"{float(res.timing_error_rms.mean()):.4f}; block receiver ok {block_ok}; "
+        f"{b * n / times[1] / 1e6:.1f} Msamples/s ({times[0] * 1e3:.1f} ms first call, "
+        f"{times[1] * 1e3:.1f} ms second)")
+    if n_ok != b or not (right and sign and within) or block_ok >= b:
+        raise AssertionError(f"oneshot-tracked: ok {n_ok}, payloads {right}, sign {sign}, within {within}, "
+                             f"block ok {block_ok}")
+
+
+def phase_stream_tracked(cfg, gen) -> None:
+    """"stream-tracked": receive_stream(track=True) at B = 8,192 on phase 4's
+    layout (GAP0 zeros, then 6 frames), each row drifted on the card by
+    700-1,000 ppm either way with white noise at 14 dB (bf16): every frame
+    ok with its payload. The search kernel finds each candidate; the
+    tracker (plain PyTorch) demodulates it."""
+    cap, sent, ppm, chunk = drifted_stream_capture(cfg, STREAM_B, gen, DEV)
+    total = cap.shape[1]
+    log(f"stream-tracked: B {STREAM_B}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), "
+        f"chunk {chunk}, |ppm| {float(ppm.abs().min()):.1f}-{float(ppm.abs().max()):.1f}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = receive_stream(cfg, cap, chunk, PAYLOAD, compute_dtype=torch.bfloat16, track=True, device=DEV)
+    frames_ok = int(res.carry.frames_ok.sum())
+    dt = time.perf_counter() - t0
+    right = stream_frames_right(res.steps, sent)
+    log(f"stream-tracked: frames_ok {frames_ok} of {STREAM_B * N_FRAMES}, payloads right {right}, "
+        f"{STREAM_B * total / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+    if frames_ok != STREAM_B * N_FRAMES or not right:
+        raise AssertionError(f"stream-tracked: frames_ok {frames_ok}, payloads right {right}")
+
+
+def phase_stream_resident(cfg, gen) -> None:
+    """"stream-resident": receive_stream(lock=True, resident=True) on phase
+    4's bf16 capture at B = 8,192, cold and warm, each after the carry path
+    (resident=False, its launches uncounted) on the same capture: every
+    frame ok with its payload, and the detections, frames_ok and the final
+    carry (buffer and counters) equal to the carry path's. Both
+    throughputs logged."""
+    cap, sent, chunk, total = locked_stream_capture(cfg, gen, "stream-resident")
+    fresh = {
+        "cold": lambda: None,
+        "warm-lock": lambda: warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV),
+    }
+    for run, carry in fresh.items():
+        rates = {}
+        for resident in (False, True):
+            c = carry()
+            with contextlib.nullcontext() if resident else uncounted():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=c, compute_dtype=torch.bfloat16, lock=True,
+                                     resident=resident, device=DEV)
+                frames_ok = int(res.carry.frames_ok.sum())
+                dt = time.perf_counter() - t0
+            rates[resident] = (STREAM_B * total / dt / 1e6, dt)
+            if not resident:
+                ref = res
+            del c
+        right = stream_frames_right(res.steps, sent)
+        same = torch.equal(res.steps.detected, ref.steps.detected) and all(
+            torch.equal(getattr(res.carry, f), getattr(ref.carry, f)) for f in res.carry._fields
+        )
+        log(f"stream-resident {run}: frames_ok {frames_ok} of {STREAM_B * N_FRAMES}, payloads right {right}, "
+            f"frames and final carry equal to the carry path's {same}; resident "
+            f"{rates[True][0]:.1f} Msamples/s ({rates[True][1]:.3f} s), carry path {rates[False][0]:.1f} "
+            f"Msamples/s ({rates[False][1]:.3f} s)")
+        if frames_ok != STREAM_B * N_FRAMES or not right or not same:
+            raise AssertionError(f"stream-resident {run}: frames_ok {frames_ok}, payloads right {right}, "
+                                 f"equal to the carry path {same}")
+        if run == "cold" and kernels.launch_counts["sync_search_fused"] == 0:
+            raise AssertionError("stream-resident cold: the search kernel never launched")
+        del res, ref
+        torch.cuda.empty_cache()
 
 
 def frames_in_time_order(steps, n_frames: int):
@@ -1469,12 +1618,23 @@ PATHS = {
         MODEL, lambda cfg, gen: phase_aligned_bm(cfg, gen, decide=True), ("decide_tones_fused",),
     ),
     "search-blockmax": (MODEL, phase_search_blockmax, ("sync_search_blockmax",)),
+    "oneshot-tracked": (MODEL, phase_oneshot_tracked, ()),  # the tracker: plain PyTorch, no kernel
+    "stream-tracked": (MODEL, phase_stream_tracked, ("sync_search_fused",)),
+    "stream-resident": (MODEL, phase_stream_resident, ("sync_search_fused", "demod_at_fused")),
 }
 
 
 # Kernels a path must not launch: the reference probes an int8 buffer with
-# its plain row-aligned probe, never with probe_at_fused.
-ABSENT = {"stream-coded-int8": ("probe_at_fused",)}
+# its plain row-aligned probe, never with probe_at_fused; the tracker
+# demodulates tracked frames (no align+demod kernel), and the one-shot
+# tracker launches nothing; the resident scan probes with the plain
+# row-aligned probe and demodulates with demod_at_fused.
+ABSENT = {
+    "stream-coded-int8": ("probe_at_fused",),
+    "oneshot-tracked": tuple(kernels.launch_counts),
+    "stream-tracked": ("demod_at_fused", "demod_probe_fused"),
+    "stream-resident": ("probe_at_fused", "demod_probe_fused"),
+}
 
 
 def main() -> int:

@@ -20,7 +20,7 @@ def test_port_imports_no_jax_and_no_anet():
     modules = sorted(
         m.name for m in pkgutil.walk_packages(anet_torch.__path__, "anet_torch.")
     )
-    assert "anet_torch.kernels.build" in modules and "anet_torch.stream" in modules
+    assert {"anet_torch.kernels.build", "anet_torch.stream", "anet_torch.dsp.clock"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r} + ['anet_torch', 'chip_smoke']:\n"
@@ -74,6 +74,8 @@ def _entry_points():
         "demodulate_frame_dynamic": lambda: frame.demodulate_frame_dynamic(cfg, np.zeros((1, 4096), np.float32), 4),
         "receive_frame": lambda: pipeline.receive_frame(cfg, np.zeros((1, 8192), np.float32), 4),
         "receive_frame_dynamic": lambda: pipeline.receive_frame_dynamic(cfg, np.zeros((1, 8192), np.float32), 4),
+        "receive_frame_tracked": lambda: pipeline.receive_frame_tracked(cfg, np.zeros((1, 8192), np.float32), 4),
+        "receive_stream(track)": lambda: receive_stream(cfg, np.zeros((1, 1024), np.float32), 1024, 4, track=True),
         "loopback": lambda: pipeline.loopback(cfg, pay),
     }
 

@@ -1393,3 +1393,108 @@ def test_cuda_gather_every_residue_and_edge(cuda, dtype, lead, ragged):
             want = tk.gather_rows_fused_ref(buf, st, size)
             assert got.shape == (*lead, size) and got.dtype == dtype
             assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), (pre, size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tracker_matches_cpu(cuda, dtype):
+    """The symbol-clock tracker on the card against its CPU run: six
+    mfsk16-fast captures (payload 256) drifted by -1000 to +1000 ppm at 14
+    dB through receive_frame_tracked, and a 4-stream tracked stream at
+    +-500 ppm. Verdicts and payloads equal; the drift estimates within 1
+    ppm (the card's float32 products sum in another order, and the timing
+    state feeds them back). It launches no kernel of csrc/ but the stream's
+    search."""
+    from anet_torch.dsp import pipeline as tpipeline
+    from anet_torch.dsp.family import frame_samples
+    from anet_torch.profile_stream import drift_rows
+
+    rng = np.random.default_rng(61)
+    ppms = (-1000.0, -700.0, -300.0, 300.0, 700.0, 1000.0)
+    pay = rng.integers(0, 256, (len(ppms), 256), dtype=np.uint8)
+    w = transmit(CFG, pay, device="cpu").numpy()
+    caps = np.zeros((len(ppms), 38400), np.float32)
+    for i in range(len(ppms)):
+        caps[i, 500 + 37 * i : 500 + 37 * i + w.shape[1]] = w[i]
+    caps = drift_rows(torch.from_numpy(caps), torch.tensor(ppms)).numpy()
+    sigma = np.sqrt(np.mean(w**2, axis=1, keepdims=True) * 10**-1.4)
+    caps += sigma * rng.standard_normal(caps.shape).astype(np.float32)
+    before = dict(tk.launch_counts)
+    got = tpipeline.receive_frame_tracked(CFG, torch.from_numpy(caps).to(cuda), 256, compute_dtype=dtype, device=cuda)
+    torch.cuda.synchronize()
+    assert tk.launch_counts == before
+    want = tpipeline.receive_frame_tracked(CFG, caps, 256, compute_dtype=dtype, device="cpu")
+    assert bool(got.frame.ok.all()) and np.array_equal(got.frame.payload.cpu().numpy(), pay)
+    assert torch.equal(got.sync.offset.cpu(), want.sync.offset) and torch.equal(got.frame.ok.cpu(), want.frame.ok)
+    torch.testing.assert_close(got.drift_ppm.cpu(), want.drift_ppm, rtol=0, atol=1.0)
+    assert bool((got.drift_ppm.cpu() * torch.tensor(ppms) < 0).all())
+
+    chunk = 4096
+    t = frame_samples(CFG, PAY)
+    n = -(-(900 + 2 * t + 2 * chunk) // chunk) * chunk
+    spay = rng.integers(0, 256, (4, 2, PAY), dtype=np.uint8)
+    sw = transmit(CFG, spay.reshape(8, PAY), device="cpu").numpy().reshape(4, 2, t)
+    scap = np.zeros((4, n), np.float32)
+    scap[:, 900 : 900 + t] = sw[:, 0]
+    scap[:, 900 + t + 300 : 900 + 2 * t + 300] = sw[:, 1]
+    scap = drift_rows(torch.from_numpy(scap), torch.tensor([500.0, -500.0, 800.0, -800.0])).numpy()
+    scap += 0.05 * rng.standard_normal(scap.shape).astype(np.float32)
+    got = tstream.receive_stream(CFG, torch.from_numpy(scap).to(cuda), chunk, PAY, compute_dtype=dtype,
+                                 track=True, device=cuda)
+    want = tstream.receive_stream(CFG, scap, chunk, PAY, compute_dtype=dtype, track=True, device="cpu")
+    det = got.steps.detected.cpu()
+    assert torch.equal(det, want.steps.detected) and torch.equal(got.carry.frames_ok.cpu(), want.carry.frames_ok)
+    assert int(got.carry.frames_ok.sum()) == 8
+    assert torch.equal(got.steps.frame.payload.cpu()[det], want.steps.frame.payload[det])
+    assert torch.equal(got.steps.frame_start.cpu(), want.steps.frame_start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True])
+def test_cuda_resident_scan_matches_carry_path(cuda, warm):
+    """receive_stream(lock=True, resident=True) on the card against the
+    carry path (resident=False) on the same card, at a mid size: 512
+    mfsk16-fast streams (payload 256), a gap of 1,000 samples, then 6
+    back-to-back frames, bf16, cold and from a warm-lock seed. Frames, the
+    final carry's buffer and every counter equal; the resident scan
+    launches demod_at_fused (and, cold, sync_search_fused) and never
+    probe_at_fused or demod_probe_fused."""
+    from anet_torch.dsp.family import frame_samples
+
+    rng = np.random.default_rng(71 + warm)
+    b, pay_len = 512, 256
+    t = frame_samples(CFG, pay_len)
+    chunk = t // 128 * 128
+    n = -(-(1000 + 6 * t) // chunk) * chunk
+    pay = torch.from_numpy(rng.integers(0, 256, (6 * b, pay_len), dtype=np.uint8)).to(cuda)
+    w = transmit(CFG, pay, device=cuda).reshape(6, b, t)
+    cap = torch.zeros(b, n, dtype=torch.bfloat16, device=cuda)
+    for i in range(6):
+        cap[:, 1000 + i * t : 1000 + (i + 1) * t] = w[i].to(torch.bfloat16)
+    cap += (0.05 * torch.randn(b, n, device=cuda)).to(torch.bfloat16)
+
+    def seed():
+        if not warm:
+            return None
+        c = tstream.init_carry(CFG, chunk, pay_len, (b,), dtype=torch.bfloat16, device=cuda)
+        return c._replace(locked=torch.ones_like(c.locked), next_start=torch.full_like(c.next_start, 1000))
+
+    want = tstream.receive_stream(CFG, cap, chunk, pay_len, carry=seed(), compute_dtype=torch.bfloat16,
+                                  lock=True, resident=False, device=cuda)
+    before = dict(tk.launch_counts)
+    got = tstream.receive_stream(CFG, cap, chunk, pay_len, carry=seed(), compute_dtype=torch.bfloat16,
+                                 lock=True, resident=True, device=cuda)
+    torch.cuda.synchronize()
+    launched = {k: tk.launch_counts[k] - before[k] for k in before if tk.launch_counts[k] != before[k]}
+    assert launched.get("demod_at_fused", 0) == n // chunk
+    assert "probe_at_fused" not in launched and "demod_probe_fused" not in launched
+    if not warm:
+        assert "sync_search_fused" in launched
+    assert int(got.carry.frames_ok.sum()) == 6 * b
+    assert torch.equal(got.steps.detected, want.steps.detected)
+    det = got.steps.detected
+    assert torch.equal(got.steps.frame.payload[det], want.steps.frame.payload[det])
+    assert torch.equal(got.steps.frame.ok, want.steps.frame.ok)
+    assert torch.equal(got.steps.frame_start[det], want.steps.frame_start[det])
+    for f in tstream.StreamCarry._fields:
+        assert torch.equal(getattr(got.carry, f), getattr(want.carry, f)), f

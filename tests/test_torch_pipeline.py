@@ -212,8 +212,8 @@ def test_receive_frame_dynamic_refusals():
     cap = np.zeros((1, frame_num_samples(coded, MAX) + 100), np.float32)
     with pytest.raises(ValueError, match="fec_interleave == 1"):
         tpipeline.receive_frame_dynamic(coded, cap, MAX, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipeline.receive_frame_tracked(CFG, cap, MAX)
+    with pytest.raises(ValueError, match="cannot hold"):  # the tracked receiver's own refusal
+        tpipeline.receive_frame_tracked(CFG, np.zeros((1, 500), np.float32), MAX, device="cpu")
     with pytest.raises(NotImplementedError, match="OFDM"):
         aligned_demod_dynamic_fn(object(), MAX)
 

@@ -335,14 +335,8 @@ def test_carry_numpy_roundtrip_keeps_bf16():
 
 def test_unported_options_raise():
     cap = np.zeros((1, CHUNK), np.float32)
-    with pytest.raises(NotImplementedError):
-        tstream.receive_stream(CFG, cap, CHUNK, PAY, track=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstream.receive_stream(CFG, cap, CHUNK, PAY, lock=True, resident=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstream.receive_stream(CCFG, cap, CHUNK, PAY, track=True, device="cpu")
     # int8 carries serve the fixed-length MFSK receivers only
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1\\)"):
         tstream.init_carry(OCFG, CHUNK, OPAY, (1,), dtype=torch.int8, device="cpu")
     carry8 = tstream.init_carry(CFG, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu")
     with pytest.raises(NotImplementedError, match="variable-length"):
