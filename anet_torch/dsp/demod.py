@@ -62,6 +62,18 @@ def decide_symbols(config: ModemConfig, energies: torch.Tensor) -> torch.Tensor:
     return gray_decode(tone, config.bits_per_symbol)
 
 
+def demodulate_symbols(
+    config: ModemConfig, samples: torch.Tensor, *, compute_dtype=torch.float32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Waveform -> (data symbols int32 [..., S], confidence float32 [..., S]):
+    the hard decisions and, per symbol, the winning tone's energy over the
+    total, a normalized confidence in (0, 1]."""
+    energies = tone_energies(config, samples, compute_dtype=compute_dtype)
+    symbols = decide_symbols(config, energies)
+    confidence = energies.amax(-1) / energies.sum(-1).clamp_min(1e-20)
+    return symbols, confidence
+
+
 def bit_llrs(config: ModemConfig, energies: torch.Tensor) -> torch.Tensor:
     """Per-bit soft decisions from tone energies [..., S, M] (max-log
     approximation): for data bit k of a symbol (MSB-first, as

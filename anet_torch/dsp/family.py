@@ -4,6 +4,7 @@ raises."""
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Tuple
 
 import torch
@@ -74,6 +75,19 @@ def frame_samples(config, payload_len: int) -> int:
     from anet_torch.dsp.frame import frame_num_samples
 
     return frame_num_samples(config, payload_len)
+
+
+def waveform_snr_db(config, snr_db):
+    """A demodulator's SNR estimate on the waveform-scale AWGN dB of
+    anet_torch.channel.awgn and models.OPERATING_SNR_DB, so either family's
+    estimate feeds models.suggest_model. MFSK's FrameResult.snr_db is the
+    in-bin SNR, which holds the filterbank's coherent processing gain of
+    10 log10(sps / 2) dB: that is taken off. OFDM's EVM-based estimate is
+    waveform-scale already and passes through. ``snr_db`` is a float or a
+    tensor."""
+    if is_ofdm(config):
+        return snr_db
+    return snr_db - 10.0 * math.log10(config.samples_per_symbol / 2.0)
 
 
 def preamble_template(config, device="cuda") -> torch.Tensor:

@@ -155,6 +155,11 @@ def crc32_host(data: bytes) -> int:
     return zlib.crc32(data) & 0xFFFFFFFF
 
 
+def crc32_bytes_be(crc: int) -> bytes:
+    """A CRC-32 value as its 4 big-endian bytes (the frame trailer's order)."""
+    return int(crc).to_bytes(4, "big")
+
+
 @lru_cache(maxsize=1)
 def _crc32_table() -> np.ndarray:
     table = np.zeros(256, dtype=np.uint32)

@@ -176,19 +176,27 @@ def demodulate_frame(
     payload_len: int,
     *,
     compute_dtype=torch.float32,
+    use_pallas: bool | None = None,
     device="cuda",
 ) -> FrameResult:
     """Symbol-aligned batch-major frame waveform [..., T] -> payload +
     verdicts. ``samples`` must start exactly at the frame start and hold
-    frame_num_samples(config, payload_len). The filterbank is the kernel
-    anet_torch.kernels.tone_energies_fused (the reference's
+    frame_num_samples(config, payload_len).
+
+    ``use_pallas`` picks the filterbank. None (the default) and True take
+    the kernel anet_torch.kernels.tone_energies_fused (the reference's
     ``use_pallas=True``), which reads the data section in place past the
-    preamble; on the CPU its plain version."""
+    preamble; on the CPU its plain version. False takes the reference's
+    other route, the plain product demod.tone_energies, by the caller's
+    choice."""
     from anet_torch.kernels import tone_energies_fused
 
     samples = as_tensor(samples, device)
     data = samples[..., config.preamble_symbols * config.samples_per_symbol :]
-    energies = tone_energies_fused(config, data, compute_dtype=compute_dtype)
+    if use_pallas is False:
+        energies = tone_energies(config, data, compute_dtype=compute_dtype)
+    else:
+        energies = tone_energies_fused(config, data, compute_dtype=compute_dtype)
     symbols = decide_symbols(config, energies)
     return frame_result_from_decisions(config, symbols, energies, payload_len)
 
@@ -199,6 +207,7 @@ def demodulate_frame_tm(
     payload_len: int,
     *,
     compute_dtype=torch.bfloat16,
+    use_pallas: bool | None = None,
     device="cuda",
 ) -> FrameResult:
     """demodulate_frame for TIME-MAJOR whole frames [T, B] (the stream batch
@@ -219,6 +228,10 @@ def demodulate_frame_tm(
     (operands in ``compute_dtype``, float32 accumulation and result), keep
     the energies time-major [S, M, B] and transpose them once for the LLRs.
 
+    ``use_pallas`` None (the default) or True takes the kernels above;
+    False takes that plain product for every config, by the caller's choice
+    (the reference's route off its TPU).
+
     ``compute_dtype=torch.int8`` is the quantized-ingest path: an int8
     capture (quantized once at the edge, e.g. round(x * 127 / max|x|)) goes
     to the int8 instantiation of decide_frame_tm with the x127 integer
@@ -237,33 +250,36 @@ def demodulate_frame_tm(
     pre = config.preamble_symbols * sps
     s = (samples_tm.shape[0] - pre) // sps
     exact = s == data_symbols_for_payload(config, payload_len)
+    kernel = use_pallas is not False
     if compute_dtype == torch.int8:
-        if config.fec == "conv" or config.bits_per_symbol not in (1, 2, 4) or m > 16 or not exact:
+        if (config.fec == "conv" or not kernel or config.bits_per_symbol not in (1, 2, 4) or m > 16
+                or not exact):
             raise ValueError(
                 "int8 compute is the full-fusion kernel's quantized-ingest path only "
-                "(uncoded, bps in {1,2,4}, <=16 tones, one whole frame)"
+                "(uncoded, bps in {1,2,4}, <=16 tones, one whole frame, use_pallas not False)"
             )
         if samples_tm.dtype != torch.int8:
             raise ValueError(
                 f"int8 compute takes an int8 capture, got {samples_tm.dtype}: quantize it "
                 "once at the edge (a cast would truncate the waveform to zero)"
             )
-    if config.fec != "conv" and config.bits_per_symbol in (1, 2, 4) and m <= 16 and exact:
+    if kernel and config.fec != "conv" and config.bits_per_symbol in (1, 2, 4) and m <= 16 and exact:
         words, crc_counts, qual, n_sym = decide_frame_tm(
             config, samples_tm.to(compute_dtype), payload_len, preamble_offset=pre
         )
         return frame_result_from_packed(config, words, crc_counts, qual, n_sym, payload_len)
     b = samples_tm.shape[1]
-    if config.fec == "conv":
+    llrs = None
+    if config.fec == "conv" or not kernel:
         w = samples_tm[pre : pre + s * sps].reshape(s, sps, b).to(compute_dtype)
         basis_t = demod_basis(config, dtype=compute_dtype, device=samples_tm.device).T  # [2M, sps]
         e = _filterbank_energies_tm(basis_t, w, m)  # [S, M, B]
         tone = torch.argmax(e, dim=1).to(torch.int32)  # [S, B]
         best, total = e.amax(1), e.sum(1)
-        llrs = bit_llrs(config, e.permute(2, 0, 1))
+        if config.fec == "conv":
+            llrs = bit_llrs(config, e.permute(2, 0, 1))
     else:
         tone, best, total = decide_tones_tm(config, samples_tm[pre:].to(compute_dtype))
-        llrs = None
     # quality reduces over the symbol (major) axis while still time-major;
     # only [B] vectors and the [S, B] decisions transpose
     confidence = (best / total.clamp_min(1e-20)).mean(0)

@@ -1,15 +1,21 @@
 """Preamble synchronization: detection + timing estimation (mirrors
 ``anet.dsp.sync``).
 
-The preamble is a fixed PN tone pattern. The correlation is the
-block-Toeplitz matched filter (``method="matmul"``): the lag axis is tiled
-into blocks of B lags, and each block is one row of a
-``[n_blocks, K+B-1] x [K+B-1, B]`` product against a banded template
-matrix. It is the plain version of the streaming search and of
-correlate_fused, and the one-shot locator's correlation (locate_preamble),
-where it stays a torch product as the reference leaves it to XLA. The
-reference's FFT and direct backends are not ported: ``method="auto"``
-resolves to the product.
+The preamble is a fixed PN tone pattern. Three correlation backends, as
+the reference's:
+
+- ``matmul``: the block-Toeplitz matched filter. The lag axis is tiled into
+  blocks of B lags, and each block is one row of a
+  ``[n_blocks, K+B-1] x [K+B-1, B]`` product against a banded template
+  matrix. It is the plain version of the streaming search and of
+  correlate_fused, and the one-shot locators' correlation on the card.
+- ``fft``: rfft, multiply, irfft (``torch.fft``: cuFFT on the card, as the
+  reference's route is ``jnp.fft`` and no kernel); the default, and what
+  ``auto`` takes on the CPU, as the reference's does.
+- ``direct``: the materialized sliding windows; the golden model for tests.
+
+``auto`` (the one-shot locators and the capture classifier) is the FFT for
+a tensor on the CPU and the block-Toeplitz product on the card.
 """
 
 from __future__ import annotations
@@ -65,19 +71,45 @@ def banded_template(template: torch.Tensor, n_rows: int, block: int) -> torch.Te
 def correlate_template(
     samples: torch.Tensor,
     template: torch.Tensor,
-    method: str = "matmul",
+    method: str = "fft",
+    fft_len: int | None = None,
     block: int | None = None,
 ) -> torch.Tensor:
     """Valid-mode cross-correlation of [..., N] samples with a [K] template:
     float32 [..., N - K + 1]. Operands are widened to float32 first (the
-    reference's f32 accumulation of bf16 operands)."""
+    reference's f32 accumulation of bf16 operands).
+
+    ``method`` is ``"fft"`` (the default), ``"matmul"`` (``block`` its
+    lag-tile width), ``"direct"`` or ``"auto"`` (the FFT for a tensor on the
+    CPU, the block-Toeplitz product on the card). ``fft_len`` is the FFT
+    size, next_pow2(N + K - 1) by default (no circular wraparound); callers
+    that read only the valid lags may pass next_pow2(N), whose aliased
+    contributions land outside them."""
     n = samples.shape[-1]
     k = template.shape[-1]
     if k > n:
         raise ValueError(f"template ({k}) longer than capture ({n})")
-    if method not in ("matmul", "auto"):
-        raise ValueError(f"only method='matmul' (or 'auto') is ported, got {method!r}")
-    return _correlate_matmul(samples.float(), template.float(), block)
+    if method == "auto":
+        method = "fft" if samples.device.type == "cpu" else "matmul"
+    if method not in ("fft", "matmul", "direct"):
+        raise ValueError(f"method must be fft, matmul, direct or auto, got {method!r}")
+    x, t = samples.float(), template.float()
+    if method == "direct":
+        return x.unfold(-1, k, 1) @ t
+    if method == "matmul":
+        return _correlate_matmul(x, t, block)
+    if fft_len is None:
+        fft_len = _next_pow2(n + k - 1)
+    elif fft_len < n:
+        raise ValueError(f"fft_len {fft_len} shorter than the capture ({n})")
+    spec_x = torch.fft.rfft(x, n=fft_len, dim=-1)
+    spec_t = torch.fft.rfft(t, n=fft_len)
+    corr = torch.fft.irfft(spec_x * spec_t.conj(), n=fft_len, dim=-1)
+    return corr[..., : n - k + 1]
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
 
 
 def _correlate_matmul(
@@ -93,7 +125,7 @@ def _correlate_matmul(
     k = template.shape[-1]
     out_len = n - k + 1
     if block is None:
-        block = min(512, max(128, 1 << (out_len - 1).bit_length()))
+        block = min(512, max(128, _next_pow2(out_len)))
     b = block
     n_blocks = -(-out_len // b)
     w = k + b - 1  # overlapped row width
@@ -174,6 +206,7 @@ def aligned_gather(
     size: int,
     compute_dtype=None,
     mode: str = "auto",
+    start_bound: int | None = None,
 ) -> torch.Tensor:
     """Slice ``size`` samples at per-stream offsets: out[..., i] =
     buffer[..., start[...] + i], in the buffer's dtype. Callers guarantee
@@ -186,9 +219,10 @@ def aligned_gather(
     (anet_torch.kernels.gather_rows_fused), as in the reference an explicit
     mode and not in ``auto``. A ``compute_dtype`` other than float32 rounds
     the samples to it on the way (the reference's selection products run in
-    that dtype); ``roll`` moves them untouched. The reference's
-    ``start_bound`` hint only lets its TPU forms skip a pad copy and has no
-    counterpart here."""
+    that dtype); ``roll`` moves them untouched. ``start_bound`` (the
+    largest start the caller can pass) is accepted and ignored: in the
+    reference it is a TPU DMA hint that only lets its forms skip a pad copy,
+    and the gathers here read by index."""
     if mode not in ("auto", "dma", "onehot", "roll"):
         raise ValueError(f"mode must be auto/dma/onehot/roll, got {mode!r}")
     if start.dim() == 0:
@@ -245,6 +279,7 @@ def preamble_quality_probe(
     template_energy,
     n_lags: int = 5,
     compute_dtype=None,
+    mode: str = "auto",
     start_bound: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Normalized preamble match quality at ``n_lags`` consecutive lags
@@ -259,17 +294,32 @@ def preamble_quality_probe(
     ``start_bound`` (a non-negative int) is the largest ``start`` the caller
     can pass, as the reference takes it: the probe then reads only the head
     of the buffer that a bounded start reaches. The spans are gathered by
-    index, so the bound changes no value. The reference's ``mode=`` is not
-    ported (its ``"fused"`` route is kernels.probe_at_fused)."""
+    index, so the bound changes no value.
+
+    ``mode="fused"`` takes the probe kernel (kernels.probe_at_fused, on the
+    buffer cast to ``compute_dtype``), whose one window energy is summed
+    over the st0-ALIGNED span [st0, st0 + 128 * (ceil((k + n_lags - 1) /
+    128) + 1)) instead, a superset as well; any other mode, ``"auto"``
+    included, is the row-aligned form above, as in the reference."""
     k = template.shape[-1]
     length = buffer.shape[-1]
     st0 = (start.to(torch.int64) - n_lags // 2).clamp(0, length - k - n_lags + 1)
     t_c = template.to(compute_dtype) if compute_dtype else template
     te = torch.as_tensor(template_energy, dtype=torch.float32, device=buffer.device)
+    if start_bound is not None and (
+        isinstance(start_bound, bool) or not isinstance(start_bound, int) or start_bound < 0
+    ):
+        raise ValueError(f"start_bound must be a non-negative int, got {start_bound!r}")
+    if mode == "fused":
+        from anet_torch.kernels import probe_at_fused
+
+        buf_c = buffer.to(compute_dtype) if compute_dtype else buffer
+        q = probe_at_fused(
+            buf_c.reshape(-1, length), st0.reshape(-1).to(torch.int32), t_c, te, n_lags
+        )
+        return q.reshape(*st0.shape, n_lags), st0.to(torch.int32)
     span_rows = -(-(k + n_lags - 1) // _LANE) + 1
     if start_bound is not None:
-        if isinstance(start_bound, bool) or not isinstance(start_bound, int) or start_bound < 0:
-            raise ValueError(f"start_bound must be a non-negative int, got {start_bound!r}")
         # a start at most the bound reads rows [0, bound_row + span_rows + 1)
         bound0 = min(start_bound, length - k - n_lags + 1)
         head = (bound0 // _LANE + span_rows + 1) * _LANE

@@ -1,8 +1,10 @@
 """Modem model presets: named, tuned configurations of the signal chain.
 
 The registry, presets and operating thresholds of ``anet/models/__init__.py``,
-copied so that ``anet_torch`` imports nothing of ``anet`` (its compute
-helpers, the capture classifier and ``suggest_model``, are not ported yet).
+copied so that ``anet_torch`` imports nothing of ``anet``, and its helpers:
+the link-adaptation rule (``net_bit_rate_bps``, ``suggest_model``) and the
+blind capture classifier (``classify_capture``: one matched filter a preset,
+then a header check of the tied leaders), which runs on the card by default.
 
 - ``fsk2-robust``   — binary FSK, low rate, maximum noise margin.
 - ``mfsk4-voice``   — 4-FSK in the voice band (300-3400 Hz).
@@ -22,6 +24,9 @@ from __future__ import annotations
 
 from typing import Dict, List, NamedTuple
 
+import torch
+
+from anet_torch._device import as_tensor
 from anet_torch.dsp.ofdm import OfdmConfig
 from anet_torch.dsp.params import ModemConfig
 
@@ -75,6 +80,29 @@ OPERATING_SNR_DB = {
     "ofdm-turbo": 10.0,
     "ofdm-max": 18.0,
 }
+
+
+def net_bit_rate_bps(model: ModemModel) -> float:
+    """Payload bit rate after FEC overhead."""
+    rate = model.config.bit_rate_bps
+    if getattr(model.config, "fec", "none") == "conv":
+        rate /= 2.0
+    return rate
+
+
+def suggest_model(snr_db: float, margin_db: float = 2.0) -> ModemModel:
+    """Link adaptation: the fastest preset whose measured operating
+    threshold fits the reported SNR minus a safety margin; the most robust
+    preset when nothing fits. Feed it a waveform-scale SNR: pass a
+    FrameResult.snr_db through anet_torch.dsp.family.waveform_snr_db
+    first."""
+    usable = [
+        m for m in list_models()
+        if OPERATING_SNR_DB.get(m.name, float("inf")) <= snr_db - margin_db
+    ]
+    if not usable:
+        return min(list_models(), key=lambda m: OPERATING_SNR_DB.get(m.name, 1e9))
+    return max(usable, key=net_bit_rate_bps)
 
 
 register(
@@ -238,3 +266,86 @@ register(
         "Opus stream over sound.",
     )
 )
+
+
+class Classification(NamedTuple):
+    """One candidate's score from classify_capture."""
+
+    name: str
+    quality: float  # normalized preamble-match quality in [0, 1]
+    offset: int  # sample index of the best preamble match
+    header_ok: bool | None  # tie-break verdict; None = not attempted
+
+
+def classify_capture(samples, candidates=None, payload_len=None, device="cuda") -> List[Classification]:
+    """Identify which modem preset a capture [N] (one stream) carries, on
+    ``device``.
+
+    Every preset transmits a preset-specific preamble, so classification is
+    one matched filter a candidate (sync.correlate_template with
+    ``method="auto"``: the block-Toeplitz product on the card, the FFT on
+    the CPU), ranked by Cauchy-Schwarz-normalized quality. The OFDM presets
+    share one preamble, so the tied leaders (quality within 0.05 of the
+    best) are told apart by demodulating the frame at the detected offset
+    and checking its header gate (magic word + header CRC): with
+    ``payload_len`` every candidate can be checked, without it only the
+    uncoded ones (their length is read from the header). Among the tied
+    leaders a verified header outranks raw quality.
+
+    ``candidates``: model names to consider (default: every registered
+    preset whose preamble fits in the capture). Returns the
+    Classifications best first; verdicts are filled for the tied leaders
+    only."""
+    from anet_torch.dsp import family
+    from anet_torch.dsp.sync import correlate_template, normalized_match_quality, sliding_window_energy
+
+    x = as_tensor(samples, device).float()
+    names = candidates or [m.name for m in list_models()]
+    scored = []
+    for name in names:
+        cfg = get_model(name).config
+        tmpl = family.preamble_template(cfg, x.device)
+        k = int(tmpl.shape[-1])
+        if x.shape[-1] <= k:
+            continue
+        corr = correlate_template(x, tmpl, method="auto")
+        q = normalized_match_quality(corr, sliding_window_energy(x, k), (tmpl * tmpl).sum())
+        off = int(torch.argmax(q))
+        scored.append((name, float(q[off]), off))
+    scored.sort(key=lambda t: -t[1])
+    if not scored:
+        return []
+    best_q = scored[0][1]
+    leaders = [t for t in scored if best_q - t[1] <= 0.05]
+    verdicts = {name: _validate_header(name, x, off, payload_len) for name, _, off in leaders}
+    leaders.sort(key=lambda t: (verdicts[t[0]] is not True, -t[1]))
+    rest = [t for t in scored if best_q - t[1] > 0.05]
+    return [Classification(name, q, off, verdicts.get(name)) for name, q, off in leaders + rest]
+
+
+def _validate_header(name, x: torch.Tensor, offset: int, payload_len):
+    """True/False if a demodulation at ``offset`` of the capture ``x`` [N]
+    could check the header gate, None if this candidate cannot be checked
+    (a coded one without a payload length, a frame running past the
+    capture, or a geometry its receiver refuses with ValueError)."""
+    from anet_torch.dsp import family
+
+    cfg = get_model(name).config
+    n = int(x.shape[-1])
+    try:
+        if payload_len is not None:
+            t = family.frame_samples(cfg, payload_len)
+            if offset + t > n:
+                return None
+            frame = family.aligned_demod_fn(cfg, payload_len, device=x.device)(x[None, offset : offset + t])
+        else:
+            if getattr(cfg, "fec", "none") != "none":
+                return None  # coded headers need the payload length
+            max_len = 64
+            t = family.frame_samples(cfg, max_len)
+            if offset + t > n:
+                return None
+            frame = family.aligned_demod_dynamic_fn(cfg, max_len, device=x.device)(x[None, offset : offset + t])
+    except ValueError:
+        return None
+    return bool(frame.magic_ok[0]) and bool(frame.header_crc_ok[0])

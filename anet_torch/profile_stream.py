@@ -18,6 +18,10 @@
 - ``dynamic-lock``: the variable-length locked stream (payloads 64, 256,
   128, 64, 256, 128, chunk of one shortest frame), warm and cold; a coded
   model needs fec_interleave == 1 (mfsk4-coded-stream).
+- ``dynamic-lock-int8``: the same locked stream on an int8 carry
+  (init_carry(dtype=torch.int8)): the bf16 capture quantizes at ingest
+  (quantize_int8), bf16 compute, warm and cold (chip_smoke.py's
+  stream-dynamic-int8 on an MFSK model).
 - ``aligned-bm``: the batch-major aligned receiver of chip_smoke.py on
   16,384 bf16 frames (uncoded MFSK): demodulate_frame with bfloat16
   compute (the filterbank tone_energies_fused, then the plain decisions
@@ -33,10 +37,11 @@
   capture-resident scan (resident=True) in turns, in one process.
 
 ``model`` is mfsk16-fast unless named; the OFDM presets (ofdm-fast, and for
-``lock`` the coded ones) run the same paths but ``lock-int8``,
+``lock`` and ``lock-int8`` the coded ones) run the same paths but
 ``aligned-bm``, ``tracked`` and ``resident``, which take the MFSK presets
-only (``aligned-bm`` and ``resident`` the uncoded ones) (a coded one's
-aligned run stays bf16: int8 aligned compute is uncoded only). Each run happens once to warm up,
+only (``aligned-bm`` and ``resident`` the uncoded ones); the aligned run of
+``lock-int8`` stays bf16 for a coded or an OFDM model (int8 aligned compute
+is uncoded MFSK only). Each run happens once to warm up,
 then once under torch.profiler, and prints the device time of each kernel
 (the top 12, then every hand-written kernel of ``kernels/csrc`` below
 them), the sum of device time, the wall time of the run, the
@@ -56,6 +61,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from anet_torch.channel import sample_rate_drift
 from anet_torch.dsp import family
 from anet_torch.dsp import frame as tframe
 from anet_torch.dsp import ofdm
@@ -92,21 +98,11 @@ def back_to_back_capture(cfg, lens, max_len: int, chunk: int, batch: int, gen, d
 
 def drift_rows(x: torch.Tensor, ppm: torch.Tensor, rows: int = ROWS) -> torch.Tensor:
     """Each row of float32 ``x`` [B, N] as a receiver whose clock runs
-    ppm[b] parts per million fast samples it: linear interpolation at
-    positions i (1 + ppm 1e-6), the lower index clipped to [0, N - 2] (the
-    JAX package's anet.channel.sample_rate_drift, a row at a time), ``rows``
-    rows a pass to bound the temporaries."""
-    n = x.shape[-1]
+    ppm[b] parts per million fast samples it (channel.sample_rate_drift with
+    a per-row offset), ``rows`` rows a pass to bound the temporaries."""
     out = torch.empty_like(x)
-    ramp = torch.arange(n, dtype=torch.float32, device=x.device)
-    scale = (1.0 + ppm.double() * 1e-6).float()
     for r0 in range(0, x.shape[0], rows):
-        pos = ramp * scale[r0 : r0 + rows, None]
-        base = pos.floor().clamp(0, n - 2)
-        frac = pos - base
-        idx = base.long()
-        xs = x[r0 : r0 + rows]
-        out[r0 : r0 + rows] = xs.gather(1, idx) * (1.0 - frac) + xs.gather(1, idx + 1) * frac
+        out[r0 : r0 + rows] = sample_rate_drift(x[r0 : r0 + rows], ppm[r0 : r0 + rows], x.device)
     return out
 
 
@@ -250,12 +246,13 @@ def profile_lock(cfg, model: str, gen, dev, int8: bool = False) -> None:
     report(f"aligned B {aligned_b}", lambda: int(demod_tm(cfg, x_tm, PAYLOAD, device=dev).ok.sum()))
 
 
-def profile_dynamic(cfg, model: str, lock: bool, gen, dev) -> None:
+def profile_dynamic(cfg, model: str, lock: bool, gen, dev, int8: bool = False) -> None:
     lens = DYNAMIC_LOCK_LENS if lock else DYNAMIC_LENS
     t_min = int(tframe.dynamic_frame_samples(cfg, min(lens)))
     chunk = (t_min if lock else 2 * t_min) // 128 * 128
     b = STREAM_B
     cap, _ = back_to_back_capture(cfg, lens, PAYLOAD, chunk, b, gen, dev)
+    dtype = torch.int8 if int8 else torch.bfloat16
 
     def run(carry):
         res = receive_stream_dynamic(
@@ -264,11 +261,12 @@ def profile_dynamic(cfg, model: str, lock: bool, gen, dev) -> None:
         )
         assert int(res.carry.frames_ok.sum()) == b * len(lens)
 
-    print(f"{model} stream-dynamic{'-lock' if lock else ''}: B {b}, "
-          f"{cap.shape[1] // chunk} chunks of {chunk}, payloads {lens}")
+    label = "stream-dynamic" + ("-lock" if lock else "") + ("-int8" if int8 else "")
+    print(f"{model} {label}: B {b}, {cap.shape[1] // chunk} chunks of {chunk}, payloads {lens}")
     if lock:
-        report("stream-dynamic-lock warm", lambda: run(warm_lock_carry(cfg, chunk, PAYLOAD, b, dev)))
-        report("stream-dynamic-lock cold", lambda: run(None))
+        cold = (lambda: init_carry(cfg, chunk, PAYLOAD, (b,), dtype=dtype, device=dev)) if int8 else (lambda: None)
+        report(f"{label} warm", lambda: run(warm_lock_carry(cfg, chunk, PAYLOAD, b, dev, dtype)))
+        report(f"{label} cold", lambda: run(cold()))
     else:
         report("stream-dynamic (2 candidates a chunk)", lambda: run(None))
 
@@ -348,7 +346,7 @@ def profile_aligned_bm(cfg, model: str, gen, dev) -> None:
     report("aligned-bm-decide (decide_tones_fused + frame_result_from_tone_decisions)", decide)
 
 
-PATHS = ("lock", "lock-int8", "dynamic", "dynamic-lock", "aligned-bm", "tracked", "resident")
+PATHS = ("lock", "lock-int8", "dynamic", "dynamic-lock", "dynamic-lock-int8", "aligned-bm", "tracked", "resident")
 
 
 def main(argv=None) -> int:
@@ -374,7 +372,7 @@ def main(argv=None) -> int:
     elif path == "resident":
         profile_resident(cfg, model, gen, dev)
     else:
-        profile_dynamic(cfg, model, path == "dynamic-lock", gen, dev)
+        profile_dynamic(cfg, model, path != "dynamic", gen, dev, int8=path == "dynamic-lock-int8")
     return 0
 
 

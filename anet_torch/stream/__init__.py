@@ -55,11 +55,13 @@ uncoded only.
 int8 sliding buffers (``init_carry(dtype=torch.int8)``) hold the samples
 quantized once at the append edge with the fixed scale INT8_STREAM_SCALE
 (``quantize_int8``); a float capture quantizes up front, an int8 capture
-passes through. The MFSK fixed-length steps hand the int8 buffer itself to
+passes through. Every receiver takes them, fixed and variable length, MFSK
+and OFDM, as the reference's. The MFSK steps hand the int8 buffer itself to
 the align+demod kernels (demod_probe_fused, demod_at_fused,
 demod_at_energies_fused take int8) and cast only the search's segment and
-the coded step's probe spans (sync.preamble_quality_probe) to
-``compute_dtype``, exact for int8 values.
+the unmerged lock step's probe spans (sync.preamble_quality_probe: an int8
+buffer never takes probe_at_fused) to ``compute_dtype``, exact for int8
+values; the OFDM steps gather the window cast to ``compute_dtype``.
 Every quality and decision is a ratio in buffer units, so the scale cancels.
 
 ``track=True`` (fixed-length MFSK, not with ``lock``) demodulates each
@@ -75,9 +77,6 @@ the search and demod_at_fused read it in place at absolute positions, so no
 sliding buffer is copied chunk by chunk; the frames and the final carry are
 the carry path's. It measured slower than the carry path on an H100, so
 ``resident=None`` keeps the carry path (receive_stream).
-
-Not ported yet (they raise NotImplementedError): int8 carries for the
-variable-length and OFDM receivers.
 """
 
 from __future__ import annotations
@@ -208,21 +207,6 @@ def _require_buffer_dtype(dtype) -> None:
         raise ValueError(f"sliding buffers are float32, bfloat16 or int8, not {dtype}")
 
 
-def _refuse_int8(config, buffer_dtype, dynamic: bool) -> None:
-    """int8 carries serve the fixed-length MFSK receivers only, as the
-    reference's CLI scopes ``--int8`` (uncoded MFSK there)."""
-    from anet_torch.dsp.family import is_ofdm
-
-    if buffer_dtype != torch.int8:
-        return
-    if dynamic or is_ofdm(config):
-        kind = "OFDM" if is_ofdm(config) else "variable-length"
-        raise NotImplementedError(
-            f"int8 carries for the {kind} receivers are not ported yet "
-            "(ROADMAP queue 1 item 1); use a float32 or bfloat16 carry"
-        )
-
-
 def _require_float_compute(compute_dtype) -> None:
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(
@@ -291,13 +275,12 @@ def init_carry(
 ) -> StreamCarry:
     """Fresh stream state for ``batch_shape`` streams on ``device``: any
     leading shape, ``()`` for one stream, as the reference's. ``dtype`` is
-    the sliding buffer's storage dtype (float32, bfloat16, or int8 for the
-    fixed-length MFSK receivers: chunks quantize at the append edge);
+    the sliding buffer's storage dtype (float32, bfloat16, or int8: chunks
+    quantize at the append edge);
     receive_stream defaults it to its compute_dtype. ``track`` must match
     the receive calls: the tracking margin changes the buffer geometry."""
     _require_supported(config, track)
     _require_buffer_dtype(dtype)
-    _refuse_int8(config, dtype, dynamic=False)
     batch_shape = tuple(batch_shape)
     dev = resolve_device(device)
     length = _buffer_len(config, chunk_size, payload_len, track)
@@ -667,7 +650,6 @@ def _stream_step(
             "already re-times each frame)"
         )
     _require_float_compute(compute_dtype)
-    _refuse_int8(config, carry.buffer.dtype, dynamic=False)
     chunk_size = chunk.shape[-1]
     t_frame = frame_samples(config, payload_len)
     template, t_c = _templates(config, compute_dtype, carry.buffer.device)
@@ -1070,10 +1052,11 @@ def stream_step_dynamic(
     only when some stream needs acquiring, after one host read per chunk.
 
     Every MFSK candidate is demodulated by the align+demod kernels whatever
-    the buffer's float dtype (demod_at_fused for uncoded,
-    demod_at_energies_fused for coded configs), as in stream_step; an OFDM
-    candidate's max-length window is gathered and demodulated by the OFDM
-    receiver (uncoded only)."""
+    the buffer's dtype (demod_at_fused for uncoded, demod_at_energies_fused
+    for coded configs; an int8 buffer goes to their int8 instantiation as it
+    is), as in stream_step; an OFDM candidate's max-length window is
+    gathered in ``compute_dtype`` and demodulated by the OFDM receiver
+    (uncoded only)."""
     flat, batch_shape = _flatten_carry(carry)
     new_carry, out = _stream_step_dynamic(
         config, flat, _flat_chunk(chunk, batch_shape), max_payload_len, detect_threshold,
@@ -1101,7 +1084,6 @@ def _stream_step_dynamic(
     from anet_torch.kernels import demod_at_energies_fused, demod_at_fused
 
     _require_supported(config, False)
-    _refuse_int8(config, carry.buffer.dtype, dynamic=True)
     chunk_size = chunk.shape[-1]
     t_max = frame_samples(config, max_payload_len)
     template, t_c = _templates(config, compute_dtype, carry.buffer.device)
@@ -1132,7 +1114,7 @@ def _stream_step_dynamic(
         buffer, samples_seen, w0, buffer_abs0, quality = _slide_and_quality(
             carry, chunk, t_max, template, t_c, 0, compute_dtype
         )
-    buf_c = buffer.to(compute_dtype)
+    buf_d = _demod_buffer(buffer, compute_dtype)
 
     def demod_at(start_idx):
         """Max-window demod + dynamic parse at a buffer index."""
@@ -1141,9 +1123,9 @@ def _stream_step_dynamic(
             return aligned_demod_dynamic_fn(config, max_payload_len, device=buffer.device)(window)
         n_sym_max = data_symbols_for_payload(config, max_payload_len)
         if config.fec == "conv":
-            energies = demod_at_energies_fused(config, buf_c, start_idx, n_sym_max)
+            energies = demod_at_energies_fused(config, buf_d, start_idx, n_sym_max)
             return dynamic_frame_result_from_energies(config, energies, max_payload_len)
-        tone, best, total = demod_at_fused(config, buf_c, start_idx, n_sym_max)
+        tone, best, total = demod_at_fused(config, buf_d, start_idx, n_sym_max)
         return dynamic_frame_result_from_tone_decisions(config, tone, best, total, max_payload_len)
 
     rel_grid = torch.arange(chunk_size, dtype=torch.int32, device=buffer.device)
@@ -1247,7 +1229,10 @@ def receive_stream_dynamic(
 
     The capture [..., N] must extend a max-length frame past the last frame
     start (pad with zeros): detection fires once a full max window is
-    buffered. ``max_frames_per_chunk`` = K > 1 decodes up to K
+    buffered. The capture is cast to the carry buffer's dtype once, up
+    front, as receive_stream casts it: into an int8 carry a float capture
+    quantizes (quantize_int8) and an int8 capture passes through.
+    ``max_frames_per_chunk`` = K > 1 decodes up to K
     non-overlapping frames per chunk (see stream_step_dynamic); the steps
     then carry a per-chunk candidate axis: steps.detected is
     [num_chunks, K, ...]. ``lock=True`` is dynamic frame lock: use chunk_size
@@ -1257,7 +1242,7 @@ def receive_stream_dynamic(
     capture, num_chunks = _capture_chunks(capture, chunk_size, device)
     batch_shape = tuple(capture.shape[:-1])
     carry = _resume_or_init(config, carry, capture, chunk_size, max_payload_len, compute_dtype)
-    cap = capture.to(carry.buffer.dtype).reshape(-1, num_chunks, chunk_size)
+    cap = _ingest_cast(capture, carry.buffer.dtype).reshape(-1, num_chunks, chunk_size)
     steps = []
     for i in range(num_chunks):
         carry, out = _stream_step_dynamic(

@@ -110,7 +110,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the padded capture, never probe_at_fused or demod_probe_fused; its
    frames and final carry equal to the carry path's run on the same
    capture, whose launches do not count);
-10. the launch count of every kernel during phases 3-9, read per path (each
+10. int8 carries for the variable-length and OFDM receivers, and the
+   channel: "stream-dynamic-int8" (phase 5's stream-dynamic-lock capture,
+   bf16, entering init_carry(dtype=torch.int8) carries, so
+   receive_stream_dynamic quantizes it at ingest; cold and warm:
+   sync_search_fused on a bf16 copy of the segment, demod_at_fused's int8
+   instantiation, the plain row-aligned probe, never probe_at_fused),
+   "stream-ofdm-int8" (phase 7's stream-ofdm capture quantized with
+   quantize_int8 into int8 carries, cold and warm: sync_search_fused,
+   ofdm_track_decide_fused, the plain probe) and "aligned-channel" (phase
+   3's 16,384 frames through channel.apply_channel on the card, 10 dB with
+   a half-amplitude echo 3 samples late, then time-major into
+   demodulate_frame_tm: every frame ok, the measured SNR of the added
+   noise within 0.1 dB of the target, suggest_model on the mean snr_db
+   printed, and classify_capture naming each of four channelled presets
+   first);
+11. the launch count of every kernel during phases 3-10, read per path (each
    path's counts start at 0 just before it; int8 launches count under
    "<name>:int8"): every kernel of a path must have launched there, and
    none that the reference's routing keeps off it (ABSENT).
@@ -133,6 +148,7 @@ import numpy as np
 import torch
 
 from anet_torch import kernels
+from anet_torch.channel import ChannelConfig, apply_channel, multipath
 from anet_torch.dsp import family, fec, ofdm
 from anet_torch.dsp import frame as tframe
 from anet_torch.dsp.demod import bit_llrs
@@ -140,7 +156,7 @@ from anet_torch.dsp import sync as tsync
 from anet_torch.dsp.pipeline import receive_frame, receive_frame_dynamic, receive_frame_tracked, transmit
 from anet_torch.dsp.sync import preamble_waveform
 from anet_torch.kernels.build import build_all
-from anet_torch.models import get_model
+from anet_torch.models import OPERATING_SNR_DB, classify_capture, get_model, suggest_model
 from anet_torch.profile_stream import (
     DYNAMIC_LENS,
     DYNAMIC_LOCK_LENS,
@@ -1130,11 +1146,13 @@ def frames_in_time_order(steps, n_frames: int):
     return key.gather(0, order), plen, payload
 
 
-def phase_stream_dynamic(cfg, gen, label: str, lens, lock: bool, batch: int = STREAM_B) -> None:
+def phase_stream_dynamic(cfg, gen, label: str, lens, lock: bool, batch: int = STREAM_B,
+                         int8: bool = False) -> None:
     """Phase 5: a variable-length stream at B = 8,192 (or ``batch``):
     always-search with two candidates a chunk (chunk = two shortest frames),
     or frame lock cold and warm (chunk = one shortest frame, rounded down to
-    128)."""
+    128). With ``int8`` the bf16 capture enters int8 carries (init_carry),
+    so receive_stream_dynamic quantizes it at ingest."""
     t_short = int(tframe.dynamic_frame_samples(cfg, min(lens)))
     chunk = (t_short if lock else 2 * t_short) // 128 * 128
     cap, sent = back_to_back_capture(cfg, lens, PAYLOAD, chunk, batch, gen, DEV)
@@ -1142,8 +1160,11 @@ def phase_stream_dynamic(cfg, gen, label: str, lens, lock: bool, batch: int = ST
     frame_len = [int(tframe.dynamic_frame_samples(cfg, n)) for n in lens]
     starts = GAP0 + np.concatenate([[0], np.cumsum(frame_len[:-1])])
     log(f"{label}: B {batch}, capture {total} samples bf16 ({cap.numel() * 2 / 1e9:.2f} GB), "
-        f"{total // chunk} chunks of {chunk}, payloads {tuple(lens)}")
-    runs = (("cold", None), ("warm-lock", warm_lock_carry(cfg, chunk, PAYLOAD, batch, DEV))) if lock \
+        f"{total // chunk} chunks of {chunk}, payloads {tuple(lens)}"
+        f"{', int8 carries' if int8 else ''}")
+    dtype = torch.int8 if int8 else torch.bfloat16
+    cold = init_carry(cfg, chunk, PAYLOAD, (batch,), dtype=dtype, device=DEV) if int8 else None
+    runs = (("cold", cold), ("warm-lock", warm_lock_carry(cfg, chunk, PAYLOAD, batch, DEV, dtype))) if lock \
         else (("search", None),)
     for run, carry in runs:
         torch.cuda.synchronize()
@@ -1339,6 +1360,98 @@ def phase_search_blockmax(cfg, gen) -> None:
         f"block maxima right {right}")
     if not right:
         raise AssertionError("search-blockmax: block maxima disagree with the fused search")
+
+
+# --- the channel and the model helpers -----------------------------------------
+
+# The reference's default SNR and its multipath docstring's echo (one echo 3
+# samples after the direct path, at half amplitude).
+CHANNEL = ChannelConfig(snr_db=10.0, multipath_taps=(1.0, 0.0, 0.0, 0.5))
+SNR_DB_TOL = 0.1  # the measured SNR of the added noise against the target
+ECHO_DELAY = len(CHANNEL.multipath_taps) - 1
+CLASSIFY_MODELS = ("mfsk16-fast", "mfsk4-coded", "fsk2-robust", "ofdm-fast")
+
+
+def classify_channelled(gen) -> None:
+    """classify_capture(payload_len=256) on one capture of each of
+    CLASSIFY_MODELS: one frame at a random start below 2,000, 4,000 samples
+    of silence after it, through CHANNEL's echo at 10 dB or the preset's
+    operating SNR plus 6 dB, whichever is higher (ofdm-fast: 20 dB). Each
+    must come out named first with its header checked (the OFDM presets
+    share one preamble: only the header check names ofdm-fast), located at
+    its start or at most the echo's delay after it (the half-amplitude echo
+    pulls the matched filter's peak toward itself)."""
+    for name in CLASSIFY_MODELS:
+        cfg = get_model(name).config
+        pay = torch.randint(0, 256, (1, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+        w = family.transmit_fn(cfg, DEV)(pay)[0]
+        start = int(torch.randint(0, 2000, (1,), generator=gen, device=DEV))
+        cap = torch.zeros(start + w.shape[0] + 4000, device=DEV)
+        cap[start : start + w.shape[0]] = w
+        snr = max(CHANNEL.snr_db, OPERATING_SNR_DB[name] + 6.0)
+        cap = apply_channel(gen, cap[None], dataclasses.replace(CHANNEL, snr_db=snr), device=DEV)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ranked = classify_capture(cap, payload_len=PAYLOAD, device=DEV)
+        dt = time.perf_counter() - t0
+        top = ", ".join(f"{c.name} q {c.quality:.4f} at {c.offset} header {c.header_ok}" for c in ranked[:3])
+        log(f"  classify_capture ({name} at {snr:.1f} dB, capture {cap.shape[0]}): {top}; {dt:.3f} s")
+        first = ranked[0]
+        if (first.name, first.header_ok) != (name, True) or not 0 <= first.offset - start <= ECHO_DELAY:
+            raise AssertionError(f"classify_capture named {first} for a {name} frame at {start}")
+
+
+def phase_aligned_channel(cfg, gen, iters: int = 5) -> None:
+    """"aligned-channel": the aligned receiver's 16,384 frames,
+    batch-major on the card, through apply_channel(CHANNEL) on the card,
+    then time-major bf16 into demodulate_frame_tm (decide_frame_tm): every
+    frame ok with its payload, and the measured SNR of the added noise
+    (mean over streams of each stream's echoed-signal power over its noise
+    power) within SNR_DB_TOL of the target. The link-adaptation rule on the
+    batch's mean snr_db (family.waveform_snr_db, models.suggest_model) is
+    printed; the classifier runs on four channelled presets
+    (classify_channelled)."""
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    pay = torch.randint(0, 256, (ALIGNED_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    waves = transmit(cfg, pay, device=DEV)
+    x = apply_channel(gen, waves, CHANNEL, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    apply_channel(gen, waves, CHANNEL, device=DEV)  # a second call, timed
+    torch.cuda.synchronize()
+    t_chan = time.perf_counter() - t0
+    echoed = multipath(waves, CHANNEL.multipath_taps, device=DEV)
+    del waves
+    snr = 10 * torch.log10((echoed * echoed).mean(-1) / ((x - echoed) ** 2).mean(-1))
+    snr_mean = float(snr.mean())
+    del echoed
+    x_tm = x.to(torch.bfloat16).T.contiguous()  # one untimed ingest cast
+    del x
+    res = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV)
+    ok_frac = float(res.ok.float().mean())
+    right = torch.equal(res.payload, pay)
+    snr_est = float(res.snr_db.mean())
+    suggested = suggest_model(float(family.waveform_snr_db(cfg, snr_est)))
+    log(f"aligned-channel: B {ALIGNED_B}, channel {CHANNEL.snr_db} dB + echo {CHANNEL.multipath_taps} "
+        f"({ALIGNED_B * t_frame / t_chan / 1e6:.1f} Msamples/s through apply_channel); measured SNR mean "
+        f"{snr_mean:.4f} dB (streams {float(snr.min()):.3f}-{float(snr.max()):.3f}); frames_ok_fraction {ok_frac}, "
+        f"payloads right {right}; mean snr_db {snr_est:.3f} (waveform "
+        f"{float(family.waveform_snr_db(cfg, snr_est)):.3f} dB): suggest_model {suggested.name}")
+    if ok_frac != 1.0 or not right or abs(snr_mean - CHANNEL.snr_db) > SNR_DB_TOL:
+        raise AssertionError(f"aligned-channel: frames_ok_fraction {ok_frac}, payloads right {right}, "
+                             f"measured SNR {snr_mean} against {CHANNEL.snr_db} dB")
+    del res, snr
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        n_ok = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV).ok.sum()
+    int(n_ok)
+    dt = time.perf_counter() - t0
+    log(f"aligned-channel: {ALIGNED_B * t_frame * iters / dt / 1e6:.1f} Msamples/s "
+        f"({dt / iters * 1e3:.2f} ms/batch)")
+    del x_tm
+    torch.cuda.empty_cache()
+    classify_channelled(gen)
 
 
 # --- the OFDM family -----------------------------------------------------------
@@ -1621,6 +1734,17 @@ PATHS = {
     "oneshot-tracked": (MODEL, phase_oneshot_tracked, ()),  # the tracker: plain PyTorch, no kernel
     "stream-tracked": (MODEL, phase_stream_tracked, ("sync_search_fused",)),
     "stream-resident": (MODEL, phase_stream_resident, ("sync_search_fused", "demod_at_fused")),
+    "stream-dynamic-int8": (
+        MODEL,
+        lambda cfg, gen: phase_stream_dynamic(cfg, gen, "stream-dynamic-int8", DYNAMIC_LOCK_LENS, True, int8=True),
+        ("sync_search_fused", "demod_at_fused:int8"),
+    ),
+    "stream-ofdm-int8": (
+        OFDM_MODEL,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-ofdm-int8", int8=True),
+        ("sync_search_fused", "ofdm_track_decide_fused"),
+    ),
+    "aligned-channel": (MODEL, phase_aligned_channel, ("decide_frame_tm",)),
 }
 
 
@@ -1628,9 +1752,12 @@ PATHS = {
 # its plain row-aligned probe, never with probe_at_fused; the tracker
 # demodulates tracked frames (no align+demod kernel), and the one-shot
 # tracker launches nothing; the resident scan probes with the plain
-# row-aligned probe and demodulates with demod_at_fused.
+# row-aligned probe and demodulates with demod_at_fused; an int8 dynamic
+# carry goes to demod_at_fused's int8 instantiation only.
 ABSENT = {
     "stream-coded-int8": ("probe_at_fused",),
+    "stream-dynamic-int8": ("probe_at_fused", "demod_at_fused"),
+    "stream-ofdm-int8": ("probe_at_fused",),
     "oneshot-tracked": tuple(kernels.launch_counts),
     "stream-tracked": ("demod_at_fused", "demod_probe_fused"),
     "stream-resident": ("probe_at_fused", "demod_probe_fused"),

@@ -174,3 +174,187 @@ def test_preamble_quality_probe_matches_jax():
     np.testing.assert_array_equal(st0t.numpy(), np.asarray(st0j))
     np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=1e-4, atol=1e-6)
     np.testing.assert_array_equal(qt.numpy().argmax(-1), np.asarray(qj).argmax(-1))
+
+
+@pytest.mark.parametrize("method", ["fft", "direct", "matmul", "auto"])
+def test_correlate_template_methods_match_jax(method):
+    """Every backend of correlate_template against the reference's on the
+    same signal, within 1e-4 of the correlation's scale; ``auto`` is the
+    FFT on the CPU in both packages."""
+    rng = np.random.default_rng(11)
+    _, tpl, x = _signal(rng, 2, 3000, [17, 900])
+    cj = np.asarray(jsync.correlate_template(jnp.asarray(x), jnp.asarray(tpl), method=method))
+    ct = tsync.correlate_template(_t(x), _t(tpl), method=method)
+    assert ct.dtype == torch.float32 and ct.shape == cj.shape == (2, 3000 - tpl.size + 1)
+    scale = np.abs(cj).max()
+    np.testing.assert_allclose(ct.numpy(), cj, rtol=1e-4, atol=1e-4 * scale)
+    np.testing.assert_array_equal(np.abs(ct.numpy()).argmax(-1), [17, 900])
+    if method == "auto":
+        fft = tsync.correlate_template(_t(x), _t(tpl), method="fft")
+        assert torch.equal(ct, fft)
+
+
+def test_correlate_template_fft_len_and_errors():
+    """The FFT size: the default next_pow2(N + K - 1); next_pow2(N) aliases
+    only outside the valid lags; shorter than N raises, as the reference;
+    the default method is the FFT; bf16 operands widen to float32."""
+    rng = np.random.default_rng(12)
+    _, tpl, x = _signal(rng, 1, 2500, [300])
+    xt, tt = _t(x), _t(tpl)
+    full = tsync.correlate_template(xt, tt, method="fft")
+    short = tsync.correlate_template(xt, tt, method="fft", fft_len=4096)
+    cj = np.asarray(jsync.correlate_template(jnp.asarray(x), jnp.asarray(tpl), method="fft", fft_len=4096))
+    scale = float(full.abs().max())
+    np.testing.assert_allclose(short.numpy(), full.numpy(), atol=1e-4 * scale)
+    np.testing.assert_allclose(short.numpy(), cj, atol=1e-4 * scale)
+    assert torch.equal(tsync.correlate_template(xt, tt), full)
+    for corr in (tsync.correlate_template, jsync.correlate_template):
+        arr, t = (xt, tt) if corr is tsync.correlate_template else (jnp.asarray(x), jnp.asarray(tpl))
+        with pytest.raises(ValueError, match="fft_len 2048 shorter than the capture"):
+            corr(arr, t, method="fft", fft_len=2048)
+        with pytest.raises(ValueError, match="longer than capture"):
+            corr(arr[..., :100], t)
+    bf = tsync.correlate_template(xt.to(torch.bfloat16), tt.to(torch.bfloat16), method="direct")
+    want = np.asarray(jsync.correlate_template(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(tpl).astype(jnp.bfloat16), method="direct"))
+    assert bf.dtype == torch.float32
+    np.testing.assert_allclose(bf.numpy(), want.astype(np.float32), rtol=1e-2, atol=1e-2 * scale)
+
+
+def test_preamble_quality_probe_fused_mode_matches_jax(interpret_tpu_kernels):
+    """mode="fused" (probe_at_fused's st0-aligned span; its plain version
+    on the CPU) against the reference's fused mode, whose Pallas kernel
+    runs in interpret mode: st0 equal, quality rtol 1e-4; the default mode
+    keeps the row-aligned span, which differs by a few percent."""
+    rng = np.random.default_rng(13)
+    starts = [124 + 2, 127 + 2, 300, 2, 1000]
+    _, tpl, x = _signal(rng, len(starts), 8192, starts)
+    te = float(np.sum(tpl * tpl))
+    st = np.asarray(starts, np.int32)
+    qt, st0t = tsync.preamble_quality_probe(_t(x), _t(st), _t(tpl), te, mode="fused", start_bound=1000)
+    qa, _ = tsync.preamble_quality_probe(_t(x), _t(st), _t(tpl), te)
+    interpret_tpu_kernels()
+    qj, st0j = jsync.preamble_quality_probe(
+        jnp.asarray(x), jnp.asarray(st), jnp.asarray(tpl), te, mode="fused", start_bound=1000
+    )
+    np.testing.assert_array_equal(st0t.numpy(), np.asarray(st0j))
+    np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(qt.numpy().argmax(-1), np.asarray(qj).argmax(-1))
+    assert qt.shape == (len(starts), 5) and not torch.equal(qt, qa)
+    np.testing.assert_array_equal(qt.argmax(-1).numpy(), qa.argmax(-1).numpy())
+
+
+def test_aligned_gather_takes_start_bound():
+    """start_bound is accepted and changes nothing (a TPU DMA hint in the
+    reference); the values are the reference's with the same bound."""
+    rng = np.random.default_rng(14)
+    buf = rng.standard_normal((3, 1024)).astype(np.float32)
+    starts = np.array([0, 129, 500], np.int32)
+    got = tsync.aligned_gather(_t(buf), _t(starts), 300, start_bound=500)
+    assert torch.equal(got, tsync.aligned_gather(_t(buf), _t(starts), 300))
+    want = jsync.aligned_gather(jnp.asarray(buf), jnp.asarray(starts), 300, start_bound=500)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _noisy_frames(name, b, pay, noise, seed):
+    cfg, jcfg = get_model(name).config, jget_model(name).config
+    rng = np.random.default_rng(seed)
+    p = rng.integers(0, 256, (b, pay), dtype=np.uint8)
+    w = tframe.modulate_frame(cfg, p, device=CPU).numpy()
+    return cfg, jcfg, p, w + noise * rng.standard_normal(w.shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("name", ["mfsk16-fast", "mfsk4-coded"])
+def test_demodulate_frame_use_pallas_matches_jax(name, use_pallas):
+    """demodulate_frame(use_pallas=) and demodulate_frame_tm(use_pallas=)
+    (False: the plain products; True: the kernels' plain versions on the
+    CPU) against the reference's route off its TPU: payloads and verdicts
+    equal, confidence and snr_db rtol 1e-4; the default (None) is the
+    kernel route."""
+    cfg, jcfg, p, w = _noisy_frames(name, 5, 24, 0.3, 15 + use_pallas)
+    got = tframe.demodulate_frame(cfg, w, 24, use_pallas=use_pallas, device=CPU)
+    want = jframe.demodulate_frame(jcfg, jnp.asarray(w), 24)
+    tm = tframe.demodulate_frame_tm(cfg, np.ascontiguousarray(w.T), 24, compute_dtype=torch.float32,
+                                    use_pallas=use_pallas, device=CPU)
+    jtm = jframe.demodulate_frame_tm(jcfg, jnp.asarray(w.T), 24, compute_dtype=jnp.float32, use_pallas=False)
+    for g, wnt in ((got, want), (tm, jtm)):
+        np.testing.assert_array_equal(g.payload.numpy(), np.asarray(wnt.payload))
+        for f in ("magic_ok", "length_ok", "header_crc_ok", "payload_crc_ok", "ok"):
+            np.testing.assert_array_equal(getattr(g, f).numpy(), np.asarray(getattr(wnt, f)), f)
+        np.testing.assert_allclose(g.confidence.numpy(), np.asarray(wnt.confidence), rtol=1e-4)
+        np.testing.assert_allclose(g.snr_db.numpy(), np.asarray(wnt.snr_db), rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(got.payload.numpy(), p)
+    default = tframe.demodulate_frame(cfg, w, 24, device=CPU)
+    assert torch.equal(default.payload, got.payload)
+
+
+def test_demodulate_frame_tm_use_pallas_false_refuses_int8():
+    cfg = get_model("mfsk16-fast").config
+    x8 = np.zeros((tframe.frame_num_samples(cfg, 4), 2), np.int8)
+    with pytest.raises(ValueError, match="quantized-ingest"):
+        tframe.demodulate_frame_tm(cfg, x8, 4, compute_dtype=torch.int8, use_pallas=False, device=CPU)
+    with pytest.raises(ValueError, match="quantized-ingest"):
+        jframe.demodulate_frame_tm(jget_model("mfsk16-fast").config, jnp.asarray(x8), 4,
+                                   compute_dtype=jnp.int8, use_pallas=False)
+
+
+@pytest.mark.parametrize("name", ["mfsk16-fast", "fsk2-robust", "mfsk32-dense"])
+def test_demodulate_symbols_matches_jax(name):
+    cfg, jcfg = get_model(name).config, jget_model(name).config
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((3, 20 * cfg.samples_per_symbol)).astype(np.float32)
+    sym, conf = tdemod.demodulate_symbols(cfg, _t(x))
+    jsym, jconf = jdemod.demodulate_symbols(jcfg, jnp.asarray(x))
+    assert sym.dtype == torch.int32 and sym.shape == (3, 20)
+    np.testing.assert_array_equal(sym.numpy(), np.asarray(jsym))
+    np.testing.assert_allclose(conf.numpy(), np.asarray(jconf), rtol=1e-5)
+
+
+def test_crc32_bytes_be_and_waveform_snr_db_match_jax():
+    from anet.dsp import family as jfamily
+    from anet_torch.dsp import family as tfamily
+
+    for crc in (0, 1, 0xDEADBEEF, 0xFFFFFFFF, zlib.crc32(b"anet")):
+        assert tfec.crc32_bytes_be(crc) == jfec.crc32_bytes_be(crc)
+    for name in ("mfsk16-fast", "fsk2-robust", "mfsk4-coded", "ofdm-fast", "ofdm-max"):
+        cfg, jcfg = get_model(name).config, jget_model(name).config
+        for snr in (-3.0, 0.0, 12.5, 40.0):
+            np.testing.assert_allclose(tfamily.waveform_snr_db(cfg, snr), jfamily.waveform_snr_db(jcfg, snr),
+                                       rtol=1e-12)
+        vec = tfamily.waveform_snr_db(cfg, torch.tensor([1.0, 20.0]))
+        want = np.asarray(jfamily.waveform_snr_db(jcfg, jnp.asarray([1.0, 20.0])))
+        np.testing.assert_allclose(vec.numpy(), want, rtol=1e-6)
+
+
+def test_dsp_exports_match_jax():
+    import anet.dsp
+    import anet_torch.dsp
+
+    assert anet_torch.dsp.__all__ == anet.dsp.__all__
+    for name in anet_torch.dsp.__all__:
+        assert getattr(anet_torch.dsp, name) is not None, name
+
+
+def test_demodulate_frame_use_pallas_routes(monkeypatch):
+    """use_pallas=False never reaches a kernel wrapper; None and True take
+    tone_energies_fused (batch-major) and decide_frame_tm (time-major)."""
+    from anet_torch import kernels as tk
+
+    calls = dict.fromkeys(("tone_energies_fused", "decide_frame_tm", "decide_tones_tm"), 0)
+    for name in calls:
+        fn = getattr(tk, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(tk, name, counted)
+    cfg, _, p, w = _noisy_frames("mfsk16-fast", 2, 8, 0.1, 17)
+    for flag, n in ((False, 0), (None, 1), (True, 1)):
+        calls.update(dict.fromkeys(calls, 0))
+        a = tframe.demodulate_frame(cfg, w, 8, use_pallas=flag, device=CPU)
+        b = tframe.demodulate_frame_tm(cfg, np.ascontiguousarray(w.T), 8, use_pallas=flag, device=CPU)
+        assert calls == {"tone_energies_fused": n, "decide_frame_tm": n, "decide_tones_tm": 0}, flag
+        np.testing.assert_array_equal(a.payload.numpy(), p)
+        np.testing.assert_array_equal(b.payload.numpy(), p)

@@ -65,7 +65,7 @@ def _chunk(jcfg, lens, frames_per_chunk=1):
     return frames_per_chunk * jfamily.frame_samples(jcfg, min(lens)) // 128 * 128
 
 
-def _assert_same(got, want, tol=1e-4):
+def _assert_same(got, want, tol=1e-4, snr_atol=1e-3):
     det = got.steps.detected.numpy()
     np.testing.assert_array_equal(det, np.asarray(want.steps.detected))
     np.testing.assert_array_equal(got.steps.frame_start.numpy(), np.asarray(want.steps.frame_start))
@@ -81,7 +81,7 @@ def _assert_same(got, want, tol=1e-4):
     for f in ("confidence", "snr_db"):
         np.testing.assert_allclose(
             getattr(got.steps.frame, f).numpy()[det], np.asarray(getattr(want.steps.frame, f))[det],
-            rtol=tol, atol=1e-3 if f == "snr_db" else 0, err_msg=f,
+            rtol=tol, atol=snr_atol if f == "snr_db" else 0, err_msg=f,
         )
     for f in ("samples_seen", "frames_detected", "frames_ok", "decode_errors", "next_start", "locked",
               "last_frame_end"):
@@ -261,6 +261,17 @@ def test_dynamic_checkpoint_crosses_both_ways(tmp_path, model, mode):
     mid-capture resumes in anet_torch.stream.receive_stream_dynamic with the
     frames of one uninterrupted JAX run, and the port's own checkpoint
     resumes in JAX."""
+    _dynamic_checkpoint_crosses(tmp_path, model, mode)
+
+
+@pytest.mark.parametrize("model", ["mfsk16-fast", OFDM])
+def test_int8_dynamic_checkpoint_crosses_both_ways(tmp_path, model):
+    """The same crossings in frame lock from int8 carries: the buffer's
+    int8 dtype and values survive both ways."""
+    _dynamic_checkpoint_crosses(tmp_path, model, "lock", int8=True)
+
+
+def _dynamic_checkpoint_crosses(tmp_path, model, mode, int8=False):
     cfg, jcfg = ALL_MODELS[model]
     rng = np.random.default_rng(21)
     lock = mode == "lock"
@@ -271,11 +282,16 @@ def test_dynamic_checkpoint_crosses_both_ways(tmp_path, model, mode):
     kw = dict(max_frames_per_chunk=k, lock=lock)
     n0 = cap.shape[1] // chunk // 2
     cut = n0 * chunk
-    full = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap), chunk, MAX, **kw)
-    first = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap[:, :cut]), chunk, MAX, **kw)
+
+    def jcarry():
+        return jstream.init_carry(jcfg, chunk, MAX, (2,), dtype=jnp.int8) if int8 else None
+
+    full = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap), chunk, MAX, carry=jcarry(), **kw)
+    first = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap[:, :cut]), chunk, MAX, carry=jcarry(), **kw)
     assert 0 < int(np.asarray(first.carry.frames_ok).sum()) < 2 * len(lens)  # mid-capture
     jstream.save_carry(tmp_path / "jax.npz", first.carry)
     ckpt = tstream.load_carry(tmp_path / "jax.npz", device="cpu")
+    assert ckpt.carry.buffer.dtype == (torch.int8 if int8 else torch.float32)
     rest = tstream.receive_stream_dynamic(cfg, cap[:, cut:], chunk, MAX, carry=ckpt.carry, device="cpu", **kw)
     det = rest.steps.detected.numpy()
     np.testing.assert_array_equal(det, np.asarray(full.steps.detected)[n0:])
@@ -292,9 +308,11 @@ def test_dynamic_checkpoint_crosses_both_ways(tmp_path, model, mode):
             rtol=1e-6, atol=1e-6, err_msg=f,
         )
     # the other way: the port checkpoints, JAX resumes
-    mid = tstream.receive_stream_dynamic(cfg, cap[:, :cut], chunk, MAX, device="cpu", **kw)
+    carry = tstream.init_carry(cfg, chunk, MAX, (2,), dtype=torch.int8, device="cpu") if int8 else None
+    mid = tstream.receive_stream_dynamic(cfg, cap[:, :cut], chunk, MAX, carry=carry, device="cpu", **kw)
     tstream.save_carry(tmp_path / "torch.npz", mid.carry)
     back = jstream.load_carry(tmp_path / "torch.npz")
+    assert back.carry.buffer.dtype == (jnp.int8 if int8 else jnp.float32)
     tail = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap[:, cut:]), chunk, MAX, carry=back.carry, **kw)
     np.testing.assert_array_equal(np.asarray(tail.steps.detected), np.asarray(full.steps.detected)[n0:])
     np.testing.assert_array_equal(
@@ -412,3 +430,78 @@ def test_dynamic_stream_refusals():
         tstream.receive_stream_dynamic(cfg, cap, 1024, MAX, carry=other, device="cpu")
     with pytest.raises(NotImplementedError, match="OFDM"):
         tstream.receive_stream_dynamic(object(), cap, 1024, MAX, device="cpu")
+
+
+# int8 carries: the port's MFSK dynamic step hands the int8 buffer to the
+# align+demod kernels (their int8 instantiation's plain version on the CPU:
+# the x127 integer basis), the reference demodulates it by its gather + demod
+# golden pair in compute_dtype; the OFDM step gathers the window in
+# compute_dtype in both. Decisions, lengths, verdicts, detections and frame
+# starts are equal; snr_db is held within 0.1 dB: the integer basis's rounding
+# leaks about -45 dB of a tone into the others, which shows only where the
+# noise is that low (about 43 dB in-bin here: 0.062 dB at most).
+INT8_SNR_ATOL = 0.1
+
+
+@pytest.mark.parametrize("model,mode", [
+    ("mfsk16-fast", "search"), ("mfsk16-fast", "two-a-chunk"), ("mfsk16-fast", "lock"),
+    ("mfsk4-coded-stream", "lock"), (OFDM, "lock"),
+])
+def test_int8_receive_stream_dynamic_matches_jax(model, mode, monkeypatch):
+    """receive_stream_dynamic on int8 carries in both packages, the float
+    capture quantized at ingest, with the card's probe route taken
+    (_probe_kernel_supported patched): an int8 buffer never reaches
+    probe_at_fused, and the MFSK align+demod kernels get the int8 buffer as
+    it is. Everything _assert_same holds, snr_db within INT8_SNR_ATOL."""
+    from anet_torch import kernels as tk
+
+    cfg, jcfg = ALL_MODELS[model]
+    rng = np.random.default_rng(0x18D + len(model) + len(mode))
+    lens = {"search": (8, 48, 24), "two-a-chunk": TWO_A_CHUNK, "lock": LOCKED}[mode]
+    k = 2 if mode == "two-a-chunk" else 1
+    chunk = _chunk(jcfg, lens, k)
+    gaps = (0, 700, 1100) if mode == "search" else None
+    cap, sent = _capture(cfg, rng, lens, chunk, gaps=gaps, noise=0.01 if model == OFDM else 0.02)
+    probes, demod_dtypes = [], []
+    monkeypatch.setattr(tstream, "_probe_kernel_supported", lambda carry: True)
+    monkeypatch.setattr(tk, "probe_at_fused", lambda *a, **kw: probes.append(a))
+    for name in ("demod_at_fused", "demod_at_energies_fused"):
+        fn = getattr(tk, name)
+
+        def recorded(config, buffer, *a, _fn=fn):
+            demod_dtypes.append(buffer.dtype)
+            return _fn(config, buffer, *a)
+
+        monkeypatch.setattr(tk, name, recorded)
+    kw = dict(max_frames_per_chunk=k, lock=mode == "lock")
+    carry8 = tstream.init_carry(cfg, chunk, MAX, (2,), dtype=torch.int8, device="cpu")
+    got = tstream.receive_stream_dynamic(cfg, cap, chunk, MAX, carry=carry8, device="cpu", **kw)
+    want = jstream.receive_stream_dynamic(
+        jcfg, jnp.asarray(cap), chunk, MAX, carry=jstream.init_carry(jcfg, chunk, MAX, (2,), dtype=jnp.int8), **kw
+    )
+    assert not probes and got.carry.buffer.dtype == torch.int8
+    n_chunks = cap.shape[1] // chunk
+    assert demod_dtypes == ([] if model == OFDM else [torch.int8] * (k * n_chunks))
+    _assert_same(got, want, snr_atol=INT8_SNR_ATOL)
+    np.testing.assert_array_equal(got.carry.buffer.numpy(), np.asarray(want.carry.buffer))
+    _assert_frames(got, lens, sent)
+
+
+def test_float_capture_quantizes_into_int8_dynamic_carry():
+    """A float32 capture entering an int8 dynamic carry is quantized
+    (quantize_int8), not truncated by a plain cast: the same buffer and
+    frames as the int8 capture it quantizes to, every frame decoded."""
+    cfg, jcfg = MODELS["mfsk16-fast"]
+    rng = np.random.default_rng(0xF8)
+    lens = LOCKED[:3]
+    chunk = _chunk(jcfg, lens)
+    cap, sent = _capture(cfg, rng, lens, chunk)
+    runs = []
+    for c in (cap, tstream.quantize_int8(torch.from_numpy(cap))):
+        carry8 = tstream.init_carry(cfg, chunk, MAX, (2,), dtype=torch.int8, device="cpu")
+        runs.append(tstream.receive_stream_dynamic(cfg, c, chunk, MAX, carry=carry8, lock=True, device="cpu"))
+    a, b = runs
+    assert torch.equal(a.carry.buffer, b.carry.buffer)
+    assert torch.equal(a.steps.detected, b.steps.detected)
+    assert torch.equal(a.steps.frame.payload, b.steps.frame.payload)
+    _assert_frames(a, lens, sent)

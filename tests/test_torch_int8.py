@@ -344,15 +344,15 @@ def test_coded_stream_int8_carry_decodes():
 
 
 def test_int8_refusals():
-    """int8 carries serve the fixed-length MFSK receivers only; other
-    buffer dtypes are refused; the int8 dtype survives the numpy layout."""
+    """int8 carries serve every receiver (OFDM and variable-length ones
+    included); other buffer dtypes are refused; the int8 dtype survives the
+    numpy layout."""
     ocfg = get_model("ofdm-fast").config
-    with pytest.raises(NotImplementedError, match="OFDM"):
-        tstream.init_carry(ocfg, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu")
+    assert tstream.init_carry(ocfg, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu").buffer.dtype == torch.int8
     carry8 = tstream.init_carry(CFG, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu")
     cap = np.zeros((1, CHUNK), np.float32)
-    with pytest.raises(NotImplementedError, match="variable-length"):
-        tstream.receive_stream_dynamic(CFG, cap, CHUNK, PAY, carry=carry8, device="cpu")
+    res = tstream.receive_stream_dynamic(CFG, cap, CHUNK, PAY, carry=carry8, device="cpu")
+    assert res.carry.buffer.dtype == torch.int8 and not bool(res.steps.detected.any())
     with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
         tstream.init_carry(CFG, CHUNK, PAY, (1,), dtype=torch.float16, device="cpu")
     fields = tstream.carry_to_numpy(carry8)

@@ -37,9 +37,10 @@ def test_port_imports_no_jax_and_no_anet():
 
 
 def _entry_points():
+    from anet_torch import channel
     from anet_torch.dsp import frame, ofdm, pipeline
     from anet_torch.dsp.sync import preamble_waveform
-    from anet_torch.models import get_model
+    from anet_torch.models import classify_capture, get_model
     from anet_torch.stream import init_carry, receive_stream, receive_stream_dynamic
 
     cfg = get_model("mfsk16-fast").config
@@ -77,6 +78,12 @@ def _entry_points():
         "receive_frame_tracked": lambda: pipeline.receive_frame_tracked(cfg, np.zeros((1, 8192), np.float32), 4),
         "receive_stream(track)": lambda: receive_stream(cfg, np.zeros((1, 1024), np.float32), 1024, 4, track=True),
         "loopback": lambda: pipeline.loopback(cfg, pay),
+        "classify_capture": lambda: classify_capture(np.zeros(8192, np.float32)),
+        "channel.apply_channel": lambda: channel.apply_channel(
+            torch.Generator(), np.zeros((1, 64), np.float32), channel.ChannelConfig()
+        ),
+        "channel.sample_rate_drift": lambda: channel.sample_rate_drift(np.zeros((1, 64), np.float32), 50.0),
+        "channel.multipath": lambda: channel.multipath(np.zeros((1, 64), np.float32), (1.0, 0.5)),
     }
 
 

@@ -150,8 +150,8 @@ def test_aligned_gather_compute_dtype_scalar_start_and_bad_mode():
                             (jsync.aligned_gather, jnp.asarray(buf), jnp.asarray(starts))):
         with pytest.raises(ValueError, match="auto/dma/onehot/roll"):
             gather(arr, st, 10, mode="lanes")
-    with pytest.raises(ValueError, match="only method="):
-        tsync.correlate_template(torch.zeros(1, 100), torch.zeros(10), method="fft")
+    with pytest.raises(ValueError, match="method must be fft, matmul, direct or auto"):
+        tsync.correlate_template(torch.zeros(1, 100), torch.zeros(10), method="lanes")
 
 
 @pytest.mark.parametrize("noise", [0.0, 0.3])

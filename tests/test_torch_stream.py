@@ -195,18 +195,25 @@ def test_merged_lock_step_matches_jax_kernels(interpret_tpu_kernels, monkeypatch
     )
 
 
-def _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, b, noise=0.05, batch_shape=None):
+def _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, b, noise=0.05, batch_shape=None, int8=False):
     """The crossings of a capture of ``b`` streams (shaped ``batch_shape``,
-    default (b,)) cut in the middle."""
+    default (b,)) cut in the middle; with ``int8`` every run starts from an
+    int8 carry (the float capture quantized at ingest)."""
     rng = np.random.default_rng(11)
     cap = _capture(rng, _layout("random_gaps", rng, b=b), noise=noise, jcfg=JCFG, pay=PAY)
-    cap = cap.reshape(*(batch_shape if batch_shape is not None else (b,)), cap.shape[-1])
+    shape = batch_shape if batch_shape is not None else (b,)
+    cap = cap.reshape(*shape, cap.shape[-1])
     cut = (cap.shape[-1] // CHUNK // 2) * CHUNK
-    full = jstream.receive_stream(JCFG, jnp.asarray(cap), CHUNK, PAY, lock=lock)
-    first = jstream.receive_stream(JCFG, jnp.asarray(cap[..., :cut]), CHUNK, PAY, lock=lock)
+
+    def jcarry():
+        return jstream.init_carry(JCFG, CHUNK, PAY, shape, dtype=jnp.int8) if int8 else None
+
+    full = jstream.receive_stream(JCFG, jnp.asarray(cap), CHUNK, PAY, lock=lock, carry=jcarry())
+    first = jstream.receive_stream(JCFG, jnp.asarray(cap[..., :cut]), CHUNK, PAY, lock=lock, carry=jcarry())
     path = tmp_path / "jax.npz"
     jstream.save_carry(path, first.carry)
     ckpt = tstream.load_carry(path, device="cpu")
+    assert ckpt.carry.buffer.dtype == (torch.int8 if int8 else torch.float32)
     rest = tstream.receive_stream(CFG, cap[..., cut:], CHUNK, PAY, lock=lock, carry=ckpt.carry, device="cpu")
     n0 = cut // CHUNK
     np.testing.assert_array_equal(rest.steps.detected.numpy(), np.asarray(full.steps.detected)[n0:])
@@ -219,11 +226,12 @@ def _checkpoint_crosses(tmp_path, lock, CFG, JCFG, PAY, b, noise=0.05, batch_sha
             getattr(rest.carry, f).float().numpy(), np.asarray(getattr(full.carry, f)).astype(np.float32), f
         )
     # the other way: the port checkpoints, JAX resumes
-    mid = tstream.receive_stream(CFG, cap[..., :cut], CHUNK, PAY, lock=lock, device="cpu")
+    carry = tstream.init_carry(CFG, CHUNK, PAY, shape, dtype=torch.int8, device="cpu") if int8 else None
+    mid = tstream.receive_stream(CFG, cap[..., :cut], CHUNK, PAY, lock=lock, carry=carry, device="cpu")
     path2 = tmp_path / "torch.npz"
     tstream.save_carry(path2, mid.carry, pending=np.zeros(3, np.float32))
     back = jstream.load_carry(path2)
-    assert back.pending.shape == (3,)
+    assert back.pending.shape == (3,) and back.carry.buffer.dtype == (jnp.int8 if int8 else jnp.float32)
     tail = jstream.receive_stream(JCFG, jnp.asarray(cap[..., cut:]), CHUNK, PAY, lock=lock, carry=back.carry)
     np.testing.assert_array_equal(np.asarray(tail.carry.frames_ok), np.asarray(full.carry.frames_ok))
     np.testing.assert_array_equal(np.asarray(tail.carry.next_start), np.asarray(full.carry.next_start))
@@ -333,14 +341,20 @@ def test_carry_numpy_roundtrip_keeps_bf16():
         assert getattr(back, f).dtype == getattr(carry, f).dtype
 
 
-def test_unported_options_raise():
-    cap = np.zeros((1, CHUNK), np.float32)
-    # int8 carries serve the fixed-length MFSK receivers only
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1\\)"):
-        tstream.init_carry(OCFG, CHUNK, OPAY, (1,), dtype=torch.int8, device="cpu")
+def test_int8_carries_run_for_ofdm_and_variable_length():
+    """An int8 carry for an OFDM config builds, and an int8 variable-length
+    MFSK stream runs and decodes (the fixed-length MFSK receivers took int8
+    carries before; now every receiver does, as the reference's)."""
+    ocarry = tstream.init_carry(OCFG, CHUNK, OPAY, (1,), dtype=torch.int8, device="cpu")
+    assert ocarry.buffer.dtype == torch.int8
+    assert ocarry.buffer.shape == (1, tstream._buffer_len(OCFG, CHUNK, OPAY))
+    rng = np.random.default_rng(0x5A)
+    cap = _capture(rng, [[300, 0]], noise=0.05)
     carry8 = tstream.init_carry(CFG, CHUNK, PAY, (1,), dtype=torch.int8, device="cpu")
-    with pytest.raises(NotImplementedError, match="variable-length"):
-        tstream.receive_stream_dynamic(CFG, cap, CHUNK, PAY, carry=carry8, device="cpu")
+    res = tstream.receive_stream_dynamic(CFG, cap, CHUNK, PAY, carry=carry8, lock=True, device="cpu")
+    assert res.carry.buffer.dtype == torch.int8
+    assert int(res.carry.frames_ok.sum()) == 2 and not bool(res.carry.decode_errors.any())
+    np.testing.assert_array_equal(res.steps.frame.payload_len.numpy()[res.steps.detected.numpy()], [PAY, PAY])
 
 
 @pytest.mark.parametrize("lock", [False, True])
@@ -409,6 +423,44 @@ def test_ofdm_checkpoint_crosses_both_ways(tmp_path):
     other way round."""
     assert tstream._buffer_len(OCFG, CHUNK, OPAY) == jstream._buffer_len(JOCFG, CHUNK, OPAY)
     full = _checkpoint_crosses(tmp_path, True, OCFG, JOCFG, OPAY, 2, noise=0.01)
+    assert int(np.asarray(full.carry.frames_ok).sum()) == 2 * 4
+
+
+@pytest.mark.parametrize("lock", [False, True])
+def test_ofdm_int8_receive_stream_matches_jax(lock, monkeypatch):
+    """ofdm-fast on int8 carries in both packages (the float capture
+    quantized at ingest; the window gathered in compute_dtype), with the
+    card's probe route taken (_probe_kernel_supported patched): an int8
+    buffer never reaches probe_at_fused, as the reference probes it with
+    its row-aligned plain probe. Detections, payloads, verdicts, frame
+    starts, counters and buffers equal; confidence rtol 1e-4."""
+    from anet_torch import kernels as tk
+
+    rng = np.random.default_rng(0x08F + lock)
+    cap = _capture(rng, _layout("random_gaps", rng, b=2, n_frames=3), noise=0.01, jcfg=JOCFG, pay=OPAY)
+    probes = []
+    monkeypatch.setattr(tstream, "_probe_kernel_supported", lambda carry: True)
+    monkeypatch.setattr(tk, "probe_at_fused", lambda *a, **k: probes.append(a))
+    carry8 = tstream.init_carry(OCFG, CHUNK, OPAY, (2,), dtype=torch.int8, device="cpu")
+    got = tstream.receive_stream(OCFG, cap, CHUNK, OPAY, lock=lock, carry=carry8, device="cpu")
+    want = jstream.receive_stream(
+        JOCFG, jnp.asarray(cap), CHUNK, OPAY, lock=lock,
+        carry=jstream.init_carry(JOCFG, CHUNK, OPAY, (2,), dtype=jnp.int8),
+    )
+    assert not probes and got.carry.buffer.dtype == torch.int8
+    _assert_same(got, want)
+    np.testing.assert_array_equal(got.carry.buffer.numpy(), np.asarray(want.carry.buffer))
+    assert int(got.carry.frames_ok.sum()) == 2 * 3
+    det = got.steps.detected.numpy()
+    np.testing.assert_allclose(
+        got.steps.frame.confidence.numpy()[det], np.asarray(want.steps.frame.confidence)[det], rtol=1e-4
+    )
+
+
+def test_ofdm_int8_checkpoint_crosses_both_ways(tmp_path):
+    """An int8 OFDM lock-mode carry written by anet mid-capture resumes in
+    anet_torch, and the other way round, dtype and buffer kept."""
+    full = _checkpoint_crosses(tmp_path, True, OCFG, JOCFG, OPAY, 2, noise=0.01, int8=True)
     assert int(np.asarray(full.carry.frames_ok).sum()) == 2 * 4
 
 
