@@ -9,10 +9,14 @@ is ``anet_torch.dsp.frame.demodulate_frame_tm`` here.
 Covered so far, for the MFSK and the OFDM family: transmit, the aligned
 receivers, the one-shot receivers, and the streaming receivers with fixed
 and header-declared frame lengths (always-search and frame-lock), uncoded
-and coded (``fec="conv"``: convolutional code, interleaver, soft Viterbi).
-Every public entry point takes ``device=`` and defaults to ``"cuda"``; it
-raises when CUDA is absent unless the caller passes ``device="cpu"``. On
-the CPU each kernel wrapper runs its plain PyTorch version.
+and coded (``fec="conv"``: convolutional code, interleaver, soft Viterbi);
+the channel simulator and the model helpers; the scale-out layer
+(``anet_torch.parallel``: meshes of positions, sharded demod, BER sweeps,
+time-sharded receivers) and the modem commands of the CLI
+(``python -m anet_torch.cli``). Every public entry point takes ``device=``
+(a sharded one, a mesh of devices) and defaults to ``"cuda"``; it raises
+when CUDA is absent unless the caller passes ``device="cpu"``. On the CPU
+each kernel wrapper runs its plain PyTorch version.
 """
 
 from anet_torch._device import resolve_device

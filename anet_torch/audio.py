@@ -1,0 +1,194 @@
+"""Audio file readers: WAV, AIFF/AIFC and Sun AU into int16 PCM.
+
+A copy of the readers of ``anet/tx/audio.py`` (``read_wav``, ``read_aiff``,
+``read_au``, ``read_audio``) and of the format card they return
+(``anet.codec.opus.AudioFormat``), which the modem CLI (``anet_torch.cli``)
+loads captures with: both are numpy-only, and the port imports nothing of
+the JAX package. AIFF and AU are parsed first-party (the stdlib aifc/sunau
+modules are removed in Python 3.13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+import wave
+from typing import Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioFormat:
+    """PCM format card (the javax.sound AudioFormat surface anet consumes)."""
+
+    sample_rate_hz: int = 48_000
+    channels: int = 2
+    bits_per_sample: int = 16
+    little_endian: bool = True
+    signed: bool = True
+
+
+def read_wav(path: str) -> Tuple[np.ndarray, AudioFormat]:
+    """WAV file -> (int16 samples [n, channels], format card)."""
+    with wave.open(path, "rb") as wav:
+        channels = wav.getnchannels()
+        rate = wav.getframerate()
+        width = wav.getsampwidth()
+        raw = wav.readframes(wav.getnframes())
+    if width == 2:
+        samples = np.frombuffer(raw, np.int16)
+    elif width == 1:  # 8-bit WAV is unsigned
+        samples = ((np.frombuffer(raw, np.uint8).astype(np.int16) - 128) << 8).astype(
+            np.int16
+        )
+    elif width == 4:
+        samples = (np.frombuffer(raw, np.int32) >> 16).astype(np.int16)
+    elif width == 3:  # 24-bit packed
+        b = np.frombuffer(raw, np.uint8).reshape(-1, 3)
+        val = (
+            b[:, 0].astype(np.int32)
+            | (b[:, 1].astype(np.int32) << 8)
+            | (b[:, 2].astype(np.int32) << 16)
+        )
+        val = np.where(val >= 1 << 23, val - (1 << 24), val)
+        samples = (val >> 8).astype(np.int16)
+    else:
+        raise ValueError(f"unsupported WAV sample width {width}")
+    samples = samples.reshape(-1, channels)
+    return samples, AudioFormat(sample_rate_hz=rate, channels=channels)
+
+
+def _pcm_int16_from_bytes(raw: bytes, width: int, big_endian: bool) -> np.ndarray:
+    """Signed PCM of 1/2/3/4-byte width -> int16 (AIFF/AU are big-endian)."""
+    if width == 2:
+        return np.frombuffer(raw, ">i2" if big_endian else "<i2").astype(np.int16)
+    if width == 1:  # AIFF/AU 8-bit is SIGNED (unlike WAV)
+        return (np.frombuffer(raw, np.int8).astype(np.int16) << 8).astype(np.int16)
+    if width == 4:
+        v = np.frombuffer(raw, ">i4" if big_endian else "<i4")
+        return (v >> 16).astype(np.int16)
+    if width == 3:
+        b = np.frombuffer(raw, np.uint8).reshape(-1, 3)
+        if big_endian:
+            b = b[:, ::-1]
+        val = (
+            b[:, 0].astype(np.int32)
+            | (b[:, 1].astype(np.int32) << 8)
+            | (b[:, 2].astype(np.int32) << 16)
+        )
+        val = np.where(val >= 1 << 23, val - (1 << 24), val)
+        return (val >> 8).astype(np.int16)
+    raise ValueError(f"unsupported sample width {width}")
+
+
+def _read_extended80(raw: bytes) -> int:
+    """80-bit IEEE extended float (AIFF sample rate) -> int Hz."""
+    sign_exp, mant = struct.unpack(">HQ", raw)
+    exp = sign_exp & 0x7FFF
+    if exp == 0 and mant == 0:
+        return 0
+    value = mant * 2.0 ** (exp - 16383 - 63)
+    return int(round(-value if sign_exp & 0x8000 else value))
+
+
+def read_aiff(path: str) -> Tuple[np.ndarray, AudioFormat]:
+    """AIFF/AIFC file -> (int16 samples [n, channels], format card).
+
+    First-party chunk parser (the stdlib ``aifc`` module is removed in
+    Python 3.13): FORM/AIFF container, COMM for geometry (channel count,
+    sample width, 80-bit extended-float rate), SSND for data. AIFC is
+    accepted for the uncompressed codecs ('NONE' big-endian, 'sowt'
+    little-endian); compressed AIFC is rejected explicitly.
+    """
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 12 or data[:4] != b"FORM" or data[8:12] not in (b"AIFF", b"AIFC"):
+        raise ValueError(f"{path}: not an AIFF file")
+    is_aifc = data[8:12] == b"AIFC"
+    comm = ssnd = None
+    little = False
+    pos = 12
+    while pos + 8 <= len(data):
+        cid = data[pos : pos + 4]
+        (size,) = struct.unpack(">I", data[pos + 4 : pos + 8])
+        body = data[pos + 8 : pos + 8 + size]
+        if cid == b"COMM":
+            channels, _frames, bits = struct.unpack(">hIh", body[:8])
+            rate = _read_extended80(body[8:18])
+            if is_aifc and len(body) >= 22:
+                codec = body[18:22]
+                if codec == b"sowt":
+                    little = True
+                elif codec != b"NONE":
+                    raise ValueError(
+                        f"{path}: compressed AIFC ({codec!r}) not supported"
+                    )
+            comm = (channels, bits, rate)
+        elif cid == b"SSND":
+            (offset, _blocksize) = struct.unpack(">II", body[:8])
+            ssnd = body[8 + offset :]
+        pos += 8 + size + (size & 1)  # chunks are word-aligned
+    if comm is None or ssnd is None:
+        raise ValueError(f"{path}: missing COMM or SSND chunk")
+    channels, bits, rate = comm
+    width = (bits + 7) // 8
+    n_bytes = len(ssnd) - len(ssnd) % (width * channels)
+    samples = _pcm_int16_from_bytes(ssnd[:n_bytes], width, big_endian=not little)
+    return samples.reshape(-1, channels), AudioFormat(
+        sample_rate_hz=rate, channels=channels
+    )
+
+
+# mu-law expansion per ITU-T G.711 (AU encoding 1); bias 0x84, the
+# standard 8-segment companding table as closed form.
+def _mulaw_to_int16(u: np.ndarray) -> np.ndarray:
+    u = (~u.astype(np.int32)) & 0xFF
+    sign = u & 0x80
+    exponent = (u >> 4) & 0x07
+    mantissa = u & 0x0F
+    magnitude = ((mantissa << 3) + 0x84) << exponent
+    magnitude = magnitude - 0x84
+    return np.where(sign, -magnitude, magnitude).astype(np.int16)
+
+
+def read_au(path: str) -> Tuple[np.ndarray, AudioFormat]:
+    """Sun AU (.au/.snd) file -> (int16 samples [n, channels], format card).
+
+    First-party header parser (the stdlib ``sunau`` module is removed in
+    Python 3.13): '.snd' magic, big-endian header, linear PCM 8/16/24/32
+    and G.711 mu-law payloads.
+    """
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 24 or data[:4] != b".snd":
+        raise ValueError(f"{path}: not an AU file")
+    offset, size, encoding, rate, channels = struct.unpack(">IIIII", data[4:24])
+    payload = data[offset:]
+    if size not in (0xFFFFFFFF, 0):
+        payload = payload[:size]
+    widths = {2: 1, 3: 2, 4: 3, 5: 4}
+    if encoding == 1:  # 8-bit G.711 mu-law
+        samples = _mulaw_to_int16(np.frombuffer(payload, np.uint8))
+    elif encoding in widths:
+        w = widths[encoding]
+        payload = payload[: len(payload) - len(payload) % (w * channels)]
+        samples = _pcm_int16_from_bytes(payload, w, big_endian=True)
+    else:
+        raise ValueError(f"{path}: unsupported AU encoding {encoding}")
+    return samples.reshape(-1, channels), AudioFormat(
+        sample_rate_hz=rate, channels=channels
+    )
+
+
+def read_audio(path: str) -> Tuple[np.ndarray, AudioFormat]:
+    """Open any supported container (the AudioSystem.getAudioInputStream
+    analog, Main.kt:15): sniff the magic bytes — WAV (RIFF), AIFF (FORM),
+    AU (.snd) — falling back to WAV for a helpful stdlib error."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"FORM":
+        return read_aiff(path)
+    if magic == b".snd":
+        return read_au(path)
+    return read_wav(path)

@@ -160,7 +160,7 @@ def _pn_qpsk_np(n_carriers: int, seed: int, n_symbols: int) -> np.ndarray:
     return np.exp(1j * (np.pi / 2 * phases + np.pi / 4)).astype(np.complex64)
 
 
-def _pn_qpsk(config: OfdmConfig, seed: int, n_symbols: int = 1, device="cpu") -> torch.Tensor:
+def _pn_qpsk(config: OfdmConfig, seed: int, n_symbols: int = 1, device="cuda") -> torch.Tensor:
     """Known unit-modulus QPSK sequence, [n_symbols, n_carriers] complex64,
     from numpy's generator, so both packages make the same one."""
     return torch.as_tensor(
@@ -168,12 +168,12 @@ def _pn_qpsk(config: OfdmConfig, seed: int, n_symbols: int = 1, device="cpu") ->
     )
 
 
-def pilot_carriers(config: OfdmConfig, device="cpu") -> torch.Tensor:
+def pilot_carriers(config: OfdmConfig, device="cuda") -> torch.Tensor:
     """The known pilot symbol's carrier values (seeded by the magic word)."""
     return _pn_qpsk(config, 0x2C5DA044, device=device)[0]
 
 
-def preamble_carriers(config: OfdmConfig, device="cpu") -> torch.Tensor:
+def preamble_carriers(config: OfdmConfig, device="cuda") -> torch.Tensor:
     return _pn_qpsk(config, 0x2C5DA044 ^ 0xFFFF, device=device)[0]
 
 

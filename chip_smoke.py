@@ -125,7 +125,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    noise within 0.1 dB of the target, suggest_model on the mean snr_db
    printed, and classify_capture naming each of four channelled presets
    first);
-11. the launch count of every kernel during phases 3-10, read per path (each
+11. the scale-out layer (anet_torch.parallel, its positions all on the one
+   card) and the modem CLI: "sharded-demod" (16,384 aligned mfsk16-fast
+   frames, float32 compute, sharded_demodulate on 4 positions and on
+   make_mesh(): payloads and verdicts equal to one unsharded
+   demodulate_frame call), "ber-sweep" (ber_sweep on 4 positions, payload
+   256, 4,096 frames a point at the preset's operating SNR -12, -6, 0 and
+   +6 dB: exact totals, BER non-increasing, FER 0 at the top point),
+   "sharded-long" (one stream of 4 positions x 4 chunks of 36,352, a frame
+   across each inner boundary, 14 dB: sharded_receive_long_capture
+   searching, locked, and as two super-steps joined by resume, each equal
+   to one unsharded receive_stream call in the same mode), "sharded-grid"
+   (8,192 streams over 2 x 2 positions, 3 chunks a segment, float32 capture
+   7.1 GB: sharded_receive_capture_grid equal to unsharded receive_stream),
+   "sharded-dynamic" (header-declared lengths, chunk 11,776: the long
+   dynamic capture as two super-steps, then the dynamic grid at B = 2,048
+   on 2 x 2, equal to unsharded receive_stream_dynamic) and "cli"
+   (anet_torch.cli.main in-process: modem-tx of 1 kB to a WAV, modem-rx,
+   modem-stream-rx --lock over two halves with --save-state and --resume,
+   sweep, models; every byte back, every exit code 0);
+12. the launch count of every kernel during phases 3-11, read per path (each
    path's counts start at 0 just before it; int8 launches count under
    "<name>:int8"): every kernel of a path must have launched there, and
    none that the reference's routing keeps off it (ABSENT).
@@ -147,7 +166,7 @@ import time
 import numpy as np
 import torch
 
-from anet_torch import kernels
+from anet_torch import kernels, parallel
 from anet_torch.channel import ChannelConfig, apply_channel, multipath
 from anet_torch.dsp import family, fec, ofdm
 from anet_torch.dsp import frame as tframe
@@ -1652,6 +1671,342 @@ def phase_oneshot_ofdm(cfg, gen) -> None:
         raise AssertionError(f"oneshot-ofdm: ok {n_ok} of {b}, offsets and payloads right {right}")
 
 
+# --- the scale-out layer and the modem CLI -------------------------------------
+
+MESH_POSITIONS = 4  # positions of the sharded paths, all on the one card
+LONG_CHUNKS = 4  # chunks a position of sharded-long
+GRID_B, GRID_CHUNKS = 8192, 3  # sharded-grid: streams, chunks a time segment
+DYN_GRID_B, DYN_SEG_CHUNKS = 2048, 5  # sharded-dynamic: grid streams, chunks a segment
+SWEEP_FRAMES = 4096  # frames a point of ber-sweep
+SWEEP_OFFSETS_DB = (-12.0, -6.0, 0.0, 6.0)  # around the preset's operating SNR
+CAPTURE_SNR_DB = 14.0
+CLI_PAYLOAD = 1024
+
+
+def card_mesh(*shape: int) -> parallel.Mesh:
+    """A mesh of ``shape`` positions (MESH_POSITIONS by default), every one
+    on the card: the halo copies, counter sums and chunk order all run
+    there."""
+    shape = shape or (MESH_POSITIONS,)
+    card = torch.device("cuda", 0) if DEV.type == "cuda" else DEV
+    devices = np.empty(int(np.prod(shape)), dtype=object)
+    devices[:] = [card] * devices.size
+    names = (parallel.STREAM_AXIS, parallel.TIME_AXIS)[: len(shape)]
+    return parallel.Mesh(devices.reshape(shape), names)
+
+
+def placed_capture(cfg, gen, starts: torch.Tensor, lens, n: int):
+    """A float32 capture [B, n] on the card: white noise at CAPTURE_SNR_DB
+    against the frames' power, plus frame j of every stream (``lens[j]``
+    random bytes, header-declared) at starts[:, j]. The sharded paths hold
+    their frames to the unsharded receiver's on it."""
+    b = starts.shape[0]
+    cap = torch.zeros(b, n, device=DEV)
+    for j, length in enumerate(lens):
+        pay = torch.randint(0, 256, (b, length), generator=gen, device=DEV, dtype=torch.uint8)
+        waves = transmit(cfg, pay, device=DEV)
+        cap.scatter_add_(1, starts[:, j : j + 1].long() + torch.arange(waves.shape[1], device=DEV), waves)
+        del waves
+    power = float((cap * cap).sum() / sum(b * tframe.dynamic_frame_samples(cfg, n_) for n_ in lens))
+    cap += (power / 10 ** (CAPTURE_SNR_DB / 10)) ** 0.5 * torch.randn(b, n, generator=gen, device=DEV)
+    return cap
+
+
+def boundary_starts(gen, b: int, boundaries, lens, t_of, lo: float = 0.25, hi: float = 0.75) -> torch.Tensor:
+    """int [b, len(boundaries)]: a frame of ``lens[j]`` bytes across each
+    boundary, starting a seeded lo..hi share of its length before it."""
+    cols = []
+    for bound, length in zip(boundaries, lens):
+        t = t_of(length)
+        cols.append(bound - torch.randint(int(lo * t), int(hi * t), (b,), generator=gen, device=DEV))
+    return torch.stack(cols, 1)
+
+
+def same_detections(got, want, label: str, dynamic: bool = False) -> None:
+    """A sharded run's steps [B, chunks, ...] (or [chunks, ...]) equal to the
+    unsharded receiver's [chunks, B, ...]: detections, frame starts,
+    payloads, verdicts (and declared lengths)."""
+    fields = ("detected", "frame_start")
+    frame_fields = ("payload", "ok") + (("payload_len",) if dynamic else ())
+    det = want.detected
+    mine = (lambda x: x.movedim(1, 0)) if got.detected.dim() == det.dim() and det.dim() > 1 else (lambda x: x)
+    bad = [f for f in fields if not torch.equal(mine(getattr(got, f))[det], getattr(want, f)[det])]
+    bad += [f for f in frame_fields if not torch.equal(mine(getattr(got.frame, f))[det], getattr(want.frame, f)[det])]
+    if not torch.equal(mine(got.detected), det):
+        bad.append("detected mask")
+    if bad:
+        raise AssertionError(f"{label}: differs from the unsharded receiver in {bad}")
+
+
+def same_counts(got, want_carry, label: str) -> None:
+    g = [int(got.frames_detected), int(got.frames_ok), int(got.decode_errors)]
+    w = [int(want_carry.frames_detected.sum()), int(want_carry.frames_ok.sum()), int(want_carry.decode_errors.sum())]
+    if g != w:
+        raise AssertionError(f"{label}: counters {g} against the unsharded receiver's {w}")
+
+
+def join_steps(r1, r2):
+    """The steps of two super-steps of one stream joined along the chunk
+    axis."""
+    return type(r1.steps)(*(
+        type(a)(*(torch.cat(p) for p in zip(a, b))) if isinstance(a, tuple) else torch.cat([a, b])
+        for a, b in zip(r1.steps, r2.steps)
+    ))
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sharded_demod(cfg, gen) -> None:
+    """"sharded-demod": 16,384 aligned mfsk16-fast frames (float32 compute,
+    the reference's default) through parallel.sharded_demodulate on 4
+    positions of the card, then on make_mesh() (every card, one position
+    each): every frame ok, payloads and verdicts equal to one unsharded
+    demodulate_frame call on the same batch (uncounted)."""
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    pay = torch.randint(0, 256, (ALIGNED_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    waves = transmit(cfg, pay, device=DEV)
+    with uncounted():
+        ref, dt_ref = timed(lambda: tframe.demodulate_frame(cfg, waves, PAYLOAD, device=DEV))
+    for label, mesh in (("4 positions", card_mesh()), ("make_mesh()", parallel.make_mesh())):
+        res, dt = timed(lambda: parallel.sharded_demodulate(cfg, mesh, waves, PAYLOAD))
+        right = all(torch.equal(getattr(res, f), getattr(ref, f)) for f in ("payload", "ok", "magic_ok", "header_crc_ok"))
+        n_ok = int(res.ok.sum())
+        log(f"sharded-demod {label} ({mesh.devices.size} on {sorted({str(d) for d in mesh.devices.flat})}): "
+            f"B {ALIGNED_B}, ok {n_ok}, payloads and verdicts equal to the unsharded call {right}, "
+            f"{ALIGNED_B * t_frame / dt / 1e6:.1f} Msamples/s ({dt * 1e3:.2f} ms; the unsharded call "
+            f"{ALIGNED_B * t_frame / dt_ref / 1e6:.1f}, {dt_ref * 1e3:.2f} ms)")
+        if n_ok != ALIGNED_B or not right or not torch.equal(res.payload, pay):
+            raise AssertionError(f"sharded-demod {label}: ok {n_ok}, equal to the unsharded call {right}")
+        del res
+
+
+def phase_ber_sweep(cfg, gen) -> None:
+    """"ber-sweep": parallel.ber_sweep on 4 positions, payload 256, 4,096
+    frames a point at the preset's operating SNR -12, -6, 0 and +6 dB:
+    total_frames and total_bits exact at every point, BER non-increasing
+    with SNR, FER 0 at the top point."""
+    snrs = [OPERATING_SNR_DB[MODEL] + d for d in SWEEP_OFFSETS_DB]
+    sweep_gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    pt, dt = timed(lambda: parallel.ber_sweep(cfg, card_mesh(), sweep_gen, snrs, SWEEP_FRAMES, PAYLOAD))
+    ber, fer = pt.ber.tolist(), pt.fer.tolist()
+    totals = pt.total_frames.tolist() == [SWEEP_FRAMES] * len(snrs) and pt.total_bits.tolist() == [
+        SWEEP_FRAMES * PAYLOAD * 8
+    ] * len(snrs)
+    monotone = all(b <= a for a, b in zip(ber, ber[1:]))
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    log(f"ber-sweep: {len(snrs)} points x {SWEEP_FRAMES} frames, snr {snrs} dB: ber {ber}, fer {fer}; "
+        f"totals right {totals}, BER non-increasing {monotone}; "
+        f"{len(snrs) * SWEEP_FRAMES * t_frame / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+    if not (totals and monotone and fer[-1] == 0.0):
+        raise AssertionError(f"ber-sweep: totals {totals}, monotone {monotone}, top FER {fer[-1]}")
+
+
+def phase_sharded_long(cfg, gen) -> None:
+    """"sharded-long": one mfsk16-fast stream split along time over 4
+    positions, 4 chunks each (chunk 36,352), frames at seeded offsets with
+    one across each inner boundary, at 14 dB; parallel.
+    sharded_receive_long_capture searching, then with lock=True, then as
+    two super-steps joined by resume: frames, starts, payloads and counters
+    equal to one unsharded receive_stream call in the same mode
+    (uncounted), each boundary frame found once."""
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    chunk = t_frame // 128 * 128
+    seg = LONG_CHUNKS * chunk
+    n = MESH_POSITIONS * seg
+    edge = boundary_starts(gen, 1, [i * seg for i in range(1, MESH_POSITIONS)], [PAYLOAD] * 3, lambda _: t_frame)
+    first = torch.randint(1000, 20000, (1, 1), generator=gen, device=DEV)
+    last = (MESH_POSITIONS - 1) * seg + torch.randint(40000, 60000, (1, 1), generator=gen, device=DEV)
+    starts = torch.cat([first, edge, last], 1)
+    cap = placed_capture(cfg, gen, starts, [PAYLOAD] * starts.shape[1], n)
+    cap = cap[0]
+    truth = starts[0].tolist()
+    mesh = card_mesh()
+    for mode, lock in (("search", False), ("lock", True)):
+        with uncounted():
+            ref, dt_ref = timed(lambda: receive_stream(cfg, cap, chunk, PAYLOAD, lock=lock, device=DEV))
+        res, dt = timed(lambda: parallel.sharded_receive_long_capture(cfg, mesh, cap, chunk, PAYLOAD, lock=lock))
+        same_detections(res.steps, ref.steps, f"sharded-long {mode}")
+        same_counts(res, ref.carry, f"sharded-long {mode}")
+        found = res.steps.frame_start[res.steps.detected].tolist()
+        if found != truth or int(res.frames_ok) != len(truth):
+            raise AssertionError(f"sharded-long {mode}: frames at {found}, sent at {truth}, ok {int(res.frames_ok)}")
+        log(f"sharded-long {mode}: {MESH_POSITIONS} positions x {LONG_CHUNKS} chunks of {chunk} ({n} samples), "
+            f"frames at {truth} (boundaries at {[i * seg for i in range(1, MESH_POSITIONS)]}), ok "
+            f"{int(res.frames_ok)}, equal to the unsharded receive_stream; {n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s; "
+            f"unsharded {n / dt_ref / 1e6:.1f}, {dt_ref:.3f} s)")
+        if mode == "search":
+            search_ref = ref
+    half = n // 2
+
+    def two_steps():
+        r1 = parallel.sharded_receive_long_capture(cfg, mesh, cap[:half], chunk, PAYLOAD)
+        return r1, parallel.sharded_receive_long_capture(cfg, mesh, cap[half:], chunk, PAYLOAD, resume=r1.resume)
+
+    (r1, r2), dt = timed(two_steps)
+    same_detections(join_steps(r1, r2), search_ref.steps, "sharded-long resume")
+    same_counts(r2, search_ref.carry, "sharded-long resume")
+    if int(r2.resume.samples_seen) != n:
+        raise AssertionError(f"sharded-long resume: samples_seen {int(r2.resume.samples_seen)} of {n}")
+    log(f"sharded-long resume: two super-steps of {half} samples (a frame across the split at {half}), equal to the "
+        f"single call; {n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+
+
+def phase_sharded_grid(cfg, gen) -> None:
+    """"sharded-grid": 8,192 mfsk16-fast streams over 2 x 2 positions
+    (streams x time), 3 chunks a time segment (N = 218,112 samples, float32
+    capture 7.1 GB), three frames a stream at seeded offsets, the second
+    across the time boundary, at 14 dB: parallel.sharded_receive_capture_grid
+    equal to one unsharded receive_stream call on the [8,192, N] capture
+    (uncounted)."""
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    chunk = t_frame // 128 * 128
+    seg = GRID_CHUNKS * chunk
+    n = 2 * seg
+    b = GRID_B
+    starts = torch.cat([
+        torch.randint(500, 30000, (b, 1), generator=gen, device=DEV),
+        boundary_starts(gen, b, [seg], [PAYLOAD], lambda _: t_frame),
+        torch.randint(seg + t_frame - 2000, n - t_frame - 1000, (b, 1), generator=gen, device=DEV),
+    ], 1)
+    cap = placed_capture(cfg, gen, starts, [PAYLOAD] * 3, n)
+    with uncounted():
+        ref, dt_ref = timed(lambda: receive_stream(cfg, cap, chunk, PAYLOAD, device=DEV))
+    torch.cuda.empty_cache()
+    res, dt = timed(lambda: parallel.sharded_receive_capture_grid(cfg, card_mesh(2, 2), cap, chunk, PAYLOAD))
+    same_detections(res.steps, ref.steps, "sharded-grid")
+    same_counts(res, ref.carry, "sharded-grid")
+    per_stream = res.steps.detected.sum(1)
+    if int(res.frames_ok) != 3 * b or not bool((per_stream == 3).all()):
+        raise AssertionError(f"sharded-grid: ok {int(res.frames_ok)} of {3 * b}")
+    log(f"sharded-grid: B {b}, 2 x 2 positions, {GRID_CHUNKS} chunks of {chunk} a segment (N {n}, float32 "
+        f"{cap.numel() * 4 / 1e9:.2f} GB), ok {int(res.frames_ok)} of {3 * b}, equal to the unsharded receive_stream; "
+        f"{b * n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s; unsharded {b * n / dt_ref / 1e6:.1f}, {dt_ref:.3f} s)")
+
+
+def phase_sharded_dynamic(cfg, gen) -> None:
+    """"sharded-dynamic": header-declared lengths from DYNAMIC_LOCK_LENS,
+    chunk 11,776 (one shortest frame), segments of 5 chunks:
+    sharded_receive_long_capture_dynamic on one stream as two super-steps of
+    4 positions joined by resume (a frame across every inner boundary),
+    then sharded_receive_capture_grid_dynamic on 2,048 streams over 2 x 2
+    positions (a frame across the time boundary): payloads and declared
+    lengths equal to one unsharded receive_stream_dynamic call (uncounted)."""
+    t_max = tframe.frame_num_samples(cfg, PAYLOAD)
+    t_of = lambda length: int(tframe.dynamic_frame_samples(cfg, length))  # noqa: E731
+    chunk = t_of(min(DYNAMIC_LOCK_LENS)) // 128 * 128
+    seg = DYN_SEG_CHUNKS * chunk
+    half = MESH_POSITIONS * seg
+    n = 2 * half
+    bounds = list(range(seg, n, seg))
+    lens = [min(DYNAMIC_LOCK_LENS)] + [DYNAMIC_LOCK_LENS[i % len(DYNAMIC_LOCK_LENS)] for i in range(len(bounds))]
+    starts = torch.cat([torch.full((1, 1), 500, device=DEV), boundary_starts(gen, 1, bounds, lens[1:], t_of)], 1)
+    cap = placed_capture(cfg, gen, starts, lens, n)
+    cap = cap[0]
+    with uncounted():
+        ref, dt_ref = timed(lambda: receive_stream_dynamic(cfg, cap, chunk, PAYLOAD, device=DEV))
+    mesh = card_mesh()
+
+    def two_steps():
+        r1 = parallel.sharded_receive_long_capture_dynamic(cfg, mesh, cap[:half], chunk, PAYLOAD)
+        return r1, parallel.sharded_receive_long_capture_dynamic(cfg, mesh, cap[half:], chunk, PAYLOAD, resume=r1.resume)
+
+    (r1, r2), dt = timed(two_steps)
+    joined = join_steps(r1, r2)
+    same_detections(joined, ref.steps, "sharded-dynamic long", dynamic=True)
+    same_counts(r2, ref.carry, "sharded-dynamic long")
+    got_lens = joined.frame.payload_len[joined.detected].tolist()
+    if int(r2.frames_ok) != len(lens) or got_lens != lens:
+        raise AssertionError(f"sharded-dynamic long: ok {int(r2.frames_ok)}, lengths {got_lens}, sent {lens}")
+    log(f"sharded-dynamic long: one stream, two super-steps of {MESH_POSITIONS} x {DYN_SEG_CHUNKS} chunks of {chunk}, "
+        f"lengths {lens} (one across each of {len(bounds)} boundaries), ok {int(r2.frames_ok)}, equal to the unsharded "
+        f"receive_stream_dynamic; {n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s; unsharded {n / dt_ref / 1e6:.1f}, "
+        f"{dt_ref:.3f} s)")
+
+    b, n = DYN_GRID_B, 2 * seg
+    grid_lens = [min(DYNAMIC_LOCK_LENS), max(DYNAMIC_LOCK_LENS)]
+    starts = torch.cat([
+        torch.randint(500, 5000, (b, 1), generator=gen, device=DEV),
+        boundary_starts(gen, b, [seg], grid_lens[1:], t_of),
+    ], 1)
+    cap = placed_capture(cfg, gen, starts, grid_lens, n)
+    with uncounted():
+        ref, dt_ref = timed(lambda: receive_stream_dynamic(cfg, cap, chunk, PAYLOAD, device=DEV))
+    res, dt = timed(lambda: parallel.sharded_receive_capture_grid_dynamic(cfg, card_mesh(2, 2), cap, chunk, PAYLOAD))
+    same_detections(res.steps, ref.steps, "sharded-dynamic grid", dynamic=True)
+    same_counts(res, ref.carry, "sharded-dynamic grid")
+    if int(res.frames_ok) != 2 * b or not torch.equal(res.resume.last_frame_end, ref.carry.last_frame_end):
+        raise AssertionError(f"sharded-dynamic grid: ok {int(res.frames_ok)} of {2 * b}, resume cursor equal "
+                             f"{torch.equal(res.resume.last_frame_end, ref.carry.last_frame_end)}")
+    log(f"sharded-dynamic grid: B {b}, 2 x 2 positions, N {n}, lengths {grid_lens}, ok {int(res.frames_ok)} of {2 * b}, "
+        f"equal to the unsharded receive_stream_dynamic; {b * n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s; unsharded "
+        f"{b * n / dt_ref / 1e6:.1f}, {dt_ref:.3f} s)")
+
+
+def phase_cli(cfg, gen) -> None:
+    """"cli": anet_torch.cli.main in-process in a temporary directory, on the
+    card: modem-tx of 1 kB to a WAV, modem-rx back; the WAV's frame twice
+    after gaps as a raw float32 capture cut in two, the halves through
+    modem-stream-rx --lock, the first with --save-state, the second with
+    --resume; sweep --snr-points 2 --frames 64; models. Every exit code 0,
+    every payload byte back, sweep's two JSON lines."""
+    import io
+    import tempfile
+    import wave
+
+    from anet_torch import cli
+
+    def run(*argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(list(argv))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]}: exit code {rc}; output {out.getvalue()!r}")
+        log(f"cli {argv[0]}: {dt:.3f} s; " + " | ".join(out.getvalue().splitlines()[:3]))
+        return out.getvalue()
+
+    payload = bytes(torch.randint(0, 256, (CLI_PAYLOAD,), generator=gen, device=DEV, dtype=torch.uint8).tolist())
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return f"{tmp}/{name}"
+
+        with open(path("msg.bin"), "wb") as fh:
+            fh.write(payload)
+        run("modem-tx", path("msg.bin"), "--out", path("cap.wav"))
+        run("modem-rx", path("cap.wav"), "--len", str(CLI_PAYLOAD), "--out", path("back.bin"))
+        with open(path("back.bin"), "rb") as fh:
+            if fh.read() != payload:
+                raise AssertionError("cli modem-rx: the bytes back differ from the bytes in")
+        with wave.open(path("cap.wav")) as w:
+            frame = np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.float32) / 32768.0
+        z = np.zeros
+        x = np.concatenate([z(3000), frame, z(5000), frame, z(4000)]).astype(np.float32)
+        cut = len(x) // 2 + 333
+        x[:cut].tofile(path("a.f32"))
+        x[cut:].tofile(path("b.f32"))
+        common = ("--len", str(CLI_PAYLOAD), "--lock")
+        run("modem-stream-rx", path("a.f32"), *common, "--save-state", path("st.npz"), "--out", path("s1.bin"))
+        run("modem-stream-rx", path("b.f32"), *common, "--resume", path("st.npz"), "--out", path("s2.bin"))
+        with open(path("s1.bin"), "rb") as f1, open(path("s2.bin"), "rb") as f2:
+            if (f1.read(), f2.read()) != (payload, payload):
+                raise AssertionError("cli modem-stream-rx: the bytes back over the two halves differ")
+        points = [json.loads(line) for line in run("sweep", "--snr-points", "2", "--frames", "64").splitlines()]
+        if len(points) != 2 or any({"snr_db", "ber", "fer", "bits"} - set(p) for p in points):
+            raise AssertionError(f"cli sweep: {points}")
+        log(f"cli sweep: {points}")
+        if "mfsk16-fast" not in run("models"):
+            raise AssertionError("cli models: mfsk16-fast not listed")
+
+
+
 # Each main path, driven with the launch counts set to 0 just before it and
 # read just after: its model, the phase that drives it and the kernels it
 # must launch.
@@ -1745,6 +2100,12 @@ PATHS = {
         ("sync_search_fused", "ofdm_track_decide_fused"),
     ),
     "aligned-channel": (MODEL, phase_aligned_channel, ("decide_frame_tm",)),
+    "sharded-demod": (MODEL, phase_sharded_demod, ("tone_energies_fused",)),
+    "ber-sweep": (MODEL, phase_ber_sweep, ("tone_energies_fused",)),
+    "sharded-long": (MODEL, phase_sharded_long, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
+    "sharded-grid": (MODEL, phase_sharded_grid, ("sync_search_fused", "demod_at_fused")),
+    "sharded-dynamic": (MODEL, phase_sharded_dynamic, ("sync_search_fused", "demod_at_fused")),
+    "cli": (MODEL, phase_cli, ("tone_energies_fused", "sync_search_fused")),
 }
 
 

@@ -20,7 +20,10 @@ def test_port_imports_no_jax_and_no_anet():
     modules = sorted(
         m.name for m in pkgutil.walk_packages(anet_torch.__path__, "anet_torch.")
     )
-    assert {"anet_torch.kernels.build", "anet_torch.stream", "anet_torch.dsp.clock"} <= set(modules)
+    assert {
+        "anet_torch.kernels.build", "anet_torch.stream", "anet_torch.dsp.clock", "anet_torch.parallel",
+        "anet_torch.cli", "anet_torch.audio",
+    } <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r} + ['anet_torch', 'chip_smoke']:\n"
@@ -37,7 +40,7 @@ def test_port_imports_no_jax_and_no_anet():
 
 
 def _entry_points():
-    from anet_torch import channel
+    from anet_torch import channel, parallel
     from anet_torch.dsp import frame, ofdm, pipeline
     from anet_torch.dsp.sync import preamble_waveform
     from anet_torch.models import classify_capture, get_model
@@ -48,7 +51,31 @@ def _entry_points():
     pay = np.zeros((1, 4), np.uint8)
     t_ofdm = ocfg.frame_num_samples(4)
     t_mfsk = frame.frame_num_samples(cfg, 4)
+    cards = parallel.Mesh([torch.device("cuda")] * 2, (parallel.STREAM_AXIS,))
+    grid = parallel.Mesh([[torch.device("cuda")] * 2] * 2, (parallel.STREAM_AXIS, parallel.TIME_AXIS))
+    long = np.zeros(2 * 32768, np.float32)
     return {
+        "ofdm.pilot_carriers": lambda: ofdm.pilot_carriers(ocfg),
+        "ofdm.preamble_carriers": lambda: ofdm.preamble_carriers(ocfg),
+        "parallel.make_mesh": lambda: parallel.make_mesh(),
+        "parallel.make_mesh_2d": lambda: parallel.make_mesh_2d(1, 1),
+        "parallel.shard_streams": lambda: parallel.shard_streams(cards, np.zeros((2, 4), np.float32)),
+        "parallel.sharded_demodulate": lambda: parallel.sharded_demodulate(
+            cfg, cards, np.zeros((2, t_mfsk), np.float32), 4
+        ),
+        "parallel.ber_sweep": lambda: parallel.ber_sweep(cfg, cards, torch.Generator(), [0.0], 2, 4),
+        "parallel.sharded_receive_long_capture": lambda: parallel.sharded_receive_long_capture(
+            cfg, cards, long, 1024, 4
+        ),
+        "parallel.sharded_receive_long_capture_dynamic": lambda: parallel.sharded_receive_long_capture_dynamic(
+            cfg, cards, long, 1024, 4
+        ),
+        "parallel.sharded_receive_capture_grid": lambda: parallel.sharded_receive_capture_grid(
+            cfg, grid, np.zeros((2, 65536), np.float32), 1024, 4
+        ),
+        "parallel.sharded_receive_capture_grid_dynamic": lambda: parallel.sharded_receive_capture_grid_dynamic(
+            cfg, grid, np.zeros((2, 65536), np.float32), 1024, 4
+        ),
         "ofdm.transmit": lambda: ofdm.transmit(ocfg, pay),
         "ofdm.preamble_waveform": lambda: ofdm.preamble_waveform(ocfg),
         "ofdm.demodulate_frame": lambda: ofdm.demodulate_frame(ocfg, np.zeros((1, t_ofdm), np.float32), 4),
