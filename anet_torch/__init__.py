@@ -12,8 +12,12 @@ and header-declared frame lengths (always-search and frame-lock), uncoded
 and coded (``fec="conv"``: convolutional code, interleaver, soft Viterbi);
 the channel simulator and the model helpers; the scale-out layer
 (``anet_torch.parallel``: meshes of positions, sharded demod, BER sweeps,
-time-sharded receivers) and the modem commands of the CLI
-(``python -m anet_torch.cli``). Every public entry point takes ``device=``
+time-sharded receivers); the host edge (``proto``, ``codec``, ``net`` with
+its C++ framer core built from source at first use, ``tx``, ``rx``,
+``config``, ``obs`` with a ``torch.profiler`` trace, ``utils``), which runs
+no device code and interoperates with the reference's over the LAN; and the
+CLI (``python -m anet_torch.cli``) but ``bench``. Every public entry point
+of the modem takes ``device=``
 (a sharded one, a mesh of devices) and defaults to ``"cuda"``; it raises
 when CUDA is absent unless the caller passes ``device="cpu"``. On the CPU
 each kernel wrapper runs its plain PyTorch version.

@@ -1,5 +1,8 @@
-"""The modem commands of ``anet.cli`` on the port (PyTorch, CUDA kernels).
+"""The command-line interface of ``anet.cli`` on the port (PyTorch, CUDA kernels).
 
+    python -m anet_torch.cli discover                      find receivers on the LAN
+    python -m anet_torch.cli tx FILE [HOST...]             stream a WAV to receivers (discover if none given)
+    python -m anet_torch.cli rx [--name N] [--out out.wav] run a receiver (discovery + audio + playback)
     python -m anet_torch.cli modem-tx FILE --out cap.wav   modulate a file's bytes into a capture
     python -m anet_torch.cli modem-rx CAP --len N          demodulate a capture back to bytes
     python -m anet_torch.cli modem-stream-rx CAP --len N   demodulate every frame in a long capture
@@ -7,10 +10,13 @@
     python -m anet_torch.cli models                        list modem model presets
 
 The flags, output lines, output files and exit codes are the reference's
-(0 on success, 2 when no frame decodes, 1 on a missing file or a refused
-input). The commands that run device code take ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions). The network commands
-(``discover``, ``tx``, ``rx``) run no device code and stay in ``anet.cli``.
+(0 on success, 2 when no frame decodes, 1 on a missing file, a refused
+input, no receiver found or a connection error). The modem commands run
+device code and take ``--device`` (default ``cuda``; ``cpu`` runs the
+kernels' plain versions). The network commands (``discover``, ``tx``,
+``rx``) run no device code and take no ``--device``: they drive the host
+edge (``anet_torch.net``, ``anet_torch.tx``, ``anet_torch.rx``). The reference's ``bench`` runs its own benchmark and
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -18,6 +24,123 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
+
+
+def _cmd_discover(args) -> int:
+    from anet_torch.net import discover_receivers
+
+    found = discover_receivers(timeout_s=args.timeout)
+    for r in found:
+        d = r.response
+        print(
+            f"{r.address:15s}  {d.device_name:24s} mac={d.mac_address:012x} "
+            f"v{d.protocol_version} streaming={d.currently_streaming} [{d.opus_version}]"
+        )
+    if not found:
+        print("no receivers found", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _cmd_tx(args) -> int:
+    import numpy as np
+
+    from anet_torch.codec import AudioFormat
+    from anet_torch.net import discover_receivers
+    from anet_torch.tx import MulticastAudioOutput, normalize_for_opus, pcm_bytes, read_audio
+
+    hosts = args.hosts
+    if not hosts:
+        found = discover_receivers(timeout_s=args.timeout)
+        if not found:
+            print("no receivers found", file=sys.stderr)
+            return 1
+        hosts = [r.address for r in found]
+        print(f"discovered {len(hosts)} receiver(s): {', '.join(hosts)}")
+
+    samples, fmt = read_audio(args.file)
+    samples, fmt = normalize_for_opus(samples, fmt)
+    out = MulticastAudioOutput(fmt, paced=not args.unpaced)
+    for host in hosts:
+        out.add_receiver(host, args.port)
+        print(f"connected to {host}: frame={out.encoder.frame_duration_ms} ms, "
+              f"max_encoded={out.encoder.max_encoded_frame_size} B")
+    stream = out.as_output_stream()
+    chunk_frames = fmt.sample_rate_hz // 10  # 100 ms chunks
+    for start in range(0, len(samples), chunk_frames):
+        stream.write(pcm_bytes(samples[start : start + chunk_frames]))
+    stream.close()
+    for r in out.receivers:
+        s = out.stats(r)
+        print(f"{r.host}: sent={s.frames_sent} underflows={s.underflows_reported} "
+              f"decode_errors={s.decode_errors_reported}")
+    out.close()
+    return 0
+
+
+def _cmd_rx(args) -> int:
+    from anet_torch.config import ConfigMode, ReceiverConfig, await_and_load
+    from anet_torch.obs.status import StatusIndicator, SystemState
+    from anet_torch.rx.playback import BufferSink, PacedSink, WavSink
+    from anet_torch.rx.receiver import AnetReceiver
+
+    if args.config:
+        config = await_and_load(args.config, timeout_s=args.config_timeout)
+    else:
+        config = ReceiverConfig(device_name=args.name)
+    raw_sink = WavSink(args.out) if args.out else BufferSink()
+    # real-time DAC drain model, matching the device's I2S pacing
+    sink = PacedSink(raw_sink)
+    receiver = AnetReceiver(sink, config).start()
+
+    # SIGHUP = the config button (config.cpp:16-45): blue-blink CONFIG
+    # state while the config file is re-awaited + re-applied. Without
+    # --config there is nothing to reload; the press is acknowledged and
+    # the bit drops immediately.
+    def _apply_config() -> None:
+        if args.config:
+            receiver.apply_config(
+                await_and_load(args.config, timeout_s=args.config_timeout)
+            )
+        else:
+            print("config mode: no --config file to reload", file=sys.stderr)
+
+    config_mode = ConfigMode(_apply_config)
+    config_mode.install_signal_handler()
+
+    def state() -> SystemState:
+        st = receiver.status()
+        if st["panicked"]:
+            return SystemState.PANIC
+        if config_mode.active:
+            return SystemState.CONFIG
+        if st["modules"]["network"]["streaming"]:
+            return SystemState.STREAMING
+        return SystemState.CONNECTED
+
+    indicator = StatusIndicator(
+        state, on_change=lambda s, p: print(f"[{s.value}] {p}")
+    ).start()
+    print(
+        f"receiver '{config.device_name}' up: "
+        f"udp:{config.udp_discovery_port} tcp:{receiver.network.server.bound_port}"
+    )
+    try:
+        while True:
+            time.sleep(args.status_interval)
+            # one coherent observability line: counters + gauges + modules
+            # (the network_get_state surface, network.cpp:590-605)
+            print(json.dumps(receiver.metrics_snapshot()))
+    except KeyboardInterrupt:
+        pass
+    finally:
+        indicator.stop()
+        receiver.stop()
+        if args.out:
+            raw_sink.close()
+            print(f"wrote {args.out}")
+    return 0
 
 
 def _np(t):
@@ -43,7 +166,7 @@ def _load_capture(path: str, expected_rate=None):
     import numpy as np
 
     if path.endswith(_AUDIO_EXTS):
-        from anet_torch.audio import read_audio
+        from anet_torch.tx.audio import read_audio
 
         samples, fmt = read_audio(path)
         capture = samples.mean(axis=1).astype(np.float32) / 32768.0
@@ -61,7 +184,7 @@ def _wav_rate(path):
     """The audio file's sample rate, or None for raw captures."""
     if not path.endswith(_AUDIO_EXTS):
         return None
-    from anet_torch.audio import read_audio
+    from anet_torch.tx.audio import read_audio
 
     return read_audio(path)[1].sample_rate_hz
 
@@ -497,6 +620,26 @@ def build_parser() -> argparse.ArgumentParser:
                        help="torch device to run on (default cuda; cpu runs the "
                             "kernels' plain versions)")
 
+    p = sub.add_parser("discover", help="find receivers on the LAN")
+    p.add_argument("--timeout", type=float, default=2.0)
+    p.set_defaults(fn=_cmd_discover)
+
+    p = sub.add_parser("tx", help="stream a WAV file to receivers")
+    p.add_argument("file")
+    p.add_argument("hosts", nargs="*")
+    p.add_argument("--port", type=int, default=58764)
+    p.add_argument("--timeout", type=float, default=2.0)
+    p.add_argument("--unpaced", action="store_true", help="no real-time pacing")
+    p.set_defaults(fn=_cmd_tx)
+
+    p = sub.add_parser("rx", help="run a receiver")
+    p.add_argument("--name", default="anet-receiver")
+    p.add_argument("--out", help="write received audio to this WAV file")
+    p.add_argument("--config", help="JSON config file (awaited if absent)")
+    p.add_argument("--config-timeout", type=float, default=None)
+    p.add_argument("--status-interval", type=float, default=5.0)
+    p.set_defaults(fn=_cmd_rx)
+
     p = sub.add_parser("modem-tx", help="modulate bytes into a modem capture")
     p.add_argument("file")
     p.add_argument("--out", required=True)
@@ -603,6 +746,9 @@ def main(argv=None) -> int:
         return 0  # stdout closed early (e.g. piped into head) — not an error
     except (FileNotFoundError, IsADirectoryError) as e:
         print(f"anet_torch: error: {e}", file=sys.stderr)
+        return 1
+    except (ConnectionError, TimeoutError) as e:
+        print(f"anet_torch: connection error: {e}", file=sys.stderr)
         return 1
     except OSError as e:
         print(f"anet_torch: I/O error: {e}", file=sys.stderr)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles, on first use, into its own shared library
 ``build/anet_torch_kernels/lib<name>-<hash>.so`` at the root of the
 checkout, where ``<hash>`` covers the source and every shared header
 (``csrc/*.cuh``: ``common``, ``search_core``, ``demod_core``), so an
-edited source or header rebuilds and an unchanged one loads at once. The sources have
+edited source or header rebuilds and an unchanged one loads at once
+(``anet_torch/_native_build.py`` names, compiles and publishes it). The sources have
 a plain C interface (no PyTorch headers), which keeps each build to seconds;
 ``build_all`` starts one nvcc per source, all at once.
 """
@@ -12,11 +13,11 @@ a plain C interface (no PyTorch headers), which keeps each build to seconds;
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 from pathlib import Path
+
+from anet_torch._native_build import Compile, hashed_path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "anet_torch_kernels"
@@ -117,34 +118,22 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
-        digest.update(part.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return hashed_path(BUILD_DIR, f"lib{name}", (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))), NVCC_FLAGS)
 
 
 def build_all(names=SOURCES) -> list[Path]:
     """Compile every library of ``names`` not built yet, one nvcc process per
     source, all started together; raise with nvcc's output if any fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
         out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        jobs.append((name, proc, tmp, out))
+        if not out.exists():
+            jobs.append((name, Compile(nvcc_path(), NVCC_FLAGS, CSRC / f"{name}.cu", out)))
     failures = []
-    for name, proc, tmp, out in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exit {proc.returncode}\n{log.decode(errors='replace')}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    for name, job in jobs:
+        error = job.finish()
+        if error is not None:
+            failures.append(f"{name}: nvcc {error}")
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return [library_path(n) for n in names]

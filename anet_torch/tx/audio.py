@@ -1,32 +1,28 @@
-"""Audio file readers: WAV, AIFF/AIFC and Sun AU into int16 PCM.
+"""Audio file ingest + PCM format conversion.
 
-A copy of the readers of ``anet/tx/audio.py`` (``read_wav``, ``read_aiff``,
-``read_au``, ``read_audio``) and of the format card they return
-(``anet.codec.opus.AudioFormat``), which the modem CLI (``anet_torch.cli``)
-loads captures with: both are numpy-only, and the port imports nothing of
-the JAX package. AIFF and AU are parsed first-party (the stdlib aifc/sunau
-modules are removed in Python 3.13).
+The javax.sound AudioSystem analog (Main.kt:15, MulticastAudioOutput.kt:
+38-45,98-114): read WAV / AIFF / AU containers (everything the
+reference's AudioSystem.getAudioInputStream opens for it), normalize
+arbitrary PCM to an Opus-supported format — 16-bit signed LE, 1-2
+channels, rate in {8,12,16,24,48} kHz, falling back to 48 kHz stereo
+like the reference. AIFF and AU are parsed first-party (the stdlib
+aifc/sunau modules are deprecated for removal); resampling is a
+polyphase windowed-sinc (Kaiser), not linear interpolation.
+
+A copy of ``anet/tx/audio.py``: numpy-only, and the port imports nothing
+of the JAX package. The format card is ``anet_torch.codec.opus.AudioFormat``.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import math
 import struct
 import wave
 from typing import Tuple
 
 import numpy as np
 
-
-@dataclasses.dataclass(frozen=True)
-class AudioFormat:
-    """PCM format card (the javax.sound AudioFormat surface anet consumes)."""
-
-    sample_rate_hz: int = 48_000
-    channels: int = 2
-    bits_per_sample: int = 16
-    little_endian: bool = True
-    signed: bool = True
+from anet_torch.codec.opus import AudioFormat, SUPPORTED_SAMPLE_RATES
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, AudioFormat]:
@@ -192,3 +188,120 @@ def read_audio(path: str) -> Tuple[np.ndarray, AudioFormat]:
     if magic == b".snd":
         return read_au(path)
     return read_wav(path)
+
+
+def nearest_supported_rate(rate: int) -> int:
+    """Smallest supported rate >= rate, else 48 kHz (the reference converts
+    up rather than losing bandwidth, fallback MulticastAudioOutput.kt:158)."""
+    for candidate in SUPPORTED_SAMPLE_RATES:
+        if candidate >= rate:
+            return candidate
+    return 48_000
+
+
+def convert(
+    samples: np.ndarray, fmt: AudioFormat, target: AudioFormat
+) -> np.ndarray:
+    """Convert int16 [n, ch] PCM between formats (rate + channel count)."""
+    out = samples
+    if fmt.channels != target.channels:
+        if fmt.channels == 1:
+            out = np.repeat(out, target.channels, axis=1)
+        else:
+            # Mix every source channel down (dropping channels would
+            # silently discard content), then spread across the targets.
+            mono = out.mean(axis=1, dtype=np.int32).astype(np.int16)[:, None]
+            out = np.repeat(mono, target.channels, axis=1)
+    if fmt.sample_rate_hz != target.sample_rate_hz:
+        out = resample_sinc(out, fmt.sample_rate_hz, target.sample_rate_hz)
+    return out
+
+
+_RESAMPLE_TAPS = 32  # filter taps per polyphase branch
+_RESAMPLE_BETA = 9.0  # Kaiser beta: ~90 dB stopband design point
+
+
+def resample_sinc(
+    samples: np.ndarray, in_rate: int, out_rate: int
+) -> np.ndarray:
+    """Polyphase windowed-sinc (Kaiser) sample-rate conversion.
+
+    int16 [n, ch] at ``in_rate`` -> int16 [round(n*out/in), ch] at
+    ``out_rate``. The reference delegates this to AudioSystem's converter
+    (MulticastAudioOutput.kt:98-114); this is the proper-filter analog:
+    upsample by L, lowpass at min(pi/L, pi/M) with a Kaiser-windowed sinc,
+    downsample by M (L/M = out/in reduced), evaluated directly in
+    polyphase form so the zero-stuffed signal never materializes.
+    Computed per phase as strided slice-dots — pure vectorized numpy.
+    """
+    if in_rate == out_rate:
+        return samples
+    n_in, ch = samples.shape
+    g = math.gcd(in_rate, out_rate)
+    up, down = out_rate // g, in_rate // g
+    n_out = int(round(n_in * out_rate / in_rate))
+
+    taps = _RESAMPLE_TAPS
+    n_filt = taps * up
+    # Cutoff in the upsampled domain (rate in_rate*up): half the narrower
+    # Nyquist, pulled in 9% for transition band.
+    cutoff = 0.5 / max(up, down) * 0.91
+    t = np.arange(n_filt, dtype=np.float64) - (n_filt - 1) / 2.0
+    h = 2 * cutoff * np.sinc(2 * cutoff * t) * np.kaiser(n_filt, _RESAMPLE_BETA)
+    h *= up / h.sum()  # unity passband gain (each phase sums to ~1)
+
+    x = samples.astype(np.float64)
+    # Center the filter: output m taps x at positions floor((m*down - d)/up)
+    # backwards for `taps` samples; pad both ends so every index is valid.
+    half = (n_filt - 1) // 2
+    pad_l = taps
+    pad_r = taps + 2
+    xp = np.concatenate(
+        [np.zeros((pad_l, ch)), x, np.zeros((pad_r, ch))], axis=0
+    )
+    out = np.zeros((n_out, ch), np.float64)
+    m = np.arange(n_out, dtype=np.int64)
+    # position of output m in the upsampled stream, filter centered at half
+    up_pos = m * down + half
+    base = up_pos // up  # newest input sample index under the filter
+    phase = up_pos % up
+    # Group outputs by phase: all outputs of one phase share filter
+    # coefficients h[phase::up] and read input windows strided by `down`.
+    for p in range(up):
+        sel = np.nonzero(phase == p)[0]
+        if sel.size == 0:
+            continue
+        hb = h[p::up][::-1]  # [taps] — reversed: convolution
+        b = base[sel] - (taps - 1) + pad_l  # window start in xp
+        # all windows for this phase: consecutive starts differ by a
+        # constant stride, so a single as_strided view covers them
+        if sel.size > 1:
+            stride = int(b[1] - b[0])
+            win = np.lib.stride_tricks.as_strided(
+                xp[b[0] :],
+                shape=(sel.size, taps, ch),
+                strides=(stride * xp.strides[0], xp.strides[0], xp.strides[1]),
+            )
+        else:
+            win = xp[b[0] : b[0] + taps][None]
+        out[sel] = np.einsum("mtc,t->mc", win, hb)
+    return np.clip(np.round(out), -32768, 32767).astype(np.int16)
+
+
+def normalize_for_opus(samples: np.ndarray, fmt: AudioFormat) -> Tuple[np.ndarray, AudioFormat]:
+    """Return (samples, format) in an Opus-supported format, converting if
+    needed (fallback target: source-rate-rounded-up, stereo preserved)."""
+    try:
+        fmt.validate_for_opus()
+        return samples, fmt
+    except Exception:
+        target = AudioFormat(
+            sample_rate_hz=nearest_supported_rate(fmt.sample_rate_hz),
+            channels=min(fmt.channels, 2),
+        )
+        return convert(samples, fmt, target), target
+
+
+def pcm_bytes(samples: np.ndarray) -> bytes:
+    """int16 [n, ch] -> interleaved little-endian bytes."""
+    return samples.astype("<i2").tobytes()

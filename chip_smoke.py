@@ -147,7 +147,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 12. the launch count of every kernel during phases 3-11, read per path (each
    path's counts start at 0 just before it; int8 launches count under
    "<name>:int8"): every kernel of a path must have launched there, and
-   none that the reference's routing keeps off it (ABSENT).
+   none that the reference's routing keeps off it (ABSENT);
+13. the host edge, outside the paths' counts: "lan" (no device code, no
+   kernel launched): the native C++ core built with g++ from
+   anet_torch/net/csrc, a native DiscoveryResponder on 127.0.0.1 found by
+   discover_receivers and pinged 200 times (round trip) after a datagram
+   whose length prefix narrows to a negative int, then 10 s of a
+   48 kHz stereo 440 Hz tone written by numpy: with libopus, the WAV
+   through anet_torch.cli.main(["tx", wav, "127.0.0.1", "--port", p,
+   "--unpaced"]) to an AnetReceiver with a BufferSink, every sent frame
+   received and played, no decode error; without it, the hello and
+   capability handshake and the tone's PCM as raw AudioData frames at the
+   negotiated 4,096-byte cap through AudioStreamServer, every frame intact
+   and ReceiverError feedback back ("opus": false on its line); and
+   "trace": one warm chunk step of the locked mfsk16-fast stream (B =
+   8,192, the chunk where the first frame completes) under
+   anet_torch.obs.profiling.device_trace (torch.profiler) and a StageTimer
+   stage: the .pt.trace.json it writes must name demod_probe_fused's probe
+   kernel (csrc/demod_probe.cu's probe_kernel, demangled), which the launch
+   counts must show too.
 The line before the last is a JSON object with each kernel's numbers (the
 five kernels with an int8 instantiation carry its numbers under "int8"), and
 the last line the JSON verdict with the device's name.
@@ -159,6 +177,8 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -2007,6 +2027,190 @@ def phase_cli(cfg, gen) -> None:
 
 
 
+LAN_UDP_PORT = 48877  # the lan phase's discovery port on 127.0.0.1 (TCP: port 0)
+LAN_SECONDS = 10.0
+LAN_RATE = 48_000
+DISCOVERY_PINGS = 200
+
+
+def lan_tone() -> np.ndarray:
+    """LAN_SECONDS of a 440 Hz tone at 0.3 of full scale, 48 kHz stereo int16."""
+    t = np.arange(int(LAN_SECONDS * LAN_RATE))
+    pcm = (0.3 * 32767 * np.sin(2 * np.pi * 440 * t / LAN_RATE)).astype(np.int16)
+    return np.repeat(pcm, 2).reshape(-1, 2)
+
+
+def lan_wait(done, seconds: float = 10.0) -> None:
+    deadline = time.monotonic() + seconds
+    while not done() and time.monotonic() < deadline:
+        time.sleep(0.005)
+
+
+def lan_opus_session(tone: np.ndarray) -> tuple[int, float]:
+    """(frames, seconds) of the tone's WAV sent by the CLI's tx to an
+    AnetReceiver with a BufferSink; every frame received and played."""
+    import io
+    import re
+    import tempfile
+    import wave
+
+    from anet_torch import cli
+    from anet_torch.config import ReceiverConfig
+    from anet_torch.rx.playback import BufferSink
+    from anet_torch.rx.receiver import AnetReceiver
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = f"{tmp}/tone.wav"
+        with wave.open(wav, "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(LAN_RATE)
+            w.writeframes(tone.astype("<i2").tobytes())
+        cfg = ReceiverConfig(device_name="chip-smoke-rx", tcp_audio_port=0, udp_discovery_port=LAN_UDP_PORT + 1)
+        with AnetReceiver(BufferSink(buffered_seconds=0.05), cfg) as rx:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["tx", wav, "127.0.0.1", "--port", str(rx.network.server.bound_port), "--unpaced"])
+            sent = re.search(r"sent=(\d+) underflows=\d+ decode_errors=(\d+)", out.getvalue())
+            if rc != 0 or sent is None:
+                raise AssertionError(f"lan: cli tx exit code {rc}; output {out.getvalue()!r}")
+            frames = int(sent.group(1))
+            lan_wait(lambda: rx.pipeline.frames_played >= frames)
+            dt = time.perf_counter() - t0
+            snap = rx.metrics_snapshot()
+    want = -(-int(LAN_SECONDS * 1000) // 60)  # 60 ms frames, the last one padded
+    played, received = snap["gauges"]["frames_played"], snap["counters"]["frames_received"]
+    if (frames, received, played) != (want, want, want) or int(sent.group(2)) or rx.pipeline.decode_errors:
+        raise AssertionError(f"lan: sent {frames}, received {received}, played {played} of {want}; "
+                             f"decode errors {sent.group(2)}/{rx.pipeline.decode_errors}")
+    return frames, dt
+
+
+def lan_raw_session(tone: np.ndarray, card) -> tuple[int, float]:
+    """(frames, seconds) of the tone's PCM as raw AudioData frames at the
+    negotiated cap, through AudioStreamServer after the hello; every frame
+    intact and a ReceiverError back to the transmitter."""
+    from anet_torch import constants
+    from anet_torch.net import AudioStreamServer, RemoteAudioReceiver
+
+    raw = tone.astype("<i2").tobytes()
+    got, feedback = [], []
+    with AudioStreamServer(card, frame_sink=got.append, port=0) as server:
+        rx = RemoteAudioReceiver("127.0.0.1", server.bound_port, on_feedback=feedback.append).connect()
+        caps = (rx.max_encoded_frame_size, rx.max_decoded_frame_size)
+        if caps != (constants.MAX_ENCODED_FRAME_SIZE, constants.MAX_DECODED_FRAME_SIZE):
+            raise AssertionError(f"lan: negotiated caps {caps}")
+        frames = [raw[i : i + caps[0]] for i in range(0, len(raw), caps[0])]
+        t0 = time.perf_counter()
+        for f in frames:
+            rx.send_frame(f)
+        lan_wait(lambda: len(got) >= len(frames))
+        dt = time.perf_counter() - t0
+        lan_wait(lambda: server.send_error(True, False), 2.0)
+        lan_wait(lambda: bool(feedback), 2.0)
+        rx.close()
+    if got != frames or server.decode_errors or not (feedback and feedback[0].audio_underflow):
+        raise AssertionError(f"lan: {len(got)} of {len(frames)} frames intact {got == frames}, "
+                             f"decode errors {server.decode_errors}, feedback {feedback}")
+    return len(frames), dt
+
+
+def phase_lan() -> dict:
+    """"lan": the host edge on the card's machine; no device code."""
+    import socket
+
+    from anet_torch import constants
+    from anet_torch.codec import opus_available
+    from anet_torch.net import DiscoveryResponder, discover_receivers, native
+    from anet_torch.proto import BroadcastMessage, DiscoveryResponse
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"lan: the native core did not build: {native.build_error()}")
+    build_s = time.perf_counter() - t0
+    card = DiscoveryResponse(1, 0x0200_0000_5317, "chip-smoke-rx", False, "none")
+    request = BroadcastMessage(constants.MAGIC_WORD, discovery_request=True).encode()
+    rtts = []
+    with DiscoveryResponder(card, port=LAN_UDP_PORT, use_native=True):
+        found = discover_receivers(timeout_s=0.5, port=LAN_UDP_PORT, targets=["127.0.0.1"])
+        if [r.response for r in found] != [card]:
+            raise AssertionError(f"lan: discovery found {found}")
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+            sock.settimeout(2.0)
+            # a length prefix that narrows to -6 as an int: dropped, and the
+            # responder goes on answering the pings below
+            sock.sendto(bytes.fromhex("1afaffffff0f"), ("127.0.0.1", LAN_UDP_PORT))
+            for _ in range(DISCOVERY_PINGS):
+                t1 = time.perf_counter()
+                sock.sendto(request, ("127.0.0.1", LAN_UDP_PORT))
+                data, _ = sock.recvfrom(4096)
+                rtts.append(time.perf_counter() - t1)
+                if BroadcastMessage.decode(data).discovery_response != card:
+                    raise AssertionError("lan: a discovery answer differs from the responder's card")
+    tone = lan_tone()
+    opus = opus_available()
+    frames, dt = lan_opus_session(tone) if opus else lan_raw_session(tone, card)
+    rtt_ms = np.asarray(rtts) * 1e3
+    out = {
+        "opus": opus, "native": True, "native_build_s": build_s,
+        "discovery_rtt_ms": {"median": float(np.median(rtt_ms)), "p99": float(np.percentile(rtt_ms, 99)),
+                             "n": len(rtts)},
+        "audio_s": LAN_SECONDS, "frames": frames, "seconds": dt, "frames_per_s": frames / dt,
+        "audio_x_realtime": LAN_SECONDS / dt,
+    }
+    log(f"lan: {json.dumps(out)}")
+    return out
+
+
+def trace_kernel_names(trace_file: str) -> list[str]:
+    """The names of the kernels a torch.profiler chrome trace holds."""
+    with open(trace_file) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+PROBE_KERNEL = re.compile(r"(^|[\s:])probe_kernel<")  # demod_probe.cu's template, demangled
+
+
+def phase_trace(cfg, gen) -> dict:
+    """"trace": one warm chunk step of the locked stream under device_trace."""
+    import glob
+    import tempfile
+
+    from anet_torch.obs.profiling import StageTimer, device_trace
+
+    cap, sent, chunk, _ = locked_stream_capture(cfg, gen, "trace")
+    step = functools.partial(receive_stream, cfg, chunk_size=chunk, payload_len=PAYLOAD,
+                             compute_dtype=torch.bfloat16, lock=True, resident=False, device=DEV)
+    carry = step(cap[:, :chunk], carry=warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV)).carry
+    step(cap[:, chunk : 2 * chunk], carry=carry)  # warm: the traced step, once untraced
+    torch.cuda.synchronize()
+    timer = StageTimer()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp), timer.stage("stream chunk"):
+            res = step(cap[:, chunk : 2 * chunk], carry=carry)
+            torch.cuda.synchronize()
+        files = glob.glob(f"{tmp}/*.pt.trace.json")
+        if len(files) != 1:
+            raise AssertionError(f"trace: device_trace wrote {files}")
+        trace_bytes = os.path.getsize(files[0])
+        names = trace_kernel_names(files[0])
+    launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    kernels.reset_launch_counts()
+    probe = sorted({n for n in names if PROBE_KERNEL.search(n)})
+    if not launches.get("demod_probe_fused") or not probe:
+        raise AssertionError(f"trace: demod_probe_fused launches {launches}; probe_kernel in the trace "
+                             f"{probe}; its kernels {sorted(set(names))[:30]}")
+    if not bool(res.steps.detected.all()) or not torch.equal(res.steps.frame.payload[0], sent[0]):
+        raise AssertionError("trace: the traced chunk did not decode every stream's first frame")
+    out = {"stages": timer.summary(), "trace_bytes": trace_bytes, "kernel_events": len(names),
+           "probe_kernel": probe, "launches": launches}
+    log(f"trace: {json.dumps(out)}")
+    return out
+
+
 # Each main path, driven with the launch counts set to 0 just before it and
 # read just after: its model, the phase that drives it and the kernels it
 # must launch.
@@ -2168,6 +2372,14 @@ def main() -> int:
             raise AssertionError(f"kernels launched on the {path} path that must not be: {stray}")
         for name, c in path_counts.items():
             counts[name] += c
+    # the host edge, outside the paths' counts
+    kernels.reset_launch_counts()
+    phase_lan()
+    stray = {k: v for k, v in kernels.launch_counts.items() if v}
+    if stray:
+        raise AssertionError(f"the lan phase launched kernels: {stray}")
+    torch.cuda.empty_cache()
+    phase_trace(get_model(MODEL).config, gen)
     rows = []
     for name, (source, replaces) in REPLACES.items():
         r = results[name]

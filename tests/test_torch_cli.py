@@ -3,7 +3,7 @@ the reference's (anet.cli) on the same files: modem-tx writes the same WAV
 bytes, modem-rx and modem-stream-rx print the same lines, write the same
 payload bytes and checkpoints that load in both packages, models prints the
 same table, sweep the same keys and bit counts, and every exit code is the
-reference's. Also the port's audio readers (anet_torch.audio) against
+reference's. Also the port's audio readers (anet_torch.tx.audio) against
 anet.tx.audio on WAV, AIFF and AU files."""
 
 import json
@@ -20,7 +20,7 @@ from anet import stream as jstream
 from anet.tx import audio as jaudio
 
 import anet_torch.cli as tcli
-from anet_torch import audio as taudio
+from anet_torch.tx import audio as taudio
 from anet_torch import stream as tstream
 
 

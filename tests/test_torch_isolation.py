@@ -22,7 +22,10 @@ def test_port_imports_no_jax_and_no_anet():
     )
     assert {
         "anet_torch.kernels.build", "anet_torch.stream", "anet_torch.dsp.clock", "anet_torch.parallel",
-        "anet_torch.cli", "anet_torch.audio",
+        "anet_torch.cli", "anet_torch.tx.audio",
+        "anet_torch.proto", "anet_torch.codec", "anet_torch.net", "anet_torch.net.native",
+        "anet_torch.tx", "anet_torch.rx", "anet_torch.obs", "anet_torch.obs.profiling",
+        "anet_torch.utils", "anet_torch.config",
     } <= set(modules)
     code = (
         "import importlib, sys\n"
