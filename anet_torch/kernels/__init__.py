@@ -515,6 +515,25 @@ def _search_template_words(template: torch.Tensor) -> torch.Tensor:
     return out.view(torch.int32)
 
 
+def _energy_operand(name: str, template_energy, dev: torch.device):
+    """(tensor, value) of a kernel's template energy: a tensor goes by
+    address, as a float32 scalar on ``dev`` (no float(), so no host read;
+    the caller holds it through the launch and passes its data_ptr()), a
+    Python number by value with no tensor (a null pointer)."""
+    if not isinstance(template_energy, torch.Tensor):
+        return None, float(template_energy)
+    te = template_energy
+    if te.device != dev or te.dtype != torch.float32:
+        te = te.to(device=dev, dtype=torch.float32)
+    if te.numel() != 1:
+        raise ValueError(f"{name}: template_energy must be a scalar, got {tuple(te.shape)}")
+    return te, 0.0
+
+
+def _address(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def _search_launch_args(name: str, seg: torch.Tensor, template: torch.Tensor, out_len: int):
     """Checks of the two search kernels, and their leading C arguments:
     (seg, dtype code, B, row stride, seg_len, template words, b_lo, W, k)."""
@@ -542,9 +561,11 @@ def sync_search_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int, t
 
     ``seg`` is [B, >= out_len + k - 1], float32 or bfloat16; rows may be
     strided (a view into the stream buffer) as long as the last dimension is
-    contiguous. ``template`` is float32 or bfloat16 [k]. On the card the
-    product runs on the tensor cores, float32 operands split into bf16
-    hi + lo. Returns (best_q f32 [B], best_idx i32 [B])."""
+    contiguous. ``template`` is float32 or bfloat16 [k]. ``template_energy``
+    is a float or a float32 scalar tensor; on the card the kernel reads a
+    tensor through its address, so the call never waits for the card. On
+    the card the product runs on the tensor cores, float32 operands split
+    into bf16 hi + lo. Returns (best_q f32 [B], best_idx i32 [B])."""
     if seg.device.type == "cpu":
         return sync_search_fused_ref(seg, template, out_len, template_energy)
     name = "sync_search_fused"
@@ -556,8 +577,9 @@ def sync_search_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int, t
     part_i = torch.empty(b, n_tiles, dtype=torch.int32, device=dev)
     best_q = torch.empty(b, dtype=torch.float32, device=dev)
     best_i = torch.empty(b, dtype=torch.int32, device=dev)
+    te, te_val = _energy_operand(name, template_energy, dev)
     err = _entry("sync_search")(
-        *args, out_len, float(template_energy), part_q.data_ptr(), part_i.data_ptr(),
+        *args, out_len, _address(te), te_val, part_q.data_ptr(), part_i.data_ptr(),
         best_q.data_ptr(), best_i.data_ptr(), _stream_handle(dev),
     )
     _check_launch(err, name)
@@ -934,9 +956,8 @@ def probe_at_fused(
 
 
 def _probe_at_launch(buffer, st0, template, template_energy, n_lags):
-    """probe_at_fused's launch: the taps made once per template tensor, a
-    tensor ``template_energy`` passed by address (no float(): no host
-    read), a float by value."""
+    """probe_at_fused's launch: the taps made once per template tensor,
+    ``template_energy`` as _energy_operand passes it."""
     name = "probe_at_fused"
     dtype, st = _check_buffer_and_starts(name, buffer, st0, "st0", int8=False)
     if not 1 <= n_lags <= 8:
@@ -948,18 +969,10 @@ def _probe_at_launch(buffer, st0, template, template_energy, n_lags):
     if b == 0:
         return q
     taps, _ = _probe_operands(template, buffer.dtype, dev)
-    if isinstance(template_energy, torch.Tensor):
-        te = template_energy
-        if te.device != dev or te.dtype != torch.float32:
-            te = te.to(device=dev, dtype=torch.float32)
-        if te.numel() != 1:
-            raise ValueError(f"{name}: template_energy must be a scalar, got {tuple(te.shape)}")
-        te_ptr, te_val = te.data_ptr(), 0.0
-    else:
-        te_ptr, te_val = None, float(template_energy)
+    te, te_val = _energy_operand(name, template_energy, dev)
     err = _entry("probe_at")(
         buffer.data_ptr(), dtype, b, length, st.data_ptr(), taps.data_ptr(), k, n_lags,
-        _probe_span_rows(k, n_lags), te_ptr, te_val, q.data_ptr(), _stream_handle(dev),
+        _probe_span_rows(k, n_lags), _address(te), te_val, q.data_ptr(), _stream_handle(dev),
     )
     _check_launch(err, name)
     return q
@@ -1395,8 +1408,8 @@ def sync_search_blockmax(seg: torch.Tensor, template: torch.Tensor, out_len: int
         q = blockwise_match_quality(seg, corr, k, template_energy)
         return q.reshape(..., out_len // 128, 128).max(-1)
 
-    ``seg`` and ``template`` as sync_search_fused takes them; ``out_len`` a
-    multiple of 128."""
+    ``seg``, ``template`` and ``template_energy`` as sync_search_fused
+    takes them; ``out_len`` a multiple of 128."""
     if out_len % _ROW or out_len < _ROW:
         raise ValueError(f"sync_search_blockmax: out_len {out_len} must be a positive multiple of {_ROW}")
     if seg.device.type == "cpu":
@@ -1404,8 +1417,9 @@ def sync_search_blockmax(seg: torch.Tensor, template: torch.Tensor, out_len: int
     name = "sync_search_blockmax"
     args = _search_launch_args(name, seg, template, out_len)
     out = torch.empty(seg.shape[0], out_len // _ROW, dtype=torch.float32, device=seg.device)
+    te, te_val = _energy_operand(name, template_energy, seg.device)
     err = _entry("search_blockmax")(
-        *args, out_len, float(template_energy), out.data_ptr(), _stream_handle(seg.device),
+        *args, out_len, _address(te), te_val, out.data_ptr(), _stream_handle(seg.device),
     )
     _check_launch(err, name)
     return out

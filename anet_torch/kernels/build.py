@@ -48,7 +48,7 @@ SIGNATURES = {
     ),
     "sync_search": (
         "anet_sync_search",
-        [_P, _I, _I, _L, _I, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P],
+        [_P, _I, _I, _L, _I, _P, _I, _I, _I, _I, _P, ctypes.c_float, _P, _P, _P, _P, _P],
     ),
     "demod_at": (
         "anet_demod_at",
@@ -99,7 +99,7 @@ SIGNATURES = {
     ),
     "search_blockmax": (
         "anet_search_blockmax",
-        [_P, _I, _I, _L, _I, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],
+        [_P, _I, _I, _L, _I, _P, _I, _I, _I, _I, _P, ctypes.c_float, _P, _P],
     ),
 }
 

@@ -66,18 +66,20 @@ cudaError_t launch(const void* seg, const void* tpl, const Geometry& g, size_t s
 
 // seg: [B, seg_len] rows `row_stride` elements apart (last dim contiguous),
 // float32 (dtype 0) or bfloat16 (1); tpl: the template words, as
-// anet_sync_search takes them; out: [B, out_len / 128] float32, out_len a
-// multiple of 128. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// anet_sync_search takes them, and te_ptr / te as it takes them; out:
+// [B, out_len / 128] float32, out_len a multiple of 128. Returns cudaGetLastError(), or cudaErrorInvalidValue for
 // a geometry the kernel does not take.
 extern "C" int anet_search_blockmax(const void* seg, int dtype, int B, long long row_stride,
                                     int seg_len, const void* tpl, int b_lo, int w, int k,
-                                    int out_len, float te, void* out, void* stream) {
+                                    int out_len, const void* te_ptr, float te, void* out,
+                                    void* stream) {
   if (out_len < ROW || out_len % ROW) return (int)cudaErrorInvalidValue;
   const bool a_lo = dtype == anet::DTYPE_F32;
   Geometry g;
   size_t smem;
   if (!make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
     return (int)cudaErrorInvalidValue;
+  g.te_ptr = static_cast<const float*>(te_ptr);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == anet::DTYPE_BF16) {

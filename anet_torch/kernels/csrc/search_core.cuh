@@ -72,7 +72,8 @@ struct Geometry {
   int n_tiles;  // blocks of a stream
   int nb;       // 128-sample blocks a block stages
   int w;        // words of a template copy
-  float te;     // template energy
+  float te;     // template energy, where te_ptr is null
+  const float* te_ptr;  // the template energy on the card, or null
 };
 
 // The geometry of a launch, or false where the kernel does not take it (a
@@ -87,6 +88,7 @@ inline bool make_geometry(Geometry& g, int64_t row_stride, int seg_len, int out_
   g.out_len = out_len;
   g.k = k;
   g.te = te;
+  g.te_ptr = nullptr;
   g.n_rows = (out_len + ROW - 1) / ROW;
   const int max_rows = max_warps(a_lo, b_lo) * WARP_ROWS;
   g.n_tiles = (g.n_rows + max_rows - 1) / max_rows;
@@ -154,7 +156,9 @@ __device__ __forceinline__ Smem carve(unsigned char* base, const Geometry& g) {
 //   scale[r] = rsqrt(te * max(win[r], 1e-4 te)),
 //   win[r] = sum of the energies of blocks r .. r + kb - 1
 // (blocks relative to the segment's start, zero past its end), as
-// blockwise_match_quality's superset window. Ends with __syncthreads().
+// blockwise_match_quality's superset window, te read through g.te_ptr
+// where it is not null (the wrapper passes a tensor's address: no host
+// read), else g.te. Ends with __syncthreads().
 template <typename T, bool B_LO, bool ENERGY = true>
 __device__ __forceinline__ void stage(const T* __restrict__ seg, const uint32_t* __restrict__ tpl,
                                       const Geometry& g, int b, int tile, const Smem& s) {
@@ -202,10 +206,11 @@ __device__ __forceinline__ void stage(const T* __restrict__ seg, const uint32_t*
   }
   __syncthreads();
   if (ENERGY) {
+    const float te = g.te_ptr ? __ldg(g.te_ptr) : g.te;
     for (int r = tid; r < g.mt; r += nthreads) {
       float win = 0.0f;
       for (int q = 0; q < g.kb; ++q) win += s.blk[r + q];
-      s.scale[r] = rsqrtf(g.te * fmaxf(win, 1e-4f * g.te));
+      s.scale[r] = rsqrtf(te * fmaxf(win, 1e-4f * te));
     }
     __syncthreads();
   }

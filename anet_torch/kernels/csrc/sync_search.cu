@@ -117,18 +117,20 @@ cudaError_t launch(const void* seg, const void* tpl, const Geometry& g, size_t s
 // kernels._search_template_words, int32 [1 + b_lo, 2, w] (b_lo: a float32
 // template's lo half follows its hi half); part_q/part_i: [B, blocks]
 // scratch, blocks >= ceil(ceil(out_len / 128) / 96) (a block takes at least
-// 96 rows); best_q: [B] float32, best_i: [B] int32.
+// 96 rows); best_q: [B] float32, best_i: [B] int32. te_ptr: the template
+// energy, a float32 scalar on the card, or null for te by value.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a geometry the
 // kernel does not take.
 extern "C" int anet_sync_search(const void* seg, int dtype, int B, long long row_stride,
                                 int seg_len, const void* tpl, int b_lo, int w, int k,
-                                int out_len, float te, void* part_q, void* part_i, void* best_q,
-                                void* best_i, void* stream) {
+                                int out_len, const void* te_ptr, float te, void* part_q,
+                                void* part_i, void* best_q, void* best_i, void* stream) {
   const bool a_lo = dtype == anet::DTYPE_F32;
   Geometry g;
   size_t smem;
   if (!make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
     return (int)cudaErrorInvalidValue;
+  g.te_ptr = static_cast<const float*>(te_ptr);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == anet::DTYPE_BF16) {

@@ -17,7 +17,10 @@ comma-separated subset of:
   ``sync_search_blockmax`` at the locked stream path's geometry of the
   model (mfsk16-fast: out_len the frame at payload 256 rounded down to 128
   samples, 36,352, and the 2,048-sample preamble; mfsk4-coded: 70,144 and
-  1,024; ofdm-fast: 4,736 and 640) for each (segment, template) dtype pair;
+  1,024; ofdm-fast: 4,736 and 640) for each (segment, template) dtype pair,
+  and ``sync_search_fused`` again with the template energy a float32
+  scalar on the card, as the stream passes it (``... te on the card``: a
+  checkout whose wrapper reads it to the host waits for the card there);
 - ``correlate``: ``correlate_fused`` at the variable-length stream's
   geometry of the model (out_len two shortest frames of payload 64, 23,552
   for mfsk16-fast, and the preamble) for each dtype pair;
@@ -184,6 +187,9 @@ if "search" in kinds:
         te = float((t.float() ** 2).sum())
         out["sync_search_fused " + pair] = time_ms(lambda: kernels.sync_search_fused(seg, t, chunk, te))
         out["sync_search_blockmax " + pair] = time_ms(lambda: kernels.sync_search_blockmax(seg, t, chunk, te))
+        te_dev = (t.float() ** 2).sum()
+        out["sync_search_fused " + pair + " te on the card"] = time_ms(
+            lambda: kernels.sync_search_fused(seg, t, chunk, te_dev))
 if "correlate" in kinds:
     chunk = 2 * family.frame_samples(cfg, 64)
     for pair, seg, t in pairs(chunk):

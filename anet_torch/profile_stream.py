@@ -34,7 +34,13 @@
   stream's capture (8,192 streams) drifted alike;
 - ``resident``: the fixed-length locked stream of ``lock`` (bf16, uncoded
   MFSK), warm and cold, through the carry route (resident=False) and the
-  capture-resident scan (resident=True) in turns, in one process.
+  capture-resident scan (resident=True) in turns, in one process;
+- ``demo``: the demos' stream call (anet_torch.examples: float32, always
+  searching, chunk 1,024, one capture with no batch axis) on the first
+  DEMO_CHUNKS chunks of a demo's capture: for an MFSK model the file
+  demo's (a 16 KiB seeded file in 264-byte wire frames, an echo, 8 dB),
+  for an OFDM model the Opus demo's (Opus-sized 230-byte messages in
+  238-byte wire frames, two echoes, 14 dB).
 
 ``model`` is mfsk16-fast unless named; the OFDM presets (ofdm-fast, and for
 ``lock`` and ``lock-int8`` the coded ones) run the same paths but
@@ -57,6 +63,7 @@ from __future__ import annotations
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -76,6 +83,7 @@ DYNAMIC_LOCK_LENS = (64, 256, 128, 64, 256, 128)
 DRIFT_PPM = (700.0, 1000.0)  # |clock offset| of the tracked paths' rows
 DRIFT_SNR_DB = 14.0
 ROWS = 1024  # rows a pass of drift_rows: bounds its temporaries at full width
+DEMO_CHUNKS = 512  # chunks of the demo path's run
 
 
 def back_to_back_capture(cfg, lens, max_len: int, chunk: int, batch: int, gen, dev):
@@ -346,7 +354,26 @@ def profile_aligned_bm(cfg, model: str, gen, dev) -> None:
     report("aligned-bm-decide (decide_tones_fused + frame_result_from_tone_decisions)", decide)
 
 
-PATHS = ("lock", "lock-int8", "dynamic", "dynamic-lock", "dynamic-lock-int8", "aligned-bm", "tracked", "resident")
+PATHS = ("lock", "lock-int8", "dynamic", "dynamic-lock", "dynamic-lock-int8", "aligned-bm", "tracked", "resident",
+         "demo")
+
+
+def profile_demo(cfg, model: str, gen, dev) -> None:
+    from anet_torch.examples import CHUNK, file_over_sound, opus_over_sound, wire_frames
+
+    rng = np.random.default_rng(0)
+    if family.is_ofdm(cfg):
+        padded = wire_frames([rng.bytes(230) for _ in range(-(-DEMO_CHUNKS * CHUNK // cfg.frame_num_samples(238)))])
+        dirty = opus_over_sound.pass_channel(opus_over_sound.build_capture(cfg, padded, dev), 14.0, gen)
+    else:
+        padded = wire_frames(file_over_sound.file_chunks(rng.bytes(16384)))
+        dirty = file_over_sound.pass_channel(file_over_sound.build_capture(cfg, padded, dev), 8.0, gen)
+    dirty = dirty[: DEMO_CHUNKS * CHUNK]
+    report(
+        f"{model} demo stream ({dirty.shape[0] // CHUNK} chunks of {CHUNK}, {padded.shape[1]}-byte frames, "
+        "float32, always searching)",
+        lambda: receive_stream(cfg, dirty, CHUNK, padded.shape[1], device=dev),
+    )
 
 
 def main(argv=None) -> int:
@@ -371,6 +398,8 @@ def main(argv=None) -> int:
         profile_tracked(cfg, model, gen, dev)
     elif path == "resident":
         profile_resident(cfg, model, gen, dev)
+    elif path == "demo":
+        profile_demo(cfg, model, gen, dev)
     else:
         profile_dynamic(cfg, model, path != "dynamic", gen, dev, int8=path == "dynamic-lock-int8")
     return 0

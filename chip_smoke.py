@@ -10,7 +10,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    full batch: the uncoded paths' four kernels on mfsk16-fast (payload 256,
    chunk 36,352, buffer 76,288), with the int8 instantiations of three of
    them (frames quantized x127, buffers as an int8 carry holds them) and
-   sync_search_blockmax on the search's segment, the coded paths' three on
+   sync_search_blockmax on the search's segment (both searches also with
+   the template energy a float32 scalar on the card, as the stream passes
+   it, under torch.cuda.set_sync_debug_mode("error"): bit-equal to a
+   float's, no host read), the coded paths' three on
    mfsk4-coded (with demod_at_energies_fused on int8 buffers)
    (payload 256, chunk 70,144, buffer 143,872, trellis 2,150 steps; the
    trellis also with a masked tail and at the 102-step header probe;
@@ -144,11 +147,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (anet_torch.cli.main in-process: modem-tx of 1 kB to a WAV, modem-rx,
    modem-stream-rx --lock over two halves with --save-state and --resume,
    sweep, models; every byte back, every exit code 0);
-12. the launch count of every kernel during phases 3-11, read per path (each
+12. the three demos of anet_torch.examples, each logged with its wall
+   time, Msamples/s and real-time factor (seconds on the air over wall
+   seconds): "example-file" (file_over_sound's main on a 16 KiB seeded
+   file: 64 wire frames of 264 bytes on mfsk16-fast, one capture of about
+   2.4 M samples with no batch axis, the stream's default call, float32
+   and always searching: sync_search_fused and demod_at_fused every
+   chunk; the file back byte for byte), "example-adaptive"
+   (adaptive_modem's main at 9 dB with 600, then 16,384 bytes: the
+   one-shot probe on fsk2-robust, tone_energies_fused with float32
+   compute, then the ofdm-coded stream: sync_search_fused,
+   ofdm_track_decide_fused, viterbi_trellis; ofdm-coded picked, the
+   transfer byte for byte) and "example-opus" (opus_over_sound's legs on
+   10 s of its melody: Opus frames where libopus loads, else seeded
+   stand-ins of their size, "opus": false; the ofdm-coded stream at 14 dB
+   with two echoes; every frame back byte for byte);
+13. the launch count of every kernel during phases 3-12, read per path (each
    path's counts start at 0 just before it; int8 launches count under
    "<name>:int8"): every kernel of a path must have launched there, and
    none that the reference's routing keeps off it (ABSENT);
-13. the host edge, outside the paths' counts: "lan" (no device code, no
+14. the host edge, outside the paths' counts: "lan" (no device code, no
    kernel launched): the native C++ core built with g++ from
    anet_torch/net/csrc, a native DiscoveryResponder on 127.0.0.1 found by
    discover_receivers and pinged 200 times (round trip) after a datagram
@@ -176,6 +194,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
@@ -446,6 +465,21 @@ def phase_kernels(cfg, gen) -> dict:
         "max_abs_err": compare("sync_search_blockmax", (bm,), (kernels.sync_search_blockmax_ref(seg, tpl, chunk, te),),
                                (), (0,))
     }
+    # the template energy as the stream passes it: a float32 scalar on the
+    # card, read by both searches through its address, so neither waits for
+    # the card
+    te_dev = (tpl.float() ** 2).sum()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_dev = kernels.sync_search_fused(seg, tpl, chunk, te_dev)
+        bm_dev = kernels.sync_search_blockmax(seg, tpl, chunk, te_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (torch.equal(got_dev[0], got[0]) and torch.equal(got_dev[1], got[1]) and torch.equal(bm_dev, bm)):
+        raise AssertionError("the searches: a template energy on the card gives other bits than a float")
+    log("  sync_search_fused, sync_search_blockmax: a template energy on the card, no host read, "
+        "bits equal to a float's")
 
     got = kernels.demod_at_fused(cfg, buf, starts, n_sym)
     want = kernels.demod_at_fused_ref(cfg, buf, starts, n_sym)
@@ -2027,6 +2061,140 @@ def phase_cli(cfg, gen) -> None:
 
 
 
+EXAMPLE_FILE_BYTES = 16384  # 64 wire frames of 264 bytes, about 50 s on the air
+EXAMPLE_ADAPTIVE_BYTES = (600, 16384)
+EXAMPLE_SNR_DB = 9.0  # the adaptive demo's default channel
+EXAMPLE_OPUS_SECONDS = 10.0
+EXAMPLE_OPUS_SNR_DB = 14.0  # the Opus demo's default channel
+
+
+def run_demo(label: str, main, argv) -> tuple[str, float]:
+    """(stdout, wall seconds) of a demo's main(argv) in-process on the
+    card; its exit code must be 0."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(list(argv))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{label}: exit code {rc}; output {out.getvalue()!r}")
+    return out.getvalue(), dt
+
+
+def log_demo(label: str, n_samples: int, rate_hz: int, dt: float) -> None:
+    """The demo's wall time, Msamples/s and real-time factor (seconds on the
+    air over wall seconds)."""
+    air = n_samples / rate_hz
+    log(f"{label}: {n_samples} samples ({air:.3f} s on the air) in {dt:.3f} s: "
+        f"{n_samples / dt / 1e6:.6f} Msamples/s, real-time factor {air / dt:.3f}")
+
+
+def phase_example_file(cfg, gen) -> None:
+    """"example-file": python -m anet_torch.examples.file_over_sound on a
+    16 KiB seeded file (its main in-process, --device cuda): 64 wire frames
+    of 264 bytes on mfsk16-fast, one capture of about 2.4 M samples with no
+    batch axis, the stream's default call (float32, always searching, chunk
+    1,024). Limit: every frame ok and the file back byte for byte."""
+    import tempfile
+
+    from anet_torch.examples import file_over_sound, wire_frames
+
+    data = np.random.default_rng(SEED).integers(0, 256, EXAMPLE_FILE_BYTES, dtype=np.uint8).tobytes()
+    padded = wire_frames(file_over_sound.file_chunks(data))
+    if tuple(padded.shape) != (EXAMPLE_FILE_BYTES // 256, 264):
+        raise AssertionError(f"example-file: wire frames {tuple(padded.shape)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "file.bin")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        text, dt = run_demo("example-file", file_over_sound.main, [path, "--device", "cuda"])
+    lines = text.splitlines()
+    n = padded.shape[0]
+    if lines[2:] != [f"receiver: {n} frames detected, {n} ok, 0 decode errors",
+                     "file reassembled byte-identical: True"]:
+        raise AssertionError(f"example-file: {lines}")
+    n_samples = int(re.search(r"-> (\d+) samples", lines[0]).group(1))
+    log(f"example-file: {lines}")
+    log_demo("example-file", n_samples, cfg.sample_rate_hz, dt)
+
+
+def phase_example_adaptive(cfg, gen) -> None:
+    """"example-adaptive": python -m anet_torch.examples.adaptive_modem
+    --snr 9 --bytes 600, then --bytes 16384 (its main in-process, --device
+    cuda): the one-shot probe on fsk2-robust, then the stream on the preset
+    suggest_model picks. Limit: ofdm-coded picked, every frame ok, the
+    transfer byte for byte."""
+    from anet_torch.examples import adaptive_modem
+
+    chosen = get_model("ofdm-coded").config
+    for n_bytes in EXAMPLE_ADAPTIVE_BYTES:
+        label = f"example-adaptive --bytes {n_bytes}"
+        text, dt = run_demo(label, adaptive_modem.main,
+                            ["--snr", str(EXAMPLE_SNR_DB), "--bytes", str(n_bytes), "--device", "cuda"])
+        lines = text.splitlines()
+        n_frames = -(-n_bytes // adaptive_modem.PER)
+        if (not lines[2].startswith("adapt: ofdm-coded ")
+                or not lines[3].startswith(f"transfer: {n_frames}/{n_frames} frames ok")
+                or lines[4] != "adaptive transfer: OK (byte-identical)"):
+            raise AssertionError(f"{label}: {lines}")
+        log(f"{label}: {lines}")
+        n_samples = adaptive_modem.build_capture(chosen, adaptive_modem.bulk_payload(n_bytes, 0), DEV).shape[0]
+        log_demo(label, n_samples, chosen.sample_rate_hz, dt)
+
+
+def opus_stand_ins(seconds: float, seed: int) -> list[bytes]:
+    """Seeded byte strings of the sizes of the Opus frames the demo sends:
+    20 ms frames at the encoder's default bit rate."""
+    from anet_torch import constants
+    from anet_torch.examples import opus_over_sound
+
+    size = round(constants.DEFAULT_OPUS_BITRATE_BPS * opus_over_sound.FRAME_MS / 8000)
+    rng = np.random.default_rng(seed)
+    n = round(seconds * 1000 / opus_over_sound.FRAME_MS)
+    return [rng.integers(0, 256, size, dtype=np.uint8).tobytes() for _ in range(n)]
+
+
+def phase_example_opus(cfg, gen) -> None:
+    """"example-opus": the legs of anet_torch.examples.opus_over_sound on
+    10 s of its melody: with libopus the Opus frames, else (the card's
+    machine) seeded stand-ins of their size, "opus": false; the wire
+    frames, ofdm-coded TX, the two-echo channel at 14 dB, the stream's
+    default call and the parse, on the card. Limit: every frame back byte
+    for byte (with libopus also decoded, rms above 1,000); one step a
+    chunk."""
+    from anet_torch.codec import opus_available
+    from anet_torch.examples import CHUNK, opus_over_sound, unwrap, wire_frames
+
+    opus = opus_available()
+    if opus:
+        frames, _ = opus_over_sound.encode(opus_over_sound.melody(EXAMPLE_OPUS_SECONDS))
+    else:
+        frames = opus_stand_ins(EXAMPLE_OPUS_SECONDS, SEED)
+    padded = wire_frames(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    capture = opus_over_sound.build_capture(cfg, padded, DEV)
+    dirty = opus_over_sound.pass_channel(capture, EXAMPLE_OPUS_SNR_DB,
+                                         torch.Generator(device=DEV).manual_seed(opus_over_sound.SEED))
+    res = opus_over_sound.receive(cfg, dirty, padded.shape[1])
+    back = unwrap(res)
+    pcm = opus_over_sound.decode(back) if opus else b""
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_samples = capture.shape[0]
+    if res.steps.detected.shape != (n_samples // CHUNK,) or back != frames:
+        raise AssertionError(f"example-opus: {len(back)} of {len(frames)} frames back, "
+                             f"{int(res.carry.decode_errors)} decode errors")
+    if opus:
+        x = np.frombuffer(pcm, np.int16).astype(np.float64)
+        if not float(np.sqrt(np.mean(x**2))) > 1000:
+            raise AssertionError("example-opus: the decoded audio is silent")
+    log(f"example-opus: {json.dumps({'opus': opus, 'frames': len(frames), 'frame_len': padded.shape[1]})}")
+    log_demo("example-opus", n_samples, cfg.sample_rate_hz, dt)
+
+
 LAN_UDP_PORT = 48877  # the lan phase's discovery port on 127.0.0.1 (TCP: port 0)
 LAN_SECONDS = 10.0
 LAN_RATE = 48_000
@@ -2310,6 +2478,15 @@ PATHS = {
     "sharded-grid": (MODEL, phase_sharded_grid, ("sync_search_fused", "demod_at_fused")),
     "sharded-dynamic": (MODEL, phase_sharded_dynamic, ("sync_search_fused", "demod_at_fused")),
     "cli": (MODEL, phase_cli, ("tone_energies_fused", "sync_search_fused")),
+    "example-file": (MODEL, phase_example_file, ("sync_search_fused", "demod_at_fused")),
+    "example-adaptive": (
+        "ofdm-coded",
+        phase_example_adaptive,
+        ("tone_energies_fused", "sync_search_fused", "ofdm_track_decide_fused", "viterbi_trellis"),
+    ),
+    "example-opus": (
+        "ofdm-coded", phase_example_opus, ("sync_search_fused", "ofdm_track_decide_fused", "viterbi_trellis"),
+    ),
 }
 
 

@@ -26,6 +26,8 @@ def test_port_imports_no_jax_and_no_anet():
         "anet_torch.proto", "anet_torch.codec", "anet_torch.net", "anet_torch.net.native",
         "anet_torch.tx", "anet_torch.rx", "anet_torch.obs", "anet_torch.obs.profiling",
         "anet_torch.utils", "anet_torch.config",
+        "anet_torch.examples", "anet_torch.examples.file_over_sound",
+        "anet_torch.examples.adaptive_modem", "anet_torch.examples.opus_over_sound",
     } <= set(modules)
     code = (
         "import importlib, sys\n"

@@ -665,6 +665,38 @@ def test_cuda_search_blockmax_matches_plain_version(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_search_reads_no_template_energy_to_the_host(cuda, dtype):
+    """Both searches with the template energy as the stream passes it (a
+    float32 scalar on the card, summed there) under
+    torch.cuda.set_sync_debug_mode("error"), for the stream's template and
+    for a fresh one (its words made on this call): no value read to the
+    host, no wait for the card, and bits equal to the float form's."""
+    rng = np.random.default_rng(86)
+    starts = np.array([3, 126, 127, 128, 129, 1000, 4000], np.int32)
+    length = tstream._buffer_len(CFG, CHUNK, PAY)
+    buf = torch.from_numpy(_buffer(rng, starts, length)).to(cuda, dtype)
+    template, t_c = tstream._templates(CFG, dtype, cuda)
+    fresh = t_c.clone()
+    k = t_c.shape[-1]
+    seg = buf[:, 1 : 1 + CHUNK + k - 1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [(tk.sync_search_fused(seg, t, CHUNK, (template * template).sum()),
+                tk.sync_search_blockmax(seg, t, CHUNK, (template * template).sum()))
+               for t in (t_c, fresh)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    te = float((template * template).sum())
+    want_q, want_i = tk.sync_search_fused(seg, t_c, CHUNK, te)
+    want_bm = tk.sync_search_blockmax(seg, t_c, CHUNK, te)
+    for (q, i), bm in got:
+        assert torch.equal(q, want_q) and torch.equal(i, want_i) and torch.equal(bm, want_bm)
+    assert torch.equal(want_i.cpu(), torch.from_numpy(starts - 1))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded"])
 def test_cuda_int8_receivers_match_cpu(cuda, model):
     """The int8 locked stream on the card (mfsk16-fast: the merged kernel's

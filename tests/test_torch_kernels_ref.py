@@ -620,6 +620,36 @@ def test_sync_search_blockmax_ref_matches_pallas(dtype):
         tk.sync_search_blockmax(seg_t, tpl_t, CHUNK - 1, te)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_search_template_energy_as_tensor_or_float(dtype):
+    """Both searches take the template energy as a float or as a float32
+    scalar tensor (how the stream passes it), with bit-equal results; the
+    launch operand of a tensor is a float32 scalar tensor passed by address
+    and no value (the card reads it there: no host read), of a float the
+    value and a null pointer."""
+    tdt, _ = _DTYPES[dtype]
+    rng = np.random.default_rng(56)
+    k = CFG.preamble_samples
+    seg = torch.from_numpy(_buffer(rng, [3, 1500, 4000, 130], CHUNK + k - 1)).to(tdt)
+    tpl = torch.from_numpy(np.array(j_preamble(JCFG), np.float32)).to(tdt)
+    te_t = (tpl.float() ** 2).sum()
+    te_f = float(te_t)
+    q, i = tk.sync_search_fused(seg, tpl, CHUNK, te_f)
+    q_t, i_t = tk.sync_search_fused(seg, tpl, CHUNK, te_t)
+    assert torch.equal(q, q_t) and torch.equal(i, i_t)
+    bm = tk.sync_search_blockmax(seg, tpl, CHUNK, te_f)
+    assert torch.equal(bm, tk.sync_search_blockmax(seg, tpl, CHUNK, te_t))
+    assert torch.equal(bm.amax(-1), q)
+
+    te, val = tk._energy_operand("search", te_t, te_t.device)
+    assert te is te_t and val == 0.0 and tk._address(te) == te_t.data_ptr()
+    assert tk._energy_operand("search", te_f, te_t.device) == (None, te_f) and tk._address(None) is None
+    te, val = tk._energy_operand("search", te_t.double(), te_t.device)
+    assert te.dtype == torch.float32 and te.dim() == 0 and float(te) == te_f and val == 0.0
+    with pytest.raises(ValueError, match="scalar"):
+        tk._energy_operand("search", te_t.expand(2), te_t.device)
+
+
 @pytest.mark.parametrize(
     "name,dtype",
     [("mfsk16-fast", "bf16"), ("mfsk16-fast", "f32"), ("mfsk4-coded", "f32"),
