@@ -31,7 +31,10 @@ of the quantized paths; complex64 OFDM symbol estimates; any 1-, 2- or
 contiguity, allocates the outputs, launches on
 ``torch.cuda.current_stream()``, raises if the launch reported an error, and
 adds one to ``launch_counts[name]`` (``launch_counts[name + ":int8"]`` for
-an int8 launch). There is no fallback from the kernel to the plain version.
+an int8 launch, ``launch_counts[name + ":f32"]`` for a launch of the
+float32 route of a kernel in ``F32_ROUTES``: float32 data, or float32
+compute for the batch-major filterbank). There is no fallback from the
+kernel to the plain version.
 
 The two search kernels and correlate_fused share one product on the
 tensor cores (``csrc/search_core.cuh``: bf16 ``mma.sync`` with float32
@@ -45,9 +48,14 @@ pipelined span read, the basis packed once a config and dtype in fragment
 order (``_demod_mma_basis``); their float32 buffers keep the CUDA-core
 body. The batch-major filterbank (tone_energies_fused,
 decide_tones_fused) runs that product, with the same two epilogues, on
-rows read in place from every start 0 under bfloat16 compute; float32
-compute, bfloat16 rows included, keeps its CUDA-core body (the route:
-``_filterbank_operands``). demod_probe_fused is a warp-per-stream probe
+rows read in place from every start 0 at sps 32, 64 and 128 with at most
+16 tones: under bfloat16 compute with the bf16 basis; under float32
+compute with the float32 basis as three bf16 terms that sum to it exactly
+(``_demod_split_basis``), bfloat16 rows meeting all three and float32
+rows split on load into three bf16 terms of their own, six of the nine
+products kept, so the I/Q are float32 sums to about 2**-24 (the route:
+``_filterbank_operands``; other geometries take a plain CUDA-core
+kernel). demod_probe_fused is a warp-per-stream probe
 followed by demod_at_fused's kernel (float32: a CUDA-core block a
 stream); probe_at_fused runs the same staged probe (csrc/demod_probe.cu)
 with its span at the probe base and the quality as its epilogue, the
@@ -93,6 +101,9 @@ from anet_torch.dsp.params import ModemConfig
 
 __all__ = [
     "TM_SYMBOL_TILE",
+    "F32_ROUTES",
+    "F32_SPLIT_RTOL",
+    "F32_SPLIT_ATOL",
     "launch_counts",
     "reset_launch_counts",
     "decide_frame_tm",
@@ -131,6 +142,13 @@ _ROW = 128  # samples per row of the probe's row-aligned energy span
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_SPS = (32, 64, 128)
 INT8_BASIS_SCALE = 127.0  # int8 basis and probe template: round(x * 127 / max|x|)
+# The batch-major filterbank's float32-compute route (the three-term split
+# on the tensor cores) against its plain version: each energy within
+# F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's largest
+# plain energy; best and total within the same bounds, tones equal but
+# where the plain version's two largest energies lie that close.
+F32_SPLIT_RTOL = 1e-5
+F32_SPLIT_ATOL = 1e-6
 
 # Launches of each kernel since the last reset_launch_counts(): the proof
 # that a run went through the kernels. Only the CUDA branch of a wrapper
@@ -157,6 +175,16 @@ launch_counts = {
     "demod_probe_fused:int8": 0,
     "gather_rows_fused:int8": 0,
 }
+# The kernels whose float32 route is a design of its own, counted apart
+# under "<name>:f32": a CUDA-core body, the searches' and the correlation's
+# hi + lo split of a float32 segment, or the batch-major filterbank's
+# three-term split (float32 compute).
+F32_ROUTES = (
+    "decide_frame_tm", "sync_search_fused", "demod_at_fused", "demod_probe_fused",
+    "demod_at_energies_fused", "correlate_fused", "decide_tones_tm", "tone_energies_fused",
+    "decide_tones_fused", "sync_search_blockmax",
+)
+launch_counts.update({f"{name}:f32": 0 for name in F32_ROUTES})
 
 
 def reset_launch_counts() -> None:
@@ -170,7 +198,11 @@ def _check_error(err: int, name: str) -> None:
 
 
 def _count_launch(name: str, dtype: torch.dtype | None = None) -> None:
-    launch_counts[f"{name}:int8" if dtype == torch.int8 else name] += 1
+    if dtype == torch.int8:
+        name = f"{name}:int8"
+    elif dtype == torch.float32 and name in F32_ROUTES:
+        name = f"{name}:f32"
+    launch_counts[name] += 1
 
 
 def _check_launch(err: int, name: str, dtype: torch.dtype | None = None) -> None:
@@ -252,23 +284,20 @@ def _demod_mma_tiles(num_tones: int) -> int:
     return 1 if num_tones <= 4 else 2 if num_tones <= 8 else 4
 
 
-@functools.lru_cache(maxsize=16)
-def _demod_mma_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The B operand of the align+demod kernels' tensor-core product
-    (csrc/demod_core.cuh) for bfloat16 or int8 samples, int32 [ks, n, 2,
-    32] with n = _demod_mma_tiles(num_tones). It holds the [sps, 8 n]
-    basis whose column 2c is the cos (I) and 2c + 1 the sin (Q) of tone c,
-    zero columns past num_tones, entries as _plain_basis gives them for
-    samples of ``dtype``. Word [s, t, r, 4 g + i] is the B fragment
-    register r of lane (g, i) at k-step s and n8 tile t; a k-step is 32
-    bytes of samples: for bfloat16 (m16n8k16) the word holds the bf16 pair
-    at rows k = 16 s + 8 r + 2 i + (0, 1), column 8 t + g, the first in the
-    low half; for int8 (m16n8k32, the x127 integer basis) the 4 bytes at
-    rows 32 s + 16 r + 4 i + (0..3), the first in the low byte."""
+def _mma_fragments(config: ModemConfig, plain: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The [sps, 2M] basis ``plain`` (entries exact in ``dtype``, bfloat16
+    or int8) as the B fragments of csrc/demod_core.cuh, int32 [ks, n, 2, 32]
+    with n = _demod_mma_tiles(num_tones): the [sps, 8 n] basis whose column
+    2c is the cos (I) and 2c + 1 the sin (Q) of tone c, zero columns past
+    num_tones. Word [s, t, r, 4 g + i] is the B fragment register r of lane
+    (g, i) at k-step s and n8 tile t; a k-step is 32 bytes of samples: for
+    bfloat16 (m16n8k16) the word holds the bf16 pair at rows k = 16 s + 8 r
+    + 2 i + (0, 1), column 8 t + g, the first in the low half; for int8
+    (m16n8k32, the x127 integer basis) the 4 bytes at rows 32 s + 16 r + 4 i
+    + (0..3), the first in the low byte."""
     m, sps = config.num_tones, config.samples_per_symbol
     n = _demod_mma_tiles(m)
-    plain = _plain_basis(config, dtype, device)  # [sps, 2M]
-    basis = torch.zeros(sps, 8 * n, dtype=torch.float32, device=device)
+    basis = torch.zeros(sps, 8 * n, dtype=torch.float32, device=plain.device)
     basis[:, 0 : 2 * m : 2] = plain[:, :m]
     basis[:, 1 : 2 * m : 2] = plain[:, m:]
     if dtype == torch.int8:
@@ -279,6 +308,40 @@ def _demod_mma_basis(config: ModemConfig, dtype: torch.dtype, device: torch.devi
         raise TypeError(f"the tensor-core filterbank takes bfloat16 or int8 samples, got {dtype}")
     # [s, r, i, e, t, g] -> [s, t, r, g, i, e]: a word's elements e last
     return v.permute(0, 4, 1, 5, 2, 3).contiguous().view(torch.int32).reshape(-1, n, 2, 32)
+
+
+@functools.lru_cache(maxsize=16)
+def _demod_mma_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The B operand of the align+demod kernels' tensor-core product
+    (csrc/demod_core.cuh's OneTerm) for bfloat16 or int8 samples:
+    _mma_fragments of the basis with the entries _plain_basis gives for
+    samples of ``dtype``."""
+    return _mma_fragments(config, _plain_basis(config, dtype, device), dtype)
+
+
+def _split_terms(b: torch.Tensor, n_terms: int = 3) -> list[torch.Tensor]:
+    """float32 ``b`` as bf16 terms, each the bf16 rounding (to nearest) of
+    what the ones before it left: b0 = bf16(b), b1 = bf16(b - b0), b2 =
+    bf16(b - b0 - b1). Each remainder is exact in float32, and three terms
+    sum to every normal float32 exactly (8 + 8 + 8 bits of its 24). Returned
+    as float32 tensors of bf16 values."""
+    terms, rest = [], b
+    for _ in range(n_terms):
+        t = rest.to(torch.bfloat16).float()
+        terms.append(t)
+        rest = rest - t
+    return terms
+
+
+@functools.lru_cache(maxsize=16)
+def _demod_split_basis(config: ModemConfig, device: torch.device) -> torch.Tensor:
+    """The B operand of float32 compute on the tensor cores
+    (csrc/demod_core.cuh's SplitTerms): the float32 basis
+    _plain_basis(config, float32), the CUDA-core kernels' entries, as three
+    bf16 terms that sum to it exactly (_split_terms), each in
+    _demod_mma_basis's fragment order: int32 [3, ks, n, 2, 32]."""
+    terms = _split_terms(_plain_basis(config, torch.float32, device))
+    return torch.stack([_mma_fragments(config, t, torch.bfloat16) for t in terms])
 
 
 def _demod_at_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -582,7 +645,7 @@ def sync_search_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int, t
         *args, out_len, _address(te), te_val, part_q.data_ptr(), part_i.data_ptr(),
         best_q.data_ptr(), best_i.data_ptr(), _stream_handle(dev),
     )
-    _check_launch(err, name)
+    _check_launch(err, name, seg.dtype)
     return best_q, best_i
 
 
@@ -1025,7 +1088,7 @@ def correlate_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int) -> 
         int(words.shape[0] == 2), words.shape[-1], template.shape[-1], out_len, out.data_ptr(),
         _stream_handle(dev),
     )
-    _check_launch(err, name)
+    _check_launch(err, name, seg.dtype)
     return out
 
 
@@ -1084,7 +1147,7 @@ def _decide_tones_tm_launch(config: ModemConfig, data_tm: torch.Tensor):
         err = _entry("decide_tones_tm_mma")(
             data_tm.data_ptr(), b, sps, config.num_tones, s, basis.data_ptr(), *outs
         )
-    _check_launch(err, name)
+    _check_launch(err, name, data_tm.dtype)
     return tone, best, total
 
 
@@ -1264,30 +1327,30 @@ def _ofdm_track_launch(config, z_eq, h_pow, slope0, evm_symbols, with_coherence)
 # --- tone_energies_fused / decide_tones_fused: the batch-major filterbank -----
 
 
-@functools.lru_cache(maxsize=16)
-def _filterbank_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The filterbank kernels' float32 basis for ``dtype`` compute on their
-    CUDA-core routes: _kernel_basis's [sps, 32] where their fast kernels
-    take the geometry (sps in _KERNEL_SPS, at most 16 tones), else the
-    plain [sps, 2M]."""
-    if config.num_tones <= 16 and config.samples_per_symbol in _KERNEL_SPS:
-        return _kernel_basis(config, dtype, device)
-    return _plain_basis(config, dtype, device).contiguous()
-
-
 def _filterbank_operands(kind: str, config: ModemConfig, compute_dtype,
-                         device) -> tuple[str, bool, torch.Tensor]:
-    """(entry point, tensor cores?, basis) of a filterbank launch, ``kind``
+                         device) -> tuple[str, str, torch.Tensor]:
+    """(entry point, route, basis) of a filterbank launch, ``kind``
     "tone_energies" or "decide_tones". The route follows the compute dtype
-    and the geometry, never the rows' dtype: bfloat16 compute at sps in
-    _KERNEL_SPS and at most 16 tones takes the tensor cores (entry ``kind +
-    "_mma"``, basis _demod_mma_basis); float32 compute, bfloat16 rows
-    included, keeps the float32 basis of the CUDA-core entry ``kind``
-    (_filterbank_basis), as does any other geometry."""
+    and the geometry, never the rows' dtype. At sps in _KERNEL_SPS and at
+    most 16 tones both compute dtypes take the tensor cores: bfloat16 the
+    entry ``kind + "_mma"`` (route "mma") with _demod_mma_basis, float32
+    the entry ``kind + "_mma_f32"`` (route "split") with the three-term
+    _demod_split_basis, on bfloat16 or float32 rows alike. Any other
+    geometry takes the plain CUDA-core entry ``kind`` (route "plain") with
+    the [sps, 2M] float32 basis of ``compute_dtype``'s entries."""
     fast = config.num_tones <= 16 and config.samples_per_symbol in _KERNEL_SPS
     if fast and compute_dtype == torch.bfloat16:
-        return f"{kind}_mma", True, _demod_mma_basis(config, torch.bfloat16, device)
-    return kind, False, _filterbank_basis(config, compute_dtype, device)
+        return f"{kind}_mma", "mma", _demod_mma_basis(config, torch.bfloat16, device)
+    if fast:
+        return f"{kind}_mma_f32", "split", _demod_split_basis(config, device)
+    return kind, "plain", _filterbank_basis(config, compute_dtype, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _filterbank_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The plain filterbank kernel's [sps, 2M] float32 basis for ``dtype``
+    compute."""
+    return _plain_basis(config, dtype, device).contiguous()
 
 
 @functools.lru_cache(maxsize=16)
@@ -1298,12 +1361,11 @@ def _zero_starts(n: int, device: torch.device) -> torch.Tensor:
 
 
 def _filterbank_rows(samples: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """The samples as the filterbank kernels read them: as they are where
-    the kernel's float32 load rounds them as ``compute_dtype`` would
-    (bfloat16 samples under float32 compute), else cast to
-    ``compute_dtype``."""
-    widen = samples.dtype == torch.bfloat16 and compute_dtype == torch.float32
-    return samples if widen else samples.to(compute_dtype)
+    """The samples as the filterbank kernels read them: bfloat16 and
+    float32 rows as they are under float32 compute (bfloat16 samples are
+    exact in float32), else cast to ``compute_dtype``."""
+    keep = compute_dtype == torch.float32 and samples.dtype in (torch.bfloat16, torch.float32)
+    return samples if keep else samples.to(compute_dtype)
 
 
 def _filterbank_launch(name: str, kind: str, config: ModemConfig, samples: torch.Tensor, compute_dtype,
@@ -1311,7 +1373,8 @@ def _filterbank_launch(name: str, kind: str, config: ModemConfig, samples: torch
     """Check the samples, allocate ``outputs(lead, S, device)`` and launch
     the filterbank kernel ``kind`` that _filterbank_operands picks on rows
     [R, L] of the samples (a view where the leading dimensions merge, the
-    last dimension contiguous), S whole symbols a row."""
+    last dimension contiguous), S whole symbols a row. A float32-compute
+    launch counts under ``name + ":f32"``."""
     x = _filterbank_rows(samples, compute_dtype)
     sps = config.samples_per_symbol
     s = x.shape[-1] // sps
@@ -1321,18 +1384,19 @@ def _filterbank_launch(name: str, kind: str, config: ModemConfig, samples: torch
     rows = rows if rows.stride(-1) == 1 else rows.contiguous()
     dtype = _check_cuda_input(name, rows, "samples")
     dev, r = rows.device, rows.shape[0]
-    entry, mma, basis = _filterbank_operands(kind, config, compute_dtype, dev)
-    if mma:
+    entry, route, basis = _filterbank_operands(kind, config, compute_dtype, dev)
+    if route == "plain":
+        head = (rows.data_ptr(), dtype, r, rows.stride(0))
+    else:
         if r > 1 and rows.stride(0) < s * sps:  # overlapping rows: the span read needs a pitch >= a row
             rows = rows.contiguous()
-        head = (rows.data_ptr(), r, rows.stride(0), _zero_starts(r, dev).data_ptr())
-    else:
-        head = (rows.data_ptr(), dtype, r, rows.stride(0))
+        span = (r, rows.stride(0), _zero_starts(r, dev).data_ptr())
+        head = (rows.data_ptr(), *span) if route == "mma" else (rows.data_ptr(), dtype, *span)
     outs = outputs(x.shape[:-1], s, dev)
     err = _entry(entry)(
         *head, s, sps, config.num_tones, basis.data_ptr(), *(o.data_ptr() for o in outs), _stream_handle(dev),
     )
-    _check_launch(err, name)
+    _check_launch(err, name, compute_dtype)
     return outs
 
 
@@ -1350,9 +1414,10 @@ def tone_energies_fused(config: ModemConfig, samples: torch.Tensor, *, compute_d
     to ``compute_dtype`` (float32 or bfloat16), as the reference's operands
     do; the product runs in float32. Rows may be strided (a view past the
     preamble of whole frames) as long as the last dimension is contiguous.
-    Any geometry: sps 32, 64 or 128 with at most 16 tones take the fast
-    kernels (bfloat16 compute on the tensor cores), the rest a plain one
-    (one warp a symbol)."""
+    Any geometry: sps 32, 64 or 128 with at most 16 tones take the tensor
+    cores (float32 compute as a three-term bf16 split of the operands, the
+    energies within 1e-5 of each plus 1e-6 of the symbol's largest of the
+    plain version's), the rest a plain kernel (one warp a symbol)."""
     if samples.device.type == "cpu":
         return tone_energies_fused_ref(config, samples, compute_dtype=compute_dtype)
     m = config.num_tones
@@ -1421,7 +1486,7 @@ def sync_search_blockmax(seg: torch.Tensor, template: torch.Tensor, out_len: int
     err = _entry("search_blockmax")(
         *args, out_len, _address(te), te_val, out.data_ptr(), _stream_handle(seg.device),
     )
-    _check_launch(err, name)
+    _check_launch(err, name, seg.dtype)
     return out
 
 

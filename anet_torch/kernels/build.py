@@ -97,6 +97,12 @@ SIGNATURES = {
     "decide_tones_mma": (
         "anet_decide_tones_mma", [_P, _I, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P], "tone_energies",
     ),
+    "tone_energies_mma_f32": (
+        "anet_tone_energies_mma_f32", [_P, _I, _I, _L, _P, _I, _I, _I, _P, _P, _P], "tone_energies",
+    ),
+    "decide_tones_mma_f32": (
+        "anet_decide_tones_mma_f32", [_P, _I, _I, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P], "tone_energies",
+    ),
     "search_blockmax": (
         "anet_search_blockmax",
         [_P, _I, _I, _L, _I, _P, _I, _I, _I, _I, _P, ctypes.c_float, _P, _P],

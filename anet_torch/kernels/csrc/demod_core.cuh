@@ -1,7 +1,8 @@
 // The align+demod filterbank on the tensor cores, shared by demod_at.cu and
 // demod_at_energies.cu (their bfloat16 and int8 instantiations; float32
-// buffers keep common.cuh's CUDA-core body) and tone_energies.cu (its
-// bfloat16-compute kernels, every start at 0).
+// buffers keep common.cuh's CUDA-core body) and tone_energies.cu (every
+// start at 0: bfloat16 compute, and float32 compute on bfloat16 or float32
+// rows).
 //
 // For stream b the data section starts at sample d0 = start[b] + pre of its
 // buffer row, rows len samples apart (a PitchedSpan's `pitch` apart, pitch
@@ -18,11 +19,25 @@
 //   float32, the sum is taken in another order than the plain version's) or
 //   m16n8k32 s8 x s8 -> s32 (the x127 integer basis: exact int32 I/Q, equal
 //   to the reference's sums, below 2^24, so exact as floats too). The A
-//   tile is 16 symbols x 32 bytes of samples a k-step. n_tiles is a
-//   template argument: 1 for M <= 4 tones, 2 for M <= 8, 4 for M <= 16.
-// - B: the wrapper packs the basis once a config and dtype in fragment
-//   order (kernels._demod_mma_basis: word [ks][t][r][lane]); every lane
-//   keeps its k-steps x n_tiles x 2 registers for the whole launch.
+//   tile is 16 symbols x 16 (bf16, float32) or 32 (int8) samples a k-step.
+//   n_tiles is a template argument: 1 for M <= 4 tones, 2 for M <= 8, 4 for
+//   M <= 16.
+// - B, in one of three forms, packed by the wrapper once a config and
+//   device in fragment order (word [ks][t][r][lane]), the product type of
+//   the walk (walk_with's P):
+//   - OneTerm: the bf16 or the x127 int8 basis (kernels._demod_mma_basis);
+//     every lane keeps its k-steps x n_tiles x 2 registers for the whole
+//     launch.
+//   - SplitTerms (float32 compute): the float32 basis as three bf16 terms,
+//     b = b0 + b1 + b2 exactly (kernels._demod_split_basis, [3, ks, n, 2,
+//     32]); b0 in registers, b1 and b2 in shared memory, one copy a block.
+//     bf16 samples meet all three (3 products a k-step and n-tile). float32
+//     samples, staged as float32, are split in registers into a0 + a1 + a2
+//     the same way (a_split) and keep the six products a_i b_j with
+//     i + j <= 2: the float32 sums to about 2^-24. The tensor cores align a
+//     sum's addends to the largest and truncate the rest, so a0 b0 sums in
+//     one accumulator and the smaller products in another, smallest first,
+//     added in float32 before the energy.
 // - The span read: each warp walks (stream, tile) items, a tile SYMS
 //   symbols (about 2 KB of samples), and keeps STAGES - 1 tiles' loads in
 //   flight in its own ring of shared memory: 16-byte cp.async copies of the
@@ -32,14 +47,18 @@
 //   chunk, and a chunk wholly outside the row reads nothing; bytes before
 //   the row's start (a negative position) are zeroed after the copy
 //   lands.
-// - Shared memory: the span's 16-byte chunks in rows of one symbol's bytes
+// - Shared memory: the product's (SplitTerms: b1 and b2), then each
+//   warp's ring: the span's 16-byte chunks in rows of one symbol's bytes
 //   plus 16 of pad, so the 8 symbols of an A fragment lie in 8 distinct
-//   bank groups. The span starts rb bytes into its first chunk; a lane's A
-//   register is 4 bytes at byte rb + 4 i (+ 16 for a2/a3) of its symbol's
-//   k-step, built from the two aligned words around it with one
-//   __funnelshift_r by 8 (rb mod 4) bits: no per-sample staging pass.
+//   bank groups. The span starts rb bytes into its first chunk; a lane's
+//   bf16 or int8 A register is 4 bytes at byte rb + 4 i (+ 16 for a2/a3) of
+//   its symbol's k-step, built from the two aligned words around it with
+//   one __funnelshift_r by 8 (rb mod 4) bits: no per-sample staging pass;
+//   a float32 one is the two samples at rb + 8 i, rb being a multiple of 4.
 //
-// The warps of a block share nothing: each syncs with __syncwarp only.
+// The warps of a block share nothing but SplitTerms' b1 and b2, staged before
+// the walk behind the one __syncthreads; each warp then syncs with
+// __syncwarp only.
 #pragma once
 
 #include "common.cuh"
@@ -186,57 +205,211 @@ __device__ __forceinline__ void fetch(const SP& sp, int j, unsigned char* stage,
   cp_async_commit();
 }
 
-// I/Q accumulators of the m16 tile whose row 0 is `rows` (symbol g of the
-// tile at rows + g * ROW): acc[t] is n-tile t's C fragment.
-template <typename T, int SPS, int NT>
-__device__ __forceinline__ void iq_tile(const unsigned char* rows, int x0, int sh,
-                                        const uint32_t (&bf)[Shape<T, SPS>::KS][NT][2],
-                                        typename Acc<T>::type (&acc)[NT][4]) {
+// A fragment of k-step ks for the m16 tile whose row 0 is `rows` (symbol g
+// of the tile at rows + g * ROW), from a span of bf16 or int8 samples: word
+// x0 = (rb >> 2) + lane % 4 of the symbol's span, shifted right by sh bits.
+template <typename T, int SPS>
+__device__ __forceinline__ void a_frag(const unsigned char* rows, int x0, int sh, int ks,
+                                       uint32_t (&a)[4]) {
   using S = Shape<T, SPS>;
 #pragma unroll
-  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0;
+  for (int hk = 0; hk < 2; ++hk) {
+    // word x of the symbol's span (x >= WPS: the next row, past its pad)
+    const int x = x0 + 8 * ks + 4 * hk;
+    const int o0 = 4 * x + (x >= S::WPS ? 16 : 0);
+    const int o1 = 4 * (x + 1) + (x + 1 >= S::WPS ? 16 : 0);
 #pragma unroll
-  for (int ks = 0; ks < S::KS; ++ks) {
-    uint32_t a[4];
+    for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+      const unsigned char* r = rows + h * 8 * S::ROW;
+      const uint32_t lo = *reinterpret_cast<const uint32_t*>(r + o0);
+      const uint32_t hi = *reinterpret_cast<const uint32_t*>(r + o1);
+      a[2 * hk + h] = __funnelshift_r(lo, hi, sh);
+    }
+  }
+}
+
+// The B operand and the product of a walk, one term: the basis of bf16 or
+// int8 samples (kernels._demod_mma_basis) held in registers for the whole
+// launch. energies() gives e[t][h], the energy of tone 4 t + (lane % 4) of
+// tile row lane / 4 + 8 h, from the m16 tile whose row 0 is `rows`; x0 =
+// (rb >> 2) + lane % 4 and sh = 8 (rb % 4) place the span in its first
+// chunk.
+template <typename T, int SPS, int NT_>
+struct OneTerm {
+  using S = Shape<T, SPS>;
+  static constexpr int NT = NT_;
+  static constexpr int SMEM = 0;  // shared memory it takes before the warps' rings
+  uint32_t bf[S::KS][NT][2];
+
+  __device__ __forceinline__ OneTerm(const uint32_t* __restrict__ basis, unsigned char*) {
+    const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int hk = 0; hk < 2; ++hk) {
-      // word x of the symbol's span (x >= WPS: the next row, past its pad)
-      const int x = x0 + 8 * ks + 4 * hk;
-      const int o0 = 4 * x + (x >= S::WPS ? 16 : 0);
-      const int o1 = 4 * (x + 1) + (x + 1 >= S::WPS ? 16 : 0);
+    for (int ks = 0; ks < S::KS; ++ks)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows g and g + 8
-        const unsigned char* r = rows + h * 8 * S::ROW;
-        const uint32_t lo = *reinterpret_cast<const uint32_t*>(r + o0);
-        const uint32_t hi = *reinterpret_cast<const uint32_t*>(r + o1);
-        a[2 * hk + h] = __funnelshift_r(lo, hi, sh);
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) bf[ks][t][r] = basis[((ks * NT + t) * 2 + r) * 32 + lane];
+  }
+
+  __device__ __forceinline__ void energies(const unsigned char* rows, int x0, int sh, int,
+                                           float (&e)[NT][2]) const {
+    typename Acc<T>::type acc[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0;
+#pragma unroll
+    for (int ks = 0; ks < S::KS; ++ks) {
+      uint32_t a[4];
+      a_frag<T, SPS>(rows, x0, sh, ks, a);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) mma(acc[t], a, bf[ks][t][0], bf[ks][t][1]);
+    }
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      e[u][0] = tone_energy((float)acc[u][0], (float)acc[u][1]);
+      e[u][1] = tone_energy((float)acc[u][2], (float)acc[u][3]);
+    }
+  }
+};
+
+// The bf16 pair (lo, hi) rounded to nearest in one word, lo in the low half,
+// and what the rounding left of each, exact in float32.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi, float& rlo, float& rhi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  const float2 q = __bfloat1622float2(p);
+  rlo = lo - q.x;
+  rhi = hi - q.y;
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The A fragments of k-step ks from a span of float32 samples, split into
+// three bf16 terms whose sum is each sample exactly: a0 = bf16(x), a1 =
+// bf16(x - a0), a2 = bf16(x - a0 - a1). x0 = (rb >> 2) + 2 (lane % 4): the
+// two samples of a lane's register are two words.
+template <int SPS>
+__device__ __forceinline__ void a_split(const unsigned char* rows, int x0, int ks, uint32_t (&a0)[4],
+                                        uint32_t (&a1)[4], uint32_t (&a2)[4]) {
+  using S = Shape<float, SPS>;
+#pragma unroll
+  for (int hk = 0; hk < 2; ++hk) {
+    // samples x and x + 1 of the symbol's span (x >= WPS: the next row)
+    const int x = x0 + 16 * ks + 8 * hk;
+    const int o0 = 4 * x + (x >= S::WPS ? 16 : 0);
+    const int o1 = 4 * (x + 1) + (x + 1 >= S::WPS ? 16 : 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+      const unsigned char* r = rows + h * 8 * S::ROW;
+      float lo = *reinterpret_cast<const float*>(r + o0);
+      float hi = *reinterpret_cast<const float*>(r + o1);
+      a0[2 * hk + h] = bf16_pair(lo, hi, lo, hi);
+      a1[2 * hk + h] = bf16_pair(lo, hi, lo, hi);
+      a2[2 * hk + h] = bf16_pair(lo, hi, lo, hi);
+    }
+  }
+}
+
+// The B operand and the product of a walk for float32 compute: the float32
+// basis as three bf16 terms, b = b0 + b1 + b2 exactly
+// (kernels._demod_split_basis: int32 [3, ks, n, 2, 32], each term in
+// OneTerm's fragment order). b0 stays in registers; b1 and b2 are staged
+// once a block in shared memory, a lane's four words of a (k-step, n-tile)
+// one 16-byte vector. T is the staged sample type: bf16 rows are exact in
+// bf16 and meet all three terms (3 products a k-step and n-tile); float32
+// rows are split in registers (a_split) and keep the six products
+// a_i b_j with i + j <= 2 (the three dropped are below 2^-24 |a| |b|).
+// Every product is exact in float32. The tensor cores align a sum's
+// addends to its largest and truncate the rest, so a0 b0 sums in an
+// accumulator of its own and the smaller products in a second one,
+// smallest first; the two add on the CUDA cores before the energy. (Adding
+// each k-step's a0 b0 from zero into a float32 sum on the CUDA cores
+// instead left the errors against the plain version of the same size on
+// the H100, whose own float32 rounding is as large, and was slower.)
+template <typename T, int SPS, int NT_>
+struct SplitTerms {
+  static_assert(std::is_same<T, __nv_bfloat16>::value || std::is_same<T, float>::value,
+                "the split route takes bf16 or float32 samples");
+  using S = Shape<T, SPS>;
+  static constexpr int NT = NT_;
+  static constexpr int KS = SPS / 16;                 // m16n8k16 k-steps a symbol
+  static constexpr int SMEM = KS * NT * 32 * 16;      // b1 and b2
+  uint32_t b0[KS][NT][2];
+  const uint4* b12;
+
+  __device__ __forceinline__ SplitTerms(const uint32_t* __restrict__ basis, unsigned char* smem) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) b0[ks][t][r] = basis[((ks * NT + t) * 2 + r) * 32 + lane];
+    uint4* s = reinterpret_cast<uint4*>(smem);
+    const uint32_t* t1 = basis + KS * NT * 64;
+    const uint32_t* t2 = t1 + KS * NT * 64;
+    for (int j = threadIdx.x; j < KS * NT * 32; j += THREADS) {
+      const int w = (j >> 5) * 64 + (j & 31);  // (k-step, n-tile) j / 32, lane j % 32, register 0
+      s[j] = make_uint4(t1[w], t1[w + 32], t2[w], t2[w + 32]);
+    }
+    __syncthreads();  // the only block-wide sync: before any warp's walk
+    b12 = s;
+  }
+
+  __device__ __forceinline__ void energies(const unsigned char* rows, int x0, int sh, int lane,
+                                           float (&e)[NT][2]) const {
+    float big[NT][4], small[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) big[t][c] = small[t][c] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (std::is_same<T, float>::value) {
+        uint32_t a0[4], a1[4], a2[4];
+        a_split<SPS>(rows, x0 + (lane & 3), ks, a0, a1, a2);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const uint4 v = b12[(ks * NT + t) * 32 + lane];
+          mma(small[t], a2, b0[ks][t][0], b0[ks][t][1]);  // about 2^-16 |a| |b| each
+          mma(small[t], a1, v.x, v.y);
+          mma(small[t], a0, v.z, v.w);
+          mma(small[t], a1, b0[ks][t][0], b0[ks][t][1]);  // about 2^-8
+          mma(small[t], a0, v.x, v.y);
+          mma(big[t], a0, b0[ks][t][0], b0[ks][t][1]);
+        }
+      } else {
+        uint32_t a[4];
+        a_frag<T, SPS>(rows, x0, sh, ks, a);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const uint4 v = b12[(ks * NT + t) * 32 + lane];
+          mma(small[t], a, v.z, v.w);  // a b2, about 2^-16 |a| |b|
+          mma(small[t], a, v.x, v.y);  // a b1, about 2^-8
+          mma(big[t], a, b0[ks][t][0], b0[ks][t][1]);
+        }
       }
     }
 #pragma unroll
-    for (int t = 0; t < NT; ++t) mma(acc[t], a, bf[ks][t][0], bf[ks][t][1]);
+    for (int u = 0; u < NT; ++u) {
+      e[u][0] = tone_energy(big[u][0] + small[u][0], big[u][1] + small[u][1]);
+      e[u][1] = tone_energy(big[u][2] + small[u][2], big[u][3] + small[u][3]);
+    }
   }
-}
+};
 
 // Every warp of the grid walks items blockIdx.x * WARPS + warp, + the
 // grid's warp count, ...; for each m16 tile of an item with live symbols
 // it calls epi(b, s, e): e[t][h] is the energy of tone 4 t + (lane % 4) of
 // symbol s + lane / 4 + 8 h of stream b (s + ... may pass n_symbols: the
-// epilogue masks).
-template <typename T, int SPS, int NT, typename SP, typename Epilogue>
-__device__ __forceinline__ void walk(const SP& sp, const uint32_t* __restrict__ basis,
-                                     Epilogue&& epi) {
+// epilogue masks). P is the B operand and product (OneTerm, SplitTerms)
+// over the staged samples of type T; its shared memory comes first.
+template <typename T, int SPS, typename P, typename SP, typename Epilogue>
+__device__ __forceinline__ void walk_with(const SP& sp, const uint32_t* __restrict__ basis,
+                                          Epilogue&& epi) {
   using S = Shape<T, SPS>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, i = lane & 3;
-  unsigned char* ring = smem + warp * (STAGES * S::STAGE);
-  uint32_t bf[S::KS][NT][2];
-#pragma unroll
-  for (int ks = 0; ks < S::KS; ++ks)
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) bf[ks][t][r] = basis[((ks * NT + t) * 2 + r) * 32 + lane];
+  unsigned char* ring = smem + P::SMEM + warp * (STAGES * S::STAGE);
+  const P prod(basis, smem);
 
   const int step = gridDim.x * WARPS;
   int j = blockIdx.x * WARPS + warp;
@@ -260,20 +433,22 @@ __device__ __forceinline__ void walk(const SP& sp, const uint32_t* __restrict__ 
 #pragma unroll
     for (int mt = 0; mt < S::MT; ++mt) {
       if (16 * mt < t.n) {
-        typename Acc<T>::type acc[NT][4];
-        iq_tile<T, SPS, NT>(stage + (16 * mt + g) * S::ROW, x0, sh, bf, acc);
-        float e[NT][2];
-#pragma unroll
-        for (int u = 0; u < NT; ++u) {
-          e[u][0] = tone_energy((float)acc[u][0], (float)acc[u][1]);
-          e[u][1] = tone_energy((float)acc[u][2], (float)acc[u][3]);
-        }
+        float e[P::NT][2];
+        prod.energies(stage + (16 * mt + g) * S::ROW, x0, sh, lane, e);
         epi(t.b, t.s0 + 16 * mt, e);
       }
     }
     __syncwarp();  // the stage is read: the next iteration's copies may land in it
   }
   cp_async_wait<0>();
+}
+
+// walk_with the one-term product: bf16 or int8 samples, the basis of
+// kernels._demod_mma_basis.
+template <typename T, int SPS, int NT, typename SP, typename Epilogue>
+__device__ __forceinline__ void walk(const SP& sp, const uint32_t* __restrict__ basis,
+                                     Epilogue&& epi) {
+  walk_with<T, SPS, OneTerm<T, SPS, NT>>(sp, basis, epi);
 }
 
 // walk's two epilogues, shared by every kernel that runs it.
@@ -348,11 +523,12 @@ __device__ __forceinline__ void store_energies(int b, int s, const float (&e)[NT
 // per WARPS items at most and no more blocks than fit the card at once
 // (the warps walk the rest). `resident` is the caller's cache of that
 // count, one per kernel: 0 on the first call, which also sets the kernel's
-// dynamic shared memory limit.
-template <typename T, int SPS, typename Kernel>
+// dynamic shared memory limit. EXTRA: the product's shared memory (P::SMEM).
+template <typename T, int SPS, int EXTRA, typename Kernel>
 inline cudaError_t plan(Kernel kernel, int& resident, const void* buf, int B, long long len,
                         const void* start, int pre, int n_symbols, Span& sp, int& grid) {
   using S = Shape<T, SPS>;
+  constexpr int smem = S::SMEM + EXTRA;
   const int tiles = (n_symbols + S::SYMS - 1) / S::SYMS;
   const long long items = (long long)B * tiles;
   if (items > (1LL << 30)) return cudaErrorInvalidValue;  // the walk counts items in int
@@ -361,9 +537,9 @@ inline cudaError_t plan(Kernel kernel, int& resident, const void* buf, int B, lo
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, S::SMEM);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     resident = sms * per_sm;
@@ -378,15 +554,15 @@ inline cudaError_t plan(Kernel kernel, int& resident, const void* buf, int B, lo
 // plan, then launch `kernel` (whose first argument is the Span, or the
 // PitchedSpan of rows `pitch` samples apart) with `args` on stream st.
 // `resident` as plan takes it: a static of the caller's, one per kernel
-// instantiation.
-template <typename T, int SPS, typename SP, typename... KArgs, typename... Args>
+// instantiation; EXTRA the shared memory of its product before the rings.
+template <typename T, int SPS, int EXTRA = 0, typename SP, typename... KArgs, typename... Args>
 inline cudaError_t launch(void (*kernel)(SP, KArgs...), int& resident, const void* buf, int B,
                           long long pitch, long long len, const void* start, int pre,
                           int n_symbols, cudaStream_t st, Args... args) {
   SP sp;
   int grid = 0;
   const cudaError_t err =
-      plan<T, SPS>(kernel, resident, buf, B, len, start, pre, n_symbols, sp, grid);
+      plan<T, SPS, EXTRA>(kernel, resident, buf, B, len, start, pre, n_symbols, sp, grid);
   if (err != cudaSuccess) return err;
   if constexpr (std::is_same<SP, PitchedSpan>::value) {
     if (pitch < len) return cudaErrorInvalidValue;
@@ -394,7 +570,7 @@ inline cudaError_t launch(void (*kernel)(SP, KArgs...), int& resident, const voi
   } else if (pitch != len) {
     return cudaErrorInvalidValue;  // a Span's rows are back to back
   }
-  kernel<<<grid, THREADS, Shape<T, SPS>::SMEM, st>>>(sp, args...);
+  kernel<<<grid, THREADS, Shape<T, SPS>::SMEM + EXTRA, st>>>(sp, args...);
   return cudaGetLastError();
 }
 

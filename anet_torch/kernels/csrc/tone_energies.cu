@@ -14,37 +14,43 @@
 // What bounds it on the H100: bytes. At the aligned batch-major path
 // (16,384 mfsk16-fast frames of 536 data symbols, sps 64, bf16) the read is
 // 1.12 GB; the energies write 0.56 GB more (0.50 ms in all at 3.35 TB/s),
-// the decisions 0.11 GB (0.37 ms). The filterbank's 2 x 32 x sps flops a
-// symbol (36 GFLOP at that size) take 0.04 ms on the tensor cores.
+// the decisions 0.11 GB (0.37 ms); float32 rows double the read (0.84 ms
+// with the energies). The filterbank's 2 x 32 x sps flops a symbol (36
+// GFLOP at that size) take 0.04 ms on the tensor cores, 0.11 ms as float32
+// compute's three products on bf16 rows, 0.22 ms as its six on float32
+// rows.
 //
 // Design: three routes, which the wrapper picks from the compute dtype and
-// the geometry, never from the rows' dtype (bfloat16 rows under float32
-// compute are widened on load and meet the float32 basis), and names to
-// the C entry it calls:
-// - bfloat16 compute, sps 32, 64 or 128, at most 16 tones (the *_mma
-//   entries): the align+demod filterbank of demod_core.cuh with every start
-//   at 0. The rows are its PitchedSpan: buf the first row, pitch the row
-//   stride, len the row's whole symbols (n_symbols * sps), start a zero
-//   vector, pre 0. Each warp walks (row, tile of symbols) items with its
-//   own ring of 16-byte cp.async chunks aligned down, so rows at any pitch
-//   and 16-byte residue take full-width loads; a tile copies only its live
-//   symbols' chunks, and each copy stops at len: no read passes a row's
-//   last whole symbol, into the gap after it or past the allocation's end.
-//   16 symbols x sps samples are an mma.sync A tile against the basis held
-//   in registers as B fragments (kernels._demod_mma_basis); the epilogues
-//   are demod_core.cuh's store_energies and store_decisions, those of
-//   demod_at_energies_fused and demod_at_fused.
-// - float32 compute, same geometry: one block per (row, tile of 64
-//   symbols) on the CUDA cores. The tile's samples are staged in shared
-//   memory as float32; lane c of each warp holds basis column c (cos of
-//   tone c in lanes 0..15, sin in 16..31, [sps, 32] float32) in registers,
-//   each warp takes one symbol at a time, and one shuffle brings Q beside
-//   I (energies_symbols, demod_symbols and tone_reduce16 in common.cuh).
+// the geometry, never from the rows' dtype, and names to the C entry it
+// calls (kernels._filterbank_operands):
+// - sps 32, 64 or 128 and at most 16 tones: the align+demod filterbank of
+//   demod_core.cuh with every start at 0, on the tensor cores. The rows are
+//   its PitchedSpan: buf the first row, pitch the row stride, len the row's
+//   whole symbols (n_symbols * sps), start a zero vector, pre 0. Each warp
+//   walks (row, tile of symbols) items with its own ring of 16-byte
+//   cp.async chunks aligned down, so rows at any pitch and 16-byte residue
+//   take full-width loads; a tile copies only its live symbols' chunks, and
+//   each copy stops at len: no read passes a row's last whole symbol, into
+//   the gap after it or past the allocation's end. 16 symbols x sps
+//   samples are an mma.sync A tile; the epilogues are demod_core.cuh's
+//   store_energies and store_decisions, those of demod_at_energies_fused
+//   and demod_at_fused.
+//   - bfloat16 compute (the *_mma entries): bf16 rows against the bf16
+//     basis in registers (OneTerm, kernels._demod_mma_basis).
+//   - float32 compute (the *_mma_f32 entries): the float32 basis as three
+//     bf16 terms that sum to it exactly (SplitTerms,
+//     kernels._demod_split_basis), b0 in registers, b1 and b2 in shared
+//     memory. The rows' dtype picks the A form: bf16 rows are exact in bf16
+//     and meet the three terms; float32 rows are staged as float32 in the
+//     same ring and split in registers into three bf16 terms, six of the
+//     nine products kept. Each product is exact in float32; the largest
+//     sums in an accumulator of its own, as the tensor cores truncate what
+//     they add below a sum's largest addend.
 // - any other geometry (sps 48 of mfsk8-audible, the 32 tones of
 //   mfsk32-dense), either compute dtype: a plain kernel, one warp per
 //   symbol, its samples staged in shared memory, lane c summing the I and
 //   Q of tones c, c + 32, ... over the samples in order from the [sps, 2M]
-//   basis (cos columns, then sin).
+//   basis (cos columns, then sin), on the CUDA cores.
 // The TPU kernels' flattened [T, sps] windows and their zero padding to
 // 512-symbol tiles are not carried over.
 #include "demod_core.cuh"
@@ -53,26 +59,27 @@ namespace {
 
 constexpr int THREADS = anet::DEMOD_THREADS;
 
-// bfloat16 compute on the tensor cores: demod_core.cuh's walk over the
-// rows with one of its two epilogues.
-template <int SPS, int NT>
+// The tensor-core kernels: demod_core.cuh's walk over the rows, T the
+// staged samples and P the product (OneTerm: bf16 compute; SplitTerms:
+// float32 compute), with one of its two epilogues.
+template <typename T, int SPS, typename P>
 __global__ void __launch_bounds__(anet::demod::THREADS)
 tone_energies_mma(anet::demod::PitchedSpan sp, int m, const uint32_t* __restrict__ basis,
                   float* __restrict__ energies) {
   const int n_symbols = sp.n_symbols;
-  anet::demod::walk<__nv_bfloat16, SPS, NT>(sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
-    anet::demod::store_energies<NT>(b, s, e, n_symbols, m, energies);
+  anet::demod::walk_with<T, SPS, P>(sp, basis, [&](int b, int s, const float (&e)[P::NT][2]) {
+    anet::demod::store_energies<P::NT>(b, s, e, n_symbols, m, energies);
   });
 }
 
-template <int SPS, int NT>
+template <typename T, int SPS, typename P>
 __global__ void __launch_bounds__(anet::demod::THREADS)
 decide_tones_mma(anet::demod::PitchedSpan sp, const uint32_t* __restrict__ basis,
                  int32_t* __restrict__ tone, float* __restrict__ best,
                  float* __restrict__ total) {
   const int n_symbols = sp.n_symbols;
-  anet::demod::walk<__nv_bfloat16, SPS, NT>(sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
-    anet::demod::store_decisions<NT>(b, s, e, n_symbols, tone, best, total);
+  anet::demod::walk_with<T, SPS, P>(sp, basis, [&](int b, int s, const float (&e)[P::NT][2]) {
+    anet::demod::store_decisions<P::NT>(b, s, e, n_symbols, tone, best, total);
   });
 }
 
@@ -87,29 +94,35 @@ struct MmaArgs {
   cudaStream_t st;
 };
 
-template <int SPS, int NT, bool DECIDE>
+template <typename T, int SPS, typename P, bool DECIDE>
 cudaError_t launch_mma(const MmaArgs& a) {
   static int resident = 0;  // one per kernel instantiation
   const uint32_t* basis = static_cast<const uint32_t*>(a.basis);
   if constexpr (DECIDE)
-    return anet::demod::launch<__nv_bfloat16, SPS>(
-        decide_tones_mma<SPS, NT>, resident, a.x, a.R, a.pitch, a.len, a.start, 0, a.n_symbols,
+    return anet::demod::launch<T, SPS, P::SMEM>(
+        decide_tones_mma<T, SPS, P>, resident, a.x, a.R, a.pitch, a.len, a.start, 0, a.n_symbols,
         a.st, basis, static_cast<int32_t*>(a.out0), static_cast<float*>(a.out1),
         static_cast<float*>(a.out2));
   else
-    return anet::demod::launch<__nv_bfloat16, SPS>(
-        tone_energies_mma<SPS, NT>, resident, a.x, a.R, a.pitch, a.len, a.start, 0, a.n_symbols,
+    return anet::demod::launch<T, SPS, P::SMEM>(
+        tone_energies_mma<T, SPS, P>, resident, a.x, a.R, a.pitch, a.len, a.start, 0, a.n_symbols,
         a.st, a.m, basis, static_cast<float*>(a.out0));
 }
 
-template <int SPS, bool DECIDE>
+// The product of a route: SPLIT false, bfloat16 compute (one term); true,
+// float32 compute (three terms) on T rows.
+template <typename T, int SPS, int NT, bool SPLIT>
+using Product = typename std::conditional<SPLIT, anet::demod::SplitTerms<T, SPS, NT>,
+                                          anet::demod::OneTerm<T, SPS, NT>>::type;
+
+template <typename T, int SPS, bool SPLIT, bool DECIDE>
 cudaError_t dispatch_mma_tones(const MmaArgs& a) {
-  if (a.m <= 4) return launch_mma<SPS, 1, DECIDE>(a);
-  if (a.m <= 8) return launch_mma<SPS, 2, DECIDE>(a);
-  return launch_mma<SPS, 4, DECIDE>(a);
+  if (a.m <= 4) return launch_mma<T, SPS, Product<T, SPS, 1, SPLIT>, DECIDE>(a);
+  if (a.m <= 8) return launch_mma<T, SPS, Product<T, SPS, 2, SPLIT>, DECIDE>(a);
+  return launch_mma<T, SPS, Product<T, SPS, 4, SPLIT>, DECIDE>(a);
 }
 
-template <bool DECIDE>
+template <typename T, bool SPLIT, bool DECIDE>
 int dispatch_mma(const void* x, int R, long long row_stride, const void* start, int n_symbols,
                  int sps, int m, const void* basis, void* out0, void* out1, void* out2,
                  void* stream) {
@@ -121,42 +134,28 @@ int dispatch_mma(const void* x, int R, long long row_stride, const void* start, 
                   reinterpret_cast<cudaStream_t>(stream)};
   switch (sps) {
     case 32:
-      return (int)dispatch_mma_tones<32, DECIDE>(a);
+      return (int)dispatch_mma_tones<T, 32, SPLIT, DECIDE>(a);
     case 64:
-      return (int)dispatch_mma_tones<64, DECIDE>(a);
+      return (int)dispatch_mma_tones<T, 64, SPLIT, DECIDE>(a);
     case 128:
-      return (int)dispatch_mma_tones<128, DECIDE>(a);
+      return (int)dispatch_mma_tones<T, 128, SPLIT, DECIDE>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// float32 compute: the CUDA-core kernels.
-
-template <typename T, int SPS>
-__global__ void __launch_bounds__(THREADS)
-tone_energies_kernel(const T* __restrict__ x, int64_t row_stride, int n_symbols, int m,
-                     const float* __restrict__ basis, float* __restrict__ energies) {
-  __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
-  const int r = blockIdx.x;
-  const int s0 = blockIdx.y * anet::SYM_TILE;
-  anet::energies_symbols<T, SPS>(x + (int64_t)r * row_stride, (int64_t)n_symbols * SPS,
-                                 (int64_t)s0 * SPS, min(anet::SYM_TILE, n_symbols - s0), m, basis,
-                                 stage, energies + ((int64_t)r * n_symbols + s0) * m);
-}
-
-template <typename T, int SPS>
-__global__ void __launch_bounds__(THREADS)
-decide_tones_kernel(const T* __restrict__ x, int64_t row_stride, int n_symbols,
-                    const float* __restrict__ basis, int32_t* __restrict__ tone,
-                    float* __restrict__ best, float* __restrict__ total) {
-  __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
-  const int r = blockIdx.x;
-  const int s0 = blockIdx.y * anet::SYM_TILE;
-  const int s1 = min(s0 + anet::SYM_TILE, n_symbols);
-  const int64_t o = (int64_t)r * n_symbols;
-  anet::demod_symbols<T, SPS>(x + (int64_t)r * row_stride, (int64_t)n_symbols * SPS, 0, s0, s1,
-                              basis, stage, tone + o, best + o, total + o);
+// float32 compute on the tensor cores: the rows' dtype picks the A form.
+template <bool DECIDE>
+int dispatch_split(const void* x, int dtype, int R, long long row_stride, const void* start,
+                   int n_symbols, int sps, int m, const void* basis, void* out0, void* out1,
+                   void* out2, void* stream) {
+  if (dtype == anet::DTYPE_BF16)
+    return dispatch_mma<__nv_bfloat16, true, DECIDE>(x, R, row_stride, start, n_symbols, sps, m,
+                                                     basis, out0, out1, out2, stream);
+  if (dtype == anet::DTYPE_F32)
+    return dispatch_mma<float, true, DECIDE>(x, R, row_stride, start, n_symbols, sps, m, basis,
+                                             out0, out1, out2, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 constexpr int ANY_WARPS = THREADS / 32;  // symbols a block of the plain kernel
@@ -239,66 +238,28 @@ cudaError_t launch_any(const void* x, int R, long long row_stride, int n_symbols
   return cudaGetLastError();
 }
 
-// out0 is the energies, or out0..out2 tone/best/total when m < 0 (the decisions).
-template <typename T, int SPS>
-cudaError_t launch(const void* x, int R, long long row_stride, int n_symbols, int m,
-                   const void* basis, void* out0, void* out1, void* out2, cudaStream_t st) {
-  dim3 grid(R, (n_symbols + anet::SYM_TILE - 1) / anet::SYM_TILE);
-  if (m > 0) {
-    tone_energies_kernel<T, SPS><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(x), row_stride, n_symbols, m, static_cast<const float*>(basis),
-        static_cast<float*>(out0));
-  } else {
-    decide_tones_kernel<T, SPS><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(x), row_stride, n_symbols, static_cast<const float*>(basis),
-        static_cast<int32_t*>(out0), static_cast<float*>(out1), static_cast<float*>(out2));
-  }
-  return cudaGetLastError();
-}
-
-// The fast kernels for sps 32, 64 or 128 and at most 16 tones (basis [sps,
-// 32]), the plain one otherwise (basis [sps, 2m]).
-template <typename T>
-cudaError_t dispatch_geometry(int sps, const void* x, int R, long long row_stride, int n_symbols,
-                              int m, bool decide, const void* basis, void* out0, void* out1,
-                              void* out2, cudaStream_t st) {
-  const int mf = decide ? -1 : m;
-  if (m <= 16) {
-    switch (sps) {
-      case 32:
-        return launch<T, 32>(x, R, row_stride, n_symbols, mf, basis, out0, out1, out2, st);
-      case 64:
-        return launch<T, 64>(x, R, row_stride, n_symbols, mf, basis, out0, out1, out2, st);
-      case 128:
-        return launch<T, 128>(x, R, row_stride, n_symbols, mf, basis, out0, out1, out2, st);
-      default:
-        break;
-    }
-  }
-  return launch_any<T>(x, R, row_stride, n_symbols, sps, m, decide, basis, out0, out1, out2, st);
-}
-
 int dispatch(int dtype, int sps, const void* x, int R, long long row_stride, int n_symbols,
              int m, bool decide, const void* basis, void* out0, void* out1, void* out2,
              void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (R < 1 || n_symbols < 1 || m < 1 || sps < 1) return (int)cudaErrorInvalidValue;
   if (dtype == anet::DTYPE_BF16)
-    return (int)dispatch_geometry<__nv_bfloat16>(sps, x, R, row_stride, n_symbols, m, decide,
-                                                 basis, out0, out1, out2, st);
+    return (int)launch_any<__nv_bfloat16>(x, R, row_stride, n_symbols, sps, m, decide, basis,
+                                          out0, out1, out2, st);
   if (dtype == anet::DTYPE_F32)
-    return (int)dispatch_geometry<float>(sps, x, R, row_stride, n_symbols, m, decide, basis,
-                                         out0, out1, out2, st);
+    return (int)launch_any<float>(x, R, row_stride, n_symbols, sps, m, decide, basis, out0, out1,
+                                  out2, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// float32 compute, and any geometry. x: R rows of >= n_symbols * sps
-// samples, `row_stride` elements apart (contiguous within a row), float32
-// or bfloat16 (widened on load); basis: [sps, 32] float32 for sps 32, 64 or
-// 128 and m <= 16, else [sps, 2m] (either compute dtype's entries);
-// energies: [R, n_symbols, m] float32. Returns cudaGetLastError().
+// The plain kernel, either compute dtype, at any geometry (the wrapper
+// sends sps 32, 64 and 128 with at most 16 tones to the tensor cores). x: R
+// rows of >= n_symbols * sps samples, `row_stride` elements apart
+// (contiguous within a row), float32 or bfloat16 (widened on load); basis:
+// [sps, 2m] float32 (cos columns, then sin; either compute dtype's
+// entries); energies: [R, n_symbols, m] float32. Returns cudaGetLastError().
 extern "C" int anet_tone_energies(const void* x, int dtype, int R, long long row_stride,
                                   int n_symbols, int sps, int m, const void* basis,
                                   void* energies, void* stream) {
@@ -324,8 +285,8 @@ extern "C" int anet_decide_tones(const void* x, int dtype, int R, long long row_
 extern "C" int anet_tone_energies_mma(const void* x, int R, long long row_stride,
                                       const void* start, int n_symbols, int sps, int m,
                                       const void* basis, void* energies, void* stream) {
-  return dispatch_mma<false>(x, R, row_stride, start, n_symbols, sps, m, basis, energies, nullptr,
-                             nullptr, stream);
+  return dispatch_mma<__nv_bfloat16, false, false>(x, R, row_stride, start, n_symbols, sps, m,
+                                                   basis, energies, nullptr, nullptr, stream);
 }
 
 // The same rows, zeros and basis; tone: [R, n_symbols] int32; best, total:
@@ -333,6 +294,26 @@ extern "C" int anet_tone_energies_mma(const void* x, int R, long long row_stride
 extern "C" int anet_decide_tones_mma(const void* x, int R, long long row_stride, const void* start,
                                      int n_symbols, int sps, int m, const void* basis, void* tone,
                                      void* best, void* total, void* stream) {
-  return dispatch_mma<true>(x, R, row_stride, start, n_symbols, sps, m, basis, tone, best, total,
-                            stream);
+  return dispatch_mma<__nv_bfloat16, false, true>(x, R, row_stride, start, n_symbols, sps, m, basis,
+                                                  tone, best, total, stream);
+}
+
+// float32 compute on the tensor cores: the rows as the bfloat16 entries
+// take them, bfloat16 (dtype 1, exact in bf16) or float32 (dtype 0, split
+// into three bf16 terms on load); basis: SplitTerms' three terms of the
+// float32 basis (kernels._demod_split_basis); the outputs as above.
+// Returns cudaGetLastError().
+extern "C" int anet_tone_energies_mma_f32(const void* x, int dtype, int R, long long row_stride,
+                                          const void* start, int n_symbols, int sps, int m,
+                                          const void* basis, void* energies, void* stream) {
+  return dispatch_split<false>(x, dtype, R, row_stride, start, n_symbols, sps, m, basis, energies,
+                               nullptr, nullptr, stream);
+}
+
+extern "C" int anet_decide_tones_mma_f32(const void* x, int dtype, int R, long long row_stride,
+                                         const void* start, int n_symbols, int sps, int m,
+                                         const void* basis, void* tone, void* best, void* total,
+                                         void* stream) {
+  return dispatch_split<true>(x, dtype, R, row_stride, start, n_symbols, sps, m, basis, tone, best,
+                              total, stream);
 }

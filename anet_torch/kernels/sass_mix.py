@@ -17,8 +17,10 @@ kernels (``search_core``: ``HMMA`` and no float32 product loop,
 ``IMMA`` in the int8 ``*_mma`` kernels, ``FFMA`` only in the CUDA-core
 ones). Each row also counts the global loads and stores by their whole
 opcode (``"global": {"LDG.E.128": ..., "STG.E.128": ...}``), which shows
-their width: ``gather_rows`` loads and stores 16 bytes a lane. Needs the
-CUDA toolkit, no card.
+their width: ``gather_rows`` loads and stores 16 bytes a lane, and the
+registers a thread and stack bytes the compiler gave the function
+(``cuobjdump --dump-resource-usage``), which with the kernel's shared
+memory set its blocks an SM. Needs the CUDA toolkit, no card.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ HEADERS = {  # a shared device header -> the sources built on it
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 _GLOBAL = ("LDG", "STG")  # opcodes counted with their modifiers too
+_RESOURCES = re.compile(r"REG:(\d+) STACK:(\d+)")
 
 
 def _demangle(names: list[str]) -> list[str]:
@@ -80,21 +83,41 @@ def global_ops(sass: str) -> list[Counter]:
     return [Counter(op for op in ops if op.split(".")[0] in _GLOBAL) for _, ops in _instructions(sass)]
 
 
+def resource_usage(text: str) -> dict[str, tuple[int, int]]:
+    """{mangled function name: (registers a thread, stack bytes)} from the
+    text that ``cuobjdump --dump-resource-usage`` prints: a "Function
+    name:" line, then its "REG:... STACK:..." line."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"^\s*Function (\S+):", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = _RESOURCES.search(line)
+        if m and name is not None:
+            usage[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return usage
+
+
 def instruction_mix(source: str) -> list[dict]:
     """[{"source", "function", "instructions", "ops": {opcode: count},
-    "global": {whole opcode: count}}] of every kernel function in the
-    library of ``source``."""
+    "global": {whole opcode: count}, "registers", "stack"}] of every kernel
+    function in the library of ``source``."""
     build_all((source,))
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(library_path(source))], capture_output=True, text=True, check=True
-    ).stdout
+    lib = str(library_path(source))
+    sass = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True, text=True, check=True).stdout
+    usage = resource_usage(subprocess.run(
+        [str(cuobjdump), "--dump-resource-usage", lib], capture_output=True, text=True, check=True
+    ).stdout)
     functions = parse_sass(sass)
     names = _demangle([f for f, _ in functions])
     return [
         {"source": source, "function": name, "instructions": sum(ops.values()),
-         "ops": dict(ops.most_common()), "global": dict(wide.most_common())}
-        for name, (_, ops), wide in zip(names, functions, global_ops(sass))
+         "ops": dict(ops.most_common()), "global": dict(wide.most_common()),
+         "registers": usage.get(mangled, (None, None))[0], "stack": usage.get(mangled, (None, None))[1]}
+        for name, (mangled, ops), wide in zip(names, functions, global_ops(sass))
     ]
 
 

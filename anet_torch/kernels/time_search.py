@@ -55,10 +55,11 @@ comma-separated subset of:
   data sections of B = 16,384 bfloat16 frames of 36,352 samples of noise,
   read in place past the 2,048-sample preamble, 536 symbols of 64
   samples, 16 tones): bfloat16 compute (``... bfloat16``), float32 compute
-  on the same bf16 rows (``... float32 compute``) and bfloat16 compute on
-  frames of 36,353 samples (``... bfloat16 ragged``: an odd pitch, so the
-  rows pass through every residue mod 16 bytes), each with its ``device``
-  column as ``frame`` has. It ignores ``--model``.
+  on the same bf16 rows (``... float32 compute``) and on those rows widened
+  to float32 (``... float32 compute, float32 rows``), and bfloat16 compute
+  on frames of 36,353 samples (``... bfloat16 ragged``: an odd pitch, so
+  the rows pass through every residue mod 16 bytes), each with its
+  ``device`` column as ``frame`` has. It ignores ``--model``.
 - ``probe_at``: ``probe_at_fused`` at the locked streams' geometries
   (mfsk4-coded, payload 256: buffer 143,872, the 1,024-sample preamble;
   mfsk16-fast: buffer 76,288, the 2,048-sample preamble; 5 lags) on
@@ -262,6 +263,7 @@ if "bm" in kinds:
     x = torch.randn({frame_b}, t_frame + 1, generator=gen, device="cuda").to(torch.bfloat16)
     for label, make, dtype in (("bfloat16", lambda: x[:, 1:].contiguous(), torch.bfloat16),
                                ("float32 compute", lambda: x[:, 1:].contiguous(), torch.float32),
+                               ("float32 compute, float32 rows", lambda: x[:, 1:].float(), torch.float32),
                                ("bfloat16 ragged", lambda: x, torch.bfloat16)):
         xs = make()
         rows = xs[:, xs.shape[1] - t_frame + pre :]  # the data sections, read in place

@@ -34,20 +34,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
    and untracked, timed on ofdm-fast at B = 8,192, batch-major and as the
    time-major receiver's [B, S, C] view of [S, C, B] points; the batch-major
-   filterbank (tone_energies_fused, decide_tones_fused) on bf16 mfsk16-fast
+   filterbank (tone_energies_fused, decide_tones_fused) on mfsk16-fast
    data sections read in place, bfloat16 compute (the tensor cores) held
    against the plain versions at 256 rows and at B = 16,384 (tones
    bit-equal) and timed there, then its float32-compute route (the
-   CUDA-core kernels) on the same rows held against the plain versions at
-   B = 16,384 and logged against its bound; and the tensor-core
-   search (sync_search_fused) timed three more times, each logged against
-   its bound: its float32 route (seg and template split into bf16 hi + lo)
-   at the main shape, and bf16 at the coded (mfsk4-coded: k 1,024, chunk
-   70,144) and OFDM stream (ofdm-fast: chunk 4,736) geometries, B = 8,192;
-   and demod_at_fused (tensor cores for bfloat16 and int8 buffers),
-   demod_probe_fused (a warp-per-stream probe, then demod_at_fused's
-   kernel) and decide_frame_tm (tensor cores for bfloat16 and int8 frames)
-   on their float32 routes (CUDA-core bodies) at the main shape;
+   tensor cores' three-term bf16 split) on bf16 rows and on float32 rows,
+   held against the plain versions at 256 rows and at B = 16,384 with its
+   stated tolerance (compare_split: every energy within 1e-5 of itself
+   plus 1e-6 of its symbol's largest, best and total alike, tones equal
+   but at near-ties, whose count it prints) and timed there against its
+   bound (bytes, or its 3 or 6 products at the bf16 peak); the
+   tensor-core search (sync_search_fused) timed at the coded (mfsk4-coded:
+   k 1,024, chunk 70,144) and OFDM stream (ofdm-fast: chunk 4,736)
+   geometries, B = 8,192, each against its bound; and the float32 routes
+   of the other kernels in kernels.F32_ROUTES: sync_search_fused,
+   sync_search_blockmax and correlate_fused (seg and template split into
+   bf16 hi + lo), decide_frame_tm, demod_at_fused, demod_probe_fused,
+   demod_at_energies_fused and decide_tones_tm (CUDA-core bodies), each
+   held against its plain version and timed with it at the main shape
+   against its bound (the "<name>:f32" numbers);
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -164,8 +169,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    with two echoes; every frame back byte for byte);
 13. the launch count of every kernel during phases 3-12, read per path (each
    path's counts start at 0 just before it; int8 launches count under
-   "<name>:int8"): every kernel of a path must have launched there, and
-   none that the reference's routing keeps off it (ABSENT);
+   "<name>:int8", those of the float32 routes of kernels.F32_ROUTES under
+   "<name>:f32"): every kernel of a path must have launched there (a bare
+   name on any of its float routes), and none that the reference's routing
+   keeps off it (ABSENT); the float32-compute paths (oneshot,
+   sharded-demod, cli) give the payloads and verdicts of the plain
+   filterbank (plain_filterbank, uncounted);
 14. the host edge, outside the paths' counts: "lan" (no device code, no
    kernel launched): the native C++ core built with g++ from
    anet_torch/net/csrc, a native DiscoveryResponder on 127.0.0.1 found by
@@ -185,8 +194,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    kernel (csrc/demod_probe.cu's probe_kernel, demangled), which the launch
    counts must show too.
 The line before the last is a JSON object with each kernel's numbers (the
-five kernels with an int8 instantiation carry its numbers under "int8"), and
-the last line the JSON verdict with the device's name.
+five kernels with an int8 instantiation carry its numbers under "int8", the
+ten with a float32 route of their own its numbers under "f32"; the
+batch-major filterbank's are on float32 rows, with its bf16 rows' under
+"f32"."bf16_rows"), and the last line the JSON verdict with the device's
+name.
 """
 
 from __future__ import annotations
@@ -276,7 +288,6 @@ REPLACES = {
     "decide_tones_fused": ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:172"),
     "sync_search_blockmax": ("anet_torch/kernels/csrc/search_blockmax.cu", "anet/kernels/__init__.py:1300"),
 }
-INT8_KERNELS = ("decide_frame_tm", "demod_at_fused", "demod_at_energies_fused", "demod_probe_fused", "gather_rows_fused")
 
 
 def log(msg: str) -> None:
@@ -359,6 +370,19 @@ def log_demod_time(label: str, cfg, buf: torch.Tensor, starts: torch.Tensor, n_s
     bound, by = bound_ms(b * (n_sym * (sps * buf.element_size() + 12) + 4), b * n_sym * 2 * sps * 2 * m, peak)
     log(f"  demod_at_fused ({label}: B {b}, buffer {buf.shape[-1]}, {n_sym} symbols, "
         f"{str(buf.dtype).removeprefix('torch.')}): kernel {ms:.3f} ms, bound {bound:.3f} ms ({by})")
+    torch.cuda.empty_cache()
+
+
+def time_f32_route(results: dict, name: str, call, n_bytes: float, n_ops: float, peak: float) -> None:
+    """Time a kernel's float32 route (``call(f)`` runs it with f the wrapper
+    or its plain version) and its plain version, with its bound, into
+    ``results[name + ":f32"]``, whose max_abs_err is already there."""
+    r = results[f"{name}:f32"]
+    r["ms"] = time_ms(lambda: call(getattr(kernels, name)))
+    r["plain_ms"] = time_ms(lambda: call(getattr(kernels, f"{name}_ref")))
+    r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, peak)
+    log(f"  {name} (float32 route): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
 
 
@@ -583,30 +607,50 @@ def phase_kernels(cfg, gen) -> dict:
         ),
     }
     time_and_bound(results, calls, work)
-    # decide_frame_tm's float32 route (the CUDA-core body) at the same
-    # shape, its products at the float32 peak
+    # the float32 routes at the same shapes, each held against its plain
+    # version at the full batch and timed with it: decide_frame_tm's and the
+    # align+demod kernel's CUDA-core bodies and the merged probe + demod's
+    # (float32 taps, then demod_probe.cu's CUDA-core demod), their products
+    # at the float32 peak; the search's seg and template split into bf16 hi
+    # + lo on the tensor cores
     x32 = x_full.float()
-    ms = time_ms(lambda: kernels.decide_frame_tm(cfg, x32, PAYLOAD, preamble_offset=pre))
-    bound, by = bound_ms(n_sym * sps * b_a * 4 + (n_tiles + 64 + 8) * b_a * 4, n_sym * flops_sym * b_a, F32_FLOPS_S)
-    log(f"  decide_frame_tm (float32 route: B {b_a}, {n_sym} symbols): kernel {ms:.3f} ms, "
-        f"bound {bound:.3f} ms ({by})")
+    results["decide_frame_tm:f32"] = {"max_abs_err": check_frame(f"decide_frame_tm float32 at B = {b_a}", cfg, x32, pre)}
+    time_f32_route(results, "decide_frame_tm", lambda f: f(cfg, x32, PAYLOAD, preamble_offset=pre),
+                   n_sym * sps * b_a * 4 + (n_tiles + 64 + 8) * b_a * 4, n_sym * flops_sym * b_a, F32_FLOPS_S)
     del x32, x_full, x8_full
     torch.cuda.empty_cache()
-    # the float32 route of the search at the same shape: seg and template
-    # split into bf16 hi + lo, three products a tile and step
-    seg32 = buf_full.float()[:, 1 : 1 + chunk + k - 1]
-    log_search_time("float32 route", seg32, preamble_waveform(cfg, device=DEV), chunk)
-    del seg32
-    # the align+demod kernel's float32 route (the CUDA-core body) at the same shape
-    buf32 = buf_full.float()
-    log_demod_time("float32 route", cfg, buf32, st_full, n_sym)
-    # the merged probe + demod's float32 route (float32 taps, then
-    # demod_probe.cu's CUDA-core demod), its products at the float32 peak
-    ms = time_ms(lambda: kernels.demod_probe_fused(cfg, buf32, st0_full, n_sym, tpl.float(), n_lags=N_LAGS))
-    bound, by = bound_ms(probe_samples * 4 + b_s * (16 + n_sym * out_sym), probe_ops, F32_FLOPS_S)
-    log(f"  demod_probe_fused (float32 route: B {b_s}, buffer {length}, k {k}, {N_LAGS} lags, {n_sym} "
-        f"symbols): kernel {ms:.3f} ms, bound {bound:.3f} ms ({by})")
-    del buf32
+    buf32, tpl32 = buf_full.float(), preamble_waveform(cfg, device=DEV)
+    seg32, te32 = buf32[:, 1 : 1 + chunk + k - 1], float((tpl32**2).sum())
+    got = kernels.sync_search_fused(seg32, tpl32, chunk, te32)
+    if not torch.equal(got[1], (st_full - 1).int()):
+        raise AssertionError("sync_search_fused float32 did not find the planted preambles")
+    results["sync_search_fused:f32"] = {"max_abs_err": compare(
+        "sync_search_fused float32", got, kernels.sync_search_fused_ref(seg32, tpl32, chunk, te32), (1,), (0,))}
+    bm32 = kernels.sync_search_blockmax(seg32, tpl32, chunk, te32)
+    if not (torch.equal(bm32.amax(-1), got[0]) and torch.equal(bm32.argmax(-1).int(), got[1] // 128)):
+        raise AssertionError("sync_search_blockmax float32: block maxima disagree with sync_search_fused")
+    results["sync_search_blockmax:f32"] = {"max_abs_err": compare(
+        "sync_search_blockmax float32", (bm32,), (kernels.sync_search_blockmax_ref(seg32, tpl32, chunk, te32),),
+        (), (0,))}
+    del bm32
+    time_f32_route(results, "sync_search_fused", lambda f: f(seg32, tpl32, chunk, te32),
+                   b_s * (chunk + k - 1) * 4 + 8 * b_s, 2 * k * chunk * b_s, BF16_FLOPS_S)
+    time_f32_route(results, "sync_search_blockmax", lambda f: f(seg32, tpl32, chunk, te32),
+                   b_s * (chunk + k - 1) * 4 + b_s * chunk // 128 * 4, 2 * k * chunk * b_s, BF16_FLOPS_S)
+    got = kernels.demod_at_fused(cfg, buf32, st_full, n_sym)
+    results["demod_at_fused:f32"] = {"max_abs_err": compare(
+        "demod_at_fused float32", got, kernels.demod_at_fused_ref(cfg, buf32, st_full, n_sym), (0,), (1, 2))}
+    time_f32_route(results, "demod_at_fused", lambda f: f(cfg, buf32, st_full, n_sym),
+                   b_s * n_sym * (sps * 4 + out_sym) + 4 * b_s, n_sym * flops_sym * b_s, F32_FLOPS_S)
+    got = kernels.demod_probe_fused(cfg, buf32, st0_full, n_sym, tpl32, n_lags=N_LAGS)
+    want = kernels.demod_probe_fused_ref(cfg, buf32, st0_full, n_sym, tpl32, n_lags=N_LAGS)
+    if not bool((got[1] == 2).all()):
+        raise AssertionError("demod_probe_fused float32 servo missed the planted starts")
+    results["demod_probe_fused:f32"] = {"max_abs_err": compare("demod_probe_fused float32", got, want, (1, 3), (0, 2, 4, 5))}
+    del got, want
+    time_f32_route(results, "demod_probe_fused", lambda f: f(cfg, buf32, st0_full, n_sym, tpl32, n_lags=N_LAGS),
+                   probe_samples * 4 + b_s * (16 + n_sym * out_sym), probe_ops, F32_FLOPS_S)
+    del buf32, seg32
     torch.cuda.empty_cache()
     return results
 
@@ -699,6 +743,13 @@ def phase_kernels_coded(cfg, gen) -> dict:
                 (kernels.viterbi_trellis_ref(signs, x),), (0,), ())
     del masked, probe
 
+    # the float32 route (the CUDA-core body) on the same buffers widened
+    got32 = kernels.demod_at_energies_fused(cfg, buf.float(), starts, n_sym)
+    results["demod_at_energies_fused:f32"] = {"max_abs_err": compare(
+        "demod_at_energies_fused float32", (got32,),
+        (kernels.demod_at_energies_fused_ref(cfg, buf.float(), starts, n_sym),), (), (0,))}
+    del got32
+
     reps = STREAM_B // COMPARE_B
     buf_full, st_full, st0_full = buf.repeat(reps, 1), starts.repeat(reps), st0.repeat(reps)
     buf8_full = buf8.repeat(reps, 1)
@@ -743,24 +794,68 @@ def phase_kernels_coded(cfg, gen) -> dict:
     log(f"  probe_at_fused (template energy on the card, as the locked step passes it: B {b}): "
         f"kernel {ms:.3f} ms, bound {results['probe_at_fused']['bound_ms']:.3f} ms")
     log_search_time("coded geometry", buf_full[:, 1 : 1 + chunk + k - 1], tpl, chunk)
+    buf32 = buf_full.float()
+    time_f32_route(results, "demod_at_energies_fused", lambda f: f(cfg, buf32, st_full, n_sym),
+                   b * (n_sym * (sps * 4 + m * 4) + 4), b * n_sym * 2 * sps * 2 * m, F32_FLOPS_S)
     return results
 
 
+def compare_split(label: str, cfg, x: torch.Tensor) -> float:
+    """tone_energies_fused and decide_tones_fused with float32 compute (the
+    three-term split on the tensor cores, never a CUDA-core body at this
+    geometry) on rows ``x`` against their plain versions, with the route's
+    stated tolerance: each energy within F32_SPLIT_RTOL of itself plus
+    F32_SPLIT_ATOL of its symbol's largest plain energy, best and total
+    within the same bounds, the tones (decided, and the energies' argmax)
+    equal but where the plain version's two largest energies lie that close
+    (their count printed). Returns the max absolute error."""
+    if kernels._filterbank_operands("tone_energies", cfg, torch.float32, DEV)[1] != "split":
+        raise AssertionError(f"{label}: float32 compute does not take the split route")
+    got = kernels.tone_energies_fused(cfg, x, compute_dtype=torch.float32)
+    want = kernels.tone_energies_fused_ref(cfg, x, compute_dtype=torch.float32)
+    tol = lambda w, scale: kernels.F32_SPLIT_RTOL * w.abs() + kernels.F32_SPLIT_ATOL * scale
+    scale = want.amax(-1)
+    diff = (got - want).abs()
+    worst = float(diff.max())
+    bad = int((diff > tol(want, scale[..., None])).sum())
+    worst_scaled = float((diff / scale[..., None].clamp_min(1e-30)).max())
+    top2 = want.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= tol(top2[..., 0], top2[..., 0])
+    tone_w = want.argmax(-1).int()
+    argmax_bad = int(((got.argmax(-1).int() != tone_w) & ~near).sum())
+    del got, diff
+    tone, best, total = kernels.decide_tones_fused(cfg, x, compute_dtype=torch.float32)
+    tone_bad = int(((tone != tone_w) & ~near).sum())
+    best_bad = int(((best - scale).abs() > tol(scale, scale)).sum())
+    total_w = want.sum(-1)
+    total_bad = int(((total - total_w).abs() > tol(total_w, scale)).sum())
+    worst = max(worst, float((best - scale).abs().max()), float((total - total_w).abs().max()))
+    log(f"  {label}: energies max abs {worst:.3e}, max {worst_scaled:.3e} of the symbol's largest, beyond "
+        f"the tolerance {bad}; near-ties {int(near.sum())} of {near.numel()}; tones differing off a near-tie "
+        f"{tone_bad} (energies' argmax {argmax_bad}); best beyond {best_bad}, total beyond {total_bad}")
+    if bad or tone_bad or argmax_bad or best_bad or total_bad:
+        raise AssertionError(f"{label}: the float32-compute route is beyond its tolerance")
+    return worst
+
+
 def phase_kernels_batch_major(cfg, gen) -> dict:
-    """Phase 2 for the batch-major filterbank (mfsk16-fast): bf16 frames at
-    operating noise, their data sections read in place past the preamble,
-    bfloat16 compute (the tensor-core route) held against the plain
-    versions at 256 rows and at B = 16,384 (tones bit-equal) and timed
-    there; then the float32-compute route on the same bf16 rows (the
-    CUDA-core kernels, receive_frame's default) held against the plain
-    versions in the same way at B = 16,384 and timed against its bound.
-    max_abs_err is the larger of the two routes'."""
+    """Phase 2 for the batch-major filterbank (mfsk16-fast): frames at
+    operating noise, their data sections read in place past the preamble.
+    bfloat16 compute (the tensor-core route, bf16 rows) held against the
+    plain versions at 256 rows and at B = 16,384 (tones bit-equal) and
+    timed there; then the float32-compute route (the three-term split,
+    receive_frame's default) on bf16 rows and on float32 rows held against
+    the plain versions with its tolerance (compare_split) at 256 rows and
+    at B = 16,384 and timed there against its bound (bytes, or its 3 or 6
+    products at the bf16 peak): the "<name>:f32" results, float32 rows,
+    with the bf16 rows' numbers under "bf16_rows"."""
     sps, m = cfg.samples_per_symbol, cfg.num_tones
     n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
     pre = cfg.preamble_samples
     pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
     w = transmit(cfg, pay, device=DEV)
-    x = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).to(torch.bfloat16)
+    xf = w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)
+    x = xf.to(torch.bfloat16)
     data_full = x.repeat(ALIGNED_B // COMPARE_B, 1)[:, pre:]
     del w
     results = {"tone_energies_fused": {"max_abs_err": 0.0}, "decide_tones_fused": {"max_abs_err": 0.0}}
@@ -779,7 +874,6 @@ def phase_kernels_batch_major(cfg, gen) -> dict:
         results["decide_tones_fused"]["max_abs_err"] = max(results["decide_tones_fused"]["max_abs_err"], err)
         del got, want
         torch.cuda.empty_cache()
-    del x
     calls = {
         "tone_energies_fused": (
             lambda f: f(cfg, data_full, compute_dtype=torch.bfloat16),
@@ -791,34 +885,32 @@ def phase_kernels_batch_major(cfg, gen) -> dict:
         ),
     }
     b, flops = ALIGNED_B, n_sym * 2 * sps * 2 * m * ALIGNED_B
-    work = {
-        "tone_energies_fused": (b * n_sym * (sps * 2 + m * 4), flops),
-        "decide_tones_fused": (b * n_sym * (sps * 2 + 12), flops),
-    }
+    out_bytes = {"tone_energies_fused": m * 4, "decide_tones_fused": 12}
+    work = {name: (b * n_sym * (sps * 2 + o), flops) for name, o in out_bytes.items()}
     time_and_bound(results, calls, work)
-    # the float32-compute route on the same bf16 rows (the oneshot path's):
-    # held against the plain versions as the bf16 route, then timed against
-    # its bound, its products at the float32 peak
-    f32_calls = (("tone_energies_fused", kernels.tone_energies_fused, kernels.tone_energies_fused_ref),
-                 ("decide_tones_fused", kernels.decide_tones_fused, kernels.decide_tones_fused_ref))
-    for name, fn, ref in f32_calls:
-        got = fn(cfg, data_full, compute_dtype=torch.float32)
-        want = ref(cfg, data_full, compute_dtype=torch.float32)
-        label = f"{name} (float32 compute on bf16 rows, B {b})"
-        if name == "tone_energies_fused":
-            if not torch.equal(got.argmax(-1), want.argmax(-1)):
-                raise AssertionError(f"{label}: winning tones differ")
-            err = compare(label, (got,), (want,), (), (0,))
-        else:
-            err = compare(label, got, want, (0,), (1, 2))
-        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-        del got, want
+    # the float32-compute route: bf16 rows (the one-shot receiver's) and
+    # float32 rows (transmit's and apply_channel's), 3 and 6 products
+    err = 0.0
+    for label, rows in (("bf16 rows", x), ("float32 rows", xf)):
+        err = max(err, compare_split(f"float32 compute, {label}, B {COMPARE_B}", cfg, rows[:, pre:]))
+    data32 = xf.repeat(ALIGNED_B // COMPARE_B, 1)[:, pre:]
+    del x, xf
+    for label, data, n_products in (("bf16 rows", data_full, 3), ("float32 rows", data32, 6)):
+        err = max(err, compare_split(f"float32 compute, {label}, B {b}", cfg, data))
         torch.cuda.empty_cache()
-        ms = time_ms(lambda: fn(cfg, data_full, compute_dtype=torch.float32))
-        bound, by = bound_ms(work[name][0], flops, F32_FLOPS_S)
-        log(f"  {name} (float32 compute on bf16 rows: B {b}, {n_sym} symbols): kernel {ms:.3f} ms, "
-            f"bound {bound:.3f} ms ({by})")
-        torch.cuda.empty_cache()
+        for name, fn, ref in (("tone_energies_fused", kernels.tone_energies_fused, kernels.tone_energies_fused_ref),
+                              ("decide_tones_fused", kernels.decide_tones_fused, kernels.decide_tones_fused_ref)):
+            r = {"max_abs_err": err, "ms": time_ms(lambda: fn(cfg, data, compute_dtype=torch.float32)),
+                 "plain_ms": time_ms(lambda: ref(cfg, data, compute_dtype=torch.float32))}
+            r["bound_ms"], r["bound_by"] = bound_ms(b * n_sym * (sps * data.element_size() + out_bytes[name]),
+                                                    n_products * flops)
+            log(f"  {name} (float32 compute, {label}: B {b}, {n_sym} symbols): kernel {r['ms']:.3f} ms, "
+                f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+            if label == "bf16 rows":
+                results[f"{name}:f32"] = {"bf16_rows": r}
+            else:
+                results[f"{name}:f32"].update(r, max_abs_err=err)
+            torch.cuda.empty_cache()
     return results
 
 
@@ -868,6 +960,12 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     results["correlate_fused"] = {
         "max_abs_err": compare("correlate_fused", (got,), (want,), (), (0,), atol=RTOL * scale)
     }
+    # its float32 route: segment and template split into bf16 hi + lo
+    got32 = kernels.correlate_fused(seg.float(), tpl.float(), chunk)
+    results["correlate_fused:f32"] = {"max_abs_err": compare(
+        "correlate_fused float32", (got32,), (kernels.correlate_fused_ref(seg.float(), tpl.float(), chunk),),
+        (), (0,), atol=RTOL * scale)}
+    del got32
     picks_got, picks_want = top_two_lags(seg, got, k, te, t_short), top_two_lags(seg, want, k, te, t_short)
     if not (torch.equal(picks_got[0], picks_want[0]) and torch.equal(picks_got[1], picks_want[1])
             and torch.equal(torch.minimum(*picks_got), first)
@@ -885,8 +983,10 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     n_sym = data_tm.shape[0] // sps
     # its float32 route (the CUDA-core kernel) and bf16 rows off 16 bytes
     for label, x in (("float32", data_tm.float()), ("bfloat16, B - 1", data_tm[:, 1:].contiguous())):
-        compare(f"decide_tones_tm ({label})", kernels.decide_tones_tm(cfg, x), kernels.decide_tones_tm_ref(cfg, x),
-                (0,), (1, 2))
+        err = compare(f"decide_tones_tm ({label})", kernels.decide_tones_tm(cfg, x),
+                      kernels.decide_tones_tm_ref(cfg, x), (0,), (1, 2))
+        if label == "float32":
+            results["decide_tones_tm:f32"] = {"max_abs_err": err}
 
     # gather_rows_fused: one frame out of the stream buffer, starts on both
     # sides of the 128-sample rows the reference kernel splits at and at
@@ -954,12 +1054,18 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     del lib_corr
     time_and_bound(results, calls, work, library)
     del buf8_full
-    # the other routes of the two, each against its bound: decide_tones_tm's
-    # float32 kernel (CUDA cores) and bf16 rows off 16 bytes, the float32 gather
+    # decide_tones_tm's float32 route (the CUDA-core kernel) at the full
+    # batch, with its plain version; then the other routes of the two, each
+    # against its bound: decide_tones_tm on bf16 rows off 16 bytes, the
+    # float32 gather
+    data32 = data_full.float()
+    err = compare(f"decide_tones_tm (float32, B {b_a})", kernels.decide_tones_tm(cfg, data32),
+                  kernels.decide_tones_tm_ref(cfg, data32), (0,), (1, 2))
+    results["decide_tones_tm:f32"]["max_abs_err"] = max(results["decide_tones_tm:f32"]["max_abs_err"], err)
+    time_f32_route(results, "decide_tones_tm", lambda f: f(cfg, data32), b_a * n_sym * (sps * 4 + 12),
+                   n_sym * 2 * sps * 2 * m * b_a, F32_FLOPS_S)
+    del data32
     other_routes = {
-        "decide_tones_tm (float32)": (
-            lambda x: kernels.decide_tones_tm(cfg, x), lambda: data_full.float(), b_a * n_sym * (sps * 4 + 12),
-            n_sym * 2 * sps * 2 * m * b_a, F32_FLOPS_S),
         f"decide_tones_tm (bfloat16, B {b_a - 1})": (
             lambda x: kernels.decide_tones_tm(cfg, x), lambda: data_full[:, 1:].contiguous(),
             (b_a - 1) * n_sym * (sps * 2 + 12), n_sym * 2 * sps * 2 * m * (b_a - 1), BF16_FLOPS_S),
@@ -975,8 +1081,11 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
         del x
         torch.cuda.empty_cache()
     # correlate_fused's float32 routes (bf16 hi + lo: two and three products)
-    for seg_dtype in (torch.bfloat16, torch.float32):
-        log_search_time("main shape", seg_full.to(seg_dtype), tpl.float(), chunk, name="correlate_fused")
+    log_search_time("main shape", seg_full, tpl.float(), chunk, name="correlate_fused")
+    seg32, tpl32 = seg_full.float(), tpl.float()
+    time_f32_route(results, "correlate_fused", lambda f: f(seg32, tpl32, chunk),
+                   b_s * (n_seg * 4 + chunk * 4) + k * 4, 2 * k * chunk * b_s, BF16_FLOPS_S)
+    del seg32
 
     # the variable-length parse behind the kernels, per chunk of 8,192 streams
     # (CUDA events, median of 5): the whole parse, and its per-length CRC alone
@@ -1036,6 +1145,34 @@ def uncounted():
         yield
     finally:
         kernels.launch_counts.update(saved)
+
+
+@contextlib.contextmanager
+def plain_filterbank():
+    """Inside the block, uncounted, tone_energies_fused is its plain version
+    (on the card): the route whose payloads and verdicts a float32-compute
+    path must give."""
+    saved = kernels.tone_energies_fused
+    kernels.tone_energies_fused = kernels.tone_energies_fused_ref
+    try:
+        with uncounted():
+            yield
+    finally:
+        kernels.tone_energies_fused = saved
+
+
+VERDICTS = ("payload", "magic_ok", "length_ok", "header_crc_ok", "payload_crc_ok", "ok")
+
+
+def same_verdicts(a, b) -> bool:
+    """Two FrameResults' payloads and verdicts are equal."""
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in VERDICTS)
+
+
+def verdict_words(out: str) -> list[str]:
+    """The verdicts a modem-rx output prints (offset, ok, len, magic, crc
+    fields), without its measured numbers (quality, snr)."""
+    return re.findall(r"\b(?:offset|ok|len|magic|crc)=\S+", out)
 
 
 def locked_stream_capture(cfg, gen, label: str, int8: bool = False):
@@ -1320,6 +1457,11 @@ def phase_oneshot(cfg, gen) -> None:
         f"{b * n / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
     if n_ok != b or not right:
         raise AssertionError(f"oneshot receive_frame: ok {n_ok} of {b}, offsets and payloads right {right}")
+    with plain_filterbank():
+        res_plain = receive_frame(cfg, cap, PAYLOAD, device=DEV)
+    if not (same_verdicts(res.frame, res_plain.frame) and torch.equal(res.sync.offset, res_plain.sync.offset)):
+        raise AssertionError("oneshot receive_frame: payloads or verdicts differ from the plain filterbank's")
+    del res_plain
     # the same composition through the gather kernel
     start = res.sync.offset.clamp(0, n - t_max)
     plain = tsync.aligned_gather(cap, start, t_max)
@@ -1821,12 +1963,17 @@ def phase_sharded_demod(cfg, gen) -> None:
     the reference's default) through parallel.sharded_demodulate on 4
     positions of the card, then on make_mesh() (every card, one position
     each): every frame ok, payloads and verdicts equal to one unsharded
-    demodulate_frame call on the same batch (uncounted)."""
+    demodulate_frame call on the same batch (uncounted), whose own are
+    those of the plain filterbank (plain_filterbank)."""
     t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
     pay = torch.randint(0, 256, (ALIGNED_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
     waves = transmit(cfg, pay, device=DEV)
     with uncounted():
         ref, dt_ref = timed(lambda: tframe.demodulate_frame(cfg, waves, PAYLOAD, device=DEV))
+    with plain_filterbank():
+        if not same_verdicts(ref, tframe.demodulate_frame(cfg, waves, PAYLOAD, device=DEV)):
+            raise AssertionError("sharded-demod: the unsharded call's payloads or verdicts differ from the plain "
+                                 "filterbank's")
     for label, mesh in (("4 positions", card_mesh()), ("make_mesh()", parallel.make_mesh())):
         res, dt = timed(lambda: parallel.sharded_demodulate(cfg, mesh, waves, PAYLOAD))
         right = all(torch.equal(getattr(res, f), getattr(ref, f)) for f in ("payload", "ok", "magic_ok", "header_crc_ok"))
@@ -2035,10 +2182,15 @@ def phase_cli(cfg, gen) -> None:
         with open(path("msg.bin"), "wb") as fh:
             fh.write(payload)
         run("modem-tx", path("msg.bin"), "--out", path("cap.wav"))
-        run("modem-rx", path("cap.wav"), "--len", str(CLI_PAYLOAD), "--out", path("back.bin"))
+        line = run("modem-rx", path("cap.wav"), "--len", str(CLI_PAYLOAD), "--out", path("back.bin"))
         with open(path("back.bin"), "rb") as fh:
             if fh.read() != payload:
                 raise AssertionError("cli modem-rx: the bytes back differ from the bytes in")
+        with plain_filterbank():
+            line_plain = run("modem-rx", path("cap.wav"), "--len", str(CLI_PAYLOAD), "--out", path("plain.bin"))
+        with open(path("plain.bin"), "rb") as fh:
+            if fh.read() != payload or verdict_words(line) != verdict_words(line_plain):
+                raise AssertionError(f"cli modem-rx: {line!r} differs from the plain filterbank's {line_plain!r}")
         with wave.open(path("cap.wav")) as w:
             frame = np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.float32) / 32768.0
         z = np.zeros
@@ -2381,7 +2533,8 @@ def phase_trace(cfg, gen) -> dict:
 
 # Each main path, driven with the launch counts set to 0 just before it and
 # read just after: its model, the phase that drives it and the kernels it
-# must launch.
+# must launch (a bare name: any of its float routes, "<name>:f32" included;
+# "<name>:int8" or "<name>:f32": that route).
 PATHS = {
     "aligned": (MODEL, phase_aligned, ("decide_frame_tm",)),
     "stream": (MODEL, phase_stream, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
@@ -2411,7 +2564,7 @@ PATHS = {
         ("probe_at_fused", "demod_at_energies_fused", "viterbi_trellis", "sync_search_fused"),
     ),
     "aligned-window": (MODEL, phase_aligned_window, ("decide_tones_tm",)),
-    "oneshot": (MODEL, phase_oneshot, ("gather_rows_fused", "gather_rows_fused:int8", "tone_energies_fused")),
+    "oneshot": (MODEL, phase_oneshot, ("gather_rows_fused", "gather_rows_fused:int8", "tone_energies_fused:f32")),
     "aligned-ofdm": (
         OFDM_MODEL,
         lambda cfg, gen: phase_aligned_ofdm(cfg, "aligned-ofdm", STREAM_B),
@@ -2472,17 +2625,17 @@ PATHS = {
         ("sync_search_fused", "ofdm_track_decide_fused"),
     ),
     "aligned-channel": (MODEL, phase_aligned_channel, ("decide_frame_tm",)),
-    "sharded-demod": (MODEL, phase_sharded_demod, ("tone_energies_fused",)),
-    "ber-sweep": (MODEL, phase_ber_sweep, ("tone_energies_fused",)),
+    "sharded-demod": (MODEL, phase_sharded_demod, ("tone_energies_fused:f32",)),
+    "ber-sweep": (MODEL, phase_ber_sweep, ("tone_energies_fused:f32",)),
     "sharded-long": (MODEL, phase_sharded_long, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
     "sharded-grid": (MODEL, phase_sharded_grid, ("sync_search_fused", "demod_at_fused")),
     "sharded-dynamic": (MODEL, phase_sharded_dynamic, ("sync_search_fused", "demod_at_fused")),
-    "cli": (MODEL, phase_cli, ("tone_energies_fused", "sync_search_fused")),
+    "cli": (MODEL, phase_cli, ("tone_energies_fused:f32", "sync_search_fused")),
     "example-file": (MODEL, phase_example_file, ("sync_search_fused", "demod_at_fused")),
     "example-adaptive": (
         "ofdm-coded",
         phase_example_adaptive,
-        ("tone_energies_fused", "sync_search_fused", "ofdm_track_decide_fused", "viterbi_trellis"),
+        ("tone_energies_fused:f32", "sync_search_fused", "ofdm_track_decide_fused", "viterbi_trellis"),
     ),
     "example-opus": (
         "ofdm-coded", phase_example_opus, ("sync_search_fused", "ofdm_track_decide_fused", "viterbi_trellis"),
@@ -2504,6 +2657,13 @@ ABSENT = {
     "stream-tracked": ("demod_at_fused", "demod_probe_fused"),
     "stream-resident": ("probe_at_fused", "demod_probe_fused"),
 }
+
+
+def launched(counts: dict, name: str) -> int:
+    """Launches of ``name`` in ``counts``: a bare kernel name counts its
+    float routes (its float32 route, "<name>:f32", where it has one), a
+    suffixed one that route alone."""
+    return counts[name] + (counts.get(f"{name}:f32", 0) if ":" not in name else 0)
 
 
 def main() -> int:
@@ -2541,10 +2701,10 @@ def main() -> int:
         phase(get_model(model).config, gen)
         path_counts = dict(kernels.launch_counts)
         log(f"launches on the {path} path: {path_counts}")
-        missing = [n for n in path_kernels if path_counts[n] == 0]
+        missing = [n for n in path_kernels if launched(path_counts, n) == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} path: {missing}")
-        stray = [n for n in ABSENT.get(path, ()) if path_counts[n]]
+        stray = [n for n in ABSENT.get(path, ()) if launched(path_counts, n)]
         if stray:
             raise AssertionError(f"kernels launched on the {path} path that must not be: {stray}")
         for name, c in path_counts.items():
@@ -2566,13 +2726,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         }
-        if name in INT8_KERNELS:
-            r8 = results[f"{name}:int8"]
-            row["int8"] = {
-                "launches": counts[f"{name}:int8"], "max_abs_err": r8["max_abs_err"], "ms": r8["ms"],
-                "plain_ms": r8["plain_ms"], "bound_ms": r8["bound_ms"], "bound_by": r8["bound_by"],
-            }
-        if row["launches"] == 0 or row.get("int8", {}).get("launches") == 0:
+        for route in ("int8", "f32"):
+            key = f"{name}:{route}"
+            if key in results:
+                row[route] = {"launches": counts[key], **results[key]}
+        if launched(counts, name) == 0 or row.get("int8", {}).get("launches") == 0:
             raise AssertionError(f"{name}: launched no time on the main paths")
         rows.append(row)
     print(smi)

@@ -33,6 +33,15 @@ def cuda():
     return torch.device("cuda")
 
 
+def _key(name: str, dtype: torch.dtype) -> str:
+    """The launch-count key of a launch of ``name`` on ``dtype`` data (or
+    compute): "<name>:int8", "<name>:f32" for the float32 routes of
+    kernels.F32_ROUTES, else the name."""
+    if dtype == torch.int8:
+        return f"{name}:int8"
+    return f"{name}:f32" if dtype == torch.float32 and name in tk.F32_ROUTES else name
+
+
 def _frames(rng, b, pay=PAY, noise=0.3):
     """[T, B] f32 time-major frames at operating noise."""
     payload = rng.integers(0, 256, (b, pay), dtype=np.uint8)
@@ -223,9 +232,10 @@ def test_cuda_coded_receivers_match_cpu(cuda, dtype):
     got = tstream.receive_stream(CODED, cap.to(cuda), CHUNK, PAY, lock=True, compute_dtype=dtype, device=cuda)
     n_chunks = cap.shape[1] // CHUNK
     probes = n_chunks if dtype == torch.bfloat16 else 0
-    for name, n in (("probe_at_fused", probes), ("demod_at_energies_fused", n_chunks), ("viterbi_trellis", n_chunks)):
+    energies = _key("demod_at_energies_fused", dtype)
+    for name, n in (("probe_at_fused", probes), (energies, n_chunks), ("viterbi_trellis", n_chunks)):
         assert tk.launch_counts[name] - before[name] == n, name
-    assert tk.launch_counts["demod_probe_fused"] == before["demod_probe_fused"]
+    assert all(tk.launch_counts[k] == before[k] for k in ("demod_probe_fused", "demod_probe_fused:f32"))
     want = tstream.receive_stream(CODED, cap, CHUNK, PAY, lock=True, compute_dtype=dtype, device="cpu")
     assert int(got.carry.frames_ok.sum()) == 9 * 3
     assert torch.equal(got.steps.detected.cpu(), want.steps.detected)
@@ -278,9 +288,10 @@ def test_cuda_correlate_geometries_match_plain_version(cuda, k, out_len, dtypes)
     tpl = torch.from_numpy(t).to(cuda, tpl_dtype)
     seg = torch.from_numpy(buf).to(cuda, seg_dtype)[:, 1 : out_len + k]
     assert seg.stride(0) != seg.shape[1] and seg.data_ptr() % 16
-    before = tk.launch_counts["correlate_fused"]
+    key = _key("correlate_fused", seg_dtype)
+    before = tk.launch_counts[key]
     got = tk.correlate_fused(seg, tpl, out_len)
-    assert tk.launch_counts["correlate_fused"] == before + 1
+    assert tk.launch_counts[key] == before + 1
     torch.cuda.synchronize()
     want = tk.correlate_fused_ref(seg, tpl, out_len)
     assert got.shape == want.shape == (b, out_len) and got.dtype == torch.float32
@@ -326,9 +337,10 @@ def test_cuda_dynamic_slice_kernels_match_plain_versions(cuda, dtype):
     k = tpl.shape[-1]
     big = torch.randn(9, 9000, generator=g, device=cuda).to(dtype)
     for seg, out_len in ((big[:, 1 : 1 + 5000 + k - 1], 5000), (big[:, :3000], 2953), (big[:3, 7:2600], 2048)):
-        before = tk.launch_counts["correlate_fused"]
+        key = _key("correlate_fused", dtype)
+        before = tk.launch_counts[key]
         got = tk.correlate_fused(seg, tpl, out_len)
-        assert tk.launch_counts["correlate_fused"] == before + 1
+        assert tk.launch_counts[key] == before + 1
         torch.cuda.synchronize()
         want = tk.correlate_fused_ref(seg, tpl, out_len)
         assert got.shape == want.shape == (seg.shape[0], out_len) and got.dtype == torch.float32
@@ -442,9 +454,10 @@ def test_cuda_window_and_oneshot_receivers_match_cpu(cuda, dtype):
     w = transmit(CFG, pay, device="cpu")
     x = torch.cat([w, torch.zeros(7, 5 * CFG.samples_per_symbol)], -1)
     x = (x + 0.3 * torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))).T.contiguous()
-    before = tk.launch_counts["decide_tones_tm"]
+    key = _key("decide_tones_tm", dtype)
+    before = tk.launch_counts[key]
     on_card = tframe.demodulate_frame_tm(CFG, x.to(cuda), PAY, compute_dtype=dtype, device=cuda)
-    assert tk.launch_counts["decide_tones_tm"] == before + 1
+    assert tk.launch_counts[key] == before + 1
     on_cpu = tframe.demodulate_frame_tm(CFG, x, PAY, compute_dtype=dtype, device="cpu")
     assert bool(on_card.ok.all()) and np.array_equal(on_card.payload.cpu().numpy(), pay)
     torch.testing.assert_close(on_card.confidence.cpu(), on_cpu.confidence, rtol=1e-3, atol=1e-5)
@@ -607,11 +620,12 @@ def test_cuda_int8_kernels_match_plain_versions(cuda, model):
 @pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded", "mfsk32-dense", "mfsk8-audible"])
 def test_cuda_batch_major_filterbank_matches_plain_versions(cuda, dtype, model):
     """tone_energies_fused and decide_tones_fused on the data sections of
-    whole batch-major frames (a strided view past the preamble): tones and
-    argmaxes equal, energies within rtol 1e-5 (float32 sums in another
-    order); then demodulate_frame on the card against the CPU. The last two
-    models take the kernels' plain per-symbol form (32 tones; 48 samples a
-    symbol)."""
+    whole batch-major frames (a strided view past the preamble): bfloat16
+    compute with tones and argmaxes equal, energies within rtol 1e-5
+    (float32 sums in another order); float32 compute within the stated
+    tolerance of its route (_check_split); then demodulate_frame on the card
+    against the CPU. The last two models take the kernels' plain per-symbol
+    form (32 tones; 48 samples a symbol). Launches under each route's key."""
     from anet_torch.dsp import frame as tframe
 
     cfg = get_model(model).config
@@ -620,22 +634,26 @@ def test_cuda_batch_major_filterbank_matches_plain_versions(cuda, dtype, model):
     w = transmit(cfg, pay, device="cpu")
     x = (w + 0.3 * torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32))).to(cuda)
     data = x[:, cfg.preamble_samples :]
+    keys = (_key("tone_energies_fused", dtype), _key("decide_tones_fused", dtype))
     before = dict(tk.launch_counts)
-    e = tk.tone_energies_fused(cfg, data, compute_dtype=dtype)
-    want = tk.tone_energies_fused_ref(cfg, data, compute_dtype=dtype)
-    assert torch.equal(e.argmax(-1), want.argmax(-1))
-    torch.testing.assert_close(e, want, rtol=1e-5, atol=1e-5 * float(want.max()))
-    got = tk.decide_tones_fused(cfg, data, compute_dtype=dtype)
-    ref = tk.decide_tones_fused_ref(cfg, data, compute_dtype=dtype)
-    assert torch.equal(got[0], ref[0])
-    for a, b in zip(got[1:], ref[1:]):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    if dtype == torch.float32:  # the stated tolerance of the float32-compute route
+        _check_split(cfg, data)
+    else:
+        e = tk.tone_energies_fused(cfg, data, compute_dtype=dtype)
+        want = tk.tone_energies_fused_ref(cfg, data, compute_dtype=dtype)
+        assert torch.equal(e.argmax(-1), want.argmax(-1))
+        torch.testing.assert_close(e, want, rtol=1e-5, atol=1e-5 * float(want.max()))
+        got = tk.decide_tones_fused(cfg, data, compute_dtype=dtype)
+        ref = tk.decide_tones_fused_ref(cfg, data, compute_dtype=dtype)
+        assert torch.equal(got[0], ref[0])
+        for a, b in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
     on_card = tframe.demodulate_frame(cfg, x, PAY, compute_dtype=dtype, device=cuda)
     on_cpu = tframe.demodulate_frame(cfg, x.cpu(), PAY, compute_dtype=dtype, device="cpu")
     assert bool(on_card.ok.all()) and torch.equal(on_card.payload.cpu(), on_cpu.payload)
     torch.cuda.synchronize()
-    assert tk.launch_counts["tone_energies_fused"] - before["tone_energies_fused"] == 2
-    assert tk.launch_counts["decide_tones_fused"] - before["decide_tones_fused"] == 1
+    assert tk.launch_counts[keys[0]] - before[keys[0]] == 2
+    assert tk.launch_counts[keys[1]] - before[keys[1]] == 1
 
 
 @pytest.mark.cuda
@@ -653,9 +671,10 @@ def test_cuda_search_blockmax_matches_plain_version(cuda, dtype):
     k = tpl.shape[-1]
     te = float((tpl.float() ** 2).sum())
     seg = buf[:, 1 : 1 + CHUNK + k - 1]
-    before = tk.launch_counts["sync_search_blockmax"]
+    key = _key("sync_search_blockmax", dtype)
+    before = tk.launch_counts[key]
     got = tk.sync_search_blockmax(seg, tpl, CHUNK, te)
-    assert tk.launch_counts["sync_search_blockmax"] == before + 1
+    assert tk.launch_counts[key] == before + 1
     want = tk.sync_search_blockmax_ref(seg, tpl, CHUNK, te)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-6)
     q, i = tk.sync_search_fused(seg, tpl, CHUNK, te)
@@ -786,19 +805,17 @@ def test_cuda_demod_at_kernels_at_every_residue(cuda, dtype, geometry, n_sym, ra
     int8 (exact int32 I/Q, energies rounded after each operation): best and
     energies bit-equal, total within rtol 1e-5; float32 and bfloat16: best,
     total and energies within rtol 1e-3 (float32 sums in another order).
-    One launch each, int8 under its own key."""
+    One launch each, int8 and float32 under their own keys."""
     cfg = DEMOD_CONFIGS[geometry]
     rng = np.random.default_rng(n_sym + 7 * len(geometry))
     length = 4096 + (5 if ragged else 0)
     buf, st = _demod_buffer(cfg, rng, n_sym, length, dtype, cuda)
-    suffix = ":int8" if dtype == torch.int8 else ""
+    keys = (_key("demod_at_fused", dtype), _key("demod_at_energies_fused", dtype))
     before = dict(tk.launch_counts)
     got = tk.demod_at_fused(cfg, buf, st, n_sym)
     energies = tk.demod_at_energies_fused(cfg, buf, st, n_sym)
     torch.cuda.synchronize()
-    assert tk.launch_counts["demod_at_fused" + suffix] == before["demod_at_fused" + suffix] + 1
-    assert (tk.launch_counts["demod_at_energies_fused" + suffix]
-            == before["demod_at_energies_fused" + suffix] + 1)
+    assert all(tk.launch_counts[k] == before[k] + 1 for k in keys)
     want = tk.demod_at_fused_ref(cfg, buf, st, n_sym)
     want_e = tk.demod_at_energies_fused_ref(cfg, buf, st, n_sym)
     assert torch.equal(got[0], want[0])
@@ -859,7 +876,7 @@ def test_cuda_demod_probe_at_every_residue(cuda, dtype, n_lags, ragged):
     buf = flat[3:].view(x.shape)
     st = torch.tensor(st0, dtype=torch.int32, device=cuda)
 
-    key = "demod_probe_fused" + (":int8" if dtype == torch.int8 else "")
+    key = _key("demod_probe_fused", dtype)
     before = dict(tk.launch_counts)
     got = tk.demod_probe_fused(CFG, buf, st, n_sym, tpl, n_lags=n_lags)
     torch.cuda.synchronize()
@@ -924,7 +941,7 @@ def _check_frame_tm(cuda, cfg, x, pay, offset, dtype):
     elsewhere), held against the plain version: words and CRC counts
     bit-equal, qual within rtol 1e-5 for int8 (exact I/Q, sums in another
     order) and 1e-3 otherwise."""
-    key = "decide_frame_tm" + (":int8" if dtype == torch.int8 else "")
+    key = _key("decide_frame_tm", dtype)
     before = dict(tk.launch_counts)
     got = tk.decide_frame_tm(cfg, x, pay, preamble_offset=offset)
     torch.cuda.synchronize()
@@ -1009,8 +1026,8 @@ BM_SYMBOLS = (1, 15, 16, 17, 67)
 GAP = 1.0e4  # samples between rows and before the first: a read of them would show
 
 
-def _bm_rows(cfg, rng, device, lead, n_sym, strided, offset, fill="frames"):
-    """bfloat16 rows [*lead, n_sym * sps (+ 5 when ``strided``)] in one flat
+def _bm_rows(cfg, rng, device, lead, n_sym, strided, offset, fill="frames", dtype=torch.bfloat16):
+    """``dtype`` rows [*lead, n_sym * sps (+ 5 when ``strided``)] in one flat
     allocation that ends with the last row. Contiguous: back to back,
     ``offset`` samples (filled with GAP) into the allocation, so every row is
     at that residue mod 8. Strided: an odd pitch of two symbols and 3
@@ -1034,7 +1051,7 @@ def _bm_rows(cfg, rng, device, lead, n_sym, strided, offset, fill="frames"):
     flat = torch.full((offset + (r - 1) * pitch + width,), GAP, dtype=torch.float32)
     rows = flat[offset:].as_strided((r, width), (pitch, 1))
     rows.copy_(torch.from_numpy(data))
-    flat = flat.to(device, torch.bfloat16)
+    flat = flat.to(device, dtype)
     strides = tuple(int(np.prod(lead[i + 1 :])) * pitch for i in range(len(lead)))
     return flat[offset:].as_strided((*lead, width), (*strides, 1)), flat
 
@@ -1100,23 +1117,111 @@ def test_cuda_batch_major_filterbank_every_tie_and_extreme(cuda, geometry, fill)
         assert not got[0].any() and not e.any() and not got[2].any()
 
 
+def _check_split(cfg, rows):
+    """One launch each of tone_energies_fused and decide_tones_fused with
+    float32 compute on ``rows`` (under their ":f32" keys), held against the
+    plain versions with the route's stated tolerance: each energy within
+    kernels.F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's
+    largest plain energy, best and total within the same bounds, the tones
+    (decided, and the energies' argmax) equal but where the plain
+    version's two largest energies lie that close. Returns the count of
+    such near-ties."""
+    before = dict(tk.launch_counts)
+    e = tk.tone_energies_fused(cfg, rows, compute_dtype=torch.float32)
+    tone, best, total = tk.decide_tones_fused(cfg, rows, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
+    assert launched == {"tone_energies_fused:f32": 1, "decide_tones_fused:f32": 1}
+    want = tk.tone_energies_fused_ref(cfg, rows, compute_dtype=torch.float32)
+    assert e.shape == want.shape and tone.shape == best.shape == total.shape == want.shape[:-1]
+
+    def tol(w, scale):
+        return tk.F32_SPLIT_RTOL * w.abs() + tk.F32_SPLIT_ATOL * scale
+
+    scale = want.amax(-1)
+    assert bool(((e - want).abs() <= tol(want, scale[..., None])).all())
+    top2 = want.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= tol(top2[..., 0], top2[..., 0])
+    tone_w = want.argmax(-1).int()
+    assert bool(((tone == tone_w) | near).all()) and bool(((e.argmax(-1).int() == tone_w) | near).all())
+    assert bool(((best - scale).abs() <= tol(scale, scale)).all())
+    total_w = want.sum(-1)
+    assert bool(((total - total_w).abs() <= tol(total_w, scale)).all())
+    return int(near.sum())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded", "mfsk32-dense", "mfsk8-audible"])
 def test_cuda_batch_major_float32_compute_on_bf16_rows(cuda, model):
     """float32 compute on bfloat16 rows (receive_frame's route on bf16
-    captures) takes the CUDA-core kernels with the float32 basis, not the
-    tensor cores' bf16-rounded one: energies within rtol 1e-5 of the plain
-    float32 version's, tones and best within 1e-5 too."""
+    captures) meets the float32 basis, not the bf16-rounded one: at sps
+    32/64/128 with at most 16 tones the tensor cores' three-term split,
+    elsewhere the plain kernel, each within the route's stated tolerance
+    (_check_split)."""
     cfg = get_model(model).config
     rows, _ = _bm_rows(cfg, np.random.default_rng(29), cuda, (33,), 40, True, offset=1)
-    e = tk.tone_energies_fused(cfg, rows, compute_dtype=torch.float32)
-    want = tk.tone_energies_fused_ref(cfg, rows, compute_dtype=torch.float32)
-    torch.testing.assert_close(e, want, rtol=1e-5, atol=1e-5 * float(want.max()))
-    got = tk.decide_tones_fused(cfg, rows, compute_dtype=torch.float32)
-    ref = tk.decide_tones_fused_ref(cfg, rows, compute_dtype=torch.float32)
-    assert torch.equal(got[0], ref[0])
-    for a, b in zip(got[1:], ref[1:]):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    _check_split(cfg, rows)
+
+
+SPLIT_LEADS = ((7,), (2, 3))
+SPLIT_SYMBOLS = (1, 17, 67)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["bf16", "float32"])
+@pytest.mark.parametrize("lead", SPLIT_LEADS, ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("n_sym", SPLIT_SYMBOLS)
+@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+def test_cuda_split_at_every_residue(cuda, geometry, n_sym, lead, rows):
+    """The float32-compute route on the tensor cores (the three-term split)
+    at sps 32/64/128 and 2/4/8/16 tones, n_symbols 1, 17 and 67, R = 7 and
+    a [2, 3] leading shape, on bf16 rows and on float32 rows (split on
+    load), contiguous at an offset or strided at an odd pitch with a
+    partial symbol after them, the gaps filled with a large value and the
+    last row ending at the allocation's end: within the stated tolerance
+    (_check_split), one launch under each ":f32" key."""
+    cfg = DEMOD_CONFIGS[geometry]
+    case = SPLIT_LEADS.index(lead) + 2 * (SPLIT_SYMBOLS.index(n_sym) + 3 * list(DEMOD_CONFIGS).index(geometry))
+    rng = np.random.default_rng(1000 + case)
+    dtype = {"bf16": torch.bfloat16, "float32": torch.float32}[rows]
+    x, flat = _bm_rows(cfg, rng, cuda, lead, n_sym, case % 2 == 1, offset=(case // 2) % 8, dtype=dtype)
+    end = x.data_ptr() + (x.shape[-1] + x.stride(-2) * (int(np.prod(lead)) - 1)) * x.element_size()
+    assert end == flat.data_ptr() + flat.numel() * flat.element_size()
+    _check_split(cfg, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["bf16", "float32"])
+@pytest.mark.parametrize("fill", ["zeros", "saturated"])
+@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+def test_cuda_split_every_tie_and_extreme(cuda, geometry, fill, rows):
+    """The float32-compute route on all-zero rows (every tone ties: tone 0,
+    every energy, best and total exactly 0) and on rows of +-1 at random
+    (full scale), R = 7, strided, 17 symbols."""
+    cfg = DEMOD_CONFIGS[geometry]
+    dtype = {"bf16": torch.bfloat16, "float32": torch.float32}[rows]
+    x, _ = _bm_rows(cfg, np.random.default_rng(31 + len(fill)), cuda, (7,), 17, True, offset=3, fill=fill,
+                    dtype=dtype)
+    _check_split(cfg, x)
+    if fill == "zeros":
+        assert not tk.tone_energies_fused(cfg, x, compute_dtype=torch.float32).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [256, 16384])
+@pytest.mark.parametrize("rows", ["bf16", "float32"])
+def test_cuda_split_main_path(cuda, rows, b):
+    """The float32-compute route at the batch-major aligned receiver's
+    geometry (mfsk16-fast, payload 256: the data sections of b frames at
+    operating noise, read in place past the preamble), as chip_smoke.py's
+    phase 2 holds it: within the stated tolerance, near-ties rare."""
+    g = torch.Generator(device=cuda).manual_seed(37)
+    pay = torch.randint(0, 256, (256, 256), generator=g, device=cuda, dtype=torch.uint8)
+    w = transmit(CFG, pay, device=cuda)
+    x = (w + 0.3 * torch.randn(w.shape, generator=g, device=cuda)).repeat(b // 256, 1)
+    dtype = {"bf16": torch.bfloat16, "float32": torch.float32}[rows]
+    near = _check_split(CFG, x.to(dtype)[:, CFG.preamble_samples :])
+    assert near <= b  # at most one a frame of 536 symbols
 
 
 # --- probe_at_fused on demod_probe's staged probe, the OFDM equalizer a warp --
@@ -1325,7 +1430,7 @@ def _check_tones_tm(cfg, x):
     got = tk.decide_tones_tm(cfg, x)
     torch.cuda.synchronize()
     launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
-    assert launched == {"decide_tones_tm": 1}
+    assert launched == {_key("decide_tones_tm", x.dtype): 1}
     want = tk.decide_tones_tm_ref(cfg, x)
     assert all(g.shape == w.shape == (x.shape[0] // cfg.samples_per_symbol, x.shape[1]) for g, w in zip(got, want))
     assert torch.equal(got[0], want[0])

@@ -709,31 +709,33 @@ _FILTERBANK_PRESETS = {  # name: (fast geometry, float32 basis shape)
 @pytest.mark.parametrize("compute", ["float32", "bf16"])
 @pytest.mark.parametrize("name", list(_FILTERBANK_PRESETS))
 def test_filterbank_basis_layout(name, compute):
-    """The filterbank kernels' basis. float32 compute: the fast kernels'
-    [sps, 32] (cos of the tones in columns 0.., sin in 16..) for sps
-    32/64/128 and at most 16 tones, else the plain [sps, 2M]; the same
-    entries as the plain basis. bfloat16 compute at the fast geometry: the
-    tensor-core B fragments, which read back as the interleaved basis with
-    the plain bf16 basis's entries; elsewhere the plain [sps, 2M] in bf16
-    entries."""
+    """The filterbank kernels' basis. At sps 32/64/128 and at most 16
+    tones, tensor-core B fragments: bfloat16 compute, one term, which reads
+    back as the interleaved basis with the plain bf16 basis's entries;
+    float32 compute, the three bf16 terms of the float32 basis
+    (_demod_split_basis), which read back as terms summing to the plain
+    float32 basis's entries. Elsewhere the plain [sps, 2M] of the compute
+    dtype's entries."""
     cfg = get_model(name).config
     fast, shape = _FILTERBANK_PRESETS[name]
     dt = {"float32": torch.float32, "bf16": torch.bfloat16}[compute]
     m, cpu = cfg.num_tones, torch.device("cpu")
     plain = tk._plain_basis(cfg, dt, "cpu")
-    entry, mma, basis = tk._filterbank_operands("tone_energies", cfg, dt, cpu)
-    assert mma == (fast and dt == torch.bfloat16)
-    if mma:
+    entry, route, basis = tk._filterbank_operands("tone_energies", cfg, dt, cpu)
+    assert route == ("plain" if not fast else "mma" if dt == torch.bfloat16 else "split")
+    if route == "mma":
         assert entry == "tone_energies_mma" and basis is tk._demod_mma_basis(cfg, dt, cpu)
         b = _unpack_demod_mma_basis(basis, dt)
+    elif route == "split":
+        assert entry == "tone_energies_mma_f32" and basis is tk._demod_split_basis(cfg, cpu)
+        b = sum(_unpack_demod_mma_basis(w, torch.bfloat16).double() for w in basis)
+        plain = plain.double()
+    if route != "plain":
         assert torch.equal(b[:, 0 : 2 * m : 2], plain[:, :m]) and torch.equal(b[:, 1 : 2 * m : 2], plain[:, m:])
         return
     assert entry == "tone_energies" and basis is tk._filterbank_basis(cfg, dt, cpu)
     assert basis.dtype == torch.float32 and basis.shape == shape and basis.is_contiguous()
-    if shape[1] == 2 * m:
-        assert torch.equal(basis, plain)
-    else:
-        assert torch.equal(basis[:, :m], plain[:, :m]) and torch.equal(basis[:, 16 : 16 + m], plain[:, m:])
+    assert torch.equal(basis, plain)
 
 
 def _record_filterbank_calls(monkeypatch) -> list:
@@ -744,7 +746,7 @@ def _record_filterbank_calls(monkeypatch) -> list:
     monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
     monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
     monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what: tk._KERNEL_DTYPES[t.dtype])
-    monkeypatch.setattr(tk, "_check_launch", lambda err, name: calls.append(("checked", name)))
+    monkeypatch.setattr(tk, "_check_launch", lambda err, name, dtype: calls.append(("checked", name, dtype)))
     return calls
 
 
@@ -755,14 +757,15 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
     """Which C entry each filterbank call takes, with which operands, for
     the four MFSK presets x compute dtype x rows dtype, through the
     wrappers' launch code with the card's calls replaced by recorders (so
-    nothing is launched): bfloat16 compute at the fast geometry takes the
-    tensor-core entry (``*_mma``: rows, R, row pitch, the cached int32
-    zero starts) with _demod_mma_basis; float32 compute, bfloat16 rows
-    included (read as they are and widened on load), takes the CUDA-core
-    entry (rows, dtype code, R, row pitch) with the float32 [sps, 32]
-    columns, never the bf16-rounded ones; any other geometry the CUDA-core
-    entry with the plain [sps, 2M] basis. Rows are a strided view past the
-    preamble of [2, 3] frames."""
+    nothing is launched): at the fast geometry bfloat16 compute takes the
+    tensor-core entry ``*_mma`` (rows, R, row pitch, the cached int32 zero
+    starts) with _demod_mma_basis, and float32 compute the tensor-core
+    entry ``*_mma_f32`` (rows, dtype code, R, row pitch, the zero starts)
+    with the three-term _demod_split_basis, bfloat16 and float32 rows read
+    as they are; any other geometry the CUDA-core entry (rows, dtype code,
+    R, row pitch) with the plain [sps, 2M] basis. The launch is checked
+    with the compute dtype, so float32 compute counts under ``:f32``. Rows
+    are a strided view past the preamble of [2, 3] frames."""
     from anet_torch.kernels import build
 
     cfg = get_model(name).config
@@ -774,39 +777,43 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
     data = frames[..., pre:]
     calls = _record_filterbank_calls(monkeypatch)
     before = dict(tk.launch_counts)
-    mma = fast and cdt == torch.bfloat16
+    route = "plain" if not fast else "mma" if cdt == torch.bfloat16 else "split"
     for kind, n_out in (("tone_energies", 1), ("decide_tones", 3)):
         calls.clear()
         outs = tk._filterbank_launch(kind + "_fused", kind, cfg, data, cdt, lambda lead, n, dev: tuple(
             torch.empty(*lead, n, dtype=torch.float32) for _ in range(n_out)))
         (key, args), checked = calls
-        assert checked == ("checked", kind + "_fused")
+        assert checked == ("checked", kind + "_fused", cdt)
         assert all(o.shape == (2, 3, s) for o in outs)
         sig = build.SIGNATURES[key]
-        assert (*sig[2:], key)[0] == "tone_energies" and len(sig[1]) == len(args) == 4 + 4 + n_out + 1
-        tail = (s, sps, m)
-        basis_ptr, out_ptrs = args[7], args[8 : 8 + n_out]
-        assert args[4:7] == tail and out_ptrs == tuple(o.data_ptr() for o in outs) and args[-1] == 0
+        n_head = {"mma": 4, "split": 5, "plain": 4}[route]
+        assert (*sig[2:], key)[0] == "tone_energies" and len(sig[1]) == len(args) == n_head + 4 + n_out + 1
+        basis_ptr, out_ptrs = args[n_head + 3], args[n_head + 4 : n_head + 4 + n_out]
+        assert args[n_head : n_head + 3] == (s, sps, m) and out_ptrs == tuple(o.data_ptr() for o in outs)
+        assert args[-1] == 0
         row_dtype = torch.bfloat16 if cdt == torch.bfloat16 else rdt
-        r, pitch = args[1:3] if mma else args[2:4]
+        r, pitch = args[1:3] if route == "mma" else args[2:4]
         assert r == 6
         if row_dtype == rdt:  # the view past the preamble, read in place
             assert args[0] == data.data_ptr() and pitch == frames.shape[-1]
         else:  # cast: a copy of the data sections
             assert pitch == data.shape[-1]
-        if mma:
-            assert key == kind + "_mma"
-            assert args[3] == tk._zero_starts(6, cpu).data_ptr()
+        if route != "mma":
+            assert args[1] == tk._KERNEL_DTYPES[row_dtype]
+        if route != "plain":
+            assert args[n_head - 1] == tk._zero_starts(6, cpu).data_ptr()
             assert not bool(tk._zero_starts(6, cpu).any()) and tk._zero_starts(6, cpu).dtype == torch.int32
+        if route == "mma":
+            assert key == kind + "_mma"
             assert basis_ptr == tk._demod_mma_basis(cfg, torch.bfloat16, cpu).data_ptr()
+        elif route == "split":  # the float32 basis's three terms, never the bf16-rounded one alone
+            assert key == kind + "_mma_f32"
+            assert basis_ptr == tk._demod_split_basis(cfg, cpu).data_ptr()
         else:
-            assert key == kind and args[1] == tk._KERNEL_DTYPES[row_dtype]
+            assert key == kind
             basis = tk._filterbank_basis(cfg, cdt, cpu)
             assert basis_ptr == basis.data_ptr() and basis.dtype == torch.float32
-            assert basis.shape == ((sps, 32) if fast else (sps, 2 * m))
-            if fast and cdt == torch.float32:  # the float32 columns, not the bf16-rounded ones
-                assert basis is tk._kernel_basis(cfg, torch.float32, cpu)
-                assert not torch.equal(basis, tk._kernel_basis(cfg, torch.bfloat16, cpu))
+            assert basis.shape == (sps, 2 * m)
     assert tk.launch_counts == before
 
 
@@ -923,6 +930,24 @@ def test_sass_mix_counts_global_loads_and_stores_by_width():
 """
     assert global_ops(sass) == [{"LDG.E.128.CONSTANT": 1, "LDG.E.U8": 1, "STG.E.128": 2}, {}]
     assert [dict(ops) for _, ops in parse_sass(sass)] == [{"LDG": 2, "STG": 2, "SHF": 1}, {"EXIT": 1}]
+
+
+def test_sass_mix_reads_resource_usage():
+    """Each function's registers a thread and stack bytes, from the lines
+    ``cuobjdump --dump-resource-usage`` prints, keyed by the mangled name
+    that ``-sass`` prints too."""
+    from anet_torch.kernels.sass_mix import resource_usage
+
+    text = """
+Fatbin elf code:
+================
+arch = sm_90a
+		Function _Z6kernelIaEvPKT_:
+		REG:128 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:600 TEXTURE:0 SURFACE:0 SAMPLER:0
+		Function _Z4nonev:
+		REG:40 STACK:80 SHARED:1024 LOCAL:0 CONSTANT[0]:560 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+    assert resource_usage(text) == {"_Z6kernelIaEvPKT_": (128, 0), "_Z4nonev": (40, 80)}
 
 
 def _band_from_words(words: torch.Tensor, k: int) -> torch.Tensor:
