@@ -45,22 +45,25 @@ operand once a template tensor. The two align+demod kernels
 (``csrc/demod_core.cuh``): the filterbank as a bf16 ``mma.sync`` with
 float32 accumulators, or an int8 one with exact int32 I/Q, fed by a
 pipelined span read, the basis packed once a config and dtype in fragment
-order (``_demod_mma_basis``); their float32 buffers keep the CUDA-core
-body. The batch-major filterbank (tone_energies_fused,
-decide_tones_fused) runs that product, with the same two epilogues, on
-rows read in place from every start 0 at sps 32, 64 and 128 with at most
-16 tones: under bfloat16 compute with the bf16 basis; under float32
-compute with the float32 basis as three bf16 terms that sum to it exactly
-(``_demod_split_basis``), bfloat16 rows meeting all three and float32
-rows split on load into three bf16 terms of their own, six of the nine
-products kept, so the I/Q are float32 sums to about 2**-24 (the route:
-``_filterbank_operands``; other geometries take a plain CUDA-core
-kernel). demod_probe_fused is a warp-per-stream probe
-followed by demod_at_fused's kernel (float32: a CUDA-core block a
-stream); probe_at_fused runs the same staged probe (csrc/demod_probe.cu)
-with its span at the probe base and the quality as its epilogue, the
-template energy read on the card. ofdm_track_decide_fused is a warp per
-stream over points staged in shared memory.
+order (``_demod_mma_basis``). demod_at_fused's float32 buffers (the
+stream's default carry) take the float32 basis as three bf16 terms that
+sum to it exactly (``_demod_split_basis``) and their samples split on
+load into three bf16 terms of their own, six of the nine products kept,
+so the I/Q are float32 sums to about 2**-24 (``F32_SPLIT_RTOL``,
+``F32_SPLIT_ATOL``); demod_at_energies_fused's float32 buffers keep the
+CUDA-core body (``_demod_energies_basis``). The batch-major filterbank
+(tone_energies_fused, decide_tones_fused) runs that product, with the
+same two epilogues, on rows read in place from every start 0 at sps 32,
+64 and 128 with at most 16 tones: under bfloat16 compute with the bf16
+basis; under float32 compute with the three-term split, bfloat16 rows
+meeting all three terms and float32 rows split as demod_at_fused's are
+(the route: ``_filterbank_operands``; other geometries take a plain
+CUDA-core kernel). demod_probe_fused is a warp-per-stream probe followed
+by demod_at_fused's kernel, every dtype; probe_at_fused runs the same
+staged probe (csrc/demod_probe.cu) with its span at the probe base and the
+quality as its epilogue, the template energy read on the card.
+ofdm_track_decide_fused is a warp per stream over points staged in shared
+memory.
 decide_frame_tm runs the same tensor-core filterbank with streams on the
 product's M axis, its A operand staged from time-major rows with
 ``ldmatrix.trans``, and counts CRC bits with popcounts of the packed words
@@ -142,11 +145,12 @@ _ROW = 128  # samples per row of the probe's row-aligned energy span
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_SPS = (32, 64, 128)
 INT8_BASIS_SCALE = 127.0  # int8 basis and probe template: round(x * 127 / max|x|)
-# The batch-major filterbank's float32-compute route (the three-term split
-# on the tensor cores) against its plain version: each energy within
-# F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's largest
-# plain energy; best and total within the same bounds, tones equal but
-# where the plain version's two largest energies lie that close.
+# The three-term split on the tensor cores (the batch-major filterbank's
+# float32 compute, demod_at_fused's and demod_probe_fused's float32
+# buffers) against its plain version: each energy within F32_SPLIT_RTOL of
+# itself plus F32_SPLIT_ATOL of its symbol's largest plain energy; best and
+# total within the same bounds, tones equal but where the plain version's
+# two largest energies lie that close.
 F32_SPLIT_RTOL = 1e-5
 F32_SPLIT_ATOL = 1e-6
 
@@ -177,8 +181,9 @@ launch_counts = {
 }
 # The kernels whose float32 route is a design of its own, counted apart
 # under "<name>:f32": a CUDA-core body, the searches' and the correlation's
-# hi + lo split of a float32 segment, or the batch-major filterbank's
-# three-term split (float32 compute).
+# hi + lo split of a float32 segment, or the three-term split of the
+# align+demod kernel (float32 buffers) and the batch-major filterbank
+# (float32 compute).
 F32_ROUTES = (
     "decide_frame_tm", "sync_search_fused", "demod_at_fused", "demod_probe_fused",
     "demod_at_energies_fused", "correlate_fused", "decide_tones_tm", "tone_energies_fused",
@@ -345,9 +350,19 @@ def _demod_split_basis(config: ModemConfig, device: torch.device) -> torch.Tenso
 
 
 def _demod_at_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The basis operand of the align+demod kernels for samples of
-    ``dtype``: the tensor-core B fragments for bfloat16 and int8, the
-    CUDA-core [sps, 32] float32 columns for float32."""
+    """The basis operand of demod_at.cu's kernel (demod_at_fused, and
+    demod_probe_fused's demod) for samples of ``dtype``: the one-term B
+    fragments for bfloat16 and int8, the three-term split of the float32
+    basis for float32."""
+    if dtype == torch.float32:
+        return _demod_split_basis(config, device)
+    return _demod_mma_basis(config, dtype, device)
+
+
+def _demod_energies_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The basis operand of demod_at_energies_fused for samples of
+    ``dtype``: the one-term B fragments for bfloat16 and int8, the
+    CUDA-core body's [sps, 32] float32 columns for float32."""
     if dtype == torch.float32:
         return _kernel_basis(config, dtype, device)
     return _demod_mma_basis(config, dtype, device)
@@ -673,9 +688,20 @@ def demod_at_fused(config: ModemConfig, buffer: torch.Tensor, start: torch.Tenso
     """Timing-align + MFSK symbol decisions straight from the stream buffer:
     (tone i32, best f32, total f32), each [B, n_symbols], for the frames
     whose PREAMBLE starts at ``start[b]`` (data ``preamble_samples``
-    later). Samples past the buffer's end read as zero."""
+    later). Samples past the buffer's end read as zero.
+
+    On the card: csrc/demod_at.cu's tensor-core walk, bfloat16 and int8
+    buffers against the one-term basis, float32 buffers as the three-term
+    bf16 split (within F32_SPLIT_RTOL and F32_SPLIT_ATOL of the plain
+    version)."""
     if buffer.device.type == "cpu":
         return demod_at_fused_ref(config, buffer, start, n_symbols)
+    return _demod_at_launch(config, buffer, start, n_symbols)
+
+
+def _demod_at_launch(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
+    """demod_at_fused's launch: csrc/demod_at.cu's entry with the basis of
+    _demod_at_basis for the buffer's dtype."""
     name = "demod_at_fused"
     dtype, st = _check_buffer_and_starts(name, buffer, start, "start")
     _check_kernel_geometry(name, config)
@@ -816,12 +842,19 @@ def demod_probe_fused(
 
     On the card it is two launches on the current stream: the probe
     (csrc/demod_probe.cu, a warp a stream) writes (cmax, off, energy) and
-    the refined starts st0 + off, then the demod runs there: for bfloat16
-    and int8 demod_at_fused's tensor-core kernel (csrc/demod_at.cu), for
-    float32 a CUDA-core block a stream (csrc/demod_probe.cu). They count
-    as one launch of demod_probe_fused."""
+    the refined starts st0 + off, then demod_at_fused's tensor-core kernel
+    (csrc/demod_at.cu; float32 buffers as its three-term bf16 split) runs
+    there. They count as one launch of demod_probe_fused."""
     if buffer.device.type == "cpu":
         return demod_probe_fused_ref(config, buffer, st0, n_symbols, template, n_lags=n_lags)
+    return _demod_probe_launch(config, buffer, st0, n_symbols, template, n_lags)
+
+
+def _demod_probe_launch(config: ModemConfig, buffer: torch.Tensor, st0: torch.Tensor, n_symbols: int,
+                        template: torch.Tensor, n_lags: int):
+    """demod_probe_fused's two launches: csrc/demod_probe.cu's probe, then
+    csrc/demod_at.cu's entry at the refined starts with the basis of
+    _demod_at_basis for the buffer's dtype; one count."""
     name = "demod_probe_fused"
     dtype, st = _check_buffer_and_starts(name, buffer, st0, "st0")
     if not 1 <= n_lags <= 8:
@@ -848,8 +881,7 @@ def demod_probe_fused(
     )
     _check_error(err, f"{name} (probe)")
     basis = _demod_at_basis(config, buffer.dtype, dev)
-    demod = "demod_probe_f32" if buffer.dtype == torch.float32 else "demod_at"
-    err = _entry(demod)(
+    err = _entry("demod_at")(
         buffer.data_ptr(), dtype, b, length, start.data_ptr(), config.preamble_samples,
         config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(), tone.data_ptr(),
         best.data_ptr(), total.data_ptr(), stream,
@@ -962,7 +994,7 @@ def demod_at_energies_fused(
     b, length = buffer.shape
     dev = buffer.device
     energies = torch.empty(b, n_symbols, config.num_tones, dtype=torch.float32, device=dev)
-    basis = _demod_at_basis(config, buffer.dtype, dev)
+    basis = _demod_energies_basis(config, buffer.dtype, dev)
     err = _entry("demod_at_energies")(
         buffer.data_ptr(), dtype, b, length, st.data_ptr(), config.preamble_samples,
         config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(),

@@ -58,10 +58,6 @@ SIGNATURES = {
         "anet_demod_probe",
         [_P, _I, _I, _L, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     ),
-    "demod_probe_f32": (
-        "anet_demod_probe_f32",
-        [_P, _I, _I, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P], "demod_probe",
-    ),
     "viterbi": ("anet_viterbi", [_P, _P, _I, _I, _P, _P, _P]),
     "demod_at_energies": (
         "anet_demod_at_energies",

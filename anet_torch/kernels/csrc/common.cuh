@@ -44,42 +44,18 @@ __device__ __forceinline__ bool better(float qa, int ia, float qb, int ib) {
   return qa > qb || (qa == qb && ia < ib);
 }
 
-// Argmax and sum over the 16 tone energies held by lanes 0..15 of a warp
-// (lanes 16..31 pass anything; they are outside the width-16 segment that
-// holds lane 0). Result valid in lane 0.
-__device__ __forceinline__ void tone_reduce16(float e, int& tone, float& best, float& total) {
-  float bq = e, tot = e;
-  int bi = threadIdx.x & 15;
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    float oq = __shfl_down_sync(0xffffffffu, bq, off, 16);
-    int oi = __shfl_down_sync(0xffffffffu, bi, off, 16);
-    tot += __shfl_down_sync(0xffffffffu, tot, off, 16);
-    if (better(oq, oi, bq, bi)) {
-      bq = oq;
-      bi = oi;
-    }
-  }
-  tone = bi;
-  best = bq;
-  total = tot;
-}
-
-// One block demodulates symbols [s_begin, s_end) of one stream whose data
-// section starts at row[d0]: per symbol, the SPS samples hit the [SPS, 32]
-// basis (cos of 16 tones in columns 0..15, sin in 16..31; tones past
-// num_tones are zero columns and never win an argmax), then I^2+Q^2,
-// argmax (first index on ties), best and total.
-//
-// Lane c of every warp holds basis column c in registers; a tile of
-// SYM_TILE symbols is staged in shared memory with coalesced loads, and
-// each warp takes every 8th symbol of the tile, reading its samples as
-// float4 broadcasts. Needs blocks of DEMOD_THREADS threads and `stage` sized
-// SYM_TILE * SPS floats.
+// The CUDA-core filterbank of demod_at_energies.cu's float32 route: one
+// block takes a tile of SYM_TILE symbols of one stream, staged in shared
+// memory with coalesced loads; lane c of every warp holds basis column c
+// of the [SPS, 32] basis (cos of 16 tones in columns 0..15, sin in 16..31;
+// tones past num_tones are zero columns) in registers, and each warp takes
+// every 8th symbol of the tile, reading its samples as float4 broadcasts.
+// Needs blocks of DEMOD_THREADS threads and `stage` sized SYM_TILE * SPS
+// floats.
 constexpr int SYM_TILE = 64;
-// Block size of the kernels built on demod_symbols and energies_symbols. A
-// compile-time stride lets the staging loop unroll, so each thread keeps
-// several loads in flight.
+// Block size of the kernels built on energies_symbols (and of
+// tone_energies.cu's plain kernel). A compile-time stride lets the staging
+// loop unroll, so each thread keeps several loads in flight.
 constexpr int DEMOD_THREADS = 256;
 
 // The staged samples of one symbol (16-byte aligned) against this lane's
@@ -100,46 +76,10 @@ __device__ __forceinline__ float basis_dot(const float* __restrict__ stage,
   return acc;
 }
 
-template <typename T, int SPS>
-__device__ void demod_symbols(const T* __restrict__ row, int64_t len, int64_t d0,
-                              int s_begin, int s_end, const float* __restrict__ basis,
-                              float* __restrict__ stage, int32_t* __restrict__ tone_out,
-                              float* __restrict__ best_out, float* __restrict__ total_out) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  constexpr int n_warps = DEMOD_THREADS / 32;
-  float breg[SPS];
-#pragma unroll
-  for (int j = 0; j < SPS; ++j) breg[j] = basis[j * 32 + lane];
-
-  for (int t0 = s_begin; t0 < s_end; t0 += SYM_TILE) {
-    const int n_sym = min(SYM_TILE, s_end - t0);
-    const int64_t base = d0 + (int64_t)t0 * SPS;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = threadIdx.x; i < n_sym * SPS; i += DEMOD_THREADS)
-      stage[i] = load_or_zero(row, base + i, len);
-    __syncthreads();
-    for (int u = warp; u < n_sym; u += n_warps) {
-      const float acc = basis_dot<SPS>(stage + u * SPS, breg);
-      const float q = __shfl_down_sync(0xffffffffu, acc, 16);
-      const float e = tone_energy(acc, q);  // valid in lanes 0..15
-      int tone;
-      float best, total;
-      tone_reduce16(e, tone, best, total);
-      if (lane == 0) {
-        const int s = t0 + u;
-        tone_out[s] = tone;
-        best_out[s] = best;
-        total_out[s] = total;
-      }
-    }
-  }
-}
-
 // One block's tile of n_sym <= SYM_TILE symbols of one row, the first at
 // row[base] (zero outside [0, len)): the energy I^2 + Q^2 of every tone,
-// out[u * m + c] for the tile's symbol u and tone c < m. The front of
-// demod_symbols; lanes 0..m-1 of the warp that takes a symbol store it.
+// out[u * m + c] for the tile's symbol u and tone c < m; lanes 0..m-1 of
+// the warp that takes a symbol store it.
 template <typename T, int SPS>
 __device__ void energies_symbols(const T* __restrict__ row, int64_t len, int64_t base, int n_sym,
                                  int m, const float* __restrict__ basis,

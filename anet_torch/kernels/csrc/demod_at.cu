@@ -16,15 +16,27 @@
 // _demod_at_setup lines 1885-1893) halves the read and takes the x127
 // integer basis.
 //
+// float32 buffers (the stream's default carry) double the read: 0.35 ms at
+// B = 8192, 536 symbols of 64 samples. Their filterbank runs as six bf16
+// products (below), 0.11 ms at the bf16 tensor-core peak.
+//
 // Design: the TPU kernel's 8-row-aligned span DMAs, sub-row selects and
 // one-hot lane-shift matmuls existed only for the TPU's (8, 128) layout.
-// bfloat16 and int8 buffers run the tensor-core filterbank of
-// demod_core.cuh (a warp's ring of cp.async span reads, 16 symbols x sps
-// samples a mma.sync A tile, the basis in registers as B fragments) with
-// its decision epilogue, store_decisions: the argmax (first index on
-// ties), best and sum over a quad's tones, each warp store 16 consecutive
-// symbols. float32 buffers keep the CUDA-core body of common.cuh
-// (demod_symbols).
+// Every buffer runs the tensor-core filterbank of demod_core.cuh (a warp's
+// ring of cp.async span reads, 16 symbols x sps samples a mma.sync A tile,
+// the basis in registers as B fragments) with its decision epilogue,
+// store_decisions: the argmax (first index on ties), best and sum over a
+// quad's tones, each warp store 16 consecutive symbols.
+// - bfloat16 and int8 buffers (demod_at_mma): the one-term product with
+//   the bf16 or x127 int8 basis (kernels._demod_mma_basis).
+// - float32 buffers (demod_at_mma_f32): the three-term split, SplitTerms
+//   (kernels._demod_split_basis): the float32 basis as three bf16 terms, b0
+//   in registers and b1, b2 in shared memory; the samples staged as
+//   float32 and split in registers into three bf16 terms; six of the nine
+//   products, a0 b0 in an accumulator of its own. The I/Q are float32 sums
+//   to about 2^-24 (kernels.F32_SPLIT_RTOL, F32_SPLIT_ATOL). A ring of 2
+//   stages a warp (F32_RING): shared memory a block 22,656 bytes at sps
+//   32, 43,136 at 64, 84,096 at 128 (16 tones).
 #include "demod_core.cuh"
 
 namespace {
@@ -39,21 +51,24 @@ demod_at_mma(anet::demod::Span sp, const uint32_t* __restrict__ basis, int32_t* 
   });
 }
 
-// float32 buffers: one block per (stream, tile of 64 symbols) on the CUDA
-// cores (demod_symbols in common.cuh).
-template <int SPS>
-__global__ void __launch_bounds__(anet::DEMOD_THREADS)
-demod_at_f32(const float* __restrict__ buf, int64_t len, const int32_t* __restrict__ start,
-             int pre, int n_symbols, const float* __restrict__ basis,
-             int32_t* __restrict__ tone, float* __restrict__ best, float* __restrict__ total) {
-  __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
-  const int b = blockIdx.x;
-  const int s0 = blockIdx.y * anet::SYM_TILE;
-  const int s1 = min(s0 + anet::SYM_TILE, n_symbols);
-  const int64_t d0 = (int64_t)start[b] + pre;
-  const int64_t o = (int64_t)b * n_symbols;
-  anet::demod_symbols<float, SPS>(buf + (int64_t)b * len, len, d0, s0, s1, basis, stage, tone + o,
-                                  best + o, total + o);
+// float32 buffers: the walk with the three-term split of samples and basis,
+// in a ring of F32_RING stages. A float32 stage is twice a bf16 one (4,368
+// bytes at sps 64), and the default 4 stages left 2 blocks (8 warps) an SM
+// at sps 64 with 3 tiles in flight a warp, more than the card needs;
+// 2 stages give 5 blocks (20 warps) and took the device time from 0.62 to
+// 0.50 ms (H100 SXM, time_search --kernels demod, B = 8,192).
+constexpr int F32_RING = 2;
+
+template <int SPS, int NT>
+__global__ void __launch_bounds__(anet::demod::THREADS)
+demod_at_mma_f32(anet::demod::Span sp, const uint32_t* __restrict__ basis,
+                 int32_t* __restrict__ tone, float* __restrict__ best, float* __restrict__ total) {
+  using P = anet::demod::SplitTerms<float, SPS, NT>;
+  const int n_symbols = sp.n_symbols;
+  anet::demod::walk_with<float, SPS, P, F32_RING>(
+      sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
+        anet::demod::store_decisions<NT>(b, s, e, n_symbols, tone, best, total);
+      });
 }
 
 struct Args {
@@ -76,14 +91,13 @@ cudaError_t launch_mma(const Args& a) {
       static_cast<float*>(a.best), static_cast<float*>(a.total));
 }
 
-template <int SPS>
-cudaError_t launch_f32(const Args& a) {
-  dim3 grid(a.B, (a.n_symbols + anet::SYM_TILE - 1) / anet::SYM_TILE);
-  demod_at_f32<SPS><<<grid, anet::DEMOD_THREADS, 0, a.st>>>(
-      static_cast<const float*>(a.buf), a.len, static_cast<const int32_t*>(a.start), a.pre,
-      a.n_symbols, static_cast<const float*>(a.basis), static_cast<int32_t*>(a.tone),
+template <int SPS, int NT>
+cudaError_t launch_mma_f32(const Args& a) {
+  static int resident = 0;  // one per kernel instantiation
+  return anet::demod::launch<float, SPS, anet::demod::SplitTerms<float, SPS, NT>::SMEM, F32_RING>(
+      demod_at_mma_f32<SPS, NT>, resident, a.buf, a.B, a.len, a.len, a.start, a.pre, a.n_symbols,
+      a.st, static_cast<const uint32_t*>(a.basis), static_cast<int32_t*>(a.tone),
       static_cast<float*>(a.best), static_cast<float*>(a.total));
-  return cudaGetLastError();
 }
 
 template <typename T, int SPS>
@@ -94,10 +108,18 @@ cudaError_t dispatch_tones(int m, const Args& a) {
 }
 
 template <int SPS>
+cudaError_t dispatch_tones_f32(int m, const Args& a) {
+  if (m <= 4) return launch_mma_f32<SPS, 1>(a);
+  if (m <= 8) return launch_mma_f32<SPS, 2>(a);
+  return launch_mma_f32<SPS, 4>(a);
+}
+
+template <int SPS>
 cudaError_t dispatch_dtype(int dtype, int m, const Args& a) {
   if (dtype == anet::DTYPE_BF16) return dispatch_tones<__nv_bfloat16, SPS>(m, a);
   if (dtype == anet::DTYPE_I8) return dispatch_tones<int8_t, SPS>(m, a);
-  return launch_f32<SPS>(a);
+  if (dtype == anet::DTYPE_F32) return dispatch_tones_f32<SPS>(m, a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -106,9 +128,9 @@ cudaError_t dispatch_dtype(int dtype, int m, const Args& a) {
 // starts; tone: [B, n_symbols] int32; best, total: [B, n_symbols] float32;
 // m <= 16 tones, sps 32, 64 or 128. basis: for bfloat16 and int8 buffers
 // the B fragments of demod_core.cuh (kernels._demod_mma_basis, int32
-// [sps * elem / 32, n_tiles, 2, 32]); for float32 buffers [sps, 32]
-// float32 (cos of the tones in columns 0.., sin in 16..). Returns
-// cudaGetLastError().
+// [sps * elem / 32, n_tiles, 2, 32]); for float32 buffers SplitTerms'
+// three terms of the float32 basis (kernels._demod_split_basis, int32 [3,
+// sps / 16, n_tiles, 2, 32]). Returns cudaGetLastError().
 extern "C" int anet_demod_at(const void* buf, int dtype, int B, long long len, const void* start,
                              int pre, int sps, int n_symbols, int m, const void* basis, void* tone,
                              void* best, void* total, void* stream) {

@@ -1,5 +1,6 @@
-// The align+demod filterbank on the tensor cores, shared by demod_at.cu and
-// demod_at_energies.cu (their bfloat16 and int8 instantiations; float32
+// The align+demod filterbank on the tensor cores, shared by demod_at.cu
+// (bfloat16 and int8 buffers, and float32 ones through SplitTerms),
+// demod_at_energies.cu (its bfloat16 and int8 instantiations; its float32
 // buffers keep common.cuh's CUDA-core body) and tone_energies.cu (every
 // start at 0: bfloat16 compute, and float32 compute on bfloat16 or float32
 // rows).
@@ -28,9 +29,10 @@
 //   - OneTerm: the bf16 or the x127 int8 basis (kernels._demod_mma_basis);
 //     every lane keeps its k-steps x n_tiles x 2 registers for the whole
 //     launch.
-//   - SplitTerms (float32 compute): the float32 basis as three bf16 terms,
-//     b = b0 + b1 + b2 exactly (kernels._demod_split_basis, [3, ks, n, 2,
-//     32]); b0 in registers, b1 and b2 in shared memory, one copy a block.
+//   - SplitTerms (float32 compute, and demod_at.cu's float32 buffers): the
+//     float32 basis as three bf16 terms, b = b0 + b1 + b2 exactly
+//     (kernels._demod_split_basis, [3, ks, n, 2, 32]); b0 in registers, b1
+//     and b2 in shared memory, one copy a block.
 //     bf16 samples meet all three (3 products a k-step and n-tile). float32
 //     samples, staged as float32, are split in registers into a0 + a1 + a2
 //     the same way (a_split) and keep the six products a_i b_j with
@@ -39,10 +41,12 @@
 //     one accumulator and the smaller products in another, smallest first,
 //     added in float32 before the energy.
 // - The span read: each warp walks (stream, tile) items, a tile SYMS
-//   symbols (about 2 KB of samples), and keeps STAGES - 1 tiles' loads in
-//   flight in its own ring of shared memory: 16-byte cp.async copies of the
-//   tile's span aligned down to 16 bytes of the FLAT buffer, so any row
-//   pitch and any start take full-width loads. cp.async's source size
+//   symbols (about 2 KB of samples), and keeps RING - 1 tiles' loads in
+//   flight in its own ring of RING stages of shared memory (STAGES, 4; 2
+//   in demod_at.cu's float32 kernel, whose stages are twice as large and
+//   whose warps an SM, not its bytes in flight, bound it): 16-byte cp.async
+//   copies of the tile's span aligned down to 16 bytes of the FLAT buffer,
+//   so any row pitch and any start take full-width loads. cp.async's source size
 //   stops the copy at the row's end (len) and zero-fills the rest of the
 //   chunk, and a chunk wholly outside the row reads nothing; bytes before
 //   the row's start (a negative position) are zeroed after the copy
@@ -68,7 +72,7 @@ namespace demod {
 
 constexpr int WARPS = 4;              // warps of a block
 constexpr int THREADS = 32 * WARPS;
-constexpr int STAGES = 4;             // tiles in a warp's ring: 3 in flight while one is read
+constexpr int STAGES = 4;             // a warp's ring by default: 3 tiles in flight, one read
 constexpr int STAGE_TARGET = 2048;    // bytes of samples a tile aims at
 
 // Tile geometry of a sample type and samples per symbol, in bytes.
@@ -83,7 +87,6 @@ struct Shape {
   static constexpr int SYMS = 16 * MT;             // symbols a tile
   static constexpr int CHUNKS = SYMS * CPS + 1;    // + the chunk an offset span runs into
   static constexpr int STAGE = SYMS * ROW + 16;    // bytes of one ring stage
-  static constexpr int SMEM = WARPS * STAGES * STAGE;
   static_assert(SB % 32 == 0, "a symbol must be whole k-steps");
 };
 
@@ -400,27 +403,28 @@ struct SplitTerms {
 // it calls epi(b, s, e): e[t][h] is the energy of tone 4 t + (lane % 4) of
 // symbol s + lane / 4 + 8 h of stream b (s + ... may pass n_symbols: the
 // epilogue masks). P is the B operand and product (OneTerm, SplitTerms)
-// over the staged samples of type T; its shared memory comes first.
-template <typename T, int SPS, typename P, typename SP, typename Epilogue>
+// over the staged samples of type T; its shared memory comes first, then
+// each warp's ring of RING stages.
+template <typename T, int SPS, typename P, int RING = STAGES, typename SP, typename Epilogue>
 __device__ __forceinline__ void walk_with(const SP& sp, const uint32_t* __restrict__ basis,
                                           Epilogue&& epi) {
   using S = Shape<T, SPS>;
+  static_assert(RING >= 2, "a ring holds the tile read and one in flight");
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, i = lane & 3;
-  unsigned char* ring = smem + P::SMEM + warp * (STAGES * S::STAGE);
+  unsigned char* ring = smem + P::SMEM + warp * (RING * S::STAGE);
   const P prod(basis, smem);
 
   const int step = gridDim.x * WARPS;
   int j = blockIdx.x * WARPS + warp;
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) fetch<T, SPS>(sp, j + s * step, ring + s * S::STAGE, lane);
+  for (int s = 0; s < RING - 1; ++s) fetch<T, SPS>(sp, j + s * step, ring + s * S::STAGE, lane);
   for (int it = 0; j < sp.items; j += step, ++it) {
-    fetch<T, SPS>(sp, j + (STAGES - 1) * step, ring + ((it + STAGES - 1) % STAGES) * S::STAGE,
-                  lane);
-    cp_async_wait<STAGES - 1>();
+    fetch<T, SPS>(sp, j + (RING - 1) * step, ring + ((it + RING - 1) % RING) * S::STAGE, lane);
+    cp_async_wait<RING - 1>();
     __syncwarp();
-    unsigned char* stage = ring + (it % STAGES) * S::STAGE;
+    unsigned char* stage = ring + (it % RING) * S::STAGE;
     const Tile t = locate<T, SPS>(sp, j);
     if (t.pos < 0) {  // zero the span's bytes before the row's start
       const int64_t before = t.rb - t.pos * (int64_t)sizeof(T);
@@ -523,12 +527,11 @@ __device__ __forceinline__ void store_energies(int b, int s, const float (&e)[NT
 // per WARPS items at most and no more blocks than fit the card at once
 // (the warps walk the rest). `resident` is the caller's cache of that
 // count, one per kernel: 0 on the first call, which also sets the kernel's
-// dynamic shared memory limit. EXTRA: the product's shared memory (P::SMEM).
-template <typename T, int SPS, int EXTRA, typename Kernel>
+// dynamic shared memory limit. SMEM: the kernel's shared memory.
+template <typename T, int SPS, int SMEM, typename Kernel>
 inline cudaError_t plan(Kernel kernel, int& resident, const void* buf, int B, long long len,
                         const void* start, int pre, int n_symbols, Span& sp, int& grid) {
   using S = Shape<T, SPS>;
-  constexpr int smem = S::SMEM + EXTRA;
   const int tiles = (n_symbols + S::SYMS - 1) / S::SYMS;
   const long long items = (long long)B * tiles;
   if (items > (1LL << 30)) return cudaErrorInvalidValue;  // the walk counts items in int
@@ -537,9 +540,9 @@ inline cudaError_t plan(Kernel kernel, int& resident, const void* buf, int B, lo
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     resident = sms * per_sm;
@@ -554,15 +557,18 @@ inline cudaError_t plan(Kernel kernel, int& resident, const void* buf, int B, lo
 // plan, then launch `kernel` (whose first argument is the Span, or the
 // PitchedSpan of rows `pitch` samples apart) with `args` on stream st.
 // `resident` as plan takes it: a static of the caller's, one per kernel
-// instantiation; EXTRA the shared memory of its product before the rings.
-template <typename T, int SPS, int EXTRA = 0, typename SP, typename... KArgs, typename... Args>
+// instantiation; EXTRA the shared memory of its product before the rings,
+// RING the walk's ring depth (walk_with's).
+template <typename T, int SPS, int EXTRA = 0, int RING = STAGES, typename SP, typename... KArgs,
+          typename... Args>
 inline cudaError_t launch(void (*kernel)(SP, KArgs...), int& resident, const void* buf, int B,
                           long long pitch, long long len, const void* start, int pre,
                           int n_symbols, cudaStream_t st, Args... args) {
   SP sp;
   int grid = 0;
+  constexpr int smem = WARPS * RING * Shape<T, SPS>::STAGE + EXTRA;
   const cudaError_t err =
-      plan<T, SPS, EXTRA>(kernel, resident, buf, B, len, start, pre, n_symbols, sp, grid);
+      plan<T, SPS, smem>(kernel, resident, buf, B, len, start, pre, n_symbols, sp, grid);
   if (err != cudaSuccess) return err;
   if constexpr (std::is_same<SP, PitchedSpan>::value) {
     if (pitch < len) return cudaErrorInvalidValue;
@@ -570,7 +576,7 @@ inline cudaError_t launch(void (*kernel)(SP, KArgs...), int& resident, const voi
   } else if (pitch != len) {
     return cudaErrorInvalidValue;  // a Span's rows are back to back
   }
-  kernel<<<grid, THREADS, Shape<T, SPS>::SMEM + EXTRA, st>>>(sp, args...);
+  kernel<<<grid, THREADS, smem, st>>>(sp, args...);
   return cudaGetLastError();
 }
 

@@ -11,8 +11,8 @@
 //             [e0, e0 + 128 pw_e), e0 = 128 floor(st / 128),
 //             pw_e = ceil((k + n_lags - 1) / 128) + 1
 //   start   = st + off, where the wrapper's second launch demodulates:
-//             anet_demod_at (demod_at.cu's tensor-core align+demod) for
-//             bfloat16 and int8, anet_demod_probe_f32 below for float32.
+//             anet_demod_at (demod_at.cu's tensor-core align+demod; float32
+//             buffers take its three-term bf16 split).
 // The caller normalizes q = cmax * rsqrt(te * max(energy, 1e-4 te)).
 //
 // probe_at_fused replaces the TPU kernel anet/kernels/__init__.py
@@ -216,35 +216,6 @@ probe_at_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __
   }
 }
 
-// float32 buffers: the demod at the refined starts on the CUDA cores, one
-// block a stream over all its symbols (common.cuh's demod_symbols), so each
-// thread loads its sps basis registers once a stream. demod_at.cu's float32
-// body loads them once a 64-symbol tile: behind this probe it made the
-// float32 route 24-32% slower than the one-block-a-stream kernel it
-// replaced (H100 SXM, `time_search --kernels probe`, B = 8,192).
-template <int SPS>
-__global__ void __launch_bounds__(anet::DEMOD_THREADS)
-demod_f32(const float* __restrict__ buf, int64_t len, const int32_t* __restrict__ start, int pre,
-          int n_symbols, const float* __restrict__ basis, int32_t* __restrict__ tone,
-          float* __restrict__ best, float* __restrict__ total) {
-  __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
-  const int b = blockIdx.x;
-  const int64_t o = (int64_t)b * n_symbols;
-  anet::demod_symbols<float, SPS>(buf + (int64_t)b * len, len, (int64_t)start[b] + pre, 0,
-                                  n_symbols, basis, stage, tone + o, best + o, total + o);
-}
-
-template <int SPS>
-cudaError_t launch_f32(const void* buf, int B, long long len, const void* start, int pre,
-                       int n_symbols, const void* basis, void* tone, void* best, void* total,
-                       cudaStream_t st) {
-  demod_f32<SPS><<<B, anet::DEMOD_THREADS, 0, st>>>(
-      static_cast<const float*>(buf), len, static_cast<const int32_t*>(start), pre, n_symbols,
-      static_cast<const float*>(basis), static_cast<int32_t*>(tone), static_cast<float*>(best),
-      static_cast<float*>(total));
-  return cudaGetLastError();
-}
-
 // Raise `kernel`'s dynamic shared memory limit to smem where it needs more
 // than it has (smem_set: the caller's record of the limit, a static of
 // each instantiation).
@@ -384,29 +355,4 @@ extern "C" int anet_probe_at(const void* buf, int dtype, int B, long long len, c
                  reinterpret_cast<cudaStream_t>(stream)};
   if (dtype == anet::DTYPE_BF16) return (int)launch_at_lags<__nv_bfloat16>(n_lags, a);
   return (int)launch_at_lags<float>(n_lags, a);
-}
-
-// The second launch for a float32 buffer, with anet_demod_at's signature
-// (demod_at.cu) and its meaning: start: [B] int32 preamble starts (the
-// probe's refined ones); basis: [sps, 32] float32 (cos of the tones in
-// columns 0.., sin in 16..); tone: [B, n_symbols] int32; best, total:
-// [B, n_symbols] float32; m <= 16, sps 32, 64 or 128; dtype must be
-// float32. Returns cudaGetLastError().
-extern "C" int anet_demod_probe_f32(const void* buf, int dtype, int B, long long len,
-                                    const void* start, int pre, int sps, int n_symbols, int m,
-                                    const void* basis, void* tone, void* best, void* total,
-                                    void* stream) {
-  if (dtype != anet::DTYPE_F32 || m < 1 || m > 16) return (int)cudaErrorInvalidValue;
-  if (B == 0 || n_symbols == 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (sps) {
-    case 32:
-      return (int)launch_f32<32>(buf, B, len, start, pre, n_symbols, basis, tone, best, total, st);
-    case 64:
-      return (int)launch_f32<64>(buf, B, len, start, pre, n_symbols, basis, tone, best, total, st);
-    case 128:
-      return (int)launch_f32<128>(buf, B, len, start, pre, n_symbols, basis, tone, best, total, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }

@@ -31,15 +31,18 @@ comma-separated subset of:
   76,288) and ``demod_at_energies_fused`` at the coded one (mfsk4-coded:
   2,160 symbols of 32 samples, 4 tones, buffer 143,872), each on
   bfloat16, int8 (``quantize_int8``) and float32 buffers of noise, starts
-  random in the chunk, each with its ``device`` column as ``frame`` has.
-  These ignore ``--model``.
+  random in the chunk, each with its ``device`` column as ``frame`` has
+  (float32 ``demod_at_fused``: the split kernel ``demod_at_mma_f32``, or
+  an older checkout's ``demod_at_f32``). These ignore ``--model``.
 - ``probe``: ``demod_probe_fused`` at the uncoded locked stream's geometry
   (mfsk16-fast, payload 256: buffer 76,288, the 2,048-sample preamble, 5
   lags, 536 symbols of 64 samples) on bfloat16 and int8 buffers with the
   bfloat16 template the locked step passes, and on float32 buffers with
   the float32 template, probe bases random in the chunk, each with its
-  ``device`` column (the probe and the demod kernel). It ignores
-  ``--model``.
+  ``device`` column (the probe and the demod kernel: for float32 the
+  three-term split ``demod_at_mma_f32``, or an older checkout's CUDA-core
+  ``demod_f32``, so a parent checkout and this one time alike). It
+  ignores ``--model``.
 - ``frame``: ``decide_frame_tm`` at the aligned receiver's geometry
   (mfsk16-fast, payload 256: whole time-major frames of 36,352 rows, the
   data section from row 2,048, 536 symbols of 64 samples, 16 tones) on
@@ -216,6 +219,8 @@ if "demod" in kinds:
             call = lambda: fn(c, buf, starts, n_sym)
             out[f"{{name}} {{label}}"] = time_ms(call)
             key = name.removesuffix("_fused") + ("_f32" if label == "float32" else "_mma")
+            if key == "demod_at_f32":  # an older checkout's CUDA-core body, or the split kernel
+                key = ("demod_at_f32", "demod_at_mma_f32")
             out[f"{{name}} {{label}} device"] = device_ms(call, key)
             del buf
             torch.cuda.empty_cache()
@@ -237,8 +242,9 @@ if "probe" in kinds:
         buf = make()
         call = lambda: kernels.demod_probe_fused(c, buf, st0, n_sym, t, n_lags=5)
         out[f"demod_probe_fused {{label}}"] = time_ms(call)
-        demod = "demod_f32" if label == "float32" else "demod_at_mma"
-        out[f"demod_probe_fused {{label}} device"] = device_ms(call, ("probe_kernel", demod))
+        # float32: an older checkout's CUDA-core demod_f32 (demod_probe.cu), or demod_at.cu's split kernel
+        demod = ("demod_f32", "demod_at_mma_f32") if label == "float32" else ("demod_at_mma",)
+        out[f"demod_probe_fused {{label}} device"] = device_ms(call, ("probe_kernel", *demod))
         del buf
         torch.cuda.empty_cache()
 if "frame" in kinds:

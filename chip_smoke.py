@@ -49,10 +49,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    geometries, B = 8,192, each against its bound; and the float32 routes
    of the other kernels in kernels.F32_ROUTES: sync_search_fused,
    sync_search_blockmax and correlate_fused (seg and template split into
-   bf16 hi + lo), decide_frame_tm, demod_at_fused, demod_probe_fused,
-   demod_at_energies_fused and decide_tones_tm (CUDA-core bodies), each
-   held against its plain version and timed with it at the main shape
-   against its bound (the "<name>:f32" numbers);
+   bf16 hi + lo), demod_at_fused and demod_probe_fused (the three-term
+   bf16 split on the tensor cores, held with compare_split_decisions: best
+   and total within the split's tolerance, tones equal but at near-ties of
+   the plain energies, whose count it prints; the probe's offsets equal,
+   cmax and energy within RTOL), decide_frame_tm, demod_at_energies_fused
+   and decide_tones_tm (CUDA-core bodies), each held against its plain
+   version and timed with it at the main shape against its bound (the
+   "<name>:f32" numbers);
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -269,6 +273,7 @@ HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 INT8_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+F32_SPLIT_PRODUCTS = 6  # bf16 products of a float32 sample and basis entry in the three-term split
 SEED = 0
 DEV = torch.device("cuda")
 
@@ -361,13 +366,15 @@ def log_search_time(label: str, seg: torch.Tensor, tpl: torch.Tensor, chunk: int
 def log_demod_time(label: str, cfg, buf: torch.Tensor, starts: torch.Tensor, n_sym: int) -> None:
     """Time demod_at_fused on ``buf`` at another geometry or dtype than its
     row's and log it against its bound: each stream's data span read once,
-    12 bytes a symbol written, the filterbank's operations at the peak of
-    the route the buffer's dtype takes (tensor cores for bfloat16 and int8,
-    the CUDA cores for float32)."""
+    12 bytes a symbol written, the filterbank's operations on the tensor
+    cores at the peak of the buffer's dtype (int8, or bf16: one product for
+    bfloat16 buffers, the three-term split's six for float32)."""
     b, sps, m = buf.shape[0], cfg.samples_per_symbol, cfg.num_tones
     ms = time_ms(lambda: kernels.demod_at_fused(cfg, buf, starts, n_sym))
-    peak = {torch.int8: INT8_OPS_S, torch.bfloat16: BF16_FLOPS_S}.get(buf.dtype, F32_FLOPS_S)
-    bound, by = bound_ms(b * (n_sym * (sps * buf.element_size() + 12) + 4), b * n_sym * 2 * sps * 2 * m, peak)
+    peak = INT8_OPS_S if buf.dtype == torch.int8 else BF16_FLOPS_S
+    n_products = F32_SPLIT_PRODUCTS if buf.dtype == torch.float32 else 1
+    bound, by = bound_ms(b * (n_sym * (sps * buf.element_size() + 12) + 4),
+                         n_products * b * n_sym * 2 * sps * 2 * m, peak)
     log(f"  demod_at_fused ({label}: B {b}, buffer {buf.shape[-1]}, {n_sym} symbols, "
         f"{str(buf.dtype).removeprefix('torch.')}): kernel {ms:.3f} ms, bound {bound:.3f} ms ({by})")
     torch.cuda.empty_cache()
@@ -608,11 +615,12 @@ def phase_kernels(cfg, gen) -> dict:
     }
     time_and_bound(results, calls, work)
     # the float32 routes at the same shapes, each held against its plain
-    # version at the full batch and timed with it: decide_frame_tm's and the
-    # align+demod kernel's CUDA-core bodies and the merged probe + demod's
-    # (float32 taps, then demod_probe.cu's CUDA-core demod), their products
-    # at the float32 peak; the search's seg and template split into bf16 hi
-    # + lo on the tensor cores
+    # version at the full batch and timed with it: decide_frame_tm's
+    # CUDA-core body, its products at the float32 peak; the search's seg and
+    # template split into bf16 hi + lo on the tensor cores; the align+demod
+    # kernel's three-term split, alone and behind the merged probe (float32
+    # taps on the CUDA cores), held with compare_split_decisions, its six
+    # products at the bf16 peak
     x32 = x_full.float()
     results["decide_frame_tm:f32"] = {"max_abs_err": check_frame(f"decide_frame_tm float32 at B = {b_a}", cfg, x32, pre)}
     time_f32_route(results, "decide_frame_tm", lambda f: f(cfg, x32, PAYLOAD, preamble_offset=pre),
@@ -638,18 +646,28 @@ def phase_kernels(cfg, gen) -> dict:
     time_f32_route(results, "sync_search_blockmax", lambda f: f(seg32, tpl32, chunk, te32),
                    b_s * (chunk + k - 1) * 4 + b_s * chunk // 128 * 4, 2 * k * chunk * b_s, BF16_FLOPS_S)
     got = kernels.demod_at_fused(cfg, buf32, st_full, n_sym)
-    results["demod_at_fused:f32"] = {"max_abs_err": compare(
-        "demod_at_fused float32", got, kernels.demod_at_fused_ref(cfg, buf32, st_full, n_sym), (0,), (1, 2))}
+    want = kernels.demod_at_energies_fused_ref(cfg, buf32, st_full, n_sym)
+    results["demod_at_fused:f32"] = {
+        "max_abs_err": compare_split_decisions(f"demod_at_fused float32 at B = {b_s}", got, want)}
+    del got, want
+    demod_split_ops = F32_SPLIT_PRODUCTS * n_sym * flops_sym * b_s
     time_f32_route(results, "demod_at_fused", lambda f: f(cfg, buf32, st_full, n_sym),
-                   b_s * n_sym * (sps * 4 + out_sym) + 4 * b_s, n_sym * flops_sym * b_s, F32_FLOPS_S)
+                   b_s * n_sym * (sps * 4 + out_sym) + 4 * b_s, demod_split_ops, BF16_FLOPS_S)
     got = kernels.demod_probe_fused(cfg, buf32, st0_full, n_sym, tpl32, n_lags=N_LAGS)
     want = kernels.demod_probe_fused_ref(cfg, buf32, st0_full, n_sym, tpl32, n_lags=N_LAGS)
     if not bool((got[1] == 2).all()):
         raise AssertionError("demod_probe_fused float32 servo missed the planted starts")
-    results["demod_probe_fused:f32"] = {"max_abs_err": compare("demod_probe_fused float32", got, want, (1, 3), (0, 2, 4, 5))}
+    err = compare("demod_probe_fused float32 probe", got[:3], want[:3], (1,), (0, 2))
+    want = kernels.demod_at_energies_fused_ref(cfg, buf32, st0_full + want[1], n_sym)
+    err = max(err, compare_split_decisions(f"demod_probe_fused float32 demod at B = {b_s}", got[3:], want))
+    results["demod_probe_fused:f32"] = {"max_abs_err": err}
     del got, want
+    # the probe's float32 multiply-adds on the CUDA cores, counted at the
+    # bf16 peak as their time there, plus the demod's six split products
+    probe_f32_ops = probe_ops - b_s * n_sym * flops_sym
     time_f32_route(results, "demod_probe_fused", lambda f: f(cfg, buf32, st0_full, n_sym, tpl32, n_lags=N_LAGS),
-                   probe_samples * 4 + b_s * (16 + n_sym * out_sym), probe_ops, F32_FLOPS_S)
+                   probe_samples * 4 + b_s * (16 + n_sym * out_sym),
+                   probe_f32_ops * (BF16_FLOPS_S / F32_FLOPS_S) + demod_split_ops, BF16_FLOPS_S)
     del buf32, seg32
     torch.cuda.empty_cache()
     return results
@@ -800,41 +818,63 @@ def phase_kernels_coded(cfg, gen) -> dict:
     return results
 
 
+def split_tol(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The three-term split's stated tolerance: F32_SPLIT_RTOL of the plain
+    value plus F32_SPLIT_ATOL of its symbol's largest plain energy."""
+    return kernels.F32_SPLIT_RTOL * w.abs() + kernels.F32_SPLIT_ATOL * scale
+
+
 def compare_split(label: str, cfg, x: torch.Tensor) -> float:
     """tone_energies_fused and decide_tones_fused with float32 compute (the
     three-term split on the tensor cores, never a CUDA-core body at this
     geometry) on rows ``x`` against their plain versions, with the route's
-    stated tolerance: each energy within F32_SPLIT_RTOL of itself plus
-    F32_SPLIT_ATOL of its symbol's largest plain energy, best and total
-    within the same bounds, the tones (decided, and the energies' argmax)
-    equal but where the plain version's two largest energies lie that close
-    (their count printed). Returns the max absolute error."""
+    stated tolerance: each energy within split_tol of the plain one, the
+    energies' argmax equal but at near-ties, the decisions as
+    compare_split_decisions holds them. Returns the max absolute error."""
     if kernels._filterbank_operands("tone_energies", cfg, torch.float32, DEV)[1] != "split":
         raise AssertionError(f"{label}: float32 compute does not take the split route")
     got = kernels.tone_energies_fused(cfg, x, compute_dtype=torch.float32)
     want = kernels.tone_energies_fused_ref(cfg, x, compute_dtype=torch.float32)
-    tol = lambda w, scale: kernels.F32_SPLIT_RTOL * w.abs() + kernels.F32_SPLIT_ATOL * scale
     scale = want.amax(-1)
     diff = (got - want).abs()
     worst = float(diff.max())
-    bad = int((diff > tol(want, scale[..., None])).sum())
+    bad = int((diff > split_tol(want, scale[..., None])).sum())
     worst_scaled = float((diff / scale[..., None].clamp_min(1e-30)).max())
     top2 = want.topk(2, dim=-1).values
-    near = (top2[..., 0] - top2[..., 1]) <= tol(top2[..., 0], top2[..., 0])
-    tone_w = want.argmax(-1).int()
-    argmax_bad = int(((got.argmax(-1).int() != tone_w) & ~near).sum())
-    del got, diff
-    tone, best, total = kernels.decide_tones_fused(cfg, x, compute_dtype=torch.float32)
-    tone_bad = int(((tone != tone_w) & ~near).sum())
-    best_bad = int(((best - scale).abs() > tol(scale, scale)).sum())
-    total_w = want.sum(-1)
-    total_bad = int(((total - total_w).abs() > tol(total_w, scale)).sum())
-    worst = max(worst, float((best - scale).abs().max()), float((total - total_w).abs().max()))
+    near = (top2[..., 0] - top2[..., 1]) <= split_tol(top2[..., 0], top2[..., 0])
+    argmax_bad = int(((got.argmax(-1).int() != want.argmax(-1).int()) & ~near).sum())
+    del got, diff, top2, near
     log(f"  {label}: energies max abs {worst:.3e}, max {worst_scaled:.3e} of the symbol's largest, beyond "
-        f"the tolerance {bad}; near-ties {int(near.sum())} of {near.numel()}; tones differing off a near-tie "
-        f"{tone_bad} (energies' argmax {argmax_bad}); best beyond {best_bad}, total beyond {total_bad}")
-    if bad or tone_bad or argmax_bad or best_bad or total_bad:
+        f"the tolerance {bad}; energies' argmax differing off a near-tie {argmax_bad}")
+    if bad or argmax_bad:
         raise AssertionError(f"{label}: the float32-compute route is beyond its tolerance")
+    decisions = kernels.decide_tones_fused(cfg, x, compute_dtype=torch.float32)
+    return max(worst, compare_split_decisions(f"{label}, decisions", decisions, want))
+
+
+def compare_split_decisions(label: str, got, want: torch.Tensor) -> float:
+    """Decisions (tone, best, total) of the three-term split on the tensor
+    cores against the plain energies ``want`` [..., S, M] of the same
+    symbols: best and total within split_tol, tones equal but where the
+    plain version's two largest energies lie that close (their count
+    printed). Logs the largest error as a share of the symbol's largest
+    energy. Returns the max absolute error."""
+    tone, best, total = got
+    scale, total_w = want.amax(-1), want.sum(-1)
+    top2 = want.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= split_tol(top2[..., 0], top2[..., 0])
+    tone_bad = int(((tone != want.argmax(-1).int()) & ~near).sum())
+    del top2
+    d_best, d_total = (best - scale).abs(), (total - total_w).abs()
+    best_bad = int((d_best > split_tol(scale, scale)).sum())
+    total_bad = int((d_total > split_tol(total_w, scale)).sum())
+    worst = max(float(d_best.max()), float(d_total.max()))
+    share = float((torch.maximum(d_best, d_total) / scale.clamp_min(1e-30)).max())
+    log(f"  {label}: best/total max abs {worst:.3e}, max {share:.3e} of the symbol's largest energy; "
+        f"near-ties {int(near.sum())} of {near.numel()}; tones differing off a near-tie {tone_bad}; "
+        f"best beyond the tolerance {best_bad}, total beyond {total_bad}")
+    if tone_bad or best_bad or total_bad:
+        raise AssertionError(f"{label}: the float32 split route is beyond its tolerance")
     return worst
 
 

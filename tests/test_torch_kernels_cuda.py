@@ -789,6 +789,30 @@ def _demod_buffer(cfg, rng, n_sym, length, dtype, device):
     return flat[1:].view(x.shape), torch.tensor(starts, dtype=torch.int32, device=device)
 
 
+def _split_tol(w, scale):
+    """The three-term split's stated tolerance: kernels.F32_SPLIT_RTOL of the
+    plain value plus F32_SPLIT_ATOL of its symbol's largest plain energy."""
+    return tk.F32_SPLIT_RTOL * w.abs() + tk.F32_SPLIT_ATOL * scale
+
+
+def _check_split_decisions(got, energies):
+    """Decisions (tone, best, total) of demod_at.cu's float32 route (the
+    three-term bf16 split) against the plain energies [B, S, M] of the same
+    spans, with the split's stated tolerance: best and total within
+    kernels.F32_SPLIT_RTOL of themselves plus F32_SPLIT_ATOL of the
+    symbol's largest plain energy, tones equal but where the plain
+    version's two largest energies lie that close. Returns the count of
+    such near-ties among symbols with energy."""
+    tone, best, total = got
+    scale, total_w = energies.amax(-1), energies.sum(-1)
+    top2 = energies.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= _split_tol(top2[..., 0], top2[..., 0])
+    assert bool(((tone == energies.argmax(-1).int()) | near).all())
+    assert bool(((best - scale).abs() <= _split_tol(scale, scale)).all())
+    assert bool(((total - total_w).abs() <= _split_tol(total_w, scale)).all())
+    return int((near & (scale > 0)).sum())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("n_sym", [1, 15, 17, 67])
@@ -803,8 +827,11 @@ def test_cuda_demod_at_kernels_at_every_residue(cuda, dtype, geometry, n_sym, ra
     n_symbols not a multiple of the kernels' tiles; every sps (32, 64,
     128) and n-tile count (2, 4, 8, 16 tones). Tones and argmaxes equal;
     int8 (exact int32 I/Q, energies rounded after each operation): best and
-    energies bit-equal, total within rtol 1e-5; float32 and bfloat16: best,
-    total and energies within rtol 1e-3 (float32 sums in another order).
+    energies bit-equal, total within rtol 1e-5; bfloat16: best, total and
+    energies within rtol 1e-3 (float32 sums in another order); float32:
+    demod_at_fused (the three-term split) within the split's stated
+    tolerance, tones equal but at near-ties (_check_split_decisions), the
+    energies (the CUDA-core body) within rtol 1e-3, their argmax equal.
     One launch each, int8 and float32 under their own keys."""
     cfg = DEMOD_CONFIGS[geometry]
     rng = np.random.default_rng(n_sym + 7 * len(geometry))
@@ -818,12 +845,16 @@ def test_cuda_demod_at_kernels_at_every_residue(cuda, dtype, geometry, n_sym, ra
     assert all(tk.launch_counts[k] == before[k] + 1 for k in keys)
     want = tk.demod_at_fused_ref(cfg, buf, st, n_sym)
     want_e = tk.demod_at_energies_fused_ref(cfg, buf, st, n_sym)
-    assert torch.equal(got[0], want[0])
     assert torch.equal(energies.argmax(-1).int(), want[0])
+    if dtype == torch.float32:
+        _check_split_decisions(got, want_e)
+        torch.testing.assert_close(energies, want_e, rtol=1e-3, atol=1e-3)
+    else:
+        assert torch.equal(got[0], want[0])
     if dtype == torch.int8:
         assert torch.equal(got[1], want[1]) and torch.equal(energies, want_e)
         torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
-    else:
+    elif dtype == torch.bfloat16:
         for a, b in zip(got[1:], want[1:]):
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
         torch.testing.assert_close(energies, want_e, rtol=1e-3, atol=1e-3)
@@ -847,9 +878,12 @@ def test_cuda_demod_probe_at_every_residue(cuda, dtype, n_lags, ragged):
     and tones equal; int8 (exact int32 sums): cmax and best bit-equal, the
     energy the exact sum rounded once (bit-equal to the plain version's
     wherever that float32 sum is exact, below 2**24), total within rtol
-    1e-5; float32 and bfloat16: cmax, energy, best and total within rtol
-    1e-3 (float32 sums in another order). One launch counted under the
-    kernel's key and none under demod_at_fused's; B = 0 launches nothing."""
+    1e-5; float32 and bfloat16: cmax and energy within rtol 1e-3 (float32
+    sums in another order); bfloat16: best and total within rtol 1e-3;
+    float32 (demod_at.cu's three-term split at the refined starts): tones,
+    best and total by the split's stated tolerance and near-tie rule
+    (_check_split_decisions). One launch counted under the kernel's key and
+    none under demod_at_fused's; B = 0 launches nothing."""
     from anet_torch.dsp.sync import gather_span
 
     rng = np.random.default_rng(3 * n_lags + ragged)
@@ -883,7 +917,11 @@ def test_cuda_demod_probe_at_every_residue(cuda, dtype, n_lags, ragged):
     launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
     assert launched == {key: 1}
     want = tk.demod_probe_fused_ref(CFG, buf, st, n_sym, tpl, n_lags=n_lags)
-    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    assert torch.equal(got[1], want[1])
+    if dtype == torch.float32:
+        _check_split_decisions(got[3:], tk.demod_at_energies_fused_ref(CFG, buf, st + want[1], n_sym))
+    else:
+        assert torch.equal(got[3], want[3])
     assert bool((got[1][:20] == lag).all())  # the planted frames, wholly inside the row
     if dtype == torch.int8:
         assert torch.equal(got[0], want[0]) and torch.equal(got[4], want[4])
@@ -895,7 +933,7 @@ def test_cuda_demod_probe_at_every_residue(cuda, dtype, n_lags, ragged):
         below = exact < 2**24
         assert torch.equal(got[2][below], want[2][below])
     else:
-        for j in (0, 2, 4, 5):
+        for j in (0, 2) if dtype == torch.float32 else (0, 2, 4, 5):
             torch.testing.assert_close(got[j], want[j], rtol=1e-3, atol=1e-3)
 
     before = dict(tk.launch_counts)
@@ -1124,8 +1162,8 @@ def _check_split(cfg, rows):
     kernels.F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's
     largest plain energy, best and total within the same bounds, the tones
     (decided, and the energies' argmax) equal but where the plain
-    version's two largest energies lie that close. Returns the count of
-    such near-ties."""
+    version's two largest energies lie that close (_check_split_decisions).
+    Returns the count of such near-ties among symbols with energy."""
     before = dict(tk.launch_counts)
     e = tk.tone_energies_fused(cfg, rows, compute_dtype=torch.float32)
     tone, best, total = tk.decide_tones_fused(cfg, rows, compute_dtype=torch.float32)
@@ -1134,20 +1172,11 @@ def _check_split(cfg, rows):
     assert launched == {"tone_energies_fused:f32": 1, "decide_tones_fused:f32": 1}
     want = tk.tone_energies_fused_ref(cfg, rows, compute_dtype=torch.float32)
     assert e.shape == want.shape and tone.shape == best.shape == total.shape == want.shape[:-1]
-
-    def tol(w, scale):
-        return tk.F32_SPLIT_RTOL * w.abs() + tk.F32_SPLIT_ATOL * scale
-
-    scale = want.amax(-1)
-    assert bool(((e - want).abs() <= tol(want, scale[..., None])).all())
+    assert bool(((e - want).abs() <= _split_tol(want, want.amax(-1, keepdim=True))).all())
     top2 = want.topk(2, dim=-1).values
-    near = (top2[..., 0] - top2[..., 1]) <= tol(top2[..., 0], top2[..., 0])
-    tone_w = want.argmax(-1).int()
-    assert bool(((tone == tone_w) | near).all()) and bool(((e.argmax(-1).int() == tone_w) | near).all())
-    assert bool(((best - scale).abs() <= tol(scale, scale)).all())
-    total_w = want.sum(-1)
-    assert bool(((total - total_w).abs() <= tol(total_w, scale)).all())
-    return int(near.sum())
+    near = (top2[..., 0] - top2[..., 1]) <= _split_tol(top2[..., 0], top2[..., 0])
+    assert bool(((e.argmax(-1).int() == want.argmax(-1).int()) | near).all())
+    return _check_split_decisions((tone, best, total), want)
 
 
 @pytest.mark.cuda

@@ -880,10 +880,18 @@ def test_demod_mma_basis_packing(name, dtype):
 
 
 def test_demod_at_basis_float32_takes_the_cuda_core_columns():
-    """float32 buffers keep the CUDA-core body: its [sps, 32] float32
-    basis, not tensor-core fragments."""
+    """float32 buffers: demod_at.cu's kernel (demod_at_fused and
+    demod_probe_fused's demod) takes the three-term split of the float32
+    basis (_demod_split_basis), never the bf16-rounded fragments alone;
+    demod_at_energies_fused keeps its CUDA-core body's [sps, 32] float32
+    columns (_kernel_basis). No one-term float32 fragments exist."""
     cpu = torch.device("cpu")
-    assert tk._demod_at_basis(CFG, torch.float32, cpu) is tk._kernel_basis(CFG, torch.float32, cpu)
+    assert tk._demod_at_basis(CFG, torch.float32, cpu) is tk._demod_split_basis(CFG, cpu)
+    energies = tk._demod_energies_basis(CFG, torch.float32, cpu)
+    assert energies is tk._kernel_basis(CFG, torch.float32, cpu)
+    assert energies.dtype == torch.float32 and energies.shape == (CFG.samples_per_symbol, 32)
+    for dt in (torch.bfloat16, torch.int8):
+        assert tk._demod_energies_basis(CFG, dt, cpu) is tk._demod_mma_basis(CFG, dt, cpu)
     with pytest.raises(TypeError):
         tk._demod_mma_basis(CFG, torch.float32, cpu)
 
@@ -1054,6 +1062,84 @@ def _no_host_reads(monkeypatch):
 
     for attr in ("__float__", "__int__", "__bool__", "item", "tolist"):
         monkeypatch.setattr(torch.Tensor, attr, refuse)
+
+
+def _demod_at_args(cfg, buf, st, n_sym, basis, outs):
+    """demod_at.cu's entry arguments for ``buf`` at starts ``st``."""
+    return (buf.data_ptr(), tk._KERNEL_DTYPES[buf.dtype], buf.shape[0], buf.shape[1], st.data_ptr(),
+            cfg.preamble_samples, cfg.samples_per_symbol, n_sym, cfg.num_tones, basis.data_ptr(),
+            *(o.data_ptr() for o in outs), 0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["mfsk16-fast", "mfsk4-coded", "fsk2-robust"])
+def test_demod_at_launch_takes_the_split_basis_for_float32(monkeypatch, name, dtype):
+    """demod_at_fused's launch code, the card's calls replaced by
+    recorders: one call of the "demod_at" entry (its C signature's
+    arguments) with the three-term split (_demod_split_basis, int32 [3, ks,
+    n, 2, 32]) for a float32 buffer and _demod_mma_basis for bfloat16 and
+    int8; one launch checked with the buffer's dtype, so float32 counts
+    under "demod_at_fused:f32"."""
+    from anet_torch.kernels import build
+
+    cfg = get_model(name).config
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    cpu = torch.device("cpu")
+    buf = torch.zeros(3, 4096, dtype=tdt)
+    st = torch.tensor([0, 5, -7], dtype=torch.int32)
+    calls = []
+    monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
+    monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
+    monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what, int8=False: tk._KERNEL_DTYPES[t.dtype])
+    monkeypatch.setattr(tk, "_check_launch", lambda err, name, dtype=None: calls.append(("checked", name, dtype)))
+    outs = tk._demod_at_launch(cfg, buf, st, 9)
+    (key, args), checked = calls
+    basis = tk._demod_split_basis(cfg, cpu) if tdt == torch.float32 else tk._demod_mma_basis(cfg, tdt, cpu)
+    assert key == "demod_at" and len(args) == len(build.SIGNATURES[key][1])
+    assert args == _demod_at_args(cfg, buf, st, 9, basis, outs)
+    assert checked == ("checked", "demod_at_fused", tdt)
+    if tdt == torch.float32:
+        ks, n = cfg.samples_per_symbol // 16, tk._demod_mma_tiles(cfg.num_tones)
+        assert basis.dtype == torch.int32 and basis.shape == (3, ks, n, 2, 32)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_demod_probe_launch_goes_to_demod_at_for_every_dtype(monkeypatch, dtype):
+    """demod_probe_fused's launch code, the card's calls replaced by
+    recorders: the "demod_probe" entry, then the "demod_at" entry (no entry
+    of its own for float32) at the probe's refined starts, with the
+    three-term split (int32 [3, ks, n, 2, 32]) for a float32 buffer and
+    _demod_mma_basis for bfloat16 and int8; one count under the buffer's
+    key of demod_probe_fused, none under demod_at_fused's."""
+    from anet_torch.kernels import build
+
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    cpu = torch.device("cpu")
+    tpl = torch.from_numpy(np.array(j_preamble(JCFG), np.float32)).to(torch.bfloat16)
+    k, n_sym = tpl.shape[-1], 11
+    buf = torch.zeros(3, 3 * k, dtype=tdt)
+    st0 = torch.tensor([0, 130, -3], dtype=torch.int32)
+    calls = []
+    monkeypatch.setattr(tk, "launch_counts", dict.fromkeys(tk.launch_counts, 0))
+    monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
+    monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
+    monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what, int8=False: tk._KERNEL_DTYPES[t.dtype])
+    cmax, off, energy, tone, best, total = tk._demod_probe_launch(CFG, buf, st0, n_sym, tpl, 5)
+    (probe, p_args), (demod, d_args) = calls
+    assert (probe, demod) == ("demod_probe", "demod_at")
+    assert "demod_probe_f32" not in build.SIGNATURES
+    assert len(p_args) == len(build.SIGNATURES[probe][1]) and len(d_args) == len(build.SIGNATURES[demod][1])
+    assert p_args[:3] == (buf.data_ptr(), tk._KERNEL_DTYPES[tdt], 3) and p_args[4] == st0.data_ptr()
+    assert p_args[10:13] == (cmax.data_ptr(), off.data_ptr(), energy.data_ptr())
+    start_ptr = p_args[13]  # the refined starts the probe writes and the demod reads
+    basis = tk._demod_split_basis(CFG, cpu) if tdt == torch.float32 else tk._demod_mma_basis(CFG, tdt, cpu)
+    assert d_args[:4] == (buf.data_ptr(), tk._KERNEL_DTYPES[tdt], 3, 3 * k) and d_args[4] == start_ptr
+    assert d_args[5:] == (CFG.preamble_samples, CFG.samples_per_symbol, n_sym, CFG.num_tones, basis.data_ptr(),
+                          tone.data_ptr(), best.data_ptr(), total.data_ptr(), 0)
+    if tdt == torch.float32:
+        assert basis.dtype == torch.int32 and basis.shape == (3, CFG.samples_per_symbol // 16, 4, 2, 32)
+    key = {torch.float32: "demod_probe_fused:f32", torch.int8: "demod_probe_fused:int8"}.get(tdt, "demod_probe_fused")
+    assert {n: c for n, c in tk.launch_counts.items() if c} == {key: 1}
 
 
 @pytest.mark.parametrize("te_kind", ["tensor", "float"])

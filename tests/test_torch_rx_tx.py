@@ -251,6 +251,34 @@ def test_config_await_timeout(tmp_path):
         await_and_load(str(tmp_path / "never.json"), timeout_s=0.2)
 
 
+def test_config_await_reads_a_file_written_after_it_was_created(tmp_path):
+    """A writer that creates the file, sleeps, then writes it: the empty
+    file does not parse, so await_and_load polls on until it does."""
+    path = tmp_path / "two_step.json"
+    path.touch()
+
+    def write_later():
+        time.sleep(0.3)
+        path.write_text(ReceiverConfig(device_name="two-step").to_json())
+
+    threading.Thread(target=write_later, daemon=True).start()
+    cfg = await_and_load(str(path), timeout_s=3, poll_interval_s=0.02)
+    assert cfg.device_name == "two-step"
+
+
+@pytest.mark.parametrize("text,error", [('{"device_name": "hal', ValueError), ('{"nope": 1}', TypeError)])
+def test_config_await_raises_the_parse_error_past_the_deadline(tmp_path, text, error):
+    """A file that never parses (half-written JSON, or a field the config
+    does not have) raises its last parse error at the deadline, after
+    polling until then."""
+    path = tmp_path / "bad.json"
+    path.write_text(text)
+    t0 = time.monotonic()
+    with pytest.raises(error):
+        await_and_load(str(path), timeout_s=0.2, poll_interval_s=0.02)
+    assert time.monotonic() - t0 >= 0.2
+
+
 # --- obs --------------------------------------------------------------------
 
 def test_status_indicator_transitions():
