@@ -45,13 +45,12 @@ operand once a template tensor. The two align+demod kernels
 (``csrc/demod_core.cuh``): the filterbank as a bf16 ``mma.sync`` with
 float32 accumulators, or an int8 one with exact int32 I/Q, fed by a
 pipelined span read, the basis packed once a config and dtype in fragment
-order (``_demod_mma_basis``). demod_at_fused's float32 buffers (the
-stream's default carry) take the float32 basis as three bf16 terms that
-sum to it exactly (``_demod_split_basis``) and their samples split on
-load into three bf16 terms of their own, six of the nine products kept,
-so the I/Q are float32 sums to about 2**-24 (``F32_SPLIT_RTOL``,
-``F32_SPLIT_ATOL``); demod_at_energies_fused's float32 buffers keep the
-CUDA-core body (``_demod_energies_basis``). The batch-major filterbank
+order (``_demod_mma_basis``). Their float32 buffers (the stream's
+default carry) take the float32 basis as three bf16 terms that sum to it
+exactly (``_demod_split_basis``) and their samples split on load into
+three bf16 terms of their own, six of the nine products kept, so the I/Q
+are float32 sums to about 2**-24 (``F32_SPLIT_RTOL``, ``F32_SPLIT_ATOL``);
+``_demod_at_basis`` picks the basis for both. The batch-major filterbank
 (tone_energies_fused, decide_tones_fused) runs that product, with the
 same two epilogues, on rows read in place from every start 0 at sps 32,
 64 and 128 with at most 16 tones: under bfloat16 compute with the bf16
@@ -146,11 +145,11 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_SPS = (32, 64, 128)
 INT8_BASIS_SCALE = 127.0  # int8 basis and probe template: round(x * 127 / max|x|)
 # The three-term split on the tensor cores (the batch-major filterbank's
-# float32 compute, demod_at_fused's and demod_probe_fused's float32
-# buffers) against its plain version: each energy within F32_SPLIT_RTOL of
-# itself plus F32_SPLIT_ATOL of its symbol's largest plain energy; best and
-# total within the same bounds, tones equal but where the plain version's
-# two largest energies lie that close.
+# float32 compute, the float32 buffers of demod_at_fused, demod_probe_fused
+# and demod_at_energies_fused) against its plain version: each energy
+# within F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's
+# largest plain energy; best and total within the same bounds, tones equal
+# but where the plain version's two largest energies lie that close.
 F32_SPLIT_RTOL = 1e-5
 F32_SPLIT_ATOL = 1e-6
 
@@ -182,7 +181,7 @@ launch_counts = {
 # The kernels whose float32 route is a design of its own, counted apart
 # under "<name>:f32": a CUDA-core body, the searches' and the correlation's
 # hi + lo split of a float32 segment, or the three-term split of the
-# align+demod kernel (float32 buffers) and the batch-major filterbank
+# align+demod kernels (float32 buffers) and the batch-major filterbank
 # (float32 compute).
 F32_ROUTES = (
     "decide_frame_tm", "sync_search_fused", "demod_at_fused", "demod_probe_fused",
@@ -350,21 +349,13 @@ def _demod_split_basis(config: ModemConfig, device: torch.device) -> torch.Tenso
 
 
 def _demod_at_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The basis operand of demod_at.cu's kernel (demod_at_fused, and
-    demod_probe_fused's demod) for samples of ``dtype``: the one-term B
+    """The basis operand of demod_at.cu's and demod_at_energies.cu's
+    kernels (demod_at_fused, demod_probe_fused's demod,
+    demod_at_energies_fused) for samples of ``dtype``: the one-term B
     fragments for bfloat16 and int8, the three-term split of the float32
     basis for float32."""
     if dtype == torch.float32:
         return _demod_split_basis(config, device)
-    return _demod_mma_basis(config, dtype, device)
-
-
-def _demod_energies_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The basis operand of demod_at_energies_fused for samples of
-    ``dtype``: the one-term B fragments for bfloat16 and int8, the
-    CUDA-core body's [sps, 32] float32 columns for float32."""
-    if dtype == torch.float32:
-        return _kernel_basis(config, dtype, device)
     return _demod_mma_basis(config, dtype, device)
 
 
@@ -985,16 +976,27 @@ def demod_at_energies_fused(
     stream buffer: float32 [B, n_symbols, num_tones], the energies twin of
     demod_at_fused for consumers that need every tone's energy (soft FEC
     LLRs). The frame's PREAMBLE starts at ``start[b]``; samples past the
-    buffer's end read as zero."""
+    buffer's end read as zero.
+
+    On the card: csrc/demod_at_energies.cu's tensor-core walk, bfloat16 and
+    int8 buffers against the one-term basis, float32 buffers as the
+    three-term bf16 split (each energy within F32_SPLIT_RTOL of itself plus
+    F32_SPLIT_ATOL of its symbol's largest plain energy)."""
     if buffer.device.type == "cpu":
         return demod_at_energies_fused_ref(config, buffer, start, n_symbols)
+    return _demod_at_energies_launch(config, buffer, start, n_symbols)
+
+
+def _demod_at_energies_launch(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
+    """demod_at_energies_fused's launch: csrc/demod_at_energies.cu's entry
+    with the basis of _demod_at_basis for the buffer's dtype."""
     name = "demod_at_energies_fused"
     dtype, st = _check_buffer_and_starts(name, buffer, start, "start")
     _check_kernel_geometry(name, config)
     b, length = buffer.shape
     dev = buffer.device
     energies = torch.empty(b, n_symbols, config.num_tones, dtype=torch.float32, device=dev)
-    basis = _demod_energies_basis(config, buffer.dtype, dev)
+    basis = _demod_at_basis(config, buffer.dtype, dev)
     err = _entry("demod_at_energies")(
         buffer.data_ptr(), dtype, b, length, st.data_ptr(), config.preamble_samples,
         config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(),

@@ -44,60 +44,9 @@ __device__ __forceinline__ bool better(float qa, int ia, float qb, int ib) {
   return qa > qb || (qa == qb && ia < ib);
 }
 
-// The CUDA-core filterbank of demod_at_energies.cu's float32 route: one
-// block takes a tile of SYM_TILE symbols of one stream, staged in shared
-// memory with coalesced loads; lane c of every warp holds basis column c
-// of the [SPS, 32] basis (cos of 16 tones in columns 0..15, sin in 16..31;
-// tones past num_tones are zero columns) in registers, and each warp takes
-// every 8th symbol of the tile, reading its samples as float4 broadcasts.
-// Needs blocks of DEMOD_THREADS threads and `stage` sized SYM_TILE * SPS
-// floats.
-constexpr int SYM_TILE = 64;
-// Block size of the kernels built on energies_symbols (and of
-// tone_energies.cu's plain kernel). A compile-time stride lets the staging
-// loop unroll, so each thread keeps several loads in flight.
+// Block size of tone_energies.cu's CUDA-core kernel. A compile-time stride
+// lets its staging loop unroll, so each thread keeps several loads in
+// flight.
 constexpr int DEMOD_THREADS = 256;
-
-// The staged samples of one symbol (16-byte aligned) against this lane's
-// basis column: float4 broadcasts, float32 FMAs in sample order.
-template <int SPS>
-__device__ __forceinline__ float basis_dot(const float* __restrict__ stage,
-                                           const float (&breg)[SPS]) {
-  const float4* xs = reinterpret_cast<const float4*>(stage);
-  float acc = 0.0f;
-#pragma unroll
-  for (int j4 = 0; j4 < SPS / 4; ++j4) {
-    const float4 v = xs[j4];
-    acc = fmaf(v.x, breg[4 * j4 + 0], acc);
-    acc = fmaf(v.y, breg[4 * j4 + 1], acc);
-    acc = fmaf(v.z, breg[4 * j4 + 2], acc);
-    acc = fmaf(v.w, breg[4 * j4 + 3], acc);
-  }
-  return acc;
-}
-
-// One block's tile of n_sym <= SYM_TILE symbols of one row, the first at
-// row[base] (zero outside [0, len)): the energy I^2 + Q^2 of every tone,
-// out[u * m + c] for the tile's symbol u and tone c < m; lanes 0..m-1 of
-// the warp that takes a symbol store it.
-template <typename T, int SPS>
-__device__ void energies_symbols(const T* __restrict__ row, int64_t len, int64_t base, int n_sym,
-                                 int m, const float* __restrict__ basis,
-                                 float* __restrict__ stage, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float breg[SPS];
-#pragma unroll
-  for (int j = 0; j < SPS; ++j) breg[j] = basis[j * 32 + lane];
-
-  for (int i = threadIdx.x; i < n_sym * SPS; i += DEMOD_THREADS)
-    stage[i] = load_or_zero(row, base + i, len);
-  __syncthreads();
-  for (int u = warp; u < n_sym; u += DEMOD_THREADS / 32) {
-    const float acc = basis_dot<SPS>(stage + u * SPS, breg);
-    const float q = __shfl_down_sync(0xffffffffu, acc, 16);
-    if (lane < m) out[u * m + lane] = tone_energy(acc, q);
-  }
-}
 
 }  // namespace anet

@@ -35,8 +35,9 @@
 //   float32 and split in registers into three bf16 terms; six of the nine
 //   products, a0 b0 in an accumulator of its own. The I/Q are float32 sums
 //   to about 2^-24 (kernels.F32_SPLIT_RTOL, F32_SPLIT_ATOL). A ring of 2
-//   stages a warp (F32_RING): shared memory a block 22,656 bytes at sps
-//   32, 43,136 at 64, 84,096 at 128 (16 tones).
+//   stages a warp (demod_core.cuh's F32_RING, shared with
+//   demod_at_energies.cu's float32 kernel): shared memory a block 22,656
+//   bytes at sps 32, 43,136 at 64, 84,096 at 128 (16 tones).
 #include "demod_core.cuh"
 
 namespace {
@@ -52,20 +53,14 @@ demod_at_mma(anet::demod::Span sp, const uint32_t* __restrict__ basis, int32_t* 
 }
 
 // float32 buffers: the walk with the three-term split of samples and basis,
-// in a ring of F32_RING stages. A float32 stage is twice a bf16 one (4,368
-// bytes at sps 64), and the default 4 stages left 2 blocks (8 warps) an SM
-// at sps 64 with 3 tiles in flight a warp, more than the card needs;
-// 2 stages give 5 blocks (20 warps) and took the device time from 0.62 to
-// 0.50 ms (H100 SXM, time_search --kernels demod, B = 8,192).
-constexpr int F32_RING = 2;
-
+// in a ring of demod_core.cuh's F32_RING stages.
 template <int SPS, int NT>
 __global__ void __launch_bounds__(anet::demod::THREADS)
 demod_at_mma_f32(anet::demod::Span sp, const uint32_t* __restrict__ basis,
                  int32_t* __restrict__ tone, float* __restrict__ best, float* __restrict__ total) {
   using P = anet::demod::SplitTerms<float, SPS, NT>;
   const int n_symbols = sp.n_symbols;
-  anet::demod::walk_with<float, SPS, P, F32_RING>(
+  anet::demod::walk_with<float, SPS, P, anet::demod::F32_RING>(
       sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
         anet::demod::store_decisions<NT>(b, s, e, n_symbols, tone, best, total);
       });
@@ -94,7 +89,8 @@ cudaError_t launch_mma(const Args& a) {
 template <int SPS, int NT>
 cudaError_t launch_mma_f32(const Args& a) {
   static int resident = 0;  // one per kernel instantiation
-  return anet::demod::launch<float, SPS, anet::demod::SplitTerms<float, SPS, NT>::SMEM, F32_RING>(
+  return anet::demod::launch<float, SPS, anet::demod::SplitTerms<float, SPS, NT>::SMEM,
+                             anet::demod::F32_RING>(
       demod_at_mma_f32<SPS, NT>, resident, a.buf, a.B, a.len, a.len, a.start, a.pre, a.n_symbols,
       a.st, static_cast<const uint32_t*>(a.basis), static_cast<int32_t*>(a.tone),
       static_cast<float*>(a.best), static_cast<float*>(a.total));

@@ -11,21 +11,28 @@
 // zero.
 //
 // What bounds it on the H100: bytes. Each stream's data span is read once
-// (2 bytes a bf16 sample) and M float32 energies a symbol are written; at
-// the coded path's 4 tones and 32 samples a symbol that is 64 bytes in and
+// (2 bytes a bf16 sample, 4 a float32 one) and M float32 energies a symbol
+// are written; at the coded path's 4 tones and 32 samples a symbol that is
+// 64 bytes (bf16) or 128 bytes (float32, the stream's default carry) in and
 // 16 bytes out a symbol, against 512 multiply-adds. An int8 buffer (the
 // quantized stream carry, reference _demod_at_setup lines 1885-1893) halves
-// the read and takes the x127 integer basis.
+// the bf16 read and takes the x127 integer basis.
 //
 // Design: the TPU kernel's 8-row-aligned span DMAs, its start-bound padding
 // and its I-block-then-Q-block basis order existed only for the TPU's
-// (8, 128) layout. bfloat16 and int8 buffers run the tensor-core filterbank
-// of demod_core.cuh, whose n-tiles follow the tone count: at M = 4 one
-// m16n8 product a k-step holds the 4 tones' I and Q of 16 symbols, and no
-// lane computes a tone that does not exist. Its epilogue store_energies
-// writes tone 4 t + i of n-tile t from lane i of a quad: at M = 4 a warp's
-// store is 128 contiguous bytes. float32 buffers keep the CUDA-core body
-// of common.cuh (energies_symbols).
+// (8, 128) layout. Every buffer runs the tensor-core filterbank of
+// demod_core.cuh, whose n-tiles follow the tone count: at M = 4 one m16n8
+// product a k-step holds the 4 tones' I and Q of 16 symbols, and no lane
+// computes a tone that does not exist. Its epilogue store_energies writes
+// tone 4 t + i of n-tile t from lane i of a quad: at M = 4 a warp's store
+// is 128 contiguous bytes.
+// - bfloat16 and int8 buffers (demod_at_energies_mma): the one-term product
+//   with the bf16 or x127 int8 basis (kernels._demod_mma_basis).
+// - float32 buffers (demod_at_energies_mma_f32): demod_at.cu's float32 walk,
+//   the three-term split SplitTerms (kernels._demod_split_basis) in a ring
+//   of F32_RING stages, with this file's epilogue: each energy within
+//   kernels.F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's
+//   largest.
 #include "demod_core.cuh"
 
 namespace {
@@ -40,20 +47,18 @@ demod_at_energies_mma(anet::demod::Span sp, int m, const uint32_t* __restrict__ 
   });
 }
 
-// float32 buffers: one block per (stream, tile of 64 symbols) on the CUDA
-// cores (energies_symbols in common.cuh).
-template <int SPS>
-__global__ void __launch_bounds__(anet::DEMOD_THREADS)
-demod_at_energies_f32(const float* __restrict__ buf, int64_t len,
-                      const int32_t* __restrict__ start, int pre, int n_symbols, int m,
-                      const float* __restrict__ basis, float* __restrict__ energies) {
-  __shared__ __align__(16) float stage[anet::SYM_TILE * SPS];
-  const int b = blockIdx.x;
-  const int s0 = blockIdx.y * anet::SYM_TILE;
-  const int64_t base = (int64_t)start[b] + pre + (int64_t)s0 * SPS;
-  anet::energies_symbols<float, SPS>(buf + (int64_t)b * len, len, base,
-                                     min(anet::SYM_TILE, n_symbols - s0), m, basis, stage,
-                                     energies + ((int64_t)b * n_symbols + s0) * m);
+// float32 buffers: the walk with the three-term split of samples and basis,
+// in a ring of F32_RING stages, as demod_at.cu's demod_at_mma_f32.
+template <int SPS, int NT>
+__global__ void __launch_bounds__(anet::demod::THREADS)
+demod_at_energies_mma_f32(anet::demod::Span sp, int m, const uint32_t* __restrict__ basis,
+                          float* __restrict__ energies) {
+  using P = anet::demod::SplitTerms<float, SPS, NT>;
+  const int n_symbols = sp.n_symbols;
+  anet::demod::walk_with<float, SPS, P, anet::demod::F32_RING>(
+      sp, basis, [&](int b, int s, const float (&e)[NT][2]) {
+        anet::demod::store_energies<NT>(b, s, e, n_symbols, m, energies);
+      });
 }
 
 struct Args {
@@ -76,13 +81,14 @@ cudaError_t launch_mma(const Args& a) {
       static_cast<float*>(a.energies));
 }
 
-template <int SPS>
-cudaError_t launch_f32(const Args& a) {
-  dim3 grid(a.B, (a.n_symbols + anet::SYM_TILE - 1) / anet::SYM_TILE);
-  demod_at_energies_f32<SPS><<<grid, anet::DEMOD_THREADS, 0, a.st>>>(
-      static_cast<const float*>(a.buf), a.len, static_cast<const int32_t*>(a.start), a.pre,
-      a.n_symbols, a.m, static_cast<const float*>(a.basis), static_cast<float*>(a.energies));
-  return cudaGetLastError();
+template <int SPS, int NT>
+cudaError_t launch_mma_f32(const Args& a) {
+  static int resident = 0;  // one per kernel instantiation
+  using P = anet::demod::SplitTerms<float, SPS, NT>;
+  return anet::demod::launch<float, SPS, P::SMEM, anet::demod::F32_RING>(
+      demod_at_energies_mma_f32<SPS, NT>, resident, a.buf, a.B, a.len, a.len, a.start, a.pre,
+      a.n_symbols, a.st, a.m, static_cast<const uint32_t*>(a.basis),
+      static_cast<float*>(a.energies));
 }
 
 template <typename T, int SPS>
@@ -93,10 +99,18 @@ cudaError_t dispatch_tones(const Args& a) {
 }
 
 template <int SPS>
+cudaError_t dispatch_tones_f32(const Args& a) {
+  if (a.m <= 4) return launch_mma_f32<SPS, 1>(a);
+  if (a.m <= 8) return launch_mma_f32<SPS, 2>(a);
+  return launch_mma_f32<SPS, 4>(a);
+}
+
+template <int SPS>
 cudaError_t dispatch_dtype(int dtype, const Args& a) {
   if (dtype == anet::DTYPE_BF16) return dispatch_tones<__nv_bfloat16, SPS>(a);
   if (dtype == anet::DTYPE_I8) return dispatch_tones<int8_t, SPS>(a);
-  return launch_f32<SPS>(a);
+  if (dtype == anet::DTYPE_F32) return dispatch_tones_f32<SPS>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -104,8 +118,10 @@ cudaError_t dispatch_dtype(int dtype, const Args& a) {
 // buf: [B, len] contiguous, any alignment; start: [B] int32 preamble
 // starts; energies: [B, n_symbols, m] float32, m <= 16; sps 32, 64 or 128.
 // basis: for bfloat16 and int8 buffers the B fragments of demod_core.cuh
-// (kernels._demod_mma_basis); for float32 buffers [sps, 32] float32 (cos of
-// the tones in columns 0.., sin in 16..). Returns cudaGetLastError().
+// (kernels._demod_mma_basis, int32 [sps * elem / 32, n_tiles, 2, 32]); for
+// float32 buffers SplitTerms' three terms of the float32 basis
+// (kernels._demod_split_basis, int32 [3, sps / 16, n_tiles, 2, 32]).
+// Returns cudaGetLastError().
 extern "C" int anet_demod_at_energies(const void* buf, int dtype, int B, long long len,
                                       const void* start, int pre, int sps, int n_symbols, int m,
                                       const void* basis, void* energies, void* stream) {

@@ -1,9 +1,7 @@
 // The align+demod filterbank on the tensor cores, shared by demod_at.cu
-// (bfloat16 and int8 buffers, and float32 ones through SplitTerms),
-// demod_at_energies.cu (its bfloat16 and int8 instantiations; its float32
-// buffers keep common.cuh's CUDA-core body) and tone_energies.cu (every
-// start at 0: bfloat16 compute, and float32 compute on bfloat16 or float32
-// rows).
+// and demod_at_energies.cu (bfloat16 and int8 buffers, and float32 ones
+// through SplitTerms) and tone_energies.cu (every start at 0: bfloat16
+// compute, and float32 compute on bfloat16 or float32 rows).
 //
 // For stream b the data section starts at sample d0 = start[b] + pre of its
 // buffer row, rows len samples apart (a PitchedSpan's `pitch` apart, pitch
@@ -29,9 +27,10 @@
 //   - OneTerm: the bf16 or the x127 int8 basis (kernels._demod_mma_basis);
 //     every lane keeps its k-steps x n_tiles x 2 registers for the whole
 //     launch.
-//   - SplitTerms (float32 compute, and demod_at.cu's float32 buffers): the
-//     float32 basis as three bf16 terms, b = b0 + b1 + b2 exactly
-//     (kernels._demod_split_basis, [3, ks, n, 2, 32]); b0 in registers, b1
+//   - SplitTerms (float32 compute, and the float32 buffers of demod_at.cu
+//     and demod_at_energies.cu): the float32 basis as three bf16 terms,
+//     b = b0 + b1 + b2 exactly (kernels._demod_split_basis, [3, ks, n, 2,
+//     32]); b0 in registers, b1
 //     and b2 in shared memory, one copy a block.
 //     bf16 samples meet all three (3 products a k-step and n-tile). float32
 //     samples, staged as float32, are split in registers into a0 + a1 + a2
@@ -42,11 +41,12 @@
 //     added in float32 before the energy.
 // - The span read: each warp walks (stream, tile) items, a tile SYMS
 //   symbols (about 2 KB of samples), and keeps RING - 1 tiles' loads in
-//   flight in its own ring of RING stages of shared memory (STAGES, 4; 2
-//   in demod_at.cu's float32 kernel, whose stages are twice as large and
-//   whose warps an SM, not its bytes in flight, bound it): 16-byte cp.async
-//   copies of the tile's span aligned down to 16 bytes of the FLAT buffer,
-//   so any row pitch and any start take full-width loads. cp.async's source size
+//   flight in its own ring of RING stages of shared memory (STAGES, 4;
+//   F32_RING, 2, in the float32 buffers' kernels, whose stages are twice
+//   as large and whose warps an SM, not their bytes in flight, bound
+//   them): 16-byte cp.async copies of the tile's span aligned down to 16
+//   bytes of the FLAT buffer, so any row pitch and any start take
+//   full-width loads. cp.async's source size
 //   stops the copy at the row's end (len) and zero-fills the rest of the
 //   chunk, and a chunk wholly outside the row reads nothing; bytes before
 //   the row's start (a negative position) are zeroed after the copy
@@ -73,6 +73,13 @@ namespace demod {
 constexpr int WARPS = 4;              // warps of a block
 constexpr int THREADS = 32 * WARPS;
 constexpr int STAGES = 4;             // a warp's ring by default: 3 tiles in flight, one read
+// The ring of the float32 walks (demod_at.cu's and demod_at_energies.cu's
+// float32 buffers). A float32 stage is twice a bf16 one (4,368 bytes at sps
+// 64), and the default 4 stages left 2 blocks (8 warps) an SM at sps 64
+// with 3 tiles in flight a warp, more than the card needs; 2 stages give 5
+// blocks (20 warps) and took demod_at.cu's device time from 0.62 to 0.50 ms
+// (H100 SXM, time_search --kernels demod, B = 8,192).
+constexpr int F32_RING = 2;
 constexpr int STAGE_TARGET = 2048;    // bytes of samples a tile aims at
 
 // Tile geometry of a sample type and samples per symbol, in bytes.

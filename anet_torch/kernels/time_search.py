@@ -32,8 +32,10 @@ comma-separated subset of:
   2,160 symbols of 32 samples, 4 tones, buffer 143,872), each on
   bfloat16, int8 (``quantize_int8``) and float32 buffers of noise, starts
   random in the chunk, each with its ``device`` column as ``frame`` has
-  (float32 ``demod_at_fused``: the split kernel ``demod_at_mma_f32``, or
-  an older checkout's ``demod_at_f32``). These ignore ``--model``.
+  (float32: the split kernels ``demod_at_mma_f32`` and
+  ``demod_at_energies_mma_f32``, or an older checkout's CUDA-core
+  ``demod_at_f32`` and ``demod_at_energies_f32``). These ignore
+  ``--model``.
 - ``probe``: ``demod_probe_fused`` at the uncoded locked stream's geometry
   (mfsk16-fast, payload 256: buffer 76,288, the 2,048-sample preamble, 5
   lags, 536 symbols of 64 samples) on bfloat16 and int8 buffers with the
@@ -219,8 +221,8 @@ if "demod" in kinds:
             call = lambda: fn(c, buf, starts, n_sym)
             out[f"{{name}} {{label}}"] = time_ms(call)
             key = name.removesuffix("_fused") + ("_f32" if label == "float32" else "_mma")
-            if key == "demod_at_f32":  # an older checkout's CUDA-core body, or the split kernel
-                key = ("demod_at_f32", "demod_at_mma_f32")
+            if label == "float32":  # an older checkout's CUDA-core body, or the split kernel
+                key = (key, key.replace("_f32", "_mma_f32"))
             out[f"{{name}} {{label}} device"] = device_ms(call, key)
             del buf
             torch.cuda.empty_cache()

@@ -14,9 +14,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the template energy a float32 scalar on the card, as the stream passes
    it, under torch.cuda.set_sync_debug_mode("error"): bit-equal to a
    float's, no host read), the coded paths' three on
-   mfsk4-coded (with demod_at_energies_fused on int8 buffers)
-   (payload 256, chunk 70,144, buffer 143,872, trellis 2,150 steps; the
-   trellis also with a masked tail and at the 102-step header probe;
+   mfsk4-coded (with demod_at_energies_fused on int8 buffers, and on
+   float32 ones as the three-term split: compare_split_energies, its LLRs
+   through viterbi_trellis giving the plain energies' bits, payloads and
+   verdicts) (payload 256, chunk 70,144, buffer 143,872, trellis 2,150
+   steps; the trellis also with a masked tail and at the 102-step header
+   probe;
    probe_at_fused also with its template energy a float32 scalar on the
    card, as the locked step passes it, bit-equal and timed), and
    the three of the variable-length, oversized-window and one-shot paths on
@@ -53,10 +56,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    bf16 split on the tensor cores, held with compare_split_decisions: best
    and total within the split's tolerance, tones equal but at near-ties of
    the plain energies, whose count it prints; the probe's offsets equal,
-   cmax and energy within RTOL), decide_frame_tm, demod_at_energies_fused
-   and decide_tones_tm (CUDA-core bodies), each held against its plain
-   version and timed with it at the main shape against its bound (the
-   "<name>:f32" numbers);
+   cmax and energy within RTOL), demod_at_energies_fused (the same split,
+   held with compare_split_energies), decide_frame_tm and decide_tones_tm
+   (CUDA-core bodies), each held against its plain version and timed with
+   it at the main shape against its bound (the "<name>:f32" numbers);
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -66,7 +69,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (acquisition runs the search kernel) and once with a warm lock seeded
    at the first frame, on mfsk16-fast ("stream": the merged probe+demod
    kernel) and on mfsk4-coded ("stream-coded": probe, energies and trellis
-   kernels);
+   kernels), and "stream-coded-f32": the same mfsk4-coded capture in
+   float32 through receive_stream's defaults, a float32 carry and float32
+   compute (demod_at_energies_fused's three-term split, viterbi_trellis,
+   sync_search_fused; the plain row-aligned probe, never probe_at_fused);
 5. the variable-length streams at B = 8,192, header-declared lengths up to
    256: "stream-dynamic" (always-search, two candidates a chunk, payloads
    64, 64, 256, 128, 64, 64 back to back: correlate_fused and
@@ -225,7 +231,7 @@ from anet_torch import kernels, parallel
 from anet_torch.channel import ChannelConfig, apply_channel, multipath
 from anet_torch.dsp import family, fec, ofdm
 from anet_torch.dsp import frame as tframe
-from anet_torch.dsp.demod import bit_llrs
+from anet_torch.dsp.demod import bit_llrs, decide_symbols
 from anet_torch.dsp import sync as tsync
 from anet_torch.dsp.pipeline import receive_frame, receive_frame_dynamic, receive_frame_tracked, transmit
 from anet_torch.dsp.sync import preamble_waveform
@@ -421,12 +427,13 @@ def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...]
 
 def plant_frames(waves: torch.Tensor, starts: torch.Tensor, length: int, noise: float, gen):
     """([B, length] bf16 buffers, the same as an int8 stream carry holds
-    them, quantize_int8): noise plus each stream's frame at its start."""
+    them, quantize_int8, and as a float32 one does): noise plus each
+    stream's frame at its start."""
     b, t = waves.shape
     buf = noise * torch.randn(b, length, generator=gen, device=waves.device)
     idx = starts.long()[:, None] + torch.arange(t, device=waves.device)
     buf.scatter_add_(1, idx, waves)
-    return buf.to(torch.bfloat16), quantize_int8(buf)
+    return buf.to(torch.bfloat16), quantize_int8(buf), buf
 
 
 def quantize_x127(x: torch.Tensor) -> torch.Tensor:
@@ -479,7 +486,7 @@ def phase_kernels(cfg, gen) -> dict:
     starts = torch.randint(3, chunk - 4, (COMPARE_B,), generator=gen, device=dev)
     starts[:8] = torch.tensor([126, 127, 128, 129, 126 + 128 * 100, 127 + 128 * 100,
                                128 + 128 * 200, 129 + 128 * 200], device=dev)
-    buf, buf8 = plant_frames(waves, starts, length, 0.05, gen)
+    buf, buf8, _ = plant_frames(waves, starts, length, 0.05, gen)
     seg = buf[:, 1 : 1 + chunk + k - 1]
     got = kernels.sync_search_fused(seg, tpl, chunk, te)
     want = kernels.sync_search_fused_ref(seg, tpl, chunk, te)
@@ -699,7 +706,7 @@ def phase_kernels_coded(cfg, gen) -> dict:
     starts = torch.randint(3, chunk - 4, (COMPARE_B,), generator=gen, device=DEV)
     starts[:8] = torch.tensor([126, 127, 128, 129, 126 + 128 * 100, 127 + 128 * 100,
                                128 + 128 * 200, 129 + 128 * 200], device=DEV)
-    buf, buf8 = plant_frames(waves, starts, length, 0.3, gen)
+    buf, buf8, buf32 = plant_frames(waves, starts, length, 0.3, gen)
     st0 = starts - 2
     if not {124, 125, 126, 127} <= set((st0 % 128).tolist()):
         raise AssertionError("probe residues 124..127 not covered")
@@ -740,8 +747,7 @@ def phase_kernels_coded(cfg, gen) -> dict:
     del got8, want8
 
     # the trellis on the LLRs of those noisy coded frames: bits compared exactly
-    air = bit_llrs(cfg, got)[..., : tframe.data_section_coded_bits(cfg, PAYLOAD)]
-    rx = fec.deinterleave(air, cfg.fec_interleave, 2 * t_steps).reshape(COMPARE_B, t_steps, 2).contiguous()
+    rx = trellis_llrs(cfg, got, t_steps)
     signs = torch.as_tensor(fec._branch_signs(), device=DEV)
     got_bits = kernels.viterbi_trellis(signs, rx)
     want_bits = kernels.viterbi_trellis_ref(signs, rx)
@@ -761,18 +767,31 @@ def phase_kernels_coded(cfg, gen) -> dict:
                 (kernels.viterbi_trellis_ref(signs, x),), (0,), ())
     del masked, probe
 
-    # the float32 route (the CUDA-core body) on the same buffers widened
-    got32 = kernels.demod_at_energies_fused(cfg, buf.float(), starts, n_sym)
-    results["demod_at_energies_fused:f32"] = {"max_abs_err": compare(
-        "demod_at_energies_fused float32", (got32,),
-        (kernels.demod_at_energies_fused_ref(cfg, buf.float(), starts, n_sym),), (), (0,))}
-    del got32
+    # the float32 route (the three-term split on the tensor cores) on the
+    # float32 buffers of the same frames, to the split's tolerance; the
+    # trellis on its LLRs gives the bits of the plain energies' LLRs, and
+    # every frame's payload and verdicts are the plain energies' and right
+    got32 = kernels.demod_at_energies_fused(cfg, buf32, starts, n_sym)
+    want32 = kernels.demod_at_energies_fused_ref(cfg, buf32, starts, n_sym)
+    results["demod_at_energies_fused:f32"] = {
+        "max_abs_err": compare_split_energies("demod_at_energies_fused float32", got32, want32)}
+    bits32 = [kernels.viterbi_trellis(signs, trellis_llrs(cfg, e, t_steps)) for e in (got32, want32)]
+    if not torch.equal(*bits32) or not torch.equal(bits32[0][:, :n_data], sent):
+        raise AssertionError("viterbi_trellis on the float32 split energies: bits differ from the plain "
+                             "energies' or from the sent data sections")
+    frames32 = [tframe.frame_result_from_decisions(cfg, decide_symbols(cfg, e), e, PAYLOAD) for e in (got32, want32)]
+    if not same_verdicts(*frames32) or not bool(frames32[0].ok.all()) or not torch.equal(frames32[0].payload, pay):
+        raise AssertionError("demod_at_energies_fused float32: payloads or verdicts differ from the plain "
+                             "energies' or from what was sent")
+    log(f"  demod_at_energies_fused float32 -> LLRs -> viterbi_trellis: bits equal to the plain energies' "
+        f"({bits32[0].numel()} bits), {COMPARE_B} frames ok, payloads and verdicts equal")
+    del got32, want32, bits32, frames32
 
     reps = STREAM_B // COMPARE_B
     buf_full, st_full, st0_full = buf.repeat(reps, 1), starts.repeat(reps), st0.repeat(reps)
     buf8_full = buf8.repeat(reps, 1)
     rx_full = rx.repeat(reps, 1, 1)
-    del buf, buf8, waves, got, want, air
+    del buf, buf8, waves, got, want
     calls = {
         "probe_at_fused": (
             lambda f: f(buf_full, st0_full, tpl, te, n_lags=N_LAGS),
@@ -812,10 +831,30 @@ def phase_kernels_coded(cfg, gen) -> dict:
     log(f"  probe_at_fused (template energy on the card, as the locked step passes it: B {b}): "
         f"kernel {ms:.3f} ms, bound {results['probe_at_fused']['bound_ms']:.3f} ms")
     log_search_time("coded geometry", buf_full[:, 1 : 1 + chunk + k - 1], tpl, chunk)
-    buf32 = buf_full.float()
-    time_f32_route(results, "demod_at_energies_fused", lambda f: f(cfg, buf32, st_full, n_sym),
-                   b * (n_sym * (sps * 4 + m * 4) + 4), b * n_sym * 2 * sps * 2 * m, F32_FLOPS_S)
+    # the float32 route at the full batch: held to the split's tolerance,
+    # timed against its bound (bytes, or its six products at the bf16 peak)
+    buf32_full = buf32.repeat(reps, 1)
+    del buf32
+    results["demod_at_energies_fused:f32"]["max_abs_err"] = max(
+        results["demod_at_energies_fused:f32"]["max_abs_err"],
+        compare_split_energies(f"demod_at_energies_fused float32 at B = {b}",
+                               kernels.demod_at_energies_fused(cfg, buf32_full, st_full, n_sym),
+                               kernels.demod_at_energies_fused_ref(cfg, buf32_full, st_full, n_sym)))
+    time_f32_route(results, "demod_at_energies_fused", lambda f: f(cfg, buf32_full, st_full, n_sym),
+                   b * (n_sym * (sps * 4 + m * 4) + 4), F32_SPLIT_PRODUCTS * b * n_sym * 2 * sps * 2 * m,
+                   BF16_FLOPS_S)
+    del buf32_full
+    torch.cuda.empty_cache()
     return results
+
+
+def trellis_llrs(cfg, energies: torch.Tensor, t_steps: int) -> torch.Tensor:
+    """The trellis input [B, t_steps, 2] of the coded receiver from the
+    filterbank energies [B, S, M]: the max-log LLRs of the data section's
+    air bits, deinterleaved."""
+    air = bit_llrs(cfg, energies)[..., : tframe.data_section_coded_bits(cfg, PAYLOAD)]
+    rx = fec.deinterleave(air, cfg.fec_interleave, 2 * t_steps)
+    return rx.reshape(energies.shape[0], t_steps, 2).contiguous()
 
 
 def split_tol(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -833,8 +872,18 @@ def compare_split(label: str, cfg, x: torch.Tensor) -> float:
     compare_split_decisions holds them. Returns the max absolute error."""
     if kernels._filterbank_operands("tone_energies", cfg, torch.float32, DEV)[1] != "split":
         raise AssertionError(f"{label}: float32 compute does not take the split route")
-    got = kernels.tone_energies_fused(cfg, x, compute_dtype=torch.float32)
     want = kernels.tone_energies_fused_ref(cfg, x, compute_dtype=torch.float32)
+    worst = compare_split_energies(label, kernels.tone_energies_fused(cfg, x, compute_dtype=torch.float32), want)
+    decisions = kernels.decide_tones_fused(cfg, x, compute_dtype=torch.float32)
+    return max(worst, compare_split_decisions(f"{label}, decisions", decisions, want))
+
+
+def compare_split_energies(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Energies [..., S, M] of the three-term split on the tensor cores
+    against the plain ones ``want`` of the same symbols: each within
+    split_tol of the plain one (F32_SPLIT_RTOL of itself plus
+    F32_SPLIT_ATOL of its symbol's largest), the argmax equal but at
+    near-ties. Returns the max absolute error."""
     scale = want.amax(-1)
     diff = (got - want).abs()
     worst = float(diff.max())
@@ -843,13 +892,12 @@ def compare_split(label: str, cfg, x: torch.Tensor) -> float:
     top2 = want.topk(2, dim=-1).values
     near = (top2[..., 0] - top2[..., 1]) <= split_tol(top2[..., 0], top2[..., 0])
     argmax_bad = int(((got.argmax(-1).int() != want.argmax(-1).int()) & ~near).sum())
-    del got, diff, top2, near
+    del diff, top2, near
     log(f"  {label}: energies max abs {worst:.3e}, max {worst_scaled:.3e} of the symbol's largest, beyond "
         f"the tolerance {bad}; energies' argmax differing off a near-tie {argmax_bad}")
     if bad or argmax_bad:
-        raise AssertionError(f"{label}: the float32-compute route is beyond its tolerance")
-    decisions = kernels.decide_tones_fused(cfg, x, compute_dtype=torch.float32)
-    return max(worst, compare_split_decisions(f"{label}, decisions", decisions, want))
+        raise AssertionError(f"{label}: the float32 split route is beyond its tolerance")
+    return worst
 
 
 def compare_split_decisions(label: str, got, want: torch.Tensor) -> float:
@@ -1215,15 +1263,15 @@ def verdict_words(out: str) -> list[str]:
     return re.findall(r"\b(?:offset|ok|len|magic|crc)=\S+", out)
 
 
-def locked_stream_capture(cfg, gen, label: str, int8: bool = False):
+def locked_stream_capture(cfg, gen, label: str, dtype: torch.dtype = torch.bfloat16):
     """(capture [STREAM_B, total], payloads [frames, B, payload], chunk,
     total) of phase 4: a GAP0-sample gap, then N_FRAMES back-to-back frames,
-    bf16 (or quantize_int8 with ``int8``); chunk = frame // 128 * 128."""
+    of ``dtype`` (bf16, float32, or int8 through quantize_int8); chunk =
+    frame // 128 * 128."""
     t_frame = family.frame_samples(cfg, PAYLOAD)
     chunk = t_frame // 128 * 128
     total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
-    dtype = torch.int8 if int8 else torch.bfloat16
-    ingest = quantize_int8 if int8 else (lambda w: w.to(torch.bfloat16))
+    ingest = quantize_int8 if dtype == torch.int8 else (lambda w: w.to(dtype))
     cap = torch.zeros(STREAM_B, total, dtype=dtype, device=DEV)
     tx = family.transmit_fn(cfg, DEV)
     sent = []
@@ -1248,23 +1296,25 @@ def stream_frames_right(steps, sent: torch.Tensor) -> bool:
     return torch.equal(got.reshape(STREAM_B, N_FRAMES, -1), sent.transpose(0, 1))
 
 
-def phase_stream(cfg, gen, label: str = "stream", int8: bool = False,
+def phase_stream(cfg, gen, label: str = "stream", dtype: torch.dtype = torch.bfloat16,
                  runs: tuple[str, ...] = ("cold", "warm-lock")) -> None:
     """Phase 4: the locked streaming receiver at B = 8,192, cold and warm
-    (either family), through the carry path (resident=False); with ``int8``
-    on an int8 carry, the capture quantized once at the ingest edge
-    (quantize_int8)."""
-    cap, sent, chunk, total = locked_stream_capture(cfg, gen, label, int8)
-    dtype = cap.dtype
-    fresh = {
-        "cold": lambda: init_carry(cfg, chunk, PAYLOAD, (STREAM_B,), dtype=dtype, device=DEV) if int8 else None,
+    (either family), through the carry path (resident=False), on a carry of
+    ``dtype``: bf16 with bf16 compute; int8 with bf16 compute, the capture
+    quantized once at the ingest edge (quantize_int8); float32 with float32
+    compute, receive_stream's defaults."""
+    cap, sent, chunk, total = locked_stream_capture(cfg, gen, label, dtype)
+    compute = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    fresh = {  # a cold carry of None is receive_stream's own: a buffer of the compute dtype
+        "cold": lambda: init_carry(cfg, chunk, PAYLOAD, (STREAM_B,), dtype=dtype, device=DEV)
+        if dtype == torch.int8 else None,
         "warm-lock": lambda: warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV, dtype),
     }
     for run in runs:
         carry = fresh[run]()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=torch.bfloat16, lock=True,
+        res = receive_stream(cfg, cap, chunk, PAYLOAD, carry=carry, compute_dtype=compute, lock=True,
                              resident=False, device=DEV)
         frames_ok = int(res.carry.frames_ok.sum())
         dt = time.perf_counter() - t0
@@ -1275,7 +1325,7 @@ def phase_stream(cfg, gen, label: str = "stream", int8: bool = False,
             f"{STREAM_B * total / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
         if frames_ok != STREAM_B * N_FRAMES or not right:
             raise AssertionError(f"{label} {run}: frames_ok {frames_ok}, payloads right {right}")
-        if run == "cold" and kernels.launch_counts["sync_search_fused"] == 0:
+        if run == "cold" and launched(kernels.launch_counts, "sync_search_fused") == 0:
             raise AssertionError(f"{label} cold: the search kernel never launched")
         del res, carry
 
@@ -2588,6 +2638,11 @@ PATHS = {
         lambda cfg, gen: phase_stream(cfg, gen, "stream-coded"),
         ("probe_at_fused", "demod_at_energies_fused", "viterbi_trellis", "sync_search_fused"),
     ),
+    "stream-coded-f32": (
+        CODED_MODEL,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-coded-f32", torch.float32),
+        ("demod_at_energies_fused:f32", "viterbi_trellis", "sync_search_fused"),
+    ),
     "stream-dynamic": (
         MODEL,
         lambda cfg, gen: phase_stream_dynamic(cfg, gen, "stream-dynamic", DYNAMIC_LENS, False),
@@ -2638,12 +2693,12 @@ PATHS = {
     ),
     "stream-int8": (
         MODEL,
-        lambda cfg, gen: phase_stream(cfg, gen, "stream-int8", int8=True),
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-int8", torch.int8),
         ("demod_probe_fused:int8", "sync_search_fused", "demod_at_fused:int8"),
     ),
     "stream-coded-int8": (
         CODED_MODEL,
-        lambda cfg, gen: phase_stream(cfg, gen, "stream-coded-int8", int8=True, runs=("warm-lock",)),
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-coded-int8", torch.int8, runs=("warm-lock",)),
         ("demod_at_energies_fused:int8", "viterbi_trellis"),
     ),
     "aligned-bm": (MODEL, phase_aligned_bm, ("tone_energies_fused",)),
@@ -2661,7 +2716,7 @@ PATHS = {
     ),
     "stream-ofdm-int8": (
         OFDM_MODEL,
-        lambda cfg, gen: phase_stream(cfg, gen, "stream-ofdm-int8", int8=True),
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-ofdm-int8", torch.int8),
         ("sync_search_fused", "ofdm_track_decide_fused"),
     ),
     "aligned-channel": (MODEL, phase_aligned_channel, ("decide_frame_tm",)),
@@ -2683,13 +2738,15 @@ PATHS = {
 }
 
 
-# Kernels a path must not launch: the reference probes an int8 buffer with
-# its plain row-aligned probe, never with probe_at_fused; the tracker
-# demodulates tracked frames (no align+demod kernel), and the one-shot
+# Kernels a path must not launch: the reference probes an int8 or a
+# float32 buffer with its plain row-aligned probe, never with
+# probe_at_fused; the tracker demodulates tracked frames (no align+demod
+# kernel), and the one-shot
 # tracker launches nothing; the resident scan probes with the plain
 # row-aligned probe and demodulates with demod_at_fused; an int8 dynamic
 # carry goes to demod_at_fused's int8 instantiation only.
 ABSENT = {
+    "stream-coded-f32": ("probe_at_fused",),
     "stream-coded-int8": ("probe_at_fused",),
     "stream-dynamic-int8": ("probe_at_fused", "demod_at_fused"),
     "stream-ofdm-int8": ("probe_at_fused",),

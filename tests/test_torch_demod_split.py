@@ -2,16 +2,22 @@
 float32 buffers, alone and as demod_probe_fused's demod, run
 csrc/demod_at.cu's walk with the three-term bf16 split (SplitTerms: the
 float32 basis and the float32 samples each as three bf16 terms, six of the
-nine products kept). The kernel runs only on the card, so these tests model
-it on the CPU: the walk's span read (demod_core.cuh's fetch into a warp's
-ring, the zeroing before the row's start and the fragments' sample offsets)
-transliterated over a flat float32 memory, and its arithmetic by
-test_torch_filterbank_split.emulate_iq on the spans so read. The emulated
-decisions are held against demod_at_fused_ref, demod_probe_fused_ref and
-anet's Pallas kernel (interpret mode) with the split's stated tolerance
-(kernels.F32_SPLIT_RTOL, F32_SPLIT_ATOL): best and total within it, tones
-equal but where the plain version's two largest energies lie that close.
-The card's own comparison: test_torch_kernels_cuda.py -k "residue or
+nine products kept), and demod_at_energies_fused's float32 buffers (the
+coded stream's default carry) run the same walk in csrc/demod_at_energies.cu
+with the energies epilogue. The kernels run only on the card, so these
+tests model them on the CPU: the walk's span read (demod_core.cuh's fetch
+into a warp's ring, the zeroing before the row's start and the fragments'
+sample offsets) transliterated over a flat float32 memory, and its
+arithmetic by test_torch_filterbank_split.emulate_iq on the spans so read.
+The emulated decisions are held against demod_at_fused_ref,
+demod_probe_fused_ref and anet's Pallas kernel (interpret mode) with the
+split's stated tolerance (kernels.F32_SPLIT_RTOL, F32_SPLIT_ATOL): best and
+total within it, tones equal but where the plain version's two largest
+energies lie that close; the emulated energies against
+demod_at_energies_fused_ref and the Pallas demod_at_energies_fused, each
+within that tolerance, and, on noisy coded frames, their LLRs through the
+plain Viterbi give the plain energies' payloads and verdicts. The card's
+own comparison: test_torch_kernels_cuda.py -k "residue or
 demod_probe_at_every"."""
 
 import jax.numpy as jnp
@@ -25,14 +31,17 @@ from anet.models import get_model as jget_model
 
 from anet_torch import kernels as tk
 from anet_torch import stream as tstream
+from anet_torch.dsp import frame as tframe
+from anet_torch.dsp.demod import decide_symbols
 from anet_torch.dsp.pipeline import transmit
 from anet_torch.dsp.sync import gather_span, preamble_waveform
-from anet_torch.models import get_model
+from anet_torch.models import OPERATING_SNR_DB, get_model
 
 # mfsk16-fast (sps 64, 16 tones), mfsk4-coded (sps 32, 4 tones), a sps-32
 # preset of 16 tones and the sps-128 one (2 tones)
 PRESETS = ("mfsk16-fast", "mfsk4-coded", "mfsk16-ultra", "fsk2-robust")
 N_SYM = 67  # not a multiple of a tile's 16 symbols
+PAYLOAD = 64  # bytes of each planted frame
 WARPS, STAGE_TARGET = 4, 2048  # demod_core.cuh's block and tile geometry
 
 
@@ -94,19 +103,20 @@ def walk_spans(cfg, mem: np.ndarray, off: int, b: int, length: int, start: np.nd
     return out, lo_read, hi_read
 
 
-def _stream_buffer(cfg, rng, starts, length: int, off: int):
+def _stream_buffer(cfg, rng, starts, length: int, off: int, noise: float = 0.3):
     """(flat float32 memory, the [B, length] buffer at element ``off`` of
-    it): noise 0.3 and a frame at each start, NaN outside the buffer."""
-    pay = rng.integers(0, 256, (len(starts), 64), dtype=np.uint8)
+    it, the payloads [B, PAYLOAD]): noise of standard deviation ``noise``
+    and a frame at each start, NaN outside the buffer."""
+    pay = rng.integers(0, 256, (len(starts), PAYLOAD), dtype=np.uint8)
     w = transmit(cfg, pay, device="cpu").numpy()
-    x = 0.3 * rng.standard_normal((len(starts), length)).astype(np.float32)
+    x = noise * rng.standard_normal((len(starts), length)).astype(np.float32)
     for i, s in enumerate(starts):
         lo, hi = max(s, 0), min(s + w.shape[1], length)
         if lo < hi:
             x[i, lo:hi] += w[i, lo - s : hi - s]
     mem = np.full(off + x.size + 16, np.nan, np.float32)
     mem[off : off + x.size] = x.reshape(-1)
-    return mem, x
+    return mem, x, pay
 
 
 def _starts(cfg, length: int) -> np.ndarray:
@@ -123,14 +133,18 @@ def _length(cfg) -> int:
     return cfg.preamble_samples + N_SYM * cfg.samples_per_symbol + 700
 
 
-def emulated_decisions(cfg, spans: np.ndarray):
-    """(tone, best, total) of the split's arithmetic on the spans [B, S,
-    sps]: emulate_iq's I/Q, energies I*I + Q*Q rounded after each
-    operation, the first argmax."""
+def emulated_energies(cfg, spans: np.ndarray) -> torch.Tensor:
+    """Energies [B, S, M] of the split's arithmetic on the spans [B, S,
+    sps]: emulate_iq's I/Q, I*I + Q*Q rounded after each operation."""
     b, s, sps = spans.shape
     iq = emulate_iq(cfg, torch.from_numpy(spans.reshape(b, s * sps)))
     m = cfg.num_tones
-    e = iq[..., :m] * iq[..., :m] + iq[..., m:] * iq[..., m:]
+    return iq[..., :m] * iq[..., :m] + iq[..., m:] * iq[..., m:]
+
+
+def emulated_decisions(cfg, spans: np.ndarray):
+    """(tone, best, total) of emulated_energies, the first argmax."""
+    e = emulated_energies(cfg, spans)
     return e.argmax(-1).int(), e.amax(-1), e.sum(-1)
 
 
@@ -162,6 +176,25 @@ def assert_split_decisions(got, energies: torch.Tensor, want=None) -> int:
     return int((near & ~silent).sum())
 
 
+def assert_split_energies(got: torch.Tensor, energies: torch.Tensor, want=None) -> int:
+    """The split's energies ``got`` [B, S, M] against the plain energies of
+    the same spans, or, where given, against the energies ``want`` computed
+    from them elsewhere (themselves within the same bound of the plain
+    ones): each within the stated tolerance, F32_SPLIT_RTOL of itself plus
+    F32_SPLIT_ATOL of its symbol's largest; the argmax equal but at
+    near-ties of the energies held against. Returns the near-tie count
+    among symbols with energy."""
+    scale = energies.amax(-1, keepdim=True)
+    if want is not None:
+        assert bool(((want - energies).abs() <= _bound(energies, scale)).all())
+        energies, scale = want, want.amax(-1, keepdim=True)
+    assert bool(((got - energies).abs() <= _bound(energies, scale)).all())
+    top2 = energies.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= _bound(top2[..., 0], top2[..., 0])
+    assert bool(((got.argmax(-1) == energies.argmax(-1)) | near).all())
+    return int((near & (scale[..., 0] > 0)).sum())
+
+
 @pytest.mark.parametrize("off", [0, 1, 2, 3])
 @pytest.mark.parametrize("name", PRESETS)
 def test_walk_reads_the_gathered_span(name, off):
@@ -174,7 +207,7 @@ def test_walk_reads_the_gathered_span(name, off):
     rng = np.random.default_rng(len(name) + off)
     length = _length(cfg)
     starts = _starts(cfg, length)
-    mem, x = _stream_buffer(cfg, rng, starts, length, off)
+    mem, x, _ = _stream_buffer(cfg, rng, starts, length, off)
     spans, lo, hi = walk_spans(cfg, mem, off, len(starts), length, starts, N_SYM)
     sps, pre = cfg.samples_per_symbol, cfg.preamble_samples
     want = gather_span(torch.from_numpy(x), torch.from_numpy(starts + pre), N_SYM * sps)
@@ -183,24 +216,46 @@ def test_walk_reads_the_gathered_span(name, off):
     assert not spans[-2].any()  # the span wholly past the end reads zeros
 
 
+def _walked_buffer(name: str):
+    """(config, the spans the walk reads, the [B, length] float32 buffer,
+    the int32 starts) of a stream buffer at _starts' starts, rows one
+    element past a 16-byte boundary."""
+    cfg = get_model(name).config
+    rng = np.random.default_rng(3 + len(name))
+    length = _length(cfg)
+    starts = _starts(cfg, length)
+    mem, x, _ = _stream_buffer(cfg, rng, starts, length, 1)
+    spans, _, _ = walk_spans(cfg, mem, 1, len(starts), length, starts, N_SYM)
+    return cfg, spans, torch.from_numpy(x), torch.from_numpy(starts.astype(np.int32))
+
+
 @pytest.mark.parametrize("name", PRESETS)
 def test_emulated_split_decisions_match_demod_at_ref(name):
     """The kernel's span read and split arithmetic on a float32 stream
     buffer against demod_at_fused_ref at the same starts: best and total
     within the stated tolerance, tones equal but at the plain version's
     near-ties (rare at this noise)."""
-    cfg = get_model(name).config
-    rng = np.random.default_rng(3 + len(name))
-    length = _length(cfg)
-    starts = _starts(cfg, length)
-    mem, x = _stream_buffer(cfg, rng, starts, length, 1)
-    spans, _, _ = walk_spans(cfg, mem, 1, len(starts), length, starts, N_SYM)
+    cfg, spans, buf, st = _walked_buffer(name)
     got = emulated_decisions(cfg, spans)
-    buf, st = torch.from_numpy(x), torch.from_numpy(starts.astype(np.int32))
     want = tk.demod_at_fused_ref(cfg, buf, st, N_SYM)
     near = assert_split_decisions(got, tk.demod_at_energies_fused_ref(cfg, buf, st, N_SYM), want)
     assert near < want[0].numel() // 100
     assert not bool(got[2][-2].any())
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_emulated_split_energies_match_demod_at_energies_ref(name):
+    """demod_at_energies_fused on a float32 stream buffer: the same span
+    read and split arithmetic as demod_at_fused's, every tone's energy
+    stored. The emulated energies against demod_at_energies_fused_ref at
+    the same starts: each within the stated tolerance, the argmax equal but
+    at near-ties; the span wholly past the end all zeros."""
+    cfg, spans, buf, st = _walked_buffer(name)
+    got = emulated_energies(cfg, spans)
+    want = tk.demod_at_energies_fused_ref(cfg, buf, st, N_SYM)
+    assert got.shape == want.shape == (len(st), N_SYM, cfg.num_tones)
+    assert assert_split_energies(got, want) < want[..., 0].numel() // 100
+    assert not bool(got[-2].any())
 
 
 @pytest.mark.parametrize("name", PRESETS)
@@ -216,7 +271,7 @@ def test_emulated_split_decisions_match_demod_probe_ref(name):
     length = _length(cfg)
     lag = 2
     starts = _starts(cfg, length)
-    mem, x = _stream_buffer(cfg, rng, starts + lag, length, 2)
+    mem, x, _ = _stream_buffer(cfg, rng, starts + lag, length, 2)
     buf, st0 = torch.from_numpy(x), torch.from_numpy(starts.astype(np.int32))
     tpl = preamble_waveform(cfg, device="cpu")
     cmax, off, energy, tone, best, total = tk.demod_probe_fused_ref(cfg, buf, st0, N_SYM, tpl, n_lags=5)
@@ -229,25 +284,87 @@ def test_emulated_split_decisions_match_demod_probe_ref(name):
     assert near < tone.numel() // 100
 
 
+PALLAS_CHUNK = 4096
+
+
+def _pallas_buffer(name: str):
+    """(config, the spans the walk reads, the [B, length] float32 stream
+    buffer of a PALLAS_CHUNK-sample chunk, its int32 starts) of one
+    stream buffer whose starts lie at the chunk's ends and at every
+    residue mod 16, rows 3 elements past a 16-byte boundary."""
+    cfg = get_model(name).config
+    rng = np.random.default_rng(21)
+    length = tstream._buffer_len(cfg, PALLAS_CHUNK, PAYLOAD)
+    starts = np.array([1, 700, PALLAS_CHUNK - 1] + [1000 + r for r in range(16)], np.int64)
+    mem, x, _ = _stream_buffer(cfg, rng, starts, length, 3)
+    spans, _, _ = walk_spans(cfg, mem, 3, len(starts), length, starts, N_SYM)
+    return cfg, spans, torch.from_numpy(x), torch.from_numpy(starts.astype(np.int32))
+
+
+def _pallas(kernel, name: str, buf: torch.Tensor, st: torch.Tensor):
+    """anet's Pallas ``kernel`` (interpret mode) on the buffer at the starts,
+    as test_torch_kernels_ref.py runs it."""
+    return kernel(jget_model(name).config, jnp.asarray(buf.numpy()), jnp.asarray(st.numpy()), N_SYM,
+                  start_bound=PALLAS_CHUNK, interpret=True)
+
+
 def test_emulated_split_decisions_match_pallas():
     """The emulated split on one mfsk16-fast float32 stream buffer against
     anet's Pallas demod_at_fused (interpret mode), as
     test_torch_kernels_ref.py runs it: best and total within the stated
     tolerance of the Pallas kernel's, tones equal but at near-ties of the
     plain energies."""
-    name, chunk = "mfsk16-fast", 4096
-    cfg, jcfg = get_model(name).config, jget_model(name).config
-    rng = np.random.default_rng(21)
-    n_sym = N_SYM
-    length = tstream._buffer_len(cfg, chunk, 64)
-    starts = np.array([1, 700, 4095] + [1000 + r for r in range(16)], np.int64)
-    mem, x = _stream_buffer(cfg, rng, starts, length, 3)
-    spans, _, _ = walk_spans(cfg, mem, 3, len(starts), length, starts, n_sym)
+    name = "mfsk16-fast"
+    cfg, spans, buf, st = _pallas_buffer(name)
     got = emulated_decisions(cfg, spans)
-    jt, jb, jtot = jk.demod_at_fused(
-        jcfg, jnp.asarray(x), jnp.asarray(starts.astype(np.int32)), n_sym, start_bound=chunk, interpret=True
-    )
-    want = tuple(torch.from_numpy(np.array(v)) for v in (jt, jb, jtot))
-    buf, st = torch.from_numpy(x), torch.from_numpy(starts.astype(np.int32))
-    near = assert_split_decisions(got, tk.demod_at_energies_fused_ref(cfg, buf, st, n_sym), want)
+    want = tuple(torch.from_numpy(np.array(v)) for v in _pallas(jk.demod_at_fused, name, buf, st))
+    near = assert_split_decisions(got, tk.demod_at_energies_fused_ref(cfg, buf, st, N_SYM), want)
     assert near < want[0].numel() // 100
+
+
+def test_emulated_split_energies_match_pallas():
+    """The emulated split on one mfsk4-coded float32 stream buffer (the
+    coded stream's default carry) against anet's Pallas
+    demod_at_energies_fused (interpret mode): the Pallas energies within
+    the stated tolerance of the plain ones, the emulated energies within it
+    of the Pallas kernel's, the argmax equal but at near-ties."""
+    name = "mfsk4-coded"
+    cfg, spans, buf, st = _pallas_buffer(name)
+    got = emulated_energies(cfg, spans)
+    want = torch.from_numpy(np.array(_pallas(jk.demod_at_energies_fused, name, buf, st)))
+    near = assert_split_energies(got, tk.demod_at_energies_fused_ref(cfg, buf, st, N_SYM), want)
+    assert near < want[..., 0].numel() // 100
+
+
+@pytest.mark.parametrize("snr_offset_db", [0.0, -2.5])
+def test_emulated_split_energies_decode_as_the_plain_energies(snr_offset_db):
+    """The coded stream's soft decisions on float32 energies: 20 noisy
+    mfsk4-coded frames in one float32 stream buffer (data starts at every
+    residue mod 16), at the preset's operating SNR and 2.5 dB below it,
+    where frames start to fail. The emulated split energies' max-log LLRs,
+    deinterleaved through the plain Viterbi (frame_result_from_decisions,
+    as the locked coded step parses them), give every frame's payload
+    bytes and its magic, length, CRC and ok verdicts equal to those of the
+    plain energies; at the operating SNR every frame is ok and as sent."""
+    name = "mfsk4-coded"
+    cfg = get_model(name).config
+    n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+    t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
+    starts = np.array([300 + r for r in range(20)], np.int64) - cfg.preamble_samples
+    length = 1020 + t_frame
+    rng = np.random.default_rng(31)
+    power = float((transmit(cfg, np.zeros((1, PAYLOAD), np.uint8), device="cpu") ** 2).mean())
+    noise = (power / 10.0 ** ((OPERATING_SNR_DB[name] + snr_offset_db) / 10.0)) ** 0.5
+    mem, x, pay = _stream_buffer(cfg, rng, starts, length, 1, noise)
+    spans, _, _ = walk_spans(cfg, mem, 1, len(starts), length, starts, n_sym)
+    buf, st = torch.from_numpy(x), torch.from_numpy(starts.astype(np.int32))
+    plain = tk.demod_at_energies_fused_ref(cfg, buf, st, n_sym)
+    split = emulated_energies(cfg, spans)
+    assert_split_energies(split, plain)
+    got, want = (tframe.frame_result_from_decisions(cfg, decide_symbols(cfg, e), e, PAYLOAD) for e in (split, plain))
+    for field in ("payload", "magic_ok", "length_ok", "header_crc_ok", "payload_crc_ok", "ok"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    if snr_offset_db == 0.0:
+        assert bool(want.ok.all()) and np.array_equal(want.payload.numpy(), pay)
+    else:
+        assert 0 < int(want.ok.sum()) < len(starts)  # the cliff: both verdicts met

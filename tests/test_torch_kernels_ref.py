@@ -880,18 +880,25 @@ def test_demod_mma_basis_packing(name, dtype):
 
 
 def test_demod_at_basis_float32_takes_the_cuda_core_columns():
-    """float32 buffers: demod_at.cu's kernel (demod_at_fused and
-    demod_probe_fused's demod) takes the three-term split of the float32
-    basis (_demod_split_basis), never the bf16-rounded fragments alone;
-    demod_at_energies_fused keeps its CUDA-core body's [sps, 32] float32
-    columns (_kernel_basis). No one-term float32 fragments exist."""
+    """float32 buffers: both align+demod sources, demod_at.cu
+    (demod_at_fused, demod_probe_fused's demod) and demod_at_energies.cu
+    (demod_at_energies_fused), take the three-term split of the float32
+    basis (_demod_split_basis, the CUDA-core columns _kernel_basis of
+    float32 as three bf16 terms), never the bf16-rounded fragments alone,
+    and no CUDA-core [sps, 32] float32 operand is left on their route. No
+    one-term float32 fragments exist."""
     cpu = torch.device("cpu")
-    assert tk._demod_at_basis(CFG, torch.float32, cpu) is tk._demod_split_basis(CFG, cpu)
-    energies = tk._demod_energies_basis(CFG, torch.float32, cpu)
-    assert energies is tk._kernel_basis(CFG, torch.float32, cpu)
-    assert energies.dtype == torch.float32 and energies.shape == (CFG.samples_per_symbol, 32)
+    split = tk._demod_split_basis(CFG, cpu)
+    assert tk._demod_at_basis(CFG, torch.float32, cpu) is split
+    assert not hasattr(tk, "_demod_energies_basis")
+    ks, n = CFG.samples_per_symbol // 16, tk._demod_mma_tiles(CFG.num_tones)
+    assert split.dtype == torch.int32 and split.shape == (3, ks, n, 2, 32)
+    terms = sum(_unpack_demod_mma_basis(split[i], torch.bfloat16).double() for i in range(3))
+    m, cols = CFG.num_tones, tk._kernel_basis(CFG, torch.float32, cpu).double()
+    np.testing.assert_array_equal(terms[:, 0 : 2 * m : 2].numpy(), cols[:, :m].numpy())
+    np.testing.assert_array_equal(terms[:, 1 : 2 * m : 2].numpy(), cols[:, 16 : 16 + m].numpy())
     for dt in (torch.bfloat16, torch.int8):
-        assert tk._demod_energies_basis(CFG, dt, cpu) is tk._demod_mma_basis(CFG, dt, cpu)
+        assert tk._demod_at_basis(CFG, dt, cpu) is tk._demod_mma_basis(CFG, dt, cpu)
     with pytest.raises(TypeError):
         tk._demod_mma_basis(CFG, torch.float32, cpu)
 
@@ -1101,6 +1108,38 @@ def test_demod_at_launch_takes_the_split_basis_for_float32(monkeypatch, name, dt
     if tdt == torch.float32:
         ks, n = cfg.samples_per_symbol // 16, tk._demod_mma_tiles(cfg.num_tones)
         assert basis.dtype == torch.int32 and basis.shape == (3, ks, n, 2, 32)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["mfsk16-fast", "mfsk4-coded", "fsk2-robust"])
+def test_demod_at_energies_launch_takes_the_split_basis_for_float32(monkeypatch, name, dtype):
+    """demod_at_energies_fused's launch code, the card's calls replaced by
+    recorders: one call of the "demod_at_energies" entry (its C signature's
+    arguments) with demod_at_fused's basis, the three-term split for a
+    float32 buffer and _demod_mma_basis for bfloat16 and int8; float32
+    [B, n_symbols, M] energies; one launch checked with the buffer's dtype,
+    so float32 counts under "demod_at_energies_fused:f32"."""
+    from anet_torch.kernels import build
+
+    cfg = get_model(name).config
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    cpu = torch.device("cpu")
+    buf = torch.zeros(3, 4096, dtype=tdt)
+    st = torch.tensor([0, 5, -7], dtype=torch.int32)
+    calls = []
+    monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
+    monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
+    monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what, int8=False: tk._KERNEL_DTYPES[t.dtype])
+    monkeypatch.setattr(tk, "_check_launch", lambda err, name, dtype=None: calls.append(("checked", name, dtype)))
+    energies = tk._demod_at_energies_launch(cfg, buf, st, 9)
+    (key, args), checked = calls
+    assert energies.dtype == torch.float32 and energies.shape == (3, 9, cfg.num_tones)
+    assert key == "demod_at_energies" and len(args) == len(build.SIGNATURES[key][1])
+    assert args[-2:] == (energies.data_ptr(), 0)
+    assert args[:-2] == _demod_at_args(cfg, buf, st, 9, tk._demod_at_basis(cfg, tdt, cpu), ())[:-1]
+    assert checked == ("checked", "demod_at_energies_fused", tdt)
+    if tdt == torch.float32:
+        assert args[9] == tk._demod_split_basis(cfg, cpu).data_ptr()
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
