@@ -15,8 +15,7 @@ block maxima of the two-phase acquisition search).
 | demod_at_energies_fused | csrc/demod_at_energies.cu           | anet/kernels/__init__.py:1918 |
 | probe_at_fused          | csrc/demod_probe.cu                 | anet/kernels/__init__.py:1621 |
 | correlate_fused         | csrc/correlate.cu                   | anet/kernels/__init__.py:891  |
-| decide_tones_tm         | csrc/decide_frame_tm.cu (bf16)      | anet/kernels/__init__.py:269  |
-|                         | + decide_tones_tm.cu (float32)      |                               |
+| decide_tones_tm         | csrc/decide_frame_tm.cu             | anet/kernels/__init__.py:269  |
 | gather_rows_fused       | csrc/gather_rows.cu                 | anet/kernels/__init__.py:1415 |
 | ofdm_track_decide_fused | csrc/ofdm_track.cu                  | anet/kernels/__init__.py:2648 |
 | tone_energies_fused     | csrc/tone_energies.cu               | anet/kernels/__init__.py:87   |
@@ -64,12 +63,14 @@ quality as its epilogue, the template energy read on the card.
 ofdm_track_decide_fused is a warp per stream over points staged in shared
 memory.
 decide_frame_tm runs the same tensor-core filterbank with streams on the
-product's M axis, its A operand staged from time-major rows with
-``ldmatrix.trans``, and counts CRC bits with popcounts of the packed words
-(float32 frames keep the CUDA-core body); decide_tones_tm's bfloat16 data
-take the same walk with a decisions epilogue (float32 data: a CUDA-core
-kernel). gather_rows_fused copies 16-byte vectors aligned by a funnel
-shift. The other kernels sum in float32 on the CUDA cores.
+product's M axis, its A operand staged from time-major rows (bfloat16 and
+int8 read with ``ldmatrix.trans``; float32 frames with 32-bit loads, each
+sample split into three bf16 terms against ``_demod_split_basis``, the
+align+demod kernels' float32 product), and counts CRC bits with popcounts
+of the packed words; decide_tones_tm takes the same walk with a decisions
+epilogue, bfloat16 and float32 data alike. gather_rows_fused copies 16-byte
+vectors aligned by a funnel shift. The other kernels sum in float32 on the
+CUDA cores.
 
 The plain versions widen every operand to float32 before a product, as the
 reference kernels accumulate in float32. On the card, a float32 product
@@ -146,7 +147,8 @@ _KERNEL_SPS = (32, 64, 128)
 INT8_BASIS_SCALE = 127.0  # int8 basis and probe template: round(x * 127 / max|x|)
 # The three-term split on the tensor cores (the batch-major filterbank's
 # float32 compute, the float32 buffers of demod_at_fused, demod_probe_fused
-# and demod_at_energies_fused) against its plain version: each energy
+# and demod_at_energies_fused, the float32 frames of decide_frame_tm and
+# decide_tones_tm) against its plain version: each energy
 # within F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's
 # largest plain energy; best and total within the same bounds, tones equal
 # but where the plain version's two largest energies lie that close.
@@ -179,10 +181,10 @@ launch_counts = {
     "gather_rows_fused:int8": 0,
 }
 # The kernels whose float32 route is a design of its own, counted apart
-# under "<name>:f32": a CUDA-core body, the searches' and the correlation's
-# hi + lo split of a float32 segment, or the three-term split of the
-# align+demod kernels (float32 buffers) and the batch-major filterbank
-# (float32 compute).
+# under "<name>:f32": the searches' and the correlation's hi + lo split of
+# a float32 segment, or the three-term split of the align+demod kernels
+# (float32 buffers), the time-major pair (float32 frames) and the
+# batch-major filterbank (float32 compute).
 F32_ROUTES = (
     "decide_frame_tm", "sync_search_fused", "demod_at_fused", "demod_probe_fused",
     "demod_at_energies_fused", "correlate_fused", "decide_tones_tm", "tone_energies_fused",
@@ -271,9 +273,11 @@ def _plain_basis(config: ModemConfig, dtype: torch.dtype, device) -> torch.Tenso
 
 @functools.lru_cache(maxsize=16)
 def _kernel_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """[sps, 32] float32 basis for the kernels: cos of the num_tones tones in
-    columns 0..15 and sin in 16..31, zero columns for tones past num_tones;
-    entries as _plain_basis gives them for samples of ``dtype``."""
+    """[sps, 32] float32 basis: cos of the num_tones tones in columns 0..15
+    and sin in 16..31, zero columns for tones past num_tones; entries as
+    _plain_basis gives them for samples of ``dtype``. No kernel takes it:
+    the tests hold the tensor-core operands (_demod_mma_basis,
+    _demod_split_basis) to it."""
     m = config.num_tones
     basis = _plain_basis(config, dtype, device)  # [sps, 2M]
     out = torch.zeros(config.samples_per_symbol, 32, dtype=torch.float32, device=device)
@@ -349,10 +353,11 @@ def _demod_split_basis(config: ModemConfig, device: torch.device) -> torch.Tenso
 
 
 def _demod_at_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The basis operand of demod_at.cu's and demod_at_energies.cu's
-    kernels (demod_at_fused, demod_probe_fused's demod,
-    demod_at_energies_fused) for samples of ``dtype``: the one-term B
-    fragments for bfloat16 and int8, the three-term split of the float32
+    """The basis operand of the kernels whose product follows the samples'
+    dtype (demod_at.cu's and demod_at_energies.cu's: demod_at_fused,
+    demod_probe_fused's demod, demod_at_energies_fused; decide_frame_tm.cu's:
+    decide_frame_tm, decide_tones_tm) for samples of ``dtype``: the one-term
+    B fragments for bfloat16 and int8, the three-term split of the float32
     basis for float32."""
     if dtype == torch.float32:
         return _demod_split_basis(config, device)
@@ -400,10 +405,9 @@ def _frame_crc_tables(payload_len: int, n_tiles: int, nb: int):
     """(P [n_tiles * nb, 64] f32, hdr_const, pay_const), rows in the
     reference kernel's bit-major tile order: within tile i, row k * sb + s
     is message bit (i*sb + s) * bps + k. Identical to
-    anet.kernels._frame_crc_tables; the kernels here use the bit-order
-    table (_frame_crc_rows: the float32 body) and its packed-word masks
-    (_frame_crc_mask_table: the tensor-core body), which give the same
-    counts."""
+    anet.kernels._frame_crc_tables; here the plain version uses the
+    bit-order table (_frame_crc_rows) and the kernel its packed-word masks
+    (_frame_crc_mask_table), which give the same counts."""
     p, c_hdr, c_pay = _frame_crc_rows(payload_len, n_tiles * nb)
     sb = TM_SYMBOL_TILE
     bps = nb // sb
@@ -499,39 +503,36 @@ def decide_frame_tm(
     zero-padded; crc_counts f32 [64, B]: header CRC bit counts in rows
     0..31, payload in 32..63, parity taken by the caller; qual f32 [8, B]:
     sums of conf/best/total in rows 0..2; n_symbols).
-    Needs bits_per_symbol in {1, 2, 4} and at most 16 tones."""
+    Needs bits_per_symbol in {1, 2, 4} and at most 16 tones. On the card
+    float32 frames run the three-term bf16 split (best, total and the
+    quality sums within F32_SPLIT_RTOL and F32_SPLIT_ATOL of the plain
+    version's, decisions equal but at near-ties)."""
     if data_tm.device.type == "cpu":
         return decide_frame_tm_ref(config, data_tm, payload_len, preamble_offset=preamble_offset)
+    return _decide_frame_tm_launch(config, data_tm, payload_len, preamble_offset)
+
+
+def _decide_frame_tm_launch(config: ModemConfig, data_tm: torch.Tensor, payload_len: int, preamble_offset: int):
     name = "decide_frame_tm"
     dtype = _check_cuda_input(name, data_tm, "data_tm", int8=True)
     if data_tm.dim() != 2 or not data_tm.is_contiguous():
         raise ValueError(f"{name}: data_tm must be a contiguous [T, B] tensor")
     _check_kernel_geometry(name, config)
     t, b = data_tm.shape
-    s, n_tiles, nb = _frame_geometry(config, t, payload_len, preamble_offset)
+    s, n_tiles, _ = _frame_geometry(config, t, payload_len, preamble_offset)
     dev = data_tm.device
     sps, bps = config.samples_per_symbol, config.bits_per_symbol
     words = torch.empty(n_tiles, b, dtype=torch.int32, device=dev)
-    crc = torch.zeros(64, b, dtype=torch.float32, device=dev)  # both bodies add into them
+    crc = torch.zeros(64, b, dtype=torch.float32, device=dev)  # the blocks add into them
     qual = torch.zeros(8, b, dtype=torch.float32, device=dev)
     if b == 0:
         return words, crc, qual, s
-    if data_tm.dtype == torch.float32:  # the CUDA-core body
-        basis = _kernel_basis(config, data_tm.dtype, dev)
-        ptab = _crc_rows_tensor(payload_len, n_tiles * nb, dev)
-        hdr_bits, pay_lo = 6 * 8, 8 * 8
-        err = _entry("decide_frame_tm_f32")(
-            data_tm.data_ptr(), b, preamble_offset, sps, s, n_tiles, bps, basis.data_ptr(),
-            ptab.data_ptr(), hdr_bits, pay_lo, pay_lo + 8 * payload_len, words.data_ptr(),
-            crc.data_ptr(), qual.data_ptr(), _stream_handle(dev),
-        )
-    else:  # the tensor-core filterbank
-        basis = _demod_mma_basis(config, data_tm.dtype, dev)
-        masks = _frame_crc_masks(payload_len, n_tiles, bps, dev)
-        err = _entry(name)(
-            data_tm.data_ptr(), dtype, b, preamble_offset, sps, config.num_tones, s, n_tiles, bps,
-            basis.data_ptr(), masks.data_ptr(), words.data_ptr(), crc.data_ptr(), qual.data_ptr(), _stream_handle(dev),
-        )
+    basis = _demod_at_basis(config, data_tm.dtype, dev)
+    masks = _frame_crc_masks(payload_len, n_tiles, bps, dev)
+    err = _entry(name)(
+        data_tm.data_ptr(), dtype, b, preamble_offset, sps, config.num_tones, s, n_tiles, bps,
+        basis.data_ptr(), masks.data_ptr(), words.data_ptr(), crc.data_ptr(), qual.data_ptr(), _stream_handle(dev),
+    )
     _check_launch(err, name, data_tm.dtype)
     return words, crc, qual, s
 
@@ -1148,10 +1149,10 @@ def decide_tones_tm(config: ModemConfig, data_tm: torch.Tensor):
     quality means that follow cover the whole window (decide_frame_tm
     covers exactly the frame's own symbols).
 
-    On the card: bfloat16 data takes decide_frame_tm's tensor-core walk
+    On the card both dtypes take decide_frame_tm's tensor-core walk
     (csrc/decide_frame_tm.cu, its decisions epilogue) with the basis of
-    _demod_mma_basis; float32 data the CUDA-core kernel of
-    csrc/decide_tones_tm.cu with the float32 basis of _kernel_basis."""
+    _demod_at_basis: bfloat16 data one product, float32 data the
+    three-term bf16 split (within F32_SPLIT_RTOL and F32_SPLIT_ATOL)."""
     if data_tm.device.type == "cpu":
         return decide_tones_tm_ref(config, data_tm)
     return _decide_tones_tm_launch(config, data_tm)
@@ -1159,7 +1160,7 @@ def decide_tones_tm(config: ModemConfig, data_tm: torch.Tensor):
 
 def _decide_tones_tm_launch(config: ModemConfig, data_tm: torch.Tensor):
     name = "decide_tones_tm"
-    _check_cuda_input(name, data_tm, "data_tm")
+    dtype = _check_cuda_input(name, data_tm, "data_tm")
     if data_tm.dim() != 2 or not data_tm.is_contiguous():
         raise ValueError(f"{name}: data_tm must be a contiguous [T, B] tensor")
     _check_kernel_geometry(name, config)
@@ -1172,15 +1173,11 @@ def _decide_tones_tm_launch(config: ModemConfig, data_tm: torch.Tensor):
     tone = torch.empty(s, b, dtype=torch.int32, device=dev)
     best = torch.empty(s, b, dtype=torch.float32, device=dev)
     total = torch.empty(s, b, dtype=torch.float32, device=dev)
-    outs = (tone.data_ptr(), best.data_ptr(), total.data_ptr(), _stream_handle(dev))
-    if data_tm.dtype == torch.float32:  # the CUDA-core body
-        basis = _kernel_basis(config, data_tm.dtype, dev)
-        err = _entry(name)(data_tm.data_ptr(), b, sps, s, basis.data_ptr(), *outs)
-    else:  # the tensor-core filterbank
-        basis = _demod_mma_basis(config, data_tm.dtype, dev)
-        err = _entry("decide_tones_tm_mma")(
-            data_tm.data_ptr(), b, sps, config.num_tones, s, basis.data_ptr(), *outs
-        )
+    basis = _demod_at_basis(config, data_tm.dtype, dev)
+    err = _entry("decide_tones_tm_mma")(
+        data_tm.data_ptr(), dtype, b, sps, config.num_tones, s, basis.data_ptr(),
+        tone.data_ptr(), best.data_ptr(), total.data_ptr(), _stream_handle(dev),
+    )
     _check_launch(err, name, data_tm.dtype)
     return tone, best, total
 

@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "anet_torch_kernels"
 SOURCES = (
     "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
     "viterbi", "demod_at_energies",
-    "correlate", "decide_tones_tm", "gather_rows", "ofdm_track",
+    "correlate", "gather_rows", "ofdm_track",
     "tone_energies", "search_blockmax",
 )
 NVCC_FLAGS = (
@@ -41,10 +41,6 @@ SIGNATURES = {
     "decide_frame_tm": (
         "anet_decide_frame_tm",
         [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    ),
-    "decide_frame_tm_f32": (
-        "anet_decide_frame_tm_f32",
-        [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P], "decide_frame_tm",
     ),
     "sync_search": (
         "anet_sync_search",
@@ -71,9 +67,8 @@ SIGNATURES = {
         "anet_correlate",
         [_P, _I, _I, ctypes.c_longlong, _I, _P, _I, _I, _I, _I, _P, _P],
     ),
-    "decide_tones_tm": ("anet_decide_tones_tm", [_P, _I, _I, _I, _P, _P, _P, _P, _P]),
     "decide_tones_tm_mma": (
-        "anet_decide_tones_tm_mma", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P], "decide_frame_tm",
+        "anet_decide_tones_tm_mma", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], "decide_frame_tm",
     ),
     "gather_rows": (
         "anet_gather_rows",

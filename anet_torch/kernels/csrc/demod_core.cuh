@@ -2,6 +2,9 @@
 // and demod_at_energies.cu (bfloat16 and int8 buffers, and float32 ones
 // through SplitTerms) and tone_energies.cu (every start at 0: bfloat16
 // compute, and float32 compute on bfloat16 or float32 rows).
+// decide_frame_tm.cu walks time-major rows with an A read of its own and
+// takes from here the mma and cp.async wrappers, OneTerm's and SplitTerms'
+// B operand and SplitTerms' six products.
 //
 // For stream b the data section starts at sample d0 = start[b] + pre of its
 // buffer row, rows len samples apart (a PitchedSpan's `pitch` apart, pitch
@@ -74,7 +77,7 @@ constexpr int WARPS = 4;              // warps of a block
 constexpr int THREADS = 32 * WARPS;
 constexpr int STAGES = 4;             // a warp's ring by default: 3 tiles in flight, one read
 // The ring of the float32 walks (demod_at.cu's and demod_at_energies.cu's
-// float32 buffers). A float32 stage is twice a bf16 one (4,368 bytes at sps
+// float32 buffers; decide_frame_tm.cu's float32 frames take it too). A float32 stage is twice a bf16 one (4,368 bytes at sps
 // 64), and the default 4 stages left 2 blocks (8 warps) an SM at sps 64
 // with 3 tiles in flight a warp, more than the card needs; 2 stages give 5
 // blocks (20 warps) and took demod_at.cu's device time from 0.62 to 0.50 ms
@@ -106,6 +109,10 @@ struct Acc<__nv_bfloat16> {
 template <>
 struct Acc<int8_t> {
   using type = int32_t;
+};
+template <>
+struct Acc<float> {  // float32 samples split into bf16 terms (decide_frame_tm.cu)
+  using type = float;
 };
 
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -317,8 +324,9 @@ __device__ __forceinline__ void a_split(const unsigned char* rows, int x0, int k
   }
 }
 
-// The B operand and the product of a walk for float32 compute: the float32
-// basis as three bf16 terms, b = b0 + b1 + b2 exactly
+// The B operand and the product of a walk for float32 compute (and, through
+// its constructor and six_products, of decide_frame_tm.cu's float32 frames):
+// the float32 basis as three bf16 terms, b = b0 + b1 + b2 exactly
 // (kernels._demod_split_basis: int32 [3, ks, n, 2, 32], each term in
 // OneTerm's fragment order). b0 stays in registers; b1 and b2 are staged
 // once a block in shared memory, a lane's four words of a (k-step, n-tile)
@@ -375,16 +383,7 @@ struct SplitTerms {
       if constexpr (std::is_same<T, float>::value) {
         uint32_t a0[4], a1[4], a2[4];
         a_split<SPS>(rows, x0 + (lane & 3), ks, a0, a1, a2);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const uint4 v = b12[(ks * NT + t) * 32 + lane];
-          mma(small[t], a2, b0[ks][t][0], b0[ks][t][1]);  // about 2^-16 |a| |b| each
-          mma(small[t], a1, v.x, v.y);
-          mma(small[t], a0, v.z, v.w);
-          mma(small[t], a1, b0[ks][t][0], b0[ks][t][1]);  // about 2^-8
-          mma(small[t], a0, v.x, v.y);
-          mma(big[t], a0, b0[ks][t][0], b0[ks][t][1]);
-        }
+        six_products(ks, lane, a0, a1, a2, big, small);
       } else {
         uint32_t a[4];
         a_frag<T, SPS>(rows, x0, sh, ks, a);
@@ -401,6 +400,25 @@ struct SplitTerms {
     for (int u = 0; u < NT; ++u) {
       e[u][0] = tone_energy(big[u][0] + small[u][0], big[u][1] + small[u][1]);
       e[u][1] = tone_energy(big[u][2] + small[u][2], big[u][3] + small[u][3]);
+    }
+  }
+
+  // The six products of k-step ks of float32 samples split into a0 + a1 +
+  // a2, whichever walk read them (a_split's span rows here, the time-major
+  // rows of decide_frame_tm.cu): a0 b0 into big, the rest into small,
+  // smallest first.
+  __device__ __forceinline__ void six_products(int ks, int lane, const uint32_t (&a0)[4],
+                                               const uint32_t (&a1)[4], const uint32_t (&a2)[4],
+                                               float (&big)[NT][4], float (&small)[NT][4]) const {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const uint4 v = b12[(ks * NT + t) * 32 + lane];
+      mma(small[t], a2, b0[ks][t][0], b0[ks][t][1]);  // about 2^-16 |a| |b| each
+      mma(small[t], a1, v.x, v.y);
+      mma(small[t], a0, v.z, v.w);
+      mma(small[t], a1, b0[ks][t][0], b0[ks][t][1]);  // about 2^-8
+      mma(small[t], a0, v.x, v.y);
+      mma(big[t], a0, b0[ks][t][0], b0[ks][t][1]);
     }
   }
 };

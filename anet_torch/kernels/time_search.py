@@ -49,12 +49,14 @@ comma-separated subset of:
   (mfsk16-fast, payload 256: whole time-major frames of 36,352 rows, the
   data section from row 2,048, 536 symbols of 64 samples, 16 tones) on
   B = 16,384 streams of bfloat16, int8 and float32 noise (int8: round(x *
-  127 / max|x|)), and bfloat16 and int8 at B = 16,383 (``... ragged``:
-  rows off 16 bytes, read element by element). Beside each time, which
-  holds the wrapper's host work where that outlasts the kernel, it gives
-  the kernel's own device time (``... device``: ``torch.profiler``, the
-  mean of 5 calls over the kernel rows; null when the trace holds no
-  kernel row). It ignores ``--model``.
+  127 / max|x|)), and bfloat16, int8 and float32 at B = 16,383 (``...
+  ragged``: rows off 16 bytes, read element by element or, float32, by
+  4-byte copies). Beside each time, which holds the wrapper's host work
+  where that outlasts the kernel, it gives the kernel's own device time
+  (``... device``: ``torch.profiler``, the mean of 5 calls over the kernel
+  rows whose name holds ``frame_tm``: the split's ``frame_tm_mma_f32`` and
+  an older checkout's CUDA-core ``frame_tm_f32`` alike; null when the
+  trace holds no kernel row). It ignores ``--model``.
 - ``bm``: ``tone_energies_fused`` and ``decide_tones_fused`` at the
   batch-major aligned receiver's geometry (mfsk16-fast, payload 256: the
   data sections of B = 16,384 bfloat16 frames of 36,352 samples of noise,
@@ -84,9 +86,11 @@ comma-separated subset of:
 - ``tones_tm``: ``decide_tones_tm`` at the oversized aligned window's
   geometry (mfsk16-fast, payload 256: the data section of a frame plus 8
   symbols, 544 symbols of 64 samples, 16 tones) on B = 16,384 streams of
-  bfloat16 and float32 noise, and bfloat16 at B = 16,383 (``... bfloat16
-  ragged``: rows off 16 bytes), each with its ``device`` column. It
-  ignores ``--model``.
+  bfloat16 and float32 noise, and both at B = 16,383 (``... ragged``: rows
+  off 16 bytes), each with its ``device`` column (rows whose name holds
+  ``decide_tones_tm`` or ``frame_tm_mma``: an older checkout's CUDA-core
+  float32 kernel and this one's ``frame_tm_mma_f32`` alike). It ignores
+  ``--model``.
 - ``gather``: ``gather_rows_fused`` at the one-shot receiver's geometry
   (mfsk16-fast, payload 256: size 36,352 out of 76,288-sample rows) on B =
   8,192 bfloat16, int8 (``quantize_int8``) and float32 buffers of noise,
@@ -257,7 +261,8 @@ if "frame" in kinds:
     for label, make in (("bfloat16", lambda: x.to(torch.bfloat16)), ("int8", lambda: x8(x)),
                         ("float32", lambda: x),
                         ("bfloat16 ragged", lambda: x[:, 1:].to(torch.bfloat16).contiguous()),
-                        ("int8 ragged", lambda: x8(x[:, 1:]).contiguous())):
+                        ("int8 ragged", lambda: x8(x[:, 1:]).contiguous()),
+                        ("float32 ragged", lambda: x[:, 1:].contiguous())):
         xs = make()
         call = lambda: kernels.decide_frame_tm(c, xs, 256, preamble_offset=c.preamble_samples)
         out[f"decide_frame_tm {{label}}"] = time_ms(call)
@@ -336,7 +341,8 @@ if "tones_tm" in kinds:
     rows = family.frame_samples(c, 256) - c.preamble_samples + 8 * c.samples_per_symbol
     x = torch.randn(rows, {frame_b}, generator=gen, device="cuda")
     for label, make in (("bfloat16", lambda: x.to(torch.bfloat16)), ("float32", lambda: x),
-                        ("bfloat16 ragged", lambda: x[:, 1:].to(torch.bfloat16).contiguous())):
+                        ("bfloat16 ragged", lambda: x[:, 1:].to(torch.bfloat16).contiguous()),
+                        ("float32 ragged", lambda: x[:, 1:].contiguous())):
         xs = make()
         call = lambda: kernels.decide_tones_tm(c, xs)
         out[f"decide_tones_tm {{label}}"] = time_ms(call)

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-1. build the fourteen CUDA kernels from anet_torch/kernels/csrc (twelve
+1. build the fourteen CUDA kernels from anet_torch/kernels/csrc (eleven
    sources, nvcc, sm_90a);
 2. hold each kernel against its plain PyTorch version at its main path's
    shapes on a 256-stream subset, then time kernel and plain version at the
@@ -25,8 +25,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the three of the variable-length, oversized-window and one-shot paths on
    mfsk16-fast (correlate_fused at a chunk of two shortest frames, 23,552
    lags, also timed on its float32 routes; decide_tones_tm at a frame plus
-   8 symbols, bf16 on the tensor cores, also on float32 data (the CUDA-core
-   kernel) and on bf16 rows off 16 bytes (B - 1 streams); gather_rows_fused
+   8 symbols, bf16 on the tensor cores, also on float32 data (the
+   three-term split, held with compare_split_decisions, also off 16 bytes)
+   and on bf16 rows off 16 bytes (B - 1 streams); gather_rows_fused
    at one frame out of the 76,288-sample buffer, bf16, also on int8 (its
    int8 numbers) and float32 buffers, starts at every byte residue mod 16;
    demod_at_fused also timed at the dynamic parse's max-length
@@ -58,8 +59,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the plain energies, whose count it prints; the probe's offsets equal,
    cmax and energy within RTOL), demod_at_energies_fused (the same split,
    held with compare_split_energies), decide_frame_tm and decide_tones_tm
-   (CUDA-core bodies), each held against its plain version and timed with
-   it at the main shape against its bound (the "<name>:f32" numbers);
+   (the same split on float32 frames: check_frame_split, tones read back
+   from the packed words, words and CRC counts equal but at near-ties,
+   the quality sums within the split's tolerance; compare_split_decisions),
+   each held against its plain version and timed with it at the main
+   shape against its bound (the "<name>:f32" numbers);
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -128,8 +132,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the padded capture, never probe_at_fused or demod_probe_fused; its
    frames and final carry equal to the carry path's run on the same
    capture, whose launches do not count);
-10. int8 carries for the variable-length and OFDM receivers, and the
-   channel: "stream-dynamic-int8" (phase 5's stream-dynamic-lock capture,
+10. int8 carries for the variable-length and OFDM receivers, the channel
+   and the aligned receiver in float32: "stream-dynamic-int8" (phase 5's stream-dynamic-lock capture,
    bf16, entering init_carry(dtype=torch.int8) carries, so
    receive_stream_dynamic quantizes it at ingest; cold and warm:
    sync_search_fused on a bf16 copy of the segment, demod_at_fused's int8
@@ -142,7 +146,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    demodulate_frame_tm: every frame ok, the measured SNR of the added
    noise within 0.1 dB of the target, suggest_model on the mean snr_db
    printed, and classify_capture naming each of four channelled presets
-   first);
+   first), "aligned-f32" (phase 3's receiver on 16,384 float32 frames with
+   float32 compute: decide_frame_tm's three-term split, never its bf16 or
+   int8 route) and "aligned-window-f32" (phase 6's window in float32 rows
+   and compute: decide_tones_tm's split, never its bf16 route), every
+   frame ok with equal payloads;
 11. the scale-out layer (anet_torch.parallel, its positions all on the one
    card) and the modem CLI: "sharded-demod" (16,384 aligned mfsk16-fast
    frames, float32 compute, sharded_demodulate on 4 positions and on
@@ -455,6 +463,62 @@ def check_frame(label: str, cfg, x_tm: torch.Tensor, pre: int) -> float:
     return compare(label, got, want, exact=(0, 1), close=(2,))
 
 
+def tm_energies(cfg, x_tm: torch.Tensor, row0: int, n_sym: int) -> torch.Tensor:
+    """The plain energies [B, S, M] of n_sym symbols of time-major rows
+    [T, B] from row row0: the float32 basis, a float32 product."""
+    sps, m = cfg.samples_per_symbol, cfg.num_tones
+    w = x_tm[row0 : row0 + n_sym * sps].float().reshape(n_sym, sps, -1)
+    iq = torch.einsum("mk,skb->bsm", kernels._plain_basis(cfg, torch.float32, x_tm.device).T, w)
+    del w
+    return iq[..., :m] * iq[..., :m] + iq[..., m:] * iq[..., m:]
+
+
+def check_frame_split(label: str, cfg, x_tm: torch.Tensor, pre: int) -> float:
+    """decide_frame_tm on float32 frames (the three-term split) against its
+    plain version with the split's stated tolerance: each symbol's tone,
+    read back from the packed words, equal to the plain energies' argmax
+    but at near-ties (their two largest energies within split_tol; the
+    count printed); words equal but in a tile where a tone parted, CRC
+    counts (and so their parities) but in a stream where one did; the best
+    and total sums within F32_SPLIT_RTOL of the plain sums (taken in
+    float64) plus F32_SPLIT_ATOL of the sum of the symbols' largest
+    energies, conf (their ratio, summed) within 2 (F32_SPLIT_RTOL +
+    F32_SPLIT_ATOL) of itself. Returns the max absolute error of the
+    quality sums."""
+    words, crc, qual, s = kernels.decide_frame_tm(cfg, x_tm, PAYLOAD, preamble_offset=pre)
+    want = kernels.decide_frame_tm_ref(cfg, x_tm, PAYLOAD, preamble_offset=pre)
+    bps, sb = cfg.bits_per_symbol, kernels.TM_SYMBOL_TILE
+    place = (sb - 1 - torch.arange(sb, device=x_tm.device)) * bps
+    data = ((words.long()[:, None, :] >> place[None, :, None]) & ((1 << bps) - 1)).reshape(-1, words.shape[1])
+    tone = (data ^ (data >> 1))[:s].T  # binary -> Gray: the tones [B, S]
+    e = tm_energies(cfg, x_tm, pre, s)
+    top2 = e.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= split_tol(top2[..., 0], top2[..., 0])
+    parted = tone != e.argmax(-1)
+    tone_bad = int((parted & ~near).sum())
+    tiles = torch.nn.functional.pad(parted, (0, -s % sb)).reshape(parted.shape[0], -1, sb).any(-1).T
+    streams = parted.any(1)
+    words_bad = int((words != want[0])[~tiles].sum()) + int(data[s:].any())
+    crc_bad = int((crc != want[1])[:, ~streams].sum())
+    e = e.double()
+    best, total = e.amax(-1), e.sum(-1)
+    del e, top2
+    conf = (best / total.clamp_min(1e-20)).sum(1)
+    best, total = best.sum(1), total.sum(1)
+    d = [(qual[0] - conf).abs(), (qual[1] - best).abs(), (qual[2] - total).abs()]
+    sums_bad = (int((d[0] > 2 * (kernels.F32_SPLIT_RTOL + kernels.F32_SPLIT_ATOL) * conf).sum())
+                + int((d[1] > split_tol(best, best)).sum()) + int((d[2] > split_tol(total, best)).sum()))
+    worst = max(float(v.max()) for v in d)
+    share = float((torch.maximum(d[1], d[2]) / best.clamp_min(1e-30)).max())
+    log(f"  {label}: quality sums max abs {worst:.3e}, best/total sums max {share:.3e} of the summed largest "
+        f"energies; near-ties {int(near.sum())} of {near.numel()}; tones parted {int(parted.sum())}, off a "
+        f"near-tie {tone_bad}; words differing outside those tiles {words_bad}, CRC counts outside those "
+        f"streams {crc_bad}; sums beyond the tolerance {sums_bad}")
+    if tone_bad or words_bad or crc_bad or sums_bad:
+        raise AssertionError(f"{label}: the float32 split route is beyond its tolerance")
+    return worst
+
+
 def phase_kernels(cfg, gen) -> dict:
     """Phase 2: each kernel vs its plain version (256 streams; decide_frame_tm
     also at the full batch, where a block walks many symbol tiles), then
@@ -477,7 +541,7 @@ def phase_kernels(cfg, gen) -> dict:
 
     # decide_frame_tm at operating noise
     x_f = waves + 0.3 * torch.randn(waves.shape, generator=gen, device=dev)
-    x_tm, x8_tm = x_f.to(torch.bfloat16).T.contiguous(), quantize_x127(x_f)
+    x_tm, x8_tm, x32_tm = x_f.to(torch.bfloat16).T.contiguous(), quantize_x127(x_f), x_f.T.contiguous()
     del x_f
     results["decide_frame_tm"] = {"max_abs_err": check_frame("decide_frame_tm", cfg, x_tm, pre)}
 
@@ -535,6 +599,8 @@ def phase_kernels(cfg, gen) -> dict:
     # the int8 instantiations on the same frames: the aligned batch quantized
     # x127 over its maximum, the stream buffers as an int8 carry holds them
     results["decide_frame_tm:int8"] = {"max_abs_err": check_frame("decide_frame_tm int8", cfg, x8_tm, pre)}
+    # and float32 frames, the three-term split
+    results["decide_frame_tm:f32"] = {"max_abs_err": check_frame_split("decide_frame_tm float32", cfg, x32_tm, pre)}
     got = kernels.demod_at_fused(cfg, buf8, starts, n_sym)
     want = kernels.demod_at_fused_ref(cfg, buf8, starts, n_sym)
     results["demod_at_fused:int8"] = {"max_abs_err": compare("demod_at_fused int8", got, want, (0,), (1, 2))}
@@ -548,11 +614,11 @@ def phase_kernels(cfg, gen) -> dict:
 
     # timings at the full main-path batch (inputs tiled from the subset)
     reps_a, reps_s = ALIGNED_B // COMPARE_B, STREAM_B // COMPARE_B
-    x_full, x8_full = x_tm.repeat(1, reps_a), x8_tm.repeat(1, reps_a)
+    x_full, x8_full, x32_full = x_tm.repeat(1, reps_a), x8_tm.repeat(1, reps_a), x32_tm.repeat(1, reps_a)
     buf_full, buf8_full = buf.repeat(reps_s, 1), buf8.repeat(reps_s, 1)
     seg_full = buf_full[:, 1 : 1 + chunk + k - 1]
     st_full, st0_full = starts.repeat(reps_s), st0.repeat(reps_s)
-    del x_tm, x8_tm, buf, buf8, waves
+    del x_tm, x8_tm, x32_tm, buf, buf8, waves
     # decide_frame_tm at the full batch: few blocks a column of streams, so
     # each walks many tiles and adds its sums once
     for key, x in (("decide_frame_tm", x_full), ("decide_frame_tm:int8", x8_full)):
@@ -623,16 +689,17 @@ def phase_kernels(cfg, gen) -> dict:
     time_and_bound(results, calls, work)
     # the float32 routes at the same shapes, each held against its plain
     # version at the full batch and timed with it: decide_frame_tm's
-    # CUDA-core body, its products at the float32 peak; the search's seg and
-    # template split into bf16 hi + lo on the tensor cores; the align+demod
-    # kernel's three-term split, alone and behind the merged probe (float32
-    # taps on the CUDA cores), held with compare_split_decisions, its six
-    # products at the bf16 peak
-    x32 = x_full.float()
-    results["decide_frame_tm:f32"] = {"max_abs_err": check_frame(f"decide_frame_tm float32 at B = {b_a}", cfg, x32, pre)}
-    time_f32_route(results, "decide_frame_tm", lambda f: f(cfg, x32, PAYLOAD, preamble_offset=pre),
-                   n_sym * sps * b_a * 4 + (n_tiles + 64 + 8) * b_a * 4, n_sym * flops_sym * b_a, F32_FLOPS_S)
-    del x32, x_full, x8_full
+    # three-term split on float32 frames (check_frame_split); the search's
+    # seg and template split into bf16 hi + lo on the tensor cores; the
+    # align+demod kernel's three-term split, alone and behind the merged
+    # probe (float32 taps on the CUDA cores), held with
+    # compare_split_decisions; each split's six products at the bf16 peak
+    err = check_frame_split(f"decide_frame_tm float32 at B = {b_a}", cfg, x32_full, pre)
+    results["decide_frame_tm:f32"]["max_abs_err"] = max(results["decide_frame_tm:f32"]["max_abs_err"], err)
+    time_f32_route(results, "decide_frame_tm", lambda f: f(cfg, x32_full, PAYLOAD, preamble_offset=pre),
+                   n_sym * sps * b_a * 4 + (n_tiles + 64 + 8) * b_a * 4,
+                   F32_SPLIT_PRODUCTS * n_sym * flops_sym * b_a, BF16_FLOPS_S)
+    del x32_full, x_full, x8_full
     torch.cuda.empty_cache()
     buf32, tpl32 = buf_full.float(), preamble_waveform(cfg, device=DEV)
     seg32, te32 = buf32[:, 1 : 1 + chunk + k - 1], float((tpl32**2).sum())
@@ -1063,18 +1130,22 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     # decide_tones_tm: frames at operating noise followed by 8 symbols of noise
     pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
     frames = torch.nn.functional.pad(transmit(cfg, pay, device=DEV), (0, 8 * sps))
-    x_tm = (frames + 0.3 * torch.randn(frames.shape, generator=gen, device=DEV)).to(torch.bfloat16).T.contiguous()
-    data_tm = x_tm[pre:]
+    x32_tm = (frames + 0.3 * torch.randn(frames.shape, generator=gen, device=DEV)).T.contiguous()
+    data32_tm = x32_tm[pre:]
+    data_tm = data32_tm.to(torch.bfloat16)
     got = kernels.decide_tones_tm(cfg, data_tm)
     want = kernels.decide_tones_tm_ref(cfg, data_tm)
     results["decide_tones_tm"] = {"max_abs_err": compare("decide_tones_tm", got, want, (0,), (1, 2))}
     n_sym = data_tm.shape[0] // sps
-    # its float32 route (the CUDA-core kernel) and bf16 rows off 16 bytes
-    for label, x in (("float32", data_tm.float()), ("bfloat16, B - 1", data_tm[:, 1:].contiguous())):
-        err = compare(f"decide_tones_tm ({label})", kernels.decide_tones_tm(cfg, x),
-                      kernels.decide_tones_tm_ref(cfg, x), (0,), (1, 2))
-        if label == "float32":
-            results["decide_tones_tm:f32"] = {"max_abs_err": err}
+    # bf16 rows off 16 bytes; the float32 route (the three-term split) on
+    # the float32 frames, and off 16 bytes (B - 1)
+    x = data_tm[:, 1:].contiguous()
+    compare("decide_tones_tm (bfloat16, B - 1)", kernels.decide_tones_tm(cfg, x), kernels.decide_tones_tm_ref(cfg, x),
+            (0,), (1, 2))
+    results["decide_tones_tm:f32"] = {"max_abs_err": max(
+        compare_split_decisions(f"decide_tones_tm ({label})", [v.T for v in kernels.decide_tones_tm(cfg, x)],
+                                tm_energies(cfg, x, 0, n_sym))
+        for label, x in (("float32", data32_tm), ("float32, B - 1", data32_tm[:, 1:].contiguous())))}
 
     # gather_rows_fused: one frame out of the stream buffer, starts on both
     # sides of the 128-sample rows the reference kernel splits at and at
@@ -1103,9 +1174,10 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     reps_a, reps_s = ALIGNED_B // COMPARE_B, STREAM_B // COMPARE_B
     seg_full = seg.repeat(reps_s, 1)
     data_full = data_tm.repeat(1, reps_a)
+    data32_full = data32_tm.repeat(1, reps_a)
     buf_full, st_full = buf.repeat(reps_s, 1), starts.repeat(reps_s)
     buf8_full = buf8.repeat(reps_s, 1)
-    del seg, x_tm, data_tm, buf, buf8, b_, frames, waves, got, want
+    del seg, x32_tm, data32_tm, data_tm, buf, buf8, b_, frames, waves, got, want
     calls = {
         "correlate_fused": (
             lambda f: f(seg_full, tpl, chunk), kernels.correlate_fused, kernels.correlate_fused_ref,
@@ -1142,17 +1214,18 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     del lib_corr
     time_and_bound(results, calls, work, library)
     del buf8_full
-    # decide_tones_tm's float32 route (the CUDA-core kernel) at the full
-    # batch, with its plain version; then the other routes of the two, each
-    # against its bound: decide_tones_tm on bf16 rows off 16 bytes, the
-    # float32 gather
-    data32 = data_full.float()
-    err = compare(f"decide_tones_tm (float32, B {b_a})", kernels.decide_tones_tm(cfg, data32),
-                  kernels.decide_tones_tm_ref(cfg, data32), (0,), (1, 2))
+    # decide_tones_tm's float32 route (the three-term split) at the full
+    # batch, with its plain version, its six products at the bf16 peak;
+    # then the other routes of the two, each against its bound:
+    # decide_tones_tm on bf16 rows off 16 bytes, the float32 gather
+    err = compare_split_decisions(f"decide_tones_tm (float32, B {b_a})",
+                                  [v.T for v in kernels.decide_tones_tm(cfg, data32_full)],
+                                  tm_energies(cfg, data32_full, 0, n_sym))
     results["decide_tones_tm:f32"]["max_abs_err"] = max(results["decide_tones_tm:f32"]["max_abs_err"], err)
-    time_f32_route(results, "decide_tones_tm", lambda f: f(cfg, data32), b_a * n_sym * (sps * 4 + 12),
-                   n_sym * 2 * sps * 2 * m * b_a, F32_FLOPS_S)
-    del data32
+    torch.cuda.empty_cache()
+    time_f32_route(results, "decide_tones_tm", lambda f: f(cfg, data32_full), b_a * n_sym * (sps * 4 + 12),
+                   F32_SPLIT_PRODUCTS * n_sym * 2 * sps * 2 * m * b_a, BF16_FLOPS_S)
+    del data32_full
     other_routes = {
         f"decide_tones_tm (bfloat16, B {b_a - 1})": (
             lambda x: kernels.decide_tones_tm(cfg, x), lambda: data_full[:, 1:].contiguous(),
@@ -1197,17 +1270,18 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
 
 
 def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iters: int = 5,
-                  int8: bool = False) -> None:
-    """Phase 3: the aligned time-major receiver at the full batch; with
-    ``int8`` the quantized-ingest path (frames quantized x127 over the
-    batch's maximum, int8 compute)."""
+                  dtype: torch.dtype = torch.bfloat16) -> None:
+    """Phase 3: the aligned time-major receiver at the full batch, frames
+    and compute in ``dtype``: bfloat16 (the default compute), float32, or
+    int8, the quantized-ingest path (frames quantized x127 over the
+    batch's maximum)."""
     t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
     pay = torch.randint(0, 256, (batch, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
     waves = transmit(cfg, pay, device=DEV)
     # one untimed ingest cast
-    x_tm = quantize_x127(waves) if int8 else waves.to(torch.bfloat16).T.contiguous()
+    x_tm = quantize_x127(waves) if dtype == torch.int8 else waves.to(dtype).T.contiguous()
     del waves
-    kw = {"compute_dtype": torch.int8} if int8 else {}
+    kw = {} if dtype == torch.bfloat16 else {"compute_dtype": dtype}
     res = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV, **kw)
     ok_frac = float(res.ok.float().mean())
     if ok_frac != 1.0 or not torch.equal(res.payload, pay):
@@ -1494,30 +1568,33 @@ def phase_stream_dynamic(cfg, gen, label: str, lens, lock: bool, batch: int = ST
         del res, got_pay
 
 
-def phase_aligned_window(cfg, gen, iters: int = 5) -> None:
+def phase_aligned_window(cfg, gen, iters: int = 5, label: str = "aligned-window",
+                         dtype: torch.dtype = torch.bfloat16) -> None:
     """Phase 6: the aligned receiver on an oversized window: 16,384
-    time-major frames, each followed by 8 symbols of noise."""
+    time-major frames, each followed by 8 symbols of noise, rows and
+    compute in ``dtype`` (bfloat16 or float32)."""
     sps = cfg.samples_per_symbol
     t_frame = tframe.frame_num_samples(cfg, PAYLOAD)
     pay = torch.randint(0, 256, (ALIGNED_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
-    x = torch.empty(ALIGNED_B, t_frame + 8 * sps, dtype=torch.bfloat16, device=DEV)
-    x[:, :t_frame] = transmit(cfg, pay, device=DEV).to(torch.bfloat16)
-    x[:, t_frame:] = torch.randn(ALIGNED_B, 8 * sps, generator=gen, device=DEV).to(torch.bfloat16)
+    x = torch.empty(ALIGNED_B, t_frame + 8 * sps, dtype=dtype, device=DEV)
+    x[:, :t_frame] = transmit(cfg, pay, device=DEV).to(dtype)
+    x[:, t_frame:] = torch.randn(ALIGNED_B, 8 * sps, generator=gen, device=DEV).to(dtype)
     x_tm = x.T.contiguous()
     del x
-    res = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV)
+    kw = {"compute_dtype": dtype}
+    res = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV, **kw)
     ok_frac = float(res.ok.float().mean())
     if ok_frac != 1.0 or not torch.equal(res.payload, pay):
-        raise AssertionError(f"aligned-window: frames_ok_fraction {ok_frac}, payloads equal "
+        raise AssertionError(f"{label}: frames_ok_fraction {ok_frac}, payloads equal "
                              f"{torch.equal(res.payload, pay)}")
     del res
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        n_ok = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV).ok.sum()
+        n_ok = tframe.demodulate_frame_tm(cfg, x_tm, PAYLOAD, device=DEV, **kw).ok.sum()
     int(n_ok)
     dt = time.perf_counter() - t0
-    log(f"aligned-window: B {ALIGNED_B}, window {x_tm.shape[0]} samples, frames_ok_fraction {ok_frac}, "
+    log(f"{label}: B {ALIGNED_B}, window {x_tm.shape[0]} samples, frames_ok_fraction {ok_frac}, "
         f"{ALIGNED_B * x_tm.shape[0] * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
 
 
@@ -2624,7 +2701,7 @@ def phase_trace(cfg, gen) -> dict:
 # Each main path, driven with the launch counts set to 0 just before it and
 # read just after: its model, the phase that drives it and the kernels it
 # must launch (a bare name: any of its float routes, "<name>:f32" included;
-# "<name>:int8" or "<name>:f32": that route).
+# "<name>:int8", "<name>:f32" or "<name>:bf16": that route).
 PATHS = {
     "aligned": (MODEL, phase_aligned, ("decide_frame_tm",)),
     "stream": (MODEL, phase_stream, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
@@ -2688,7 +2765,7 @@ PATHS = {
     ),
     "aligned-int8": (
         MODEL,
-        lambda cfg, gen: phase_aligned(cfg, gen, "aligned-int8", int8=True),
+        lambda cfg, gen: phase_aligned(cfg, gen, "aligned-int8", dtype=torch.int8),
         ("decide_frame_tm:int8",),
     ),
     "stream-int8": (
@@ -2720,6 +2797,14 @@ PATHS = {
         ("sync_search_fused", "ofdm_track_decide_fused"),
     ),
     "aligned-channel": (MODEL, phase_aligned_channel, ("decide_frame_tm",)),
+    "aligned-f32": (
+        MODEL, lambda cfg, gen: phase_aligned(cfg, gen, "aligned-f32", dtype=torch.float32), ("decide_frame_tm:f32",),
+    ),
+    "aligned-window-f32": (
+        MODEL,
+        lambda cfg, gen: phase_aligned_window(cfg, gen, label="aligned-window-f32", dtype=torch.float32),
+        ("decide_tones_tm:f32",),
+    ),
     "sharded-demod": (MODEL, phase_sharded_demod, ("tone_energies_fused:f32",)),
     "ber-sweep": (MODEL, phase_ber_sweep, ("tone_energies_fused:f32",)),
     "sharded-long": (MODEL, phase_sharded_long, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
@@ -2744,8 +2829,12 @@ PATHS = {
 # kernel), and the one-shot
 # tracker launches nothing; the resident scan probes with the plain
 # row-aligned probe and demodulates with demod_at_fused; an int8 dynamic
-# carry goes to demod_at_fused's int8 instantiation only.
+# carry goes to demod_at_fused's int8 instantiation only; float32 frames
+# and compute on the aligned receiver take the time-major pair's float32
+# route only.
 ABSENT = {
+    "aligned-f32": ("decide_frame_tm:bf16", "decide_frame_tm:int8", "decide_tones_tm"),
+    "aligned-window-f32": ("decide_tones_tm:bf16", "decide_frame_tm"),
     "stream-coded-f32": ("probe_at_fused",),
     "stream-coded-int8": ("probe_at_fused",),
     "stream-dynamic-int8": ("probe_at_fused", "demod_at_fused"),
@@ -2759,7 +2848,10 @@ ABSENT = {
 def launched(counts: dict, name: str) -> int:
     """Launches of ``name`` in ``counts``: a bare kernel name counts its
     float routes (its float32 route, "<name>:f32", where it has one), a
-    suffixed one that route alone."""
+    suffixed one that route alone ("<name>:bf16": the bare count, the
+    bfloat16 route of a kernel with a float32 route of its own)."""
+    if name.endswith(":bf16"):
+        return counts[name.removesuffix(":bf16")]
     return counts[name] + (counts.get(f"{name}:f32", 0) if ":" not in name else 0)
 
 

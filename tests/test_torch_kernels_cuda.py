@@ -66,16 +66,21 @@ def _buffer(rng, starts, length, noise=0.02):
 def test_cuda_kernels_match_plain_versions(cuda, dtype):
     """Each CUDA kernel against its plain version on the card: decisions,
     words, CRC counts, servo offsets and search lags bit-equal; energies and
-    qualities within rtol 1e-3 (float32 sums in another order)."""
+    qualities within rtol 1e-3 (float32 sums in another order);
+    decide_frame_tm's float32 frames (the three-term split) as
+    _check_split_frame holds them."""
     rng = np.random.default_rng(9)
     n_sym = data_symbols_for_payload(CFG, PAY)
     x = torch.from_numpy(_frames(rng, 300)).to(cuda, dtype)
     pre = CFG.preamble_samples
     got = tk.decide_frame_tm(CFG, x, PAY, preamble_offset=pre)
     want = tk.decide_frame_tm_ref(CFG, x, PAY, preamble_offset=pre)
-    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
-    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
-    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-3)
+    if dtype == torch.float32:  # the three-term split
+        _check_split_frame(CFG, got, want, x, pre)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-3)
 
     starts = np.array([3, 126, 127, 128, 129, 1000, 4000], np.int32)
     length = tstream._buffer_len(CFG, CHUNK, PAY)
@@ -331,7 +336,9 @@ def test_cuda_dynamic_slice_kernels_match_plain_versions(cuda, dtype):
     symbol) and gather_rows_fused (starts at residues 0, 1, 63, 127 mod 128,
     and outside the buffer) against their plain versions on the card.
     Correlations within 1e-3 of the output's scale (float32 sums of k
-    products in another order), tones and gathered samples bit-equal."""
+    products in another order), gathered samples bit-equal, bfloat16 tones
+    bit-equal and float32 ones (the three-term split) as
+    _check_split_decisions holds them."""
     g = torch.Generator(device=cuda).manual_seed(3)
     tpl = preamble_waveform(CFG, device=cuda).to(dtype)
     k = tpl.shape[-1]
@@ -348,9 +355,13 @@ def test_cuda_dynamic_slice_kernels_match_plain_versions(cuda, dtype):
     x = torch.randn(21 * CFG.samples_per_symbol + 17, 131, generator=g, device=cuda).to(dtype)
     got = tk.decide_tones_tm(CFG, x)
     want = tk.decide_tones_tm_ref(CFG, x)
-    assert got[0].shape == (21, 131) and torch.equal(got[0], want[0])
-    for a, b in zip(got[1:], want[1:]):
-        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+    assert got[0].shape == (21, 131)
+    if dtype == torch.float32:  # the three-term split
+        _check_split_decisions([v.T for v in got], _tm_energies(CFG, x, 0, 21))
+    else:
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
     assert not tk.decide_tones_tm(CFG, torch.zeros_like(x))[0].any()  # ties: the first tone
     buf = torch.randn(2, 6, 3000, generator=g, device=cuda).to(dtype)
     starts = torch.tensor([[0, 1, 63, 127, 128, 2000], [255, 256, 1000, 1999, -3, 2500]], device=cuda)
@@ -966,7 +977,7 @@ FRAME_CONFIGS = {  # sps, tones and bits a symbol of each n-tile count and k-ste
     "mfsk16-ultra": get_model("mfsk16-ultra").config,  # sps 32, 16 tones
     "mfsk16-sps128": dataclasses.replace(CFG, symbol_rate_hz=375),  # sps 128, 16 tones
 }
-FRAME_BATCHES = (1, 7, 8, 100, 129, 1000)  # rows off 16 bytes unless B is a multiple of 8 (16 for int8)
+FRAME_BATCHES = (1, 7, 8, 100, 129, 1000)  # rows off 16 bytes unless B is a multiple of 8 (16 int8, 4 float32)
 
 
 def _frame_case(cfg, rng, b, dtype, offset, extra, pay=7):
@@ -988,11 +999,61 @@ def _frame_case(cfg, rng, b, dtype, offset, extra, pay=7):
     return x.to(dtype)
 
 
+def _tm_energies(cfg, x, row0, n_symbols):
+    """The plain energies [B, S, M] of the time-major rows' n_symbols
+    symbols from row row0: the float32 basis, a float32 product."""
+    sps, m = cfg.samples_per_symbol, cfg.num_tones
+    w = x[row0 : row0 + n_symbols * sps].float().reshape(n_symbols, sps, -1)
+    iq = torch.einsum("mk,skb->bsm", tk._plain_basis(cfg, torch.float32, x.device).T, w)
+    return iq[..., :m] * iq[..., :m] + iq[..., m:] * iq[..., m:]
+
+
+def _check_split_frame(cfg, got, want, x, offset):
+    """decide_frame_tm's float32 route (the three-term bf16 split) against
+    its plain version ``want`` on the same frames, with the split's stated
+    tolerance: each symbol's tone (from the packed words) equal to the
+    plain energies' argmax but where their two largest lie within
+    kernels.F32_SPLIT_RTOL of themselves plus F32_SPLIT_ATOL of the largest
+    (a silent symbol's tone the first); words equal but in a tile where a
+    tone parted, CRC counts equal but in a stream where one did; the best
+    and total sums within F32_SPLIT_RTOL of the plain sums (taken in
+    float64) plus F32_SPLIT_ATOL of the sum of the symbols' largest
+    energies, conf (their ratio, summed) within 2 (F32_SPLIT_RTOL +
+    F32_SPLIT_ATOL) of itself. Returns the count of near-ties among
+    symbols with energy."""
+    words, crc, qual, s = got
+    bps, sb = cfg.bits_per_symbol, tk.TM_SYMBOL_TILE
+    energies = _tm_energies(cfg, x, offset, s)
+    place = (sb - 1 - torch.arange(sb, device=x.device)) * bps
+    data = ((words.long()[:, None, :] >> place[None, :, None]) & ((1 << bps) - 1)).reshape(-1, words.shape[1])
+    tone = (data ^ (data >> 1))[:s].T  # binary -> Gray: the tone [B, S]
+    scale = energies.amax(-1)
+    top2 = energies.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= _split_tol(top2[..., 0], top2[..., 0])
+    parted = tone != energies.argmax(-1)
+    assert bool((~parted | near).all()) and not bool(tone[scale == 0].any())
+    assert not data[s:].any()  # padded symbols: data 0
+    tiles = torch.nn.functional.pad(parted, (0, -s % sb)).reshape(parted.shape[0], -1, sb).any(-1).T
+    assert torch.equal(words[~tiles], want[0][~tiles])
+    streams = parted.any(1)
+    assert torch.equal(crc[:, ~streams], want[1][:, ~streams])
+    e = energies.double()
+    best, total = e.amax(-1), e.sum(-1)
+    conf = (best / total.clamp_min(1e-20)).sum(1)
+    best, total, scale = best.sum(1), total.sum(1), best.sum(1)
+    assert bool(((qual[1] - best).abs() <= _split_tol(best, scale)).all())
+    assert bool(((qual[2] - total).abs() <= _split_tol(total, scale)).all())
+    assert bool(((qual[0] - conf).abs() <= 2 * (tk.F32_SPLIT_RTOL + tk.F32_SPLIT_ATOL) * conf).all())
+    assert not qual[3:].any()
+    return int((near & (energies.amax(-1) > 0)).sum())
+
+
 def _check_frame_tm(cuda, cfg, x, pay, offset, dtype):
     """One launch of decide_frame_tm on ``x`` (under its key, none
-    elsewhere), held against the plain version: words and CRC counts
-    bit-equal, qual within rtol 1e-5 for int8 (exact I/Q, sums in another
-    order) and 1e-3 otherwise."""
+    elsewhere), held against the plain version: bfloat16 and int8 words
+    and CRC counts bit-equal, qual within rtol 1e-5 for int8 (exact I/Q,
+    sums in another order) and 1e-3 for bfloat16; float32 (the three-term
+    split) as _check_split_frame holds it."""
     key = _key("decide_frame_tm", dtype)
     before = dict(tk.launch_counts)
     got = tk.decide_frame_tm(cfg, x, pay, preamble_offset=offset)
@@ -1001,6 +1062,9 @@ def _check_frame_tm(cuda, cfg, x, pay, offset, dtype):
     assert launched == {key: 1}
     want = tk.decide_frame_tm_ref(cfg, x, pay, preamble_offset=offset)
     assert got[3] == want[3]
+    if dtype == torch.float32:
+        _check_split_frame(cfg, got, want, x, offset)
+        return got
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     tol = 1e-5 if dtype == torch.int8 else 1e-3
     torch.testing.assert_close(got[2], want[2], rtol=tol, atol=tol if dtype != torch.int8 else 0)
@@ -1015,7 +1079,8 @@ def test_cuda_decide_frame_tm_every_geometry(cuda, monkeypatch, dtype, geometry,
     """decide_frame_tm against its plain version at sps 32, 64 and 128,
     2, 4 and 16 tones (bits a symbol 1, 2 and 4), B from 1 to 1,000 (rows
     off a 16-byte boundary where B is not a multiple of 8, or 16 for
-    int8), preamble offsets 0, odd and the preamble's length, and
+    int8, 4 for float32), preamble offsets 0, odd and the preamble's
+    length, and
     n_symbols at every residue 1..7 mod 8 past the frame's own (the
     geometry given extra symbols); the data section ends at the last row."""
     cfg = FRAME_CONFIGS[geometry]
@@ -1467,15 +1532,23 @@ def _tones_case(cfg, rng, b, n_sym, dtype, partial, device):
 
 def _check_tones_tm(cfg, x):
     """One launch of decide_tones_tm on ``x`` (under its key, none
-    elsewhere), held against the plain version: tones bit-equal, best and
-    total within rtol 1e-3, atol 1e-5 (float32 sums in another order)."""
+    elsewhere), held against the plain version: bfloat16 tones bit-equal,
+    best and total within rtol 1e-3, atol 1e-5 (float32 sums in another
+    order); float32 (the three-term split) as _check_split_decisions
+    holds it, a silent symbol's tone the first."""
     before = dict(tk.launch_counts)
     got = tk.decide_tones_tm(cfg, x)
     torch.cuda.synchronize()
     launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
     assert launched == {_key("decide_tones_tm", x.dtype): 1}
     want = tk.decide_tones_tm_ref(cfg, x)
-    assert all(g.shape == w.shape == (x.shape[0] // cfg.samples_per_symbol, x.shape[1]) for g, w in zip(got, want))
+    s = x.shape[0] // cfg.samples_per_symbol
+    assert all(g.shape == w.shape == (s, x.shape[1]) for g, w in zip(got, want))
+    if x.dtype == torch.float32:
+        energies = _tm_energies(cfg, x, 0, s)
+        _check_split_decisions([v.T for v in got], energies)
+        assert not bool(got[0].T[energies.amax(-1) == 0].any())
+        return got
     assert torch.equal(got[0], want[0])
     for a, b in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
@@ -1487,11 +1560,12 @@ def _check_tones_tm(cfg, x):
 @pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decide_tones_tm_every_geometry(cuda, dtype, geometry, b):
-    """decide_tones_tm against its plain version, bfloat16 (the tensor-core
-    walk) and float32 (the CUDA-core kernel): sps 32, 64 and 128, 2, 4, 8
-    and 16 tones, B = 1 to 16,383 (rows off a 16-byte boundary where B is
-    not a multiple of 8), n_symbols 1, 7, 8, 9 and 67 (one per case, in
-    turn), a trailing partial symbol on every other case."""
+    """decide_tones_tm against its plain version, bfloat16 and float32 (the
+    tensor-core walk, float32 as its three-term split): sps 32, 64 and
+    128, 2, 4, 8 and 16 tones, B = 1 to 16,383 (rows off a 16-byte
+    boundary where B is not a multiple of 8 in bfloat16, 4 in float32),
+    n_symbols 1, 7, 8, 9 and 67 (one per case, in turn), a trailing
+    partial symbol on every other case."""
     cfg = DEMOD_CONFIGS[geometry]
     case = TONES_BATCHES.index(b) + 6 * list(DEMOD_CONFIGS).index(geometry)
     rng = np.random.default_rng(100 + case)

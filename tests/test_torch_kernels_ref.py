@@ -1026,16 +1026,33 @@ def _record_launches(monkeypatch) -> list:
     return calls
 
 
+_ROUTE_SUFFIX = {"f32": ":f32", "bf16": "", "int8": ":int8"}  # the launch count key of each dtype's route
+
+
+def _record_counted_launches(monkeypatch) -> list:
+    """_record_launches, with each checked launch also counted as the
+    wrapper counts it (_count_launch) into zeroed launch_counts."""
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(tk, "launch_counts", dict.fromkeys(tk.launch_counts, 0))
+
+    def checked(err, name, dtype=None):
+        calls.append(("checked", name))
+        tk._count_launch(name, dtype)
+
+    monkeypatch.setattr(tk, "_check_launch", checked)
+    return calls
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("name", ["mfsk16-fast", "mfsk4-coded", "fsk2-robust", "mfsk16-ultra"])
 def test_decide_tones_tm_launch_routes_by_dtype(monkeypatch, name, dtype):
     """decide_tones_tm's launch code, the card's calls replaced by
-    recorders: bfloat16 data goes to the tensor-core entry of the
-    decide_frame_tm library (data, B, sps, tones, symbols) with
-    _demod_mma_basis's B fragments; float32 data to the CUDA-core entry
-    (data, B, sps, symbols) with _kernel_basis's float32 [sps, 32] columns,
-    never the bf16-rounded ones. A trailing partial symbol is dropped; one
-    launch checked a call."""
+    recorders: both dtypes go to the tensor-core entry of the
+    decide_frame_tm library (data, dtype code, B, sps, tones, symbols),
+    bfloat16 data with _demod_mma_basis's B fragments, float32 data with
+    _demod_split_basis's three bf16 terms, which sum to _kernel_basis's
+    float32 columns, never the bf16-rounded ones. A trailing partial symbol
+    is dropped; one launch checked a call."""
     from anet_torch.kernels import build
 
     cfg = get_model(name).config
@@ -1043,22 +1060,77 @@ def test_decide_tones_tm_launch_routes_by_dtype(monkeypatch, name, dtype):
     cpu = torch.device("cpu")
     sps = cfg.samples_per_symbol
     x = torch.randn(5 * sps + 3, 7).to(tdt)
-    calls = _record_launches(monkeypatch)
+    calls = _record_counted_launches(monkeypatch)
     tone, best, total = tk._decide_tones_tm_launch(cfg, x)
     (key, args), checked = calls
     assert checked == ("checked", "decide_tones_tm")
+    assert {k: v for k, v in tk.launch_counts.items() if v} == {"decide_tones_tm" + _ROUTE_SUFFIX[dtype]: 1}
     assert tone.shape == best.shape == total.shape == (5, 7)
     assert tone.dtype == torch.int32 and best.dtype == total.dtype == torch.float32
     outs = (tone.data_ptr(), best.data_ptr(), total.data_ptr(), 0)
+    assert key == "decide_tones_tm_mma" and build.SIGNATURES[key][2] == "decide_frame_tm"
     assert len(args) == len(build.SIGNATURES[key][1])
+    basis = tk._demod_at_basis(cfg, tdt, cpu)
+    assert args == (x.data_ptr(), tk._KERNEL_DTYPES[tdt], 7, sps, cfg.num_tones, 5, basis.data_ptr(), *outs)
     if tdt == torch.bfloat16:
-        basis = tk._demod_mma_basis(cfg, torch.bfloat16, cpu)
-        assert key == "decide_tones_tm_mma" and build.SIGNATURES[key][2] == "decide_frame_tm"
-        assert args == (x.data_ptr(), 7, sps, cfg.num_tones, 5, basis.data_ptr(), *outs)
+        assert basis is tk._demod_mma_basis(cfg, torch.bfloat16, cpu)
     else:
-        basis = tk._kernel_basis(cfg, torch.float32, cpu)
-        assert key == "decide_tones_tm" and args == (x.data_ptr(), 7, sps, 5, basis.data_ptr(), *outs)
-        assert not torch.equal(basis, tk._kernel_basis(cfg, torch.bfloat16, cpu))
+        _assert_split_basis_of_float32_columns(cfg, basis)
+
+
+def _assert_split_basis_of_float32_columns(cfg, basis: torch.Tensor) -> None:
+    """``basis`` is _demod_split_basis (three bf16 terms, [3, ks, n, 2, 32])
+    and its terms sum to _kernel_basis's float32 columns, which differ from
+    the bf16-rounded ones."""
+    from test_torch_filterbank_split import _unpack
+
+    cpu = torch.device("cpu")
+    m, sps = cfg.num_tones, cfg.samples_per_symbol
+    assert basis is tk._demod_split_basis(cfg, cpu)
+    assert basis.shape == (3, sps // 16, tk._demod_mma_tiles(m), 2, 32)
+    iq = sum(_unpack(w).double() for w in basis)  # [sps, 8 n]: cos of tone c at 2c, sin at 2c + 1
+    cols = tk._kernel_basis(cfg, torch.float32, cpu).double()
+    assert torch.equal(iq[:, 0 : 2 * m : 2], cols[:, :m]) and torch.equal(iq[:, 1 : 2 * m : 2], cols[:, 16 : 16 + m])
+    assert not torch.equal(cols, tk._kernel_basis(cfg, torch.bfloat16, cpu).double())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["mfsk16-fast", "fsk2-robust", "mfsk16-ultra"])
+def test_decide_frame_tm_launch_routes_by_dtype(monkeypatch, name, dtype):
+    """decide_frame_tm's launch code, the card's calls replaced by
+    recorders: every dtype goes to the one entry of its library (data,
+    dtype code, B, preamble offset, sps, tones, symbols, tiles, bits a
+    symbol), float32 frames with _demod_split_basis's three bf16 terms
+    (summing to _kernel_basis's float32 columns), bfloat16 and int8 ones
+    with _demod_mma_basis; the CRC counts come from the packed-word masks
+    of _frame_crc_masks for every dtype. The launch is checked under the
+    name, and so counted under "decide_frame_tm:f32" for float32 frames."""
+    from anet_torch.kernels import build
+
+    cfg = get_model(name).config
+    tdt = {**_DTYPES, "int8": (torch.int8, jnp.int8)}[dtype][0]
+    cpu = torch.device("cpu")
+    pre, pay = 3, 7
+    s = data_symbols_for_payload(cfg, pay)
+    n_tiles = -(-s // tk.TM_SYMBOL_TILE)
+    x = torch.randn(pre + s * cfg.samples_per_symbol, 5).to(tdt)
+    calls = _record_counted_launches(monkeypatch)
+    words, crc, qual, n_sym = tk._decide_frame_tm_launch(cfg, x, pay, pre)
+    (key, args), checked = calls
+    assert checked == ("checked", "decide_frame_tm") and key == "decide_frame_tm"
+    assert {k: v for k, v in tk.launch_counts.items() if v} == {"decide_frame_tm" + _ROUTE_SUFFIX[dtype]: 1}
+    assert n_sym == s and words.shape == (n_tiles, 5) and crc.shape == (64, 5) and qual.shape == (8, 5)
+    assert not crc.any() and not qual.any()  # zeroed: the blocks add into them
+    assert len(args) == len(build.SIGNATURES[key][1])
+    basis = tk._demod_at_basis(cfg, tdt, cpu)
+    masks = tk._frame_crc_masks(pay, n_tiles, cfg.bits_per_symbol, cpu)
+    assert args == (x.data_ptr(), tk._KERNEL_DTYPES[tdt], 5, pre, cfg.samples_per_symbol, cfg.num_tones, s,
+                    n_tiles, cfg.bits_per_symbol, basis.data_ptr(), masks.data_ptr(), words.data_ptr(),
+                    crc.data_ptr(), qual.data_ptr(), 0)
+    if tdt == torch.float32:
+        _assert_split_basis_of_float32_columns(cfg, basis)
+    else:
+        assert basis is tk._demod_mma_basis(cfg, tdt, cpu)
 
 
 def _no_host_reads(monkeypatch):
