@@ -8,6 +8,7 @@ block maxima of the two-phase acquisition search).
 | wrapper                 | kernel source                       | TPU kernel it replaces        |
 |-------------------------|-------------------------------------|-------------------------------|
 | decide_frame_tm         | csrc/decide_frame_tm.cu             | anet/kernels/__init__.py:488  |
+|                         | + csrc/frame_tm_generic.cu          |                               |
 | sync_search_fused       | csrc/sync_search.cu                 | anet/kernels/__init__.py:1095 |
 | demod_at_fused          | csrc/demod_at.cu                    | anet/kernels/__init__.py:1992 |
 | demod_probe_fused       | csrc/demod_probe.cu + demod_at.cu   | anet/kernels/__init__.py:2307 |
@@ -16,6 +17,7 @@ block maxima of the two-phase acquisition search).
 | probe_at_fused          | csrc/demod_probe.cu                 | anet/kernels/__init__.py:1621 |
 | correlate_fused         | csrc/correlate.cu                   | anet/kernels/__init__.py:891  |
 | decide_tones_tm         | csrc/decide_frame_tm.cu             | anet/kernels/__init__.py:269  |
+|                         | + csrc/frame_tm_generic.cu          |                               |
 | gather_rows_fused       | csrc/gather_rows.cu                 | anet/kernels/__init__.py:1415 |
 | ofdm_track_decide_fused | csrc/ofdm_track.cu                  | anet/kernels/__init__.py:2648 |
 | tone_energies_fused     | csrc/tone_energies.cu               | anet/kernels/__init__.py:87   |
@@ -32,8 +34,10 @@ contiguity, allocates the outputs, launches on
 adds one to ``launch_counts[name]`` (``launch_counts[name + ":int8"]`` for
 an int8 launch, ``launch_counts[name + ":f32"]`` for a launch of the
 float32 route of a kernel in ``F32_ROUTES``: float32 data, or float32
-compute for the batch-major filterbank). There is no fallback from the
-kernel to the plain version.
+compute for the batch-major filterbank); a launch of a CUDA-core body off
+the tensor-core walks' geometry counts under the body's own key instead
+(``OFF_WALK_KEYS``: ``frame_tm_generic``, ``filterbank_cuda_core``). There
+is no fallback from the kernel to the plain version.
 
 The two search kernels and correlate_fused share one product on the
 tensor cores (``csrc/search_core.cuh``: bf16 ``mma.sync`` with float32
@@ -68,7 +72,10 @@ int8 read with ``ldmatrix.trans``; float32 frames with 32-bit loads, each
 sample split into three bf16 terms against ``_demod_split_basis``, the
 align+demod kernels' float32 product), and counts CRC bits with popcounts
 of the packed words; decide_tones_tm takes the same walk with a decisions
-epilogue, bfloat16 and float32 data alike. gather_rows_fused copies 16-byte
+epilogue, bfloat16 and float32 data alike. That walk takes sps 32, 64 and
+128 with at most 16 tones (_tensor_core_geometry); at every other geometry
+both take csrc/frame_tm_generic.cu, a thread a stream on the CUDA cores
+(the route: ``_tm_operands``). gather_rows_fused copies 16-byte
 vectors aligned by a funnel shift. The other kernels sum in float32 on the
 CUDA cores.
 
@@ -141,6 +148,7 @@ __all__ = [
 ]
 
 TM_SYMBOL_TILE = 8  # Gray-decoded symbols packed per int32 word
+TM_GENERIC_TONES = 16  # tones a pass of csrc/frame_tm_generic.cu
 _ROW = 128  # samples per row of the probe's row-aligned energy span
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_SPS = (32, 64, 128)
@@ -179,6 +187,11 @@ launch_counts = {
     "demod_at_energies_fused:int8": 0,
     "demod_probe_fused:int8": 0,
     "gather_rows_fused:int8": 0,
+    # the CUDA-core bodies off the tensor-core walks' geometry, counted
+    # apart from the walks at their launch (OFF_WALK_KEYS)
+    "frame_tm_generic": 0,
+    "frame_tm_generic:int8": 0,
+    "filterbank_cuda_core": 0,
 }
 # The kernels whose float32 route is a design of its own, counted apart
 # under "<name>:f32": the searches' and the correlation's hi + lo split of
@@ -188,8 +201,13 @@ launch_counts = {
 F32_ROUTES = (
     "decide_frame_tm", "sync_search_fused", "demod_at_fused", "demod_probe_fused",
     "demod_at_energies_fused", "correlate_fused", "decide_tones_tm", "tone_energies_fused",
-    "decide_tones_fused", "sync_search_blockmax",
+    "decide_tones_fused", "sync_search_blockmax", "frame_tm_generic", "filterbank_cuda_core",
 )
+# The launch-count key of each route off the tensor-core walks: the
+# time-major pair's "generic" route (_tm_operands; csrc/frame_tm_generic.cu)
+# and the batch-major filterbank's "plain" one (_filterbank_operands;
+# tone_energies.cu's one-warp-a-symbol body), whichever wrapper launched it.
+OFF_WALK_KEYS = {"generic": "frame_tm_generic", "plain": "filterbank_cuda_core"}
 launch_counts.update({f"{name}:f32": 0 for name in F32_ROUTES})
 
 
@@ -203,7 +221,11 @@ def _check_error(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def _count_launch(name: str, dtype: torch.dtype | None = None) -> None:
+def _count_launch(name: str, dtype: torch.dtype | None = None, route: str | None = None) -> None:
+    """Count a launch of ``name`` on ``route``: under OFF_WALK_KEYS[route]
+    for a route off the tensor-core walks, else under ``name``; then
+    ":int8" or ":f32" by the dtype."""
+    name = OFF_WALK_KEYS.get(route, name)
     if dtype == torch.int8:
         name = f"{name}:int8"
     elif dtype == torch.float32 and name in F32_ROUTES:
@@ -211,9 +233,9 @@ def _count_launch(name: str, dtype: torch.dtype | None = None) -> None:
     launch_counts[name] += 1
 
 
-def _check_launch(err: int, name: str, dtype: torch.dtype | None = None) -> None:
+def _check_launch(err: int, name: str, dtype: torch.dtype | None = None, route: str | None = None) -> None:
     _check_error(err, name)
-    _count_launch(name, dtype)
+    _count_launch(name, dtype, route)
 
 
 def _check_on_card(name: str, t: torch.Tensor, what: str) -> None:
@@ -364,11 +386,26 @@ def _demod_at_basis(config: ModemConfig, dtype: torch.dtype, device: torch.devic
     return _demod_mma_basis(config, dtype, device)
 
 
+def _tensor_core_geometry(config: ModemConfig) -> bool:
+    """The geometry of the tensor-core walks: sps in _KERNEL_SPS (whole
+    k-steps, the align+demod span rows) and at most 16 tones (four n8
+    tiles), the configs _check_kernel_geometry accepts. Every route
+    between those walks and the other forms asks this: the stream steps
+    (the align+demod kernels, else the aligned slice and the batch-major
+    filterbank, as the reference fuses only where 128 % sps == 0), the
+    merged lock step, the resident scan, the batch-major filterbank's route
+    and the time-major pair's (_tm_operands)."""
+    return config.samples_per_symbol in _KERNEL_SPS and config.num_tones <= 16
+
+
 def _check_kernel_geometry(name: str, config: ModemConfig) -> None:
+    """Raise unless _tensor_core_geometry holds, naming the field at fault."""
+    if _tensor_core_geometry(config):
+        return
     if config.num_tones > 16:
-        raise ValueError(f"{name}: the kernel takes at most 16 tones")
-    if config.samples_per_symbol not in _KERNEL_SPS:
-        raise ValueError(f"{name}: the kernel takes samples_per_symbol in {_KERNEL_SPS}")
+        raise ValueError(f"{name}: the kernel takes at most 16 tones, got num_tones {config.num_tones}")
+    raise ValueError(f"{name}: the kernel takes samples_per_symbol in {_KERNEL_SPS}, "
+                     f"got {config.samples_per_symbol}")
 
 
 def _decisions(config: ModemConfig, iq: torch.Tensor, dim: int):
@@ -378,6 +415,42 @@ def _decisions(config: ModemConfig, iq: torch.Tensor, dim: int):
     i, q = iq.narrow(dim, 0, m), iq.narrow(dim, m, m)
     e = i * i + q * q
     return torch.argmax(e, dim=dim).to(torch.int32), e.amax(dim), e.sum(dim)
+
+
+# --- the time-major pair's routes ---------------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def _generic_tm_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The basis operand of csrc/frame_tm_generic.cu for samples of
+    ``dtype``: _plain_basis's [sps, 2M] entries by pass, [M / G, sps, 2G]
+    with G = min(M, TM_GENERIC_TONES) tones a pass; row k of pass p holds
+    the cos of tones pG .. pG + G - 1, then their sin. float32 for float32
+    and bfloat16 samples (bf16-rounded entries for bfloat16), the x127
+    integers as int32 for int8 samples."""
+    m, sps = config.num_tones, config.samples_per_symbol
+    g = min(m, TM_GENERIC_TONES)
+    plain = _plain_basis(config, dtype, device)
+    cos = plain[:, :m].reshape(sps, m // g, g)
+    sin = plain[:, m:].reshape(sps, m // g, g)
+    out = torch.cat([cos, sin], -1).permute(1, 0, 2).contiguous()
+    return out.to(torch.int32) if dtype == torch.int8 else out
+
+
+def _tm_operands(name: str, config: ModemConfig, dtype: torch.dtype,
+                 device) -> tuple[str, str, torch.Tensor]:
+    """(entry point, route, basis) of a time-major launch of ``name``,
+    "decide_frame_tm" or "decide_tones_tm", on samples of ``dtype``. At the
+    tensor-core geometry (_tensor_core_geometry) csrc/decide_frame_tm.cu's
+    walk with _demod_at_basis: route "mma" for bfloat16 and int8 samples,
+    "split" for float32 (the three-term bf16 split). Any other geometry
+    takes csrc/frame_tm_generic.cu (entry ``name + "_generic"``, route
+    "generic") with _generic_tm_basis, whose launches count under
+    OFF_WALK_KEYS["generic"] whichever wrapper launched them."""
+    if _tensor_core_geometry(config):
+        entry = name if name == "decide_frame_tm" else f"{name}_mma"
+        return entry, "split" if dtype == torch.float32 else "mma", _demod_at_basis(config, dtype, device)
+    return f"{name}_generic", "generic", _generic_tm_basis(config, dtype, device)
 
 
 # --- decide_frame_tm: the aligned receiver's full fusion ---------------------
@@ -503,10 +576,13 @@ def decide_frame_tm(
     zero-padded; crc_counts f32 [64, B]: header CRC bit counts in rows
     0..31, payload in 32..63, parity taken by the caller; qual f32 [8, B]:
     sums of conf/best/total in rows 0..2; n_symbols).
-    Needs bits_per_symbol in {1, 2, 4} and at most 16 tones. On the card
-    float32 frames run the three-term bf16 split (best, total and the
-    quality sums within F32_SPLIT_RTOL and F32_SPLIT_ATOL of the plain
-    version's, decisions equal but at near-ties)."""
+    Needs bits_per_symbol in {1, 2, 4} and at most 16 tones, any
+    samples_per_symbol. On the card (the route: _tm_operands) sps 32, 64 and
+    128 take csrc/decide_frame_tm.cu's tensor-core walk, float32 frames as
+    the three-term bf16 split (best, total and the quality sums within
+    F32_SPLIT_RTOL and F32_SPLIT_ATOL of the plain version's, decisions
+    equal but at near-ties); any other sps csrc/frame_tm_generic.cu on the
+    CUDA cores (float32 sums; int32 for int8 frames)."""
     if data_tm.device.type == "cpu":
         return decide_frame_tm_ref(config, data_tm, payload_len, preamble_offset=preamble_offset)
     return _decide_frame_tm_launch(config, data_tm, payload_len, preamble_offset)
@@ -517,7 +593,8 @@ def _decide_frame_tm_launch(config: ModemConfig, data_tm: torch.Tensor, payload_
     dtype = _check_cuda_input(name, data_tm, "data_tm", int8=True)
     if data_tm.dim() != 2 or not data_tm.is_contiguous():
         raise ValueError(f"{name}: data_tm must be a contiguous [T, B] tensor")
-    _check_kernel_geometry(name, config)
+    if config.num_tones > 16:  # the reference's bound too: a word holds 8 symbols of at most 4 bits
+        raise ValueError(f"{name}: the kernel takes at most 16 tones")
     t, b = data_tm.shape
     s, n_tiles, _ = _frame_geometry(config, t, payload_len, preamble_offset)
     dev = data_tm.device
@@ -527,13 +604,13 @@ def _decide_frame_tm_launch(config: ModemConfig, data_tm: torch.Tensor, payload_
     qual = torch.zeros(8, b, dtype=torch.float32, device=dev)
     if b == 0:
         return words, crc, qual, s
-    basis = _demod_at_basis(config, data_tm.dtype, dev)
+    entry, route, basis = _tm_operands(name, config, data_tm.dtype, dev)
     masks = _frame_crc_masks(payload_len, n_tiles, bps, dev)
-    err = _entry(name)(
+    err = _entry(entry)(
         data_tm.data_ptr(), dtype, b, preamble_offset, sps, config.num_tones, s, n_tiles, bps,
         basis.data_ptr(), masks.data_ptr(), words.data_ptr(), crc.data_ptr(), qual.data_ptr(), _stream_handle(dev),
     )
-    _check_launch(err, name, data_tm.dtype)
+    _check_launch(err, name, data_tm.dtype, route)
     return words, crc, qual, s
 
 
@@ -1149,10 +1226,13 @@ def decide_tones_tm(config: ModemConfig, data_tm: torch.Tensor):
     quality means that follow cover the whole window (decide_frame_tm
     covers exactly the frame's own symbols).
 
-    On the card both dtypes take decide_frame_tm's tensor-core walk
-    (csrc/decide_frame_tm.cu, its decisions epilogue) with the basis of
-    _demod_at_basis: bfloat16 data one product, float32 data the
-    three-term bf16 split (within F32_SPLIT_RTOL and F32_SPLIT_ATOL)."""
+    Any samples_per_symbol and tone count. On the card (the route:
+    _tm_operands) sps 32, 64 and 128 with at most 16 tones take
+    decide_frame_tm's tensor-core walk (csrc/decide_frame_tm.cu, its
+    decisions epilogue) with the basis of _demod_at_basis: bfloat16 data one
+    product, float32 data the three-term bf16 split (within F32_SPLIT_RTOL
+    and F32_SPLIT_ATOL); every other geometry csrc/frame_tm_generic.cu on
+    the CUDA cores, float32 sums of the samples in order."""
     if data_tm.device.type == "cpu":
         return decide_tones_tm_ref(config, data_tm)
     return _decide_tones_tm_launch(config, data_tm)
@@ -1163,7 +1243,6 @@ def _decide_tones_tm_launch(config: ModemConfig, data_tm: torch.Tensor):
     dtype = _check_cuda_input(name, data_tm, "data_tm")
     if data_tm.dim() != 2 or not data_tm.is_contiguous():
         raise ValueError(f"{name}: data_tm must be a contiguous [T, B] tensor")
-    _check_kernel_geometry(name, config)
     t, b = data_tm.shape
     sps = config.samples_per_symbol
     s = t // sps
@@ -1173,12 +1252,12 @@ def _decide_tones_tm_launch(config: ModemConfig, data_tm: torch.Tensor):
     tone = torch.empty(s, b, dtype=torch.int32, device=dev)
     best = torch.empty(s, b, dtype=torch.float32, device=dev)
     total = torch.empty(s, b, dtype=torch.float32, device=dev)
-    basis = _demod_at_basis(config, data_tm.dtype, dev)
-    err = _entry("decide_tones_tm_mma")(
+    entry, route, basis = _tm_operands(name, config, data_tm.dtype, dev)
+    err = _entry(entry)(
         data_tm.data_ptr(), dtype, b, sps, config.num_tones, s, basis.data_ptr(),
         tone.data_ptr(), best.data_ptr(), total.data_ptr(), _stream_handle(dev),
     )
-    _check_launch(err, name, data_tm.dtype)
+    _check_launch(err, name, data_tm.dtype, route)
     return tone, best, total
 
 
@@ -1369,7 +1448,7 @@ def _filterbank_operands(kind: str, config: ModemConfig, compute_dtype,
     _demod_split_basis, on bfloat16 or float32 rows alike. Any other
     geometry takes the plain CUDA-core entry ``kind`` (route "plain") with
     the [sps, 2M] float32 basis of ``compute_dtype``'s entries."""
-    fast = config.num_tones <= 16 and config.samples_per_symbol in _KERNEL_SPS
+    fast = _tensor_core_geometry(config)
     if fast and compute_dtype == torch.bfloat16:
         return f"{kind}_mma", "mma", _demod_mma_basis(config, torch.bfloat16, device)
     if fast:
@@ -1404,8 +1483,9 @@ def _filterbank_launch(name: str, kind: str, config: ModemConfig, samples: torch
     """Check the samples, allocate ``outputs(lead, S, device)`` and launch
     the filterbank kernel ``kind`` that _filterbank_operands picks on rows
     [R, L] of the samples (a view where the leading dimensions merge, the
-    last dimension contiguous), S whole symbols a row. A float32-compute
-    launch counts under ``name + ":f32"``."""
+    last dimension contiguous), S whole symbols a row. A launch counts under
+    ``name``, or under OFF_WALK_KEYS["plain"] on the plain route; with
+    ``":f32"`` for float32 compute."""
     x = _filterbank_rows(samples, compute_dtype)
     sps = config.samples_per_symbol
     s = x.shape[-1] // sps
@@ -1427,7 +1507,7 @@ def _filterbank_launch(name: str, kind: str, config: ModemConfig, samples: torch
     err = _entry(entry)(
         *head, s, sps, config.num_tones, basis.data_ptr(), *(o.data_ptr() for o in outs), _stream_handle(dev),
     )
-    _check_launch(err, name, compute_dtype)
+    _check_launch(err, name, compute_dtype, route)
     return outs
 
 

@@ -25,7 +25,7 @@ SOURCES = (
     "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
     "viterbi", "demod_at_energies",
     "correlate", "gather_rows", "ofdm_track",
-    "tone_energies", "search_blockmax",
+    "tone_energies", "search_blockmax", "frame_tm_generic",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,6 +69,13 @@ SIGNATURES = {
     ),
     "decide_tones_tm_mma": (
         "anet_decide_tones_tm_mma", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], "decide_frame_tm",
+    ),
+    "decide_frame_tm_generic": (
+        "anet_decide_frame_tm_generic",
+        [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], "frame_tm_generic",
+    ),
+    "decide_tones_tm_generic": (
+        "anet_decide_tones_tm_generic", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], "frame_tm_generic",
     ),
     "gather_rows": (
         "anet_gather_rows",

@@ -33,6 +33,14 @@ the plain row-aligned probe) and, on acquisition, the search kernel; then
 the energies kernel (demod_at_energies_fused) at the chosen start, the
 max-log LLRs, the deinterleaver and the Viterbi kernel (viterbi_trellis).
 
+At a geometry the align+demod kernels do not take (samples_per_symbol
+other than 32, 64 and 128, or more than 16 tones: mfsk8-audible,
+mfsk32-dense), both step kinds slice the aligned window in
+``compute_dtype`` and demodulate it with the batch-major receiver, whose
+filterbank is tone_energies_fused, as the reference does wherever it does
+not fuse; the locked step is then the unmerged one. _fused_demod picks the
+route from the config before any launch.
+
 Variable-length frames (``stream_step_dynamic`` /
 ``receive_stream_dynamic``) read each frame's length from its header: the
 geometry is sized for the maximum payload, every candidate is demodulated
@@ -484,19 +492,35 @@ def _find_candidate_locked(carry, chunk, t_frame, t_c, t_energy, detect_threshol
 
 def _merged_lock_supported(config, carry: StreamCarry) -> bool:
     """The merged probe + demod kernel serves the uncoded locked step when
-    the buffer is on the card and the kernels take the geometry. (A coded
-    frame's soft decisions need every tone's energy, which the merged
-    kernel does not write; OFDM has no merged kernel.)"""
+    the buffer is on the card and the kernels take the geometry
+    (kernels._tensor_core_geometry). (A coded frame's soft decisions need
+    every tone's energy, which the merged kernel does not write; OFDM has no
+    merged kernel.)"""
     from anet_torch.dsp.family import is_ofdm
-    from anet_torch.kernels import _KERNEL_SPS
+    from anet_torch.kernels import _tensor_core_geometry
 
     return (
         carry.buffer.is_cuda
         and not is_ofdm(config)
         and config.fec == "none"
-        and config.num_tones <= 16
-        and config.samples_per_symbol in _KERNEL_SPS
+        and _tensor_core_geometry(config)
     )
+
+
+def _fused_demod(config) -> bool:
+    """Whether the stream steps demodulate a candidate with the align+demod
+    kernels, which read the buffer at the start (demod_at_fused, or
+    demod_at_energies_fused for coded frames): MFSK at the geometry they
+    take (kernels._tensor_core_geometry), from the config alone, never from
+    a launch's error. Otherwise the aligned window is sliced in
+    ``compute_dtype`` and demodulated by aligned_demod_fn /
+    aligned_demod_dynamic_fn: the OFDM receiver, or the batch-major MFSK
+    one (its filterbank tone_energies_fused), as the reference does
+    wherever it does not fuse (its fused routes need 128 % sps == 0)."""
+    from anet_torch.dsp.family import is_ofdm
+    from anet_torch.kernels import _tensor_core_geometry
+
+    return not is_ofdm(config) and _tensor_core_geometry(config)
 
 
 def _next_carry(carry, buffer, samples_seen, detected, frame, start_abs, t_frame, lock, mid_flight):
@@ -635,7 +659,7 @@ def _stream_step(
 ) -> Tuple[StreamCarry, StreamStepOutput]:
     """stream_step on a flat batch: carry fields [B, ...], chunk [B, chunk_size]."""
     from anet_torch.dsp.demod import decide_symbols
-    from anet_torch.dsp.family import aligned_demod_fn, frame_samples, is_ofdm
+    from anet_torch.dsp.family import aligned_demod_fn, frame_samples
     from anet_torch.dsp.frame import (
         data_symbols_for_payload,
         frame_result_from_decisions,
@@ -678,8 +702,10 @@ def _stream_step(
         frame, _ = tracked_frame_result(
             config, aligned, payload_len, float(config.preamble_samples), compute_dtype=compute_dtype
         )
-    elif is_ofdm(config):
-        # the aligned window, then the OFDM receiver (its equalizer kernel)
+    elif not _fused_demod(config):
+        # the aligned window, then the OFDM receiver (its equalizer kernel),
+        # or, where the align+demod kernels do not take the geometry, the
+        # batch-major MFSK receiver (an int8 slice widens exactly)
         demod = aligned_demod_fn(config, payload_len, compute_dtype, carry.buffer.device)
         frame = demod(_batched_dynamic_slice(buffer, start_idx, t_frame, compute_dtype))
     else:
@@ -833,19 +859,17 @@ def receive_stream(
 def _resident_supported(config, compute_dtype, track: bool, device: torch.device) -> bool:
     """The capture-resident lock scan needs the align+demod kernel
     (demod_at_fused) on the card: a CUDA device, uncoded MFSK with a
-    geometry the kernels take (128 % sps == 0, as the JAX package's gate,
-    and sps in _KERNEL_SPS with at most 16 tones), bfloat16 compute, and no
+    geometry the kernels take (kernels._tensor_core_geometry, within the
+    JAX package's gate 128 % sps == 0), bfloat16 compute, and no
     symbol-clock tracking."""
     from anet_torch.dsp.family import is_ofdm
-    from anet_torch.kernels import _KERNEL_SPS
+    from anet_torch.kernels import _tensor_core_geometry
 
     return (
         device.type == "cuda"
         and not is_ofdm(config)
         and config.fec == "none"
-        and 128 % config.samples_per_symbol == 0
-        and config.samples_per_symbol in _KERNEL_SPS
-        and config.num_tones <= 16
+        and _tensor_core_geometry(config)
         and compute_dtype == torch.bfloat16
         and not track
     )
@@ -1051,12 +1075,13 @@ def stream_step_dynamic(
     prediction with the probe (+-2-sample servo); the every-lag search runs
     only when some stream needs acquiring, after one host read per chunk.
 
-    Every MFSK candidate is demodulated by the align+demod kernels whatever
-    the buffer's dtype (demod_at_fused for uncoded, demod_at_energies_fused
-    for coded configs; an int8 buffer goes to their int8 instantiation as it
-    is), as in stream_step; an OFDM candidate's max-length window is
-    gathered in ``compute_dtype`` and demodulated by the OFDM receiver
-    (uncoded only)."""
+    Every MFSK candidate at the align+demod kernels' geometry (sps 32, 64
+    or 128, at most 16 tones) is demodulated by them whatever the buffer's
+    dtype (demod_at_fused for uncoded, demod_at_energies_fused for coded
+    configs; an int8 buffer goes to their int8 instantiation as it is), as
+    in stream_step; at any other geometry, and for OFDM (uncoded only), the
+    candidate's max-length window is gathered in ``compute_dtype`` and
+    demodulated by the batch-major receiver (_fused_demod)."""
     flat, batch_shape = _flatten_carry(carry)
     new_carry, out = _stream_step_dynamic(
         config, flat, _flat_chunk(chunk, batch_shape), max_payload_len, detect_threshold,
@@ -1074,7 +1099,7 @@ def _stream_step_dynamic(
 ) -> Tuple[StreamCarry, DynamicStreamStepOutput]:
     """stream_step_dynamic on a flat batch: carry fields [B, ...], chunk
     [B, chunk_size]; with K > 1 candidates the outputs are [K, B, ...]."""
-    from anet_torch.dsp.family import aligned_demod_dynamic_fn, frame_samples, is_ofdm
+    from anet_torch.dsp.family import aligned_demod_dynamic_fn, frame_samples
     from anet_torch.dsp.frame import (
         data_symbols_for_payload,
         dynamic_frame_result_from_energies,
@@ -1115,12 +1140,13 @@ def _stream_step_dynamic(
             carry, chunk, t_max, template, t_c, 0, compute_dtype
         )
     buf_d = _demod_buffer(buffer, compute_dtype)
+    fused = _fused_demod(config)
 
     def demod_at(start_idx):
         """Max-window demod + dynamic parse at a buffer index."""
-        if is_ofdm(config):
+        if not fused:  # the OFDM receiver, or the batch-major MFSK one on the slice
             window = _batched_dynamic_slice(buffer, start_idx, t_max, compute_dtype)
-            return aligned_demod_dynamic_fn(config, max_payload_len, device=buffer.device)(window)
+            return aligned_demod_dynamic_fn(config, max_payload_len, compute_dtype, buffer.device)(window)
         n_sym_max = data_symbols_for_payload(config, max_payload_len)
         if config.fec == "conv":
             energies = demod_at_energies_fused(config, buf_d, start_idx, n_sym_max)

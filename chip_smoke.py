@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-1. build the fourteen CUDA kernels from anet_torch/kernels/csrc (eleven
+1. build the fifteen CUDA kernels from anet_torch/kernels/csrc (twelve
    sources, nvcc, sm_90a);
 2. hold each kernel against its plain PyTorch version at its main path's
    shapes on a 256-stream subset, then time kernel and plain version at the
@@ -63,7 +63,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    from the packed words, words and CRC counts equal but at near-ties,
    the quality sums within the split's tolerance; compare_split_decisions),
    each held against its plain version and timed with it at the main
-   shape against its bound (the "<name>:f32" numbers);
+   shape against its bound (the "<name>:f32" numbers); and the time-major
+   pair's CUDA-core body off the tensor-core walk's geometry
+   (csrc/frame_tm_generic.cu, phase_kernels_generic: decide_tones_tm on
+   mfsk8-audible and mfsk32-dense, bf16 and float32, and decide_frame_tm's
+   epilogue at sps 80 with 16 tones, bf16, int8 and float32; tones, words
+   and CRC counts bit-equal, the sums within GENERIC_RTOL, on 256 streams
+   and at B = 16,384, timed there against its bound and the CUDA cores'
+   floor); and the batch-major filterbank's CUDA-core body off that
+   geometry (tone_energies.cu, one warp a symbol; phase_kernels_filterbank_
+   generic: tone_energies_fused and decide_tones_fused at the two stream
+   paths' shapes, mfsk32-dense bf16 and mfsk8-audible float32 compute,
+   held and timed as the generic body);
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -150,7 +161,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    float32 compute: decide_frame_tm's three-term split, never its bf16 or
    int8 route) and "aligned-window-f32" (phase 6's window in float32 rows
    and compute: decide_tones_tm's split, never its bf16 route), every
-   frame ok with equal payloads;
+   frame ok with equal payloads; and the two presets off the tensor-core
+   walks (sps 32, 64 or 128 with at most 16 tones: kernels.
+   _tensor_core_geometry): "aligned-audible" (16,384 bf16 mfsk8-audible
+   frames, 48 samples a symbol, through demodulate_frame_tm: 3 bits a
+   symbol take decide_tones_tm, its generic body: frame_tm_generic),
+   "aligned-dense-f32" (16,384 float32 mfsk32-dense frames, 32 tones:
+   frame_tm_generic:f32), "stream-audible-f32" (phase 4's stream on
+   mfsk8-audible at receive_stream's float32 defaults, cold and warm: the
+   search, then the aligned slice through the batch-major receiver,
+   tone_energies_fused's CUDA-core body: filterbank_cuda_core:f32; the
+   plain probe) and "stream-dense" (the same on mfsk32-dense with a bf16
+   carry, locked: filterbank_cuda_core, probe_at_fused); none of them
+   launches an align+demod kernel or a tensor-core walk of the time-major
+   pair or the filterbank (OFF_THE_WALK);
 11. the scale-out layer (anet_torch.parallel, its positions all on the one
    card) and the modem CLI: "sharded-demod" (16,384 aligned mfsk16-fast
    frames, float32 compute, sharded_demodulate on 4 positions and on
@@ -215,8 +239,14 @@ The line before the last is a JSON object with each kernel's numbers (the
 five kernels with an int8 instantiation carry its numbers under "int8", the
 ten with a float32 route of their own its numbers under "f32"; the
 batch-major filterbank's are on float32 rows, with its bf16 rows' under
-"f32"."bf16_rows"), and the last line the JSON verdict with the device's
-name.
+"f32"."bf16_rows"; the two CUDA-core bodies off the tensor-core walks'
+geometry have rows of their own, whose launches the wrappers count under
+kernels.OFF_WALK_KEYS: frame_tm_generic's numbers decide_tones_tm on
+mfsk8-audible bf16, under "f32" on mfsk32-dense float32, with its other
+shapes and the frame epilogue beside them; filterbank_cuda_core's
+tone_energies_fused on mfsk32-dense under bf16 compute, under "f32" on
+mfsk8-audible under float32 compute, decide_tones_fused's under
+"decide_tones"), and the last line the JSON verdict with the device's name.
 """
 
 from __future__ import annotations
@@ -240,6 +270,7 @@ from anet_torch.channel import ChannelConfig, apply_channel, multipath
 from anet_torch.dsp import family, fec, ofdm
 from anet_torch.dsp import frame as tframe
 from anet_torch.dsp.demod import bit_llrs, decide_symbols
+from anet_torch.dsp.params import ModemConfig
 from anet_torch.dsp import sync as tsync
 from anet_torch.dsp.pipeline import receive_frame, receive_frame_dynamic, receive_frame_tracked, transmit
 from anet_torch.dsp.sync import preamble_waveform
@@ -269,6 +300,8 @@ DYNAMIC_CODED_MODEL = "mfsk4-coded-stream"  # fec_interleave == 1
 OFDM_MODEL = "ofdm-fast"
 OFDM_MAX_MODEL = "ofdm-max"  # 64-QAM, coded
 OFDM_QAM_MODELS = ("ofdm-fast", "ofdm-turbo", "ofdm-max")  # 2, 4 and 6 bits a carrier
+AUDIBLE_MODEL = "mfsk8-audible"  # sps 48, 8 tones: off the tensor-core walks
+DENSE_MODEL = "mfsk32-dense"  # sps 80, 32 tones: off the tensor-core walks
 PAYLOAD = 256  # also the variable-length paths' max_payload_len
 SHORT_PAYLOAD = 64  # the shortest frame of the variable-length paths
 ALIGNED_B = 16384
@@ -283,6 +316,9 @@ OFDM_PPM = 150.0  # clock offsets drawn in +-OFDM_PPM
 OFDM_SNR_DB = {"ofdm-fast": 16.0, "ofdm-turbo": 24.0, "ofdm-max": 26.0}
 OFDM_RTOL = 1e-4  # float32 throughout: LLRs (of their scale) and evm2
 GATE_EPS = 1e-4  # a gate may part from the plain version's only this close to a tie
+GENERIC_RTOL = 1e-5  # frame_tm_generic.cu: float32 (int8: int32) sums in another order than the plain version's
+GENERIC_ROW = kernels.OFF_WALK_KEYS["generic"]  # the kernels line's row of csrc/frame_tm_generic.cu
+FILTERBANK_ROW = kernels.OFF_WALK_KEYS["plain"]  # the row of tone_energies.cu's one-warp-a-symbol body
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_S = 67e12  # H100 SXM float32 peak outside the tensor cores
@@ -306,6 +342,10 @@ REPLACES = {
     "tone_energies_fused": ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:87"),
     "decide_tones_fused": ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:172"),
     "sync_search_blockmax": ("anet_torch/kernels/csrc/search_blockmax.cu", "anet/kernels/__init__.py:1300"),
+    # decide_tones_tm (and decide_frame_tm, :488) off the tensor-core walk's geometry
+    GENERIC_ROW: ("anet_torch/kernels/csrc/frame_tm_generic.cu", "anet/kernels/__init__.py:269"),
+    # tone_energies_fused (and decide_tones_fused, :172) off the tensor-core walk's geometry
+    FILTERBANK_ROW: ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:87"),
 }
 
 
@@ -408,10 +448,10 @@ def time_f32_route(results: dict, name: str, call, n_bytes: float, n_ops: float,
 
 
 def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...],
-            atol: float = 1e-6) -> float:
+            atol: float = 1e-6, rtol: float = RTOL) -> float:
     """Hold kernel outputs against the plain version's: the ``exact``
-    positions bit-equal, the ``close`` ones within RTOL (plus ``atol``, for
-    outputs that are sums with cancellation). Returns the max absolute
+    positions bit-equal, the ``close`` ones within ``rtol`` (plus ``atol``,
+    for outputs that are sums with cancellation). Returns the max absolute
     error over the ``close`` outputs."""
     worst_abs, worst_rel, report = 0.0, 0.0, []
     for i in exact:
@@ -425,10 +465,10 @@ def compare(name: str, got, want, exact: tuple[int, ...], close: tuple[int, ...]
         rel = diff / w.abs().clamp_min(1e-30)
         worst_abs = max(worst_abs, float(diff.max()))
         worst_rel = max(worst_rel, float(rel.max()))
-        bad = int((diff > RTOL * w.abs() + atol).sum())
+        bad = int((diff > rtol * w.abs() + atol).sum())
         report.append(f"out{i} beyond rtol {bad}")
         if bad:
-            raise AssertionError(f"{name}: output {i} beyond rtol {RTOL} in {bad} places")
+            raise AssertionError(f"{name}: output {i} beyond rtol {rtol} in {bad} places")
     log(f"  {name}: max abs {worst_abs:.3e} max rel {worst_rel:.3e}; " + ", ".join(report))
     return worst_abs
 
@@ -1266,6 +1306,166 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     buf_dyn = torch.randn(b_s, _buffer_len(cfg, chunk, PAYLOAD), generator=gen, device=DEV).to(torch.bfloat16)
     st_dyn = torch.randint(1, 1 + chunk, (b_s,), generator=gen, device=DEV)
     log_demod_time("dynamic parse window", cfg, buf_dyn, st_dyn, n_sym_max)
+    return results
+
+
+def time_off_walk(label: str, call, x_full, n_bytes: float, n_ops: float, dtype) -> dict:
+    """Time a CUDA-core body off the tensor-core walks' geometry at the full
+    batch: call(True, x) runs the kernel, call(False, x) its plain version;
+    its bound (bytes, or its operations at the peak of the samples' type)
+    and the CUDA cores' floor (its operations at F32_FLOPS_S)."""
+    peaks = {torch.bfloat16: BF16_FLOPS_S, torch.float32: F32_FLOPS_S, torch.int8: INT8_OPS_S}
+    r = {"ms": time_ms(lambda: call(True, x_full)), "plain_ms": time_ms(lambda: call(False, x_full))}
+    r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, peaks[dtype])
+    r["cuda_core_ms"] = n_ops / F32_FLOPS_S * 1e3
+    r["library_ms"] = None  # no one PyTorch call computes the energies or the decisions
+    log(f"  {label}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_by']}), the CUDA cores' floor {r['cuda_core_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return r
+
+
+def generic_frame_config() -> ModemConfig:
+    """sps 80 with 16 tones, 4 bits a symbol: a geometry of decide_frame_tm
+    off the tensor-core walk (no preset has one; the custom configs of
+    tests/test_torch_kernels_cuda.py)."""
+    return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=600, num_tones=16, base_freq_hz=300.0)
+
+
+def phase_kernels_generic(gen) -> dict:
+    """Phase 2 for csrc/frame_tm_generic.cu, the time-major pair's CUDA-core
+    body off the tensor-core walk's geometry: decide_tones_tm on
+    mfsk8-audible (bf16 frames, the aligned-audible path's; and float32)
+    and mfsk32-dense (float32, aligned-dense-f32's; and bf16), and
+    decide_frame_tm's epilogue on sps 80 with 16 tones (bf16, int8 x127,
+    float32; no preset runs it). Each on the data of 256 noisy frames,
+    against its plain version (tones, words and CRC counts bit-equal; best,
+    total and the quality sums within GENERIC_RTOL), then tiled to B =
+    16,384, held again and timed with its plain version against its bound
+    (bytes; or its operations at the peak of the samples' type) and the
+    CUDA cores' floor (its operations at F32_FLOPS_S)."""
+    results = {}
+    reps = ALIGNED_B // COMPARE_B
+    timed = time_off_walk
+
+    def tones(kernel: bool, cfg, x):
+        return kernels.decide_tones_tm(cfg, x) if kernel else kernels.decide_tones_tm_ref(cfg, x)
+
+    for model, dtype, key in ((AUDIBLE_MODEL, torch.bfloat16, GENERIC_ROW),
+                              (DENSE_MODEL, torch.float32, f"{GENERIC_ROW}:f32"),
+                              (DENSE_MODEL, torch.bfloat16, "dense_bf16"),
+                              (AUDIBLE_MODEL, torch.float32, "audible_f32")):
+        cfg = get_model(model).config
+        if kernels._tm_operands("decide_tones_tm", cfg, dtype, DEV)[1] != "generic":
+            raise AssertionError(f"{model}: decide_tones_tm does not take the generic body")
+        sps, m = cfg.samples_per_symbol, cfg.num_tones
+        pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+        w = transmit(cfg, pay, device=DEV)
+        data = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).T[cfg.preamble_samples :]
+        data = data.contiguous().to(dtype)
+        n_sym = data.shape[0] // sps
+        label = f"{GENERIC_ROW} decide_tones_tm ({model}, {str(dtype).removeprefix('torch.')}"
+        err = compare(f"{label}, B {COMPARE_B})", tones(True, cfg, data), tones(False, cfg, data), (0,), (1, 2),
+                      rtol=GENERIC_RTOL)
+        full = data.repeat(1, reps)
+        del w, data
+        err = max(err, compare(f"{label}, B {ALIGNED_B})", tones(True, cfg, full), tones(False, cfg, full),
+                               (0,), (1, 2), rtol=GENERIC_RTOL))
+        r = timed(f"{label}, B {ALIGNED_B}, {n_sym} symbols of {sps})", lambda k, x: tones(k, cfg, x), full,
+                  ALIGNED_B * n_sym * (sps * full.element_size() + 12), n_sym * 2 * sps * 2 * m * ALIGNED_B, dtype)
+        results[key] = {"max_abs_err": err, **r, "model": model}
+        del full
+
+    # decide_frame_tm's epilogue
+    cfg = generic_frame_config()
+    sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
+    frame = {}
+    pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    w = transmit(cfg, pay, device=DEV)
+    w = w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)
+    for dtype in (torch.bfloat16, torch.int8, torch.float32):
+        if kernels._tm_operands("decide_frame_tm", cfg, dtype, DEV)[1] != "generic":
+            raise AssertionError("sps 80: decide_frame_tm does not take the generic body")
+        x = quantize_x127(w) if dtype == torch.int8 else w.T.contiguous().to(dtype)
+        name = f"{GENERIC_ROW} decide_frame_tm (sps {sps}, {m} tones, {str(dtype).removeprefix('torch.')}"
+
+        def frames(kernel: bool, x_):
+            f = kernels.decide_frame_tm if kernel else kernels.decide_frame_tm_ref
+            return f(cfg, x_, PAYLOAD, preamble_offset=pre)
+
+        full = x.repeat(1, reps)
+        err = max(compare(f"{name}, B {b})", frames(True, x_), frames(False, x_), (0, 1), (2,), rtol=GENERIC_RTOL)
+                  for b, x_ in ((COMPARE_B, x), (ALIGNED_B, full)))
+        s = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+        n_tiles = -(-s // kernels.TM_SYMBOL_TILE)
+        frame[str(dtype).removeprefix("torch.")] = {"max_abs_err": err, **timed(
+            f"{name}, B {ALIGNED_B}, {s} symbols)", frames, full,
+            ALIGNED_B * (s * sps * full.element_size() + 4 * (n_tiles + 64 + 8)), s * 2 * sps * 2 * m * ALIGNED_B, dtype)}
+        del x, full
+    results[GENERIC_ROW].update(frame_epilogue=frame, dense_bf16=results.pop("dense_bf16"),
+                                audible_f32=results.pop("audible_f32"))
+    return results
+
+
+def phase_kernels_filterbank_generic(gen) -> dict:
+    """Phase 2 for the batch-major filterbank's CUDA-core body off the
+    tensor-core walk's geometry (tone_energies.cu, one warp a symbol; the
+    plain route of kernels._filterbank_operands), at the two stream paths'
+    shapes: mfsk32-dense under bfloat16 compute on bf16 rows
+    (stream-dense's) and mfsk8-audible under float32 compute on float32
+    rows (stream-audible-f32's). tone_energies_fused and decide_tones_fused
+    on the data sections of 256 noisy frames read in place past the
+    preamble, against their plain versions (the energies' argmax and the
+    tones bit-equal; energies within GENERIC_RTOL of the largest, best and
+    total within GENERIC_RTOL), then tiled to B = 16,384, held again and
+    timed there against their bound and the CUDA cores' floor: the
+    FILTERBANK_ROW results (":f32" for float32 compute), decide_tones_fused's
+    under "decide_tones"."""
+    results = {}
+    for model, cdt, key in ((DENSE_MODEL, torch.bfloat16, FILTERBANK_ROW),
+                            (AUDIBLE_MODEL, torch.float32, f"{FILTERBANK_ROW}:f32")):
+        cfg = get_model(model).config
+        if kernels._filterbank_operands("tone_energies", cfg, cdt, DEV)[1] != "plain":
+            raise AssertionError(f"{model}: the filterbank does not take its CUDA-core body")
+        sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
+        n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+        pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+        w = transmit(cfg, pay, device=DEV)
+        x = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).to(cdt)
+        full = x.repeat(ALIGNED_B // COMPARE_B, 1)[:, pre:]
+        del w
+        compute = str(cdt).removeprefix("torch.")
+        errs = {"tone_energies_fused": 0.0, "decide_tones_fused": 0.0}
+        for data in (x[:, pre:], full):
+            label = f"{FILTERBANK_ROW} %s ({model}, {compute} compute, B {data.shape[0]})"
+            got = kernels.tone_energies_fused(cfg, data, compute_dtype=cdt)
+            want = kernels.tone_energies_fused_ref(cfg, data, compute_dtype=cdt)
+            if not torch.equal(got.argmax(-1), want.argmax(-1)):
+                raise AssertionError(label % "tone_energies_fused" + ": winning tones differ")
+            errs["tone_energies_fused"] = max(errs["tone_energies_fused"], compare(
+                label % "tone_energies_fused", (got,), (want,), (), (0,), atol=GENERIC_RTOL * float(want.max()),
+                rtol=GENERIC_RTOL))
+            del got, want
+            got = kernels.decide_tones_fused(cfg, data, compute_dtype=cdt)
+            want = kernels.decide_tones_fused_ref(cfg, data, compute_dtype=cdt)
+            errs["decide_tones_fused"] = max(errs["decide_tones_fused"], compare(
+                label % "decide_tones_fused", got, want, (0,), (1, 2), rtol=GENERIC_RTOL))
+            del got, want
+            torch.cuda.empty_cache()
+        del x
+        timed = {}
+        for name, fn, ref, out_bytes in (
+            ("tone_energies_fused", kernels.tone_energies_fused, kernels.tone_energies_fused_ref, m * 4),
+            ("decide_tones_fused", kernels.decide_tones_fused, kernels.decide_tones_fused_ref, 12),
+        ):
+            timed[name] = {"max_abs_err": errs[name], **time_off_walk(
+                f"{FILTERBANK_ROW} {name} ({model}, {compute} compute, B {ALIGNED_B}, {n_sym} symbols of {sps})",
+                lambda k, d, fn=fn, ref=ref: (fn if k else ref)(cfg, d, compute_dtype=cdt), full,
+                ALIGNED_B * n_sym * (sps * full.element_size() + out_bytes),
+                n_sym * 2 * sps * 2 * m * ALIGNED_B, cdt)}
+        results[key] = {**timed["tone_energies_fused"], "model": model, "decide_tones": timed["decide_tones_fused"]}
+        del full
+        torch.cuda.empty_cache()
     return results
 
 
@@ -2805,6 +3005,25 @@ PATHS = {
         lambda cfg, gen: phase_aligned_window(cfg, gen, label="aligned-window-f32", dtype=torch.float32),
         ("decide_tones_tm:f32",),
     ),
+    # the presets off the tensor-core walks: the time-major pair's generic
+    # body, the streams' slice and the batch-major filterbank's plain route
+    "aligned-audible": (
+        AUDIBLE_MODEL, lambda cfg, gen: phase_aligned(cfg, gen, "aligned-audible"), (GENERIC_ROW,),
+    ),
+    "aligned-dense-f32": (
+        DENSE_MODEL, lambda cfg, gen: phase_aligned(cfg, gen, "aligned-dense-f32", dtype=torch.float32),
+        (f"{GENERIC_ROW}:f32",),
+    ),
+    "stream-audible-f32": (
+        AUDIBLE_MODEL,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-audible-f32", torch.float32),
+        ("sync_search_fused", f"{FILTERBANK_ROW}:f32"),
+    ),
+    "stream-dense": (
+        DENSE_MODEL,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-dense"),
+        ("sync_search_fused", "probe_at_fused", f"{FILTERBANK_ROW}:bf16"),
+    ),
     "sharded-demod": (MODEL, phase_sharded_demod, ("tone_energies_fused:f32",)),
     "ber-sweep": (MODEL, phase_ber_sweep, ("tone_energies_fused:f32",)),
     "sharded-long": (MODEL, phase_sharded_long, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
@@ -2831,7 +3050,12 @@ PATHS = {
 # row-aligned probe and demodulates with demod_at_fused; an int8 dynamic
 # carry goes to demod_at_fused's int8 instantiation only; float32 frames
 # and compute on the aligned receiver take the time-major pair's float32
-# route only.
+# route only; the presets off the tensor-core walks never reach the
+# align+demod kernels (the reference fuses only where 128 % sps == 0) or
+# the tensor-core walks of the time-major pair and the filterbank (their
+# launches count under the CUDA-core bodies' own keys).
+OFF_THE_WALK = ("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused", "decide_frame_tm",
+                "decide_tones_tm", "tone_energies_fused", "decide_tones_fused")
 ABSENT = {
     "aligned-f32": ("decide_frame_tm:bf16", "decide_frame_tm:int8", "decide_tones_tm"),
     "aligned-window-f32": ("decide_tones_tm:bf16", "decide_frame_tm"),
@@ -2842,6 +3066,10 @@ ABSENT = {
     "oneshot-tracked": tuple(kernels.launch_counts),
     "stream-tracked": ("demod_at_fused", "demod_probe_fused"),
     "stream-resident": ("probe_at_fused", "demod_probe_fused"),
+    "aligned-audible": (*OFF_THE_WALK, f"{GENERIC_ROW}:f32"),
+    "aligned-dense-f32": (*OFF_THE_WALK, f"{GENERIC_ROW}:bf16"),
+    "stream-audible-f32": (*OFF_THE_WALK, "probe_at_fused", GENERIC_ROW),
+    "stream-dense": (*OFF_THE_WALK, GENERIC_ROW),
 }
 
 
@@ -2883,6 +3111,10 @@ def main() -> int:
     results.update(phase_kernels_ofdm(gen))
     torch.cuda.empty_cache()
     results.update(phase_kernels_batch_major(get_model(MODEL).config, gen))
+    torch.cuda.empty_cache()
+    results.update(phase_kernels_generic(gen))
+    torch.cuda.empty_cache()
+    results.update(phase_kernels_filterbank_generic(gen))
     counts = dict.fromkeys(kernels.launch_counts, 0)
     for path, (model, phase, path_kernels) in PATHS.items():
         torch.cuda.empty_cache()
@@ -2919,6 +3151,8 @@ def main() -> int:
             key = f"{name}:{route}"
             if key in results:
                 row[route] = {"launches": counts[key], **results[key]}
+        if name in kernels.OFF_WALK_KEYS.values():  # their other shapes and epilogues
+            row.update({k: v for k, v in r.items() if k not in row})
         if launched(counts, name) == 0 or row.get("int8", {}).get("launches") == 0:
             raise AssertionError(f"{name}: launched no time on the main paths")
         rows.append(row)

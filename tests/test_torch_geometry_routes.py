@@ -1,0 +1,344 @@
+"""The geometries outside the tensor-core walks (samples_per_symbol other
+than 32, 64 and 128, or more than 16 tones: the presets mfsk8-audible and
+mfsk32-dense, and custom configs), anet_torch against the JAX package on the
+CPU.
+
+- The one predicate, kernels._tensor_core_geometry, picks every route: the
+  kernels' geometry check (which names the field at fault), the stream
+  steps' (stream._fused_demod), the time-major pair's (kernels._tm_operands),
+  the batch-major filterbank's.
+- The stream receivers on both presets (float32 and int8 carries, searching
+  and locked; the variable-length receiver) equal anet's, and never call
+  the align+demod wrappers.
+- The aligned time-major receiver on both presets equals anet's with its
+  Pallas decide_tones_tm in interpret mode; decide_frame_tm's plain version
+  equals anet's interpreted decide_frame_tm at two custom geometries.
+- The generic body's basis operand and launch code, the card's calls
+  replaced by recorders; its launches count under their own key.
+"""
+
+import functools
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import anet.kernels as jk
+from anet import stream as jstream
+from anet.dsp import frame as jframe
+from anet.dsp.params import ModemConfig as JModemConfig
+from anet.models import get_model as jget_model
+
+import anet_torch.stream as tstream
+from anet_torch import kernels as tk
+from anet_torch.dsp import family as tfamily
+from anet_torch.dsp import frame as tframe
+from anet_torch.dsp.frame import data_symbols_for_payload
+from anet_torch.dsp.params import ModemConfig
+from anet_torch.models import get_model, list_models
+
+PRESETS = ("mfsk8-audible", "mfsk32-dense")
+PAY = 16
+B = 4
+CPU = torch.device("cpu")
+FRAME_FIELDS = ("payload", "magic_ok", "length_ok", "header_crc_ok", "payload_crc_ok", "ok")
+
+
+def _custom(sps: int, m: int, cls=ModemConfig):
+    """A config of ``sps`` samples and ``m`` tones a symbol at 48 kHz, tones
+    from half the symbol rate (the top tone below Nyquist needs m <= sps / 2)."""
+    rate = 48_000 // sps
+    return cls(sample_rate_hz=48_000, symbol_rate_hz=rate, num_tones=m, base_freq_hz=rate / 2)
+
+
+# every MFSK preset, and sps 24 .. 160 with 2 .. 64 tones wherever a config exists
+GEOMETRIES = {m.name: m.config for m in list_models() if hasattr(m.config, "num_tones")}
+GEOMETRIES.update({
+    f"sps{sps}-m{m}": _custom(sps, m)
+    for sps in (24, 32, 48, 64, 80, 96, 128, 160) for m in (2, 4, 8, 16, 32, 64) if m <= sps // 2
+})
+TM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_one_predicate_picks_every_route(name):
+    """_tensor_core_geometry holds at sps 32, 64 and 128 with at most 16
+    tones; elsewhere _check_kernel_geometry raises, naming the field at
+    fault (the tone count first). The stream steps fuse there and slice
+    elsewhere, the time-major pair takes the walk there ("mma" or "split"
+    by dtype) and the generic body elsewhere, and the batch-major
+    filterbank its tensor-core routes there and its plain one elsewhere. No
+    geometry is left without a route."""
+    cfg = GEOMETRIES[name]
+    fast = tk._tensor_core_geometry(cfg)
+    assert fast == (cfg.samples_per_symbol in (32, 64, 128) and cfg.num_tones <= 16)
+    if fast:
+        tk._check_kernel_geometry("k", cfg)
+    else:
+        sps = cfg.samples_per_symbol
+        field = f"num_tones {cfg.num_tones}" if cfg.num_tones > 16 else f"samples_per_symbol in (32, 64, 128), got {sps}"
+        with pytest.raises(ValueError, match=re.escape(field)):
+            tk._check_kernel_geometry("k", cfg)
+    assert tstream._fused_demod(cfg) == fast
+    for key, dt in TM_DTYPES.items():
+        kinds = ["decide_frame_tm"] if key == "int8" else ["decide_tones_tm", "decide_frame_tm"]
+        for kind in kinds:
+            if kind == "decide_frame_tm" and cfg.num_tones > 16:
+                continue  # past the reference's bound: the wrapper raises
+            entry, route, _ = tk._tm_operands(kind, cfg, dt, CPU)
+            if fast:
+                assert route == ("split" if key == "f32" else "mma")
+                assert entry == (kind if kind == "decide_frame_tm" else f"{kind}_mma")
+            else:
+                assert (entry, route) == (f"{kind}_generic", "generic")
+    for compute in (torch.float32, torch.bfloat16):
+        route = tk._filterbank_operands("tone_energies", cfg, compute, CPU)[1]
+        assert (route == "plain") == (not fast)
+
+
+@pytest.mark.parametrize("dtype", list(TM_DTYPES))
+@pytest.mark.parametrize("geometry", [*PRESETS, "sps48-m4", "sps160-m64", "sps24-m2"])
+def test_generic_tm_basis_layout(geometry, dtype):
+    """csrc/frame_tm_generic.cu's basis: [M / G, sps, 2G] with G = min(M,
+    16) tones a pass, row k of pass p the cos of tones pG .. pG + G - 1,
+    then their sin, entries those of _plain_basis for the samples' dtype:
+    float32 (bf16-rounded for bfloat16 samples), int32 x127 integers for
+    int8. Made once a config, dtype and device."""
+    cfg, dt = GEOMETRIES[geometry], TM_DTYPES[dtype]
+    m, sps = cfg.num_tones, cfg.samples_per_symbol
+    g = min(m, tk.TM_GENERIC_TONES)
+    basis = tk._generic_tm_basis(cfg, dt, CPU)
+    assert basis is tk._generic_tm_basis(cfg, dt, CPU)
+    assert basis.shape == (m // g, sps, 2 * g) and basis.is_contiguous()
+    assert basis.dtype == (torch.int32 if dt == torch.int8 else torch.float32)
+    plain = tk._plain_basis(cfg, dt, CPU)
+    for p in range(m // g):
+        for j in range(g):
+            assert torch.equal(basis[p, :, j].float(), plain[:, p * g + j])
+            assert torch.equal(basis[p, :, g + j].float(), plain[:, m + p * g + j])
+
+
+def _record_launches(monkeypatch) -> list:
+    """The card's calls of the time-major launch code replaced by recorders;
+    each checked launch counted as the wrapper counts it (its route's key),
+    into zeroed launch_counts."""
+    calls = []
+    monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
+    monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
+    monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what, int8=False: tk._KERNEL_DTYPES[t.dtype])
+    monkeypatch.setattr(tk, "launch_counts", dict.fromkeys(tk.launch_counts, 0))
+
+    def checked(err, name, dtype=None, route=None):
+        calls.append(("checked", name, route))
+        tk._count_launch(name, dtype, route)
+
+    monkeypatch.setattr(tk, "_check_launch", checked)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("geometry", [*PRESETS, "sps160-m64"])
+def test_decide_tones_tm_generic_launch(monkeypatch, geometry, dtype):
+    """decide_tones_tm off the walk's geometry: the generic entry of the
+    frame_tm_generic library with the arguments of the walk's entry (data,
+    dtype code, B, sps, tones, symbols, basis, outputs) and
+    _generic_tm_basis; one launch counted under the generic body's key,
+    frame_tm_generic, none under decide_tones_tm's."""
+    from anet_torch.kernels import build
+
+    cfg, dt = GEOMETRIES[geometry], TM_DTYPES[dtype]
+    sps = cfg.samples_per_symbol
+    x = torch.randn(5 * sps + 3, 7).to(dt)
+    calls = _record_launches(monkeypatch)
+    tone, best, total = tk._decide_tones_tm_launch(cfg, x)
+    (key, args), checked = calls
+    assert checked == ("checked", "decide_tones_tm", "generic") and key == "decide_tones_tm_generic"
+    assert build.SIGNATURES[key][2] == "frame_tm_generic" and "frame_tm_generic" in build.SOURCES
+    assert build.SIGNATURES[key][1] == build.SIGNATURES["decide_tones_tm_mma"][1]
+    assert {k: v for k, v in tk.launch_counts.items() if v} == {
+        "frame_tm_generic" + (":f32" if dt == torch.float32 else ""): 1
+    }
+    basis = tk._generic_tm_basis(cfg, dt, CPU)
+    assert args == (x.data_ptr(), tk._KERNEL_DTYPES[dt], 7, sps, cfg.num_tones, 5, basis.data_ptr(),
+                    tone.data_ptr(), best.data_ptr(), total.data_ptr(), 0)
+
+
+@pytest.mark.parametrize("dtype", list(TM_DTYPES))
+@pytest.mark.parametrize("geometry", ["sps48-m4", "sps80-m16", "sps24-m2"])
+def test_decide_frame_tm_generic_launch(monkeypatch, geometry, dtype):
+    """decide_frame_tm off the walk's geometry: the generic entry with the
+    walk's arguments, _generic_tm_basis and the packed-word CRC masks; one
+    launch under frame_tm_generic's key for the dtype. Past the reference's
+    bounds it still raises: more than 16 tones, or bits a symbol outside
+    {1, 2, 4}."""
+    from anet_torch.kernels import build
+
+    cfg, dt = GEOMETRIES[geometry], TM_DTYPES[dtype]
+    pre, sps, bps = 3, cfg.samples_per_symbol, cfg.bits_per_symbol
+    s = data_symbols_for_payload(cfg, PAY)
+    n_tiles = -(-s // tk.TM_SYMBOL_TILE)
+    x = torch.randn(pre + s * sps, 5).to(dt)
+    calls = _record_launches(monkeypatch)
+    words, crc, qual, n_sym = tk._decide_frame_tm_launch(cfg, x, PAY, pre)
+    (key, args), checked = calls
+    assert checked == ("checked", "decide_frame_tm", "generic") and key == "decide_frame_tm_generic"
+    assert build.SIGNATURES[key][1] == build.SIGNATURES["decide_frame_tm"][1]
+    assert {k: v for k, v in tk.launch_counts.items() if v} == {
+        "frame_tm_generic" + {"f32": ":f32", "bf16": "", "int8": ":int8"}[dtype]: 1
+    }
+    assert n_sym == s and words.shape == (n_tiles, 5) and not crc.any() and not qual.any()
+    basis = tk._generic_tm_basis(cfg, dt, CPU)
+    masks = tk._frame_crc_masks(PAY, n_tiles, bps, CPU)
+    assert args == (x.data_ptr(), tk._KERNEL_DTYPES[dt], 5, pre, sps, cfg.num_tones, s, n_tiles, bps,
+                    basis.data_ptr(), masks.data_ptr(), words.data_ptr(), crc.data_ptr(), qual.data_ptr(), 0)
+    for bad in (GEOMETRIES["mfsk32-dense"], GEOMETRIES["mfsk8-audible"]):  # 32 tones; 3 bits a symbol
+        t = pre + data_symbols_for_payload(bad, PAY) * bad.samples_per_symbol
+        with pytest.raises(ValueError):
+            tk._decide_frame_tm_launch(bad, torch.zeros(t, 5, dtype=dt), PAY, pre)
+
+
+# --- the receivers on both presets against anet ------------------------------
+
+
+def _no_fused_kernels(monkeypatch) -> None:
+    """The align+demod wrappers raise if called: these geometries take the
+    slice and the batch-major receiver."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an align+demod kernel was called off its geometry")
+
+    for name in ("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused"):
+        monkeypatch.setattr(tk, name, refuse)
+
+
+def _stream_capture(cfg, seed: int, lens, chunk: int):
+    """([B, N] float32 capture, payloads [frames] of [B, n]): a different
+    gap before each stream's first frame, the frames back to back, a frame
+    of silence, whole chunks, low noise."""
+    rng = np.random.default_rng(seed)
+    tx = tfamily.transmit_fn(cfg, device="cpu")
+    waves, sent = [], []
+    for n in lens:
+        pay = rng.integers(0, 256, (B, n), dtype=np.uint8)
+        sent.append(pay)
+        waves.append(tx(pay).numpy())
+    body = np.concatenate(waves, -1)
+    t_max = tfamily.frame_samples(cfg, max(lens))
+    n = -(-(400 + 64 * B + body.shape[1] + t_max) // chunk) * chunk
+    cap = np.zeros((B, n), np.float32)
+    for i in range(B):
+        g = 150 + 64 * i
+        cap[i, g : g + body.shape[1]] = body[i]
+    return cap + 0.05 * rng.standard_normal(cap.shape).astype(np.float32), sent
+
+
+def _assert_same_stream(got, want, n_frames: int):
+    det = got.steps.detected.numpy()
+    np.testing.assert_array_equal(det, np.asarray(want.steps.detected))
+    for f in FRAME_FIELDS + (("payload_len",) if hasattr(got.steps.frame, "payload_len") else ()):
+        np.testing.assert_array_equal(
+            getattr(got.steps.frame, f).numpy()[det], np.asarray(getattr(want.steps.frame, f))[det], f
+        )
+    np.testing.assert_array_equal(got.steps.frame.ok.numpy(), np.asarray(want.steps.frame.ok))
+    np.testing.assert_array_equal(got.steps.frame_start.numpy()[det], np.asarray(want.steps.frame_start)[det])
+    for f in ("frames_detected", "frames_ok", "decode_errors", "next_start", "locked", "last_frame_end"):
+        np.testing.assert_array_equal(getattr(got.carry, f).numpy(), np.asarray(getattr(want.carry, f)), f)
+    np.testing.assert_allclose(
+        got.steps.frame.confidence.numpy()[det], np.asarray(want.steps.frame.confidence)[det], rtol=1e-4
+    )
+    assert int(got.carry.frames_ok.sum()) == B * n_frames
+
+
+@pytest.mark.parametrize("lock", [False, True], ids=["search", "lock"])
+@pytest.mark.parametrize("carry", ["f32", "int8"])
+@pytest.mark.parametrize("name", PRESETS)
+def test_receive_stream_matches_anet(monkeypatch, name, carry, lock):
+    """receive_stream at B = 4, payload 16, a float32 or an int8 carry
+    (the capture quantized at ingest), searching or in frame lock: every
+    frame decoded, detections, payloads, verdicts, frame starts and
+    counters equal to anet's, confidence rtol 1e-4; no align+demod
+    wrapper called."""
+    cfg, jcfg = get_model(name).config, jget_model(name).config
+    _no_fused_kernels(monkeypatch)
+    chunk = tfamily.frame_samples(cfg, PAY) // 128 * 128
+    cap, _ = _stream_capture(cfg, 11 + len(name) + 2 * lock, (PAY,) * 3, chunk)
+    int8 = carry == "int8"
+    tc = tstream.init_carry(cfg, chunk, PAY, (B,), dtype=torch.int8, device="cpu") if int8 else None
+    jc = jstream.init_carry(jcfg, chunk, PAY, (B,), dtype=jnp.int8) if int8 else None
+    got = tstream.receive_stream(cfg, cap, chunk, PAY, lock=lock, carry=tc, device="cpu")
+    want = jstream.receive_stream(jcfg, jnp.asarray(cap), chunk, PAY, lock=lock, carry=jc)
+    _assert_same_stream(got, want, 3)
+    np.testing.assert_array_equal(got.carry.buffer.numpy(), np.asarray(want.carry.buffer))
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_receive_stream_dynamic_matches_anet(monkeypatch, name):
+    """receive_stream_dynamic in frame lock at B = 4 with header-declared
+    lengths 8, 16 and 12 (maximum 16): every frame decoded, declared
+    lengths, payloads, verdicts, frame starts and counters equal to
+    anet's; no align+demod wrapper called."""
+    cfg, jcfg = get_model(name).config, jget_model(name).config
+    _no_fused_kernels(monkeypatch)
+    lens = (8, 16, 12)
+    chunk = tfamily.frame_samples(cfg, min(lens)) // 128 * 128
+    cap, sent = _stream_capture(cfg, 29 + len(name), lens, chunk)
+    got = tstream.receive_stream_dynamic(cfg, cap, chunk, PAY, lock=True, device="cpu")
+    want = jstream.receive_stream_dynamic(jcfg, jnp.asarray(cap), chunk, PAY, lock=True)
+    _assert_same_stream(got, want, len(lens))
+    det = got.steps.detected.numpy()
+    np.testing.assert_array_equal(got.steps.frame.payload_len.numpy().T[det.T].reshape(B, -1),
+                                  np.tile(np.array(lens), (B, 1)))
+    payloads = got.steps.frame.payload.numpy().transpose(1, 0, 2)[det.T].reshape(B, len(lens), -1)
+    for j, n in enumerate(lens):  # each stream's frames in time order, as sent
+        np.testing.assert_array_equal(payloads[:, j, :n], sent[j])
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_demodulate_frame_tm_matches_anet(monkeypatch, name):
+    """The aligned time-major receiver on both presets at its default bf16
+    compute (3 and 5 bits a symbol: the decisions kernel decide_tones_tm,
+    here its plain version) against anet's demodulate_frame_tm with its
+    Pallas decide_tones_tm in interpret mode: payloads and verdicts equal,
+    every frame decoded, confidence rtol 1e-5."""
+    cfg, jcfg = get_model(name).config, jget_model(name).config
+    tdt, jdt = torch.bfloat16, jnp.bfloat16
+    monkeypatch.setattr(jk, "decide_tones_tm", functools.partial(jk.decide_tones_tm, interpret=True))
+    rng = np.random.default_rng(5 + len(name))
+    payload = rng.integers(0, 256, (B, PAY), dtype=np.uint8)
+    x = tfamily.transmit_fn(cfg, device="cpu")(payload).numpy()
+    x_tm = np.ascontiguousarray((x + 0.3 * rng.standard_normal(x.shape).astype(np.float32)).T)
+    got = tframe.demodulate_frame_tm(cfg, torch.from_numpy(x_tm).to(tdt), PAY, compute_dtype=tdt, device="cpu")
+    want = jframe.demodulate_frame_tm(jcfg, jnp.asarray(x_tm).astype(jdt), PAY, compute_dtype=jdt,
+                                      use_pallas=True, interpret=True)
+    for f in FRAME_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), f)
+    np.testing.assert_array_equal(got.payload.numpy(), payload)
+    assert bool(got.ok.all())
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), rtol=1e-5)
+
+
+@pytest.mark.parametrize("geometry", ["sps48-m4", "sps80-m16"])
+def test_decide_frame_tm_ref_matches_anet_off_the_walk(geometry):
+    """decide_frame_tm's plain version at two custom geometries the walk
+    does not take (sps 48 with 4 tones and 2 bits, sps 80 with 16 tones
+    and 4 bits) against anet's decide_frame_tm in interpret mode: words and
+    CRC counts equal, quality sums rtol 1e-5."""
+    sps, m = {"sps48-m4": (48, 4), "sps80-m16": (80, 16)}[geometry]
+    cfg, jcfg = _custom(sps, m), _custom(sps, m, JModemConfig)
+    rng = np.random.default_rng(sps + m)
+    payload = rng.integers(0, 256, (B, PAY), dtype=np.uint8)
+    x = tfamily.transmit_fn(cfg, device="cpu")(payload).numpy()
+    x_tm = np.ascontiguousarray((x + 0.3 * rng.standard_normal(x.shape).astype(np.float32)).T)
+    pre = cfg.preamble_symbols * sps
+    got = tk.decide_frame_tm_ref(cfg, torch.from_numpy(x_tm), PAY, preamble_offset=pre)
+    want = jk.decide_frame_tm(jcfg, jnp.asarray(x_tm), PAY, compute_dtype=jnp.float32, interpret=True,
+                              preamble_offset=pre)
+    assert got[3] == int(want[3])
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2][:3].numpy(), np.asarray(want[2])[:3], rtol=1e-5)
+    res = tframe.frame_result_from_packed(cfg, *got, PAY)
+    np.testing.assert_array_equal(res.payload.numpy(), payload)
+    assert bool(res.ok.all())

@@ -636,7 +636,8 @@ def test_cuda_batch_major_filterbank_matches_plain_versions(cuda, dtype, model):
     (float32 sums in another order); float32 compute within the stated
     tolerance of its route (_check_split); then demodulate_frame on the card
     against the CPU. The last two models take the kernels' plain per-symbol
-    form (32 tones; 48 samples a symbol). Launches under each route's key."""
+    form (32 tones; 48 samples a symbol), whose launches count under
+    filterbank_cuda_core. Launches under each route's key."""
     from anet_torch.dsp import frame as tframe
 
     cfg = get_model(model).config
@@ -645,7 +646,10 @@ def test_cuda_batch_major_filterbank_matches_plain_versions(cuda, dtype, model):
     w = transmit(cfg, pay, device="cpu")
     x = (w + 0.3 * torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32))).to(cuda)
     data = x[:, cfg.preamble_samples :]
-    keys = (_key("tone_energies_fused", dtype), _key("decide_tones_fused", dtype))
+    if tk._tensor_core_geometry(cfg):
+        keys = (_key("tone_energies_fused", dtype), _key("decide_tones_fused", dtype))
+    else:
+        keys = (_key("filterbank_cuda_core", dtype),) * 2
     before = dict(tk.launch_counts)
     if dtype == torch.float32:  # the stated tolerance of the float32-compute route
         _check_split(cfg, data)
@@ -663,8 +667,11 @@ def test_cuda_batch_major_filterbank_matches_plain_versions(cuda, dtype, model):
     on_cpu = tframe.demodulate_frame(cfg, x.cpu(), PAY, compute_dtype=dtype, device="cpu")
     assert bool(on_card.ok.all()) and torch.equal(on_card.payload.cpu(), on_cpu.payload)
     torch.cuda.synchronize()
-    assert tk.launch_counts[keys[0]] - before[keys[0]] == 2
-    assert tk.launch_counts[keys[1]] - before[keys[1]] == 1
+    if keys[0] == keys[1]:
+        assert tk.launch_counts[keys[0]] - before[keys[0]] == 3
+    else:
+        assert tk.launch_counts[keys[0]] - before[keys[0]] == 2
+        assert tk.launch_counts[keys[1]] - before[keys[1]] == 1
 
 
 @pytest.mark.cuda
@@ -1236,7 +1243,8 @@ def test_cuda_batch_major_filterbank_every_tie_and_extreme(cuda, geometry, fill)
 
 def _check_split(cfg, rows):
     """One launch each of tone_energies_fused and decide_tones_fused with
-    float32 compute on ``rows`` (under their ":f32" keys), held against the
+    float32 compute on ``rows`` (under their ":f32" keys, or
+    filterbank_cuda_core's twice off the walk), held against the
     plain versions with the route's stated tolerance: each energy within
     kernels.F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's
     largest plain energy, best and total within the same bounds, the tones
@@ -1248,7 +1256,10 @@ def _check_split(cfg, rows):
     tone, best, total = tk.decide_tones_fused(cfg, rows, compute_dtype=torch.float32)
     torch.cuda.synchronize()
     launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
-    assert launched == {"tone_energies_fused:f32": 1, "decide_tones_fused:f32": 1}
+    if tk._tensor_core_geometry(cfg):
+        assert launched == {"tone_energies_fused:f32": 1, "decide_tones_fused:f32": 1}
+    else:
+        assert launched == {"filterbank_cuda_core:f32": 2}
     want = tk.tone_energies_fused_ref(cfg, rows, compute_dtype=torch.float32)
     assert e.shape == want.shape and tone.shape == best.shape == total.shape == want.shape[:-1]
     assert bool(((e - want).abs() <= _split_tol(want, want.amax(-1, keepdim=True))).all())
@@ -1752,3 +1763,215 @@ def test_cuda_resident_scan_matches_carry_path(cuda, warm):
     assert torch.equal(got.steps.frame_start[det], want.steps.frame_start[det])
     for f in tstream.StreamCarry._fields:
         assert torch.equal(getattr(got.carry, f), getattr(want.carry, f)), f
+
+
+# --- the time-major pair off the walk's geometry: csrc/frame_tm_generic.cu ----
+
+
+def _custom(sps, m):
+    """A config of ``sps`` samples and ``m`` tones a symbol at 48 kHz, tones
+    from half the symbol rate."""
+    from anet_torch.dsp.params import ModemConfig
+
+    rate = 48_000 // sps
+    return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=rate, num_tones=m, base_freq_hz=rate / 2)
+
+
+GENERIC_PRESETS = ("mfsk8-audible", "mfsk32-dense")
+GENERIC_CONFIGS = {  # sps outside 32/64/128 or more than 16 tones; tones a pass 2, 4, 8 and 16
+    "mfsk8-audible": get_model("mfsk8-audible").config,  # sps 48, 8 tones, bps 3
+    "mfsk32-dense": get_model("mfsk32-dense").config,  # sps 80, 32 tones (two passes), bps 5
+    "sps24-m2": _custom(24, 2),
+    "sps48-m4": _custom(48, 4),
+    "sps80-m16": _custom(80, 16),
+    "sps96-m32": _custom(96, 32),
+    "sps128-m64": _custom(128, 64),  # the walk's sps, past its 16 tones: four passes
+}
+GENERIC_FRAME_CONFIGS = ("sps24-m2", "sps48-m4", "sps80-m16")  # bps 1, 2 and 4
+GENERIC_BATCHES = (1, 7, 129, 1000)
+
+
+def _launched(before):
+    torch.cuda.synchronize()
+    return {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", GENERIC_BATCHES)
+@pytest.mark.parametrize("geometry", list(GENERIC_CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decide_tones_tm_generic_every_geometry(cuda, dtype, geometry, b):
+    """decide_tones_tm's CUDA-core body against its plain version on noisy
+    frames' data sections, 3 symbols of noise after them and a trailing
+    partial symbol: tones bit-equal, best and total within rtol 1e-5
+    (float32 sums in another order), one launch on the "generic" route,
+    counted under frame_tm_generic's key."""
+    cfg = GENERIC_CONFIGS[geometry]
+    assert tk._tm_operands("decide_tones_tm", cfg, dtype, cuda)[1] == "generic"
+    case = GENERIC_BATCHES.index(b) + 4 * list(GENERIC_CONFIGS).index(geometry)
+    rng = np.random.default_rng(300 + case)
+    x = _frame_case(cfg, rng, b, torch.float32, 0, 0)
+    sps = cfg.samples_per_symbol
+    tail = torch.from_numpy(rng.standard_normal((3 * sps + sps // 2, b)).astype(np.float32))
+    x = torch.cat([x, tail]).to(dtype).to(cuda)
+    before = dict(tk.launch_counts)
+    got = tk.decide_tones_tm(cfg, x)
+    assert _launched(before) == {_key("frame_tm_generic", dtype): 1}
+    want = tk.decide_tones_tm_ref(cfg, x)
+    assert got[0].shape == (x.shape[0] // sps, b)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", GENERIC_BATCHES)
+@pytest.mark.parametrize("geometry", GENERIC_FRAME_CONFIGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_decide_frame_tm_generic_every_geometry(cuda, dtype, geometry, b):
+    """decide_frame_tm's CUDA-core body against its plain version at sps 24,
+    48 and 80 (bits a symbol 1, 2 and 4), whole frames and the data section
+    alone, an odd offset: words and CRC counts bit-equal, the quality sums
+    within rtol 1e-5 (int8: exact I/Q; every dtype sums in another order),
+    one launch on the "generic" route, counted under frame_tm_generic's
+    key."""
+    cfg = GENERIC_CONFIGS[geometry]
+    assert tk._tm_operands("decide_frame_tm", cfg, dtype, cuda)[1] == "generic"
+    case = GENERIC_BATCHES.index(b) + 4 * GENERIC_FRAME_CONFIGS.index(geometry)
+    rng = np.random.default_rng(400 + case)
+    offset = (cfg.preamble_samples, 0, 37)[case % 3]
+    x = _frame_case(cfg, rng, b, dtype, offset, 0).to(cuda)
+    before = dict(tk.launch_counts)
+    got = tk.decide_frame_tm(cfg, x, 7, preamble_offset=offset)
+    assert _launched(before) == {_key("frame_tm_generic", dtype): 1}
+    want = tk.decide_frame_tm_ref(cfg, x, 7, preamble_offset=offset)
+    assert got[3] == want[3]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_frame_tm_generic_ties_and_full_width(cuda, dtype):
+    """All-zero input (every symbol ties: tone 0, zero energies, words,
+    counts and sums) at mfsk32-dense and sps 80 with 16 tones; then the
+    main path's batch, B = 16,384 and 16,383, payload 256 (few blocks a
+    column of streams, each walking its share of the tiles): 256 noisy
+    frames tiled across the batch, held as above."""
+    dense, frame_cfg = GENERIC_CONFIGS["mfsk32-dense"], GENERIC_CONFIGS["sps80-m16"]
+    if dtype != torch.int8:
+        tone, best, total = tk.decide_tones_tm(dense, torch.zeros(9 * 80, 129, dtype=dtype, device=cuda))
+        assert not tone.any() and not best.any() and not total.any()
+    t = frame_cfg.preamble_samples + data_symbols_for_payload(frame_cfg, PAY) * 80
+    words, crc, qual, _ = tk.decide_frame_tm(frame_cfg, torch.zeros(t, 129, dtype=dtype, device=cuda), PAY,
+                                             preamble_offset=frame_cfg.preamble_samples)
+    assert not words.any() and not crc.any() and not qual.any()
+    rng = np.random.default_rng(17)
+    for b in (16384, 16383):
+        x = _frame_case(frame_cfg, rng, 256, dtype, frame_cfg.preamble_samples, 0, pay=256).to(cuda)
+        x = x.repeat(1, 64)[:, 16384 - b :].contiguous()
+        got = tk.decide_frame_tm(frame_cfg, x, 256, preamble_offset=frame_cfg.preamble_samples)
+        want = tk.decide_frame_tm_ref(frame_cfg, x, 256, preamble_offset=frame_cfg.preamble_samples)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        if dtype != torch.int8:
+            data = x[frame_cfg.preamble_samples :]
+            tones = tk.decide_tones_tm(frame_cfg, data)
+            ref = tk.decide_tones_tm_ref(frame_cfg, data)
+            assert torch.equal(tones[0], ref[0])
+            for g, w in zip(tones[1:], ref[1:]):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.max()))
+        del x, got, want
+        torch.cuda.empty_cache()
+
+
+def _placed(cfg, rng, lens, chunk, b, gap0=700):
+    """A [B, N] float32 capture: gap0 zeros, the frames of ``lens`` bytes
+    back to back, a frame of silence, whole chunks, noise 0.05."""
+    from anet_torch.dsp.family import frame_samples
+
+    t_max = frame_samples(cfg, max(lens))
+    parts = [torch.zeros(b, gap0)]
+    parts += [transmit(cfg, rng.integers(0, 256, (b, n), dtype=np.uint8), device="cpu") for n in lens]
+    cap = torch.cat(parts + [torch.zeros(b, t_max + 300)], -1)
+    cap = torch.nn.functional.pad(cap, (0, -cap.shape[1] % chunk))
+    return cap + 0.05 * torch.from_numpy(rng.standard_normal(cap.shape).astype(np.float32))
+
+
+def _same_stream(got, want, frames: int, b: int) -> None:
+    assert got.carry.frames_ok.tolist() == [frames] * b
+    assert torch.equal(got.steps.detected.cpu(), want.steps.detected)
+    det = want.steps.detected
+    for f in ("payload", "ok", "header_crc_ok", "payload_crc_ok"):
+        assert torch.equal(getattr(got.steps.frame, f).cpu()[det], getattr(want.steps.frame, f)[det]), f
+    assert torch.equal(got.steps.frame_start.cpu()[det], want.steps.frame_start[det])
+    for f in ("frames_detected", "frames_ok", "decode_errors", "locked", "next_start", "last_frame_end"):
+        assert torch.equal(getattr(got.carry, f).cpu(), getattr(want.carry, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", GENERIC_PRESETS)
+def test_cuda_generic_geometry_receivers_match_cpu(cuda, model):
+    """Every receiver of the two presets on the card against the same call
+    on the CPU, every frame decoded, payloads and verdicts equal: the
+    aligned time-major receiver (bf16 and float32: decide_tones_tm's
+    generic body), the batch-major and one-shot receivers
+    (tone_energies_fused's plain CUDA-core route), receive_stream searching
+    on a float32 carry, locked on bf16 and int8 carries, and
+    receive_stream_dynamic locked (the slice and the batch-major receiver:
+    no align+demod kernel launches). Every time-major and filterbank launch
+    is on the CUDA-core bodies' keys, none on the walks'."""
+    from anet_torch.dsp import frame as tframe
+    from anet_torch.dsp import pipeline as tpipeline
+    from anet_torch.dsp.family import frame_samples
+
+    cfg = get_model(model).config
+    rng = np.random.default_rng(500 + len(model))
+    before = dict(tk.launch_counts)
+    pay = rng.integers(0, 256, (9, PAY), dtype=np.uint8)
+    w = transmit(cfg, pay, device="cpu")
+    x = w + 0.3 * torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32))
+    for dtype in (torch.bfloat16, torch.float32):
+        x_tm = x.T.contiguous().to(dtype)
+        on_card = tframe.demodulate_frame_tm(cfg, x_tm.to(cuda), PAY, compute_dtype=dtype, device=cuda)
+        on_cpu = tframe.demodulate_frame_tm(cfg, x_tm, PAY, compute_dtype=dtype, device="cpu")
+        assert bool(on_card.ok.all()) and np.array_equal(on_card.payload.cpu().numpy(), pay)
+        assert all(torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)) for f in
+                   ("payload", "ok", "header_crc_ok", "payload_crc_ok"))
+        torch.testing.assert_close(on_card.confidence.cpu(), on_cpu.confidence, rtol=1e-5, atol=0)
+        bm = tframe.demodulate_frame(cfg, x.to(dtype).to(cuda), PAY, compute_dtype=dtype, device=cuda)
+        assert bool(bm.ok.all()) and torch.equal(bm.payload.cpu(), on_cpu.payload)
+    starts = torch.tensor([0, 1, 63, 127, 128, 777, 1999, 5, 300])
+    cap = 0.2 * torch.from_numpy(rng.standard_normal((9, w.shape[1] + 7000)).astype(np.float32))
+    cap.scatter_add_(1, starts[:, None] + torch.arange(w.shape[1]), w)
+    got = tpipeline.receive_frame(cfg, cap.to(cuda), PAY, device=cuda)
+    want = tpipeline.receive_frame(cfg, cap, PAY, device="cpu")
+    assert torch.equal(got.sync.offset.cpu(), starts.int()) and bool(got.frame.ok.all())
+    assert torch.equal(got.frame.payload.cpu(), want.frame.payload)
+
+    t_frame = frame_samples(cfg, PAY)
+    chunk = t_frame // 128 * 128
+    cap = _placed(cfg, rng, (PAY,) * 3, chunk, 9)
+    for carry_dtype, lock in ((torch.float32, False), (torch.bfloat16, True), (torch.int8, True)):
+        compute = torch.float32 if carry_dtype == torch.float32 else torch.bfloat16
+        runs = []
+        for dev in (cuda, torch.device("cpu")):
+            carry = tstream.init_carry(cfg, chunk, PAY, (9,), dtype=carry_dtype, device=dev)
+            runs.append(tstream.receive_stream(cfg, cap.to(dev), chunk, PAY, carry=carry, lock=lock,
+                                               compute_dtype=compute, device=dev))
+        _same_stream(*runs, 3, 9)
+    lens = (8, 48, 24)
+    chunk = frame_samples(cfg, min(lens)) // 128 * 128
+    cap = _placed(cfg, rng, lens, chunk, 9).to(torch.bfloat16)
+    runs = [tstream.receive_stream_dynamic(cfg, cap.to(dev), chunk, 48, compute_dtype=torch.bfloat16,
+                                           lock=True, device=dev) for dev in (cuda, torch.device("cpu"))]
+    _same_stream(*runs, 3, 9)
+    det = runs[1].steps.detected
+    assert torch.equal(runs[0].steps.frame.payload_len.cpu()[det], runs[1].steps.frame.payload_len[det])
+    launched = _launched(before)
+    assert not any(k.startswith(("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused"))
+                   for k in launched)
+    assert not any(k.startswith(("decide_tones_tm", "decide_frame_tm", "tone_energies_fused", "decide_tones_fused"))
+                   for k in launched)  # the tensor-core walks
+    assert launched["frame_tm_generic"] and launched["frame_tm_generic:f32"] and launched["sync_search_fused"]
+    assert launched["filterbank_cuda_core"] and launched["filterbank_cuda_core:f32"] and launched["probe_at_fused"]

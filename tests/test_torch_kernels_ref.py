@@ -741,12 +741,14 @@ def test_filterbank_basis_layout(name, compute):
 def _record_filterbank_calls(monkeypatch) -> list:
     """Replace the card's calls of the filterbank wrappers' launch code by
     recorders: each entry call appends (entry, its arguments), each launch
-    check ("checked", the kernel's name). Nothing is launched or counted."""
+    check ("checked", the kernel's name, the dtype it counts by, the
+    route). Nothing is launched or counted."""
     calls = []
     monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
     monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
     monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what: tk._KERNEL_DTYPES[t.dtype])
-    monkeypatch.setattr(tk, "_check_launch", lambda err, name, dtype: calls.append(("checked", name, dtype)))
+    monkeypatch.setattr(tk, "_check_launch",
+                        lambda err, name, dtype, route: calls.append(("checked", name, dtype, route)))
     return calls
 
 
@@ -764,7 +766,8 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
     with the three-term _demod_split_basis, bfloat16 and float32 rows read
     as they are; any other geometry the CUDA-core entry (rows, dtype code,
     R, row pitch) with the plain [sps, 2M] basis. The launch is checked
-    with the compute dtype, so float32 compute counts under ``:f32``. Rows
+    with the compute dtype, so float32 compute counts under ``:f32``, and
+    its route, so the plain route counts under its own key. Rows
     are a strided view past the preamble of [2, 3] frames."""
     from anet_torch.kernels import build
 
@@ -783,7 +786,7 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
         outs = tk._filterbank_launch(kind + "_fused", kind, cfg, data, cdt, lambda lead, n, dev: tuple(
             torch.empty(*lead, n, dtype=torch.float32) for _ in range(n_out)))
         (key, args), checked = calls
-        assert checked == ("checked", kind + "_fused", cdt)
+        assert checked == ("checked", kind + "_fused", cdt, route)
         assert all(o.shape == (2, 3, s) for o in outs)
         sig = build.SIGNATURES[key]
         n_head = {"mma": 4, "split": 5, "plain": 4}[route]
@@ -1022,7 +1025,8 @@ def _record_launches(monkeypatch) -> list:
     monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
     monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
     monkeypatch.setattr(tk, "_check_cuda_input", lambda name, t, what, int8=False: tk._KERNEL_DTYPES[t.dtype])
-    monkeypatch.setattr(tk, "_check_launch", lambda err, name, dtype=None: calls.append(("checked", name)))
+    monkeypatch.setattr(tk, "_check_launch",
+                        lambda err, name, dtype=None, route=None: calls.append(("checked", name)))
     return calls
 
 
@@ -1035,9 +1039,9 @@ def _record_counted_launches(monkeypatch) -> list:
     calls = _record_launches(monkeypatch)
     monkeypatch.setattr(tk, "launch_counts", dict.fromkeys(tk.launch_counts, 0))
 
-    def checked(err, name, dtype=None):
+    def checked(err, name, dtype=None, route=None):
         calls.append(("checked", name))
-        tk._count_launch(name, dtype)
+        tk._count_launch(name, dtype, route)
 
     monkeypatch.setattr(tk, "_check_launch", checked)
     return calls
