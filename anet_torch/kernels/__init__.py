@@ -56,16 +56,19 @@ are float32 sums to about 2**-24 (``F32_SPLIT_RTOL``, ``F32_SPLIT_ATOL``);
 ``_demod_at_basis`` picks the basis for both. The batch-major filterbank
 (tone_energies_fused, decide_tones_fused) runs that product, with the
 same two epilogues, on rows read in place from every start 0 at sps 32,
-64 and 128 with at most 16 tones: under bfloat16 compute with the bf16
-basis; under float32 compute with the three-term split, bfloat16 rows
-meeting all three terms and float32 rows split as demod_at_fused's are
-(the route: ``_filterbank_operands``; other geometries take a plain
-CUDA-core kernel). demod_probe_fused is a warp-per-stream probe followed
-by demod_at_fused's kernel, every dtype; probe_at_fused runs the same
-staged probe (csrc/demod_probe.cu) with its span at the probe base and the
-quality as its epilogue, the template energy read on the card.
+48, 64, 80 and 128 with at most 32 tones (8 n-tiles, the basis then in
+shared memory): under bfloat16 compute with the bf16 basis; under float32
+compute with the three-term split, bfloat16 rows meeting all three terms
+and float32 rows split as demod_at_fused's are (the route:
+``_filterbank_operands`` on ``_filterbank_tensor_core_geometry``; other
+geometries take a plain CUDA-core kernel). demod_probe_fused is a
+warp-per-stream probe followed by demod_at_fused's kernel, every dtype;
+probe_at_fused runs the same staged probe (csrc/demod_probe.cu) with its
+span at the probe base and the quality as its epilogue, the template
+energy read on the card.
 ofdm_track_decide_fused is a warp per stream over points staged in shared
-memory.
+memory, or, for streams whose points do not fit there (S > 302 at 96
+carriers), read from global memory on every pass (``_ofdm_track_route``).
 decide_frame_tm runs the same tensor-core filterbank with streams on the
 product's M axis, its A operand staged from time-major rows (bfloat16 and
 int8 read with ``ldmatrix.trans``; float32 frames with 32-bit loads, each
@@ -73,11 +76,15 @@ sample split into three bf16 terms against ``_demod_split_basis``, the
 align+demod kernels' float32 product), and counts CRC bits with popcounts
 of the packed words; decide_tones_tm takes the same walk with a decisions
 epilogue, bfloat16 and float32 data alike. That walk takes sps 32, 64 and
-128 with at most 16 tones (_tensor_core_geometry); at every other geometry
-both take csrc/frame_tm_generic.cu, a thread a stream on the CUDA cores
-(the route: ``_tm_operands``). gather_rows_fused copies 16-byte
-vectors aligned by a funnel shift. The other kernels sum in float32 on the
-CUDA cores.
+128 with at most 16 tones (_tensor_core_geometry, which also picks the
+align+demod kernels' and the stream steps' routes); at every other
+geometry both take csrc/frame_tm_generic.cu, a thread a stream on the CUDA
+cores (the route: ``_tm_operands``). Which predicate picks which route:
+_tensor_core_geometry the align+demod kernels, the stream steps and the
+time-major pair; _filterbank_tensor_core_geometry the batch-major
+filterbank; _ofdm_track_route, from S and C, the OFDM equalizer's.
+gather_rows_fused copies 16-byte vectors aligned by a funnel shift. The
+other kernels sum in float32 on the CUDA cores.
 
 The plain versions widen every operand to float32 before a product, as the
 reference kernels accumulate in float32. On the card, a float32 product
@@ -192,6 +199,9 @@ launch_counts = {
     "frame_tm_generic": 0,
     "frame_tm_generic:int8": 0,
     "filterbank_cuda_core": 0,
+    # the OFDM equalizer's route for streams past shared memory
+    # (_ofdm_track_route), counted apart from the staged one
+    "ofdm_track_decide_fused:global": 0,
 }
 # The kernels whose float32 route is a design of its own, counted apart
 # under "<name>:f32": the searches' and the correlation's hi + lo split of
@@ -309,9 +319,10 @@ def _kernel_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device)
 
 
 def _demod_mma_tiles(num_tones: int) -> int:
-    """n8 tiles of the align+demod kernels' tensor-core product: 4 tones'
-    (I, Q) a tile."""
-    return 1 if num_tones <= 4 else 2 if num_tones <= 8 else 4
+    """n8 tiles of demod_core.cuh's tensor-core product: 4 tones' (I, Q) a
+    tile; 8 tiles (17 to 32 tones) only on the batch-major filterbank's
+    routes, the other walks taking at most 16 tones."""
+    return 1 if num_tones <= 4 else 2 if num_tones <= 8 else 4 if num_tones <= 16 else 8
 
 
 def _mma_fragments(config: ModemConfig, plain: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -387,15 +398,27 @@ def _demod_at_basis(config: ModemConfig, dtype: torch.dtype, device: torch.devic
 
 
 def _tensor_core_geometry(config: ModemConfig) -> bool:
-    """The geometry of the tensor-core walks: sps in _KERNEL_SPS (whole
-    k-steps, the align+demod span rows) and at most 16 tones (four n8
-    tiles), the configs _check_kernel_geometry accepts. Every route
-    between those walks and the other forms asks this: the stream steps
-    (the align+demod kernels, else the aligned slice and the batch-major
-    filterbank, as the reference fuses only where 128 % sps == 0), the
-    merged lock step, the resident scan, the batch-major filterbank's route
-    and the time-major pair's (_tm_operands)."""
+    """The geometry of the align+demod kernels and the time-major walk: sps
+    in _KERNEL_SPS (whole k-steps, the align+demod span rows) and at most 16
+    tones (four n8 tiles), the configs _check_kernel_geometry accepts. It
+    picks the stream steps' route (the align+demod kernels, else the
+    aligned slice and the batch-major filterbank, as the reference fuses
+    only where 128 % sps == 0), the merged lock step, the resident scan and
+    the time-major pair's route (_tm_operands). The batch-major
+    filterbank's route asks _filterbank_tensor_core_geometry."""
     return config.samples_per_symbol in _KERNEL_SPS and config.num_tones <= 16
+
+
+_FILTERBANK_SPS = (32, 48, 64, 80, 128)  # whole k-steps of 16 bf16 samples, rows of whole 32 bytes
+
+
+def _filterbank_tensor_core_geometry(config: ModemConfig) -> bool:
+    """The geometry of the batch-major filterbank's tensor-core routes
+    (tone_energies.cu's walk): sps in _FILTERBANK_SPS and at most 32 tones
+    (eight n8 tiles), mfsk8-audible (sps 48, 8 tones) and mfsk32-dense (sps
+    80, 32 tones) among them. Wider than _tensor_core_geometry, which the
+    other walks keep. Only _filterbank_operands asks it."""
+    return config.samples_per_symbol in _FILTERBANK_SPS and config.num_tones <= 32
 
 
 def _check_kernel_geometry(name: str, config: ModemConfig) -> None:
@@ -1398,9 +1421,25 @@ def ofdm_track_decide_fused(
     return _ofdm_track_launch(config, z_eq, h_pow, slope0, evm_symbols, with_coherence)
 
 
+OFDM_STAGE_BYTES = 232_448  # shared memory a block can opt in to (csrc/ofdm_track.cu MAX_SMEM)
+
+
+def _ofdm_track_route(s: int, c: int) -> str:
+    """The route of an ofdm_track_decide_fused launch on S symbols of C
+    carriers, from the shapes alone: "staged" (entry ofdm_track) wherever
+    one stream's S x C points and C weights fit in a block's shared memory
+    (S <= 302 at C = 96), else "global" (entry ofdm_track_global: the points
+    read from global memory on every pass, counted under
+    "ofdm_track_decide_fused:global"). The bytes as csrc/ofdm_track.cu's
+    stream_bytes reckons them."""
+    stream_bytes = (s * c * 8 + c * 4 + 15) // 16 * 16
+    return "staged" if stream_bytes <= OFDM_STAGE_BYTES else "global"
+
+
 def _ofdm_track_launch(config, z_eq, h_pow, slope0, evm_symbols, with_coherence):
-    """ofdm_track_decide_fused's launch: z_eq and h_pow go to the kernel by
-    their strides (in complex and float elements), views left as they are."""
+    """ofdm_track_decide_fused's launch on the route _ofdm_track_route
+    picks: z_eq and h_pow go to the kernel by their strides (in complex and
+    float elements), views left as they are."""
     name = "ofdm_track_decide_fused"
     if z_eq.dtype != torch.complex64 or z_eq.dim() < 2:
         raise ValueError(f"{name}: z_eq must be a complex64 [..., S, C] tensor")
@@ -1424,13 +1463,14 @@ def _ofdm_track_launch(config, z_eq, h_pow, slope0, evm_symbols, with_coherence)
     llrs = torch.empty(*lead, s * c * bpc, dtype=torch.float32, device=dev)
     evm2 = torch.empty(lead, dtype=torch.float32, device=dev)
     coh = torch.zeros(*lead, 2, dtype=torch.float32, device=dev) if with_coherence else None
-    err = _entry("ofdm_track")(
+    route = _ofdm_track_route(s, c)
+    err = _entry("ofdm_track" if route == "staged" else "ofdm_track_global")(
         z3.data_ptr(), *(st // 2 for st in z3.stride()[:3]), hp.data_ptr(), *hp.stride(),
         sl.data_ptr(), b, s, c, bpc, config.first_carrier, int(config.clock_tracking), evm_rows,
         llrs.data_ptr(), evm2.data_ptr(), None if coh is None else coh.data_ptr(),
         _stream_handle(dev),
     )
-    _check_launch(err, name)
+    _check_launch(err, name if route == "staged" else f"{name}:global")
     return (llrs, evm2, coh) if with_coherence else (llrs, evm2)
 
 
@@ -1441,14 +1481,15 @@ def _filterbank_operands(kind: str, config: ModemConfig, compute_dtype,
                          device) -> tuple[str, str, torch.Tensor]:
     """(entry point, route, basis) of a filterbank launch, ``kind``
     "tone_energies" or "decide_tones". The route follows the compute dtype
-    and the geometry, never the rows' dtype. At sps in _KERNEL_SPS and at
-    most 16 tones both compute dtypes take the tensor cores: bfloat16 the
-    entry ``kind + "_mma"`` (route "mma") with _demod_mma_basis, float32
-    the entry ``kind + "_mma_f32"`` (route "split") with the three-term
+    and the geometry, never the rows' dtype. At the geometry of
+    _filterbank_tensor_core_geometry (sps 32, 48, 64, 80 or 128, at most 32
+    tones) both compute dtypes take the tensor cores: bfloat16 the entry
+    ``kind + "_mma"`` (route "mma") with _demod_mma_basis, float32 the
+    entry ``kind + "_mma_f32"`` (route "split") with the three-term
     _demod_split_basis, on bfloat16 or float32 rows alike. Any other
     geometry takes the plain CUDA-core entry ``kind`` (route "plain") with
     the [sps, 2M] float32 basis of ``compute_dtype``'s entries."""
-    fast = _tensor_core_geometry(config)
+    fast = _filterbank_tensor_core_geometry(config)
     if fast and compute_dtype == torch.bfloat16:
         return f"{kind}_mma", "mma", _demod_mma_basis(config, torch.bfloat16, device)
     if fast:
@@ -1525,10 +1566,11 @@ def tone_energies_fused(config: ModemConfig, samples: torch.Tensor, *, compute_d
     to ``compute_dtype`` (float32 or bfloat16), as the reference's operands
     do; the product runs in float32. Rows may be strided (a view past the
     preamble of whole frames) as long as the last dimension is contiguous.
-    Any geometry: sps 32, 64 or 128 with at most 16 tones take the tensor
-    cores (float32 compute as a three-term bf16 split of the operands, the
-    energies within 1e-5 of each plus 1e-6 of the symbol's largest of the
-    plain version's), the rest a plain kernel (one warp a symbol)."""
+    Any geometry: sps 32, 48, 64, 80 or 128 with at most 32 tones take the
+    tensor cores (float32 compute as a three-term bf16 split of the
+    operands, the energies within 1e-5 of each plus 1e-6 of the symbol's
+    largest of the plain version's), the rest a plain kernel (one warp a
+    symbol)."""
     if samples.device.type == "cpu":
         return tone_energies_fused_ref(config, samples, compute_dtype=compute_dtype)
     m = config.num_tones

@@ -15,6 +15,8 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from anet_torch._native_build import Compile, hashed_path
@@ -85,6 +87,10 @@ SIGNATURES = {
         "anet_ofdm_track",
         [_P, _L, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
+    "ofdm_track_global": (
+        "anet_ofdm_track_global",
+        [_P, _L, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P], "ofdm_track",
+    ),
     "tone_energies": ("anet_tone_energies", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P]),
     "decide_tones": (
         "anet_decide_tones", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P], "tone_energies",
@@ -125,17 +131,27 @@ def library_path(name: str) -> Path:
     return hashed_path(BUILD_DIR, f"lib{name}", (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))), NVCC_FLAGS)
 
 
-def build_all(names=SOURCES) -> list[Path]:
+def build_all(names=SOURCES, seconds: dict | None = None) -> list[Path]:
     """Compile every library of ``names`` not built yet, one nvcc process per
-    source, all started together; raise with nvcc's output if any fails."""
+    source, all started together; raise with nvcc's output if any fails.
+    ``seconds``, where given, gets each compiled source's wall seconds from
+    the common start to its nvcc's end."""
+    t0 = time.perf_counter()
     jobs = []
     for name in names:
         out = library_path(name)
         if not out.exists():
             jobs.append((name, Compile(nvcc_path(), NVCC_FLAGS, CSRC / f"{name}.cu", out)))
+
+    def finish(job):  # a thread each, so every end is timed as it comes
+        return job.finish(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        ends = list(pool.map(finish, (job for _, job in jobs)))
     failures = []
-    for name, job in jobs:
-        error = job.finish()
+    for (name, _), (error, dt) in zip(jobs, ends):
+        if seconds is not None:
+            seconds[name] = dt
         if error is not None:
             failures.append(f"{name}: nvcc {error}")
     if failures:

@@ -23,13 +23,16 @@
 //   to the reference's sums, below 2^24, so exact as floats too). The A
 //   tile is 16 symbols x 16 (bf16, float32) or 32 (int8) samples a k-step.
 //   n_tiles is a template argument: 1 for M <= 4 tones, 2 for M <= 8, 4 for
-//   M <= 16.
+//   M <= 16, and 8 for M <= 32 (the batch-major filterbank alone, through
+//   SharedTerms).
 // - B, in one of three forms, packed by the wrapper once a config and
 //   device in fragment order (word [ks][t][r][lane]), the product type of
 //   the walk (walk_with's P):
 //   - OneTerm: the bf16 or the x127 int8 basis (kernels._demod_mma_basis);
 //     every lane keeps its k-steps x n_tiles x 2 registers for the whole
 //     launch.
+//   - SharedTerms (8 n-tiles): OneTerm's or SplitTerms' products, every
+//     term staged once a block in shared memory.
 //   - SplitTerms (float32 compute, and the float32 buffers of demod_at.cu
 //     and demod_at_energies.cu): the float32 basis as three bf16 terms,
 //     b = b0 + b1 + b2 exactly (kernels._demod_split_basis, [3, ks, n, 2,
@@ -419,6 +422,96 @@ struct SplitTerms {
       mma(small[t], a1, b0[ks][t][0], b0[ks][t][1]);  // about 2^-8
       mma(small[t], a0, v.x, v.y);
       mma(big[t], a0, b0[ks][t][0], b0[ks][t][1]);
+    }
+  }
+};
+
+// The B operand and the product at 8 n-tiles (17 to 32 tones; only the
+// batch-major filterbank takes them, the other walks refuse more than 16):
+// OneTerm's product (TERMS 1: bf16 samples, the bf16 basis of
+// kernels._demod_mma_basis) or SplitTerms' (TERMS 3: the float32 basis as
+// three bf16 terms, kernels._demod_split_basis, on bf16 or float32
+// samples), their products in the same order, so the same sums. Every term
+// is staged once a block in shared memory: held in registers, b0 alone
+// would take 2 x KS x 8 words a lane (80 at sps 80, 128 at sps 128) beside
+// 32 accumulators (one term) or 64 (the split). A lane's words of a
+// (k-step, n-tile) are one 8-byte vector of b0 and, split, one 16-byte
+// vector of b1 and b2, which it reads once a k-step for the 16 symbols of
+// its m16 tile.
+template <typename T, int SPS, int NT_, int TERMS>
+struct SharedTerms {
+  static_assert(TERMS == 1 || TERMS == 3, "one term, or the three-term split");
+  static_assert(std::is_same<T, __nv_bfloat16>::value || (TERMS == 3 && std::is_same<T, float>::value),
+                "bf16 samples, or float32 samples under the split");
+  static constexpr int NT = NT_;
+  static constexpr int KS = SPS / 16;                  // m16n8k16 k-steps a symbol
+  static constexpr int B0_BYTES = KS * NT * 32 * 8;    // b0
+  static constexpr int SMEM = B0_BYTES + (TERMS == 3 ? KS * NT * 32 * 16 : 0);  // + b1 and b2
+  const uint2* b0;
+  const uint4* b12;
+
+  __device__ __forceinline__ SharedTerms(const uint32_t* __restrict__ basis, unsigned char* smem) {
+    uint2* s0 = reinterpret_cast<uint2*>(smem);
+    uint4* s12 = reinterpret_cast<uint4*>(smem + B0_BYTES);
+    const uint32_t* t1 = basis + KS * NT * 64;
+    const uint32_t* t2 = t1 + KS * NT * 64;
+    for (int j = threadIdx.x; j < KS * NT * 32; j += THREADS) {
+      const int w = (j >> 5) * 64 + (j & 31);  // (k-step, n-tile) j / 32, lane j % 32, register 0
+      s0[j] = make_uint2(basis[w], basis[w + 32]);
+      if constexpr (TERMS == 3) s12[j] = make_uint4(t1[w], t1[w + 32], t2[w], t2[w + 32]);
+    }
+    __syncthreads();  // the only block-wide sync: before any warp's walk
+    b0 = s0;
+    b12 = s12;
+  }
+
+  __device__ __forceinline__ void energies(const unsigned char* rows, int x0, int sh, int lane,
+                                           float (&e)[NT][2]) const {
+    float big[NT][4], small[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) big[t][c] = small[t][c] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (std::is_same<T, float>::value) {  // SplitTerms' six products
+        uint32_t a0[4], a1[4], a2[4];
+        a_split<SPS>(rows, x0 + (lane & 3), ks, a0, a1, a2);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const uint2 u = b0[(ks * NT + t) * 32 + lane];
+          const uint4 v = b12[(ks * NT + t) * 32 + lane];
+          mma(small[t], a2, u.x, u.y);  // about 2^-16 |a| |b| each
+          mma(small[t], a1, v.x, v.y);
+          mma(small[t], a0, v.z, v.w);
+          mma(small[t], a1, u.x, u.y);  // about 2^-8
+          mma(small[t], a0, v.x, v.y);
+          mma(big[t], a0, u.x, u.y);
+        }
+      } else {
+        uint32_t a[4];
+        a_frag<T, SPS>(rows, x0, sh, ks, a);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const uint2 u = b0[(ks * NT + t) * 32 + lane];
+          if constexpr (TERMS == 3) {  // SplitTerms' three products of bf16 samples
+            const uint4 v = b12[(ks * NT + t) * 32 + lane];
+            mma(small[t], a, v.z, v.w);  // a b2, about 2^-16 |a| |b|
+            mma(small[t], a, v.x, v.y);  // a b1, about 2^-8
+          }
+          mma(big[t], a, u.x, u.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      if constexpr (TERMS == 1) {  // OneTerm's energies of its one accumulator
+        e[u][0] = tone_energy(big[u][0], big[u][1]);
+        e[u][1] = tone_energy(big[u][2], big[u][3]);
+      } else {
+        e[u][0] = tone_energy(big[u][0] + small[u][0], big[u][1] + small[u][1]);
+        e[u][1] = tone_energy(big[u][2] + small[u][2], big[u][3] + small[u][3]);
+      }
     }
   }
 };

@@ -30,7 +30,12 @@
 // sincosf the result does not need.
 //
 // Design: one warp per stream, WARPS streams a block, and no block-wide
-// barrier after staging. The block stages its streams' points and w in
+// barrier after staging. Two routes, which the wrapper picks from S and C
+// before the launch (kernels._ofdm_track_route) and names by the C entry
+// it calls:
+// - staged (anet_ofdm_track), wherever one stream's points and weights fit
+//   in a block's shared memory (stream_bytes(S, C) <= MAX_SMEM: S <= 302 at
+//   C = 96). The block stages its streams' points and w in
 // shared memory with cp.async (8 bytes a point, 4 a weight), consecutive
 // threads on consecutive addresses in whichever layout the strides give:
 // a stream's own row, carriers fastest, in the batch-major layout (each
@@ -51,6 +56,19 @@
 // (QPSK), float4 (16-QAM) or three float2 (64-QAM) from its lane. Phases
 // (s + 1) m are float products, exact below 2^24, as the plain version's.
 // Lanes past C idle in every pass.
+// - global (anet_ofdm_track_global), for longer frames: the block stages
+//   only its streams' C weights, and every pass (the two fit iterations,
+//   the gate pass, the identity pass) reads the points from global memory
+//   by their strides, behind the one accessor `point`. The arithmetic, its
+//   order, the shuffle trees and the stores are the staged route's, so both
+//   give the same bits. Batch-major, lanes on carriers read a symbol's
+//   points coalesced; in the time-major view (point stride 1 between
+//   streams) lanes read points B elements apart, a sector each, which the
+//   block's streams share in L1. The bound: up to four reads of the points
+//   in place of one (a 4,096-byte ofdm-coded frame, S = 343, C = 96, is
+//   263,424 bytes of points: at B = 1,024 about 0.40 ms at 3.35 TB/s for
+//   four reads plus the LLRs, against 0.16 ms for one), since L2 (50 MB)
+//   holds some 190 streams' points, far fewer than B.
 #include "common.cuh"
 
 namespace {
@@ -141,10 +159,12 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) 
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// Bytes of shared memory a stream takes: its S x C points, then C weights.
+// Bytes of shared memory a stream takes: its S x C points, then C weights
+// (the staged route); only the weights (the global route).
 __host__ __device__ __forceinline__ int stream_bytes(int S, int C) {
   return (S * C * 8 + C * 4 + 15) / 16 * 16;
 }
+__host__ __device__ __forceinline__ int weight_bytes(int C) { return (C * 4 + 15) / 16 * 16; }
 
 // The LLR planes of a point, one vector store: BPC floats at out.
 template <int BPC>
@@ -174,7 +194,9 @@ __device__ __forceinline__ float store_point(float* out, float zr, float zi, flo
   return er * er + ei * ei;
 }
 
-template <int BPC>
+// STAGED: the points staged in shared memory; else read from global memory
+// on every pass.
+template <int BPC, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 ofdm_track_kernel(const float2* __restrict__ z, int64_t zs_b, int64_t zs_s, int64_t zs_c,
                   const float* __restrict__ hp, int64_t hs_b, int64_t hs_c,
@@ -186,41 +208,53 @@ ofdm_track_kernel(const float2* __restrict__ z, int64_t zs_b, int64_t zs_s, int6
   const int nw = blockDim.x >> 5, lg = __ffs(nw) - 1;  // streams a block, a power of two
   const int b0 = blockIdx.x * nw;
   const int b = b0 + warp;
-  const int per = stream_bytes(S, C);
+  const int per = STAGED ? stream_bytes(S, C) : weight_bytes(C);
   const int n = S * C;
+  const int w_at = STAGED ? 8 * n : 0;  // the weights' byte offset in a stream's share
 
-  // staging: time-major (stride 1 between streams) streams fastest, the
-  // block together; otherwise each warp its own stream, carriers fastest
-  if (zs_b == 1) {
-    for (int s = 0; s < S; ++s)
-      for (int i = threadIdx.x; i < C * nw; i += blockDim.x) {
-        const int w = i & (nw - 1), c = i >> lg;
-        if (b0 + w < B)
-          cp_async(smem + w * per + 8 * (s * C + c), z + (b0 + w) + s * zs_s + c * zs_c, 8);
-      }
-  } else if (b < B) {
-    const float2* zb = z + (int64_t)b * zs_b;
-    for (int s = 0; s < S; ++s)
-      for (int c = lane; c < C; c += 32)
-        cp_async(smem + warp * per + 8 * (s * C + c), zb + s * zs_s + c * zs_c, 8);
+  // staging (the staged route's points; either route's weights):
+  // time-major (stride 1 between streams) streams fastest, the block
+  // together; otherwise each warp its own stream, carriers fastest
+  if constexpr (STAGED) {
+    if (zs_b == 1) {
+      for (int s = 0; s < S; ++s)
+        for (int i = threadIdx.x; i < C * nw; i += blockDim.x) {
+          const int w = i & (nw - 1), c = i >> lg;
+          if (b0 + w < B)
+            cp_async(smem + w * per + 8 * (s * C + c), z + (b0 + w) + s * zs_s + c * zs_c, 8);
+        }
+    } else if (b < B) {
+      const float2* zb = z + (int64_t)b * zs_b;
+      for (int s = 0; s < S; ++s)
+        for (int c = lane; c < C; c += 32)
+          cp_async(smem + warp * per + 8 * (s * C + c), zb + s * zs_s + c * zs_c, 8);
+    }
   }
   if (hs_b == 1) {
     for (int i = threadIdx.x; i < C * nw; i += blockDim.x) {
       const int w = i & (nw - 1), c = i >> lg;
-      if (b0 + w < B) cp_async(smem + w * per + 8 * n + 4 * c, hp + (b0 + w) + c * hs_c, 4);
+      if (b0 + w < B) cp_async(smem + w * per + w_at + 4 * c, hp + (b0 + w) + c * hs_c, 4);
     }
   } else if (b < B) {
     for (int c = lane; c < C; c += 32)
-      cp_async(smem + warp * per + 8 * n + 4 * c, hp + (int64_t)b * hs_b + c * hs_c, 4);
+      cp_async(smem + warp * per + w_at + 4 * c, hp + (int64_t)b * hs_b + c * hs_c, 4);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-  if (zs_b == 1 || hs_b == 1)
+  if ((STAGED && zs_b == 1) || hs_b == 1)
     __syncthreads();  // the only block-wide barrier: the block staged its streams together
   else
     __syncwarp();
   if (b >= B) return;
-  const float2* sz = reinterpret_cast<const float2*>(smem + warp * per);  // [S][C]
-  const float* sw = reinterpret_cast<const float*>(smem + warp * per + 8 * n);  // [C]
+  const float2* sz = reinterpret_cast<const float2*>(smem + warp * per);  // [S][C], staged
+  const float* sw = reinterpret_cast<const float*>(smem + warp * per + w_at);  // [C]
+  const float2* zb = z + (int64_t)b * zs_b;
+  // point (s, c) of the stream: staged, or read by its strides
+  const auto point = [&](int s, int c) -> float2 {
+    if constexpr (STAGED)
+      return sz[s * C + c];
+    else
+      return zb[s * zs_s + c * zs_c];
+  };
 
   float cc = 0.0f;
   bool keep = false;
@@ -238,7 +272,7 @@ ofdm_track_kernel(const float2* __restrict__ z, int64_t zs_b, int64_t zs_s, int6
           fs += 1.0f;
           const float phase = fs * fm;  // (s + 1) m, exact below 2^24
           float zr, zi, ure, uim;
-          rotate(sz[s * C + c], cc * phase, zr, zi);
+          rotate(point(s, c), cc * phase, zr, zi);
           decision_product<BPC>(zr, zi, w, ure, uim);
           num += phase * uim;
           den += phase * phase * fmaxf(ure, 0.0f);
@@ -259,7 +293,7 @@ ofdm_track_kernel(const float2* __restrict__ z, int64_t zs_b, int64_t zs_s, int6
 #pragma unroll 4
       for (int s = 0; s < S; ++s) {
         fs += 1.0f;
-        const float2 p = sz[s * C + c];
+        const float2 p = point(s, c);
         float zr, zi, ure, uim;
         rotate(p, cc * (fs * fm), zr, zi);
         decision_product<BPC>(zr, zi, w, ure, uim);
@@ -284,7 +318,7 @@ ofdm_track_kernel(const float2* __restrict__ z, int64_t zs_b, int64_t zs_s, int6
       const float w = sw[c];
 #pragma unroll 4
       for (int s = 0; s < S; ++s) {
-        const float2 p = sz[s * C + c];
+        const float2 p = point(s, c);
         e += store_point<BPC>(out + (int64_t)(s * C + c) * BPC, p.x, p.y, w, s < evm_rows);
       }
     }
@@ -293,53 +327,76 @@ ofdm_track_kernel(const float2* __restrict__ z, int64_t zs_b, int64_t zs_s, int6
   if (lane == 0) evm2[b] = e / (float)(evm_rows * C);
 }
 
-template <int BPC>
+template <int BPC, bool STAGED>
 cudaError_t launch(const void* z, int64_t zs_b, int64_t zs_s, int64_t zs_c, const void* hp,
                    int64_t hs_b, int64_t hs_c, const void* slope, int B, int S, int C,
                    int first_carrier, int track, int evm_rows, void* llrs, void* evm2, void* coh,
                    cudaStream_t st) {
   static size_t smem_set = 48 * 1024;  // this instantiation's dynamic shared memory limit
+  const int per = STAGED ? stream_bytes(S, C) : weight_bytes(C);
   int nw = WARPS;
-  while (nw > 1 && (size_t)nw * stream_bytes(S, C) > MAX_SMEM) nw /= 2;
-  const size_t smem = (size_t)nw * stream_bytes(S, C);
+  while (nw > 1 && (size_t)nw * per > MAX_SMEM) nw /= 2;
+  const size_t smem = (size_t)nw * per;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   if (smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        ofdm_track_kernel<BPC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ofdm_track_kernel<BPC, STAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
-  ofdm_track_kernel<BPC><<<(B + nw - 1) / nw, 32 * nw, smem, st>>>(
+  ofdm_track_kernel<BPC, STAGED><<<(B + nw - 1) / nw, 32 * nw, smem, st>>>(
       static_cast<const float2*>(z), zs_b, zs_s, zs_c, static_cast<const float*>(hp), hs_b, hs_c,
       static_cast<const float*>(slope), B, S, C, first_carrier, track, evm_rows,
       static_cast<float*>(llrs), static_cast<float*>(evm2), static_cast<float*>(coh));
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// z: complex64 [B, S, C] read by strides (zs_*, in complex elements, 8-byte
-// aligned); hp: float32 [B, C] by strides; slope: float32 [B]; llrs:
-// float32 [B, S * C * bpc] contiguous, 16-byte aligned; evm2: float32 [B];
-// coh: float32 [B, 2] contiguous (tracked, unrotated coherence) or null,
-// written only when track != 0. Returns the launch's cudaError_t.
-extern "C" int anet_ofdm_track(const void* z, long long zs_b, long long zs_s, long long zs_c,
-                               const void* hp, long long hs_b, long long hs_c, const void* slope,
-                               int B, int S, int C, int bpc, int first_carrier, int track,
-                               int evm_rows, void* llrs, void* evm2, void* coh, void* stream) {
+template <bool STAGED>
+int dispatch(const void* z, long long zs_b, long long zs_s, long long zs_c, const void* hp,
+             long long hs_b, long long hs_c, const void* slope, int B, int S, int C, int bpc,
+             int first_carrier, int track, int evm_rows, void* llrs, void* evm2, void* coh,
+             void* stream) {
   if (B < 1 || S < 1 || C < 1 || evm_rows < 1 || evm_rows > S) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (bpc) {
     case 2:
-      return (int)launch<2>(z, zs_b, zs_s, zs_c, hp, hs_b, hs_c, slope, B, S, C, first_carrier,
-                            track, evm_rows, llrs, evm2, coh, st);
+      return (int)launch<2, STAGED>(z, zs_b, zs_s, zs_c, hp, hs_b, hs_c, slope, B, S, C,
+                                    first_carrier, track, evm_rows, llrs, evm2, coh, st);
     case 4:
-      return (int)launch<4>(z, zs_b, zs_s, zs_c, hp, hs_b, hs_c, slope, B, S, C, first_carrier,
-                            track, evm_rows, llrs, evm2, coh, st);
+      return (int)launch<4, STAGED>(z, zs_b, zs_s, zs_c, hp, hs_b, hs_c, slope, B, S, C,
+                                    first_carrier, track, evm_rows, llrs, evm2, coh, st);
     case 6:
-      return (int)launch<6>(z, zs_b, zs_s, zs_c, hp, hs_b, hs_c, slope, B, S, C, first_carrier,
-                            track, evm_rows, llrs, evm2, coh, st);
+      return (int)launch<6, STAGED>(z, zs_b, zs_s, zs_c, hp, hs_b, hs_c, slope, B, S, C,
+                                    first_carrier, track, evm_rows, llrs, evm2, coh, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// The staged route. z: complex64 [B, S, C] read by strides (zs_*, in
+// complex elements, 8-byte aligned); hp: float32 [B, C] by strides; slope:
+// float32 [B]; llrs: float32 [B, S * C * bpc] contiguous, 16-byte aligned;
+// evm2: float32 [B]; coh: float32 [B, 2] contiguous (tracked, unrotated
+// coherence) or null, written only when track != 0. Refuses (returns
+// cudaErrorInvalidValue) a stream whose points do not fit in shared memory.
+// Returns the launch's cudaError_t.
+extern "C" int anet_ofdm_track(const void* z, long long zs_b, long long zs_s, long long zs_c,
+                               const void* hp, long long hs_b, long long hs_c, const void* slope,
+                               int B, int S, int C, int bpc, int first_carrier, int track,
+                               int evm_rows, void* llrs, void* evm2, void* coh, void* stream) {
+  return dispatch<true>(z, zs_b, zs_s, zs_c, hp, hs_b, hs_c, slope, B, S, C, bpc, first_carrier,
+                        track, evm_rows, llrs, evm2, coh, stream);
+}
+
+// The global route: the same arguments and outputs, the points read from
+// global memory on every pass, any S.
+extern "C" int anet_ofdm_track_global(const void* z, long long zs_b, long long zs_s,
+                                      long long zs_c, const void* hp, long long hs_b,
+                                      long long hs_c, const void* slope, int B, int S, int C,
+                                      int bpc, int first_carrier, int track, int evm_rows,
+                                      void* llrs, void* evm2, void* coh, void* stream) {
+  return dispatch<false>(z, zs_b, zs_s, zs_c, hp, hs_b, hs_c, slope, B, S, C, bpc, first_carrier,
+                         track, evm_rows, llrs, evm2, coh, stream);
 }

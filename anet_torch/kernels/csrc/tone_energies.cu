@@ -22,9 +22,12 @@
 //
 // Design: three routes, which the wrapper picks from the compute dtype and
 // the geometry, never from the rows' dtype, and names to the C entry it
-// calls (kernels._filterbank_operands):
-// - sps 32, 64 or 128 and at most 16 tones: the align+demod filterbank of
-//   demod_core.cuh with every start at 0, on the tensor cores. The rows are
+// calls (kernels._filterbank_operands, on kernels.
+// _filterbank_tensor_core_geometry):
+// - sps 32, 48, 64, 80 or 128 (whole k-steps of 16 samples) and at most 32
+//   tones (8 n-tiles; mfsk8-audible and mfsk32-dense among them): the
+//   align+demod filterbank of demod_core.cuh with every start at 0, on the
+//   tensor cores. The rows are
 //   its PitchedSpan: buf the first row, pitch the row stride, len the row's
 //   whole symbols (n_symbols * sps), start a zero vector, pre 0. Each warp
 //   walks (row, tile of symbols) items with its own ring of 16-byte
@@ -36,7 +39,8 @@
 //   store_energies and store_decisions, those of demod_at_energies_fused
 //   and demod_at_fused.
 //   - bfloat16 compute (the *_mma entries): bf16 rows against the bf16
-//     basis in registers (OneTerm, kernels._demod_mma_basis).
+//     basis in registers (OneTerm, kernels._demod_mma_basis); at 17-32
+//     tones the basis in shared memory (SharedTerms), the same products.
 //   - float32 compute (the *_mma_f32 entries): the float32 basis as three
 //     bf16 terms that sum to it exactly (SplitTerms,
 //     kernels._demod_split_basis), b0 in registers, b1 and b2 in shared
@@ -45,12 +49,18 @@
 //     same ring and split in registers into three bf16 terms, six of the
 //     nine products kept. Each product is exact in float32; the largest
 //     sums in an accumulator of its own, as the tensor cores truncate what
-//     they add below a sum's largest addend.
-// - any other geometry (sps 48 of mfsk8-audible, the 32 tones of
-//   mfsk32-dense), either compute dtype: a plain kernel, one warp per
+//     they add below a sum's largest addend. At 17-32 tones b0 too lies in
+//     shared memory (SharedTerms), the same products in the same order.
+//   At sps 48 and 80 a symbol is 96 or 160 bytes of bf16 (192 or 320 of
+//   float32), a tile one m16 tile of 16 symbols, and the padded rows (28,
+//   44, 52 or 84 words) keep the 8 symbols of an A fragment in 8 distinct
+//   bank groups.
+// - any other geometry (custom configs: sps 24, 40, 96 or 160, or more
+//   than 32 tones), either compute dtype: a plain kernel, one warp per
 //   symbol, its samples staged in shared memory, lane c summing the I and
 //   Q of tones c, c + 32, ... over the samples in order from the [sps, 2M]
-//   basis (cos columns, then sin), on the CUDA cores.
+//   basis (cos columns, then sin), on the CUDA cores; its launches count
+//   under kernels.OFF_WALK_KEYS["plain"], filterbank_cuda_core.
 // The TPU kernels' flattened [T, sps] windows and their zero padding to
 // 512-symbol tiles are not carried over.
 #include "demod_core.cuh"
@@ -110,16 +120,21 @@ cudaError_t launch_mma(const MmaArgs& a) {
 }
 
 // The product of a route: SPLIT false, bfloat16 compute (one term); true,
-// float32 compute (three terms) on T rows.
+// float32 compute (three terms) on T rows. Up to 4 n-tiles the basis's b0
+// stays in registers (OneTerm, SplitTerms); at 8 every term is staged in
+// shared memory (SharedTerms), where b0 in registers would spill.
 template <typename T, int SPS, int NT, bool SPLIT>
-using Product = typename std::conditional<SPLIT, anet::demod::SplitTerms<T, SPS, NT>,
-                                          anet::demod::OneTerm<T, SPS, NT>>::type;
+using Product = typename std::conditional<
+    (NT > 4), anet::demod::SharedTerms<T, SPS, NT, SPLIT ? 3 : 1>,
+    typename std::conditional<SPLIT, anet::demod::SplitTerms<T, SPS, NT>,
+                              anet::demod::OneTerm<T, SPS, NT>>::type>::type;
 
 template <typename T, int SPS, bool SPLIT, bool DECIDE>
 cudaError_t dispatch_mma_tones(const MmaArgs& a) {
   if (a.m <= 4) return launch_mma<T, SPS, Product<T, SPS, 1, SPLIT>, DECIDE>(a);
   if (a.m <= 8) return launch_mma<T, SPS, Product<T, SPS, 2, SPLIT>, DECIDE>(a);
-  return launch_mma<T, SPS, Product<T, SPS, 4, SPLIT>, DECIDE>(a);
+  if (a.m <= 16) return launch_mma<T, SPS, Product<T, SPS, 4, SPLIT>, DECIDE>(a);
+  return launch_mma<T, SPS, Product<T, SPS, 8, SPLIT>, DECIDE>(a);
 }
 
 template <typename T, bool SPLIT, bool DECIDE>
@@ -127,7 +142,7 @@ int dispatch_mma(const void* x, int R, long long row_stride, const void* start, 
                  int sps, int m, const void* basis, void* out0, void* out1, void* out2,
                  void* stream) {
   const long long row = (long long)n_symbols * sps;
-  if (R < 1 || n_symbols < 1 || m < 1 || m > 16 || (R > 1 && row_stride < row))
+  if (R < 1 || n_symbols < 1 || m < 1 || m > 32 || (R > 1 && row_stride < row))
     return (int)cudaErrorInvalidValue;
   const long long pitch = R > 1 ? row_stride : row;  // one row: its pitch is never used
   const MmaArgs a{x, R, pitch, row, start, n_symbols, m, basis, out0, out1, out2,
@@ -135,8 +150,12 @@ int dispatch_mma(const void* x, int R, long long row_stride, const void* start, 
   switch (sps) {
     case 32:
       return (int)dispatch_mma_tones<T, 32, SPLIT, DECIDE>(a);
+    case 48:
+      return (int)dispatch_mma_tones<T, 48, SPLIT, DECIDE>(a);
     case 64:
       return (int)dispatch_mma_tones<T, 64, SPLIT, DECIDE>(a);
+    case 80:
+      return (int)dispatch_mma_tones<T, 80, SPLIT, DECIDE>(a);
     case 128:
       return (int)dispatch_mma_tones<T, 128, SPLIT, DECIDE>(a);
     default:
@@ -255,7 +274,8 @@ int dispatch(int dtype, int sps, const void* x, int R, long long row_stride, int
 }  // namespace
 
 // The plain kernel, either compute dtype, at any geometry (the wrapper
-// sends sps 32, 64 and 128 with at most 16 tones to the tensor cores). x: R
+// sends sps 32, 48, 64, 80 and 128 with at most 32 tones to the tensor
+// cores). x: R
 // rows of >= n_symbols * sps samples, `row_stride` elements apart
 // (contiguous within a row), float32 or bfloat16 (widened on load); basis:
 // [sps, 2m] float32 (cos columns, then sin; either compute dtype's
@@ -279,7 +299,7 @@ extern "C" int anet_decide_tones(const void* x, int dtype, int R, long long row_
 // bfloat16 compute on the tensor cores. x: R rows of >= n_symbols * sps
 // bfloat16 samples, `row_stride` elements apart (>= n_symbols * sps when R >
 // 1), contiguous within a row, any alignment; start: [R] int32 zeros; sps
-// 32, 64 or 128, m <= 16; basis: the B fragments of demod_core.cuh
+// 32, 48, 64, 80 or 128, m <= 32; basis: the B fragments of demod_core.cuh
 // (kernels._demod_mma_basis for bfloat16); energies: [R, n_symbols, m]
 // float32. Returns cudaGetLastError().
 extern "C" int anet_tone_energies_mma(const void* x, int R, long long row_stride,

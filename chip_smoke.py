@@ -37,7 +37,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the OFDM equalizer ofdm_track_decide_fused on 256 drifted frames
    (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
    and untracked, timed on ofdm-fast at B = 8,192, batch-major and as the
-   time-major receiver's [B, S, C] view of [S, C, B] points; the batch-major
+   time-major receiver's [B, S, C] view of [S, C, B] points, and past
+   shared memory (phase_kernels_ofdm_long: ofdm-coded streams of S = 302,
+   the staged route's longest, 303 and 343 data symbols, B = 1,024, both
+   layouts on the route kernels._ofdm_track_route picks, the global one
+   from 303 on, held and timed against the bound and the global route's
+   floor of four reads of the points; at 302 the global route forced,
+   bit-equal to the staged one and timed beside it); the batch-major
    filterbank (tone_energies_fused, decide_tones_fused) on mfsk16-fast
    data sections read in place, bfloat16 compute (the tensor cores) held
    against the plain versions at 256 rows and at B = 16,384 (tones
@@ -70,11 +76,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    epilogue at sps 80 with 16 tones, bf16, int8 and float32; tones, words
    and CRC counts bit-equal, the sums within GENERIC_RTOL, on 256 streams
    and at B = 16,384, timed there against its bound and the CUDA cores'
-   floor); and the batch-major filterbank's CUDA-core body off that
-   geometry (tone_energies.cu, one warp a symbol; phase_kernels_filterbank_
-   generic: tone_energies_fused and decide_tones_fused at the two stream
-   paths' shapes, mfsk32-dense bf16 and mfsk8-audible float32 compute,
-   held and timed as the generic body);
+   floor); and the batch-major filterbank off that geometry
+   (phase_kernels_filterbank_generic): its tensor-core routes at the two
+   stream paths' shapes (tone_energies_fused and decide_tones_fused,
+   mfsk32-dense bf16 compute with 32 tones' basis in shared memory, and
+   mfsk8-audible float32 compute as the split at sps 48; held with
+   compare_mma_tones and compare_split at 256 rows and B = 16,384, timed
+   there), and its CUDA-core body (tone_energies.cu, one warp a symbol),
+   kept for custom geometries, at sps 40 with 8 tones, held and timed as
+   the generic body;
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -113,8 +123,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    stream of phase 4 on ofdm-fast, chunk 4,736, cold and warm: probe_at_fused,
    sync_search_fused, ofdm_track_decide_fused), "oneshot-ofdm"
    (ofdm.receive_frame on 2,048 captures, frame start random below 2,000,
-   20 dB) and "stream-dynamic-ofdm" (B = 2,048, payloads 64, 256, 128 in
-   frame lock, cold and warm);
+   20 dB), "stream-dynamic-ofdm" (B = 2,048, payloads 64, 256, 128 in
+   frame lock, cold and warm) and "aligned-ofdm-long" (1,024 ofdm-coded
+   frames of 4,096 bytes, 343 data symbols, at 16 dB, batch-major and
+   time-major: the equalizer's global route and viterbi_trellis, never
+   its staged route);
 8. the fifth slice: "aligned-int8" (the 16,384 frames of phase 3 quantized
    x127, demodulate_frame_tm with int8 compute: decide_frame_tm's int8
    instantiation), "stream-int8" (phase 4's capture quantized with
@@ -161,20 +174,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    float32 compute: decide_frame_tm's three-term split, never its bf16 or
    int8 route) and "aligned-window-f32" (phase 6's window in float32 rows
    and compute: decide_tones_tm's split, never its bf16 route), every
-   frame ok with equal payloads; and the two presets off the tensor-core
-   walks (sps 32, 64 or 128 with at most 16 tones: kernels.
-   _tensor_core_geometry): "aligned-audible" (16,384 bf16 mfsk8-audible
-   frames, 48 samples a symbol, through demodulate_frame_tm: 3 bits a
-   symbol take decide_tones_tm, its generic body: frame_tm_generic),
+   frame ok with equal payloads; and the two presets off the align+demod
+   kernels' and the time-major walk's geometry (sps 32, 64 or 128 with at
+   most 16 tones: kernels._tensor_core_geometry): "aligned-audible"
+   (16,384 bf16 mfsk8-audible frames, 48 samples a symbol, through
+   demodulate_frame_tm: 3 bits a symbol take decide_tones_tm, its generic
+   body: frame_tm_generic),
    "aligned-dense-f32" (16,384 float32 mfsk32-dense frames, 32 tones:
    frame_tm_generic:f32), "stream-audible-f32" (phase 4's stream on
    mfsk8-audible at receive_stream's float32 defaults, cold and warm: the
    search, then the aligned slice through the batch-major receiver,
-   tone_energies_fused's CUDA-core body: filterbank_cuda_core:f32; the
-   plain probe) and "stream-dense" (the same on mfsk32-dense with a bf16
-   carry, locked: filterbank_cuda_core, probe_at_fused); none of them
-   launches an align+demod kernel or a tensor-core walk of the time-major
-   pair or the filterbank (OFF_THE_WALK);
+   tone_energies_fused's tensor-core split at sps 48:
+   tone_energies_fused:f32; the plain probe) and "stream-dense" (the same
+   on mfsk32-dense with a bf16 carry, locked: tone_energies_fused's
+   bfloat16 route at 32 tones, probe_at_fused); none of them launches an
+   align+demod kernel, the time-major pair's tensor-core walk
+   (OFF_THE_WALK) or the filterbank's CUDA-core body;
 11. the scale-out layer (anet_torch.parallel, its positions all on the one
    card) and the modem CLI: "sharded-demod" (16,384 aligned mfsk16-fast
    frames, float32 compute, sharded_demodulate on 4 positions and on
@@ -239,14 +254,18 @@ The line before the last is a JSON object with each kernel's numbers (the
 five kernels with an int8 instantiation carry its numbers under "int8", the
 ten with a float32 route of their own its numbers under "f32"; the
 batch-major filterbank's are on float32 rows, with its bf16 rows' under
-"f32"."bf16_rows"; the two CUDA-core bodies off the tensor-core walks'
-geometry have rows of their own, whose launches the wrappers count under
-kernels.OFF_WALK_KEYS: frame_tm_generic's numbers decide_tones_tm on
-mfsk8-audible bf16, under "f32" on mfsk32-dense float32, with its other
-shapes and the frame epilogue beside them; filterbank_cuda_core's
-tone_energies_fused on mfsk32-dense under bf16 compute, under "f32" on
-mfsk8-audible under float32 compute, decide_tones_fused's under
-"decide_tones"), and the last line the JSON verdict with the device's name.
+"f32"."bf16_rows", and its numbers at mfsk32-dense and mfsk8-audible
+under "presets"; ofdm_track_decide_fused's global route under "global",
+S = 343 batch-major, its other shapes under "global"."shapes"; the two
+CUDA-core bodies off the tensor-core walks' geometry have rows of their
+own, whose launches the wrappers count under kernels.OFF_WALK_KEYS:
+frame_tm_generic's numbers decide_tones_tm on mfsk8-audible bf16, under
+"f32" on mfsk32-dense float32, with its other shapes and the frame
+epilogue beside them; filterbank_cuda_core's, on no path since every
+preset takes the tensor cores (OFF_PATHS), tone_energies_fused at sps 40
+with 8 tones under bf16 compute, under "f32" under float32 compute,
+decide_tones_fused's under "decide_tones"), and the last line the JSON
+verdict with the device's name.
 """
 
 from __future__ import annotations
@@ -1407,26 +1426,74 @@ def phase_kernels_generic(gen) -> dict:
     return results
 
 
+def custom_filterbank_config() -> ModemConfig:
+    """sps 40 with 8 tones: a geometry off every tensor-core walk (no preset
+    has one), where the batch-major filterbank keeps its CUDA-core body."""
+    return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, num_tones=8, base_freq_hz=600.0)
+
+
+def compare_mma_tones(label: str, cfg, x: torch.Tensor) -> float:
+    """tone_energies_fused and decide_tones_fused with bfloat16 compute
+    (the tensor-core walk, never the CUDA-core body at this geometry) on
+    rows ``x`` against their plain versions: every energy, best and total
+    within RTOL of its symbol's largest plain energy (bf16 products exact,
+    float32 sums in another order), the tones (decided, and the energies'
+    argmax) equal but where the plain version's two largest energies lie
+    that close (near-ties, their count printed). Returns the max absolute
+    error."""
+    if kernels._filterbank_operands("tone_energies", cfg, torch.bfloat16, DEV)[1] != "mma":
+        raise AssertionError(f"{label}: bfloat16 compute does not take the tensor cores")
+    want = kernels.tone_energies_fused_ref(cfg, x, compute_dtype=torch.bfloat16)
+    got = kernels.tone_energies_fused(cfg, x, compute_dtype=torch.bfloat16)
+    scale = want.amax(-1)
+    top2 = want.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= RTOL * top2[..., 0]
+    del top2
+    diff = (got - want).abs()
+    worst = float(diff.max())
+    bad = int((diff > RTOL * scale[..., None]).sum())
+    argmax_bad = int(((got.argmax(-1) != want.argmax(-1)) & ~near).sum())
+    del got, diff
+    tone, best, total = kernels.decide_tones_fused(cfg, x, compute_dtype=torch.bfloat16)
+    tone_bad = int(((tone != want.argmax(-1).int()) & ~near).sum())
+    d_best, d_total = (best - scale).abs(), (total - want.sum(-1)).abs()
+    best_bad = int((d_best > RTOL * scale).sum())
+    total_bad = int((d_total > RTOL * scale).sum())
+    worst = max(worst, float(d_best.max()), float(d_total.max()))
+    log(f"  {label}: max abs {worst:.3e}; beyond RTOL of the symbol's largest: energies {bad}, best {best_bad}, "
+        f"total {total_bad}; near-ties {int(near.sum())} of {near.numel()}; energies' argmax differing off a "
+        f"near-tie {argmax_bad}, tones {tone_bad}")
+    if bad or best_bad or total_bad or argmax_bad or tone_bad:
+        raise AssertionError(f"{label}: the tensor-core filterbank is beyond its tolerance")
+    return worst
+
+
 def phase_kernels_filterbank_generic(gen) -> dict:
-    """Phase 2 for the batch-major filterbank's CUDA-core body off the
-    tensor-core walk's geometry (tone_energies.cu, one warp a symbol; the
-    plain route of kernels._filterbank_operands), at the two stream paths'
-    shapes: mfsk32-dense under bfloat16 compute on bf16 rows
-    (stream-dense's) and mfsk8-audible under float32 compute on float32
-    rows (stream-audible-f32's). tone_energies_fused and decide_tones_fused
-    on the data sections of 256 noisy frames read in place past the
-    preamble, against their plain versions (the energies' argmax and the
-    tones bit-equal; energies within GENERIC_RTOL of the largest, best and
-    total within GENERIC_RTOL), then tiled to B = 16,384, held again and
-    timed there against their bound and the CUDA cores' floor: the
-    FILTERBANK_ROW results (":f32" for float32 compute), decide_tones_fused's
-    under "decide_tones"."""
-    results = {}
-    for model, cdt, key in ((DENSE_MODEL, torch.bfloat16, FILTERBANK_ROW),
-                            (AUDIBLE_MODEL, torch.float32, f"{FILTERBANK_ROW}:f32")):
+    """Phase 2 for the batch-major filterbank off the other walks' geometry.
+    1. Its tensor-core routes at the two stream paths' shapes
+       (kernels._filterbank_tensor_core_geometry): mfsk32-dense (sps 80, 32
+       tones: 8 n-tiles, the basis in shared memory) under bfloat16 compute
+       on bf16 rows (stream-dense's) and mfsk8-audible (sps 48, 8 tones)
+       under float32 compute on float32 rows (stream-audible-f32's: the
+       three-term split). tone_energies_fused and decide_tones_fused on the
+       data sections of 256 noisy frames read in place past the preamble,
+       against their plain versions with the walk's tolerances
+       (compare_mma_tones; compare_split), then tiled to B = 16,384, held
+       again and timed there against their bound (bytes, or the products
+       at the bf16 peak): the two wrappers' "presets" results.
+    2. The CUDA-core body (tone_energies.cu, one warp a symbol; the plain
+       route), kept for custom geometries, at sps 40 with 8 tones: both
+       wrappers on 256 noisy frames against their plain versions (the
+       energies' argmax and the tones bit-equal; energies within
+       GENERIC_RTOL of the largest, best and total within GENERIC_RTOL),
+       then tiled to B = 4,096, held again and timed there against their
+       bound and the CUDA cores' floor, bfloat16 compute on bf16 rows and
+       float32 compute on float32 rows: the FILTERBANK_ROW results (":f32"
+       for float32 compute), decide_tones_fused's under "decide_tones"."""
+    results = {"tone_energies_fused": {}, "decide_tones_fused": {}}
+    out_bytes = {"tone_energies_fused": None, "decide_tones_fused": 12}
+    for model, cdt, n_products in ((DENSE_MODEL, torch.bfloat16, 1), (AUDIBLE_MODEL, torch.float32, 6)):
         cfg = get_model(model).config
-        if kernels._filterbank_operands("tone_energies", cfg, cdt, DEV)[1] != "plain":
-            raise AssertionError(f"{model}: the filterbank does not take its CUDA-core body")
         sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
         n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
         pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
@@ -1435,9 +1502,41 @@ def phase_kernels_filterbank_generic(gen) -> dict:
         full = x.repeat(ALIGNED_B // COMPARE_B, 1)[:, pre:]
         del w
         compute = str(cdt).removeprefix("torch.")
+        check = compare_mma_tones if cdt == torch.bfloat16 else compare_split
+        err = max(check(f"tensor-core filterbank ({model}, {compute} compute, B {d.shape[0]})", cfg, d)
+                  for d in (x[:, pre:], full))
+        del x
+        torch.cuda.empty_cache()
+        for name, fn, ref in (("tone_energies_fused", kernels.tone_energies_fused, kernels.tone_energies_fused_ref),
+                              ("decide_tones_fused", kernels.decide_tones_fused, kernels.decide_tones_fused_ref)):
+            r = {"max_abs_err": err, "ms": time_ms(lambda: fn(cfg, full, compute_dtype=cdt)),
+                 "plain_ms": time_ms(lambda: ref(cfg, full, compute_dtype=cdt)), "library_ms": None}
+            o = out_bytes[name] or 4 * m
+            r["bound_ms"], r["bound_by"] = bound_ms(ALIGNED_B * n_sym * (sps * full.element_size() + o),
+                                                    n_products * n_sym * 2 * sps * 2 * m * ALIGNED_B)
+            log(f"  {name} ({model}, {compute} compute, {compute} rows, B {ALIGNED_B}, {n_sym} symbols of {sps}, "
+                f"{m} tones): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+                f"({r['bound_by']})")
+            results[name][f"{model} {compute} compute"] = r
+            torch.cuda.empty_cache()
+        del full
+    # the CUDA-core body at a custom geometry
+    cfg = custom_filterbank_config()
+    sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
+    n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+    b_full = 16 * COMPARE_B
+    for cdt, key in ((torch.bfloat16, FILTERBANK_ROW), (torch.float32, f"{FILTERBANK_ROW}:f32")):
+        if kernels._filterbank_operands("tone_energies", cfg, cdt, DEV)[1] != "plain":
+            raise AssertionError("sps 40: the filterbank does not take its CUDA-core body")
+        pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+        w = transmit(cfg, pay, device=DEV)
+        x = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).to(cdt)
+        full = x.repeat(b_full // COMPARE_B, 1)[:, pre:]
+        del w
+        compute = str(cdt).removeprefix("torch.")
         errs = {"tone_energies_fused": 0.0, "decide_tones_fused": 0.0}
         for data in (x[:, pre:], full):
-            label = f"{FILTERBANK_ROW} %s ({model}, {compute} compute, B {data.shape[0]})"
+            label = f"{FILTERBANK_ROW} %s (sps {sps}, {m} tones, {compute} compute, B {data.shape[0]})"
             got = kernels.tone_energies_fused(cfg, data, compute_dtype=cdt)
             want = kernels.tone_energies_fused_ref(cfg, data, compute_dtype=cdt)
             if not torch.equal(got.argmax(-1), want.argmax(-1)):
@@ -1451,19 +1550,18 @@ def phase_kernels_filterbank_generic(gen) -> dict:
             errs["decide_tones_fused"] = max(errs["decide_tones_fused"], compare(
                 label % "decide_tones_fused", got, want, (0,), (1, 2), rtol=GENERIC_RTOL))
             del got, want
-            torch.cuda.empty_cache()
         del x
         timed = {}
-        for name, fn, ref, out_bytes in (
+        for name, fn, ref, o in (
             ("tone_energies_fused", kernels.tone_energies_fused, kernels.tone_energies_fused_ref, m * 4),
             ("decide_tones_fused", kernels.decide_tones_fused, kernels.decide_tones_fused_ref, 12),
         ):
             timed[name] = {"max_abs_err": errs[name], **time_off_walk(
-                f"{FILTERBANK_ROW} {name} ({model}, {compute} compute, B {ALIGNED_B}, {n_sym} symbols of {sps})",
+                f"{FILTERBANK_ROW} {name} (sps {sps}, {m} tones, {compute} compute, B {b_full}, {n_sym} symbols)",
                 lambda k, d, fn=fn, ref=ref: (fn if k else ref)(cfg, d, compute_dtype=cdt), full,
-                ALIGNED_B * n_sym * (sps * full.element_size() + out_bytes),
-                n_sym * 2 * sps * 2 * m * ALIGNED_B, cdt)}
-        results[key] = {**timed["tone_energies_fused"], "model": model, "decide_tones": timed["decide_tones_fused"]}
+                b_full * n_sym * (sps * full.element_size() + o), n_sym * 2 * sps * 2 * m * b_full, cdt)}
+        results[key] = {**timed["tone_energies_fused"], "geometry": f"sps {sps}, {m} tones, B {b_full}",
+                        "decide_tones": timed["decide_tones_fused"]}
         del full
         torch.cuda.empty_cache()
     return results
@@ -2168,6 +2266,162 @@ def phase_kernels_ofdm(gen) -> dict:
     seg = torch.randn(b, chunk + tpl.shape[-1] - 1, generator=gen, device=DEV).to(torch.bfloat16)
     log_search_time("OFDM stream geometry", seg, tpl, chunk)
     return results
+
+
+OFDM_LONG_MODEL = "ofdm-coded"
+OFDM_LONG_PAYLOAD = 4096  # 343 data symbols of 96 carriers: past the staged route's 302
+OFDM_LONG_B = 1024  # aligned-ofdm-long's batch and phase 2's batch for the global route
+OFDM_LONG_SYMBOLS = (302, 303, 343)  # the staged route's longest, then the global route's
+
+
+def long_ofdm_points(cfg, gen, b: int, s_n: int):
+    """(z_eq complex64 [b, S, C], h_pow float32 [b, C], slope0 float32 [b],
+    drifted bool [b]) of S = s_n data symbols, made on the card as the
+    equalizer sees them: constellation points rotated by the drift phase c
+    (s + 1) m of 100-150 ppm either way (every fourth stream on a clean
+    clock, c = 0: the gate near a tie), noise at the constellation's SNR
+    (OFDM_SNR_DB), channel powers in [0.5, 1.5], slope0 within 5% of c.
+    (Resampling frames of 300-odd symbols as drifted_frames does would
+    take minutes.)"""
+    bpc, c_n = cfg.bits_per_carrier, cfg.n_carriers
+    scale = {2: kernels._QPSK_AMP, 4: kernels._QAM16_SCALE, 6: kernels._QAM64_SCALE}[bpc]
+    half = 1 << (bpc // 2 - 1)  # levels on either side of 0 an axis
+    lv = (2 * torch.arange(half, device=DEV, dtype=torch.float64) + 1) * scale
+    lv = torch.cat([lv, -lv])
+
+    def axis():
+        return lv[torch.randint(0, 2 * half, (b, s_n, c_n), generator=gen, device=DEV)]
+
+    drifted = torch.arange(b, device=DEV) % 4 != 3
+    sign = torch.where(torch.rand(b, generator=gen, device=DEV) < 0.5, -1.0, 1.0).double()
+    ppm = torch.where(drifted, sign * (100.0 + 50.0 * torch.rand(b, generator=gen, device=DEV).double()), 0.0)
+    slope = ppm * 1e-6 * 2 * np.pi * cfg.symbol_samples / cfg.n_fft
+    m = cfg.first_carrier + torch.arange(c_n, device=DEV, dtype=torch.float64)
+    ang = slope[:, None, None] * torch.arange(1, s_n + 1, device=DEV, dtype=torch.float64)[None, :, None] * m
+    snr = OFDM_SNR_DB[{2: "ofdm-fast", 4: "ofdm-turbo", 6: "ofdm-max"}[bpc]]
+    sigma = 10 ** (-snr / 20) / np.sqrt(2)
+    noise = torch.complex(torch.randn(ang.shape, generator=gen, device=DEV, dtype=torch.float64),
+                          torch.randn(ang.shape, generator=gen, device=DEV, dtype=torch.float64))
+    z = (torch.complex(axis(), axis()) * torch.polar(torch.ones_like(ang), ang) + sigma * noise).to(torch.complex64)
+    del ang, noise
+    h_pow = (0.5 + torch.rand(b, c_n, generator=gen, device=DEV)).float()
+    slope0 = (slope * (0.95 + 0.1 * torch.rand(b, generator=gen, device=DEV).double())).float()
+    return z, h_pow, slope0, drifted
+
+
+@contextlib.contextmanager
+def forced_ofdm_route(route: str):
+    """Inside the block, every ofdm_track_decide_fused launch takes
+    ``route`` whatever its shapes: the global route timed at a shape the
+    staged one holds."""
+    saved = kernels._ofdm_track_route
+    kernels._ofdm_track_route = lambda s, c: route
+    try:
+        yield
+    finally:
+        kernels._ofdm_track_route = saved
+
+
+def phase_kernels_ofdm_long(gen) -> dict:
+    """Phase 2 for the OFDM equalizer past shared memory: ofdm_track_decide_fused
+    on ofdm-coded (QPSK, tracked) streams of S = 302 (the longest the staged
+    route holds at 96 carriers), 303 and 343 (a 4,096-byte frame) data
+    symbols, B = OFDM_LONG_B (long_ofdm_points), batch-major and as the
+    time-major receiver's [B, S, C] view of [S, C, B] points: each launch on
+    the route kernels._ofdm_track_route names (one count under its key),
+    held against the plain version with compare_ofdm's rules, both layouts
+    bit-equal, and timed with the plain version against its bound (the
+    points read once, the LLRs written once) and the global route's own
+    floor (its up to four reads of the points: the two fit passes, the gate
+    pass, the identity pass on clean-clock streams); at S = 302 the global
+    route, forced, gives the staged route's bits and is timed beside it.
+    The ":global" results: S = 343 batch-major, the other shapes and
+    layouts under "shapes"."""
+    cfg = get_model(OFDM_LONG_MODEL).config
+    b, c_n, bpc = OFDM_LONG_B, cfg.n_carriers, cfg.bits_per_carrier
+    shapes, worst = {}, 0.0
+    for s_n in OFDM_LONG_SYMBOLS:
+        route = kernels._ofdm_track_route(s_n, c_n)
+        if route != ("staged" if s_n <= 302 else "global"):
+            raise AssertionError(f"ofdm_track_decide_fused: S = {s_n} takes the {route} route")
+        key = "ofdm_track_decide_fused" + (":global" if route == "global" else "")
+        z, h, sl, drifted = long_ofdm_points(cfg, gen, b, s_n)
+        z_tm, h_tm = z.permute(1, 2, 0).contiguous().permute(2, 0, 1), h.T.contiguous().T
+        want = kernels.ofdm_track_decide_fused_ref(cfg, z, h, sl, with_coherence=True)
+        before = dict(kernels.launch_counts)
+        got = kernels.ofdm_track_decide_fused(cfg, z, h, sl, with_coherence=True)
+        got_tm = kernels.ofdm_track_decide_fused(cfg, z_tm, h_tm, sl, with_coherence=True)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in kernels.launch_counts.items() if v != before[k]}
+        if launched != {key: 2}:
+            raise AssertionError(f"ofdm_track_decide_fused (S {s_n}): launches {launched}, not two under {key}")
+        label = f"ofdm_track_decide_fused ({route}, {OFDM_LONG_MODEL}, S {s_n}, B {b})"
+        err = compare_ofdm(label, cfg, got, want, drifted)
+        if not all(torch.equal(g, t) for g, t in zip(got, got_tm)):
+            raise AssertionError(f"{label}: the time-major view gives other bits than batch-major")
+        if s_n == 302:
+            with forced_ofdm_route("global"), uncounted():
+                forced = kernels.ofdm_track_decide_fused(cfg, z, h, sl, with_coherence=True)
+            if not all(torch.equal(g, f) for g, f in zip(got, forced)):
+                raise AssertionError(f"{label}: the global route, forced, gives other bits than the staged one")
+        del got, got_tm, want
+        if route == "global":
+            worst = max(worst, err)
+        points = b * s_n * c_n * 8
+        in_bytes, out_bytes = points + b * (c_n * 4 + 4), b * (s_n * c_n * bpc * 4 + 4)
+        bound, by = bound_ms(in_bytes + out_bytes, b * s_n * c_n * OFDM_OPS_POINT, F32_FLOPS_S)
+        floor = (in_bytes + 3 * points + out_bytes) / HBM_BYTES_S * 1e3
+        runs = [(route, "batch-major", z, h), (route, "time-major", z_tm, h_tm)]
+        if s_n == 302:
+            runs += [("global", "batch-major", z, h), ("global", "time-major", z_tm, h_tm)]
+        for rt, layout, zz, hh in runs:
+            with forced_ofdm_route(rt):
+                r = {"route": rt, "ms": time_ms(lambda: kernels.ofdm_track_decide_fused(cfg, zz, hh, sl))}
+            r.update(bound_ms=bound, bound_by=by, global_floor_ms=floor, library_ms=None)
+            if layout == "batch-major" and rt == route:
+                r["plain_ms"] = time_ms(lambda: kernels.ofdm_track_decide_fused_ref(cfg, z, h, sl))
+            plain = f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else ""
+            log(f"  ofdm_track_decide_fused ({rt} route, {layout}, S {s_n}, B {b}): kernel {r['ms']:.3f} ms{plain}, "
+                f"bound {bound:.3f} ms ({by}), the global route's floor {floor:.3f} ms (four reads of the points)")
+            shapes[f"S {s_n} {rt} {layout}"] = r
+        del z, z_tm, h, h_tm
+        torch.cuda.empty_cache()
+    top = shapes.pop(f"S {OFDM_LONG_SYMBOLS[-1]} global batch-major")
+    return {"ofdm_track_decide_fused:global": {"max_abs_err": worst, **top, "model": OFDM_LONG_MODEL,
+                                               "B": b, "symbols": OFDM_LONG_SYMBOLS[-1], "shapes": shapes}}
+
+
+def phase_aligned_ofdm_long(cfg, gen, iters: int = 3) -> None:
+    """"aligned-ofdm-long": OFDM_LONG_B ofdm-coded frames of 4,096 bytes
+    (343 data symbols, past the staged route), transmitted on the card at
+    16 dB on a clean clock, through family.aligned_demod_fn batch-major and
+    through ofdm.demodulate_frame_tm on the same frames time-major: the
+    equalizer's global route and viterbi_trellis, never the staged route
+    (ABSENT); every frame ok with the payload sent, both layouts."""
+    pay = torch.randint(0, 256, (OFDM_LONG_B, OFDM_LONG_PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    x = family.transmit_fn(cfg, DEV)(pay)
+    sigma = ((x * x).mean(-1, keepdim=True) * 10 ** (-OFDM_SNR_DB["ofdm-fast"] / 10)).sqrt()
+    x = x + sigma * torch.randn(x.shape, generator=gen, device=DEV)
+    x_tm = x.T.contiguous()  # one untimed ingest transpose
+    aligned_fn = family.aligned_demod_fn(cfg, OFDM_LONG_PAYLOAD, device=DEV)
+    t_frame = cfg.frame_num_samples(OFDM_LONG_PAYLOAD)
+    for layout, demod in (("batch-major", lambda: aligned_fn(x)),
+                          ("time-major", lambda: ofdm.demodulate_frame_tm(cfg, x_tm, OFDM_LONG_PAYLOAD, device=DEV))):
+        res = demod()
+        ok_frac = float(res.ok.float().mean())
+        if ok_frac != 1.0 or not torch.equal(res.payload, pay):
+            raise AssertionError(f"aligned-ofdm-long ({layout}): frames_ok_fraction {ok_frac}, payloads equal "
+                                 f"{torch.equal(res.payload, pay)}")
+        del res
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            n_ok = demod().ok.sum()
+        int(n_ok)
+        dt = time.perf_counter() - t0
+        log(f"aligned-ofdm-long ({layout}): B {OFDM_LONG_B}, payload {OFDM_LONG_PAYLOAD}, "
+            f"{cfg.data_symbols_for_payload(OFDM_LONG_PAYLOAD)} data symbols, frames_ok_fraction {ok_frac}, "
+            f"{OFDM_LONG_B * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
 
 
 @functools.lru_cache(maxsize=1)
@@ -2958,6 +3212,8 @@ PATHS = {
         ("probe_at_fused", "sync_search_fused", "ofdm_track_decide_fused"),
     ),
     "oneshot-ofdm": (OFDM_MODEL, phase_oneshot_ofdm, ("ofdm_track_decide_fused",)),
+    "aligned-ofdm-long": (OFDM_LONG_MODEL, phase_aligned_ofdm_long, ("ofdm_track_decide_fused:global",
+                                                                     "viterbi_trellis")),
     "stream-dynamic-ofdm": (
         OFDM_MODEL,
         lambda cfg, gen: phase_stream_dynamic(cfg, gen, "stream-dynamic-ofdm", OFDM_DYNAMIC_LENS, True, ONESHOT_B),
@@ -3005,8 +3261,9 @@ PATHS = {
         lambda cfg, gen: phase_aligned_window(cfg, gen, label="aligned-window-f32", dtype=torch.float32),
         ("decide_tones_tm:f32",),
     ),
-    # the presets off the tensor-core walks: the time-major pair's generic
-    # body, the streams' slice and the batch-major filterbank's plain route
+    # the presets off the align+demod kernels' and the time-major walk's
+    # geometry: the time-major pair's generic body, the streams' slice and
+    # the batch-major filterbank's tensor-core routes
     "aligned-audible": (
         AUDIBLE_MODEL, lambda cfg, gen: phase_aligned(cfg, gen, "aligned-audible"), (GENERIC_ROW,),
     ),
@@ -3017,12 +3274,12 @@ PATHS = {
     "stream-audible-f32": (
         AUDIBLE_MODEL,
         lambda cfg, gen: phase_stream(cfg, gen, "stream-audible-f32", torch.float32),
-        ("sync_search_fused", f"{FILTERBANK_ROW}:f32"),
+        ("sync_search_fused", "tone_energies_fused:f32"),
     ),
     "stream-dense": (
         DENSE_MODEL,
         lambda cfg, gen: phase_stream(cfg, gen, "stream-dense"),
-        ("sync_search_fused", "probe_at_fused", f"{FILTERBANK_ROW}:bf16"),
+        ("sync_search_fused", "probe_at_fused", "tone_energies_fused:bf16"),
     ),
     "sharded-demod": (MODEL, phase_sharded_demod, ("tone_energies_fused:f32",)),
     "ber-sweep": (MODEL, phase_ber_sweep, ("tone_energies_fused:f32",)),
@@ -3050,12 +3307,14 @@ PATHS = {
 # row-aligned probe and demodulates with demod_at_fused; an int8 dynamic
 # carry goes to demod_at_fused's int8 instantiation only; float32 frames
 # and compute on the aligned receiver take the time-major pair's float32
-# route only; the presets off the tensor-core walks never reach the
-# align+demod kernels (the reference fuses only where 128 % sps == 0) or
-# the tensor-core walks of the time-major pair and the filterbank (their
-# launches count under the CUDA-core bodies' own keys).
+# route only; the presets off the align+demod kernels' geometry never reach
+# them (the reference fuses only where 128 % sps == 0) or the time-major
+# pair's tensor-core walk (its off-walk launches count under the generic
+# body's own key), and their streams' filterbank takes its tensor-core
+# routes, never its CUDA-core body; an OFDM frame past shared memory never
+# takes the equalizer's staged route.
 OFF_THE_WALK = ("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused", "decide_frame_tm",
-                "decide_tones_tm", "tone_energies_fused", "decide_tones_fused")
+                "decide_tones_tm")
 ABSENT = {
     "aligned-f32": ("decide_frame_tm:bf16", "decide_frame_tm:int8", "decide_tones_tm"),
     "aligned-window-f32": ("decide_tones_tm:bf16", "decide_frame_tm"),
@@ -3066,11 +3325,17 @@ ABSENT = {
     "oneshot-tracked": tuple(kernels.launch_counts),
     "stream-tracked": ("demod_at_fused", "demod_probe_fused"),
     "stream-resident": ("probe_at_fused", "demod_probe_fused"),
-    "aligned-audible": (*OFF_THE_WALK, f"{GENERIC_ROW}:f32"),
-    "aligned-dense-f32": (*OFF_THE_WALK, f"{GENERIC_ROW}:bf16"),
-    "stream-audible-f32": (*OFF_THE_WALK, "probe_at_fused", GENERIC_ROW),
-    "stream-dense": (*OFF_THE_WALK, GENERIC_ROW),
+    "aligned-audible": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", f"{GENERIC_ROW}:f32"),
+    "aligned-dense-f32": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", f"{GENERIC_ROW}:bf16"),
+    "stream-audible-f32": (*OFF_THE_WALK, "probe_at_fused", GENERIC_ROW, FILTERBANK_ROW,
+                           "tone_energies_fused:bf16"),
+    "stream-dense": (*OFF_THE_WALK, GENERIC_ROW, FILTERBANK_ROW, "tone_energies_fused:f32"),
+    "aligned-ofdm-long": ("ofdm_track_decide_fused",),
 }
+# Rows of the kernels line on no path: the CUDA-core filterbank serves only
+# custom geometries now (every preset takes the tensor cores), held and
+# timed in phase 2 at sps 40.
+OFF_PATHS = (FILTERBANK_ROW,)
 
 
 def launched(counts: dict, name: str) -> int:
@@ -3097,8 +3362,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul "
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    build_seconds = {}
+    build_all(seconds=build_seconds)
+    log(f"build: {time.perf_counter() - t0:.1f} s; each source's nvcc from the common start: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build_seconds.items(), key=lambda kv: -kv[1])))
     gen = torch.Generator(device=DEV).manual_seed(SEED)
 
     log("kernels vs plain versions:")
@@ -3110,11 +3377,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     results.update(phase_kernels_ofdm(gen))
     torch.cuda.empty_cache()
+    results.update(phase_kernels_ofdm_long(gen))
+    torch.cuda.empty_cache()
     results.update(phase_kernels_batch_major(get_model(MODEL).config, gen))
     torch.cuda.empty_cache()
     results.update(phase_kernels_generic(gen))
     torch.cuda.empty_cache()
-    results.update(phase_kernels_filterbank_generic(gen))
+    filterbank = phase_kernels_filterbank_generic(gen)
+    for name in ("tone_energies_fused", "decide_tones_fused"):
+        results[name]["presets"] = filterbank.pop(name)
+    results.update(filterbank)
     counts = dict.fromkeys(kernels.launch_counts, 0)
     for path, (model, phase, path_kernels) in PATHS.items():
         torch.cuda.empty_cache()
@@ -3147,13 +3419,16 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         }
-        for route in ("int8", "f32"):
+        for route in ("int8", "f32", "global"):
             key = f"{name}:{route}"
             if key in results:
                 row[route] = {"launches": counts[key], **results[key]}
+        if "presets" in r:  # the batch-major filterbank at the presets off the other walks
+            row["presets"] = r["presets"]
         if name in kernels.OFF_WALK_KEYS.values():  # their other shapes and epilogues
             row.update({k: v for k, v in r.items() if k not in row})
-        if launched(counts, name) == 0 or row.get("int8", {}).get("launches") == 0:
+        if name not in OFF_PATHS and (launched(counts, name) == 0 or any(
+                row.get(route, {}).get("launches") == 0 for route in ("int8", "global"))):
             raise AssertionError(f"{name}: launched no time on the main paths")
         rows.append(row)
     print(smi)

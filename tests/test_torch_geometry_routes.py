@@ -3,10 +3,14 @@ than 32, 64 and 128, or more than 16 tones: the presets mfsk8-audible and
 mfsk32-dense, and custom configs), anet_torch against the JAX package on the
 CPU.
 
-- The one predicate, kernels._tensor_core_geometry, picks every route: the
-  kernels' geometry check (which names the field at fault), the stream
-  steps' (stream._fused_demod), the time-major pair's (kernels._tm_operands),
-  the batch-major filterbank's.
+- Two predicates pick the routes. kernels._tensor_core_geometry (sps 32,
+  64 or 128, at most 16 tones) picks the kernels' geometry check (which
+  names the field at fault), the stream steps' (stream._fused_demod) and
+  the time-major pair's (kernels._tm_operands);
+  kernels._filterbank_tensor_core_geometry (sps 32, 48, 64, 80 or 128, at
+  most 32 tones) the batch-major filterbank's (kernels._filterbank_operands),
+  whose tensor-core routes take both presets: their basis operands and
+  launch code, the card's calls replaced by recorders.
 - The stream receivers on both presets (float32 and int8 carries, searching
   and locked; the variable-length receiver) equal anet's, and never call
   the align+demod wrappers.
@@ -67,10 +71,11 @@ def test_one_predicate_picks_every_route(name):
     """_tensor_core_geometry holds at sps 32, 64 and 128 with at most 16
     tones; elsewhere _check_kernel_geometry raises, naming the field at
     fault (the tone count first). The stream steps fuse there and slice
-    elsewhere, the time-major pair takes the walk there ("mma" or "split"
-    by dtype) and the generic body elsewhere, and the batch-major
-    filterbank its tensor-core routes there and its plain one elsewhere. No
-    geometry is left without a route."""
+    elsewhere, and the time-major pair takes the walk there ("mma" or
+    "split" by dtype) and the generic body elsewhere. The batch-major
+    filterbank follows its own predicate, _filterbank_tensor_core_geometry
+    (sps 32, 48, 64, 80 or 128, at most 32 tones): its tensor-core routes
+    there, its plain one elsewhere. No geometry is left without a route."""
     cfg = GEOMETRIES[name]
     fast = tk._tensor_core_geometry(cfg)
     assert fast == (cfg.samples_per_symbol in (32, 64, 128) and cfg.num_tones <= 16)
@@ -93,9 +98,11 @@ def test_one_predicate_picks_every_route(name):
                 assert entry == (kind if kind == "decide_frame_tm" else f"{kind}_mma")
             else:
                 assert (entry, route) == (f"{kind}_generic", "generic")
+    walk = cfg.samples_per_symbol in (32, 48, 64, 80, 128) and cfg.num_tones <= 32
+    assert tk._filterbank_tensor_core_geometry(cfg) == walk
     for compute in (torch.float32, torch.bfloat16):
         route = tk._filterbank_operands("tone_energies", cfg, compute, CPU)[1]
-        assert (route == "plain") == (not fast)
+        assert route == ("plain" if not walk else "split" if compute == torch.float32 else "mma")
 
 
 @pytest.mark.parametrize("dtype", list(TM_DTYPES))
@@ -118,6 +125,47 @@ def test_generic_tm_basis_layout(geometry, dtype):
         for j in range(g):
             assert torch.equal(basis[p, :, j].float(), plain[:, p * g + j])
             assert torch.equal(basis[p, :, g + j].float(), plain[:, m + p * g + j])
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("geometry", [*PRESETS, "sps48-m16", "sps80-m8", "sps64-m32", "sps128-m32", "m24"])
+def test_filterbank_mma_basis_layout(geometry, dtype):
+    """The batch-major filterbank's tensor-core B operand off the other
+    walks' geometry (sps 48 and 80, 17-32 tones: 8 n8 tiles),
+    _demod_mma_basis (bfloat16 compute) and _demod_split_basis (float32
+    compute: three terms), read back as csrc/demod_core.cuh's fragments
+    read them, is the interleaved basis of _plain_basis's entries (the
+    terms summing to the float32 ones exactly), zero columns past the tone
+    count. ModemConfig takes only powers of two, so 24 tones ("m24", sps
+    48) packs a basis of 24 tones' columns through _mma_fragments."""
+    from test_torch_kernels_ref import _unpack_demod_mma_basis
+
+    if geometry == "m24":
+        cfg = type("Geometry", (), {"num_tones": 24, "samples_per_symbol": 48})()
+        plain = torch.from_numpy(np.random.default_rng(24).standard_normal((48, 48)).astype(np.float32))
+    else:
+        cfg = GEOMETRIES[geometry]
+        plain = tk._plain_basis(cfg, TM_DTYPES[dtype], CPU)
+    m, sps = cfg.num_tones, cfg.samples_per_symbol
+    n = tk._demod_mma_tiles(m)
+    assert n == {8: 2, 16: 4, 24: 8, 32: 8}[m]
+    if geometry == "m24" and dtype == "bf16":
+        plain = plain.to(torch.bfloat16).float()
+        terms = [tk._mma_fragments(cfg, plain, torch.bfloat16)]
+    elif geometry == "m24":
+        terms = [tk._mma_fragments(cfg, t, torch.bfloat16) for t in tk._split_terms(plain)]
+    elif dtype == "bf16":
+        terms = [tk._demod_mma_basis(cfg, torch.bfloat16, CPU)]
+    else:
+        split = tk._demod_split_basis(cfg, CPU)
+        assert split.shape == (3, sps // 16, n, 2, 32)
+        terms = list(split)
+    assert all(t.dtype == torch.int32 and t.shape == (sps // 16, n, 2, 32) for t in terms)
+    b = sum(_unpack_demod_mma_basis(t, torch.bfloat16).double() for t in terms)
+    assert b.shape == (sps, 8 * n)
+    assert torch.equal(b[:, 0 : 2 * m : 2], plain[:, :m].double())
+    assert torch.equal(b[:, 1 : 2 * m : 2], plain[:, m:].double())
+    assert not bool(b[:, 2 * m :].any())
 
 
 def _record_launches(monkeypatch) -> list:
@@ -249,6 +297,42 @@ def _assert_same_stream(got, want, n_frames: int):
         got.steps.frame.confidence.numpy()[det], np.asarray(want.steps.frame.confidence)[det], rtol=1e-4
     )
     assert int(got.carry.frames_ok.sum()) == B * n_frames
+
+
+@pytest.mark.parametrize("compute", ["bf16", "f32"])
+@pytest.mark.parametrize("geometry", [*PRESETS, "sps40-m4"])
+def test_filterbank_launch_off_the_other_walks(monkeypatch, geometry, compute):
+    """Both filterbank wrappers' launch code, the card's calls replaced by
+    recorders: at both presets (sps 48 with 8 tones, sps 80 with 32) each
+    compute dtype takes the tensor-core entry, ``*_mma`` with
+    _demod_mma_basis for bfloat16 compute and ``*_mma_f32`` with
+    _demod_split_basis for float32, and counts under the wrapper's own key
+    (":f32" for float32 compute), never filterbank_cuda_core's; a custom
+    sps-40 config still takes the plain CUDA-core entry, counted under
+    filterbank_cuda_core."""
+    cfg, cdt = _custom(40, 4) if geometry == "sps40-m4" else GEOMETRIES[geometry], TM_DTYPES[compute]
+    sps, n_sym = cfg.samples_per_symbol, 5
+    rows = torch.randn(3, n_sym * sps + 7).to(cdt)
+    calls = _record_launches(monkeypatch)
+    suffix = ":f32" if cdt == torch.float32 else ""
+    for kind, n_out in (("tone_energies", 1), ("decide_tones", 3)):
+        calls.clear()
+        monkeypatch.setattr(tk, "launch_counts", dict.fromkeys(tk.launch_counts, 0))
+        tk._filterbank_launch(f"{kind}_fused", kind, cfg, rows, cdt, lambda lead, s, dev: tuple(
+            torch.empty(*lead, s) for _ in range(n_out)))
+        (key, args), (_, name, route) = calls
+        counted = {k: v for k, v in tk.launch_counts.items() if v}
+        if geometry == "sps40-m4":
+            assert (key, route) == (kind, "plain") and counted == {f"filterbank_cuda_core{suffix}": 1}
+            assert args[4:8] == (n_sym, sps, cfg.num_tones, tk._filterbank_basis(cfg, cdt, CPU).data_ptr())
+            continue
+        mma = cdt == torch.bfloat16
+        assert (key, route) == ((f"{kind}_mma", "mma") if mma else (f"{kind}_mma_f32", "split"))
+        assert name == f"{kind}_fused" and counted == {f"{kind}_fused{suffix}": 1}
+        basis = tk._demod_mma_basis(cfg, torch.bfloat16, CPU) if mma else tk._demod_split_basis(cfg, CPU)
+        n_head = 4 if mma else 5
+        assert args[n_head : n_head + 4] == (n_sym, sps, cfg.num_tones, basis.data_ptr())
+
 
 
 @pytest.mark.parametrize("lock", [False, True], ids=["search", "lock"])

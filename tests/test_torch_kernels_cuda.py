@@ -16,6 +16,7 @@ import torch
 from anet_torch import kernels as tk
 from anet_torch import stream as tstream
 from anet_torch.dsp.frame import data_symbols_for_payload
+from anet_torch.dsp.params import ModemConfig
 from anet_torch.dsp.pipeline import transmit
 from anet_torch.dsp.sync import preamble_waveform
 from anet_torch.models import get_model
@@ -626,27 +627,38 @@ def test_cuda_int8_kernels_match_plain_versions(cuda, model):
     assert launched == expect
 
 
+def _bm_config(name):
+    """A preset, or a custom config "sps<S>-m<M>" off every walk (_custom)."""
+    if name.startswith("sps"):
+        sps, m = name.removeprefix("sps").split("-m")
+        return _custom(int(sps), int(m))
+    return get_model(name).config
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded", "mfsk32-dense", "mfsk8-audible"])
+@pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded", "mfsk32-dense", "mfsk8-audible", "sps40-m4",
+                                   "sps96-m8"])
 def test_cuda_batch_major_filterbank_matches_plain_versions(cuda, dtype, model):
     """tone_energies_fused and decide_tones_fused on the data sections of
     whole batch-major frames (a strided view past the preamble): bfloat16
     compute with tones and argmaxes equal, energies within rtol 1e-5
     (float32 sums in another order); float32 compute within the stated
     tolerance of its route (_check_split); then demodulate_frame on the card
-    against the CPU. The last two models take the kernels' plain per-symbol
-    form (32 tones; 48 samples a symbol), whose launches count under
-    filterbank_cuda_core. Launches under each route's key."""
+    against the CPU. The presets take the tensor cores (mfsk32-dense's 32
+    tones and mfsk8-audible's 48 samples a symbol too); the
+    custom sps-40 and sps-96 configs the kernels' plain per-symbol form,
+    whose launches count under filterbank_cuda_core. Launches under each
+    route's key."""
     from anet_torch.dsp import frame as tframe
 
-    cfg = get_model(model).config
+    cfg = _bm_config(model)
     rng = np.random.default_rng(83)
     pay = rng.integers(0, 256, (257, PAY), dtype=np.uint8)
     w = transmit(cfg, pay, device="cpu")
     x = (w + 0.3 * torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32))).to(cuda)
     data = x[:, cfg.preamble_samples :]
-    if tk._tensor_core_geometry(cfg):
+    if tk._filterbank_tensor_core_geometry(cfg):
         keys = (_key("tone_energies_fused", dtype), _key("decide_tones_fused", dtype))
     else:
         keys = (_key("filterbank_cuda_core", dtype),) * 2
@@ -1145,6 +1157,27 @@ def test_cuda_decide_frame_tm_many_tiles_a_block(cuda, dtype, ragged):
 
 # --- the batch-major filterbank on the tensor cores: every residue and edge --
 
+
+def _custom(sps, m):
+    """A config of ``sps`` samples and ``m`` tones a symbol at 48 kHz, tones
+    from half the symbol rate."""
+    rate = 48_000 // sps
+    return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=rate, num_tones=m, base_freq_hz=rate / 2)
+
+
+# DEMOD_CONFIGS, and the filterbank's own geometry past the other walks'
+# (kernels._filterbank_tensor_core_geometry): sps 48 and 80 (3 and 5
+# k-steps) and 32 tones (8 n-tiles, the basis in shared memory)
+BM_CONFIGS = {
+    **DEMOD_CONFIGS,
+    "mfsk8-audible": get_model("mfsk8-audible").config,  # sps 48, 8 tones
+    "mfsk32-dense": get_model("mfsk32-dense").config,  # sps 80, 32 tones
+    "sps48-m16": _custom(48, 16),
+    "sps80-m4": _custom(80, 4),
+    "sps64-m32": _custom(64, 32),
+    "sps128-m32": _custom(128, 32),
+}
+
 BM_LEADS = ((1,), (7,), (257,), (2, 3))  # the rows' leading shape
 BM_SYMBOLS = (1, 15, 16, 17, 67)
 GAP = 1.0e4  # samples between rows and before the first: a read of them would show
@@ -1205,18 +1238,18 @@ def _check_bm(cfg, rows, exact=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lead", BM_LEADS, ids=lambda v: "x".join(map(str, v)))
 @pytest.mark.parametrize("n_sym", BM_SYMBOLS)
-@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+@pytest.mark.parametrize("geometry", list(BM_CONFIGS))
 def test_cuda_batch_major_filterbank_at_every_residue(cuda, geometry, n_sym, lead):
     """tone_energies_fused and decide_tones_fused with bfloat16 compute (the
-    tensor-core route) against their plain versions: sps 32/64/128 and
-    2/4/8/16 tones, n_symbols 1, 15, 16, 17 and 67 (whole, partial and
+    tensor-core route) against their plain versions: sps 32/48/64/80/128
+    and 2-32 tones, n_symbols 1, 15, 16, 17 and 67 (whole, partial and
     several symbol tiles), R = 1, 7, 257 and a [2, 3] leading shape; rows
     contiguous at an offset of every residue mod 8 or strided at an odd
     pitch (every residue) with a partial symbol after them, the gaps
     between rows filled with a large value and the last row ending at the
     allocation's end. One launch under each key."""
-    cfg = DEMOD_CONFIGS[geometry]
-    case = BM_LEADS.index(lead) + 4 * (BM_SYMBOLS.index(n_sym) + 5 * list(DEMOD_CONFIGS).index(geometry))
+    cfg = BM_CONFIGS[geometry]
+    case = BM_LEADS.index(lead) + 4 * (BM_SYMBOLS.index(n_sym) + 5 * list(BM_CONFIGS).index(geometry))
     rng = np.random.default_rng(case)
     strided = case % 2 == 1
     rows, flat = _bm_rows(cfg, rng, cuda, lead, n_sym, strided, offset=(case // 2) % 8)
@@ -1228,12 +1261,12 @@ def test_cuda_batch_major_filterbank_at_every_residue(cuda, geometry, n_sym, lea
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fill", ["zeros", "saturated"])
-@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+@pytest.mark.parametrize("geometry", list(BM_CONFIGS))
 def test_cuda_batch_major_filterbank_every_tie_and_extreme(cuda, geometry, fill):
     """All-zero rows (every tone ties: tone 0, zero energies, best and
     total, bit-equal) and rows of +-1 at random (full scale), R = 7,
     strided, 17 symbols."""
-    cfg = DEMOD_CONFIGS[geometry]
+    cfg = BM_CONFIGS[geometry]
     rng = np.random.default_rng(17 + len(fill))
     rows, _ = _bm_rows(cfg, rng, cuda, (7,), 17, True, offset=3, fill=fill)
     e, got = _check_bm(cfg, rows, exact=fill == "zeros")
@@ -1244,7 +1277,8 @@ def test_cuda_batch_major_filterbank_every_tie_and_extreme(cuda, geometry, fill)
 def _check_split(cfg, rows):
     """One launch each of tone_energies_fused and decide_tones_fused with
     float32 compute on ``rows`` (under their ":f32" keys, or
-    filterbank_cuda_core's twice off the walk), held against the
+    filterbank_cuda_core's twice off the filterbank's tensor-core geometry),
+    held against the
     plain versions with the route's stated tolerance: each energy within
     kernels.F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's
     largest plain energy, best and total within the same bounds, the tones
@@ -1256,7 +1290,7 @@ def _check_split(cfg, rows):
     tone, best, total = tk.decide_tones_fused(cfg, rows, compute_dtype=torch.float32)
     torch.cuda.synchronize()
     launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
-    if tk._tensor_core_geometry(cfg):
+    if tk._filterbank_tensor_core_geometry(cfg):
         assert launched == {"tone_energies_fused:f32": 1, "decide_tones_fused:f32": 1}
     else:
         assert launched == {"filterbank_cuda_core:f32": 2}
@@ -1270,14 +1304,14 @@ def _check_split(cfg, rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded", "mfsk32-dense", "mfsk8-audible"])
+@pytest.mark.parametrize("model", ["mfsk16-fast", "mfsk4-coded", "mfsk32-dense", "mfsk8-audible", "sps40-m4"])
 def test_cuda_batch_major_float32_compute_on_bf16_rows(cuda, model):
     """float32 compute on bfloat16 rows (receive_frame's route on bf16
     captures) meets the float32 basis, not the bf16-rounded one: at sps
-    32/64/128 with at most 16 tones the tensor cores' three-term split,
-    elsewhere the plain kernel, each within the route's stated tolerance
-    (_check_split)."""
-    cfg = get_model(model).config
+    32/48/64/80/128 with at most 32 tones the tensor cores' three-term
+    split, elsewhere (a custom sps-40 config) the plain kernel, each within
+    the route's stated tolerance (_check_split)."""
+    cfg = _bm_config(model)
     rows, _ = _bm_rows(cfg, np.random.default_rng(29), cuda, (33,), 40, True, offset=1)
     _check_split(cfg, rows)
 
@@ -1290,17 +1324,17 @@ SPLIT_SYMBOLS = (1, 17, 67)
 @pytest.mark.parametrize("rows", ["bf16", "float32"])
 @pytest.mark.parametrize("lead", SPLIT_LEADS, ids=lambda v: "x".join(map(str, v)))
 @pytest.mark.parametrize("n_sym", SPLIT_SYMBOLS)
-@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+@pytest.mark.parametrize("geometry", list(BM_CONFIGS))
 def test_cuda_split_at_every_residue(cuda, geometry, n_sym, lead, rows):
     """The float32-compute route on the tensor cores (the three-term split)
-    at sps 32/64/128 and 2/4/8/16 tones, n_symbols 1, 17 and 67, R = 7 and
+    at sps 32/48/64/80/128 and 2-32 tones, n_symbols 1, 17 and 67, R = 7 and
     a [2, 3] leading shape, on bf16 rows and on float32 rows (split on
     load), contiguous at an offset or strided at an odd pitch with a
     partial symbol after them, the gaps filled with a large value and the
     last row ending at the allocation's end: within the stated tolerance
     (_check_split), one launch under each ":f32" key."""
-    cfg = DEMOD_CONFIGS[geometry]
-    case = SPLIT_LEADS.index(lead) + 2 * (SPLIT_SYMBOLS.index(n_sym) + 3 * list(DEMOD_CONFIGS).index(geometry))
+    cfg = BM_CONFIGS[geometry]
+    case = SPLIT_LEADS.index(lead) + 2 * (SPLIT_SYMBOLS.index(n_sym) + 3 * list(BM_CONFIGS).index(geometry))
     rng = np.random.default_rng(1000 + case)
     dtype = {"bf16": torch.bfloat16, "float32": torch.float32}[rows]
     x, flat = _bm_rows(cfg, rng, cuda, lead, n_sym, case % 2 == 1, offset=(case // 2) % 8, dtype=dtype)
@@ -1312,12 +1346,12 @@ def test_cuda_split_at_every_residue(cuda, geometry, n_sym, lead, rows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", ["bf16", "float32"])
 @pytest.mark.parametrize("fill", ["zeros", "saturated"])
-@pytest.mark.parametrize("geometry", list(DEMOD_CONFIGS))
+@pytest.mark.parametrize("geometry", list(BM_CONFIGS))
 def test_cuda_split_every_tie_and_extreme(cuda, geometry, fill, rows):
     """The float32-compute route on all-zero rows (every tone ties: tone 0,
     every energy, best and total exactly 0) and on rows of +-1 at random
     (full scale), R = 7, strided, 17 symbols."""
-    cfg = DEMOD_CONFIGS[geometry]
+    cfg = BM_CONFIGS[geometry]
     dtype = {"bf16": torch.bfloat16, "float32": torch.float32}[rows]
     x, _ = _bm_rows(cfg, np.random.default_rng(31 + len(fill)), cuda, (7,), 17, True, offset=3, fill=fill,
                     dtype=dtype)
@@ -1433,15 +1467,15 @@ QAM_SCALE = {2: 0.7071067811865476, 4: 0.31622776601683794, 6: 0.154303349962091
 OFDM_SNR_DB = {2: 16.0, 4: 24.0, 6: 26.0}  # chip_smoke.py's, by bits a carrier
 
 
-def _ofdm_points(cfg, rng, b):
+def _ofdm_points(cfg, rng, b, s_n=None):
     """(z_eq complex64 [b, S, C], h_pow float32 [b, C], slope0 float32 [b],
-    drifted bool [b]) at payload 256: constellation points rotated by a
+    drifted bool [b]) at payload 256 (or S = ``s_n``): constellation points rotated by a
     clock drift of c (s + 1) m, c as 100-150 ppm either way does on all but
     every fourth stream (a clean clock, c = 0: the gate near a tie), slope0
     c within 5%, channel powers in [0.5, 1.5], noise at chip_smoke.py's
     SNR."""
     bpc, c_n = cfg.bits_per_carrier, cfg.n_carriers
-    s_n = cfg.data_symbols_for_payload(256)
+    s_n = s_n or cfg.data_symbols_for_payload(256)
     levels = np.array(QAM_LEVELS[bpc])
     axis = lambda: rng.choice(np.concatenate([levels, -levels]), (b, s_n, c_n)) * QAM_SCALE[bpc]
     d = axis() + 1j * axis()
@@ -1517,6 +1551,43 @@ def test_cuda_ofdm_track_every_layout(cuda, model, tracked, b, layout):
     assert torch.equal(got[0], base[0]) and torch.equal(got[2], base[2])
     if evm is not None:
         assert torch.equal(got[1], base[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["batch-major", "time-major"])
+@pytest.mark.parametrize("s_n", [302, 303, 343])
+@pytest.mark.parametrize("tracked", [True, False])
+@pytest.mark.parametrize("model", ["ofdm-fast", "ofdm-max"])
+def test_cuda_ofdm_track_past_shared_memory(cuda, model, tracked, s_n, layout, monkeypatch):
+    """ofdm_track_decide_fused on streams of S = 302 (the longest the staged
+    route holds at 96 carriers), 303 and 343 (a 4,096-byte ofdm-coded
+    frame) data symbols, QPSK and 64-QAM, tracked and untracked, B = 33,
+    batch-major and the time-major view, against its plain version under
+    chip_smoke.py's compare_ofdm rules: S = 302 takes the staged route
+    (counted under ofdm_track_decide_fused), 303 and 343 the global one
+    (under ":global"). At S = 302 the global route, forced, gives the
+    staged route's bits: one arithmetic in one order on the same points."""
+    cfg = dataclasses.replace(get_model(model).config, clock_tracking=tracked)
+    rng = np.random.default_rng(s_n + 7 * tracked + len(model))
+    z, h, slope0, drifted = _ofdm_points(cfg, rng, 33, s_n)
+    z, h, slope0 = z.to(cuda), h.to(cuda), slope0.to(cuda)
+    zl, hl = z, h
+    if layout == "time-major":
+        zl, hl = z.permute(1, 2, 0).contiguous().permute(2, 0, 1), h.T.contiguous().T
+    route = tk._ofdm_track_route(s_n, cfg.n_carriers)
+    assert route == ("staged" if s_n == 302 else "global")
+    key = "ofdm_track_decide_fused" + (":global" if route == "global" else "")
+    before = dict(tk.launch_counts)
+    got = tk.ofdm_track_decide_fused(cfg, zl, hl, slope0, evm_symbols=s_n - 2, with_coherence=True)
+    torch.cuda.synchronize()
+    assert {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]} == {key: 1}
+    want = tk.ofdm_track_decide_fused_ref(cfg, z, h, slope0, evm_symbols=s_n - 2, with_coherence=True)
+    assert got[0].shape == (33, s_n * cfg.n_carriers * cfg.bits_per_carrier)
+    _check_ofdm(cfg, got, want, drifted)
+    if s_n == 302:
+        monkeypatch.setattr(tk, "_ofdm_track_route", lambda s, c: "global")
+        forced = tk.ofdm_track_decide_fused(cfg, zl, hl, slope0, evm_symbols=s_n - 2, with_coherence=True)
+        assert all(torch.equal(a, b) for a, b in zip(forced, got))
 
 
 # --- decide_tones_tm on the tensor cores: every geometry and edge -----------
@@ -1916,11 +1987,12 @@ def test_cuda_generic_geometry_receivers_match_cpu(cuda, model):
     on the CPU, every frame decoded, payloads and verdicts equal: the
     aligned time-major receiver (bf16 and float32: decide_tones_tm's
     generic body), the batch-major and one-shot receivers
-    (tone_energies_fused's plain CUDA-core route), receive_stream searching
-    on a float32 carry, locked on bf16 and int8 carries, and
+    (tone_energies_fused's tensor-core routes), receive_stream
+    searching on a float32 carry, locked on bf16 and int8 carries, and
     receive_stream_dynamic locked (the slice and the batch-major receiver:
-    no align+demod kernel launches). Every time-major and filterbank launch
-    is on the CUDA-core bodies' keys, none on the walks'."""
+    no align+demod kernel launches). Every time-major launch is on the
+    generic body's keys, none on the time-major walk's; every filterbank
+    launch on tone_energies_fused's keys, none on its CUDA-core body's."""
     from anet_torch.dsp import frame as tframe
     from anet_torch.dsp import pipeline as tpipeline
     from anet_torch.dsp.family import frame_samples
@@ -1971,7 +2043,7 @@ def test_cuda_generic_geometry_receivers_match_cpu(cuda, model):
     launched = _launched(before)
     assert not any(k.startswith(("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused"))
                    for k in launched)
-    assert not any(k.startswith(("decide_tones_tm", "decide_frame_tm", "tone_energies_fused", "decide_tones_fused"))
-                   for k in launched)  # the tensor-core walks
+    assert not any(k.startswith(("decide_tones_tm", "decide_frame_tm", "filterbank_cuda_core"))
+                   for k in launched)  # the time-major walk; the filterbank's CUDA-core body
     assert launched["frame_tm_generic"] and launched["frame_tm_generic:f32"] and launched["sync_search_fused"]
-    assert launched["filterbank_cuda_core"] and launched["filterbank_cuda_core:f32"] and launched["probe_at_fused"]
+    assert launched["tone_energies_fused"] and launched["tone_energies_fused:f32"] and launched["probe_at_fused"]

@@ -22,6 +22,7 @@ from anet_torch import kernels as tk
 from anet_torch import stream as tstream
 from anet_torch.dsp import fec as tfec
 from anet_torch.dsp.frame import data_symbols_for_payload
+from anet_torch.dsp.params import ModemConfig
 from anet_torch.dsp.pipeline import transmit
 from anet_torch.models import get_model
 
@@ -698,25 +699,33 @@ def test_demodulate_frame_use_kernel_matches_anet(name, dtype, monkeypatch):
     np.testing.assert_allclose(t.confidence.numpy(), np.asarray(j.confidence), rtol=1e-5)
 
 
-_FILTERBANK_PRESETS = {  # name: (fast geometry, float32 basis shape)
+_FILTERBANK_PRESETS = {  # name: (the tensor-core geometry, the plain route's float32 basis shape)
     "mfsk16-fast": (True, (64, 32)),
     "mfsk4-coded": (True, (32, 32)),
-    "mfsk32-dense": (False, (80, 64)),
-    "mfsk8-audible": (False, (48, 16)),
+    "mfsk32-dense": (True, (80, 64)),
+    "mfsk8-audible": (True, (48, 16)),
+    "sps40-m4": (False, (40, 8)),  # a custom config off every walk
 }
+
+
+def _filterbank_config(name):
+    """The preset ``name``, or the custom sps-40 config of 4 tones."""
+    if name == "sps40-m4":
+        return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, num_tones=4, base_freq_hz=600.0)
+    return get_model(name).config
 
 
 @pytest.mark.parametrize("compute", ["float32", "bf16"])
 @pytest.mark.parametrize("name", list(_FILTERBANK_PRESETS))
 def test_filterbank_basis_layout(name, compute):
-    """The filterbank kernels' basis. At sps 32/64/128 and at most 16
-    tones, tensor-core B fragments: bfloat16 compute, one term, which reads
-    back as the interleaved basis with the plain bf16 basis's entries;
-    float32 compute, the three bf16 terms of the float32 basis
+    """The filterbank kernels' basis. At sps 32/48/64/80/128 and at most
+    32 tones, tensor-core B fragments: bfloat16 compute, one term, which
+    reads back as the interleaved basis with the plain bf16 basis's
+    entries; float32 compute, the three bf16 terms of the float32 basis
     (_demod_split_basis), which read back as terms summing to the plain
-    float32 basis's entries. Elsewhere the plain [sps, 2M] of the compute
-    dtype's entries."""
-    cfg = get_model(name).config
+    float32 basis's entries. Elsewhere (sps 40) the plain [sps, 2M] of the
+    compute dtype's entries."""
+    cfg = _filterbank_config(name)
     fast, shape = _FILTERBANK_PRESETS[name]
     dt = {"float32": torch.float32, "bf16": torch.bfloat16}[compute]
     m, cpu = cfg.num_tones, torch.device("cpu")
@@ -757,7 +766,8 @@ def _record_filterbank_calls(monkeypatch) -> list:
 @pytest.mark.parametrize("name", list(_FILTERBANK_PRESETS))
 def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, rows):
     """Which C entry each filterbank call takes, with which operands, for
-    the four MFSK presets x compute dtype x rows dtype, through the
+    the four MFSK presets and a custom sps-40 config x compute dtype x
+    rows dtype, through the
     wrappers' launch code with the card's calls replaced by recorders (so
     nothing is launched): at the fast geometry bfloat16 compute takes the
     tensor-core entry ``*_mma`` (rows, R, row pitch, the cached int32 zero
@@ -771,7 +781,7 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
     are a strided view past the preamble of [2, 3] frames."""
     from anet_torch.kernels import build
 
-    cfg = get_model(name).config
+    cfg = _filterbank_config(name)
     fast, _ = _FILTERBANK_PRESETS[name]
     cdt, rdt = ({"float32": torch.float32, "bf16": torch.bfloat16}[v] for v in (compute, rows))
     sps, m, pre, cpu = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples, torch.device("cpu")

@@ -41,6 +41,7 @@ PRESETS = ("ofdm-fast", "ofdm-coded", "ofdm-turbo", "ofdm-max")
 CFG, JCFG = tofdm.OfdmConfig(), jofdm.OfdmConfig()
 GATE_EPS = 1e-4  # |coh(tracked) - coh(unrotated)| below which a gate may flip
 LLR_RTOL = 1e-4
+QPSK_AMP = 0.7071067811865476
 
 
 def _pair(**kw):
@@ -194,14 +195,45 @@ def _assert_llrs_by_gate(got, want, coh, drifted):
     return close
 
 
-@pytest.mark.parametrize("case", list(CASES))
+LONG_SYMBOLS = 303  # one data symbol past what ofdm_track.cu's staged route holds at 96 carriers
+
+
+def _long_points(cfg, s_data):
+    """(z_eq complex64 [3, S, C], h_pow [3, C], slope0 [3], ppms [3]) of
+    three QPSK streams of S data symbols as the equalizer sees them: points
+    rotated by the drift phase c (s + 1) m of +150, 0 and -150 ppm, noise
+    at 16 dB, channel powers in [0.5, 1.5], slope0 within 5% of c. The
+    points themselves: a frame of S = 303 symbols is some 3,600 bytes,
+    whose band-limited resampling would take this test minutes."""
+    rng = np.random.default_rng(303)
+    c_n = cfg.n_carriers
+    ppms = np.array((150.0, 0.0, -150.0))
+    d = (rng.choice((-1.0, 1.0), (3, s_data, c_n)) + 1j * rng.choice((-1.0, 1.0), (3, s_data, c_n))) * QPSK_AMP
+    slope = ppms * 2 * np.pi * 1e-6 * cfg.symbol_samples / cfg.n_fft
+    ang = slope[:, None, None] * np.arange(1, s_data + 1)[None, :, None] * (cfg.first_carrier + np.arange(c_n))
+    sigma = 10 ** (-16.0 / 20) / np.sqrt(2)
+    z = d * np.exp(1j * ang) + sigma * (rng.standard_normal(d.shape) + 1j * rng.standard_normal(d.shape))
+    h = rng.uniform(0.5, 1.5, (3, c_n))
+    return (z.astype(np.complex64), h.astype(np.float32),
+            (slope * rng.uniform(0.95, 1.05, 3)).astype(np.float32), ppms)
+
+
+@pytest.mark.parametrize("case", [*CASES, "qpsk-s303"])
 def test_track_decide_ref_matches_pallas(case):
     """ofdm_track_decide_fused_ref against the Pallas kernel in interpret
     mode on the same z_eq / h_pow / slope0 (drifted frames at +-150 ppm and
-    a clean-clock one), with the EVM over all and over the first 3 symbols."""
-    cfg, jcfg, _, ppms, x = _case_frames(case)
-    s_data = cfg.data_symbols_for_payload(128)
-    z_eq, h_pow, slope0 = _equalizer_inputs(cfg, x, s_data)
+    a clean-clock one), with the EVM over all and over the first 3 symbols.
+    "qpsk-s303": three streams of 303 data symbols (_long_points), past the
+    staged route's shared memory on the card."""
+    if case == "qpsk-s303":
+        cfg, jcfg = _pair()
+        s_data = LONG_SYMBOLS
+        z_eq, h_pow, slope0, ppms = _long_points(cfg, s_data)
+        assert tk._ofdm_track_route(s_data, cfg.n_carriers) == "global"
+    else:
+        cfg, jcfg, _, ppms, x = _case_frames(case)
+        s_data = cfg.data_symbols_for_payload(128)
+        z_eq, h_pow, slope0 = _equalizer_inputs(cfg, x, s_data)
     for evm_symbols in (None, 3):
         llrs, evm2, coh = tk.ofdm_track_decide_fused_ref(
             cfg, torch.from_numpy(z_eq), torch.from_numpy(h_pow), torch.from_numpy(slope0),
@@ -216,6 +248,36 @@ def test_track_decide_ref_matches_pallas(case):
         np.testing.assert_allclose(evm2.numpy()[close], np.asarray(want_evm2)[close], rtol=1e-4)
         if not cfg.clock_tracking:
             assert not coh.any()
+
+
+@pytest.mark.parametrize("s_data", [302, 303])
+def test_track_route_from_the_shapes(monkeypatch, s_data):
+    """ofdm_track_decide_fused's route from S and C alone, before the
+    launch: at 96 carriers S = 302 (232,320 bytes of points and weights a
+    stream) is "staged", S = 303 (233,088 bytes, past the 232,448 a block
+    can hold) "global". The launch code, the card's calls replaced by
+    recorders, passes it as the C entry it calls (ofdm_track or
+    ofdm_track_global, one library, one signature) and counts the global
+    route under its own key."""
+    from anet_torch.kernels import build
+
+    cfg = CFG
+    want = "staged" if s_data == 302 else "global"
+    assert tk._ofdm_track_route(s_data, cfg.n_carriers) == want
+    assert tk._ofdm_track_route(s_data, 1) == "staged"
+    calls = []
+    monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
+    monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
+    monkeypatch.setattr(tk, "launch_counts", dict.fromkeys(tk.launch_counts, 0))
+    z = torch.zeros(2, s_data, cfg.n_carriers, dtype=torch.complex64)
+    llrs, evm2 = tk._ofdm_track_launch(cfg, z, torch.ones(2, cfg.n_carriers), torch.zeros(2), None, False)
+    ((key, args),) = calls
+    assert key == ("ofdm_track" if want == "staged" else "ofdm_track_global")
+    assert build.SIGNATURES["ofdm_track_global"][1] == build.SIGNATURES["ofdm_track"][1]
+    assert build.SIGNATURES["ofdm_track_global"][2] == "ofdm_track"
+    assert args[8:11] == (2, s_data, cfg.n_carriers) and args[15] == llrs.data_ptr()
+    key = "ofdm_track_decide_fused" + (":global" if want == "global" else "")
+    assert {k: v for k, v in tk.launch_counts.items() if v} == {key: 1}
 
 
 def test_phase_track_matches_jax():
