@@ -75,14 +75,16 @@ int8 read with ``ldmatrix.trans``; float32 frames with 32-bit loads, each
 sample split into three bf16 terms against ``_demod_split_basis``, the
 align+demod kernels' float32 product), and counts CRC bits with popcounts
 of the packed words; decide_tones_tm takes the same walk with a decisions
-epilogue, bfloat16 and float32 data alike. That walk takes sps 32, 64 and
-128 with at most 16 tones (_tensor_core_geometry, which also picks the
-align+demod kernels' and the stream steps' routes); at every other
-geometry both take csrc/frame_tm_generic.cu, a thread a stream on the CUDA
-cores (the route: ``_tm_operands``). Which predicate picks which route:
-_tensor_core_geometry the align+demod kernels, the stream steps and the
-time-major pair; _filterbank_tensor_core_geometry the batch-major
-filterbank; _ofdm_track_route, from S and C, the OFDM equalizer's.
+epilogue, bfloat16 and float32 data alike. decide_frame_tm's walk takes
+sps 32, 64 and 128 with at most 16 tones (_tensor_core_geometry, which
+also picks the align+demod kernels' and the stream steps' routes);
+decide_tones_tm's also sps 48 and 80 and up to 32 tones (8 n-tiles, the
+basis in shared memory). At every other geometry both take
+csrc/frame_tm_generic.cu, a thread a stream on the CUDA cores (the route:
+``_tm_operands``). Which predicate picks which route: _tensor_core_geometry
+the align+demod kernels, the stream steps and decide_frame_tm;
+_filterbank_tensor_core_geometry the batch-major filterbank and
+decide_tones_tm; _ofdm_track_route, from S and C, the OFDM equalizer's.
 gather_rows_fused copies 16-byte vectors aligned by a funnel shift. The
 other kernels sum in float32 on the CUDA cores.
 
@@ -321,7 +323,7 @@ def _kernel_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device)
 def _demod_mma_tiles(num_tones: int) -> int:
     """n8 tiles of demod_core.cuh's tensor-core product: 4 tones' (I, Q) a
     tile; 8 tiles (17 to 32 tones) only on the batch-major filterbank's
-    routes, the other walks taking at most 16 tones."""
+    routes and decide_tones_tm's, the other walks taking at most 16 tones."""
     return 1 if num_tones <= 4 else 2 if num_tones <= 8 else 4 if num_tones <= 16 else 8
 
 
@@ -398,14 +400,15 @@ def _demod_at_basis(config: ModemConfig, dtype: torch.dtype, device: torch.devic
 
 
 def _tensor_core_geometry(config: ModemConfig) -> bool:
-    """The geometry of the align+demod kernels and the time-major walk: sps
-    in _KERNEL_SPS (whole k-steps, the align+demod span rows) and at most 16
-    tones (four n8 tiles), the configs _check_kernel_geometry accepts. It
-    picks the stream steps' route (the align+demod kernels, else the
-    aligned slice and the batch-major filterbank, as the reference fuses
-    only where 128 % sps == 0), the merged lock step, the resident scan and
-    the time-major pair's route (_tm_operands). The batch-major
-    filterbank's route asks _filterbank_tensor_core_geometry."""
+    """The geometry of the align+demod kernels and of decide_frame_tm's
+    time-major walk: sps in _KERNEL_SPS (whole k-steps of 32 int8 samples,
+    the align+demod span rows) and at most 16 tones (four n8 tiles), the
+    configs _check_kernel_geometry accepts. It picks the stream steps'
+    route (the align+demod kernels, else the aligned slice and the
+    batch-major filterbank, as the reference fuses only where 128 % sps ==
+    0), the merged lock step, the resident scan and decide_frame_tm's route
+    (_tm_operands). The batch-major filterbank and decide_tones_tm ask
+    _filterbank_tensor_core_geometry."""
     return config.samples_per_symbol in _KERNEL_SPS and config.num_tones <= 16
 
 
@@ -413,11 +416,15 @@ _FILTERBANK_SPS = (32, 48, 64, 80, 128)  # whole k-steps of 16 bf16 samples, row
 
 
 def _filterbank_tensor_core_geometry(config: ModemConfig) -> bool:
-    """The geometry of the batch-major filterbank's tensor-core routes
-    (tone_energies.cu's walk): sps in _FILTERBANK_SPS and at most 32 tones
-    (eight n8 tiles), mfsk8-audible (sps 48, 8 tones) and mfsk32-dense (sps
-    80, 32 tones) among them. Wider than _tensor_core_geometry, which the
-    other walks keep. Only _filterbank_operands asks it."""
+    """The geometry of the tensor-core walks whose k-steps are 16 bf16
+    samples (float32 ones split into bf16 terms) and whose basis may lie in
+    shared memory: sps in _FILTERBANK_SPS and at most 32 tones (eight n8
+    tiles), mfsk8-audible (sps 48, 8 tones) and mfsk32-dense (sps 80, 32
+    tones) among them. The batch-major filterbank's routes
+    (_filterbank_operands: tone_energies.cu's walk) and decide_tones_tm's
+    (_tm_operands: decide_frame_tm.cu's walk, its decisions epilogue) ask
+    it; the align+demod kernels and decide_frame_tm keep
+    _tensor_core_geometry."""
     return config.samples_per_symbol in _FILTERBANK_SPS and config.num_tones <= 32
 
 
@@ -463,14 +470,21 @@ def _generic_tm_basis(config: ModemConfig, dtype: torch.dtype, device: torch.dev
 def _tm_operands(name: str, config: ModemConfig, dtype: torch.dtype,
                  device) -> tuple[str, str, torch.Tensor]:
     """(entry point, route, basis) of a time-major launch of ``name``,
-    "decide_frame_tm" or "decide_tones_tm", on samples of ``dtype``. At the
-    tensor-core geometry (_tensor_core_geometry) csrc/decide_frame_tm.cu's
-    walk with _demod_at_basis: route "mma" for bfloat16 and int8 samples,
-    "split" for float32 (the three-term bf16 split). Any other geometry
-    takes csrc/frame_tm_generic.cu (entry ``name + "_generic"``, route
+    "decide_frame_tm" or "decide_tones_tm", on samples of ``dtype``. Where
+    the wrapper's walk takes the geometry, csrc/decide_frame_tm.cu's walk
+    with _demod_at_basis: route "mma" for bfloat16 and int8 samples,
+    "split" for float32 (the three-term bf16 split). decide_frame_tm's
+    walk takes _tensor_core_geometry (its int8 k-steps are 32 samples, and
+    its words at most 4 bits a symbol), decide_tones_tm's the wider
+    _filterbank_tensor_core_geometry (sps 48 and 80, up to 32 tones: both
+    presets off the other walks). Any other geometry takes
+    csrc/frame_tm_generic.cu (entry ``name + "_generic"``, route
     "generic") with _generic_tm_basis, whose launches count under
-    OFF_WALK_KEYS["generic"] whichever wrapper launched them."""
-    if _tensor_core_geometry(config):
+    OFF_WALK_KEYS["generic"] whichever wrapper launched them. The sets
+    match the kernels' instantiations, so no launch on the walk is
+    refused."""
+    walk = _filterbank_tensor_core_geometry if name == "decide_tones_tm" else _tensor_core_geometry
+    if walk(config):
         entry = name if name == "decide_frame_tm" else f"{name}_mma"
         return entry, "split" if dtype == torch.float32 else "mma", _demod_at_basis(config, dtype, device)
     return f"{name}_generic", "generic", _generic_tm_basis(config, dtype, device)
@@ -1250,12 +1264,15 @@ def decide_tones_tm(config: ModemConfig, data_tm: torch.Tensor):
     covers exactly the frame's own symbols).
 
     Any samples_per_symbol and tone count. On the card (the route:
-    _tm_operands) sps 32, 64 and 128 with at most 16 tones take
+    _tm_operands) sps 32, 48, 64, 80 and 128 with at most 32 tones
+    (_filterbank_tensor_core_geometry: every MFSK preset) take
     decide_frame_tm's tensor-core walk (csrc/decide_frame_tm.cu, its
-    decisions epilogue) with the basis of _demod_at_basis: bfloat16 data one
-    product, float32 data the three-term bf16 split (within F32_SPLIT_RTOL
-    and F32_SPLIT_ATOL); every other geometry csrc/frame_tm_generic.cu on
-    the CUDA cores, float32 sums of the samples in order."""
+    decisions epilogue; 17-32 tones with the basis in shared memory) with
+    the basis of _demod_at_basis: bfloat16 data one product, float32 data
+    the three-term bf16 split (within F32_SPLIT_RTOL and F32_SPLIT_ATOL);
+    every other geometry (sps 24, 40, 96 or 160, more than 32 tones)
+    csrc/frame_tm_generic.cu on the CUDA cores, float32 sums of the samples
+    in order."""
     if data_tm.device.type == "cpu":
         return decide_tones_tm_ref(config, data_tm)
     return _decide_tones_tm_launch(config, data_tm)

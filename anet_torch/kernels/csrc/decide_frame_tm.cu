@@ -80,6 +80,16 @@
 //   of 64 samples, B = 16384): bf16 1.25 GB read and written, 0.37 ms,
 //   measured (time_search --kernels tones_tm, as above) 0.46-0.47 ms;
 //   float32 2.39 GB, 0.71 ms, measured 0.87-0.89 ms.
+//   This epilogue alone also takes sps 48 and 80 (3 and 5 k-steps of 16;
+//   decide_frame_tm keeps one geometry for its three dtypes, and int8's
+//   k-steps of 32 do not divide these) and 17-32 tones as 8 n-tiles,
+//   every basis term then in shared memory (SharedTerms): the presets
+//   mfsk8-audible (sps 48, 8 tones) and mfsk32-dense (sps 80, 32 tones).
+//   Bound at their aligned paths (payload 256, B = 16384; 715 symbols of
+//   48, 429 of 80), all bytes: bf16 0.378 / 0.361 ms, float32 0.713 /
+//   0.697 ms; measured (time_search --kernels tones_tm, as above) bf16
+//   0.47 / 0.46 ms, float32 0.86 / 1.20 ms. The last holds 2 blocks (8
+//   warps) an SM: 229 registers, 74,240 bytes of shared memory.
 
 #include <algorithm>
 
@@ -116,10 +126,14 @@ struct Geo {
 
 // The B operand of a T walk with NT n-tiles: the one-term basis in
 // registers (bf16, int8) or the three-term split (float32: b0 in registers,
-// b1 and b2 in the first P::SMEM bytes of shared memory, before the ring).
+// b1 and b2 in the first P::SMEM bytes of shared memory, before the ring);
+// at 8 n-tiles (decide_tones_tm, 17-32 tones) the same products with every
+// term in those bytes (SharedTerms).
 template <typename T, int SPS, int NT>
-using Product = std::conditional_t<sizeof(T) == 4, anet::demod::SplitTerms<float, SPS, NT>,
-                                   anet::demod::OneTerm<T, SPS, NT>>;
+using Product =
+    std::conditional_t<NT == 8, anet::demod::SharedTerms<T, SPS, NT, sizeof(T) == 4 ? 3 : 1>,
+                       std::conditional_t<sizeof(T) == 4, anet::demod::SplitTerms<float, SPS, NT>,
+                                          anet::demod::OneTerm<T, SPS, NT>>>;
 
 // A block's shared memory: the product's, then the ring.
 template <typename T, int SPS, int NT>
@@ -339,8 +353,7 @@ __device__ __forceinline__ void frame_tm_walk(const Frame& f) {
         for (int ks = 0; ks < G::KS; ++ks) {
           uint32_t a[4];
           a_frag<T, SPS>(stage, ks, warp, lane, a);
-#pragma unroll
-          for (int t = 0; t < NT; ++t) anet::demod::mma(acc[t], a, prod.bf[ks][t][0], prod.bf[ks][t][1]);
+          prod.products(ks, lane, a, acc);
         }
       }
       // the energy of tone 4 v + i of M row g + 8 h
@@ -478,13 +491,21 @@ cudaError_t launch_mma(const Frame& f, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// n-tiles by the tone count: 4 tones an n8 tile; 8 tiles (17-32 tones)
+// for decide_tones_tm only (decide_frame_tm takes at most 16).
 template <typename T, int SPS, bool TONES>
 cudaError_t dispatch_tones(int m, const Frame& f, cudaStream_t st) {
   if (m <= 4) return launch_mma<T, SPS, 1, TONES>(f, st);
   if (m <= 8) return launch_mma<T, SPS, 2, TONES>(f, st);
+  if constexpr (TONES) {
+    if (m > 16) return launch_mma<T, SPS, 8, TONES>(f, st);
+  }
   return launch_mma<T, SPS, 4, TONES>(f, st);
 }
 
+// k-steps by sps: 32, 64 and 128 for both epilogues; 48 and 80 (3 and 5
+// k-steps of 16) for decide_tones_tm only, as int8's k-steps of 32 do not
+// divide them (kernels._tm_operands picks the route from the same sets).
 template <typename T, bool TONES = false>
 cudaError_t dispatch_sps(int sps, int m, const Frame& f, cudaStream_t st) {
   switch (sps) {
@@ -494,9 +515,12 @@ cudaError_t dispatch_sps(int sps, int m, const Frame& f, cudaStream_t st) {
       return dispatch_tones<T, 64, TONES>(m, f, st);
     case 128:
       return dispatch_tones<T, 128, TONES>(m, f, st);
-    default:
-      return cudaErrorInvalidValue;
   }
+  if constexpr (TONES) {
+    if (sps == 48) return dispatch_tones<T, 48, TONES>(m, f, st);
+    if (sps == 80) return dispatch_tones<T, 80, TONES>(m, f, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The bytes of a sample of dtype code `dtype` (common.cuh): float32 4,
@@ -533,13 +557,14 @@ extern "C" int anet_decide_frame_tm(const void* x, int dtype, int B, int row0, i
 
 // decide_tones_tm on the tensor cores. float32 (dtype 0) or bfloat16 (1) x:
 // [>= n_symbols * sps, B] time-major, symbol-aligned at row 0, any base
-// alignment; m <= 16 tones, sps 32, 64 or 128; basis as
-// anet_decide_frame_tm takes it for the dtype. tone: [n_symbols, B] int32;
-// best, total: [n_symbols, B] float32. Returns cudaGetLastError().
+// alignment; m <= 32 tones, sps 32, 48, 64, 80 or 128; basis as
+// anet_decide_frame_tm takes it for the dtype (8 n-tiles past 16 tones).
+// tone: [n_symbols, B] int32; best, total: [n_symbols, B] float32. Returns
+// cudaGetLastError().
 extern "C" int anet_decide_tones_tm_mma(const void* x, int dtype, int B, int sps, int m, int n_symbols,
                                         const void* basis, void* tone, void* best, void* total,
                                         void* stream) {
-  if ((dtype != anet::DTYPE_F32 && dtype != anet::DTYPE_BF16) || m < 1 || m > 16)
+  if ((dtype != anet::DTYPE_F32 && dtype != anet::DTYPE_BF16) || m < 1 || m > 32)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || n_symbols == 0) return (int)cudaSuccess;
   Frame f{static_cast<const unsigned char*>(x), B, 0, n_symbols, (n_symbols + SB - 1) / SB, 0,

@@ -3,8 +3,9 @@
 // through SplitTerms) and tone_energies.cu (every start at 0: bfloat16
 // compute, and float32 compute on bfloat16 or float32 rows).
 // decide_frame_tm.cu walks time-major rows with an A read of its own and
-// takes from here the mma and cp.async wrappers, OneTerm's and SplitTerms'
-// B operand and SplitTerms' six products.
+// takes from here the mma and cp.async wrappers and the B operand and
+// products of OneTerm, SplitTerms and (decide_tones_tm past 16 tones)
+// SharedTerms.
 //
 // For stream b the data section starts at sample d0 = start[b] + pre of its
 // buffer row, rows len samples apart (a PitchedSpan's `pitch` apart, pitch
@@ -23,8 +24,8 @@
 //   to the reference's sums, below 2^24, so exact as floats too). The A
 //   tile is 16 symbols x 16 (bf16, float32) or 32 (int8) samples a k-step.
 //   n_tiles is a template argument: 1 for M <= 4 tones, 2 for M <= 8, 4 for
-//   M <= 16, and 8 for M <= 32 (the batch-major filterbank alone, through
-//   SharedTerms).
+//   M <= 16, and 8 for M <= 32 (the batch-major filterbank and
+//   decide_tones_tm, through SharedTerms).
 // - B, in one of three forms, packed by the wrapper once a config and
 //   device in fragment order (word [ks][t][r][lane]), the product type of
 //   the walk (walk_with's P):
@@ -271,6 +272,14 @@ struct OneTerm {
         for (int r = 0; r < 2; ++r) bf[ks][t][r] = basis[((ks * NT + t) * 2 + r) * 32 + lane];
   }
 
+  // The products of k-step ks with A fragments `a` that a walk read its own
+  // way (decide_frame_tm.cu's time-major rows), into acc.
+  __device__ __forceinline__ void products(int ks, int, const uint32_t (&a)[4],
+                                           typename Acc<T>::type (&acc)[NT][4]) const {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) mma(acc[t], a, bf[ks][t][0], bf[ks][t][1]);
+  }
+
   __device__ __forceinline__ void energies(const unsigned char* rows, int x0, int sh, int,
                                            float (&e)[NT][2]) const {
     typename Acc<T>::type acc[NT][4];
@@ -426,9 +435,10 @@ struct SplitTerms {
   }
 };
 
-// The B operand and the product at 8 n-tiles (17 to 32 tones; only the
-// batch-major filterbank takes them, the other walks refuse more than 16):
-// OneTerm's product (TERMS 1: bf16 samples, the bf16 basis of
+// The B operand and the product at 8 n-tiles (17 to 32 tones: the
+// batch-major filterbank and decide_frame_tm.cu's decide_tones_tm; the
+// align+demod kernels and decide_frame_tm refuse more than 16): OneTerm's
+// product (TERMS 1: bf16 samples, the bf16 basis of
 // kernels._demod_mma_basis) or SplitTerms' (TERMS 3: the float32 basis as
 // three bf16 terms, kernels._demod_split_basis, on bf16 or float32
 // samples), their products in the same order, so the same sums. Every term
@@ -436,8 +446,9 @@ struct SplitTerms {
 // would take 2 x KS x 8 words a lane (80 at sps 80, 128 at sps 128) beside
 // 32 accumulators (one term) or 64 (the split). A lane's words of a
 // (k-step, n-tile) are one 8-byte vector of b0 and, split, one 16-byte
-// vector of b1 and b2, which it reads once a k-step for the 16 symbols of
-// its m16 tile.
+// vector of b1 and b2, which it reads once a k-step for the 16 rows of
+// its m16 tile. products and six_products take the A fragments of a walk
+// that reads them its own way, as OneTerm's and SplitTerms' do.
 template <typename T, int SPS, int NT_, int TERMS>
 struct SharedTerms {
   static_assert(TERMS == 1 || TERMS == 3, "one term, or the three-term split");
@@ -465,6 +476,36 @@ struct SharedTerms {
     b12 = s12;
   }
 
+  // TERMS 1: OneTerm's products of k-step ks of bf16 samples, into big.
+  __device__ __forceinline__ void products(int ks, int lane, const uint32_t (&a)[4],
+                                           float (&big)[NT][4]) const {
+    static_assert(TERMS == 1, "the one-term basis");
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const uint2 u = b0[(ks * NT + t) * 32 + lane];
+      mma(big[t], a, u.x, u.y);
+    }
+  }
+
+  // TERMS 3: SplitTerms' six products of k-step ks of float32 samples split
+  // into a0 + a1 + a2: a0 b0 into big, the rest into small, smallest first.
+  __device__ __forceinline__ void six_products(int ks, int lane, const uint32_t (&a0)[4],
+                                               const uint32_t (&a1)[4], const uint32_t (&a2)[4],
+                                               float (&big)[NT][4], float (&small)[NT][4]) const {
+    static_assert(TERMS == 3, "the three-term split");
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const uint2 u = b0[(ks * NT + t) * 32 + lane];
+      const uint4 v = b12[(ks * NT + t) * 32 + lane];
+      mma(small[t], a2, u.x, u.y);  // about 2^-16 |a| |b| each
+      mma(small[t], a1, v.x, v.y);
+      mma(small[t], a0, v.z, v.w);
+      mma(small[t], a1, u.x, u.y);  // about 2^-8
+      mma(small[t], a0, v.x, v.y);
+      mma(big[t], a0, u.x, u.y);
+    }
+  }
+
   __device__ __forceinline__ void energies(const unsigned char* rows, int x0, int sh, int lane,
                                            float (&e)[NT][2]) const {
     float big[NT][4], small[NT][4];
@@ -474,32 +515,24 @@ struct SharedTerms {
       for (int c = 0; c < 4; ++c) big[t][c] = small[t][c] = 0.0f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      if constexpr (std::is_same<T, float>::value) {  // SplitTerms' six products
+      if constexpr (std::is_same<T, float>::value) {
         uint32_t a0[4], a1[4], a2[4];
         a_split<SPS>(rows, x0 + (lane & 3), ks, a0, a1, a2);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const uint2 u = b0[(ks * NT + t) * 32 + lane];
-          const uint4 v = b12[(ks * NT + t) * 32 + lane];
-          mma(small[t], a2, u.x, u.y);  // about 2^-16 |a| |b| each
-          mma(small[t], a1, v.x, v.y);
-          mma(small[t], a0, v.z, v.w);
-          mma(small[t], a1, u.x, u.y);  // about 2^-8
-          mma(small[t], a0, v.x, v.y);
-          mma(big[t], a0, u.x, u.y);
-        }
+        six_products(ks, lane, a0, a1, a2, big, small);
       } else {
         uint32_t a[4];
         a_frag<T, SPS>(rows, x0, sh, ks, a);
+        if constexpr (TERMS == 3) {  // SplitTerms' three products of bf16 samples
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const uint2 u = b0[(ks * NT + t) * 32 + lane];
-          if constexpr (TERMS == 3) {  // SplitTerms' three products of bf16 samples
+          for (int t = 0; t < NT; ++t) {
+            const uint2 u = b0[(ks * NT + t) * 32 + lane];
             const uint4 v = b12[(ks * NT + t) * 32 + lane];
             mma(small[t], a, v.z, v.w);  // a b2, about 2^-16 |a| |b|
             mma(small[t], a, v.x, v.y);  // a b1, about 2^-8
+            mma(big[t], a, u.x, u.y);
           }
-          mma(big[t], a, u.x, u.y);
+        } else {
+          products(ks, lane, a, big);
         }
       }
     }

@@ -6,10 +6,12 @@
 // decide_tones_tm (line 269, pallas_call at line 304) and decide_frame_tm
 // (line 488, pallas_call at line 586), which take any samples_per_symbol
 // and tone count. decide_frame_tm.cu's walk takes sps 32, 64 or 128 and at
-// most 16 tones (its k-steps and n-tiles are template arguments); the
-// presets mfsk8-audible (sps 48, 8 tones) and mfsk32-dense (sps 80, 32
-// tones) and custom configs come here (kernels._tm_operands picks the route
-// with kernels._tensor_core_geometry).
+// most 16 tones for decide_frame_tm (kernels._tensor_core_geometry), and
+// also sps 48 and 80 and up to 32 tones for decide_tones_tm
+// (kernels._filterbank_tensor_core_geometry): every MFSK preset. Custom
+// configs off those (sps 24, 40, 96 or 160; more than 32 tones; and
+// decide_frame_tm at sps 48 or 80) come here (kernels._tm_operands picks
+// the route).
 //
 // Input: time-major x[T, B] (bfloat16 or float32; int8 too for the frame
 // epilogue), symbol s in rows row0 + s sps .. row0 + (s + 1) sps - 1. Per
@@ -23,12 +25,14 @@
 //   kernels._frame_crc_masks, the quality sums conf/best/total: the outputs
 //   and layout of decide_frame_tm.cu.
 //
-// What bounds it on the H100: at mfsk32-dense (payload 256: 429 symbols of
-// 80 samples, B = 16,384) the read is 1.12 GB of bf16 (0.34 ms at 3.35
-// TB/s) or 2.25 GB of float32 (0.67 ms), and the filterbank's 72 GFLOP take
-// 1.07 ms at the CUDA cores' 67 TFLOP/s: on this route the operations bound
-// it. mfsk8-audible (715 symbols of 48 samples, 8 tones: 18 GFLOP, 0.27 ms)
-// is bound by its bytes, 0.38 ms in bf16 and 0.71 ms in float32.
+// What bounds it on the H100: at sps 80 with 32 tones (payload 256: 429
+// symbols, B = 16,384) the read is 1.12 GB of bf16 (0.34 ms at 3.35 TB/s)
+// or 2.25 GB of float32 (0.67 ms), and the filterbank's 72 GFLOP take 1.07
+// ms at the CUDA cores' 67 TFLOP/s: on this route the operations bound it.
+// At sps 48 with 8 tones (715 symbols: 18 GFLOP, 0.27 ms) the bytes bound
+// it, 0.38 ms in bf16 and 0.71 ms in float32. Measured at those two shapes
+// (chip_smoke.py phase 2, H100 80GB HBM3, 700 W): 4.92-4.95 and 1.41-1.77
+// ms, the shared basis loads its limit by the SASS.
 //
 // Design, simple first:
 // - A thread a stream, NB = 128 streams a block: each time row is one

@@ -87,10 +87,14 @@ comma-separated subset of:
   geometry (mfsk16-fast, payload 256: the data section of a frame plus 8
   symbols, 544 symbols of 64 samples, 16 tones) on B = 16,384 streams of
   bfloat16 and float32 noise, and both at B = 16,383 (``... ragged``: rows
-  off 16 bytes), each with its ``device`` column (rows whose name holds
-  ``decide_tones_tm`` or ``frame_tm_mma``: an older checkout's CUDA-core
-  float32 kernel and this one's ``frame_tm_mma_f32`` alike). It ignores
-  ``--model``.
+  off 16 bytes); then at the aligned paths of mfsk8-audible (715 symbols
+  of 48 samples, 8 tones) and mfsk32-dense (429 of 80, 32 tones), payload
+  256, B = 16,384, bfloat16 and float32 (``decide_tones_tm <preset>
+  <dtype>``); each with its ``device`` column (rows whose name holds
+  ``decide_tones_tm`` or ``frame_tm``: an older checkout's CUDA-core
+  float32 kernel, this one's ``frame_tm_mma`` and ``frame_tm_mma_f32``,
+  and ``frame_tm_generic``, the CUDA-core body a checkout from before
+  the walk took the presets runs there, alike). It ignores ``--model``.
 - ``gather``: ``gather_rows_fused`` at the one-shot receiver's geometry
   (mfsk16-fast, payload 256: size 36,352 out of 76,288-sample rows) on B =
   8,192 bfloat16, int8 (``quantize_int8``) and float32 buffers of noise,
@@ -119,7 +123,7 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "bm": ("tone_energies",),
     "probe_at": ("demod_probe", "probe_at"),  # probe_at.cu: checkouts that still have it
     "ofdm": ("ofdm_track",),
-    "tones_tm": ("decide_tones_tm", "decide_frame_tm"),
+    "tones_tm": ("decide_tones_tm", "decide_frame_tm", "frame_tm_generic"),
     "gather": ("gather_rows",),
 }
 FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
@@ -346,10 +350,21 @@ if "tones_tm" in kinds:
         xs = make()
         call = lambda: kernels.decide_tones_tm(c, xs)
         out[f"decide_tones_tm {{label}}"] = time_ms(call)
-        out[f"decide_tones_tm {{label}} device"] = device_ms(call, ("decide_tones_tm", "frame_tm_mma"))
+        out[f"decide_tones_tm {{label}} device"] = device_ms(call, ("decide_tones_tm", "frame_tm"))
         del xs
         torch.cuda.empty_cache()
     del x
+    for preset in ("mfsk8-audible", "mfsk32-dense"):
+        c = get_model(preset).config
+        x = torch.randn(family.frame_samples(c, 256) - c.preamble_samples, {frame_b}, generator=gen, device="cuda")
+        for label, make in (("bfloat16", lambda: x.to(torch.bfloat16)), ("float32", lambda: x)):
+            xs = make()
+            call = lambda: kernels.decide_tones_tm(c, xs)
+            out[f"decide_tones_tm {{preset}} {{label}}"] = time_ms(call)
+            out[f"decide_tones_tm {{preset}} {{label}} device"] = device_ms(call, ("decide_tones_tm", "frame_tm"))
+            del xs
+            torch.cuda.empty_cache()
+        del x
 if "gather" in kinds:
     from anet_torch.stream import _buffer_len, quantize_int8
 

@@ -70,13 +70,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the quality sums within the split's tolerance; compare_split_decisions),
    each held against its plain version and timed with it at the main
    shape against its bound (the "<name>:f32" numbers); and the time-major
-   pair's CUDA-core body off the tensor-core walk's geometry
-   (csrc/frame_tm_generic.cu, phase_kernels_generic: decide_tones_tm on
-   mfsk8-audible and mfsk32-dense, bf16 and float32, and decide_frame_tm's
-   epilogue at sps 80 with 16 tones, bf16, int8 and float32; tones, words
-   and CRC counts bit-equal, the sums within GENERIC_RTOL, on 256 streams
-   and at B = 16,384, timed there against its bound and the CUDA cores'
-   floor); and the batch-major filterbank off that geometry
+   pair off decide_frame_tm's walk (phase_kernels_generic):
+   decide_tones_tm at mfsk8-audible (sps 48, 8 tones) and mfsk32-dense
+   (sps 80, 32 tones as 8 n-tiles, the basis in shared memory) on
+   decide_frame_tm.cu's tensor-core walk, bf16 and float32 (its route
+   asserted; compare_walk_tones: tones equal but at near-ties, bf16 best
+   and total within RTOL of the symbol's largest energy, float32 as
+   compare_split_decisions), on 256 streams and at B = 16,384, timed there
+   against its bound (decide_tones_tm's "presets"); and the CUDA-core body
+   kept for custom geometries (csrc/frame_tm_generic.cu: decide_tones_tm at
+   sps 96 with 32 tones and sps 40 with 8, bf16 and float32, and
+   decide_frame_tm's epilogue at sps 80 with 16 tones, bf16, int8 and
+   float32; tones, words and CRC counts bit-equal, the sums within
+   GENERIC_RTOL, on 256 streams and at B = 16,384, timed there against its
+   bound and the CUDA cores' floor); and the batch-major filterbank off
+   the align+demod kernels' geometry
    (phase_kernels_filterbank_generic): its tensor-core routes at the two
    stream paths' shapes (tone_energies_fused and decide_tones_fused,
    mfsk32-dense bf16 compute with 32 tones' basis in shared memory, and
@@ -175,21 +183,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    int8 route) and "aligned-window-f32" (phase 6's window in float32 rows
    and compute: decide_tones_tm's split, never its bf16 route), every
    frame ok with equal payloads; and the two presets off the align+demod
-   kernels' and the time-major walk's geometry (sps 32, 64 or 128 with at
+   kernels' and decide_frame_tm's geometry (sps 32, 64 or 128 with at
    most 16 tones: kernels._tensor_core_geometry): "aligned-audible"
    (16,384 bf16 mfsk8-audible frames, 48 samples a symbol, through
-   demodulate_frame_tm: 3 bits a symbol take decide_tones_tm, its generic
-   body: frame_tm_generic),
+   demodulate_frame_tm: 3 bits a symbol take decide_tones_tm, on
+   decide_frame_tm.cu's tensor-core walk at sps 48, its bf16 route),
    "aligned-dense-f32" (16,384 float32 mfsk32-dense frames, 32 tones:
-   frame_tm_generic:f32), "stream-audible-f32" (phase 4's stream on
+   decide_tones_tm:f32, the walk's split at 8 n-tiles; neither aligned
+   path launches frame_tm_generic, the batch-major filterbank or the
+   other dtype's route), "stream-audible-f32" (phase 4's stream on
    mfsk8-audible at receive_stream's float32 defaults, cold and warm: the
    search, then the aligned slice through the batch-major receiver,
    tone_energies_fused's tensor-core split at sps 48:
    tone_energies_fused:f32; the plain probe) and "stream-dense" (the same
    on mfsk32-dense with a bf16 carry, locked: tone_energies_fused's
    bfloat16 route at 32 tones, probe_at_fused); none of them launches an
-   align+demod kernel, the time-major pair's tensor-core walk
-   (OFF_THE_WALK) or the filterbank's CUDA-core body;
+   align+demod kernel or decide_frame_tm (OFF_THE_WALK), and the streams
+   launch neither decide_tones_tm nor a CUDA-core body;
 11. the scale-out layer (anet_torch.parallel, its positions all on the one
    card) and the modem CLI: "sharded-demod" (16,384 aligned mfsk16-fast
    frames, float32 compute, sharded_demodulate on 4 positions and on
@@ -255,17 +265,18 @@ five kernels with an int8 instantiation carry its numbers under "int8", the
 ten with a float32 route of their own its numbers under "f32"; the
 batch-major filterbank's are on float32 rows, with its bf16 rows' under
 "f32"."bf16_rows", and its numbers at mfsk32-dense and mfsk8-audible
-under "presets"; ofdm_track_decide_fused's global route under "global",
-S = 343 batch-major, its other shapes under "global"."shapes"; the two
-CUDA-core bodies off the tensor-core walks' geometry have rows of their
-own, whose launches the wrappers count under kernels.OFF_WALK_KEYS:
-frame_tm_generic's numbers decide_tones_tm on mfsk8-audible bf16, under
-"f32" on mfsk32-dense float32, with its other shapes and the frame
-epilogue beside them; filterbank_cuda_core's, on no path since every
-preset takes the tensor cores (OFF_PATHS), tone_energies_fused at sps 40
-with 8 tones under bf16 compute, under "f32" under float32 compute,
-decide_tones_fused's under "decide_tones"), and the last line the JSON
-verdict with the device's name.
+under "presets", as decide_tones_tm's walk at both presets and dtypes;
+ofdm_track_decide_fused's global route under "global", S = 343
+batch-major, its other shapes under "global"."shapes"; the two CUDA-core
+bodies off the tensor-core walks' geometry have rows of their own, whose
+launches the wrappers count under kernels.OFF_WALK_KEYS, both on no path
+since every preset takes the tensor cores (OFF_PATHS): frame_tm_generic's
+numbers decide_tones_tm at sps 96 with 32 tones, bf16, under "f32" on
+float32, with sps 40 and the frame epilogue beside them;
+filterbank_cuda_core's tone_energies_fused at sps 40 with 8 tones under
+bf16 compute, under "f32" under float32 compute, decide_tones_fused's
+under "decide_tones"), and the last line the JSON verdict with the
+device's name.
 """
 
 from __future__ import annotations
@@ -522,12 +533,15 @@ def check_frame(label: str, cfg, x_tm: torch.Tensor, pre: int) -> float:
     return compare(label, got, want, exact=(0, 1), close=(2,))
 
 
-def tm_energies(cfg, x_tm: torch.Tensor, row0: int, n_sym: int) -> torch.Tensor:
+def tm_energies(cfg, x_tm: torch.Tensor, row0: int, n_sym: int,
+                basis_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The plain energies [B, S, M] of n_sym symbols of time-major rows
-    [T, B] from row row0: the float32 basis, a float32 product."""
+    [T, B] from row row0: the basis that meets samples of ``basis_dtype``
+    (float32 by default; bf16-rounded entries for bfloat16), a float32
+    product."""
     sps, m = cfg.samples_per_symbol, cfg.num_tones
     w = x_tm[row0 : row0 + n_sym * sps].float().reshape(n_sym, sps, -1)
-    iq = torch.einsum("mk,skb->bsm", kernels._plain_basis(cfg, torch.float32, x_tm.device).T, w)
+    iq = torch.einsum("mk,skb->bsm", kernels._plain_basis(cfg, basis_dtype, x_tm.device).T, w)
     del w
     return iq[..., :m] * iq[..., :m] + iq[..., m:] * iq[..., m:]
 
@@ -1351,48 +1365,122 @@ def generic_frame_config() -> ModemConfig:
     return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=600, num_tones=16, base_freq_hz=300.0)
 
 
+def custom_tones_config() -> ModemConfig:
+    """sps 96 with 32 tones: a geometry of decide_tones_tm off its
+    tensor-core walk (no preset has one), two passes of the generic
+    body's 16 tones."""
+    return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=500, num_tones=32, base_freq_hz=250.0)
+
+
+def noisy_data_sections(cfg, gen, dtype) -> torch.Tensor:
+    """Time-major data sections [symbols x sps, COMPARE_B] of ``dtype``: 256
+    frames of PAYLOAD random bytes at noise 0.3, past their preambles."""
+    pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    w = transmit(cfg, pay, device=DEV)
+    data = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).T[cfg.preamble_samples :]
+    return data.contiguous().to(dtype)
+
+
+def compare_walk_tones(label: str, cfg, x: torch.Tensor) -> float:
+    """decide_tones_tm on its tensor-core walk (route "mma" for bfloat16
+    rows, "split" for float32; never the generic body) against the plain
+    energies of the same symbols: float32 as compare_split_decisions holds
+    it; bfloat16 (bf16 products exact, float32 sums in another order) with
+    the tones equal but where the plain version's two largest energies lie
+    within RTOL of the largest (their count printed), best and total within
+    RTOL of the symbol's largest energy. Returns the max absolute error."""
+    route = "split" if x.dtype == torch.float32 else "mma"
+    if kernels._tm_operands("decide_tones_tm", cfg, x.dtype, DEV)[1] != route:
+        raise AssertionError(f"{label}: decide_tones_tm does not take the walk's {route} route")
+    got = [v.T for v in kernels.decide_tones_tm(cfg, x)]
+    want = tm_energies(cfg, x, 0, x.shape[0] // cfg.samples_per_symbol, x.dtype)
+    if x.dtype == torch.float32:
+        return compare_split_decisions(label, got, want)
+    tone, best, total = got
+    scale = want.amax(-1)
+    top2 = want.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= RTOL * top2[..., 0]
+    tone_bad = int(((tone != want.argmax(-1).int()) & ~near).sum())
+    d_best, d_total = (best - scale).abs(), (total - want.sum(-1)).abs()
+    best_bad, total_bad = int((d_best > RTOL * scale).sum()), int((d_total > RTOL * scale).sum())
+    worst = max(float(d_best.max()), float(d_total.max()))
+    log(f"  {label}: best/total max abs {worst:.3e}, beyond RTOL of the symbol's largest: best {best_bad}, "
+        f"total {total_bad}; near-ties {int(near.sum())} of {near.numel()}; tones differing off a near-tie "
+        f"{tone_bad}")
+    if tone_bad or best_bad or total_bad:
+        raise AssertionError(f"{label}: decide_tones_tm's walk is beyond its tolerance")
+    return worst
+
+
 def phase_kernels_generic(gen) -> dict:
-    """Phase 2 for csrc/frame_tm_generic.cu, the time-major pair's CUDA-core
-    body off the tensor-core walk's geometry: decide_tones_tm on
-    mfsk8-audible (bf16 frames, the aligned-audible path's; and float32)
-    and mfsk32-dense (float32, aligned-dense-f32's; and bf16), and
-    decide_frame_tm's epilogue on sps 80 with 16 tones (bf16, int8 x127,
-    float32; no preset runs it). Each on the data of 256 noisy frames,
-    against its plain version (tones, words and CRC counts bit-equal; best,
-    total and the quality sums within GENERIC_RTOL), then tiled to B =
-    16,384, held again and timed with its plain version against its bound
-    (bytes; or its operations at the peak of the samples' type) and the
-    CUDA cores' floor (its operations at F32_FLOPS_S)."""
-    results = {}
+    """Phase 2 for the time-major pair off decide_frame_tm's walk.
+    1. decide_tones_tm at both presets on decide_frame_tm.cu's tensor-core
+       walk (kernels._filterbank_tensor_core_geometry: mfsk8-audible, sps
+       48, 8 tones; mfsk32-dense, sps 80, 32 tones as 8 n-tiles with the
+       basis in shared memory), bfloat16 (aligned-audible's) and float32
+       (aligned-dense-f32's) data each: on the data sections of 256 noisy
+       frames held with compare_walk_tones, then tiled to B = 16,384, held
+       again and timed with the plain version against the bound (bytes, or
+       the products at the bf16 peak): decide_tones_tm's "presets".
+    2. csrc/frame_tm_generic.cu, the CUDA-core body kept for custom
+       geometries (on no path, OFF_PATHS): decide_tones_tm at sps 96 with
+       32 tones and sps 40 with 8 tones, bf16 and float32, and
+       decide_frame_tm's epilogue at sps 80 with 16 tones (bf16, int8
+       x127, float32). Each on 256 noisy frames against its plain version
+       (tones, words and CRC counts bit-equal; best, total and the quality
+       sums within GENERIC_RTOL), then tiled to B = 16,384, held again and
+       timed with its plain version against its bound (bytes; or its
+       operations at the peak of the samples' type) and the CUDA cores'
+       floor (its operations at F32_FLOPS_S)."""
     reps = ALIGNED_B // COMPARE_B
+    presets = {}
+    for model in (AUDIBLE_MODEL, DENSE_MODEL):
+        cfg = get_model(model).config
+        sps, m = cfg.samples_per_symbol, cfg.num_tones
+        for dtype in (torch.bfloat16, torch.float32):
+            data = noisy_data_sections(cfg, gen, dtype)
+            n_sym = data.shape[0] // sps
+            label = f"decide_tones_tm walk ({model}, {str(dtype).removeprefix('torch.')}"
+            err = compare_walk_tones(f"{label}, B {COMPARE_B})", cfg, data)
+            full = data.repeat(1, reps)
+            del data
+            err = max(err, compare_walk_tones(f"{label}, B {ALIGNED_B})", cfg, full))
+            torch.cuda.empty_cache()
+            products = F32_SPLIT_PRODUCTS if dtype == torch.float32 else 1
+            r = {"max_abs_err": err, "ms": time_ms(lambda: kernels.decide_tones_tm(cfg, full)),
+                 "plain_ms": time_ms(lambda: kernels.decide_tones_tm_ref(cfg, full)), "library_ms": None}
+            r["bound_ms"], r["bound_by"] = bound_ms(ALIGNED_B * n_sym * (sps * full.element_size() + 12),
+                                                    products * n_sym * 2 * sps * 2 * m * ALIGNED_B)
+            log(f"  {label}, B {ALIGNED_B}, {n_sym} symbols of {sps}, {m} tones): kernel {r['ms']:.3f} ms, "
+                f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+            presets[f"{model} {str(dtype).removeprefix('torch.')}"] = r
+            del full
+            torch.cuda.empty_cache()
+    results = {"decide_tones_tm presets": presets}
     timed = time_off_walk
 
     def tones(kernel: bool, cfg, x):
         return kernels.decide_tones_tm(cfg, x) if kernel else kernels.decide_tones_tm_ref(cfg, x)
 
-    for model, dtype, key in ((AUDIBLE_MODEL, torch.bfloat16, GENERIC_ROW),
-                              (DENSE_MODEL, torch.float32, f"{GENERIC_ROW}:f32"),
-                              (DENSE_MODEL, torch.bfloat16, "dense_bf16"),
-                              (AUDIBLE_MODEL, torch.float32, "audible_f32")):
-        cfg = get_model(model).config
+    for cfg, dtype, key in ((custom_tones_config(), torch.bfloat16, GENERIC_ROW),
+                            (custom_tones_config(), torch.float32, f"{GENERIC_ROW}:f32"),
+                            (custom_filterbank_config(), torch.bfloat16, "tones_sps40_bf16"),
+                            (custom_filterbank_config(), torch.float32, "tones_sps40_f32")):
         if kernels._tm_operands("decide_tones_tm", cfg, dtype, DEV)[1] != "generic":
-            raise AssertionError(f"{model}: decide_tones_tm does not take the generic body")
+            raise AssertionError(f"{key}: decide_tones_tm does not take the generic body")
         sps, m = cfg.samples_per_symbol, cfg.num_tones
-        pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
-        w = transmit(cfg, pay, device=DEV)
-        data = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).T[cfg.preamble_samples :]
-        data = data.contiguous().to(dtype)
+        data = noisy_data_sections(cfg, gen, dtype)
         n_sym = data.shape[0] // sps
-        label = f"{GENERIC_ROW} decide_tones_tm ({model}, {str(dtype).removeprefix('torch.')}"
+        label = f"{GENERIC_ROW} decide_tones_tm (sps {sps}, {m} tones, {str(dtype).removeprefix('torch.')}"
         err = compare(f"{label}, B {COMPARE_B})", tones(True, cfg, data), tones(False, cfg, data), (0,), (1, 2),
                       rtol=GENERIC_RTOL)
         full = data.repeat(1, reps)
-        del w, data
+        del data
         err = max(err, compare(f"{label}, B {ALIGNED_B})", tones(True, cfg, full), tones(False, cfg, full),
                                (0,), (1, 2), rtol=GENERIC_RTOL))
         r = timed(f"{label}, B {ALIGNED_B}, {n_sym} symbols of {sps})", lambda k, x: tones(k, cfg, x), full,
                   ALIGNED_B * n_sym * (sps * full.element_size() + 12), n_sym * 2 * sps * 2 * m * ALIGNED_B, dtype)
-        results[key] = {"max_abs_err": err, **r, "model": model}
+        results[key] = {"max_abs_err": err, **r, "sps": sps, "tones": m}
         del full
 
     # decide_frame_tm's epilogue
@@ -1421,8 +1509,8 @@ def phase_kernels_generic(gen) -> dict:
             f"{name}, B {ALIGNED_B}, {s} symbols)", frames, full,
             ALIGNED_B * (s * sps * full.element_size() + 4 * (n_tiles + 64 + 8)), s * 2 * sps * 2 * m * ALIGNED_B, dtype)}
         del x, full
-    results[GENERIC_ROW].update(frame_epilogue=frame, dense_bf16=results.pop("dense_bf16"),
-                                audible_f32=results.pop("audible_f32"))
+    results[GENERIC_ROW].update(frame_epilogue=frame, tones_sps40_bf16=results.pop("tones_sps40_bf16"),
+                                tones_sps40_f32=results.pop("tones_sps40_f32"))
     return results
 
 
@@ -3261,15 +3349,15 @@ PATHS = {
         lambda cfg, gen: phase_aligned_window(cfg, gen, label="aligned-window-f32", dtype=torch.float32),
         ("decide_tones_tm:f32",),
     ),
-    # the presets off the align+demod kernels' and the time-major walk's
-    # geometry: the time-major pair's generic body, the streams' slice and
+    # the presets off the align+demod kernels' and decide_frame_tm's
+    # geometry: decide_tones_tm's tensor-core walk, the streams' slice and
     # the batch-major filterbank's tensor-core routes
     "aligned-audible": (
-        AUDIBLE_MODEL, lambda cfg, gen: phase_aligned(cfg, gen, "aligned-audible"), (GENERIC_ROW,),
+        AUDIBLE_MODEL, lambda cfg, gen: phase_aligned(cfg, gen, "aligned-audible"), ("decide_tones_tm:bf16",),
     ),
     "aligned-dense-f32": (
         DENSE_MODEL, lambda cfg, gen: phase_aligned(cfg, gen, "aligned-dense-f32", dtype=torch.float32),
-        (f"{GENERIC_ROW}:f32",),
+        ("decide_tones_tm:f32",),
     ),
     "stream-audible-f32": (
         AUDIBLE_MODEL,
@@ -3308,13 +3396,13 @@ PATHS = {
 # carry goes to demod_at_fused's int8 instantiation only; float32 frames
 # and compute on the aligned receiver take the time-major pair's float32
 # route only; the presets off the align+demod kernels' geometry never reach
-# them (the reference fuses only where 128 % sps == 0) or the time-major
-# pair's tensor-core walk (its off-walk launches count under the generic
-# body's own key), and their streams' filterbank takes its tensor-core
-# routes, never its CUDA-core body; an OFDM frame past shared memory never
-# takes the equalizer's staged route.
-OFF_THE_WALK = ("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused", "decide_frame_tm",
-                "decide_tones_tm")
+# them (the reference fuses only where 128 % sps == 0) or decide_frame_tm
+# (OFF_THE_WALK), their aligned paths take decide_tones_tm's tensor-core
+# walk on their own dtype's route, never the time-major pair's generic
+# body, their streams never the time-major pair, and their streams'
+# filterbank takes its tensor-core routes, never its CUDA-core body; an
+# OFDM frame past shared memory never takes the equalizer's staged route.
+OFF_THE_WALK = ("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused", "decide_frame_tm")
 ABSENT = {
     "aligned-f32": ("decide_frame_tm:bf16", "decide_frame_tm:int8", "decide_tones_tm"),
     "aligned-window-f32": ("decide_tones_tm:bf16", "decide_frame_tm"),
@@ -3325,17 +3413,20 @@ ABSENT = {
     "oneshot-tracked": tuple(kernels.launch_counts),
     "stream-tracked": ("demod_at_fused", "demod_probe_fused"),
     "stream-resident": ("probe_at_fused", "demod_probe_fused"),
-    "aligned-audible": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", f"{GENERIC_ROW}:f32"),
-    "aligned-dense-f32": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", f"{GENERIC_ROW}:bf16"),
-    "stream-audible-f32": (*OFF_THE_WALK, "probe_at_fused", GENERIC_ROW, FILTERBANK_ROW,
+    "aligned-audible": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", GENERIC_ROW,
+                        "decide_tones_tm:f32"),
+    "aligned-dense-f32": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", GENERIC_ROW,
+                          "decide_tones_tm:bf16"),
+    "stream-audible-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", GENERIC_ROW, FILTERBANK_ROW,
                            "tone_energies_fused:bf16"),
-    "stream-dense": (*OFF_THE_WALK, GENERIC_ROW, FILTERBANK_ROW, "tone_energies_fused:f32"),
+    "stream-dense": (*OFF_THE_WALK, "decide_tones_tm", GENERIC_ROW, FILTERBANK_ROW, "tone_energies_fused:f32"),
     "aligned-ofdm-long": ("ofdm_track_decide_fused",),
 }
-# Rows of the kernels line on no path: the CUDA-core filterbank serves only
+# Rows of the kernels line on no path: the two CUDA-core bodies serve only
 # custom geometries now (every preset takes the tensor cores), held and
-# timed in phase 2 at sps 40.
-OFF_PATHS = (FILTERBANK_ROW,)
+# timed in phase 2 (the filterbank's at sps 40; frame_tm_generic's at sps
+# 96 and 40, and its frame epilogue at sps 80).
+OFF_PATHS = (FILTERBANK_ROW, GENERIC_ROW)
 
 
 def launched(counts: dict, name: str) -> int:
@@ -3381,7 +3472,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     results.update(phase_kernels_batch_major(get_model(MODEL).config, gen))
     torch.cuda.empty_cache()
-    results.update(phase_kernels_generic(gen))
+    generic = phase_kernels_generic(gen)
+    results["decide_tones_tm"]["presets"] = generic.pop("decide_tones_tm presets")
+    results.update(generic)
     torch.cuda.empty_cache()
     filterbank = phase_kernels_filterbank_generic(gen)
     for name in ("tone_energies_fused", "decide_tones_fused"):
@@ -3423,7 +3516,7 @@ def main() -> int:
             key = f"{name}:{route}"
             if key in results:
                 row[route] = {"launches": counts[key], **results[key]}
-        if "presets" in r:  # the batch-major filterbank at the presets off the other walks
+        if "presets" in r:  # decide_tones_tm and the batch-major filterbank at the presets off the other walks
             row["presets"] = r["presets"]
         if name in kernels.OFF_WALK_KEYS.values():  # their other shapes and epilogues
             row.update({k: v for k, v in r.items() if k not in row})

@@ -1,16 +1,16 @@
-"""The geometries outside the tensor-core walks (samples_per_symbol other
-than 32, 64 and 128, or more than 16 tones: the presets mfsk8-audible and
-mfsk32-dense, and custom configs), anet_torch against the JAX package on the
-CPU.
+"""The geometries outside the align+demod kernels' and decide_frame_tm's
+tensor-core walk (samples_per_symbol other than 32, 64 and 128, or more
+than 16 tones: the presets mfsk8-audible and mfsk32-dense, and custom
+configs), anet_torch against the JAX package on the CPU.
 
 - Two predicates pick the routes. kernels._tensor_core_geometry (sps 32,
   64 or 128, at most 16 tones) picks the kernels' geometry check (which
   names the field at fault), the stream steps' (stream._fused_demod) and
-  the time-major pair's (kernels._tm_operands);
+  decide_frame_tm's (kernels._tm_operands);
   kernels._filterbank_tensor_core_geometry (sps 32, 48, 64, 80 or 128, at
-  most 32 tones) the batch-major filterbank's (kernels._filterbank_operands),
-  whose tensor-core routes take both presets: their basis operands and
-  launch code, the card's calls replaced by recorders.
+  most 32 tones) the batch-major filterbank's (kernels._filterbank_operands)
+  and decide_tones_tm's, whose tensor-core routes take both presets: their
+  basis operands and launch code, the card's calls replaced by recorders.
 - The stream receivers on both presets (float32 and int8 carries, searching
   and locked; the variable-length receiver) equal anet's, and never call
   the align+demod wrappers.
@@ -71,11 +71,12 @@ def test_one_predicate_picks_every_route(name):
     """_tensor_core_geometry holds at sps 32, 64 and 128 with at most 16
     tones; elsewhere _check_kernel_geometry raises, naming the field at
     fault (the tone count first). The stream steps fuse there and slice
-    elsewhere, and the time-major pair takes the walk there ("mma" or
-    "split" by dtype) and the generic body elsewhere. The batch-major
-    filterbank follows its own predicate, _filterbank_tensor_core_geometry
-    (sps 32, 48, 64, 80 or 128, at most 32 tones): its tensor-core routes
-    there, its plain one elsewhere. No geometry is left without a route."""
+    elsewhere, and decide_frame_tm takes the walk there ("mma" or "split"
+    by dtype) and the generic body elsewhere. The batch-major filterbank
+    and decide_tones_tm follow the wider predicate,
+    _filterbank_tensor_core_geometry (sps 32, 48, 64, 80 or 128, at most
+    32 tones): their tensor-core routes there, their CUDA-core bodies
+    elsewhere. No geometry is left without a route."""
     cfg = GEOMETRIES[name]
     fast = tk._tensor_core_geometry(cfg)
     assert fast == (cfg.samples_per_symbol in (32, 64, 128) and cfg.num_tones <= 16)
@@ -87,19 +88,19 @@ def test_one_predicate_picks_every_route(name):
         with pytest.raises(ValueError, match=re.escape(field)):
             tk._check_kernel_geometry("k", cfg)
     assert tstream._fused_demod(cfg) == fast
+    walk = cfg.samples_per_symbol in (32, 48, 64, 80, 128) and cfg.num_tones <= 32
+    assert tk._filterbank_tensor_core_geometry(cfg) == walk
     for key, dt in TM_DTYPES.items():
         kinds = ["decide_frame_tm"] if key == "int8" else ["decide_tones_tm", "decide_frame_tm"]
         for kind in kinds:
             if kind == "decide_frame_tm" and cfg.num_tones > 16:
                 continue  # past the reference's bound: the wrapper raises
             entry, route, _ = tk._tm_operands(kind, cfg, dt, CPU)
-            if fast:
+            if fast if kind == "decide_frame_tm" else walk:
                 assert route == ("split" if key == "f32" else "mma")
                 assert entry == (kind if kind == "decide_frame_tm" else f"{kind}_mma")
             else:
                 assert (entry, route) == (f"{kind}_generic", "generic")
-    walk = cfg.samples_per_symbol in (32, 48, 64, 80, 128) and cfg.num_tones <= 32
-    assert tk._filterbank_tensor_core_geometry(cfg) == walk
     for compute in (torch.float32, torch.bfloat16):
         route = tk._filterbank_operands("tone_energies", cfg, compute, CPU)[1]
         assert route == ("plain" if not walk else "split" if compute == torch.float32 else "mma")
@@ -187,13 +188,13 @@ def _record_launches(monkeypatch) -> list:
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("geometry", [*PRESETS, "sps160-m64"])
+@pytest.mark.parametrize("geometry", ["sps24-m8", "sps96-m32", "sps160-m64"])
 def test_decide_tones_tm_generic_launch(monkeypatch, geometry, dtype):
-    """decide_tones_tm off the walk's geometry: the generic entry of the
-    frame_tm_generic library with the arguments of the walk's entry (data,
-    dtype code, B, sps, tones, symbols, basis, outputs) and
-    _generic_tm_basis; one launch counted under the generic body's key,
-    frame_tm_generic, none under decide_tones_tm's."""
+    """decide_tones_tm off its walk's geometry (sps 24, 96, 160; 64 tones):
+    the generic entry of the frame_tm_generic library with the arguments
+    of the walk's entry (data, dtype code, B, sps, tones, symbols, basis,
+    outputs) and _generic_tm_basis; one launch counted under the generic
+    body's key, frame_tm_generic, none under decide_tones_tm's."""
     from anet_torch.kernels import build
 
     cfg, dt = GEOMETRIES[geometry], TM_DTYPES[dtype]
@@ -209,6 +210,36 @@ def test_decide_tones_tm_generic_launch(monkeypatch, geometry, dtype):
         "frame_tm_generic" + (":f32" if dt == torch.float32 else ""): 1
     }
     basis = tk._generic_tm_basis(cfg, dt, CPU)
+    assert args == (x.data_ptr(), tk._KERNEL_DTYPES[dt], 7, sps, cfg.num_tones, 5, basis.data_ptr(),
+                    tone.data_ptr(), best.data_ptr(), total.data_ptr(), 0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("geometry", [*PRESETS, "sps48-m4", "sps80-m16", "sps64-m32"])
+def test_decide_tones_tm_walk_launch(monkeypatch, geometry, dtype):
+    """decide_tones_tm on its walk's wider geometry (sps 48 and 80, up to
+    32 tones: both presets; 17-32 tones as 8 n-tiles at sps 64 too): the
+    tensor-core entry of the decide_frame_tm library, route "mma" for
+    bfloat16 and "split" for float32 data, with _demod_at_basis (8 n-tiles
+    past 16 tones); one launch counted under decide_tones_tm's key (":f32"
+    for float32), none under frame_tm_generic's."""
+    from anet_torch.kernels import build
+
+    cfg, dt = GEOMETRIES[geometry], TM_DTYPES[dtype]
+    sps = cfg.samples_per_symbol
+    x = torch.randn(5 * sps + 3, 7).to(dt)
+    calls = _record_launches(monkeypatch)
+    tone, best, total = tk._decide_tones_tm_launch(cfg, x)
+    (key, args), checked = calls
+    route = "split" if dt == torch.float32 else "mma"
+    assert checked == ("checked", "decide_tones_tm", route) and key == "decide_tones_tm_mma"
+    assert build.SIGNATURES[key][2] == "decide_frame_tm"
+    assert {k: v for k, v in tk.launch_counts.items() if v} == {
+        "decide_tones_tm" + (":f32" if dt == torch.float32 else ""): 1
+    }
+    basis = tk._demod_at_basis(cfg, dt, CPU)
+    n = tk._demod_mma_tiles(cfg.num_tones)
+    assert basis.shape == ((3,) if dt == torch.float32 else ()) + (sps // 16, n, 2, 32)
     assert args == (x.data_ptr(), tk._KERNEL_DTYPES[dt], 7, sps, cfg.num_tones, 5, basis.data_ptr(),
                     tone.data_ptr(), best.data_ptr(), total.data_ptr(), 0)
 

@@ -1849,17 +1849,32 @@ def _custom(sps, m):
 
 
 GENERIC_PRESETS = ("mfsk8-audible", "mfsk32-dense")
-GENERIC_CONFIGS = {  # sps outside 32/64/128 or more than 16 tones; tones a pass 2, 4, 8 and 16
-    "mfsk8-audible": get_model("mfsk8-audible").config,  # sps 48, 8 tones, bps 3
-    "mfsk32-dense": get_model("mfsk32-dense").config,  # sps 80, 32 tones (two passes), bps 5
+GENERIC_CONFIGS = {  # geometries off a wrapper's walk; tones a pass 2, 4, 8 and 16
     "sps24-m2": _custom(24, 2),
-    "sps48-m4": _custom(48, 4),
+    "sps40-m4": _custom(40, 4),
+    "sps24-m8": _custom(24, 8),
+    "sps48-m4": _custom(48, 4),  # decide_frame_tm only: decide_tones_tm's walk takes sps 48 and 80
     "sps80-m16": _custom(80, 16),
-    "sps96-m32": _custom(96, 32),
-    "sps128-m64": _custom(128, 64),  # the walk's sps, past its 16 tones: four passes
+    "sps96-m32": _custom(96, 32),  # two passes
+    "sps128-m64": _custom(128, 64),  # the walks' sps, past their 32 tones: four passes
 }
+GENERIC_TONES_CONFIGS = ("sps24-m2", "sps40-m4", "sps24-m8", "sps96-m32", "sps128-m64")
 GENERIC_FRAME_CONFIGS = ("sps24-m2", "sps48-m4", "sps80-m16")  # bps 1, 2 and 4
 GENERIC_BATCHES = (1, 7, 129, 1000)
+# decide_tones_tm's walk past decide_frame_tm's geometry: sps 48 and 80 at
+# 1, 2, 4 and 8 n-tiles, and 8 n-tiles (17-32 tones, the basis in shared
+# memory) at sps 64 and 128
+WALK_TONES_CONFIGS = {
+    "mfsk8-audible": get_model("mfsk8-audible").config,  # sps 48, 8 tones
+    "mfsk32-dense": get_model("mfsk32-dense").config,  # sps 80, 32 tones
+    "sps48-m4": _custom(48, 4),
+    "sps48-m16": _custom(48, 16),
+    "sps80-m4": _custom(80, 4),
+    "sps80-m8": _custom(80, 8),
+    "sps80-m16": _custom(80, 16),
+    "sps64-m32": _custom(64, 32),
+    "sps128-m32": _custom(128, 32),
+}
 
 
 def _launched(before):
@@ -1869,7 +1884,29 @@ def _launched(before):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", GENERIC_BATCHES)
-@pytest.mark.parametrize("geometry", list(GENERIC_CONFIGS))
+@pytest.mark.parametrize("geometry", list(WALK_TONES_CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decide_tones_tm_walk_past_frame_geometry(cuda, dtype, geometry, b):
+    """decide_tones_tm on its tensor-core walk at the geometries
+    decide_frame_tm's walk does not take (sps 48 and 80, 17-32 tones as 8
+    n-tiles), both presets among them: B = 1, 7, 129 and 1,000 (rows on
+    and off 16 bytes: the 16-byte, element-wise and 4-byte cp.async
+    fetches), n_symbols 1, 7, 9 and 67 in turn, a trailing partial symbol
+    on every other case; held against the plain version by
+    _check_tones_tm (one launch under decide_tones_tm's key, ":f32" for
+    float32, none under frame_tm_generic's)."""
+    cfg = WALK_TONES_CONFIGS[geometry]
+    assert tk._tm_operands("decide_tones_tm", cfg, dtype, cuda)[1] == ("split" if dtype == torch.float32 else "mma")
+    case = GENERIC_BATCHES.index(b) + 4 * list(WALK_TONES_CONFIGS).index(geometry)
+    rng = np.random.default_rng(600 + case)
+    n_sym = (1, 7, 9, 67)[case % 4]
+    x = _tones_case(cfg, rng, b, n_sym, dtype, (0, 17)[case % 2], cuda)
+    _check_tones_tm(cfg, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", GENERIC_BATCHES)
+@pytest.mark.parametrize("geometry", GENERIC_TONES_CONFIGS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decide_tones_tm_generic_every_geometry(cuda, dtype, geometry, b):
     """decide_tones_tm's CUDA-core body against its plain version on noisy
@@ -1879,7 +1916,7 @@ def test_cuda_decide_tones_tm_generic_every_geometry(cuda, dtype, geometry, b):
     counted under frame_tm_generic's key."""
     cfg = GENERIC_CONFIGS[geometry]
     assert tk._tm_operands("decide_tones_tm", cfg, dtype, cuda)[1] == "generic"
-    case = GENERIC_BATCHES.index(b) + 4 * list(GENERIC_CONFIGS).index(geometry)
+    case = GENERIC_BATCHES.index(b) + 4 * GENERIC_TONES_CONFIGS.index(geometry)
     rng = np.random.default_rng(300 + case)
     x = _frame_case(cfg, rng, b, torch.float32, 0, 0)
     sps = cfg.samples_per_symbol
@@ -1925,13 +1962,15 @@ def test_cuda_decide_frame_tm_generic_every_geometry(cuda, dtype, geometry, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_cuda_frame_tm_generic_ties_and_full_width(cuda, dtype):
     """All-zero input (every symbol ties: tone 0, zero energies, words,
-    counts and sums) at mfsk32-dense and sps 80 with 16 tones; then the
-    main path's batch, B = 16,384 and 16,383, payload 256 (few blocks a
-    column of streams, each walking its share of the tiles): 256 noisy
-    frames tiled across the batch, held as above."""
-    dense, frame_cfg = GENERIC_CONFIGS["mfsk32-dense"], GENERIC_CONFIGS["sps80-m16"]
+    counts and sums) at sps 96 with 32 tones (decide_tones_tm) and sps 80
+    with 16 tones (decide_frame_tm); then the main path's batch, B =
+    16,384 and 16,383, payload 256 (few blocks a column of streams, each
+    walking its share of the tiles): 256 noisy frames tiled across the
+    batch, held as above, and decide_tones_tm on the data sections of 256
+    sps-96 frames of 32 tones tiled alike."""
+    wide, frame_cfg = GENERIC_CONFIGS["sps96-m32"], GENERIC_CONFIGS["sps80-m16"]
     if dtype != torch.int8:
-        tone, best, total = tk.decide_tones_tm(dense, torch.zeros(9 * 80, 129, dtype=dtype, device=cuda))
+        tone, best, total = tk.decide_tones_tm(wide, torch.zeros(9 * 96, 129, dtype=dtype, device=cuda))
         assert not tone.any() and not best.any() and not total.any()
     t = frame_cfg.preamble_samples + data_symbols_for_payload(frame_cfg, PAY) * 80
     words, crc, qual, _ = tk.decide_frame_tm(frame_cfg, torch.zeros(t, 129, dtype=dtype, device=cuda), PAY,
@@ -1946,9 +1985,10 @@ def test_cuda_frame_tm_generic_ties_and_full_width(cuda, dtype):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
         if dtype != torch.int8:
-            data = x[frame_cfg.preamble_samples :]
-            tones = tk.decide_tones_tm(frame_cfg, data)
-            ref = tk.decide_tones_tm_ref(frame_cfg, data)
+            data = _frame_case(wide, rng, 256, dtype, 0, 0, pay=256).to(cuda).repeat(1, 64)[:, 16384 - b :]
+            data = data.contiguous()
+            tones = tk.decide_tones_tm(wide, data)
+            ref = tk.decide_tones_tm_ref(wide, data)
             assert torch.equal(tones[0], ref[0])
             for g, w in zip(tones[1:], ref[1:]):
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.max()))
@@ -1986,13 +2026,14 @@ def test_cuda_generic_geometry_receivers_match_cpu(cuda, model):
     """Every receiver of the two presets on the card against the same call
     on the CPU, every frame decoded, payloads and verdicts equal: the
     aligned time-major receiver (bf16 and float32: decide_tones_tm's
-    generic body), the batch-major and one-shot receivers
+    tensor-core walk), the batch-major and one-shot receivers
     (tone_energies_fused's tensor-core routes), receive_stream
     searching on a float32 carry, locked on bf16 and int8 carries, and
     receive_stream_dynamic locked (the slice and the batch-major receiver:
-    no align+demod kernel launches). Every time-major launch is on the
-    generic body's keys, none on the time-major walk's; every filterbank
-    launch on tone_energies_fused's keys, none on its CUDA-core body's."""
+    no align+demod kernel launches). Every time-major launch is on
+    decide_tones_tm's keys, none on decide_frame_tm's or the generic
+    body's; every filterbank launch on tone_energies_fused's keys, none on
+    its CUDA-core body's."""
     from anet_torch.dsp import frame as tframe
     from anet_torch.dsp import pipeline as tpipeline
     from anet_torch.dsp.family import frame_samples
@@ -2043,7 +2084,7 @@ def test_cuda_generic_geometry_receivers_match_cpu(cuda, model):
     launched = _launched(before)
     assert not any(k.startswith(("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused"))
                    for k in launched)
-    assert not any(k.startswith(("decide_tones_tm", "decide_frame_tm", "filterbank_cuda_core"))
-                   for k in launched)  # the time-major walk; the filterbank's CUDA-core body
-    assert launched["frame_tm_generic"] and launched["frame_tm_generic:f32"] and launched["sync_search_fused"]
+    assert not any(k.startswith(("decide_frame_tm", "frame_tm_generic", "filterbank_cuda_core"))
+                   for k in launched)  # the CUDA-core bodies
+    assert launched["decide_tones_tm"] and launched["decide_tones_tm:f32"] and launched["sync_search_fused"]
     assert launched["tone_energies_fused"] and launched["tone_energies_fused:f32"] and launched["probe_at_fused"]
