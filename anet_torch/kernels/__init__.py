@@ -67,8 +67,10 @@ probe_at_fused runs the same staged probe (csrc/demod_probe.cu) with its
 span at the probe base and the quality as its epilogue, the template
 energy read on the card.
 ofdm_track_decide_fused is a warp per stream over points staged in shared
-memory, or, for streams whose points do not fit there (S > 302 at 96
-carriers), read from global memory on every pass (``_ofdm_track_route``).
+memory where that keeps enough warps an SM (short frames), else a block of
+warps per stream (4 streams a block in the time-major view), each warp on a
+run of symbols, summed in warp order (``_ofdm_track_route``, by the staged
+route's occupancy).
 decide_frame_tm runs the same tensor-core filterbank with streams on the
 product's M axis, its A operand staged from time-major rows (bfloat16 and
 int8 read with ``ldmatrix.trans``; float32 frames with 32-bit loads, each
@@ -201,9 +203,9 @@ launch_counts = {
     "frame_tm_generic": 0,
     "frame_tm_generic:int8": 0,
     "filterbank_cuda_core": 0,
-    # the OFDM equalizer's route for streams past shared memory
+    # the OFDM equalizer's block-of-warps route for long streams
     # (_ofdm_track_route), counted apart from the staged one
-    "ofdm_track_decide_fused:global": 0,
+    "ofdm_track_decide_fused:block": 0,
 }
 # The kernels whose float32 route is a design of its own, counted apart
 # under "<name>:f32": the searches' and the correlation's hi + lo split of
@@ -1416,7 +1418,8 @@ def ofdm_track_decide_fused(
     config, z_eq: torch.Tensor, h_pow: torch.Tensor, slope0: torch.Tensor, *,
     evm_symbols: int | None = None, with_coherence: bool = False,
 ):
-    """The OFDM equalizer's back half, one warp per stream: the
+    """The OFDM equalizer's back half, a warp per stream on short frames and
+    a block of warps per stream on long ones (_ofdm_track_route): the
     decision-directed clock fit (two iterations from the preamble seed
     ``slope0``; skipped when config.clock_tracking is off), the identity
     gate, the derotation, the max-log LLR planes and the error-vector power.
@@ -1439,18 +1442,38 @@ def ofdm_track_decide_fused(
 
 
 OFDM_STAGE_BYTES = 232_448  # shared memory a block can opt in to (csrc/ofdm_track.cu MAX_SMEM)
+OFDM_SM_BYTES = 233_472  # shared memory an SM holds, each block's 1,024 reserved bytes included
+# The fewest warps an SM at which the staged route keeps a stream: one
+# boundary for both layouts, whose bits agree only on one route, where the
+# route picked loses least to the other in either layout and batch
+# (time_search --kernels ofdm; PERF.md)
+OFDM_STAGED_MIN_WARPS = 8
+
+
+def _ofdm_staged_warps(s: int, c: int) -> int:
+    """Warps an SM of the staged route on S symbols of C carriers: its block
+    of 4 streams, halved until one stream's points and weights fit in
+    OFDM_STAGE_BYTES (csrc/ofdm_track.cu's launch_staged and stream_bytes),
+    and as many blocks as an SM's shared memory holds; 0 where a stream does
+    not fit at all."""
+    per = (s * c * 8 + c * 4 + 15) // 16 * 16
+    nw = 4
+    while nw > 1 and nw * per > OFDM_STAGE_BYTES:
+        nw //= 2
+    if nw * per > OFDM_STAGE_BYTES:
+        return 0
+    return nw * min(OFDM_SM_BYTES // (nw * per + 1024), 32, 64 // nw)
 
 
 def _ofdm_track_route(s: int, c: int) -> str:
     """The route of an ofdm_track_decide_fused launch on S symbols of C
-    carriers, from the shapes alone: "staged" (entry ofdm_track) wherever
-    one stream's S x C points and C weights fit in a block's shared memory
-    (S <= 302 at C = 96), else "global" (entry ofdm_track_global: the points
-    read from global memory on every pass, counted under
-    "ofdm_track_decide_fused:global"). The bytes as csrc/ofdm_track.cu's
-    stream_bytes reckons them."""
-    stream_bytes = (s * c * 8 + c * 4 + 15) // 16 * 16
-    return "staged" if stream_bytes <= OFDM_STAGE_BYTES else "global"
+    carriers, from the shapes alone, the same in both layouts (whose bits
+    agree only on one route): "staged" (entry ofdm_track, a warp a stream
+    over its points in shared memory) wherever that keeps at least
+    OFDM_STAGED_MIN_WARPS warps an SM (_ofdm_staged_warps: S <= 37 at C =
+    96), else "block" (entry ofdm_track_block, a block of warps a stream,
+    32 warps an SM at any S, counted under "ofdm_track_decide_fused:block")."""
+    return "staged" if _ofdm_staged_warps(s, c) >= OFDM_STAGED_MIN_WARPS else "block"
 
 
 def _ofdm_track_launch(config, z_eq, h_pow, slope0, evm_symbols, with_coherence):
@@ -1481,13 +1504,13 @@ def _ofdm_track_launch(config, z_eq, h_pow, slope0, evm_symbols, with_coherence)
     evm2 = torch.empty(lead, dtype=torch.float32, device=dev)
     coh = torch.zeros(*lead, 2, dtype=torch.float32, device=dev) if with_coherence else None
     route = _ofdm_track_route(s, c)
-    err = _entry("ofdm_track" if route == "staged" else "ofdm_track_global")(
+    err = _entry("ofdm_track" if route == "staged" else "ofdm_track_block")(
         z3.data_ptr(), *(st // 2 for st in z3.stride()[:3]), hp.data_ptr(), *hp.stride(),
         sl.data_ptr(), b, s, c, bpc, config.first_carrier, int(config.clock_tracking), evm_rows,
         llrs.data_ptr(), evm2.data_ptr(), None if coh is None else coh.data_ptr(),
         _stream_handle(dev),
     )
-    _check_launch(err, name if route == "staged" else f"{name}:global")
+    _check_launch(err, name if route == "staged" else f"{name}:block")
     return (llrs, evm2, coh) if with_coherence else (llrs, evm2)
 
 

@@ -87,8 +87,8 @@ SIGNATURES = {
         "anet_ofdm_track",
         [_P, _L, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
-    "ofdm_track_global": (
-        "anet_ofdm_track_global",
+    "ofdm_track_block": (
+        "anet_ofdm_track_block",
         [_P, _L, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P], "ofdm_track",
     ),
     "tone_energies": ("anet_tone_energies", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P]),

@@ -1,6 +1,6 @@
 """Static SASS instruction mix of the kernels, one line per instantiation.
 
-    python -m anet_torch.kernels.sass_mix [source ...]
+    python -m anet_torch.kernels.sass_mix [--loops] [source ...]
 
 Builds each ``csrc/<source>.cu`` (by default the four with an int8
 instantiation; a shared header's name, ``search_core`` or ``demod_core``,
@@ -22,7 +22,13 @@ counts the global loads and stores by their whole opcode (``"global":
 their width: ``gather_rows`` loads and stores 16 bytes a lane, and the
 registers a thread and stack bytes the compiler gave the function
 (``cuobjdump --dump-resource-usage``), which with the kernel's shared
-memory set its blocks an SM. Needs the CUDA toolkit, no card.
+memory set its blocks an SM. With ``--loops`` each row also lists the
+function's loops of at least ``LOOP_MIN`` instructions (a backward branch
+and its target, innermost first) as ``[first, last address, static
+instructions, instructions off sincosf's slow path]``: the second count
+leaves out the blocks that a branch on ``|x| >= 105615`` skips (the
+Payne-Hanek argument reduction, which no angle of the OFDM equalizer
+reaches), so it is what one trip issues. Needs the CUDA toolkit, no card.
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ _FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 _GLOBAL = ("LDG", "STG")  # opcodes counted with their modifiers too
 _RESOURCES = re.compile(r"REG:(\d+) STACK:(\d+)")
+_ADDRESSED = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_TARGET = re.compile(r"BRA\b.*?0x([0-9a-f]+)")
+_SLOW_SINCOS = "105615"  # sincosf's fast reduction holds below this |x|
+LOOP_MIN = 100
 
 
 def _demangle(names: list[str]) -> list[str]:
@@ -85,6 +95,33 @@ def global_ops(sass: str) -> list[Counter]:
     return [Counter(op for op in ops if op.split(".")[0] in _GLOBAL) for _, ops in _instructions(sass)]
 
 
+def loops(sass: str) -> list[list[list[int]]]:
+    """Each function's loops of at least LOOP_MIN instructions, in
+    parse_sass's order: [first address, last address, static instructions,
+    instructions off sincosf's slow path], innermost loops only."""
+    out = []
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        ins = [(int(m.group(1), 16), m.group(2)) for m in map(_ADDRESSED.match, chunk.splitlines()) if m]
+        slow = []  # [start, end) of each block a branch on |x| >= 105615 skips
+        for i, (a, text) in enumerate(ins):
+            m = _TARGET.search(text)
+            if (m and text.startswith("@") and int(m.group(1), 16) > a
+                    and any(_SLOW_SINCOS in t for _, t in ins[max(0, i - 20):i])):
+                slow.append((a + 16, int(m.group(1), 16)))
+        spans = sorted((int(m.group(1), 16), a) for a, text in ins
+                       if (m := _TARGET.search(text)) and int(m.group(1), 16) < a)
+        found = []
+        for lo, hi in spans:
+            body = [a for a, _ in ins if lo <= a <= hi]
+            inner = any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) and
+                        sum(1 for a, _ in ins if l2 <= a <= h2) >= LOOP_MIN for l2, h2 in spans)
+            if len(body) >= LOOP_MIN and not inner:
+                fast = sum(1 for a in body if not any(s <= a < e for s, e in slow))
+                found.append([lo, hi, len(body), fast])
+        out.append(found)
+    return out
+
+
 def resource_usage(text: str) -> dict[str, tuple[int, int]]:
     """{mangled function name: (registers a thread, stack bytes)} from the
     text that ``cuobjdump --dump-resource-usage`` prints: a "Function
@@ -102,10 +139,11 @@ def resource_usage(text: str) -> dict[str, tuple[int, int]]:
     return usage
 
 
-def instruction_mix(source: str) -> list[dict]:
+def instruction_mix(source: str, with_loops: bool = False) -> list[dict]:
     """[{"source", "function", "instructions", "ops": {opcode: count},
     "global": {whole opcode: count}, "registers", "stack"}] of every kernel
-    function in the library of ``source``."""
+    function in the library of ``source``, with "loops" where
+    ``with_loops``."""
     build_all((source,))
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
     lib = str(library_path(source))
@@ -115,18 +153,24 @@ def instruction_mix(source: str) -> list[dict]:
     ).stdout)
     functions = parse_sass(sass)
     names = _demangle([f for f, _ in functions])
-    return [
+    rows = [
         {"source": source, "function": name, "instructions": sum(ops.values()),
          "ops": dict(ops.most_common()), "global": dict(wide.most_common()),
          "registers": usage.get(mangled, (None, None))[0], "stack": usage.get(mangled, (None, None))[1]}
         for name, (mangled, ops), wide in zip(names, functions, global_ops(sass))
     ]
+    if with_loops:
+        for row, found in zip(rows, loops(sass)):
+            row["loops"] = found
+    return rows
 
 
 def main(argv: list[str]) -> int:
-    sources = [s for name in argv or INT8_SOURCES for s in HEADERS.get(name, (name,))]
+    with_loops = argv[:1] == ["--loops"]
+    names = argv[1:] if with_loops else argv
+    sources = [s for name in names or INT8_SOURCES for s in HEADERS.get(name, (name,))]
     for source in sources:
-        for row in instruction_mix(source):
+        for row in instruction_mix(source, with_loops):
             print(json.dumps(row))
     return 0
 

@@ -80,9 +80,25 @@ comma-separated subset of:
   the same points time-major (``... time-major``: the [B, S, C] view of
   [S, C, B] points and of [C, B] channel powers, as
   ``ofdm.demodulate_frame_tm`` passes them), and on ofdm-max (8 symbols,
-  64-QAM) at B = 2,048: QPSK points rotated by a clock drift of 100-150
-  ppm, the slope seeded within 5%, each with its ``device`` column. It
-  ignores ``--model``.
+  64-QAM) at B = 2,048, each on the route the checkout picks; then at
+  every shape of ``OFDM_SHAPES`` (the presets' frames of 256, 1,024 and
+  4,096 bytes, S = 12 to 343, S = 302, and S = 19-37 about the routes'
+  boundary), B = 1,024 and 8,192, both layouts, each route forced (``...
+  S <s> B <b> <layout> <route>``): ``staged`` where a stream fits in a
+  block's shared memory, and the checkout's other route, ``block``
+  (``global`` in a checkout from before it). Points rotated by a clock
+  drift of 100-150 ppm,
+  the slope seeded within 5%, each with its ``device`` column (the
+  profiler's rows whose name holds ``ofdm_track``). It ignores
+  ``--model``.
+- ``ofdm_frames``: the aligned OFDM receivers on B = 1,024 frames of
+  4,096 bytes at 16 dB (chip_smoke.py's aligned-ofdm-long, ofdm-coded, 343
+  data symbols, and aligned-ofdm-4k, ofdm-fast, 172):
+  ``family.aligned_demod_fn`` batch-major and ``ofdm.demodulate_frame_tm``
+  on the same frames time-major (``aligned <model> 4096 <layout>``, every
+  frame ok with its payload or the process fails), each with the
+  equalizer's device time in it (``... equalizer device``). It ignores
+  ``--model``.
 - ``tones_tm``: ``decide_tones_tm`` at the oversized aligned window's
   geometry (mfsk16-fast, payload 256: the data section of a frame plus 8
   symbols, 544 symbols of 64 samples, 16 tones) on B = 16,384 streams of
@@ -123,10 +139,19 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "bm": ("tone_energies",),
     "probe_at": ("demod_probe", "probe_at"),  # probe_at.cu: checkouts that still have it
     "ofdm": ("ofdm_track",),
+    "ofdm_frames": ("ofdm_track", "viterbi"),
     "tones_tm": ("decide_tones_tm", "decide_frame_tm", "frame_tm_generic"),
     "gather": ("gather_rows",),
 }
 FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
+# (preset, data symbols): its frames of 256, 1,024 and 4,096 bytes, S = 302, and
+# ofdm-coded streams about the routes' boundary (the staged route's 12 warps an SM
+# end at S = 24, its 8 at 37)
+OFDM_SHAPES = (
+    ("ofdm-fast", 12), ("ofdm-coded", 19), ("ofdm-coded", 24), ("ofdm-coded", 25), ("ofdm-max", 29),
+    ("ofdm-coded", 37), ("ofdm-fast", 44), ("ofdm-coded", 87), ("ofdm-max", 115), ("ofdm-fast", 172),
+    ("ofdm-coded", 302), ("ofdm-coded", 343),
+)
 DEMOD_MODELS = {"demod_at_fused": "mfsk16-fast", "demod_at_energies_fused": "mfsk4-coded"}
 VIT_STEPS = 2150  # mfsk4-coded: 8 x 268 data-section bits + the 6-bit tail flush
 
@@ -314,32 +339,89 @@ if "probe_at" in kinds:
             torch.cuda.empty_cache()
         del x
 if "ofdm" in kinds:
-    for model, bb in (("ofdm-fast", 8192), ("ofdm-max", 2048)):
-        c = get_model(model).config
-        s_n, c_n = c.data_symbols_for_payload(256), c.n_carriers
+    def ofdm_points(c, bb, s_n):
+        # QPSK (or the preset's QAM) points rotated by a clock drift of
+        # 100-150 ppm either way, noise, channel powers in [0.5, 1.5], the
+        # slope seeded within 5%; made a symbol at a time (long frames)
+        c_n = c.n_carriers
         sign = lambda: torch.randint(0, 2, (bb, s_n, c_n), generator=gen, device="cuda").float() * 2 - 1
         ppm = (torch.rand(bb, generator=gen, device="cuda") * 50 + 100) * (
             torch.randint(0, 2, (bb,), generator=gen, device="cuda").float() * 2 - 1)
         slope = ppm * (2 * np.pi * 1e-6 * c.symbol_samples / c.n_fft)
         m = c.first_carrier + torch.arange(c_n, device="cuda")
-        ang = slope[:, None, None] * torch.arange(1, s_n + 1, device="cuda")[None, :, None] * m
-        z = torch.complex(sign(), sign()) * 0.7071067811865476 * torch.polar(torch.ones_like(ang), ang)
-        z = z + 0.05 * torch.complex(torch.randn(z.shape, generator=gen, device="cuda"),
-                                     torch.randn(z.shape, generator=gen, device="cuda"))
+        z = torch.complex(sign(), sign()) * 0.7071067811865476
+        for s in range(s_n):
+            ang = slope[:, None] * (s + 1) * m
+            z[:, s] *= torch.polar(torch.ones_like(ang), ang)
+        z += 0.05 * torch.complex(torch.randn(z.shape, generator=gen, device="cuda"),
+                                  torch.randn(z.shape, generator=gen, device="cuda"))
         h = torch.rand(bb, c_n, generator=gen, device="cuda") + 0.5
         slope0 = slope * (1 + 0.05 * (torch.rand(bb, generator=gen, device="cuda") * 2 - 1))
+        return z, h, slope0
+
+    def time_major(z, h):
+        return z.permute(1, 2, 0).contiguous().permute(2, 0, 1), h.T.contiguous().T
+
+    # the main shapes, each on the route the checkout picks
+    for model, bb in (("ofdm-fast", 8192), ("ofdm-max", 2048)):
+        c = get_model(model).config
+        z, h, slope0 = ofdm_points(c, bb, c.data_symbols_for_payload(256))
         layouts = [("batch-major", lambda: (z, h))]
         if model == "ofdm-fast":
-            layouts.append(("time-major", lambda: (z.permute(1, 2, 0).contiguous().permute(2, 0, 1),
-                                                   h.T.contiguous().T)))
+            layouts.append(("time-major", lambda: time_major(z, h)))
         for label, make in layouts:
             zl, hl = make()
             call = lambda: kernels.ofdm_track_decide_fused(c, zl, hl, slope0)
             out[f"ofdm_track_decide_fused {{model}} {{label}}"] = time_ms(call)
-            out[f"ofdm_track_decide_fused {{model}} {{label}} device"] = device_ms(call, "ofdm_track_kernel")
+            out[f"ofdm_track_decide_fused {{model}} {{label}} device"] = device_ms(call, "ofdm_track")
             del zl, hl
             torch.cuda.empty_cache()
         del z, h
+    # the presets' 256-, 1,024- and 4,096-byte frames, S = 302 (the
+    # longest the staged route holds at 96 carriers) and S = 19-37, B =
+    # 1,024 and 8,192, both layouts, each route forced: "staged" where a
+    # stream fits in a block's shared memory, and the checkout's other
+    # route ("block"; "global" before it)
+    other = "block" if "ofdm_track_decide_fused:block" in kernels.launch_counts else "global"
+    route_fn = kernels._ofdm_track_route
+    for model, s_n in {ofdm_shapes!r}:
+        c = get_model(model).config
+        fits = s_n * c.n_carriers * 8 + c.n_carriers * 4 <= kernels.OFDM_STAGE_BYTES
+        for bb in (1024, 8192):
+            z, h, slope0 = ofdm_points(c, bb, s_n)
+            for label, make in (("batch-major", lambda: (z, h)), ("time-major", lambda: time_major(z, h))):
+                zl, hl = make()
+                call = lambda: kernels.ofdm_track_decide_fused(c, zl, hl, slope0)
+                for route in ("staged", other) if fits else (other,):
+                    kernels._ofdm_track_route = lambda *shapes, route=route, **layout: route
+                    key = f"ofdm_track_decide_fused {{model}} S {{s_n}} B {{bb}} {{label}} {{route}}"
+                    out[key] = time_ms(call)
+                    out[key + " device"] = device_ms(call, "ofdm_track")
+                kernels._ofdm_track_route = route_fn
+                del zl, hl
+                torch.cuda.empty_cache()
+            del z, h, slope0
+            torch.cuda.empty_cache()
+if "ofdm_frames" in kinds:
+    from anet_torch.dsp import ofdm
+
+    for model in ("ofdm-coded", "ofdm-fast"):
+        c = get_model(model).config
+        pay = torch.randint(0, 256, (1024, 4096), generator=gen, device="cuda", dtype=torch.uint8)
+        x = family.transmit_fn(c, "cuda")(pay)
+        x = x + ((x * x).mean(-1, keepdim=True) * 10 ** -1.6).sqrt() * torch.randn(x.shape, generator=gen, device="cuda")
+        x_tm = x.T.contiguous()
+        aligned = family.aligned_demod_fn(c, 4096, device="cuda")
+        for label, call in (("batch-major", lambda: aligned(x)),
+                            ("time-major", lambda: ofdm.demodulate_frame_tm(c, x_tm, 4096, device="cuda"))):
+            res = call()
+            if not (bool(res.ok.all()) and torch.equal(res.payload, pay)):
+                raise SystemExit(f"{{model}} {{label}}: frames lost")
+            del res
+            out[f"aligned {{model}} 4096 {{label}}"] = time_ms(call)
+            out[f"aligned {{model}} 4096 {{label}} equalizer device"] = device_ms(call, "ofdm_track")
+        del x, x_tm, pay
+        torch.cuda.empty_cache()
 if "tones_tm" in kinds:
     c = get_model("mfsk16-fast").config
     rows = family.frame_samples(c, 256) - c.preamble_samples + 8 * c.samples_per_symbol
@@ -395,7 +477,7 @@ def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) 
     """The timings of the checkout at ``root``, from a process of its own."""
     sources = tuple(dict.fromkeys(s for kind in kinds for s in KERNELS[kind]))  # one nvcc a source
     child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS,
-                          demod_models=DEMOD_MODELS, frame_b=FRAME_B)
+                          demod_models=DEMOD_MODELS, frame_b=FRAME_B, ofdm_shapes=OFDM_SHAPES)
     run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")

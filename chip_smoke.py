@@ -38,12 +38,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (+-100..150 ppm) of each constellation (QPSK, 16-QAM, 64-QAM), tracked
    and untracked, timed on ofdm-fast at B = 8,192, batch-major and as the
    time-major receiver's [B, S, C] view of [S, C, B] points, and past
-   shared memory (phase_kernels_ofdm_long: ofdm-coded streams of S = 302,
-   the staged route's longest, 303 and 343 data symbols, B = 1,024, both
-   layouts on the route kernels._ofdm_track_route picks, the global one
-   from 303 on, held and timed against the bound and the global route's
-   floor of four reads of the points; at 302 the global route forced,
-   bit-equal to the staged one and timed beside it); the batch-major
+   long frames (phase_kernels_ofdm_long: ofdm-coded streams of S = 87, 172,
+   302 (the staged route's longest), 303 and 343 data symbols, B = 1,024,
+   both layouts bit-equal on the route kernels._ofdm_track_route picks, the
+   block route at every one, held and timed against the bound and the
+   block route's arithmetic floor; the staged route forced where a stream
+   fits, held by the same rules and timed beside it); the batch-major
    filterbank (tone_energies_fused, decide_tones_fused) on mfsk16-fast
    data sections read in place, bfloat16 compute (the tensor cores) held
    against the plain versions at 256 rows and at B = 16,384 (tones
@@ -132,10 +132,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    sync_search_fused, ofdm_track_decide_fused), "oneshot-ofdm"
    (ofdm.receive_frame on 2,048 captures, frame start random below 2,000,
    20 dB), "stream-dynamic-ofdm" (B = 2,048, payloads 64, 256, 128 in
-   frame lock, cold and warm) and "aligned-ofdm-long" (1,024 ofdm-coded
+   frame lock, cold and warm), "aligned-ofdm-long" (1,024 ofdm-coded
    frames of 4,096 bytes, 343 data symbols, at 16 dB, batch-major and
-   time-major: the equalizer's global route and viterbi_trellis, never
-   its staged route);
+   time-major: the equalizer's block route and viterbi_trellis, never
+   its staged route) and "aligned-ofdm-4k" (1,024 ofdm-fast frames of
+   4,096 bytes, 172 data symbols, the same way: the block route, never
+   the staged one);
 8. the fifth slice: "aligned-int8" (the 16,384 frames of phase 3 quantized
    x127, demodulate_frame_tm with int8 compute: decide_frame_tm's int8
    instantiation), "stream-int8" (phase 4's capture quantized with
@@ -266,8 +268,9 @@ ten with a float32 route of their own its numbers under "f32"; the
 batch-major filterbank's are on float32 rows, with its bf16 rows' under
 "f32"."bf16_rows", and its numbers at mfsk32-dense and mfsk8-audible
 under "presets", as decide_tones_tm's walk at both presets and dtypes;
-ofdm_track_decide_fused's global route under "global", S = 343
-batch-major, its other shapes under "global"."shapes"; the two CUDA-core
+ofdm_track_decide_fused's block route under "block", S = 343
+batch-major, its other shapes and the staged route's under
+"block"."shapes"; the two CUDA-core
 bodies off the tensor-core walks' geometry have rows of their own, whose
 launches the wrappers count under kernels.OFF_WALK_KEYS, both on no path
 since every preset takes the tensor cores (OFF_PATHS): frame_tm_generic's
@@ -2358,8 +2361,17 @@ def phase_kernels_ofdm(gen) -> dict:
 
 OFDM_LONG_MODEL = "ofdm-coded"
 OFDM_LONG_PAYLOAD = 4096  # 343 data symbols of 96 carriers: past the staged route's 302
-OFDM_LONG_B = 1024  # aligned-ofdm-long's batch and phase 2's batch for the global route
-OFDM_LONG_SYMBOLS = (302, 303, 343)  # the staged route's longest, then the global route's
+OFDM_LONG_B = 1024  # the long-frame paths' batch and phase 2's batch for the block route
+OFDM_4K_MODEL = "ofdm-fast"  # 4,096-byte frames: 172 data symbols, one warp an SM on the staged route
+# ofdm-coded frames of 1,024 bytes (87 data symbols), ofdm-fast of 4,096 (172), the staged
+# route's longest (302), then streams past it (303; 343, a 4,096-byte ofdm-coded frame)
+OFDM_LONG_SYMBOLS = (87, 172, 302, 303, 343)
+
+
+def ofdm_route_key(route: str) -> str:
+    """The launch-count key of an ofdm_track_decide_fused launch on
+    ``route`` (kernels._ofdm_track_route's names)."""
+    return "ofdm_track_decide_fused" + ("" if route == "staged" else f":{route}")
 
 
 def long_ofdm_points(cfg, gen, b: int, s_n: int):
@@ -2400,8 +2412,8 @@ def long_ofdm_points(cfg, gen, b: int, s_n: int):
 @contextlib.contextmanager
 def forced_ofdm_route(route: str):
     """Inside the block, every ofdm_track_decide_fused launch takes
-    ``route`` whatever its shapes: the global route timed at a shape the
-    staged one holds."""
+    ``route`` whatever its shapes: the staged route held and timed at a
+    shape the block route takes."""
     saved = kernels._ofdm_track_route
     kernels._ofdm_track_route = lambda s, c: route
     try:
@@ -2410,29 +2422,53 @@ def forced_ofdm_route(route: str):
         kernels._ofdm_track_route = saved
 
 
+def block_issue_ms_a_point() -> float:
+    """The block route's arithmetic floor a point of a drifted, tracked QPSK
+    stream, in ms, read from the SASS of the library this run built
+    (anet_torch.kernels.sass_mix.loops on ofdm_track_block_kernel<2, 1>):
+    the instructions of its first three loops off sincosf's slow path (the
+    two fit passes and the gate pass, each 4 points a trip: ``#pragma
+    unroll`` in csrc/ofdm_track.cu), a lane a point, 32 points a warp
+    instruction, issued at one a clock by each of an SM's 4 schedulers on
+    132 SMs at the card's top SM clock (nvidia-smi clocks.max.sm)."""
+    from anet_torch.kernels.sass_mix import instruction_mix
+
+    (row,) = [r for r in instruction_mix("ofdm_track", with_loops=True)
+              if r["function"].startswith("void <unnamed>::ofdm_track_block_kernel<(int)2, (int)1>")]
+    if len(row["loops"]) < 3:
+        raise AssertionError(f"ofdm_track_block_kernel<2, 1>: loops {row['loops']}, not the three passes")
+    per_point = sum(loop[3] for loop in row["loops"][:3]) / 4
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True).stdout.split()[0])
+    log(f"  ofdm_track_block_kernel<2, 1>: {per_point:g} instructions a point in its fit and gate passes (SASS), "
+        f"{mhz:g} MHz")
+    return per_point / 32 / (132 * 4 * mhz * 1e6) * 1e3
+
+
 def phase_kernels_ofdm_long(gen) -> dict:
-    """Phase 2 for the OFDM equalizer past shared memory: ofdm_track_decide_fused
-    on ofdm-coded (QPSK, tracked) streams of S = 302 (the longest the staged
-    route holds at 96 carriers), 303 and 343 (a 4,096-byte frame) data
-    symbols, B = OFDM_LONG_B (long_ofdm_points), batch-major and as the
-    time-major receiver's [B, S, C] view of [S, C, B] points: each launch on
-    the route kernels._ofdm_track_route names (one count under its key),
-    held against the plain version with compare_ofdm's rules, both layouts
-    bit-equal, and timed with the plain version against its bound (the
-    points read once, the LLRs written once) and the global route's own
-    floor (its up to four reads of the points: the two fit passes, the gate
-    pass, the identity pass on clean-clock streams); at S = 302 the global
-    route, forced, gives the staged route's bits and is timed beside it.
-    The ":global" results: S = 343 batch-major, the other shapes and
-    layouts under "shapes"."""
+    """Phase 2 for the OFDM equalizer on long frames: ofdm_track_decide_fused
+    on ofdm-coded (QPSK, tracked) streams of OFDM_LONG_SYMBOLS data symbols
+    (a 1,024-byte frame, a 4,096-byte ofdm-fast one's 172, the staged
+    route's longest 302, then 303 and a 4,096-byte ofdm-coded frame's 343),
+    B = OFDM_LONG_B (long_ofdm_points), batch-major and as the time-major
+    receiver's [B, S, C] view of [S, C, B] points: each launch on the route
+    kernels._ofdm_track_route names (the block route at every one; one
+    count under its key), held against the plain version with compare_ofdm's
+    rules, both layouts bit-equal, and timed with the plain version against
+    its bound (the points read once, the LLRs written once) and the block
+    route's arithmetic floor (block_issue_ms_a_point, logged); the staged
+    route, forced where a stream fits (S <= 302), held by the same rules and
+    timed beside it. The ":block" results: S = 343 batch-major, the other
+    shapes, layouts and routes under "shapes"."""
     cfg = get_model(OFDM_LONG_MODEL).config
     b, c_n, bpc = OFDM_LONG_B, cfg.n_carriers, cfg.bits_per_carrier
     shapes, worst = {}, 0.0
+    ms_a_point = block_issue_ms_a_point()
     for s_n in OFDM_LONG_SYMBOLS:
         route = kernels._ofdm_track_route(s_n, c_n)
-        if route != ("staged" if s_n <= 302 else "global"):
+        if route != "block":
             raise AssertionError(f"ofdm_track_decide_fused: S = {s_n} takes the {route} route")
-        key = "ofdm_track_decide_fused" + (":global" if route == "global" else "")
+        key = ofdm_route_key(route)
         z, h, sl, drifted = long_ofdm_points(cfg, gen, b, s_n)
         z_tm, h_tm = z.permute(1, 2, 0).contiguous().permute(2, 0, 1), h.T.contiguous().T
         want = kernels.ofdm_track_decide_fused_ref(cfg, z, h, sl, with_coherence=True)
@@ -2444,48 +2480,51 @@ def phase_kernels_ofdm_long(gen) -> dict:
         if launched != {key: 2}:
             raise AssertionError(f"ofdm_track_decide_fused (S {s_n}): launches {launched}, not two under {key}")
         label = f"ofdm_track_decide_fused ({route}, {OFDM_LONG_MODEL}, S {s_n}, B {b})"
-        err = compare_ofdm(label, cfg, got, want, drifted)
+        worst = max(worst, compare_ofdm(label, cfg, got, want, drifted))
         if not all(torch.equal(g, t) for g, t in zip(got, got_tm)):
             raise AssertionError(f"{label}: the time-major view gives other bits than batch-major")
-        if s_n == 302:
-            with forced_ofdm_route("global"), uncounted():
-                forced = kernels.ofdm_track_decide_fused(cfg, z, h, sl, with_coherence=True)
-            if not all(torch.equal(g, f) for g, f in zip(got, forced)):
-                raise AssertionError(f"{label}: the global route, forced, gives other bits than the staged one")
+        fits = kernels._ofdm_staged_warps(s_n, c_n) > 0
+        if fits:
+            with forced_ofdm_route("staged"), uncounted():
+                staged = kernels.ofdm_track_decide_fused(cfg, z, h, sl, with_coherence=True)
+            compare_ofdm(f"ofdm_track_decide_fused (staged, forced, S {s_n}, B {b})", cfg, staged, want, drifted)
+            del staged
         del got, got_tm, want
-        if route == "global":
-            worst = max(worst, err)
         points = b * s_n * c_n * 8
         in_bytes, out_bytes = points + b * (c_n * 4 + 4), b * (s_n * c_n * bpc * 4 + 4)
         bound, by = bound_ms(in_bytes + out_bytes, b * s_n * c_n * OFDM_OPS_POINT, F32_FLOPS_S)
-        floor = (in_bytes + 3 * points + out_bytes) / HBM_BYTES_S * 1e3
+        floor = b * s_n * c_n * ms_a_point
         runs = [(route, "batch-major", z, h), (route, "time-major", z_tm, h_tm)]
-        if s_n == 302:
-            runs += [("global", "batch-major", z, h), ("global", "time-major", z_tm, h_tm)]
+        if fits:
+            runs += [("staged", "batch-major", z, h)]
         for rt, layout, zz, hh in runs:
             with forced_ofdm_route(rt):
                 r = {"route": rt, "ms": time_ms(lambda: kernels.ofdm_track_decide_fused(cfg, zz, hh, sl))}
-            r.update(bound_ms=bound, bound_by=by, global_floor_ms=floor, library_ms=None)
+            r.update(bound_ms=bound, bound_by=by, library_ms=None)
             if layout == "batch-major" and rt == route:
                 r["plain_ms"] = time_ms(lambda: kernels.ofdm_track_decide_fused_ref(cfg, z, h, sl))
             plain = f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else ""
+            issue = f", its issue floor {floor:.3f} ms" if rt == "block" else ""
             log(f"  ofdm_track_decide_fused ({rt} route, {layout}, S {s_n}, B {b}): kernel {r['ms']:.3f} ms{plain}, "
-                f"bound {bound:.3f} ms ({by}), the global route's floor {floor:.3f} ms (four reads of the points)")
+                f"bound {bound:.3f} ms ({by}){issue}")
             shapes[f"S {s_n} {rt} {layout}"] = r
         del z, z_tm, h, h_tm
         torch.cuda.empty_cache()
-    top = shapes.pop(f"S {OFDM_LONG_SYMBOLS[-1]} global batch-major")
-    return {"ofdm_track_decide_fused:global": {"max_abs_err": worst, **top, "model": OFDM_LONG_MODEL,
-                                               "B": b, "symbols": OFDM_LONG_SYMBOLS[-1], "shapes": shapes}}
+    top = shapes.pop(f"S {OFDM_LONG_SYMBOLS[-1]} block batch-major")
+    return {"ofdm_track_decide_fused:block": {"max_abs_err": worst, **top, "model": OFDM_LONG_MODEL,
+                                              "B": b, "symbols": OFDM_LONG_SYMBOLS[-1], "shapes": shapes}}
 
 
-def phase_aligned_ofdm_long(cfg, gen, iters: int = 3) -> None:
-    """"aligned-ofdm-long": OFDM_LONG_B ofdm-coded frames of 4,096 bytes
-    (343 data symbols, past the staged route), transmitted on the card at
-    16 dB on a clean clock, through family.aligned_demod_fn batch-major and
-    through ofdm.demodulate_frame_tm on the same frames time-major: the
-    equalizer's global route and viterbi_trellis, never the staged route
-    (ABSENT); every frame ok with the payload sent, both layouts."""
+def phase_aligned_ofdm_long(cfg, gen, label: str, iters: int = 3) -> None:
+    """"aligned-ofdm-long" and "aligned-ofdm-4k": OFDM_LONG_B frames of
+    OFDM_LONG_PAYLOAD bytes (ofdm-coded: 343 data symbols, past the staged
+    route; ofdm-fast: 172, where the staged route kept one warp an SM),
+    transmitted on the card at 16 dB on a clean clock, through
+    family.aligned_demod_fn batch-major and through ofdm.demodulate_frame_tm
+    on the same frames time-major: the equalizer on the route
+    kernels._ofdm_track_route names (the block route; the path's kernels and
+    ABSENT hold it), and viterbi_trellis where the preset is coded; every
+    frame ok with the payload sent, both layouts."""
     pay = torch.randint(0, 256, (OFDM_LONG_B, OFDM_LONG_PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
     x = family.transmit_fn(cfg, DEV)(pay)
     sigma = ((x * x).mean(-1, keepdim=True) * 10 ** (-OFDM_SNR_DB["ofdm-fast"] / 10)).sqrt()
@@ -2498,7 +2537,7 @@ def phase_aligned_ofdm_long(cfg, gen, iters: int = 3) -> None:
         res = demod()
         ok_frac = float(res.ok.float().mean())
         if ok_frac != 1.0 or not torch.equal(res.payload, pay):
-            raise AssertionError(f"aligned-ofdm-long ({layout}): frames_ok_fraction {ok_frac}, payloads equal "
+            raise AssertionError(f"{label} ({layout}): frames_ok_fraction {ok_frac}, payloads equal "
                                  f"{torch.equal(res.payload, pay)}")
         del res
         torch.cuda.synchronize()
@@ -2507,7 +2546,7 @@ def phase_aligned_ofdm_long(cfg, gen, iters: int = 3) -> None:
             n_ok = demod().ok.sum()
         int(n_ok)
         dt = time.perf_counter() - t0
-        log(f"aligned-ofdm-long ({layout}): B {OFDM_LONG_B}, payload {OFDM_LONG_PAYLOAD}, "
+        log(f"{label} ({layout}): B {OFDM_LONG_B}, payload {OFDM_LONG_PAYLOAD}, "
             f"{cfg.data_symbols_for_payload(OFDM_LONG_PAYLOAD)} data symbols, frames_ok_fraction {ok_frac}, "
             f"{OFDM_LONG_B * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
 
@@ -3244,6 +3283,18 @@ def phase_trace(cfg, gen) -> dict:
 # read just after: its model, the phase that drives it and the kernels it
 # must launch (a bare name: any of its float routes, "<name>:f32" included;
 # "<name>:int8", "<name>:f32" or "<name>:bf16": that route).
+
+
+def ofdm_path_key(model: str, picked: bool = True) -> str:
+    """The launch-count key of the equalizer's route on the long-frame
+    paths' frames of ``model`` (OFDM_LONG_PAYLOAD bytes), as the wrapper
+    picks it (in both layouts), or (``picked`` false) of the route it does
+    not pick."""
+    cfg = get_model(model).config
+    route = kernels._ofdm_track_route(cfg.data_symbols_for_payload(OFDM_LONG_PAYLOAD), cfg.n_carriers)
+    return ofdm_route_key(route if picked else {"staged": "block", "block": "staged"}[route])
+
+
 PATHS = {
     "aligned": (MODEL, phase_aligned, ("decide_frame_tm",)),
     "stream": (MODEL, phase_stream, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
@@ -3300,8 +3351,16 @@ PATHS = {
         ("probe_at_fused", "sync_search_fused", "ofdm_track_decide_fused"),
     ),
     "oneshot-ofdm": (OFDM_MODEL, phase_oneshot_ofdm, ("ofdm_track_decide_fused",)),
-    "aligned-ofdm-long": (OFDM_LONG_MODEL, phase_aligned_ofdm_long, ("ofdm_track_decide_fused:global",
-                                                                     "viterbi_trellis")),
+    "aligned-ofdm-long": (
+        OFDM_LONG_MODEL,
+        lambda cfg, gen: phase_aligned_ofdm_long(cfg, gen, "aligned-ofdm-long"),
+        (ofdm_path_key(OFDM_LONG_MODEL), "viterbi_trellis"),
+    ),
+    "aligned-ofdm-4k": (
+        OFDM_4K_MODEL,
+        lambda cfg, gen: phase_aligned_ofdm_long(cfg, gen, "aligned-ofdm-4k"),
+        (ofdm_path_key(OFDM_4K_MODEL),),
+    ),
     "stream-dynamic-ofdm": (
         OFDM_MODEL,
         lambda cfg, gen: phase_stream_dynamic(cfg, gen, "stream-dynamic-ofdm", OFDM_DYNAMIC_LENS, True, ONESHOT_B),
@@ -3420,7 +3479,8 @@ ABSENT = {
     "stream-audible-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", GENERIC_ROW, FILTERBANK_ROW,
                            "tone_energies_fused:bf16"),
     "stream-dense": (*OFF_THE_WALK, "decide_tones_tm", GENERIC_ROW, FILTERBANK_ROW, "tone_energies_fused:f32"),
-    "aligned-ofdm-long": ("ofdm_track_decide_fused",),
+    "aligned-ofdm-long": (ofdm_path_key(OFDM_LONG_MODEL, picked=False),),
+    "aligned-ofdm-4k": (ofdm_path_key(OFDM_4K_MODEL, picked=False),),
 }
 # Rows of the kernels line on no path: the two CUDA-core bodies serve only
 # custom geometries now (every preset takes the tensor cores), held and
@@ -3512,7 +3572,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         }
-        for route in ("int8", "f32", "global"):
+        for route in ("int8", "f32", "block"):
             key = f"{name}:{route}"
             if key in results:
                 row[route] = {"launches": counts[key], **results[key]}
@@ -3521,7 +3581,7 @@ def main() -> int:
         if name in kernels.OFF_WALK_KEYS.values():  # their other shapes and epilogues
             row.update({k: v for k, v in r.items() if k not in row})
         if name not in OFF_PATHS and (launched(counts, name) == 0 or any(
-                row.get(route, {}).get("launches") == 0 for route in ("int8", "global"))):
+                row.get(route, {}).get("launches") == 0 for route in ("int8", "block"))):
             raise AssertionError(f"{name}: launched no time on the main paths")
         rows.append(row)
     print(smi)

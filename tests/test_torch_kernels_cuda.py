@@ -1555,18 +1555,23 @@ def test_cuda_ofdm_track_every_layout(cuda, model, tracked, b, layout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["batch-major", "time-major"])
-@pytest.mark.parametrize("s_n", [302, 303, 343])
+@pytest.mark.parametrize("s_n", [29, 38, 87, 172, 302, 303, 343])
 @pytest.mark.parametrize("tracked", [True, False])
 @pytest.mark.parametrize("model", ["ofdm-fast", "ofdm-max"])
 def test_cuda_ofdm_track_past_shared_memory(cuda, model, tracked, s_n, layout, monkeypatch):
-    """ofdm_track_decide_fused on streams of S = 302 (the longest the staged
-    route holds at 96 carriers), 303 and 343 (a 4,096-byte ofdm-coded
-    frame) data symbols, QPSK and 64-QAM, tracked and untracked, B = 33,
-    batch-major and the time-major view, against its plain version under
-    chip_smoke.py's compare_ofdm rules: S = 302 takes the staged route
-    (counted under ofdm_track_decide_fused), 303 and 343 the global one
-    (under ":global"). At S = 302 the global route, forced, gives the
-    staged route's bits: one arithmetic in one order on the same points."""
+    """ofdm_track_decide_fused on streams of S = 29 (a 1,024-byte ofdm-max
+    frame, on the staged route), 38 (the block route's shortest), 87 (a
+    1,024-byte ofdm-coded frame), 172 (a 4,096-byte ofdm-fast one), 302 (the
+    longest the staged route holds at 96 carriers), 303 and 343 (a
+    4,096-byte ofdm-coded frame) data symbols, QPSK and 64-QAM, tracked and
+    untracked, B = 33, batch-major and the time-major view, against its
+    plain version under chip_smoke.py's compare_ofdm rules: each on the
+    route _ofdm_track_route names from S and C, the same in both layouts
+    (the block route from 38 on, counted under
+    ofdm_track_decide_fused:block). Its bits do not depend on the layout
+    (the time-major view gives the batch-major launch's) nor on the launch
+    (batch-major, twice). At S = 302 the staged route, forced, is held
+    against the plain version by the same rules."""
     cfg = dataclasses.replace(get_model(model).config, clock_tracking=tracked)
     rng = np.random.default_rng(s_n + 7 * tracked + len(model))
     z, h, slope0, drifted = _ofdm_points(cfg, rng, 33, s_n)
@@ -1575,8 +1580,8 @@ def test_cuda_ofdm_track_past_shared_memory(cuda, model, tracked, s_n, layout, m
     if layout == "time-major":
         zl, hl = z.permute(1, 2, 0).contiguous().permute(2, 0, 1), h.T.contiguous().T
     route = tk._ofdm_track_route(s_n, cfg.n_carriers)
-    assert route == ("staged" if s_n == 302 else "global")
-    key = "ofdm_track_decide_fused" + (":global" if route == "global" else "")
+    assert route == ("staged" if s_n == 29 else "block")
+    key = "ofdm_track_decide_fused" + (":block" if route == "block" else "")
     before = dict(tk.launch_counts)
     got = tk.ofdm_track_decide_fused(cfg, zl, hl, slope0, evm_symbols=s_n - 2, with_coherence=True)
     torch.cuda.synchronize()
@@ -1584,10 +1589,12 @@ def test_cuda_ofdm_track_past_shared_memory(cuda, model, tracked, s_n, layout, m
     want = tk.ofdm_track_decide_fused_ref(cfg, z, h, slope0, evm_symbols=s_n - 2, with_coherence=True)
     assert got[0].shape == (33, s_n * cfg.n_carriers * cfg.bits_per_carrier)
     _check_ofdm(cfg, got, want, drifted)
+    again = tk.ofdm_track_decide_fused(cfg, z, h, slope0, evm_symbols=s_n - 2, with_coherence=True)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
     if s_n == 302:
-        monkeypatch.setattr(tk, "_ofdm_track_route", lambda s, c: "global")
-        forced = tk.ofdm_track_decide_fused(cfg, zl, hl, slope0, evm_symbols=s_n - 2, with_coherence=True)
-        assert all(torch.equal(a, b) for a, b in zip(forced, got))
+        monkeypatch.setattr(tk, "_ofdm_track_route", lambda s, c: "staged")
+        staged = tk.ofdm_track_decide_fused(cfg, zl, hl, slope0, evm_symbols=s_n - 2, with_coherence=True)
+        _check_ofdm(cfg, staged, want, drifted)
 
 
 # --- decide_tones_tm on the tensor cores: every geometry and edge -----------

@@ -978,6 +978,33 @@ arch = sm_90a
     assert resource_usage(text) == {"_Z6kernelIaEvPKT_": (128, 0), "_Z4nonev": (40, 80)}
 
 
+def test_sass_mix_counts_loops_off_the_slow_path(monkeypatch):
+    """``sass_mix --loops``: each innermost loop (a backward branch and its
+    target) of at least LOOP_MIN instructions, with its static count and
+    the count without the blocks a branch after sincosf's |x| >= 105615
+    test skips (the slow argument reduction), which is what a trip
+    issues; a smaller loop inside the slow block is no loop of its own."""
+    from anet_torch.kernels import sass_mix
+
+    monkeypatch.setattr(sass_mix, "LOOP_MIN", 4)
+    sass = """
+		Function : _Z6kernelv
+        /*0000*/                   MOV R1, R2 ;
+        /*0010*/                   FMUL R3, R1, R1 ;
+        /*0020*/                   FSETP.GE.AND P2, PT, |R3|, 105615, PT ;
+        /*0030*/              @!P2 BRA 0x70 ;
+        /*0040*/                   IMAD R4, R4, R4, RZ ;
+        /*0050*/                   IMAD R5, R5, R5, RZ ;
+        /*0060*/              @P1 BRA 0x40 ;
+        /*0070*/                   FADD R6, R6, R3 ;
+        /*0080*/              @P0 BRA 0x10 ;
+        /*0090*/                   EXIT ;
+		Function : _Z4nonev
+        /*0000*/                   EXIT ;
+"""
+    assert sass_mix.loops(sass) == [[[0x10, 0x80, 8, 5]], []]
+
+
 def _band_from_words(words: torch.Tensor, k: int) -> torch.Tensor:
     """The [16 * steps, 128] band, one per half (hi, lo), that the search
     kernels' B fragments read from the template words: entry (p, n) of step

@@ -196,6 +196,7 @@ def _assert_llrs_by_gate(got, want, coh, drifted):
 
 
 LONG_SYMBOLS = 303  # one data symbol past what ofdm_track.cu's staged route holds at 96 carriers
+LAST_STAGED = 37  # the longest stream the staged route takes at 96 carriers (kernels._ofdm_track_route)
 
 
 def _long_points(cfg, s_data):
@@ -229,7 +230,7 @@ def test_track_decide_ref_matches_pallas(case):
         cfg, jcfg = _pair()
         s_data = LONG_SYMBOLS
         z_eq, h_pow, slope0, ppms = _long_points(cfg, s_data)
-        assert tk._ofdm_track_route(s_data, cfg.n_carriers) == "global"
+        assert tk._ofdm_track_route(s_data, cfg.n_carriers) == "block"
     else:
         cfg, jcfg, _, ppms, x = _case_frames(case)
         s_data = cfg.data_symbols_for_payload(128)
@@ -250,34 +251,45 @@ def test_track_decide_ref_matches_pallas(case):
             assert not coh.any()
 
 
-@pytest.mark.parametrize("s_data", [302, 303])
+@pytest.mark.parametrize("s_data", [12, 29, LAST_STAGED, LAST_STAGED + 1, 302, 303])
 def test_track_route_from_the_shapes(monkeypatch, s_data):
     """ofdm_track_decide_fused's route from S and C alone, before the
-    launch: at 96 carriers S = 302 (232,320 bytes of points and weights a
-    stream) is "staged", S = 303 (233,088 bytes, past the 232,448 a block
-    can hold) "global". The launch code, the card's calls replaced by
-    recorders, passes it as the C entry it calls (ofdm_track or
-    ofdm_track_global, one library, one signature) and counts the global
-    route under its own key."""
+    launch, by the staged route's warps an SM, the same in both layouts: at
+    96 carriers the staged route keeps OFDM_STAGED_MIN_WARPS (8) or more up
+    to S = LAST_STAGED (a 256-byte ofdm-fast frame's 12 and a 1,024-byte
+    ofdm-max frame's 29 among them) and takes the stream there; past it the
+    block route takes it, as at 302 (the longest stream the staged route
+    could hold, 232,320 bytes of points and weights) and 303 (past the
+    232,448 bytes a block can hold). The launch code, the card's calls
+    replaced by recorders, passes the route as the C entry it calls in
+    either layout (ofdm_track or ofdm_track_block, one library, one
+    signature), the strides as they are, and counts the block route under
+    its own key."""
     from anet_torch.kernels import build
 
     cfg = CFG
-    want = "staged" if s_data == 302 else "global"
-    assert tk._ofdm_track_route(s_data, cfg.n_carriers) == want
+    c_n = cfg.n_carriers
+    assert tk._ofdm_staged_warps(303, c_n) == 0 and tk._ofdm_staged_warps(302, c_n) == 1
     assert tk._ofdm_track_route(s_data, 1) == "staged"
-    calls = []
-    monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
-    monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
-    monkeypatch.setattr(tk, "launch_counts", dict.fromkeys(tk.launch_counts, 0))
-    z = torch.zeros(2, s_data, cfg.n_carriers, dtype=torch.complex64)
-    llrs, evm2 = tk._ofdm_track_launch(cfg, z, torch.ones(2, cfg.n_carriers), torch.zeros(2), None, False)
-    ((key, args),) = calls
-    assert key == ("ofdm_track" if want == "staged" else "ofdm_track_global")
-    assert build.SIGNATURES["ofdm_track_global"][1] == build.SIGNATURES["ofdm_track"][1]
-    assert build.SIGNATURES["ofdm_track_global"][2] == "ofdm_track"
-    assert args[8:11] == (2, s_data, cfg.n_carriers) and args[15] == llrs.data_ptr()
-    key = "ofdm_track_decide_fused" + (":global" if want == "global" else "")
-    assert {k: v for k, v in tk.launch_counts.items() if v} == {key: 1}
+    assert build.SIGNATURES["ofdm_track_block"][1] == build.SIGNATURES["ofdm_track"][1]
+    assert build.SIGNATURES["ofdm_track_block"][2] == "ofdm_track"
+    want = "staged" if s_data <= LAST_STAGED else "block"
+    assert tk._ofdm_track_route(s_data, c_n) == want
+    assert (tk._ofdm_staged_warps(s_data, c_n) >= tk.OFDM_STAGED_MIN_WARPS) == (want == "staged")
+    z = torch.zeros(2, s_data, c_n, dtype=torch.complex64)
+    for time_major in (False, True):
+        calls = []
+        monkeypatch.setattr(tk, "_entry", lambda key: lambda *args: calls.append((key, args)) or 0)
+        monkeypatch.setattr(tk, "_stream_handle", lambda dev: 0)
+        monkeypatch.setattr(tk, "launch_counts", dict.fromkeys(tk.launch_counts, 0))
+        zl = z.permute(1, 2, 0).contiguous().permute(2, 0, 1) if time_major else z
+        llrs, evm2 = tk._ofdm_track_launch(cfg, zl, torch.ones(2, c_n), torch.zeros(2), None, False)
+        ((key, args),) = calls
+        assert key == ("ofdm_track" if want == "staged" else "ofdm_track_block")
+        assert args[1:4] == ((1, 2 * c_n, 2) if time_major else (s_data * c_n, c_n, 1))
+        assert args[8:11] == (2, s_data, c_n) and args[15] == llrs.data_ptr()
+        key = "ofdm_track_decide_fused" + (":block" if want == "block" else "")
+        assert {k: v for k, v in tk.launch_counts.items() if v} == {key: 1}
 
 
 def test_phase_track_matches_jax():
