@@ -21,7 +21,9 @@ block maxima of the two-phase acquisition search).
 | gather_rows_fused       | csrc/gather_rows.cu                 | anet/kernels/__init__.py:1415 |
 | ofdm_track_decide_fused | csrc/ofdm_track.cu                  | anet/kernels/__init__.py:2648 |
 | tone_energies_fused     | csrc/tone_energies.cu               | anet/kernels/__init__.py:87   |
+|                         | + csrc/filterbank_any.cu            |                               |
 | decide_tones_fused      | csrc/tone_energies.cu               | anet/kernels/__init__.py:172  |
+|                         | + csrc/filterbank_any.cu            |                               |
 | sync_search_blockmax    | csrc/search_blockmax.cu             | anet/kernels/__init__.py:1300 |
 
 Each wrapper runs its plain version (``*_ref``) when its tensors lie on the
@@ -34,10 +36,10 @@ contiguity, allocates the outputs, launches on
 adds one to ``launch_counts[name]`` (``launch_counts[name + ":int8"]`` for
 an int8 launch, ``launch_counts[name + ":f32"]`` for a launch of the
 float32 route of a kernel in ``F32_ROUTES``: float32 data, or float32
-compute for the batch-major filterbank); a launch of a CUDA-core body off
-the tensor-core walks' geometry counts under the body's own key instead
-(``OFF_WALK_KEYS``: ``frame_tm_generic``, ``filterbank_cuda_core``). There
-is no fallback from the kernel to the plain version.
+compute for the batch-major filterbank); a launch of a body off the
+compile-time walks' geometry counts under the body's own key instead
+(``OFF_WALK_KEYS``: ``frame_tm_generic``, ``filterbank_any``). There is no
+fallback from the kernel to the plain version.
 
 The two search kernels and correlate_fused share one product on the
 tensor cores (``csrc/search_core.cuh``: bf16 ``mma.sync`` with float32
@@ -60,9 +62,12 @@ same two epilogues, on rows read in place from every start 0 at sps 32,
 shared memory): under bfloat16 compute with the bf16 basis; under float32
 compute with the three-term split, bfloat16 rows meeting all three terms
 and float32 rows split as demod_at_fused's are (the route:
-``_filterbank_operands`` on ``_filterbank_tensor_core_geometry``; other
-geometries take a plain CUDA-core kernel). demod_probe_fused is a
-warp-per-stream probe followed by demod_at_fused's kernel, every dtype;
+``_filterbank_operands`` on ``_filterbank_tensor_core_geometry``). Every
+other geometry (any sps, any tone count) takes the same products with the
+geometry known at run time (csrc/filterbank_any.cu: symbols walked in
+k-slabs, groups of 32 tones, the basis from ``_filterbank_any_basis``).
+demod_probe_fused is a warp-per-stream probe followed by demod_at_fused's
+kernel, every dtype;
 probe_at_fused runs the same staged probe (csrc/demod_probe.cu) with its
 span at the probe base and the quality as its epilogue, the template
 energy read on the card.
@@ -198,11 +203,11 @@ launch_counts = {
     "demod_at_energies_fused:int8": 0,
     "demod_probe_fused:int8": 0,
     "gather_rows_fused:int8": 0,
-    # the CUDA-core bodies off the tensor-core walks' geometry, counted
-    # apart from the walks at their launch (OFF_WALK_KEYS)
+    # the bodies off the compile-time walks' geometry, counted apart from
+    # the walks at their launch (OFF_WALK_KEYS)
     "frame_tm_generic": 0,
     "frame_tm_generic:int8": 0,
-    "filterbank_cuda_core": 0,
+    "filterbank_any": 0,
     # the OFDM equalizer's block-of-warps route for long streams
     # (_ofdm_track_route), counted apart from the staged one
     "ofdm_track_decide_fused:block": 0,
@@ -215,13 +220,14 @@ launch_counts = {
 F32_ROUTES = (
     "decide_frame_tm", "sync_search_fused", "demod_at_fused", "demod_probe_fused",
     "demod_at_energies_fused", "correlate_fused", "decide_tones_tm", "tone_energies_fused",
-    "decide_tones_fused", "sync_search_blockmax", "frame_tm_generic", "filterbank_cuda_core",
+    "decide_tones_fused", "sync_search_blockmax", "frame_tm_generic", "filterbank_any",
 )
-# The launch-count key of each route off the tensor-core walks: the
+# The launch-count key of each route off the compile-time walks: the
 # time-major pair's "generic" route (_tm_operands; csrc/frame_tm_generic.cu)
-# and the batch-major filterbank's "plain" one (_filterbank_operands;
-# tone_energies.cu's one-warp-a-symbol body), whichever wrapper launched it.
-OFF_WALK_KEYS = {"generic": "frame_tm_generic", "plain": "filterbank_cuda_core"}
+# and the batch-major filterbank's runtime-geometry routes "any" and
+# "any_split" (_filterbank_operands; csrc/filterbank_any.cu), whichever
+# wrapper launched them.
+OFF_WALK_KEYS = {"generic": "frame_tm_generic", "any": "filterbank_any", "any_split": "filterbank_any"}
 launch_counts.update({f"{name}:f32": 0 for name in F32_ROUTES})
 
 
@@ -237,7 +243,7 @@ def _check_error(err: int, name: str) -> None:
 
 def _count_launch(name: str, dtype: torch.dtype | None = None, route: str | None = None) -> None:
     """Count a launch of ``name`` on ``route``: under OFF_WALK_KEYS[route]
-    for a route off the tensor-core walks, else under ``name``; then
+    for a route off the compile-time walks, else under ``name``; then
     ":int8" or ":f32" by the dtype."""
     name = OFF_WALK_KEYS.get(route, name)
     if dtype == torch.int8:
@@ -1521,27 +1527,63 @@ def _filterbank_operands(kind: str, config: ModemConfig, compute_dtype,
                          device) -> tuple[str, str, torch.Tensor]:
     """(entry point, route, basis) of a filterbank launch, ``kind``
     "tone_energies" or "decide_tones". The route follows the compute dtype
-    and the geometry, never the rows' dtype. At the geometry of
-    _filterbank_tensor_core_geometry (sps 32, 48, 64, 80 or 128, at most 32
-    tones) both compute dtypes take the tensor cores: bfloat16 the entry
-    ``kind + "_mma"`` (route "mma") with _demod_mma_basis, float32 the
-    entry ``kind + "_mma_f32"`` (route "split") with the three-term
-    _demod_split_basis, on bfloat16 or float32 rows alike. Any other
-    geometry takes the plain CUDA-core entry ``kind`` (route "plain") with
-    the [sps, 2M] float32 basis of ``compute_dtype``'s entries."""
+    and the geometry, never the rows' dtype; every route runs on the tensor
+    cores. At the geometry of _filterbank_tensor_core_geometry (sps 32, 48,
+    64, 80 or 128, at most 32 tones), tone_energies.cu's compile-time walk:
+    bfloat16 compute the entry ``kind + "_mma"`` (route "mma") with
+    _demod_mma_basis, float32 compute the entry ``kind + "_mma_f32"``
+    (route "split") with the three-term _demod_split_basis, on bfloat16 or
+    float32 rows alike. Any other geometry, filterbank_any.cu's walk with
+    the geometry known at run time and _filterbank_any_basis: bfloat16
+    compute the entry ``kind + "_any"`` (route "any"), float32 compute
+    ``kind + "_any_f32"`` (route "any_split"), both counted under
+    OFF_WALK_KEYS["any"]."""
     fast = _filterbank_tensor_core_geometry(config)
     if fast and compute_dtype == torch.bfloat16:
         return f"{kind}_mma", "mma", _demod_mma_basis(config, torch.bfloat16, device)
     if fast:
         return f"{kind}_mma_f32", "split", _demod_split_basis(config, device)
-    return kind, "plain", _filterbank_basis(config, compute_dtype, device)
+    if compute_dtype == torch.bfloat16:
+        return f"{kind}_any", "any", _filterbank_any_basis(config, torch.bfloat16, device)
+    return f"{kind}_any_f32", "any_split", _filterbank_any_basis(config, torch.float32, device)
+
+
+FILTERBANK_GROUP = 32  # tones a group of csrc/filterbank_any.cu: 8 n8 tiles
 
 
 @functools.lru_cache(maxsize=16)
-def _filterbank_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The plain filterbank kernel's [sps, 2M] float32 basis for ``dtype``
-    compute."""
-    return _plain_basis(config, dtype, device).contiguous()
+def _filterbank_any_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The B operand of csrc/filterbank_any.cu for ``dtype`` compute, a flat
+    int32 tensor. The [sps, 2M] basis _plain_basis(config, dtype) in groups
+    of G = min(M, FILTERBANK_GROUP) tones, each group the [16 KS, 8 n]
+    product columns of _mma_fragments (column 2c the cos of the group's
+    tone c, 2c + 1 its sin, zero columns past G; n = _demod_mma_tiles(G))
+    over KS = ceil(sps / 16) k-steps, zero rows past sps. bfloat16: the
+    bf16 entries as words [group, k-step, n-tile, lane, register], word
+    (lane 4 g + i, register r) the bf16 pair at rows 16 k-step + 8 r + 2 i
+    + (0, 1) of column 8 n-tile + g, the first in the low half (a lane's
+    two words one 8-byte vector). float32: the three bf16 terms of the
+    float32 entries (_split_terms), b0 in that layout, then b1 and b2 as
+    words [group, k-step, n-tile, lane, term, register] (a lane's four words
+    one 16-byte vector)."""
+    m, sps = config.num_tones, config.samples_per_symbol
+    gm = min(m, FILTERBANK_GROUP)
+    ng, nt, ks = m // gm, _demod_mma_tiles(gm), -(-sps // 16)
+    plain = _plain_basis(config, dtype, device)  # [sps, 2M]
+    cols = torch.zeros(16 * ks, ng, 8 * nt, dtype=torch.float32, device=device)
+    cols[:sps, :, 0 : 2 * gm : 2] = plain[:, :m].reshape(sps, ng, gm)
+    cols[:sps, :, 1 : 2 * gm : 2] = plain[:, m:].reshape(sps, ng, gm)
+
+    def words(t: torch.Tensor) -> torch.Tensor:
+        # [16 ks, ng, 8 nt] of bf16 values -> int32 [ng, ks, nt, 32, 2]
+        v = t.to(torch.bfloat16).reshape(ks, 2, 4, 2, ng, nt, 8)  # [s, r, i, e, group, t, g]
+        v = v.permute(4, 0, 5, 6, 2, 1, 3).contiguous()  # [group, s, t, g, i, r, e]
+        return v.view(torch.int32).reshape(ng, ks, nt, 32, 2)
+
+    if dtype == torch.bfloat16:
+        return words(cols).flatten()
+    b0, b1, b2 = (words(t) for t in _split_terms(cols))
+    return torch.cat([b0.flatten(), torch.stack([b1, b2], dim=-2).flatten()])
 
 
 @functools.lru_cache(maxsize=16)
@@ -1565,7 +1607,7 @@ def _filterbank_launch(name: str, kind: str, config: ModemConfig, samples: torch
     the filterbank kernel ``kind`` that _filterbank_operands picks on rows
     [R, L] of the samples (a view where the leading dimensions merge, the
     last dimension contiguous), S whole symbols a row. A launch counts under
-    ``name``, or under OFF_WALK_KEYS["plain"] on the plain route; with
+    ``name``, or under OFF_WALK_KEYS["any"] off the compile-time walk; with
     ``":f32"`` for float32 compute."""
     x = _filterbank_rows(samples, compute_dtype)
     sps = config.samples_per_symbol
@@ -1577,7 +1619,7 @@ def _filterbank_launch(name: str, kind: str, config: ModemConfig, samples: torch
     dtype = _check_cuda_input(name, rows, "samples")
     dev, r = rows.device, rows.shape[0]
     entry, route, basis = _filterbank_operands(kind, config, compute_dtype, dev)
-    if route == "plain":
+    if route in ("any", "any_split"):
         head = (rows.data_ptr(), dtype, r, rows.stride(0))
     else:
         if r > 1 and rows.stride(0) < s * sps:  # overlapping rows: the span read needs a pitch >= a row
@@ -1606,11 +1648,11 @@ def tone_energies_fused(config: ModemConfig, samples: torch.Tensor, *, compute_d
     to ``compute_dtype`` (float32 or bfloat16), as the reference's operands
     do; the product runs in float32. Rows may be strided (a view past the
     preamble of whole frames) as long as the last dimension is contiguous.
-    Any geometry: sps 32, 48, 64, 80 or 128 with at most 32 tones take the
-    tensor cores (float32 compute as a three-term bf16 split of the
-    operands, the energies within 1e-5 of each plus 1e-6 of the symbol's
-    largest of the plain version's), the rest a plain kernel (one warp a
-    symbol)."""
+    Any geometry, on the tensor cores: sps 32, 48, 64, 80 or 128 with at
+    most 32 tones on tone_energies.cu's compile-time walk, the rest on
+    filterbank_any.cu's (any sps, any tone count); float32 compute as a
+    three-term bf16 split of the operands, the energies within 1e-5 of each
+    plus 1e-6 of the symbol's largest of the plain version's."""
     if samples.device.type == "cpu":
         return tone_energies_fused_ref(config, samples, compute_dtype=compute_dtype)
     m = config.num_tones

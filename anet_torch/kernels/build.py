@@ -27,7 +27,7 @@ SOURCES = (
     "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
     "viterbi", "demod_at_energies",
     "correlate", "gather_rows", "ofdm_track",
-    "tone_energies", "search_blockmax", "frame_tm_generic",
+    "tone_energies", "search_blockmax", "frame_tm_generic", "filterbank_any",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -91,9 +91,17 @@ SIGNATURES = {
         "anet_ofdm_track_block",
         [_P, _L, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P], "ofdm_track",
     ),
-    "tone_energies": ("anet_tone_energies", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P]),
-    "decide_tones": (
-        "anet_decide_tones", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P], "tone_energies",
+    "tone_energies_any": (
+        "anet_tone_energies_any", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P], "filterbank_any",
+    ),
+    "decide_tones_any": (
+        "anet_decide_tones_any", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P], "filterbank_any",
+    ),
+    "tone_energies_any_f32": (
+        "anet_tone_energies_any_f32", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P], "filterbank_any",
+    ),
+    "decide_tones_any_f32": (
+        "anet_decide_tones_any_f32", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P], "filterbank_any",
     ),
     "tone_energies_mma": (
         "anet_tone_energies_mma", [_P, _I, _L, _P, _I, _I, _I, _P, _P, _P], "tone_energies",

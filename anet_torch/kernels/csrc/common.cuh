@@ -44,9 +44,4 @@ __device__ __forceinline__ bool better(float qa, int ia, float qb, int ib) {
   return qa > qb || (qa == qb && ia < ib);
 }
 
-// Block size of tone_energies.cu's CUDA-core kernel. A compile-time stride
-// lets its staging loop unroll, so each thread keeps several loads in
-// flight.
-constexpr int DEMOD_THREADS = 256;
-
 }  // namespace anet

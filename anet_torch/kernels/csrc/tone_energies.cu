@@ -20,10 +20,10 @@
 // compute's three products on bf16 rows, 0.22 ms as its six on float32
 // rows.
 //
-// Design: three routes, which the wrapper picks from the compute dtype and
-// the geometry, never from the rows' dtype, and names to the C entry it
-// calls (kernels._filterbank_operands, on kernels.
-// _filterbank_tensor_core_geometry):
+// Design: the wrapper picks the route from the compute dtype and the
+// geometry, never from the rows' dtype, and names the C entry it calls
+// (kernels._filterbank_operands, on kernels.
+// _filterbank_tensor_core_geometry). This source takes
 // - sps 32, 48, 64, 80 or 128 (whole k-steps of 16 samples) and at most 32
 //   tones (8 n-tiles; mfsk8-audible and mfsk32-dense among them): the
 //   align+demod filterbank of demod_core.cuh with every start at 0, on the
@@ -55,19 +55,14 @@
 //   float32), a tile one m16 tile of 16 symbols, and the padded rows (28,
 //   44, 52 or 84 words) keep the 8 symbols of an A fragment in 8 distinct
 //   bank groups.
-// - any other geometry (custom configs: sps 24, 40, 96 or 160, or more
-//   than 32 tones), either compute dtype: a plain kernel, one warp per
-//   symbol, its samples staged in shared memory, lane c summing the I and
-//   Q of tones c, c + 32, ... over the samples in order from the [sps, 2M]
-//   basis (cos columns, then sin), on the CUDA cores; its launches count
-//   under kernels.OFF_WALK_KEYS["plain"], filterbank_cuda_core.
+// Any other geometry (custom configs: sps 15, 24, 40, 96, 100, 160 or
+// 1,920, or more than 32 tones) takes filterbank_any.cu, the same product
+// with the geometry known at run time.
 // The TPU kernels' flattened [T, sps] windows and their zero padding to
 // 512-symbol tiles are not carried over.
 #include "demod_core.cuh"
 
 namespace {
-
-constexpr int THREADS = anet::DEMOD_THREADS;
 
 // The tensor-core kernels: demod_core.cuh's walk over the rows, T the
 // staged samples and P the product (OneTerm: bf16 compute; SplitTerms:
@@ -177,124 +172,7 @@ int dispatch_split(const void* x, int dtype, int R, long long row_stride, const 
   return (int)cudaErrorInvalidValue;
 }
 
-constexpr int ANY_WARPS = THREADS / 32;  // symbols a block of the plain kernel
-constexpr int ANY_MAX_SPS = 48 * 1024 / (ANY_WARPS * 4);
-
-// Tone energies (DECIDE false) or the decisions of one symbol a warp, any
-// sps and m; basis [sps, 2m] float32.
-template <typename T, bool DECIDE>
-__global__ void __launch_bounds__(THREADS)
-any_geometry_kernel(const T* __restrict__ x, int64_t row_stride, int n_symbols, int sps, int m,
-                    const float* __restrict__ basis, float* __restrict__ energies,
-                    int32_t* __restrict__ tone, float* __restrict__ best,
-                    float* __restrict__ total) {
-  extern __shared__ float stage_any[];  // ANY_WARPS * sps floats
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = blockIdx.x;
-  const int s = blockIdx.y * ANY_WARPS + warp;
-  if (s >= n_symbols) return;  // the whole warp: it only syncs within itself
-  float* w = stage_any + warp * sps;
-  const T* src = x + (int64_t)r * row_stride + (int64_t)s * sps;
-  for (int j = lane; j < sps; j += 32) w[j] = anet::to_f32(src[j]);
-  __syncwarp();
-  const int64_t o = (int64_t)r * n_symbols + s;
-  float bv = -1.0f, tot = 0.0f;
-  int bi = 0;
-  for (int c = lane; c < m; c += 32) {
-    float i = 0.0f, q = 0.0f;
-    for (int j = 0; j < sps; ++j) {
-      i = fmaf(w[j], basis[j * 2 * m + c], i);
-      q = fmaf(w[j], basis[j * 2 * m + m + c], q);
-    }
-    const float e = anet::tone_energy(i, q);
-    if constexpr (DECIDE) {
-      if (e > bv) {  // a lane's tones ascend: strict > keeps the first
-        bv = e;
-        bi = c;
-      }
-      tot += e;
-    } else {
-      energies[o * m + c] = e;
-    }
-  }
-  if constexpr (DECIDE) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      tot += __shfl_down_sync(0xffffffffu, tot, off);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      tone[o] = bi;
-      best[o] = bv;
-      total[o] = tot;
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_any(const void* x, int R, long long row_stride, int n_symbols, int sps, int m,
-                       bool decide, const void* basis, void* out0, void* out1, void* out2,
-                       cudaStream_t st) {
-  if (sps > ANY_MAX_SPS) return cudaErrorInvalidValue;
-  dim3 grid(R, (n_symbols + ANY_WARPS - 1) / ANY_WARPS);
-  const size_t smem = (size_t)ANY_WARPS * sps * sizeof(float);
-  const T* xs = static_cast<const T*>(x);
-  const float* bs = static_cast<const float*>(basis);
-  if (decide) {
-    any_geometry_kernel<T, true><<<grid, THREADS, smem, st>>>(
-        xs, row_stride, n_symbols, sps, m, bs, nullptr, static_cast<int32_t*>(out0),
-        static_cast<float*>(out1), static_cast<float*>(out2));
-  } else {
-    any_geometry_kernel<T, false><<<grid, THREADS, smem, st>>>(
-        xs, row_stride, n_symbols, sps, m, bs, static_cast<float*>(out0), nullptr, nullptr,
-        nullptr);
-  }
-  return cudaGetLastError();
-}
-
-int dispatch(int dtype, int sps, const void* x, int R, long long row_stride, int n_symbols,
-             int m, bool decide, const void* basis, void* out0, void* out1, void* out2,
-             void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (R < 1 || n_symbols < 1 || m < 1 || sps < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == anet::DTYPE_BF16)
-    return (int)launch_any<__nv_bfloat16>(x, R, row_stride, n_symbols, sps, m, decide, basis,
-                                          out0, out1, out2, st);
-  if (dtype == anet::DTYPE_F32)
-    return (int)launch_any<float>(x, R, row_stride, n_symbols, sps, m, decide, basis, out0, out1,
-                                  out2, st);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
-
-// The plain kernel, either compute dtype, at any geometry (the wrapper
-// sends sps 32, 48, 64, 80 and 128 with at most 32 tones to the tensor
-// cores). x: R
-// rows of >= n_symbols * sps samples, `row_stride` elements apart
-// (contiguous within a row), float32 or bfloat16 (widened on load); basis:
-// [sps, 2m] float32 (cos columns, then sin; either compute dtype's
-// entries); energies: [R, n_symbols, m] float32. Returns cudaGetLastError().
-extern "C" int anet_tone_energies(const void* x, int dtype, int R, long long row_stride,
-                                  int n_symbols, int sps, int m, const void* basis,
-                                  void* energies, void* stream) {
-  return dispatch(dtype, sps, x, R, row_stride, n_symbols, m, false, basis, energies, nullptr,
-                  nullptr, stream);
-}
-
-// The same rows and basis; tone: [R, n_symbols] int32; best, total: [R,
-// n_symbols] float32. Returns cudaGetLastError().
-extern "C" int anet_decide_tones(const void* x, int dtype, int R, long long row_stride,
-                                 int n_symbols, int sps, int m, const void* basis, void* tone,
-                                 void* best, void* total, void* stream) {
-  return dispatch(dtype, sps, x, R, row_stride, n_symbols, m, true, basis, tone, best, total,
-                  stream);
-}
 
 // bfloat16 compute on the tensor cores. x: R rows of >= n_symbols * sps
 // bfloat16 samples, `row_stride` elements apart (>= n_symbols * sps when R >

@@ -111,6 +111,17 @@ comma-separated subset of:
   float32 kernel, this one's ``frame_tm_mma`` and ``frame_tm_mma_f32``,
   and ``frame_tm_generic``, the CUDA-core body a checkout from before
   the walk took the presets runs there, alike). It ignores ``--model``.
+- ``filterbank_any``: ``tone_energies_fused`` and ``decide_tones_fused``
+  at custom geometries off tone_energies.cu's compile-time walks (sps 40
+  with 8 tones, B = 4,096; sps 160 with 64, B = 2,048; sps 1,920 with 16,
+  B = 256; payload 256's data symbols of noise, read in place past the
+  preamble), bfloat16 compute on bf16 rows, float32 compute on bf16 and on
+  float32 rows (``<wrapper> <geometry> <compute> compute, <rows> rows``),
+  each with its ``device`` column (rows whose name holds ``filterbank_any``
+  or ``any_geometry``: this checkout's tensor-core walk, or an older
+  checkout's CUDA-core body, so a parent and this one time alike); null
+  where a checkout's kernel refuses the geometry (the CUDA-core body past
+  1,536 samples a symbol). It ignores ``--model``.
 - ``gather``: ``gather_rows_fused`` at the one-shot receiver's geometry
   (mfsk16-fast, payload 256: size 36,352 out of 76,288-sample rows) on B =
   8,192 bfloat16, int8 (``quantize_int8``) and float32 buffers of noise,
@@ -142,6 +153,7 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "ofdm_frames": ("ofdm_track", "viterbi"),
     "tones_tm": ("decide_tones_tm", "decide_frame_tm", "frame_tm_generic"),
     "gather": ("gather_rows",),
+    "filterbank_any": ("tone_energies", "filterbank_any"),  # filterbank_any.cu: checkouts that have it
 }
 FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
 # (preset, data symbols): its frames of 256, 1,024 and 4,096 bytes, S = 302, and
@@ -154,6 +166,12 @@ OFDM_SHAPES = (
 )
 DEMOD_MODELS = {"demod_at_fused": "mfsk16-fast", "demod_at_energies_fused": "mfsk4-coded"}
 VIT_STEPS = 2150  # mfsk4-coded: 8 x 268 data-section bits + the 6-bit tail flush
+# (label, sample rate, baud, tones, base Hz, B) of the custom geometries of --kernels filterbank_any
+ANY_SHAPES = (
+    ("sps40-m8", 48_000, 1200, 8, 600.0, 4096),
+    ("sps160-m64", 48_000, 300, 64, 150.0, 2048),
+    ("sps1920-m16", 48_000, 25, 16, 1000.0, 256),
+)
 
 _CHILD = r"""
 import json, sys
@@ -447,6 +465,31 @@ if "tones_tm" in kinds:
             del xs
             torch.cuda.empty_cache()
         del x
+if "filterbank_any" in kinds:
+    from anet_torch.dsp.frame import data_symbols_for_payload
+    from anet_torch.dsp.params import ModemConfig
+
+    for label, rate, baud, m, base, bb in {any_shapes!r}:
+        c = ModemConfig(sample_rate_hz=rate, symbol_rate_hz=baud, num_tones=m, base_freq_hz=base)
+        pre, sps = c.preamble_samples, c.samples_per_symbol
+        x = torch.randn(bb, pre + data_symbols_for_payload(c, 256) * sps, generator=gen, device="cuda")
+        for compute, rows_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+                                    (torch.float32, torch.float32)):
+            rows = x.to(rows_dtype)[:, pre:]  # the data sections, read in place
+            for name in ("tone_energies_fused", "decide_tones_fused"):
+                call = lambda: getattr(kernels, name)(c, rows, compute_dtype=compute)
+                key = f"{{name}} {{label}} {{str(compute)[6:]}} compute, {{str(rows_dtype)[6:]}} rows"
+                try:
+                    call()
+                except RuntimeError:  # a checkout's kernel that refuses the geometry: nothing to time
+                    out[key] = out[key + " device"] = None
+                    continue
+                out[key] = time_ms(call)
+                out[key + " device"] = device_ms(call, ("filterbank_any", "any_geometry"))
+            del rows
+            torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
 if "gather" in kinds:
     from anet_torch.stream import _buffer_len, quantize_int8
 
@@ -477,7 +520,7 @@ def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) 
     """The timings of the checkout at ``root``, from a process of its own."""
     sources = tuple(dict.fromkeys(s for kind in kinds for s in KERNELS[kind]))  # one nvcc a source
     child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS,
-                          demod_models=DEMOD_MODELS, frame_b=FRAME_B, ofdm_shapes=OFDM_SHAPES)
+                          demod_models=DEMOD_MODELS, frame_b=FRAME_B, ofdm_shapes=OFDM_SHAPES, any_shapes=ANY_SHAPES)
     run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")

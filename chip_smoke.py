@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-1. build the fifteen CUDA kernels from anet_torch/kernels/csrc (twelve
+1. build the sixteen CUDA kernels from anet_torch/kernels/csrc (thirteen
    sources, nvcc, sm_90a);
 2. hold each kernel against its plain PyTorch version at its main path's
    shapes on a 256-stream subset, then time kernel and plain version at the
@@ -90,9 +90,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    mfsk32-dense bf16 compute with 32 tones' basis in shared memory, and
    mfsk8-audible float32 compute as the split at sps 48; held with
    compare_mma_tones and compare_split at 256 rows and B = 16,384, timed
-   there), and its CUDA-core body (tone_energies.cu, one warp a symbol),
-   kept for custom geometries, at sps 40 with 8 tones, held and timed as
-   the generic body;
+   there), and its runtime-geometry walk (csrc/filterbank_any.cu, the
+   route of every custom geometry off tone_energies.cu's compile-time
+   walks) at sps 40 with 8 tones (B = 4,096), sps 1,920 with 16 (B = 256)
+   and sps 160 with 64 (B = 2,048), bfloat16 compute on bf16 rows and
+   float32 compute on float32 rows, held with compare_mma_tones and
+   compare_split on 256 rows and at the full batch, timed there against
+   the plain version and the bound (bytes, or the products at the bf16
+   peak);
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -201,7 +206,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    on mfsk32-dense with a bf16 carry, locked: tone_energies_fused's
    bfloat16 route at 32 tones, probe_at_fused); none of them launches an
    align+demod kernel or decide_frame_tm (OFF_THE_WALK), and the streams
-   launch neither decide_tones_tm nor a CUDA-core body;
+   launch neither decide_tones_tm nor a body off the compile-time walks;
+   and "stream-custom-f32" (phase 4's stream at receive_stream's float32
+   defaults, cold and warm, on a custom config no preset has, 48 kHz,
+   1,200 baud, 16 tones from 600 Hz: sps 40, so the search, then the
+   aligned slice through the batch-major receiver on filterbank_any.cu's
+   split, filterbank_any:f32; never the compile-time walk, its bfloat16
+   route, decide_tones_tm or the probe);
 11. the scale-out layer (anet_torch.parallel, its positions all on the one
    card) and the modem CLI: "sharded-demod" (16,384 aligned mfsk16-fast
    frames, float32 compute, sharded_demodulate on 4 positions and on
@@ -270,16 +281,16 @@ batch-major filterbank's are on float32 rows, with its bf16 rows' under
 under "presets", as decide_tones_tm's walk at both presets and dtypes;
 ofdm_track_decide_fused's block route under "block", S = 343
 batch-major, its other shapes and the staged route's under
-"block"."shapes"; the two CUDA-core
-bodies off the tensor-core walks' geometry have rows of their own, whose
-launches the wrappers count under kernels.OFF_WALK_KEYS, both on no path
-since every preset takes the tensor cores (OFF_PATHS): frame_tm_generic's
-numbers decide_tones_tm at sps 96 with 32 tones, bf16, under "f32" on
-float32, with sps 40 and the frame epilogue beside them;
-filterbank_cuda_core's tone_energies_fused at sps 40 with 8 tones under
-bf16 compute, under "f32" under float32 compute, decide_tones_fused's
-under "decide_tones"), and the last line the JSON verdict with the
-device's name.
+"block"."shapes"; the two bodies off the compile-time walks' geometry
+have rows of their own, whose launches the wrappers count under
+kernels.OFF_WALK_KEYS: frame_tm_generic, on no path since every preset
+takes the tensor cores (OFF_PATHS), its numbers decide_tones_tm at sps
+96 with 32 tones, bf16, under "f32" on float32, with sps 40 and the frame
+epilogue beside them; filterbank_any, on stream-custom-f32's path, its
+numbers tone_energies_fused at sps 40 with 8 tones under bf16 compute,
+under "f32" under float32 compute on float32 rows, decide_tones_fused's
+under "decide_tones", sps 1,920 and 160 beside them), and the last line
+the JSON verdict with the device's name.
 """
 
 from __future__ import annotations
@@ -351,7 +362,7 @@ OFDM_RTOL = 1e-4  # float32 throughout: LLRs (of their scale) and evm2
 GATE_EPS = 1e-4  # a gate may part from the plain version's only this close to a tie
 GENERIC_RTOL = 1e-5  # frame_tm_generic.cu: float32 (int8: int32) sums in another order than the plain version's
 GENERIC_ROW = kernels.OFF_WALK_KEYS["generic"]  # the kernels line's row of csrc/frame_tm_generic.cu
-FILTERBANK_ROW = kernels.OFF_WALK_KEYS["plain"]  # the row of tone_energies.cu's one-warp-a-symbol body
+FILTERBANK_ROW = kernels.OFF_WALK_KEYS["any"]  # the row of csrc/filterbank_any.cu, the runtime-geometry walk
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_S = 67e12  # H100 SXM float32 peak outside the tensor cores
@@ -377,8 +388,8 @@ REPLACES = {
     "sync_search_blockmax": ("anet_torch/kernels/csrc/search_blockmax.cu", "anet/kernels/__init__.py:1300"),
     # decide_tones_tm (and decide_frame_tm, :488) off the tensor-core walk's geometry
     GENERIC_ROW: ("anet_torch/kernels/csrc/frame_tm_generic.cu", "anet/kernels/__init__.py:269"),
-    # tone_energies_fused (and decide_tones_fused, :172) off the tensor-core walk's geometry
-    FILTERBANK_ROW: ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:87"),
+    # tone_energies_fused (and decide_tones_fused, :172) off the compile-time walk's geometry
+    FILTERBANK_ROW: ("anet_torch/kernels/csrc/filterbank_any.cu", "anet/kernels/__init__.py:87"),
 }
 
 
@@ -1006,15 +1017,16 @@ def split_tol(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return kernels.F32_SPLIT_RTOL * w.abs() + kernels.F32_SPLIT_ATOL * scale
 
 
-def compare_split(label: str, cfg, x: torch.Tensor) -> float:
+def compare_split(label: str, cfg, x: torch.Tensor, route: str = "split") -> float:
     """tone_energies_fused and decide_tones_fused with float32 compute (the
-    three-term split on the tensor cores, never a CUDA-core body at this
-    geometry) on rows ``x`` against their plain versions, with the route's
-    stated tolerance: each energy within split_tol of the plain one, the
-    energies' argmax equal but at near-ties, the decisions as
-    compare_split_decisions holds them. Returns the max absolute error."""
-    if kernels._filterbank_operands("tone_energies", cfg, torch.float32, DEV)[1] != "split":
-        raise AssertionError(f"{label}: float32 compute does not take the split route")
+    three-term split on the tensor cores: ``route`` "split", the
+    compile-time walk, or "any_split", filterbank_any.cu's) on rows ``x``
+    against their plain versions, with the route's stated tolerance: each
+    energy within split_tol of the plain one, the energies' argmax equal
+    but at near-ties, the decisions as compare_split_decisions holds them.
+    Returns the max absolute error."""
+    if kernels._filterbank_operands("tone_energies", cfg, torch.float32, DEV)[1] != route:
+        raise AssertionError(f"{label}: float32 compute does not take the {route} route")
     want = kernels.tone_energies_fused_ref(cfg, x, compute_dtype=torch.float32)
     worst = compare_split_energies(label, kernels.tone_energies_fused(cfg, x, compute_dtype=torch.float32), want)
     decisions = kernels.decide_tones_fused(cfg, x, compute_dtype=torch.float32)
@@ -1518,22 +1530,36 @@ def phase_kernels_generic(gen) -> dict:
 
 
 def custom_filterbank_config() -> ModemConfig:
-    """sps 40 with 8 tones: a geometry off every tensor-core walk (no preset
-    has one), where the batch-major filterbank keeps its CUDA-core body."""
+    """sps 40 with 8 tones: a geometry off every compile-time walk (no
+    preset has one), where the batch-major filterbank takes
+    filterbank_any.cu and decide_tones_tm frame_tm_generic.cu."""
     return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, num_tones=8, base_freq_hz=600.0)
 
 
-def compare_mma_tones(label: str, cfg, x: torch.Tensor) -> float:
+# filterbank_any.cu's timed geometries in phase 2: (label, config, B)
+ANY_GEOMETRIES = (
+    ("sps 40, 8 tones", custom_filterbank_config(), 4096),
+    ("sps 1920, 16 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=25, num_tones=16,
+                                       base_freq_hz=1000.0), 256),
+    ("sps 160, 64 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=300, num_tones=64,
+                                      base_freq_hz=150.0), 2048),
+)
+# stream-custom-f32's config: 48 kHz, 1,200 baud (sps 40), 16 tones from 600
+# Hz (the top tone 18.6 kHz), a modem no preset has
+CUSTOM_STREAM_CONFIG = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, num_tones=16, base_freq_hz=600.0)
+
+
+def compare_mma_tones(label: str, cfg, x: torch.Tensor, route: str = "mma") -> float:
     """tone_energies_fused and decide_tones_fused with bfloat16 compute
-    (the tensor-core walk, never the CUDA-core body at this geometry) on
-    rows ``x`` against their plain versions: every energy, best and total
+    (``route`` "mma", the compile-time walk, or "any", filterbank_any.cu's)
+    on rows ``x`` against their plain versions: every energy, best and total
     within RTOL of its symbol's largest plain energy (bf16 products exact,
     float32 sums in another order), the tones (decided, and the energies'
     argmax) equal but where the plain version's two largest energies lie
     that close (near-ties, their count printed). Returns the max absolute
     error."""
-    if kernels._filterbank_operands("tone_energies", cfg, torch.bfloat16, DEV)[1] != "mma":
-        raise AssertionError(f"{label}: bfloat16 compute does not take the tensor cores")
+    if kernels._filterbank_operands("tone_energies", cfg, torch.bfloat16, DEV)[1] != route:
+        raise AssertionError(f"{label}: bfloat16 compute does not take the {route} route")
     want = kernels.tone_energies_fused_ref(cfg, x, compute_dtype=torch.bfloat16)
     got = kernels.tone_energies_fused(cfg, x, compute_dtype=torch.bfloat16)
     scale = want.amax(-1)
@@ -1572,15 +1598,19 @@ def phase_kernels_filterbank_generic(gen) -> dict:
        (compare_mma_tones; compare_split), then tiled to B = 16,384, held
        again and timed there against their bound (bytes, or the products
        at the bf16 peak): the two wrappers' "presets" results.
-    2. The CUDA-core body (tone_energies.cu, one warp a symbol; the plain
-       route), kept for custom geometries, at sps 40 with 8 tones: both
-       wrappers on 256 noisy frames against their plain versions (the
-       energies' argmax and the tones bit-equal; energies within
-       GENERIC_RTOL of the largest, best and total within GENERIC_RTOL),
-       then tiled to B = 4,096, held again and timed there against their
-       bound and the CUDA cores' floor, bfloat16 compute on bf16 rows and
-       float32 compute on float32 rows: the FILTERBANK_ROW results (":f32"
-       for float32 compute), decide_tones_fused's under "decide_tones"."""
+    2. filterbank_any.cu, the runtime-geometry walk of every custom
+       geometry, at ANY_GEOMETRIES (sps 40 with 8 tones, B = 4,096; sps
+       1,920 with 16, B = 256; sps 160 with 64, two groups, B = 2,048):
+       bfloat16 compute on bf16 rows ("any") and float32 compute on float32
+       rows ("any_split"), both wrappers on the data sections of 256 noisy
+       frames and at B (compare_mma_tones; compare_split), then timed at B
+       with the plain version against the bound (bytes, or the products at
+       the bf16 peak: one, or the split's six): the FILTERBANK_ROW results
+       (":f32" for float32 compute) at sps 40, decide_tones_fused's under
+       "decide_tones", the other geometries under their labels. The
+       parent's CUDA-core body has no place in this tree: its times come
+       from ``python -m anet_torch.kernels.time_search --kernels
+       filterbank_any`` on the parent's checkout."""
     results = {"tone_energies_fused": {}, "decide_tones_fused": {}}
     out_bytes = {"tone_energies_fused": None, "decide_tones_fused": 12}
     for model, cdt, n_products in ((DENSE_MODEL, torch.bfloat16, 1), (AUDIBLE_MODEL, torch.float32, 6)):
@@ -1611,50 +1641,43 @@ def phase_kernels_filterbank_generic(gen) -> dict:
             results[name][f"{model} {compute} compute"] = r
             torch.cuda.empty_cache()
         del full
-    # the CUDA-core body at a custom geometry
-    cfg = custom_filterbank_config()
-    sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
-    n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
-    b_full = 16 * COMPARE_B
-    for cdt, key in ((torch.bfloat16, FILTERBANK_ROW), (torch.float32, f"{FILTERBANK_ROW}:f32")):
-        if kernels._filterbank_operands("tone_energies", cfg, cdt, DEV)[1] != "plain":
-            raise AssertionError("sps 40: the filterbank does not take its CUDA-core body")
-        pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
-        w = transmit(cfg, pay, device=DEV)
-        x = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).to(cdt)
-        full = x.repeat(b_full // COMPARE_B, 1)[:, pre:]
-        del w
+    # filterbank_any.cu at custom geometries
+    for cdt, key, n_products in ((torch.bfloat16, FILTERBANK_ROW, 1), (torch.float32, f"{FILTERBANK_ROW}:f32", 6)):
         compute = str(cdt).removeprefix("torch.")
-        errs = {"tone_energies_fused": 0.0, "decide_tones_fused": 0.0}
-        for data in (x[:, pre:], full):
-            label = f"{FILTERBANK_ROW} %s (sps {sps}, {m} tones, {compute} compute, B {data.shape[0]})"
-            got = kernels.tone_energies_fused(cfg, data, compute_dtype=cdt)
-            want = kernels.tone_energies_fused_ref(cfg, data, compute_dtype=cdt)
-            if not torch.equal(got.argmax(-1), want.argmax(-1)):
-                raise AssertionError(label % "tone_energies_fused" + ": winning tones differ")
-            errs["tone_energies_fused"] = max(errs["tone_energies_fused"], compare(
-                label % "tone_energies_fused", (got,), (want,), (), (0,), atol=GENERIC_RTOL * float(want.max()),
-                rtol=GENERIC_RTOL))
-            del got, want
-            got = kernels.decide_tones_fused(cfg, data, compute_dtype=cdt)
-            want = kernels.decide_tones_fused_ref(cfg, data, compute_dtype=cdt)
-            errs["decide_tones_fused"] = max(errs["decide_tones_fused"], compare(
-                label % "decide_tones_fused", got, want, (0,), (1, 2), rtol=GENERIC_RTOL))
-            del got, want
-        del x
-        timed = {}
-        for name, fn, ref, o in (
-            ("tone_energies_fused", kernels.tone_energies_fused, kernels.tone_energies_fused_ref, m * 4),
-            ("decide_tones_fused", kernels.decide_tones_fused, kernels.decide_tones_fused_ref, 12),
-        ):
-            timed[name] = {"max_abs_err": errs[name], **time_off_walk(
-                f"{FILTERBANK_ROW} {name} (sps {sps}, {m} tones, {compute} compute, B {b_full}, {n_sym} symbols)",
-                lambda k, d, fn=fn, ref=ref: (fn if k else ref)(cfg, d, compute_dtype=cdt), full,
-                b_full * n_sym * (sps * full.element_size() + o), n_sym * 2 * sps * 2 * m * b_full, cdt)}
-        results[key] = {**timed["tone_energies_fused"], "geometry": f"sps {sps}, {m} tones, B {b_full}",
-                        "decide_tones": timed["decide_tones_fused"]}
-        del full
-        torch.cuda.empty_cache()
+        check = compare_mma_tones if cdt == torch.bfloat16 else compare_split
+        route = "any" if cdt == torch.bfloat16 else "any_split"
+        for label, cfg, b_full in ANY_GEOMETRIES:
+            sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
+            n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+            pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+            w = transmit(cfg, pay, device=DEV)
+            x = (w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)).to(cdt)
+            del w
+            full = x.repeat(b_full // COMPARE_B, 1)[:, pre:]
+            err = max(check(f"{FILTERBANK_ROW} ({label}, {compute} compute, B {d.shape[0]})", cfg, d, route)
+                      for d in ((x[:, pre:], full) if b_full > COMPARE_B else (full,)))
+            del x
+            torch.cuda.empty_cache()
+            timed = {}
+            for name, fn, ref, o in (
+                ("tone_energies_fused", kernels.tone_energies_fused, kernels.tone_energies_fused_ref, m * 4),
+                ("decide_tones_fused", kernels.decide_tones_fused, kernels.decide_tones_fused_ref, 12),
+            ):
+                r = {"max_abs_err": err, "ms": time_ms(lambda: fn(cfg, full, compute_dtype=cdt)),
+                     "plain_ms": time_ms(lambda: ref(cfg, full, compute_dtype=cdt)), "library_ms": None}
+                r["bound_ms"], r["bound_by"] = bound_ms(b_full * n_sym * (sps * full.element_size() + o),
+                                                        n_products * n_sym * 2 * sps * 2 * m * b_full)
+                log(f"  {FILTERBANK_ROW} {name} ({label}, {compute} compute, {compute} rows, B {b_full}, "
+                    f"{n_sym} symbols): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                    f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+                timed[name] = r
+                torch.cuda.empty_cache()
+            del full
+            entry = {**timed["tone_energies_fused"], "decide_tones": timed["decide_tones_fused"]}
+            if key not in results:  # the first geometry, sps 40: the row's own numbers
+                results[key] = {**entry, "geometry": f"{label}, B {b_full}"}
+            else:
+                results[key][f"{label}, B {b_full}"] = entry
     return results
 
 
@@ -3428,6 +3451,13 @@ PATHS = {
         lambda cfg, gen: phase_stream(cfg, gen, "stream-dense"),
         ("sync_search_fused", "probe_at_fused", "tone_energies_fused:bf16"),
     ),
+    # a custom config off every compile-time walk: the batch-major
+    # filterbank's runtime-geometry walk
+    "stream-custom-f32": (
+        CUSTOM_STREAM_CONFIG,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-custom-f32", torch.float32),
+        ("sync_search_fused", f"{FILTERBANK_ROW}:f32"),
+    ),
     "sharded-demod": (MODEL, phase_sharded_demod, ("tone_energies_fused:f32",)),
     "ber-sweep": (MODEL, phase_ber_sweep, ("tone_energies_fused:f32",)),
     "sharded-long": (MODEL, phase_sharded_long, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
@@ -3459,8 +3489,10 @@ PATHS = {
 # (OFF_THE_WALK), their aligned paths take decide_tones_tm's tensor-core
 # walk on their own dtype's route, never the time-major pair's generic
 # body, their streams never the time-major pair, and their streams'
-# filterbank takes its tensor-core routes, never its CUDA-core body; an
-# OFDM frame past shared memory never takes the equalizer's staged route.
+# filterbank takes its compile-time walk, never filterbank_any.cu; a custom
+# config's stream takes filterbank_any.cu's float32 route only (the
+# CUDA-core body it replaces, filterbank_cuda_core, is gone with its key);
+# an OFDM frame past shared memory never takes the equalizer's staged route.
 OFF_THE_WALK = ("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused", "decide_frame_tm")
 ABSENT = {
     "aligned-f32": ("decide_frame_tm:bf16", "decide_frame_tm:int8", "decide_tones_tm"),
@@ -3479,14 +3511,16 @@ ABSENT = {
     "stream-audible-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", GENERIC_ROW, FILTERBANK_ROW,
                            "tone_energies_fused:bf16"),
     "stream-dense": (*OFF_THE_WALK, "decide_tones_tm", GENERIC_ROW, FILTERBANK_ROW, "tone_energies_fused:f32"),
+    "stream-custom-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", GENERIC_ROW, "tone_energies_fused",
+                          "decide_tones_fused", f"{FILTERBANK_ROW}:bf16"),
     "aligned-ofdm-long": (ofdm_path_key(OFDM_LONG_MODEL, picked=False),),
     "aligned-ofdm-4k": (ofdm_path_key(OFDM_4K_MODEL, picked=False),),
 }
-# Rows of the kernels line on no path: the two CUDA-core bodies serve only
-# custom geometries now (every preset takes the tensor cores), held and
-# timed in phase 2 (the filterbank's at sps 40; frame_tm_generic's at sps
-# 96 and 40, and its frame epilogue at sps 80).
-OFF_PATHS = (FILTERBANK_ROW, GENERIC_ROW)
+# Rows of the kernels line on no path: frame_tm_generic serves only custom
+# geometries (every preset takes the tensor cores), held and timed in
+# phase 2 (at sps 96 and 40, and its frame epilogue at sps 80).
+# filterbank_any runs on stream-custom-f32's path.
+OFF_PATHS = (GENERIC_ROW,)
 
 
 def launched(counts: dict, name: str) -> int:
@@ -3544,7 +3578,7 @@ def main() -> int:
     for path, (model, phase, path_kernels) in PATHS.items():
         torch.cuda.empty_cache()
         kernels.reset_launch_counts()
-        phase(get_model(model).config, gen)
+        phase(model if isinstance(model, ModemConfig) else get_model(model).config, gen)
         path_counts = dict(kernels.launch_counts)
         log(f"launches on the {path} path: {path_counts}")
         missing = [n for n in path_kernels if launched(path_counts, n) == 0]

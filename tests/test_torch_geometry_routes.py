@@ -75,8 +75,11 @@ def test_one_predicate_picks_every_route(name):
     by dtype) and the generic body elsewhere. The batch-major filterbank
     and decide_tones_tm follow the wider predicate,
     _filterbank_tensor_core_geometry (sps 32, 48, 64, 80 or 128, at most
-    32 tones): their tensor-core routes there, their CUDA-core bodies
-    elsewhere. No geometry is left without a route."""
+    32 tones): their compile-time walks there; elsewhere decide_tones_tm's
+    CUDA-core body and the filterbank's runtime-geometry walk
+    (filterbank_any.cu: entries ``*_any`` / ``*_any_f32``, routes "any" /
+    "any_split" by the compute dtype, _filterbank_any_basis). No geometry
+    is left without a route."""
     cfg = GEOMETRIES[name]
     fast = tk._tensor_core_geometry(cfg)
     assert fast == (cfg.samples_per_symbol in (32, 64, 128) and cfg.num_tones <= 16)
@@ -102,8 +105,13 @@ def test_one_predicate_picks_every_route(name):
             else:
                 assert (entry, route) == (f"{kind}_generic", "generic")
     for compute in (torch.float32, torch.bfloat16):
-        route = tk._filterbank_operands("tone_energies", cfg, compute, CPU)[1]
-        assert route == ("plain" if not walk else "split" if compute == torch.float32 else "mma")
+        entry, route, basis = tk._filterbank_operands("tone_energies", cfg, compute, CPU)
+        f32 = compute == torch.float32
+        if walk:
+            assert (entry, route) == (("tone_energies_mma_f32", "split") if f32 else ("tone_energies_mma", "mma"))
+        else:
+            assert (entry, route) == (("tone_energies_any_f32", "any_split") if f32 else ("tone_energies_any", "any"))
+            assert basis is tk._filterbank_any_basis(cfg, compute, CPU)
 
 
 @pytest.mark.parametrize("dtype", list(TM_DTYPES))
@@ -338,9 +346,11 @@ def test_filterbank_launch_off_the_other_walks(monkeypatch, geometry, compute):
     compute dtype takes the tensor-core entry, ``*_mma`` with
     _demod_mma_basis for bfloat16 compute and ``*_mma_f32`` with
     _demod_split_basis for float32, and counts under the wrapper's own key
-    (":f32" for float32 compute), never filterbank_cuda_core's; a custom
-    sps-40 config still takes the plain CUDA-core entry, counted under
-    filterbank_cuda_core."""
+    (":f32" for float32 compute), never filterbank_any's; a custom sps-40
+    config takes filterbank_any.cu's runtime-geometry entry, ``*_any``
+    (bfloat16 compute) or ``*_any_f32`` (float32), with the rows, their
+    dtype code, R and pitch and _filterbank_any_basis, counted under
+    filterbank_any (":f32" for float32 compute)."""
     cfg, cdt = _custom(40, 4) if geometry == "sps40-m4" else GEOMETRIES[geometry], TM_DTYPES[compute]
     sps, n_sym = cfg.samples_per_symbol, 5
     rows = torch.randn(3, n_sym * sps + 7).to(cdt)
@@ -354,8 +364,11 @@ def test_filterbank_launch_off_the_other_walks(monkeypatch, geometry, compute):
         (key, args), (_, name, route) = calls
         counted = {k: v for k, v in tk.launch_counts.items() if v}
         if geometry == "sps40-m4":
-            assert (key, route) == (kind, "plain") and counted == {f"filterbank_cuda_core{suffix}": 1}
-            assert args[4:8] == (n_sym, sps, cfg.num_tones, tk._filterbank_basis(cfg, cdt, CPU).data_ptr())
+            f32 = cdt == torch.float32
+            assert (key, route) == ((f"{kind}_any_f32", "any_split") if f32 else (f"{kind}_any", "any"))
+            assert name == f"{kind}_fused" and counted == {f"filterbank_any{suffix}": 1}
+            assert args[:4] == (rows.data_ptr(), tk._KERNEL_DTYPES[cdt], 3, rows.stride(0))
+            assert args[4:8] == (n_sym, sps, cfg.num_tones, tk._filterbank_any_basis(cfg, cdt, CPU).data_ptr())
             continue
         mma = cdt == torch.bfloat16
         assert (key, route) == ((f"{kind}_mma", "mma") if mma else (f"{kind}_mma_f32", "split"))

@@ -647,9 +647,9 @@ def test_cuda_batch_major_filterbank_matches_plain_versions(cuda, dtype, model):
     tolerance of its route (_check_split); then demodulate_frame on the card
     against the CPU. The presets take the tensor cores (mfsk32-dense's 32
     tones and mfsk8-audible's 48 samples a symbol too); the
-    custom sps-40 and sps-96 configs the kernels' plain per-symbol form,
-    whose launches count under filterbank_cuda_core. Launches under each
-    route's key."""
+    custom sps-40 and sps-96 configs filterbank_any.cu's runtime-geometry
+    walk, on the tensor cores too, whose launches count under
+    filterbank_any. Launches under each route's key."""
     from anet_torch.dsp import frame as tframe
 
     cfg = _bm_config(model)
@@ -661,7 +661,7 @@ def test_cuda_batch_major_filterbank_matches_plain_versions(cuda, dtype, model):
     if tk._filterbank_tensor_core_geometry(cfg):
         keys = (_key("tone_energies_fused", dtype), _key("decide_tones_fused", dtype))
     else:
-        keys = (_key("filterbank_cuda_core", dtype),) * 2
+        keys = (_key("filterbank_any", dtype),) * 2
     before = dict(tk.launch_counts)
     if dtype == torch.float32:  # the stated tolerance of the float32-compute route
         _check_split(cfg, data)
@@ -1277,8 +1277,8 @@ def test_cuda_batch_major_filterbank_every_tie_and_extreme(cuda, geometry, fill)
 def _check_split(cfg, rows):
     """One launch each of tone_energies_fused and decide_tones_fused with
     float32 compute on ``rows`` (under their ":f32" keys, or
-    filterbank_cuda_core's twice off the filterbank's tensor-core geometry),
-    held against the
+    filterbank_any's twice off the compile-time walk's geometry), held
+    against the
     plain versions with the route's stated tolerance: each energy within
     kernels.F32_SPLIT_RTOL of itself plus F32_SPLIT_ATOL of its symbol's
     largest plain energy, best and total within the same bounds, the tones
@@ -1293,7 +1293,7 @@ def _check_split(cfg, rows):
     if tk._filterbank_tensor_core_geometry(cfg):
         assert launched == {"tone_energies_fused:f32": 1, "decide_tones_fused:f32": 1}
     else:
-        assert launched == {"filterbank_cuda_core:f32": 2}
+        assert launched == {"filterbank_any:f32": 2}
     want = tk.tone_energies_fused_ref(cfg, rows, compute_dtype=torch.float32)
     assert e.shape == want.shape and tone.shape == best.shape == total.shape == want.shape[:-1]
     assert bool(((e - want).abs() <= _split_tol(want, want.amax(-1, keepdim=True))).all())
@@ -1308,9 +1308,10 @@ def _check_split(cfg, rows):
 def test_cuda_batch_major_float32_compute_on_bf16_rows(cuda, model):
     """float32 compute on bfloat16 rows (receive_frame's route on bf16
     captures) meets the float32 basis, not the bf16-rounded one: at sps
-    32/48/64/80/128 with at most 32 tones the tensor cores' three-term
-    split, elsewhere (a custom sps-40 config) the plain kernel, each within
-    the route's stated tolerance (_check_split)."""
+    32/48/64/80/128 with at most 32 tones the compile-time walk's
+    three-term split, elsewhere (a custom sps-40 config) filterbank_any.cu's
+    runtime-geometry walk, the same split, each within the route's stated
+    tolerance (_check_split)."""
     cfg = _bm_config(model)
     rows, _ = _bm_rows(cfg, np.random.default_rng(29), cuda, (33,), 40, True, offset=1)
     _check_split(cfg, rows)
@@ -1375,6 +1376,115 @@ def test_cuda_split_main_path(cuda, rows, b):
     dtype = {"bf16": torch.bfloat16, "float32": torch.float32}[rows]
     near = _check_split(CFG, x.to(dtype)[:, CFG.preamble_samples :])
     assert near <= b  # at most one a frame of 536 symbols
+
+
+# --- the batch-major filterbank off the compile-time walks: csrc/filterbank_any.cu
+
+
+ANY_CONFIGS = {  # sps and tones off tone_energies.cu's walks; (R, symbols) a case
+    "sps15-m4": (_custom(15, 4), (33,), 67),  # odd sps: rows at every 2-byte residue
+    "sps24-m8": (_custom(24, 8), (33,), 67),
+    "sps30-m8": (_custom(30, 8), (33,), 67),
+    "sps40-m8": (_custom(40, 8), (33,), 67),
+    "sps96-m16": (_custom(96, 16), (2, 3), 40),
+    "sps100-m16": (ModemConfig(sample_rate_hz=44_100, symbol_rate_hz=441, num_tones=16, base_freq_hz=220.5),
+                   (2, 3), 40),
+    "sps160-m64": (_custom(160, 64), (7,), 33),  # two groups of 32 tones
+    "sps1920-m16": (_custom(1920, 16), (256,), 40),  # past the old CUDA-core body's 1,536; 120 k-steps
+    "sps1920-m256": (_custom(1920, 256), (3,), 3),  # eight groups
+}
+ANY_ROUTES = {"bf16": (torch.bfloat16, torch.bfloat16), "split-bf16-rows": (torch.bfloat16, torch.float32),
+              "split-f32-rows": (torch.float32, torch.float32)}  # (rows, compute)
+
+
+def _check_any(cfg, rows, compute):
+    """One launch each of tone_energies_fused and decide_tones_fused on
+    ``rows`` with ``compute``, both under filterbank_any (":f32" for float32
+    compute), held against the plain versions: float32 compute with the
+    split's stated tolerance (F32_SPLIT_RTOL of each value plus
+    F32_SPLIT_ATOL of its symbol's largest plain energy); bfloat16 compute
+    within the bf16 walk's RTOL 1e-3 of the symbol's largest (bf16 products
+    exact, float32 sums in another order); tones (decided, and the
+    energies' argmax) equal but where the plain version's two largest
+    energies lie that close. Returns the near-ties' count."""
+    before = dict(tk.launch_counts)
+    e = tk.tone_energies_fused(cfg, rows, compute_dtype=compute)
+    tone, best, total = tk.decide_tones_fused(cfg, rows, compute_dtype=compute)
+    assert _launched(before) == {_key("filterbank_any", compute): 2}
+    want = tk.tone_energies_fused_ref(cfg, rows, compute_dtype=compute)
+    assert e.shape == want.shape and tone.shape == best.shape == total.shape == want.shape[:-1]
+    scale = want.amax(-1)
+    if compute == torch.float32:
+        tol = lambda w, sc: _split_tol(w, sc)  # noqa: E731
+    else:
+        tol = lambda w, sc: 1e-3 * sc  # noqa: E731
+    assert bool(((e - want).abs() <= tol(want, scale[..., None])).all())
+    top2 = want.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= tol(top2[..., 0], top2[..., 0])
+    assert bool(((e.argmax(-1).int() == want.argmax(-1).int()) | near).all())
+    assert bool(((tone == want.argmax(-1).int()) | near).all())
+    assert bool(((best - scale).abs() <= tol(scale, scale)).all())
+    assert bool(((total - want.sum(-1)).abs() <= tol(want.sum(-1), scale)).all())
+    return int(near.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(ANY_ROUTES))
+@pytest.mark.parametrize("geometry", list(ANY_CONFIGS))
+def test_cuda_filterbank_any_geometry(cuda, geometry, route):
+    """filterbank_any.cu, both wrappers, bfloat16 compute on bf16 rows and
+    float32 compute on bf16 and float32 rows, at sps 15, 24, 30, 40, 96,
+    100 (44.1 kHz / 441), 160 with 64 tones (two groups) and 1,920 with 16
+    and 256 tones (a symbol of 120 k-steps walked in slabs; eight groups):
+    the data sections of noisy frames in rows at an odd pitch with a
+    partial symbol after them and the gaps filled with a large value, the
+    last row ending at the allocation's end (_bm_rows), within _check_any's
+    tolerances; near-ties rare."""
+    cfg, lead, n_sym = ANY_CONFIGS[geometry]
+    rdt, cdt = ANY_ROUTES[route]
+    assert not tk._filterbank_tensor_core_geometry(cfg)
+    rng = np.random.default_rng(cfg.samples_per_symbol + cfg.num_tones)
+    rows, _ = _bm_rows(cfg, rng, cuda, lead, n_sym, True, offset=3, dtype=rdt)
+    near = _check_any(cfg, rows, cdt)
+    assert near <= rows.numel() // cfg.samples_per_symbol // 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(ANY_ROUTES))
+@pytest.mark.parametrize("geometry", ["sps15-m4", "sps160-m64", "sps1920-m256"])
+def test_cuda_filterbank_any_every_tie(cuda, geometry, route):
+    """All-zero rows: every tone of every group ties, so the decisions'
+    fold keeps tone 0, and the energies, best and total are zero, bit-equal
+    to the plain version's."""
+    cfg, lead, n_sym = ANY_CONFIGS[geometry]
+    rdt, cdt = ANY_ROUTES[route]
+    rows, _ = _bm_rows(cfg, np.random.default_rng(0), cuda, lead, n_sym, True, offset=1, fill="zeros", dtype=rdt)
+    e = tk.tone_energies_fused(cfg, rows, compute_dtype=cdt)
+    tone, best, total = tk.decide_tones_fused(cfg, rows, compute_dtype=cdt)
+    assert not e.any() and not tone.any() and not best.any() and not total.any()
+    assert e.shape == (*lead, n_sym, cfg.num_tones)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32])
+def test_cuda_demodulate_frame_at_sps_1920(cuda, compute):
+    """dsp.frame.demodulate_frame at sps 1,920 (25 baud, 16 tones), which
+    the CUDA-core body refused past 1,536 samples a symbol: 9 noisy frames
+    of 24 bytes, every frame ok with its payload, equal to the CPU's
+    verdicts, through filterbank_any (":f32" for float32 compute)."""
+    from anet_torch.dsp import frame as tframe
+
+    cfg = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=25, num_tones=16, base_freq_hz=1000.0)
+    rng = np.random.default_rng(1920)
+    pay = rng.integers(0, 256, (9, 24), dtype=np.uint8)
+    w = transmit(cfg, pay, device="cpu")
+    x = w + 0.3 * torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32))
+    before = dict(tk.launch_counts)
+    got = tframe.demodulate_frame(cfg, x.to(cuda), 24, compute_dtype=compute, device=cuda)
+    assert _launched(before) == {_key("filterbank_any", compute): 1}
+    assert bool(got.ok.all()) and np.array_equal(got.payload.cpu().numpy(), pay)
+    on_cpu = tframe.demodulate_frame(cfg, x, 24, compute_dtype=compute, device="cpu")
+    assert torch.equal(got.ok.cpu(), on_cpu.ok) and torch.equal(got.payload.cpu(), on_cpu.payload)
 
 
 # --- probe_at_fused on demod_probe's staged probe, the OFDM equalizer a warp --
@@ -2091,7 +2201,7 @@ def test_cuda_generic_geometry_receivers_match_cpu(cuda, model):
     launched = _launched(before)
     assert not any(k.startswith(("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused"))
                    for k in launched)
-    assert not any(k.startswith(("decide_frame_tm", "frame_tm_generic", "filterbank_cuda_core"))
-                   for k in launched)  # the CUDA-core bodies
+    assert not any(k.startswith(("decide_frame_tm", "frame_tm_generic", "filterbank_any"))
+                   for k in launched)  # the bodies off the compile-time walks
     assert launched["decide_tones_tm"] and launched["decide_tones_tm:f32"] and launched["sync_search_fused"]
     assert launched["tone_energies_fused"] and launched["tone_energies_fused:f32"] and launched["probe_at_fused"]

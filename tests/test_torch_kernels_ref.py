@@ -699,12 +699,12 @@ def test_demodulate_frame_use_kernel_matches_anet(name, dtype, monkeypatch):
     np.testing.assert_allclose(t.confidence.numpy(), np.asarray(j.confidence), rtol=1e-5)
 
 
-_FILTERBANK_PRESETS = {  # name: (the tensor-core geometry, the plain route's float32 basis shape)
-    "mfsk16-fast": (True, (64, 32)),
-    "mfsk4-coded": (True, (32, 32)),
-    "mfsk32-dense": (True, (80, 64)),
-    "mfsk8-audible": (True, (48, 16)),
-    "sps40-m4": (False, (40, 8)),  # a custom config off every walk
+_FILTERBANK_PRESETS = {  # name: (the compile-time walk's geometry, the runtime walk's basis words)
+    "mfsk16-fast": (True, None),
+    "mfsk4-coded": (True, None),
+    "mfsk32-dense": (True, None),
+    "mfsk8-audible": (True, None),
+    "sps40-m4": (False, 3 * 1 * 64),  # a custom config off every compile-time walk: 3 k-steps, 1 n-tile
 }
 
 
@@ -723,15 +723,18 @@ def test_filterbank_basis_layout(name, compute):
     reads back as the interleaved basis with the plain bf16 basis's
     entries; float32 compute, the three bf16 terms of the float32 basis
     (_demod_split_basis), which read back as terms summing to the plain
-    float32 basis's entries. Elsewhere (sps 40) the plain [sps, 2M] of the
-    compute dtype's entries."""
+    float32 basis's entries. Elsewhere (sps 40) filterbank_any.cu's
+    _filterbank_any_basis: bfloat16 compute its one term, float32 compute
+    b0 then b1 and b2 (three times the words), zero rows past sps (its
+    layout in full: tests/test_torch_filterbank_any.py)."""
     cfg = _filterbank_config(name)
     fast, shape = _FILTERBANK_PRESETS[name]
     dt = {"float32": torch.float32, "bf16": torch.bfloat16}[compute]
     m, cpu = cfg.num_tones, torch.device("cpu")
     plain = tk._plain_basis(cfg, dt, "cpu")
     entry, route, basis = tk._filterbank_operands("tone_energies", cfg, dt, cpu)
-    assert route == ("plain" if not fast else "mma" if dt == torch.bfloat16 else "split")
+    assert route == (("any" if dt == torch.bfloat16 else "any_split") if not fast
+                     else "mma" if dt == torch.bfloat16 else "split")
     if route == "mma":
         assert entry == "tone_energies_mma" and basis is tk._demod_mma_basis(cfg, dt, cpu)
         b = _unpack_demod_mma_basis(basis, dt)
@@ -739,12 +742,19 @@ def test_filterbank_basis_layout(name, compute):
         assert entry == "tone_energies_mma_f32" and basis is tk._demod_split_basis(cfg, cpu)
         b = sum(_unpack_demod_mma_basis(w, torch.bfloat16).double() for w in basis)
         plain = plain.double()
-    if route != "plain":
+    if fast:
         assert torch.equal(b[:, 0 : 2 * m : 2], plain[:, :m]) and torch.equal(b[:, 1 : 2 * m : 2], plain[:, m:])
         return
-    assert entry == "tone_energies" and basis is tk._filterbank_basis(cfg, dt, cpu)
-    assert basis.dtype == torch.float32 and basis.shape == shape and basis.is_contiguous()
-    assert torch.equal(basis, plain)
+    assert entry == ("tone_energies_any" if dt == torch.bfloat16 else "tone_energies_any_f32")
+    assert basis is tk._filterbank_any_basis(cfg, dt, cpu)
+    assert basis.dtype == torch.int32 and basis.is_contiguous()
+    assert basis.shape == (shape * (1 if dt == torch.bfloat16 else 3),)
+    words = basis[: shape].reshape(3, 1, 32, 2)  # [k-step, n-tile, lane, register] of b0
+    b0 = words.view(torch.bfloat16).reshape(3, 8, 4, 2, 2).float()  # [s, g, i, r, e]
+    b0 = b0.permute(0, 3, 2, 4, 1).reshape(48, 8)  # rows 16 s + 8 r + 2 i + e, column g
+    assert not b0[40:].any()
+    if dt == torch.bfloat16:
+        assert torch.equal(b0[:40, 0 : 2 * m : 2], plain[:, :m]) and torch.equal(b0[:40, 1 : 2 * m : 2], plain[:, m:])
 
 
 def _record_filterbank_calls(monkeypatch) -> list:
@@ -774,11 +784,13 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
     starts) with _demod_mma_basis, and float32 compute the tensor-core
     entry ``*_mma_f32`` (rows, dtype code, R, row pitch, the zero starts)
     with the three-term _demod_split_basis, bfloat16 and float32 rows read
-    as they are; any other geometry the CUDA-core entry (rows, dtype code,
-    R, row pitch) with the plain [sps, 2M] basis. The launch is checked
-    with the compute dtype, so float32 compute counts under ``:f32``, and
-    its route, so the plain route counts under its own key. Rows
-    are a strided view past the preamble of [2, 3] frames."""
+    as they are; any other geometry filterbank_any.cu's entries (rows,
+    dtype code, R, row pitch), ``*_any`` for bfloat16 compute and
+    ``*_any_f32`` for float32, with _filterbank_any_basis. The launch is
+    checked with the compute dtype, so float32 compute counts under
+    ``:f32``, and its route, so the runtime-geometry routes count under
+    their own key. Rows are a strided view past the preamble of [2, 3]
+    frames."""
     from anet_torch.kernels import build
 
     cfg = _filterbank_config(name)
@@ -790,7 +802,7 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
     data = frames[..., pre:]
     calls = _record_filterbank_calls(monkeypatch)
     before = dict(tk.launch_counts)
-    route = "plain" if not fast else "mma" if cdt == torch.bfloat16 else "split"
+    route = ("any" if cdt == torch.bfloat16 else "any_split") if not fast else "mma" if cdt == torch.bfloat16 else "split"
     for kind, n_out in (("tone_energies", 1), ("decide_tones", 3)):
         calls.clear()
         outs = tk._filterbank_launch(kind + "_fused", kind, cfg, data, cdt, lambda lead, n, dev: tuple(
@@ -799,8 +811,9 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
         assert checked == ("checked", kind + "_fused", cdt, route)
         assert all(o.shape == (2, 3, s) for o in outs)
         sig = build.SIGNATURES[key]
-        n_head = {"mma": 4, "split": 5, "plain": 4}[route]
-        assert (*sig[2:], key)[0] == "tone_energies" and len(sig[1]) == len(args) == n_head + 4 + n_out + 1
+        n_head = {"mma": 4, "split": 5, "any": 4, "any_split": 4}[route]
+        source = "tone_energies" if fast else "filterbank_any"
+        assert (*sig[2:], key)[0] == source and len(sig[1]) == len(args) == n_head + 4 + n_out + 1
         basis_ptr, out_ptrs = args[n_head + 3], args[n_head + 4 : n_head + 4 + n_out]
         assert args[n_head : n_head + 3] == (s, sps, m) and out_ptrs == tuple(o.data_ptr() for o in outs)
         assert args[-1] == 0
@@ -813,7 +826,7 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
             assert pitch == data.shape[-1]
         if route != "mma":
             assert args[1] == tk._KERNEL_DTYPES[row_dtype]
-        if route != "plain":
+        if fast:
             assert args[n_head - 1] == tk._zero_starts(6, cpu).data_ptr()
             assert not bool(tk._zero_starts(6, cpu).any()) and tk._zero_starts(6, cpu).dtype == torch.int32
         if route == "mma":
@@ -823,10 +836,8 @@ def test_filterbank_route_follows_the_compute_dtype(monkeypatch, name, compute, 
             assert key == kind + "_mma_f32"
             assert basis_ptr == tk._demod_split_basis(cfg, cpu).data_ptr()
         else:
-            assert key == kind
-            basis = tk._filterbank_basis(cfg, cdt, cpu)
-            assert basis_ptr == basis.data_ptr() and basis.dtype == torch.float32
-            assert basis.shape == (sps, 2 * m)
+            assert key == kind + ("_any" if route == "any" else "_any_f32")
+            assert basis_ptr == tk._filterbank_any_basis(cfg, cdt, cpu).data_ptr()
     assert tk.launch_counts == before
 
 
