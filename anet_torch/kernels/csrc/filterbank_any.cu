@@ -63,9 +63,10 @@
 //   its own. The tensor cores truncate what they add to an accumulator, so
 //   over a long symbol (sps 1,920: 120 k-steps) the float32 sums drift by
 //   about 2^-23 of their size a k-step: past one slab (LONG) each slab's
-//   two accumulators are added into a float32 sum on the CUDA cores, which
-//   rounds to nearest, and start again from zero (the split's tolerance
-//   held at sps 1,920 only so).
+//   accumulators are added into a float32 sum on the CUDA cores, which
+//   rounds to nearest, and start again from zero (the split's tolerance,
+//   and the one product's 1e-5 of the largest energy, held at sps 1,920
+//   only so).
 // - Tones: GROUP = 32 a group (8 n-tiles); past 32, groups follow in order
 //   over the same samples (a one-slab symbol: on the same stage; else its
 //   slabs again). The energies epilogue stores each group's tones; the
@@ -177,13 +178,12 @@ __device__ __forceinline__ uint32_t pair_mask(int left) {
 // T the rows' samples (bf16, or float32 under the split); SPLIT false:
 // bfloat16 compute, one product; true: float32 compute, the three-term
 // split. NT n-tiles a group; DECIDE: the decisions epilogue, else the
-// energies; LONG (the split past one slab): each slab's sums added into a
-// float32 sum on the CUDA cores.
+// energies; LONG (past one slab): each slab's sums added into a float32
+// sum on the CUDA cores.
 template <typename T, bool SPLIT, int NT, bool DECIDE, bool LONG>
 __global__ void __launch_bounds__(THREADS) filterbank_any_kernel(const Geo g) {
   constexpr bool F32 = std::is_same<T, float>::value;
   static_assert(!F32 || SPLIT, "float32 rows take float32 compute");
-  static_assert(SPLIT || !LONG, "the one-term product's error stays far inside its tolerance");
   constexpr int MT = Tile<NT>::MT;
   constexpr int SYMS = Tile<NT>::SYMS;
   constexpr int NS = SPLIT ? MT : 1;  // the smaller products' accumulators
@@ -326,8 +326,13 @@ __global__ void __launch_bounds__(THREADS) filterbank_any_kernel(const Geo g) {
           for (int t = 0; t < NT; ++t)
 #pragma unroll
             for (int v = 0; v < 4; ++v) {
-              sum[mt][t][v] += big[mt][t][v] + small[mt][t][v];
-              big[mt][t][v] = small[mt][t][v] = 0.0f;
+              if constexpr (SPLIT) {
+                sum[mt][t][v] += big[mt][t][v] + small[mt][t][v];
+                small[mt][t][v] = 0.0f;
+              } else {
+                sum[mt][t][v] += big[mt][t][v];
+              }
+              big[mt][t][v] = 0.0f;
             }
       }
       if (sl == g.nsl - 1) {  // the group's sums are whole: its epilogue
@@ -462,9 +467,7 @@ cudaError_t launch(Geo g, cudaStream_t st) {
   g.tiles = (g.n_symbols + SYMS - 1) / SYMS;
   g.ppi = g.nsl == 1 ? 1 : g.ng * g.nsl;
   if (g.rpp < 1) return cudaErrorInvalidConfiguration;
-  if constexpr (SPLIT) {
-    if (g.nsl > 1) return run<T, SPLIT, NT, DECIDE, true>(g, st);
-  }
+  if (g.nsl > 1) return run<T, SPLIT, NT, DECIDE, true>(g, st);
   return run<T, SPLIT, NT, DECIDE, false>(g, st);
 }
 

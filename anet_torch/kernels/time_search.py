@@ -113,15 +113,15 @@ comma-separated subset of:
   the walk took the presets runs there, alike). It ignores ``--model``.
 - ``filterbank_any``: ``tone_energies_fused`` and ``decide_tones_fused``
   at custom geometries off tone_energies.cu's compile-time walks (sps 40
-  with 8 tones, B = 4,096; sps 160 with 64, B = 2,048; sps 1,920 with 16,
-  B = 256; payload 256's data symbols of noise, read in place past the
+  with 8 tones, B = 4,096; sps 40 with 16, B = 8,192; sps 160 with 64, B =
+  2,048; sps 1,920 with 16, B = 256; payload 256's data symbols of noise, read in place past the
   preamble), bfloat16 compute on bf16 rows, float32 compute on bf16 and on
   float32 rows (``<wrapper> <geometry> <compute> compute, <rows> rows``),
   each with its ``device`` column (rows whose name holds ``filterbank_any``
   or ``any_geometry``: this checkout's tensor-core walk, or an older
   checkout's CUDA-core body, so a parent and this one time alike); null
-  where a checkout's kernel refuses the geometry (the CUDA-core body past
-  1,536 samples a symbol). It ignores ``--model``.
+  where the CUDA-core body refuses the geometry (past 1,536 samples a
+  symbol); any other error is raised. It ignores ``--model``.
 - ``gather``: ``gather_rows_fused`` at the one-shot receiver's geometry
   (mfsk16-fast, payload 256: size 36,352 out of 76,288-sample rows) on B =
   8,192 bfloat16, int8 (``quantize_int8``) and float32 buffers of noise,
@@ -169,6 +169,7 @@ VIT_STEPS = 2150  # mfsk4-coded: 8 x 268 data-section bits + the 6-bit tail flus
 # (label, sample rate, baud, tones, base Hz, B) of the custom geometries of --kernels filterbank_any
 ANY_SHAPES = (
     ("sps40-m8", 48_000, 1200, 8, 600.0, 4096),
+    ("sps40-m16", 48_000, 1200, 16, 600.0, 8192),  # chip_smoke.py's stream-custom-f32 modem
     ("sps160-m64", 48_000, 300, 64, 150.0, 2048),
     ("sps1920-m16", 48_000, 25, 16, 1000.0, 256),
 )
@@ -481,7 +482,9 @@ if "filterbank_any" in kinds:
                 key = f"{{name}} {{label}} {{str(compute)[6:]}} compute, {{str(rows_dtype)[6:]}} rows"
                 try:
                     call()
-                except RuntimeError:  # a checkout's kernel that refuses the geometry: nothing to time
+                except RuntimeError:
+                    if sps <= 1536:  # only the CUDA-core body of older checkouts refuses, past 1,536
+                        raise
                     out[key] = out[key + " device"] = None
                     continue
                 out[key] = time_ms(call)

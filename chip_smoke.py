@@ -92,9 +92,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    compare_mma_tones and compare_split at 256 rows and B = 16,384, timed
    there), and its runtime-geometry walk (csrc/filterbank_any.cu, the
    route of every custom geometry off tone_energies.cu's compile-time
-   walks) at sps 40 with 8 tones (B = 4,096), sps 1,920 with 16 (B = 256)
-   and sps 160 with 64 (B = 2,048), bfloat16 compute on bf16 rows and
-   float32 compute on float32 rows, held with compare_mma_tones and
+   walks) at sps 40 with 8 tones (B = 4,096), sps 40 with 16 (B = 8,192,
+   stream-custom-f32's), sps 1,920 with 16 (B = 256) and sps 160 with 64
+   (B = 2,048), bfloat16 compute on bf16 rows and float32 compute on
+   float32 rows, held with compare_mma_tones (ANY_RTOL) and
    compare_split on 256 rows and at the full batch, timed there against
    the plain version and the bound (bytes, or the products at the bf16
    peak);
@@ -361,6 +362,7 @@ OFDM_SNR_DB = {"ofdm-fast": 16.0, "ofdm-turbo": 24.0, "ofdm-max": 26.0}
 OFDM_RTOL = 1e-4  # float32 throughout: LLRs (of their scale) and evm2
 GATE_EPS = 1e-4  # a gate may part from the plain version's only this close to a tie
 GENERIC_RTOL = 1e-5  # frame_tm_generic.cu: float32 (int8: int32) sums in another order than the plain version's
+ANY_RTOL = 1e-5  # filterbank_any.cu, bf16 compute: bf16 products exact, float32 sums in another order
 GENERIC_ROW = kernels.OFF_WALK_KEYS["generic"]  # the kernels line's row of csrc/frame_tm_generic.cu
 FILTERBANK_ROW = kernels.OFF_WALK_KEYS["any"]  # the row of csrc/filterbank_any.cu, the runtime-geometry walk
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
@@ -1536,50 +1538,54 @@ def custom_filterbank_config() -> ModemConfig:
     return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, num_tones=8, base_freq_hz=600.0)
 
 
-# filterbank_any.cu's timed geometries in phase 2: (label, config, B)
+# stream-custom-f32's config: 48 kHz, 1,200 baud (sps 40), 16 tones from 600
+# Hz (the top tone 18.6 kHz), a modem no preset has
+CUSTOM_STREAM_CONFIG = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, num_tones=16, base_freq_hz=600.0)
+# filterbank_any.cu's held and timed geometries in phase 2: (label, config, B);
+# sps 40 with 16 tones at B = 8,192 is stream-custom-f32's own shape
 ANY_GEOMETRIES = (
     ("sps 40, 8 tones", custom_filterbank_config(), 4096),
+    ("sps 40, 16 tones", CUSTOM_STREAM_CONFIG, STREAM_B),
     ("sps 1920, 16 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=25, num_tones=16,
                                        base_freq_hz=1000.0), 256),
     ("sps 160, 64 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=300, num_tones=64,
                                       base_freq_hz=150.0), 2048),
 )
-# stream-custom-f32's config: 48 kHz, 1,200 baud (sps 40), 16 tones from 600
-# Hz (the top tone 18.6 kHz), a modem no preset has
-CUSTOM_STREAM_CONFIG = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, num_tones=16, base_freq_hz=600.0)
 
 
-def compare_mma_tones(label: str, cfg, x: torch.Tensor, route: str = "mma") -> float:
+def compare_mma_tones(label: str, cfg, x: torch.Tensor, route: str = "mma", rtol: float = RTOL) -> float:
     """tone_energies_fused and decide_tones_fused with bfloat16 compute
-    (``route`` "mma", the compile-time walk, or "any", filterbank_any.cu's)
-    on rows ``x`` against their plain versions: every energy, best and total
-    within RTOL of its symbol's largest plain energy (bf16 products exact,
-    float32 sums in another order), the tones (decided, and the energies'
-    argmax) equal but where the plain version's two largest energies lie
-    that close (near-ties, their count printed). Returns the max absolute
-    error."""
+    (``route`` "mma", the compile-time walk, held to RTOL; or "any",
+    filterbank_any.cu's, held to ANY_RTOL) on rows ``x`` against their plain
+    versions: every energy, best and total within ``rtol`` of its symbol's
+    largest plain energy (bf16 products exact, float32 sums in another
+    order), the tones (decided, and the energies' argmax) equal but where
+    the plain version's two largest energies lie that close (near-ties,
+    their count printed). Returns the max absolute error."""
     if kernels._filterbank_operands("tone_energies", cfg, torch.bfloat16, DEV)[1] != route:
         raise AssertionError(f"{label}: bfloat16 compute does not take the {route} route")
     want = kernels.tone_energies_fused_ref(cfg, x, compute_dtype=torch.bfloat16)
     got = kernels.tone_energies_fused(cfg, x, compute_dtype=torch.bfloat16)
     scale = want.amax(-1)
     top2 = want.topk(2, dim=-1).values
-    near = (top2[..., 0] - top2[..., 1]) <= RTOL * top2[..., 0]
+    near = (top2[..., 0] - top2[..., 1]) <= rtol * top2[..., 0]
     del top2
     diff = (got - want).abs()
     worst = float(diff.max())
-    bad = int((diff > RTOL * scale[..., None]).sum())
+    share = float((diff / scale[..., None].clamp_min(1e-30)).max())
+    bad = int((diff > rtol * scale[..., None]).sum())
     argmax_bad = int(((got.argmax(-1) != want.argmax(-1)) & ~near).sum())
     del got, diff
     tone, best, total = kernels.decide_tones_fused(cfg, x, compute_dtype=torch.bfloat16)
     tone_bad = int(((tone != want.argmax(-1).int()) & ~near).sum())
     d_best, d_total = (best - scale).abs(), (total - want.sum(-1)).abs()
-    best_bad = int((d_best > RTOL * scale).sum())
-    total_bad = int((d_total > RTOL * scale).sum())
+    best_bad = int((d_best > rtol * scale).sum())
+    total_bad = int((d_total > rtol * scale).sum())
     worst = max(worst, float(d_best.max()), float(d_total.max()))
-    log(f"  {label}: max abs {worst:.3e}; beyond RTOL of the symbol's largest: energies {bad}, best {best_bad}, "
-        f"total {total_bad}; near-ties {int(near.sum())} of {near.numel()}; energies' argmax differing off a "
-        f"near-tie {argmax_bad}, tones {tone_bad}")
+    share = max(share, float((torch.maximum(d_best, d_total) / scale.clamp_min(1e-30)).max()))
+    log(f"  {label}: max abs {worst:.3e}, max {share:.3e} of the symbol's largest; beyond rtol {rtol:g} of it: "
+        f"energies {bad}, best {best_bad}, total {total_bad}; near-ties {int(near.sum())} of {near.numel()}; "
+        f"energies' argmax differing off a near-tie {argmax_bad}, tones {tone_bad}")
     if bad or best_bad or total_bad or argmax_bad or tone_bad:
         raise AssertionError(f"{label}: the tensor-core filterbank is beyond its tolerance")
     return worst
@@ -1599,9 +1605,10 @@ def phase_kernels_filterbank_generic(gen) -> dict:
        again and timed there against their bound (bytes, or the products
        at the bf16 peak): the two wrappers' "presets" results.
     2. filterbank_any.cu, the runtime-geometry walk of every custom
-       geometry, at ANY_GEOMETRIES (sps 40 with 8 tones, B = 4,096; sps
-       1,920 with 16, B = 256; sps 160 with 64, two groups, B = 2,048):
-       bfloat16 compute on bf16 rows ("any") and float32 compute on float32
+       geometry, at ANY_GEOMETRIES (sps 40 with 8 tones, B = 4,096; sps 40
+       with 16, B = 8,192, stream-custom-f32's shape; sps 1,920 with 16, B =
+       256; sps 160 with 64, two groups, B = 2,048): bfloat16 compute on
+       bf16 rows ("any", within ANY_RTOL) and float32 compute on float32
        rows ("any_split"), both wrappers on the data sections of 256 noisy
        frames and at B (compare_mma_tones; compare_split), then timed at B
        with the plain version against the bound (bytes, or the products at
@@ -1644,8 +1651,10 @@ def phase_kernels_filterbank_generic(gen) -> dict:
     # filterbank_any.cu at custom geometries
     for cdt, key, n_products in ((torch.bfloat16, FILTERBANK_ROW, 1), (torch.float32, f"{FILTERBANK_ROW}:f32", 6)):
         compute = str(cdt).removeprefix("torch.")
-        check = compare_mma_tones if cdt == torch.bfloat16 else compare_split
-        route = "any" if cdt == torch.bfloat16 else "any_split"
+        if cdt == torch.bfloat16:
+            route, check = "any", lambda *a: compare_mma_tones(*a, rtol=ANY_RTOL)
+        else:
+            route, check = "any_split", compare_split
         for label, cfg, b_full in ANY_GEOMETRIES:
             sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
             n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)

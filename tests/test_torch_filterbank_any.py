@@ -54,7 +54,9 @@ def _config(sps: int, m: int, rate: int = 48_000, cls=ModemConfig):
 
 GEOMETRIES = {  # odd sps, 44.1 kHz / 441, a long symbol, two and eight groups
     "sps15-m4": (15, 4, 48_000),
+    "sps40-m4": (40, 4, 48_000),  # tests/test_torch_kernels_ref.py's custom config
     "sps40-m8": (40, 8, 48_000),
+    "sps40-m16": (40, 16, 48_000),  # chip_smoke.py's stream-custom-f32 modem
     "sps100-m16": (100, 16, 44_100),
     "sps1920-m16": (1920, 16, 48_000),
     "sps160-m64": (160, 64, 48_000),
@@ -178,7 +180,7 @@ def emulate_walk(cfg, mem, base, pitch, r, s, rows_dtype, compute):
     tiles = -(-s // syms)
     ppi = 1 if nsl == 1 else ng * nsl
     n_pieces = r * tiles * ppi
-    n_ring = _ring_depth(esize, split and nsl > 1)  # the kernel's LONG: the split past one slab
+    n_ring = _ring_depth(esize, nsl > 1)  # the kernel's LONG: past one slab
     ring = [np.full(syms * row, 0xFF, np.uint8) for _ in range(n_ring)]
     energies = np.full((r, s, m), np.nan)
     gq, i = lane >> 2, lane & 3
