@@ -8,7 +8,7 @@ block maxima of the two-phase acquisition search).
 | wrapper                 | kernel source                       | TPU kernel it replaces        |
 |-------------------------|-------------------------------------|-------------------------------|
 | decide_frame_tm         | csrc/decide_frame_tm.cu             | anet/kernels/__init__.py:488  |
-|                         | + csrc/frame_tm_generic.cu          |                               |
+|                         | + csrc/frame_tm_any.cu              |                               |
 | sync_search_fused       | csrc/sync_search.cu                 | anet/kernels/__init__.py:1095 |
 | demod_at_fused          | csrc/demod_at.cu                    | anet/kernels/__init__.py:1992 |
 | demod_probe_fused       | csrc/demod_probe.cu + demod_at.cu   | anet/kernels/__init__.py:2307 |
@@ -17,7 +17,7 @@ block maxima of the two-phase acquisition search).
 | probe_at_fused          | csrc/demod_probe.cu                 | anet/kernels/__init__.py:1621 |
 | correlate_fused         | csrc/correlate.cu                   | anet/kernels/__init__.py:891  |
 | decide_tones_tm         | csrc/decide_frame_tm.cu             | anet/kernels/__init__.py:269  |
-|                         | + csrc/frame_tm_generic.cu          |                               |
+|                         | + csrc/frame_tm_any.cu              |                               |
 | gather_rows_fused       | csrc/gather_rows.cu                 | anet/kernels/__init__.py:1415 |
 | ofdm_track_decide_fused | csrc/ofdm_track.cu                  | anet/kernels/__init__.py:2648 |
 | tone_energies_fused     | csrc/tone_energies.cu               | anet/kernels/__init__.py:87   |
@@ -38,14 +38,16 @@ an int8 launch, ``launch_counts[name + ":f32"]`` for a launch of the
 float32 route of a kernel in ``F32_ROUTES``: float32 data, or float32
 compute for the batch-major filterbank); a launch of a body off the
 compile-time walks' geometry counts under the body's own key instead
-(``OFF_WALK_KEYS``: ``frame_tm_generic``, ``filterbank_any``). There is no
+(``OFF_WALK_KEYS``: ``frame_tm_any``, ``filterbank_any``). There is no
 fallback from the kernel to the plain version.
 
 The two search kernels and correlate_fused share one product on the
 tensor cores (``csrc/search_core.cuh``: bf16 ``mma.sync`` with float32
 accumulators, a float32 operand split into bf16 hi + lo, so each product
 is the float32 one to about 2**-16); the wrappers build the template
-operand once a template tensor. The two align+demod kernels
+operand once a template tensor. A template too long for a block's shared
+memory (past about 14,400 samples in float32) takes the same product in
+slabs of k-steps, its sums folded into a float32 sum every 32 k-steps. The two align+demod kernels
 (demod_at_fused, demod_at_energies_fused) share another
 (``csrc/demod_core.cuh``): the filterbank as a bf16 ``mma.sync`` with
 float32 accumulators, or an int8 one with exact int32 I/Q, fed by a
@@ -86,8 +88,10 @@ epilogue, bfloat16 and float32 data alike. decide_frame_tm's walk takes
 sps 32, 64 and 128 with at most 16 tones (_tensor_core_geometry, which
 also picks the align+demod kernels' and the stream steps' routes);
 decide_tones_tm's also sps 48 and 80 and up to 32 tones (8 n-tiles, the
-basis in shared memory). At every other geometry both take
-csrc/frame_tm_generic.cu, a thread a stream on the CUDA cores (the route:
+basis in shared memory). At every other geometry both take the same
+products with the geometry known at run time (csrc/frame_tm_any.cu: short
+symbols several a ring stage, long ones walked in k-slabs, groups of 32
+tones, the basis from ``_filterbank_any_basis``; the route:
 ``_tm_operands``). Which predicate picks which route: _tensor_core_geometry
 the align+demod kernels, the stream steps and decide_frame_tm;
 _filterbank_tensor_core_geometry the batch-major filterbank and
@@ -164,7 +168,6 @@ __all__ = [
 ]
 
 TM_SYMBOL_TILE = 8  # Gray-decoded symbols packed per int32 word
-TM_GENERIC_TONES = 16  # tones a pass of csrc/frame_tm_generic.cu
 _ROW = 128  # samples per row of the probe's row-aligned energy span
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_SPS = (32, 64, 128)
@@ -205,8 +208,8 @@ launch_counts = {
     "gather_rows_fused:int8": 0,
     # the bodies off the compile-time walks' geometry, counted apart from
     # the walks at their launch (OFF_WALK_KEYS)
-    "frame_tm_generic": 0,
-    "frame_tm_generic:int8": 0,
+    "frame_tm_any": 0,
+    "frame_tm_any:int8": 0,
     "filterbank_any": 0,
     # the OFDM equalizer's block-of-warps route for long streams
     # (_ofdm_track_route), counted apart from the staged one
@@ -220,14 +223,17 @@ launch_counts = {
 F32_ROUTES = (
     "decide_frame_tm", "sync_search_fused", "demod_at_fused", "demod_probe_fused",
     "demod_at_energies_fused", "correlate_fused", "decide_tones_tm", "tone_energies_fused",
-    "decide_tones_fused", "sync_search_blockmax", "frame_tm_generic", "filterbank_any",
+    "decide_tones_fused", "sync_search_blockmax", "frame_tm_any", "filterbank_any",
 )
 # The launch-count key of each route off the compile-time walks: the
-# time-major pair's "generic" route (_tm_operands; csrc/frame_tm_generic.cu)
-# and the batch-major filterbank's runtime-geometry routes "any" and
-# "any_split" (_filterbank_operands; csrc/filterbank_any.cu), whichever
-# wrapper launched them.
-OFF_WALK_KEYS = {"generic": "frame_tm_generic", "any": "filterbank_any", "any_split": "filterbank_any"}
+# time-major pair's runtime-geometry routes "tm_any" and "tm_any_split"
+# (_tm_operands; csrc/frame_tm_any.cu) and the batch-major filterbank's
+# "any" and "any_split" (_filterbank_operands; csrc/filterbank_any.cu),
+# whichever wrapper launched them.
+OFF_WALK_KEYS = {
+    "tm_any": "frame_tm_any", "tm_any_split": "frame_tm_any",
+    "any": "filterbank_any", "any_split": "filterbank_any",
+}
 launch_counts.update({f"{name}:f32": 0 for name in F32_ROUTES})
 
 
@@ -458,23 +464,6 @@ def _decisions(config: ModemConfig, iq: torch.Tensor, dim: int):
 # --- the time-major pair's routes ---------------------------------------------
 
 
-@functools.lru_cache(maxsize=16)
-def _generic_tm_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The basis operand of csrc/frame_tm_generic.cu for samples of
-    ``dtype``: _plain_basis's [sps, 2M] entries by pass, [M / G, sps, 2G]
-    with G = min(M, TM_GENERIC_TONES) tones a pass; row k of pass p holds
-    the cos of tones pG .. pG + G - 1, then their sin. float32 for float32
-    and bfloat16 samples (bf16-rounded entries for bfloat16), the x127
-    integers as int32 for int8 samples."""
-    m, sps = config.num_tones, config.samples_per_symbol
-    g = min(m, TM_GENERIC_TONES)
-    plain = _plain_basis(config, dtype, device)
-    cos = plain[:, :m].reshape(sps, m // g, g)
-    sin = plain[:, m:].reshape(sps, m // g, g)
-    out = torch.cat([cos, sin], -1).permute(1, 0, 2).contiguous()
-    return out.to(torch.int32) if dtype == torch.int8 else out
-
-
 def _tm_operands(name: str, config: ModemConfig, dtype: torch.dtype,
                  device) -> tuple[str, str, torch.Tensor]:
     """(entry point, route, basis) of a time-major launch of ``name``,
@@ -486,16 +475,18 @@ def _tm_operands(name: str, config: ModemConfig, dtype: torch.dtype,
     its words at most 4 bits a symbol), decide_tones_tm's the wider
     _filterbank_tensor_core_geometry (sps 48 and 80, up to 32 tones: both
     presets off the other walks). Any other geometry takes
-    csrc/frame_tm_generic.cu (entry ``name + "_generic"``, route
-    "generic") with _generic_tm_basis, whose launches count under
-    OFF_WALK_KEYS["generic"] whichever wrapper launched them. The sets
-    match the kernels' instantiations, so no launch on the walk is
-    refused."""
+    csrc/frame_tm_any.cu, the same products with the geometry known at run
+    time (entry ``name + "_any"``; route "tm_any" for bfloat16 and int8
+    samples, "tm_any_split" for float32) with _filterbank_any_basis, whose
+    launches count under OFF_WALK_KEYS["tm_any"] whichever wrapper launched
+    them. The sets match the kernels' instantiations, so no launch on the
+    walk is refused."""
     walk = _filterbank_tensor_core_geometry if name == "decide_tones_tm" else _tensor_core_geometry
+    split = dtype == torch.float32
     if walk(config):
         entry = name if name == "decide_frame_tm" else f"{name}_mma"
-        return entry, "split" if dtype == torch.float32 else "mma", _demod_at_basis(config, dtype, device)
-    return f"{name}_generic", "generic", _generic_tm_basis(config, dtype, device)
+        return entry, "split" if split else "mma", _demod_at_basis(config, dtype, device)
+    return f"{name}_any", "tm_any_split" if split else "tm_any", _filterbank_any_basis(config, dtype, device)
 
 
 # --- decide_frame_tm: the aligned receiver's full fusion ---------------------
@@ -626,8 +617,9 @@ def decide_frame_tm(
     128 take csrc/decide_frame_tm.cu's tensor-core walk, float32 frames as
     the three-term bf16 split (best, total and the quality sums within
     F32_SPLIT_RTOL and F32_SPLIT_ATOL of the plain version's, decisions
-    equal but at near-ties); any other sps csrc/frame_tm_generic.cu on the
-    CUDA cores (float32 sums; int32 for int8 frames)."""
+    equal but at near-ties); any other sps csrc/frame_tm_any.cu, the same
+    products with the geometry known at run time (bfloat16 and int8 frames
+    as on the walk; float32 frames the split, within the same bounds)."""
     if data_tm.device.type == "cpu":
         return decide_frame_tm_ref(config, data_tm, payload_len, preamble_offset=preamble_offset)
     return _decide_frame_tm_launch(config, data_tm, payload_len, preamble_offset)
@@ -1278,9 +1270,9 @@ def decide_tones_tm(config: ModemConfig, data_tm: torch.Tensor):
     decisions epilogue; 17-32 tones with the basis in shared memory) with
     the basis of _demod_at_basis: bfloat16 data one product, float32 data
     the three-term bf16 split (within F32_SPLIT_RTOL and F32_SPLIT_ATOL);
-    every other geometry (sps 24, 40, 96 or 160, more than 32 tones)
-    csrc/frame_tm_generic.cu on the CUDA cores, float32 sums of the samples
-    in order."""
+    every other geometry (sps 24, 40, 96, 160 or 1,920, more than 32
+    tones) csrc/frame_tm_any.cu, the same products with the geometry known
+    at run time (bfloat16 one product; float32 the split)."""
     if data_tm.device.type == "cpu":
         return decide_tones_tm_ref(config, data_tm)
     return _decide_tones_tm_launch(config, data_tm)
@@ -1548,40 +1540,45 @@ def _filterbank_operands(kind: str, config: ModemConfig, compute_dtype,
     return f"{kind}_any_f32", "any_split", _filterbank_any_basis(config, torch.float32, device)
 
 
-FILTERBANK_GROUP = 32  # tones a group of csrc/filterbank_any.cu: 8 n8 tiles
+FILTERBANK_GROUP = 32  # tones a group of csrc/filterbank_any.cu and frame_tm_any.cu: 8 n8 tiles
 
 
 @functools.lru_cache(maxsize=16)
 def _filterbank_any_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The B operand of csrc/filterbank_any.cu for ``dtype`` compute, a flat
-    int32 tensor. The [sps, 2M] basis _plain_basis(config, dtype) in groups
-    of G = min(M, FILTERBANK_GROUP) tones, each group the [16 KS, 8 n]
-    product columns of _mma_fragments (column 2c the cos of the group's
-    tone c, 2c + 1 its sin, zero columns past G; n = _demod_mma_tiles(G))
-    over KS = ceil(sps / 16) k-steps, zero rows past sps. bfloat16: the
-    bf16 entries as words [group, k-step, n-tile, lane, register], word
+    """The B operand of the runtime-geometry walks (csrc/filterbank_any.cu,
+    csrc/frame_tm_any.cu) for ``dtype`` compute, a flat int32 tensor. The
+    [sps, 2M] basis _plain_basis(config, dtype) in groups of G = min(M,
+    FILTERBANK_GROUP) tones, each group the [E KS, 8 n] product columns of
+    _mma_fragments (column 2c the cos of the group's tone c, 2c + 1 its sin,
+    zero columns past G; n = _demod_mma_tiles(G)) over KS = ceil(sps / E)
+    k-steps of E = 16 samples (32 for int8), zero rows past sps. bfloat16:
+    the bf16 entries as words [group, k-step, n-tile, lane, register], word
     (lane 4 g + i, register r) the bf16 pair at rows 16 k-step + 8 r + 2 i
     + (0, 1) of column 8 n-tile + g, the first in the low half (a lane's
-    two words one 8-byte vector). float32: the three bf16 terms of the
-    float32 entries (_split_terms), b0 in that layout, then b1 and b2 as
-    words [group, k-step, n-tile, lane, term, register] (a lane's four words
-    one 16-byte vector)."""
+    two words one 8-byte vector). int8 (frame_tm_any.cu's int8 frames): the
+    x127 integers in the same words, word (lane 4 g + i, register r) the 4
+    bytes at rows 32 k-step + 16 r + 4 i + (0..3), the first in the low
+    byte. float32: the three bf16 terms of the float32 entries
+    (_split_terms), b0 in the bfloat16 layout, then b1 and b2 as words
+    [group, k-step, n-tile, lane, term, register] (a lane's four words one
+    16-byte vector)."""
     m, sps = config.num_tones, config.samples_per_symbol
     gm = min(m, FILTERBANK_GROUP)
-    ng, nt, ks = m // gm, _demod_mma_tiles(gm), -(-sps // 16)
+    e = 32 if dtype == torch.int8 else 16
+    ng, nt, ks = m // gm, _demod_mma_tiles(gm), -(-sps // e)
     plain = _plain_basis(config, dtype, device)  # [sps, 2M]
-    cols = torch.zeros(16 * ks, ng, 8 * nt, dtype=torch.float32, device=device)
+    cols = torch.zeros(e * ks, ng, 8 * nt, dtype=torch.float32, device=device)
     cols[:sps, :, 0 : 2 * gm : 2] = plain[:, :m].reshape(sps, ng, gm)
     cols[:sps, :, 1 : 2 * gm : 2] = plain[:, m:].reshape(sps, ng, gm)
 
-    def words(t: torch.Tensor) -> torch.Tensor:
-        # [16 ks, ng, 8 nt] of bf16 values -> int32 [ng, ks, nt, 32, 2]
-        v = t.to(torch.bfloat16).reshape(ks, 2, 4, 2, ng, nt, 8)  # [s, r, i, e, group, t, g]
+    def words(t: torch.Tensor, kind: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        # [e ks, ng, 8 nt] of bf16 (int8) values -> int32 [ng, ks, nt, 32, 2]
+        v = t.to(kind).reshape(ks, 2, 4, e // 8, ng, nt, 8)  # [s, r, i, byte or half, group, t, g]
         v = v.permute(4, 0, 5, 6, 2, 1, 3).contiguous()  # [group, s, t, g, i, r, e]
         return v.view(torch.int32).reshape(ng, ks, nt, 32, 2)
 
-    if dtype == torch.bfloat16:
-        return words(cols).flatten()
+    if dtype != torch.float32:
+        return words(cols, dtype).flatten()
     b0, b1, b2 = (words(t) for t in _split_terms(cols))
     return torch.cat([b0.flatten(), torch.stack([b1, b2], dim=-2).flatten()])
 

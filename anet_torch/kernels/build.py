@@ -27,7 +27,7 @@ SOURCES = (
     "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
     "viterbi", "demod_at_energies",
     "correlate", "gather_rows", "ofdm_track",
-    "tone_energies", "search_blockmax", "frame_tm_generic", "filterbank_any",
+    "tone_energies", "search_blockmax", "frame_tm_any", "filterbank_any",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -72,12 +72,12 @@ SIGNATURES = {
     "decide_tones_tm_mma": (
         "anet_decide_tones_tm_mma", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], "decide_frame_tm",
     ),
-    "decide_frame_tm_generic": (
-        "anet_decide_frame_tm_generic",
-        [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], "frame_tm_generic",
+    "decide_frame_tm_any": (
+        "anet_decide_frame_tm_any",
+        [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], "frame_tm_any",
     ),
-    "decide_tones_tm_generic": (
-        "anet_decide_tones_tm_generic", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], "frame_tm_generic",
+    "decide_tones_tm_any": (
+        "anet_decide_tones_tm_any", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], "frame_tm_any",
     ),
     "gather_rows": (
         "anet_gather_rows",

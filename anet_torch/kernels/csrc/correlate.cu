@@ -28,7 +28,8 @@
 // for 512-byte row stores, which was slower); with two blocks a
 // multiprocessor, one block's stores overlap the other's product. The TPU
 // kernel's supercell and aliased input blocks fed its matrix unit and are
-// not carried over.
+// not carried over. A template past the one-shot stage's shared memory takes
+// search_core.cuh's slab route (correlate_slab_kernel).
 #include "search_core.cuh"
 
 namespace {
@@ -50,10 +51,28 @@ correlate_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, Ge
   store_rows(g, b, tile, acc, out);
 }
 
+// The slab route (templates past the one-shot stage): one block an SM.
 template <typename T, bool B_LO>
-cudaError_t launch(const void* seg, const void* tpl, const Geometry& g, size_t smem, int B,
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+correlate_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, SlabGeometry g,
+                      float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x / g.n_tiles;
+  const int tile = blockIdx.x % g.n_tiles;
+  float sum[NT][4];
+  slab_rows<T, B_LO, false>(seg, tpl, g, b, tile, smem, sum);
+  store_rows(g, b, tile, sum, out);
+}
+
+// G: Geometry (the one-shot route) or SlabGeometry (the slab route).
+template <typename T, bool B_LO, typename G>
+cudaError_t launch(const void* seg, const void* tpl, const G& g, size_t smem, int B,
                    void* out, cudaStream_t st) {
-  auto kernel = correlate_kernel<T, B_LO>;
+  void (*kernel)(const T*, const uint32_t*, G, float*);
+  if constexpr (std::is_same<G, SlabGeometry>::value)
+    kernel = correlate_slab_kernel<T, B_LO>;
+  else
+    kernel = correlate_kernel<T, B_LO>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -73,18 +92,21 @@ extern "C" int anet_correlate(const void* seg, int dtype, int B, long long row_s
                               int seg_len, const void* tpl, int b_lo, int w, int k, int out_len,
                               void* out, void* stream) {
   const bool a_lo = dtype == anet::DTYPE_F32;
-  Geometry g;
-  size_t smem;
-  if (!make_geometry(g, row_stride, seg_len, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == anet::DTYPE_BF16) {
-    err = b_lo ? launch<__nv_bfloat16, true>(seg, tpl, g, smem, B, out, st)
-               : launch<__nv_bfloat16, false>(seg, tpl, g, smem, B, out, st);
-  } else {
-    err = b_lo ? launch<float, true>(seg, tpl, g, smem, B, out, st)
-               : launch<float, false>(seg, tpl, g, smem, B, out, st);
-  }
-  return (int)err;
+  // the one-shot stage where the template fits it, else the slab route
+  auto run = [&](const auto& g, size_t smem) -> cudaError_t {
+    if (dtype == anet::DTYPE_BF16)
+      return b_lo ? launch<__nv_bfloat16, true>(seg, tpl, g, smem, B, out, st)
+                  : launch<__nv_bfloat16, false>(seg, tpl, g, smem, B, out, st);
+    return b_lo ? launch<float, true>(seg, tpl, g, smem, B, out, st)
+                : launch<float, false>(seg, tpl, g, smem, B, out, st);
+  };
+  Geometry g;
+  SlabGeometry sg;
+  size_t smem;
+  if (make_geometry(g, row_stride, seg_len, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
+    return (int)run(g, smem);
+  if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
+    return (int)run(sg, smem);
+  return (int)cudaErrorInvalidValue;
 }

@@ -56,7 +56,10 @@
 // energy (consecutive lanes on consecutive samples: no bank conflict), and
 // the warp reduces with xor shuffles in a fixed order (probe_sums, shared
 // by both kernels); then lane 0 (demod_probe) or lane o (probe_at's lag o)
-// writes.
+// writes. Where the taps and the 8 warps' spans pass a block's shared
+// memory (a preamble past about 11,000 samples in bfloat16, 6,000 in
+// float32: sps 480's 15,360), the *_direct kernels take the same sums in
+// the same order from device memory (probe_sums_direct): the same bits.
 #include "demod_core.cuh"
 
 namespace {
@@ -163,17 +166,54 @@ __device__ __forceinline__ bool probe_sums(const T* __restrict__ buf, int B, int
   return true;
 }
 
-// demod_probe_fused's probe: (cmax, off, energy, start) of each stream.
+// probe_sums for a template and span past a block's shared memory (taps
+// and 8 warps' spans of 128 pw_e samples: a preamble of about 11,000
+// samples in bfloat16): the same sums in the same order, the samples read
+// in place through the caches (zero outside [0, len)) and the taps through
+// the read-only cache, so the same bits. No barrier.
+template <typename T, int NL, bool ROW_ALIGNED>
+__device__ __forceinline__ bool probe_sums_direct(const T* __restrict__ buf, int B, int64_t len,
+                                                  const int32_t* __restrict__ st0,
+                                                  const float* __restrict__ taps, int k, int pw_e,
+                                                  int64_t& st, ProbeAcc<T> (&corr)[NL], ProbeAcc<T>& en) {
+  using Acc = ProbeAcc<T>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + warp;
+  if (b >= B) return false;
+  st = st0[b];
+  const int64_t e0 = ROW_ALIGNED ? (st >= 0 ? st : st - 127) / 128 * 128 : st;
+  const T* row = buf + (int64_t)b * len;
+  auto sample = [&](int64_t p) -> Acc { return p >= 0 && p < len ? widen(row[p]) : Acc(0); };
+#pragma unroll
+  for (int o = 0; o < NL; ++o) corr[o] = 0;
+#pragma unroll 4
+  for (int j = lane; j < k; j += 32) {
+    const Acc t = (Acc)__ldg(taps + j);
+#pragma unroll
+    for (int o = 0; o < NL; ++o) corr[o] = mac(sample(st + o + j), t, corr[o]);
+  }
+  en = 0;
+#pragma unroll 4
+  for (int i = lane; i < 128 * pw_e; i += 32) {
+    const Acc v = sample(e0 + i);
+    en = mac(v, v, en);
+  }
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) {
+#pragma unroll
+    for (int o = 0; o < NL; ++o) corr[o] += __shfl_xor_sync(0xffffffffu, corr[o], sh);
+    en += __shfl_xor_sync(0xffffffffu, en, sh);
+  }
+  return true;
+}
+
+// demod_probe_fused's probe's epilogue: lane 0 writes (cmax, off, energy,
+// start) of stream b.
 template <typename T, int NL>
-__global__ void __launch_bounds__(THREADS)
-probe_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
-             const float* __restrict__ taps, int k, int pw_e,
-             const float* __restrict__ cmax_scale, float* __restrict__ cmax_out,
-             int32_t* __restrict__ off_out, float* __restrict__ energy_out,
-             int32_t* __restrict__ start_out) {
-  int64_t st;
-  ProbeAcc<T> corr[NL], en;
-  if (!probe_sums<T, NL, true>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
+__device__ __forceinline__ void probe_out(int64_t st, const ProbeAcc<T> (&corr)[NL], ProbeAcc<T> en,
+                                          const float* __restrict__ cmax_scale, float* __restrict__ cmax_out,
+                                          int32_t* __restrict__ off_out, float* __restrict__ energy_out,
+                                          int32_t* __restrict__ start_out) {
   const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if ((threadIdx.x & 31) == 0) {
     float cm = -1.0f;
@@ -193,17 +233,12 @@ probe_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __res
   }
 }
 
-// probe_at_fused: q [B, NL], lane o writes lag o. te from te_ptr when not
-// null, else te_val.
-template <typename T, int NL>
-__global__ void __launch_bounds__(THREADS)
-probe_at_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
-                const float* __restrict__ taps, int k, int pw_e, const float* __restrict__ te_ptr,
-                float te_val, float* __restrict__ q_out) {
-  static_assert(!std::is_same<T, int8_t>::value, "probe_at takes float32 and bfloat16 buffers");
-  int64_t st;
-  float corr[NL], en;
-  if (!probe_sums<T, NL, false>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
+// probe_at_fused's epilogue: q [B, NL], lane o writes lag o. te from te_ptr
+// when not null, else te_val.
+template <int NL>
+__device__ __forceinline__ void probe_at_out(const float (&corr)[NL], float en,
+                                             const float* __restrict__ te_ptr, float te_val,
+                                             float* __restrict__ q_out) {
   const int lane = threadIdx.x & 31;
   const int64_t b = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (lane < NL) {
@@ -214,6 +249,60 @@ probe_at_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __
       if (lane == o) c = corr[o];
     q_out[b * NL + lane] = fabsf(c) * rsqrtf(te * fmaxf(en, 1e-4f * te));
   }
+}
+
+// demod_probe_fused's probe: (cmax, off, energy, start) of each stream.
+template <typename T, int NL>
+__global__ void __launch_bounds__(THREADS)
+probe_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
+             const float* __restrict__ taps, int k, int pw_e,
+             const float* __restrict__ cmax_scale, float* __restrict__ cmax_out,
+             int32_t* __restrict__ off_out, float* __restrict__ energy_out,
+             int32_t* __restrict__ start_out) {
+  int64_t st;
+  ProbeAcc<T> corr[NL], en;
+  if (!probe_sums<T, NL, true>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
+  probe_out<T, NL>(st, corr, en, cmax_scale, cmax_out, off_out, energy_out, start_out);
+}
+
+// The same past a block's shared memory (probe_sums_direct).
+template <typename T, int NL>
+__global__ void __launch_bounds__(THREADS)
+probe_kernel_direct(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
+                    const float* __restrict__ taps, int k, int pw_e,
+                    const float* __restrict__ cmax_scale, float* __restrict__ cmax_out,
+                    int32_t* __restrict__ off_out, float* __restrict__ energy_out,
+                    int32_t* __restrict__ start_out) {
+  int64_t st;
+  ProbeAcc<T> corr[NL], en;
+  if (!probe_sums_direct<T, NL, true>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
+  probe_out<T, NL>(st, corr, en, cmax_scale, cmax_out, off_out, energy_out, start_out);
+}
+
+// probe_at_fused: q [B, NL], lane o writes lag o.
+template <typename T, int NL>
+__global__ void __launch_bounds__(THREADS)
+probe_at_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
+                const float* __restrict__ taps, int k, int pw_e, const float* __restrict__ te_ptr,
+                float te_val, float* __restrict__ q_out) {
+  static_assert(!std::is_same<T, int8_t>::value, "probe_at takes float32 and bfloat16 buffers");
+  int64_t st;
+  float corr[NL], en;
+  if (!probe_sums<T, NL, false>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
+  probe_at_out<NL>(corr, en, te_ptr, te_val, q_out);
+}
+
+// The same past a block's shared memory (probe_sums_direct).
+template <typename T, int NL>
+__global__ void __launch_bounds__(THREADS)
+probe_at_kernel_direct(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
+                       const float* __restrict__ taps, int k, int pw_e, const float* __restrict__ te_ptr,
+                       float te_val, float* __restrict__ q_out) {
+  static_assert(!std::is_same<T, int8_t>::value, "probe_at takes float32 and bfloat16 buffers");
+  int64_t st;
+  float corr[NL], en;
+  if (!probe_sums_direct<T, NL, false>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
+  probe_at_out<NL>(corr, en, te_ptr, te_val, q_out);
 }
 
 // Raise `kernel`'s dynamic shared memory limit to smem where it needs more
@@ -232,8 +321,8 @@ cudaError_t allow_smem(Kernel kernel, int smem, int& smem_set) {
 }
 
 template <typename T>
-int probe_smem(int k, int pw_e) {
-  return tap_bytes(k) + WARPS * 16 * span_chunks<T>(pw_e);
+int64_t probe_smem(int k, int pw_e) {
+  return (int64_t)tap_bytes(k) + WARPS * 16 * (int64_t)span_chunks<T>(pw_e);
 }
 
 // f(std::integral_constant<int, n_lags>{}): the instantiation of n_lags.
@@ -267,9 +356,11 @@ struct Args {
 template <typename T, int NL>
 cudaError_t launch(const Args& a) {
   static int smem_set = 48 * 1024;  // this instantiation's dynamic shared memory limit
-  auto kernel = probe_kernel<T, NL>;
-  const int smem = probe_smem<T>(a.k, a.pw_e);
-  const cudaError_t err = allow_smem(kernel, smem, smem_set);
+  const int64_t need = probe_smem<T>(a.k, a.pw_e);
+  const bool staged = need <= MAX_SMEM;  // else the same sums read in place
+  auto kernel = staged ? probe_kernel<T, NL> : probe_kernel_direct<T, NL>;
+  const int smem = staged ? (int)need : 0;
+  const cudaError_t err = staged ? allow_smem(kernel, smem, smem_set) : cudaSuccess;
   if (err != cudaSuccess) return err;
   kernel<<<(a.B + WARPS - 1) / WARPS, THREADS, smem, a.st>>>(
       static_cast<const T*>(a.buf), a.B, a.len, static_cast<const int32_t*>(a.st0),
@@ -300,9 +391,11 @@ struct AtArgs {
 template <typename T, int NL>
 cudaError_t launch_at(const AtArgs& a) {
   static int smem_set = 48 * 1024;
-  auto kernel = probe_at_kernel<T, NL>;
-  const int smem = probe_smem<T>(a.k, a.pw_e);
-  const cudaError_t err = allow_smem(kernel, smem, smem_set);
+  const int64_t need = probe_smem<T>(a.k, a.pw_e);
+  const bool staged = need <= MAX_SMEM;  // else the same sums read in place
+  auto kernel = staged ? probe_at_kernel<T, NL> : probe_at_kernel_direct<T, NL>;
+  const int smem = staged ? (int)need : 0;
+  const cudaError_t err = staged ? allow_smem(kernel, smem, smem_set) : cudaSuccess;
   if (err != cudaSuccess) return err;
   kernel<<<(a.B + WARPS - 1) / WARPS, THREADS, smem, a.st>>>(
       static_cast<const T*>(a.buf), a.B, a.len, static_cast<const int32_t*>(a.st0),

@@ -24,12 +24,26 @@
 // holds in the row's four lanes, is the block's value; the first of those
 // lanes stores it. Nothing is folded across rows. Sharing the core makes
 // every q bit-equal to the search's, so the maximum of the block maxima is
-// the search's best.
+// the search's best (on the slab route too: blockmax_slab_kernel, for a
+// template past the one-shot stage).
 #include "search_core.cuh"
 
 namespace {
 
 using namespace anet::search;
+
+// Each of this lane's two rows' maximum, stored by the first lane of its
+// quad.
+__device__ __forceinline__ void store_maxima(const Geometry& g, int b, int tile, const float (&rq)[2],
+                                             float* __restrict__ out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = tile * g.mt + warp * WARP_ROWS + (lane >> 2);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row0 + 8 * h < g.n_rows) out[(int64_t)b * g.n_rows + row0 + 8 * h] = rq[h];
+  }
+}
 
 template <typename T, bool B_LO>
 __global__ void __maxnreg__((max_regs<std::is_same<T, float>::value, B_LO>()))
@@ -41,19 +55,32 @@ blockmax_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, Geo
   float rq[2];
   int rc[2];
   anet::search::tile_rows<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = tile * g.mt + warp * WARP_ROWS + (lane >> 2);
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (row0 + 8 * h < g.n_rows) out[(int64_t)b * g.n_rows + row0 + 8 * h] = rq[h];
-  }
+  store_maxima(g, b, tile, rq, out);
 }
 
+// The slab route (templates past the one-shot stage): one block an SM.
 template <typename T, bool B_LO>
-cudaError_t launch(const void* seg, const void* tpl, const Geometry& g, size_t smem, int B,
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+blockmax_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, SlabGeometry g,
+                     float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x / g.n_tiles;
+  const int tile = blockIdx.x % g.n_tiles;
+  float rq[2];
+  int rc[2];
+  anet::search::tile_rows_slab<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
+  store_maxima(g, b, tile, rq, out);
+}
+
+// G: Geometry (the one-shot route) or SlabGeometry (the slab route).
+template <typename T, bool B_LO, typename G>
+cudaError_t launch(const void* seg, const void* tpl, const G& g, size_t smem, int B,
                    void* out, cudaStream_t st) {
-  auto kernel = blockmax_kernel<T, B_LO>;
+  void (*kernel)(const T*, const uint32_t*, G, float*);
+  if constexpr (std::is_same<G, SlabGeometry>::value)
+    kernel = blockmax_slab_kernel<T, B_LO>;
+  else
+    kernel = blockmax_kernel<T, B_LO>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -75,19 +102,22 @@ extern "C" int anet_search_blockmax(const void* seg, int dtype, int B, long long
                                     void* stream) {
   if (out_len < ROW || out_len % ROW) return (int)cudaErrorInvalidValue;
   const bool a_lo = dtype == anet::DTYPE_F32;
-  Geometry g;
-  size_t smem;
-  if (!make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
-    return (int)cudaErrorInvalidValue;
-  g.te_ptr = static_cast<const float*>(te_ptr);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == anet::DTYPE_BF16) {
-    err = b_lo ? launch<__nv_bfloat16, true>(seg, tpl, g, smem, B, out, st)
-               : launch<__nv_bfloat16, false>(seg, tpl, g, smem, B, out, st);
-  } else {
-    err = b_lo ? launch<float, true>(seg, tpl, g, smem, B, out, st)
-               : launch<float, false>(seg, tpl, g, smem, B, out, st);
-  }
-  return (int)err;
+  // the one-shot stage where the template fits it, else the slab route
+  auto run = [&](auto& g, size_t smem) -> cudaError_t {
+    g.te_ptr = static_cast<const float*>(te_ptr);
+    if (dtype == anet::DTYPE_BF16)
+      return b_lo ? launch<__nv_bfloat16, true>(seg, tpl, g, smem, B, out, st)
+                  : launch<__nv_bfloat16, false>(seg, tpl, g, smem, B, out, st);
+    return b_lo ? launch<float, true>(seg, tpl, g, smem, B, out, st)
+                : launch<float, false>(seg, tpl, g, smem, B, out, st);
+  };
+  Geometry g;
+  SlabGeometry sg;
+  size_t smem;
+  if (make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
+    return (int)run(g, smem);
+  if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
+    return (int)run(sg, smem);
+  return (int)cudaErrorInvalidValue;
 }

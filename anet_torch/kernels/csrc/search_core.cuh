@@ -38,6 +38,24 @@
 //   products hi*hi, hi*lo and lo*hi accumulate in the same registers: one
 //   mma per tile and step for bf16 x bf16, two for bf16 x float32, three
 //   for float32 x float32. There is no CUDA-core product.
+//
+// A template too long for the one-shot stage (make_geometry false: the two
+// copies and the whole span pass the shared memory a block holds; about
+// 14,400 samples for float32 x float32, 33,000 for bf16 x bf16) takes the
+// slab route (make_slab_geometry, slab_rows): the band's k-steps in slabs
+// of ksl (a multiple of 8, so a slab's span starts on a staged row). Each
+// slab stages its window of the same template words (8 ksl + 72 of each
+// copy, no new operand) and the span rows its Hankel rows read (mt - 1 +
+// ksl / 8), and the lane reloads its 17-pair B ring at the slab's start.
+// The 128-sample block energies are computed once, before the first slab,
+// from the same loads and in the same order as the one-shot stage, so the
+// window sums and scales are its bits. The tensor cores truncate what they
+// add to an accumulator, which over thousands of k-steps (3,848 at 61,440
+// samples) drifts by about 2^-23 of the sum a step: the slab route adds its
+// accumulators into a float32 sum on the CUDA cores every FOLD k-steps and
+// starts them again from zero. That sum takes 64 more registers a lane, so
+// a slab block runs alone on its multiprocessor, with the shared memory of
+// one block.
 #pragma once
 
 #include "common.cuh"
@@ -356,6 +374,224 @@ __device__ __forceinline__ void tile_rows(const T* __restrict__ seg,
   float acc[NT][4];
   product<A_LO, B_LO>(g, s, acc);
   row_best(g, s, tile, acc, bq, bc);
+}
+
+// --- the slab route: templates past the one-shot stage ------------------------
+
+constexpr int FOLD = 32;  // k-steps between the slab route's folds into its float32 sum
+
+// The slab route's geometry: the one-shot fields, and the slab's.
+struct SlabGeometry : Geometry {
+  int ksl;  // k-steps of a slab, a multiple of 8
+  int ws;   // words of a staged template copy: 8 ksl + 80, 16 mod 32
+  int nbe;  // the block energies of a block's rows: mt + kb - 1
+};
+
+inline size_t slab_smem(const SlabGeometry& g, int ksl, bool a_lo, bool b_lo) {
+  const int ws = 8 * ksl + 80;
+  const int nbs = g.mt - 1 + ksl / 8;
+  return (size_t)(b_lo ? 2 : 1) * 2 * ws * 4 + (size_t)(a_lo ? 2 : 1) * nbs * ROW_PITCH * 2 +
+         (size_t)(g.nbe + g.mt) * 4;
+}
+
+// The slab route's geometry of a launch whose template make_geometry does
+// not stage whole, or false where the kernel does not take it (a template
+// word count the wrapper did not build for this k). The rows are split as
+// make_geometry splits them; a slab is the most k-steps that keep the
+// block's shared memory within MAX_SMEM, then the slabs are evened out.
+inline bool make_slab_geometry(SlabGeometry& g, int64_t row_stride, int seg_len, int out_len, int k,
+                               int w, float te, bool a_lo, bool b_lo, size_t& smem) {
+  if (k < 1 || out_len < 1) return false;
+  make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo, smem);
+  if (w < 8 * g.nks + 72 || w % 32 != 16) return false;
+  g.nbe = g.mt + g.kb - 1;
+  int ksl = (g.nks + 7) / 8 * 8;
+  while (ksl > 8 && slab_smem(g, ksl, a_lo, b_lo) > (size_t)MAX_SMEM) ksl -= 8;
+  const int n_slabs = (g.nks + ksl - 1) / ksl;
+  g.ksl = ((g.nks + n_slabs - 1) / n_slabs + 7) / 8 * 8;
+  g.ws = 8 * g.ksl + 80;
+  smem = slab_smem(g, g.ksl, a_lo, b_lo);
+  return smem <= (size_t)MAX_SMEM;
+}
+
+template <bool A_LO, bool B_LO>
+__device__ __forceinline__ Smem carve_slab(unsigned char* base, const SlabGeometry& g) {
+  const int nbs = g.mt - 1 + g.ksl / 8;
+  Smem s;
+  s.tpl = reinterpret_cast<uint32_t*>(base);
+  s.hi = reinterpret_cast<__nv_bfloat16*>(s.tpl + (B_LO ? 2 : 1) * 2 * g.ws);
+  s.lo = s.hi + nbs * ROW_PITCH;
+  s.blk = reinterpret_cast<float*>(s.hi + (A_LO ? 2 : 1) * nbs * ROW_PITCH);
+  s.scale = s.blk + g.nbe;
+  return s;
+}
+
+// The block energies of the tile's rows (blocks 0 .. nbe - 1 from the
+// tile's first sample, zero past seg_len), summed as stage sums them, then
+// one scale a row, as stage's. Ends with __syncthreads().
+template <typename T>
+__device__ __forceinline__ void slab_energies(const T* __restrict__ seg, const SlabGeometry& g, int b,
+                                              int tile, const Smem& s) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const T* row = seg + (int64_t)b * g.row_stride;
+  const int64_t base = (int64_t)tile * g.mt * ROW;
+  const int n_chunks = g.nbe * (ROW / 8);
+  for (int c0 = 0; c0 < n_chunks; c0 += nthreads) {
+    const int c = c0 + tid;
+    const bool live = c < n_chunks;
+    float e = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float v = live ? load_or_zero(row, base + 8 * c + j, g.seg_len) : 0.0f;
+      e = fmaf(v, v, e);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off, 16);
+    if (live && (c & 15) == 0) s.blk[c >> 4] = e;
+  }
+  __syncthreads();
+  const float te = g.te_ptr ? __ldg(g.te_ptr) : g.te;
+  for (int r = tid; r < g.mt; r += nthreads) {
+    float win = 0.0f;
+    for (int q = 0; q < g.kb; ++q) win += s.blk[r + q];
+    s.scale[r] = rsqrtf(te * fmaxf(win, 1e-4f * te));
+  }
+  __syncthreads();
+}
+
+// Stage slab st0 .. st0 + nk - 1: words 8 st0 .. 8 (st0 + nk) + 71 of each
+// template copy, and the span's blocks st0 / 8 .. st0 / 8 + mt - 2 + ceil(nk
+// / 8) as bf16 rows (hi, then lo for float32 samples), as stage stages
+// them. Ends with __syncthreads().
+template <typename T, bool B_LO>
+__device__ __forceinline__ void stage_slab(const T* __restrict__ seg, const uint32_t* __restrict__ tpl,
+                                           const SlabGeometry& g, int b, int tile, int st0, int nk,
+                                           const Smem& s) {
+  constexpr bool A_LO = std::is_same<T, float>::value;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int per_copy = (8 * nk + 72) / 4;  // 16-byte vectors of a copy's window
+#pragma unroll
+  for (int cp = 0; cp < (B_LO ? 4 : 2); ++cp) {
+    const uint4* src = reinterpret_cast<const uint4*>(tpl + (int64_t)cp * g.w + 8 * st0);
+    uint4* dst = reinterpret_cast<uint4*>(s.tpl + cp * g.ws);
+    for (int i = tid; i < per_copy; i += nthreads) dst[i] = src[i];
+  }
+  const T* row = seg + (int64_t)b * g.row_stride;
+  const int64_t base = (int64_t)tile * g.mt * ROW + 16 * (int64_t)st0;
+  const int n_chunks = (g.mt - 1 + (nk + 7) / 8) * (ROW / 8);
+  for (int c = tid; c < n_chunks; c += nthreads) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = load_or_zero(row, base + 8 * c + j, g.seg_len);
+    const int at = (c >> 4) * ROW_PITCH + 8 * (c & 15);
+    uint4 hi, lo;
+    uint32_t* h = reinterpret_cast<uint32_t*>(&hi);
+    uint32_t* l = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      h[j] = pack_bf16(v[2 * j], v[2 * j + 1]);
+      if (A_LO) {
+        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&h[j]);
+        l[j] = pack_bf16(v[2 * j] - __low2float(hv), v[2 * j + 1] - __high2float(hv));
+      }
+    }
+    *reinterpret_cast<uint4*>(s.hi + at) = hi;
+    if (A_LO) *reinterpret_cast<uint4*>(s.lo + at) = lo;
+  }
+  __syncthreads();
+}
+
+// product's walk over a staged slab of nk k-steps, its accumulators added
+// into sum every FOLD k-steps and at the slab's end.
+template <bool A_LO, bool B_LO>
+__device__ __forceinline__ void product_slab(const SlabGeometry& g, const Smem& s, int nk,
+                                             float (&sum)[NT][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, gi = lane & 3;
+  const int a_row = warp * WARP_ROWS + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_k = (lane >> 4) * 8;
+  const uint32_t a_hi = smem_addr(s.hi + a_row * ROW_PITCH);
+  const uint32_t a_lo = smem_addr(s.lo + a_row * ROW_PITCH);
+  const uint32_t* tb = s.tpl + (gq & 1) * g.ws + TPL_OFF / 2 + gi - (gq >> 1);
+  const uint32_t* tl = tb + 2 * g.ws;
+  uint32_t rh[NT + 1], rl[NT + 1];
+#pragma unroll
+  for (int u = 0; u <= NT; ++u) {
+    rh[u] = tb[4 - 4 * u];
+    if (B_LO) rl[u] = tl[4 - 4 * u];
+  }
+  for (int f0 = 0; f0 < nk; f0 += FOLD) {
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    const int f1 = min(f0 + FOLD, nk);
+    for (int st = f0; st < f1; ++st) {
+      const int pk = 16 * st + a_k;
+      const uint32_t off = 2u * (uint32_t)(pk + 8 * (pk >> 7));
+      uint32_t ah[4], al[4];
+      ldmatrix_x4(ah, a_hi + off);
+      if (A_LO) ldmatrix_x4(al, a_lo + off);
+      const uint32_t nh0 = tb[8 * st + 12], nh1 = tb[8 * st + 8];
+      uint32_t nl0 = 0, nl1 = 0;
+      if (B_LO) {
+        nl0 = tl[8 * st + 12];
+        nl1 = tl[8 * st + 8];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mma_bf16(acc[j], ah, rh[j + 1], rh[j]);
+        if (B_LO) mma_bf16(acc[j], ah, rl[j + 1], rl[j]);
+        if (A_LO) mma_bf16(acc[j], al, rh[j + 1], rh[j]);
+      }
+#pragma unroll
+      for (int u = NT; u >= 2; --u) {
+        rh[u] = rh[u - 2];
+        if (B_LO) rl[u] = rl[u - 2];
+      }
+      rh[0] = nh0;
+      rh[1] = nh1;
+      if (B_LO) {
+        rl[0] = nl0;
+        rl[1] = nl1;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) sum[j][v] += acc[j][v];
+  }
+}
+
+// One block's rows of stream b on the slab route: sum holds each lag's
+// correlation, as product's acc does on the one-shot route. ENERGY: the
+// scales first (the searches; correlate stages none).
+template <typename T, bool B_LO, bool ENERGY>
+__device__ __forceinline__ Smem slab_rows(const T* __restrict__ seg, const uint32_t* __restrict__ tpl,
+                                          const SlabGeometry& g, int b, int tile, unsigned char* smem,
+                                          float (&sum)[NT][4]) {
+  constexpr bool A_LO = std::is_same<T, float>::value;
+  const Smem s = carve_slab<A_LO, B_LO>(smem, g);
+  if (ENERGY) slab_energies<T>(seg, g, b, tile, s);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) sum[j][0] = sum[j][1] = sum[j][2] = sum[j][3] = 0.0f;
+  for (int st0 = 0; st0 < g.nks; st0 += g.ksl) {
+    const int nk = min(g.ksl, g.nks - st0);
+    if (st0) __syncthreads();  // every warp is done with the slab before
+    stage_slab<T, B_LO>(seg, tpl, g, b, tile, st0, nk, s);
+    product_slab<A_LO, B_LO>(g, s, nk, sum);
+  }
+  return s;
+}
+
+// tile_rows on the slab route.
+template <typename T, bool B_LO>
+__device__ __forceinline__ void tile_rows_slab(const T* __restrict__ seg,
+                                               const uint32_t* __restrict__ tpl, const SlabGeometry& g,
+                                               int b, int tile, unsigned char* smem, float (&bq)[2],
+                                               int (&bc)[2]) {
+  float sum[NT][4];
+  const Smem s = slab_rows<T, B_LO, true>(seg, tpl, g, b, tile, smem, sum);
+  row_best(g, s, tile, sum, bq, bc);
 }
 
 }  // namespace search

@@ -25,27 +25,23 @@
 // accumulators (search_core's row_best); the block folds its rows in lag
 // order with a strict >, writes one (max, first argmax) pair, and a second
 // small kernel folds a stream's blocks in lag order. No atomics: the result
-// is deterministic.
+// is deterministic. A template past the one-shot stage's shared memory
+// (about 14,400 samples in float32) takes search_core.cuh's slab route,
+// one block an SM (search_slab_kernel), with the same epilogue.
 #include "search_core.cuh"
 
 namespace {
 
 using namespace anet::search;
 
-template <typename T, bool B_LO>
-__global__ void __maxnreg__((max_regs<std::is_same<T, float>::value, B_LO>()))
-search_tile_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, Geometry g,
-                   float* __restrict__ part_q, int32_t* __restrict__ part_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The block's (max, first argmax) of its rows from each lane's two rows'
+// (rq, rc): the earlier row first, lags unique; the block's warps folded in
+// lag order with a strict >.
+__device__ __forceinline__ void block_best(const Geometry& g, int b, int tile, const float (&rq)[2],
+                                           const int (&rc)[2], float* __restrict__ part_q,
+                                           int32_t* __restrict__ part_i) {
   __shared__ float red_q[MAX_WARPS];
   __shared__ int red_i[MAX_WARPS];
-  const int b = blockIdx.x / g.n_tiles;
-  const int tile = blockIdx.x % g.n_tiles;
-  float rq[2];
-  int rc[2];
-  anet::search::tile_rows<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
-
-  // this lane's rows r and r + 8: the earlier row first, lags unique
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = tile * g.mt + warp * WARP_ROWS + (lane >> 2);
   float bq = rq[0];
@@ -79,6 +75,33 @@ search_tile_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, 
   }
 }
 
+template <typename T, bool B_LO>
+__global__ void __maxnreg__((max_regs<std::is_same<T, float>::value, B_LO>()))
+search_tile_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, Geometry g,
+                   float* __restrict__ part_q, int32_t* __restrict__ part_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x / g.n_tiles;
+  const int tile = blockIdx.x % g.n_tiles;
+  float rq[2];
+  int rc[2];
+  anet::search::tile_rows<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
+  block_best(g, b, tile, rq, rc, part_q, part_i);
+}
+
+// The slab route (templates past the one-shot stage): one block an SM.
+template <typename T, bool B_LO>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+search_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, SlabGeometry g,
+                   float* __restrict__ part_q, int32_t* __restrict__ part_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x / g.n_tiles;
+  const int tile = blockIdx.x % g.n_tiles;
+  float rq[2];
+  int rc[2];
+  anet::search::tile_rows_slab<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
+  block_best(g, b, tile, rq, rc, part_q, part_i);
+}
+
 __global__ void search_reduce_kernel(const float* __restrict__ part_q,
                                      const int32_t* __restrict__ part_i, int B, int n_tiles,
                                      float* __restrict__ best_q, int32_t* __restrict__ best_i) {
@@ -97,10 +120,16 @@ __global__ void search_reduce_kernel(const float* __restrict__ part_q,
   best_i[b] = bi;
 }
 
-template <typename T, bool B_LO>
-cudaError_t launch(const void* seg, const void* tpl, const Geometry& g, size_t smem, int B,
+// G: Geometry (the one-shot route) or SlabGeometry (the slab route).
+template <typename T, bool B_LO, typename G>
+cudaError_t launch(const void* seg, const void* tpl, const G& g, size_t smem, int B,
                    void* part_q, void* part_i, cudaStream_t st) {
-  auto kernel = search_tile_kernel<T, B_LO>;
+  constexpr bool SLAB = std::is_same<G, SlabGeometry>::value;
+  void (*kernel)(const T*, const uint32_t*, G, float*, int32_t*);
+  if constexpr (SLAB)
+    kernel = search_slab_kernel<T, B_LO>;
+  else
+    kernel = search_tile_kernel<T, B_LO>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -126,23 +155,33 @@ extern "C" int anet_sync_search(const void* seg, int dtype, int B, long long row
                                 int out_len, const void* te_ptr, float te, void* part_q,
                                 void* part_i, void* best_q, void* best_i, void* stream) {
   const bool a_lo = dtype == anet::DTYPE_F32;
-  Geometry g;
-  size_t smem;
-  if (!make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
-    return (int)cudaErrorInvalidValue;
-  g.te_ptr = static_cast<const float*>(te_ptr);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  // the one-shot stage where the template fits it, else the slab route
+  auto run = [&](auto& g, size_t smem) -> cudaError_t {
+    g.te_ptr = static_cast<const float*>(te_ptr);
+    if (dtype == anet::DTYPE_BF16)
+      return b_lo ? launch<__nv_bfloat16, true>(seg, tpl, g, smem, B, part_q, part_i, st)
+                  : launch<__nv_bfloat16, false>(seg, tpl, g, smem, B, part_q, part_i, st);
+    return b_lo ? launch<float, true>(seg, tpl, g, smem, B, part_q, part_i, st)
+                : launch<float, false>(seg, tpl, g, smem, B, part_q, part_i, st);
+  };
+  Geometry g;
+  SlabGeometry sg;
+  size_t smem;
   cudaError_t err;
-  if (dtype == anet::DTYPE_BF16) {
-    err = b_lo ? launch<__nv_bfloat16, true>(seg, tpl, g, smem, B, part_q, part_i, st)
-               : launch<__nv_bfloat16, false>(seg, tpl, g, smem, B, part_q, part_i, st);
+  int n_tiles;
+  if (make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem)) {
+    err = run(g, smem);
+    n_tiles = g.n_tiles;
+  } else if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem)) {
+    err = run(sg, smem);
+    n_tiles = sg.n_tiles;
   } else {
-    err = b_lo ? launch<float, true>(seg, tpl, g, smem, B, part_q, part_i, st)
-               : launch<float, false>(seg, tpl, g, smem, B, part_q, part_i, st);
+    return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
   search_reduce_kernel<<<(B + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(part_q), static_cast<const int32_t*>(part_i), B, g.n_tiles,
+      static_cast<const float*>(part_q), static_cast<const int32_t*>(part_i), B, n_tiles,
       static_cast<float*>(best_q), static_cast<int32_t*>(best_i));
   return (int)cudaGetLastError();
 }

@@ -110,7 +110,8 @@ comma-separated subset of:
   ``decide_tones_tm`` or ``frame_tm``: an older checkout's CUDA-core
   float32 kernel, this one's ``frame_tm_mma`` and ``frame_tm_mma_f32``,
   and ``frame_tm_generic``, the CUDA-core body a checkout from before
-  the walk took the presets runs there, alike). It ignores ``--model``.
+  the walk took the presets runs there, alike; ``frame_tm_any`` builds
+  where the checkout has it). It ignores ``--model``.
 - ``filterbank_any``: ``tone_energies_fused`` and ``decide_tones_fused``
   at custom geometries off tone_energies.cu's compile-time walks (sps 40
   with 8 tones, B = 4,096; sps 40 with 16, B = 8,192; sps 160 with 64, B =
@@ -122,6 +123,21 @@ comma-separated subset of:
   checkout's CUDA-core body, so a parent and this one time alike); null
   where the CUDA-core body refuses the geometry (past 1,536 samples a
   symbol); any other error is raised. It ignores ``--model``.
+- ``frame_tm_any``: the time-major pair off decide_frame_tm.cu's walk
+  (``TM_ANY_SHAPES``: decide_frame_tm on whole frames of noise at sps 40
+  with 16 tones, chip_smoke.py's aligned-custom modem, and at sps 80 with
+  16, B = 16,384, and at sps 1,920 with 16, B = 256; decide_tones_tm on
+  the data sections at sps 96 with 32 tones and sps 40 with 8, B =
+  16,384; payload 256's data symbols; bfloat16, int8 x127 and float32 as
+  listed), each with its ``device`` column (rows whose name holds
+  ``frame_tm_any`` or, in a checkout from before it, ``frame_tm_generic``,
+  so a parent and this one time alike). It ignores ``--model``.
+- ``search_long``: ``sync_search_fused``, ``sync_search_blockmax`` and
+  ``correlate_fused`` at templates of 15,360 and 61,440 samples (sps 480's
+  and sps 1,920's preambles; ``LONG_TEMPLATES``), out_len 36,352, B = 256,
+  every (segment, template) dtype pair, each with its ``device`` column;
+  null where a checkout refuses the template (one from before the slab
+  route). It ignores ``--model``.
 - ``gather``: ``gather_rows_fused`` at the one-shot receiver's geometry
   (mfsk16-fast, payload 256: size 36,352 out of 76,288-sample rows) on B =
   8,192 bfloat16, int8 (``quantize_int8``) and float32 buffers of noise,
@@ -151,9 +167,12 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "probe_at": ("demod_probe", "probe_at"),  # probe_at.cu: checkouts that still have it
     "ofdm": ("ofdm_track",),
     "ofdm_frames": ("ofdm_track", "viterbi"),
-    "tones_tm": ("decide_tones_tm", "decide_frame_tm", "frame_tm_generic"),
+    "tones_tm": ("decide_tones_tm", "decide_frame_tm", "frame_tm_generic", "frame_tm_any"),
     "gather": ("gather_rows",),
     "filterbank_any": ("tone_energies", "filterbank_any"),  # filterbank_any.cu: checkouts that have it
+    # the time-major pair off its walk: frame_tm_any.cu, or a parent's frame_tm_generic.cu
+    "frame_tm_any": ("frame_tm_generic", "frame_tm_any"),
+    "search_long": ("sync_search", "search_blockmax", "correlate"),
 }
 FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
 # (preset, data symbols): its frames of 256, 1,024 and 4,096 bytes, S = 302, and
@@ -173,6 +192,16 @@ ANY_SHAPES = (
     ("sps160-m64", 48_000, 300, 64, 150.0, 2048),
     ("sps1920-m16", 48_000, 25, 16, 1000.0, 256),
 )
+# (label, wrapper, sample rate, baud, tones, base Hz, B, dtypes) of --kernels frame_tm_any
+TM_ANY_SHAPES = (
+    ("sps40-m16", "decide_frame_tm", 48_000, 1200, 16, 600.0, 16384, ("bfloat16", "int8", "float32")),
+    ("sps96-m32", "decide_tones_tm", 48_000, 500, 32, 250.0, 16384, ("bfloat16", "float32")),
+    ("sps40-m8", "decide_tones_tm", 48_000, 1200, 8, 600.0, 16384, ("bfloat16", "float32")),
+    ("sps80-m16", "decide_frame_tm", 48_000, 600, 16, 300.0, 16384, ("bfloat16", "int8", "float32")),
+    ("sps1920-m16", "decide_frame_tm", 48_000, 25, 16, 1000.0, 256, ("bfloat16", "int8", "float32")),
+)
+LONG_TEMPLATES = (15_360, 61_440)  # sps 480's and sps 1,920's 32-symbol preambles
+LONG_OUT_LEN, LONG_B = 36_352, 256
 
 _CHILD = r"""
 import json, sys
@@ -493,6 +522,56 @@ if "filterbank_any" in kinds:
             torch.cuda.empty_cache()
         del x
         torch.cuda.empty_cache()
+if "frame_tm_any" in kinds:
+    from anet_torch.dsp.frame import data_symbols_for_payload
+    from anet_torch.dsp.params import ModemConfig
+
+    for label, wrapper, rate, baud, m, base, bb, dtypes in {tm_any_shapes!r}:
+        c = ModemConfig(sample_rate_hz=rate, symbol_rate_hz=baud, num_tones=m, base_freq_hz=base)
+        pre, sps, n_sym = c.preamble_samples, c.samples_per_symbol, data_symbols_for_payload(c, 256)
+        x = torch.randn(pre + n_sym * sps, bb, generator=gen, device="cuda")
+        for dtype in dtypes:
+            if dtype == "int8":
+                xs = torch.round(x * (127.0 / x.abs().max())).to(torch.int8)
+            else:
+                xs = x.to(getattr(torch, dtype))
+            if wrapper == "decide_frame_tm":  # whole frames, the data section from the preamble's end
+                call = lambda: kernels.decide_frame_tm(c, xs, 256, preamble_offset=pre)
+            else:  # the data sections
+                xs = xs[pre:].contiguous()
+                call = lambda: kernels.decide_tones_tm(c, xs)
+            key = f"{{wrapper}} {{label}} {{dtype}}"
+            out[key] = time_ms(call)
+            out[key + " device"] = device_ms(call, ("frame_tm_any", "frame_tm_generic"))
+            del xs
+            torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
+if "search_long" in kinds:
+    PAIRS4 = PAIRS + ((torch.float32, torch.bfloat16),)
+    for kl in {long_templates!r}:
+        t = torch.randn(kl, generator=gen, device="cuda")
+        buf = torch.randn({long_b}, {long_out_len} + kl + 127, generator=gen, device="cuda")
+        for seg_dtype, tpl_dtype in PAIRS4:
+            seg = buf.to(seg_dtype)[:, 1 : {long_out_len} + kl]
+            tp = t.to(tpl_dtype)
+            te = float((tp.float() ** 2).sum())
+            label = f"k {{kl}} {{str(seg_dtype)[6:]}}/{{str(tpl_dtype)[6:]}}"
+            for name, call, dev_key in (
+                ("sync_search_fused", lambda: kernels.sync_search_fused(seg, tp, {long_out_len}, te), "search_"),
+                ("sync_search_blockmax", lambda: kernels.sync_search_blockmax(seg, tp, {long_out_len}, te), "blockmax_"),
+                ("correlate_fused", lambda: kernels.correlate_fused(seg, tp, {long_out_len}), "correlate_"),
+            ):
+                try:
+                    call()
+                except RuntimeError:  # a checkout that refuses a template past shared memory
+                    out[f"{{name}} {{label}}"] = out[f"{{name}} {{label}} device"] = None
+                    continue
+                out[f"{{name}} {{label}}"] = time_ms(call)
+                out[f"{{name}} {{label}} device"] = device_ms(call, dev_key)
+            del seg
+            torch.cuda.empty_cache()
+        del buf
 if "gather" in kinds:
     from anet_torch.stream import _buffer_len, quantize_int8
 
@@ -523,7 +602,9 @@ def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) 
     """The timings of the checkout at ``root``, from a process of its own."""
     sources = tuple(dict.fromkeys(s for kind in kinds for s in KERNELS[kind]))  # one nvcc a source
     child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS,
-                          demod_models=DEMOD_MODELS, frame_b=FRAME_B, ofdm_shapes=OFDM_SHAPES, any_shapes=ANY_SHAPES)
+                          demod_models=DEMOD_MODELS, frame_b=FRAME_B, ofdm_shapes=OFDM_SHAPES, any_shapes=ANY_SHAPES,
+                          tm_any_shapes=TM_ANY_SHAPES, long_templates=LONG_TEMPLATES, long_b=LONG_B,
+                          long_out_len=LONG_OUT_LEN)
     run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")

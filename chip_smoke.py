@@ -77,13 +77,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    asserted; compare_walk_tones: tones equal but at near-ties, bf16 best
    and total within RTOL of the symbol's largest energy, float32 as
    compare_split_decisions), on 256 streams and at B = 16,384, timed there
-   against its bound (decide_tones_tm's "presets"); and the CUDA-core body
-   kept for custom geometries (csrc/frame_tm_generic.cu: decide_tones_tm at
-   sps 96 with 32 tones and sps 40 with 8, bf16 and float32, and
-   decide_frame_tm's epilogue at sps 80 with 16 tones, bf16, int8 and
-   float32; tones, words and CRC counts bit-equal, the sums within
-   GENERIC_RTOL, on 256 streams and at B = 16,384, timed there against its
-   bound and the CUDA cores' floor); and the batch-major filterbank off
+   against its bound (decide_tones_tm's "presets"); and the runtime-geometry
+   walk of every custom geometry (csrc/frame_tm_any.cu,
+   phase_kernels_tm_any at TM_ANY_SHAPES: decide_frame_tm at sps 40 with
+   16 tones, aligned-custom's shape, and at sps 80 with 16 and sps 1,920
+   with 16, bf16, int8 and float32; decide_tones_tm at sps 96 with 32
+   tones, sps 40 with 8 and sps 128 with 64, bf16 and float32;
+   check_frame_any: words and CRC counts bit-equal, the sums within RTOL,
+   float32 as check_frame_split; the tones with compare_walk_tones at
+   ANY_RTOL; on 256 streams and at the full batch, timed there against
+   the plain version and the bound); and the search kernels past the
+   one-shot stage (phase_kernels_search_long: search_core.cuh's slab
+   route at templates of 15,360 and 61,440 samples, every dtype pair, B =
+   64, held and timed: each search row's "slab"); and the batch-major filterbank off
    the align+demod kernels' geometry
    (phase_kernels_filterbank_generic): its tensor-core routes at the two
    stream paths' shapes (tone_energies_fused and decide_tones_fused,
@@ -198,7 +204,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    decide_frame_tm.cu's tensor-core walk at sps 48, its bf16 route),
    "aligned-dense-f32" (16,384 float32 mfsk32-dense frames, 32 tones:
    decide_tones_tm:f32, the walk's split at 8 n-tiles; neither aligned
-   path launches frame_tm_generic, the batch-major filterbank or the
+   path launches frame_tm_any, the batch-major filterbank or the
    other dtype's route), "stream-audible-f32" (phase 4's stream on
    mfsk8-audible at receive_stream's float32 defaults, cold and warm: the
    search, then the aligned slice through the batch-major receiver,
@@ -213,7 +219,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    1,200 baud, 16 tones from 600 Hz: sps 40, so the search, then the
    aligned slice through the batch-major receiver on filterbank_any.cu's
    split, filterbank_any:f32; never the compile-time walk, its bfloat16
-   route, decide_tones_tm or the probe);
+   route, decide_tones_tm or the probe); "aligned-custom" (phase 3's
+   aligned time-major receiver on 16,384 bf16 frames of the same modem:
+   decide_frame_tm at sps 40 on frame_tm_any.cu, frame_tm_any's bfloat16
+   route, never decide_frame_tm's walk or another dtype's route); and
+   "stream-slow-f32" (phase 4's stream at receive_stream's float32
+   defaults, cold and warm, B = 1,024, on a slow voice-band modem, 48 kHz,
+   100 baud, 16 tones from 600 Hz: sps 480, whose 15,360-sample preamble
+   passes the search's one-shot stage in float32, so sync_search_fused:f32
+   on search_core.cuh's slab route, then filterbank_any:f32; never a
+   bfloat16 search or filterbank route);
 11. the scale-out layer (anet_torch.parallel, its positions all on the one
    card) and the modem CLI: "sharded-demod" (16,384 aligned mfsk16-fast
    frames, float32 compute, sharded_demodulate on 4 positions and on
@@ -274,7 +289,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    stage: the .pt.trace.json it writes must name demod_probe_fused's probe
    kernel (csrc/demod_probe.cu's probe_kernel, demangled), which the launch
    counts must show too.
-The line before the last is a JSON object with each kernel's numbers (the
+The search kernels' rows carry their slab route's numbers at templates of
+15,360 and 61,440 samples under "slab". The line before the last is a JSON
+object with each kernel's numbers (the
 five kernels with an int8 instantiation carry its numbers under "int8", the
 ten with a float32 route of their own its numbers under "f32"; the
 batch-major filterbank's are on float32 rows, with its bf16 rows' under
@@ -284,10 +301,9 @@ ofdm_track_decide_fused's block route under "block", S = 343
 batch-major, its other shapes and the staged route's under
 "block"."shapes"; the two bodies off the compile-time walks' geometry
 have rows of their own, whose launches the wrappers count under
-kernels.OFF_WALK_KEYS: frame_tm_generic, on no path since every preset
-takes the tensor cores (OFF_PATHS), its numbers decide_tones_tm at sps
-96 with 32 tones, bf16, under "f32" on float32, with sps 40 and the frame
-epilogue beside them; filterbank_any, on stream-custom-f32's path, its
+kernels.OFF_WALK_KEYS: frame_tm_any, on aligned-custom's path, its
+numbers decide_frame_tm at sps 40 with 16 tones, bf16, under "f32" on
+float32, every shape of TM_ANY_SHAPES under "shapes"; filterbank_any, on stream-custom-f32's path, its
 numbers tone_energies_fused at sps 40 with 8 tones under bf16 compute,
 under "f32" under float32 compute on float32 rows, decide_tones_fused's
 under "decide_tones", sps 1,920 and 160 beside them), and the last line
@@ -361,9 +377,8 @@ OFDM_PPM = 150.0  # clock offsets drawn in +-OFDM_PPM
 OFDM_SNR_DB = {"ofdm-fast": 16.0, "ofdm-turbo": 24.0, "ofdm-max": 26.0}
 OFDM_RTOL = 1e-4  # float32 throughout: LLRs (of their scale) and evm2
 GATE_EPS = 1e-4  # a gate may part from the plain version's only this close to a tie
-GENERIC_RTOL = 1e-5  # frame_tm_generic.cu: float32 (int8: int32) sums in another order than the plain version's
-ANY_RTOL = 1e-5  # filterbank_any.cu, bf16 compute: bf16 products exact, float32 sums in another order
-GENERIC_ROW = kernels.OFF_WALK_KEYS["generic"]  # the kernels line's row of csrc/frame_tm_generic.cu
+ANY_RTOL = 1e-5  # filterbank_any.cu and frame_tm_any.cu, bf16: bf16 products exact, float32 sums in another order
+TM_ANY_ROW = kernels.OFF_WALK_KEYS["tm_any"]  # the kernels line's row of csrc/frame_tm_any.cu
 FILTERBANK_ROW = kernels.OFF_WALK_KEYS["any"]  # the row of csrc/filterbank_any.cu, the runtime-geometry walk
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -389,7 +404,7 @@ REPLACES = {
     "decide_tones_fused": ("anet_torch/kernels/csrc/tone_energies.cu", "anet/kernels/__init__.py:172"),
     "sync_search_blockmax": ("anet_torch/kernels/csrc/search_blockmax.cu", "anet/kernels/__init__.py:1300"),
     # decide_tones_tm (and decide_frame_tm, :488) off the tensor-core walk's geometry
-    GENERIC_ROW: ("anet_torch/kernels/csrc/frame_tm_generic.cu", "anet/kernels/__init__.py:269"),
+    TM_ANY_ROW: ("anet_torch/kernels/csrc/frame_tm_any.cu", "anet/kernels/__init__.py:269"),
     # tone_energies_fused (and decide_tones_fused, :172) off the compile-time walk's geometry
     FILTERBANK_ROW: ("anet_torch/kernels/csrc/filterbank_any.cu", "anet/kernels/__init__.py:87"),
 }
@@ -1359,22 +1374,6 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     return results
 
 
-def time_off_walk(label: str, call, x_full, n_bytes: float, n_ops: float, dtype) -> dict:
-    """Time a CUDA-core body off the tensor-core walks' geometry at the full
-    batch: call(True, x) runs the kernel, call(False, x) its plain version;
-    its bound (bytes, or its operations at the peak of the samples' type)
-    and the CUDA cores' floor (its operations at F32_FLOPS_S)."""
-    peaks = {torch.bfloat16: BF16_FLOPS_S, torch.float32: F32_FLOPS_S, torch.int8: INT8_OPS_S}
-    r = {"ms": time_ms(lambda: call(True, x_full)), "plain_ms": time_ms(lambda: call(False, x_full))}
-    r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, peaks[dtype])
-    r["cuda_core_ms"] = n_ops / F32_FLOPS_S * 1e3
-    r["library_ms"] = None  # no one PyTorch call computes the energies or the decisions
-    log(f"  {label}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-        f"({r['bound_by']}), the CUDA cores' floor {r['cuda_core_ms']:.3f} ms")
-    torch.cuda.empty_cache()
-    return r
-
-
 def generic_frame_config() -> ModemConfig:
     """sps 80 with 16 tones, 4 bits a symbol: a geometry of decide_frame_tm
     off the tensor-core walk (no preset has one; the custom configs of
@@ -1398,17 +1397,21 @@ def noisy_data_sections(cfg, gen, dtype) -> torch.Tensor:
     return data.contiguous().to(dtype)
 
 
-def compare_walk_tones(label: str, cfg, x: torch.Tensor) -> float:
+def compare_walk_tones(label: str, cfg, x: torch.Tensor, any_route: bool = False) -> float:
     """decide_tones_tm on its tensor-core walk (route "mma" for bfloat16
-    rows, "split" for float32; never the generic body) against the plain
-    energies of the same symbols: float32 as compare_split_decisions holds
-    it; bfloat16 (bf16 products exact, float32 sums in another order) with
-    the tones equal but where the plain version's two largest energies lie
-    within RTOL of the largest (their count printed), best and total within
-    RTOL of the symbol's largest energy. Returns the max absolute error."""
-    route = "split" if x.dtype == torch.float32 else "mma"
+    rows, "split" for float32), or (``any_route``) on frame_tm_any.cu's
+    ("tm_any", "tm_any_split"), against the plain energies of the same
+    symbols: float32 as compare_split_decisions holds it; bfloat16 (bf16
+    products exact, float32 sums in another order) with the tones equal
+    but where the plain version's two largest energies lie within RTOL
+    (ANY_RTOL on frame_tm_any) of the largest (their count printed), best
+    and total within that of the symbol's largest energy. Returns the max
+    absolute error."""
+    f32 = x.dtype == torch.float32
+    route = ("tm_any_split" if f32 else "tm_any") if any_route else ("split" if f32 else "mma")
+    rtol = ANY_RTOL if any_route else RTOL
     if kernels._tm_operands("decide_tones_tm", cfg, x.dtype, DEV)[1] != route:
-        raise AssertionError(f"{label}: decide_tones_tm does not take the walk's {route} route")
+        raise AssertionError(f"{label}: decide_tones_tm does not take the {route} route")
     got = [v.T for v in kernels.decide_tones_tm(cfg, x)]
     want = tm_energies(cfg, x, 0, x.shape[0] // cfg.samples_per_symbol, x.dtype)
     if x.dtype == torch.float32:
@@ -1416,16 +1419,16 @@ def compare_walk_tones(label: str, cfg, x: torch.Tensor) -> float:
     tone, best, total = got
     scale = want.amax(-1)
     top2 = want.topk(2, dim=-1).values
-    near = (top2[..., 0] - top2[..., 1]) <= RTOL * top2[..., 0]
+    near = (top2[..., 0] - top2[..., 1]) <= rtol * top2[..., 0]
     tone_bad = int(((tone != want.argmax(-1).int()) & ~near).sum())
     d_best, d_total = (best - scale).abs(), (total - want.sum(-1)).abs()
-    best_bad, total_bad = int((d_best > RTOL * scale).sum()), int((d_total > RTOL * scale).sum())
+    best_bad, total_bad = int((d_best > rtol * scale).sum()), int((d_total > rtol * scale).sum())
     worst = max(float(d_best.max()), float(d_total.max()))
-    log(f"  {label}: best/total max abs {worst:.3e}, beyond RTOL of the symbol's largest: best {best_bad}, "
+    log(f"  {label}: best/total max abs {worst:.3e}, beyond {rtol:g} of the symbol's largest: best {best_bad}, "
         f"total {total_bad}; near-ties {int(near.sum())} of {near.numel()}; tones differing off a near-tie "
         f"{tone_bad}")
     if tone_bad or best_bad or total_bad:
-        raise AssertionError(f"{label}: decide_tones_tm's walk is beyond its tolerance")
+        raise AssertionError(f"{label}: decide_tones_tm's {route} route is beyond its tolerance")
     return worst
 
 
@@ -1439,16 +1442,8 @@ def phase_kernels_generic(gen) -> dict:
        frames held with compare_walk_tones, then tiled to B = 16,384, held
        again and timed with the plain version against the bound (bytes, or
        the products at the bf16 peak): decide_tones_tm's "presets".
-    2. csrc/frame_tm_generic.cu, the CUDA-core body kept for custom
-       geometries (on no path, OFF_PATHS): decide_tones_tm at sps 96 with
-       32 tones and sps 40 with 8 tones, bf16 and float32, and
-       decide_frame_tm's epilogue at sps 80 with 16 tones (bf16, int8
-       x127, float32). Each on 256 noisy frames against its plain version
-       (tones, words and CRC counts bit-equal; best, total and the quality
-       sums within GENERIC_RTOL), then tiled to B = 16,384, held again and
-       timed with its plain version against its bound (bytes; or its
-       operations at the peak of the samples' type) and the CUDA cores'
-       floor (its operations at F32_FLOPS_S)."""
+    2. csrc/frame_tm_any.cu, the runtime-geometry walk of every custom
+       geometry: phase_kernels_tm_any."""
     reps = ALIGNED_B // COMPARE_B
     presets = {}
     for model in (AUDIBLE_MODEL, DENSE_MODEL):
@@ -1474,61 +1469,104 @@ def phase_kernels_generic(gen) -> dict:
             del full
             torch.cuda.empty_cache()
     results = {"decide_tones_tm presets": presets}
-    timed = time_off_walk
-
-    def tones(kernel: bool, cfg, x):
-        return kernels.decide_tones_tm(cfg, x) if kernel else kernels.decide_tones_tm_ref(cfg, x)
-
-    for cfg, dtype, key in ((custom_tones_config(), torch.bfloat16, GENERIC_ROW),
-                            (custom_tones_config(), torch.float32, f"{GENERIC_ROW}:f32"),
-                            (custom_filterbank_config(), torch.bfloat16, "tones_sps40_bf16"),
-                            (custom_filterbank_config(), torch.float32, "tones_sps40_f32")):
-        if kernels._tm_operands("decide_tones_tm", cfg, dtype, DEV)[1] != "generic":
-            raise AssertionError(f"{key}: decide_tones_tm does not take the generic body")
-        sps, m = cfg.samples_per_symbol, cfg.num_tones
-        data = noisy_data_sections(cfg, gen, dtype)
-        n_sym = data.shape[0] // sps
-        label = f"{GENERIC_ROW} decide_tones_tm (sps {sps}, {m} tones, {str(dtype).removeprefix('torch.')}"
-        err = compare(f"{label}, B {COMPARE_B})", tones(True, cfg, data), tones(False, cfg, data), (0,), (1, 2),
-                      rtol=GENERIC_RTOL)
-        full = data.repeat(1, reps)
-        del data
-        err = max(err, compare(f"{label}, B {ALIGNED_B})", tones(True, cfg, full), tones(False, cfg, full),
-                               (0,), (1, 2), rtol=GENERIC_RTOL))
-        r = timed(f"{label}, B {ALIGNED_B}, {n_sym} symbols of {sps})", lambda k, x: tones(k, cfg, x), full,
-                  ALIGNED_B * n_sym * (sps * full.element_size() + 12), n_sym * 2 * sps * 2 * m * ALIGNED_B, dtype)
-        results[key] = {"max_abs_err": err, **r, "sps": sps, "tones": m}
-        del full
-
-    # decide_frame_tm's epilogue
-    cfg = generic_frame_config()
-    sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
-    frame = {}
-    pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
-    w = transmit(cfg, pay, device=DEV)
-    w = w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)
-    for dtype in (torch.bfloat16, torch.int8, torch.float32):
-        if kernels._tm_operands("decide_frame_tm", cfg, dtype, DEV)[1] != "generic":
-            raise AssertionError("sps 80: decide_frame_tm does not take the generic body")
-        x = quantize_x127(w) if dtype == torch.int8 else w.T.contiguous().to(dtype)
-        name = f"{GENERIC_ROW} decide_frame_tm (sps {sps}, {m} tones, {str(dtype).removeprefix('torch.')}"
-
-        def frames(kernel: bool, x_):
-            f = kernels.decide_frame_tm if kernel else kernels.decide_frame_tm_ref
-            return f(cfg, x_, PAYLOAD, preamble_offset=pre)
-
-        full = x.repeat(1, reps)
-        err = max(compare(f"{name}, B {b})", frames(True, x_), frames(False, x_), (0, 1), (2,), rtol=GENERIC_RTOL)
-                  for b, x_ in ((COMPARE_B, x), (ALIGNED_B, full)))
-        s = tframe.data_symbols_for_payload(cfg, PAYLOAD)
-        n_tiles = -(-s // kernels.TM_SYMBOL_TILE)
-        frame[str(dtype).removeprefix("torch.")] = {"max_abs_err": err, **timed(
-            f"{name}, B {ALIGNED_B}, {s} symbols)", frames, full,
-            ALIGNED_B * (s * sps * full.element_size() + 4 * (n_tiles + 64 + 8)), s * 2 * sps * 2 * m * ALIGNED_B, dtype)}
-        del x, full
-    results[GENERIC_ROW].update(frame_epilogue=frame, tones_sps40_bf16=results.pop("tones_sps40_bf16"),
-                                tones_sps40_f32=results.pop("tones_sps40_f32"))
+    results.update(phase_kernels_tm_any(gen))
     return results
+
+
+def check_frame_any(label: str, cfg, x_tm: torch.Tensor, pre: int) -> float:
+    """decide_frame_tm on frame_tm_any.cu (its route asserted) against its
+    plain version: bf16 and int8 frames with check_frame (words and CRC
+    counts bit-equal, the quality sums within RTOL), float32 frames with
+    check_frame_split."""
+    route = "tm_any_split" if x_tm.dtype == torch.float32 else "tm_any"
+    if kernels._tm_operands("decide_frame_tm", cfg, x_tm.dtype, DEV)[1] != route:
+        raise AssertionError(f"{label}: decide_frame_tm does not take the {route} route")
+    check = check_frame_split if x_tm.dtype == torch.float32 else check_frame
+    return check(label, cfg, x_tm, pre)
+
+
+def sps1920_config() -> ModemConfig:
+    """25 baud at 48 kHz, 16 tones: 1,920 samples a symbol (120 k-steps)."""
+    return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=25, num_tones=16, base_freq_hz=1000.0)
+
+
+def tones64_config() -> ModemConfig:
+    """sps 128 with 64 tones: past every compile-time walk's 32 tones, two
+    groups of frame_tm_any.cu."""
+    return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=375, num_tones=64, base_freq_hz=187.5)
+
+
+# frame_tm_any.cu's held and timed shapes in phase 2: (label, config, wrapper,
+# dtypes, B): aligned-custom's (sps 40, 16 tones, decide_frame_tm), the CUDA-core
+# body's old ones (sps 96 with 32 tones and sps 40 with 8, decide_tones_tm; the
+# frame epilogue at sps 80), sps 1,920 and 64 tones; payload 256's data symbols
+TM_ANY_SHAPES = (
+    ("sps40-m16", lambda: CUSTOM_STREAM_CONFIG, "decide_frame_tm", (torch.bfloat16, torch.int8, torch.float32),
+     ALIGNED_B),
+    ("sps96-m32", custom_tones_config, "decide_tones_tm", (torch.bfloat16, torch.float32), ALIGNED_B),
+    ("sps40-m8", lambda: custom_filterbank_config(), "decide_tones_tm", (torch.bfloat16, torch.float32), ALIGNED_B),
+    ("sps80-m16", generic_frame_config, "decide_frame_tm", (torch.bfloat16, torch.int8, torch.float32), ALIGNED_B),
+    ("sps1920-m16", sps1920_config, "decide_frame_tm", (torch.bfloat16, torch.int8, torch.float32), 256),
+    ("sps128-m64", tones64_config, "decide_tones_tm", (torch.bfloat16, torch.float32), 4096),
+)
+
+
+def phase_kernels_tm_any(gen) -> dict:
+    """Phase 2 for csrc/frame_tm_any.cu, the time-major pair at every
+    custom geometry off decide_frame_tm.cu's walk (TM_ANY_SHAPES): on the
+    frames (decide_frame_tm, from the preamble's end) or data sections
+    (decide_tones_tm) of COMPARE_B noisy frames, held against the plain
+    version (check_frame_any; compare_walk_tones on the "tm_any" routes),
+    then tiled to the shape's B, held again and timed with the plain
+    version against the bound (bytes: the samples read once, the outputs
+    written once; or the products at the peak of the samples' type). The
+    kernels line's frame_tm_any row: aligned-custom's shape in bfloat16,
+    float32 under "f32", every shape under "shapes"."""
+    out, shapes = {}, {}
+    for label, make, wrapper, dtypes, batch in TM_ANY_SHAPES:
+        cfg = make()
+        sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
+        n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+        pay = torch.randint(0, 256, (COMPARE_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+        w = transmit(cfg, pay, device=DEV)
+        w = w + 0.3 * torch.randn(w.shape, generator=gen, device=DEV)
+        reps = batch // COMPARE_B
+        for dtype in dtypes:
+            name = f"{label} {wrapper} {str(dtype).removeprefix('torch.')}"
+            if wrapper == "decide_frame_tm":
+                x = quantize_x127(w) if dtype == torch.int8 else w.T.contiguous().to(dtype)
+                err = check_frame_any(f"{TM_ANY_ROW} {name}, B {COMPARE_B}", cfg, x, pre)
+                full = x.repeat(1, reps)
+                del x
+                err = max(err, check_frame_any(f"{TM_ANY_ROW} {name}, B {batch}", cfg, full, pre))
+                call = lambda f: f(cfg, full, PAYLOAD, preamble_offset=pre)  # noqa: E731
+                n_tiles = -(-n_sym // kernels.TM_SYMBOL_TILE)
+                n_bytes = batch * (n_sym * sps * full.element_size() + 4 * (n_tiles + 64 + 8))
+            else:
+                x = w.T[pre:].contiguous().to(dtype)
+                err = compare_walk_tones(f"{TM_ANY_ROW} {name}, B {COMPARE_B}", cfg, x, any_route=True)
+                full = x.repeat(1, reps)
+                del x
+                err = max(err, compare_walk_tones(f"{TM_ANY_ROW} {name}, B {batch}", cfg, full, any_route=True))
+                call = lambda f: f(cfg, full)  # noqa: E731
+                n_bytes = batch * n_sym * (sps * full.element_size() + 12)
+            torch.cuda.empty_cache()
+            products = F32_SPLIT_PRODUCTS if dtype == torch.float32 else 1
+            peak = INT8_OPS_S if dtype == torch.int8 else BF16_FLOPS_S
+            r = {"max_abs_err": err, "ms": time_ms(lambda: call(getattr(kernels, wrapper))),
+                 "plain_ms": time_ms(lambda: call(getattr(kernels, f"{wrapper}_ref"))), "library_ms": None,
+                 "B": batch, "symbols": n_sym}
+            r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, products * n_sym * 2 * sps * 2 * m * batch, peak)
+            log(f"  {TM_ANY_ROW} {name}, B {batch}, {n_sym} symbols of {sps}, {m} tones: kernel {r['ms']:.3f} ms, "
+                f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+            shapes[name] = r
+            del full
+            torch.cuda.empty_cache()
+        del w
+    main = shapes["sps40-m16 decide_frame_tm bfloat16"]
+    out[TM_ANY_ROW] = {**main, "shapes": shapes}
+    out[f"{TM_ANY_ROW}:f32"] = shapes["sps40-m16 decide_frame_tm float32"]
+    return out
 
 
 def custom_filterbank_config() -> ModemConfig:
@@ -1538,9 +1576,13 @@ def custom_filterbank_config() -> ModemConfig:
     return ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, num_tones=8, base_freq_hz=600.0)
 
 
-# stream-custom-f32's config: 48 kHz, 1,200 baud (sps 40), 16 tones from 600
-# Hz (the top tone 18.6 kHz), a modem no preset has
+# stream-custom-f32's and aligned-custom's config: 48 kHz, 1,200 baud (sps 40),
+# 16 tones from 600 Hz (the top tone 18.6 kHz), a modem no preset has
 CUSTOM_STREAM_CONFIG = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, num_tones=16, base_freq_hz=600.0)
+# stream-slow-f32's config: 48 kHz, 100 baud (sps 480), 16 tones from 600 Hz
+# (600-2,100 Hz, voice band): a 32-symbol preamble of 15,360 samples
+SLOW_STREAM_CONFIG = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=100, num_tones=16, base_freq_hz=600.0)
+SLOW_STREAM_B = 1024  # its batch: 6 frames of 272,640 float32 samples a stream, 7.1 GB of capture
 # filterbank_any.cu's held and timed geometries in phase 2: (label, config, B);
 # sps 40 with 16 tones at B = 8,192 is stream-custom-f32's own shape
 ANY_GEOMETRIES = (
@@ -1758,8 +1800,8 @@ def verdict_words(out: str) -> list[str]:
     return re.findall(r"\b(?:offset|ok|len|magic|crc)=\S+", out)
 
 
-def locked_stream_capture(cfg, gen, label: str, dtype: torch.dtype = torch.bfloat16):
-    """(capture [STREAM_B, total], payloads [frames, B, payload], chunk,
+def locked_stream_capture(cfg, gen, label: str, dtype: torch.dtype = torch.bfloat16, batch: int = STREAM_B):
+    """(capture [batch, total], payloads [frames, B, payload], chunk,
     total) of phase 4: a GAP0-sample gap, then N_FRAMES back-to-back frames,
     of ``dtype`` (bf16, float32, or int8 through quantize_int8); chunk =
     frame // 128 * 128."""
@@ -1767,16 +1809,16 @@ def locked_stream_capture(cfg, gen, label: str, dtype: torch.dtype = torch.bfloa
     chunk = t_frame // 128 * 128
     total = -(-(GAP0 + N_FRAMES * t_frame) // chunk) * chunk
     ingest = quantize_int8 if dtype == torch.int8 else (lambda w: w.to(dtype))
-    cap = torch.zeros(STREAM_B, total, dtype=dtype, device=DEV)
+    cap = torch.zeros(batch, total, dtype=dtype, device=DEV)
     tx = family.transmit_fn(cfg, DEV)
     sent = []
     for i in range(N_FRAMES):
-        pay = torch.randint(0, 256, (STREAM_B, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+        pay = torch.randint(0, 256, (batch, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
         pos = GAP0 + i * t_frame
         cap[:, pos : pos + t_frame] = ingest(tx(pay))
         sent.append(pay)
     sent = torch.stack(sent)  # [frames, B, payload]
-    log(f"{label}: B {STREAM_B}, capture {total} samples {str(dtype).removeprefix('torch.')} "
+    log(f"{label}: B {batch}, capture {total} samples {str(dtype).removeprefix('torch.')} "
         f"({cap.numel() * cap.element_size() / 1e9:.2f} GB), chunk {chunk}")
     return cap, sent, chunk, total
 
@@ -1792,18 +1834,19 @@ def stream_frames_right(steps, sent: torch.Tensor) -> bool:
 
 
 def phase_stream(cfg, gen, label: str = "stream", dtype: torch.dtype = torch.bfloat16,
-                 runs: tuple[str, ...] = ("cold", "warm-lock")) -> None:
-    """Phase 4: the locked streaming receiver at B = 8,192, cold and warm
-    (either family), through the carry path (resident=False), on a carry of
-    ``dtype``: bf16 with bf16 compute; int8 with bf16 compute, the capture
-    quantized once at the ingest edge (quantize_int8); float32 with float32
-    compute, receive_stream's defaults."""
-    cap, sent, chunk, total = locked_stream_capture(cfg, gen, label, dtype)
+                 runs: tuple[str, ...] = ("cold", "warm-lock"), batch: int = STREAM_B) -> None:
+    """Phase 4: the locked streaming receiver at B = 8,192 (or ``batch``),
+    cold and warm (either family), through the carry path (resident=False),
+    on a carry of ``dtype``: bf16 with bf16 compute; int8 with bf16
+    compute, the capture quantized once at the ingest edge
+    (quantize_int8); float32 with float32 compute, receive_stream's
+    defaults."""
+    cap, sent, chunk, total = locked_stream_capture(cfg, gen, label, dtype, batch)
     compute = torch.float32 if dtype == torch.float32 else torch.bfloat16
     fresh = {  # a cold carry of None is receive_stream's own: a buffer of the compute dtype
-        "cold": lambda: init_carry(cfg, chunk, PAYLOAD, (STREAM_B,), dtype=dtype, device=DEV)
+        "cold": lambda: init_carry(cfg, chunk, PAYLOAD, (batch,), dtype=dtype, device=DEV)
         if dtype == torch.int8 else None,
-        "warm-lock": lambda: warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV, dtype),
+        "warm-lock": lambda: warm_lock_carry(cfg, chunk, PAYLOAD, batch, DEV, dtype),
     }
     for run in runs:
         carry = fresh[run]()
@@ -1816,9 +1859,9 @@ def phase_stream(cfg, gen, label: str = "stream", dtype: torch.dtype = torch.bfl
         det = res.steps.detected
         got = res.steps.frame.payload[det.any(1)]  # [frames, B, payload]
         right = bool(det.sum(0).eq(N_FRAMES).all()) and got.shape == sent.shape and torch.equal(got, sent)
-        log(f"{label} {run}: frames_ok {frames_ok} of {STREAM_B * N_FRAMES}, payloads right {right}, "
-            f"{STREAM_B * total / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
-        if frames_ok != STREAM_B * N_FRAMES or not right:
+        log(f"{label} {run}: frames_ok {frames_ok} of {batch * N_FRAMES}, payloads right {right}, "
+            f"{batch * total / dt / 1e6:.1f} Msamples/s ({dt:.3f} s)")
+        if frames_ok != batch * N_FRAMES or not right:
             raise AssertionError(f"{label} {run}: frames_ok {frames_ok}, payloads right {right}")
         if run == "cold" and launched(kernels.launch_counts, "sync_search_fused") == 0:
             raise AssertionError(f"{label} cold: the search kernel never launched")
@@ -2127,6 +2170,75 @@ def phase_aligned_bm(cfg, gen, decide: bool = False, iters: int = 5) -> None:
         f"{ALIGNED_B * t_frame * iters / dt / 1e6:.1f} Msamples/s ({dt / iters * 1e3:.2f} ms/batch)")
     if decide:
         batch_major_frames.cache_clear()
+
+
+LONG_TEMPLATES = (15_360, 61_440)  # sps 480's and sps 1,920's 32-symbol preambles
+LONG_B, LONG_OUT_LEN = 64, 36_352  # phase 2's streams and lags at those templates
+SEARCH_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                (torch.float32, torch.bfloat16), (torch.float32, torch.float32))
+
+
+def phase_kernels_search_long(gen) -> dict:
+    """Phase 2 for the search kernels past the one-shot stage
+    (search_core.cuh's slab route): sync_search_fused, sync_search_blockmax
+    and correlate_fused at templates of 15,360 and 61,440 samples, every
+    (segment, template) dtype pair, LONG_B streams of noise with the
+    template planted at a random lag, strided segments from sample 1: the
+    search's lags equal to the plain version's and the planted ones, its
+    qualities and the block maxima within RTOL, every lag of the
+    correlation within RTOL of its scale; each timed with its plain
+    version against its bound (the segment read once, the output written
+    once, 2 k out_len B operations at the bf16 peak). Returns
+    {name: {"k <k> <seg>/<template>": numbers}}, the kernels line's
+    "slab"."""
+    out = {"sync_search_fused": {}, "sync_search_blockmax": {}, "correlate_fused": {}}
+    b, n = LONG_B, LONG_OUT_LEN
+    for k in LONG_TEMPLATES:
+        t = torch.randn(k, generator=gen, device=DEV)
+        lags = torch.randint(0, n, (b,), generator=gen, device=DEV)
+        buf = torch.randn(b, n + k + 40, generator=gen, device=DEV)
+        idx = 1 + lags[:, None] + torch.arange(k, device=DEV)
+        buf.scatter_add_(1, idx, 0.5 * t.expand(b, k))
+        for seg_dtype, tpl_dtype in SEARCH_PAIRS:
+            seg = buf.to(seg_dtype)[:, 1 : n + k]
+            tpl = t.to(tpl_dtype)
+            te = float((tpl.float() ** 2).sum())
+            label = f"k {k} {str(seg_dtype).removeprefix('torch.')}/{str(tpl_dtype).removeprefix('torch.')}"
+            q, i = kernels.sync_search_fused(seg, tpl, n, te)
+            rq, ri = kernels.sync_search_fused_ref(seg, tpl, n, te)
+            if not (torch.equal(i, ri) and torch.equal(i, lags.int())):
+                raise AssertionError(f"sync_search_fused ({label}): lags differ in {int((i != ri).sum())} streams")
+            errs = {"sync_search_fused": compare(f"sync_search_fused slab ({label})", (q,), (rq,), (), (0,))}
+            bm = kernels.sync_search_blockmax(seg, tpl, n, te)
+            errs["sync_search_blockmax"] = compare(f"sync_search_blockmax slab ({label})", (bm,),
+                                                   (kernels.sync_search_blockmax_ref(seg, tpl, n, te),), (), (0,))
+            if not torch.equal(bm.amax(-1), q):
+                raise AssertionError(f"sync_search_blockmax ({label}): its maximum is not the search's best")
+            corr, want = kernels.correlate_fused(seg, tpl, n), kernels.correlate_fused_ref(seg, tpl, n)
+            scale = float(want.square().mean().sqrt())
+            errs["correlate_fused"] = compare(f"correlate_fused slab ({label})", (corr,), (want,), (), (0,),
+                                              atol=RTOL * scale)
+            del q, rq, bm, corr, want
+            torch.cuda.empty_cache()
+            calls = {
+                "sync_search_fused": lambda f: f(seg, tpl, n, te),
+                "sync_search_blockmax": lambda f: f(seg, tpl, n, te),
+                "correlate_fused": lambda f: f(seg, tpl, n),
+            }
+            out_bytes = {"sync_search_fused": 8, "sync_search_blockmax": 4 * n // 128, "correlate_fused": 4 * n}
+            for name, call in calls.items():
+                r = {"max_abs_err": errs[name], "ms": time_ms(lambda: call(getattr(kernels, name))),
+                     "plain_ms": time_ms(lambda: call(getattr(kernels, f"{name}_ref"))), "library_ms": None}
+                torch.cuda.empty_cache()
+                r["bound_ms"], r["bound_by"] = bound_ms(b * ((n + k - 1) * seg.element_size() + out_bytes[name]),
+                                                        2 * k * n * b)
+                log(f"  {name} slab ({label}, B {b}, out_len {n}): kernel {r['ms']:.3f} ms, plain "
+                    f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+                out[name][label] = r
+            del seg
+            torch.cuda.empty_cache()
+        del buf, idx
+    return out
 
 
 def phase_search_blockmax(cfg, gen) -> None:
@@ -3467,6 +3579,18 @@ PATHS = {
         lambda cfg, gen: phase_stream(cfg, gen, "stream-custom-f32", torch.float32),
         ("sync_search_fused", f"{FILTERBANK_ROW}:f32"),
     ),
+    # the same custom modem's aligned time-major receiver: the time-major
+    # pair's runtime-geometry walk
+    "aligned-custom": (
+        CUSTOM_STREAM_CONFIG, lambda cfg, gen: phase_aligned(cfg, gen, "aligned-custom"), (TM_ANY_ROW,),
+    ),
+    # a slow voice-band modem whose 15,360-sample preamble passes the
+    # one-shot search stage in float32: the search's slab route
+    "stream-slow-f32": (
+        SLOW_STREAM_CONFIG,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-slow-f32", torch.float32, batch=SLOW_STREAM_B),
+        ("sync_search_fused:f32", f"{FILTERBANK_ROW}:f32"),
+    ),
     "sharded-demod": (MODEL, phase_sharded_demod, ("tone_energies_fused:f32",)),
     "ber-sweep": (MODEL, phase_ber_sweep, ("tone_energies_fused:f32",)),
     "sharded-long": (MODEL, phase_sharded_long, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
@@ -3500,8 +3624,12 @@ PATHS = {
 # body, their streams never the time-major pair, and their streams'
 # filterbank takes its compile-time walk, never filterbank_any.cu; a custom
 # config's stream takes filterbank_any.cu's float32 route only (the
-# CUDA-core body it replaces, filterbank_cuda_core, is gone with its key);
-# an OFDM frame past shared memory never takes the equalizer's staged route.
+# CUDA-core body it replaces, filterbank_cuda_core, is gone with its key),
+# and sps 480's float32 stream the search's float32 route only; a custom
+# config's aligned receiver takes frame_tm_any.cu's bfloat16 route only,
+# never decide_frame_tm's walk (frame_tm_generic.cu, the CUDA-core body it
+# replaces, is gone with its key); an OFDM frame past shared memory never
+# takes the equalizer's staged route.
 OFF_THE_WALK = ("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused", "decide_frame_tm")
 ABSENT = {
     "aligned-f32": ("decide_frame_tm:bf16", "decide_frame_tm:int8", "decide_tones_tm"),
@@ -3513,23 +3641,25 @@ ABSENT = {
     "oneshot-tracked": tuple(kernels.launch_counts),
     "stream-tracked": ("demod_at_fused", "demod_probe_fused"),
     "stream-resident": ("probe_at_fused", "demod_probe_fused"),
-    "aligned-audible": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", GENERIC_ROW,
+    "aligned-audible": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", TM_ANY_ROW,
                         "decide_tones_tm:f32"),
-    "aligned-dense-f32": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", GENERIC_ROW,
+    "aligned-dense-f32": (*OFF_THE_WALK, "tone_energies_fused", "decide_tones_fused", TM_ANY_ROW,
                           "decide_tones_tm:bf16"),
-    "stream-audible-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", GENERIC_ROW, FILTERBANK_ROW,
+    "stream-audible-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", TM_ANY_ROW, FILTERBANK_ROW,
                            "tone_energies_fused:bf16"),
-    "stream-dense": (*OFF_THE_WALK, "decide_tones_tm", GENERIC_ROW, FILTERBANK_ROW, "tone_energies_fused:f32"),
-    "stream-custom-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", GENERIC_ROW, "tone_energies_fused",
+    "stream-dense": (*OFF_THE_WALK, "decide_tones_tm", TM_ANY_ROW, FILTERBANK_ROW, "tone_energies_fused:f32"),
+    "stream-custom-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", TM_ANY_ROW, "tone_energies_fused",
                           "decide_tones_fused", f"{FILTERBANK_ROW}:bf16"),
+    "aligned-custom": (*OFF_THE_WALK, "decide_frame_tm:int8", "decide_tones_tm", f"{TM_ANY_ROW}:f32",
+                       f"{TM_ANY_ROW}:int8", "tone_energies_fused", "decide_tones_fused", FILTERBANK_ROW),
+    "stream-slow-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", TM_ANY_ROW, "tone_energies_fused",
+                        "decide_tones_fused", f"{FILTERBANK_ROW}:bf16", "sync_search_fused:bf16"),
     "aligned-ofdm-long": (ofdm_path_key(OFDM_LONG_MODEL, picked=False),),
     "aligned-ofdm-4k": (ofdm_path_key(OFDM_4K_MODEL, picked=False),),
 }
-# Rows of the kernels line on no path: frame_tm_generic serves only custom
-# geometries (every preset takes the tensor cores), held and timed in
-# phase 2 (at sps 96 and 40, and its frame epilogue at sps 80).
-# filterbank_any runs on stream-custom-f32's path.
-OFF_PATHS = (GENERIC_ROW,)
+# Rows of the kernels line on no path: none since frame_tm_any runs on
+# aligned-custom's path and filterbank_any on stream-custom-f32's.
+OFF_PATHS = ()
 
 
 def launched(counts: dict, name: str) -> int:
@@ -3574,6 +3704,9 @@ def main() -> int:
     results.update(phase_kernels_ofdm_long(gen))
     torch.cuda.empty_cache()
     results.update(phase_kernels_batch_major(get_model(MODEL).config, gen))
+    torch.cuda.empty_cache()
+    for name, slab in phase_kernels_search_long(gen).items():
+        results[name]["slab"] = slab
     torch.cuda.empty_cache()
     generic = phase_kernels_generic(gen)
     results["decide_tones_tm"]["presets"] = generic.pop("decide_tones_tm presets")
@@ -3621,6 +3754,8 @@ def main() -> int:
                 row[route] = {"launches": counts[key], **results[key]}
         if "presets" in r:  # decide_tones_tm and the batch-major filterbank at the presets off the other walks
             row["presets"] = r["presets"]
+        if "slab" in r:  # the search kernels past the one-shot stage
+            row["slab"] = r["slab"]
         if name in kernels.OFF_WALK_KEYS.values():  # their other shapes and epilogues
             row.update({k: v for k, v in r.items() if k not in row})
         if name not in OFF_PATHS and (launched(counts, name) == 0 or any(

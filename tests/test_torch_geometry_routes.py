@@ -17,8 +17,9 @@ configs), anet_torch against the JAX package on the CPU.
 - The aligned time-major receiver on both presets equals anet's with its
   Pallas decide_tones_tm in interpret mode; decide_frame_tm's plain version
   equals anet's interpreted decide_frame_tm at two custom geometries.
-- The generic body's basis operand and launch code, the card's calls
-  replaced by recorders; its launches count under their own key.
+- The runtime-geometry walk's (csrc/frame_tm_any.cu) basis operand and
+  launch code, the card's calls replaced by recorders; its launches count
+  under their own key.
 """
 
 import functools
@@ -72,14 +73,15 @@ def test_one_predicate_picks_every_route(name):
     tones; elsewhere _check_kernel_geometry raises, naming the field at
     fault (the tone count first). The stream steps fuse there and slice
     elsewhere, and decide_frame_tm takes the walk there ("mma" or "split"
-    by dtype) and the generic body elsewhere. The batch-major filterbank
-    and decide_tones_tm follow the wider predicate,
-    _filterbank_tensor_core_geometry (sps 32, 48, 64, 80 or 128, at most
-    32 tones): their compile-time walks there; elsewhere decide_tones_tm's
-    CUDA-core body and the filterbank's runtime-geometry walk
-    (filterbank_any.cu: entries ``*_any`` / ``*_any_f32``, routes "any" /
-    "any_split" by the compute dtype, _filterbank_any_basis). No geometry
-    is left without a route."""
+    by dtype) and the runtime-geometry walk elsewhere (frame_tm_any.cu:
+    entry ``decide_frame_tm_any``, route "tm_any", or "tm_any_split" for
+    float32). The batch-major filterbank and decide_tones_tm follow the
+    wider predicate, _filterbank_tensor_core_geometry (sps 32, 48, 64, 80
+    or 128, at most 32 tones): their compile-time walks there; elsewhere
+    their runtime-geometry walks (frame_tm_any.cu's ``decide_tones_tm_any``;
+    filterbank_any.cu: entries ``*_any`` / ``*_any_f32``, routes "any" /
+    "any_split" by the compute dtype), both with _filterbank_any_basis. No
+    geometry is left without a route."""
     cfg = GEOMETRIES[name]
     fast = tk._tensor_core_geometry(cfg)
     assert fast == (cfg.samples_per_symbol in (32, 64, 128) and cfg.num_tones <= 16)
@@ -98,12 +100,13 @@ def test_one_predicate_picks_every_route(name):
         for kind in kinds:
             if kind == "decide_frame_tm" and cfg.num_tones > 16:
                 continue  # past the reference's bound: the wrapper raises
-            entry, route, _ = tk._tm_operands(kind, cfg, dt, CPU)
+            entry, route, basis = tk._tm_operands(kind, cfg, dt, CPU)
             if fast if kind == "decide_frame_tm" else walk:
                 assert route == ("split" if key == "f32" else "mma")
                 assert entry == (kind if kind == "decide_frame_tm" else f"{kind}_mma")
             else:
-                assert (entry, route) == (f"{kind}_generic", "generic")
+                assert (entry, route) == (f"{kind}_any", "tm_any_split" if key == "f32" else "tm_any")
+                assert basis is tk._filterbank_any_basis(cfg, dt, CPU)
     for compute in (torch.float32, torch.bfloat16):
         entry, route, basis = tk._filterbank_operands("tone_energies", cfg, compute, CPU)
         f32 = compute == torch.float32
@@ -116,24 +119,28 @@ def test_one_predicate_picks_every_route(name):
 
 @pytest.mark.parametrize("dtype", list(TM_DTYPES))
 @pytest.mark.parametrize("geometry", [*PRESETS, "sps48-m4", "sps160-m64", "sps24-m2"])
-def test_generic_tm_basis_layout(geometry, dtype):
-    """csrc/frame_tm_generic.cu's basis: [M / G, sps, 2G] with G = min(M,
-    16) tones a pass, row k of pass p the cos of tones pG .. pG + G - 1,
-    then their sin, entries those of _plain_basis for the samples' dtype:
-    float32 (bf16-rounded for bfloat16 samples), int32 x127 integers for
-    int8. Made once a config, dtype and device."""
+def test_tm_any_basis_layout(geometry, dtype):
+    """csrc/frame_tm_any.cu's basis (kernels._filterbank_any_basis for the
+    samples' dtype), unpacked as the kernel reads it: per group of 32
+    tones the interleaved columns (2c the cos of the group's tone c, 2c +
+    1 its sin) of _plain_basis's entries over k-steps of 16 samples (32
+    for int8, its x127 integers a byte each), zero rows past sps and zero
+    columns past the group's tones; float32 as three bf16 terms summing to
+    the entries exactly. Made once a config, dtype and device."""
+    from test_torch_frame_tm_any import unpack_any_basis
+
     cfg, dt = GEOMETRIES[geometry], TM_DTYPES[dtype]
     m, sps = cfg.num_tones, cfg.samples_per_symbol
-    g = min(m, tk.TM_GENERIC_TONES)
-    basis = tk._generic_tm_basis(cfg, dt, CPU)
-    assert basis is tk._generic_tm_basis(cfg, dt, CPU)
-    assert basis.shape == (m // g, sps, 2 * g) and basis.is_contiguous()
-    assert basis.dtype == (torch.int32 if dt == torch.int8 else torch.float32)
-    plain = tk._plain_basis(cfg, dt, CPU)
-    for p in range(m // g):
-        for j in range(g):
-            assert torch.equal(basis[p, :, j].float(), plain[:, p * g + j])
-            assert torch.equal(basis[p, :, g + j].float(), plain[:, m + p * g + j])
+    basis = tk._filterbank_any_basis(cfg, dt, CPU)
+    assert basis is tk._filterbank_any_basis(cfg, dt, CPU) and basis.dtype == torch.int32
+    cols = unpack_any_basis(cfg, dt, basis)  # [groups, rows, 8 nt], float64
+    gm = min(m, tk.FILTERBANK_GROUP)
+    plain = tk._plain_basis(cfg, dt, CPU).double().numpy()
+    assert cols.shape[1] >= sps and not cols[:, sps:].any()
+    for grp in range(m // gm):
+        np.testing.assert_array_equal(cols[grp, :sps, 0 : 2 * gm : 2], plain[:, grp * gm : (grp + 1) * gm])
+        np.testing.assert_array_equal(cols[grp, :sps, 1 : 2 * gm : 2], plain[:, m + grp * gm : m + (grp + 1) * gm])
+        assert not cols[grp, :, 2 * gm :].any()
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
@@ -197,12 +204,13 @@ def _record_launches(monkeypatch) -> list:
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("geometry", ["sps24-m8", "sps96-m32", "sps160-m64"])
-def test_decide_tones_tm_generic_launch(monkeypatch, geometry, dtype):
+def test_decide_tones_tm_any_launch(monkeypatch, geometry, dtype):
     """decide_tones_tm off its walk's geometry (sps 24, 96, 160; 64 tones):
-    the generic entry of the frame_tm_generic library with the arguments
-    of the walk's entry (data, dtype code, B, sps, tones, symbols, basis,
-    outputs) and _generic_tm_basis; one launch counted under the generic
-    body's key, frame_tm_generic, none under decide_tones_tm's."""
+    the entry decide_tones_tm_any of the frame_tm_any library with the
+    arguments of the walk's entry (data, dtype code, B, sps, tones,
+    symbols, basis, outputs) and _filterbank_any_basis; one launch counted
+    under the runtime-geometry walk's key, frame_tm_any, none under
+    decide_tones_tm's."""
     from anet_torch.kernels import build
 
     cfg, dt = GEOMETRIES[geometry], TM_DTYPES[dtype]
@@ -211,13 +219,15 @@ def test_decide_tones_tm_generic_launch(monkeypatch, geometry, dtype):
     calls = _record_launches(monkeypatch)
     tone, best, total = tk._decide_tones_tm_launch(cfg, x)
     (key, args), checked = calls
-    assert checked == ("checked", "decide_tones_tm", "generic") and key == "decide_tones_tm_generic"
-    assert build.SIGNATURES[key][2] == "frame_tm_generic" and "frame_tm_generic" in build.SOURCES
+    route = "tm_any_split" if dt == torch.float32 else "tm_any"
+    assert checked == ("checked", "decide_tones_tm", route) and key == "decide_tones_tm_any"
+    assert build.SIGNATURES[key][2] == "frame_tm_any" and "frame_tm_any" in build.SOURCES
+    assert "frame_tm_generic" not in build.SOURCES
     assert build.SIGNATURES[key][1] == build.SIGNATURES["decide_tones_tm_mma"][1]
     assert {k: v for k, v in tk.launch_counts.items() if v} == {
-        "frame_tm_generic" + (":f32" if dt == torch.float32 else ""): 1
+        "frame_tm_any" + (":f32" if dt == torch.float32 else ""): 1
     }
-    basis = tk._generic_tm_basis(cfg, dt, CPU)
+    basis = tk._filterbank_any_basis(cfg, dt, CPU)
     assert args == (x.data_ptr(), tk._KERNEL_DTYPES[dt], 7, sps, cfg.num_tones, 5, basis.data_ptr(),
                     tone.data_ptr(), best.data_ptr(), total.data_ptr(), 0)
 
@@ -230,7 +240,7 @@ def test_decide_tones_tm_walk_launch(monkeypatch, geometry, dtype):
     tensor-core entry of the decide_frame_tm library, route "mma" for
     bfloat16 and "split" for float32 data, with _demod_at_basis (8 n-tiles
     past 16 tones); one launch counted under decide_tones_tm's key (":f32"
-    for float32), none under frame_tm_generic's."""
+    for float32), none under frame_tm_any's."""
     from anet_torch.kernels import build
 
     cfg, dt = GEOMETRIES[geometry], TM_DTYPES[dtype]
@@ -254,12 +264,12 @@ def test_decide_tones_tm_walk_launch(monkeypatch, geometry, dtype):
 
 @pytest.mark.parametrize("dtype", list(TM_DTYPES))
 @pytest.mark.parametrize("geometry", ["sps48-m4", "sps80-m16", "sps24-m2"])
-def test_decide_frame_tm_generic_launch(monkeypatch, geometry, dtype):
-    """decide_frame_tm off the walk's geometry: the generic entry with the
-    walk's arguments, _generic_tm_basis and the packed-word CRC masks; one
-    launch under frame_tm_generic's key for the dtype. Past the reference's
-    bounds it still raises: more than 16 tones, or bits a symbol outside
-    {1, 2, 4}."""
+def test_decide_frame_tm_any_launch(monkeypatch, geometry, dtype):
+    """decide_frame_tm off the walk's geometry: the entry
+    decide_frame_tm_any with the walk's arguments, _filterbank_any_basis
+    for the samples' dtype and the packed-word CRC masks; one launch under
+    frame_tm_any's key for the dtype. Past the reference's bounds it still
+    raises: more than 16 tones, or bits a symbol outside {1, 2, 4}."""
     from anet_torch.kernels import build
 
     cfg, dt = GEOMETRIES[geometry], TM_DTYPES[dtype]
@@ -270,13 +280,15 @@ def test_decide_frame_tm_generic_launch(monkeypatch, geometry, dtype):
     calls = _record_launches(monkeypatch)
     words, crc, qual, n_sym = tk._decide_frame_tm_launch(cfg, x, PAY, pre)
     (key, args), checked = calls
-    assert checked == ("checked", "decide_frame_tm", "generic") and key == "decide_frame_tm_generic"
+    route = "tm_any_split" if dt == torch.float32 else "tm_any"
+    assert checked == ("checked", "decide_frame_tm", route) and key == "decide_frame_tm_any"
     assert build.SIGNATURES[key][1] == build.SIGNATURES["decide_frame_tm"][1]
+    assert build.SIGNATURES[key][2] == "frame_tm_any"
     assert {k: v for k, v in tk.launch_counts.items() if v} == {
-        "frame_tm_generic" + {"f32": ":f32", "bf16": "", "int8": ":int8"}[dtype]: 1
+        "frame_tm_any" + {"f32": ":f32", "bf16": "", "int8": ":int8"}[dtype]: 1
     }
     assert n_sym == s and words.shape == (n_tiles, 5) and not crc.any() and not qual.any()
-    basis = tk._generic_tm_basis(cfg, dt, CPU)
+    basis = tk._filterbank_any_basis(cfg, dt, CPU)
     masks = tk._frame_crc_masks(PAY, n_tiles, bps, CPU)
     assert args == (x.data_ptr(), tk._KERNEL_DTYPES[dt], 5, pre, sps, cfg.num_tones, s, n_tiles, bps,
                     basis.data_ptr(), masks.data_ptr(), words.data_ptr(), crc.data_ptr(), qual.data_ptr(), 0)

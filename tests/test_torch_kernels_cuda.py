@@ -325,6 +325,176 @@ def test_cuda_correlate_reads_zeros_past_a_short_segment(cuda, dtypes):
     assert got[:, : seg.shape[1]].abs().amin() > 0 and not got[:, seg.shape[1] :].any()
 
 
+# --- templates past the one-shot stage: search_core.cuh's slab route ----------
+
+SEARCH_DTYPES_ALL = {**SEARCH_DTYPES, "f32-bf16": (torch.float32, torch.bfloat16)}
+
+
+def _one_shot_limit(a_lo: bool, b_lo: bool, out_len: int) -> int:
+    """The longest template search_core.cuh's make_geometry stages whole
+    for this out_len and dtype pair (its shared-memory sum, mirrored)."""
+    n_rows = -(-out_len // 128)
+    max_rows = (96 if a_lo or b_lo else 128)
+    n_tiles = -(-n_rows // max_rows)
+    mt = -(-(-(-n_rows // n_tiles)) // 16) * 16
+
+    def smem(k):
+        nks = (k + 127 + 15) // 16
+        nb = max(mt - 1 + (16 * nks + 127) // 128, mt + (k + 127) // 128)
+        w = 8 * nks + 72
+        w += (16 - w) % 32
+        return (2 if b_lo else 1) * 2 * w * 4 + (2 if a_lo else 1) * nb * 136 * 2 + (nb + mt) * 4
+
+    k = 1024
+    while smem(k + 1) <= 232448:
+        k += 1
+    return k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", ["past", 15360, 61440])
+@pytest.mark.parametrize("dtypes", list(SEARCH_DTYPES_ALL))
+def test_cuda_search_kernels_past_the_one_shot_stage(cuda, dtypes, k):
+    """sync_search_fused, sync_search_blockmax and correlate_fused at
+    templates past the one-shot stage's shared memory: one sample past the
+    dtype pair's limit, 15,360 (sps 480's preamble) and 61,440 (sps
+    1,920's), every (segment, template) dtype pair, on 7 streams whose
+    segments are strided views from sample 1 (out_len 4,736: 37 rows,
+    not a multiple of a block's): the search's lags equal to the plain
+    version's and the planted ones, qualities within rtol 1e-3 (the slab
+    route folds its sums every 32 k-steps), the block maxima's maximum
+    bit-equal to the search's best, every lag of the correlation within
+    1e-3 of its scale, one launch of each."""
+    seg_dtype, tpl_dtype = SEARCH_DTYPES_ALL[dtypes]
+    out_len, b = 4736, 7
+    if k == "past":
+        k = _one_shot_limit(seg_dtype == torch.float32, tpl_dtype == torch.float32, out_len) + 1
+    rng = np.random.default_rng(k)
+    t = rng.standard_normal(k).astype(np.float32)
+    lags = rng.integers(0, out_len, b)
+    buf = rng.standard_normal((b, out_len + k + 40)).astype(np.float32)
+    for i, lag in enumerate(lags):
+        buf[i, 1 + lag : 1 + lag + k] += 0.5 * t
+    tpl = torch.from_numpy(t).to(cuda, tpl_dtype)
+    te = float((tpl.float() ** 2).sum())
+    seg = torch.from_numpy(buf).to(cuda, seg_dtype)[:, 1 : out_len + k]
+    before = dict(tk.launch_counts)
+    q, i = tk.sync_search_fused(seg, tpl, out_len, te)
+    bm = tk.sync_search_blockmax(seg, tpl, out_len, te)
+    corr = tk.correlate_fused(seg, tpl, out_len)
+    assert _launched(before) == {_key(n, seg_dtype): 1 for n in
+                                 ("sync_search_fused", "sync_search_blockmax", "correlate_fused")}
+    rq, ri = tk.sync_search_fused_ref(seg, tpl, out_len, te)
+    assert torch.equal(i, ri) and torch.equal(i.cpu(), torch.from_numpy(lags).int())
+    torch.testing.assert_close(q, rq, rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(bm, tk.sync_search_blockmax_ref(seg, tpl, out_len, te), rtol=1e-3, atol=1e-6)
+    assert torch.equal(bm.amax(-1), q) and torch.equal(bm.argmax(-1).int(), i // 128)
+    want = tk.correlate_fused_ref(seg, tpl, out_len)
+    torch.testing.assert_close(corr, want, rtol=1e-3, atol=1e-3 * float(want.square().mean().sqrt()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [15360, 61440])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_probes_past_shared_memory(cuda, dtype, k):
+    """The probes past a block's shared memory (the taps and 8 warps' spans
+    of a 15,360- or 61,440-sample preamble), on demod_probe.cu's direct
+    kernels: probe_at_fused (float32, bfloat16) within rtol 1e-3 of its
+    plain version with every stream's peak at its planted lag, and
+    demod_probe_fused's probe (every dtype, a preset's geometry with the
+    preamble this long) with the plain version's refined starts."""
+    from anet_torch.dsp.sync import preamble_waveform as waveform
+
+    rng = np.random.default_rng(k)
+    b, n_lags = 9, 5
+    cfg = dataclasses.replace(CFG, preamble_symbols=k // CFG.samples_per_symbol)
+    t = waveform(cfg, device="cpu").numpy()
+    assert t.shape == (k,)
+    n_sym = 4
+    length = k + 4096 + n_sym * cfg.samples_per_symbol
+    starts = rng.integers(0, 4000, b)
+    buf = 0.05 * rng.standard_normal((b, length)).astype(np.float32)
+    for i, st in enumerate(starts):
+        buf[i, st : st + k] += t
+    if dtype == torch.int8:
+        buf_t = torch.from_numpy(np.round(buf * 32).clip(-127, 127).astype(np.int8)).to(cuda)
+    else:
+        buf_t = torch.from_numpy(buf).to(cuda, dtype)
+    st0 = torch.from_numpy(starts - 2).int().to(cuda)
+    tpl = torch.from_numpy(t).to(cuda, torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
+    if dtype != torch.int8:
+        te = float((tpl.float() ** 2).sum())
+        q = tk.probe_at_fused(buf_t, st0, tpl, te, n_lags=n_lags)
+        torch.testing.assert_close(q, tk.probe_at_fused_ref(buf_t, st0, tpl, te, n_lags=n_lags), rtol=1e-3, atol=1e-6)
+        assert bool((q.argmax(-1) == 2).all())
+    got = tk.demod_probe_fused(cfg, buf_t, st0, n_sym, tpl, n_lags=n_lags)
+    want = tk.demod_probe_fused_ref(cfg, buf_t, st0, n_sym, tpl, n_lags=n_lags)
+    assert torch.equal(got[1], want[1]) and bool((got[1] == 2).all())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-3)
+
+
+LONG_SYMBOL_CONFIGS = {  # 100 and 25 baud: preambles of 15,360 and 61,440 samples
+    "sps480": ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=100, num_tones=16, base_freq_hz=600.0),
+    "sps1920": ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=25, num_tones=16, base_freq_hz=1000.0),
+}
+LONG_SYMBOL_MODES = ("lock-f32", "lock-bf16", "search-int8", "dynamic", "dynamic-lock")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", LONG_SYMBOL_MODES)
+@pytest.mark.parametrize("geometry", list(LONG_SYMBOL_CONFIGS))
+def test_cuda_stream_receivers_at_long_symbols(cuda, geometry, mode):
+    """Every stream receiver at sps 480 and 1,920, whose preambles pass the
+    one-shot search stage: receive_stream locked on a float32 carry
+    (receive_stream's defaults) and on a bfloat16 one (probe_at_fused past
+    shared memory), searching on an int8 carry, receive_stream_dynamic
+    searching two candidates a chunk (correlate_fused) and locked; 3
+    streams of 2 frames each,
+    every frame ok with the payload sent, the search (or the correlation)
+    launched. The capture-resident scan refuses these geometries, as the
+    reference's does (128 % sps != 0)."""
+    from anet_torch.dsp.family import frame_samples
+
+    cfg = LONG_SYMBOL_CONFIGS[geometry]
+    rng = np.random.default_rng(cfg.samples_per_symbol + len(mode))
+    pay_len, b = 16, 3
+    chunk = frame_samples(cfg, pay_len) // 128 * 128
+    pays = rng.integers(0, 256, (2, b, pay_len), dtype=np.uint8)
+    gap0 = 700
+    t_frame = frame_samples(cfg, pay_len)
+    cap = torch.zeros(b, gap0 + 3 * t_frame + chunk)
+    for f in range(2):
+        cap[:, gap0 + f * t_frame : gap0 + (f + 1) * t_frame] = transmit(cfg, pays[f], device="cpu")
+    cap = torch.nn.functional.pad(cap, (0, -cap.shape[1] % chunk))
+    cap += 0.05 * torch.from_numpy(rng.standard_normal(cap.shape).astype(np.float32))
+    before = dict(tk.launch_counts)
+    if mode.startswith("dynamic"):  # searching: two candidates a chunk, the correlation at every lag
+        res = tstream.receive_stream_dynamic(cfg, cap.to(cuda, torch.bfloat16), chunk, pay_len,
+                                             compute_dtype=torch.bfloat16, lock=mode == "dynamic-lock",
+                                             max_frames_per_chunk=1 if mode == "dynamic-lock" else 2, device=cuda)
+    else:
+        dtype = {"lock-f32": torch.float32, "lock-bf16": torch.bfloat16, "search-int8": torch.int8}[mode]
+        compute = torch.float32 if dtype == torch.float32 else torch.bfloat16
+        carry = tstream.init_carry(cfg, chunk, pay_len, (b,), dtype=dtype, device=cuda)
+        res = tstream.receive_stream(cfg, cap.to(cuda), chunk, pay_len, carry=carry, compute_dtype=compute,
+                                     lock=mode.startswith("lock"), device=cuda)
+    launched = _launched(before)
+    assert res.carry.frames_ok.tolist() == [2] * b
+    det = res.steps.detected.cpu().reshape(-1, b)  # [chunks (x candidates), B]
+    payload = res.steps.frame.payload.cpu().reshape(det.shape[0], b, -1)[..., :pay_len]
+    for i in range(b):  # each stream's two frames, in either order within a chunk's candidates
+        got = sorted(map(bytes, payload[:, i][det[:, i]].numpy()))
+        assert got == sorted(map(bytes, pays[:, i])), i
+    search = "correlate_fused" if mode == "dynamic" else "sync_search_fused"
+    assert launched.get(search, 0) + launched.get(f"{search}:f32", 0) > 0
+    if mode == "lock-bf16":
+        assert launched.get("probe_at_fused", 0) > 0
+    if mode == "lock-f32":
+        with pytest.raises(ValueError, match="resident=True"):
+            tstream.receive_stream(cfg, cap.to(cuda), chunk, pay_len, lock=True, resident=True, device=cuda)
+
+
 # --- the variable-length slice's three kernels and its paths ------------------
 
 
@@ -1018,12 +1188,13 @@ def _frame_case(cfg, rng, b, dtype, offset, extra, pay=7):
     return x.to(dtype)
 
 
-def _tm_energies(cfg, x, row0, n_symbols):
+def _tm_energies(cfg, x, row0, n_symbols, basis_dtype=torch.float32):
     """The plain energies [B, S, M] of the time-major rows' n_symbols
-    symbols from row row0: the float32 basis, a float32 product."""
+    symbols from row row0: the basis that meets samples of ``basis_dtype``
+    (float32 by default; bf16-rounded for bfloat16), a float32 product."""
     sps, m = cfg.samples_per_symbol, cfg.num_tones
     w = x[row0 : row0 + n_symbols * sps].float().reshape(n_symbols, sps, -1)
-    iq = torch.einsum("mk,skb->bsm", tk._plain_basis(cfg, torch.float32, x.device).T, w)
+    iq = torch.einsum("mk,skb->bsm", tk._plain_basis(cfg, basis_dtype, x.device).T, w)
     return iq[..., :m] * iq[..., :m] + iq[..., m:] * iq[..., m:]
 
 
@@ -1067,13 +1238,14 @@ def _check_split_frame(cfg, got, want, x, offset):
     return int((near & (energies.amax(-1) > 0)).sum())
 
 
-def _check_frame_tm(cuda, cfg, x, pay, offset, dtype):
-    """One launch of decide_frame_tm on ``x`` (under its key, none
-    elsewhere), held against the plain version: bfloat16 and int8 words
-    and CRC counts bit-equal, qual within rtol 1e-5 for int8 (exact I/Q,
-    sums in another order) and 1e-3 for bfloat16; float32 (the three-term
-    split) as _check_split_frame holds it."""
-    key = _key("decide_frame_tm", dtype)
+def _check_frame_tm(cuda, cfg, x, pay, offset, dtype, name="decide_frame_tm"):
+    """One launch of decide_frame_tm on ``x`` (under ``name``'s key: the
+    walk's, or frame_tm_any's off it; none elsewhere), held against the
+    plain version: bfloat16 and int8 words and CRC counts bit-equal, qual
+    within rtol 1e-5 for int8 (exact I/Q, sums in another order) and 1e-3
+    for bfloat16; float32 (the three-term split) as _check_split_frame
+    holds it."""
+    key = _key(name, dtype)
     before = dict(tk.launch_counts)
     got = tk.decide_frame_tm(cfg, x, pay, preamble_offset=offset)
     torch.cuda.synchronize()
@@ -1730,17 +1902,18 @@ def _tones_case(cfg, rng, b, n_sym, dtype, partial, device):
     return (x + 0.3 * torch.randn(x.shape, generator=g, device=device)).to(dtype)
 
 
-def _check_tones_tm(cfg, x):
-    """One launch of decide_tones_tm on ``x`` (under its key, none
-    elsewhere), held against the plain version: bfloat16 tones bit-equal,
-    best and total within rtol 1e-3, atol 1e-5 (float32 sums in another
-    order); float32 (the three-term split) as _check_split_decisions
-    holds it, a silent symbol's tone the first."""
+def _check_tones_tm(cfg, x, name="decide_tones_tm"):
+    """One launch of decide_tones_tm on ``x`` (under ``name``'s key: the
+    walk's, or frame_tm_any's off it; none elsewhere), held against the
+    plain version: bfloat16 tones bit-equal, best and total within rtol
+    1e-3, atol 1e-5 (float32 sums in another order); float32 (the
+    three-term split) as _check_split_decisions holds it, a silent symbol's
+    tone the first."""
     before = dict(tk.launch_counts)
     got = tk.decide_tones_tm(cfg, x)
     torch.cuda.synchronize()
     launched = {n: tk.launch_counts[n] - before[n] for n in before if tk.launch_counts[n] != before[n]}
-    assert launched == {_key("decide_tones_tm", x.dtype): 1}
+    assert launched == {_key(name, x.dtype): 1}
     want = tk.decide_tones_tm_ref(cfg, x)
     s = x.shape[0] // cfg.samples_per_symbol
     assert all(g.shape == w.shape == (s, x.shape[1]) for g, w in zip(got, want))
@@ -1954,7 +2127,7 @@ def test_cuda_resident_scan_matches_carry_path(cuda, warm):
         assert torch.equal(getattr(got.carry, f), getattr(want.carry, f)), f
 
 
-# --- the time-major pair off the walk's geometry: csrc/frame_tm_generic.cu ----
+# --- the time-major pair off the walk's geometry: csrc/frame_tm_any.cu --------
 
 
 def _custom(sps, m):
@@ -1967,18 +2140,21 @@ def _custom(sps, m):
 
 
 GENERIC_PRESETS = ("mfsk8-audible", "mfsk32-dense")
-GENERIC_CONFIGS = {  # geometries off a wrapper's walk; tones a pass 2, 4, 8 and 16
+TM_ANY_CONFIGS = {  # geometries off a wrapper's walk; 1, 2, 4 and 8 n-tiles, and groups of 32 tones
+    "sps15-m4": _custom(15, 4),  # odd sps: the last k-step masked past sample 15
     "sps24-m2": _custom(24, 2),
     "sps40-m4": _custom(40, 4),
     "sps24-m8": _custom(24, 8),
+    "sps40-m16": _custom(40, 16),  # chip_smoke.py's aligned-custom modem
     "sps48-m4": _custom(48, 4),  # decide_frame_tm only: decide_tones_tm's walk takes sps 48 and 80
     "sps80-m16": _custom(80, 16),
-    "sps96-m32": _custom(96, 32),  # two passes
-    "sps128-m64": _custom(128, 64),  # the walks' sps, past their 32 tones: four passes
+    "sps96-m32": _custom(96, 32),  # 8 n-tiles, two slabs a symbol
+    "sps128-m64": _custom(128, 64),  # the walks' sps, past their 32 tones: two groups
+    "sps1920-m16": _custom(1920, 16),  # 120 k-steps (60 int8): slab by slab, the float32 sums folded
 }
-GENERIC_TONES_CONFIGS = ("sps24-m2", "sps40-m4", "sps24-m8", "sps96-m32", "sps128-m64")
-GENERIC_FRAME_CONFIGS = ("sps24-m2", "sps48-m4", "sps80-m16")  # bps 1, 2 and 4
-GENERIC_BATCHES = (1, 7, 129, 1000)
+TM_ANY_TONES_CONFIGS = ("sps15-m4", "sps24-m2", "sps40-m4", "sps24-m8", "sps96-m32", "sps128-m64", "sps1920-m16")
+TM_ANY_FRAME_CONFIGS = ("sps15-m4", "sps24-m2", "sps48-m4", "sps40-m16", "sps80-m16", "sps1920-m16")  # bps 2, 1, 2, 4
+TM_ANY_BATCHES = (1, 7, 129, 1000)
 # decide_tones_tm's walk past decide_frame_tm's geometry: sps 48 and 80 at
 # 1, 2, 4 and 8 n-tiles, and 8 n-tiles (17-32 tones, the basis in shared
 # memory) at sps 64 and 128
@@ -2001,7 +2177,7 @@ def _launched(before):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", GENERIC_BATCHES)
+@pytest.mark.parametrize("b", TM_ANY_BATCHES)
 @pytest.mark.parametrize("geometry", list(WALK_TONES_CONFIGS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decide_tones_tm_walk_past_frame_geometry(cuda, dtype, geometry, b):
@@ -2012,73 +2188,93 @@ def test_cuda_decide_tones_tm_walk_past_frame_geometry(cuda, dtype, geometry, b)
     fetches), n_symbols 1, 7, 9 and 67 in turn, a trailing partial symbol
     on every other case; held against the plain version by
     _check_tones_tm (one launch under decide_tones_tm's key, ":f32" for
-    float32, none under frame_tm_generic's)."""
+    float32, none under frame_tm_any's)."""
     cfg = WALK_TONES_CONFIGS[geometry]
     assert tk._tm_operands("decide_tones_tm", cfg, dtype, cuda)[1] == ("split" if dtype == torch.float32 else "mma")
-    case = GENERIC_BATCHES.index(b) + 4 * list(WALK_TONES_CONFIGS).index(geometry)
+    case = TM_ANY_BATCHES.index(b) + 4 * list(WALK_TONES_CONFIGS).index(geometry)
     rng = np.random.default_rng(600 + case)
     n_sym = (1, 7, 9, 67)[case % 4]
     x = _tones_case(cfg, rng, b, n_sym, dtype, (0, 17)[case % 2], cuda)
     _check_tones_tm(cfg, x)
 
 
+def _tm_any_route(dtype):
+    return "tm_any_split" if dtype == torch.float32 else "tm_any"
+
+
+def _check_tm_any_tones(cfg, x):
+    """One launch of decide_tones_tm on frame_tm_any.cu (under frame_tm_any,
+    ":f32" for float32; none elsewhere), held against the plain version's
+    energies: float32 (the three-term split) as _check_split_decisions
+    holds it; bfloat16 (bf16 products exact, float32 sums in another
+    order) with best and total within 1e-5 of the symbol's largest energy
+    and the tones equal but where the two largest lie that close; a silent
+    symbol's tone the first."""
+    before = dict(tk.launch_counts)
+    got = tk.decide_tones_tm(cfg, x)
+    assert _launched(before) == {_key("frame_tm_any", x.dtype): 1}
+    s = x.shape[0] // cfg.samples_per_symbol
+    assert all(v.shape == (s, x.shape[1]) for v in got)
+    energies = _tm_energies(cfg, x, 0, s, x.dtype)
+    assert not bool(got[0].T[energies.amax(-1) == 0].any())
+    if x.dtype == torch.float32:
+        return _check_split_decisions([v.T for v in got], energies)
+    tone, best, total = (v.T for v in got)
+    scale = energies.amax(-1)
+    top2 = energies.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= 1e-5 * top2[..., 0]
+    assert bool(((tone == energies.argmax(-1).int()) | near).all())
+    assert bool(((best - scale).abs() <= 1e-5 * scale).all())
+    assert bool(((total - energies.sum(-1)).abs() <= 1e-5 * scale).all())
+    return int((near & (scale > 0)).sum())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", GENERIC_BATCHES)
-@pytest.mark.parametrize("geometry", GENERIC_TONES_CONFIGS)
+@pytest.mark.parametrize("b", TM_ANY_BATCHES)
+@pytest.mark.parametrize("geometry", TM_ANY_TONES_CONFIGS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_decide_tones_tm_generic_every_geometry(cuda, dtype, geometry, b):
-    """decide_tones_tm's CUDA-core body against its plain version on noisy
-    frames' data sections, 3 symbols of noise after them and a trailing
-    partial symbol: tones bit-equal, best and total within rtol 1e-5
-    (float32 sums in another order), one launch on the "generic" route,
-    counted under frame_tm_generic's key."""
-    cfg = GENERIC_CONFIGS[geometry]
-    assert tk._tm_operands("decide_tones_tm", cfg, dtype, cuda)[1] == "generic"
-    case = GENERIC_BATCHES.index(b) + 4 * GENERIC_TONES_CONFIGS.index(geometry)
+def test_cuda_decide_tones_tm_any_every_geometry(cuda, dtype, geometry, b):
+    """decide_tones_tm on frame_tm_any.cu's tensor-core walk against its
+    plain version on noisy frames' data sections, 3 symbols of noise after
+    them and a trailing partial symbol, at sps 15 to 1,920 with 2 to 64
+    tones, B = 1, 7, 129 and 1,000 (rows off 16 bytes but at 1,000: the
+    element-wise and 4-byte fetches): _check_tm_any_tones, one launch on
+    the route _tm_operands names; near-ties rare."""
+    cfg = TM_ANY_CONFIGS[geometry]
+    assert tk._tm_operands("decide_tones_tm", cfg, dtype, cuda)[1] == _tm_any_route(dtype)
+    case = TM_ANY_BATCHES.index(b) + 4 * TM_ANY_TONES_CONFIGS.index(geometry)
     rng = np.random.default_rng(300 + case)
     x = _frame_case(cfg, rng, b, torch.float32, 0, 0)
     sps = cfg.samples_per_symbol
     tail = torch.from_numpy(rng.standard_normal((3 * sps + sps // 2, b)).astype(np.float32))
     x = torch.cat([x, tail]).to(dtype).to(cuda)
-    before = dict(tk.launch_counts)
-    got = tk.decide_tones_tm(cfg, x)
-    assert _launched(before) == {_key("frame_tm_generic", dtype): 1}
-    want = tk.decide_tones_tm_ref(cfg, x)
-    assert got[0].shape == (x.shape[0] // sps, b)
-    assert torch.equal(got[0], want[0])
-    for g, w in zip(got[1:], want[1:]):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.max()))
+    near = _check_tm_any_tones(cfg, x)
+    assert near <= max(1, x.shape[0] // sps * b // 50)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", GENERIC_BATCHES)
-@pytest.mark.parametrize("geometry", GENERIC_FRAME_CONFIGS)
+@pytest.mark.parametrize("b", TM_ANY_BATCHES)
+@pytest.mark.parametrize("geometry", TM_ANY_FRAME_CONFIGS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_cuda_decide_frame_tm_generic_every_geometry(cuda, dtype, geometry, b):
-    """decide_frame_tm's CUDA-core body against its plain version at sps 24,
-    48 and 80 (bits a symbol 1, 2 and 4), whole frames and the data section
-    alone, an odd offset: words and CRC counts bit-equal, the quality sums
-    within rtol 1e-5 (int8: exact I/Q; every dtype sums in another order),
-    one launch on the "generic" route, counted under frame_tm_generic's
-    key."""
-    cfg = GENERIC_CONFIGS[geometry]
-    assert tk._tm_operands("decide_frame_tm", cfg, dtype, cuda)[1] == "generic"
-    case = GENERIC_BATCHES.index(b) + 4 * GENERIC_FRAME_CONFIGS.index(geometry)
+def test_cuda_decide_frame_tm_any_every_geometry(cuda, dtype, geometry, b):
+    """decide_frame_tm on frame_tm_any.cu's tensor-core walk against its
+    plain version at sps 15, 24, 48, 40, 80 and 1,920 (bits a symbol 2, 1,
+    2, 4, 4, 4), whole frames, the data section alone and an odd offset, B
+    = 1, 7, 129 and 1,000: _check_frame_tm with frame_tm_any's key (bf16
+    and int8 words and CRC counts bit-equal; float32 under the split's
+    tolerance), one launch on the route _tm_operands names."""
+    cfg = TM_ANY_CONFIGS[geometry]
+    assert tk._tm_operands("decide_frame_tm", cfg, dtype, cuda)[1] == _tm_any_route(dtype)
+    case = TM_ANY_BATCHES.index(b) + 4 * TM_ANY_FRAME_CONFIGS.index(geometry)
     rng = np.random.default_rng(400 + case)
     offset = (cfg.preamble_samples, 0, 37)[case % 3]
     x = _frame_case(cfg, rng, b, dtype, offset, 0).to(cuda)
-    before = dict(tk.launch_counts)
-    got = tk.decide_frame_tm(cfg, x, 7, preamble_offset=offset)
-    assert _launched(before) == {_key("frame_tm_generic", dtype): 1}
-    want = tk.decide_frame_tm_ref(cfg, x, 7, preamble_offset=offset)
-    assert got[3] == want[3]
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    _check_frame_tm(cuda, cfg, x, 7, offset, dtype, name="frame_tm_any")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_cuda_frame_tm_generic_ties_and_full_width(cuda, dtype):
+def test_cuda_frame_tm_any_ties_and_full_width(cuda, dtype):
     """All-zero input (every symbol ties: tone 0, zero energies, words,
     counts and sums) at sps 96 with 32 tones (decide_tones_tm) and sps 80
     with 16 tones (decide_frame_tm); then the main path's batch, B =
@@ -2086,7 +2282,7 @@ def test_cuda_frame_tm_generic_ties_and_full_width(cuda, dtype):
     walking its share of the tiles): 256 noisy frames tiled across the
     batch, held as above, and decide_tones_tm on the data sections of 256
     sps-96 frames of 32 tones tiled alike."""
-    wide, frame_cfg = GENERIC_CONFIGS["sps96-m32"], GENERIC_CONFIGS["sps80-m16"]
+    wide, frame_cfg = TM_ANY_CONFIGS["sps96-m32"], TM_ANY_CONFIGS["sps80-m16"]
     if dtype != torch.int8:
         tone, best, total = tk.decide_tones_tm(wide, torch.zeros(9 * 96, 129, dtype=dtype, device=cuda))
         assert not tone.any() and not best.any() and not total.any()
@@ -2098,19 +2294,12 @@ def test_cuda_frame_tm_generic_ties_and_full_width(cuda, dtype):
     for b in (16384, 16383):
         x = _frame_case(frame_cfg, rng, 256, dtype, frame_cfg.preamble_samples, 0, pay=256).to(cuda)
         x = x.repeat(1, 64)[:, 16384 - b :].contiguous()
-        got = tk.decide_frame_tm(frame_cfg, x, 256, preamble_offset=frame_cfg.preamble_samples)
-        want = tk.decide_frame_tm_ref(frame_cfg, x, 256, preamble_offset=frame_cfg.preamble_samples)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        _check_frame_tm(cuda, frame_cfg, x, 256, frame_cfg.preamble_samples, dtype, name="frame_tm_any")
         if dtype != torch.int8:
             data = _frame_case(wide, rng, 256, dtype, 0, 0, pay=256).to(cuda).repeat(1, 64)[:, 16384 - b :]
-            data = data.contiguous()
-            tones = tk.decide_tones_tm(wide, data)
-            ref = tk.decide_tones_tm_ref(wide, data)
-            assert torch.equal(tones[0], ref[0])
-            for g, w in zip(tones[1:], ref[1:]):
-                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.max()))
-        del x, got, want
+            _check_tm_any_tones(wide, data.contiguous())
+            del data
+        del x
         torch.cuda.empty_cache()
 
 
@@ -2149,8 +2338,7 @@ def test_cuda_generic_geometry_receivers_match_cpu(cuda, model):
     searching on a float32 carry, locked on bf16 and int8 carries, and
     receive_stream_dynamic locked (the slice and the batch-major receiver:
     no align+demod kernel launches). Every time-major launch is on
-    decide_tones_tm's keys, none on decide_frame_tm's or the generic
-    body's; every filterbank launch on tone_energies_fused's keys, none on
+    decide_tones_tm's keys, none on decide_frame_tm's or frame_tm_any's; every filterbank launch on tone_energies_fused's keys, none on
     its CUDA-core body's."""
     from anet_torch.dsp import frame as tframe
     from anet_torch.dsp import pipeline as tpipeline
@@ -2202,7 +2390,7 @@ def test_cuda_generic_geometry_receivers_match_cpu(cuda, model):
     launched = _launched(before)
     assert not any(k.startswith(("demod_at_fused", "demod_at_energies_fused", "demod_probe_fused"))
                    for k in launched)
-    assert not any(k.startswith(("decide_frame_tm", "frame_tm_generic", "filterbank_any"))
+    assert not any(k.startswith(("decide_frame_tm", "frame_tm_any", "filterbank_any"))
                    for k in launched)  # the bodies off the compile-time walks
     assert launched["decide_tones_tm"] and launched["decide_tones_tm:f32"] and launched["sync_search_fused"]
     assert launched["tone_energies_fused"] and launched["tone_energies_fused:f32"] and launched["probe_at_fused"]
