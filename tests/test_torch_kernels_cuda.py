@@ -2148,12 +2148,13 @@ TM_ANY_CONFIGS = {  # geometries off a wrapper's walk; 1, 2, 4 and 8 n-tiles, an
     "sps40-m16": _custom(40, 16),  # chip_smoke.py's aligned-custom modem
     "sps48-m4": _custom(48, 4),  # decide_frame_tm only: decide_tones_tm's walk takes sps 48 and 80
     "sps80-m16": _custom(80, 16),
-    "sps96-m32": _custom(96, 32),  # 8 n-tiles, two slabs a symbol
+    "sps96-m16": _custom(96, 16),
+    "sps96-m32": _custom(96, 32),  # 8 n-tiles
     "sps128-m64": _custom(128, 64),  # the walks' sps, past their 32 tones: two groups
     "sps1920-m16": _custom(1920, 16),  # 120 k-steps (60 int8): slab by slab, the float32 sums folded
 }
 TM_ANY_TONES_CONFIGS = ("sps15-m4", "sps24-m2", "sps40-m4", "sps24-m8", "sps96-m32", "sps128-m64", "sps1920-m16")
-TM_ANY_FRAME_CONFIGS = ("sps15-m4", "sps24-m2", "sps48-m4", "sps40-m16", "sps80-m16", "sps1920-m16")  # bps 2, 1, 2, 4
+TM_ANY_FRAME_CONFIGS = ("sps15-m4", "sps24-m2", "sps48-m4", "sps40-m16", "sps80-m16", "sps96-m16", "sps1920-m16")
 TM_ANY_BATCHES = (1, 7, 129, 1000)
 # decide_tones_tm's walk past decide_frame_tm's geometry: sps 48 and 80 at
 # 1, 2, 4 and 8 n-tiles, and 8 n-tiles (17-32 tones, the basis in shared
@@ -2258,8 +2259,8 @@ def test_cuda_decide_tones_tm_any_every_geometry(cuda, dtype, geometry, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_cuda_decide_frame_tm_any_every_geometry(cuda, dtype, geometry, b):
     """decide_frame_tm on frame_tm_any.cu's tensor-core walk against its
-    plain version at sps 15, 24, 48, 40, 80 and 1,920 (bits a symbol 2, 1,
-    2, 4, 4, 4), whole frames, the data section alone and an odd offset, B
+    plain version at sps 15, 24, 48, 40, 80, 96 and 1,920 (bits a symbol 2,
+    1, 2, 4, 4, 4, 4), whole frames, the data section alone and an odd offset, B
     = 1, 7, 129 and 1,000: _check_frame_tm with frame_tm_any's key (bf16
     and int8 words and CRC counts bit-equal; float32 under the split's
     tolerance), one launch on the route _tm_operands names."""
