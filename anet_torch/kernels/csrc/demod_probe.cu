@@ -251,8 +251,9 @@ __device__ __forceinline__ void probe_at_out(const float (&corr)[NL], float en,
   }
 }
 
-// demod_probe_fused's probe: (cmax, off, energy, start) of each stream.
-template <typename T, int NL>
+// demod_probe_fused's probe: (cmax, off, energy, start) of each stream;
+// DIRECT past a block's shared memory (probe_sums_direct).
+template <typename T, int NL, bool DIRECT>
 __global__ void __launch_bounds__(THREADS)
 probe_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
              const float* __restrict__ taps, int k, int pw_e,
@@ -261,26 +262,14 @@ probe_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __res
              int32_t* __restrict__ start_out) {
   int64_t st;
   ProbeAcc<T> corr[NL], en;
-  if (!probe_sums<T, NL, true>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
+  const bool live = DIRECT ? probe_sums_direct<T, NL, true>(buf, B, len, st0, taps, k, pw_e, st, corr, en)
+                           : probe_sums<T, NL, true>(buf, B, len, st0, taps, k, pw_e, st, corr, en);
+  if (!live) return;
   probe_out<T, NL>(st, corr, en, cmax_scale, cmax_out, off_out, energy_out, start_out);
 }
 
-// The same past a block's shared memory (probe_sums_direct).
-template <typename T, int NL>
-__global__ void __launch_bounds__(THREADS)
-probe_kernel_direct(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
-                    const float* __restrict__ taps, int k, int pw_e,
-                    const float* __restrict__ cmax_scale, float* __restrict__ cmax_out,
-                    int32_t* __restrict__ off_out, float* __restrict__ energy_out,
-                    int32_t* __restrict__ start_out) {
-  int64_t st;
-  ProbeAcc<T> corr[NL], en;
-  if (!probe_sums_direct<T, NL, true>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
-  probe_out<T, NL>(st, corr, en, cmax_scale, cmax_out, off_out, energy_out, start_out);
-}
-
-// probe_at_fused: q [B, NL], lane o writes lag o.
-template <typename T, int NL>
+// probe_at_fused: q [B, NL], lane o writes lag o; DIRECT as above.
+template <typename T, int NL, bool DIRECT>
 __global__ void __launch_bounds__(THREADS)
 probe_at_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
                 const float* __restrict__ taps, int k, int pw_e, const float* __restrict__ te_ptr,
@@ -288,20 +277,9 @@ probe_at_kernel(const T* __restrict__ buf, int B, int64_t len, const int32_t* __
   static_assert(!std::is_same<T, int8_t>::value, "probe_at takes float32 and bfloat16 buffers");
   int64_t st;
   float corr[NL], en;
-  if (!probe_sums<T, NL, false>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
-  probe_at_out<NL>(corr, en, te_ptr, te_val, q_out);
-}
-
-// The same past a block's shared memory (probe_sums_direct).
-template <typename T, int NL>
-__global__ void __launch_bounds__(THREADS)
-probe_at_kernel_direct(const T* __restrict__ buf, int B, int64_t len, const int32_t* __restrict__ st0,
-                       const float* __restrict__ taps, int k, int pw_e, const float* __restrict__ te_ptr,
-                       float te_val, float* __restrict__ q_out) {
-  static_assert(!std::is_same<T, int8_t>::value, "probe_at takes float32 and bfloat16 buffers");
-  int64_t st;
-  float corr[NL], en;
-  if (!probe_sums_direct<T, NL, false>(buf, B, len, st0, taps, k, pw_e, st, corr, en)) return;
+  const bool live = DIRECT ? probe_sums_direct<T, NL, false>(buf, B, len, st0, taps, k, pw_e, st, corr, en)
+                           : probe_sums<T, NL, false>(buf, B, len, st0, taps, k, pw_e, st, corr, en);
+  if (!live) return;
   probe_at_out<NL>(corr, en, te_ptr, te_val, q_out);
 }
 
@@ -358,7 +336,7 @@ cudaError_t launch(const Args& a) {
   static int smem_set = 48 * 1024;  // this instantiation's dynamic shared memory limit
   const int64_t need = probe_smem<T>(a.k, a.pw_e);
   const bool staged = need <= MAX_SMEM;  // else the same sums read in place
-  auto kernel = staged ? probe_kernel<T, NL> : probe_kernel_direct<T, NL>;
+  auto kernel = staged ? probe_kernel<T, NL, false> : probe_kernel<T, NL, true>;
   const int smem = staged ? (int)need : 0;
   const cudaError_t err = staged ? allow_smem(kernel, smem, smem_set) : cudaSuccess;
   if (err != cudaSuccess) return err;
@@ -393,7 +371,7 @@ cudaError_t launch_at(const AtArgs& a) {
   static int smem_set = 48 * 1024;
   const int64_t need = probe_smem<T>(a.k, a.pw_e);
   const bool staged = need <= MAX_SMEM;  // else the same sums read in place
-  auto kernel = staged ? probe_at_kernel<T, NL> : probe_at_kernel_direct<T, NL>;
+  auto kernel = staged ? probe_at_kernel<T, NL, false> : probe_at_kernel<T, NL, true>;
   const int smem = staged ? (int)need : 0;
   const cudaError_t err = staged ? allow_smem(kernel, smem, smem_set) : cudaSuccess;
   if (err != cudaSuccess) return err;

@@ -564,7 +564,11 @@ if "search_long" in kinds:
             ):
                 try:
                     call()
-                except RuntimeError:  # a checkout that refuses a template past shared memory
+                except RuntimeError as e:
+                    # only a checkout without the slab route refuses a template past shared
+                    # memory, with cudaErrorInvalidValue; any other failure is this one's
+                    if not str(e).endswith("cudaError 1"):
+                        raise
                     out[f"{{name}} {{label}}"] = out[f"{{name}} {{label}} device"] = None
                     continue
                 out[f"{{name}} {{label}}"] = time_ms(call)

@@ -83,13 +83,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    16 tones, aligned-custom's shape, and at sps 80 with 16 and sps 1,920
    with 16, bf16, int8 and float32; decide_tones_tm at sps 96 with 32
    tones, sps 40 with 8 and sps 128 with 64, bf16 and float32;
-   check_frame_any: words and CRC counts bit-equal, the sums within RTOL,
+   check_frame_any: words and CRC counts bit-equal, the sums within ANY_RTOL,
    float32 as check_frame_split; the tones with compare_walk_tones at
    ANY_RTOL; on 256 streams and at the full batch, timed there against
    the plain version and the bound); and the search kernels past the
    one-shot stage (phase_kernels_search_long: search_core.cuh's slab
    route at templates of 15,360 and 61,440 samples, every dtype pair, B =
-   64, held and timed: each search row's "slab"); and the batch-major filterbank off
+   64, held and timed: each search row's "slab"; sync_search_fused also at
+   stream-slow-f32's own float32 shape, B = 1,024 and its chunk's lags:
+   "slab"."stream-slow-f32"); and the batch-major filterbank off
    the align+demod kernels' geometry
    (phase_kernels_filterbank_generic): its tensor-core routes at the two
    stream paths' shapes (tone_energies_fused and decide_tones_fused,
@@ -99,8 +101,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    there), and its runtime-geometry walk (csrc/filterbank_any.cu, the
    route of every custom geometry off tone_energies.cu's compile-time
    walks) at sps 40 with 8 tones (B = 4,096), sps 40 with 16 (B = 8,192,
-   stream-custom-f32's), sps 1,920 with 16 (B = 256) and sps 160 with 64
-   (B = 2,048), bfloat16 compute on bf16 rows and float32 compute on
+   stream-custom-f32's), sps 480 with 16 (B = 1,024, stream-slow-f32's),
+   sps 1,920 with 16 (B = 256) and sps 160 with 64 (B = 2,048), bfloat16 compute on bf16 rows and float32 compute on
    float32 rows, held with compare_mma_tones (ANY_RTOL) and
    compare_split on 256 rows and at the full batch, timed there against
    the plain version and the bound (bytes, or the products at the bf16
@@ -552,16 +554,17 @@ def quantize_x127(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x.T * (127.0 / x.abs().max())).to(torch.int8).contiguous()
 
 
-def check_frame(label: str, cfg, x_tm: torch.Tensor, pre: int) -> float:
+def check_frame(label: str, cfg, x_tm: torch.Tensor, pre: int, rtol: float = RTOL, atol: float = 1e-6) -> float:
     """decide_frame_tm on time-major frames against its plain version:
     words and CRC counts (and so their parities) bit-equal, quality sums
-    within RTOL. Returns the max absolute error of the quality sums."""
+    within ``rtol`` (plus ``atol``). Returns the max absolute error of the
+    quality sums."""
     got = kernels.decide_frame_tm(cfg, x_tm, PAYLOAD, preamble_offset=pre)
     want = kernels.decide_frame_tm_ref(cfg, x_tm, PAYLOAD, preamble_offset=pre)
     parity = ((got[1].long() & 1) != (want[1].long() & 1)).sum()
     if int(parity):
         raise AssertionError(f"{label}: crc parity differs in {int(parity)} places")
-    return compare(label, got, want, exact=(0, 1), close=(2,))
+    return compare(label, got, want, exact=(0, 1), close=(2,), atol=atol, rtol=rtol)
 
 
 def tm_energies(cfg, x_tm: torch.Tensor, row0: int, n_sym: int,
@@ -1476,13 +1479,14 @@ def phase_kernels_generic(gen) -> dict:
 def check_frame_any(label: str, cfg, x_tm: torch.Tensor, pre: int) -> float:
     """decide_frame_tm on frame_tm_any.cu (its route asserted) against its
     plain version: bf16 and int8 frames with check_frame (words and CRC
-    counts bit-equal, the quality sums within RTOL), float32 frames with
-    check_frame_split."""
+    counts bit-equal, the quality sums within ANY_RTOL of themselves, no
+    absolute slack), float32 frames with check_frame_split."""
     route = "tm_any_split" if x_tm.dtype == torch.float32 else "tm_any"
     if kernels._tm_operands("decide_frame_tm", cfg, x_tm.dtype, DEV)[1] != route:
         raise AssertionError(f"{label}: decide_frame_tm does not take the {route} route")
-    check = check_frame_split if x_tm.dtype == torch.float32 else check_frame
-    return check(label, cfg, x_tm, pre)
+    if x_tm.dtype == torch.float32:
+        return check_frame_split(label, cfg, x_tm, pre)
+    return check_frame(label, cfg, x_tm, pre, rtol=ANY_RTOL, atol=0.0)
 
 
 def sps1920_config() -> ModemConfig:
@@ -1584,10 +1588,12 @@ CUSTOM_STREAM_CONFIG = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=1200, n
 SLOW_STREAM_CONFIG = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=100, num_tones=16, base_freq_hz=600.0)
 SLOW_STREAM_B = 1024  # its batch: 6 frames of 272,640 float32 samples a stream, 7.1 GB of capture
 # filterbank_any.cu's held and timed geometries in phase 2: (label, config, B);
-# sps 40 with 16 tones at B = 8,192 is stream-custom-f32's own shape
+# sps 40 with 16 tones at B = 8,192 is stream-custom-f32's own shape, sps 480
+# with 16 tones at B = 1,024 stream-slow-f32's (30 k-steps a symbol)
 ANY_GEOMETRIES = (
     ("sps 40, 8 tones", custom_filterbank_config(), 4096),
     ("sps 40, 16 tones", CUSTOM_STREAM_CONFIG, STREAM_B),
+    ("sps 480, 16 tones", SLOW_STREAM_CONFIG, SLOW_STREAM_B),
     ("sps 1920, 16 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=25, num_tones=16,
                                        base_freq_hz=1000.0), 256),
     ("sps 160, 64 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=300, num_tones=64,
@@ -1648,8 +1654,9 @@ def phase_kernels_filterbank_generic(gen) -> dict:
        at the bf16 peak): the two wrappers' "presets" results.
     2. filterbank_any.cu, the runtime-geometry walk of every custom
        geometry, at ANY_GEOMETRIES (sps 40 with 8 tones, B = 4,096; sps 40
-       with 16, B = 8,192, stream-custom-f32's shape; sps 1,920 with 16, B =
-       256; sps 160 with 64, two groups, B = 2,048): bfloat16 compute on
+       with 16, B = 8,192, stream-custom-f32's shape; sps 480 with 16, B =
+       1,024, stream-slow-f32's; sps 1,920 with 16, B = 256; sps 160 with
+       64, two groups, B = 2,048): bfloat16 compute on
        bf16 rows ("any", within ANY_RTOL) and float32 compute on float32
        rows ("any_split"), both wrappers on the data sections of 256 noisy
        frames and at B (compare_mma_tones; compare_split), then timed at B
@@ -2188,8 +2195,9 @@ def phase_kernels_search_long(gen) -> dict:
     qualities and the block maxima within RTOL, every lag of the
     correlation within RTOL of its scale; each timed with its plain
     version against its bound (the segment read once, the output written
-    once, 2 k out_len B operations at the bf16 peak). Returns
-    {name: {"k <k> <seg>/<template>": numbers}}, the kernels line's
+    once, 2 k out_len B operations at the bf16 peak). Then
+    sync_search_fused at stream-slow-f32's own shape (phase_search_slow).
+    Returns {name: {"k <k> <seg>/<template>": numbers}}, the kernels line's
     "slab"."""
     out = {"sync_search_fused": {}, "sync_search_blockmax": {}, "correlate_fused": {}}
     b, n = LONG_B, LONG_OUT_LEN
@@ -2238,7 +2246,47 @@ def phase_kernels_search_long(gen) -> dict:
             del seg
             torch.cuda.empty_cache()
         del buf, idx
+    out["sync_search_fused"]["stream-slow-f32"] = phase_search_slow(gen)
     return out
+
+
+def phase_search_slow(gen) -> dict:
+    """sync_search_fused on the slab route at stream-slow-f32's own shape:
+    float32 segments of SLOW_STREAM_B streams of noise with
+    SLOW_STREAM_CONFIG's 15,360-sample float32 preamble planted at a random
+    lag among its chunk's out_len lags, strided from sample 1 as the
+    stream's buffer slice is: the lags equal to the plain version's and the
+    planted ones, the qualities within RTOL; timed with its plain version
+    against its bound as phase_kernels_search_long counts it (the segment
+    read once, 8 bytes a stream written, 2 k out_len B operations at the
+    bf16 peak)."""
+    cfg, b = SLOW_STREAM_CONFIG, SLOW_STREAM_B
+    n = family.frame_samples(cfg, PAYLOAD) // 128 * 128  # phase_stream's chunk: the search's out_len
+    t = preamble_waveform(cfg, device=DEV).float()
+    k = t.shape[-1]
+    lags = torch.randint(0, n, (b,), generator=gen, device=DEV)
+    buf = 0.3 * torch.randn(b, n + k + 40, generator=gen, device=DEV)
+    buf.scatter_add_(1, 1 + lags[:, None] + torch.arange(k, device=DEV), t.expand(b, k))
+    seg = buf[:, 1 : n + k]
+    te = float((t * t).sum())
+    label = f"sync_search_fused slab (stream-slow-f32, k {k} float32/float32, B {b}, out_len {n})"
+    q, i = kernels.sync_search_fused(seg, t, n, te)
+    rq, ri = kernels.sync_search_fused_ref(seg, t, n, te)
+    if not (torch.equal(i, ri) and torch.equal(i, lags.int())):
+        raise AssertionError(f"{label}: lags differ in {int((i != ri).sum())} streams")
+    r = {"max_abs_err": compare(label, (q,), (rq,), (), (0,))}
+    del q, rq
+    torch.cuda.empty_cache()
+    call = lambda f: f(seg, t, n, te)  # noqa: E731
+    r.update(ms=time_ms(lambda: call(kernels.sync_search_fused)),
+             plain_ms=time_ms(lambda: call(kernels.sync_search_fused_ref)), library_ms=None, B=b, k=k, out_len=n)
+    torch.cuda.empty_cache()
+    r["bound_ms"], r["bound_by"] = bound_ms(b * ((n + k - 1) * 4 + 8), 2 * k * n * b)
+    log(f"  {label}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_by']})")
+    del seg, buf
+    torch.cuda.empty_cache()
+    return r
 
 
 def phase_search_blockmax(cfg, gen) -> None:

@@ -1242,9 +1242,10 @@ def _check_frame_tm(cuda, cfg, x, pay, offset, dtype, name="decide_frame_tm"):
     """One launch of decide_frame_tm on ``x`` (under ``name``'s key: the
     walk's, or frame_tm_any's off it; none elsewhere), held against the
     plain version: bfloat16 and int8 words and CRC counts bit-equal, qual
-    within rtol 1e-5 for int8 (exact I/Q, sums in another order) and 1e-3
-    for bfloat16; float32 (the three-term split) as _check_split_frame
-    holds it."""
+    within rtol 1e-5 (atol 0) for int8 (exact I/Q, sums in another order)
+    and for frame_tm_any's bfloat16 (bf16 products exact, float32 sums in
+    another order), 1e-3 for the walk's bfloat16; float32 (the three-term
+    split) as _check_split_frame holds it."""
     key = _key(name, dtype)
     before = dict(tk.launch_counts)
     got = tk.decide_frame_tm(cfg, x, pay, preamble_offset=offset)
@@ -1257,8 +1258,10 @@ def _check_frame_tm(cuda, cfg, x, pay, offset, dtype, name="decide_frame_tm"):
         _check_split_frame(cfg, got, want, x, offset)
         return got
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    tol = 1e-5 if dtype == torch.int8 else 1e-3
-    torch.testing.assert_close(got[2], want[2], rtol=tol, atol=tol if dtype != torch.int8 else 0)
+    if dtype == torch.int8 or name == "frame_tm_any":
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    else:
+        torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-3)
     return got
 
 
@@ -1563,6 +1566,8 @@ ANY_CONFIGS = {  # sps and tones off tone_energies.cu's walks; (R, symbols) a ca
     "sps100-m16": (ModemConfig(sample_rate_hz=44_100, symbol_rate_hz=441, num_tones=16, base_freq_hz=220.5),
                    (2, 3), 40),
     "sps160-m64": (_custom(160, 64), (7,), 33),  # two groups of 32 tones
+    "sps480-m16": (ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=100, num_tones=16, base_freq_hz=600.0),
+                   (1024,), 9),  # chip_smoke.py's stream-slow-f32 modem at its batch; 30 k-steps
     "sps1920-m16": (_custom(1920, 16), (256,), 40),  # past the old CUDA-core body's 1,536; 120 k-steps
     "sps1920-m256": (_custom(1920, 256), (3,), 3),  # eight groups
 }
@@ -1607,7 +1612,8 @@ def _check_any(cfg, rows, compute):
 def test_cuda_filterbank_any_geometry(cuda, geometry, route):
     """filterbank_any.cu, both wrappers, bfloat16 compute on bf16 rows and
     float32 compute on bf16 and float32 rows, at sps 15, 24, 30, 40 (8
-    and 16 tones), 96, 100 (44.1 kHz / 441), 160 with 64 tones (two groups) and 1,920 with 16
+    and 16 tones), 96, 100 (44.1 kHz / 441), 160 with 64 tones (two
+    groups), 480 with 16 (B = 1,024) and 1,920 with 16
     and 256 tones (a symbol of 120 k-steps walked in slabs; eight groups):
     the data sections of noisy frames in rows at an odd pitch with a
     partial symbol after them and the gaps filled with a large value, the
@@ -2262,8 +2268,9 @@ def test_cuda_decide_frame_tm_any_every_geometry(cuda, dtype, geometry, b):
     plain version at sps 15, 24, 48, 40, 80, 96 and 1,920 (bits a symbol 2,
     1, 2, 4, 4, 4, 4), whole frames, the data section alone and an odd offset, B
     = 1, 7, 129 and 1,000: _check_frame_tm with frame_tm_any's key (bf16
-    and int8 words and CRC counts bit-equal; float32 under the split's
-    tolerance), one launch on the route _tm_operands names."""
+    and int8 words and CRC counts bit-equal, the quality sums within rtol
+    1e-5, atol 0; float32 under the split's tolerance), one launch on the
+    route _tm_operands names."""
     cfg = TM_ANY_CONFIGS[geometry]
     assert tk._tm_operands("decide_frame_tm", cfg, dtype, cuda)[1] == _tm_any_route(dtype)
     case = TM_ANY_BATCHES.index(b) + 4 * TM_ANY_FRAME_CONFIGS.index(geometry)
