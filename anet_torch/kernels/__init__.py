@@ -11,9 +11,12 @@ block maxima of the two-phase acquisition search).
 |                         | + csrc/frame_tm_any.cu              |                               |
 | sync_search_fused       | csrc/sync_search.cu                 | anet/kernels/__init__.py:1095 |
 | demod_at_fused          | csrc/demod_at.cu                    | anet/kernels/__init__.py:1992 |
+|                         | + csrc/demod_at_any.cu              |                               |
 | demod_probe_fused       | csrc/demod_probe.cu + demod_at.cu   | anet/kernels/__init__.py:2307 |
+|                         | + csrc/demod_at_any.cu              |                               |
 | viterbi_trellis         | csrc/viterbi.cu                     | anet/kernels/__init__.py:754  |
 | demod_at_energies_fused | csrc/demod_at_energies.cu           | anet/kernels/__init__.py:1918 |
+|                         | + csrc/demod_at_any.cu              |                               |
 | probe_at_fused          | csrc/demod_probe.cu                 | anet/kernels/__init__.py:1621 |
 | correlate_fused         | csrc/correlate.cu                   | anet/kernels/__init__.py:891  |
 | decide_tones_tm         | csrc/decide_frame_tm.cu             | anet/kernels/__init__.py:269  |
@@ -38,8 +41,9 @@ an int8 launch, ``launch_counts[name + ":f32"]`` for a launch of the
 float32 route of a kernel in ``F32_ROUTES``: float32 data, or float32
 compute for the batch-major filterbank); a launch of a body off the
 compile-time walks' geometry counts under the body's own key instead
-(``OFF_WALK_KEYS``: ``frame_tm_any``, ``filterbank_any``). There is no
-fallback from the kernel to the plain version.
+(``OFF_WALK_KEYS``: ``frame_tm_any``, ``filterbank_any``,
+``demod_at_any``). There is no fallback from the kernel to the plain
+version.
 
 The two search kernels and correlate_fused share one product on the
 tensor cores (``csrc/search_core.cuh``: bf16 ``mma.sync`` with float32
@@ -57,9 +61,16 @@ default carry) take the float32 basis as three bf16 terms that sum to it
 exactly (``_demod_split_basis``) and their samples split on load into
 three bf16 terms of their own, six of the nine products kept, so the I/Q
 are float32 sums to about 2**-24 (``F32_SPLIT_RTOL``, ``F32_SPLIT_ATOL``);
-``_demod_at_basis`` picks the basis for both. The batch-major filterbank
-(tone_energies_fused, decide_tones_fused) runs that product, with the
-same two epilogues, on rows read in place from every start 0 at sps 32,
+``_demod_at_basis`` picks the basis for both. Their walk takes sps 32, 64
+and 128 with at most 16 tones (``_tensor_core_geometry``); the rest of the
+reference's gate, 128 % sps == 0 (``_demod_at_geometry``: sps 4, 8 and 16,
+32 or 64 tones at sps 64 and 128), takes the same products with the
+geometry known at run time (csrc/demod_at_any.cu: r = 16 / sps symbols an
+A row below a k-step, against a block-diagonal basis, as the reference
+packs 128 / sps a row; groups of 32 tones; the basis from
+``_demod_at_any_basis``; the route: ``_demod_at_operands``). The
+batch-major filterbank (tone_energies_fused, decide_tones_fused) runs that
+product, with the same two epilogues, on rows read in place from every start 0 at sps 32,
 48, 64, 80 and 128 with at most 32 tones (8 n-tiles, the basis then in
 shared memory): under bfloat16 compute with the bf16 basis; under float32
 compute with the three-term split, bfloat16 rows meeting all three terms
@@ -93,7 +104,8 @@ products with the geometry known at run time (csrc/frame_tm_any.cu: short
 symbols several a ring stage, long ones walked in k-slabs, groups of 32
 tones, the basis from ``_filterbank_any_basis``; the route:
 ``_tm_operands``). Which predicate picks which route: _tensor_core_geometry
-the align+demod kernels, the stream steps and decide_frame_tm;
+the align+demod kernels' walk and decide_frame_tm's; _demod_at_geometry
+(the reference's 128 % sps == 0) the stream steps' fused routes;
 _filterbank_tensor_core_geometry the batch-major filterbank and
 decide_tones_tm; _ofdm_track_route, from S and C, the OFDM equalizer's.
 gather_rows_fused copies 16-byte vectors aligned by a funnel shift. The
@@ -211,6 +223,8 @@ launch_counts = {
     "frame_tm_any": 0,
     "frame_tm_any:int8": 0,
     "filterbank_any": 0,
+    "demod_at_any": 0,
+    "demod_at_any:int8": 0,
     # the OFDM equalizer's block-of-warps route for long streams
     # (_ofdm_track_route), counted apart from the staged one
     "ofdm_track_decide_fused:block": 0,
@@ -223,16 +237,18 @@ launch_counts = {
 F32_ROUTES = (
     "decide_frame_tm", "sync_search_fused", "demod_at_fused", "demod_probe_fused",
     "demod_at_energies_fused", "correlate_fused", "decide_tones_tm", "tone_energies_fused",
-    "decide_tones_fused", "sync_search_blockmax", "frame_tm_any", "filterbank_any",
+    "decide_tones_fused", "sync_search_blockmax", "frame_tm_any", "filterbank_any", "demod_at_any",
 )
 # The launch-count key of each route off the compile-time walks: the
 # time-major pair's runtime-geometry routes "tm_any" and "tm_any_split"
-# (_tm_operands; csrc/frame_tm_any.cu) and the batch-major filterbank's
-# "any" and "any_split" (_filterbank_operands; csrc/filterbank_any.cu),
-# whichever wrapper launched them.
+# (_tm_operands; csrc/frame_tm_any.cu), the batch-major filterbank's
+# "any" and "any_split" (_filterbank_operands; csrc/filterbank_any.cu) and
+# the align+demod kernels' "at_any" (_demod_at_operands;
+# csrc/demod_at_any.cu), whichever wrapper launched them.
 OFF_WALK_KEYS = {
     "tm_any": "frame_tm_any", "tm_any_split": "frame_tm_any",
     "any": "filterbank_any", "any_split": "filterbank_any",
+    "at_any": "demod_at_any",
 }
 launch_counts.update({f"{name}:f32": 0 for name in F32_ROUTES})
 
@@ -414,16 +430,26 @@ def _demod_at_basis(config: ModemConfig, dtype: torch.dtype, device: torch.devic
 
 
 def _tensor_core_geometry(config: ModemConfig) -> bool:
-    """The geometry of the align+demod kernels and of decide_frame_tm's
+    """The geometry of the align+demod kernels' compile-time walk
+    (demod_at.cu, demod_at_energies.cu) and of decide_frame_tm's
     time-major walk: sps in _KERNEL_SPS (whole k-steps of 32 int8 samples,
-    the align+demod span rows) and at most 16 tones (four n8 tiles), the
-    configs _check_kernel_geometry accepts. It picks the stream steps'
-    route (the align+demod kernels, else the aligned slice and the
-    batch-major filterbank, as the reference fuses only where 128 % sps ==
-    0), the merged lock step, the resident scan and decide_frame_tm's route
-    (_tm_operands). The batch-major filterbank and decide_tones_tm ask
+    the align+demod span rows) and at most 16 tones (four n8 tiles). It
+    picks between the two walks of the align+demod kernels
+    (_demod_at_operands: demod_at_any.cu off it) and decide_frame_tm's
+    route (_tm_operands). The stream steps ask the reference's gate,
+    _demod_at_geometry; the batch-major filterbank and decide_tones_tm
     _filterbank_tensor_core_geometry."""
     return config.samples_per_symbol in _KERNEL_SPS and config.num_tones <= 16
+
+
+def _demod_at_geometry(config: ModemConfig) -> bool:
+    """The reference's gate of its align+demod kernels (_demod_at_setup)
+    and of the stream routes that fuse them: 128 % sps == 0, any tone
+    count. Every geometry in it has a route on the card
+    (_demod_at_operands). It picks the stream steps' route (the
+    align+demod kernels, else the aligned slice and the batch-major
+    filterbank), the merged lock step and the resident scan."""
+    return 128 % config.samples_per_symbol == 0
 
 
 _FILTERBANK_SPS = (32, 48, 64, 80, 128)  # whole k-steps of 16 bf16 samples, rows of whole 32 bytes
@@ -442,14 +468,27 @@ def _filterbank_tensor_core_geometry(config: ModemConfig) -> bool:
     return config.samples_per_symbol in _FILTERBANK_SPS and config.num_tones <= 32
 
 
-def _check_kernel_geometry(name: str, config: ModemConfig) -> None:
-    """Raise unless _tensor_core_geometry holds, naming the field at fault."""
+def _demod_at_operands(name: str, kind: str, config: ModemConfig, dtype: torch.dtype,
+                       device) -> tuple[str, str, torch.Tensor]:
+    """(entry point, route, basis) of an align+demod launch of ``kind``,
+    "demod_at" (decisions: demod_at_fused, demod_probe_fused's demod) or
+    "demod_at_energies", on a buffer of ``dtype``, picked from the config
+    before the launch. At _tensor_core_geometry, the compile-time walk
+    (demod_at.cu, demod_at_energies.cu; entry ``kind``) with
+    _demod_at_basis: route "mma" for bfloat16 and int8 buffers, "split"
+    for float32 (the three-term bf16 split). Elsewhere within the
+    reference's gate (_demod_at_geometry: sps 4, 8 and 16, or more than 16
+    tones at sps 64 and 128), csrc/demod_at_any.cu's walk with the
+    geometry known at run time (entry ``kind + "_any"``, route "at_any",
+    counted under OFF_WALK_KEYS["at_any"]) with _demod_at_any_basis.
+    Where 128 % sps != 0, ValueError naming sps, as the reference's
+    _demod_at_setup raises."""
     if _tensor_core_geometry(config):
-        return
-    if config.num_tones > 16:
-        raise ValueError(f"{name}: the kernel takes at most 16 tones, got num_tones {config.num_tones}")
-    raise ValueError(f"{name}: the kernel takes samples_per_symbol in {_KERNEL_SPS}, "
-                     f"got {config.samples_per_symbol}")
+        return kind, "split" if dtype == torch.float32 else "mma", _demod_at_basis(config, dtype, device)
+    if not _demod_at_geometry(config):
+        raise ValueError(f"{name}: the kernel needs 128 % samples_per_symbol == 0, "
+                         f"got samples_per_symbol {config.samples_per_symbol}")
+    return f"{kind}_any", "at_any", _demod_at_any_basis(config, dtype, device)
 
 
 def _decisions(config: ModemConfig, iq: torch.Tensor, dim: int):
@@ -799,30 +838,32 @@ def demod_at_fused(config: ModemConfig, buffer: torch.Tensor, start: torch.Tenso
     On the card: csrc/demod_at.cu's tensor-core walk, bfloat16 and int8
     buffers against the one-term basis, float32 buffers as the three-term
     bf16 split (within F32_SPLIT_RTOL and F32_SPLIT_ATOL of the plain
-    version)."""
+    version); off its geometry (sps 4, 8, 16; more than 16 tones) the same
+    products on csrc/demod_at_any.cu's runtime-geometry walk
+    (_demod_at_operands). ValueError where 128 % sps != 0, as the
+    reference."""
     if buffer.device.type == "cpu":
         return demod_at_fused_ref(config, buffer, start, n_symbols)
     return _demod_at_launch(config, buffer, start, n_symbols)
 
 
 def _demod_at_launch(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
-    """demod_at_fused's launch: csrc/demod_at.cu's entry with the basis of
-    _demod_at_basis for the buffer's dtype."""
+    """demod_at_fused's launch: the entry and basis _demod_at_operands
+    picks for the config and the buffer's dtype."""
     name = "demod_at_fused"
     dtype, st = _check_buffer_and_starts(name, buffer, start, "start")
-    _check_kernel_geometry(name, config)
     b, length = buffer.shape
     dev = buffer.device
+    entry, route, basis = _demod_at_operands(name, "demod_at", config, buffer.dtype, dev)
     tone = torch.empty(b, n_symbols, dtype=torch.int32, device=dev)
     best = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
     total = torch.empty(b, n_symbols, dtype=torch.float32, device=dev)
-    basis = _demod_at_basis(config, buffer.dtype, dev)
-    err = _entry("demod_at")(
+    err = _entry(entry)(
         buffer.data_ptr(), dtype, b, length, st.data_ptr(), config.preamble_samples,
         config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(), tone.data_ptr(),
         best.data_ptr(), total.data_ptr(), _stream_handle(dev),
     )
-    _check_launch(err, name, buffer.dtype)
+    _check_launch(err, OFF_WALK_KEYS.get(route, name), buffer.dtype)  # off the walk: its route's key
     return tone, best, total
 
 
@@ -949,8 +990,11 @@ def demod_probe_fused(
     On the card it is two launches on the current stream: the probe
     (csrc/demod_probe.cu, a warp a stream) writes (cmax, off, energy) and
     the refined starts st0 + off, then demod_at_fused's tensor-core kernel
-    (csrc/demod_at.cu; float32 buffers as its three-term bf16 split) runs
-    there. They count as one launch of demod_probe_fused."""
+    (csrc/demod_at.cu; float32 buffers as its three-term bf16 split; off
+    its geometry csrc/demod_at_any.cu) runs there. They count as one launch
+    of demod_probe_fused, or of its route's key off the walk
+    (OFF_WALK_KEYS["at_any"]). ValueError where 128 % sps != 0, as the
+    reference."""
     if buffer.device.type == "cpu":
         return demod_probe_fused_ref(config, buffer, st0, n_symbols, template, n_lags=n_lags)
     return _demod_probe_launch(config, buffer, st0, n_symbols, template, n_lags)
@@ -959,15 +1003,15 @@ def demod_probe_fused(
 def _demod_probe_launch(config: ModemConfig, buffer: torch.Tensor, st0: torch.Tensor, n_symbols: int,
                         template: torch.Tensor, n_lags: int):
     """demod_probe_fused's two launches: csrc/demod_probe.cu's probe, then
-    csrc/demod_at.cu's entry at the refined starts with the basis of
-    _demod_at_basis for the buffer's dtype; one count."""
+    the decisions entry _demod_at_operands picks at the refined starts; one
+    count, on that entry's route."""
     name = "demod_probe_fused"
     dtype, st = _check_buffer_and_starts(name, buffer, st0, "st0")
     if not 1 <= n_lags <= 8:
         raise ValueError(f"{name}: n_lags must be in [1, 8]")
-    _check_kernel_geometry(name, config)
     b, length = buffer.shape
     dev = buffer.device
+    entry, route, basis = _demod_at_operands(name, "demod_at", config, buffer.dtype, dev)
     k = template.shape[-1]
     cmax = torch.empty(b, dtype=torch.float32, device=dev)
     off = torch.empty(b, dtype=torch.int32, device=dev)
@@ -986,14 +1030,13 @@ def _demod_probe_launch(config: ModemConfig, buffer: torch.Tensor, st0: torch.Te
         cmax.data_ptr(), off.data_ptr(), energy.data_ptr(), start.data_ptr(), stream,
     )
     _check_error(err, f"{name} (probe)")
-    basis = _demod_at_basis(config, buffer.dtype, dev)
-    err = _entry("demod_at")(
+    err = _entry(entry)(
         buffer.data_ptr(), dtype, b, length, start.data_ptr(), config.preamble_samples,
         config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(), tone.data_ptr(),
         best.data_ptr(), total.data_ptr(), stream,
     )
     _check_error(err, f"{name} (demod)")
-    _count_launch(name, buffer.dtype)  # one launch of the function: its two kernels
+    _count_launch(name, buffer.dtype, route)  # one launch of the function: its two kernels
     return cmax, off, energy, tone, best, total
 
 
@@ -1096,28 +1139,29 @@ def demod_at_energies_fused(
     On the card: csrc/demod_at_energies.cu's tensor-core walk, bfloat16 and
     int8 buffers against the one-term basis, float32 buffers as the
     three-term bf16 split (each energy within F32_SPLIT_RTOL of itself plus
-    F32_SPLIT_ATOL of its symbol's largest plain energy)."""
+    F32_SPLIT_ATOL of its symbol's largest plain energy); off its geometry
+    the same products on csrc/demod_at_any.cu (_demod_at_operands).
+    ValueError where 128 % sps != 0, as the reference."""
     if buffer.device.type == "cpu":
         return demod_at_energies_fused_ref(config, buffer, start, n_symbols)
     return _demod_at_energies_launch(config, buffer, start, n_symbols)
 
 
 def _demod_at_energies_launch(config: ModemConfig, buffer: torch.Tensor, start: torch.Tensor, n_symbols: int):
-    """demod_at_energies_fused's launch: csrc/demod_at_energies.cu's entry
-    with the basis of _demod_at_basis for the buffer's dtype."""
+    """demod_at_energies_fused's launch: the entry and basis
+    _demod_at_operands picks for the config and the buffer's dtype."""
     name = "demod_at_energies_fused"
     dtype, st = _check_buffer_and_starts(name, buffer, start, "start")
-    _check_kernel_geometry(name, config)
     b, length = buffer.shape
     dev = buffer.device
+    entry, route, basis = _demod_at_operands(name, "demod_at_energies", config, buffer.dtype, dev)
     energies = torch.empty(b, n_symbols, config.num_tones, dtype=torch.float32, device=dev)
-    basis = _demod_at_basis(config, buffer.dtype, dev)
-    err = _entry("demod_at_energies")(
+    err = _entry(entry)(
         buffer.data_ptr(), dtype, b, length, st.data_ptr(), config.preamble_samples,
         config.samples_per_symbol, n_symbols, config.num_tones, basis.data_ptr(),
         energies.data_ptr(), _stream_handle(dev),
     )
-    _check_launch(err, name, buffer.dtype)
+    _check_launch(err, OFF_WALK_KEYS.get(route, name), buffer.dtype)  # off the walk: its route's key
     return energies
 
 
@@ -1570,6 +1614,19 @@ def _filterbank_any_basis(config: ModemConfig, dtype: torch.dtype, device: torch
     cols = torch.zeros(e * ks, ng, 8 * nt, dtype=torch.float32, device=device)
     cols[:sps, :, 0 : 2 * gm : 2] = plain[:, :m].reshape(sps, ng, gm)
     cols[:sps, :, 1 : 2 * gm : 2] = plain[:, m:].reshape(sps, ng, gm)
+    return _any_words(cols, dtype)
+
+
+def _any_words(cols: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The product columns ``cols`` [E ks, ng, 8 nt] (E = 32 samples a
+    k-step for int8, else 16; ng groups of nt n-tiles) as the flat int32 B
+    operand of the runtime-geometry walks, in the layout
+    _filterbank_any_basis states: words [group, k-step, n-tile, lane,
+    register] of the bf16 (int8) entries; for float32 the three bf16 terms
+    (_split_terms), b0 so, then b1 and b2 as words [group, k-step, n-tile,
+    lane, term, register]."""
+    e = 32 if dtype == torch.int8 else 16
+    ks, ng, nt = cols.shape[0] // e, cols.shape[1], cols.shape[2] // 8
 
     def words(t: torch.Tensor, kind: torch.dtype = torch.bfloat16) -> torch.Tensor:
         # [e ks, ng, 8 nt] of bf16 (int8) values -> int32 [ng, ks, nt, 32, 2]
@@ -1581,6 +1638,49 @@ def _filterbank_any_basis(config: ModemConfig, dtype: torch.dtype, device: torch
         return words(cols, dtype).flatten()
     b0, b1, b2 = (words(t) for t in _split_terms(cols))
     return torch.cat([b0.flatten(), torch.stack([b1, b2], dim=-2).flatten()])
+
+
+def _demod_at_any_geometry(config: ModemConfig, dtype: torch.dtype) -> tuple[int, int, int, int, int]:
+    """(r, ks, gm, ng, nt) of csrc/demod_at_any.cu for a buffer of
+    ``dtype``: r = max(1, E / sps) symbols an A row of E = 16 samples a
+    k-step (32 for int8), ks = r sps / E k-steps a row, gm tones a group
+    (all M of a row of r > 1 symbols, else min(M, FILTERBANK_GROUP)), ng =
+    M / gm groups and nt n-tiles a group, the r 2 gm columns' (r > 1: at
+    most 8 n-tiles, which every modem below Nyquist keeps, 2M <= sps)."""
+    m, sps = config.num_tones, config.samples_per_symbol
+    e = 32 if dtype == torch.int8 else 16
+    r = max(1, e // sps)
+    gm = m if r > 1 else min(m, FILTERBANK_GROUP)
+    cols = r * 2 * gm
+    if cols > 64:
+        raise ValueError(f"demod_at_any: {m} tones at samples_per_symbol {sps} pass 8 n-tiles a row")
+    return r, r * sps // e, gm, m // gm, 1 if cols <= 8 else 2 if cols <= 16 else 4 if cols <= 32 else 8
+
+
+@functools.lru_cache(maxsize=16)
+def _demod_at_any_basis(config: ModemConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The B operand of csrc/demod_at_any.cu (the align+demod kernels off
+    their compile-time walk) for a buffer of ``dtype``, a flat int32
+    tensor in _any_words' layout (float32: the three-term split). The
+    reference's layout (_demod_at_setup lines 1895-1906) cut to a k-step:
+    an A row is r = max(1, E / sps) symbols (_demod_at_any_geometry), and
+    slot u of the row, its symbol u, meets rows u sps .. (u + 1) sps - 1
+    of the [r sps, ...] columns alone: column u 2 gm + 2 c is the cos of
+    tone c of _plain_basis's entries, u 2 gm + 2 c + 1 its sin (a
+    block-diagonal basis, r 2M columns). A row of one symbol (sps >= E)
+    takes its M tones in groups of gm (32 past 32 tones), as
+    _filterbank_any_basis's. Zero columns past the slots'."""
+    m, sps = config.num_tones, config.samples_per_symbol
+    r, ks, gm, ng, nt = _demod_at_any_geometry(config, dtype)
+    e = 32 if dtype == torch.int8 else 16
+    plain = _plain_basis(config, dtype, device)  # [sps, 2M]
+    cos, sin = plain[:, :m].reshape(sps, ng, gm), plain[:, m:].reshape(sps, ng, gm)
+    cols = torch.zeros(e * ks, ng, 8 * nt, dtype=torch.float32, device=device)
+    for u in range(r):
+        rows = slice(u * sps, (u + 1) * sps)
+        cols[rows, :, u * 2 * gm : (u + 1) * 2 * gm : 2] = cos
+        cols[rows, :, u * 2 * gm + 1 : (u + 1) * 2 * gm : 2] = sin
+    return _any_words(cols, dtype)
 
 
 @functools.lru_cache(maxsize=16)

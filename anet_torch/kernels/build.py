@@ -27,7 +27,7 @@ SOURCES = (
     "decide_frame_tm", "sync_search", "demod_at", "demod_probe",
     "viterbi", "demod_at_energies",
     "correlate", "gather_rows", "ofdm_track",
-    "tone_energies", "search_blockmax", "frame_tm_any", "filterbank_any",
+    "tone_energies", "search_blockmax", "frame_tm_any", "filterbank_any", "demod_at_any",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,6 +60,14 @@ SIGNATURES = {
     "demod_at_energies": (
         "anet_demod_at_energies",
         [_P, _I, _I, ctypes.c_longlong, _P, _I, _I, _I, _I, _P, _P, _P],
+    ),
+    "demod_at_any": (
+        "anet_demod_at_any",
+        [_P, _I, _I, ctypes.c_longlong, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "demod_at_energies_any": (
+        "anet_demod_at_energies_any",
+        [_P, _I, _I, ctypes.c_longlong, _P, _I, _I, _I, _I, _P, _P, _P], "demod_at_any",
     ),
     "probe_at": (
         "anet_probe_at",

@@ -14,7 +14,7 @@ the int8 and bfloat16 loads and conversions, or that the tensor-core
 kernels (``search_core``: ``HMMA`` and no float32 product loop,
 ``FFMA``; ``demod_core``, whose walk runs in ``demod_at``,
 ``demod_at_energies`` and ``tone_energies``, whose products with a
-runtime geometry run in ``filterbank_any`` and ``frame_tm_any``, and whose products and
+runtime geometry run in ``filterbank_any``, ``frame_tm_any`` and ``demod_at_any``, and whose products and
 ``cp.async`` helpers ``decide_frame_tm`` and ``demod_probe`` take:
 ``HMMA`` in the bfloat16 and float32 and ``IMMA`` in the int8
 tensor-core kernels, ``FFMA`` only in the CUDA-core ones). Each row also
@@ -48,7 +48,7 @@ INT8_SOURCES = ("decide_frame_tm", "demod_at", "demod_at_energies", "demod_probe
 HEADERS = {  # a shared device header -> the sources built on it
     "search_core": ("sync_search", "search_blockmax", "correlate"),
     "demod_core": ("demod_at", "demod_at_energies", "tone_energies", "decide_frame_tm", "demod_probe",
-                   "filterbank_any", "frame_tm_any"),
+                   "filterbank_any", "frame_tm_any", "demod_at_any"),
 }
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")

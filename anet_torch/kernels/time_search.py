@@ -132,6 +132,22 @@ comma-separated subset of:
   listed), each with its ``device`` column (rows whose name holds
   ``frame_tm_any`` or, in a checkout from before it, ``frame_tm_generic``,
   so a parent and this one time alike). It ignores ``--model``.
+- ``demod_at_any``: the align+demod kernels' two walks (this checkout's
+  only: a parent has no runtime-geometry walk). ``demod_at_fused``,
+  ``demod_at_energies_fused`` and ``demod_probe_fused`` (5 lags; the
+  bfloat16 template, float32 for a float32 buffer) at each shape of
+  ``AT_ANY_SHAPES``, payload 256's data symbols, B = 8,192, starts random
+  below 1,000, on bfloat16, int8 (``quantize_int8``) and float32 buffers of
+  noise: at mfsk16-fast (536 symbols of 64 samples, 16 tones) both on
+  demod_at.cu's compile-time walk (``<wrapper> <shape> <dtype> walk``) and
+  on csrc/demod_at_any.cu forced (``... any``: ``kernels._demod_at_operands``
+  replaced by one that returns the runtime-geometry route whatever the
+  geometry), and at stream-sps16-int8's and stream-resident-m32's modems
+  (sps 16 with 4 tones, sps 128 with 32), where only the runtime-geometry
+  walk runs; each with its ``device`` column (rows whose name holds the
+  route's kernel: ``demod_at_mma``, ``demod_at_energies_mma`` or
+  ``demod_at_any_kernel``, the probe's ``probe_kernel`` besides). It
+  ignores ``--model``.
 - ``search_long``: ``sync_search_fused``, ``sync_search_blockmax`` and
   ``correlate_fused`` at templates of 15,360 and 61,440 samples (sps 480's
   and sps 1,920's preambles; ``LONG_TEMPLATES``), out_len 36,352, B = 256,
@@ -173,6 +189,7 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     # the time-major pair off its walk: frame_tm_any.cu, or a parent's frame_tm_generic.cu
     "frame_tm_any": ("frame_tm_generic", "frame_tm_any"),
     "search_long": ("sync_search", "search_blockmax", "correlate"),
+    "demod_at_any": ("demod_at", "demod_at_energies", "demod_probe", "demod_at_any"),
 }
 FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
 # (preset, data symbols): its frames of 256, 1,024 and 4,096 bytes, S = 302, and
@@ -199,6 +216,14 @@ TM_ANY_SHAPES = (
     ("sps40-m8", "decide_tones_tm", 48_000, 1200, 8, 600.0, 16384, ("bfloat16", "float32")),
     ("sps80-m16", "decide_frame_tm", 48_000, 600, 16, 300.0, 16384, ("bfloat16", "int8", "float32")),
     ("sps1920-m16", "decide_frame_tm", 48_000, 25, 16, 1000.0, 256, ("bfloat16", "int8", "float32")),
+)
+# (label, sample rate, baud, tones, base Hz, routes) of --kernels demod_at_any: the
+# preset on both walks, then chip_smoke.py's stream-sps16-int8 and
+# stream-resident-m32 modems on the runtime-geometry walk
+AT_ANY_SHAPES = (
+    ("mfsk16-fast", 48_000, 750, 16, 3_000.0, ("walk", "any")),
+    ("sps16-m4", 48_000, 3_000, 4, 3_000.0, ("any",)),
+    ("sps128-m32", 48_000, 375, 32, 3_000.0, ("any",)),
 )
 LONG_TEMPLATES = (15_360, 61_440)  # sps 480's and sps 1,920's 32-symbol preambles
 LONG_OUT_LEN, LONG_B = 36_352, 256
@@ -547,6 +572,47 @@ if "frame_tm_any" in kinds:
             torch.cuda.empty_cache()
         del x
         torch.cuda.empty_cache()
+if "demod_at_any" in kinds:
+    from anet_torch.dsp.frame import data_symbols_for_payload
+    from anet_torch.dsp.params import ModemConfig
+    from anet_torch.stream import quantize_int8
+
+    walk_operands = kernels._demod_at_operands
+
+    def forced(name, kind, config, dtype, device):  # demod_at_any.cu whatever the geometry
+        return kind + "_any", "at_any", kernels._demod_at_any_basis(config, dtype, device)
+
+    for label, rate, baud, m, base, routes in {at_any_shapes!r}:
+        c = ModemConfig(sample_rate_hz=rate, symbol_rate_hz=baud, num_tones=m, base_freq_hz=base)
+        n_sym = data_symbols_for_payload(c, 256)
+        x = torch.randn(b, 1000 + c.preamble_samples + n_sym * c.samples_per_symbol + 128, generator=gen,
+                        device="cuda")
+        starts = torch.randint(0, 1000, (b,), generator=gen, device="cuda").int()
+        t32 = family.preamble_template(c, "cuda").float()
+        for dtype, make, t in (("bfloat16", lambda: x.to(torch.bfloat16), t32.to(torch.bfloat16)),
+                               ("int8", lambda: quantize_int8(x), t32.to(torch.bfloat16)),
+                               ("float32", lambda: x, t32)):
+            buf = make()
+            for route in routes:
+                kernels._demod_at_operands = walk_operands if route == "walk" else forced
+                decide = "demod_at_mma" if route == "walk" else "demod_at_any_kernel"
+                energies = "demod_at_energies_mma" if route == "walk" else "demod_at_any_kernel"
+                for name, call, dev_key in (
+                    ("demod_at_fused", lambda: kernels.demod_at_fused(c, buf, starts, n_sym), decide),
+                    ("demod_at_energies_fused", lambda: kernels.demod_at_energies_fused(c, buf, starts, n_sym),
+                     energies),
+                    ("demod_probe_fused", lambda: kernels.demod_probe_fused(c, buf, starts, n_sym, t, n_lags=5),
+                     ("probe_kernel", decide)),
+                ):
+                    key = f"{{name}} {{label}} {{dtype}} {{route}}"
+                    out[key] = time_ms(call)
+                    out[key + " device"] = device_ms(call, dev_key)
+                torch.cuda.empty_cache()
+            kernels._demod_at_operands = walk_operands
+            del buf
+            torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
 if "search_long" in kinds:
     PAIRS4 = PAIRS + ((torch.float32, torch.bfloat16),)
     for kl in {long_templates!r}:
@@ -608,7 +674,7 @@ def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) 
     child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS,
                           demod_models=DEMOD_MODELS, frame_b=FRAME_B, ofdm_shapes=OFDM_SHAPES, any_shapes=ANY_SHAPES,
                           tm_any_shapes=TM_ANY_SHAPES, long_templates=LONG_TEMPLATES, long_b=LONG_B,
-                          long_out_len=LONG_OUT_LEN)
+                          long_out_len=LONG_OUT_LEN, at_any_shapes=AT_ANY_SHAPES)
     run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")

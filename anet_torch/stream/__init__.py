@@ -33,13 +33,15 @@ the plain row-aligned probe) and, on acquisition, the search kernel; then
 the energies kernel (demod_at_energies_fused) at the chosen start, the
 max-log LLRs, the deinterleaver and the Viterbi kernel (viterbi_trellis).
 
-At a geometry the align+demod kernels do not take (samples_per_symbol
-other than 32, 64 and 128, or more than 16 tones: mfsk8-audible,
-mfsk32-dense), both step kinds slice the aligned window in
-``compute_dtype`` and demodulate it with the batch-major receiver, whose
-filterbank is tone_energies_fused, as the reference does wherever it does
-not fuse; the locked step is then the unmerged one. _fused_demod picks the
-route from the config before any launch.
+Outside the reference's gate of its fused routes (128 % sps != 0:
+mfsk8-audible, mfsk32-dense, custom modems at sps 40 or 480), both step
+kinds slice the aligned window in ``compute_dtype`` and demodulate it with
+the batch-major receiver, whose filterbank is tone_energies_fused, as the
+reference does wherever it does not fuse; the locked step is then the
+unmerged one. Within it the align+demod kernels take every tone count
+(sps 4, 8 and 16, and past 16 tones at sps 64 and 128, on their
+runtime-geometry walk). _fused_demod picks the route from the config
+before any launch.
 
 Variable-length frames (``stream_step_dynamic`` /
 ``receive_stream_dynamic``) read each frame's length from its header: the
@@ -492,35 +494,36 @@ def _find_candidate_locked(carry, chunk, t_frame, t_c, t_energy, detect_threshol
 
 def _merged_lock_supported(config, carry: StreamCarry) -> bool:
     """The merged probe + demod kernel serves the uncoded locked step when
-    the buffer is on the card and the kernels take the geometry
-    (kernels._tensor_core_geometry). (A coded frame's soft decisions need
-    every tone's energy, which the merged kernel does not write; OFDM has no
+    the buffer is on the card, within the reference's gate of its fused
+    routes (kernels._demod_at_geometry: 128 % sps == 0, where the kernels
+    take every tone count). (A coded frame's soft decisions need every
+    tone's energy, which the merged kernel does not write; OFDM has no
     merged kernel.)"""
     from anet_torch.dsp.family import is_ofdm
-    from anet_torch.kernels import _tensor_core_geometry
+    from anet_torch.kernels import _demod_at_geometry
 
     return (
         carry.buffer.is_cuda
         and not is_ofdm(config)
         and config.fec == "none"
-        and _tensor_core_geometry(config)
+        and _demod_at_geometry(config)
     )
 
 
 def _fused_demod(config) -> bool:
     """Whether the stream steps demodulate a candidate with the align+demod
     kernels, which read the buffer at the start (demod_at_fused, or
-    demod_at_energies_fused for coded frames): MFSK at the geometry they
-    take (kernels._tensor_core_geometry), from the config alone, never from
-    a launch's error. Otherwise the aligned window is sliced in
-    ``compute_dtype`` and demodulated by aligned_demod_fn /
-    aligned_demod_dynamic_fn: the OFDM receiver, or the batch-major MFSK
-    one (its filterbank tone_energies_fused), as the reference does
-    wherever it does not fuse (its fused routes need 128 % sps == 0)."""
+    demod_at_energies_fused for coded frames): MFSK within the reference's
+    gate of its fused routes (kernels._demod_at_geometry: 128 % sps == 0),
+    from the config alone, never from a launch's error. Otherwise the
+    aligned window is sliced in ``compute_dtype`` and demodulated by
+    aligned_demod_fn / aligned_demod_dynamic_fn: the OFDM receiver, or the
+    batch-major MFSK one (its filterbank tone_energies_fused), as the
+    reference does wherever it does not fuse."""
     from anet_torch.dsp.family import is_ofdm
-    from anet_torch.kernels import _tensor_core_geometry
+    from anet_torch.kernels import _demod_at_geometry
 
-    return not is_ofdm(config) and _tensor_core_geometry(config)
+    return not is_ofdm(config) and _demod_at_geometry(config)
 
 
 def _next_carry(carry, buffer, samples_seen, detected, frame, start_abs, t_frame, lock, mid_flight):
@@ -831,8 +834,7 @@ def receive_stream(
         if not _resident_supported(config, compute_dtype, track, capture.device):
             raise ValueError(
                 "resident=True needs the fused-demod geometry: a CUDA device, uncoded "
-                "MFSK with samples_per_symbol in (32, 64, 128) and at most 16 tones, "
-                "bfloat16 compute, no tracking"
+                "MFSK with 128 % samples_per_symbol == 0, bfloat16 compute, no tracking"
             )
         if carry is not None:
             carry = _resume_or_init(config, carry, capture, chunk_size, payload_len, compute_dtype)
@@ -858,18 +860,17 @@ def receive_stream(
 
 def _resident_supported(config, compute_dtype, track: bool, device: torch.device) -> bool:
     """The capture-resident lock scan needs the align+demod kernel
-    (demod_at_fused) on the card: a CUDA device, uncoded MFSK with a
-    geometry the kernels take (kernels._tensor_core_geometry, within the
-    JAX package's gate 128 % sps == 0), bfloat16 compute, and no
-    symbol-clock tracking."""
+    (demod_at_fused) on the card: a CUDA device, uncoded MFSK within the
+    JAX package's gate (kernels._demod_at_geometry: 128 % sps == 0, every
+    tone count), bfloat16 compute, and no symbol-clock tracking."""
     from anet_torch.dsp.family import is_ofdm
-    from anet_torch.kernels import _tensor_core_geometry
+    from anet_torch.kernels import _demod_at_geometry
 
     return (
         device.type == "cuda"
         and not is_ofdm(config)
         and config.fec == "none"
-        and _tensor_core_geometry(config)
+        and _demod_at_geometry(config)
         and compute_dtype == torch.bfloat16
         and not track
     )

@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-1. build the sixteen CUDA kernels from anet_torch/kernels/csrc (thirteen
-   sources, nvcc, sm_90a);
+1. build the CUDA kernels from anet_torch/kernels/csrc (fourteen sources,
+   one nvcc each, all started together, sm_90a);
 2. hold each kernel against its plain PyTorch version at its main path's
    shapes on a 256-stream subset, then time kernel and plain version at the
    full batch: the uncoded paths' four kernels on mfsk16-fast (payload 256,
@@ -106,7 +106,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    float32 rows, held with compare_mma_tones (ANY_RTOL) and
    compare_split on 256 rows and at the full batch, timed there against
    the plain version and the bound (bytes, or the products at the bf16
-   peak);
+   peak); and the align+demod kernels off their compile-time walk
+   (phase_kernels_demod_at_any: csrc/demod_at_any.cu, the rest of the
+   reference's gate, 128 % sps == 0): demod_at_fused,
+   demod_at_energies_fused and demod_probe_fused on bf16, int8 and float32
+   buffers at sps 16 with 4 tones and sps 128 with 32 (the two new stream
+   paths' modems) on 256 streams and at B = 8,192, held against the plain
+   versions (check_at_any: the route and launch keys asserted; int8 tones,
+   best and energies bit-equal; bf16 within ANY_RTOL of the symbol's
+   largest energy; float32 the split's tolerance) and timed there against
+   the plain version and the bound; at sps 4 with 2 tones, sps 8 with 4,
+   sps 64 with 32 and sps 128 with 64 held on 256 streams, data starts at
+   every byte residue mod 16;
 3. the aligned receivers at full size, frames transmitted on the card and
    demodulated time-major: 16,384 mfsk16-fast frames through
    decide_frame_tm ("aligned"), 8,192 mfsk4-coded frames through the
@@ -230,7 +241,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    100 baud, 16 tones from 600 Hz: sps 480, whose 15,360-sample preamble
    passes the search's one-shot stage in float32, so sync_search_fused:f32
    on search_core.cuh's slab route, then filterbank_any:f32; never a
-   bfloat16 search or filterbank route);
+   bfloat16 search or filterbank route); and two custom modems within the
+   reference's gate off the align+demod kernels' compile-time walk:
+   "stream-sps16-int8" (phase 4's stream on an int8 carry, cold and warm,
+   48 kHz, 3,000 baud, 4 tones: sps 16, two symbols an A row of
+   demod_at_any.cu; demod_probe_fused and demod_at_fused in int8 on it,
+   demod_at_any:int8, never the walk's keys or the slice) and
+   "stream-resident-m32" (phase 9's capture-resident scan against the
+   carry path, cold and warm, bf16, 48 kHz, 375 baud, 32 tones: sps 128,
+   8 n-tiles; demod_at_fused on demod_at_any.cu, demod_at_any);
 11. the scale-out layer (anet_torch.parallel, its positions all on the one
    card) and the modem CLI: "sharded-demod" (16,384 aligned mfsk16-fast
    frames, float32 compute, sharded_demodulate on 4 positions and on
@@ -308,8 +327,12 @@ numbers decide_frame_tm at sps 40 with 16 tones, bf16, under "f32" on
 float32, every shape of TM_ANY_SHAPES under "shapes"; filterbank_any, on stream-custom-f32's path, its
 numbers tone_energies_fused at sps 40 with 8 tones under bf16 compute,
 under "f32" under float32 compute on float32 rows, decide_tones_fused's
-under "decide_tones", sps 1,920 and 160 beside them), and the last line
-the JSON verdict with the device's name.
+under "decide_tones", sps 1,920 and 160 beside them; demod_at_any, on
+stream-sps16-int8's and stream-resident-m32's paths, its numbers
+demod_at_fused at sps 16 with 4 tones, B = 8,192, bf16, the other two
+wrappers beside them, sps 128 with 32 tones and the shapes held at 256
+streams under their labels, int8 and float32 under "int8" and "f32"),
+and the last line the JSON verdict with the device's name.
 """
 
 from __future__ import annotations
@@ -382,6 +405,7 @@ GATE_EPS = 1e-4  # a gate may part from the plain version's only this close to a
 ANY_RTOL = 1e-5  # filterbank_any.cu and frame_tm_any.cu, bf16: bf16 products exact, float32 sums in another order
 TM_ANY_ROW = kernels.OFF_WALK_KEYS["tm_any"]  # the kernels line's row of csrc/frame_tm_any.cu
 FILTERBANK_ROW = kernels.OFF_WALK_KEYS["any"]  # the row of csrc/filterbank_any.cu, the runtime-geometry walk
+AT_ANY_ROW = kernels.OFF_WALK_KEYS["at_any"]  # the row of csrc/demod_at_any.cu, the align+demod kernels off their walk
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_S = 67e12  # H100 SXM float32 peak outside the tensor cores
@@ -409,6 +433,8 @@ REPLACES = {
     TM_ANY_ROW: ("anet_torch/kernels/csrc/frame_tm_any.cu", "anet/kernels/__init__.py:269"),
     # tone_energies_fused (and decide_tones_fused, :172) off the compile-time walk's geometry
     FILTERBANK_ROW: ("anet_torch/kernels/csrc/filterbank_any.cu", "anet/kernels/__init__.py:87"),
+    # demod_at_fused (and demod_at_energies_fused, :1918, demod_probe_fused's demod, :2307) off the walk's geometry
+    AT_ANY_ROW: ("anet_torch/kernels/csrc/demod_at_any.cu", "anet/kernels/__init__.py:1992"),
 }
 
 
@@ -1739,6 +1765,171 @@ def phase_kernels_filterbank_generic(gen) -> dict:
     return results
 
 
+# stream-sps16-int8's modem: 48 kHz, 3,000 baud (sps 16), 4 tones from 3 kHz
+SPS16_CONFIG = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=3_000, num_tones=4)
+# stream-resident-m32's: 48 kHz, 375 baud (sps 128), 32 tones from 3 kHz
+M32_CONFIG = ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=375, num_tones=32)
+# demod_at_any.cu (the align+demod kernels off demod_at.cu's walk): held
+# and timed at the two new paths' modems at B = 8,192, held at the rest of
+# the reference's gate (128 % sps == 0) at 256 streams: A rows of 4 and 2
+# short symbols, one and two groups of 32 tones
+AT_ANY_MAIN = (("sps 16, 4 tones", SPS16_CONFIG), ("sps 128, 32 tones", M32_CONFIG))
+AT_ANY_SHAPES = (
+    ("sps 4, 2 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=12_000, num_tones=2, base_freq_hz=3_000.0)),
+    ("sps 8, 4 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=6_000, num_tones=4, base_freq_hz=3_000.0)),
+    ("sps 64, 32 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=750, num_tones=32, base_freq_hz=375.0)),
+    ("sps 128, 64 tones", ModemConfig(sample_rate_hz=48_000, symbol_rate_hz=375, num_tones=64, base_freq_hz=187.5)),
+)
+AT_ANY_DTYPES = (("bf16", torch.bfloat16), ("int8", torch.int8), ("f32", torch.float32))
+
+
+def compare_scaled(label: str, got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor, rtol: float) -> float:
+    """``got`` within ``rtol`` of ``scale`` (the symbol's largest plain
+    energy) of the plain ``want``. Returns the max absolute error."""
+    diff = (got.double() - want.double()).abs()
+    bad = int((diff > rtol * scale.double()).sum())
+    worst = float(diff.max())
+    log(f"  {label}: max abs {worst:.3e}, max {float((diff / scale.double().clamp_min(1e-30)).max()):.3e} of the "
+        f"symbol's largest energy; beyond {rtol:g} of it {bad}")
+    if bad:
+        raise AssertionError(f"{label}: beyond {rtol:g} of the symbol's largest energy in {bad} places")
+    return worst
+
+
+def check_at_any(label: str, cfg, buf: torch.Tensor, starts: torch.Tensor, n_sym: int, tpl: torch.Tensor) -> float:
+    """demod_at_fused, demod_at_energies_fused and demod_probe_fused (at
+    starts - 2, n_lags 5) on demod_at_any.cu (the route asserted: one launch
+    each under its key for the buffer's dtype, none elsewhere) against their
+    plain versions. int8 (exact int32 I/Q): tones and best bit-equal,
+    energies bit-equal, total within rtol 1e-5; bfloat16: tones bit-equal,
+    best, total and energies within ANY_RTOL of the symbol's largest energy;
+    float32: the three-term split's tolerance and near-tie rule
+    (compare_split_decisions, compare_split_energies); the probe's offsets
+    all 2, the planted lag. Returns the max absolute error."""
+    if kernels._demod_at_operands(label, "demod_at", cfg, buf.dtype, DEV)[1] != "at_any":
+        raise AssertionError(f"{label}: the align+demod kernels do not take demod_at_any.cu")
+    before = dict(kernels.launch_counts)
+    got = kernels.demod_at_fused(cfg, buf, starts, n_sym)
+    energies = kernels.demod_at_energies_fused(cfg, buf, starts, n_sym)
+    probe = kernels.demod_probe_fused(cfg, buf, starts - 2, n_sym, tpl, n_lags=N_LAGS)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in kernels.launch_counts.items() if v != before[k]}
+    key = AT_ANY_ROW + {torch.int8: ":int8", torch.float32: ":f32"}.get(buf.dtype, "")
+    if delta != {key: 3}:
+        raise AssertionError(f"{label}: launches {delta}, not three under {key}")
+    want_e = kernels.demod_at_energies_fused_ref(cfg, buf, starts, n_sym)
+    want_p = kernels.demod_probe_fused_ref(cfg, buf, starts - 2, n_sym, tpl, n_lags=N_LAGS)
+    if not (torch.equal(probe[1], want_p[1]) and bool((probe[1] == 2).all())):
+        raise AssertionError(f"{label}: demod_probe_fused's servo missed the planted starts")
+    err = compare(f"{label} demod_probe_fused probe", probe[:3], want_p[:3], (1,), (0, 2))
+    if buf.dtype == torch.float32:
+        err = max(err, compare_split_decisions(f"{label} demod_at_fused", got, want_e),
+                  compare_split_energies(f"{label} demod_at_energies_fused", energies, want_e),
+                  compare_split_decisions(f"{label} demod_probe_fused demod", probe[3:], want_e))
+        return err
+    want = kernels.demod_at_fused_ref(cfg, buf, starts, n_sym)
+    if buf.dtype == torch.int8:
+        err = max(err, compare(f"{label} demod_at_fused", got, want, (0, 1), (2,), rtol=1e-5, atol=0),
+                  compare(f"{label} demod_probe_fused demod", probe[3:], want, (0, 1), (2,), rtol=1e-5, atol=0),
+                  compare(f"{label} demod_at_energies_fused", (energies,), (want_e,), (0,), ()))
+        return err
+    scale = want_e.amax(-1)
+    for name, (tone, best, total) in (("demod_at_fused", got), ("demod_probe_fused demod", probe[3:])):
+        if not torch.equal(tone, want[0]):
+            raise AssertionError(f"{label} {name}: tones differ in {int((tone != want[0]).sum())} places")
+        err = max(err, compare_scaled(f"{label} {name} best", best, want[1], scale, ANY_RTOL),
+                  compare_scaled(f"{label} {name} total", total, want[2], scale, ANY_RTOL))
+    if not torch.equal(energies.argmax(-1).int(), want[0]):
+        raise AssertionError(f"{label} demod_at_energies_fused: the energies' argmax differs from the tones")
+    return max(err, compare_scaled(f"{label} demod_at_energies_fused", energies, want_e, scale[..., None], ANY_RTOL))
+
+
+def at_any_buffers(cfg, gen, b: int):
+    """(bf16, int8 and float32 stream buffers [b, L] as the carries hold
+    them, starts): noise 0.05 and a frame at each start, the data sections
+    of the first 16 at every byte residue mod 16 (rows of whole 16 bytes),
+    the rest at random starts below 1,000."""
+    pay = torch.randint(0, 256, (b, PAYLOAD), generator=gen, device=DEV, dtype=torch.uint8)
+    waves = transmit(cfg, pay, device=DEV)
+    length = -(-(waves.shape[1] + 1300) // 64) * 64
+    starts = torch.randint(3, 1000, (b,), generator=gen, device=DEV)
+    starts[:16] = 1000 + torch.arange(16, device=DEV)
+    bf16, i8, f32 = plant_frames(waves, starts, length, 0.05, gen)
+    return {"bf16": bf16, "int8": i8, "f32": f32}, starts.int()
+
+
+def phase_kernels_demod_at_any(gen) -> dict:
+    """Phase 2 for demod_at_any.cu, the align+demod kernels at the
+    reference's geometries off demod_at.cu's walk. At AT_ANY_MAIN
+    (stream-sps16-int8's modem, sps 16 with 4 tones, 1,072 symbols; and
+    stream-resident-m32's, sps 128 with 32 tones, 429 symbols) on bf16,
+    int8 and float32 buffers of 256 streams, then of B = 8,192: the three
+    wrappers held against their plain versions (check_at_any), then timed
+    with them against the bound (each stream's data span read once, the
+    outputs written once; the products at the peak of their type: int8's,
+    or bf16's for one product and the split's six; the probe's span and
+    correlations besides). At AT_ANY_SHAPES (sps 4 with 2 tones, sps 8 with
+    4, sps 64 with 32, sps 128 with 64) held at 256 streams. The results:
+    AT_ANY_ROW's, ":int8" and ":f32" by dtype, demod_at_fused at sps 16
+    the row's own numbers, the other wrappers and geometries under their
+    labels."""
+    results = {}
+    for cfg_label, cfg in (*AT_ANY_MAIN, *AT_ANY_SHAPES):
+        sps, m = cfg.samples_per_symbol, cfg.num_tones
+        n_sym = tframe.data_symbols_for_payload(cfg, PAYLOAD)
+        tpl = preamble_waveform(cfg, device=DEV).to(torch.bfloat16)
+        k = tpl.shape[-1]
+        small, starts = at_any_buffers(cfg, gen, COMPARE_B)
+        main = (cfg_label, cfg) in AT_ANY_MAIN
+        for dlabel, dt in AT_ANY_DTYPES:
+            key = AT_ANY_ROW if dt == torch.bfloat16 else f"{AT_ANY_ROW}:{dlabel}"
+            buf = small[dlabel]
+            err = check_at_any(f"{AT_ANY_ROW} ({cfg_label}, {dlabel}, B {COMPARE_B})", cfg, buf, starts, n_sym, tpl)
+            entry = {"max_abs_err": err}
+            if main:
+                reps = STREAM_B // COMPARE_B
+                full, st_full = buf.repeat(reps, 1), starts.repeat(reps)
+                err = max(err, check_at_any(f"{AT_ANY_ROW} ({cfg_label}, {dlabel}, B {STREAM_B})", cfg, full,
+                                            st_full, n_sym, tpl))
+                es, b = full.element_size(), STREAM_B
+                peak = INT8_OPS_S if dt == torch.int8 else BF16_FLOPS_S
+                n_products = F32_SPLIT_PRODUCTS if dt == torch.float32 else 1
+                ops = n_products * n_sym * 2 * sps * 2 * m * b
+                st0 = st_full - 2
+                pw_e = -(-(k + N_LAGS - 1) // 128) + 1
+                lo = torch.minimum(st0 // 128 * 128, st0)
+                hi = torch.maximum(st0 // 128 * 128 + pw_e * 128, st0 + 2 + cfg.preamble_samples + n_sym * sps)
+                probe_ops = b * (2 * N_LAGS * k + 2 * pw_e * 128)
+                if dt == torch.float32:
+                    probe_ops *= BF16_FLOPS_S / F32_FLOPS_S  # float32 multiply-adds on the CUDA cores
+                timed = {}
+                for name, call, n_bytes, n_ops in (
+                    ("demod_at_fused", lambda f: f(cfg, full, st_full, n_sym),
+                     b * (n_sym * (sps * es + 12) + 4), ops),
+                    ("demod_at_energies_fused", lambda f: f(cfg, full, st_full, n_sym),
+                     b * (n_sym * (sps * es + 4 * m) + 4), ops),
+                    ("demod_probe_fused", lambda f: f(cfg, full, st0, n_sym, tpl, n_lags=N_LAGS),
+                     float((hi - lo).sum()) * es + b * (16 + n_sym * 12), ops + probe_ops),
+                ):
+                    r = {"max_abs_err": err, "ms": time_ms(lambda: call(getattr(kernels, name))),
+                         "plain_ms": time_ms(lambda: call(getattr(kernels, f"{name}_ref"))), "library_ms": None}
+                    r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, peak)
+                    log(f"  {AT_ANY_ROW} {name} ({cfg_label}, {dlabel}, B {b}, {n_sym} symbols): kernel "
+                        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+                        f"({r['bound_by']})")
+                    timed[name] = r
+                    torch.cuda.empty_cache()
+                del full
+                entry = {**timed.pop("demod_at_fused"), **timed}
+            if key not in results:  # sps 16, 4 tones: the row's own numbers
+                results[key] = {**entry, "geometry": f"{cfg_label}, B {STREAM_B}, demod_at_fused"}
+            else:
+                results[key][cfg_label] = entry
+        del small
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_aligned(cfg, gen, label: str = "aligned", batch: int = ALIGNED_B, iters: int = 5,
                   dtype: torch.dtype = torch.bfloat16) -> None:
     """Phase 3: the aligned time-major receiver at the full batch, frames
@@ -1932,14 +2123,14 @@ def phase_stream_tracked(cfg, gen) -> None:
         raise AssertionError(f"stream-tracked: frames_ok {frames_ok}, payloads right {right}")
 
 
-def phase_stream_resident(cfg, gen) -> None:
-    """"stream-resident": receive_stream(lock=True, resident=True) on phase
-    4's bf16 capture at B = 8,192, cold and warm, each after the carry path
-    (resident=False, its launches uncounted) on the same capture: every
-    frame ok with its payload, and the detections, frames_ok and the final
-    carry (buffer and counters) equal to the carry path's. Both
-    throughputs logged."""
-    cap, sent, chunk, total = locked_stream_capture(cfg, gen, "stream-resident")
+def phase_stream_resident(cfg, gen, label: str = "stream-resident") -> None:
+    """"stream-resident" (or ``label``): receive_stream(lock=True,
+    resident=True) on phase 4's bf16 capture at B = 8,192, cold and warm,
+    each after the carry path (resident=False, its launches uncounted) on
+    the same capture: every frame ok with its payload, and the detections,
+    frames_ok and the final carry (buffer and counters) equal to the carry
+    path's. Both throughputs logged."""
+    cap, sent, chunk, total = locked_stream_capture(cfg, gen, label)
     fresh = {
         "cold": lambda: None,
         "warm-lock": lambda: warm_lock_carry(cfg, chunk, PAYLOAD, STREAM_B, DEV),
@@ -1963,15 +2154,15 @@ def phase_stream_resident(cfg, gen) -> None:
         same = torch.equal(res.steps.detected, ref.steps.detected) and all(
             torch.equal(getattr(res.carry, f), getattr(ref.carry, f)) for f in res.carry._fields
         )
-        log(f"stream-resident {run}: frames_ok {frames_ok} of {STREAM_B * N_FRAMES}, payloads right {right}, "
+        log(f"{label} {run}: frames_ok {frames_ok} of {STREAM_B * N_FRAMES}, payloads right {right}, "
             f"frames and final carry equal to the carry path's {same}; resident "
             f"{rates[True][0]:.1f} Msamples/s ({rates[True][1]:.3f} s), carry path {rates[False][0]:.1f} "
             f"Msamples/s ({rates[False][1]:.3f} s)")
         if frames_ok != STREAM_B * N_FRAMES or not right or not same:
-            raise AssertionError(f"stream-resident {run}: frames_ok {frames_ok}, payloads right {right}, "
+            raise AssertionError(f"{label} {run}: frames_ok {frames_ok}, payloads right {right}, "
                                  f"equal to the carry path {same}")
         if run == "cold" and kernels.launch_counts["sync_search_fused"] == 0:
-            raise AssertionError("stream-resident cold: the search kernel never launched")
+            raise AssertionError(f"{label} cold: the search kernel never launched")
         del res, ref
         torch.cuda.empty_cache()
 
@@ -3639,6 +3830,17 @@ PATHS = {
         lambda cfg, gen: phase_stream(cfg, gen, "stream-slow-f32", torch.float32, batch=SLOW_STREAM_B),
         ("sync_search_fused:f32", f"{FILTERBANK_ROW}:f32"),
     ),
+    # custom modems within the reference's gate (128 % sps == 0) off the
+    # align+demod kernels' compile-time walk: their runtime-geometry walk
+    "stream-sps16-int8": (
+        SPS16_CONFIG,
+        lambda cfg, gen: phase_stream(cfg, gen, "stream-sps16-int8", torch.int8),
+        ("sync_search_fused", f"{AT_ANY_ROW}:int8"),
+    ),
+    "stream-resident-m32": (
+        M32_CONFIG, lambda cfg, gen: phase_stream_resident(cfg, gen, "stream-resident-m32"),
+        ("sync_search_fused", AT_ANY_ROW),
+    ),
     "sharded-demod": (MODEL, phase_sharded_demod, ("tone_energies_fused:f32",)),
     "ber-sweep": (MODEL, phase_ber_sweep, ("tone_energies_fused:f32",)),
     "sharded-long": (MODEL, phase_sharded_long, ("sync_search_fused", "demod_at_fused", "demod_probe_fused")),
@@ -3702,6 +3904,10 @@ ABSENT = {
                        f"{TM_ANY_ROW}:int8", "tone_energies_fused", "decide_tones_fused", FILTERBANK_ROW),
     "stream-slow-f32": (*OFF_THE_WALK, "decide_tones_tm", "probe_at_fused", TM_ANY_ROW, "tone_energies_fused",
                         "decide_tones_fused", f"{FILTERBANK_ROW}:bf16", "sync_search_fused:bf16"),
+    "stream-sps16-int8": (*OFF_THE_WALK, "demod_at_fused:int8", "demod_probe_fused:int8", "probe_at_fused",
+                          AT_ANY_ROW, "tone_energies_fused", FILTERBANK_ROW, TM_ANY_ROW),
+    "stream-resident-m32": (*OFF_THE_WALK, "probe_at_fused", f"{AT_ANY_ROW}:int8", "tone_energies_fused",
+                            FILTERBANK_ROW, TM_ANY_ROW),
     "aligned-ofdm-long": (ofdm_path_key(OFDM_LONG_MODEL, picked=False),),
     "aligned-ofdm-4k": (ofdm_path_key(OFDM_4K_MODEL, picked=False),),
 }
@@ -3764,6 +3970,8 @@ def main() -> int:
     for name in ("tone_energies_fused", "decide_tones_fused"):
         results[name]["presets"] = filterbank.pop(name)
     results.update(filterbank)
+    torch.cuda.empty_cache()
+    results.update(phase_kernels_demod_at_any(gen))
     counts = dict.fromkeys(kernels.launch_counts, 0)
     for path, (model, phase, path_kernels) in PATHS.items():
         torch.cuda.empty_cache()

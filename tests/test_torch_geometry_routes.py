@@ -3,9 +3,12 @@ tensor-core walk (samples_per_symbol other than 32, 64 and 128, or more
 than 16 tones: the presets mfsk8-audible and mfsk32-dense, and custom
 configs), anet_torch against the JAX package on the CPU.
 
-- Two predicates pick the routes. kernels._tensor_core_geometry (sps 32,
-  64 or 128, at most 16 tones) picks the kernels' geometry check (which
-  names the field at fault), the stream steps' (stream._fused_demod) and
+- Three predicates pick the routes. kernels._tensor_core_geometry (sps 32,
+  64 or 128, at most 16 tones) picks the align+demod kernels' compile-time
+  walk (kernels._demod_at_operands; their runtime-geometry walk, csrc/
+  demod_at_any.cu, elsewhere within the reference's gate, 128 % sps == 0,
+  kernels._demod_at_geometry, which also picks the stream steps' route,
+  stream._fused_demod; ValueError naming sps outside it) and
   decide_frame_tm's (kernels._tm_operands);
   kernels._filterbank_tensor_core_geometry (sps 32, 48, 64, 80 or 128, at
   most 32 tones) the batch-major filterbank's (kernels._filterbank_operands)
@@ -58,11 +61,11 @@ def _custom(sps: int, m: int, cls=ModemConfig):
     return cls(sample_rate_hz=48_000, symbol_rate_hz=rate, num_tones=m, base_freq_hz=rate / 2)
 
 
-# every MFSK preset, and sps 24 .. 160 with 2 .. 64 tones wherever a config exists
+# every MFSK preset, and sps 4 .. 160 with 2 .. 64 tones wherever a config exists
 GEOMETRIES = {m.name: m.config for m in list_models() if hasattr(m.config, "num_tones")}
 GEOMETRIES.update({
     f"sps{sps}-m{m}": _custom(sps, m)
-    for sps in (24, 32, 48, 64, 80, 96, 128, 160) for m in (2, 4, 8, 16, 32, 64) if m <= sps // 2
+    for sps in (4, 8, 16, 24, 32, 48, 64, 80, 96, 128, 160) for m in (2, 4, 8, 16, 32, 64) if m <= sps // 2
 })
 TM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
@@ -70,11 +73,18 @@ TM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 @pytest.mark.parametrize("name", list(GEOMETRIES))
 def test_one_predicate_picks_every_route(name):
     """_tensor_core_geometry holds at sps 32, 64 and 128 with at most 16
-    tones; elsewhere _check_kernel_geometry raises, naming the field at
-    fault (the tone count first). The stream steps fuse there and slice
-    elsewhere, and decide_frame_tm takes the walk there ("mma" or "split"
-    by dtype) and the runtime-geometry walk elsewhere (frame_tm_any.cu:
-    entry ``decide_frame_tm_any``, route "tm_any", or "tm_any_split" for
+    tones: the align+demod kernels' compile-time walk there (entry
+    ``demod_at`` / ``demod_at_energies``, route "mma", or "split" for
+    float32, _demod_at_basis). Elsewhere within the reference's gate,
+    _demod_at_geometry (128 % sps == 0: sps 4, 8, 16, and 32 or 64 tones at
+    sps 64 and 128), their runtime-geometry walk (demod_at_any.cu: entries
+    ``*_any``, route "at_any" counted under ``demod_at_any``,
+    _demod_at_any_basis); outside it _demod_at_operands raises ValueError
+    naming sps, where the reference's _demod_at_setup raises. The stream
+    steps fuse within the gate and slice outside it, and decide_frame_tm
+    takes the walk at _tensor_core_geometry ("mma" or "split" by dtype) and
+    the runtime-geometry walk elsewhere (frame_tm_any.cu: entry
+    ``decide_frame_tm_any``, route "tm_any", or "tm_any_split" for
     float32). The batch-major filterbank and decide_tones_tm follow the
     wider predicate, _filterbank_tensor_core_geometry (sps 32, 48, 64, 80
     or 128, at most 32 tones): their compile-time walks there; elsewhere
@@ -83,16 +93,26 @@ def test_one_predicate_picks_every_route(name):
     "any_split" by the compute dtype), both with _filterbank_any_basis. No
     geometry is left without a route."""
     cfg = GEOMETRIES[name]
+    sps = cfg.samples_per_symbol
     fast = tk._tensor_core_geometry(cfg)
-    assert fast == (cfg.samples_per_symbol in (32, 64, 128) and cfg.num_tones <= 16)
-    if fast:
-        tk._check_kernel_geometry("k", cfg)
-    else:
-        sps = cfg.samples_per_symbol
-        field = f"num_tones {cfg.num_tones}" if cfg.num_tones > 16 else f"samples_per_symbol in (32, 64, 128), got {sps}"
-        with pytest.raises(ValueError, match=re.escape(field)):
-            tk._check_kernel_geometry("k", cfg)
-    assert tstream._fused_demod(cfg) == fast
+    assert fast == (sps in (32, 64, 128) and cfg.num_tones <= 16)
+    gate = 128 % sps == 0
+    assert tk._demod_at_geometry(cfg) == gate
+    for kind in ("demod_at", "demod_at_energies"):
+        for key, dt in TM_DTYPES.items():
+            if not gate:
+                with pytest.raises(ValueError, match=re.escape(f"128 % samples_per_symbol == 0, got samples_per_symbol {sps}")):
+                    tk._demod_at_operands("k", kind, cfg, dt, CPU)
+                continue
+            entry, route, basis = tk._demod_at_operands("k", kind, cfg, dt, CPU)
+            if fast:
+                assert (entry, route) == (kind, "split" if key == "f32" else "mma")
+                assert basis is tk._demod_at_basis(cfg, dt, CPU)
+            else:
+                assert (entry, route) == (f"{kind}_any", "at_any")
+                assert tk.OFF_WALK_KEYS[route] == "demod_at_any"
+                assert basis is tk._demod_at_any_basis(cfg, dt, CPU)
+    assert tstream._fused_demod(cfg) == gate
     walk = cfg.samples_per_symbol in (32, 48, 64, 80, 128) and cfg.num_tones <= 32
     assert tk._filterbank_tensor_core_geometry(cfg) == walk
     for key, dt in TM_DTYPES.items():

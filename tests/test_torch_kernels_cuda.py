@@ -2402,3 +2402,132 @@ def test_cuda_generic_geometry_receivers_match_cpu(cuda, model):
                    for k in launched)  # the bodies off the compile-time walks
     assert launched["decide_tones_tm"] and launched["decide_tones_tm:f32"] and launched["sync_search_fused"]
     assert launched["tone_energies_fused"] and launched["tone_energies_fused:f32"] and launched["probe_at_fused"]
+
+
+# --- the align+demod kernels off their walk: csrc/demod_at_any.cu -------------
+
+# every geometry of the reference's gate (128 % sps == 0) off demod_at.cu's
+# walk that a modem below Nyquist has: A rows of 2 to 8 short symbols (sps 4,
+# 8, 16), and 32 or 64 tones (one or two groups of 8 n-tiles)
+ANY_DEMOD_CONFIGS = {
+    "sps4-m2": ModemConfig(48_000, 12_000, num_tones=2, base_freq_hz=3_000.0),
+    "sps8-m2": _custom(8, 2),
+    "sps8-m4": _custom(8, 4),
+    "sps16-m2": _custom(16, 2),
+    "sps16-m4": ModemConfig(48_000, 3_000, num_tones=4),
+    "sps16-m8": _custom(16, 8),
+    "sps64-m32": _custom(64, 32),
+    "sps128-m32": ModemConfig(48_000, 375, num_tones=32),
+    "sps128-m64": _custom(128, 64),
+}
+
+
+def _check_any_decisions(got, want, energies, dtype):
+    """demod_at_any's decisions (tone, best, total) against the plain
+    version's and the plain energies [B, S, M] of the same spans: int8
+    (exact int32 I/Q) tones and best bit-equal, total within rtol 1e-5;
+    bfloat16 tones equal, best and total within 1e-5 of the symbol's
+    largest energy (bf16 products exact, float32 sums in another order);
+    float32 the split's tolerance and near-tie rule (_check_split_decisions)."""
+    if dtype == torch.float32:
+        _check_split_decisions(got, energies)
+        return
+    assert torch.equal(got[0], want[0])
+    if dtype == torch.int8:
+        assert torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        return
+    scale = energies.amax(-1)
+    for a, b in zip(got[1:], want[1:]):
+        assert bool(((a - b).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("geometry", list(ANY_DEMOD_CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_demod_at_any_every_residue(cuda, dtype, geometry, ragged):
+    """The three align+demod wrappers off demod_at.cu's walk, on
+    csrc/demod_at_any.cu: demod_at_fused, demod_at_energies_fused and
+    demod_probe_fused (n_lags 5) against their plain versions at data
+    starts of every residue mod 16, a span half past the buffer's end, one
+    wholly past it, one before the row's start, rows that start off a
+    16-byte boundary and, ``ragged``, a row length that leaves every other
+    row off one too; 67 symbols (not a multiple of an A row's r symbols or
+    a tile's rows). Decisions by _check_any_decisions; energies: int8
+    bit-equal, bfloat16 within 1e-5 of the symbol's largest, float32 the
+    split's (_check_split_energies), argmaxes equal but at the split's
+    near-ties; the probe's offsets equal. Three launches, all under
+    demod_at_any's key for the dtype, none under the walk's keys."""
+    cfg = ANY_DEMOD_CONFIGS[geometry]
+    assert not tk._tensor_core_geometry(cfg) and tk._demod_at_geometry(cfg)
+    rng = np.random.default_rng(len(geometry) + 100 * ragged)
+    n_sym = 67
+    length = cfg.preamble_samples + n_sym * cfg.samples_per_symbol + 1000 + (5 if ragged else 0)
+    buf, st = _demod_buffer(cfg, rng, n_sym, length, dtype, cuda)
+    tpl = preamble_waveform(cfg, device=cuda).to(torch.bfloat16)
+    before = dict(tk.launch_counts)
+    got = tk.demod_at_fused(cfg, buf, st, n_sym)
+    energies = tk.demod_at_energies_fused(cfg, buf, st, n_sym)
+    probe = tk.demod_probe_fused(cfg, buf, st - 2, n_sym, tpl)
+    assert _launched(before) == {_key("demod_at_any", dtype): 3}
+    want_e = tk.demod_at_energies_fused_ref(cfg, buf, st, n_sym)
+    _check_any_decisions(got, tk.demod_at_fused_ref(cfg, buf, st, n_sym), want_e, dtype)
+    if dtype == torch.float32:
+        _check_split_energies(energies, want_e)
+    elif dtype == torch.int8:
+        assert torch.equal(energies, want_e)
+    else:
+        assert bool(((energies - want_e).abs() <= 1e-5 * want_e.amax(-1, keepdim=True)).all())
+        assert torch.equal(energies.argmax(-1).int(), want_e.argmax(-1).int())
+    want_p = tk.demod_probe_fused_ref(cfg, buf, st - 2, n_sym, tpl)
+    assert torch.equal(probe[1], want_p[1])
+    _check_any_decisions(probe[3:], want_p[3:], tk.demod_at_energies_fused_ref(cfg, buf, st - 2 + want_p[1], n_sym),
+                         dtype)
+    assert not bool(want_e[-2].any())  # the span wholly past the end reads zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["sps16-m4", "sps128-m32"])
+def test_cuda_demod_at_any_resident_scan_matches_carry_path(cuda, geometry):
+    """receive_stream(lock=True, resident=True) off demod_at.cu's walk
+    (sps 16 with 4 tones, sps 128 with 32) against the carry path on the
+    same card: 64 streams, payload 64, a gap of 1,000 samples, then 4
+    back-to-back frames, bf16. Every frame ok; frames, the final carry's
+    buffer and every counter equal. The resident scan demodulates on
+    demod_at_any.cu (demod_at_fused's launches under its key, one a chunk),
+    the carry path's locked step on it too (demod_probe_fused's)."""
+    from anet_torch.dsp.family import frame_samples
+
+    cfg = ANY_DEMOD_CONFIGS[geometry]
+    rng = np.random.default_rng(17 + len(geometry))
+    b, pay_len = 64, 64
+    t = frame_samples(cfg, pay_len)
+    chunk = t // 128 * 128
+    n = -(-(1000 + 4 * t) // chunk) * chunk
+    pay = torch.from_numpy(rng.integers(0, 256, (4 * b, pay_len), dtype=np.uint8)).to(cuda)
+    w = transmit(cfg, pay, device=cuda).reshape(4, b, t)
+    cap = torch.zeros(b, n, dtype=torch.bfloat16, device=cuda)
+    for i in range(4):
+        cap[:, 1000 + i * t : 1000 + (i + 1) * t] = w[i].to(torch.bfloat16)
+    cap += (0.05 * torch.randn(b, n, device=cuda)).to(torch.bfloat16)
+    before = dict(tk.launch_counts)
+    want = tstream.receive_stream(cfg, cap, chunk, pay_len, compute_dtype=torch.bfloat16, lock=True,
+                                  resident=False, device=cuda)
+    carry_path = _launched(before)
+    assert carry_path.get("demod_at_any", 0) > 0
+    assert not any(k.startswith(("demod_at_fused", "demod_probe_fused")) for k in carry_path)
+    before = dict(tk.launch_counts)
+    got = tstream.receive_stream(cfg, cap, chunk, pay_len, compute_dtype=torch.bfloat16, lock=True,
+                                 resident=True, device=cuda)
+    launched = _launched(before)
+    assert launched.get("demod_at_any", 0) == n // chunk and "sync_search_fused" in launched
+    assert not any(k.startswith(("demod_at_fused", "demod_probe_fused", "probe_at_fused")) for k in launched)
+    assert int(got.carry.frames_ok.sum()) == 4 * b
+    assert torch.equal(got.steps.detected, want.steps.detected)
+    det = got.steps.detected
+    assert torch.equal(got.steps.frame.payload[det], want.steps.frame.payload[det])
+    assert torch.equal(got.steps.frame.ok, want.steps.frame.ok)
+    assert torch.equal(got.steps.frame_start[det], want.steps.frame_start[det])
+    for f in tstream.StreamCarry._fields:
+        assert torch.equal(getattr(got.carry, f), getattr(want.carry, f)), f

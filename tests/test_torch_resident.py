@@ -23,6 +23,7 @@ from anet.models import get_model as jget_model
 
 import anet_torch.stream as tstream
 from anet_torch.dsp import sync as tsync
+from anet_torch.dsp.params import ModemConfig
 from anet_torch.models import get_model
 
 NAME = "mfsk16-fast"
@@ -174,8 +175,11 @@ def test_probe_start_bound_equals_unbounded(bound):
 def test_resident_refusals():
     """resident=True needs lock=True and the card's geometry: the CPU, a
     coded config, float32 compute and tracking raise ValueError, as the JAX
-    package refuses every backend but its TPU; resident=None on the CPU is
-    the carry path."""
+    package refuses every backend but its TPU; so does a geometry outside
+    the JAX package's gate, 128 % sps != 0 (mfsk8-audible, sps 48), while
+    every one inside it is taken, at any tone count (sps 16 with 4 tones,
+    sps 128 with 32: the align+demod kernels' runtime-geometry walk);
+    resident=None on the CPU is the carry path."""
     cap = _capture("contiguous", seed=5)[:, : 8 * CHUNK]
     with pytest.raises(ValueError, match="requires lock=True"):
         tstream.receive_stream(CFG, cap, CHUNK, PAY, resident=True, compute_dtype=torch.bfloat16, device="cpu")
@@ -194,6 +198,10 @@ def test_resident_refusals():
     assert not tstream._resident_supported(coded, torch.bfloat16, False, cuda)
     assert not tstream._resident_supported(CFG, torch.float32, False, cuda)
     assert not tstream._resident_supported(CFG, torch.bfloat16, True, cuda)
+    for cfg, taken in ((ModemConfig(48_000, 3_000, num_tones=4), True),
+                       (ModemConfig(48_000, 375, num_tones=32), True),
+                       (get_model("mfsk8-audible").config, False)):
+        assert tstream._resident_supported(cfg, torch.bfloat16, False, cuda) == taken
     auto = tstream.receive_stream(CFG, cap, CHUNK, PAY, lock=True, compute_dtype=torch.bfloat16, device="cpu")
     carry_path = tstream.receive_stream(
         CFG, cap, CHUNK, PAY, lock=True, resident=False, compute_dtype=torch.bfloat16, device="cpu"
