@@ -795,7 +795,7 @@ def sync_search_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int, t
     args = _search_launch_args(name, seg, template, out_len)
     b = seg.shape[0]
     dev = seg.device
-    n_tiles = -(-(-(-out_len // 128)) // 96)  # blocks of rows of 128 lags: at least 96 rows a block
+    n_tiles = -(-(-(-out_len // 128)) // 16)  # blocks of rows of 128 lags: at least 16 rows a block
     part_q = torch.empty(b, n_tiles, dtype=torch.float32, device=dev)
     part_i = torch.empty(b, n_tiles, dtype=torch.int32, device=dev)
     best_q = torch.empty(b, dtype=torch.float32, device=dev)
@@ -807,6 +807,33 @@ def sync_search_fused(seg: torch.Tensor, template: torch.Tensor, out_len: int, t
     )
     _check_launch(err, name, seg.dtype)
     return best_q, best_i
+
+
+_SLAB_SOURCES = {"sync_search_fused": "sync_search", "sync_search_blockmax": "search_blockmax",
+                 "correlate_fused": "correlate"}
+_SLAB_FIELDS = ("blocks_per_sm", "threads", "smem_bytes", "ksl", "slabs", "registers", "local_bytes", "rows")
+
+
+def search_slab_occupancy(name: str, seg_dtype: torch.dtype, template_dtype: torch.dtype, k: int,
+                          out_len: int) -> dict | None:
+    """What the card gives the slab kernel of ``name`` (sync_search_fused,
+    sync_search_blockmax or correlate_fused) at a launch's geometry:
+    {"blocks_per_sm" (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    "threads", "smem_bytes", "ksl" (k-steps a slab), "slabs", "registers"
+    and "local_bytes" (spills) a thread, "rows" a block}; None where the
+    one-shot route takes the template. Needs the card."""
+    import ctypes
+
+    n_steps = -(-(k + 127) // 16)
+    w = 8 * n_steps + 72
+    w += (16 - w) % 32  # as _search_template_words sizes it
+    out = (ctypes.c_int * len(_SLAB_FIELDS))()
+    err = _entry(_SLAB_SOURCES[name] + "_slab_occupancy")(
+        _KERNEL_DTYPES[seg_dtype], int(template_dtype == torch.float32), w, k, out_len, ctypes.addressof(out))
+    if err == 1:  # cudaErrorInvalidValue: the one-shot route's template
+        return None
+    _check_error(err, f"{name} slab occupancy")
+    return dict(zip(_SLAB_FIELDS, out))
 
 
 # --- demod_at_fused: align + demod at dynamic starts -------------------------

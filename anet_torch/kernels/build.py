@@ -127,6 +127,12 @@ SIGNATURES = {
         "anet_search_blockmax",
         [_P, _I, _I, _L, _I, _P, _I, _I, _I, _I, _P, ctypes.c_float, _P, _P],
     ),
+    # the slab kernels' occupancy at a launch's geometry (search_core.cuh slab_occupancy)
+    "sync_search_slab_occupancy": ("anet_sync_search_slab_occupancy", [_I, _I, _I, _I, _I, _P], "sync_search"),
+    "search_blockmax_slab_occupancy": (
+        "anet_search_blockmax_slab_occupancy", [_I, _I, _I, _I, _I, _P], "search_blockmax",
+    ),
+    "correlate_slab_occupancy": ("anet_correlate_slab_occupancy", [_I, _I, _I, _I, _I, _P], "correlate"),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -51,32 +51,36 @@ correlate_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, Ge
   store_rows(g, b, tile, acc, out);
 }
 
-// The slab route (templates past the one-shot stage): one block an SM.
-template <typename T, bool B_LO>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+// The slab route (templates past the one-shot stage): two blocks an SM.
+template <typename T, bool B_LO, int NTW>
+__global__ void __launch_bounds__((slab_threads<std::is_same<T, float>::value, B_LO, NTW>()), 2)
 correlate_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, SlabGeometry g,
                       float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x / g.n_tiles;
   const int tile = blockIdx.x % g.n_tiles;
   float sum[NT][4];
-  slab_rows<T, B_LO, false>(seg, tpl, g, b, tile, smem, sum);
-  store_rows(g, b, tile, sum, out);
+  slab_rows<T, B_LO, false, NTW>(seg, tpl, g, b, tile, smem, sum);
+  if (holds_rows(g)) store_rows(g, b, tile, sum, out);
 }
 
-// G: Geometry (the one-shot route) or SlabGeometry (the slab route).
+// The kernel of a launch at g: Geometry (the one-shot route) or
+// SlabGeometry (the slab route).
+template <typename T, bool B_LO>
+auto kernel_for(const Geometry&) { return correlate_kernel<T, B_LO>; }
+template <typename T, bool B_LO>
+auto kernel_for(const SlabGeometry& g) {
+  return g.ntw == NT ? correlate_slab_kernel<T, B_LO, NT> : correlate_slab_kernel<T, B_LO, NT / 2>;
+}
+
 template <typename T, bool B_LO, typename G>
 cudaError_t launch(const void* seg, const void* tpl, const G& g, size_t smem, int B,
                    void* out, cudaStream_t st) {
-  void (*kernel)(const T*, const uint32_t*, G, float*);
-  if constexpr (std::is_same<G, SlabGeometry>::value)
-    kernel = correlate_slab_kernel<T, B_LO>;
-  else
-    kernel = correlate_kernel<T, B_LO>;
+  const auto kernel = kernel_for<T, B_LO>(g);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * g.n_tiles, g.mt / WARP_ROWS * 32, smem, st>>>(
+  kernel<<<B * g.n_tiles, block_threads(g), smem, st>>>(
       static_cast<const T*>(seg), static_cast<const uint32_t*>(tpl), g, static_cast<float*>(out));
   return cudaGetLastError();
 }
@@ -106,7 +110,25 @@ extern "C" int anet_correlate(const void* seg, int dtype, int B, long long row_s
   size_t smem;
   if (make_geometry(g, row_stride, seg_len, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
     return (int)run(g, smem);
-  if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
+  if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, 1.0f, a_lo, b_lo != 0, slab_ntw(), smem))
     return (int)run(sg, smem);
   return (int)cudaErrorInvalidValue;
+}
+
+// The slab kernel's occupancy at a launch's geometry (slab_occupancy's
+// out[8]); cudaErrorInvalidValue where the one-shot route takes the
+// template or no route does.
+extern "C" int anet_correlate_slab_occupancy(int dtype, int b_lo, int w, int k, int out_len, int* out) {
+  const bool a_lo = dtype == anet::DTYPE_F32;
+  Geometry g;
+  SlabGeometry sg;
+  size_t smem;
+  if (make_geometry(g, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem) ||
+      !make_slab_geometry(sg, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, slab_ntw(), smem))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == anet::DTYPE_BF16)
+    return (int)(b_lo ? slab_occupancy(kernel_for<__nv_bfloat16, true>(sg), sg, smem, out)
+                      : slab_occupancy(kernel_for<__nv_bfloat16, false>(sg), sg, smem, out));
+  return (int)(b_lo ? slab_occupancy(kernel_for<float, true>(sg), sg, smem, out)
+                    : slab_occupancy(kernel_for<float, false>(sg), sg, smem, out));
 }

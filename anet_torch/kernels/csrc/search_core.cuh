@@ -43,20 +43,30 @@
 // copies and the whole span pass the shared memory a block holds; about
 // 14,400 samples for float32 x float32, 33,000 for bf16 x bf16) takes the
 // slab route (make_slab_geometry, slab_rows): the band's k-steps in slabs
-// of ksl (a multiple of 8, so a slab's span starts on a staged row). Each
-// slab stages its window of the same template words (8 ksl + 72 of each
-// copy, no new operand) and the span rows its Hankel rows read (mt - 1 +
-// ksl / 8), and the lane reloads its 17-pair B ring at the slab's start.
-// The 128-sample block energies are computed once, before the first slab,
-// from the same loads and in the same order as the one-shot stage, so the
-// window sums and scales are its bits. The tensor cores truncate what they
-// add to an accumulator, which over thousands of k-steps (3,848 at 61,440
-// samples) drifts by about 2^-23 of the sum a step: the slab route adds its
-// accumulators into a float32 sum on the CUDA cores every FOLD k-steps and
-// starts them again from zero. That sum takes 64 more registers a lane, so
-// a slab block runs alone on its multiprocessor, with the shared memory of
-// one block.
+// of ksl (a multiple of 8, so a slab's span starts on a staged row), sized
+// so that two blocks share a multiprocessor (SLAB_SMEM each; one block
+// takes all of it only where two cannot fit). The span rows live in a ring
+// of rr slots that covers a slab and the next one: each slab stages only
+// the ksl / 8 rows it adds, and the next slab's rows and its window of the
+// template words (8 ksl + 72 of each copy, cp.async, zero past the band)
+// are staged while this slab's products run, under one __syncthreads a
+// slab. The lane's 17-pair B ring runs on across slabs. The 128-sample
+// block energies are computed once, before the first slab, from the same
+// loads and in the same order as the one-shot stage, so the window sums
+// and scales are its bits. The tensor cores truncate what they add to an
+// accumulator, which over thousands of k-steps (3,848 at 61,440 samples)
+// drifts by about 2^-23 of the sum a step: the slab route adds its
+// accumulators into a float32 sum on the CUDA cores every FOLD k-steps
+// (counted from the walk's start) and starts them again from zero. The sum
+// lives in shared memory, 8 KB a warp, so that a lane holds no more than
+// the one-shot route's registers (at most 128, or 168 where an operand is
+// float32) and two blocks fit a multiprocessor. Within a k-step a warp
+// issues its 16 tiles' hi*hi, then hi*lo, then lo*hi products: each
+// accumulator keeps its order, with 16 independent products between two
+// that depend on each other.
 #pragma once
+
+#include <stdlib.h>
 
 #include "common.cuh"
 
@@ -379,49 +389,108 @@ __device__ __forceinline__ void tile_rows(const T* __restrict__ seg,
 // --- the slab route: templates past the one-shot stage ------------------------
 
 constexpr int FOLD = 32;  // k-steps between the slab route's folds into its float32 sum
+// A block's dynamic shared memory where two blocks share a multiprocessor:
+// its 233,472 bytes less the 1,024 the card reserves for each block,
+// halved, less the search's static block_best arrays (2 MAX_WARPS words).
+constexpr int SLAB_SMEM = (233472 - 2 * 1024) / 2 - 2 * MAX_WARPS * 4;
 
-// The slab route's geometry: the one-shot fields, and the slab's.
+// The slab route's geometry: the one-shot fields (its own row split), and
+// the slab's.
 struct SlabGeometry : Geometry {
-  int ksl;  // k-steps of a slab, a multiple of 8
-  int ws;   // words of a staged template copy: 8 ksl + 80, 16 mod 32
-  int nbe;  // the block energies of a block's rows: mt + kb - 1
+  int ntw;      // n8 tiles a warp walks: NT (whole rows, the sum in shared memory)
+                // or NT / 2 (half rows, two warps a row group, the sum in registers)
+  int warps;    // warps of a block
+  int n_steps;  // k-steps walked: nks rounded up to 8 (the staged words past the band are zero)
+  int ksl;      // k-steps of a slab, a multiple of 8, at most 16 warps (a chunk a thread a slab)
+  int ws;       // words of a staged template copy: 8 ksl + 80, 16 mod 32
+  int rr;       // slots of the span ring: mt - 1 + ksl / 4 rounded up to 8
+  int nbe;      // the block energies of a block's rows: mt + kb - 1
 };
 
+inline int block_threads(const Geometry& g) { return g.mt / WARP_ROWS * 32; }
+inline int block_threads(const SlabGeometry& g) { return g.warps * 32; }
+
+// The ring's slots: a slab's mt - 1 + ksl / 8 rows and the next slab's
+// ksl / 8, rounded up to 8 so that the 8 rows an ldmatrix phase reads fall
+// in distinct bank groups across the wrap.
+inline int slab_ring_rows(int mt, int ksl) { return (mt - 1 + ksl / 4 + 7) / 8 * 8; }
+
+// A slab block's shared memory: the sum (mt x 128 float32; the half-row
+// walk gathers its sums there at the end, over the template windows and the
+// ring), two template windows, the ring (hi, then lo for float32 samples),
+// the block energies, one scale a row.
 inline size_t slab_smem(const SlabGeometry& g, int ksl, bool a_lo, bool b_lo) {
-  const int ws = 8 * ksl + 80;
-  const int nbs = g.mt - 1 + ksl / 8;
-  return (size_t)(b_lo ? 2 : 1) * 2 * ws * 4 + (size_t)(a_lo ? 2 : 1) * nbs * ROW_PITCH * 2 +
-         (size_t)(g.nbe + g.mt) * 4;
+  const size_t sum = (size_t)g.mt * ROW * 4;
+  const size_t tpl = (size_t)2 * (b_lo ? 4 : 2) * (8 * ksl + 80) * 4;
+  const size_t ring = (size_t)(a_lo ? 2 : 1) * slab_ring_rows(g.mt, ksl) * ROW_PITCH * 2;
+  const size_t head = g.ntw == NT ? sum + tpl + ring : (sum > tpl + ring ? sum : tpl + ring);
+  return head + (size_t)(g.nbe + g.mt) * 4;
 }
 
 // The slab route's geometry of a launch whose template make_geometry does
 // not stage whole, or false where the kernel does not take it (a template
-// word count the wrapper did not build for this k). The rows are split as
-// make_geometry splits them; a slab is the most k-steps that keep the
-// block's shared memory within MAX_SMEM, then the slabs are evened out.
+// word count the wrapper did not build for this k). A block takes the rows
+// a warp count allows (ntw NT: max_warps a block, 16 rows each; NT / 2: 8
+// warps, two a row group); a slab is the most k-steps that keep the block
+// within SLAB_SMEM, so that two blocks share a multiprocessor, then the
+// slabs are evened out. Where no slab fits that, one block takes MAX_SMEM,
+// with fewer rows where it must.
 inline bool make_slab_geometry(SlabGeometry& g, int64_t row_stride, int seg_len, int out_len, int k,
-                               int w, float te, bool a_lo, bool b_lo, size_t& smem) {
+                               int w, float te, bool a_lo, bool b_lo, int ntw, size_t& smem) {
   if (k < 1 || out_len < 1) return false;
   make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo, smem);
   if (w < 8 * g.nks + 72 || w % 32 != 16) return false;
-  g.nbe = g.mt + g.kb - 1;
-  int ksl = (g.nks + 7) / 8 * 8;
-  while (ksl > 8 && slab_smem(g, ksl, a_lo, b_lo) > (size_t)MAX_SMEM) ksl -= 8;
-  const int n_slabs = (g.nks + ksl - 1) / ksl;
-  g.ksl = ((g.nks + n_slabs - 1) / n_slabs + 7) / 8 * 8;
-  g.ws = 8 * g.ksl + 80;
-  smem = slab_smem(g, g.ksl, a_lo, b_lo);
-  return smem <= (size_t)MAX_SMEM;
+  g.ntw = ntw;
+  g.n_steps = (g.nks + 7) / 8 * 8;
+  const int halves = NT / ntw;
+  const int rows0 = (ntw == NT ? max_warps(a_lo, b_lo) : MAX_WARPS / halves) * WARP_ROWS;
+  const int budgets[2] = {SLAB_SMEM, MAX_SMEM};
+  for (const int budget : budgets) {
+    for (int max_rows = rows0; max_rows >= WARP_ROWS; max_rows -= WARP_ROWS) {
+      if (budget == SLAB_SMEM && max_rows < rows0) break;
+      g.n_tiles = (g.n_rows + max_rows - 1) / max_rows;
+      const int per = (g.n_rows + g.n_tiles - 1) / g.n_tiles;
+      g.mt = (per + WARP_ROWS - 1) / WARP_ROWS * WARP_ROWS;
+      g.nbe = g.mt + g.kb - 1;
+      g.warps = g.mt / WARP_ROWS * halves;
+      int ksl = g.n_steps < 16 * g.warps ? g.n_steps : 16 * g.warps;
+      while (ksl > 8 && slab_smem(g, ksl, a_lo, b_lo) > (size_t)budget) ksl -= 8;
+      if (slab_smem(g, ksl, a_lo, b_lo) > (size_t)budget) continue;
+      const int n_slabs = (g.n_steps + ksl - 1) / ksl;
+      g.ksl = ((g.n_steps + n_slabs - 1) / n_slabs + 7) / 8 * 8;
+      g.ws = 8 * g.ksl + 80;
+      g.rr = slab_ring_rows(g.mt, g.ksl);
+      smem = slab_smem(g, g.ksl, a_lo, b_lo);
+      return true;
+    }
+  }
+  return false;
 }
 
-template <bool A_LO, bool B_LO>
-__device__ __forceinline__ Smem carve_slab(unsigned char* base, const SlabGeometry& g) {
-  const int nbs = g.mt - 1 + g.ksl / 8;
-  Smem s;
-  s.tpl = reinterpret_cast<uint32_t*>(base);
-  s.hi = reinterpret_cast<__nv_bfloat16*>(s.tpl + (B_LO ? 2 : 1) * 2 * g.ws);
-  s.lo = s.hi + nbs * ROW_PITCH;
-  s.blk = reinterpret_cast<float*>(s.hi + (A_LO ? 2 : 1) * nbs * ROW_PITCH);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+struct SlabSmem : Smem {
+  float4* sum;  // [mt / 16][NT][32]: lane l's fragment of n8 tile j of row group r at (r NT + j) 32 + l
+};
+
+template <bool A_LO, bool B_LO, int NTW>
+__device__ __forceinline__ SlabSmem carve_slab(unsigned char* base, const SlabGeometry& g) {
+  SlabSmem s;
+  s.sum = reinterpret_cast<float4*>(base);
+  s.tpl = reinterpret_cast<uint32_t*>(base + (NTW == NT ? g.mt * ROW * 4 : 0));
+  s.hi = reinterpret_cast<__nv_bfloat16*>(s.tpl + 2 * (B_LO ? 4 : 2) * g.ws);
+  s.lo = s.hi + g.rr * ROW_PITCH;
+  unsigned char* end = reinterpret_cast<unsigned char*>(s.hi + (A_LO ? 2 : 1) * g.rr * ROW_PITCH);
+  if (NTW != NT && end < base + g.mt * ROW * 4) end = base + g.mt * ROW * 4;
+  s.blk = reinterpret_cast<float*>(end);
   s.scale = s.blk + g.nbe;
   return s;
 }
@@ -459,139 +528,330 @@ __device__ __forceinline__ void slab_energies(const T* __restrict__ seg, const S
   __syncthreads();
 }
 
-// Stage slab st0 .. st0 + nk - 1: words 8 st0 .. 8 (st0 + nk) + 71 of each
-// template copy, and the span's blocks st0 / 8 .. st0 / 8 + mt - 2 + ceil(nk
-// / 8) as bf16 rows (hi, then lo for float32 samples), as stage stages
-// them. Ends with __syncthreads().
-template <typename T, bool B_LO>
-__device__ __forceinline__ void stage_slab(const T* __restrict__ seg, const uint32_t* __restrict__ tpl,
-                                           const SlabGeometry& g, int b, int tile, int st0, int nk,
-                                           const Smem& s) {
-  constexpr bool A_LO = std::is_same<T, float>::value;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int per_copy = (8 * nk + 72) / 4;  // 16-byte vectors of a copy's window
+// 8 samples of the segment as the slab route holds them between load and
+// store: float32 whole (split into hi and lo at the store), bf16 as its 4
+// words of bit pairs (bf16 -> float32 -> bf16 gives back the same bits).
+template <typename T>
+struct Chunk {
+  float v[8];
+};
+template <>
+struct Chunk<__nv_bfloat16> {
+  uint32_t w[4];
+};
+
+// Samples i .. i + 7 of a row (zero past seg_len).
+template <typename T>
+__device__ __forceinline__ void load_chunk(const T* row, int64_t i, int seg_len, Chunk<T>& c) {
+  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-  for (int cp = 0; cp < (B_LO ? 4 : 2); ++cp) {
-    const uint4* src = reinterpret_cast<const uint4*>(tpl + (int64_t)cp * g.w + 8 * st0);
-    uint4* dst = reinterpret_cast<uint4*>(s.tpl + cp * g.ws);
-    for (int i = tid; i < per_copy; i += nthreads) dst[i] = src[i];
+    for (int j = 0; j < 8; ++j) c.v[j] = load_or_zero(row, i + j, seg_len);
+  } else {
+    const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t a = i + 2 * j;
+      const uint32_t lo = a >= 0 && a < seg_len ? r[a] : 0u;
+      const uint32_t hi = a + 1 >= 0 && a + 1 < seg_len ? r[a + 1] : 0u;
+      c.w[j] = lo | hi << 16;
+    }
   }
-  const T* row = seg + (int64_t)b * g.row_stride;
-  const int64_t base = (int64_t)tile * g.mt * ROW + 16 * (int64_t)st0;
-  const int n_chunks = (g.mt - 1 + (nk + 7) / 8) * (ROW / 8);
-  for (int c = tid; c < n_chunks; c += nthreads) {
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = load_or_zero(row, base + 8 * c + j, g.seg_len);
-    const int at = (c >> 4) * ROW_PITCH + 8 * (c & 15);
+}
+
+// A chunk as bf16 at sample `at` of the ring: hi, then lo = bf16(x - hi)
+// for float32 samples, as stage splits them.
+template <typename T>
+__device__ __forceinline__ void store_chunk(const Smem& s, int at, const Chunk<T>& c) {
+  if constexpr (std::is_same<T, float>::value) {
     uint4 hi, lo;
     uint32_t* h = reinterpret_cast<uint32_t*>(&hi);
     uint32_t* l = reinterpret_cast<uint32_t*>(&lo);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      h[j] = pack_bf16(v[2 * j], v[2 * j + 1]);
-      if (A_LO) {
-        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&h[j]);
-        l[j] = pack_bf16(v[2 * j] - __low2float(hv), v[2 * j + 1] - __high2float(hv));
-      }
+      h[j] = pack_bf16(c.v[2 * j], c.v[2 * j + 1]);
+      const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&h[j]);
+      l[j] = pack_bf16(c.v[2 * j] - __low2float(hv), c.v[2 * j + 1] - __high2float(hv));
     }
     *reinterpret_cast<uint4*>(s.hi + at) = hi;
-    if (A_LO) *reinterpret_cast<uint4*>(s.lo + at) = lo;
+    *reinterpret_cast<uint4*>(s.lo + at) = lo;
+  } else {
+    *reinterpret_cast<uint4*>(s.hi + at) = make_uint4(c.w[0], c.w[1], c.w[2], c.w[3]);
   }
-  __syncthreads();
 }
 
-// product's walk over a staged slab of nk k-steps, its accumulators added
-// into sum every FOLD k-steps and at the slab's end.
-template <bool A_LO, bool B_LO>
-__device__ __forceinline__ void product_slab(const SlabGeometry& g, const Smem& s, int nk,
-                                             float (&sum)[NT][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, gi = lane & 3;
-  const int a_row = warp * WARP_ROWS + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_k = (lane >> 4) * 8;
-  const uint32_t a_hi = smem_addr(s.hi + a_row * ROW_PITCH);
-  const uint32_t a_lo = smem_addr(s.lo + a_row * ROW_PITCH);
-  const uint32_t* tb = s.tpl + (gq & 1) * g.ws + TPL_OFF / 2 + gi - (gq >> 1);
-  const uint32_t* tl = tb + 2 * g.ws;
-  uint32_t rh[NT + 1], rl[NT + 1];
-#pragma unroll
-  for (int u = 0; u <= NT; ++u) {
-    rh[u] = tb[4 - 4 * u];
-    if (B_LO) rl[u] = tl[4 - 4 * u];
+// The slab from k-step st0, nk steps: words 8 st0 .. 8 (st0 + nk) + 71 of
+// each template copy into dst (copy c at c ws), zero past the copy's w
+// words, by cp.async (issued, not waited for).
+template <bool B_LO>
+__device__ __forceinline__ void stage_window(const uint32_t* __restrict__ tpl, const SlabGeometry& g,
+                                             int st0, int nk, uint32_t* dst) {
+  const int per_copy = 2 * nk + 18;  // 16-byte vectors of a copy's window
+  for (int i = threadIdx.x; i < (B_LO ? 4 : 2) * per_copy; i += blockDim.x) {
+    const int cp = i / per_copy, v = i - cp * per_copy;
+    const int word = 8 * st0 + 4 * v;
+    const bool in = word < g.w;
+    cp_async16(dst + cp * g.ws + 4 * v, tpl + (int64_t)cp * g.w + (in ? word : 0), in ? 16 : 0);
   }
-  for (int f0 = 0; f0 < nk; f0 += FOLD) {
-    float acc[NT][4];
+}
+
+// Span rows r0 .. r0 + n - 1 (128 samples each from the tile's first
+// sample) into their ring slots.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* row, int64_t base, const SlabGeometry& g, int r0, int n,
+                                           const Smem& s) {
+  for (int c = threadIdx.x; c < n * (ROW / 8); c += blockDim.x) {
+    const int r = r0 + (c >> 4);
+    Chunk<T> v;
+    load_chunk(row, base + (int64_t)ROW * r + 8 * (c & 15), g.seg_len, v);
+    store_chunk(s, (r % g.rr) * ROW_PITCH + 8 * (c & 15), v);
+  }
+}
+
+// 8 k-steps of a warp's walk over its 16 rows and NTW n8 tiles (product's
+// step, the A row read through the ring): a the lane's ldmatrix address at
+// the group's first step (its ring slot and k offset in), lo_off the lo
+// rows' offset; tb, tl the lane's hi and lo template words at that step. The
+// next step's A fragment loads before this step's products.
+template <bool A_LO, bool B_LO, int NTW>
+__device__ __forceinline__ void walk_group(uint32_t a, uint32_t lo_off, const uint32_t* tb,
+                                           const uint32_t* tl, float (&acc)[NTW][4],
+                                           uint32_t (&rh)[NTW + 1], uint32_t (&rl)[NTW + 1]) {
+  uint32_t ah[2][4], al[2][4];
+  ldmatrix_x4(ah[0], a);
+  if (A_LO) ldmatrix_x4(al[0], a + lo_off);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-    const int f1 = min(f0 + FOLD, nk);
-    for (int st = f0; st < f1; ++st) {
-      const int pk = 16 * st + a_k;
-      const uint32_t off = 2u * (uint32_t)(pk + 8 * (pk >> 7));
-      uint32_t ah[4], al[4];
-      ldmatrix_x4(ah, a_hi + off);
-      if (A_LO) ldmatrix_x4(al, a_lo + off);
-      const uint32_t nh0 = tb[8 * st + 12], nh1 = tb[8 * st + 8];
-      uint32_t nl0 = 0, nl1 = 0;
-      if (B_LO) {
-        nl0 = tl[8 * st + 12];
-        nl1 = tl[8 * st + 8];
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        mma_bf16(acc[j], ah, rh[j + 1], rh[j]);
-        if (B_LO) mma_bf16(acc[j], ah, rl[j + 1], rl[j]);
-        if (A_LO) mma_bf16(acc[j], al, rh[j + 1], rh[j]);
-      }
-#pragma unroll
-      for (int u = NT; u >= 2; --u) {
-        rh[u] = rh[u - 2];
-        if (B_LO) rl[u] = rl[u - 2];
-      }
-      rh[0] = nh0;
-      rh[1] = nh1;
-      if (B_LO) {
-        rl[0] = nl0;
-        rl[1] = nl1;
-      }
+  for (int i = 0; i < 8; ++i) {
+    const int c = i & 1;
+    if (i < 7) {
+      ldmatrix_x4(ah[c ^ 1], a + 32 * (i + 1));
+      if (A_LO) ldmatrix_x4(al[c ^ 1], a + lo_off + 32 * (i + 1));
+    }
+    const uint32_t nh0 = tb[8 * i + 12], nh1 = tb[8 * i + 8];  // the next step's two words
+    uint32_t nl0 = 0, nl1 = 0;
+    if (B_LO) {
+      nl0 = tl[8 * i + 12];
+      nl1 = tl[8 * i + 8];
     }
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NTW; ++j) mma_bf16(acc[j], ah[c], rh[j + 1], rh[j]);
+    if (B_LO) {
 #pragma unroll
-      for (int v = 0; v < 4; ++v) sum[j][v] += acc[j][v];
+      for (int j = 0; j < NTW; ++j) mma_bf16(acc[j], ah[c], rl[j + 1], rl[j]);
+    }
+    if (A_LO) {
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) mma_bf16(acc[j], al[c], rh[j + 1], rh[j]);
+    }
+#pragma unroll
+    for (int u = NTW; u >= 2; --u) {
+      rh[u] = rh[u - 2];
+      if (B_LO) rl[u] = rl[u - 2];
+    }
+    rh[0] = nh0;
+    rh[1] = nh1;
+    if (B_LO) {
+      rl[0] = nl0;
+      rl[1] = nl1;
+    }
   }
 }
 
-// One block's rows of stream b on the slab route: sum holds each lag's
-// correlation, as product's acc does on the one-shot route. ENERGY: the
-// scales first (the searches; correlate stages none).
-template <typename T, bool B_LO, bool ENERGY>
-__device__ __forceinline__ Smem slab_rows(const T* __restrict__ seg, const uint32_t* __restrict__ tpl,
-                                          const SlabGeometry& g, int b, int tile, unsigned char* smem,
-                                          float (&sum)[NT][4]) {
-  constexpr bool A_LO = std::is_same<T, float>::value;
-  const Smem s = carve_slab<A_LO, B_LO>(smem, g);
-  if (ENERGY) slab_energies<T>(seg, g, b, tile, s);
+// 16 bytes of shared memory, read and written as volatile: the accesses
+// keep their program order, so a batch of them holds only its own
+// registers.
+__device__ __forceinline__ float4 lds128_volatile(const float4* p) {
+  float4 v;
+  asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(smem_addr(p))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128_volatile(float4* p, const float4& v) {
+  asm volatile("st.volatile.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_addr(p)), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// The accumulators added into the float32 sum (in shared memory, the
+// lane's own fragment, for whole rows; in registers for half rows), then
+// zeroed. The shared sum goes 4 tiles at a time, so that no more than 16
+// of its registers are live beside the accumulators and the B ring.
+template <int NTW>
+__device__ __forceinline__ void fold(float (&acc)[NTW][4], float (&rsum)[NTW][4], float4* my_sum) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) sum[j][0] = sum[j][1] = sum[j][2] = sum[j][3] = 0.0f;
-  for (int st0 = 0; st0 < g.nks; st0 += g.ksl) {
-    const int nk = min(g.ksl, g.nks - st0);
-    if (st0) __syncthreads();  // every warp is done with the slab before
-    stage_slab<T, B_LO>(seg, tpl, g, b, tile, st0, nk, s);
-    product_slab<A_LO, B_LO>(g, s, nk, sum);
+  for (int j0 = 0; j0 < NTW; j0 += 4) {
+    float4 v[4];
+    if (NTW == NT) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = lds128_volatile(my_sum + 32 * (j0 + j));
+    }
+#pragma unroll
+    for (int j = j0; j < j0 + 4; ++j) {
+      if (NTW == NT) {
+        v[j - j0].x += acc[j][0];
+        v[j - j0].y += acc[j][1];
+        v[j - j0].z += acc[j][2];
+        v[j - j0].w += acc[j][3];
+        sts128_volatile(my_sum + 32 * j, v[j - j0]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rsum[j][e] += acc[j][e];
+      }
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    }
+  }
+}
+
+// One group of 8 k-steps at the lane's ring slot, then the slot moves to
+// the next row and every FOLD k-steps the accumulators fold.
+template <bool A_LO, bool B_LO, int NTW>
+__device__ __forceinline__ void walk_step(const SlabGeometry& g, uint32_t a_base, const uint32_t* tb,
+                                          int& slot, int& groups, float (&acc)[NTW][4],
+                                          float (&rsum)[NTW][4], float4* my_sum, uint32_t (&rh)[NTW + 1],
+                                          uint32_t (&rl)[NTW + 1]) {
+  walk_group<A_LO, B_LO, NTW>(a_base + (uint32_t)slot * (2 * ROW_PITCH), 2u * g.rr * ROW_PITCH, tb,
+                              tb + 2 * g.ws, acc, rh, rl);
+  slot = slot + 1 == g.rr ? 0 : slot + 1;
+  if (++groups == FOLD / 8) {
+    fold<NTW>(acc, rsum, my_sum);
+    groups = 0;
+  }
+}
+
+// Whether this warp holds rows for the epilogue (the first mt / 16 warps).
+__device__ __forceinline__ bool holds_rows(const SlabGeometry& g) {
+  return (int)(threadIdx.x >> 5) < g.mt / WARP_ROWS;
+}
+
+// One block's rows of stream b on the slab route: for the warps that hold
+// rows (holds_rows), sum holds each lag's correlation as product's acc does
+// on the one-shot route (the warp's 16 rows, all 128 columns). ENERGY: the
+// scales first (the searches; correlate stages none).
+template <typename T, bool B_LO, bool ENERGY, int NTW>
+__device__ __forceinline__ SlabSmem slab_rows(const T* __restrict__ seg, const uint32_t* __restrict__ tpl,
+                                              const SlabGeometry& g, int b, int tile, unsigned char* smem,
+                                              float (&sum)[NT][4]) {
+  constexpr bool A_LO = std::is_same<T, float>::value;
+  constexpr int COPIES = B_LO ? 4 : 2;
+  const SlabSmem s = carve_slab<A_LO, B_LO, NTW>(smem, g);
+  if (ENERGY) slab_energies<T>(seg, g, b, tile, s);
+  const T* row = seg + (int64_t)b * g.row_stride;
+  const int64_t base = (int64_t)tile * g.mt * ROW;
+  const int nk0 = min(g.ksl, g.n_steps);
+  stage_window<B_LO>(tpl, g, 0, nk0, s.tpl);
+  stage_rows<T>(row, base, g, 0, g.mt - 1 + nk0 / 8, s);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, gi = lane & 3;
+  const int rg = warp / (NT / NTW), half = warp % (NT / NTW);  // row group, column half
+  // ldmatrix: lane supplies row (lane & 7) + 8 (bit 3 of lane) of the m16
+  // tile at p offset 8 (bit 4 of lane); the row's ring slot is added a group
+  const uint32_t a_base = smem_addr(s.hi) + 2u * ((lane >> 4) * 8);
+  // H(e) of this lane is word tb[e / 2] (copy gq & 1), the half's columns
+  // 64 samples on
+  const int h_off = (gq & 1) * g.ws + TPL_OFF / 2 + gi - (gq >> 1) - 4 * NTW * half;
+  uint32_t rh[NTW + 1], rl[NTW + 1];  // rh[u] = H(16 s + 8 - 8 u) of the half's first tile
+#pragma unroll
+  for (int u = 0; u <= NTW; ++u) {
+    rh[u] = s.tpl[h_off + 4 - 4 * u];
+    if (B_LO) rl[u] = s.tpl[h_off + 2 * g.ws + 4 - 4 * u];
+  }
+  float acc[NTW][4], rsum[NTW][4];
+  float4* my_sum = s.sum + (rg * NT + NTW * half) * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = rsum[j][e] = 0.0f;
+    if (NTW == NT) sts128_volatile(my_sum + 32 * j, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+  }
+  int slot = rg * WARP_ROWS + (lane & 7) + ((lane >> 3) & 1) * 8;  // the lane's A row, in the ring
+  int groups = 0;
+  for (int sl = 0, st0 = 0; st0 < g.n_steps; ++sl, st0 += g.ksl) {
+    const int nk = min(g.ksl, g.n_steps - st0);
+    const int nk1 = min(g.ksl, g.n_steps - st0 - g.ksl);  // the next slab's, <= 0 past the last
+    const uint32_t* tb = s.tpl + (sl & 1) * COPIES * g.ws + h_off;
+    // the next slab's template words and its new rows (one chunk a thread
+    // at most), staged under this slab's products
+    const int c = threadIdx.x;
+    const int r = (st0 + g.ksl) / 8 + g.mt - 1 + (c >> 4);
+    const bool live = c < 2 * nk1;
+    Chunk<T> v;
+    if (nk1 > 0) stage_window<B_LO>(tpl, g, st0 + g.ksl, nk1, s.tpl + ((sl + 1) & 1) * COPIES * g.ws);
+    if (live) load_chunk(row, base + (int64_t)ROW * r + 8 * (c & 15), g.seg_len, v);
+    walk_step<A_LO, B_LO, NTW>(g, a_base, tb, slot, groups, acc, rsum, my_sum, rh, rl);
+    if (live) store_chunk(s, (r % g.rr) * ROW_PITCH + 8 * (c & 15), v);
+    for (int q = 1; q < nk / 8; ++q)
+      walk_step<A_LO, B_LO, NTW>(g, a_base, tb + 64 * q, slot, groups, acc, rsum, my_sum, rh, rl);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (groups) fold<NTW>(acc, rsum, my_sum);
+  if (NTW != NT) {  // half rows: gather the sums over the ring, which the last barrier freed
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) my_sum[32 * j] = make_float4(rsum[j][0], rsum[j][1], rsum[j][2], rsum[j][3]);
+    __syncthreads();
+  }
+  if (holds_rows(g)) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float4 t = s.sum[(warp * NT + j) * 32 + lane];
+      sum[j][0] = t.x;
+      sum[j][1] = t.y;
+      sum[j][2] = t.z;
+      sum[j][3] = t.w;
+    }
   }
   return s;
 }
 
-// tile_rows on the slab route.
-template <typename T, bool B_LO>
+// tile_rows on the slab route; a warp that holds no rows gives -1 at
+// column 128, as a row past the stream's end does.
+template <typename T, bool B_LO, int NTW>
 __device__ __forceinline__ void tile_rows_slab(const T* __restrict__ seg,
                                                const uint32_t* __restrict__ tpl, const SlabGeometry& g,
                                                int b, int tile, unsigned char* smem, float (&bq)[2],
                                                int (&bc)[2]) {
   float sum[NT][4];
-  const Smem s = slab_rows<T, B_LO, true>(seg, tpl, g, b, tile, smem, sum);
-  row_best(g, s, tile, sum, bq, bc);
+  const SlabSmem s = slab_rows<T, B_LO, true, NTW>(seg, tpl, g, b, tile, smem, sum);
+  bq[0] = bq[1] = -1.0f;
+  bc[0] = bc[1] = ROW;
+  if (holds_rows(g)) row_best(g, s, tile, sum, bq, bc);
+}
+
+// The blocks a multiprocessor holds of a slab kernel at geometry g, and
+// what sets them: out = {blocks an SM, threads a block, shared memory
+// bytes, k-steps a slab, slabs, registers a thread, local (spilled) bytes
+// a thread, rows a block}.
+template <typename K>
+cudaError_t slab_occupancy(K kernel, const SlabGeometry& g, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block_threads(g), smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  const int values[8] = {blocks, block_threads(g), (int)smem, g.ksl, (g.n_steps + g.ksl - 1) / g.ksl,
+                         fa.numRegs, (int)fa.localSizeBytes, g.mt};
+  for (int i = 0; i < 8; ++i) out[i] = values[i];
+  return cudaSuccess;
+}
+
+// The launch bound of a slab kernel: its warps a block, two blocks an SM
+// (at most 128 registers a thread at 8 warps, 168 at 6).
+template <bool A_LO, bool B_LO, int NTW>
+constexpr int slab_threads() { return (NTW == NT ? max_warps(A_LO, B_LO) : MAX_WARPS) * 32; }
+
+// The half-row walk is timed beside the whole-row one; ANET_SEARCH_SLAB_NTW=8
+// picks it.
+inline int slab_ntw() {
+  const char* v = getenv("ANET_SEARCH_SLAB_NTW");
+  return v && atoi(v) == NT / 2 ? NT / 2 : NT;
 }
 
 }  // namespace search

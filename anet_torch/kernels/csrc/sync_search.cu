@@ -27,7 +27,7 @@
 // small kernel folds a stream's blocks in lag order. No atomics: the result
 // is deterministic. A template past the one-shot stage's shared memory
 // (about 14,400 samples in float32) takes search_core.cuh's slab route,
-// one block an SM (search_slab_kernel), with the same epilogue.
+// two blocks an SM (search_slab_kernel), with the same epilogue.
 #include "search_core.cuh"
 
 namespace {
@@ -88,9 +88,9 @@ search_tile_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, 
   block_best(g, b, tile, rq, rc, part_q, part_i);
 }
 
-// The slab route (templates past the one-shot stage): one block an SM.
-template <typename T, bool B_LO>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+// The slab route (templates past the one-shot stage): two blocks an SM.
+template <typename T, bool B_LO, int NTW>
+__global__ void __launch_bounds__((slab_threads<std::is_same<T, float>::value, B_LO, NTW>()), 2)
 search_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, SlabGeometry g,
                    float* __restrict__ part_q, int32_t* __restrict__ part_i) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -98,7 +98,7 @@ search_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, 
   const int tile = blockIdx.x % g.n_tiles;
   float rq[2];
   int rc[2];
-  anet::search::tile_rows_slab<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
+  anet::search::tile_rows_slab<T, B_LO, NTW>(seg, tpl, g, b, tile, smem, rq, rc);
   block_best(g, b, tile, rq, rc, part_q, part_i);
 }
 
@@ -120,20 +120,23 @@ __global__ void search_reduce_kernel(const float* __restrict__ part_q,
   best_i[b] = bi;
 }
 
-// G: Geometry (the one-shot route) or SlabGeometry (the slab route).
+// The kernel of a launch at g: Geometry (the one-shot route) or
+// SlabGeometry (the slab route).
+template <typename T, bool B_LO>
+auto kernel_for(const Geometry&) { return search_tile_kernel<T, B_LO>; }
+template <typename T, bool B_LO>
+auto kernel_for(const SlabGeometry& g) {
+  return g.ntw == NT ? search_slab_kernel<T, B_LO, NT> : search_slab_kernel<T, B_LO, NT / 2>;
+}
+
 template <typename T, bool B_LO, typename G>
 cudaError_t launch(const void* seg, const void* tpl, const G& g, size_t smem, int B,
                    void* part_q, void* part_i, cudaStream_t st) {
-  constexpr bool SLAB = std::is_same<G, SlabGeometry>::value;
-  void (*kernel)(const T*, const uint32_t*, G, float*, int32_t*);
-  if constexpr (SLAB)
-    kernel = search_slab_kernel<T, B_LO>;
-  else
-    kernel = search_tile_kernel<T, B_LO>;
+  const auto kernel = kernel_for<T, B_LO>(g);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * g.n_tiles, g.mt / WARP_ROWS * 32, smem, st>>>(
+  kernel<<<B * g.n_tiles, block_threads(g), smem, st>>>(
       static_cast<const T*>(seg), static_cast<const uint32_t*>(tpl), g,
       static_cast<float*>(part_q), static_cast<int32_t*>(part_i));
   return cudaGetLastError();
@@ -145,8 +148,8 @@ cudaError_t launch(const void* seg, const void* tpl, const G& g, size_t smem, in
 // float32 (dtype 0) or bfloat16 (1); tpl: the template words of
 // kernels._search_template_words, int32 [1 + b_lo, 2, w] (b_lo: a float32
 // template's lo half follows its hi half); part_q/part_i: [B, blocks]
-// scratch, blocks >= ceil(ceil(out_len / 128) / 96) (a block takes at least
-// 96 rows); best_q: [B] float32, best_i: [B] int32. te_ptr: the template
+// scratch, blocks >= ceil(ceil(out_len / 128) / 16) (a block takes at least
+// 16 rows); best_q: [B] float32, best_i: [B] int32. te_ptr: the template
 // energy, a float32 scalar on the card, or null for te by value.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a geometry the
 // kernel does not take.
@@ -173,7 +176,8 @@ extern "C" int anet_sync_search(const void* seg, int dtype, int B, long long row
   if (make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem)) {
     err = run(g, smem);
     n_tiles = g.n_tiles;
-  } else if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem)) {
+  } else if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, slab_ntw(),
+                                smem)) {
     err = run(sg, smem);
     n_tiles = sg.n_tiles;
   } else {
@@ -184,4 +188,22 @@ extern "C" int anet_sync_search(const void* seg, int dtype, int B, long long row
       static_cast<const float*>(part_q), static_cast<const int32_t*>(part_i), B, n_tiles,
       static_cast<float*>(best_q), static_cast<int32_t*>(best_i));
   return (int)cudaGetLastError();
+}
+
+// The slab kernel's occupancy at a launch's geometry (slab_occupancy's
+// out[8]); cudaErrorInvalidValue where the one-shot route takes the
+// template or no route does.
+extern "C" int anet_sync_search_slab_occupancy(int dtype, int b_lo, int w, int k, int out_len, int* out) {
+  const bool a_lo = dtype == anet::DTYPE_F32;
+  Geometry g;
+  SlabGeometry sg;
+  size_t smem;
+  if (make_geometry(g, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem) ||
+      !make_slab_geometry(sg, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, slab_ntw(), smem))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == anet::DTYPE_BF16)
+    return (int)(b_lo ? slab_occupancy(kernel_for<__nv_bfloat16, true>(sg), sg, smem, out)
+                      : slab_occupancy(kernel_for<__nv_bfloat16, false>(sg), sg, smem, out));
+  return (int)(b_lo ? slab_occupancy(kernel_for<float, true>(sg), sg, smem, out)
+                    : slab_occupancy(kernel_for<float, false>(sg), sg, smem, out));
 }

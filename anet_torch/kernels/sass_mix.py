@@ -23,7 +23,9 @@ counts the global loads and stores by their whole opcode (``"global":
 their width: ``gather_rows`` loads and stores 16 bytes a lane, and the
 registers a thread and stack bytes the compiler gave the function
 (``cuobjdump --dump-resource-usage``), which with the kernel's shared
-memory set its blocks an SM. With ``--loops`` each row also lists the
+memory set its blocks an SM, and its STL and LDL instructions
+(``"spill_ops"``: 0, with 0 stack bytes, where nothing spills). With
+``--loops`` each row also lists the
 function's loops of at least ``LOOP_MIN`` instructions (a backward branch
 and its target, innermost first) as ``[first, last address, static
 instructions, instructions off sincosf's slow path]``: the second count
@@ -143,9 +145,10 @@ def resource_usage(text: str) -> dict[str, tuple[int, int]]:
 
 def instruction_mix(source: str, with_loops: bool = False) -> list[dict]:
     """[{"source", "function", "instructions", "ops": {opcode: count},
-    "global": {whole opcode: count}, "registers", "stack"}] of every kernel
-    function in the library of ``source``, with "loops" where
-    ``with_loops``."""
+    "global": {whole opcode: count}, "registers", "stack", "spill_ops"}] of
+    every kernel function in the library of ``source`` ("spill_ops": its
+    STL and LDL instructions, 0 with 0 stack bytes where nothing spills),
+    with "loops" where ``with_loops``."""
     build_all((source,))
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
     lib = str(library_path(source))
@@ -158,7 +161,8 @@ def instruction_mix(source: str, with_loops: bool = False) -> list[dict]:
     rows = [
         {"source": source, "function": name, "instructions": sum(ops.values()),
          "ops": dict(ops.most_common()), "global": dict(wide.most_common()),
-         "registers": usage.get(mangled, (None, None))[0], "stack": usage.get(mangled, (None, None))[1]}
+         "registers": usage.get(mangled, (None, None))[0], "stack": usage.get(mangled, (None, None))[1],
+         "spill_ops": ops["STL"] + ops["LDL"]}
         for name, (mangled, ops), wide in zip(names, functions, global_ops(sass))
     ]
     if with_loops:

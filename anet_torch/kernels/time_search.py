@@ -151,9 +151,13 @@ comma-separated subset of:
 - ``search_long``: ``sync_search_fused``, ``sync_search_blockmax`` and
   ``correlate_fused`` at templates of 15,360 and 61,440 samples (sps 480's
   and sps 1,920's preambles; ``LONG_TEMPLATES``), out_len 36,352, B = 256,
-  every (segment, template) dtype pair, each with its ``device`` column;
-  null where a checkout refuses the template (one from before the slab
-  route). It ignores ``--model``.
+  every (segment, template) dtype pair, each with its ``device`` column
+  and, where the checkout has ``kernels.search_slab_occupancy``, the slab
+  kernel's ``occupancy`` (blocks an SM, registers, spills, slabs); null
+  where a checkout refuses the template (one from before the slab route).
+  Then ``sync_search_fused`` at stream-slow-f32's own shape
+  (``SLOW_SHAPE``: k 15,360, float32 x float32, B = 1,024, out_len
+  272,640), the same columns. It ignores ``--model``.
 - ``gather``: ``gather_rows_fused`` at the one-shot receiver's geometry
   (mfsk16-fast, payload 256: size 36,352 out of 76,288-sample rows) on B =
   8,192 bfloat16, int8 (``quantize_int8``) and float32 buffers of noise,
@@ -227,6 +231,9 @@ AT_ANY_SHAPES = (
 )
 LONG_TEMPLATES = (15_360, 61_440)  # sps 480's and sps 1,920's 32-symbol preambles
 LONG_OUT_LEN, LONG_B = 36_352, 256
+# (k, out_len, B) of stream-slow-f32's search (chip_smoke.py phase_search_slow):
+# sps 480's preamble, its chunk's lags, its batch
+SLOW_SHAPE = (15_360, 272_640, 1024)
 
 _CHILD = r"""
 import json, sys
@@ -639,9 +646,27 @@ if "search_long" in kinds:
                     continue
                 out[f"{{name}} {{label}}"] = time_ms(call)
                 out[f"{{name}} {{label}} device"] = device_ms(call, dev_key)
+                if hasattr(kernels, "search_slab_occupancy"):
+                    out[f"{{name}} {{label}} occupancy"] = kernels.search_slab_occupancy(
+                        name, seg_dtype, tpl_dtype, kl, {long_out_len})
             del seg
             torch.cuda.empty_cache()
         del buf
+    # stream-slow-f32's own search: float32 x float32 at its chunk's lags
+    kl, n, bb = {slow_shape!r}
+    t = torch.randn(kl, generator=gen, device="cuda")
+    buf = torch.randn(bb, n + kl + 127, generator=gen, device="cuda")
+    seg = buf[:, 1 : n + kl]
+    te = float((t ** 2).sum())
+    label = f"sync_search_fused stream-slow-f32 (k {{kl}} float32/float32, B {{bb}}, out_len {{n}})"
+    call = lambda: kernels.sync_search_fused(seg, t, n, te)
+    out[label] = time_ms(call)
+    out[label + " device"] = device_ms(call, "search_")
+    if hasattr(kernels, "search_slab_occupancy"):
+        out[label + " occupancy"] = kernels.search_slab_occupancy(
+            "sync_search_fused", torch.float32, torch.float32, kl, n)
+    del seg, buf
+    torch.cuda.empty_cache()
 if "gather" in kinds:
     from anet_torch.stream import _buffer_len, quantize_int8
 
@@ -674,7 +699,7 @@ def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) 
     child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS,
                           demod_models=DEMOD_MODELS, frame_b=FRAME_B, ofdm_shapes=OFDM_SHAPES, any_shapes=ANY_SHAPES,
                           tm_any_shapes=TM_ANY_SHAPES, long_templates=LONG_TEMPLATES, long_b=LONG_B,
-                          long_out_len=LONG_OUT_LEN, at_any_shapes=AT_ANY_SHAPES)
+                          long_out_len=LONG_OUT_LEN, at_any_shapes=AT_ANY_SHAPES, slow_shape=SLOW_SHAPE)
     run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")

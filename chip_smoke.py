@@ -1341,6 +1341,7 @@ def phase_kernels_dynamic(cfg, gen) -> dict:
     library = {
         "correlate_fused": lambda: torch.nn.functional.conv1d(seg_f32, weight),
         "gather_rows_fused": lambda: torch.gather(buf_full, 1, gather_idx),
+        "gather_rows_fused:int8": lambda: torch.gather(buf8_full, 1, gather_idx),
     }
     lib_corr = torch.nn.functional.conv1d(seg_f32[:COMPARE_B], weight)[:, 0]
     if not torch.allclose(lib_corr, kernels.correlate_fused(seg_full[:COMPARE_B], tpl, chunk), rtol=RTOL, atol=RTOL * scale):
@@ -2370,6 +2371,16 @@ def phase_aligned_bm(cfg, gen, decide: bool = False, iters: int = 5) -> None:
         batch_major_frames.cache_clear()
 
 
+def occupancy(r: dict) -> str:
+    """The slab kernel's launch as the card gives it (r["occupancy"], from
+    kernels.search_slab_occupancy), for the log."""
+    o = r["occupancy"]
+    if o is None:
+        return "the one-shot route"
+    return (f"{o['blocks_per_sm']} blocks an SM of {o['threads']} threads, {o['rows']} rows, {o['smem_bytes']} B "
+            f"shared, {o['slabs']} slabs of {o['ksl']} k-steps, {o['registers']} registers, {o['local_bytes']} B local")
+
+
 LONG_TEMPLATES = (15_360, 61_440)  # sps 480's and sps 1,920's 32-symbol preambles
 LONG_B, LONG_OUT_LEN = 64, 36_352  # phase 2's streams and lags at those templates
 SEARCH_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
@@ -2386,7 +2397,9 @@ def phase_kernels_search_long(gen) -> dict:
     qualities and the block maxima within RTOL, every lag of the
     correlation within RTOL of its scale; each timed with its plain
     version against its bound (the segment read once, the output written
-    once, 2 k out_len B operations at the bf16 peak). Then
+    once, 2 k out_len B operations at the bf16 peak), correlate_fused also
+    with its library call (float32 conv1d, TF32 off), each with the slab
+    kernel's occupancy (blocks an SM, registers, spills; logged). Then
     sync_search_fused at stream-slow-f32's own shape (phase_search_slow).
     Returns {name: {"k <k> <seg>/<template>": numbers}}, the kernels line's
     "slab"."""
@@ -2425,16 +2438,22 @@ def phase_kernels_search_long(gen) -> dict:
                 "correlate_fused": lambda f: f(seg, tpl, n),
             }
             out_bytes = {"sync_search_fused": 8, "sync_search_blockmax": 4 * n // 128, "correlate_fused": 4 * n}
+            # correlate_fused's one PyTorch call: a float32 convolution (cuDNN, TF32 off)
+            seg_f32, weight = seg.float()[:, None, :], tpl.float()[None, None, :]
+            library = {"correlate_fused": lambda: torch.nn.functional.conv1d(seg_f32, weight)}
             for name, call in calls.items():
                 r = {"max_abs_err": errs[name], "ms": time_ms(lambda: call(getattr(kernels, name))),
-                     "plain_ms": time_ms(lambda: call(getattr(kernels, f"{name}_ref"))), "library_ms": None}
+                     "plain_ms": time_ms(lambda: call(getattr(kernels, f"{name}_ref"))),
+                     "library_ms": time_ms(library[name]) if name in library else None}
                 torch.cuda.empty_cache()
                 r["bound_ms"], r["bound_by"] = bound_ms(b * ((n + k - 1) * seg.element_size() + out_bytes[name]),
                                                         2 * k * n * b)
+                r["occupancy"] = kernels.search_slab_occupancy(name, seg_dtype, tpl_dtype, k, n)
+                lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
                 log(f"  {name} slab ({label}, B {b}, out_len {n}): kernel {r['ms']:.3f} ms, plain "
-                    f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+                    f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound_ms']:.3f} ms ({r['bound_by']}); {occupancy(r)}")
                 out[name][label] = r
-            del seg
+            del seg, seg_f32
             torch.cuda.empty_cache()
         del buf, idx
     out["sync_search_fused"]["stream-slow-f32"] = phase_search_slow(gen)
@@ -2450,7 +2469,7 @@ def phase_search_slow(gen) -> dict:
     planted ones, the qualities within RTOL; timed with its plain version
     against its bound as phase_kernels_search_long counts it (the segment
     read once, 8 bytes a stream written, 2 k out_len B operations at the
-    bf16 peak)."""
+    bf16 peak), with the slab kernel's occupancy (logged)."""
     cfg, b = SLOW_STREAM_CONFIG, SLOW_STREAM_B
     n = family.frame_samples(cfg, PAYLOAD) // 128 * 128  # phase_stream's chunk: the search's out_len
     t = preamble_waveform(cfg, device=DEV).float()
@@ -2473,8 +2492,9 @@ def phase_search_slow(gen) -> dict:
              plain_ms=time_ms(lambda: call(kernels.sync_search_fused_ref)), library_ms=None, B=b, k=k, out_len=n)
     torch.cuda.empty_cache()
     r["bound_ms"], r["bound_by"] = bound_ms(b * ((n + k - 1) * 4 + 8), 2 * k * n * b)
+    r["occupancy"] = kernels.search_slab_occupancy("sync_search_fused", torch.float32, torch.float32, k, n)
     log(f"  {label}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-        f"({r['bound_by']})")
+        f"({r['bound_by']}); {occupancy(r)}")
     del seg, buf
     torch.cuda.empty_cache()
     return r

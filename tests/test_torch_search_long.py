@@ -32,41 +32,75 @@ import anet.kernels as jk
 from anet_torch import kernels as tk
 
 ROW, PITCH, TPL_OFF, MAX_SMEM = 128, 136, 128, 232448  # search_core.cuh
+NT, FOLD = 16, 32  # n8 tiles of a row; k-steps between the slab route's folds
+SLAB_SMEM = (233472 - 2 * 1024) // 2  # a block's share where two blocks share a multiprocessor
+
+
+def _split(n_rows: int, max_rows: int) -> tuple[int, int]:
+    """(blocks, rows a block, a multiple of 16): the rows split evenly over
+    the fewest blocks of at most max_rows."""
+    n_tiles = -(-n_rows // max_rows)
+    return n_tiles, -(-(-(-n_rows // n_tiles)) // 16) * 16
 
 
 def one_shot_fits(k: int, out_len: int, a_lo: bool, b_lo: bool) -> bool:
     """search_core.cuh's make_geometry: the whole template and span staged."""
-    g = slab_geometry(k, out_len, a_lo, b_lo)
-    mt, nks = g["mt"], g["nks"]
-    nb = max(mt - 1 + (16 * nks + ROW - 1) // ROW, g["nbe"])
+    _, mt = _split(-(-out_len // ROW), 96 if a_lo or b_lo else 128)
+    nks = (k + ROW - 1 + 15) // 16
+    nb = max(mt - 1 + (16 * nks + ROW - 1) // ROW, mt + (k + ROW - 1) // ROW)
     w = 8 * nks + 72
     w += (16 - w) % 32
     return (2 if b_lo else 1) * 2 * w * 4 + (2 if a_lo else 1) * nb * PITCH * 2 + (nb + mt) * 4 <= MAX_SMEM
 
 
-def slab_geometry(k: int, out_len: int, a_lo: bool, b_lo: bool, ksl_max: int | None = None) -> dict:
-    """search_core.cuh's make_slab_geometry: the one-shot row split, then a
-    slab of the most k-steps (a multiple of 8) that keeps the block's
-    shared memory within MAX_SMEM (or ksl_max), evened out."""
+def ring_rows(mt: int, ksl: int) -> int:
+    """The span ring's slots: a slab's rows and the next slab's new ones,
+    rounded up to 8 (search_core.cuh slab_ring_rows)."""
+    return (mt - 1 + ksl // 4 + 7) // 8 * 8
+
+
+def slab_smem(mt: int, nbe: int, ksl: int, a_lo: bool, b_lo: bool, ntw: int) -> int:
+    """search_core.cuh's slab_smem: the float32 sum of the rows (shared with
+    the windows and the ring by the half-row walk), two template windows,
+    the ring, the block energies and scales."""
+    total = mt * ROW * 4
+    tpl = 2 * (4 if b_lo else 2) * (8 * ksl + 80) * 4
+    ring = (2 if a_lo else 1) * ring_rows(mt, ksl) * PITCH * 2
+    head = total + tpl + ring if ntw == NT else max(total, tpl + ring)
+    return head + (nbe + mt) * 4
+
+
+def slab_geometry(k: int, out_len: int, a_lo: bool, b_lo: bool, ntw: int = NT, ksl_max: int | None = None) -> dict:
+    """search_core.cuh's make_slab_geometry: rows a block from the warps
+    (ntw 16: 6 or 8 warps of whole rows; 8: 8 warps, two a row group), a
+    slab of the most k-steps (a multiple of 8, at most 16 a warp, or
+    ksl_max) that keeps the block within SLAB_SMEM, so that two blocks
+    share a multiprocessor, evened out; else one block within MAX_SMEM,
+    with fewer rows where it must."""
     n_rows = -(-out_len // ROW)
-    max_rows = 96 if a_lo or b_lo else 128
-    n_tiles = -(-n_rows // max_rows)
-    mt = -(-(-(-n_rows // n_tiles)) // 16) * 16
     nks = (k + ROW - 1 + 15) // 16
     kb = (k + ROW - 1) // ROW + 1
-    nbe = mt + kb - 1
-
-    def smem(ksl):
-        return ((2 if b_lo else 1) * 2 * (8 * ksl + 80) * 4 + (2 if a_lo else 1) * (mt - 1 + ksl // 8) * PITCH * 2
-                + (nbe + mt) * 4)
-
-    ksl = -(-nks // 8) * 8
-    while ksl > 8 and (smem(ksl) > MAX_SMEM or (ksl_max is not None and ksl > ksl_max)):
-        ksl -= 8
-    n_slabs = -(-nks // ksl)
-    ksl = -(-(-(-nks // n_slabs)) // 8) * 8
-    return dict(mt=mt, n_tiles=n_tiles, n_rows=n_rows, nks=nks, kb=kb, nbe=nbe, ksl=ksl, ws=8 * ksl + 80,
-                smem=smem(ksl))
+    n_steps = -(-nks // 8) * 8
+    halves = NT // ntw
+    rows0 = ((6 if a_lo or b_lo else 8) if ntw == NT else 8 // halves) * 16
+    for budget in (SLAB_SMEM, MAX_SMEM):
+        for max_rows in range(rows0, 15, -16):
+            if budget == SLAB_SMEM and max_rows < rows0:
+                break
+            n_tiles, mt = _split(n_rows, max_rows)
+            nbe = mt + kb - 1
+            warps = mt // 16 * halves
+            ksl = min(n_steps, 16 * warps, ksl_max or n_steps)
+            while ksl > 8 and slab_smem(mt, nbe, ksl, a_lo, b_lo, ntw) > budget:
+                ksl -= 8
+            if slab_smem(mt, nbe, ksl, a_lo, b_lo, ntw) > budget:
+                continue
+            n_slabs = -(-n_steps // ksl)
+            ksl = -(-(-(-n_steps // n_slabs)) // 8) * 8
+            return dict(mt=mt, n_tiles=n_tiles, n_rows=n_rows, nks=nks, n_steps=n_steps, kb=kb, nbe=nbe, ksl=ksl,
+                        ws=8 * ksl + 80, rr=ring_rows(mt, ksl), warps=warps, ntw=ntw, blocks=2 if budget == SLAB_SMEM else 1,
+                        smem=slab_smem(mt, nbe, ksl, a_lo, b_lo, ntw))
+    raise ValueError("no slab geometry")
 
 
 def _bf16(x: np.ndarray) -> np.ndarray:
@@ -82,18 +116,25 @@ def _decode(words: np.ndarray) -> np.ndarray:
 
 
 def emulate_slabs(seg: np.ndarray, template: torch.Tensor, out_len: int, te: float, a_lo: bool,
-                  ksl_max: int) -> tuple[np.ndarray, np.ndarray]:
+                  ksl_max: int, ntw: int = NT) -> tuple[np.ndarray, np.ndarray]:
     """(corr [B, out_len], q [B, out_len]) as the slab route computes them
     (float64 sums of the same bf16 operands): per block of mt rows, the
     energies of blocks 0 .. nbe - 1 from its first sample and one scale a
-    row; per slab the staged template words and span, the B operand read
-    at product_slab's indices (and checked against the banded template),
-    the hi (+ lo) products."""
+    row; the first slab's span rows and template window staged, then per
+    slab the next slab's window (into the other of two buffers, zero past
+    the copy's words) and its new rows (into their ring slots) staged
+    before this slab's walk, whose reads of a slot must find the row they
+    want; each lane's B ring of ntw + 1 words a column half, loaded once
+    and run on across slabs, its words checked against the banded
+    template; per k-step the hi*hi, hi*lo, lo*hi products in that order,
+    folded into the sum every FOLD k-steps."""
     words = tk._search_template_words(template).numpy().view(np.uint32)  # [P, 2, w]
     k = template.shape[-1]
-    b_lo = words.shape[0] == 2
-    g = slab_geometry(k, out_len, a_lo, b_lo, ksl_max)
-    mt, ksl, nks = g["mt"], g["ksl"], g["nks"]
+    n_half = words.shape[0]
+    b_lo = n_half == 2
+    w = words.shape[-1]
+    g = slab_geometry(k, out_len, a_lo, b_lo, ntw, ksl_max)
+    mt, ksl, ws, rr, n_steps = g["mt"], g["ksl"], g["ws"], g["rr"], g["n_steps"]
     t_half = [_bf16(template.float().numpy())]
     if b_lo:
         t_half.append(_bf16(template.float().numpy() - t_half[0]))
@@ -116,36 +157,70 @@ def emulate_slabs(seg: np.ndarray, template: torch.Tensor, out_len: int, te: flo
             blk = (samples(base, g["nbe"] * ROW).astype(np.float32).astype(np.float64) ** 2).reshape(-1, ROW).sum(1)
             win = np.array([blk[r : r + g["kb"]].sum() for r in range(mt)])
             scale[b, tile * mt : (tile + 1) * mt] = 1.0 / np.sqrt(te * np.maximum(win, 1e-4 * te))
+            ring = np.zeros((2, rr, ROW))  # hi, lo
+            held = np.full(rr, -1)  # the span row each slot holds
+            buf = np.zeros((2, n_half, 2, ws), np.uint32)  # the two template windows
+
+            def stage_rows(r0, n):
+                for r in range(r0, r0 + n):
+                    x = samples(base + ROW * r, ROW)
+                    ring[0, r % rr] = _bf16(x)
+                    ring[1, r % rr] = _bf16(x - ring[0, r % rr])
+                    held[r % rr] = r
+
+            def stage_window(st0, nk, q):  # words 8 st0 .. 8 (st0 + nk) + 71, zero past w
+                n = 8 * nk + 72
+                assert n < ws
+                buf[q] = 0
+                got = words[:, :, 8 * st0 : min(8 * st0 + n, w)]
+                buf[q, :, :, : got.shape[-1]] = got
+
+            nk0 = min(ksl, n_steps)
+            stage_window(0, nk0, 0)
+            stage_rows(0, mt - 1 + nk0 // 8)
+            # per column half, the lane's ring: rh[u] = H(16 s + 8 - 8 u) of the half's first tile
+            h_off = [TPL_OFF // 2 + gi - (gq >> 1) - 4 * ntw * h for h in range(NT // ntw)]
+            assert min(o.min() for o in h_off) + 4 - 4 * ntw >= 0
+            rings = [[buf[0, half, gq & 1, h_off[h] + 4 - 4 * u] for u in range(ntw + 1)]
+                     for h in range(NT // ntw) for half in range(n_half)]
             acc = np.zeros((mt, ROW))
-            for st0 in range(0, nks, ksl):
-                nk = min(ksl, nks - st0)
-                staged = words[:, :, 8 * st0 : 8 * st0 + 8 * nk + 72]  # stage_slab's window of each copy
-                assert staged.shape[-1] == 8 * nk + 72 <= g["ws"]
-                # B [16 nk, 128] read at product_slab's indices: b0 = tb[8 st - 4 j], b1 = tb[8 st + 4 - 4 j]
-                bmat = [np.zeros((16 * nk, ROW)) for _ in range(words.shape[0])]
-                for st in range(nk):
-                    for j in range(ROW // 8):
-                        w0 = TPL_OFF // 2 + gi - (gq >> 1) + 8 * st - 4 * j
-                        assert w0.min() >= 0 and w0.max() + 4 < staged.shape[-1]
-                        for half in range(words.shape[0]):
-                            for r, wi in enumerate((w0, w0 + 4)):
-                                pair = _decode(staged[half, gq & 1, wi])  # [32, 2]
-                                for e in range(2):
-                                    bmat[half][16 * st + 8 * r + 2 * gi + e, 8 * j + gq] = pair[:, e]
-                p = (16 * st0 + np.arange(16 * nk))[:, None] - np.arange(ROW)[None, :]  # p - n
-                for half in range(words.shape[0]):  # the band: t[p - n] for 0 <= p - n < k
-                    want = np.where((p >= 0) & (p < k), t_half[half][np.clip(p, 0, k - 1)], 0.0)
-                    np.testing.assert_array_equal(bmat[half], want)
-                span = samples(base + 16 * st0, (mt - 1 + -(-nk // 8)) * ROW)
-                hi = _bf16(span)
-                rows = np.stack([hi[r * ROW : r * ROW + 16 * nk] for r in range(mt)])
-                acc += rows @ bmat[0]
-                if b_lo:
-                    acc += rows @ bmat[1]
-                if a_lo:
-                    lo = _bf16(span - hi)
-                    acc += np.stack([lo[r * ROW : r * ROW + 16 * nk] for r in range(mt)]) @ bmat[0]
-            corr[b, base : base + mt * ROW] = acc.reshape(-1)
+            total = np.zeros((mt, ROW))
+            for sl, st0 in enumerate(range(0, n_steps, ksl)):
+                nk = min(ksl, n_steps - st0)
+                nk1 = min(ksl, n_steps - st0 - ksl)
+                if nk1 > 0:  # the next slab, staged before this slab's reads are checked
+                    stage_window(st0 + ksl, nk1, (sl + 1) & 1)
+                    stage_rows((st0 + ksl) // 8 + mt - 1, nk1 // 8)
+                for st in range(st0, st0 + nk):
+                    slots = (np.arange(mt) + st // 8) % rr
+                    np.testing.assert_array_equal(held[slots], np.arange(mt) + st // 8)
+                    a = ring[:, slots, 16 * (st % 8) : 16 * (st % 8) + 16]  # [hi/lo, mt, 16]
+                    bmat = np.zeros((n_half, 16, ROW))
+                    for h in range(NT // ntw):
+                        for half in range(n_half):
+                            rh = rings[h * n_half + half]
+                            for j in range(ntw):  # tile ntw h + j: (rh[j + 1], rh[j])
+                                for r, word in enumerate((rh[j + 1], rh[j])):
+                                    pair = _decode(word)  # [32, 2]
+                                    for e in range(2):
+                                        bmat[half, 8 * r + 2 * gi + e, 8 * (ntw * h + j) + gq] = pair[:, e]
+                            st_l = st - st0
+                            tb = buf[sl & 1, half, gq & 1]
+                            rings[h * n_half + half] = [tb[lane, h_off[h] + 8 * st_l + 12],
+                                                        tb[lane, h_off[h] + 8 * st_l + 8]] + rh[:-2]
+                    p = (16 * st + np.arange(16))[:, None] - np.arange(ROW)[None, :]  # p - n
+                    for half in range(n_half):  # the band: t[p - n] for 0 <= p - n < k
+                        want = np.where((p >= 0) & (p < k), t_half[half][np.clip(p, 0, k - 1)], 0.0)
+                        np.testing.assert_array_equal(bmat[half], want)
+                    acc += a[0] @ bmat[0]  # hi * hi, then hi * lo, then lo * hi
+                    if b_lo:
+                        acc += a[0] @ bmat[1]
+                    if a_lo:
+                        acc += a[1] @ bmat[0]
+                    if st % FOLD == FOLD - 1 or st == n_steps - 1:
+                        total += acc
+                        acc[:] = 0.0
+            corr[b, base : base + mt * ROW] = total.reshape(-1)
     q = np.abs(corr) * np.repeat(scale, ROW, axis=1)
     return corr[:, :out_len], q[:, :out_len]
 
@@ -166,25 +241,49 @@ def test_slab_geometry_fits_shared_memory(pair, k):
             continue
         g = slab_geometry(k, out_len, a_lo, b_lo)
         assert g["smem"] <= MAX_SMEM and g["ksl"] % 8 == 0 and g["ws"] % 32 == 16
-        n_slabs = -(-g["nks"] // g["ksl"])
-        assert n_slabs >= 2 and g["nks"] - (n_slabs - 1) * g["ksl"] > 0
+        n_slabs = -(-g["n_steps"] // g["ksl"])
+        assert n_slabs >= 2 and g["n_steps"] - (n_slabs - 1) * g["ksl"] > 0
 
 
+@pytest.mark.parametrize("k", [15360, 61440])
+@pytest.mark.parametrize("pair", ["bf16/bf16", "bf16/f32", "f32/bf16", "f32/f32"])
+def test_slab_blocks_fit_two_a_multiprocessor(pair, k):
+    """At sps 480's and sps 1,920's preambles and out_len 4,736, 36,352
+    and 272,640 (stream-slow-f32's chunk), wherever the slab route takes
+    the template, a block fits half a multiprocessor (115,712 bytes), so
+    two share one, with the one-shot route's rows (96, or 128 for bf16 x
+    bf16); its ring holds a slab's rows and the next slab's (the rows a
+    slab reads and the ones staged under its products never share a
+    slot), a multiple of 8 slots; a slab adds at most one 8-sample chunk
+    a thread (2 ksl <= the block's threads)."""
+    a_lo, b_lo = pair.startswith("f32"), pair.endswith("f32")
+    for out_len in (4736, 36352, 272640):
+        if one_shot_fits(k, out_len, a_lo, b_lo):
+            continue
+        g = slab_geometry(k, out_len, a_lo, b_lo)
+        assert g["blocks"] == 2 and g["smem"] <= SLAB_SMEM == 115712
+        assert (g["n_tiles"], g["mt"]) == _split(g["n_rows"], 96 if a_lo or b_lo else 128)
+        assert g["rr"] % 8 == 0 and g["rr"] >= g["mt"] - 1 + 2 * g["ksl"] // 8
+        assert 2 * g["ksl"] <= 32 * g["warps"]
+
+
+@pytest.mark.parametrize("ntw", [16, 8])
 @pytest.mark.parametrize("seg_f32", [False, True])
 @pytest.mark.parametrize("tpl_f32", [False, True])
-def test_slab_walk_matches_plain_versions(seg_f32, tpl_f32):
-    """The slab route transliterated (slabs of 8 k-steps, so a 700-sample
-    template crosses 7 and the last is short; 3 streams, out_len 300 over
-    3 rows, the energy blocks and span reading zeros past the segments'
-    out_len + k - 1 samples) against sync_search_fused_ref and
-    correlate_fused_ref: every
-    staged B word the banded template's, the best lags equal to the plain
-    version's and the planted ones, the qualities within rtol 1e-5 (bf16
-    operands exact; float32 ones as hi + lo, the lo x lo product dropped,
-    about 2^-16 of each product), the correlation within 1e-5 of its
-    scale."""
+def test_slab_walk_matches_plain_versions(seg_f32, tpl_f32, ntw):
+    """The slab route transliterated (slabs of at most 16 k-steps, so a
+    1,500-sample template's 104 k-steps cross 7 slabs, the last one short,
+    and the 24-slot span ring wraps; whole-row and half-row walks; 3
+    streams, out_len 300 over 3 rows, the energy blocks and span reading
+    zeros past the segments' out_len + k - 1 samples) against
+    sync_search_fused_ref and correlate_fused_ref: every ring slot read
+    holding its row, every B word the banded template's, the best lags
+    equal to the plain version's and the planted ones, the qualities
+    within rtol 1e-5 (bf16 operands exact; float32 ones as hi + lo, the lo
+    x lo product dropped, about 2^-16 of each product), the correlation
+    within 1e-5 of its scale."""
     rng = np.random.default_rng(700 + 2 * seg_f32 + tpl_f32)
-    k, out_len, b = 700, 300, 3
+    k, out_len, b = 1500, 300, 3
     t = rng.standard_normal(k).astype(np.float32)
     seg = rng.standard_normal((b, out_len + k - 1)).astype(np.float32)
     lags = np.array([5, 150, 299])
@@ -195,7 +294,9 @@ def test_slab_walk_matches_plain_versions(seg_f32, tpl_f32):
     seg_t = torch.from_numpy(seg).to(torch.float32 if seg_f32 else torch.bfloat16)
     seg_np = seg_t.float().numpy().astype(np.float64)
     te = float((tpl.float() ** 2).sum())
-    corr, q = emulate_slabs(seg_np, tpl, out_len, te, seg_f32, ksl_max=8)
+    g = slab_geometry(k, out_len, seg_f32, tpl_f32, ntw, ksl_max=16)
+    assert g["ksl"] == 16 and g["n_steps"] == 104 and g["rr"] == 24 < g["mt"] - 1 + g["n_steps"] // 8
+    corr, q = emulate_slabs(seg_np, tpl, out_len, te, seg_f32, ksl_max=16, ntw=ntw)
     rq, ri = tk.sync_search_fused_ref(seg_t, tpl, out_len, te)
     assert np.array_equal(q.argmax(-1), ri.numpy()) and np.array_equal(ri.numpy(), lags)
     np.testing.assert_allclose(q.max(-1), rq.numpy(), rtol=1e-5)
