@@ -52,15 +52,15 @@ correlate_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, Ge
 }
 
 // The slab route (templates past the one-shot stage): two blocks an SM.
-template <typename T, bool B_LO, int NTW>
-__global__ void __launch_bounds__((slab_threads<std::is_same<T, float>::value, B_LO, NTW>()), 2)
+template <typename T, bool B_LO>
+__global__ void __launch_bounds__(SLAB_WARPS * 32, 2)
 correlate_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, SlabGeometry g,
                       float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x / g.n_tiles;
   const int tile = blockIdx.x % g.n_tiles;
   float sum[NT][4];
-  slab_rows<T, B_LO, false, NTW>(seg, tpl, g, b, tile, smem, sum);
+  slab_rows<T, B_LO, false>(seg, tpl, g, b, tile, smem, sum);
   if (holds_rows(g)) store_rows(g, b, tile, sum, out);
 }
 
@@ -69,9 +69,7 @@ correlate_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tp
 template <typename T, bool B_LO>
 auto kernel_for(const Geometry&) { return correlate_kernel<T, B_LO>; }
 template <typename T, bool B_LO>
-auto kernel_for(const SlabGeometry& g) {
-  return g.ntw == NT ? correlate_slab_kernel<T, B_LO, NT> : correlate_slab_kernel<T, B_LO, NT / 2>;
-}
+auto kernel_for(const SlabGeometry&) { return correlate_slab_kernel<T, B_LO>; }
 
 template <typename T, bool B_LO, typename G>
 cudaError_t launch(const void* seg, const void* tpl, const G& g, size_t smem, int B,
@@ -110,7 +108,7 @@ extern "C" int anet_correlate(const void* seg, int dtype, int B, long long row_s
   size_t smem;
   if (make_geometry(g, row_stride, seg_len, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
     return (int)run(g, smem);
-  if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, 1.0f, a_lo, b_lo != 0, slab_ntw(), smem))
+  if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
     return (int)run(sg, smem);
   return (int)cudaErrorInvalidValue;
 }
@@ -124,7 +122,7 @@ extern "C" int anet_correlate_slab_occupancy(int dtype, int b_lo, int w, int k, 
   SlabGeometry sg;
   size_t smem;
   if (make_geometry(g, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem) ||
-      !make_slab_geometry(sg, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, slab_ntw(), smem))
+      !make_slab_geometry(sg, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
     return (int)cudaErrorInvalidValue;
   if (dtype == anet::DTYPE_BF16)
     return (int)(b_lo ? slab_occupancy(kernel_for<__nv_bfloat16, true>(sg), sg, smem, out)

@@ -59,8 +59,8 @@ blockmax_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, Geo
 }
 
 // The slab route (templates past the one-shot stage): two blocks an SM.
-template <typename T, bool B_LO, int NTW>
-__global__ void __launch_bounds__((slab_threads<std::is_same<T, float>::value, B_LO, NTW>()), 2)
+template <typename T, bool B_LO>
+__global__ void __launch_bounds__(SLAB_WARPS * 32, 2)
 blockmax_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, SlabGeometry g,
                      float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -68,7 +68,7 @@ blockmax_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl
   const int tile = blockIdx.x % g.n_tiles;
   float rq[2];
   int rc[2];
-  anet::search::tile_rows_slab<T, B_LO, NTW>(seg, tpl, g, b, tile, smem, rq, rc);
+  anet::search::tile_rows_slab<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
   if (holds_rows(g)) store_maxima(g, b, tile, rq, out);
 }
 
@@ -77,9 +77,7 @@ blockmax_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl
 template <typename T, bool B_LO>
 auto kernel_for(const Geometry&) { return blockmax_kernel<T, B_LO>; }
 template <typename T, bool B_LO>
-auto kernel_for(const SlabGeometry& g) {
-  return g.ntw == NT ? blockmax_slab_kernel<T, B_LO, NT> : blockmax_slab_kernel<T, B_LO, NT / 2>;
-}
+auto kernel_for(const SlabGeometry&) { return blockmax_slab_kernel<T, B_LO>; }
 
 template <typename T, bool B_LO, typename G>
 cudaError_t launch(const void* seg, const void* tpl, const G& g, size_t smem, int B,
@@ -121,7 +119,7 @@ extern "C" int anet_search_blockmax(const void* seg, int dtype, int B, long long
   size_t smem;
   if (make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
     return (int)run(g, smem);
-  if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, slab_ntw(), smem))
+  if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem))
     return (int)run(sg, smem);
   return (int)cudaErrorInvalidValue;
 }
@@ -135,7 +133,7 @@ extern "C" int anet_search_blockmax_slab_occupancy(int dtype, int b_lo, int w, i
   SlabGeometry sg;
   size_t smem;
   if (make_geometry(g, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem) ||
-      !make_slab_geometry(sg, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, slab_ntw(), smem))
+      !make_slab_geometry(sg, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
     return (int)cudaErrorInvalidValue;
   if (dtype == anet::DTYPE_BF16)
     return (int)(b_lo ? slab_occupancy(kernel_for<__nv_bfloat16, true>(sg), sg, smem, out)

@@ -45,28 +45,30 @@
 // slab route (make_slab_geometry, slab_rows): the band's k-steps in slabs
 // of ksl (a multiple of 8, so a slab's span starts on a staged row), sized
 // so that two blocks share a multiprocessor (SLAB_SMEM each; one block
-// takes all of it only where two cannot fit). The span rows live in a ring
-// of rr slots that covers a slab and the next one: each slab stages only
-// the ksl / 8 rows it adds, and the next slab's rows and its window of the
-// template words (8 ksl + 72 of each copy, cp.async, zero past the band)
-// are staged while this slab's products run, under one __syncthreads a
-// slab. The lane's 17-pair B ring runs on across slabs. The 128-sample
-// block energies are computed once, before the first slab, from the same
-// loads and in the same order as the one-shot stage, so the window sums
-// and scales are its bits. The tensor cores truncate what they add to an
+// takes all of it only where two cannot fit). A slab warp walks 16 rows x
+// 64 lags (half a row of n8 tiles; two warps a row group, 64 rows and 8
+// warps a block), so that its accumulators and their float32 sum take 32
+// registers each: the tensor cores truncate what they add to an
 // accumulator, which over thousands of k-steps (3,848 at 61,440 samples)
-// drifts by about 2^-23 of the sum a step: the slab route adds its
-// accumulators into a float32 sum on the CUDA cores every FOLD k-steps
-// (counted from the walk's start) and starts them again from zero. The sum
-// lives in shared memory, 8 KB a warp, so that a lane holds no more than
-// the one-shot route's registers (at most 128, or 168 where an operand is
-// float32) and two blocks fit a multiprocessor. Within a k-step a warp
-// issues its 16 tiles' hi*hi, then hi*lo, then lo*hi products: each
-// accumulator keeps its order, with 16 independent products between two
-// that depend on each other.
+// drifts by about 2^-23 of the sum a step, so the route adds its
+// accumulators into the float32 sum on the CUDA cores every FOLD k-steps
+// (counted from the walk's start) and starts them again from zero. A lane
+// then holds at most 128 registers, and two blocks of 8 warps fit a
+// multiprocessor. The span rows live in a ring of rr slots that covers a
+// slab and the next one: each slab stages only the ksl / 8 rows it adds,
+// and the next slab's rows (float32 samples by cp.async, split into hi and
+// lo at the slab's end) and its window of the template words (8 ksl + 72
+// of each copy, cp.async, zero past the band) are staged while this slab's
+// products run, under one __syncthreads a slab. The lane's B ring runs on
+// across slabs. Within a k-step a warp issues its 8 tiles' hi*hi, then
+// hi*lo, then lo*hi products: each accumulator keeps its order, with 8
+// independent products between two that depend on each other. The 128-
+// sample block energies are computed once, before the first slab, from the
+// same loads and in the same order as the one-shot stage, so the window
+// sums and scales are its bits. After the walk the warps gather their sums
+// in shared memory, and the first mt / 16 warps take whole rows through the
+// one-shot route's epilogues.
 #pragma once
-
-#include <stdlib.h>
 
 #include "common.cuh"
 
@@ -388,20 +390,20 @@ __device__ __forceinline__ void tile_rows(const T* __restrict__ seg,
 
 // --- the slab route: templates past the one-shot stage ------------------------
 
-constexpr int FOLD = 32;  // k-steps between the slab route's folds into its float32 sum
+constexpr int FOLD = 32;        // k-steps between the slab route's folds into its float32 sum
+constexpr int SLAB_NTW = NT / 2;  // n8 tiles a slab warp walks: half a row, 64 lags
+constexpr int SLAB_WARPS = MAX_WARPS;  // two a row group of 16: 64 rows a block
 // A block's dynamic shared memory where two blocks share a multiprocessor:
 // its 233,472 bytes less the 1,024 the card reserves for each block,
 // halved, less the search's static block_best arrays (2 MAX_WARPS words).
 constexpr int SLAB_SMEM = (233472 - 2 * 1024) / 2 - 2 * MAX_WARPS * 4;
 
-// The slab route's geometry: the one-shot fields (its own row split), and
-// the slab's.
+// The slab route's geometry: the one-shot fields (with its own row split),
+// and the slab's.
 struct SlabGeometry : Geometry {
-  int ntw;      // n8 tiles a warp walks: NT (whole rows, the sum in shared memory)
-                // or NT / 2 (half rows, two warps a row group, the sum in registers)
-  int warps;    // warps of a block
+  int warps;    // warps of a block: two a row group
   int n_steps;  // k-steps walked: nks rounded up to 8 (the staged words past the band are zero)
-  int ksl;      // k-steps of a slab, a multiple of 8, at most 16 warps (a chunk a thread a slab)
+  int ksl;      // k-steps of a slab, a multiple of 8, at most 16 a warp (a chunk a thread a slab)
   int ws;       // words of a staged template copy: 8 ksl + 80, 16 mod 32
   int rr;       // slots of the span ring: mt - 1 + ksl / 4 rounded up to 8
   int nbe;      // the block energies of a block's rows: mt + kb - 1
@@ -415,35 +417,33 @@ inline int block_threads(const SlabGeometry& g) { return g.warps * 32; }
 // in distinct bank groups across the wrap.
 inline int slab_ring_rows(int mt, int ksl) { return (mt - 1 + ksl / 4 + 7) / 8 * 8; }
 
-// A slab block's shared memory: the sum (mt x 128 float32; the half-row
-// walk gathers its sums there at the end, over the template windows and the
-// ring), two template windows, the ring (hi, then lo for float32 samples),
-// the block energies, one scale a row.
+// A slab block's shared memory: two template windows, the ring (hi, then
+// lo for float32 samples), float32 samples on their way to the ring (the
+// next slab's ksl / 8 rows), then, over all of these once the walk is
+// done, the float32 sums of the rows (mt x 128); the block energies, one
+// scale a row.
 inline size_t slab_smem(const SlabGeometry& g, int ksl, bool a_lo, bool b_lo) {
-  const size_t sum = (size_t)g.mt * ROW * 4;
-  const size_t tpl = (size_t)2 * (b_lo ? 4 : 2) * (8 * ksl + 80) * 4;
-  const size_t ring = (size_t)(a_lo ? 2 : 1) * slab_ring_rows(g.mt, ksl) * ROW_PITCH * 2;
-  const size_t head = g.ntw == NT ? sum + tpl + ring : (sum > tpl + ring ? sum : tpl + ring);
-  return head + (size_t)(g.nbe + g.mt) * 4;
+  const size_t sums = (size_t)g.mt * ROW * 4;
+  const size_t walk = (size_t)2 * (b_lo ? 4 : 2) * (8 * ksl + 80) * 4 +
+                      (size_t)(a_lo ? 2 : 1) * slab_ring_rows(g.mt, ksl) * ROW_PITCH * 2 +
+                      (a_lo ? (size_t)ksl / 8 * ROW * 4 : 0);
+  return (sums > walk ? sums : walk) + (size_t)(g.nbe + g.mt) * 4;
 }
 
 // The slab route's geometry of a launch whose template make_geometry does
 // not stage whole, or false where the kernel does not take it (a template
-// word count the wrapper did not build for this k). A block takes the rows
-// a warp count allows (ntw NT: max_warps a block, 16 rows each; NT / 2: 8
-// warps, two a row group); a slab is the most k-steps that keep the block
-// within SLAB_SMEM, so that two blocks share a multiprocessor, then the
-// slabs are evened out. Where no slab fits that, one block takes MAX_SMEM,
-// with fewer rows where it must.
+// word count the wrapper did not build for this k). A block takes up to 64
+// rows (4 row groups, two warps each); a slab is the most k-steps (at most
+// 16 a warp) that keep the block within SLAB_SMEM, so that two blocks share
+// a multiprocessor, then the slabs are evened out. Where no slab fits
+// that, one block takes MAX_SMEM, with fewer rows where it must.
 inline bool make_slab_geometry(SlabGeometry& g, int64_t row_stride, int seg_len, int out_len, int k,
-                               int w, float te, bool a_lo, bool b_lo, int ntw, size_t& smem) {
+                               int w, float te, bool a_lo, bool b_lo, size_t& smem) {
   if (k < 1 || out_len < 1) return false;
   make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo, smem);
   if (w < 8 * g.nks + 72 || w % 32 != 16) return false;
-  g.ntw = ntw;
   g.n_steps = (g.nks + 7) / 8 * 8;
-  const int halves = NT / ntw;
-  const int rows0 = (ntw == NT ? max_warps(a_lo, b_lo) : MAX_WARPS / halves) * WARP_ROWS;
+  const int rows0 = SLAB_WARPS / 2 * WARP_ROWS;
   const int budgets[2] = {SLAB_SMEM, MAX_SMEM};
   for (const int budget : budgets) {
     for (int max_rows = rows0; max_rows >= WARP_ROWS; max_rows -= WARP_ROWS) {
@@ -452,7 +452,7 @@ inline bool make_slab_geometry(SlabGeometry& g, int64_t row_stride, int seg_len,
       const int per = (g.n_rows + g.n_tiles - 1) / g.n_tiles;
       g.mt = (per + WARP_ROWS - 1) / WARP_ROWS * WARP_ROWS;
       g.nbe = g.mt + g.kb - 1;
-      g.warps = g.mt / WARP_ROWS * halves;
+      g.warps = g.mt / WARP_ROWS * 2;
       int ksl = g.n_steps < 16 * g.warps ? g.n_steps : 16 * g.warps;
       while (ksl > 8 && slab_smem(g, ksl, a_lo, b_lo) > (size_t)budget) ksl -= 8;
       if (slab_smem(g, ksl, a_lo, b_lo) > (size_t)budget) continue;
@@ -473,23 +473,31 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
 }
 
 struct SlabSmem : Smem {
+  float* raw;   // float32 samples of the next slab's new rows, 8 a thread
   float4* sum;  // [mt / 16][NT][32]: lane l's fragment of n8 tile j of row group r at (r NT + j) 32 + l
 };
 
-template <bool A_LO, bool B_LO, int NTW>
+template <bool A_LO, bool B_LO>
 __device__ __forceinline__ SlabSmem carve_slab(unsigned char* base, const SlabGeometry& g) {
   SlabSmem s;
-  s.sum = reinterpret_cast<float4*>(base);
-  s.tpl = reinterpret_cast<uint32_t*>(base + (NTW == NT ? g.mt * ROW * 4 : 0));
+  s.tpl = reinterpret_cast<uint32_t*>(base);
   s.hi = reinterpret_cast<__nv_bfloat16*>(s.tpl + 2 * (B_LO ? 4 : 2) * g.ws);
   s.lo = s.hi + g.rr * ROW_PITCH;
-  unsigned char* end = reinterpret_cast<unsigned char*>(s.hi + (A_LO ? 2 : 1) * g.rr * ROW_PITCH);
-  if (NTW != NT && end < base + g.mt * ROW * 4) end = base + g.mt * ROW * 4;
+  s.raw = reinterpret_cast<float*>(s.hi + (A_LO ? 2 : 1) * g.rr * ROW_PITCH);
+  s.sum = reinterpret_cast<float4*>(base);
+  unsigned char* end = reinterpret_cast<unsigned char*>(s.raw + (A_LO ? g.ksl / 8 * ROW : 0));
+  if (end < base + g.mt * ROW * 4) end = base + g.mt * ROW * 4;
   s.blk = reinterpret_cast<float*>(end);
   s.scale = s.blk + g.nbe;
   return s;
@@ -528,9 +536,9 @@ __device__ __forceinline__ void slab_energies(const T* __restrict__ seg, const S
   __syncthreads();
 }
 
-// 8 samples of the segment as the slab route holds them between load and
-// store: float32 whole (split into hi and lo at the store), bf16 as its 4
-// words of bit pairs (bf16 -> float32 -> bf16 gives back the same bits).
+// 8 samples of the segment on their way to the ring: float32 whole (split
+// into hi and lo at the store), bf16 as its 4 words of bit pairs (bf16 ->
+// float32 -> bf16 gives back the same bits).
 template <typename T>
 struct Chunk {
   float v[8];
@@ -607,25 +615,23 @@ __device__ __forceinline__ void stage_rows(const T* row, int64_t base, const Sla
   }
 }
 
-// 8 k-steps of a warp's walk over its 16 rows and NTW n8 tiles (product's
-// step, the A row read through the ring): a the lane's ldmatrix address at
-// the group's first step (its ring slot and k offset in), lo_off the lo
-// rows' offset; tb, tl the lane's hi and lo template words at that step. The
-// next step's A fragment loads before this step's products.
-template <bool A_LO, bool B_LO, int NTW>
+// 8 k-steps of a warp's walk over its 16 rows and SLAB_NTW n8 tiles
+// (product's step, the A row read through the ring): a the lane's ldmatrix
+// address at the group's first step (its ring slot and k offset in),
+// lo_off the lo rows' offset; tb, tl the lane's hi and lo template words at
+// that step. The next step's hi A fragment loads before this step's
+// products; the lo one, which the third products take, at the step.
+template <bool A_LO, bool B_LO>
 __device__ __forceinline__ void walk_group(uint32_t a, uint32_t lo_off, const uint32_t* tb,
-                                           const uint32_t* tl, float (&acc)[NTW][4],
-                                           uint32_t (&rh)[NTW + 1], uint32_t (&rl)[NTW + 1]) {
-  uint32_t ah[2][4], al[2][4];
+                                           const uint32_t* tl, float (&acc)[SLAB_NTW][4],
+                                           uint32_t (&rh)[SLAB_NTW + 1], uint32_t (&rl)[SLAB_NTW + 1]) {
+  uint32_t ah[2][4], al[4];
   ldmatrix_x4(ah[0], a);
-  if (A_LO) ldmatrix_x4(al[0], a + lo_off);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int c = i & 1;
-    if (i < 7) {
-      ldmatrix_x4(ah[c ^ 1], a + 32 * (i + 1));
-      if (A_LO) ldmatrix_x4(al[c ^ 1], a + lo_off + 32 * (i + 1));
-    }
+    if (i < 7) ldmatrix_x4(ah[c ^ 1], a + 32 * (i + 1));
+    if (A_LO) ldmatrix_x4(al, a + lo_off + 32 * i);
     const uint32_t nh0 = tb[8 * i + 12], nh1 = tb[8 * i + 8];  // the next step's two words
     uint32_t nl0 = 0, nl1 = 0;
     if (B_LO) {
@@ -633,17 +639,17 @@ __device__ __forceinline__ void walk_group(uint32_t a, uint32_t lo_off, const ui
       nl1 = tl[8 * i + 8];
     }
 #pragma unroll
-    for (int j = 0; j < NTW; ++j) mma_bf16(acc[j], ah[c], rh[j + 1], rh[j]);
+    for (int j = 0; j < SLAB_NTW; ++j) mma_bf16(acc[j], ah[c], rh[j + 1], rh[j]);
     if (B_LO) {
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) mma_bf16(acc[j], ah[c], rl[j + 1], rl[j]);
+      for (int j = 0; j < SLAB_NTW; ++j) mma_bf16(acc[j], ah[c], rl[j + 1], rl[j]);
     }
     if (A_LO) {
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) mma_bf16(acc[j], al[c], rh[j + 1], rh[j]);
+      for (int j = 0; j < SLAB_NTW; ++j) mma_bf16(acc[j], al, rh[j + 1], rh[j]);
     }
 #pragma unroll
-    for (int u = NTW; u >= 2; --u) {
+    for (int u = SLAB_NTW; u >= 2; --u) {
       rh[u] = rh[u - 2];
       if (B_LO) rl[u] = rl[u - 2];
     }
@@ -656,70 +662,6 @@ __device__ __forceinline__ void walk_group(uint32_t a, uint32_t lo_off, const ui
   }
 }
 
-// 16 bytes of shared memory, read and written as volatile: the accesses
-// keep their program order, so a batch of them holds only its own
-// registers.
-__device__ __forceinline__ float4 lds128_volatile(const float4* p) {
-  float4 v;
-  asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(smem_addr(p))
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void sts128_volatile(float4* p, const float4& v) {
-  asm volatile("st.volatile.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_addr(p)), "f"(v.x),
-               "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-}
-
-// The accumulators added into the float32 sum (in shared memory, the
-// lane's own fragment, for whole rows; in registers for half rows), then
-// zeroed. The shared sum goes 4 tiles at a time, so that no more than 16
-// of its registers are live beside the accumulators and the B ring.
-template <int NTW>
-__device__ __forceinline__ void fold(float (&acc)[NTW][4], float (&rsum)[NTW][4], float4* my_sum) {
-#pragma unroll
-  for (int j0 = 0; j0 < NTW; j0 += 4) {
-    float4 v[4];
-    if (NTW == NT) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = lds128_volatile(my_sum + 32 * (j0 + j));
-    }
-#pragma unroll
-    for (int j = j0; j < j0 + 4; ++j) {
-      if (NTW == NT) {
-        v[j - j0].x += acc[j][0];
-        v[j - j0].y += acc[j][1];
-        v[j - j0].z += acc[j][2];
-        v[j - j0].w += acc[j][3];
-        sts128_volatile(my_sum + 32 * j, v[j - j0]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) rsum[j][e] += acc[j][e];
-      }
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-    }
-  }
-}
-
-// One group of 8 k-steps at the lane's ring slot, then the slot moves to
-// the next row and every FOLD k-steps the accumulators fold.
-template <bool A_LO, bool B_LO, int NTW>
-__device__ __forceinline__ void walk_step(const SlabGeometry& g, uint32_t a_base, const uint32_t* tb,
-                                          int& slot, int& groups, float (&acc)[NTW][4],
-                                          float (&rsum)[NTW][4], float4* my_sum, uint32_t (&rh)[NTW + 1],
-                                          uint32_t (&rl)[NTW + 1]) {
-  walk_group<A_LO, B_LO, NTW>(a_base + (uint32_t)slot * (2 * ROW_PITCH), 2u * g.rr * ROW_PITCH, tb,
-                              tb + 2 * g.ws, acc, rh, rl);
-  slot = slot + 1 == g.rr ? 0 : slot + 1;
-  if (++groups == FOLD / 8) {
-    fold<NTW>(acc, rsum, my_sum);
-    groups = 0;
-  }
-}
-
 // Whether this warp holds rows for the epilogue (the first mt / 16 warps).
 __device__ __forceinline__ bool holds_rows(const SlabGeometry& g) {
   return (int)(threadIdx.x >> 5) < g.mt / WARP_ROWS;
@@ -729,13 +671,13 @@ __device__ __forceinline__ bool holds_rows(const SlabGeometry& g) {
 // rows (holds_rows), sum holds each lag's correlation as product's acc does
 // on the one-shot route (the warp's 16 rows, all 128 columns). ENERGY: the
 // scales first (the searches; correlate stages none).
-template <typename T, bool B_LO, bool ENERGY, int NTW>
+template <typename T, bool B_LO, bool ENERGY>
 __device__ __forceinline__ SlabSmem slab_rows(const T* __restrict__ seg, const uint32_t* __restrict__ tpl,
                                               const SlabGeometry& g, int b, int tile, unsigned char* smem,
                                               float (&sum)[NT][4]) {
   constexpr bool A_LO = std::is_same<T, float>::value;
   constexpr int COPIES = B_LO ? 4 : 2;
-  const SlabSmem s = carve_slab<A_LO, B_LO, NTW>(smem, g);
+  const SlabSmem s = carve_slab<A_LO, B_LO>(smem, g);
   if (ENERGY) slab_energies<T>(seg, g, b, tile, s);
   const T* row = seg + (int64_t)b * g.row_stride;
   const int64_t base = (int64_t)tile * g.mt * ROW;
@@ -747,54 +689,90 @@ __device__ __forceinline__ SlabSmem slab_rows(const T* __restrict__ seg, const u
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, gi = lane & 3;
-  const int rg = warp / (NT / NTW), half = warp % (NT / NTW);  // row group, column half
+  const int rg = warp >> 1, half = warp & 1;  // row group, column half
   // ldmatrix: lane supplies row (lane & 7) + 8 (bit 3 of lane) of the m16
   // tile at p offset 8 (bit 4 of lane); the row's ring slot is added a group
   const uint32_t a_base = smem_addr(s.hi) + 2u * ((lane >> 4) * 8);
-  // H(e) of this lane is word tb[e / 2] (copy gq & 1), the half's columns
-  // 64 samples on
-  const int h_off = (gq & 1) * g.ws + TPL_OFF / 2 + gi - (gq >> 1) - 4 * NTW * half;
-  uint32_t rh[NTW + 1], rl[NTW + 1];  // rh[u] = H(16 s + 8 - 8 u) of the half's first tile
+  const uint32_t lo_off = 2u * g.rr * ROW_PITCH;
+  // H(e) of this lane is word tb[e / 2] (copy gq & 1); the second half's
+  // columns lie 64 samples on
+  const int h_off = (gq & 1) * g.ws + TPL_OFF / 2 + gi - (gq >> 1) - 4 * SLAB_NTW * half;
+  uint32_t rh[SLAB_NTW + 1], rl[SLAB_NTW + 1];  // rh[u] = H(16 s + 8 - 8 u) of the half's first tile
 #pragma unroll
-  for (int u = 0; u <= NTW; ++u) {
+  for (int u = 0; u <= SLAB_NTW; ++u) {
     rh[u] = s.tpl[h_off + 4 - 4 * u];
     if (B_LO) rl[u] = s.tpl[h_off + 2 * g.ws + 4 - 4 * u];
   }
-  float acc[NTW][4], rsum[NTW][4];
-  float4* my_sum = s.sum + (rg * NT + NTW * half) * 32 + lane;
+  float acc[SLAB_NTW][4], total[SLAB_NTW][4];
 #pragma unroll
-  for (int j = 0; j < NTW; ++j) {
+  for (int j = 0; j < SLAB_NTW; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = rsum[j][e] = 0.0f;
-    if (NTW == NT) sts128_volatile(my_sum + 32 * j, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
-  }
+    for (int e = 0; e < 4; ++e) acc[j][e] = total[j][e] = 0.0f;
   int slot = rg * WARP_ROWS + (lane & 7) + ((lane >> 3) & 1) * 8;  // the lane's A row, in the ring
   int groups = 0;
   for (int sl = 0, st0 = 0; st0 < g.n_steps; ++sl, st0 += g.ksl) {
     const int nk = min(g.ksl, g.n_steps - st0);
     const int nk1 = min(g.ksl, g.n_steps - st0 - g.ksl);  // the next slab's, <= 0 past the last
     const uint32_t* tb = s.tpl + (sl & 1) * COPIES * g.ws + h_off;
-    // the next slab's template words and its new rows (one chunk a thread
-    // at most), staged under this slab's products
+    // the next slab's template words and new rows (one chunk a thread at
+    // most), staged under this slab's products: float32 samples by
+    // cp.async into raw, bf16 ones in 4 registers
     const int c = threadIdx.x;
     const int r = (st0 + g.ksl) / 8 + g.mt - 1 + (c >> 4);
+    const int64_t at = base + (int64_t)ROW * r + 8 * (c & 15);
     const bool live = c < 2 * nk1;
-    Chunk<T> v;
+    Chunk<__nv_bfloat16> v;
     if (nk1 > 0) stage_window<B_LO>(tpl, g, st0 + g.ksl, nk1, s.tpl + ((sl + 1) & 1) * COPIES * g.ws);
-    if (live) load_chunk(row, base + (int64_t)ROW * r + 8 * (c & 15), g.seg_len, v);
-    walk_step<A_LO, B_LO, NTW>(g, a_base, tb, slot, groups, acc, rsum, my_sum, rh, rl);
-    if (live) store_chunk(s, (r % g.rr) * ROW_PITCH + 8 * (c & 15), v);
-    for (int q = 1; q < nk / 8; ++q)
-      walk_step<A_LO, B_LO, NTW>(g, a_base, tb + 64 * q, slot, groups, acc, rsum, my_sum, rh, rl);
-    cp_async_wait_all();
-    __syncthreads();
-  }
-  if (groups) fold<NTW>(acc, rsum, my_sum);
-  if (NTW != NT) {  // half rows: gather the sums over the ring, which the last barrier freed
+    if (live) {
+      if constexpr (A_LO) {
 #pragma unroll
-    for (int j = 0; j < NTW; ++j) my_sum[32 * j] = make_float4(rsum[j][0], rsum[j][1], rsum[j][2], rsum[j][3]);
+        for (int j = 0; j < 8; ++j) {
+          const bool in = at + j >= 0 && at + j < g.seg_len;
+          cp_async4(s.raw + 8 * c + j, row + (in ? at + j : 0), in ? 4 : 0);
+        }
+      } else {
+        load_chunk(row, at, g.seg_len, v);
+      }
+    }
+    for (int q = 0; q < nk / 8; ++q) {
+      walk_group<A_LO, B_LO>(a_base + (uint32_t)slot * (2 * ROW_PITCH), lo_off, tb + 64 * q,
+                             tb + 64 * q + 2 * g.ws, acc, rh, rl);
+      slot = slot + 1 == g.rr ? 0 : slot + 1;
+      if (++groups == FOLD / 8) {  // fold into the float32 sum
+#pragma unroll
+        for (int j = 0; j < SLAB_NTW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            total[j][e] += acc[j][e];
+            acc[j][e] = 0.0f;
+          }
+        groups = 0;
+      }
+    }
+    cp_async_wait_all();
+    if (live) {
+      const int slot_at = (r % g.rr) * ROW_PITCH + 8 * (c & 15);
+      if constexpr (A_LO) {
+        Chunk<float> f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) f.v[j] = s.raw[8 * c + j];
+        store_chunk(s, slot_at, f);
+      } else {
+        store_chunk(s, slot_at, v);
+      }
+    }
     __syncthreads();
   }
+#pragma unroll
+  for (int j = 0; j < SLAB_NTW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) total[j][e] += acc[j][e];
+  // the sums as the epilogue takes them, a warp's 16 rows and all 128
+  // columns, gathered over the ring, which the last barrier freed
+  float4* my_sum = s.sum + (rg * NT + SLAB_NTW * half) * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < SLAB_NTW; ++j) my_sum[32 * j] = make_float4(total[j][0], total[j][1], total[j][2], total[j][3]);
+  __syncthreads();
   if (holds_rows(g)) {
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -810,13 +788,13 @@ __device__ __forceinline__ SlabSmem slab_rows(const T* __restrict__ seg, const u
 
 // tile_rows on the slab route; a warp that holds no rows gives -1 at
 // column 128, as a row past the stream's end does.
-template <typename T, bool B_LO, int NTW>
+template <typename T, bool B_LO>
 __device__ __forceinline__ void tile_rows_slab(const T* __restrict__ seg,
                                                const uint32_t* __restrict__ tpl, const SlabGeometry& g,
                                                int b, int tile, unsigned char* smem, float (&bq)[2],
                                                int (&bc)[2]) {
   float sum[NT][4];
-  const SlabSmem s = slab_rows<T, B_LO, true, NTW>(seg, tpl, g, b, tile, smem, sum);
+  const SlabSmem s = slab_rows<T, B_LO, true>(seg, tpl, g, b, tile, smem, sum);
   bq[0] = bq[1] = -1.0f;
   bc[0] = bc[1] = ROW;
   if (holds_rows(g)) row_best(g, s, tile, sum, bq, bc);
@@ -840,18 +818,6 @@ cudaError_t slab_occupancy(K kernel, const SlabGeometry& g, size_t smem, int* ou
                          fa.numRegs, (int)fa.localSizeBytes, g.mt};
   for (int i = 0; i < 8; ++i) out[i] = values[i];
   return cudaSuccess;
-}
-
-// The launch bound of a slab kernel: its warps a block, two blocks an SM
-// (at most 128 registers a thread at 8 warps, 168 at 6).
-template <bool A_LO, bool B_LO, int NTW>
-constexpr int slab_threads() { return (NTW == NT ? max_warps(A_LO, B_LO) : MAX_WARPS) * 32; }
-
-// The half-row walk is timed beside the whole-row one; ANET_SEARCH_SLAB_NTW=8
-// picks it.
-inline int slab_ntw() {
-  const char* v = getenv("ANET_SEARCH_SLAB_NTW");
-  return v && atoi(v) == NT / 2 ? NT / 2 : NT;
 }
 
 }  // namespace search

@@ -89,8 +89,8 @@ search_tile_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, 
 }
 
 // The slab route (templates past the one-shot stage): two blocks an SM.
-template <typename T, bool B_LO, int NTW>
-__global__ void __launch_bounds__((slab_threads<std::is_same<T, float>::value, B_LO, NTW>()), 2)
+template <typename T, bool B_LO>
+__global__ void __launch_bounds__(SLAB_WARPS * 32, 2)
 search_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, SlabGeometry g,
                    float* __restrict__ part_q, int32_t* __restrict__ part_i) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -98,7 +98,7 @@ search_slab_kernel(const T* __restrict__ seg, const uint32_t* __restrict__ tpl, 
   const int tile = blockIdx.x % g.n_tiles;
   float rq[2];
   int rc[2];
-  anet::search::tile_rows_slab<T, B_LO, NTW>(seg, tpl, g, b, tile, smem, rq, rc);
+  anet::search::tile_rows_slab<T, B_LO>(seg, tpl, g, b, tile, smem, rq, rc);
   block_best(g, b, tile, rq, rc, part_q, part_i);
 }
 
@@ -125,9 +125,7 @@ __global__ void search_reduce_kernel(const float* __restrict__ part_q,
 template <typename T, bool B_LO>
 auto kernel_for(const Geometry&) { return search_tile_kernel<T, B_LO>; }
 template <typename T, bool B_LO>
-auto kernel_for(const SlabGeometry& g) {
-  return g.ntw == NT ? search_slab_kernel<T, B_LO, NT> : search_slab_kernel<T, B_LO, NT / 2>;
-}
+auto kernel_for(const SlabGeometry&) { return search_slab_kernel<T, B_LO>; }
 
 template <typename T, bool B_LO, typename G>
 cudaError_t launch(const void* seg, const void* tpl, const G& g, size_t smem, int B,
@@ -176,8 +174,7 @@ extern "C" int anet_sync_search(const void* seg, int dtype, int B, long long row
   if (make_geometry(g, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem)) {
     err = run(g, smem);
     n_tiles = g.n_tiles;
-  } else if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, slab_ntw(),
-                                smem)) {
+  } else if (make_slab_geometry(sg, row_stride, seg_len, out_len, k, w, te, a_lo, b_lo != 0, smem)) {
     err = run(sg, smem);
     n_tiles = sg.n_tiles;
   } else {
@@ -199,7 +196,7 @@ extern "C" int anet_sync_search_slab_occupancy(int dtype, int b_lo, int w, int k
   SlabGeometry sg;
   size_t smem;
   if (make_geometry(g, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem) ||
-      !make_slab_geometry(sg, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, slab_ntw(), smem))
+      !make_slab_geometry(sg, 0, 0, out_len, k, w, 1.0f, a_lo, b_lo != 0, smem))
     return (int)cudaErrorInvalidValue;
   if (dtype == anet::DTYPE_BF16)
     return (int)(b_lo ? slab_occupancy(kernel_for<__nv_bfloat16, true>(sg), sg, smem, out)

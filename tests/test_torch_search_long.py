@@ -32,8 +32,11 @@ import anet.kernels as jk
 from anet_torch import kernels as tk
 
 ROW, PITCH, TPL_OFF, MAX_SMEM = 128, 136, 128, 232448  # search_core.cuh
-NT, FOLD = 16, 32  # n8 tiles of a row; k-steps between the slab route's folds
-SLAB_SMEM = (233472 - 2 * 1024) // 2  # a block's share where two blocks share a multiprocessor
+NT, NTW, FOLD = 16, 8, 32  # n8 tiles of a row, of a slab warp's walk; k-steps between the slab route's folds
+SLAB_ROWS = 64  # rows of a slab block: 4 row groups, two warps each
+# a block's dynamic shared memory where two share a multiprocessor: half of 233,472 bytes less 1,024 a
+# block, less the search's 64 static bytes
+SLAB_SMEM = (233472 - 2 * 1024) // 2 - 64
 
 
 def _split(n_rows: int, max_rows: int) -> tuple[int, int]:
@@ -59,47 +62,43 @@ def ring_rows(mt: int, ksl: int) -> int:
     return (mt - 1 + ksl // 4 + 7) // 8 * 8
 
 
-def slab_smem(mt: int, nbe: int, ksl: int, a_lo: bool, b_lo: bool, ntw: int) -> int:
-    """search_core.cuh's slab_smem: the float32 sum of the rows (shared with
-    the windows and the ring by the half-row walk), two template windows,
-    the ring, the block energies and scales."""
-    total = mt * ROW * 4
-    tpl = 2 * (4 if b_lo else 2) * (8 * ksl + 80) * 4
-    ring = (2 if a_lo else 1) * ring_rows(mt, ksl) * PITCH * 2
-    head = total + tpl + ring if ntw == NT else max(total, tpl + ring)
-    return head + (nbe + mt) * 4
+def slab_smem(mt: int, nbe: int, ksl: int, a_lo: bool, b_lo: bool) -> int:
+    """search_core.cuh's slab_smem: two template windows, the ring, the
+    float32 samples on their way to it (the next slab's rows), or over
+    these once the walk is done the float32 sums of the rows; the block
+    energies and scales."""
+    walk = (2 * (4 if b_lo else 2) * (8 * ksl + 80) * 4 + (2 if a_lo else 1) * ring_rows(mt, ksl) * PITCH * 2
+            + (ksl // 8 * ROW * 4 if a_lo else 0))
+    return max(mt * ROW * 4, walk) + (nbe + mt) * 4
 
 
-def slab_geometry(k: int, out_len: int, a_lo: bool, b_lo: bool, ntw: int = NT, ksl_max: int | None = None) -> dict:
-    """search_core.cuh's make_slab_geometry: rows a block from the warps
-    (ntw 16: 6 or 8 warps of whole rows; 8: 8 warps, two a row group), a
-    slab of the most k-steps (a multiple of 8, at most 16 a warp, or
-    ksl_max) that keeps the block within SLAB_SMEM, so that two blocks
-    share a multiprocessor, evened out; else one block within MAX_SMEM,
-    with fewer rows where it must."""
+def slab_geometry(k: int, out_len: int, a_lo: bool, b_lo: bool, ksl_max: int | None = None) -> dict:
+    """search_core.cuh's make_slab_geometry: up to 64 rows a block (two
+    warps a row group of 16), a slab of the most k-steps (a multiple of 8,
+    at most 16 a warp, or ksl_max) that keeps the block within SLAB_SMEM,
+    so that two blocks share a multiprocessor, evened out; else one block
+    within MAX_SMEM, with fewer rows where it must."""
     n_rows = -(-out_len // ROW)
     nks = (k + ROW - 1 + 15) // 16
     kb = (k + ROW - 1) // ROW + 1
     n_steps = -(-nks // 8) * 8
-    halves = NT // ntw
-    rows0 = ((6 if a_lo or b_lo else 8) if ntw == NT else 8 // halves) * 16
     for budget in (SLAB_SMEM, MAX_SMEM):
-        for max_rows in range(rows0, 15, -16):
-            if budget == SLAB_SMEM and max_rows < rows0:
+        for max_rows in range(SLAB_ROWS, 15, -16):
+            if budget == SLAB_SMEM and max_rows < SLAB_ROWS:
                 break
             n_tiles, mt = _split(n_rows, max_rows)
             nbe = mt + kb - 1
-            warps = mt // 16 * halves
+            warps = mt // 16 * 2
             ksl = min(n_steps, 16 * warps, ksl_max or n_steps)
-            while ksl > 8 and slab_smem(mt, nbe, ksl, a_lo, b_lo, ntw) > budget:
+            while ksl > 8 and slab_smem(mt, nbe, ksl, a_lo, b_lo) > budget:
                 ksl -= 8
-            if slab_smem(mt, nbe, ksl, a_lo, b_lo, ntw) > budget:
+            if slab_smem(mt, nbe, ksl, a_lo, b_lo) > budget:
                 continue
             n_slabs = -(-n_steps // ksl)
             ksl = -(-(-(-n_steps // n_slabs)) // 8) * 8
             return dict(mt=mt, n_tiles=n_tiles, n_rows=n_rows, nks=nks, n_steps=n_steps, kb=kb, nbe=nbe, ksl=ksl,
-                        ws=8 * ksl + 80, rr=ring_rows(mt, ksl), warps=warps, ntw=ntw, blocks=2 if budget == SLAB_SMEM else 1,
-                        smem=slab_smem(mt, nbe, ksl, a_lo, b_lo, ntw))
+                        ws=8 * ksl + 80, rr=ring_rows(mt, ksl), warps=warps, blocks=2 if budget == SLAB_SMEM else 1,
+                        smem=slab_smem(mt, nbe, ksl, a_lo, b_lo))
     raise ValueError("no slab geometry")
 
 
@@ -116,7 +115,7 @@ def _decode(words: np.ndarray) -> np.ndarray:
 
 
 def emulate_slabs(seg: np.ndarray, template: torch.Tensor, out_len: int, te: float, a_lo: bool,
-                  ksl_max: int, ntw: int = NT) -> tuple[np.ndarray, np.ndarray]:
+                  ksl_max: int) -> tuple[np.ndarray, np.ndarray]:
     """(corr [B, out_len], q [B, out_len]) as the slab route computes them
     (float64 sums of the same bf16 operands): per block of mt rows, the
     energies of blocks 0 .. nbe - 1 from its first sample and one scale a
@@ -124,7 +123,7 @@ def emulate_slabs(seg: np.ndarray, template: torch.Tensor, out_len: int, te: flo
     slab the next slab's window (into the other of two buffers, zero past
     the copy's words) and its new rows (into their ring slots) staged
     before this slab's walk, whose reads of a slot must find the row they
-    want; each lane's B ring of ntw + 1 words a column half, loaded once
+    want; each lane's B ring of 9 words a column half, loaded once
     and run on across slabs, its words checked against the banded
     template; per k-step the hi*hi, hi*lo, lo*hi products in that order,
     folded into the sum every FOLD k-steps."""
@@ -133,7 +132,7 @@ def emulate_slabs(seg: np.ndarray, template: torch.Tensor, out_len: int, te: flo
     n_half = words.shape[0]
     b_lo = n_half == 2
     w = words.shape[-1]
-    g = slab_geometry(k, out_len, a_lo, b_lo, ntw, ksl_max)
+    g = slab_geometry(k, out_len, a_lo, b_lo, ksl_max)
     mt, ksl, ws, rr, n_steps = g["mt"], g["ksl"], g["ws"], g["rr"], g["n_steps"]
     t_half = [_bf16(template.float().numpy())]
     if b_lo:
@@ -179,10 +178,10 @@ def emulate_slabs(seg: np.ndarray, template: torch.Tensor, out_len: int, te: flo
             stage_window(0, nk0, 0)
             stage_rows(0, mt - 1 + nk0 // 8)
             # per column half, the lane's ring: rh[u] = H(16 s + 8 - 8 u) of the half's first tile
-            h_off = [TPL_OFF // 2 + gi - (gq >> 1) - 4 * ntw * h for h in range(NT // ntw)]
-            assert min(o.min() for o in h_off) + 4 - 4 * ntw >= 0
-            rings = [[buf[0, half, gq & 1, h_off[h] + 4 - 4 * u] for u in range(ntw + 1)]
-                     for h in range(NT // ntw) for half in range(n_half)]
+            h_off = [TPL_OFF // 2 + gi - (gq >> 1) - 4 * NTW * h for h in range(NT // NTW)]
+            assert min(o.min() for o in h_off) + 4 - 4 * NTW >= 0
+            rings = [[buf[0, half, gq & 1, h_off[h] + 4 - 4 * u] for u in range(NTW + 1)]
+                     for h in range(NT // NTW) for half in range(n_half)]
             acc = np.zeros((mt, ROW))
             total = np.zeros((mt, ROW))
             for sl, st0 in enumerate(range(0, n_steps, ksl)):
@@ -196,14 +195,14 @@ def emulate_slabs(seg: np.ndarray, template: torch.Tensor, out_len: int, te: flo
                     np.testing.assert_array_equal(held[slots], np.arange(mt) + st // 8)
                     a = ring[:, slots, 16 * (st % 8) : 16 * (st % 8) + 16]  # [hi/lo, mt, 16]
                     bmat = np.zeros((n_half, 16, ROW))
-                    for h in range(NT // ntw):
+                    for h in range(NT // NTW):
                         for half in range(n_half):
                             rh = rings[h * n_half + half]
-                            for j in range(ntw):  # tile ntw h + j: (rh[j + 1], rh[j])
+                            for j in range(NTW):  # tile NTW h + j: (rh[j + 1], rh[j])
                                 for r, word in enumerate((rh[j + 1], rh[j])):
                                     pair = _decode(word)  # [32, 2]
                                     for e in range(2):
-                                        bmat[half, 8 * r + 2 * gi + e, 8 * (ntw * h + j) + gq] = pair[:, e]
+                                        bmat[half, 8 * r + 2 * gi + e, 8 * (NTW * h + j) + gq] = pair[:, e]
                             st_l = st - st0
                             tb = buf[sl & 1, half, gq & 1]
                             rings[h * n_half + half] = [tb[lane, h_off[h] + 8 * st_l + 12],
@@ -250,9 +249,9 @@ def test_slab_geometry_fits_shared_memory(pair, k):
 def test_slab_blocks_fit_two_a_multiprocessor(pair, k):
     """At sps 480's and sps 1,920's preambles and out_len 4,736, 36,352
     and 272,640 (stream-slow-f32's chunk), wherever the slab route takes
-    the template, a block fits half a multiprocessor (115,712 bytes), so
-    two share one, with the one-shot route's rows (96, or 128 for bf16 x
-    bf16); its ring holds a slab's rows and the next slab's (the rows a
+    the template, a block fits half a multiprocessor (115,712 bytes with
+    the search's 64 static ones), so two share one, with 64 rows (8 warps,
+    two a row group); its ring holds a slab's rows and the next slab's (the rows a
     slab reads and the ones staged under its products never share a
     slot), a multiple of 8 slots; a slab adds at most one 8-sample chunk
     a thread (2 ksl <= the block's threads)."""
@@ -261,19 +260,18 @@ def test_slab_blocks_fit_two_a_multiprocessor(pair, k):
         if one_shot_fits(k, out_len, a_lo, b_lo):
             continue
         g = slab_geometry(k, out_len, a_lo, b_lo)
-        assert g["blocks"] == 2 and g["smem"] <= SLAB_SMEM == 115712
-        assert (g["n_tiles"], g["mt"]) == _split(g["n_rows"], 96 if a_lo or b_lo else 128)
+        assert g["blocks"] == 2 and g["smem"] + 64 <= SLAB_SMEM + 64 == 115712
+        assert (g["n_tiles"], g["mt"]) == _split(g["n_rows"], SLAB_ROWS) and g["warps"] == 2 * g["mt"] // 16
         assert g["rr"] % 8 == 0 and g["rr"] >= g["mt"] - 1 + 2 * g["ksl"] // 8
         assert 2 * g["ksl"] <= 32 * g["warps"]
 
 
-@pytest.mark.parametrize("ntw", [16, 8])
 @pytest.mark.parametrize("seg_f32", [False, True])
 @pytest.mark.parametrize("tpl_f32", [False, True])
-def test_slab_walk_matches_plain_versions(seg_f32, tpl_f32, ntw):
+def test_slab_walk_matches_plain_versions(seg_f32, tpl_f32):
     """The slab route transliterated (slabs of at most 16 k-steps, so a
     1,500-sample template's 104 k-steps cross 7 slabs, the last one short,
-    and the 24-slot span ring wraps; whole-row and half-row walks; 3
+    and the 24-slot span ring wraps; two warps a row group; 3
     streams, out_len 300 over 3 rows, the energy blocks and span reading
     zeros past the segments' out_len + k - 1 samples) against
     sync_search_fused_ref and correlate_fused_ref: every ring slot read
@@ -294,9 +292,9 @@ def test_slab_walk_matches_plain_versions(seg_f32, tpl_f32, ntw):
     seg_t = torch.from_numpy(seg).to(torch.float32 if seg_f32 else torch.bfloat16)
     seg_np = seg_t.float().numpy().astype(np.float64)
     te = float((tpl.float() ** 2).sum())
-    g = slab_geometry(k, out_len, seg_f32, tpl_f32, ntw, ksl_max=16)
+    g = slab_geometry(k, out_len, seg_f32, tpl_f32, ksl_max=16)
     assert g["ksl"] == 16 and g["n_steps"] == 104 and g["rr"] == 24 < g["mt"] - 1 + g["n_steps"] // 8
-    corr, q = emulate_slabs(seg_np, tpl, out_len, te, seg_f32, ksl_max=16, ntw=ntw)
+    corr, q = emulate_slabs(seg_np, tpl, out_len, te, seg_f32, ksl_max=16)
     rq, ri = tk.sync_search_fused_ref(seg_t, tpl, out_len, te)
     assert np.array_equal(q.argmax(-1), ri.numpy()) and np.array_equal(ri.numpy(), lags)
     np.testing.assert_allclose(q.max(-1), rq.numpy(), rtol=1e-5)
