@@ -620,17 +620,20 @@ __device__ __forceinline__ void stage_rows(const T* row, int64_t base, const Sla
 // address at the group's first step (its ring slot and k offset in),
 // lo_off the lo rows' offset; tb, tl the lane's hi and lo template words at
 // that step. The next step's hi A fragment loads before this step's
-// products; the lo one, which the third products take, at the step.
+// products (at the step for float32 x float32, whose registers are
+// fullest); the lo one, which the last products take, at the step.
 template <bool A_LO, bool B_LO>
 __device__ __forceinline__ void walk_group(uint32_t a, uint32_t lo_off, const uint32_t* tb,
                                            const uint32_t* tl, float (&acc)[SLAB_NTW][4],
                                            uint32_t (&rh)[SLAB_NTW + 1], uint32_t (&rl)[SLAB_NTW + 1]) {
+  constexpr bool AHEAD = !(A_LO && B_LO);
   uint32_t ah[2][4], al[4];
-  ldmatrix_x4(ah[0], a);
+  if (AHEAD) ldmatrix_x4(ah[0], a);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int c = i & 1;
-    if (i < 7) ldmatrix_x4(ah[c ^ 1], a + 32 * (i + 1));
+    const int c = AHEAD ? i & 1 : 0;
+    if (!AHEAD) ldmatrix_x4(ah[0], a + 32 * i);
+    if (AHEAD && i < 7) ldmatrix_x4(ah[c ^ 1], a + 32 * (i + 1));
     if (A_LO) ldmatrix_x4(al, a + lo_off + 32 * i);
     const uint32_t nh0 = tb[8 * i + 12], nh1 = tb[8 * i + 8];  // the next step's two words
     uint32_t nl0 = 0, nl1 = 0;
@@ -709,7 +712,7 @@ __device__ __forceinline__ SlabSmem slab_rows(const T* __restrict__ seg, const u
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = total[j][e] = 0.0f;
   int slot = rg * WARP_ROWS + (lane & 7) + ((lane >> 3) & 1) * 8;  // the lane's A row, in the ring
-  int groups = 0;
+  const int c = threadIdx.x;  // the next slab's chunk this thread stages, where c < 2 nk1
   for (int sl = 0, st0 = 0; st0 < g.n_steps; ++sl, st0 += g.ksl) {
     const int nk = min(g.ksl, g.n_steps - st0);
     const int nk1 = min(g.ksl, g.n_steps - st0 - g.ksl);  // the next slab's, <= 0 past the last
@@ -717,13 +720,10 @@ __device__ __forceinline__ SlabSmem slab_rows(const T* __restrict__ seg, const u
     // the next slab's template words and new rows (one chunk a thread at
     // most), staged under this slab's products: float32 samples by
     // cp.async into raw, bf16 ones in 4 registers
-    const int c = threadIdx.x;
-    const int r = (st0 + g.ksl) / 8 + g.mt - 1 + (c >> 4);
-    const int64_t at = base + (int64_t)ROW * r + 8 * (c & 15);
-    const bool live = c < 2 * nk1;
     Chunk<__nv_bfloat16> v;
     if (nk1 > 0) stage_window<B_LO>(tpl, g, st0 + g.ksl, nk1, s.tpl + ((sl + 1) & 1) * COPIES * g.ws);
-    if (live) {
+    if (c < 2 * nk1) {
+      const int64_t at = base + (int64_t)ROW * ((st0 + g.ksl) / 8 + g.mt - 1 + (c >> 4)) + 8 * (c & 15);
       if constexpr (A_LO) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -738,7 +738,7 @@ __device__ __forceinline__ SlabSmem slab_rows(const T* __restrict__ seg, const u
       walk_group<A_LO, B_LO>(a_base + (uint32_t)slot * (2 * ROW_PITCH), lo_off, tb + 64 * q,
                              tb + 64 * q + 2 * g.ws, acc, rh, rl);
       slot = slot + 1 == g.rr ? 0 : slot + 1;
-      if (++groups == FOLD / 8) {  // fold into the float32 sum
+      if ((st0 / 8 + q) % (FOLD / 8) == FOLD / 8 - 1) {  // fold into the float32 sum
 #pragma unroll
         for (int j = 0; j < SLAB_NTW; ++j)
 #pragma unroll
@@ -746,11 +746,11 @@ __device__ __forceinline__ SlabSmem slab_rows(const T* __restrict__ seg, const u
             total[j][e] += acc[j][e];
             acc[j][e] = 0.0f;
           }
-        groups = 0;
       }
     }
     cp_async_wait_all();
-    if (live) {
+    if (c < 2 * nk1) {
+      const int r = (st0 + g.ksl) / 8 + g.mt - 1 + (c >> 4);
       const int slot_at = (r % g.rr) * ROW_PITCH + 8 * (c & 15);
       if constexpr (A_LO) {
         Chunk<float> f;
