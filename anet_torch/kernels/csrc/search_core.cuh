@@ -619,11 +619,9 @@ __device__ __forceinline__ void stage_rows(const T* row, int64_t base, const Sla
 // (product's step, the A row read through the ring): a the lane's ldmatrix
 // address at the group's first step (its ring slot and k offset in),
 // lo_off the lo rows' offset; tb, tl the lane's hi and lo template words at
-// that step. The next step's hi A fragment and B words load before this
-// step's products. For float32 x float32, whose registers are fullest
-// (128 with 2 blocks an SM), each loads where it is used instead: the hi A
-// fragment at its step, the lo one after the hi*lo products, in the hi
-// one's place, the next step's words after the products.
+// that step. The next step's hi A fragment loads before this step's
+// products (at the step for float32 x float32, whose registers are
+// fullest); the lo one, which the last products take, at the step.
 template <bool A_LO, bool B_LO>
 __device__ __forceinline__ void walk_group(uint32_t a, uint32_t lo_off, const uint32_t* tb,
                                            const uint32_t* tl, float (&acc)[SLAB_NTW][4],
@@ -636,15 +634,12 @@ __device__ __forceinline__ void walk_group(uint32_t a, uint32_t lo_off, const ui
     const int c = AHEAD ? i & 1 : 0;
     if (!AHEAD) ldmatrix_x4(ah[0], a + 32 * i);
     if (AHEAD && i < 7) ldmatrix_x4(ah[c ^ 1], a + 32 * (i + 1));
-    if (AHEAD && A_LO) ldmatrix_x4(al, a + lo_off + 32 * i);
-    uint32_t nh0 = 0, nh1 = 0, nl0 = 0, nl1 = 0;  // the next step's two words
-    if (AHEAD) {
-      nh0 = tb[8 * i + 12];
-      nh1 = tb[8 * i + 8];
-      if (B_LO) {
-        nl0 = tl[8 * i + 12];
-        nl1 = tl[8 * i + 8];
-      }
+    if (A_LO) ldmatrix_x4(al, a + lo_off + 32 * i);
+    const uint32_t nh0 = tb[8 * i + 12], nh1 = tb[8 * i + 8];  // the next step's two words
+    uint32_t nl0 = 0, nl1 = 0;
+    if (B_LO) {
+      nl0 = tl[8 * i + 12];
+      nl1 = tl[8 * i + 8];
     }
 #pragma unroll
     for (int j = 0; j < SLAB_NTW; ++j) mma_bf16(acc[j], ah[c], rh[j + 1], rh[j]);
@@ -653,15 +648,8 @@ __device__ __forceinline__ void walk_group(uint32_t a, uint32_t lo_off, const ui
       for (int j = 0; j < SLAB_NTW; ++j) mma_bf16(acc[j], ah[c], rl[j + 1], rl[j]);
     }
     if (A_LO) {
-      if (!AHEAD) ldmatrix_x4(al, a + lo_off + 32 * i);
 #pragma unroll
       for (int j = 0; j < SLAB_NTW; ++j) mma_bf16(acc[j], al, rh[j + 1], rh[j]);
-    }
-    if (!AHEAD) {
-      nh0 = tb[8 * i + 12];
-      nh1 = tb[8 * i + 8];
-      nl0 = tl[8 * i + 12];
-      nl1 = tl[8 * i + 8];
     }
 #pragma unroll
     for (int u = SLAB_NTW; u >= 2; --u) {
