@@ -1710,6 +1710,26 @@ def _demod_at_any_basis(config: ModemConfig, dtype: torch.dtype, device: torch.d
     return _any_words(cols, dtype)
 
 
+_AT_ANY_FIELDS = ("blocks_per_sm", "threads", "smem_bytes", "registers", "local_bytes", "ks", "nt", "mt")
+
+
+def demod_at_any_occupancy(config: ModemConfig, dtype: torch.dtype, n_symbols: int, decide: bool = True) -> dict:
+    """What the card gives csrc/demod_at_any.cu's instantiation for a
+    buffer of ``dtype`` at the config's geometry and ``n_symbols`` (the
+    decisions' kernel, or the energies' where not ``decide``):
+    {"blocks_per_sm" (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    "threads", "smem_bytes", "registers" and "local_bytes" (spills) a
+    thread, "ks" (k-steps an A row), "nt" (n-tiles a group), "mt" (m16
+    tiles an item)}. Needs the card."""
+    import ctypes
+
+    out = (ctypes.c_int * len(_AT_ANY_FIELDS))()
+    err = _entry("demod_at_any_occupancy")(_KERNEL_DTYPES[dtype], config.samples_per_symbol, n_symbols,
+                                           config.num_tones, int(decide), ctypes.addressof(out))
+    _check_error(err, "demod_at_any occupancy")
+    return dict(zip(_AT_ANY_FIELDS, out))
+
+
 @functools.lru_cache(maxsize=16)
 def _zero_starts(n: int, device: torch.device) -> torch.Tensor:
     """int32 zeros [n]: the data starts of n rows read in place, the

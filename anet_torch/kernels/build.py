@@ -69,6 +69,8 @@ SIGNATURES = {
         "anet_demod_at_energies_any",
         [_P, _I, _I, ctypes.c_longlong, _P, _I, _I, _I, _I, _P, _P, _P], "demod_at_any",
     ),
+    # demod_at_any.cu's instantiation's occupancy at a geometry
+    "demod_at_any_occupancy": ("anet_demod_at_any_occupancy", [_I, _I, _I, _I, _I, _P], "demod_at_any"),
     "probe_at": (
         "anet_probe_at",
         [_P, _I, _I, _L, _P, _P, _I, _I, _I, _P, ctypes.c_float, _P, _P], "demod_probe",

@@ -132,8 +132,7 @@ comma-separated subset of:
   listed), each with its ``device`` column (rows whose name holds
   ``frame_tm_any`` or, in a checkout from before it, ``frame_tm_generic``,
   so a parent and this one time alike). It ignores ``--model``.
-- ``demod_at_any``: the align+demod kernels' two walks (this checkout's
-  only: a parent has no runtime-geometry walk). ``demod_at_fused``,
+- ``demod_at_any``: the align+demod kernels' two walks. ``demod_at_fused``,
   ``demod_at_energies_fused`` and ``demod_probe_fused`` (5 lags; the
   bfloat16 template, float32 for a float32 buffer) at each shape of
   ``AT_ANY_SHAPES``, payload 256's data symbols, B = 8,192, starts random
@@ -148,6 +147,18 @@ comma-separated subset of:
   route's kernel: ``demod_at_mma``, ``demod_at_energies_mma`` or
   ``demod_at_any_kernel``, the probe's ``probe_kernel`` besides). It
   ignores ``--model``.
+- ``probe_long``: the probes past a block's shared memory (demod_probe.cu's
+  direct kernels, ``DIRECT``): ``probe_at_fused`` and ``demod_probe_fused``
+  (5 lags) with sps 480's 15,360-sample preamble (``SLOW_MODEM``) as a
+  bfloat16 template, on a bfloat16 buffer of B = 1,024 streams of noise
+  (15,360 + 4,096 + 4 symbols of 64 samples), starts random below 4,000;
+  ``demod_probe_fused`` at mfsk16-fast's geometry with a 240-symbol
+  preamble of that length (its demod on demod_at.cu's walk, 4 data
+  symbols). Each with its ``device`` column (rows whose name holds
+  ``probe_at_kernel``, or ``probe_kernel``: the probe alone) and its
+  ``bound`` (each stream's probe span, 128 (ceil((k + 4) / 128) + 1)
+  samples from st0 aligned down to 128, and the taps read once, the
+  outputs written once, over 3.35 TB/s). It ignores ``--model``.
 - ``search_long``: ``sync_search_fused``, ``sync_search_blockmax`` and
   ``correlate_fused`` at templates of 15,360 and 61,440 samples (sps 480's
   and sps 1,920's preambles; ``LONG_TEMPLATES``), out_len 36,352, B = 256,
@@ -194,6 +205,7 @@ KERNELS = {  # a name of --kernels -> the csrc sources it builds
     "frame_tm_any": ("frame_tm_generic", "frame_tm_any"),
     "search_long": ("sync_search", "search_blockmax", "correlate"),
     "demod_at_any": ("demod_at", "demod_at_energies", "demod_probe", "demod_at_any"),
+    "probe_long": ("demod_probe", "demod_at"),
 }
 FRAME_B = 16384  # the aligned receiver's batch (chip_smoke.py ALIGNED_B)
 # (preset, data symbols): its frames of 256, 1,024 and 4,096 bytes, S = 302, and
@@ -231,6 +243,8 @@ AT_ANY_SHAPES = (
 )
 LONG_TEMPLATES = (15_360, 61_440)  # sps 480's and sps 1,920's 32-symbol preambles
 LONG_OUT_LEN, LONG_B = 36_352, 256
+# (sample rate, baud, tones, base Hz) of sps 480, whose preamble --kernels probe_long probes
+SLOW_MODEM = (48_000, 100, 16, 600.0)
 # (k, out_len, B) of stream-slow-f32's search (chip_smoke.py phase_search_slow):
 # sps 480's preamble, its chunk's lags, its batch
 SLOW_SHAPE = (15_360, 272_640, 1024)
@@ -667,6 +681,33 @@ if "search_long" in kinds:
             "sync_search_fused", torch.float32, torch.float32, kl, n)
     del seg, buf
     torch.cuda.empty_cache()
+if "probe_long" in kinds:
+    import dataclasses
+
+    from anet_torch.dsp.params import ModemConfig
+
+    rate, baud, m, base = {slow_modem!r}
+    tp = family.preamble_template(ModemConfig(sample_rate_hz=rate, symbol_rate_hz=baud, num_tones=m,
+                                              base_freq_hz=base), "cuda").to(torch.bfloat16)
+    kl, bb, n_sym, n_lags = tp.shape[-1], 1024, 4, 5
+    c = get_model("mfsk16-fast").config
+    c = dataclasses.replace(c, preamble_symbols=kl // c.samples_per_symbol)
+    buf = torch.randn(bb, kl + 4096 + n_sym * c.samples_per_symbol, generator=gen, device="cuda").to(torch.bfloat16)
+    st0 = torch.randint(0, 4000, (bb,), generator=gen, device="cuda").int()
+    te = float((tp.float() ** 2).sum())
+    span = 128 * (-(-(kl + n_lags - 1) // 128) + 1)  # each stream's probe span from st0 // 128 * 128
+    for name, call, dev_key, out_bytes in (
+        ("probe_at_fused", lambda: kernels.probe_at_fused(buf, st0, tp, te, n_lags=n_lags), "probe_at_kernel",
+         4 * n_lags),
+        ("demod_probe_fused", lambda: kernels.demod_probe_fused(c, buf, st0, n_sym, tp, n_lags=n_lags),
+         "probe_kernel", 12),
+    ):
+        key = f"{{name}} k {{kl}} bfloat16 B {{bb}}"
+        out[key] = time_ms(call)
+        out[key + " device"] = device_ms(call, dev_key)
+        out[key + " bound"] = (bb * (span * 2 + out_bytes) + kl * 4) / 3.35e12 * 1e3
+    del buf
+    torch.cuda.empty_cache()
 if "gather" in kinds:
     from anet_torch.stream import _buffer_len, quantize_int8
 
@@ -699,7 +740,8 @@ def time_checkout(root: Path, model: str, kinds: tuple[str, ...] = ("search",)) 
     child = _CHILD.format(root=str(root), model=model, kinds=kinds, sources=sources, vit_steps=VIT_STEPS,
                           demod_models=DEMOD_MODELS, frame_b=FRAME_B, ofdm_shapes=OFDM_SHAPES, any_shapes=ANY_SHAPES,
                           tm_any_shapes=TM_ANY_SHAPES, long_templates=LONG_TEMPLATES, long_b=LONG_B,
-                          long_out_len=LONG_OUT_LEN, at_any_shapes=AT_ANY_SHAPES, slow_shape=SLOW_SHAPE)
+                          long_out_len=LONG_OUT_LEN, at_any_shapes=AT_ANY_SHAPES, slow_shape=SLOW_SHAPE,
+                          slow_modem=SLOW_MODEM)
     run = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")

@@ -1859,6 +1859,14 @@ def at_any_buffers(cfg, gen, b: int):
     return {"bf16": bf16, "int8": i8, "f32": f32}, starts.int()
 
 
+def at_any_occupancy(o: dict) -> str:
+    """demod_at_any.cu's instantiation at a launch's geometry (from
+    kernels.demod_at_any_occupancy), for the log."""
+    return (f"{o['blocks_per_sm']} blocks an SM of {o['threads']} threads, {o['smem_bytes']} B shared, "
+            f"KS {o['ks']}, NT {o['nt']}, {o['mt']} m16 tiles an item, {o['registers']} registers, "
+            f"{o['local_bytes']} B local")
+
+
 def phase_kernels_demod_at_any(gen) -> dict:
     """Phase 2 for demod_at_any.cu, the align+demod kernels at the
     reference's geometries off demod_at.cu's walk. At AT_ANY_MAIN
@@ -1870,7 +1878,9 @@ def phase_kernels_demod_at_any(gen) -> dict:
     outputs written once; the products at the peak of their type: int8's,
     or bf16's for one product and the split's six; the probe's span and
     correlations besides). At AT_ANY_SHAPES (sps 4 with 2 tones, sps 8 with
-    4, sps 64 with 32, sps 128 with 64) held at 256 streams. The results:
+    4, sps 64 with 32, sps 128 with 64) held at 256 streams. Each main
+    geometry's two instantiations (decisions, energies) log their
+    occupancy (blocks an SM, registers, spills). The results:
     AT_ANY_ROW's, ":int8" and ":f32" by dtype, demod_at_fused at sps 16
     the row's own numbers, the other wrappers and geometries under their
     labels."""
@@ -1921,6 +1931,9 @@ def phase_kernels_demod_at_any(gen) -> dict:
                     timed[name] = r
                     torch.cuda.empty_cache()
                 del full
+                for decide in (True, False):  # each instantiation's launch as the card gives it
+                    log(f"  {AT_ANY_ROW} {'decisions' if decide else 'energies'} ({cfg_label}, {dlabel}): "
+                        f"{at_any_occupancy(kernels.demod_at_any_occupancy(cfg, dt, n_sym, decide))}")
                 entry = {**timed.pop("demod_at_fused"), **timed}
             if key not in results:  # sps 16, 4 tones: the row's own numbers
                 results[key] = {**entry, "geometry": f"{cfg_label}, B {STREAM_B}, demod_at_fused"}

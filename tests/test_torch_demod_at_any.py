@@ -8,12 +8,15 @@ sps 4, 8 and 16, and 32 or 64 tones at sps 64 and 128.
   symbols an A row, slot u's columns on rows u sps .. (u + 1) sps - 1), or
   32 tones a group for a row of one symbol; float32 as three bf16 terms
   summing to the entries exactly.
-- A numpy transliteration of the walk (its launch geometry, the span's
-  16-byte copies into staged rows with their pad, the zero fill past the
-  row and before its start into stages of stale bytes, the funnel-shift A
-  registers or the float32 samples split into three bf16 terms, the B words
-  at the kernel's index, both epilogues lane by lane: slots, quad or pair
-  shuffles, groups folded in order) against the plain versions.
+- Every (k-steps, n-tiles) instantiation's shared memory within a block.
+- A numpy transliteration of the walk (its launch geometry, the items in
+  the order the warps step through them, the span's 16-byte copies into
+  staged rows with their pad, the zero fill past the row and before its
+  start into stages of stale bytes, the funnel-shift A registers or the
+  float32 samples split into three bf16 terms, the B words at the
+  kernel's index, batches of two m16 tiles, the epilogue's scratch lane
+  by lane: passes, lanes a symbol, a pair of warps' merge, stores on
+  consecutive addresses; rows of odd length) against the plain versions.
 - The plain versions against the reference's Pallas kernels in interpret
   mode at sps 8, 16, 64 / 32 tones and 128 / 32 tones, and at sps 4, where
   the reference's Pallas kernel raises, against its jnp filterbank.
@@ -53,21 +56,45 @@ def _config(sps: int, m: int, cls=ModemConfig):
     return cls(sample_rate_hz=48_000, symbol_rate_hz=rate, num_tones=m, base_freq_hz=rate / 2)
 
 
+def walk_constants(dtype: torch.dtype, ks: int, nt: int) -> dict:
+    """Walk<T, KS, NT>'s constants in demod_at_any.cu: the A row's bytes,
+    the staged row (16 bytes of pad), chunks and words a row, m16 tiles an
+    item, the ring stage, the warps an item (p, a team: 2 for float32 rows
+    of one symbol at 8 n-tiles) and n-tiles a warp (ntw), the m16 tiles a B
+    fragment meets (u), B in registers (breg), the epilogue's n-tiles a
+    pass (nte) and a warp's passes, floats a scratch row (pp), and a team's
+    shared memory."""
+    e = 32 if dtype == torch.int8 else 16
+    f32 = dtype == torch.float32
+    rb = ks * e * ESIZE[dtype]
+    mt = (2 if not f32 and rb <= 128 else 1) if 16 * rb >= STAGE_TARGET else STAGE_TARGET // (16 * rb)
+    p = 2 if f32 and nt == 8 and ks > 1 else 1  # warps an item, nt / p n-tiles each
+    ntw = nt // p
+    nte = ntw if ntw < 4 or ks == 1 else 4
+    c = {
+        "rb": rb, "row": rb + 16, "cps": rb // 16, "wps": rb // 4, "mt": mt, "rows": 16 * mt,
+        "chunks": 16 * mt * (rb // 16) + 1, "stage": 16 * mt * (rb + 16) + 16, "ring": 2 if f32 else 3,
+        "p": p, "ntw": ntw, "u": 2 if mt >= 2 and not (f32 and nt == 8) else 1,
+        "breg": ks * nt <= (2 if f32 else 8), "nte": nte, "passes": ntw // nte,
+        "pp": 12 if nte == 1 else 4 * nte + 4,
+    }
+    scratch = 16 * c["u"] * c["pp"] * 4
+    c["team_smem"] = c["ring"] * c["stage"] + p * scratch + (16 * c["u"] * 16 if p > 1 else 0)
+    return c
+
+
 def launch_geometry(dtype: torch.dtype, sps: int, m: int) -> dict:
-    """demod_at_any.cu's dispatch: symbols an A row, its samples, k-steps,
-    groups and n-tiles, the staged row and ring stage, the tile's rows."""
+    """demod_at_any.cu's make_geo: symbols an A row r, its k-steps ks,
+    tones a group gm, groups ng, n-tiles nt; and walk_constants of (ks,
+    nt)."""
     e = 32 if dtype == torch.int8 else 16
     r = e // sps if sps < e else 1
     gm = m if r > 1 or m < GROUP else GROUP
     cols = r * 2 * gm
-    rb = r * sps * ESIZE[dtype]
-    mt = 1 if 16 * rb >= STAGE_TARGET else STAGE_TARGET // (16 * rb)
-    return {
-        "e": e, "r": r, "lsamp": r * sps, "ks": r * sps // e, "gm": gm, "ng": m // gm,
-        "nt": 1 if cols <= 8 else 2 if cols <= 16 else 4 if cols <= 32 else 8,
-        "rb": rb, "row": rb + 16, "cps": rb // 16, "wps": rb // 4, "mt": mt,
-        "chunks": 16 * mt * (rb // 16) + 1, "stage": 16 * mt * (rb + 16) + 16,
-    }
+    nt = 1 if cols <= 8 else 2 if cols <= 16 else 4 if cols <= 32 else 8
+    ks = r * sps // e
+    return {"e": e, "r": r, "lsamp": r * sps, "ks": ks, "gm": gm, "ng": m // gm, "nt": nt,
+            **walk_constants(dtype, ks, nt)}
 
 
 def basis_columns(g: dict, dtype, basis: torch.Tensor) -> list[np.ndarray]:
@@ -174,125 +201,199 @@ def _iq(dtype, a_terms: list, b_terms: list) -> np.ndarray:
     return a0 @ b0, a2 @ b0 + a1 @ b1 + a0 @ b2 + a1 @ b0 + a0 @ b1
 
 
-def _epilogue(g: dict, decide: bool, e: np.ndarray, b: int, row0: int, grp: int, fold: dict, out: dict, n_sym: int):
-    """demod_at_any.cu's epilogue, lane by lane: e [32 lanes, nt, 2] float32,
-    the energy of the group's pair 4 t + i of row row0 + lane / 4 + 8 h.
-    Each store is recorded; a second store to one index fails."""
+def _store(out: dict, key: str, idx: np.ndarray, vals: np.ndarray):
+    """Record the stores of one warp instruction; a second store to one
+    index fails."""
+    for k, v in zip(idx.tolist(), vals.tolist()):
+        assert (key, k) not in out, (key, k)
+        out[(key, k)] = v
+
+
+def _items(b: int, tiles: int, warps: int) -> list[tuple[int, int]]:
+    """The (stream, tile) items in the order the launch's warps walk them:
+    warp w from item w (one division), then on by the step of ``warps``
+    items as (streams, tiles) with a carry, no division; every item once."""
+    step_b, step_t = divmod(warps, tiles)
+    seen = []
+    for w in range(warps):
+        sb, st = divmod(w, tiles)
+        while sb < b:
+            seen.append((sb, st))
+            st, sb = st + step_t, sb + step_b
+            if st >= tiles:
+                st, sb = st - tiles, sb + 1
+    assert sorted(seen) == [(x, y) for x in range(b) for y in range(tiles)]
+    return seen
+
+
+def _epilogue(g: dict, decide: bool, scratch: np.ndarray, bb: int, sym0: int, tone0: int, out: dict, n_sym: int):
+    """One pass of a warp's epilogue in demod_at_any.cu, lane by lane, from
+    its scratch [16 u rows, pp] (columns past the pass's 4 nte pairs NaN):
+    the energies stored as 16-byte (2 tones: 8-byte) pieces, every store
+    instruction on consecutive addresses over consecutive lanes; or the
+    decisions, each lane (pair of lanes where the batch holds 16 symbols)
+    folding whole symbols' tones in order, returned as [(symbol of the
+    batch, best, tone, total)] a 32-lane step for the caller to fold and
+    store."""
     lane = np.arange(32)
-    gq, i = lane >> 2, lane & 3
-    r, gm, ng, nt = g["r"], g["gm"], g["ng"], g["nt"]
+    r, m = g["r"], g["m"]
+    rs = r.bit_length() - 1
+    gu = min(g["gm"], 4 * g["nte"])  # tones of a slot in a pass
+    gus = gu.bit_length() - 1
+    nsym = 16 * g["u"] * r
+    if not decide:
+        base = bb * n_sym
+        if gu >= 4:
+            ps = rs + gus - 2  # log2 of the 16-byte pieces a scratch row
+            q = np.arange((16 * g["u"]) << ps)
+            row, c = q >> ps, 4 * (q & ((1 << ps) - 1))
+            sym = sym0 + (row << rs) + (c >> gus)
+            dst = (base + sym) * m + tone0 + (c & (gu - 1))
+            width = 4
+        else:
+            q = np.arange(nsym)
+            row, c, sym = q >> rs, 2 * (q & (r - 1)), sym0 + q
+            dst = (base + sym) * m + tone0
+            width = 2
+        ok = sym < n_sym
+        if g["ng"] == 1 and g["p"] * g["passes"] == 1:
+            for w0 in range(0, q.size, 32):  # one instruction: 32 lanes' pieces, consecutive
+                assert np.all(np.diff(dst[w0 : w0 + 32]) == width)
+        vals = np.stack([scratch[row, c + k] for k in range(width)], -1)
+        assert not np.isnan(vals[ok]).any()
+        _store(out, "energies", (dst[ok, None] + np.arange(width)).reshape(-1), vals[ok].reshape(-1))
+        return []
+    lps = 1 if nsym >= 32 else 2
+    half = lane & (lps - 1)
+    per = gu // lps  # tones a lane folds
+    steps = []
+    for s0 in range(0, nsym, 32 // lps):
+        sg = s0 + lane // lps
+        row, slot = sg >> rs, sg & (r - 1)
+        vals = scratch[row[:, None], (slot * gu + half * per)[:, None] + np.arange(per)]
+        assert not np.isnan(vals).any()
+        best, tone, tot = np.full(32, -1, np.float32), np.zeros(32, np.int64), np.zeros(32, np.float32)
+        for c in range(per):
+            up = vals[:, c] > best
+            best, tone = np.where(up, vals[:, c], best), np.where(up, c, tone)
+            tot = (tot + vals[:, c]).astype(np.float32)
+        tone = tone + half * per
+        if lps == 2:  # the pair's halves: shfl_xor 1, the lower tones first
+            ob, ot = best[lane ^ 1], tone[lane ^ 1]
+            tot = (tot + tot[lane ^ 1]).astype(np.float32)
+            win = (ob > best) | ((ob == best) & (ot < tone))
+            best, tone = np.where(win, ob, best), np.where(win, ot, tone)
+        steps.append((sg, best, tone + tone0, tot))
+    return steps
 
-    def store(key, idx, vals):
-        for k, v in zip(idx, vals):
-            assert (key, k) not in out, (key, k)
-            out[(key, k)] = v
 
-    for h in range(2):
-        sym0 = (row0 + gq + 8 * h) * r
-        if not decide:
-            for t in range(nt):
-                p = 4 * t + i
-                u = p // gm
-                ok = (u < r) & (sym0 + u < n_sym)
-                idx = (b * n_sym + sym0 + u) * g["m"] + grp * gm + p - u * gm
-                store("energies", idx[ok], e[ok, t, h])
-            continue
-        quad = gm >= 4
-        tps = gm // 4 if quad else 1
-        for t in range(nt):
-            p = 4 * t + i
-            c = p & (gm - 1)
-            v = e[:, t, h]
-            if t % tps == 0:
-                bq, bt, tot = v.copy(), c.copy(), v.copy()
-            else:
-                up = v > bq
-                bq, bt, tot = np.where(up, v, bq), np.where(up, c, bt), (tot + v).astype(np.float32)
-            if (t + 1) % tps:
-                continue
-            for off in (1, 2):
-                if off == 1 or quad:
-                    oq, ot = bq[lane ^ off], bt[lane ^ off]
-                    tot = (tot + tot[lane ^ off]).astype(np.float32)
-                    win = (oq > bq) | ((oq == bq) & (ot < bt))
-                    bq, bt = np.where(win, oq, bq), np.where(win, ot, bt)
-            if grp == 0:
-                fold[h] = (bq, bt, tot)
-            else:
-                fb, ft, fs = fold[h]
-                up = bq > fb
-                fold[h] = (np.where(up, bq, fb), np.where(up, grp * gm + bt, ft), (fs + tot).astype(np.float32))
-            u = p // gm
-            sym = sym0 + u
-            ok = (grp == ng - 1) & ((i if quad else i & 1) == h) & (u < r) & (sym < n_sym)
-            fb, ft, fs = fold[h]
-            idx = b * n_sym + sym
-            store("tone", idx[ok], ft[ok])
-            store("best", idx[ok], fb[ok])
-            store("total", idx[ok], fs[ok])
+def _store_decisions(out: dict, bb: int, sym0: int, sg, best, tone, tot, n_sym: int):
+    """The decisions of a 32-lane step: lanes whose half is 0 store their
+    symbol, consecutive lanes on consecutive symbols."""
+    lane = np.arange(32)
+    lps = 2 if sg[1] == sg[0] else 1
+    sym = sym0 + sg
+    ok = ((lane & (lps - 1)) == 0) & (sym < n_sym)
+    assert np.all(np.diff(sym[(lane & (lps - 1)) == 0]) == 1)
+    idx = bb * n_sym + sym
+    _store(out, "tone", idx[ok], tone[ok])
+    _store(out, "best", idx[ok], best[ok])
+    _store(out, "total", idx[ok], tot[ok])
 
 
 def emulate_walk(cfg, dtype, mem: np.ndarray, off: int, b: int, length: int, start: np.ndarray, n_sym: int,
-                 decide: bool) -> dict:
+                 decide: bool, warps: int = 12) -> dict:
     """demod_at_any.cu on a [b, length] buffer at byte ``off`` of the flat
-    bytes ``mem``: every (stream, tile) item's span copied as cp.async's
-    source size allows into a stage of stale bytes, the bytes before the
-    row's start zeroed, every m16 tile and group through the products and
-    the epilogue. Returns the stores by (output, flat index)."""
+    bytes ``mem``: the (stream, tile) items in the order ``warps`` warps
+    take them, each item's span copied as cp.async's source size allows
+    into a stage of stale bytes (whole chunks where the span's chunks lie
+    within the row), the bytes before the row's start zeroed, every batch
+    of u m16 tiles and group through the products (each B fragment applied
+    to the batch's tiles) and the epilogue's passes. Returns the stores by
+    (output, flat index)."""
     sps, m, pre = cfg.samples_per_symbol, cfg.num_tones, cfg.preamble_samples
     es = ESIZE[dtype]
     ce = 16 // es  # samples a chunk
     g = launch_geometry(dtype, sps, m)
     g["m"] = m
     basis = basis_columns(g, dtype, tk._demod_at_any_basis(cfg, dtype, CPU))
-    rows = -(-n_sym // g["r"])
-    tile_rows = 16 * g["mt"]
-    tiles = -(-rows // tile_rows)
+    r, u_n, gm = g["r"], g["u"], g["gm"]
+    rows = -(-n_sym // r)
+    tiles = -(-rows // g["rows"])
     out = {}
-    for j in range(b * tiles):
-        bb, tidx = divmod(j, tiles)
-        r0 = tidx * tile_rows
-        n = min(tile_rows, rows - r0)
+    for bb, tidx in _items(b, tiles, warps):
+        r0 = tidx * g["rows"]
+        n = min(g["rows"], rows - r0)
         pos = int(start[bb]) + pre + r0 * g["lsamp"]
         at = off + (bb * length + pos) * es
         rb = at % 16
         chunk0 = at - rb
-        need = (rb + n * g["rb"] + 15) // 16
         p0 = pos - rb // es
+        whole = p0 >= 0 and p0 + g["chunks"] * ce <= length  # the span's chunks within the row
         stage = np.full(g["stage"], 0xAB, np.uint8)  # a ring stage's stale bytes
         for c in range(g["chunks"]):
             p = p0 + c * ce
             left = length - p
-            nbytes = es * min(left, ce) if (c < need and p + ce > 0 and left > 0) else 0
+            nbytes = 16 if whole else es * min(left, ce) if (p + ce > 0 and left > 0) else 0
             dst = (c // g["cps"]) * g["row"] + (c % g["cps"]) * 16
             stage[dst : dst + 16] = 0  # cp.async zero-fills past its source size
             stage[dst : dst + nbytes] = mem[chunk0 + 16 * c : chunk0 + 16 * c + nbytes]
         if pos < 0:
             for y in range(min(rb - pos * es, g["chunks"] * 16)):
                 stage[(y // g["rb"]) * g["row"] + y % g["rb"]] = 0
-        for mt in range(g["mt"]):
-            if 16 * mt >= n:
+        for ub in range(g["mt"] // u_n):
+            if 16 * u_n * ub >= n:
                 break
-            fold = {}
+            carry = {"on": g["ng"] > 1 or g["p"] * g["passes"] > 1}
             for grp in range(g["ng"]):
-                big = np.zeros((16, 8 * g["nt"]))
-                small = np.zeros_like(big)
-                for ks in range(g["ks"]):
-                    a = _a_operand(g, dtype, stage, 16 * mt * g["row"], rb >> 2, 8 * (rb & 3), ks)
-                    rows_k = slice(ks * g["e"], (ks + 1) * g["e"])
-                    p_big, p_small = _iq(dtype, a, [t[rows_k] for t in basis[grp]])
-                    big += p_big
-                    if p_small is not None:
-                        small += p_small
-                iq = big.astype(np.float32)
-                if dtype == torch.float32:
-                    iq = (iq + small.astype(np.float32)).astype(np.float32)
-                ii, qq = iq[:, 0::2], iq[:, 1::2]  # [16 rows, 4 nt pairs]
-                e_rows = (ii * ii).astype(np.float32) + (qq * qq).astype(np.float32)
-                lane = np.arange(32)
-                e = np.stack([np.stack([e_rows[(lane >> 2) + 8 * h, 4 * t + (lane & 3)] for h in range(2)], -1)
-                              for t in range(g["nt"])], 1)
-                _epilogue(g, decide, e.astype(np.float32), bb, r0 + 16 * mt, grp, fold, out, n_sym)
+                e_rows = []  # [u] of [16 rows, 4 nt pairs] float32
+                for u in range(u_n):
+                    big = np.zeros((16, 8 * g["nt"]))
+                    small = np.zeros_like(big)
+                    for ks in range(g["ks"]):
+                        a = _a_operand(g, dtype, stage, 16 * (u_n * ub + u) * g["row"], rb >> 2, 8 * (rb & 3), ks)
+                        rows_k = slice(ks * g["e"], (ks + 1) * g["e"])
+                        p_big, p_small = _iq(dtype, a, [t[rows_k] for t in basis[grp]])
+                        big += p_big
+                        if p_small is not None:
+                            small += p_small
+                    iq = big.astype(np.float32)
+                    if dtype == torch.float32:
+                        iq = (iq + small.astype(np.float32)).astype(np.float32)
+                    ii, qq = iq[:, 0::2], iq[:, 1::2]
+                    e_rows.append((ii * ii).astype(np.float32) + (qq * qq).astype(np.float32))
+                gu = min(gm, 4 * g["nte"])
+                sym0 = (r0 + 16 * u_n * ub) * r
+                for pw in range(g["p"]):  # the team's warps: n-tiles pw ntw .. (pw + 1) ntw - 1
+                    for pas in range(g["passes"]):
+                        gp = pw * g["passes"] + pas  # the pass among the group's
+                        scratch = np.full((16 * u_n, g["pp"]), np.nan, np.float32)
+                        cols = slice(4 * gp * g["nte"], 4 * (gp + 1) * g["nte"])
+                        for u in range(u_n):  # row 16 u + g + 8 h, column 4 t + i of the pass
+                            scratch[16 * u : 16 * u + 16, : 4 * g["nte"]] = e_rows[u][:, cols]
+                        steps = _epilogue(g, decide, scratch, bb, sym0, grp * gm + gp * gu, out, n_sym)
+                        if not steps:
+                            continue
+                        if not carry["on"]:
+                            for sg, best, tone, tot in steps:
+                                _store_decisions(out, bb, sym0, sg, best, tone, tot, n_sym)
+                            continue
+                        (sg, best, tone, tot), = steps  # one symbol a lane (pair): r = 1
+                        c = carry.setdefault(pw, None)
+                        if c is None:
+                            carry[pw] = [sg, best, tone, tot]
+                        else:  # a warp's passes and groups rise in tone: a tie keeps the earlier
+                            up = best > c[1]
+                            c[1], c[2] = np.where(up, best, c[1]), np.where(up, tone, c[2])
+                            c[3] = (c[3] + tot).astype(np.float32)
+            if decide and carry["on"]:
+                sg, best, tone, tot = carry[0]
+                if g["p"] > 1:  # the second warp's higher tones through the team's merge area
+                    _, ob, ot, osum = carry[1]
+                    win = (ob > best) | ((ob == best) & (ot < tone))
+                    best, tone = np.where(win, ob, best), np.where(win, ot, tone)
+                    tot = (tot + osum).astype(np.float32)
+                _store_decisions(out, bb, (r0 + 16 * u_n * ub) * r, sg, best, tone, tot, n_sym)
     return out
 
 
@@ -323,11 +424,12 @@ def _buffer(cfg, dtype, rng, b: int, length: int, off: int):
 
 def _starts(cfg, length: int, n_sym: int, es: int) -> np.ndarray:
     """Preamble starts whose data starts take every byte residue mod 16,
-    a span half past the row's end, one wholly past it and one beginning
-    before the row's start."""
+    a span half past the row's end, one ending at it (its last item's
+    chunks run past the row), one wholly past it and one beginning before
+    the row's start."""
     sps, pre = cfg.samples_per_symbol, cfg.preamble_samples
     st = [37 + r for r in range(16 // es)] + [300 + 5 * r for r in range(4)]
-    st += [length - pre - (n_sym * sps) // 2 - 3, length, -pre - 2 * sps - 5]
+    st += [length - pre - (n_sym * sps) // 2 - 3, length - pre - n_sym * sps, length, -pre - 2 * sps - 5]
     return np.array(st, np.int64)
 
 
@@ -348,17 +450,24 @@ def _check_decisions(got, energies: np.ndarray, split: bool):
     assert np.all(np.abs(total - total_w) <= tol(total_w))
 
 
-WALK_CASES = {  # (sps, tones, dtype, n_symbols, byte offset of the buffer): every layout of the A rows
-    "sps4-bf16": (4, 2, torch.bfloat16, 67, 6),
-    "sps4-int8": (4, 2, torch.int8, 67, 3),
-    "sps8-m4-int8": (8, 4, torch.int8, 37, 5),
-    "sps8-f32": (8, 2, torch.float32, 67, 4),
-    "sps16-m4-int8": (16, 4, torch.int8, 67, 1),
-    "sps16-m8-bf16": (16, 8, torch.bfloat16, 37, 2),
-    "sps16-m4-f32": (16, 4, torch.float32, 37, 12),
-    "sps64-m32-int8": (64, 32, torch.int8, 37, 7),
-    "sps128-m32-bf16": (128, 32, torch.bfloat16, 17, 10),
-    "sps128-m64-f32": (128, 64, torch.float32, 17, 8),
+WALK_CASES = {  # (sps, tones, dtype, n_symbols, byte offset of the buffer, ragged rows): every A row layout
+    "sps4-bf16": (4, 2, torch.bfloat16, 67, 6, False),
+    "sps4-int8": (4, 2, torch.int8, 67, 3, False),
+    "sps8-m4-int8": (8, 4, torch.int8, 37, 5, False),
+    "sps8-f32": (8, 2, torch.float32, 67, 4, False),
+    "sps16-m4-int8": (16, 4, torch.int8, 67, 1, False),
+    "sps16-m8-bf16": (16, 8, torch.bfloat16, 37, 2, False),
+    "sps16-m4-f32": (16, 4, torch.float32, 37, 12, False),
+    "sps64-m32-int8": (64, 32, torch.int8, 37, 7, False),
+    "sps128-m32-bf16": (128, 32, torch.bfloat16, 17, 10, False),
+    "sps128-m64-f32": (128, 64, torch.float32, 17, 8, False),
+    # rows of an odd length: the rows' starts take every byte residue the
+    # dtype has; items of 2 m16 tiles (a B fragment on both), 2 lanes a
+    # symbol (one m16 tile an item), two epilogue passes
+    "sps16-m4-int8-ragged": (16, 4, torch.int8, 150, 9, True),
+    "sps16-m4-bf16-ragged": (16, 4, torch.bfloat16, 75, 2, True),
+    "sps128-m32-int8-ragged": (128, 32, torch.int8, 33, 5, True),
+    "sps8-m2-f32-ragged": (8, 2, torch.float32, 150, 4, True),
 }
 
 
@@ -366,17 +475,20 @@ WALK_CASES = {  # (sps, tones, dtype, n_symbols, byte offset of the buffer): eve
 def test_walk_matches_the_plain_versions(case):
     """The transliterated walk, both epilogues, against demod_at_fused_ref
     and demod_at_energies_fused_ref on buffers laid in a flat memory at an
-    offset off 16 bytes (stale stage bytes and the bytes around the buffer
-    are garbage: none may enter a sum). int8 energies and best bit-equal
-    (exact int32 I/Q), bf16 within RTOL, float32 within the split's
-    tolerance; tones equal but at near-ties."""
-    sps, m, dt, n_sym, off = WALK_CASES[case]
+    offset off 16 bytes (stale stage bytes, the scratch's unwritten columns
+    and the bytes around the buffer are garbage: none may enter a sum or a
+    store). int8 energies and best bit-equal (exact int32 I/Q), bf16
+    within RTOL, float32 within the split's tolerance; tones equal but at
+    near-ties."""
+    sps, m, dt, n_sym, off, ragged = WALK_CASES[case]
     cfg = _config(sps, m)
     rng = np.random.default_rng(sps * 131 + m)
-    length = cfg.preamble_samples + n_sym * sps + 300
+    length = cfg.preamble_samples + n_sym * sps + 300 + ragged
     start = _starts(cfg, length, n_sym, ESIZE[dt])
     mem, buf = _buffer(cfg, dt, rng, len(start), length, off)
     b = len(start)
+    if ragged:  # row starts at every residue of 16 bytes the dtype allows
+        assert len({(off + bb * length * ESIZE[dt]) % 16 for bb in range(b)}) == 16 // ESIZE[dt]
     st = torch.from_numpy(start.astype(np.int32))
     want_e = tk.demod_at_energies_fused_ref(cfg, buf, st, n_sym).numpy()
     got_e = _unpack(emulate_walk(cfg, dt, mem, off, b, length, start, n_sym, False), "energies", b * n_sym * m)
@@ -397,6 +509,35 @@ def test_walk_matches_the_plain_versions(case):
         np.testing.assert_array_equal(got[0], want[0].numpy())
         np.testing.assert_array_equal(got[1], want[1].numpy())
     _check_decisions(got, want_e, split)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_every_instantiation_fits_a_block(dtype):
+    """Every (KS, NT) instantiation of demod_at_any.cu for the dtype (KS 1,
+    2, 4, 8 k-steps an A row, int8 at most 4; NT 1, 2, 4, 8 n-tiles): a
+    row's chunks divide a warp's (the copy loop's constant offsets), its
+    shared memory (b0 past the registers at 64 tones, and b1 and b2 where
+    pairs of warps share items; four warps' rings and scratch, or six to
+    eight pairs') within a block's 232,448 bytes; at the two custom modems'
+    geometries (sps 16 with 4 tones, sps 128 with 32) B in registers at sps
+    16, and every lane's word offsets of a k-step but the last within its
+    staged row."""
+    dt = DTYPES[dtype]
+    for ks in (1, 2, 4) + (() if dt == torch.int8 else (8,)):
+        for nt in (1, 2, 4, 8):
+            c = walk_constants(dt, ks, nt)
+            assert 32 % c["cps"] == 0 and c["rb"] % 32 == 0
+            basis = 0 if c["breg"] else 2 * ks * nt * 32 * 8 * (3 if c["p"] > 1 else 1)  # 64 tones
+            teams = min(8, (232_448 - basis) // c["team_smem"]) if c["p"] > 1 else WARPS
+            assert teams >= (6 if c["p"] > 1 else 4), (ks, nt)
+            smem = basis + teams * c["team_smem"]
+            assert smem <= 232_448, (ks, nt, smem)
+            assert c["p"] * c["passes"] in (1, 2) and (c["p"] * c["passes"] == 1 or ks > 1)
+            # x = x0 + WK ks + XH hk + w < WPS for every k-step before the last (x0 <= 3 + 2 * 3)
+            wk, xh = c["rb"] // ks // 4, 8 if dt == torch.float32 else 4
+            assert all(9 + wk * k + xh + 1 < c["wps"] for k in range(ks - 1))
+    assert launch_geometry(dt, 16, 4)["breg"]
+    assert not launch_geometry(dt, 128, 32)["breg"]
 
 
 # --- the plain versions against the reference ------------------------------------
